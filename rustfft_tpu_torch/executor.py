@@ -1,0 +1,122 @@
+"""Recipe -> torch function compiler.
+
+Port of rustfft_tpu/executor.py.  A recipe lowers into one nested function on
+complex tensors: matmul DFT leaves and Cooley-Tukey stages (ops/dft.py,
+ops/ct.py), with every subtree whose length `route` names replaced by that
+whole-transform kernel (ops/kernels/).  Constant tables are precomputed on the
+host in f64 at build time and copied to each device once.
+
+Built functions are memoized per (recipe, direction, dtype, config state), the
+analogue of the reference's FftCache (fft_cache.rs:5-39) shared across
+planners because recipes are pure hashable data.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+
+from . import recipes
+from .common import FftDirection
+from .config import config
+from .ops import ct as op_ct
+from .ops import dft as op_dft
+from .ops.kernels import lanepack, large
+
+# Left factors whose DFT matrix is small enough for the middle-axis matmul
+# form of a CT stage (executor.py:_MATRIX_LEAF_MAX of the JAX package).
+_MATRIX_LEAF_MAX = 512
+
+_CACHE: "OrderedDict[Tuple, Callable]" = OrderedDict()
+_CACHE_MAX = 512
+
+
+def route(n: int, dtype) -> Optional[str]:
+    """Name the whole-transform kernel serving length n, or None (the torch
+    recipe tree).  The single source of truth for kernel dispatch, like the
+    JAX package's pallas_route, but structural only:
+
+      'lanepack'  c64, a 2-3 radix split with radices <= 256 exists, and one
+                  transform fits a block's shared memory;
+      'large'     c64, n = P * q1 * q2 with P <= 512, q1, q2 <= 256 and both
+                  passes' tiles in shared memory.
+
+    The route does not depend on the device: a CPU tensor runs the kernel's
+    plain torch version, a CUDA tensor the kernel.
+    """
+    if config.kernels not in ("auto", "off"):
+        raise ValueError(f"config.kernels must be 'auto' or 'off', got {config.kernels!r}")
+    if config.kernels == "off":
+        return None
+    if lanepack.lanepack_supported(n, dtype):
+        return "lanepack"
+    if large.large_supported(n, dtype):
+        return "large"
+    return None
+
+
+def _kernel_fn(n: int, direction: FftDirection, dtype) -> Optional[Callable]:
+    name = route(n, dtype)
+    if name == "lanepack":
+        return lanepack.make_lanepack_fn(n, direction, dtype)
+    if name == "large":
+        return large.make_large_fft_fn(n, direction, dtype)
+    return None
+
+
+def build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
+    """Return fn: complex (..., n) -> complex (..., n), the unnormalized DFT."""
+    dtype = np.dtype(dtype)
+    key = (recipe, direction, dtype, config.kernels, config.use_native)
+    fn = _CACHE.get(key)
+    if fn is None:
+        fn = _kernel_fn(recipe.length, direction, dtype)
+        if fn is None:
+            fn = _build(recipe, direction, dtype)
+        _CACHE[key] = fn
+        if len(_CACHE) > _CACHE_MAX:
+            _CACHE.popitem(last=False)
+    else:
+        _CACHE.move_to_end(key)
+    return fn
+
+
+def _build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
+    if isinstance(recipe, (recipes.Dft, recipes.Butterfly)):
+        return op_dft.make_dft_fn(recipe.length, direction, dtype)
+
+    if isinstance(recipe, recipes.Radix4):
+        base_fn = build(recipe.base, direction, dtype)
+        return op_ct.make_ct_chain_fn(
+            (4,) * recipe.k, recipe.base.length, base_fn, direction, dtype
+        )
+
+    if isinstance(recipe, recipes.RadixN):
+        base_fn = build(recipe.base, direction, dtype)
+        return op_ct.make_ct_chain_fn(
+            recipe.factors, recipe.base.length, base_fn, direction, dtype
+        )
+
+    if isinstance(recipe, (recipes.MixedRadix, recipes.MixedRadixSmall)):
+        p = recipe.left.length
+        q = recipe.right.length
+        right_fn = build(recipe.right, direction, dtype)
+        if (
+            isinstance(recipe.left, (recipes.Dft, recipes.Butterfly))
+            and p <= _MATRIX_LEAF_MAX
+        ):
+            return op_ct.make_ct_stage_fn(p, q, right_fn, direction, dtype)
+        left_fn = build(recipe.left, direction, dtype)
+        return op_ct.make_ct_stage_general_fn(p, q, left_fn, right_fn, direction, dtype)
+
+    if isinstance(
+        recipe,
+        (recipes.GoodThomas, recipes.GoodThomasSmall, recipes.Raders, recipes.Bluesteins),
+    ):
+        raise NotImplementedError(
+            f"ROADMAP A5: {type(recipe).__name__} recipes are not ported yet "
+            f"(length {recipe.length})"
+        )
+
+    raise TypeError(f"Unknown recipe node: {recipe!r}")

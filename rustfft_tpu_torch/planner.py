@@ -1,0 +1,346 @@
+"""Planners: recipe design + plan construction with caching.
+
+Port of rustfft_tpu/planner.py.  `FftPlannerScalar` reproduces the reference
+scalar planner's decision tree exactly (src/plan.rs:270-665).
+`FftPlannerGpu` keeps the JAX package's cost-model recipe rules that do not
+depend on TPU measurements: a dense DFT leaf up to config.dense_dft_max and
+the near-balanced composite split (planner.py:348-351, 469-514); primes take
+the reference's Rader's-vs-Bluestein's rule.  Whole-transform kernels are
+substituted by the executor, not by the recipe.  `FftPlanner` delegates to
+`FftPlannerGpu` and names the device that numpy buffers are computed on.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import recipes
+from .common import FftDirection, canonical_complex_dtype
+from .config import config
+from .math_utils import PrimeFactors
+from .plan import FftPlan
+
+#: reference: plan.rs:127-129
+MAX_RADIXN_FACTOR = 7
+MAX_RADER_PRIME_FACTOR = 23
+
+#: reference: plan.rs:610-634
+BUTTERFLY_SIZES = frozenset(
+    {2, 3, 4, 5, 6, 7, 8, 9, 11, 12, 13, 16, 17, 19, 23, 24, 27, 29, 31, 32}
+)
+
+#: reference: plan.rs:433-435 (note: excludes 12, includes 13)
+_BUTTERFLY_PRODUCT_SIZES = (
+    2, 3, 4, 5, 6, 7, 8, 9, 11, 13, 16, 17, 19, 23, 24, 27, 29, 31, 32,
+)
+
+
+class FftCache:
+    """(len, direction) -> FftPlan, separate forward/inverse maps.
+
+    reference: src/fft_cache.rs:5-39.
+    """
+
+    def __init__(self) -> None:
+        self._forward: Dict[int, FftPlan] = {}
+        self._inverse: Dict[int, FftPlan] = {}
+
+    def _map(self, direction: FftDirection) -> Dict[int, FftPlan]:
+        return self._forward if direction is FftDirection.FORWARD else self._inverse
+
+    def get(self, length: int, direction: FftDirection) -> Optional[FftPlan]:
+        return self._map(direction).get(length)
+
+    def insert(self, plan: FftPlan) -> None:
+        self._map(plan.fft_direction())[len(plan)] = plan
+
+    def contains_fft(self, length: int, direction: FftDirection) -> bool:
+        return length in self._map(direction)
+
+
+class _PlannerBase:
+    """Shared recipe-cache / plan-cache plumbing (plan.rs:270-335)."""
+
+    #: subclasses with a native (C++ plancore) recipe designer set this
+    _native_design = False
+
+    def __init__(self, dtype=np.complex64, device="cpu") -> None:
+        self.dtype = canonical_complex_dtype(dtype)
+        self.device = torch.device(device)
+        # one FftCache per config state (see _recipe_cache_key)
+        self._algorithm_caches: Dict[Tuple, FftCache] = {}
+        self.recipe_cache: Dict[Tuple, recipes.Recipe] = {}
+
+    @property
+    def algorithm_cache(self) -> FftCache:
+        """The plan cache for the *current* config state."""
+        key = self._recipe_cache_key() + (config.kernels,)
+        cache = self._algorithm_caches.get(key)
+        if cache is None:
+            cache = self._algorithm_caches[key] = FftCache()
+        return cache
+
+    # -- public API (plan.rs:289-309) --
+    def plan_fft(self, length: int, direction: FftDirection) -> FftPlan:
+        recipe = self.design_fft_for_len(length)
+        cache = self.algorithm_cache
+        cached = cache.get(length, direction)
+        if cached is not None:
+            return cached
+        plan = FftPlan(recipe, direction, self.dtype, self.device)
+        cache.insert(plan)
+        return plan
+
+    def plan_fft_forward(self, length: int) -> FftPlan:
+        return self.plan_fft(length, FftDirection.FORWARD)
+
+    def plan_fft_inverse(self, length: int) -> FftPlan:
+        return self.plan_fft(length, FftDirection.INVERSE)
+
+    def _recipe_cache_key(self) -> Tuple:
+        """Config state the recipe design depends on."""
+        if self._native_design:
+            return (bool(config.use_native),)
+        return ()
+
+    # -- recipe design entry (plan.rs:312-323) --
+    def design_fft_for_len(self, length: int) -> recipes.Recipe:
+        if length < 0:
+            raise ValueError(f"FFT length must be >= 0, got {length}")
+        if length < 2:
+            return recipes.Dft(length)
+        key = (length,) + self._recipe_cache_key()
+        cached = self.recipe_cache.get(key)
+        if cached is not None:
+            return cached
+        recipe = None
+        if self._native_design and config.use_native:
+            from . import native
+
+            recipe = native.design_recipe(length)
+        if recipe is None:
+            factors = PrimeFactors.compute(length)
+            recipe = self.design_fft_with_factors(length, factors)
+        self.recipe_cache[key] = recipe
+        return recipe
+
+    def design_fft_with_factors(self, length: int, factors: PrimeFactors) -> recipes.Recipe:
+        raise NotImplementedError
+
+    def _reference_prime_recipe(self, length: int, raders_factors: PrimeFactors) -> recipes.Recipe:
+        """The reference Rader's-vs-Bluestein's rule (plan.rs:636-665)."""
+        if any(
+            f.value > MAX_RADER_PRIME_FACTOR
+            for f in raders_factors.get_other_factors()
+        ):
+            inner_len = min(_bluestein_inner_candidates(length))
+            return recipes.Bluesteins(length, self.design_fft_for_len(inner_len))
+        inner_fft = self.design_fft_with_factors(length - 1, raders_factors)
+        return recipes.Raders(inner_fft)
+
+    def _design_prime(self, length: int) -> recipes.Recipe:
+        return self._reference_prime_recipe(length, PrimeFactors.compute(length - 1))
+
+
+def _bluestein_inner_candidates(length: int) -> Tuple[int, ...]:
+    """Valid Bluestein inner sizes >= 2n-1: next pow2, and 3*2^(k-2) when it
+    still clears the bound (plan.rs:645-657)."""
+    min_inner = 2 * length - 1
+    pow2 = 1 << (min_inner - 1).bit_length()
+    three = pow2 // 4 * 3
+    return (pow2, three) if three >= min_inner else (pow2,)
+
+
+class FftPlannerScalar(_PlannerBase):
+    """Exact port of the reference scalar planner's decision tree
+    (src/plan.rs:270-665): butterfly -> prime -> butterfly product -> RadixN
+    -> partitioned MixedRadix.  Recipe design runs in the native plancore
+    when it loads; this Python tree is the fallback and the specification."""
+
+    _native_design = True
+
+    def design_fft_with_factors(self, length: int, factors: PrimeFactors) -> recipes.Recipe:
+        butterfly = self._design_butterfly_algorithm(length)
+        if butterfly is not None:
+            return butterfly
+        if factors.is_prime():
+            return self._design_prime(length)
+        product = self._design_butterfly_product(length)
+        if product is not None:
+            return product
+        if factors.has_factors_leq(MAX_RADIXN_FACTOR):
+            return self._design_radixn(factors)
+        left_factors, right_factors = factors.partition_factors()
+        return self._design_mixed_radix(left_factors, right_factors)
+
+    def _design_butterfly_algorithm(self, length: int) -> Optional[recipes.Recipe]:
+        """reference: plan.rs:610-634."""
+        if length in BUTTERFLY_SIZES:
+            return recipes.Butterfly(length)
+        return None
+
+    def _design_butterfly_product(self, length: int) -> Optional[recipes.Recipe]:
+        """n = b1*b2 with both butterflies, min-sum pair (plan.rs:427-472)."""
+        if length > 992 or (length & (length - 1)) == 0:
+            return None
+        limit = math.ceil(math.sqrt(length)) + 1
+        min_sum = None
+        found: Optional[Tuple[int, int]] = None
+        for left in _BUTTERFLY_PRODUCT_SIZES:
+            if left >= limit:
+                break
+            right = length // left
+            if left * right == length and right in _BUTTERFLY_PRODUCT_SIZES:
+                s = left + right
+                if min_sum is None or s < min_sum:
+                    min_sum = s
+                    found = (left, right)
+        if found is None:
+            return None
+        left_len, right_len = found
+        left_fft = self.design_fft_for_len(left_len)
+        right_fft = self.design_fft_for_len(right_len)
+        if math.gcd(left_len, right_len) == 1:
+            return recipes.GoodThomasSmall(left_fft, right_fft)
+        return recipes.MixedRadixSmall(left_fft, right_fft)
+
+    def _design_mixed_radix(self, left_factors: PrimeFactors, right_factors: PrimeFactors) -> recipes.Recipe:
+        """reference: plan.rs:474-506."""
+        left_len = left_factors.get_product()
+        right_len = right_factors.get_product()
+        left_fft = self.design_fft_with_factors(left_len, left_factors)
+        right_fft = self.design_fft_with_factors(right_len, right_factors)
+        if left_len < 31 and right_len < 31:
+            if math.gcd(left_len, right_len) == 1:
+                return recipes.GoodThomasSmall(left_fft, right_fft)
+            return recipes.MixedRadixSmall(left_fft, right_fft)
+        return recipes.MixedRadix(left_fft, right_fft)
+
+    def _design_radixn(self, factors: PrimeFactors) -> recipes.Recipe:
+        """Base-butterfly choice + Radix4/RadixN chain (plan.rs:508-607)."""
+        p2 = factors.get_power_of_two()
+        p3 = factors.get_power_of_three()
+        p5 = next((f.count for f in factors.get_other_factors() if f.value == 5), 0)
+        p7 = next((f.count for f in factors.get_other_factors() if f.value == 7), 0)
+
+        if factors.has_factors_gt(MAX_RADIXN_FACTOR):
+            base_len = factors.product_above(MAX_RADIXN_FACTOR)
+        elif p7 == 0 and p5 == 0 and p3 < 2:
+            if p3 == 0:
+                assert p2 > 5  # butterflies catch smaller powers of two
+                base_len = 8 if p2 % 2 == 1 else 16
+            else:
+                assert p2 > 3
+                base_len = 24 if p2 % 2 == 1 else 12
+        elif p2 > 0 and p3 > 0:
+            excess_p2 = max(p2 - p3, 0)
+            base_len = {0: 6, 1: 12}.get(excess_p2, 24)
+        elif p3 > 2:
+            base_len = 27
+        elif p3 > 1:
+            base_len = 9
+        elif p7 > 0:
+            base_len = 7
+        else:
+            assert p5 > 0
+            base_len = 5
+
+        base_fft = self.design_fft_for_len(base_len)
+        cross_len = factors.get_product() // base_len
+
+        # Radix4 when the cross is 4^k (plan.rs:568-573)
+        if cross_len & (cross_len - 1) == 0:
+            cross_bits = cross_len.bit_length() - 1
+            if cross_bits % 2 == 0:
+                return recipes.Radix4(cross_bits // 2, base_fft)
+
+        # RadixN factor list ordered 7,6,5,3,2,4s-last (plan.rs:575-606)
+        factor_list = []
+        for f in (7, 6, 5, 3):
+            while cross_len % f == 0:
+                cross_len //= f
+                factor_list.append(f)
+        assert cross_len & (cross_len - 1) == 0
+        cross_bits = cross_len.bit_length() - 1
+        if cross_bits % 2 == 1:
+            factor_list.append(2)
+        factor_list.extend([4] * (cross_bits // 2))
+        return recipes.RadixN(tuple(factor_list), base_fft)
+
+
+class FftPlannerGpu(_PlannerBase):
+    """Cost-model planner for the torch path.
+
+    * n <= config.dense_dft_max: one dense DFT-matrix matmul leaf.
+    * composite n: near-balanced split n = p*q (largest divisor <= sqrt(n)),
+      recursing on both halves; the executor swaps every subtree whose length
+      executor.route names for that whole-transform kernel.
+    * prime n: the reference's Rader's-vs-Bluestein's rule (built in
+      ROADMAP A5).
+    """
+
+    def _recipe_cache_key(self) -> Tuple:
+        return (config.dense_dft_max,)
+
+    def design_fft_with_factors(self, length: int, factors: PrimeFactors) -> recipes.Recipe:
+        if length <= config.dense_dft_max:
+            return recipes.Dft(length)
+        if factors.is_prime():
+            return self._design_prime(length)
+        p = self._choose_left_factor(length, factors)
+        left = self.design_fft_for_len(p)
+        right = self.design_fft_for_len(length // p)
+        return recipes.MixedRadix(left, right)
+
+    @staticmethod
+    def _choose_left_factor(length: int, factors: PrimeFactors) -> int:
+        """Largest divisor <= sqrt(n), enumerated from the factorization."""
+        target = math.isqrt(length)
+        primes = []
+        if factors.get_power_of_two():
+            primes.append((2, factors.get_power_of_two()))
+        if factors.get_power_of_three():
+            primes.append((3, factors.get_power_of_three()))
+        primes.extend((f.value, f.count) for f in factors.get_other_factors())
+
+        best = 1
+
+        def walk(i: int, divisor: int) -> None:
+            nonlocal best
+            if divisor > best:
+                best = divisor
+            if i == len(primes):
+                return
+            value, count = primes[i]
+            d = divisor
+            walk(i + 1, d)
+            for _ in range(count):
+                d *= value
+                if d > target:
+                    break
+                walk(i + 1, d)
+
+        walk(0, 1)
+        assert best > 1, length
+        return best
+
+
+class FftPlanner(_PlannerBase):
+    """Auto-dispatching planner (reference: plan.rs:67-126): delegates to
+    FftPlannerGpu.  `device` is where numpy buffers are computed; torch
+    tensors are computed on their own device."""
+
+    _recipe_cache_key = FftPlannerGpu._recipe_cache_key
+
+    def __init__(self, dtype=np.complex64, device="cpu") -> None:
+        super().__init__(dtype, device)
+        self._inner = FftPlannerGpu(dtype, device)
+        # share caches so plan_fft and design_fft_for_len agree
+        self._inner._algorithm_caches = self._algorithm_caches
+        self._inner.recipe_cache = self.recipe_cache
+
+    def design_fft_with_factors(self, length: int, factors: PrimeFactors) -> recipes.Recipe:
+        return self._inner.design_fft_with_factors(length, factors)
