@@ -2,9 +2,13 @@
 
 Port of rustfft_tpu/executor.py.  A recipe lowers into one nested function on
 complex tensors: matmul DFT leaves and Cooley-Tukey stages (ops/dft.py,
-ops/ct.py), with every subtree whose length `route` names replaced by that
-whole-transform kernel (ops/kernels/).  Constant tables are precomputed on the
-host in f64 at build time and copied to each device once.
+ops/ct.py), Good-Thomas, Rader and Bluestein nodes (ops/good_thomas.py,
+ops/raders.py, ops/bluestein.py), with every subtree whose length `route`
+names replaced by that whole-transform kernel (ops/kernels/).  With the
+kernels on, c64 Rader and Bluestein nodes run as one convolution core
+(ops/kernels/conv.py) and Good-Thomas re-indexing as permute launches.
+Constant tables are precomputed on the host in f64 at build time and copied
+to each device once.
 
 Built functions are memoized per (recipe, direction, dtype, config state), the
 analogue of the reference's FftCache (fft_cache.rs:5-39) shared across
@@ -20,9 +24,12 @@ import numpy as np
 from . import recipes
 from .common import FftDirection
 from .config import config
+from .ops import bluestein as op_bluestein
 from .ops import ct as op_ct
 from .ops import dft as op_dft
-from .ops.kernels import lanepack, large
+from .ops import good_thomas as op_gt
+from .ops import raders as op_raders
+from .ops.kernels import conv, lanepack, large
 
 # Left factors whose DFT matrix is small enough for the middle-axis matmul
 # form of a CT stage (executor.py:_MATRIX_LEAF_MAX of the JAX package).
@@ -54,6 +61,12 @@ def route(n: int, dtype) -> Optional[str]:
     if large.large_supported(n, dtype):
         return "large"
     return None
+
+
+def kernels_on(dtype) -> bool:
+    """The hand-written kernels serve this dtype: c64 with config.kernels
+    "auto" (route checks the setting)."""
+    return np.dtype(dtype) == np.complex64 and config.kernels == "auto"
 
 
 def _kernel_fn(n: int, direction: FftDirection, dtype) -> Optional[Callable]:
@@ -110,13 +123,28 @@ def _build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
         left_fn = build(recipe.left, direction, dtype)
         return op_ct.make_ct_stage_general_fn(p, q, left_fn, right_fn, direction, dtype)
 
-    if isinstance(
-        recipe,
-        (recipes.GoodThomas, recipes.GoodThomasSmall, recipes.Raders, recipes.Bluesteins),
-    ):
-        raise NotImplementedError(
-            f"ROADMAP A5: {type(recipe).__name__} recipes are not ported yet "
-            f"(length {recipe.length})"
+    if isinstance(recipe, (recipes.GoodThomas, recipes.GoodThomasSmall)):
+        left_fn = build(recipe.left, direction, dtype)
+        right_fn = build(recipe.right, direction, dtype)
+        return op_gt.make_good_thomas_fn(
+            recipe.left.length, recipe.right.length, left_fn, right_fn,
+            use_kernel=kernels_on(dtype),
         )
+
+    if isinstance(recipe, recipes.Raders):
+        # the kernel path: the convolution core with the root-order gathers
+        # as permute launches (one-pass core) or fused into it (two-pass)
+        if kernels_on(dtype) and conv.conv_any_supported(recipe.inner.length, dtype):
+            return conv.make_raders_fn(recipe.length, direction, dtype)
+        inner_fn = build(recipe.inner, direction, dtype)
+        return op_raders.make_raders_fn(recipe.length, inner_fn, direction, dtype)
+
+    if isinstance(recipe, recipes.Bluesteins):
+        # the kernel path: chirp, double FFT and chirp as one convolution core
+        m = recipe.inner.length
+        if kernels_on(dtype) and conv.conv_any_supported(m, dtype):
+            return conv.make_bluestein_fn(recipe.length, m, direction, dtype)
+        inner_fn = build(recipe.inner, direction, dtype)
+        return op_bluestein.make_bluestein_fn(recipe.length, m, inner_fn, direction, dtype)
 
     raise TypeError(f"Unknown recipe node: {recipe!r}")

@@ -1,7 +1,7 @@
 """Number theory used by the planner.
 
 Copy of rustfft_tpu/math_utils.py (reference: src/math_utils.rs), limited to
-what the planner and the native parity checks read.  Python integers are
+what the planner, the Rader tables and the native parity checks read.  Python integers are
 arbitrary precision, so the reference's u64/u128 strength-reduction tricks are
 unnecessary; the *semantics* (which factors a number reports, how factor sets
 partition) are identical because recipe parity depends on them.
@@ -40,6 +40,11 @@ def is_prime(n: int) -> bool:
     return True
 
 
+def modular_exponent(base: int, exponent: int, modulo: int) -> int:
+    """reference: src/math_utils.rs:23-37."""
+    return pow(base, exponent, modulo)
+
+
 def distinct_prime_factors(n: int) -> List[int]:
     """All prime factors of n without duplicates (reference: src/math_utils.rs:40-74)."""
     result: List[int] = []
@@ -69,6 +74,27 @@ def primitive_root(prime: int) -> Optional[int]:
         if all(pow(candidate, e, prime) != 1 for e in test_exponents):
             return candidate
     return None
+
+
+def extended_gcd(a: int, b: int) -> Tuple[int, int, int]:
+    """Return (g, x, y) with a*x + b*y = g = gcd(a, b)."""
+    old_r, r = a, b
+    old_s, s = 1, 0
+    old_t, t = 0, 1
+    while r != 0:
+        q = old_r // r
+        old_r, r = r, old_r - q * r
+        old_s, s = s, old_s - q * s
+        old_t, t = t, old_t - q * t
+    return old_r, old_s, old_t
+
+
+def mod_inverse(a: int, m: int) -> int:
+    """Multiplicative inverse of a mod m (reference: raders_algorithm.rs:79-86)."""
+    g, x, _ = extended_gcd(a, m)
+    if g != 1:
+        raise ValueError(f"{a} has no inverse mod {m}")
+    return x % m
 
 
 @dataclass(frozen=True)

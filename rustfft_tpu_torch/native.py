@@ -54,9 +54,18 @@ def _load():
         ctypes.POINTER(ctypes.c_int64),
         ctypes.c_int64,
     ]
+    lib.pc_twiddles.restype = None
+    lib.pc_twiddles.argtypes = [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.c_double,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_double),
+    ]
     for name, args in (
         ("pc_dft_matrix", [ctypes.c_uint64, ctypes.c_int]),
         ("pc_twiddle_table", [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int]),
+        ("pc_bluestein_chirp", [ctypes.c_uint64, ctypes.c_int]),
     ):
         fn = getattr(lib, name)
         fn.restype = None
@@ -93,6 +102,30 @@ def twiddle_table(p: int, q: int, conjugate: bool) -> Optional[np.ndarray]:
         "pc_twiddle_table", (p, q),
         ctypes.c_uint64(p), ctypes.c_uint64(q), int(conjugate),
     )
+
+
+def bluestein_chirp(n: int, conjugate: bool) -> Optional[np.ndarray]:
+    """Bluestein chirp of length n via pc_bluestein_chirp (exact k^2 mod 2n)."""
+    if n == 0 or n >= 2**62:
+        return None
+    return _table("pc_bluestein_chirp", (n,), ctypes.c_uint64(n), int(conjugate))
+
+
+def twiddle_values(indices: np.ndarray, fft_len: int, conjugate: bool) -> Optional[np.ndarray]:
+    """w_{fft_len}^index for every index (complex128) via pc_twiddles."""
+    lib = _load()
+    if lib is None:
+        return None
+    idx = np.ascontiguousarray(indices, dtype=np.int64)
+    out = np.empty(idx.size * 2, dtype=np.float64)
+    lib.pc_twiddles(
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        idx.size,
+        float(fft_len),
+        1 if conjugate else 0,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    return out.view(np.complex128).reshape(idx.shape)
 
 
 def is_prime(n: int) -> Optional[bool]:

@@ -1,2 +1,3 @@
 """Torch ops of the port: complex helpers, matmul DFT leaves, Cooley-Tukey
-stages, and the hand-written CUDA kernels (ops/kernels/)."""
+stages, Good-Thomas, Rader and Bluestein recipes, and the hand-written CUDA
+kernels (ops/kernels/)."""

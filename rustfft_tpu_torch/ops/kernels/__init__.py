@@ -1,2 +1,4 @@
-"""Whole-transform kernels: a hand-written CUDA kernel per JAX-package
-Pallas kernel on the main path, each beside its plain torch version."""
+"""Hand-written CUDA kernels, one per JAX-package Pallas kernel ported so
+far, each beside its plain torch version: the whole-transform kernels
+(lanepack, large), the convolution cores of the prime path (conv: one pass,
+conv_radix: two passes) and the permutation (permute)."""

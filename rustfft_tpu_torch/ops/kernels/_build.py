@@ -1,9 +1,11 @@
 """Build the CUDA kernels from the package's sources and load them.
 
-Every `csrc/*.cu` file is compiled by one nvcc call into one shared library
-with a plain C interface, loaded with ctypes:
+Every `csrc/*.cu` file is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
+    nvcc -shared
 
 The library goes to `build/rustfft_tpu_torch/` at the repository root, named
 by a hash of the sources' contents, so an edit rebuilds and an unchanged
@@ -29,7 +31,7 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "rustfft_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 #: bytes of shared memory one block may use on sm_90 (csrc/fft_tile.cuh)
@@ -48,6 +50,11 @@ _SIGNATURES = {
                            _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
     "rf_large_row_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
                            _int, _vp, _vp, _vp, _vp, _vp, _vp],
+    "rf_conv_fft": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8 + [_int, _vp],
+    "rf_conv_col_stage": [_vp, _vp, _vp, _ll] + [_int] * 8 + [_vp] * 9,
+    "rf_conv_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 10
+                         + [_int, _int, _int, _ll, _vp],
+    "rf_permute": [_vp, _vp, _vp, _ll, _int, _vp],
 }
 
 _lock = threading.Lock()
@@ -82,6 +89,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"librustfft_tpu_torch-{source_hash()}.so"
 
 
+def _run(procs, what: str) -> None:
+    """Wait for every nvcc process; raise with the output of the first that failed."""
+    failed = None
+    for proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc {what} failed (exit {proc.returncode}):\n{out}{err}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> Path:
     """Compile the sources unless a library for their hash exists; return it."""
     global last_build_seconds
@@ -90,23 +108,22 @@ def build() -> Path:
         last_build_seconds = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     start = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in sorted(SRC_DIR.glob("*.cu"))]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sorted(SRC_DIR.glob("*.cu")), objs)
+        ]
+        _run(procs, "compile")
+        lib = os.path.join(tmp, out.name)
+        link = subprocess.Popen([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                                 "-o", lib, *objs],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _run([link], "link")
+        os.replace(lib, out)
     last_build_seconds = time.perf_counter() - start
     return out
 

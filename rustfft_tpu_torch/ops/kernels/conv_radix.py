@@ -1,0 +1,347 @@
+"""Two-pass convolution core: the port of K14.
+
+Replaces rustfft_tpu/ops/pallas/conv_radix.py (`_kernel`, `_make_pass`,
+`radix_conv_supported`, `make_radix_conv_fn`): the Bluestein / Rader core
+
+    out = [post *] maybe_conj( FFT_m( conj( FFT_m([pre *] zeropad(x)) * H ) ) )
+
+for inner lengths m whose transform does not fit one block.  Each FFT_m is
+the port's column stage and row stage (ops/kernels/large.py) at the split
+large.choose_pqq(m), with the pointwise work fused into their loads and
+stores (the stage kernels of csrc/large.cuh with the source and sink of
+csrc/conv_radix.cu):
+
+  pass 1: `conv_col_stage` loads [pre *] x or the Rader gather x[perm[j]]
+          and emits per-tile partial sums of the raw input;
+          `conv_row_stage` stores conj(. * H) in natural order;
+  pass 2: `conv_col_stage` plain; `conv_row_stage` stores [conj] [* post]
+          [+ x0], scattered by the Rader output permutation, with full_out
+          in the DC-first layout out[0] = x0 + sum(x).
+
+Four launches and eight traversals of m (the TPU kernel: two and four).
+The prime path's shapes (P = 256; Q = 256, 128, 64 without the output
+scatter) run compile-time kernels, other shapes general ones.
+The JAX kernel's `in_shift` and `gauss` options are off by default there
+and are not ported (ROADMAP).  Each wrapper runs its plain torch version on
+a CPU tensor and launches its kernel on a CUDA tensor, or raises.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...common import FftDirection
+from .. import calg
+from . import _build, large
+from .lanepack import (
+    check_operand, check_stage_tables, padded_stage_args, require_cuda, smem_bytes,
+)
+from .permute import check_index, permutation_index
+
+#: bytes of static shared memory the column stage's partial sums (block_sum)
+#: hold beside its tile
+_COL_STATIC_SMEM = 32 * 8
+
+
+def col_tile(p: int, q: int) -> Optional[int]:
+    """Columns j2 per column-stage block: the largest of 16, 8, 4, 2, 1 that
+    divides Q and fits shared memory."""
+    for qt in (16, 8, 4, 2, 1):
+        need = smem_bytes(p * qt, large.stage_radices(p)) + _COL_STATIC_SMEM
+        if q % qt == 0 and need <= _build.SMEM_MAX:
+            return qt
+    return None
+
+
+def row_tile(q: int, p: int) -> Optional[int]:
+    """Columns k1 per row-stage block: the largest of 16, 8, 4, 2, 1 that
+    divides P and fits shared memory (16 columns are 128-byte segments)."""
+    for pt in (16, 8, 4, 2, 1):
+        if p % pt == 0 and smem_bytes(q * pt, large.stage_radices(q)) <= _build.SMEM_MAX:
+            return pt
+    return None
+
+
+@functools.lru_cache(maxsize=1024)
+def choose_split(m: int) -> Optional[Tuple[int, int]]:
+    """(P, Q) of the two-pass core for m: large.choose_pqq(m) with Q = q1*q2,
+    when both stages have a tile; else None."""
+    pqq = large.choose_pqq(m)
+    if pqq is None:
+        return None
+    p, q = pqq[0], pqq[1] * pqq[2]
+    if col_tile(p, q) is None or row_tile(q, p) is None:
+        return None
+    return p, q
+
+
+def radix_conv_supported(m: int, dtype) -> bool:
+    return np.dtype(dtype) == np.complex64 and choose_split(m) is not None
+
+
+def _check_table(t, shape, device, what: str) -> None:
+    """A complex64 operand that may be absent: shape, contiguity, device."""
+    if t is None:
+        return
+    check_operand(t, shape, what)
+    if t.device != device:
+        raise ValueError(f"{what}: on {t.device}, input on {device}")
+
+
+def conv_col_stage_plain(x, p, q, tables, pre=None, perm=None, emit_sum=False):
+    """Plain torch version of conv_col_stage."""
+    m = p * q
+    v = torch.index_select(x, 1, perm) if perm is not None else x
+    v = torch.nn.functional.pad(v, (0, m - v.shape[1]))
+    partials = None
+    if emit_sum:
+        qt = col_tile(p, q)
+        partials = v.reshape(-1, p, q // qt, qt).sum(dim=(1, 3))
+    if pre is not None:
+        v = v * pre
+    return large.large_col_stage_plain(v, p, q, tables), partials
+
+
+def conv_col_stage(x: torch.Tensor, p: int, q: int, tables, pre=None, perm=None,
+                   emit_sum: bool = False):
+    """Column stage of FFT_m, m = P*Q, for x (batch, n_in) complex64 zero-padded
+    to m -> (a (batch, Q, P), partials (batch, Q/qt) or None).
+
+    tables = (roots, tws, outer) from large.col_tables(P, Q, direction); pre:
+    (m,) complex64 multiplied in after the load; perm: (m,) int32 gather
+    a[j] = x[perm[j]] (needs n_in == m); emit_sum: also return the sums of
+    the raw input over each block's tile (their row sum is sum(x)).
+    """
+    if x.dim() != 2:
+        raise ValueError(f"conv_col_stage: expected (batch, n_in), got {tuple(x.shape)}")
+    m = p * q
+    n_in = x.shape[1]
+    check_operand(x, (x.shape[0], n_in), "conv_col_stage input")
+    if not 0 < n_in <= m:
+        raise ValueError(f"conv_col_stage: n_in={n_in} not in [1, {m}]")
+    roots, tws, outer = tables
+    check_stage_tables(p, large.stage_radices(p), roots, tws, x.device, "conv_col_stage")
+    _check_table(outer, (q, p), x.device, "conv_col_stage outer twiddle")
+    _check_table(pre, (m,), x.device, "conv_col_stage pre")
+    if perm is not None:
+        check_index(perm, m, x.device, "conv_col_stage perm")
+        if n_in != m:
+            raise ValueError(f"conv_col_stage: a gather needs n_in == m, got {n_in} != {m}")
+    qt = col_tile(p, q)
+    if qt is None:
+        raise ValueError(f"conv_col_stage: no tile for P={p}, Q={q}")
+    if x.device.type == "cpu":
+        return conv_col_stage_plain(x, p, q, tables, pre, perm, emit_sum)
+    require_cuda(x, "conv_col_stage")
+    a = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
+    partials = (torch.empty((x.shape[0], q // qt), dtype=x.dtype, device=x.device)
+                if emit_sum else None)
+    if x.shape[0] == 0:
+        return a, partials
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.rf_conv_col_stage(
+            x.data_ptr(), a.data_ptr(), None if partials is None else partials.data_ptr(),
+            x.shape[0], n_in, p, q, qt,
+            *padded_stage_args(large.stage_radices(p), roots, tws), outer.data_ptr(),
+            None if pre is None else pre.data_ptr(),
+            None if perm is None else perm.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, code, "conv_col_stage")
+    conv_col_stage.launches += 1
+    return a, partials
+
+
+#: kernel launches since the count was last set to 0
+conv_col_stage.launches = 0
+
+
+def conv_row_stage_plain(a, q, p, tables, n_out, h=None, conj_out=False, post=None,
+                         x0=None, scatter=None, partials=None):
+    """Plain torch version of conv_row_stage."""
+    z = large.large_row_stage_plain(a, q, p, tables)
+    if h is not None:
+        z = torch.conj(z * h)
+    if conj_out:
+        z = torch.conj(z)
+    if post is not None:
+        z = z * post
+    if x0 is not None:
+        z = z + x0[:, None]
+    z = z.resolve_conj()[:, :n_out]
+    if scatter is not None:
+        z = torch.empty_like(z).index_copy_(1, scatter.long(), z)
+    if partials is not None:
+        z = torch.cat([(x0 + partials.sum(dim=1))[:, None], z], dim=1)
+    return z
+
+
+def conv_row_stage(a: torch.Tensor, q: int, p: int, tables, n_out: int, h=None,
+                   conj_out: bool = False, post=None, x0=None, scatter=None,
+                   partials=None) -> torch.Tensor:
+    """Row stage of FFT_m and the core's epilogue: a (batch, Q, P) complex64
+    -> z (batch, n_out), z[k] for the natural-order FFT output k < n_out.
+
+    tables = (roots, tws) from large.row_tables(Q, direction).  In order:
+    h (m,): z = conj(z * h); conj_out: z = conj(z); post (m,): z = z * post;
+    x0 (batch,): z = z + x0; scatter (m,) int32 (n_out == m): z[k] is
+    written to position scatter[k]; partials (batch, tiles) from pass 1's
+    conv_col_stage (needs x0 and scatter, full_out): the output is
+    (batch, m + 1) with out[0] = x0 + sum(partials) and the rest shifted by 1.
+    """
+    if a.dim() != 3:
+        raise ValueError(f"conv_row_stage: expected (batch, Q, P), got {tuple(a.shape)}")
+    m = p * q
+    batch = a.shape[0]
+    check_operand(a, (batch, q, p), "conv_row_stage input")
+    roots, tws = tables
+    check_stage_tables(q, large.stage_radices(q), roots, tws, a.device, "conv_row_stage")
+    if not 0 < n_out <= m:
+        raise ValueError(f"conv_row_stage: n_out={n_out} not in [1, {m}]")
+    _check_table(h, (m,), a.device, "conv_row_stage h")
+    _check_table(post, (m,), a.device, "conv_row_stage post")
+    _check_table(x0, (batch,), a.device, "conv_row_stage x0")
+    if scatter is not None:
+        check_index(scatter, m, a.device, "conv_row_stage scatter")
+        if n_out != m:
+            raise ValueError("conv_row_stage: a scatter needs n_out == m")
+    if partials is not None:
+        if x0 is None or scatter is None or partials.dim() != 2:
+            raise ValueError("conv_row_stage: full_out needs x0, scatter and 2-D partials")
+        _check_table(partials, (batch, partials.shape[1]), a.device, "conv_row_stage partials")
+    pt = row_tile(q, p)
+    if pt is None:
+        raise ValueError(f"conv_row_stage: no tile for Q={q}, P={p}")
+    if a.device.type == "cpu":
+        return conv_row_stage_plain(a, q, p, tables, n_out, h, conj_out, post, x0,
+                                    scatter, partials)
+    require_cuda(a, "conv_row_stage")
+    width = n_out + (1 if partials is not None else 0)
+    y = torch.empty((batch, width), dtype=a.dtype, device=a.device)
+    if batch == 0:
+        return y
+    lib = _build.load()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(a.device):
+        code = lib.rf_conv_row_stage(
+            a.data_ptr(), y.data_ptr(), batch, q, p, pt,
+            *padded_stage_args(large.stage_radices(q), roots, tws),
+            ptr(h), ptr(post), ptr(x0), ptr(scatter), ptr(partials),
+            0 if partials is None else partials.shape[1], int(conj_out), n_out, width,
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    _build.check(lib, code, "conv_row_stage")
+    conv_row_stage.launches += 1
+    return y
+
+
+conv_row_stage.launches = 0
+
+
+def zero_extended(a, m: int) -> Optional[np.ndarray]:
+    """Complex table zero-extended (or cut) to length m, complex64."""
+    if a is None:
+        return None
+    a = np.asarray(a)
+    full = np.zeros(m, np.complex128)
+    full[: min(len(a), m)] = a[:m]
+    return full.astype(np.complex64)
+
+
+def radix_conv_tables(m: int, direction: FftDirection, h=None, pre=None, post=None,
+                      in_perm=None, out_perm=None) -> Dict[str, Any]:
+    """Host tables of the two-pass core for m, by name: "col" (roots, tws,
+    outer) of the column stage and "row" (roots, tws) of the row stage, as
+    large.col_tables / row_tables at choose_split(m); "h", "pre", "post"
+    zero-extended to (m,) complex64; "perm" the in_perm gather and "scatter"
+    the inverse of out_perm, (m,) int32; absent ones None."""
+    p, q = choose_split(m)
+    roots_p, tws_p, outer = large.col_tables(p, q, direction)
+    return {
+        "col": (roots_p, tws_p, outer),
+        "row": large.row_tables(q, direction),
+        "h": zero_extended(h, m), "pre": zero_extended(pre, m), "post": zero_extended(post, m),
+        "perm": None if in_perm is None else permutation_index(in_perm),
+        "scatter": (None if out_perm is None
+                    else np.argsort(permutation_index(out_perm)).astype(np.int32)),
+    }
+
+
+def make_radix_conv_fn(
+    m: int,
+    direction: FftDirection,
+    dtype,
+    h: np.ndarray,
+    pre: Optional[np.ndarray] = None,
+    post: Optional[np.ndarray] = None,
+    conj_out: bool = False,
+    n_in: Optional[int] = None,
+    n_out: Optional[int] = None,
+    in_perm: Optional[np.ndarray] = None,
+    out_perm: Optional[np.ndarray] = None,
+    x0_add: bool = False,
+    emit_sum: bool = False,
+    full_out: bool = False,
+):
+    """Build fn: complex64 (..., n_in) -> (..., n_out) computing
+
+        out = [post *] maybe_conj( FFT_m( conj( FFT_m([pre *] zeropad(x)) * H ) ) )
+
+    with the contract of the JAX package's make_radix_conv_fn
+    (conv_radix.py:643-773): h, pre, post are complex128 host arrays
+    (pre/post zero-extended to m); in_perm / out_perm are m-point gather
+    permutations fused into pass 1's load and pass 2's store (n_in == m,
+    no pre / no post); x0_add: fn(x, const) adds const (..., 1) to every
+    bin; emit_sum: fn returns (out, sums (..., 1)), the f32 sums of the raw
+    input; full_out (needs all of them): fn returns the whole DC-first
+    (..., m + 1) Rader output, out[0] = const + sum.
+    """
+    if not radix_conv_supported(m, dtype):
+        raise ValueError(f"no two-pass conv core for m={m}, dtype={np.dtype(dtype)}")
+    p, q = choose_split(m)
+    n_in = n_in or m
+    n_out = n_out or m
+    if in_perm is not None and (n_in != m or pre is not None):
+        raise ValueError("in_perm needs n_in == m and no pre table")
+    if out_perm is not None and post is not None:
+        raise ValueError("out_perm needs no post table")
+    if full_out and not (x0_add and emit_sum and out_perm is not None and n_out == m):
+        raise ValueError("full_out needs x0_add, emit_sum, out_perm and n_out == m")
+    host = radix_conv_tables(m, direction, h, pre, post, in_perm, out_perm)
+    kp, kq = len(host["col"][0]), len(host["row"][0])
+    names = [k for k in ("h", "pre", "post", "perm", "scatter") if host[k] is not None]
+    tables = calg.DeviceTables([*host["col"][0], *host["col"][1], host["col"][2],
+                                *host["row"][0], *host["row"][1]] + [host[k] for k in names])
+
+    def apply(x, const=None):
+        t = tables.on(x.device)
+        col = (t[:kp], t[kp : 2 * kp - 1], t[2 * kp - 1])
+        row = (t[2 * kp : 2 * kp + kq], t[2 * kp + kq : 2 * kp + 2 * kq - 1])
+        tab = dict(zip(names, t[2 * kp + 2 * kq - 1 :]))
+        shape = x.shape
+        flat = x.reshape(-1, n_in).contiguous()
+        a, partials = conv_col_stage(flat, p, q, col, pre=tab.get("pre"),
+                                     perm=tab.get("perm"), emit_sum=emit_sum)
+        z = conv_row_stage(a, q, p, row, m, h=tab.get("h"))
+        b, _ = conv_col_stage(z, p, q, col)
+        x0 = None
+        if x0_add:
+            if const is None:
+                raise ValueError("x0_add: call fn(x, const)")
+            x0 = const.reshape(-1).contiguous()
+        out = conv_row_stage(b, q, p, row, n_out, conj_out=conj_out, post=tab.get("post"),
+                             x0=x0, scatter=tab.get("scatter"),
+                             partials=partials if full_out else None)
+        out = out.reshape(shape[:-1] + (out.shape[-1],))
+        if emit_sum and not full_out:
+            return out, partials.sum(dim=1).reshape(shape[:-1] + (1,))
+        return out
+
+    return apply

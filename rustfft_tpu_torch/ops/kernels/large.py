@@ -52,7 +52,7 @@ def stage_radices(m: int) -> Tuple[int, ...]:
     return cheapest_split(m, 1) or (m,)
 
 
-#: the row-stage chain with a compile-time kernel in csrc/large.cu and its
+#: the row-stage chain with a compile-time kernel in csrc/large.cuh and its
 #: tile width; other chains run the general kernel.  (The column stage's
 #: compile-time chain, P = 16 x 16 over 16 columns, is what col_tile picks
 #: anyway.)

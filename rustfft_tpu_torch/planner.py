@@ -3,11 +3,13 @@
 Port of rustfft_tpu/planner.py.  `FftPlannerScalar` reproduces the reference
 scalar planner's decision tree exactly (src/plan.rs:270-665).
 `FftPlannerGpu` keeps the JAX package's cost-model recipe rules that do not
-depend on TPU measurements: a dense DFT leaf up to config.dense_dft_max and
-the near-balanced composite split (planner.py:348-351, 469-514); primes take
-the reference's Rader's-vs-Bluestein's rule.  Whole-transform kernels are
-substituted by the executor, not by the recipe.  `FftPlanner` delegates to
-`FftPlannerGpu` and names the device that numpy buffers are computed on.
+depend on TPU measurements: a dense DFT leaf up to config.dense_dft_max, the
+near-balanced composite split (planner.py:348-351, 469-514), and, with the
+c64 kernels on, FftPlannerTpu's prime and awkward-composite rules
+(planner.py:355-362, 413-467, 516-569) where "aligned" reads "a convolution
+core of the port serves m with register stages only" (conv.conv_aligned).
+Whole-transform kernels are substituted by the executor, not by the recipe.  `FftPlanner` delegates to `FftPlannerGpu` and
+names the device that numpy buffers are computed on.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from . import recipes
 from .common import FftDirection, canonical_complex_dtype
 from .config import config
 from .math_utils import PrimeFactors
+from .ops.kernels import conv
 from .plan import FftPlan
 
 #: reference: plan.rs:127-129
@@ -275,25 +278,70 @@ class FftPlannerGpu(_PlannerBase):
     """Cost-model planner for the torch path.
 
     * n <= config.dense_dft_max: one dense DFT-matrix matmul leaf.
+    * With the c64 kernels on (config.kernels == "auto"):
+      - prime n: Rader's when a convolution core serves n-1 with register
+        stages only (conv.conv_aligned), else Bluestein's with the inner
+        `_conv_inner` picks, else the reference rule;
+      - composite n with a prime factor above dense_dft_max (1234 = 2*617):
+        one whole-n Bluestein's when `_conv_inner` finds an inner.
     * composite n: near-balanced split n = p*q (largest divisor <= sqrt(n)),
       recursing on both halves; the executor swaps every subtree whose length
       executor.route names for that whole-transform kernel.
-    * prime n: the reference's Rader's-vs-Bluestein's rule (built in
-      ROADMAP A5).
+    * otherwise (kernels off, c128) primes take the reference's
+      Rader's-vs-Bluestein's rule: the JAX package's recipes with Pallas off.
+
+    The JAX package's hole-band rule for odd composites
+    (planner.py:363-380) rests on TPU measurements and is not ported.
     """
 
     def _recipe_cache_key(self) -> Tuple:
-        return (config.dense_dft_max,)
+        return (config.dense_dft_max, config.kernels)
+
+    def _conv_rules(self) -> bool:
+        return config.kernels == "auto" and self.dtype == np.complex64
 
     def design_fft_with_factors(self, length: int, factors: PrimeFactors) -> recipes.Recipe:
         if length <= config.dense_dft_max:
             return recipes.Dft(length)
         if factors.is_prime():
             return self._design_prime(length)
+        if self._conv_rules() and factors.has_factors_gt(config.dense_dft_max):
+            m = self._conv_inner(length)
+            if m is not None:
+                return recipes.Bluesteins(length, self.design_fft_for_len(m))
         p = self._choose_left_factor(length, factors)
         left = self.design_fft_for_len(p)
         right = self.design_fft_for_len(length // p)
         return recipes.MixedRadix(left, right)
+
+    def _design_prime(self, length: int) -> recipes.Recipe:
+        raders_factors = PrimeFactors.compute(length - 1)
+        if self._conv_rules():
+            if conv.conv_aligned(length - 1, self.dtype):
+                return recipes.Raders(self.design_fft_with_factors(length - 1, raders_factors))
+            m = self._conv_inner(length)
+            if m is not None:
+                return recipes.Bluesteins(length, self.design_fft_for_len(m))
+        return self._reference_prime_recipe(length, raders_factors)
+
+    def _conv_inner(self, length: int) -> Optional[int]:
+        """The smallest Bluestein inner m >= 2n-1 of the 2^a*3^b family (JAX
+        planner.py:425-436) that a convolution core serves with register
+        stages only (conv.conv_aligned), or None.  1234 takes 3072 =
+        (16, 16, 12), not 2592 = (18, 16, 9)."""
+        candidates = set(_bluestein_inner_candidates(length))
+        min_inner = 2 * length - 1
+        # all 2^a*3^b in [2n-1, 2*(2n-1)): beyond 2x the bound the pow2
+        # candidate is always at least as small
+        p3 = 1
+        while p3 < 2 * min_inner:
+            m = p3
+            while m < min_inner:
+                m *= 2
+            if m < 2 * min_inner:
+                candidates.add(m)
+            p3 *= 3
+        return next((m for m in sorted(candidates) if conv.conv_aligned(m, self.dtype)), None)
 
     @staticmethod
     def _choose_left_factor(length: int, factors: PrimeFactors) -> int:

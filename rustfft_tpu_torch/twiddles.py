@@ -14,6 +14,13 @@ from .common import FftDirection
 from .config import config
 
 
+def compute_twiddle(index: int, fft_len: int, direction: FftDirection) -> complex:
+    """e^(-2*pi*i*index/fft_len), conjugated for inverse (twiddles.rs:6-23)."""
+    angle = -2.0 * np.pi * (index % fft_len) / fft_len
+    result = complex(np.cos(angle), np.sin(angle))
+    return result if direction is FftDirection.FORWARD else result.conjugate()
+
+
 def dft_matrix(n: int, direction: FftDirection) -> np.ndarray:
     """Dense n x n DFT matrix W[j,k] = e^(-2*pi*i*jk/n) in complex128."""
     if config.use_native:
@@ -40,6 +47,22 @@ def twiddle_table(p: int, q: int, direction: FftDirection) -> np.ndarray:
     j2 = np.arange(q, dtype=np.int64)
     exponents = np.outer(k1, j2) % n
     angle = -2.0 * np.pi / n
+    table = np.exp(1j * angle * exponents.astype(np.float64))
+    if direction is FftDirection.INVERSE:
+        table = np.conj(table)
+    return table
+
+
+def bluesteins_twiddles(length: int, direction: FftDirection) -> np.ndarray:
+    """Chirp twiddles w_{2n}^(k^2 mod 2n) (reference: twiddles.rs:25-57),
+    k^2 reduced exactly in Python integers."""
+    if config.use_native:
+        table = native.bluestein_chirp(length, direction is FftDirection.INVERSE)
+        if table is not None:
+            return table
+    twice_len = 2 * length
+    exponents = np.array([k * k % twice_len for k in range(length)], dtype=np.int64)
+    angle = -2.0 * np.pi / twice_len
     table = np.exp(1j * angle * exponents.astype(np.float64))
     if direction is FftDirection.INVERSE:
         table = np.conj(table)

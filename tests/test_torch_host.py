@@ -52,6 +52,17 @@ def ref_pallas_off():
         ref_config.use_pallas = old
 
 
+@pytest.fixture
+def kernels_off():
+    """The port's recipes with its kernels off: the JAX package's with Pallas off."""
+    old = config.kernels
+    config.kernels = "off"
+    try:
+        yield
+    finally:
+        config.kernels = old
+
+
 @pytest.fixture(params=[True, False], ids=["native", "python"])
 def use_native(request):
     old_port, old_ref = config.use_native, ref_config.use_native
@@ -77,7 +88,7 @@ def test_scalar_recipes_match_reference(lo, hi, use_native):
 
 
 @pytest.mark.parametrize("lo,hi", [(0, 500), (500, 1000), (1000, 1500), (1500, 2001)])
-def test_planner_recipes_match_reference(lo, hi, ref_pallas_off):
+def test_planner_recipes_match_reference(lo, hi, ref_pallas_off, kernels_off):
     port = rustfft_tpu_torch.FftPlanner()
     ref = rustfft_tpu.FftPlanner()
     for n in range(lo, hi):
@@ -85,7 +96,7 @@ def test_planner_recipes_match_reference(lo, hi, ref_pallas_off):
 
 
 @pytest.mark.parametrize("planner", ["scalar", "planner"])
-def test_recipes_match_reference_on_ladder(planner, ref_pallas_off):
+def test_recipes_match_reference_on_ladder(planner, ref_pallas_off, kernels_off):
     if planner == "scalar":
         port, ref = rustfft_tpu_torch.FftPlannerScalar(), rustfft_tpu.FftPlannerScalar()
     else:

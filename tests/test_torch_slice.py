@@ -65,7 +65,7 @@ def test_slice_routes():
     assert route(3888, np.complex64) == "lanepack"
     assert route(32768, np.complex64) == "large"
     assert route(4096, np.complex128) is None  # c128 takes the recipe tree
-    assert route(1009, np.complex64) is None  # primes: ROADMAP A5
+    assert route(1009, np.complex64) is None  # primes: the Raders recipe, not a route
     old = config.kernels
     try:
         config.kernels = "off"
@@ -151,8 +151,11 @@ def test_buffer_errors():
 
 
 def test_primes_wait_for_a5():
-    with pytest.raises(NotImplementedError, match="A5"):
-        FftPlanner().plan_fft_forward(1009)
+    """The prime path is ported: 1009 plans as Rader's and computes."""
+    plan = FftPlanner().plan_fft_forward(1009)
+    assert isinstance(plan.recipe, rustfft_tpu_torch.recipes.Raders)
+    x = _signal((2, 1009), seed=1009)
+    assert _rel(plan.process(x), host_dft(x, FftDirection.FORWARD)) <= TOL
 
 
 def test_plan_cache_and_api_surface():
