@@ -17,22 +17,33 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    conj off and on, the two-pass core stage by stage at m = 65536 (Rader
    65537: gathers, x0, sums, full output) and m = 16384 (Bluestein 7919),
    and the permutation at m = 1008 and 114688;
+   The top power-of-two band at batch 1: large2f's fused column stage at
+   P = 2048, 4096 and 8192 and the row stage after it, large3f's pass 1
+   (the modular j3 twiddle), its pass 2 with the j2 factor on and off, and
+   the row stage at P = 16384;
 3. the main paths through the public entry,
    FftPlanner(np.complex64, device="cuda").plan_fft_forward/inverse(n)
    .process(x): n = 4096 at batch 8 and 16384, n = 2^20 at batch 1024
    (the flagship n; batch cut from 4096 so that input, intermediate and
-   output fit the card), and the prime path at 1009 x 8192, 1234 x 8192,
-   7919 x 4096 and 65537 x 512 (the JAX bench's rows and the 7919 cell).
-   Every launch counter is set to 0 just before each run and read just
-   after: each path must launch exactly its kernels.  Errors against a
-   float64 numpy oracle on 4 rows and against torch.fft (an oracle only)
-   on the whole batch, and the round trip divided by n against the input;
+   output fit the card), the prime path at 1009 x 8192, 1234 x 8192,
+   7919 x 4096 and 65537 x 512 (the JAX bench's rows and the 7919 cell),
+   and the top band at 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX bench's rows)
+   and 2^26 x 2.  Every launch counter is set to 0 just before each run and
+   read just after: each path must launch exactly its kernels.  Errors
+   against a float64 numpy oracle on 4 rows (1 row from 2^23 up) and
+   against torch.fft (an oracle only) on the whole batch, and the round
+   trip divided by n against the input;
 4. each kernel against its plain version again at the shape its main path
    launches it with (the same relative bound; max_abs_err covers phases 2
    and 4), then times from CUDA events (median of 7 after 2 warm-ups):
-   each kernel against its plain version, every path against torch.fft, GF/s as
-   5*n*log2(n) per transform, and 1234 three ways (whole-n Bluestein at
-   m = 3072 and 2592, and MixedRadix(2, Raders(617))).
+   each kernel against its plain version, its bound (the larger of its
+   bytes over 3.35 TB/s and its FP32 operations over 67 TFLOP/s, from this
+   run's shapes) and, where one PyTorch call computes the same function,
+   that call; every path against torch.fft, GF/s as 5*n*log2(n) per
+   transform; 1234 three ways (whole-n Bluestein at m = 3072 and 2592, and
+   MixedRadix(2, Raders(617))); 2^24 x 4 also through the recipe tree the
+   planner designs (MixedRadix(4096, 4096) on lanepack leaves); 2^22 x 16
+   through the large and the large2f routes.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -53,6 +64,13 @@ import torch
 TOL = 1e-5
 SEED = 0
 
+#: the card's peaks for the bound (NVIDIA's H100 SXM data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+#: the top band's paths: n -> batch, and the tag of their kernel entries
+TOP = {1 << 23: 8, 1 << 24: 4, 1 << 25: 2, 1 << 26: 2}
+
 #: every ported kernel: (its source, the TPU kernel it replaces); conv_fft
 #: serves K13 and K6, reported at the shape of each
 KERNELS = {
@@ -67,6 +85,36 @@ KERNELS = {
                        "rustfft_tpu/ops/pallas/conv_radix.py:70"),
     "permute": ("rustfft_tpu_torch/csrc/permute.cu", "rustfft_tpu/ops/pallas/permute.py:229"),
 }
+#: the top band's kernels, one entry per path shape: K10's fused column
+#: stage and its Q-FFT pass (K3's row stage), K11's three passes
+for _t in ("2^23", "2^24", "2^25"):
+    KERNELS[f"large2f_col_stage/{_t}"] = ("rustfft_tpu_torch/csrc/large2f.cu",
+                                          "rustfft_tpu/ops/pallas/large2f.py:149")
+    KERNELS[f"large_row_stage/{_t}"] = ("rustfft_tpu_torch/csrc/large.cu",
+                                        "rustfft_tpu/ops/pallas/large2f.py:245")
+KERNELS["large3_col_stage/2^26"] = ("rustfft_tpu_torch/csrc/large3.cu",
+                                    "rustfft_tpu/ops/pallas/large.py:60")
+KERNELS["large3_p2/2^26"] = ("rustfft_tpu_torch/csrc/large3.cu",
+                             "rustfft_tpu/ops/pallas/large3.py:194")
+KERNELS["large_row_stage/2^26"] = ("rustfft_tpu_torch/csrc/large.cu",
+                                   "rustfft_tpu/ops/pallas/large3.py:221")
+
+
+def tag(n: int) -> str:
+    return f"2^{n.bit_length() - 1}"
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the FP32 operations over the peak rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def fft_ops(m: float) -> float:
+    """FP32 operations of one length-m transform: 5*m*log2(m)."""
+    return 5 * m * math.log2(m)
 
 
 def card_line() -> str:
@@ -133,7 +181,9 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rustfft_tpu_torch import FftDirection, FftPlanner, executor, recipes, route
     from rustfft_tpu_torch.ops.bluestein import bluestein_tables
-    from rustfft_tpu_torch.ops.kernels import _build, conv, conv_radix, lanepack, large, permute
+    from rustfft_tpu_torch.ops.kernels import (
+        _build, conv, conv_radix, lanepack, large, large2f, large3, permute,
+    )
     from rustfft_tpu_torch.ops.raders import raders_tables
     from rustfft_tpu_torch.twiddles import host_dft
 
@@ -293,6 +343,64 @@ def main() -> None:
     del x, got, out
     free()
 
+    def top2f_tables(n, d):
+        """(split, column-stage tables, row-stage tables) of large2f at n, on the card."""
+        p1, p2, _, _, q = large2f.choose_split2f(n)
+        r, t, wob, wm = large2f.col_tables(p1, p2, q, d)
+        return (p1, p2, q), (on_card(r), on_card(t), *on_card([wob, wm])), \
+            tuple(on_card(v) for v in large.row_tables(q, d))
+
+    def top3f_tables(d):
+        """(split, pass-1 tables, pass-2 tables with the j2 factor on and
+        off, row-stage tables) of large3f at 2^26, on the card."""
+        p1, p2, _, _, q = large3.choose_split3f(1 << 26)
+        r, t, wob = large3.col_tables(p1, p2 * q, q, d)
+        mids = []
+        for factored in (True, False):
+            roots, wos, wm = large3.p2_tables(p1, p2, q, d, factored)
+            mids.append((*on_card([roots]), None if wos is None else on_card([wos])[0],
+                         *on_card([wm])))
+        return ((p1, p2, q), (on_card(r), on_card(t), on_card([wob])[0]), mids,
+                tuple(on_card(v) for v in large.row_tables(q, d)))
+
+    # the top band at batch 1: large2f's column stage at each split and the
+    # row stage after it; large3f's pass 1, pass 2 (j2 factor on and off)
+    # and the row stage at P = 16384
+    for n in list(TOP)[:3]:
+        x = signal(1, n)
+        for d in directions:
+            (p1, p2, q), col, row = top2f_tables(n, d)
+            p = p1 * p2
+            a = large2f.large2f_col_stage(x, p1, p2, q, col)
+            torch.cuda.synchronize()
+            note(f"large2f_col_stage/{tag(n)}", a, large2f.large2f_col_stage_plain(x, p1, p2, q, col),
+                 f"large2f_col_stage n={tag(n)} P={p1}x{p2} {large.stage_radices(p)} batch=1 {d.name}")
+            y = large.large_row_stage(a, q, p, row)
+            torch.cuda.synchronize()
+            note(f"large_row_stage/{tag(n)}", y, large.large_row_stage_plain(a, q, p, row),
+                 f"large_row_stage n={tag(n)} Q={q} P={p} batch=1 {d.name}")
+        del x, a, y
+        free()
+    x = signal(1, 1 << 26)
+    for d in directions:
+        (p1, p2, q), col, mids, row = top3f_tables(d)
+        a = large3.large3_col_stage(x, p1, p2 * q, q, col)
+        torch.cuda.synchronize()
+        note("large3_col_stage/2^26", a, large3.large3_col_stage_plain(x, p1, p2 * q, q, col),
+             f"large3_col_stage n=2^26 P1={p1} M={p2 * q} batch=1 {d.name}")
+        for tabs, onoff in zip(mids, ("on", "off")):
+            b = large3.large3_p2(a, p1, p2, q, tabs)
+            torch.cuda.synchronize()
+            note("large3_p2/2^26", b, large3.large3_p2_plain(a, p1, p2, q, tabs),
+                 f"large3_p2 n=2^26 P2={p2} j2 factor {onoff} batch=1 {d.name}")
+        b = large3.large3_p2(a, p1, p2, q, mids[0])
+        y = large.large_row_stage(b, q, p1 * p2, row)
+        torch.cuda.synchronize()
+        note("large_row_stage/2^26", y, large.large_row_stage_plain(b, q, p1 * p2, row),
+             f"large_row_stage n=2^26 Q={q} P={p1 * p2} batch=1 {d.name}")
+    del x, a, b, y
+    free()
+
     # ---- phase 3: the main path through the public entry ----
     print("phase 3: main path, FftPlanner(np.complex64, device='cuda')", flush=True)
     counters = {"lanepack_fft": lanepack.lanepack_fft,
@@ -301,9 +409,13 @@ def main() -> None:
                 "conv_fft": conv.conv_fft,
                 "conv_col_stage": conv_radix.conv_col_stage,
                 "conv_row_stage": conv_radix.conv_row_stage,
-                "permute": permute.permute}
+                "permute": permute.permute,
+                "large2f_col_stage": large2f.large2f_col_stage,
+                "large3_col_stage": large3.large3_col_stage,
+                "large3_p2": large3.large3_p2}
     planner = FftPlanner(np.complex64, device="cuda")
     assert route(4096, np.complex64) == "lanepack" and route(1 << 20, np.complex64) == "large"
+    assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 3 + ["large3f"]
     main_launches = {name: 0 for name in counters}
     path_launches = {}
 
@@ -325,9 +437,10 @@ def main() -> None:
         return y
 
     def oracle_rows(x, got, direction, what):
-        ref = host_dft(x[:4].cpu().numpy(), direction)
-        out = got[:4].cpu().numpy().astype(np.complex128)
-        check(f"{what} vs float64 oracle (4 rows)",
+        rows = 1 if x.shape[-1] >= 1 << 23 else 4
+        ref = host_dft(x[:rows].cpu().numpy(), direction)
+        out = got[:rows].cpu().numpy().astype(np.complex128)
+        check(f"{what} vs float64 oracle ({rows} row{'s' if rows > 1 else ''})",
               float(np.mean(np.abs(out - ref)) / np.mean(np.abs(ref))))
 
     paths = (
@@ -338,6 +451,9 @@ def main() -> None:
         (1234, 8192, {"conv_fft": 1}),
         (7919, 4096, {"conv_col_stage": 2, "conv_row_stage": 2}),
         (65537, 512, {"conv_col_stage": 2, "conv_row_stage": 2}),
+        *((n, batch, {"large2f_col_stage": 1, "large_row_stage": 1} if n < 1 << 26 else
+           {"large3_col_stage": 1, "large3_p2": 1, "large_row_stage": 1})
+          for n, batch in TOP.items()),
     )
     for n, batch, expected in paths:
         fwd = planner.plan_fft_forward(n)
@@ -354,6 +470,8 @@ def main() -> None:
               rel_err_chunked(y, lambda i, j: torch.fft.fft(x[i:j])))
         z = run_counted(inv.process, y, expected, f"inverse {what}", n)
         oracle_rows(y, z, FftDirection.INVERSE, f"inverse {what}")
+        check(f"inverse {what} vs torch.fft",
+              rel_err_chunked(z, lambda i, j: torch.fft.ifft(y[i:j]) * n))
         check(f"round trip / n {what} vs input", rel_err_chunked(z, lambda i, j: x[i:j] * n))
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
         del x, y, z
@@ -366,7 +484,18 @@ def main() -> None:
 
     # ---- phase 4: times ----
     print(f"phase 4: times on {card} (CUDA events, median of 7)", flush=True)
-    ms = {}
+    results = {}
+
+    def record(name, k, plain, nbytes, flops, library=None):
+        """A kernel's times at its path's shape, with its bound from this
+        run's bytes and operations and the one-call PyTorch time, if any."""
+        bound_ms, bound_by = bound(nbytes, flops)
+        results[name] = {"ms": k, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library}
+        print(f"  {name}: kernel {k:.3f} ms, plain {plain:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({bound_by}), library "
+              f"{'none' if library is None else f'{library:.3f} ms'}", flush=True)
+
     n, batch = 4096, 16384
     x = signal(batch, n)
     default = lanepack.choose_radices(n)
@@ -382,10 +511,11 @@ def main() -> None:
         print(f"  lanepack_fft n={n} {radices} batch={batch}: kernel {k:.3f} ms "
               f"({gflops(n, batch, k):.0f} GF/s), plain {plain:.3f} ms", flush=True)
         if radices == default:
-            ms["lanepack_fft"] = (k, plain)
+            k_default, plain_default = k, plain
     plan = planner.plan_fft_forward(n)
     path = median_ms(lambda: plan.process(x))
     ref = median_ms(lambda: torch.fft.fft(x))
+    record("lanepack_fft", k_default, plain_default, 16 * batch * n, batch * fft_ops(n), ref)
     print(f"  main path n={n} batch={batch}: {path:.3f} ms ({gflops(n, batch, path):.0f} GF/s); "
           f"torch.fft {ref:.3f} ms ({gflops(n, batch, ref):.0f} GF/s)", flush=True)
     del x
@@ -408,14 +538,13 @@ def main() -> None:
     free()
     k = median_ms(lambda: large.large_col_stage(x, p, q, col))
     plain = median_ms(lambda: large.large_col_stage_plain(x, p, q, col))
-    ms["large_col_stage"] = (k, plain)
-    print(f"  large_col_stage n={n} P={p} batch={batch}: kernel {k:.3f} ms, plain {plain:.3f} ms",
-          flush=True)
+    print(f"  large_col_stage n={n} P={p} batch={batch}:", flush=True)
+    record("large_col_stage", k, plain, 16 * batch * n + 8 * n, batch * n * (fft_ops(p) / p + 6))
     k = median_ms(lambda: large.large_row_stage(a, q, p, row))
     plain = median_ms(lambda: large.large_row_stage_plain(a, q, p, row))
-    ms["large_row_stage"] = (k, plain)
-    print(f"  large_row_stage n={n} Q={q} {large.stage_radices(q)} batch={batch}: kernel {k:.3f} ms, "
-          f"plain {plain:.3f} ms", flush=True)
+    lib = median_ms(lambda: torch.fft.fft(a, dim=1))
+    print(f"  large_row_stage n={n} Q={q} {large.stage_radices(q)} batch={batch}:", flush=True)
+    record("large_row_stage", k, plain, 16 * batch * n, batch * p * fft_ops(q), lib)
     del x, a
     free()
     for batch in (64, 1024):
@@ -443,9 +572,11 @@ def main() -> None:
              f"conv_fft m={m} {radices} n={n} batch=8192 (the main path's shape)")
         k = median_ms(lambda: conv.conv_fft(x, radices, tables, n, tables_on))
         plain = median_ms(lambda: conv.conv_fft_plain(x, m, radices, tables, n, tables_on))
-        ms[key] = (k, plain)
-        print(f"  conv_fft m={m} {radices} n={n} batch=8192: kernel {k:.3f} ms, plain {plain:.3f} ms",
-              flush=True)
+        print(f"  conv_fft m={m} {radices} n={n} batch=8192:", flush=True)
+        # two length-m transforms and the pointwise tables (H; with the
+        # Bluestein chirp also pre and post) per row
+        record(key, k, plain, 16 * 8192 * n + 8 * m * (3 if tables_on else 1),
+               8192 * (2 * fft_ops(m) + 6 * m * (3 if tables_on else 1)))
     idx = torch.from_numpy(permute.permutation_index(
         raders_tables(1009, FftDirection.FORWARD)[0] - 1)).to(dev)
     x = signal(8192, 1008)
@@ -453,9 +584,9 @@ def main() -> None:
          "permute m=1008 batch=8192 (the main path's shape)")
     k = median_ms(lambda: permute.permute(x, idx))
     plain = median_ms(lambda: permute.permute_plain(x, idx))
-    ms["permute"] = (k, plain)
-    print(f"  permute m=1008 batch=8192 (Rader 1009 input gather): kernel {k:.3f} ms, "
-          f"plain {plain:.3f} ms", flush=True)
+    lib = median_ms(lambda: torch.index_select(x, 1, idx))
+    print("  permute m=1008 batch=8192 (Rader 1009 input gather):", flush=True)
+    record("permute", k, plain, 16 * 8192 * 1008 + 4 * 1008, 0, lib)
     del x
     free()
 
@@ -500,16 +631,18 @@ def main() -> None:
     free()
     k = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col, perm=perm, emit_sum=True))
     plain = median_ms(lambda: conv_radix.conv_col_stage_plain(x, p, q, col, None, perm, True))
-    ms["conv_col_stage"] = (k, plain)
     no_gather = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col))
-    print(f"  conv_col_stage m={m} P={p} batch={batch}: kernel {k:.3f} ms with the Rader gather "
-          f"and sums, {no_gather:.3f} ms plain load; plain version {plain:.3f} ms", flush=True)
+    print(f"  conv_col_stage m={m} P={p} batch={batch}: {no_gather:.3f} ms with a plain load; "
+          "with the Rader gather and sums:", flush=True)
+    record("conv_col_stage", k, plain, 16 * batch * m + 12 * m + 8 * part.numel(),
+           batch * m * (fft_ops(p) / p + 8))
     k1 = median_ms(lambda: conv_radix.conv_row_stage(a, q, p, row, m, h=h))
     k = median_ms(lambda: conv_radix.conv_row_stage(a, q, p, row, m, **kw))
     plain = median_ms(lambda: conv_radix.conv_row_stage_plain(a, q, p, row, m, **kw))
-    ms["conv_row_stage"] = (k, plain)
-    print(f"  conv_row_stage m={m} Q={q} batch={batch}: kernel {k:.3f} ms with the scatter and "
-          f"full output, {k1:.3f} ms with the H epilogue; plain version {plain:.3f} ms", flush=True)
+    print(f"  conv_row_stage m={m} Q={q} batch={batch}: {k1:.3f} ms with the H epilogue; with the "
+          "scatter and full output:", flush=True)
+    record("conv_row_stage", k, plain, 16 * batch * m + 4 * m + 16 * batch + 8 * part.numel(),
+           batch * (p * fft_ops(q) + 2 * m))
     del x, a, part
     free()
 
@@ -539,11 +672,103 @@ def main() -> None:
     del x
     free()
 
+    # the top band at its paths' shapes: each kernel against its plain
+    # version, then times; pass 1's achieved rate; each path against
+    # torch.fft and its peak memory; 2^24 also through the recipe tree
+    for n, batch in TOP.items():
+        x = signal(batch, n)
+        what = f"n={tag(n)} batch={batch} (the main path's shape)"
+        if n < 1 << 26:
+            (p1, p2, q), col, row = top2f_tables(n, FftDirection.FORWARD)
+            p = p1 * p2
+            name = f"large2f_col_stage/{tag(n)}"
+            a = large2f.large2f_col_stage(x, p1, p2, q, col)
+            note(name, a, large2f.large2f_col_stage_plain(x, p1, p2, q, col), f"{name} {what}")
+            free()
+            k = median_ms(lambda: large2f.large2f_col_stage(x, p1, p2, q, col))
+            plain = median_ms(lambda: large2f.large2f_col_stage_plain(x, p1, p2, q, col))
+            print(f"  {name} P={p1}x{p2} batch={batch}: pass 1 at "
+                  f"{16 * batch * n / (k * 1e6):.0f} GB/s", flush=True)
+            record(name, k, plain, 16 * batch * n + 8 * q * (p1 + p2),
+                   batch * n * (fft_ops(p) / p + 12))
+        else:
+            (p1, p2, q), col, mids, row = top3f_tables(FftDirection.FORWARD)
+            p, m = p1 * p2, p2 * q
+            name = "large3_col_stage/2^26"
+            b = large3.large3_col_stage(x, p1, m, q, col)
+            note(name, b, large3.large3_col_stage_plain(x, p1, m, q, col), f"{name} {what}")
+            free()
+            k = median_ms(lambda: large3.large3_col_stage(x, p1, m, q, col))
+            plain = median_ms(lambda: large3.large3_col_stage_plain(x, p1, m, q, col))
+            print(f"  {name} P1={p1} batch={batch}: pass 1 at "
+                  f"{16 * batch * n / (k * 1e6):.0f} GB/s", flush=True)
+            record(name, k, plain, 16 * batch * n + 8 * q * p1, batch * n * (fft_ops(p1) / p1 + 6))
+            name = "large3_p2/2^26"
+            a = large3.large3_p2(b, p1, p2, q, mids[0])
+            note(name, a, large3.large3_p2_plain(b, p1, p2, q, mids[0]), f"{name} {what}")
+            free()
+            k = median_ms(lambda: large3.large3_p2(b, p1, p2, q, mids[0]))
+            plain = median_ms(lambda: large3.large3_p2_plain(b, p1, p2, q, mids[0]))
+            print(f"  {name} P2={p2} batch={batch}: pass 2 at "
+                  f"{16 * batch * n / (k * 1e6):.0f} GB/s", flush=True)
+            record(name, k, plain, 16 * batch * n + 8 * (p2 * p1 + q * p2 + p2),
+                   batch * n * (fft_ops(p2) / p2 + 12))
+            del b
+        name = f"large_row_stage/{tag(n)}"
+        note(name, large.large_row_stage(a, q, p, row), large.large_row_stage_plain(a, q, p, row),
+             f"{name} Q={q} P={p} {what}")
+        free()
+        k = median_ms(lambda: large.large_row_stage(a, q, p, row))
+        plain = median_ms(lambda: large.large_row_stage_plain(a, q, p, row))
+        lib = median_ms(lambda: torch.fft.fft(a, dim=1))
+        record(name, k, plain, 16 * batch * n, batch * p * fft_ops(q), lib)
+        del a
+        free()
+        plan = planner.plan_fft_forward(n)
+        torch.cuda.reset_peak_memory_stats()
+        path = median_ms(lambda: plan.process(x), reps=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ref = median_ms(lambda: torch.fft.fft(x), reps=5)
+        print(f"  top-band path n={tag(n)} batch={batch} ({route(n, np.complex64)}): {path:.3f} ms "
+              f"({gflops(n, batch, path):.0f} GF/s), peak {peak:.2f} GiB; torch.fft {ref:.3f} ms "
+              f"({gflops(n, batch, ref):.0f} GF/s)", flush=True)
+        if n == 1 << 24:
+            # the recipe tree the planner designs, the route bypassed
+            tree = executor._build(plan.recipe, FftDirection.FORWARD, np.complex64)
+            check(f"2^24 x {batch} through the recipe tree {plan.recipe!r} vs torch.fft",
+                  rel_err_chunked(tree(x), lambda i, j: torch.fft.fft(x[i:j])))
+            free()
+            t = median_ms(lambda: tree(x), reps=5)
+            print(f"  2^24 x {batch} through the recipe tree: {t:.3f} ms "
+                  f"({gflops(n, batch, t):.0f} GF/s) against the route's {path:.3f} ms", flush=True)
+        del x
+        free()
+
+    # 2^22 x 16 (the JAX bench's row) through both two-pass routes that serve it
+    n, batch = 1 << 22, 16
+    x = signal(batch, n)
+    want = torch.fft.fft(x)
+    for what, make in (("large (P = 512, Q = 8192)", large.make_large_fft_fn),
+                       ("large2f (P = 1024, Q = 4096)", large2f.make_large2f_fft_fn)):
+        fn = make(n, FftDirection.FORWARD, np.complex64)
+        check(f"2^22 x {batch} via {what} vs torch.fft", rel_err(fn(x), want))
+        t = median_ms(lambda: fn(x))
+        print(f"  2^22 x {batch} via {what}: {t:.3f} ms ({gflops(n, batch, t):.0f} GF/s)",
+              flush=True)
+    print(f"  2^22 routes to {route(n, np.complex64)}", flush=True)
+    del x, want
+    free()
+
+    def launches_of(name):
+        base, _, where = name.partition("/")
+        if not where:
+            return main_launches[base]
+        n = {"K6": 1009, "K13": 1234}.get(where) or 1 << int(where[2:])
+        return path_launches[n][base]
+
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": (main_launches[name.split("/")[0]] if "/" not in name
-                      else path_launches[1009 if name.endswith("K6") else 1234]["conv_fft"]),
-         "max_abs_err": max_abs[name], "ms": ms[name][0], "plain_ms": ms[name][1]}
+         "launches": launches_of(name), "max_abs_err": max_abs[name], **results[name]}
         for name, (src, replaces) in KERNELS.items()
     ]
     print(card)

@@ -12,7 +12,7 @@ Example::
     import numpy as np
     from rustfft_tpu_torch import FftPlanner
 
-    planner = FftPlanner(np.complex64, device="cuda")
+    planner = FftPlanner(np.complex64)  # on the card; device="cpu" for the CPU
     fft = planner.plan_fft_forward(4096)
     spectrum = fft.process(np.zeros((8, 4096), dtype=np.complex64))
 """

@@ -159,7 +159,8 @@ extern "C" int rf_conv_col_stage(const void* x, void* y, void* partials, long lo
   const ConvIn src{static_cast<const float2*>(x), static_cast<const float2*>(pre),
                    static_cast<const int*>(perm), static_cast<float2*>(partials), n_in};
   return launch_col_stage(src, static_cast<float2*>(y), batch, p, q, qt, st,
-                          static_cast<const float2*>(tw_outer), static_cast<cudaStream_t>(stream));
+                          FullOuter{static_cast<const float2*>(tw_outer), p},
+                          static_cast<cudaStream_t>(stream));
 }
 
 // a: (batch, Q, P) complex64; y: (batch, ld_out); h, post: (P*Q,) or NULL;

@@ -282,11 +282,14 @@ static __device__ float2* fft_tile(float2* a, float2* b, int m, int T, const Sta
 //
 // The chain above with the radices R0, R1[, R2] (R2 = 1: two stages) and the
 // tile width T as template constants, so that every stride, division and
-// twiddle offset folds at compile time.  One thread per column (the block
-// has M*T/min(R) threads); stage 0 reads its columns from `src` (device
-// memory), the middle stage runs in place in the shared-memory tile, the
-// last stage writes to `dst` (device memory, or the tile for a transposed
-// store).  Tiles are addressed by the flat element index f = i*T + t.
+// twiddle offset folds at compile time.  One thread per column of the
+// smallest radix (the block has M*T/min(R) threads) unless that passes 1024
+// threads or the registers a thread has (65536 / threads): then each thread
+// takes two or more columns of a stage (kFixedThreads).  Stage 0 reads its
+// columns from `src` (device memory), the middle stage runs in place in the
+// shared-memory tile, the last stage writes to `dst` (device memory, or the
+// tile for a transposed store).  Tiles are addressed by the flat element
+// index f = i*T + t.
 
 struct SmemTile {
   float2* buf;
@@ -309,48 +312,80 @@ struct GlobalOut {
   __device__ void store(int f, float2 v) const { p[(size_t)(f / T) * ld + f % T] = v; }
 };
 
-template <int R, int LEAD, int REST, int T, class Src, class Dst>
+// One stage over NT threads, each holding ceil(columns / NT) columns in
+// registers.
+template <int R, int LEAD, int REST, int T, int NT, class Src, class Dst>
 static __device__ __forceinline__ void fixed_stage(const Src& src, const Dst& dst,
                                                    const float2* __restrict__ roots,
                                                    const float2* __restrict__ tw) {
   constexpr int kStep = REST * T;
   constexpr int kCols = LEAD * kStep;
-  const int c = threadIdx.x;
-  const bool active = c < kCols;
-  const int l = c / kStep;
-  const int rt = c - l * kStep;
-  float2 x[R];
-  if (active) {
+  constexpr int kPer = (kCols + NT - 1) / NT;
+  float2 x[kPer][R];
+  int rt[kPer];
 #pragma unroll
-    for (int j = 0; j < R; ++j) x[j] = src.load(l * R * kStep + j * kStep + rt);
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + i * NT;
+    const int l = c / kStep;
+    rt[i] = c - l * kStep;
+    if (c < kCols) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) x[i][j] = src.load(l * R * kStep + j * kStep + rt[i]);
+    }
   }
   __syncthreads();  // every column read before any is overwritten in place
-  if (!active) return;
-  const int jr = rt / T;
-  dft_column<R>(x, roots, [&](int k, float2 y) {
-    if (tw != nullptr) y = cmul(y, __ldg(&tw[k * REST + jr]));
-    dst.store(k * kCols + c, y);
-  });
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + i * NT;
+    if (c >= kCols) return;
+    const int jr = rt[i] / T;
+    dft_column<R>(x[i], roots, [&](int k, float2 y) {
+      if (tw != nullptr) y = cmul(y, __ldg(&tw[k * REST + jr]));
+      dst.store(k * kCols + c, y);
+    });
+  }
 }
 
-// Threads of a fixed_chain block: one per column of its smallest radix.
+// Complex values a thread of an nt-thread fixed_chain block holds at once:
+// the most over the stages of (columns per thread) * radix.
 template <int T, int R0, int R1, int R2>
-constexpr int kFixedThreads =
-    R0 * R1 * R2 * T / (R2 > 1 && R2 < (R0 < R1 ? R0 : R1) ? R2 : (R0 < R1 ? R0 : R1));
+__host__ __device__ constexpr int fixed_held(int nt) {
+  constexpr int kElems = R0 * R1 * R2 * T;
+  const int h0 = (kElems / R0 + nt - 1) / nt * R0;
+  const int h1 = (kElems / R1 + nt - 1) / nt * R1;
+  const int h2 = R2 > 1 ? (kElems / R2 + nt - 1) / nt * R2 : 0;
+  const int h01 = h0 > h1 ? h0 : h1;
+  return h01 > h2 ? h01 : h2;
+}
+
+// Threads of a fixed_chain block: one per column of its smallest radix,
+// halved while that is above 1024 or leaves a thread fewer registers
+// (65536 / threads) than its columns' 2 per complex value plus 32.
+template <int T, int R0, int R1, int R2>
+__host__ __device__ constexpr int fixed_threads() {
+  constexpr int kMin = R2 > 1 && R2 < (R0 < R1 ? R0 : R1) ? R2 : (R0 < R1 ? R0 : R1);
+  int nt = R0 * R1 * R2 * T / kMin;
+  while (nt > 32 && (nt > 1024 || 2 * fixed_held<T, R0, R1, R2>(nt) + 32 > 65536 / nt)) nt /= 2;
+  return nt;
+}
+
+template <int T, int R0, int R1, int R2>
+constexpr int kFixedThreads = fixed_threads<T, R0, R1, R2>();
 
 template <int T, int R0, int R1, int R2, class Src, class Dst>
 static __device__ void fixed_chain(const Src& src, const Dst& dst, float2* buf,
                                    const float2* sroots, const Stages& st) {
   constexpr int M = R0 * R1 * R2;
+  constexpr int NT = kFixedThreads<T, R0, R1, R2>;
   const SmemTile tile{buf};
-  fixed_stage<R0, 1, M / R0, T>(src, tile, sroots, st.tw[0]);
+  fixed_stage<R0, 1, M / R0, T, NT>(src, tile, sroots, st.tw[0]);
   __syncthreads();
   if constexpr (R2 > 1) {
-    fixed_stage<R1, R0, R2, T>(tile, tile, sroots + R0, st.tw[1]);
+    fixed_stage<R1, R0, R2, T, NT>(tile, tile, sroots + R0, st.tw[1]);
     __syncthreads();
-    fixed_stage<R2, R0 * R1, 1, T>(tile, dst, sroots + R0 + R1, nullptr);
+    fixed_stage<R2, R0 * R1, 1, T, NT>(tile, dst, sroots + R0 + R1, nullptr);
   } else {
-    fixed_stage<R1, R0, 1, T>(tile, dst, sroots + R0, nullptr);
+    fixed_stage<R1, R0, 1, T, NT>(tile, dst, sroots + R0, nullptr);
   }
 }
 

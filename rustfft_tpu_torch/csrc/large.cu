@@ -18,7 +18,8 @@ extern "C" int rf_large_col_stage(const void* x, void* y, long long batch, int p
   if (!stages_ok(st, p) || tw_outer == nullptr) return cudaErrorInvalidValue;
   return launch_col_stage(RowsIn{static_cast<const float2*>(x), (size_t)p * (size_t)q},
                           static_cast<float2*>(y), batch, p, q, qt, st,
-                          static_cast<const float2*>(tw_outer), static_cast<cudaStream_t>(stream));
+                          FullOuter{static_cast<const float2*>(tw_outer), p},
+                          static_cast<cudaStream_t>(stream));
 }
 
 // x, y: (batch, Q, P) complex64, Q = product of the radices of `st`, pt

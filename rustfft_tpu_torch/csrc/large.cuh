@@ -9,8 +9,9 @@
 //
 // csrc/large.cu instantiates them with plain loads and stores (K2 and K3);
 // csrc/conv_radix.cu with the two-pass convolution core's gathers, sums and
-// epilogues (K14).  Two reads and two writes of the signal in device memory
-// per FFT, as on the TPU.
+// epilogues (K14); csrc/large2f.cu and csrc/large3.cu with outer twiddles
+// factored into small tables (K10, K11).  Two reads and two writes of the
+// signal in device memory per FFT, as on the TPU.
 //
 // What bounds them on this card: memory alone is 32 bytes per point over the
 // two stages.  Arithmetic is FP32 on the CUDA cores.  The TPU kernels
@@ -24,7 +25,10 @@
 // Design: the column stage's block loads a (P, qt) tile, 16 consecutive j2
 // per row (128-byte segments), runs DFT_P on its qt columns in shared memory,
 // and stores the transposed (qt, P) tile with the outer twiddle, so both the
-// loads and the stores are contiguous.  The row stage's block holds a
+// loads and the stores are contiguous.  At P = 1024..8192 (the top band's
+// column stages) the compile-time kernels hold one (P, 16384/P) tile of
+// 128 KiB in place: 16 down to 2 columns, 128- down to 16-byte segments.
+// The row stage's block holds a
 // (Q, pt) tile in shared memory: at Q = 4096 the TPU's 128-lane tile would
 // be 4 MiB; the main path's compile-time kernel takes pt = 4 (32-byte row
 // segments, one sector; 1024 threads, 128 KiB in place), the general kernel
@@ -41,6 +45,8 @@
 // row-stage sink `Dst` provides
 //   Row row(size_t b) const  // with void store(int k, float2 v) const
 //   void finish(size_t b, int p0) const  // every thread, after the stores
+// and the column stage's outer twiddle `Outer` provides
+//   float2 operator()(int j2, int k1) const  // w_n^(k1*j2), or a factor of it
 #pragma once
 
 #include "fft_tile.cuh"
@@ -85,22 +91,51 @@ struct TileOut {
   __device__ void store(int f, float2 v) const { row.store((f / T) * p + p0 + f % T, v); }
 };
 
+// Outer twiddle from a (Q, P) table [j2, k1] of n entries (K2, K14).
+struct FullOuter {
+  const float2* __restrict__ tw;
+  int p;
+  __device__ float2 operator()(int j, int k) const { return __ldg(&tw[(size_t)j * p + k]); }
+};
+
+// w_n^(K*j3) with K = k2*P1 + k1 < P = P1*P2, from wob (Q, P1) [j3, k1] =
+// w_n^(k1*j3) and wm (Q, P2) [j3, k2] = w_{n/P1}^(k2*j3): Q*(P1 + P2)
+// entries (K10's column stage).
+struct FactoredOuter {
+  const float2* __restrict__ wob;
+  const float2* __restrict__ wm;
+  int p1, p2;
+  __device__ float2 operator()(int j, int k) const {
+    const int k2 = k / p1;
+    return cmul(__ldg(&wob[(size_t)j * p1 + (k - k2 * p1)]), __ldg(&wm[(size_t)j * p2 + k2]));
+  }
+};
+
+// wob[(j mod Q), k1] from a (Q, P) table: the j3 factor of K11's pass-1
+// twiddle, j = j2*Q + j3.
+struct ModOuter {
+  const float2* __restrict__ wob;
+  int p, q;
+  __device__ float2 operator()(int j, int k) const {
+    return __ldg(&wob[(size_t)(j % q) * p + k]);
+  }
+};
+
 // The column stage's store: the tile's DFT_P output res[k1*qt + t] goes,
 // times the outer twiddle, to yb[(q0 + t)*P + k1] (contiguous in k1).
+template <class Outer>
 static __device__ __forceinline__ void store_transposed(const float2* res, float2* __restrict__ yb,
                                                         int p, int q0, int qt,
-                                                        const float2* __restrict__ tw_outer) {
+                                                        const Outer& outer) {
   for (int f = threadIdx.x; f < p * qt; f += blockDim.x) {
     const int t = f / p, k1 = f - t * p;
-    const size_t at = (size_t)(q0 + t) * p + k1;
-    yb[at] = cmul(res[swz(k1 * qt + t)], __ldg(&tw_outer[at]));
+    yb[(size_t)(q0 + t) * p + k1] = cmul(res[swz(k1 * qt + t)], outer(q0 + t, k1));
   }
 }
 
-template <class Src>
+template <class Src, class Outer>
 __global__ void __launch_bounds__(256) col_kernel(Src src, float2* __restrict__ y, int p, int q,
-                                                  int qt, Stages st,
-                                                  const float2* __restrict__ tw_outer) {
+                                                  int qt, Stages st, Outer outer) {
   extern __shared__ float2 smem[];
   const int elems = p * qt;
   float2* a = smem;
@@ -119,7 +154,7 @@ __global__ void __launch_bounds__(256) col_kernel(Src src, float2* __restrict__ 
   src.finish(batch_idx, tile, tiles, acc);
   __syncthreads();
   const float2* res = fft_tile(a, b, p, qt, st, sroots);
-  store_transposed(res, y + batch_idx * (size_t)p * (size_t)q, p, q0, qt, tw_outer);
+  store_transposed(res, y + batch_idx * (size_t)p * (size_t)q, p, q0, qt, outer);
 }
 
 template <class Dst>
@@ -150,13 +185,13 @@ __global__ void __launch_bounds__(512) row_kernel(const float2* __restrict__ x, 
 }
 
 // col_kernel for one compile-time DFT_P chain and tile width T.
-template <int T, int R0, int R1, int R2, class Src>
+template <int T, int R0, int R1, int R2, class Src, class Outer>
 __global__ void __launch_bounds__(kFixedThreads<T, R0, R1, R2>)
-    col_fixed_kernel(Src src, float2* __restrict__ y, int q, Stages st,
-                     const float2* __restrict__ tw_outer) {
+    col_fixed_kernel(Src src, float2* __restrict__ y, int q, Stages st, Outer outer) {
   constexpr int P = R0 * R1 * R2;
-  __shared__ float2 buf[P * T];
-  __shared__ float2 sroots[R0 + R1 + R2];
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  float2* sroots = smem + P * T;
   load_roots(st, sroots);
   __syncthreads();
   const int tiles = q / T;
@@ -168,7 +203,7 @@ __global__ void __launch_bounds__(kFixedThreads<T, R0, R1, R2>)
                              sroots, st);
   src.finish(batch_idx, tile, tiles, acc);
   __syncthreads();
-  store_transposed(buf, y + batch_idx * (size_t)P * (size_t)q, P, q0, T, tw_outer);
+  store_transposed(buf, y + batch_idx * (size_t)P * (size_t)q, P, q0, T, outer);
 }
 
 // row_kernel for one compile-time length-Q chain and tile width T: stage 0
@@ -193,23 +228,42 @@ __global__ void __launch_bounds__(kFixedThreads<T, R0, R1, R2>)
   dst.finish(batch_idx, p0);
 }
 
-// Launch the column stage over (batch, Q/qt) blocks: the compile-time kernel
-// for P = 16 x 16 over 16 columns, the general kernel otherwise.
-template <class Src>
+template <int T, int R0, int R1, int R2, class Src, class Outer>
+static cudaError_t launch_col_fixed(const Src& src, float2* y, long long blocks, int q,
+                                    const Stages& st, const Outer& outer, cudaStream_t s) {
+  const size_t smem = (size_t)(R0 * R1 * R2 * T + R0 + R1 + R2) * sizeof(float2);
+  cudaError_t err = allow_smem(col_fixed_kernel<T, R0, R1, R2, Src, Outer>, smem);
+  if (err != cudaSuccess) return err;
+  col_fixed_kernel<T, R0, R1, R2, Src, Outer>
+      <<<(unsigned)blocks, kFixedThreads<T, R0, R1, R2>, smem, s>>>(src, y, q, st, outer);
+  return cudaGetLastError();
+}
+
+// Launch the column stage over (batch, Q/qt) blocks: a compile-time kernel
+// for P = 16 x 16 over 16 columns and for the 128 KiB tiles of P = 1024,
+// 2048, 4096 and 8192 (ops/kernels/large.py FIXED_COL); the general kernel
+// otherwise.
+template <class Src, class Outer>
 static cudaError_t launch_col_stage(const Src& src, float2* y, long long batch, int p, int q,
-                                    int qt, const Stages& st, const float2* tw_outer,
+                                    int qt, const Stages& st, const Outer& outer,
                                     cudaStream_t s) {
   const long long blocks = batch * (q / qt);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (st.k == 2 && st.r[0] == 16 && st.r[1] == 16 && qt == 16) {
-    col_fixed_kernel<16, 16, 16, 1, Src>
-        <<<(unsigned)blocks, kFixedThreads<16, 16, 16, 1>, 0, s>>>(src, y, q, st, tw_outer);
-    return cudaGetLastError();
-  }
+  const int k = st.k, r0 = st.r[0], r1 = st.r[1], r2 = st.r[2];
+  if (k == 2 && r0 == 16 && r1 == 16 && qt == 16)
+    return launch_col_fixed<16, 16, 16, 1>(src, y, blocks, q, st, outer, s);
+  if (k == 3 && r0 == 16 && r1 == 16 && r2 == 4 && qt == 16)
+    return launch_col_fixed<16, 16, 16, 4>(src, y, blocks, q, st, outer, s);
+  if (k == 3 && r0 == 16 && r1 == 16 && r2 == 8 && qt == 8)
+    return launch_col_fixed<8, 16, 16, 8>(src, y, blocks, q, st, outer, s);
+  if (k == 3 && r0 == 16 && r1 == 16 && r2 == 16 && qt == 4)
+    return launch_col_fixed<4, 16, 16, 16>(src, y, blocks, q, st, outer, s);
+  if (k == 3 && r0 == 32 && r1 == 16 && r2 == 16 && qt == 2)
+    return launch_col_fixed<2, 32, 16, 16>(src, y, blocks, q, st, outer, s);
   const size_t smem = tile_smem_bytes(p * qt, st);
-  cudaError_t err = allow_smem(col_kernel<Src>, smem);
+  cudaError_t err = allow_smem(col_kernel<Src, Outer>, smem);
   if (err != cudaSuccess) return err;
-  col_kernel<Src><<<(unsigned)blocks, 256, smem, s>>>(src, y, p, q, qt, st, tw_outer);
+  col_kernel<Src, Outer><<<(unsigned)blocks, 256, smem, s>>>(src, y, p, q, qt, st, outer);
   return cudaGetLastError();
 }
 

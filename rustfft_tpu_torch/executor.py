@@ -29,7 +29,7 @@ from .ops import ct as op_ct
 from .ops import dft as op_dft
 from .ops import good_thomas as op_gt
 from .ops import raders as op_raders
-from .ops.kernels import conv, lanepack, large
+from .ops.kernels import conv, lanepack, large, large2f, large3
 
 # Left factors whose DFT matrix is small enough for the middle-axis matmul
 # form of a CT stage (executor.py:_MATRIX_LEAF_MAX of the JAX package).
@@ -47,7 +47,13 @@ def route(n: int, dtype) -> Optional[str]:
       'lanepack'  c64, a 2-3 radix split with radices <= 256 exists, and one
                   transform fits a block's shared memory;
       'large'     c64, n = P * q1 * q2 with P <= 512, q1, q2 <= 256 and both
-                  passes' tiles in shared memory.
+                  passes' tiles in shared memory;
+      'large2f'   c64, n = P1 * P2 * Q (large2f.choose_split2f) with the
+                  fused column stage's (P1*P2, 16384/(P1*P2)) tile in shared
+                  memory: 2^23 .. 2^25, and 2^22, which it takes from
+                  'large' (_large2f_first);
+      'large3f'   c64, n = P1 * P2 * Q (large3.choose_split3f), P2 <= 64:
+                  2^26.
 
     The route does not depend on the device: a CPU tensor runs the kernel's
     plain torch version, a CUDA tensor the kernel.
@@ -58,9 +64,27 @@ def route(n: int, dtype) -> Optional[str]:
         return None
     if lanepack.lanepack_supported(n, dtype):
         return "lanepack"
-    if large.large_supported(n, dtype):
+    if large.large_supported(n, dtype) and not _large2f_first(n, dtype):
         return "large"
+    if large2f.large2f_supported(n, dtype):
+        return "large2f"
+    if large3.large3f_supported(n, dtype):
+        return "large3f"
     return None
+
+
+def _large2f_first(n: int, dtype) -> bool:
+    """Where both two-pass routes serve n, large2f takes it when only its
+    row stage is the compile-time Q = 4096 kernel: 2^22, whose large split
+    (P = 512, Q = 8192) runs both stages on the general kernels (measured
+    3.2x slower on the H100, PERF.md).  2^21 (Q = 8192 against 2048, neither
+    compile-time) stays on large."""
+    if not large2f.large2f_supported(n, dtype):
+        return False
+    fixed = large.FIXED_ROW[0]
+    p, q1, q2 = large.choose_pqq(n)
+    q = large2f.choose_split2f(n)[4]
+    return large.stage_radices(q) == fixed and large.stage_radices(q1 * q2) != fixed
 
 
 def kernels_on(dtype) -> bool:
@@ -75,6 +99,10 @@ def _kernel_fn(n: int, direction: FftDirection, dtype) -> Optional[Callable]:
         return lanepack.make_lanepack_fn(n, direction, dtype)
     if name == "large":
         return large.make_large_fft_fn(n, direction, dtype)
+    if name == "large2f":
+        return large2f.make_large2f_fft_fn(n, direction, dtype)
+    if name == "large3f":
+        return large3.make_large3_fft_fn(n, direction, dtype, factored=True)
     return None
 
 

@@ -42,6 +42,11 @@ class DeviceTables:
         self._by_device: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
         self._lock = threading.Lock()
 
+    @property
+    def host(self) -> Tuple[np.ndarray, ...]:
+        """The host tables, as given."""
+        return self._arrays
+
     def on(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
         tables = self._by_device.get(device)
         if tables is None:

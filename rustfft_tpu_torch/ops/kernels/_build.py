@@ -55,6 +55,9 @@ _SIGNATURES = {
     "rf_conv_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 10
                          + [_int, _int, _int, _ll, _vp],
     "rf_permute": [_vp, _vp, _vp, _ll, _int, _vp],
+    "rf_large2f_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 8,
+    "rf_large3_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
+    "rf_large3_p2": [_vp, _vp, _ll, _int, _int, _int, _vp, _vp, _vp, _vp],
 }
 
 _lock = threading.Lock()

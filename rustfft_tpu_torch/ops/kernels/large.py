@@ -53,15 +53,23 @@ def stage_radices(m: int) -> Tuple[int, ...]:
 
 
 #: the row-stage chain with a compile-time kernel in csrc/large.cuh and its
-#: tile width; other chains run the general kernel.  (The column stage's
-#: compile-time chain, P = 16 x 16 over 16 columns, is what col_tile picks
-#: anyway.)
+#: tile width; other chains run the general kernel.
 FIXED_ROW = ((16, 16, 16), 4)
+
+#: the column-stage chains with a compile-time kernel in csrc/large.cuh and
+#: their tile widths: P = 256 over 16 columns, and the top band's one
+#: 128 KiB tile in place, 16384 / P columns at P = 1024 .. 8192
+FIXED_COL = {(16, 16): 16, (16, 16, 4): 16, (16, 16, 8): 8, (16, 16, 16): 4, (32, 16, 16): 2}
 
 
 def col_tile(p: int, q: int) -> Optional[int]:
-    """Columns j2 per column-stage block: 16 (128-byte row segments) where
-    it divides Q and fits shared memory, else the next smaller power of 2."""
+    """Columns j2 per column-stage block: the compile-time kernel's width
+    (FIXED_COL) where it divides Q, else 16 (128-byte row segments) where it
+    divides Q and two buffers fit shared memory, else the next smaller power
+    of 2."""
+    fixed = FIXED_COL.get(stage_radices(p))
+    if fixed is not None and q % fixed == 0:
+        return fixed
     for qt in (16, 8, 4, 2, 1):
         if q % qt == 0 and smem_bytes(p * qt, stage_radices(p)) <= _build.SMEM_MAX:
             return qt
@@ -142,7 +150,7 @@ def large_col_stage_plain(x: torch.Tensor, p: int, q: int, tables) -> torch.Tens
     """Plain torch version of large_col_stage."""
     roots, tws, outer = tables
     xt = x.reshape(-1, p, q).transpose(1, 2)  # (B, Q, P) [j2, j1]
-    return fft_stages_plain(xt, stage_radices(p), roots, tws) * outer
+    return (fft_stages_plain(xt, stage_radices(p), roots, tws) * outer).contiguous()
 
 
 def large_col_stage(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:

@@ -8,8 +8,10 @@ Batching keeps the reference contract: any buffer whose last-axis length is a
 multiple of `len` is processed as independent chunks.
 
 A torch tensor stays on its own device, output included.  Any other buffer
-goes through numpy: it is copied to the planner's device, transformed, and
-returned as a numpy array.
+goes through numpy: it is copied to the plan's device (the card unless the
+caller passes device="cpu"), transformed, and returned as a numpy array.
+With no GPU, a numpy buffer on a CUDA device raises; it is never computed
+on the CPU instead.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ class FftPlan:
     immutable after construction."""
 
     def __init__(self, recipe: recipes.Recipe, direction: FftDirection, dtype,
-                 device="cpu"):
+                 device="cuda"):
         self._recipe = recipe
         self._direction = direction
         self._dtype = canonical_complex_dtype(dtype)
@@ -76,7 +78,7 @@ class FftPlan:
         if is_tensor:
             x = buffer.to(self._torch_dtype)
         else:
-            x = torch.from_numpy(np.array(buffer, dtype=self._dtype)).to(self._device)
+            x = self._to_device(torch.from_numpy(np.array(buffer, dtype=self._dtype)))
         n = self._recipe.length
         if x.dim() == 0:
             raise FftBufferError("FFT input must have at least one dimension")
@@ -94,8 +96,17 @@ class FftPlan:
         on_device = isinstance(re, torch.Tensor)
         x = calg.from_pair(re, im, self._torch_dtype)
         if not on_device:
-            x = x.to(self._device)
+            x = self._to_device(x)
         return calg.to_pair(self.process(x))
+
+    def _to_device(self, x: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the plan's device; raises when that is a CUDA
+        device and there is no GPU."""
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"FftPlan: the plan's device is {self._device} and no CUDA GPU is available; "
+                "pass device='cpu' to the planner to compute on the CPU")
+        return x.to(self._device)
 
     @property
     def raw_fn(self):

@@ -8,8 +8,10 @@ near-balanced composite split (planner.py:348-351, 469-514), and, with the
 c64 kernels on, FftPlannerTpu's prime and awkward-composite rules
 (planner.py:355-362, 413-467, 516-569) where "aligned" reads "a convolution
 core of the port serves m with register stages only" (conv.conv_aligned).
-Whole-transform kernels are substituted by the executor, not by the recipe.  `FftPlanner` delegates to `FftPlannerGpu` and
-names the device that numpy buffers are computed on.
+Whole-transform kernels are substituted by the executor, not by the recipe.
+`FftPlanner` delegates to `FftPlannerGpu`.  Every planner names the device
+that numpy buffers are computed on: the card unless the caller passes
+device="cpu".
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ class _PlannerBase:
     #: subclasses with a native (C++ plancore) recipe designer set this
     _native_design = False
 
-    def __init__(self, dtype=np.complex64, device="cpu") -> None:
+    def __init__(self, dtype=np.complex64, device="cuda") -> None:
         self.dtype = canonical_complex_dtype(dtype)
         self.device = torch.device(device)
         # one FftCache per config state (see _recipe_cache_key)
@@ -378,12 +380,12 @@ class FftPlannerGpu(_PlannerBase):
 
 class FftPlanner(_PlannerBase):
     """Auto-dispatching planner (reference: plan.rs:67-126): delegates to
-    FftPlannerGpu.  `device` is where numpy buffers are computed; torch
-    tensors are computed on their own device."""
+    FftPlannerGpu.  `device` (default "cuda") is where numpy buffers are
+    computed; torch tensors are computed on their own device."""
 
     _recipe_cache_key = FftPlannerGpu._recipe_cache_key
 
-    def __init__(self, dtype=np.complex64, device="cpu") -> None:
+    def __init__(self, dtype=np.complex64, device="cuda") -> None:
         super().__init__(dtype, device)
         self._inner = FftPlannerGpu(dtype, device)
         # share caches so plan_fft and design_fft_for_len agree

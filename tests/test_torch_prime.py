@@ -422,7 +422,7 @@ def test_cpu_wrappers_count_no_launches():
               conv_radix.conv_row_stage.launches, permute.permute.launches)
     x = _signal(2, 1009, seed=9)
     for n in (1009, 1234, 7919, 65537):
-        rustfft_tpu_torch.FftPlanner().plan_fft_forward(n).process(_signal(1, n, seed=n))
+        rustfft_tpu_torch.FftPlanner(device="cpu").plan_fft_forward(n).process(_signal(1, n, seed=n))
     conv.make_raders_fn(1009, FftDirection.FORWARD, np.complex64)(torch.from_numpy(x))
     after = (conv.conv_fft.launches, conv_radix.conv_col_stage.launches,
              conv_radix.conv_row_stage.launches, permute.permute.launches)
@@ -621,7 +621,7 @@ def test_huge_primes_match_oracle(n):
     reference rule: 746497 -> Rader onto the two-pass core (Q = 2916 with a
     radix-27 stage, general kernels), 1000003 -> Bluestein at m = 2^21
     (Q = 8192, one column per row-stage block)."""
-    planner = rustfft_tpu_torch.FftPlanner(np.complex64)
+    planner = rustfft_tpu_torch.FftPlanner(np.complex64, device="cpu")
     plan = planner.plan_fft_forward(n)
     assert not conv.conv_aligned(n - 1, np.complex64)
     assert conv.conv_any_supported(plan.recipe.inner.length, np.complex64)

@@ -57,7 +57,7 @@ def reference_forward():
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128], ids=["c64", "c128"])
 @pytest.mark.parametrize("planner", sorted(PLANNERS))
 def test_every_size_plans_and_matches(planner, dtype, n, reference_forward):
-    port = PLANNERS[planner](dtype)
+    port = PLANNERS[planner](dtype, device="cpu")
     x = _signal(n, dtype)
     fwd = port.plan_fft_forward(n).process(x)
     inv = port.plan_fft_inverse(n).process(x)

@@ -44,7 +44,7 @@ def reference_planner():
 @pytest.mark.parametrize("n,batch", [(4096, 2), (1 << 20, 1)])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 def test_slice_matches_reference_and_oracle(n, batch, inverse, reference_planner):
-    planner = FftPlanner(np.complex64)
+    planner = FftPlanner(np.complex64, device="cpu")
     plan = planner.plan_fft_inverse(n) if inverse else planner.plan_fft_forward(n)
     ref_plan = (reference_planner.plan_fft_inverse(n) if inverse
                 else reference_planner.plan_fft_forward(n))
@@ -83,9 +83,9 @@ def test_kernel_route_equals_recipe_tree(n):
     x = torch.from_numpy(_signal((3, n), seed=n))
     old = config.kernels
     try:
-        routed = FftPlanner().plan_fft_forward(n).process(x)
+        routed = FftPlanner(device="cpu").plan_fft_forward(n).process(x)
         config.kernels = "off"
-        tree = FftPlanner().plan_fft_forward(n).process(x)
+        tree = FftPlanner(device="cpu").plan_fft_forward(n).process(x)
     finally:
         config.kernels = old
     assert _rel(routed, tree) <= TOL
@@ -93,14 +93,14 @@ def test_kernel_route_equals_recipe_tree(n):
 
 def test_round_trip_scales_by_n():
     n = 4096
-    planner = FftPlanner()
+    planner = FftPlanner(device="cpu")
     x = torch.from_numpy(_signal((4, n), seed=1))
     back = planner.plan_fft_inverse(n).process(planner.plan_fft_forward(n).process(x)) / n
     assert _rel(back, x) <= TOL
 
 
 def test_tensor_stays_tensor_and_numpy_stays_numpy():
-    plan = FftPlanner().plan_fft_forward(64)
+    plan = FftPlanner(device="cpu").plan_fft_forward(64)
     x = _signal((2, 64), seed=2)
     out_t = plan.process(torch.from_numpy(x))
     assert isinstance(out_t, torch.Tensor) and out_t.device.type == "cpu"
@@ -115,7 +115,7 @@ def test_tensor_stays_tensor_and_numpy_stays_numpy():
 
 def test_batching_contract():
     n = 1000
-    plan = FftPlanner().plan_fft_forward(n)
+    plan = FftPlanner(device="cpu").plan_fft_forward(n)
     x = _signal(3 * n, seed=3)
     flat = plan.process(x)
     assert flat.shape == (3 * n,)
@@ -132,18 +132,18 @@ def test_batching_contract():
 
 
 def test_buffer_errors():
-    plan = FftPlanner().plan_fft_forward(16)
+    plan = FftPlanner(device="cpu").plan_fft_forward(16)
     with pytest.raises(FftBufferError):
         plan.process(np.zeros(17, np.complex64))
     with pytest.raises(FftBufferError):
         plan.process(np.complex64(1.0))
     with pytest.raises(FftBufferError):
         plan.process(torch.zeros((2, 15), dtype=torch.complex64))
-    zero = FftPlanner().plan_fft_forward(0)
+    zero = FftPlanner(device="cpu").plan_fft_forward(0)
     assert zero.process(np.zeros(0, np.complex64)).shape == (0,)
     with pytest.raises(FftBufferError):
         zero.process(np.zeros(3, np.complex64))
-    one = FftPlanner().plan_fft_forward(1)
+    one = FftPlanner(device="cpu").plan_fft_forward(1)
     x = _signal(5, seed=4)
     np.testing.assert_array_equal(one.process(x), x)
     with pytest.raises(ValueError):
@@ -152,14 +152,14 @@ def test_buffer_errors():
 
 def test_primes_wait_for_a5():
     """The prime path is ported: 1009 plans as Rader's and computes."""
-    plan = FftPlanner().plan_fft_forward(1009)
+    plan = FftPlanner(device="cpu").plan_fft_forward(1009)
     assert isinstance(plan.recipe, rustfft_tpu_torch.recipes.Raders)
     x = _signal((2, 1009), seed=1009)
     assert _rel(plan.process(x), host_dft(x, FftDirection.FORWARD)) <= TOL
 
 
 def test_plan_cache_and_api_surface():
-    planner = FftPlanner(np.complex64)
+    planner = FftPlanner(np.complex64, device="cpu")
     a = planner.plan_fft_forward(4096)
     assert a is planner.plan_fft_forward(4096)
     assert a is not planner.plan_fft_inverse(4096)
@@ -171,9 +171,35 @@ def test_plan_cache_and_api_surface():
                       rustfft_tpu_torch.FftPlan)
 
 
+def test_default_device_is_the_card():
+    """Every planner and plan computes numpy buffers on the card unless the
+    caller passes device="cpu"."""
+    for planner in (FftPlanner(), rustfft_tpu_torch.FftPlannerScalar(),
+                    rustfft_tpu_torch.FftPlannerGpu()):
+        assert planner.device == torch.device("cuda")
+        assert planner.plan_fft_forward(64).device == torch.device("cuda")
+    plan = rustfft_tpu_torch.FftPlan(rustfft_tpu_torch.recipes.Dft(64), FftDirection.FORWARD,
+                                     np.complex64)
+    assert plan.device == torch.device("cuda")
+    assert FftPlanner(device="cpu").plan_fft_forward(64).device == torch.device("cpu")
+
+
+def test_numpy_on_the_default_device_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device computes there")
+    plan = FftPlanner().plan_fft_forward(64)
+    x = _signal((2, 64), seed=9)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plan.process(x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plan.process_pair(x.real, x.imag)
+    # a torch tensor stays on its own device
+    assert plan.process(torch.from_numpy(x)).device.type == "cpu"
+
+
 def test_complex128_takes_the_recipe_tree():
     n = 4096
-    planner = FftPlanner(np.complex128)
+    planner = FftPlanner(np.complex128, device="cpu")
     x = _signal((2, n), seed=6, dtype=np.complex128)
     before = _counts()
     got = planner.plan_fft_forward(n).process(x)
@@ -209,14 +235,16 @@ def test_main_path_on_card_launches_kernels():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,batch", [
     (24, 3), (210, 3), (1000, 3), (4016, 3), (7776, 3), (14400, 3),  # lanepack, general kernel
-    (16384, 3), (59049, 2), (390625, 2), (509 * 4096, 2), (1 << 22, 1),  # large, general kernels
+    (16384, 3), (59049, 2), (390625, 2), (509 * 4096, 2),  # large, general kernels
+    (1 << 22, 1),  # large2f
 ])
 def test_routed_sizes_on_card(n, batch):
     """Every kernel shape the routes reach off the main path: odd and prime
     radices, one-column tiles, a prime P as one dense stage."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
-    counter = {"lanepack": lanepack.lanepack_fft, "large": large.large_row_stage}[route(n, np.complex64)]
+    counter = {"lanepack": lanepack.lanepack_fft, "large": large.large_row_stage,
+               "large2f": large.large_row_stage}[route(n, np.complex64)]
     planner = FftPlanner(np.complex64, device="cuda")
     x = _signal((batch, n), seed=n)
     for direction in (FftDirection.FORWARD, FftDirection.INVERSE):

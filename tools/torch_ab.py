@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Time the PyTorch/CUDA port of several checkouts in turns on one GPU.
+
+Run from the repository root, naming each checkout in the order to run it
+(for example a parent unpacked with `git archive` into tmp_chip/parent,
+then this tree twice, then the parent again):
+
+    python3 tools/torch_ab.py tmp_chip/parent . . tmp_chip/parent
+
+Each checkout runs in its own process (its own import of rustfft_tpu_torch
+and its own kernel build) and times, with CUDA events (median of 7 after 2
+warm-ups; of 15 for the paths other than 2^20): K1 (`lanepack_fft`,
+16384 x 4096), K2 and K3 (`large_col_stage`, `large_row_stage`,
+64 x 2^20), and the paths 4096 x 16384, 2^20 x 1024,
+1009 x 8192, 1234 x 8192, 7919 x 4096 and 65537 x 512 through
+FftPlanner(np.complex64, device="cuda").  It prints one JSON line per run
+and then a table, each row a quantity and each column a run.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+PATHS = ((4096, 16384), (1 << 20, 1024), (1009, 8192), (1234, 8192), (7919, 4096), (65537, 512))
+
+
+def run_one(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    from rustfft_tpu_torch import FftDirection, FftPlanner
+    from rustfft_tpu_torch.ops.kernels import lanepack, large
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def ms(fn, reps=7, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def on(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    out = {}
+    n = 4096
+    radices = lanepack.choose_radices(n)
+    x = torch.randn((16384, n), dtype=torch.complex64, generator=gen, device=dev)
+    tables = tuple(on(t) for t in lanepack.stage_tables(n, radices, FftDirection.FORWARD))
+    out["K1 lanepack_fft 16384x4096"] = ms(lambda: lanepack.lanepack_fft(x, radices, tables))
+    n = 1 << 20
+    p, q1, q2 = large.choose_pqq(n)
+    q = q1 * q2
+    r, t, outer = large.col_tables(p, q, FftDirection.FORWARD)
+    col = (on(r), on(t), on([outer])[0])
+    row = tuple(on(v) for v in large.row_tables(q, FftDirection.FORWARD))
+    x = torch.randn((64, n), dtype=torch.complex64, generator=gen, device=dev)
+    a = large.large_col_stage(x, p, q, col)
+    out["K2 large_col_stage 64x2^20"] = ms(lambda: large.large_col_stage(x, p, q, col))
+    out["K3 large_row_stage 64x2^20"] = ms(lambda: large.large_row_stage(a, q, p, row))
+    del x, a
+    planner = FftPlanner(np.complex64, device="cuda")
+    for n, batch in PATHS:
+        torch.cuda.empty_cache()
+        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+        plan = planner.plan_fft_forward(n)
+        out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=7 if n == 1 << 20 else 15)
+        del x
+    return out
+
+
+def main() -> None:
+    if len(sys.argv) > 2 and sys.argv[1] == "--one":
+        print(json.dumps(run_one(sys.argv[2])), flush=True)
+        return
+    roots = sys.argv[1:]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card, flush=True)
+    runs = []
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise SystemExit(f"{root}: exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
+        line = proc.stdout.strip().splitlines()[-1]
+        print(f"{root}: {line}", flush=True)
+        runs.append(json.loads(line))
+    print("ms (CUDA events, median); runs: " + ", ".join(roots))
+    for key in runs[0]:
+        print(f"  {key:32s} " + " ".join(f"{r[key]:9.3f}" for r in runs))
+
+
+if __name__ == "__main__":
+    main()
