@@ -20,15 +20,21 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    The top power-of-two band at batch 1: large2f's fused column stage at
    P = 2048, 4096 and 8192 and the row stage after it, large3f's pass 1
    (the modular j3 twiddle), its pass 2 with the j2 factor on and off, and
-   the row stage at P = 16384;
+   the row stage at P = 16384.  The one-pass mid band at batch 2: radix_fft
+   at r = 2, 4, 8 and 16 (one cluster of r blocks per transform; the
+   cudaOccupancyMaxActiveClusters of each r is printed), two_stage_fft at
+   16384 (the radix body at R = 1), 20480, 24576 and 14464 (a prime p = 113)
+   and three_stage_fft at K8's split (128, 8, 16);
 3. the main paths through the public entry,
    FftPlanner(np.complex64, device="cuda").plan_fft_forward/inverse(n)
    .process(x): n = 4096 at batch 8 and 16384, n = 2^20 at batch 1024
    (the flagship n; batch cut from 4096 so that input, intermediate and
    output fit the card), the prime path at 1009 x 8192, 1234 x 8192,
    7919 x 4096 and 65537 x 512 (the JAX bench's rows and the 7919 cell),
-   and the top band at 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX bench's rows)
-   and 2^26 x 2.  Every launch counter is set to 0 just before each run and
+   the top band at 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX bench's rows)
+   and 2^26 x 2, and the mid band at 16384 x 4096 and 24576 x 2048
+   (two_stage), 32768 x 2048, 65536 x 1024 (the JAX bench's row),
+   131072 x 512 and 262144 x 256 (radix).  Every launch counter is set to 0 just before each run and
    read just after: each path must launch exactly its kernels.  Errors
    against a float64 numpy oracle on 4 rows (1 row from 2^23 up) and
    against torch.fft (an oracle only) on the whole batch, and the round
@@ -43,7 +49,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    transform; 1234 three ways (whole-n Bluestein at m = 3072 and 2592, and
    MixedRadix(2, Raders(617))); 2^24 x 4 also through the recipe tree the
    planner designs (MixedRadix(4096, 4096) on lanepack leaves); 2^22 x 16
-   through the large and the large2f routes.
+   through the large and the large2f routes; every mid-band path against
+   the large route it replaced, and three_stage_fft at 16384 x 4096.
+   The two-stage kernel's general body is reported at 24576; its phase 2
+   checks at 20480 and 14464 count into that entry's max_abs_err.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -70,6 +79,13 @@ FP32_FLOPS = 67e12
 
 #: the top band's paths: n -> batch, and the tag of their kernel entries
 TOP = {1 << 23: 8, 1 << 24: 4, 1 << 25: 2, 1 << 26: 2}
+
+#: the one-pass mid band's paths: n -> batch (256-512 MiB each)
+MID = {16384: 4096, 24576: 2048, 1 << 15: 2048, 1 << 16: 1024, 1 << 17: 512, 1 << 18: 256}
+
+#: kernels ported and checked but on no route (the JAX package routes none
+#: of them either)
+NOT_ROUTED = {"three_stage_fft"}
 
 #: every ported kernel: (its source, the TPU kernel it replaces); conv_fft
 #: serves K13 and K6, reported at the shape of each
@@ -98,6 +114,16 @@ KERNELS["large3_p2/2^26"] = ("rustfft_tpu_torch/csrc/large3.cu",
                              "rustfft_tpu/ops/pallas/large3.py:194")
 KERNELS["large_row_stage/2^26"] = ("rustfft_tpu_torch/csrc/large.cu",
                                    "rustfft_tpu/ops/pallas/large3.py:221")
+#: the mid band: K9 at every r, K7 at 16384 (the radix body at R = 1) and at
+#: 24576 (the general in-place body), K8 at its split of 16384
+for _t in ("2^15", "2^16", "2^17", "2^18"):
+    KERNELS[f"radix_fft/{_t}"] = ("rustfft_tpu_torch/csrc/fused.cu",
+                                  "rustfft_tpu/ops/pallas/fused.py:1212")
+for _n in (16384, 24576):
+    KERNELS[f"two_stage_fft/{_n}"] = ("rustfft_tpu_torch/csrc/fused.cu",
+                                      "rustfft_tpu/ops/pallas/fused.py:439")
+KERNELS["three_stage_fft/16384"] = ("rustfft_tpu_torch/csrc/fused.cu",
+                                   "rustfft_tpu/ops/pallas/fused.py:711")
 
 
 def tag(n: int) -> str:
@@ -182,7 +208,7 @@ def main() -> None:
     from rustfft_tpu_torch import FftDirection, FftPlanner, executor, recipes, route
     from rustfft_tpu_torch.ops.bluestein import bluestein_tables
     from rustfft_tpu_torch.ops.kernels import (
-        _build, conv, conv_radix, lanepack, large, large2f, large3, permute,
+        _build, conv, conv_radix, fused, lanepack, large, large2f, large3, permute,
     )
     from rustfft_tpu_torch.ops.raders import raders_tables
     from rustfft_tpu_torch.twiddles import host_dft
@@ -196,6 +222,30 @@ def main() -> None:
 
     def on_card(arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    def card_tables(tables):
+        """A kernel's host tables (arrays and lists of arrays) on the card."""
+        return tuple(on_card(t) if isinstance(t, list) else torch.from_numpy(t).to(dev)
+                     for t in tables)
+
+    def table_bytes(tables):
+        return sum(8 * a.size for t in tables for a in (t if isinstance(t, list) else [t]))
+
+    def mid_kernel(n, d):
+        """(name, kernel(x), plain(x), host tables) of the mid-band kernel
+        routed at n."""
+        if fused.radix_supported(n, np.complex64):
+            r = n // (128 * 128)
+            host = fused.radix_tables(r, 128, 128, d)
+            tabs = card_tables(host)
+            return (f"radix_fft/{tag(n)}", lambda x: fused.radix_fft(x, r, 128, tabs),
+                    lambda x: fused.radix_fft_plain(x, r, 128, tabs), host)
+        p, q = fused.choose_pq(n)
+        host = fused.two_stage_tables(p, large.stage_radices(q), d)
+        tabs = card_tables(host)
+        name = "two_stage_fft/16384" if (p, q) == (128, 128) else "two_stage_fft/24576"
+        return (name, lambda x: fused.two_stage_fft(x, p, q, tabs),
+                lambda x: fused.two_stage_fft_plain(x, p, q, tabs), host)
 
     directions = (FftDirection.FORWARD, FftDirection.INVERSE)
 
@@ -401,6 +451,29 @@ def main() -> None:
     del x, a, b, y
     free()
 
+    # the one-pass mid band at batch 2: radix_fft at every r, two_stage_fft
+    # at the band's shapes (16384 on the radix body, the others on the
+    # general in-place kernel, 14464 with a prime p = 113), three_stage_fft
+    # at K8's split
+    print("  cudaOccupancyMaxActiveClusters of radix_fft: " + ", ".join(
+        f"r={r} {fused.radix_max_active_clusters(r)}" for r in (2, 4, 8, 16)), flush=True)
+    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 18, 16384, 20480, 24576, 14464):
+        x = signal(2, n)
+        for d in directions:
+            name, kernel, plain, _ = mid_kernel(n, d)
+            got = kernel(x)
+            torch.cuda.synchronize()
+            note(name, got, plain(x), f"{name.split('/')[0]} n={n} batch=2 {d.name}")
+    x = signal(2, 16384)
+    for d in directions:
+        tabs = card_tables(fused.two_stage_tables(128, (8, 16), d))
+        got = fused.three_stage_fft(x, 128, 8, 16, tabs)
+        torch.cuda.synchronize()
+        note("three_stage_fft/16384", got, fused.three_stage_fft_plain(x, 128, 8, 16, tabs),
+             f"three_stage_fft n=16384 (128, 8, 16) batch=2 {d.name}")
+    del x, got
+    free()
+
     # ---- phase 3: the main path through the public entry ----
     print("phase 3: main path, FftPlanner(np.complex64, device='cuda')", flush=True)
     counters = {"lanepack_fft": lanepack.lanepack_fft,
@@ -412,10 +485,14 @@ def main() -> None:
                 "permute": permute.permute,
                 "large2f_col_stage": large2f.large2f_col_stage,
                 "large3_col_stage": large3.large3_col_stage,
-                "large3_p2": large3.large3_p2}
+                "large3_p2": large3.large3_p2,
+                "radix_fft": fused.radix_fft,
+                "two_stage_fft": fused.two_stage_fft,
+                "three_stage_fft": fused.three_stage_fft}
     planner = FftPlanner(np.complex64, device="cuda")
     assert route(4096, np.complex64) == "lanepack" and route(1 << 20, np.complex64) == "large"
     assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 3 + ["large3f"]
+    assert [route(n, np.complex64) for n in MID] == ["two_stage"] * 2 + ["radix"] * 4
     main_launches = {name: 0 for name in counters}
     path_launches = {}
 
@@ -454,6 +531,8 @@ def main() -> None:
         *((n, batch, {"large2f_col_stage": 1, "large_row_stage": 1} if n < 1 << 26 else
            {"large3_col_stage": 1, "large3_p2": 1, "large_row_stage": 1})
           for n, batch in TOP.items()),
+        *((n, batch, {"radix_fft" if n >= 1 << 15 else "two_stage_fft": 1})
+          for n, batch in MID.items()),
     )
     for n, batch, expected in paths:
         fwd = planner.plan_fft_forward(n)
@@ -479,7 +558,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
     print(f"  launches on the main paths: {main_launches}", flush=True)
     for name, count in main_launches.items():
-        if count == 0:
+        if count == 0 and name not in NOT_ROUTED:
             raise AssertionError(f"{name} was not launched on the main paths")
 
     # ---- phase 4: times ----
@@ -759,11 +838,54 @@ def main() -> None:
     del x, want
     free()
 
+    # the one-pass mid band at its paths' shapes: each kernel against its
+    # plain version, then times, the achieved rate and the bound; each path
+    # against torch.fft and against the large route it replaced
+    for n, batch in MID.items():
+        x = signal(batch, n)
+        name, kernel, plain, host = mid_kernel(n, FftDirection.FORWARD)
+        note(name, kernel(x), plain(x), f"{name} n={n} batch={batch} (the main path's shape)")
+        free()
+        k = median_ms(lambda: kernel(x))
+        plain_ms = median_ms(lambda: plain(x))
+        lib = median_ms(lambda: torch.fft.fft(x))
+        print(f"  {name} n={n} batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s",
+              flush=True)
+        # the DFT's 5 n log2 n and the merged, c- (radix) or outer (two-stage) twiddles
+        record(name, k, plain_ms, 16 * batch * n + table_bytes(host),
+               batch * (fft_ops(n) + 6 * n * (3 if name.startswith("radix") else 1)), lib)
+        plan = planner.plan_fft_forward(n)
+        path = median_ms(lambda: plan.process(x))
+        old = large.make_large_fft_fn(n, FftDirection.FORWARD, np.complex64)
+        check(f"n={n} x {batch} via the large route vs torch.fft", rel_err(old(x), torch.fft.fft(x)))
+        free()
+        old_ms = median_ms(lambda: old(x))
+        print(f"  mid-band path n={n} batch={batch} ({route(n, np.complex64)}): {path:.3f} ms "
+              f"({gflops(n, batch, path):.0f} GF/s); the large route {old_ms:.3f} ms "
+              f"({gflops(n, batch, old_ms):.0f} GF/s); torch.fft {lib:.3f} ms "
+              f"({gflops(n, batch, lib):.0f} GF/s)", flush=True)
+        if n == 16384:
+            host = fused.two_stage_tables(128, (8, 16), FftDirection.FORWARD)
+            tabs = card_tables(host)
+            name = "three_stage_fft/16384"
+            note(name, fused.three_stage_fft(x, 128, 8, 16, tabs),
+                 fused.three_stage_fft_plain(x, 128, 8, 16, tabs),
+                 f"{name} (128, 8, 16) batch={batch} (the two-stage path's shape)")
+            free()
+            k = median_ms(lambda: fused.three_stage_fft(x, 128, 8, 16, tabs))
+            plain_ms = median_ms(lambda: fused.three_stage_fft_plain(x, 128, 8, 16, tabs))
+            print(f"  {name} batch={batch} (not routed):", flush=True)
+            record(name, k, plain_ms, 16 * batch * n + table_bytes(host),
+                   batch * (fft_ops(n) + 6 * n), lib)
+        del x
+        free()
+
     def launches_of(name):
         base, _, where = name.partition("/")
         if not where:
             return main_launches[base]
-        n = {"K6": 1009, "K13": 1234}.get(where) or 1 << int(where[2:])
+        n = {"K6": 1009, "K13": 1234}.get(where)
+        n = n or (1 << int(where[2:]) if where.startswith("2^") else int(where))
         return path_launches[n][base]
 
     kernels = [

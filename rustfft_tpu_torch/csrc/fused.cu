@@ -1,0 +1,583 @@
+// The one-pass mid band: the ports of K9 (radix_fft) and K7/K8
+// (two_stage_fft, three_stage_fft).
+//
+// Replaces rustfft_tpu/ops/pallas/fused.py.  Each kernel makes one read and
+// one write of the signal in device memory, 16 bytes per point (1.07 GB at
+// 65536 x 1024: 0.32 ms at 3.35 TB/s); the FP32 work, 5*n*log2(n) plus the
+// twiddles, is far under the card's peak.  What is left between them and
+// that bound is latency: one 512-thread block per SM (the tile fills its
+// shared memory), whose loads, stages and stores run in turn.  Every stage
+// holds one column of at most 16 values a thread at a time, so neither
+// kernel spills at 512 threads.
+//
+// radix_fft (K9: fused.py _fused_kernel_vpur, _ctw, _ctwg, _ctwgn, _ctwgx,
+// one function in five TPU layouts).  n = r * 128 * 128 is 256 KiB .. 2 MiB
+// at r = 2 .. 16, more than one SM's 227 KB of shared memory, so one
+// transform is one thread-block cluster of r blocks (cudaLaunchKernelEx with
+// a cluster dimension; r = 16 is a non-portable cluster size), block a
+// holding the 128 x 128 slice x[b, a, j2] (128 KiB), j = b*rq + a*q + j2:
+//   1. stage A: DFT_128 over b for every j2 (the chain (16, 8), read
+//      straight from device memory in 1 KiB row segments), A[d, j2] in the
+//      tile (row place_row(d));
+//   2. cluster barrier, then the DFT_r across the cluster through
+//      distributed shared memory: block t takes the points (d, j2) of its
+//      1/r share, reads A_a[d, j2] from every block a, multiplies by
+//      w_rp^(a*d), runs the radix-2 chain in registers (fft_pow2_reg<R>),
+//      multiplies output c by w_n^(j2*d) * w_rq^(c*j2) and writes it into
+//      block c's tile at the same place.  The shares are disjoint, so this
+//      is safe in place.  The TPU kernels' merged table w_n^((a*q+j2)*d) of
+//      n entries is factored into t1 (r, 128) and tn (128, 128);
+//   3. cluster barrier again (no block leaves while a peer reads it), then
+//      stage B: DFT_128 over j2 for every d (the tile read transposed) and
+//      the store in natural order at k2*rp + c*p + d, 1 KiB segments.
+// With R = 1 the same body, without a cluster, is the two-stage kernel at
+// 16384 = 128 x 128 (tn is then its outer twiddle w_n^(k1*j2)).
+//
+// two_stage_fft (K7: fused.py _fused_kernel, _fused_kernel_gauss,
+// _fused_kernel_twodot; K8: _fused_kernel_3s with DFT_q as the chain
+// (q1, q2)).  n = p * q up to 28800 (225 KiB): one block per transform with
+// the whole transform in one shared buffer, so every stage runs in place:
+// a stage's column writes its outputs where it read its inputs, and the
+// store reads each natural index from its digit-reversed place through two
+// small index tables (p + q ints).  Register radices load one column into
+// registers; a roots-table radix (a prime p such as 113) gives a column's
+// ceil(r/8) chunks of 8 outputs to neighbouring lanes of one warp, which
+// read every input before __syncwarp() and write after it.  DFT_p over j1
+// for every j2, the outer twiddle w_n^(k1*j2) from a (q, p) table folded
+// into DFT_p's last stage, DFT_q over j2 for every k1, the store at
+// k = k2*p + k1.
+#include <cooperative_groups.h>
+#include <stdint.h>
+
+#include "fft_tile.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace rf {
+
+constexpr int kSlice = 128;                 // p = q of the radix split
+constexpr int kSliceElems = kSlice * kSlice;
+constexpr int kSliceRoots = 16 + 8;         // the DFT_128 chain (16, 8)
+constexpr int kFusedThreads = 512;
+constexpr int kTwoStageThreads = 512;
+
+// The DFT_128 chain (16, 8) of the port (fft_tile.cuh: DIT, the top digit
+// first, the inter-stage twiddle tw[k0][j1] = w_128^(k0*j1)) over one axis
+// of the 128 x 128 tile, one column per thread at a time.  A stage that
+// reads the tile writes a column's outputs where it read its inputs (or to
+// device memory), so no stage needs a barrier inside it: the chain over the
+// rows b leaves frequency d = k0 + 16*k1 at row k0*8 + k1 (place_row), not
+// at row d.
+
+// Row of the tile that holds frequency d after stage A.
+static __device__ __forceinline__ int place_row(int d) { return (d & 15) * 8 + (d >> 4); }
+
+// Stage A: DFT_128 over the rows b = j0*8 + j1 of the slice x[b, :] (rows
+// kLd apart in device memory).
+template <int kLd>
+static __device__ __forceinline__ void slice_dft_rows(const float2* __restrict__ x, float2* buf,
+                                                      const float2* __restrict__ sroots,
+                                                      const float2* __restrict__ tw) {
+  // radix 16 over j0 for each (j1, t), from device memory to row k0*8 + j1
+  for (int c = threadIdx.x; c < 1024; c += kFusedThreads) {
+    float2 v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = x[(j * 8 + (c >> 7)) * kLd + (c & (kSlice - 1))];
+    fft_pow2_reg<16>(v, sroots);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) buf[swz(bitrev<16>(i) * 1024 + c)] = v[i];
+  }
+  __syncthreads();
+  // twiddle and radix 8 over j1 for each (k0, t), in place
+  for (int c = threadIdx.x; c < 2048; c += kFusedThreads) {
+    const int k0 = c >> 7;
+    const int base = k0 * 1024 + (c & (kSlice - 1));
+    float2 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = buf[swz(base + j * kSlice)];
+      if (j > 0) v[j] = cmul(v[j], tw[k0 * 8 + j]);
+    }
+    fft_pow2_reg<8>(v, sroots + 16);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) buf[swz(base + bitrev<8>(i) * kSlice)] = v[i];
+  }
+}
+
+// Stage B: DFT_128 over the columns j2 = j0*8 + j1 of the tile for every
+// frequency d, stored in natural order y[k2*kLd + d].
+template <int kLd>
+static __device__ __forceinline__ void slice_dft_cols(float2* buf, float2* __restrict__ y,
+                                                      const float2* __restrict__ sroots,
+                                                      const float2* __restrict__ tw) {
+  // radix 16 over j0 for each (row, j1), in place
+  for (int c = threadIdx.x; c < 1024; c += kFusedThreads) {
+    const int base = (c & (kSlice - 1)) * kSlice + (c >> 7);
+    float2 v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = buf[swz(base + j * 8)];
+    fft_pow2_reg<16>(v, sroots);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) buf[swz(base + bitrev<16>(i) * 8)] = v[i];
+  }
+  __syncthreads();
+  // twiddle and radix 8 over j1 for each (d, k0), to k2 = k0 + 16*k1
+  for (int c = threadIdx.x; c < 2048; c += kFusedThreads) {
+    const int d = c & (kSlice - 1), k0 = c >> 7;
+    const int base = place_row(d) * kSlice + k0 * 8;
+    float2 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = buf[swz(base + j)];
+      if (j > 0) v[j] = cmul(v[j], tw[k0 * 8 + j]);
+    }
+    fft_pow2_reg<8>(v, sroots + 16);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) y[(k0 + 16 * bitrev<8>(i)) * kLd + d] = v[i];
+  }
+}
+
+// Distributed shared memory by 32-bit shared::cluster addresses, mapped
+// once per access, so that no 64-bit pointer to a peer's tile stays live.
+static __device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(local), "r"(rank));
+  return out;
+}
+
+static __device__ __forceinline__ float2 peer_load(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+static __device__ __forceinline__ void peer_store(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
+               :: "r"(addr), "f"(v.x), "f"(v.y) : "memory");
+}
+
+template <int R>
+static __device__ __forceinline__ void cluster_barrier() {
+  if constexpr (R > 1) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kFusedThreads)
+    radix_kernel(const float2* __restrict__ x, float2* __restrict__ y, Stages st,
+                 const float2* __restrict__ t1, const float2* __restrict__ tn,
+                 const float2* __restrict__ rroots, const float2* __restrict__ cfac) {
+  constexpr int N = R * kSliceElems;
+  constexpr int kShare = kSliceElems / R;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  // the small tables in shared memory: the chain's roots, w_R^e, the
+  // chain's twiddle (16, 8), t1 (R, 128) and cfac (R, 128)
+  float2* sroots = smem + kSliceElems;
+  float2* stw = sroots + kSliceRoots + R;
+  float2* st1 = stw + kSlice;
+  float2* scfac = st1 + R * kSlice;
+  load_roots(st, sroots);
+  for (int i = threadIdx.x; i < R; i += blockDim.x) sroots[kSliceRoots + i] = rroots[i];
+  for (int i = threadIdx.x; i < kSlice; i += blockDim.x) stw[i] = st.tw[0][i];
+  if constexpr (R > 1) {
+    for (int i = threadIdx.x; i < R * kSlice; i += blockDim.x) {
+      st1[i] = t1[i];
+      scfac[i] = cfac[i];
+    }
+  }
+  __syncthreads();
+  int a = 0;
+  if constexpr (R > 1) a = (int)cg::this_cluster().block_rank();
+  const size_t base = (size_t)(blockIdx.x / R) * (size_t)N;
+  constexpr int kLd = R * kSlice;
+
+  // stage A: DFT_128 over b of the slice x[b, a, :]
+  slice_dft_rows<kLd>(x + base + a * kSlice, buf, sroots, stw);
+  cluster_barrier<R>();
+
+  // the twiddles and the DFT_r across the cluster, on this block's share
+  for (int f = a * kShare + threadIdx.x; f < (a + 1) * kShare; f += blockDim.x) {
+    const int i = f >> 7, j2 = f & (kSlice - 1);
+    const int d = (i >> 3) + 16 * (i & 7);  // row i = place_row(d)
+    const int s = swz(f);
+    const uint32_t local = (uint32_t)__cvta_generic_to_shared(buf + s);
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (R > 1) {
+        v[r] = peer_load(peer_addr(local, r));
+      } else {
+        v[r] = buf[s];
+      }
+      if (r > 0) v[r] = cmul(v[r], st1[r * kSlice + d]);
+    }
+    fft_pow2_reg<R>(v, sroots + kSliceRoots);  // v[bitrev(c)] = C[c]
+    const float2 w = __ldg(&tn[j2 * kSlice + d]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int c = bitrev<R>(r);
+      float2 z = cmul(v[r], w);
+      if (c > 0) z = cmul(z, scfac[c * kSlice + j2]);
+      if constexpr (R > 1) {
+        peer_store(peer_addr(local, c), z);
+      } else {
+        buf[s] = z;
+      }
+    }
+  }
+  cluster_barrier<R>();
+
+  // stage B: DFT_128 over j2 for every d, stored at k2*rp + c*p + d (c = a)
+  slice_dft_cols<kLd>(buf, y + base + a * kSlice, sroots, stw);
+}
+
+static size_t radix_smem_bytes(int r) {
+  return (size_t)(kSliceElems + kSliceRoots + r + kSlice + 2 * r * kSlice) * sizeof(float2);
+}
+
+template <int R>
+static cudaError_t radix_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                                long long batch, cudaStream_t s) {
+  const size_t smem = radix_smem_bytes(R);
+  cudaError_t err = allow_smem(radix_kernel<R>, smem);
+  if (err != cudaSuccess) return err;
+  if constexpr (R > 8) {
+    err = cudaFuncSetAttribute(radix_kernel<R>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(batch * R), 1, 1);
+  cfg.blockDim = dim3(kFusedThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = R;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = R > 1 ? 1 : 0;
+  return cudaSuccess;
+}
+
+template <int R>
+static cudaError_t launch_radix(const float2* x, float2* y, long long batch, const Stages& st,
+                                const float2* t1, const float2* tn, const float2* rroots,
+                                const float2* cfac, cudaStream_t s) {
+  if (batch * R > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = radix_config<R>(cfg, attr, batch, s);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, radix_kernel<R>, x, y, st, t1, tn, rroots, cfac);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int R>
+static cudaError_t max_active_clusters(int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = radix_config<R>(cfg, attr, 1, 0);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out, radix_kernel<R>, &cfg);
+}
+
+// ---- the in-place stages of the general two-stage kernel --------------------
+
+// The outer twiddle w_n^(k1*j2), folded into the last stage of the DFT_p
+// chain: a column whose lead is l (a place over the chain's earlier radices
+// r0[, r1]) and whose T-index is j2 gives output k the frequency
+// k1 = natural(l) + k*lead.  outer null: no fold.
+struct OuterFold {
+  const float2* __restrict__ outer;  // (q, p) [j2, k1]
+  int p;
+  int r1;                            // the second of two earlier radices, else 1
+  int r0;                            // the first earlier radix, else 1
+  __device__ float2 operator()(float2 v, int l, int lead, int k, int j2) const {
+    const int kb = r1 > 1 ? l / r1 + r0 * (l % r1) : l;
+    return cmul(v, __ldg(&outer[(size_t)j2 * p + kb + k * lead]));
+  }
+};
+
+// One register-radix stage in place: (lead, R, rest, T) -> the same places,
+// output k where input k was read, times tw[k][j'] when tw is not null and
+// times the outer twiddle when fold.outer is not null.
+template <int R>
+static __device__ void stage_reg_inplace(float2* buf, int lead, int rest, int T,
+                                         const float2* __restrict__ roots,
+                                         const float2* __restrict__ tw, const OuterFold& fold) {
+  const int step = rest * T;
+  const int ncols = lead * step;
+  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+    const int l = c / step;
+    const int rt = c - l * step;
+    const int base = l * R * step + rt;
+    float2 x[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) x[j] = buf[swz(base + j * step)];
+    const int jr = rt / T;
+    dft_column<R>(x, roots, [&](int k, float2 v) {
+      if (tw != nullptr) v = cmul(v, __ldg(&tw[k * rest + jr]));
+      if (fold.outer != nullptr) v = fold(v, l, lead, k, rt - jr * T);
+      buf[swz(base + k * step)] = v;
+    });
+  }
+}
+
+// One roots-table stage in place, any radix r <= 256: the nchunks =
+// ceil(r/8) chunks of a column are neighbouring lanes of one warp, which
+// all read the column before __syncwarp() and overwrite it after.
+static __device__ void stage_table_inplace(float2* buf, int r, int lead, int rest, int T,
+                                           const float2* __restrict__ roots,
+                                           const float2* __restrict__ tw, const OuterFold& fold) {
+  const int step = rest * T;
+  const int ncols = lead * step;
+  const int nchunks = (r + kChunk - 1) / kChunk;
+  const int per_warp = 32 / nchunks;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / nchunks;
+  const int k0 = (lane - sub * nchunks) * kChunk;
+  const int nwarps = blockDim.x >> 5;
+  for (int c0 = (threadIdx.x >> 5) * per_warp; c0 < ncols; c0 += nwarps * per_warp) {
+    const int c = c0 + sub;
+    const bool active = sub < per_warp && c < ncols;
+    const int l = active ? c / step : 0;
+    const int rt = active ? c - l * step : 0;
+    const int base = l * r * step + rt;
+    float2 acc[kChunk];
+    int e[kChunk], inc[kChunk];
+#pragma unroll
+    for (int g = 0; g < kChunk; ++g) {
+      acc[g] = make_float2(0.f, 0.f);
+      e[g] = 0;
+      inc[g] = (k0 + g < r) ? k0 + g : 0;
+    }
+    if (active) {
+      for (int j = 0; j < r; ++j) {
+        const float2 a = buf[swz(base + j * step)];
+#pragma unroll
+        for (int g = 0; g < kChunk; ++g) {
+          const float2 w = roots[e[g]];
+          acc[g].x = fmaf(a.x, w.x, fmaf(-a.y, w.y, acc[g].x));
+          acc[g].y = fmaf(a.x, w.y, fmaf(a.y, w.x, acc[g].y));
+          e[g] += inc[g];
+          if (e[g] >= r) e[g] -= r;
+        }
+      }
+    }
+    __syncwarp();
+    if (active) {
+      const int jr = rt / T;
+#pragma unroll
+      for (int g = 0; g < kChunk; ++g) {
+        const int k = k0 + g;
+        if (k < r) {
+          float2 v = acc[g];
+          if (tw != nullptr) v = cmul(v, __ldg(&tw[k * rest + jr]));
+          if (fold.outer != nullptr) v = fold(v, l, lead, k, rt - jr * T);
+          buf[swz(base + k * step)] = v;
+        }
+      }
+    }
+  }
+}
+
+static __device__ void run_stage_inplace(float2* buf, int r, int lead, int rest, int T,
+                                         const float2* roots, const float2* tw,
+                                         const OuterFold& fold) {
+  switch (r) {
+    case 2: stage_reg_inplace<2>(buf, lead, rest, T, roots, tw, fold); break;
+    case 3: stage_reg_inplace<3>(buf, lead, rest, T, roots, tw, fold); break;
+    case 4: stage_reg_inplace<4>(buf, lead, rest, T, roots, tw, fold); break;
+    case 5: stage_reg_inplace<5>(buf, lead, rest, T, roots, tw, fold); break;
+    case 6: stage_reg_inplace<6>(buf, lead, rest, T, roots, tw, fold); break;
+    case 7: stage_reg_inplace<7>(buf, lead, rest, T, roots, tw, fold); break;
+    case 8: stage_reg_inplace<8>(buf, lead, rest, T, roots, tw, fold); break;
+    case 9: stage_reg_inplace<9>(buf, lead, rest, T, roots, tw, fold); break;
+    case 12: stage_reg_inplace<12>(buf, lead, rest, T, roots, tw, fold); break;
+    case 16: stage_reg_inplace<16>(buf, lead, rest, T, roots, tw, fold); break;
+    default: stage_table_inplace(buf, r, lead, rest, T, roots, tw, fold); break;
+  }
+}
+
+// The chain over a length-m axis of `lead` blocks of T interleaved
+// transforms, in place, with the outer twiddle `outer` (or null) folded
+// into its last stage; every thread has passed a barrier after it.
+static __device__ void chain_inplace(float2* buf, int m, int lead, int T, const Stages& st,
+                                     const float2* sroots, const float2* outer, int p) {
+  int rest = m, off = 0;
+  for (int s = 0; s < st.k; ++s) {
+    const int r = st.r[s];
+    rest /= r;
+    const bool last = s + 1 == st.k;
+    const OuterFold fold{last ? outer : nullptr, p, s == 2 ? st.r[1] : 1, s >= 1 ? st.r[0] : 1};
+    run_stage_inplace(buf, r, lead, rest, T, sroots + off, last ? nullptr : st.tw[s], fold);
+    __syncthreads();
+    lead *= r;
+    off += r;
+  }
+}
+
+// Where the in-place chain leaves natural output k of its length-m axis:
+// digit k_s (k = k_0 + r_0*k_1 + r_0*r_1*k_2) at stride m / (r_0..r_s).
+static __device__ __forceinline__ int place_of(int k, int m, const Stages& st) {
+  int place = 0;
+  for (int s = 0; s < st.k; ++s) {
+    m /= st.r[s];
+    const int ks = k % st.r[s];
+    k /= st.r[s];
+    place += ks * m;
+  }
+  return place;
+}
+
+// Loads and stores of a whole transform, kIo per thread in flight.
+constexpr int kIo = 4;
+
+__global__ void __launch_bounds__(kTwoStageThreads)
+    two_stage_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
+                     Stages sp, Stages sq, const float2* __restrict__ outer) {
+  extern __shared__ float2 smem[];
+  const int n = p * q;
+  float2* buf = smem;
+  float2* roots_p = smem + pad16(n);
+  float2* roots_q = roots_p + sp.r[0] + (sp.k > 1 ? sp.r[1] : 0) + (sp.k > 2 ? sp.r[2] : 0);
+  int* prow = reinterpret_cast<int*>(roots_q + sq.r[0] + (sq.k > 1 ? sq.r[1] : 0) +
+                                     (sq.k > 2 ? sq.r[2] : 0));
+  int* qcol = prow + p;
+  load_roots(sp, roots_p);
+  load_roots(sq, roots_q);
+  for (int k = threadIdx.x; k < p; k += blockDim.x) prow[k] = place_of(k, p, sp) * q;
+  for (int k = threadIdx.x; k < q; k += blockDim.x) qcol[k] = place_of(k, q, sq);
+  const size_t base = (size_t)blockIdx.x * (size_t)n;
+  const int stride = kIo * (int)blockDim.x;
+  for (int j0 = threadIdx.x; j0 < n; j0 += stride) {
+    float2 v[kIo];
+#pragma unroll
+    for (int u = 0; u < kIo; ++u) {
+      const int j = j0 + u * (int)blockDim.x;
+      if (j < n) v[u] = x[base + j];
+    }
+#pragma unroll
+    for (int u = 0; u < kIo; ++u) {
+      const int j = j0 + u * (int)blockDim.x;
+      if (j < n) buf[swz(j)] = v[u];
+    }
+  }
+  __syncthreads();
+  // DFT_p over j1 for every j2 (the rows j1 of q interleaved transforms),
+  // its last stage times the outer twiddle; then DFT_q over j2 for every
+  // k1 (p contiguous rows of q)
+  chain_inplace(buf, p, 1, q, sp, roots_p, outer, p);
+  chain_inplace(buf, q, p, 1, sq, roots_q, nullptr, 0);
+  // k = k2*p + k1 from row prow[k1], column qcol[k2]; (k1, k2) advance
+  // without a division
+  const int dq = (int)blockDim.x / p, dr = (int)blockDim.x - dq * p;
+  int k2 = threadIdx.x / p, k1 = threadIdx.x - k2 * p;
+  for (int k0 = threadIdx.x; k0 < n; k0 += stride) {
+    float2 v[kIo];
+#pragma unroll
+    for (int u = 0; u < kIo; ++u) {
+      if (k0 + u * (int)blockDim.x < n) v[u] = buf[swz(prow[k1] + qcol[k2])];
+      k1 += dr;
+      k2 += dq;
+      if (k1 >= p) {
+        k1 -= p;
+        ++k2;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kIo; ++u) {
+      const int k = k0 + u * (int)blockDim.x;
+      if (k < n) y[base + k] = v[u];
+    }
+  }
+}
+
+static bool is_chain(const Stages& st, int r0, int r1) {
+  return st.k == 2 && st.r[0] == r0 && st.r[1] == r1;
+}
+
+}  // namespace rf
+
+// x, y: (batch, r*128*128) complex64; `st` the DFT_128 chain (16, 8); t1:
+// (r, 128) w_{128r}^(a*d), tn: (128, 128) w_n^(j2*d), rroots: (r,) w_r^e,
+// cfac: (r, 128) w_{128r}^(c*j2).  r in {2, 4, 8, 16}.  Returns a
+// cudaError_t code; launches on `stream`.
+extern "C" int rf_radix_fft(const void* x, void* y, long long batch, int r, int k, int r0, int r1,
+                            int r2, const void* roots0, const void* roots1, const void* roots2,
+                            const void* tw0, const void* tw1, const void* t1, const void* tn,
+                            const void* rroots, const void* cfac, void* stream) {
+  using namespace rf;
+  if (batch <= 0 || t1 == nullptr || tn == nullptr || rroots == nullptr || cfac == nullptr)
+    return cudaErrorInvalidValue;
+  const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
+  if (!stages_ok(st, kSlice) || !is_chain(st, 16, 8)) return cudaErrorInvalidValue;
+  const auto* tx = static_cast<const float2*>(x);
+  auto* ty = static_cast<float2*>(y);
+  const auto* a = static_cast<const float2*>(t1);
+  const auto* b = static_cast<const float2*>(tn);
+  const auto* c = static_cast<const float2*>(rroots);
+  const auto* d = static_cast<const float2*>(cfac);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 2: return launch_radix<2>(tx, ty, batch, st, a, b, c, d, s);
+    case 4: return launch_radix<4>(tx, ty, batch, st, a, b, c, d, s);
+    case 8: return launch_radix<8>(tx, ty, batch, st, a, b, c, d, s);
+    case 16: return launch_radix<16>(tx, ty, batch, st, a, b, c, d, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters of rf_radix_fft's kernel at r into *out.
+extern "C" int rf_radix_max_active_clusters(int r, int* out) {
+  using namespace rf;
+  switch (r) {
+    case 2: return max_active_clusters<2>(out);
+    case 4: return max_active_clusters<4>(out);
+    case 8: return max_active_clusters<8>(out);
+    case 16: return max_active_clusters<16>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// x, y: (batch, p*q) complex64; sp / sq the chains of DFT_p and DFT_q (the
+// padded_stage_args of each); outer: (q, p) w_n^(k1*j2).  One block per
+// transform, in place in shared memory; p = q = 128 with both chains
+// (16, 8) runs the radix kernel's body at R = 1.  Returns a cudaError_t
+// code; launches on `stream`.
+extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, int q, int kp,
+                                int rp0, int rp1, int rp2, const void* rootsp0,
+                                const void* rootsp1, const void* rootsp2, const void* twp0,
+                                const void* twp1, int kq, int rq0, int rq1, int rq2,
+                                const void* rootsq0, const void* rootsq1, const void* rootsq2,
+                                const void* twq0, const void* twq1, const void* outer,
+                                void* stream) {
+  using namespace rf;
+  if (batch <= 0 || batch > 0x7fffffffLL || p <= 0 || q <= 0 || outer == nullptr)
+    return cudaErrorInvalidValue;
+  const Stages sp = make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1);
+  const Stages sq = make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1);
+  if (!stages_ok(sp, p) || !stages_ok(sq, q)) return cudaErrorInvalidValue;
+  for (int s = 0; s < sp.k; ++s) if (sp.r[s] > 256) return cudaErrorInvalidValue;
+  for (int s = 0; s < sq.k; ++s) if (sq.r[s] > 256) return cudaErrorInvalidValue;
+  const auto* tx = static_cast<const float2*>(x);
+  auto* ty = static_cast<float2*>(y);
+  const auto* to = static_cast<const float2*>(outer);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (p == kSlice && q == kSlice && is_chain(sp, 16, 8) && is_chain(sq, 16, 8)) {
+    // the rows of the identity DFT_1: t1 and cfac are never read at R = 1
+    return launch_radix<1>(tx, ty, batch, sp, to, to, to, to, s);
+  }
+  const size_t smem = ((size_t)pad16(p * q) + roots_total(sp) + roots_total(sq)) * sizeof(float2) +
+                      (size_t)(p + q) * sizeof(int);
+  cudaError_t err = allow_smem(two_stage_kernel, smem);
+  if (err != cudaSuccess) return err;
+  two_stage_kernel<<<(unsigned)batch, kTwoStageThreads, smem, s>>>(tx, ty, p, q, sp, sq, to);
+  return cudaGetLastError();
+}

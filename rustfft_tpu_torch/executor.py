@@ -29,7 +29,7 @@ from .ops import ct as op_ct
 from .ops import dft as op_dft
 from .ops import good_thomas as op_gt
 from .ops import raders as op_raders
-from .ops.kernels import conv, lanepack, large, large2f, large3
+from .ops.kernels import conv, fused, lanepack, large, large2f, large3
 
 # Left factors whose DFT matrix is small enough for the middle-axis matmul
 # form of a CT stage (executor.py:_MATRIX_LEAF_MAX of the JAX package).
@@ -46,6 +46,12 @@ def route(n: int, dtype) -> Optional[str]:
 
       'lanepack'  c64, a 2-3 radix split with radices <= 256 exists, and one
                   transform fits a block's shared memory;
+      'radix'     c64, n = r * 128 * 128 with r in {2, 4, 8, 16}
+                  (fused.choose_rpq): 32768 .. 262144, one thread-block
+                  cluster of r blocks per transform;
+      'two_stage' c64, fused.choose_pq(n) = (p, q) with q % 128 == 0, lanepack
+                  does not serve n, and one transform fits a block's shared
+                  memory in place: the multiples of 128 from 14464 to 28800;
       'large'     c64, n = P * q1 * q2 with P <= 512, q1, q2 <= 256 and both
                   passes' tiles in shared memory;
       'large2f'   c64, n = P1 * P2 * Q (large2f.choose_split2f) with the
@@ -64,6 +70,10 @@ def route(n: int, dtype) -> Optional[str]:
         return None
     if lanepack.lanepack_supported(n, dtype):
         return "lanepack"
+    if fused.radix_supported(n, dtype):
+        return "radix"
+    if fused.two_stage_supported(n, dtype):
+        return "two_stage"
     if large.large_supported(n, dtype) and not _large2f_first(n, dtype):
         return "large"
     if large2f.large2f_supported(n, dtype):
@@ -97,6 +107,10 @@ def _kernel_fn(n: int, direction: FftDirection, dtype) -> Optional[Callable]:
     name = route(n, dtype)
     if name == "lanepack":
         return lanepack.make_lanepack_fn(n, direction, dtype)
+    if name == "radix":
+        return fused.make_fused_radix_fn(n, direction, dtype)
+    if name == "two_stage":
+        return fused.make_fused_two_stage_fn(n, direction, dtype)
     if name == "large":
         return large.make_large_fft_fn(n, direction, dtype)
     if name == "large2f":

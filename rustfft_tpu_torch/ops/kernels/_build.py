@@ -58,6 +58,10 @@ _SIGNATURES = {
     "rf_large2f_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 8,
     "rf_large3_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
     "rf_large3_p2": [_vp, _vp, _ll, _int, _int, _int, _vp, _vp, _vp, _vp],
+    "rf_radix_fft": [_vp, _vp, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 5,
+    "rf_radix_max_active_clusters": [_int, ctypes.POINTER(_int)],
+    "rf_two_stage_fft": [_vp, _vp, _ll, _int, _int] + ([_int] * 4 + [_vp] * 5) * 2
+                        + [_vp, _vp],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,452 @@
+"""The one-pass mid band: the ports of K7, K8 and K9.
+
+Replaces rustfft_tpu/ops/pallas/fused.py: the split rules (`_choose_pq`,
+`fused_supported`, `choose_pqq_fused`, `three_stage_supported`,
+`choose_rpq`, `radix_supported`) without their VMEM terms, the tables
+(`_ctw_cfacs`, the f64 part of `_ctwg_consts`, the two- and three-stage
+twiddles) and the three kernels, each in one read and one write of the
+signal in device memory:
+
+  `radix_fft` (K9: `_fused_kernel_vpur`, `_ctw`, `_ctwg`, `_ctwgn`,
+      `_ctwgx`): n = r * p * q, p = q = 128, r in {2, 4, 8, 16};
+      j = b*rq + a*q + j2, k = k2*rp + c*p + d:
+        A[a, j2, d] = sum_b x[b, a, j2] * w_p^(b*d)            (stage A)
+        C[c, j2, d] = w_n^(j2*d) * w_rq^(c*j2)
+                      * sum_a A[a, j2, d] * w_rp^(a*d) * w_r^(a*c)
+        X[k2, c, d] = sum_j2 C[c, j2, d] * w_q^(j2*k2)         (stage B)
+      The merged twiddle w_n^((a*q+j2)*d) of the JAX kernels is factored
+      as w_rp^(a*d) * w_n^(j2*d): an (r, p) and a (q, p) table, none of n
+      entries.  On the card one cluster of r blocks computes one transform,
+      block a holding the slice a; the DFT_r crosses the cluster through
+      distributed shared memory (csrc/fused.cu).
+  `two_stage_fft` (K7: `_fused_kernel`, `_fused_kernel_gauss`,
+      `_fused_kernel_twodot`): n = p * q, j = j1*q + j2, k = k2*p + k1:
+      DFT_p over j1, the twiddle w_n^(k1*j2), DFT_q over j2.  One block per
+      transform, the whole transform in place in its shared memory.
+  `three_stage_fft` (K8: `_fused_kernel_3s`): n = p * q1 * q2, the
+      two-stage kernel with DFT_q run as DFT_q1, the inner twiddle
+      w_q^(ka*jb) and DFT_q2.  Ported and tested, not routed (as in the JAX
+      package, whose `three_stage_min_n` is 2^40).
+
+The JAX kernels contract dense DFT blocks on the matrix unit with bf16
+weight splits (`w_split`, `gauss_*`, `contract_*`); the card runs every DFT
+as register radix stages in FP32 on the CUDA cores (`large.stage_radices`),
+so those helpers have no counterpart here.  Each wrapper runs its plain
+torch version, stage for stage, on a CPU tensor and launches its kernel in
+csrc/fused.cu on a CUDA tensor, or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...common import FftDirection
+from ... import twiddles
+from .. import calg
+from . import _build, large
+from .lanepack import (
+    check_operand, check_stage_tables, fft_stages_plain, lanepack_supported,
+    padded_stage_args, require_cuda, stage_tables,
+)
+from .large3 import p2_chain_plain
+
+#: largest fused transform and factor, as in the JAX package
+MAX_FUSED_N = 512 * 512
+MAX_FACTOR = 512
+
+#: the radix kernel's fixed slice: p = q = 128 (csrc/fused.cu)
+RADIX_PQ = 128
+
+#: the largest radix of a roots-table stage the in-place two-stage kernel
+#: runs: a column's ceil(r/8) output chunks share one warp
+MAX_INPLACE_RADIX = 256
+
+
+# -- split rules ------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4096)
+def choose_pq(n: int) -> Optional[Tuple[int, int]]:
+    """Split n = p*q with p, q <= MAX_FACTOR (the JAX package's `_choose_pq`
+    without its VMEM term): q a multiple of 128 first, then a multiple of
+    8, then any; ties by the least p + q, then the least |p - q|."""
+    best = None
+    for p in range(2, MAX_FACTOR + 1):
+        if n % p:
+            continue
+        q = n // p
+        if q > MAX_FACTOR:
+            continue
+        rank = 0 if q % 128 == 0 else (1 if q % 8 == 0 else 2)
+        key = (rank, p + q, abs(p - q))
+        if best is None or key < best[0]:
+            best = (key, p, q)
+    return None if best is None else best[1:]
+
+
+def fused_supported(n: int, dtype) -> bool:
+    """c64 and a split exists (the JAX package's rule)."""
+    if np.dtype(dtype) != np.complex64 or n < 4 or n > MAX_FUSED_N:
+        return False
+    return choose_pq(n) is not None
+
+
+def two_stage_smem_bytes(n: int, p_radices: Sequence[int], q_radices: Sequence[int]) -> int:
+    """Shared memory of the in-place two-stage kernel: one transform
+    (rounded up to 16 values), the roots of both chains and the store's
+    two index tables (p + q ints)."""
+    return ((-(-n // 16) * 16 + sum(p_radices) + sum(q_radices)) * 8
+            + 4 * (math.prod(p_radices) + math.prod(q_radices)))
+
+
+def two_stage_supported(n: int, dtype) -> bool:
+    """The one-block two-stage route: c64, choose_pq(n) gives q % 128 == 0
+    (the JAX package's `aligned`), the lanepack kernel does not serve n,
+    and one transform with its roots fits one block's shared memory in
+    place (14464 .. 28800)."""
+    if not fused_supported(n, dtype) or lanepack_supported(n, dtype):
+        return False
+    p, q = choose_pq(n)
+    if q % 128:
+        return False
+    pr, qr = large.stage_radices(p), large.stage_radices(q)
+    return (max(pr + qr) <= MAX_INPLACE_RADIX
+            and two_stage_smem_bytes(n, pr, qr) <= _build.SMEM_MAX)
+
+
+@functools.lru_cache(maxsize=1024)
+def choose_pqq_fused(n: int) -> Optional[Tuple[int, int, int]]:
+    """Split n = p * (q1*q2) with p and q1*q2 multiples of 128, q1, q2 <= 256
+    (the most balanced pair), minimizing p + q1 + q2, then |p - q|: the JAX
+    package's rule without its VMEM term."""
+    best = None
+    for p in range(128, MAX_FACTOR + 1, 128):
+        if n % p:
+            continue
+        q = n // p
+        if q % 128 or q < 128:
+            continue
+        inner = None
+        for q1 in range(2, 257):
+            if q % q1:
+                continue
+            q2 = q // q1
+            if q2 > 256:
+                continue
+            key = (q1 + q2, abs(q1 - q2))
+            if inner is None or key < inner[0]:
+                inner = (key, q1, q2)
+        if inner is None:
+            continue
+        _, q1, q2 = inner
+        key = (p + q1 + q2, abs(p - q))
+        if best is None or key < best[0]:
+            best = (key, p, q1, q2)
+    return None if best is None else best[1:]
+
+
+def three_stage_supported(n: int, dtype) -> bool:
+    return np.dtype(dtype) == np.complex64 and choose_pqq_fused(n) is not None
+
+
+def choose_rpq(n: int) -> Optional[Tuple[int, int, int]]:
+    """Split n = r * 128 * 128 with r a power of two in [2, 16] (the JAX
+    package's rule without its VMEM term; the card's cluster holds r
+    blocks of one 128 x 128 slice each, and 16 is the largest cluster)."""
+    if n % (RADIX_PQ * RADIX_PQ):
+        return None
+    r = n // (RADIX_PQ * RADIX_PQ)
+    if r < 2 or r > 16 or r & (r - 1):
+        return None
+    return r, RADIX_PQ, RADIX_PQ
+
+
+def radix_supported(n: int, dtype) -> bool:
+    return np.dtype(dtype) == np.complex64 and choose_rpq(n) is not None
+
+
+# -- host tables -------------------------------------------------------------
+
+def ctw_cfacs(r: int, q: int, direction: FftDirection) -> np.ndarray:
+    """(r, q) c-twiddle rows w_rq^(c*j2), f64 (the JAX `_ctw_cfacs`)."""
+    rq = r * q
+    j2 = np.arange(q, dtype=np.int64)
+    rows = []
+    for c in range(r):
+        cfac = np.exp(-2j * np.pi * ((c * j2) % rq).astype(np.float64) / rq)
+        rows.append(np.conj(cfac) if direction is FftDirection.INVERSE else cfac)
+    return np.stack(rows)
+
+
+def radix_twiddles(r: int, p: int, q: int, direction: FftDirection):
+    """The radix kernel's twiddles in f64: t1 (r, p) = w_rp^(a*d), tn (q, p)
+    = w_n^(j2*d) (the a = 0 rows of the JAX merged table
+    twiddle_table(r*q, p)) and the c-twiddle cfac (r, q) = w_rq^(c*j2).
+    t1[a, d] * tn[j2, d] is the merged entry w_n^((a*q+j2)*d)."""
+    t1 = twiddles.twiddle_table(r, p, direction)
+    tn = twiddles.twiddle_table(r * q, p, direction)[:q]
+    return t1, tn, ctw_cfacs(r, q, direction)
+
+
+def radix_tables(r: int, p: int, q: int, direction: FftDirection):
+    """Host tables of radix_fft, complex64: the DFT_p chain's roots and
+    twiddles (stage A; stage B uses the same chain, p == q), t1, tn, the
+    roots w_r^e of the DFT_r and cfac."""
+    if p != q:
+        raise ValueError(f"radix split needs p == q, got p={p}, q={q}")
+    roots, tws = stage_tables(p, large.stage_radices(p), direction)
+    t1, tn, cfac = radix_twiddles(r, p, q, direction)
+    rroots = stage_tables(r, (r,), direction)[0][0]
+    c64 = [t.astype(np.complex64) for t in (t1, tn)]
+    return roots, tws, c64[0], c64[1], rroots, cfac.astype(np.complex64)
+
+
+def two_stage_tables(p: int, q_radices: Sequence[int], direction: FftDirection):
+    """Host tables of the two-stage kernel, complex64: DFT_p's chain, the
+    outer twiddle (q, p) [j2, k1] = w_n^(k1*j2), DFT_q's chain over
+    q_radices (K8's (q1, q2) carries the inner twiddle w_q^(ka*jb))."""
+    q = math.prod(q_radices)
+    roots_p, tws_p, outer = large.col_tables(p, q, direction)
+    roots_q, tws_q = stage_tables(q, q_radices, direction)
+    return roots_p, tws_p, outer, roots_q, tws_q
+
+
+# -- radix_fft (K9) ----------------------------------------------------------
+
+def radix_fft_plain(x: torch.Tensor, r: int, p: int, tables) -> torch.Tensor:
+    """Plain torch version of radix_fft, stage for stage."""
+    roots, tws, t1, tn, rroots, cfac = tables
+    q = p
+    radices = large.stage_radices(p)
+    v = x.reshape(-1, p, r, q).permute(0, 2, 3, 1)  # (B, r, q, p) [a, j2, b]
+    a = fft_stages_plain(v, radices, roots, tws) * t1[:, None, :]  # [a, j2, d]
+    cs = p2_chain_plain(list(a.unbind(1)), rroots)  # DFT_r: r of (B, q, p) [j2, d]
+    c = torch.stack([cc * tn * cfac[i][:, None] for i, cc in enumerate(cs)], dim=1)
+    e = fft_stages_plain(c.transpose(2, 3), radices, roots, tws)  # (B, r, p, q) [c, d, k2]
+    return e.permute(0, 3, 1, 2).reshape(-1, r * p * q)  # [k2, c, d]
+
+
+def _check_radix(x, r, p, tables, what):
+    roots, tws, t1, tn, rroots, cfac = tables
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (batch, n), got {tuple(x.shape)}")
+    if r < 2 or r & (r - 1):
+        raise ValueError(f"{what}: r={r} is not a power of 2 >= 2")
+    check_operand(x, (x.shape[0], r * p * p), f"{what} input")
+    check_stage_tables(p, large.stage_radices(p), roots, tws, x.device, what)
+    for t, shape, name in ((t1, (r, p), "t1"), (tn, (p, p), "tn"), (rroots, (r,), "roots_r"),
+                           (cfac, (r, p), "cfac")):
+        check_operand(t, shape, f"{what} {name}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: tables on {t.device}, input on {x.device}")
+
+
+def radix_fft(x: torch.Tensor, r: int, p: int, tables) -> torch.Tensor:
+    """DFT of every row of x (batch, r*p*p) complex64 by the radix-r split.
+
+    tables = radix_tables(r, p, p) on x's device.  CPU tensors run the
+    plain version; CUDA tensors launch one cluster of r blocks per row
+    (csrc/fused.cu, p = 128 only).
+    """
+    _check_radix(x, r, p, tables, "radix_fft")
+    if x.device.type == "cpu":
+        return radix_fft_plain(x, r, p, tables)
+    require_cuda(x, "radix_fft")
+    if p != RADIX_PQ or r > 16:
+        raise ValueError(f"radix_fft: the kernel takes p = q = {RADIX_PQ}, r <= 16; "
+                         f"got r={r}, p={p}")
+    y = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return y
+    roots, tws, t1, tn, rroots, cfac = tables
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.rf_radix_fft(
+            x.data_ptr(), y.data_ptr(), x.shape[0], r,
+            *padded_stage_args(large.stage_radices(p), roots, tws),
+            t1.data_ptr(), tn.data_ptr(), rroots.data_ptr(), cfac.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, code, "radix_fft")
+    radix_fft.launches += 1
+    return y
+
+
+#: kernel launches since the count was last set to 0
+radix_fft.launches = 0
+
+
+def radix_max_active_clusters(r: int) -> int:
+    """cudaOccupancyMaxActiveClusters of radix_fft's cluster of r blocks on
+    the current device."""
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.rf_radix_max_active_clusters(r, ctypes.byref(out)),
+                 "radix_max_active_clusters")
+    return out.value
+
+
+# -- two_stage_fft (K7) and three_stage_fft (K8) -----------------------------
+
+def _two_stage_plain(x, p, p_radices, q_radices, tables):
+    roots_p, tws_p, outer, roots_q, tws_q = tables
+    q = math.prod(q_radices)
+    a = fft_stages_plain(x.reshape(-1, p, q).transpose(1, 2), p_radices, roots_p, tws_p)
+    d = fft_stages_plain((a * outer).transpose(1, 2), q_radices, roots_q, tws_q)  # [k1, k2]
+    return d.transpose(1, 2).reshape(-1, p * q)
+
+
+def _two_stage(x, p, p_radices, q_radices, tables, counter):
+    """Check the operands; the plain version on the CPU, else one launch of
+    csrc/fused.cu's two-stage kernel, counted on `counter`."""
+    what = counter.__name__
+    roots_p, tws_p, outer, roots_q, tws_q = tables
+    q = math.prod(q_radices)
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (batch, n), got {tuple(x.shape)}")
+    check_operand(x, (x.shape[0], p * q), f"{what} input")
+    check_stage_tables(p, p_radices, roots_p, tws_p, x.device, what)
+    check_stage_tables(q, q_radices, roots_q, tws_q, x.device, what)
+    check_operand(outer, (q, p), f"{what} outer twiddle")
+    if outer.device != x.device:
+        raise ValueError(f"{what}: tables on {outer.device}, input on {x.device}")
+    if x.device.type == "cpu":
+        return _two_stage_plain(x, p, p_radices, q_radices, tables)
+    require_cuda(x, what)
+    if (two_stage_smem_bytes(p * q, p_radices, q_radices) > _build.SMEM_MAX
+            or max(tuple(p_radices) + tuple(q_radices)) > MAX_INPLACE_RADIX):
+        raise ValueError(f"{what}: n={p * q} ({tuple(p_radices)} x {tuple(q_radices)}) "
+                         "does not fit one block in place")
+    y = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return y
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.rf_two_stage_fft(
+            x.data_ptr(), y.data_ptr(), x.shape[0], p, q,
+            *padded_stage_args(p_radices, roots_p, tws_p),
+            *padded_stage_args(q_radices, roots_q, tws_q), outer.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, code, what)
+    counter.launches += 1
+    return y
+
+
+def two_stage_fft_plain(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
+    """Plain torch version of two_stage_fft."""
+    return _two_stage_plain(x, p, large.stage_radices(p), large.stage_radices(q), tables)
+
+
+def two_stage_fft(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
+    """DFT of every row of x (batch, p*q) complex64: DFT_p, the outer
+    twiddle, DFT_q, natural order; each chain at large.stage_radices.
+
+    tables = two_stage_tables(p, large.stage_radices(q)) on x's device.
+    """
+    p_radices, q_radices = large.stage_radices(p), large.stage_radices(q)
+    return _two_stage(x, p, p_radices, q_radices, tables, two_stage_fft)
+
+
+two_stage_fft.launches = 0
+
+
+def three_stage_fft_plain(x: torch.Tensor, p: int, q1: int, q2: int, tables) -> torch.Tensor:
+    """Plain torch version of three_stage_fft: DFT_p, the outer twiddle,
+    DFT_q1 over ja, the inner twiddle w_q^(ka*jb), DFT_q2 over jb."""
+    return _two_stage_plain(x, p, large.stage_radices(p), (q1, q2), tables)
+
+
+def three_stage_fft(x: torch.Tensor, p: int, q1: int, q2: int, tables) -> torch.Tensor:
+    """DFT of every row of x (batch, p*q1*q2) complex64 by K8's split: the
+    two-stage kernel with DFT_q as the chain (q1, q2).
+
+    tables = two_stage_tables(p, (q1, q2)) on x's device.
+    """
+    return _two_stage(x, p, large.stage_radices(p), (q1, q2), tables, three_stage_fft)
+
+
+three_stage_fft.launches = 0
+
+
+# -- plan functions ---------------------------------------------------------
+
+def _plan(n, tables, run):
+    dev_tables = calg.DeviceTables(tables)
+
+    def apply(x):
+        t = dev_tables.on(x.device)
+        return run(x.reshape(-1, n).contiguous(), t).reshape(x.shape)
+
+    apply.tables = dev_tables
+    return apply
+
+
+def _two_stage_fn(n, p, q_radices, direction, run):
+    roots_p, tws_p, outer, roots_q, tws_q = two_stage_tables(p, q_radices, direction)
+    kp, kq = len(roots_p), len(roots_q)
+
+    def call(x, t):
+        rest = t[2 * kp:]
+        return run(x, (t[:kp], t[kp : 2 * kp - 1], t[2 * kp - 1], rest[:kq], rest[kq:]))
+
+    return _plan(n, roots_p + tws_p + [outer] + roots_q + tws_q, call)
+
+
+def make_fused_two_stage_fn(n: int, direction: FftDirection, dtype,
+                            split: Optional[Tuple[int, int]] = None):
+    """Return fn: complex64 (..., n) -> (..., n) through two_stage_fft at
+    split = (p, q) (default choose_pq(n) where the one-block route serves
+    n); a split given by the caller is taken as is."""
+    if np.dtype(dtype) != np.complex64:
+        raise ValueError(f"two-stage kernel is complex64 only, got {np.dtype(dtype)}")
+    sp = split or (choose_pq(n) if two_stage_supported(n, dtype) else None)
+    if sp is None:
+        raise ValueError(f"no one-block two-stage kernel for n={n}")
+    p, q = sp
+    if p * q != n:
+        raise ValueError(f"split {sp} does not give n={n}")
+    return _two_stage_fn(n, p, large.stage_radices(q), direction,
+                         lambda x, t: two_stage_fft(x, p, q, t))
+
+
+def make_fused_three_stage_fn(n: int, direction: FftDirection, dtype,
+                              split: Optional[Tuple[int, int, int]] = None):
+    """Return fn: complex64 (..., n) -> (..., n) through three_stage_fft at
+    split = (p, q1, q2) (default choose_pqq_fused(n))."""
+    if np.dtype(dtype) != np.complex64:
+        raise ValueError(f"three-stage kernel is complex64 only, got {np.dtype(dtype)}")
+    sp = split or choose_pqq_fused(n)
+    if sp is None:
+        raise ValueError(f"no three-stage split for n={n}")
+    p, q1, q2 = sp
+    if p * q1 * q2 != n:
+        raise ValueError(f"split {sp} does not give n={n}")
+    return _two_stage_fn(n, p, (q1, q2), direction,
+                         lambda x, t: three_stage_fft(x, p, q1, q2, t))
+
+
+def make_fused_radix_fn(n: int, direction: FftDirection, dtype,
+                        split: Optional[Tuple[int, int, int]] = None):
+    """Return fn: complex64 (..., n) -> (..., n) through radix_fft at split
+    = (r, p, q), p == q (default choose_rpq(n)); the card's kernel takes
+    p = q = 128, a CPU tensor any p == q."""
+    if np.dtype(dtype) != np.complex64:
+        raise ValueError(f"radix kernel is complex64 only, got {np.dtype(dtype)}")
+    sp = split or choose_rpq(n)
+    if sp is None:
+        raise ValueError(f"no radix split for n={n}")
+    r, p, q = sp
+    if r * p * q != n or p != q:
+        raise ValueError(f"split {sp} does not give n={n} with p == q")
+    roots, tws, t1, tn, rroots, cfac = radix_tables(r, p, q, direction)
+    k = len(roots)
+
+    def call(x, t):
+        return radix_fft(x, r, p, (t[:k], t[k : 2 * k - 1], *t[2 * k - 1:]))
+
+    return _plan(n, roots + tws + [t1, tn, rroots, cfac], call)
