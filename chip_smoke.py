@@ -24,7 +24,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    at r = 2, 4, 8 and 16 (one cluster of r blocks per transform; the
    cudaOccupancyMaxActiveClusters of each r is printed), two_stage_fft at
    16384 (the radix body at R = 1), 20480, 24576 and 14464 (a prime p = 113)
-   and three_stage_fft at K8's split (128, 8, 16);
+   and three_stage_fft at K8's split (128, 8, 16).  The last three tiers
+   at small batches: dense_fft at n = 5, 127, 251 and 1009 in both forms,
+   the two ragged-tile stages of large_pad at 78125 and 531441 (a ragged
+   last tile on both axes), and the fused large Bluestein's three kernels
+   at m = 2^21 (n = 1000003) and m = 1572864 (n = 746497), with the result
+   against the float64 oracle;
 3. the main paths through the public entry,
    FftPlanner(np.complex64, device="cuda").plan_fft_forward/inverse(n)
    .process(x): n = 4096 at batch 8 and 16384, n = 2^20 at batch 1024
@@ -34,7 +39,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the top band at 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX bench's rows)
    and 2^26 x 2, and the mid band at 16384 x 4096 and 24576 x 2048
    (two_stage), 32768 x 2048, 65536 x 1024 (the JAX bench's row),
-   131072 x 512 and 262144 x 256 (radix).  Every launch counter is set to 0 just before each run and
+   131072 x 512 and 262144 x 256 (radix), the primes 127 x 262144 and
+   251 x 131072 (dense), the odd composites 15625 x 4096, 78125 x 512,
+   177147 x 256 and 531441 x 64 (large_pad), 1000003 x 64 (the fused large
+   Bluestein) and 746497 x 64 (the recipe the planner designs).  Every
+   launch counter is set to 0 just before each run and
    read just after: each path must launch exactly its kernels.  Errors
    against a float64 numpy oracle on 4 rows (1 row from 2^23 up) and
    against torch.fft (an oracle only) on the whole batch, and the round
@@ -52,7 +61,16 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    through the large and the large2f routes; every mid-band path against
    the large route it replaced, and three_stage_fft at 16384 x 4096.
    The two-stage kernel's general body is reported at 24576; its phase 2
-   checks at 20480 and 14464 count into that entry's max_abs_err.
+   checks at 20480 and 14464 count into that entry's max_abs_err.  The
+   last three tiers: dense_fft in both forms against x @ W (the Dft leaf
+   it replaced, and the one-call PyTorch time) and each dense path against
+   torch.fft; dense_fft against the lanepack route at 256 x 262144 and the
+   convolution cores at 1009 and 1234 x 8192 (the dense crossover); each
+   large_pad stage against large's stage at one-column tiles and each
+   large_pad path against the large route and torch.fft; the fused large
+   Bluestein's kernels at 1000003 x 64 and the path against the two-pass
+   core and torch.fft; 746497 x 64 as Raders(746496) on the two-pass core
+   and as Bluesteins(746497, 1572864) on the fused large Bluestein.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -82,6 +100,15 @@ TOP = {1 << 23: 8, 1 << 24: 4, 1 << 25: 2, 1 << 26: 2}
 
 #: the one-pass mid band's paths: n -> batch (256-512 MiB each)
 MID = {16384: 4096, 24576: 2048, 1 << 15: 2048, 1 << 16: 1024, 1 << 17: 512, 1 << 18: 256}
+
+#: the dense tier's paths (K5): the primes n -> batch (266 and 263 MiB)
+DENSE = {127: 262144, 251: 131072}
+
+#: the ragged-tile paths (K12): the odd composites n -> batch
+PAD = {15625: 4096, 78125: 512, 177147: 256, 531441: 64}
+
+#: the fused large Bluestein's paths (K15): the prime n -> (inner m, batch)
+BLUE = {1000003: (1 << 21, 64)}
 
 #: kernels ported and checked but on no route (the JAX package routes none
 #: of them either)
@@ -124,6 +151,24 @@ for _n in (16384, 24576):
                                       "rustfft_tpu/ops/pallas/fused.py:439")
 KERNELS["three_stage_fft/16384"] = ("rustfft_tpu_torch/csrc/fused.cu",
                                    "rustfft_tpu/ops/pallas/fused.py:711")
+#: the last three tiers: K5 at each dense path (the block form, n <= 256),
+#: K12's two stages at each odd composite, K15's three kernels (its kernel
+#: A is the two-pass core's column stage, in place of large._kernel_a)
+for _n in DENSE:
+    KERNELS[f"dense_fft/{_n}"] = ("rustfft_tpu_torch/csrc/dense.cu",
+                                  "rustfft_tpu/ops/pallas/dense.py:161")
+for _n in PAD:
+    KERNELS[f"largepad_col_stage/{_n}"] = ("rustfft_tpu_torch/csrc/largepad.cu",
+                                           "rustfft_tpu/ops/pallas/largepad.py:109")
+    KERNELS[f"largepad_row_stage/{_n}"] = ("rustfft_tpu_torch/csrc/largepad.cu",
+                                           "rustfft_tpu/ops/pallas/largepad.py:134")
+for _n in BLUE:
+    KERNELS[f"conv_col_stage/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                       "rustfft_tpu/ops/pallas/large.py:60")
+    KERNELS[f"bconv_row_stage/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
+                                        "rustfft_tpu/ops/pallas/convlarge.py:72")
+    KERNELS[f"bconv_out_stage/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
+                                        "rustfft_tpu/ops/pallas/convlarge.py:99")
 
 
 def tag(n: int) -> str:
@@ -155,8 +200,10 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).abs().double().sum() / want.abs().double().sum()).item()
 
 
-def rel_err_chunked(got: torch.Tensor, want_rows, rows: int = 64) -> float:
-    """Relative mean error of got (B, n) against want_rows(i, j) -> rows i:j."""
+def rel_err_chunked(got: torch.Tensor, want_rows) -> float:
+    """Relative mean error of got (B, n) against want_rows(i, j) -> rows i:j,
+    in chunks of at least 64 rows and about 2^22 points."""
+    rows = max(64, (1 << 22) // got.shape[1])
     num = den = 0.0
     for i in range(0, got.shape[0], rows):
         want = want_rows(i, i + rows)
@@ -208,9 +255,11 @@ def main() -> None:
     from rustfft_tpu_torch import FftDirection, FftPlanner, executor, recipes, route
     from rustfft_tpu_torch.ops.bluestein import bluestein_tables
     from rustfft_tpu_torch.ops.kernels import (
-        _build, conv, conv_radix, fused, lanepack, large, large2f, large3, permute,
+        _build, conv, conv_radix, convlarge, dense, fused, lanepack, large, large2f, large3,
+        largepad, permute,
     )
     from rustfft_tpu_torch.ops.raders import raders_tables
+    from rustfft_tpu_torch.planner import routed_bluestein_inner
     from rustfft_tpu_torch.twiddles import host_dft
 
     dev = torch.device("cuda")
@@ -229,7 +278,10 @@ def main() -> None:
                      for t in tables)
 
     def table_bytes(tables):
-        return sum(8 * a.size for t in tables for a in (t if isinstance(t, list) else [t]))
+        """Bytes of a kernel's tables: host arrays or card tensors, and lists
+        of either."""
+        return sum(a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.nbytes
+                   for t in tables for a in (t if isinstance(t, list) else [t]))
 
     def mid_kernel(n, d):
         """(name, kernel(x), plain(x), host tables) of the mid-band kernel
@@ -246,6 +298,27 @@ def main() -> None:
         name = "two_stage_fft/16384" if (p, q) == (128, 128) else "two_stage_fft/24576"
         return (name, lambda x: fused.two_stage_fft(x, p, q, tabs),
                 lambda x: fused.two_stage_fft_plain(x, p, q, tabs), host)
+
+    def dense_card(n, d, variant):
+        """dense_fft's tables (W, and Wr + Wi in the Gauss form) on the card."""
+        return tuple(None if t is None else torch.from_numpy(t).to(dev)
+                     for t in dense.dense_tables(n, d, variant))
+
+    def pad_card(n, d):
+        """(P, Q, column-stage tables, row-stage tables) of large_pad at n,
+        on the card."""
+        p, q1, q2 = large.choose_pqq(n)
+        q = q1 * q2
+        return p, q, card_tables(large.col_tables(p, q, d)), card_tables(large.row_tables(q, d))
+
+    def bconv_card(n, m, d):
+        """(P, Q, column tables, row tables, pre, h, chirp) of the fused large
+        Bluestein of length n at inner m, on the card."""
+        p, q1, q2 = large.choose_pqq(m)
+        q = q1 * q2
+        host = convlarge.bconv_tables(n, m, p, q, d)
+        return (p, q, card_tables(host["col"]), card_tables(host["row"]),
+                *(torch.from_numpy(host[k]).to(dev) for k in ("pre", "h", "chirp")))
 
     directions = (FftDirection.FORWARD, FftDirection.INVERSE)
 
@@ -474,6 +547,61 @@ def main() -> None:
     del x, got
     free()
 
+    # the last three tiers: dense_fft in both forms (5 and 127 count into
+    # the 127 entry, 251 and 1009 into the 251 one); large_pad's stages with
+    # a ragged last tile on both axes; the fused large Bluestein's kernels at
+    # both inner lengths (746497 counts into the 1000003 entries unless it
+    # is a path of its own)
+    for n in (5, 127, 251, 1009):
+        x = signal(300, n)
+        key = "dense_fft/127" if n <= 127 else "dense_fft/251"
+        for d in directions:
+            for variant in dense.VARIANTS:
+                tabs = dense_card(n, d, variant)
+                got = dense.dense_fft(x, tabs, variant)
+                torch.cuda.synchronize()
+                note(key, got, dense.dense_fft_plain(x, tabs, variant),
+                     f"dense_fft n={n} {variant} batch=300 {d.name}")
+    for n in (78125, 531441):
+        x = signal(2, n)
+        for d in directions:
+            p, q, col, row = pad_card(n, d)
+            qt, pt = largepad.tile(p), largepad.tile(q)
+            a = largepad.largepad_col_stage(x, p, q, col)
+            torch.cuda.synchronize()
+            note(f"largepad_col_stage/{n}", a, large.large_col_stage_plain(x, p, q, col),
+                 f"largepad_col_stage n={n} P={p} Q={q} tile {qt} (last {q % qt or qt}) "
+                 f"batch=2 {d.name}")
+            y = largepad.largepad_row_stage(a, q, p, row)
+            torch.cuda.synchronize()
+            note(f"largepad_row_stage/{n}", y, large.large_row_stage_plain(a, q, p, row),
+                 f"largepad_row_stage n={n} Q={q} P={p} tile {pt} (last {p % pt or pt}) "
+                 f"batch=2 {d.name}")
+    for n, m in ((1000003, 1 << 21), (746497, routed_bluestein_inner(746497, np.complex64))):
+        x = signal(2, n)
+        key = n if n in BLUE else next(iter(BLUE))
+        for d in directions:
+            p, q, col, row, pre, h, chirp = bconv_card(n, m, d)
+            what = f"n={n} m={m} P={p} Q={q} batch=2 {d.name}"
+            a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
+            torch.cuda.synchronize()
+            note(f"conv_col_stage/{key}", a, conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0],
+                 f"conv_col_stage (kernel A) {what}")
+            b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
+            torch.cuda.synchronize()
+            note(f"bconv_row_stage/{key}", b,
+                 convlarge.bconv_row_stage_plain(a, q, p, row, h, col[2]), f"bconv_row_stage {what}")
+            out = convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n)
+            torch.cuda.synchronize()
+            note(f"bconv_out_stage/{key}", out,
+                 convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n),
+                 f"bconv_out_stage {what}")
+            check(f"fused large Bluestein {what} vs float64 oracle",
+                  rel_err(out.cpu().to(torch.complex128),
+                          torch.from_numpy(host_dft(x.cpu().numpy(), d))))
+    del x, got, a, y, b, out
+    free()
+
     # ---- phase 3: the main path through the public entry ----
     print("phase 3: main path, FftPlanner(np.complex64, device='cuda')", flush=True)
     counters = {"lanepack_fft": lanepack.lanepack_fft,
@@ -488,11 +616,33 @@ def main() -> None:
                 "large3_p2": large3.large3_p2,
                 "radix_fft": fused.radix_fft,
                 "two_stage_fft": fused.two_stage_fft,
-                "three_stage_fft": fused.three_stage_fft}
+                "three_stage_fft": fused.three_stage_fft,
+                "dense_fft": dense.dense_fft,
+                "largepad_col_stage": largepad.largepad_col_stage,
+                "largepad_row_stage": largepad.largepad_row_stage,
+                "bconv_row_stage": convlarge.bconv_row_stage,
+                "bconv_out_stage": convlarge.bconv_out_stage}
     planner = FftPlanner(np.complex64, device="cuda")
     assert route(4096, np.complex64) == "lanepack" and route(1 << 20, np.complex64) == "large"
     assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 3 + ["large3f"]
     assert [route(n, np.complex64) for n in MID] == ["two_stage"] * 2 + ["radix"] * 4
+    assert [route(n, np.complex64) for n in DENSE] == ["dense"] * len(DENSE)
+    assert [route(n, np.complex64) for n in PAD] == ["large_pad"] * len(PAD)
+    assert route(10 ** 6, np.complex64) == "large"
+    k15 = {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}
+    for n, (m, _) in BLUE.items():
+        recipe = planner.plan_fft_forward(n).recipe
+        assert isinstance(recipe, recipes.Bluesteins) and recipe.inner.length == m, recipe
+        assert executor.build(recipe, FftDirection.FORWARD, np.complex64).__module__ == \
+            convlarge.__name__
+
+    def prime_launches(n):
+        """The launches of the planner's recipe for a prime whose inner runs
+        on a two-pass kernel: the fused large Bluestein, or Rader on the
+        two-pass core."""
+        if isinstance(planner.plan_fft_forward(n).recipe, recipes.Bluesteins):
+            return k15
+        return {"conv_col_stage": 2, "conv_row_stage": 2}
     main_launches = {name: 0 for name in counters}
     path_launches = {}
 
@@ -533,6 +683,11 @@ def main() -> None:
           for n, batch in TOP.items()),
         *((n, batch, {"radix_fft" if n >= 1 << 15 else "two_stage_fft": 1})
           for n, batch in MID.items()),
+        *((n, batch, {"dense_fft": 1}) for n, batch in DENSE.items()),
+        *((n, batch, {"largepad_col_stage": 1, "largepad_row_stage": 1})
+          for n, batch in PAD.items()),
+        *((n, batch, k15) for n, (_, batch) in BLUE.items()),
+        (746497, 64, prime_launches(746497)),
     )
     for n, batch, expected in paths:
         fwd = planner.plan_fft_forward(n)
@@ -879,6 +1034,182 @@ def main() -> None:
                    batch * (fft_ops(n) + 6 * n), lib)
         del x
         free()
+
+    def dense_ops(n, variant):
+        """FP32 operations of one length-n dense_fft row: 4 real products
+        (8 n^2), or the Gauss form's 3 and its adds (6 n^2 + 4 n)."""
+        return 8 * n * n if variant == "block" else 6 * n * n + 4 * n
+
+    # the dense tier at its paths' shapes: dense_fft in its default form
+    # against its plain version, its bound, x @ W (the Dft leaf it replaced
+    # and the one-call PyTorch time) and the other form; each path against
+    # torch.fft
+    fwd = FftDirection.FORWARD
+    for n, batch in DENSE.items():
+        x = signal(batch, n)
+        variant = dense.choose_variant(n)
+        name = f"dense_fft/{n}"
+        tabs = dense_card(n, fwd, variant)
+        note(name, dense.dense_fft(x, tabs, variant), dense.dense_fft_plain(x, tabs, variant),
+             f"{name} {variant} batch={batch} (the main path's shape)")
+        free()
+        k = median_ms(lambda: dense.dense_fft(x, tabs, variant))
+        plain = median_ms(lambda: dense.dense_fft_plain(x, tabs, variant))
+        w = tabs[0]
+        lib = median_ms(lambda: x @ w)
+        other = "gauss" if variant == "block" else "block"
+        otabs = dense_card(n, fwd, other)
+        check(f"{name} {other} batch={batch} vs torch.fft",
+              rel_err(dense.dense_fft(x, otabs, other), torch.fft.fft(x)))
+        k_other = median_ms(lambda: dense.dense_fft(x, otabs, other))
+        print(f"  {name} batch={batch}: {variant} {k:.3f} ms, {other} {k_other:.3f} ms; "
+              f"x @ W {lib:.3f} ms", flush=True)
+        record(name, k, plain, 16 * batch * n + table_bytes([t for t in tabs if t is not None]),
+               batch * dense_ops(n, variant), lib)
+        plan = planner.plan_fft_forward(n)
+        path = median_ms(lambda: plan.process(x))
+        ref = median_ms(lambda: torch.fft.fft(x))
+        print(f"  dense path n={n} batch={batch}: {path:.3f} ms ({gflops(n, batch, path):.0f} GF/s); "
+              f"x @ W {lib:.3f} ms; torch.fft {ref:.3f} ms ({gflops(n, batch, ref):.0f} GF/s)",
+              flush=True)
+        del x, w, tabs, otabs
+        free()
+
+    # the dense crossover: dense_fft in both forms against the route each
+    # size takes (lanepack at 256, the convolution cores at 1009 and 1234)
+    for n, batch in ((256, 262144), (1009, 8192), (1234, 8192)):
+        x = signal(batch, n)
+        plan = planner.plan_fft_forward(n)
+        path = median_ms(lambda: plan.process(x))
+        times = {}
+        for variant in dense.VARIANTS:
+            tabs = dense_card(n, fwd, variant)
+            check(f"dense_fft n={n} {variant} batch={batch} vs torch.fft",
+                  rel_err(dense.dense_fft(x, tabs, variant), torch.fft.fft(x)))
+            times[variant] = median_ms(lambda: dense.dense_fft(x, tabs, variant))
+        print(f"  dense crossover n={n} x {batch}: the planner's path "
+              f"({route(n, np.complex64) or type(plan.recipe).__name__}) {path:.3f} ms; "
+              f"dense_fft block {times['block']:.3f} ms, gauss {times['gauss']:.3f} ms", flush=True)
+        del x, tabs
+        free()
+
+    # large_pad at its paths' shapes: each stage against its plain version,
+    # its bound and large's stage on the same split (one-column tiles); each
+    # path against the large route it replaced and torch.fft
+    for n, batch in PAD.items():
+        x = signal(batch, n)
+        p, q, col, row = pad_card(n, fwd)
+        what = f"n={n} P={p} Q={q} batch={batch} (the main path's shape)"
+        name = f"largepad_col_stage/{n}"
+        a = largepad.largepad_col_stage(x, p, q, col)
+        note(name, a, large.large_col_stage_plain(x, p, q, col), f"{name} {what}")
+        free()
+        k = median_ms(lambda: largepad.largepad_col_stage(x, p, q, col))
+        plain = median_ms(lambda: large.large_col_stage_plain(x, p, q, col))
+        old = median_ms(lambda: large.large_col_stage(x, p, q, col))
+        print(f"  {name} tile {largepad.tile(p)}: {16 * batch * n / (k * 1e6):.0f} GB/s; "
+              f"large_col_stage (tile {large.col_tile(p, q)}) {old:.3f} ms", flush=True)
+        record(name, k, plain, 16 * batch * n + table_bytes(col[:2]) + 8 * n,
+               batch * n * (fft_ops(p) / p + 6))
+        name = f"largepad_row_stage/{n}"
+        note(name, largepad.largepad_row_stage(a, q, p, row),
+             large.large_row_stage_plain(a, q, p, row), f"{name} {what}")
+        free()
+        k = median_ms(lambda: largepad.largepad_row_stage(a, q, p, row))
+        plain = median_ms(lambda: large.large_row_stage_plain(a, q, p, row))
+        old = median_ms(lambda: large.large_row_stage(a, q, p, row))
+        lib = median_ms(lambda: torch.fft.fft(a, dim=1))
+        print(f"  {name} tile {largepad.tile(q)}: {16 * batch * n / (k * 1e6):.0f} GB/s; "
+              f"large_row_stage (tile {large.row_tile(q, p)}) {old:.3f} ms", flush=True)
+        record(name, k, plain, 16 * batch * n + table_bytes(row), batch * p * fft_ops(q), lib)
+        del a
+        free()
+        plan = planner.plan_fft_forward(n)
+        path = median_ms(lambda: plan.process(x))
+        old_fn = large.make_large_fft_fn(n, fwd, np.complex64)
+        check(f"n={n} x {batch} via the large route vs torch.fft", rel_err(old_fn(x), torch.fft.fft(x)))
+        free()
+        old = median_ms(lambda: old_fn(x))
+        ref = median_ms(lambda: torch.fft.fft(x))
+        print(f"  large_pad path n={n} batch={batch}: {path:.3f} ms ({gflops(n, batch, path):.0f} "
+              f"GF/s); the large route {old:.3f} ms ({gflops(n, batch, old):.0f} GF/s); torch.fft "
+              f"{ref:.3f} ms ({gflops(n, batch, ref):.0f} GF/s)", flush=True)
+        del x
+        free()
+
+    # the fused large Bluestein at its path's shape: kernel A, B_conv and A2
+    # against their plain versions and bounds; the path against the
+    # two-pass core it replaced and torch.fft
+    for n, (m, batch) in BLUE.items():
+        x = signal(batch, n)
+        p, q, col, row, pre, h, chirp = bconv_card(n, m, fwd)
+        what = f"n={n} m={m} P={p} Q={q} batch={batch} (the main path's shape)"
+        name = f"conv_col_stage/{n}"
+        a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
+        note(name, a, conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0], f"{name} {what}")
+        free()
+        k = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col, pre=pre))
+        plain = median_ms(lambda: conv_radix.conv_col_stage_plain(x, p, q, col, pre))
+        record(name, k, plain, 8 * batch * (n + m) + table_bytes(col[:2]) + 16 * m,
+               batch * m * (fft_ops(p) / p + 12))
+        name = f"bconv_row_stage/{n}"
+        b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
+        note(name, b, convlarge.bconv_row_stage_plain(a, q, p, row, h, col[2]), f"{name} {what}")
+        free()
+        k = median_ms(lambda: convlarge.bconv_row_stage(a, q, p, row, h, col[2]))
+        plain = median_ms(lambda: convlarge.bconv_row_stage_plain(a, q, p, row, h, col[2]))
+        print(f"  {name} tile {convlarge.bconv_tile(q, p)}: {16 * batch * m / (k * 1e6):.0f} GB/s",
+              flush=True)
+        record(name, k, plain, 16 * batch * m + table_bytes(row) + 16 * m,
+               batch * (2 * p * fft_ops(q) + 12 * m))
+        del a
+        name = f"bconv_out_stage/{n}"
+        out = convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n)
+        note(name, out, convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n),
+             f"{name} {what}")
+        del out
+        free()
+        k = median_ms(lambda: convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n))
+        plain = median_ms(lambda: convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n))
+        record(name, k, plain, 8 * batch * (m + n) + table_bytes(col[:2]) + 8 * n,
+               batch * (q * fft_ops(p) + 6 * n))
+        del b
+        free()
+        plan = planner.plan_fft_forward(n)
+        path = median_ms(lambda: plan.process(x), reps=5)
+        old_fn = conv.make_bluestein_fn(n, m, fwd, np.complex64)
+        check(f"n={n} x {batch} via the two-pass core vs torch.fft",
+              rel_err(old_fn(x), torch.fft.fft(x)))
+        free()
+        old = median_ms(lambda: old_fn(x), reps=5)
+        ref = median_ms(lambda: torch.fft.fft(x), reps=5)
+        print(f"  fused large Bluestein path n={n} batch={batch}: {path:.3f} ms "
+              f"({gflops(n, batch, path):.0f} GF/s); the two-pass core {old:.3f} ms "
+              f"({gflops(n, batch, old):.0f} GF/s); torch.fft {ref:.3f} ms "
+              f"({gflops(n, batch, ref):.0f} GF/s)", flush=True)
+        del x
+        free()
+
+    # 746497 x 64 both ways, each built through executor.build: the
+    # reference rule's Rader and the JAX package's third prime rule (a
+    # Bluestein whose inner a kernel route serves, routed_bluestein_inner)
+    n, batch = 746497, 64
+    m = routed_bluestein_inner(n, np.complex64)
+    x = signal(batch, n)
+    want = torch.fft.fft(x)
+    for what, recipe in (
+        (f"Raders({n - 1}) on the two-pass core", recipes.Raders(recipes.Dft(n - 1))),
+        (f"Bluesteins({n}, {m}) on the fused large Bluestein",
+         recipes.Bluesteins(n, recipes.Dft(m))),
+    ):
+        fn = executor.build(recipe, fwd, np.complex64)
+        check(f"{n} x {batch} as {what} vs torch.fft", rel_err(fn(x), want))
+        free()
+        t = median_ms(lambda: fn(x), reps=5)
+        print(f"  {n} x {batch} as {what}: {t:.3f} ms ({gflops(n, batch, t):.0f} GF/s)", flush=True)
+    print(f"  the planner takes {planner.plan_fft_forward(n).recipe!r}"[:160], flush=True)
+    del x, want
+    free()
 
     def launches_of(name):
         base, _, where = name.partition("/")

@@ -122,18 +122,22 @@ struct ModOuter {
 };
 
 // The column stage's store: the tile's DFT_P output res[k1*qt + t] goes,
-// times the outer twiddle, to yb[(q0 + t)*P + k1] (contiguous in k1).
+// times the outer twiddle, to yb[(q0 + t)*P + k1] (contiguous in k1), for
+// the tile's first `live` columns (qt but in a ragged last tile).
 template <class Outer>
 static __device__ __forceinline__ void store_transposed(const float2* res, float2* __restrict__ yb,
-                                                        int p, int q0, int qt,
+                                                        int p, int q0, int qt, int live,
                                                         const Outer& outer) {
-  for (int f = threadIdx.x; f < p * qt; f += blockDim.x) {
+  for (int f = threadIdx.x; f < p * live; f += blockDim.x) {
     const int t = f / p, k1 = f - t * p;
     yb[(size_t)(q0 + t) * p + k1] = cmul(res[swz(k1 * qt + t)], outer(q0 + t, k1));
   }
 }
 
-template <class Src, class Outer>
+// kRagged: the tile width qt need not divide Q (the port of K12's padded
+// lane axes, csrc/largepad.cu): the last tile's columns past Q load zero
+// and are not stored, so the padding lives in shared memory only.
+template <class Src, class Outer, bool kRagged = false>
 __global__ void __launch_bounds__(256) col_kernel(Src src, float2* __restrict__ y, int p, int q,
                                                   int qt, Stages st, Outer outer) {
   extern __shared__ float2 smem[];
@@ -142,22 +146,25 @@ __global__ void __launch_bounds__(256) col_kernel(Src src, float2* __restrict__ 
   float2* b = smem + pad16(elems);
   float2* sroots = smem + 2 * pad16(elems);
   load_roots(st, sroots);
-  const int tiles = q / qt;
+  const int tiles = kRagged ? (q + qt - 1) / qt : q / qt;
   const size_t batch_idx = blockIdx.x / tiles;
   const int tile = (int)(blockIdx.x % tiles);
   const int q0 = tile * qt;
+  const int live = kRagged ? min(qt, q - q0) : qt;
   float2 acc = make_float2(0.f, 0.f);
   for (int f = threadIdx.x; f < elems; f += blockDim.x) {
     const int j1 = f / qt, t = f - j1 * qt;
-    a[swz(f)] = src.load(batch_idx, j1 * q + q0 + t, acc);
+    a[swz(f)] = t < live ? src.load(batch_idx, j1 * q + q0 + t, acc) : make_float2(0.f, 0.f);
   }
   src.finish(batch_idx, tile, tiles, acc);
   __syncthreads();
   const float2* res = fft_tile(a, b, p, qt, st, sroots);
-  store_transposed(res, y + batch_idx * (size_t)p * (size_t)q, p, q0, qt, outer);
+  store_transposed(res, y + batch_idx * (size_t)p * (size_t)q, p, q0, qt, live, outer);
 }
 
-template <class Dst>
+// kRagged: the tile width pt need not divide P; the last tile's columns
+// past P load zero and are not stored.
+template <class Dst, bool kRagged = false>
 __global__ void __launch_bounds__(512) row_kernel(const float2* __restrict__ x, Dst dst, int q,
                                                   int p, int pt, Stages st) {
   extern __shared__ float2 smem[];
@@ -166,20 +173,21 @@ __global__ void __launch_bounds__(512) row_kernel(const float2* __restrict__ x, 
   float2* b = smem + pad16(elems);
   float2* sroots = smem + 2 * pad16(elems);
   load_roots(st, sroots);
-  const int tiles = p / pt;
+  const int tiles = kRagged ? (p + pt - 1) / pt : p / pt;
   const size_t batch_idx = blockIdx.x / tiles;
   const int p0 = (int)(blockIdx.x % tiles) * pt;
+  const int live = kRagged ? min(pt, p - p0) : pt;
   const float2* xb = x + batch_idx * (size_t)q * (size_t)p;
   for (int f = threadIdx.x; f < elems; f += blockDim.x) {
     const int j2 = f / pt, t = f - j2 * pt;
-    a[swz(f)] = xb[(size_t)j2 * p + p0 + t];
+    a[swz(f)] = t < live ? xb[(size_t)j2 * p + p0 + t] : make_float2(0.f, 0.f);
   }
   __syncthreads();
   const float2* res = fft_tile(a, b, q, pt, st, sroots);
   const auto row = dst.row(batch_idx);
   for (int f = threadIdx.x; f < elems; f += blockDim.x) {
     const int k2 = f / pt, t = f - k2 * pt;
-    row.store(k2 * p + p0 + t, res[swz(f)]);
+    if (t < live) row.store(k2 * p + p0 + t, res[swz(f)]);
   }
   dst.finish(batch_idx, p0);
 }
@@ -203,7 +211,7 @@ __global__ void __launch_bounds__(kFixedThreads<T, R0, R1, R2>)
                              sroots, st);
   src.finish(batch_idx, tile, tiles, acc);
   __syncthreads();
-  store_transposed(buf, y + batch_idx * (size_t)P * (size_t)q, P, q0, T, outer);
+  store_transposed(buf, y + batch_idx * (size_t)P * (size_t)q, P, q0, T, T, outer);
 }
 
 // row_kernel for one compile-time length-Q chain and tile width T: stage 0
@@ -299,6 +307,33 @@ static cudaError_t launch_row_stage(const float2* x, const Dst& dst, long long b
   cudaError_t err = allow_smem(row_kernel<Dst>, smem);
   if (err != cudaSuccess) return err;
   row_kernel<Dst><<<(unsigned)blocks, 512, smem, s>>>(x, dst, q, p, pt, st);
+  return cudaGetLastError();
+}
+
+// The column and row stages with ragged last tiles (kRagged above) on the
+// general kernels: blocks over (batch, ceil(Q/qt)) and (batch, ceil(P/pt)).
+template <class Src, class Outer>
+static cudaError_t launch_col_ragged(const Src& src, float2* y, long long batch, int p, int q,
+                                     int qt, const Stages& st, const Outer& outer,
+                                     cudaStream_t s) {
+  const long long blocks = batch * ((q + qt - 1) / qt);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(p * qt, st);
+  cudaError_t err = allow_smem(col_kernel<Src, Outer, true>, smem);
+  if (err != cudaSuccess) return err;
+  col_kernel<Src, Outer, true><<<(unsigned)blocks, 256, smem, s>>>(src, y, p, q, qt, st, outer);
+  return cudaGetLastError();
+}
+
+template <class Dst>
+static cudaError_t launch_row_ragged(const float2* x, const Dst& dst, long long batch, int q,
+                                     int p, int pt, const Stages& st, cudaStream_t s) {
+  const long long blocks = batch * ((p + pt - 1) / pt);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(q * pt, st);
+  cudaError_t err = allow_smem(row_kernel<Dst, true>, smem);
+  if (err != cudaSuccess) return err;
+  row_kernel<Dst, true><<<(unsigned)blocks, 512, smem, s>>>(x, dst, q, p, pt, st);
   return cudaGetLastError();
 }
 

@@ -6,7 +6,9 @@ ops/ct.py), Good-Thomas, Rader and Bluestein nodes (ops/good_thomas.py,
 ops/raders.py, ops/bluestein.py), with every subtree whose length `route`
 names replaced by that whole-transform kernel (ops/kernels/).  With the
 kernels on, c64 Rader and Bluestein nodes run as one convolution core
-(ops/kernels/conv.py) and Good-Thomas re-indexing as permute launches.
+(ops/kernels/conv.py), or a Bluestein whose inner length runs on `large` as
+the fused large Bluestein (ops/kernels/convlarge.py), and Good-Thomas
+re-indexing as permute launches.
 Constant tables are precomputed on the host in f64 at build time and copied
 to each device once.
 
@@ -29,7 +31,7 @@ from .ops import ct as op_ct
 from .ops import dft as op_dft
 from .ops import good_thomas as op_gt
 from .ops import raders as op_raders
-from .ops.kernels import conv, fused, lanepack, large, large2f, large3
+from .ops.kernels import conv, convlarge, dense, fused, lanepack, large, large2f, large3, largepad
 
 # Left factors whose DFT matrix is small enough for the middle-axis matmul
 # form of a CT stage (executor.py:_MATRIX_LEAF_MAX of the JAX package).
@@ -52,6 +54,11 @@ def route(n: int, dtype) -> Optional[str]:
       'two_stage' c64, fused.choose_pq(n) = (p, q) with q % 128 == 0, lanepack
                   does not serve n, and one transform fits a block's shared
                   memory in place: the multiples of 128 from 14464 to 28800;
+      'large_pad' c64, the 'large' split exists and large's column or row
+                  tile is narrower than shared memory allows only because it
+                  must divide Q or P (largepad.narrowed_by_division): the
+                  odd composites 15625, 19683, 59049, 78125, 177147, 531441
+                  (one-column tiles on large) and splits such as 256 x 113;
       'large'     c64, n = P * q1 * q2 with P <= 512, q1, q2 <= 256 and both
                   passes' tiles in shared memory;
       'large2f'   c64, n = P1 * P2 * Q (large2f.choose_split2f) with the
@@ -59,7 +66,12 @@ def route(n: int, dtype) -> Optional[str]:
                   memory: 2^23 .. 2^25, and 2^22, which it takes from
                   'large' (_large2f_first);
       'large3f'   c64, n = P1 * P2 * Q (large3.choose_split3f), P2 <= 64:
-                  2^26.
+                  2^26;
+      'dense'     c64, 4 <= n <= config.dense_dft_max (the planner's Dft-leaf
+                  bound) and no route above serves n: the primes 5..251.
+                  256 stays on lanepack and 1009 and 1234 on the convolution
+                  cores: dense_fft measured slower there on the H100
+                  (chip_smoke.py, PERF.md).
 
     The route does not depend on the device: a CPU tensor runs the kernel's
     plain torch version, a CUDA tensor the kernel.
@@ -74,12 +86,16 @@ def route(n: int, dtype) -> Optional[str]:
         return "radix"
     if fused.two_stage_supported(n, dtype):
         return "two_stage"
+    if largepad.largepad_supported(n, dtype) and largepad.narrowed_by_division(n):
+        return "large_pad"
     if large.large_supported(n, dtype) and not _large2f_first(n, dtype):
         return "large"
     if large2f.large2f_supported(n, dtype):
         return "large2f"
     if large3.large3f_supported(n, dtype):
         return "large3f"
+    if dense.dense_supported(n, dtype) and n <= config.dense_dft_max:
+        return "dense"
     return None
 
 
@@ -111,12 +127,16 @@ def _kernel_fn(n: int, direction: FftDirection, dtype) -> Optional[Callable]:
         return fused.make_fused_radix_fn(n, direction, dtype)
     if name == "two_stage":
         return fused.make_fused_two_stage_fn(n, direction, dtype)
+    if name == "large_pad":
+        return largepad.make_largepad_fft_fn(n, direction, dtype)
     if name == "large":
         return large.make_large_fft_fn(n, direction, dtype)
     if name == "large2f":
         return large2f.make_large2f_fft_fn(n, direction, dtype)
     if name == "large3f":
         return large3.make_large3_fft_fn(n, direction, dtype, factored=True)
+    if name == "dense":
+        return dense.make_dense_fft_fn(n, direction, dtype)
     return None
 
 
@@ -182,10 +202,15 @@ def _build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
         return op_raders.make_raders_fn(recipe.length, inner_fn, direction, dtype)
 
     if isinstance(recipe, recipes.Bluesteins):
-        # the kernel path: chirp, double FFT and chirp as one convolution core
+        # the kernel path, in the JAX package's order (executor.py:371-390):
+        # the one-pass core; the fused large Bluestein where the inner length
+        # runs on 'large'; the two-pass core
         m = recipe.inner.length
-        if kernels_on(dtype) and conv.conv_any_supported(m, dtype):
-            return conv.make_bluestein_fn(recipe.length, m, direction, dtype)
+        if kernels_on(dtype):
+            if not conv.conv_supported(m, dtype) and convlarge.bconv_supported(m, dtype):
+                return convlarge.make_bluestein_large_fn(recipe.length, m, direction, dtype)
+            if conv.conv_any_supported(m, dtype):
+                return conv.make_bluestein_fn(recipe.length, m, direction, dtype)
         inner_fn = build(recipe.inner, direction, dtype)
         return op_bluestein.make_bluestein_fn(recipe.length, m, inner_fn, direction, dtype)
 

@@ -62,6 +62,13 @@ _SIGNATURES = {
     "rf_radix_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_two_stage_fft": [_vp, _vp, _ll, _int, _int] + ([_int] * 4 + [_vp] * 5) * 2
                         + [_vp, _vp],
+    "rf_dense_fft": [_vp, _vp, _ll, _int, _int, _vp, _vp, _vp],
+    "rf_largepad_col_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
+                              _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    "rf_largepad_row_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
+                              _int, _vp, _vp, _vp, _vp, _vp, _vp],
+    "rf_bconv_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8,
+    "rf_bconv_out_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
 }
 
 _lock = threading.Lock()

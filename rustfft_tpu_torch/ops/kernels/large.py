@@ -62,29 +62,31 @@ FIXED_ROW = ((16, 16, 16), 4)
 FIXED_COL = {(16, 16): 16, (16, 16, 4): 16, (16, 16, 8): 8, (16, 16, 16): 4, (32, 16, 16): 2}
 
 
-def col_tile(p: int, q: int) -> Optional[int]:
+def col_tile(p: int, q: int, ragged: bool = False) -> Optional[int]:
     """Columns j2 per column-stage block: the compile-time kernel's width
     (FIXED_COL) where it divides Q, else 16 (128-byte row segments) where it
     divides Q and two buffers fit shared memory, else the next smaller power
-    of 2."""
+    of 2.  ragged: the same rule without "divides Q" (the width the tile
+    would have if it need not divide, ops/kernels/largepad.py)."""
     fixed = FIXED_COL.get(stage_radices(p))
-    if fixed is not None and q % fixed == 0:
+    if fixed is not None and (ragged or q % fixed == 0):
         return fixed
     for qt in (16, 8, 4, 2, 1):
-        if q % qt == 0 and smem_bytes(p * qt, stage_radices(p)) <= _build.SMEM_MAX:
+        if (ragged or q % qt == 0) and smem_bytes(p * qt, stage_radices(p)) <= _build.SMEM_MAX:
             return qt
     return None
 
 
-def row_tile(q: int, p: int) -> Optional[int]:
+def row_tile(q: int, p: int, ragged: bool = False) -> Optional[int]:
     """Columns k1 per row-stage block: 4 for the compile-time chain (one
     buffer of 128 KiB), else 2 where a (Q, 2) tile fits shared memory, else
-    1; None when one column does not fit."""
+    1; None when one column does not fit.  ragged: the same rule without
+    "divides P"."""
     radices = stage_radices(q)
-    if radices == FIXED_ROW[0] and p % FIXED_ROW[1] == 0:
+    if radices == FIXED_ROW[0] and (ragged or p % FIXED_ROW[1] == 0):
         return FIXED_ROW[1]
     for pt in (2, 1):
-        if p % pt == 0 and smem_bytes(q * pt, radices) <= _build.SMEM_MAX:
+        if (ragged or p % pt == 0) and smem_bytes(q * pt, radices) <= _build.SMEM_MAX:
             return pt
     return None
 

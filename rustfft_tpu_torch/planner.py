@@ -159,6 +159,36 @@ def _bluestein_inner_candidates(length: int) -> Tuple[int, ...]:
     return (pow2, three) if three >= min_inner else (pow2,)
 
 
+def _smooth_inner_candidates(length: int) -> Tuple[int, ...]:
+    """The Bluestein inner sizes of the 2^a*3^b family >= 2n-1, ascending:
+    the reference's candidates and every 2^a*3^b in [2n-1, 2*(2n-1)) (beyond
+    2x the bound the pow2 candidate is always at least as small)."""
+    candidates = set(_bluestein_inner_candidates(length))
+    min_inner = 2 * length - 1
+    p3 = 1
+    while p3 < 2 * min_inner:
+        m = p3
+        while m < min_inner:
+            m *= 2
+        if m < 2 * min_inner:
+            candidates.add(m)
+        p3 *= 3
+    return tuple(sorted(candidates))
+
+
+def routed_bluestein_inner(length: int, dtype) -> Optional[int]:
+    """The smallest 2^a*3^b Bluestein inner m >= 2n-1 that executor.route
+    serves, or None: the JAX planner's _routed_bluestein_inner
+    (planner.py:552-569) with its pallas_route read as the port's route.
+    746497 -> 1572864 (route "large", the fused large Bluestein).  The
+    planner does not take it (FftPlannerGpu._design_prime); chip_smoke.py
+    times it against the Rader the planner takes."""
+    from . import executor
+
+    return next((m for m in _smooth_inner_candidates(length)
+                 if executor.route(m, dtype) is not None), None)
+
+
 class FftPlannerScalar(_PlannerBase):
     """Exact port of the reference scalar planner's decision tree
     (src/plan.rs:270-665): butterfly -> prime -> butterfly product -> RadixN
@@ -317,6 +347,13 @@ class FftPlannerGpu(_PlannerBase):
         return recipes.MixedRadix(left, right)
 
     def _design_prime(self, length: int) -> recipes.Recipe:
+        """Rader's on an aligned n-1, else Bluestein's on an aligned inner,
+        else the reference rule.  The JAX planner's third rule for huge
+        primes (planner.py:533-549: a Bluestein whose inner a kernel tier
+        serves, routed_bluestein_inner) is not taken: at 746497 x 64 its
+        Bluesteins(746497, 1572864) on the fused large Bluestein measured
+        1.2x slower on the H100 than the reference rule's Rader on the
+        two-pass core (chip_smoke.py, PERF.md)."""
         raders_factors = PrimeFactors.compute(length - 1)
         if self._conv_rules():
             if conv.conv_aligned(length - 1, self.dtype):
@@ -331,19 +368,8 @@ class FftPlannerGpu(_PlannerBase):
         planner.py:425-436) that a convolution core serves with register
         stages only (conv.conv_aligned), or None.  1234 takes 3072 =
         (16, 16, 12), not 2592 = (18, 16, 9)."""
-        candidates = set(_bluestein_inner_candidates(length))
-        min_inner = 2 * length - 1
-        # all 2^a*3^b in [2n-1, 2*(2n-1)): beyond 2x the bound the pow2
-        # candidate is always at least as small
-        p3 = 1
-        while p3 < 2 * min_inner:
-            m = p3
-            while m < min_inner:
-                m *= 2
-            if m < 2 * min_inner:
-                candidates.add(m)
-            p3 *= 3
-        return next((m for m in sorted(candidates) if conv.conv_aligned(m, self.dtype)), None)
+        return next((m for m in _smooth_inner_candidates(length)
+                     if conv.conv_aligned(m, self.dtype)), None)
 
     @staticmethod
     def _choose_left_factor(length: int, factors: PrimeFactors) -> int:

@@ -161,7 +161,7 @@ def test_mid_band_routes():
     # aligned, but one transform does not fit one block: K7's cluster band
     assert fused.choose_pq(49152) == (192, 256)
     assert route(49152, np.complex64) == "large"
-    assert route(28928, np.complex64) == "large"
+    assert route(28928, np.complex64) == "large_pad"  # 256 x 113: ragged tiles
     assert route(3 * 16384, np.complex64) == "large"  # no radix split: r = 3
     assert route(1 << 19, np.complex64) == "large"  # r = 32 is above the cap
     for n in (16384, 65536, 262144):

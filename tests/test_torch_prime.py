@@ -619,8 +619,8 @@ def test_good_thomas_permute_on_card(cuda_device, p, q):
 def test_huge_primes_match_oracle(n):
     """Primes whose n-1 no core serves with register stages take the
     reference rule: 746497 -> Rader onto the two-pass core (Q = 2916 with a
-    radix-27 stage, general kernels), 1000003 -> Bluestein at m = 2^21
-    (Q = 8192, one column per row-stage block)."""
+    radix-27 stage, general kernels), 1000003 -> Bluestein at m = 2^21 on
+    the fused large Bluestein (ops/kernels/convlarge.py)."""
     planner = rustfft_tpu_torch.FftPlanner(np.complex64, device="cpu")
     plan = planner.plan_fft_forward(n)
     assert not conv.conv_aligned(n - 1, np.complex64)
@@ -632,12 +632,20 @@ def test_huge_primes_match_oracle(n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [746497, 1000003])
 def test_huge_primes_on_card(cuda_device, n):
+    """746497: Rader on the two-pass core (two column and two row stages);
+    1000003: the fused large Bluestein (one column stage, B_conv, A2)."""
+    from rustfft_tpu_torch.ops.kernels import convlarge
+
+    counters = {"col": conv_radix.conv_col_stage, "row": conv_radix.conv_row_stage,
+                "bconv": convlarge.bconv_row_stage, "out": convlarge.bconv_out_stage}
+    rises = ({"col": 2, "row": 2, "bconv": 0, "out": 0} if n == 746497 else
+             {"col": 1, "row": 0, "bconv": 1, "out": 1})
     planner = rustfft_tpu_torch.FftPlanner(np.complex64, device="cuda")
     x = _signal(2, n, seed=n)
     for d, _ in DIRECTIONS:
         plan = planner.plan_fft_forward(n) if d is FftDirection.FORWARD else planner.plan_fft_inverse(n)
-        before = conv_radix.conv_row_stage.launches
+        before = {k: c.launches for k, c in counters.items()}
         got = plan.process(torch.from_numpy(x).to(cuda_device))
         torch.cuda.synchronize()
-        assert conv_radix.conv_row_stage.launches == before + 2
+        assert {k: c.launches - before[k] for k, c in counters.items()} == rises
         assert _rel(got.cpu(), host_dft(x, d)) <= VS_ORACLE

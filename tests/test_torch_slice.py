@@ -14,7 +14,7 @@ import rustfft_tpu
 import rustfft_tpu_torch
 from rustfft_tpu_torch import FftBufferError, FftDirection, FftPlanner, config, route
 from rustfft_tpu_torch.models.flagship import FlagshipConfig, make_forward_fn
-from rustfft_tpu_torch.ops.kernels import fused, lanepack, large
+from rustfft_tpu_torch.ops.kernels import fused, lanepack, large, largepad
 from rustfft_tpu_torch.twiddles import host_dft
 
 TOL = 1e-5
@@ -235,7 +235,9 @@ def test_main_path_on_card_launches_kernels():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,batch", [
     (24, 3), (210, 3), (1000, 3), (4016, 3), (7776, 3), (14400, 3),  # lanepack, general kernel
-    (59049, 2), (390625, 2), (509 * 4096, 2),  # large, general kernels
+    (59049, 2), (390625, 2), (509 * 4096, 2),  # large_pad: ragged tiles
+    (14465, 3), (28928, 3),  # large_pad: a prime P = 263; 256 x 113
+    (15520, 3),  # large, general kernels (P = 194)
     (16384, 3), (24576, 3),  # two_stage: the radix body at R = 1, the general kernel
     (65536, 2), (262144, 1),  # radix: clusters of 4 and 16 blocks
     (1 << 22, 1),  # large2f
@@ -246,6 +248,7 @@ def test_routed_sizes_on_card(n, batch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
     counter = {"lanepack": lanepack.lanepack_fft, "large": large.large_row_stage,
+               "large_pad": largepad.largepad_row_stage,
                "two_stage": fused.two_stage_fft, "radix": fused.radix_fft,
                "large2f": large.large_row_stage}[route(n, np.complex64)]
     planner = FftPlanner(np.complex64, device="cuda")
