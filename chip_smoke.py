@@ -29,7 +29,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the two ragged-tile stages of large_pad at 78125 and 531441 (a ragged
    last tile on both axes), and the fused large Bluestein's three kernels
    at m = 2^21 (n = 1000003) and m = 1572864 (n = 746497), with the result
-   against the float64 oracle;
+   against the float64 oracle.  The kernel-variant switches: K4's Gauss
+   column and row stages at 2^20 x 1 and x 64, deep_a and blocks2d bit-equal
+   to the default at 2^20 x 64, and the two-pass core's Gauss stages and
+   in_shift column stage stage by stage at m = 65536 (Rader) and 16384
+   (Bluestein, Gauss only), with the result against the float64 oracle;
 3. the main paths through the public entry,
    FftPlanner(np.complex64, device="cuda").plan_fft_forward/inverse(n)
    .process(x): n = 4096 at batch 8 and 16384, n = 2^20 at batch 1024
@@ -42,8 +46,16 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    131072 x 512 and 262144 x 256 (radix), the primes 127 x 262144 and
    251 x 131072 (dense), the odd composites 15625 x 4096, 78125 x 512,
    177147 x 256 and 531441 x 64 (large_pad), 1000003 x 64 (the fused large
-   Bluestein) and 746497 x 64 (the recipe the planner designs).  Every
-   launch counter is set to 0 just before each run and
+   Bluestein) and 746497 x 64 (the recipe the planner designs).  Then the
+   switched paths, each switch set just before its plans are made and set
+   back in a `finally`: 2^20 x 1024 under config.large_gauss (the Gauss
+   stages), under config.large_blocks2d and through
+   make_large_fft_fn(deep_a=True) (the default stages, bit-equal to the
+   default on 64 rows), 65537 x 512 under config.rader_in_shift,
+   config.conv_radix_gauss and both, 7919 x 4096 under conv_radix_gauss,
+   and with every switch on 15625 x 4096, 1000003 x 64, 2^23 x 8 and 2^26 x 2
+   (no Gauss stage: the switches do not reach large_pad, K15, large2f or
+   large3f).  Every launch counter is set to 0 just before each run and
    read just after: each path must launch exactly its kernels.  Errors
    against a float64 numpy oracle on 4 rows (1 row from 2^23 up) and
    against torch.fft (an oracle only) on the whole batch, and the round
@@ -70,7 +82,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    large_pad path against the large route and torch.fft; the fused large
    Bluestein's kernels at 1000003 x 64 and the path against the two-pass
    core and torch.fft; 746497 x 64 as Raders(746496) on the two-pass core
-   and as Bluesteins(746497, 1572864) on the fused large Bluestein.
+   and as Bluesteins(746497, 1572864) on the fused large Bluestein.  The
+   switches: K4's Gauss stages at 64 x 2^20 against the default stages,
+   their plain versions, their bound (with the Gauss form's own operation
+   count) and, for the row stage, torch.fft over dim 1; the two-pass core's
+   Gauss stages and the in_shift column stage at the Rader 65537 x 512
+   shape; every switched path against its default path (in turns: the
+   default, each variant, the variants in reverse, the default) and
+   torch.fft.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -169,6 +188,23 @@ for _n in BLUE:
                                         "rustfft_tpu/ops/pallas/convlarge.py:72")
     KERNELS[f"bconv_out_stage/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                         "rustfft_tpu/ops/pallas/convlarge.py:99")
+#: the kernel-variant switches: K4's Gauss stages, K14's stages in the Gauss
+#: form, and K14's column stage on the raw Rader rows (in_shift; its launches
+#: are conv_col_stage's on the 65537 in_shift path, pass 1 and pass 2)
+KERNELS["large_col_stage_gauss"] = ("rustfft_tpu_torch/csrc/large_gauss.cu",
+                                    "rustfft_tpu/ops/pallas/large.py:76")
+KERNELS["large_row_stage_gauss"] = ("rustfft_tpu_torch/csrc/large_gauss.cu",
+                                    "rustfft_tpu/ops/pallas/large.py:131")
+KERNELS["conv_col_stage_gauss"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                   "rustfft_tpu/ops/pallas/conv_radix.py:70")
+KERNELS["conv_row_stage_gauss"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                   "rustfft_tpu/ops/pallas/conv_radix.py:70")
+KERNELS["conv_col_stage/in_shift"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                      "rustfft_tpu/ops/pallas/conv_radix.py:70")
+
+#: the path whose launches a "kernel/tag" entry reports, for tags that are
+#: not a size
+TAGGED = {"in_shift": "65537 in_shift"}
 
 
 def tag(n: int) -> str:
@@ -186,6 +222,15 @@ def bound(nbytes: float, flops: float):
 def fft_ops(m: float) -> float:
     """FP32 operations of one length-m transform: 5*m*log2(m)."""
     return 5 * m * math.log2(m)
+
+
+def gauss_ops(radices) -> float:
+    """FP32 operations per point of a DIT chain in the Gauss form
+    (csrc/fft_tile.cuh gauss_stage): per radix-r stage three multiply-adds
+    per term (6r), the xr + xi add and the three subtractions of
+    re = P1 - P2, im = P3 - P1 - P2 (4), and a complex product (6) per
+    inter-stage twiddle."""
+    return sum(6 * r + 4 for r in radices) + 6 * (len(radices) - 1)
 
 
 def card_line() -> str:
@@ -243,6 +288,19 @@ def free() -> None:
     torch.cuda.empty_cache()
 
 
+def switched(config, switches, fn):
+    """fn() with the config switches set, every one set back after, also
+    when fn raises."""
+    old = {name: getattr(config, name) for name in switches}
+    for name, value in switches.items():
+        setattr(config, name, value)
+    try:
+        return fn()
+    finally:
+        for name, value in old.items():
+            setattr(config, name, value)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false: needs an NVIDIA GPU")
@@ -252,7 +310,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from rustfft_tpu_torch import FftDirection, FftPlanner, executor, recipes, route
+    from rustfft_tpu_torch import FftDirection, FftPlanner, config, executor, recipes, route
     from rustfft_tpu_torch.ops.bluestein import bluestein_tables
     from rustfft_tpu_torch.ops.kernels import (
         _build, conv, conv_radix, convlarge, dense, fused, lanepack, large, large2f, large3,
@@ -373,6 +431,38 @@ def main() -> None:
         check(what, rel_err(got, want))
         max_abs[name] = max(max_abs[name], (got - want).abs().max().item())
 
+    # K4 at 2^20: the Gauss stages against their plain versions at batch 1
+    # and 64; deep_a and blocks2d (the default stages) bit-equal to the default
+    n = 1 << 20
+    p, q1, q2 = large.choose_pqq(n)
+    q = q1 * q2
+    for batch in (1, 64):
+        x = signal(batch, n)
+        for d in directions:
+            col = card_tables(large.col_tables(p, q, d, gauss=True))
+            row = card_tables(large.row_tables(q, d, gauss=True))
+            a = large.large_col_stage_gauss(x, p, q, col)
+            torch.cuda.synchronize()
+            note("large_col_stage_gauss", a, large.large_col_stage_gauss_plain(x, p, q, col),
+                 f"large_col_stage_gauss n=2^20 P={p} {large.stage_radices(p)} batch={batch} "
+                 f"{d.name}")
+            y = large.large_row_stage_gauss(a, q, p, row)
+            torch.cuda.synchronize()
+            note("large_row_stage_gauss", y, large.large_row_stage_gauss_plain(a, q, p, row),
+                 f"large_row_stage_gauss n=2^20 Q={q} {large.stage_radices(q)} batch={batch} "
+                 f"{d.name}")
+            if batch > 1:
+                want = large.make_large_fft_fn(n, d, np.complex64, gauss=False, blocks2d=False)(x)
+                for kw in (dict(deep_a=True), dict(blocks2d=True)):
+                    got = large.make_large_fft_fn(n, d, np.complex64, **kw)(x)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"make_large_fft_fn({kw}) differs from the default")
+                    print(f"  make_large_fft_fn(2^20, {kw}) batch={batch} {d.name}: bit-equal to "
+                          "the default", flush=True)
+        del x, a, y
+        free()
+
     def conv_tables(m, d, h, pre=None, post=None):
         radices = lanepack.choose_radices(m)
         roots, tws = lanepack.stage_tables(m, radices, d)
@@ -402,60 +492,73 @@ def main() -> None:
                                      f"batch={batch} {d.name}")
 
     def two_pass_stages(x, m, d, tabs, batch_what, n_out, conj_out=False, x0=None,
-                        full_out=False):
+                        full_out=False, gauss=False, in_shift=False):
         """The two-pass core stage by stage, each kernel against its plain
-        version on the kernel's own input."""
+        version on the kernel's own input; tabs from radix_conv_tables(...,
+        gauss).  in_shift: x and x0 are views x[:, 1:] and x[:, 0] of the
+        raw Rader rows."""
         p, q = conv_radix.choose_split(m)
-        col = (on_card(tabs["col"][0]), on_card(tabs["col"][1]),
-               torch.from_numpy(tabs["col"][2]).to(dev))
-        row = (on_card(tabs["row"][0]), on_card(tabs["row"][1]))
+        col = card_tables(tabs["col"])
+        row = card_tables(tabs["row"])
         t = {k: None if tabs[k] is None else torch.from_numpy(tabs[k]).to(dev)
              for k in ("h", "pre", "post", "perm", "scatter")}
+        col_name, row_name = (("conv_col_stage_gauss", "conv_row_stage_gauss") if gauss
+                              else ("conv_col_stage", "conv_row_stage"))
+        form = f"{'Gauss form ' if gauss else ''}{'in_shift ' if in_shift else ''}"
         a, part = conv_radix.conv_col_stage(x, p, q, col, pre=t["pre"], perm=t["perm"],
-                                            emit_sum=full_out)
+                                            emit_sum=full_out, gauss=gauss)
         torch.cuda.synchronize()
-        a_p, part_p = conv_radix.conv_col_stage_plain(x, p, q, col, t["pre"], t["perm"], full_out)
-        note("conv_col_stage", a, a_p, f"conv_col_stage pass 1 {batch_what} {d.name}")
+        a_p, part_p = conv_radix.conv_col_stage_plain(x, p, q, col, t["pre"], t["perm"], full_out,
+                                                      gauss)
+        note("conv_col_stage/in_shift" if in_shift else col_name, a, a_p,
+             f"conv_col_stage pass 1 {form}{batch_what} {d.name}")
         if full_out:
-            check(f"conv_col_stage partial sums {batch_what} {d.name}", rel_err(part, part_p))
-        z = conv_radix.conv_row_stage(a, q, p, row, m, h=t["h"])
+            check(f"conv_col_stage partial sums {form}{batch_what} {d.name}", rel_err(part, part_p))
+        z = conv_radix.conv_row_stage(a, q, p, row, m, h=t["h"], gauss=gauss)
         torch.cuda.synchronize()
-        note("conv_row_stage", z, conv_radix.conv_row_stage_plain(a, q, p, row, m, h=t["h"]),
-             f"conv_row_stage pass 1 {batch_what} {d.name}")
-        b, _ = conv_radix.conv_col_stage(z, p, q, col)
+        note(row_name, z, conv_radix.conv_row_stage_plain(a, q, p, row, m, h=t["h"], gauss=gauss),
+             f"conv_row_stage pass 1 {form}{batch_what} {d.name}")
+        b, _ = conv_radix.conv_col_stage(z, p, q, col, gauss=gauss)
         torch.cuda.synchronize()
-        note("conv_col_stage", b, conv_radix.conv_col_stage_plain(z, p, q, col)[0],
-             f"conv_col_stage pass 2 {batch_what} {d.name}")
+        note(col_name, b, conv_radix.conv_col_stage_plain(z, p, q, col, gauss=gauss)[0],
+             f"conv_col_stage pass 2 {form}{batch_what} {d.name}")
         kw = dict(conj_out=conj_out, post=t["post"], x0=x0, scatter=t["scatter"],
-                  partials=part if full_out else None)
+                  partials=part if full_out else None, gauss=gauss)
         out = conv_radix.conv_row_stage(b, q, p, row, n_out, **kw)
         torch.cuda.synchronize()
-        note("conv_row_stage", out, conv_radix.conv_row_stage_plain(b, q, p, row, n_out, **kw),
-             f"conv_row_stage pass 2 {batch_what} {d.name}")
+        note(row_name, out, conv_radix.conv_row_stage_plain(b, q, p, row, n_out, **kw),
+             f"conv_row_stage pass 2 {form}{batch_what} {d.name}")
         return out
 
     # the two-pass core: Rader 65537 (m = 65536, gathers, x0, sums and the
-    # DC-first output fused) and Bluestein 7919 (m = 16384)
+    # DC-first output fused) and Bluestein 7919 (m = 16384), in the default
+    # form and the Gauss form, Rader also on the raw rows (in_shift)
     for d in directions:
         p_prime = 65537
         perm_in, inv_gather, b_fft = raders_tables(p_prime, d)
-        tabs = conv_radix.radix_conv_tables(p_prime - 1, d, h=b_fft, in_perm=perm_in - 1,
-                                            out_perm=inv_gather)
         x = signal(3, p_prime)
-        out = two_pass_stages(x[:, 1:].contiguous(), p_prime - 1, d, tabs,
-                              "m=65536 Rader batch=3", p_prime - 1, conj_out=True,
-                              x0=x[:, 0].contiguous(), full_out=True)
-        check(f"Rader 65537 two-pass core vs float64 oracle {d.name}",
-              rel_err(out.cpu().to(torch.complex128),
-                      torch.from_numpy(host_dft(x.cpu().numpy(), d))))
+        for gauss, in_shift in ((False, False), (True, False), (False, True), (True, True)):
+            tabs = conv_radix.radix_conv_tables(p_prime - 1, d, h=b_fft, in_perm=perm_in - 1,
+                                                out_perm=inv_gather, gauss=gauss)
+            src, x0 = ((x[:, 1:], x[:, 0]) if in_shift
+                       else (x[:, 1:].contiguous(), x[:, 0].contiguous()))
+            out = two_pass_stages(src, p_prime - 1, d, tabs, "m=65536 Rader batch=3",
+                                  p_prime - 1, conj_out=True, x0=x0, full_out=True, gauss=gauss,
+                                  in_shift=in_shift)
+            check(f"Rader 65537 two-pass core gauss={gauss} in_shift={in_shift} vs float64 "
+                  f"oracle {d.name}",
+                  rel_err(out.cpu().to(torch.complex128),
+                          torch.from_numpy(host_dft(x.cpu().numpy(), d))))
         n, m = 7919, 16384
         chirp, h_fft = bluestein_tables(n, m, d)
-        tabs = conv_radix.radix_conv_tables(m, d, h=h_fft, pre=chirp, post=chirp)
         x = signal(3, n)
-        out = two_pass_stages(x, m, d, tabs, "m=16384 Bluestein 7919 batch=3", n, conj_out=True)
-        check(f"Bluestein 7919 two-pass core vs float64 oracle {d.name}",
-              rel_err(out.cpu().to(torch.complex128),
-                      torch.from_numpy(host_dft(x.cpu().numpy(), d))))
+        for gauss in (False, True):
+            tabs = conv_radix.radix_conv_tables(m, d, h=h_fft, pre=chirp, post=chirp, gauss=gauss)
+            out = two_pass_stages(x, m, d, tabs, "m=16384 Bluestein 7919 batch=3", n,
+                                  conj_out=True, gauss=gauss)
+            check(f"Bluestein 7919 two-pass core gauss={gauss} vs float64 oracle {d.name}",
+                  rel_err(out.cpu().to(torch.complex128),
+                          torch.from_numpy(host_dft(x.cpu().numpy(), d))))
     for m, batch in ((1008, 257), (114688, 5)):
         idx = torch.from_numpy(permute.permutation_index(
             np.random.default_rng(m).permutation(m))).to(dev)
@@ -621,7 +724,11 @@ def main() -> None:
                 "largepad_col_stage": largepad.largepad_col_stage,
                 "largepad_row_stage": largepad.largepad_row_stage,
                 "bconv_row_stage": convlarge.bconv_row_stage,
-                "bconv_out_stage": convlarge.bconv_out_stage}
+                "bconv_out_stage": convlarge.bconv_out_stage,
+                "large_col_stage_gauss": large.large_col_stage_gauss,
+                "large_row_stage_gauss": large.large_row_stage_gauss,
+                "conv_col_stage_gauss": conv_radix.conv_col_stage_gauss,
+                "conv_row_stage_gauss": conv_radix.conv_row_stage_gauss}
     planner = FftPlanner(np.complex64, device="cuda")
     assert route(4096, np.complex64) == "lanepack" and route(1 << 20, np.complex64) == "large"
     assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 3 + ["large3f"]
@@ -646,9 +753,9 @@ def main() -> None:
     main_launches = {name: 0 for name in counters}
     path_launches = {}
 
-    def run_counted(fn, x, expected, what, n):
+    def run_counted(fn, x, expected, what, key):
         """fn(x) with every counter set to 0 just before and read just after:
-        exactly the expected launches."""
+        exactly the expected launches, added to path_launches[key]."""
         for counter in counters.values():
             counter.launches = 0
         y = fn(x)
@@ -659,8 +766,8 @@ def main() -> None:
             raise AssertionError(f"{what}: launches {got}, expected {want}")
         for name, count in got.items():
             main_launches[name] += count
-            path_launches.setdefault(n, {}).setdefault(name, 0)
-            path_launches[n][name] += count
+            path_launches.setdefault(key, {}).setdefault(name, 0)
+            path_launches[key][name] += count
         return y
 
     def oracle_rows(x, got, direction, what):
@@ -689,12 +796,13 @@ def main() -> None:
         *((n, batch, k15) for n, (_, batch) in BLUE.items()),
         (746497, 64, prime_launches(746497)),
     )
-    for n, batch, expected in paths:
-        fwd = planner.plan_fft_forward(n)
-        inv = planner.plan_fft_inverse(n)
+    def drive(key, n, batch, expected, fwd, inv, what, same_as=None):
+        """fwd and inv through run_counted, each against the float64 oracle
+        and torch.fft, and the round trip; same_as(direction, rows): the
+        output the default path gives for those rows, which fwd's and inv's
+        must equal bit for bit."""
         x = signal(batch, n)
-        what = f"n={n} batch={batch} ({type(fwd.recipe).__name__})"
-        y = run_counted(fwd.process, x, expected, f"forward {what}", n)
+        y = run_counted(fwd, x, expected, f"forward {what}", key)
         if y.shape != x.shape or y.dtype != torch.complex64 or y.device != x.device:
             raise AssertionError(f"{what}: output {tuple(y.shape)} {y.dtype} on {y.device}")
         if not bool(torch.isfinite(torch.view_as_real(y)).all()):
@@ -702,15 +810,64 @@ def main() -> None:
         oracle_rows(x, y, FftDirection.FORWARD, f"forward {what}")
         check(f"forward {what} vs torch.fft",
               rel_err_chunked(y, lambda i, j: torch.fft.fft(x[i:j])))
-        z = run_counted(inv.process, y, expected, f"inverse {what}", n)
+        z = run_counted(inv, y, expected, f"inverse {what}", key)
         oracle_rows(y, z, FftDirection.INVERSE, f"inverse {what}")
         check(f"inverse {what} vs torch.fft",
               rel_err_chunked(z, lambda i, j: torch.fft.ifft(y[i:j]) * n))
         check(f"round trip / n {what} vs input", rel_err_chunked(z, lambda i, j: x[i:j] * n))
+        if same_as is not None:
+            for d, inp, out in ((FftDirection.FORWARD, x, y), (FftDirection.INVERSE, y, z)):
+                if not torch.equal(out[:64], same_as(d, inp[:64])):
+                    raise AssertionError(f"{what} {d.name}: differs from the default path")
+            print(f"  {what}: bit-equal to the default path on 64 rows", flush=True)
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
         del x, y, z
         free()
         torch.cuda.reset_peak_memory_stats()
+
+    for n, batch, expected in paths:
+        fwd = planner.plan_fft_forward(n)
+        inv = planner.plan_fft_inverse(n)
+        drive(n, n, batch, expected, fwd.process, inv.process,
+              f"n={n} batch={batch} ({type(fwd.recipe).__name__})")
+
+    # the switched paths: each switch set just before its plans are made and
+    # set back after; with every switch on, the routes the switches must not
+    # reach launch their default kernels
+    every = dict(large_gauss=True, large_blocks2d=True, conv_radix_gauss=True,
+                 rader_in_shift=True)
+    gauss4 = {"conv_col_stage_gauss": 2, "conv_row_stage_gauss": 2}
+    default_large = {"large_col_stage": 1, "large_row_stage": 1}
+
+    def default_2_20(d, rows):
+        return large.make_large_fft_fn(1 << 20, d, np.complex64, gauss=False,
+                                       blocks2d=False)(rows)
+
+    switched_paths = (
+        ("gauss", 1 << 20, 1024, {"large_col_stage_gauss": 1, "large_row_stage_gauss": 1},
+         dict(large_gauss=True), None),
+        ("blocks2d", 1 << 20, 1024, default_large, dict(large_blocks2d=True), default_2_20),
+        ("in_shift", 65537, 512, {"conv_col_stage": 2, "conv_row_stage": 2},
+         dict(rader_in_shift=True), None),
+        ("gauss", 65537, 512, gauss4, dict(conv_radix_gauss=True), None),
+        ("in_shift+gauss", 65537, 512, gauss4, dict(rader_in_shift=True, conv_radix_gauss=True),
+         None),
+        ("gauss", 7919, 4096, gauss4, dict(conv_radix_gauss=True), None),
+        ("every switch", 15625, 4096, {"largepad_col_stage": 1, "largepad_row_stage": 1}, every,
+         None),
+        ("every switch", 1000003, 64, k15, every, None),
+        ("every switch", 1 << 23, 8, {"large2f_col_stage": 1, "large_row_stage": 1}, every, None),
+        ("every switch", 1 << 26, 2, {"large3_col_stage": 1, "large3_p2": 1, "large_row_stage": 1},
+         every, None),
+    )
+    for tag_, n, batch, expected, switches, same_as in switched_paths:
+        fwd, inv = switched(config, switches, lambda: (planner.plan_fft_forward(n),
+                                                       planner.plan_fft_inverse(n)))
+        drive(f"{n} {tag_}", n, batch, expected, fwd.process, inv.process,
+              f"n={n} batch={batch} {tag_} ({type(fwd.recipe).__name__})", same_as)
+    fwd, inv = (large.make_large_fft_fn(1 << 20, d, np.complex64, deep_a=True) for d in directions)
+    drive(f"{1 << 20} deep_a", 1 << 20, 1024, default_large, fwd, inv,
+          "n=1048576 batch=1024 make_large_fft_fn(deep_a=True)", default_2_20)
     print(f"  launches on the main paths: {main_launches}", flush=True)
     for name, count in main_launches.items():
         if count == 0 and name not in NOT_ROUTED:
@@ -779,7 +936,36 @@ def main() -> None:
     lib = median_ms(lambda: torch.fft.fft(a, dim=1))
     print(f"  large_row_stage n={n} Q={q} {large.stage_radices(q)} batch={batch}:", flush=True)
     record("large_row_stage", k, plain, 16 * batch * n, batch * p * fft_ops(q), lib)
-    del x, a
+    # K4's Gauss stages at the same shape, against the default stages above
+    gcol = card_tables(large.col_tables(p, q, FftDirection.FORWARD, gauss=True))
+    grow = card_tables(large.row_tables(q, FftDirection.FORWARD, gauss=True))
+    ga = large.large_col_stage_gauss(x, p, q, gcol)
+    note("large_col_stage_gauss", ga, large.large_col_stage_gauss_plain(x, p, q, gcol),
+         f"large_col_stage_gauss n={n} P={p} batch={batch}")
+    note("large_row_stage_gauss", large.large_row_stage_gauss(ga, q, p, grow),
+         large.large_row_stage_gauss_plain(ga, q, p, grow),
+         f"large_row_stage_gauss n={n} Q={q} batch={batch}")
+    free()
+    for name, kernel, plain_fn, nbytes, ops, library in (
+        ("large_col_stage_gauss", lambda: large.large_col_stage_gauss(x, p, q, gcol),
+         lambda: large.large_col_stage_gauss_plain(x, p, q, gcol),
+         16 * batch * n + 8 * n + table_bytes(gcol[:2]),
+         batch * n * (gauss_ops(large.stage_radices(p)) + 6), None),
+        ("large_row_stage_gauss", lambda: large.large_row_stage_gauss(ga, q, p, grow),
+         lambda: large.large_row_stage_gauss_plain(ga, q, p, grow),
+         16 * batch * n + table_bytes(grow), batch * n * gauss_ops(large.stage_radices(q)),
+         lambda: torch.fft.fft(ga, dim=1)),
+    ):
+        k = median_ms(kernel)
+        plain = median_ms(plain_fn)
+        lib = None if library is None else median_ms(library)
+        default_ms = results[name[:-len("_gauss")]]["ms"]
+        print(f"  {name} n={n} batch={batch}: {k:.3f} ms against the default form's "
+              f"{default_ms:.3f} ({k / default_ms:.2f}x); the Gauss form's operations "
+              f"{ops / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak, its bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms:", flush=True)
+        record(name, k, plain, nbytes, ops, lib)
+    del x, a, ga
     free()
     for batch in (64, 1024):
         x = signal(batch, n)
@@ -879,6 +1065,88 @@ def main() -> None:
            batch * (p * fft_ops(q) + 2 * m))
     del x, a, part
     free()
+
+    # K14's options at the same shape: the column stage on the raw (batch,
+    # m + 1) rows (in_shift) against the copy of x[:, 1:] it saves, and both
+    # stages in the Gauss form against the default stages above
+    raw = signal(batch, m + 1)
+    src, x0 = raw[:, 1:], raw[:, 0]
+    a, part = conv_radix.conv_col_stage(src, p, q, col, perm=perm, emit_sum=True)
+    a_p, part_p = conv_radix.conv_col_stage_plain(src, p, q, col, None, perm, True)
+    note("conv_col_stage/in_shift", a, a_p, f"conv_col_stage pass 1 in_shift {what}")
+    check(f"conv_col_stage partial sums in_shift {what}", rel_err(part, part_p))
+    del a, a_p, part_p
+    free()
+    k = median_ms(lambda: conv_radix.conv_col_stage(src, p, q, col, perm=perm, emit_sum=True))
+    plain = median_ms(lambda: conv_radix.conv_col_stage_plain(src, p, q, col, None, perm, True))
+    copy = median_ms(lambda: src.contiguous())
+    copied = median_ms(lambda: conv_radix.conv_col_stage(src.contiguous(), p, q, col, perm=perm,
+                                                         emit_sum=True))
+    print(f"  conv_col_stage in_shift m={m} batch={batch}: the copy of x[:, 1:] it saves "
+          f"{copy:.3f} ms; copy and stage {copied:.3f} ms; on the raw rows:", flush=True)
+    record("conv_col_stage/in_shift", k, plain, 16 * batch * m + 12 * m + 8 * part.numel(),
+           batch * m * (fft_ops(p) / p + 8))
+    gtabs = conv_radix.radix_conv_tables(m, FftDirection.FORWARD, h=b_fft, in_perm=perm_in - 1,
+                                         out_perm=inv_gather, gauss=True)
+    gcol, grow = card_tables(gtabs["col"]), card_tables(gtabs["row"])
+    a, part = conv_radix.conv_col_stage_gauss(src, p, q, gcol, perm=perm, emit_sum=True)
+    note("conv_col_stage_gauss", a,
+         conv_radix.conv_col_stage_plain(src, p, q, gcol, None, perm, True, True)[0],
+         f"conv_col_stage_gauss pass 1 {what}")
+    kw = dict(conj_out=True, x0=x0, scatter=scatter, partials=part)
+    note("conv_row_stage_gauss", conv_radix.conv_row_stage_gauss(a, q, p, grow, m, **kw),
+         conv_radix.conv_row_stage_plain(a, q, p, grow, m, gauss=True, **kw),
+         f"conv_row_stage_gauss pass 2 {what}")
+    free()
+    k = median_ms(lambda: conv_radix.conv_col_stage_gauss(src, p, q, gcol, perm=perm,
+                                                          emit_sum=True))
+    plain = median_ms(lambda: conv_radix.conv_col_stage_plain(src, p, q, gcol, None, perm, True,
+                                                              True))
+    print(f"  conv_col_stage_gauss m={m} batch={batch}: the default form "
+          f"{results['conv_col_stage']['ms']:.3f} ms; in the Gauss form:", flush=True)
+    record("conv_col_stage_gauss", k, plain, 16 * batch * m + 12 * m + 8 * part.numel(),
+           batch * m * (gauss_ops(large.stage_radices(p)) + 8))
+    k = median_ms(lambda: conv_radix.conv_row_stage_gauss(a, q, p, grow, m, **kw))
+    plain = median_ms(lambda: conv_radix.conv_row_stage_plain(a, q, p, grow, m, gauss=True, **kw))
+    print(f"  conv_row_stage_gauss m={m} batch={batch}: the default form "
+          f"{results['conv_row_stage']['ms']:.3f} ms; in the Gauss form:", flush=True)
+    record("conv_row_stage_gauss", k, plain, 16 * batch * m + 4 * m + 16 * batch + 8 * part.numel(),
+           batch * m * (gauss_ops(large.stage_radices(q)) + 2))
+    del raw, src, x0, a, part, kw
+    free()
+
+    # every switched path against its default path and torch.fft (the
+    # switches set while the plan is made), timed in turns: the default, each
+    # variant, each variant again in reverse order, the default again
+    for n, batch, variants in (
+        (1 << 20, 1024, (("large_gauss", dict(large_gauss=True)),
+                         ("large_blocks2d", dict(large_blocks2d=True)))),
+        (65537, 512, (("rader_in_shift", dict(rader_in_shift=True)),
+                      ("conv_radix_gauss", dict(conv_radix_gauss=True)),
+                      ("rader_in_shift + conv_radix_gauss",
+                       dict(rader_in_shift=True, conv_radix_gauss=True)),
+                      ("rader_full_out off", dict(rader_full_out=False)))),
+        (7919, 4096, (("conv_radix_gauss", dict(conv_radix_gauss=True)),)),
+    ):
+        x = signal(batch, n)
+        reps = 5 if n > 65537 else 7
+        fns = {"default": planner.plan_fft_forward(n).process}
+        for name, switches in variants:
+            fns[name] = switched(config, switches, lambda: planner.plan_fft_forward(n)).process
+        if n == 1 << 20:
+            fns["deep_a"] = large.make_large_fft_fn(n, FftDirection.FORWARD, np.complex64,
+                                                    deep_a=True)
+        order = list(fns) + list(fns)[::-1]
+        times = {name: [] for name in fns}
+        for name in order:
+            times[name].append(median_ms(lambda: fns[name](x), reps=reps))
+        ref = median_ms(lambda: torch.fft.fft(x), reps=reps)
+        print(f"  switched paths n={n} batch={batch}, in turns: " + "; ".join(
+            f"{name} {t[0]:.3f} / {t[1]:.3f} ms ({gflops(n, batch, sum(t) / 2):.0f} GF/s)"
+            for name, t in times.items()) + f"; torch.fft {ref:.3f} ms "
+              f"({gflops(n, batch, ref):.0f} GF/s)", flush=True)
+        del x, fns
+        free()
 
     # every prime-path size against torch.fft
     for n, batch in ((1009, 8192), (1234, 8192), (7919, 4096), (65537, 512)):
@@ -1215,6 +1483,8 @@ def main() -> None:
         base, _, where = name.partition("/")
         if not where:
             return main_launches[base]
+        if where in TAGGED:
+            return path_launches[TAGGED[where]][base]
         n = {"K6": 1009, "K13": 1234}.get(where)
         n = n or (1 << int(where[2:]) if where.startswith("2^") else int(where))
         return path_launches[n][base]

@@ -22,6 +22,17 @@
 // That is four launches and eight traversals of m, where the TPU made two
 // launches and four traversals (one VMEM-resident FFT per pass).
 //
+// The JAX kernel's two options (off by default there and here):
+//  - gauss_mode: every DFT stage as three real products (conv_radix.py:183,
+//    :232, :266); here `gauss` runs both stages on large.cuh's general
+//    kernels with every radix stage in the Gauss form (fft_tile.cuh
+//    gauss_stage), the twiddles staying complex products.
+//  - in_shift: pass 1 reads the raw (batch, m + 1) Rader rows instead of a
+//    copy of x[:, 1:] (conv_radix.py:161, :327).  Here the column stage's
+//    rows are `ld` apart (ld = m + 1 from x[:, 1:] of the raw rows) and pass
+//    2 reads x0 = x[:, 0] at a stride of x0_ld; the DC bin stays x0 + the
+//    partial sums of the raw input.
+//
 // What bounds it on this card: 8 traversals of 8 bytes per point, plus the
 // radix chains of the column and row stages on the CUDA cores and the outer
 // twiddle table.  The Rader gather breaks the column stage's 16-column
@@ -70,14 +81,15 @@ static __device__ float2 block_sum(float2 v) {
 // beyond n_in), times pre[j]; the raw values are summed per tile into
 // partials[b, tile].
 struct ConvIn {
-  const float2* __restrict__ x;  // (batch, n_in)
+  const float2* __restrict__ x;  // (batch, n_in), rows ld apart
   const float2* __restrict__ pre;
   const int* __restrict__ perm;
   float2* __restrict__ partials;  // (batch, Q/qt) or NULL
   int n_in;
+  size_t ld;
   __device__ float2 load(size_t b, int j, float2& acc) const {
     if (j >= n_in) return make_float2(0.f, 0.f);
-    const float2 v = x[b * (size_t)n_in + (perm != nullptr ? __ldg(&perm[j]) : j)];
+    const float2 v = x[b * ld + (perm != nullptr ? __ldg(&perm[j]) : j)];
     acc.x += v.x;
     acc.y += v.y;
     return pre != nullptr ? cmul(v, __ldg(&pre[j])) : v;
@@ -95,13 +107,14 @@ struct ConvOut {
   float2* __restrict__ y;   // (batch, ld_out)
   const float2* h;          // pass 1: z = conj(z . h[k])
   const float2* post;       // z = z . post[k]
-  const float2* x0;         // (batch,): z = z + x0[b]
+  const float2* x0;         // (batch,), x0_ld apart: z = z + x0[b]
   const int* scatter;       // z[k] goes to position scatter[k] (else k)
   const float2* partials;   // full_out: (batch, n_partials); out[0] = x0 + sum, rest shifted by 1
   int n_partials;
   int conj_out;             // z = conj(z), after h
   int n_out;
   long long ld_out;
+  long long x0_ld;
 
   struct Row {
     const ConvOut& ep;
@@ -123,7 +136,7 @@ struct ConvOut {
 
   __device__ Row row(size_t b) const {
     return Row{*this, y + b * (size_t)ld_out + (partials != nullptr ? 1 : 0),
-               x0 != nullptr ? x0[b] : make_float2(0.f, 0.f)};
+               x0 != nullptr ? x0[b * (size_t)x0_ld] : make_float2(0.f, 0.f)};
   }
 
   // full_out: out[b, 0] = x0[b] + the row's partial sums, added in tile order.
@@ -135,57 +148,69 @@ struct ConvOut {
       sum.x += part[i].x;
       sum.y += part[i].y;
     }
-    const float2 c = x0[b];
+    const float2 c = x0[b * (size_t)x0_ld];
     y[b * (size_t)ld_out] = make_float2(c.x + sum.x, c.y + sum.y);
   }
 };
 
 }  // namespace rf
 
-// x: (batch, n_in) complex64, n_in <= P*Q; y: (batch, Q, P); partials:
-// (batch, Q/qt) or NULL; tw_outer: (Q, P); pre: (P*Q,) or NULL; perm: (P*Q,)
-// int32 or NULL (needs n_in == P*Q).  Returns a cudaError_t code.
+// x: (batch, n_in) complex64 with rows ld >= n_in apart, n_in <= P*Q; y:
+// (batch, Q, P); partials: (batch, Q/qt) or NULL; gauss: roots0..2 are the
+// (3, r_s) float32 Gauss tables and the stage runs in the Gauss form;
+// tw_outer: (Q, P); pre: (P*Q,) or NULL; perm: (P*Q,) int32 or NULL (needs
+// n_in == P*Q).  Returns a cudaError_t code.
 extern "C" int rf_conv_col_stage(const void* x, void* y, void* partials, long long batch,
-                                 int n_in, int p, int q, int qt, int k, int r0, int r1, int r2,
-                                 const void* roots0, const void* roots1, const void* roots2,
-                                 const void* tw0, const void* tw1, const void* tw_outer,
-                                 const void* pre, const void* perm, void* stream) {
+                                 int n_in, long long ld, int p, int q, int qt, int gauss, int k,
+                                 int r0, int r1, int r2, const void* roots0, const void* roots1,
+                                 const void* roots2, const void* tw0, const void* tw1,
+                                 const void* tw_outer, const void* pre, const void* perm,
+                                 void* stream) {
   using namespace rf;
-  if (batch <= 0 || q <= 0 || qt <= 0 || q % qt != 0 || n_in <= 0 ||
+  if (batch <= 0 || q <= 0 || qt <= 0 || q % qt != 0 || n_in <= 0 || ld < n_in ||
       (long long)n_in > (long long)p * q || (perm != nullptr && n_in != p * q))
     return cudaErrorInvalidValue;
-  const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
-  if (!stages_ok(st, p) || tw_outer == nullptr) return cudaErrorInvalidValue;
+  const Stages st = gauss ? make_gauss_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1)
+                          : make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
+  if (!stages_ok(st, p, gauss) || tw_outer == nullptr) return cudaErrorInvalidValue;
   const ConvIn src{static_cast<const float2*>(x), static_cast<const float2*>(pre),
-                   static_cast<const int*>(perm), static_cast<float2*>(partials), n_in};
-  return launch_col_stage(src, static_cast<float2*>(y), batch, p, q, qt, st,
-                          FullOuter{static_cast<const float2*>(tw_outer), p},
-                          static_cast<cudaStream_t>(stream));
+                   static_cast<const int*>(perm), static_cast<float2*>(partials), n_in,
+                   (size_t)ld};
+  const FullOuter outer{static_cast<const float2*>(tw_outer), p};
+  float2* out = static_cast<float2*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (gauss) return launch_col_gauss(src, out, batch, p, q, qt, st, outer, s);
+  return launch_col_stage(src, out, batch, p, q, qt, st, outer, s);
 }
 
-// a: (batch, Q, P) complex64; y: (batch, ld_out); h, post: (P*Q,) or NULL;
-// x0: (batch,) or NULL; scatter: (P*Q,) int32 or NULL; partials: (batch,
-// n_partials) or NULL (full_out: needs x0 and ld_out >= n_out + 1).
-// Returns a cudaError_t code; launches on `stream`.
+// a: (batch, Q, P) complex64; y: (batch, ld_out); gauss: roots0..2 are the
+// (3, r_s) float32 Gauss tables and the stage runs in the Gauss form; h,
+// post: (P*Q,) or NULL; x0: (batch,) x0_ld apart, or NULL; scatter: (P*Q,)
+// int32 or NULL; partials: (batch, n_partials) or NULL (full_out: needs x0
+// and ld_out >= n_out + 1).  Returns a cudaError_t code; launches on
+// `stream`.
 extern "C" int rf_conv_row_stage(const void* a, void* y, long long batch, int q, int p, int pt,
-                                 int k, int r0, int r1, int r2, const void* roots0,
+                                 int gauss, int k, int r0, int r1, int r2, const void* roots0,
                                  const void* roots1, const void* roots2, const void* tw0,
                                  const void* tw1, const void* h, const void* post,
-                                 const void* x0, const void* scatter, const void* partials,
-                                 int n_partials, int conj_out, int n_out, long long ld_out,
-                                 void* stream) {
+                                 const void* x0, long long x0_ld, const void* scatter,
+                                 const void* partials, int n_partials, int conj_out, int n_out,
+                                 long long ld_out, void* stream) {
   using namespace rf;
   const long long m = (long long)p * q;
   if (batch <= 0 || p <= 0 || pt <= 0 || p % pt != 0 || n_out <= 0 || n_out > m ||
-      ld_out < n_out + (partials != nullptr ? 1 : 0) ||
+      ld_out < n_out + (partials != nullptr ? 1 : 0) || x0_ld < 0 ||
       (partials != nullptr && (x0 == nullptr || n_partials <= 0)))
     return cudaErrorInvalidValue;
-  const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
-  if (!stages_ok(st, q)) return cudaErrorInvalidValue;
+  const Stages st = gauss ? make_gauss_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1)
+                          : make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
+  if (!stages_ok(st, q, gauss)) return cudaErrorInvalidValue;
   const ConvOut dst{static_cast<float2*>(y),           static_cast<const float2*>(h),
                     static_cast<const float2*>(post),  static_cast<const float2*>(x0),
                     static_cast<const int*>(scatter),  static_cast<const float2*>(partials),
-                    n_partials, conj_out, n_out, ld_out};
-  return launch_row_stage(static_cast<const float2*>(a), dst, batch, q, p, pt, st,
-                          scatter == nullptr, static_cast<cudaStream_t>(stream));
+                    n_partials, conj_out, n_out, ld_out, x0_ld};
+  const float2* in = static_cast<const float2*>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (gauss) return launch_row_gauss(in, dst, batch, q, p, pt, st, s);
+  return launch_row_stage(in, dst, batch, q, p, pt, st, scatter == nullptr, s);
 }

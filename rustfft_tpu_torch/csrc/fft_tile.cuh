@@ -18,6 +18,11 @@
 //    radix-2 FFT (log2 r butterfly layers), 3, 5, 6, 7, 9 and 12 an unrolled
 //    direct sum.  Other radices (up to 512) take fft_stage: one work item is
 //    a column and a chunk of G outputs, reading its r inputs once per chunk.
+//  - The Gauss form (run_stage<true>, the port of the JAX package's Gauss
+//    contractions) runs every radix, 2-16 included, as gauss_stage: fft_stage's
+//    work items with each output as three real sums instead of a complex one.
+//    Its tables are (3, r) float rows Wr, Wi, Ws = Wr + Wi of the roots,
+//    held in shared memory as one float4 per root index.
 //  - Stages ping-pong between two buffers (the compile-time chains at the
 //    end of this file run in place in one); consecutive threads take
 //    consecutive (j', t), so writes are contiguous and reads are contiguous
@@ -40,6 +45,7 @@ struct Stages {
   int r[kMaxStages];                      // radices, product = m
   const float2* roots[kMaxStages];        // (r_s,) w_{r_s}^e, device memory
   const float2* tw[kMaxStages - 1];       // (r_s, rest_s) twiddles, device memory
+  const float* gauss[kMaxStages];         // Gauss form: (3, r_s) Wr, Wi, Ws of w_{r_s}^e
 };
 
 static inline Stages make_stages(int k, int r0, int r1, int r2, const void* roots0,
@@ -53,15 +59,30 @@ static inline Stages make_stages(int k, int r0, int r1, int r2, const void* root
   st.roots[2] = static_cast<const float2*>(roots2);
   st.tw[0] = static_cast<const float2*>(tw0);
   st.tw[1] = static_cast<const float2*>(tw1);
+  st.gauss[0] = st.gauss[1] = st.gauss[2] = nullptr;
   return st;
 }
 
-// The stages describe a length-m transform and every table is present.
-static inline bool stages_ok(const Stages& st, int m) {
+// The stages of the Gauss form: g_s the (3, r_s) float tables in place of
+// the roots.
+static inline Stages make_gauss_stages(int k, int r0, int r1, int r2, const void* g0,
+                                       const void* g1, const void* g2, const void* tw0,
+                                       const void* tw1) {
+  Stages st = make_stages(k, r0, r1, r2, nullptr, nullptr, nullptr, tw0, tw1);
+  st.gauss[0] = static_cast<const float*>(g0);
+  st.gauss[1] = static_cast<const float*>(g1);
+  st.gauss[2] = static_cast<const float*>(g2);
+  return st;
+}
+
+// The stages describe a length-m transform and every table is present (the
+// Gauss tables with `gauss`, else the roots).
+static inline bool stages_ok(const Stages& st, int m, bool gauss = false) {
   if (st.k < 1 || st.k > kMaxStages) return false;
   long long prod = 1;
   for (int s = 0; s < st.k; ++s) {
-    if (st.r[s] < 2 || st.r[s] > 512 || st.roots[s] == nullptr) return false;
+    const void* table = gauss ? static_cast<const void*>(st.gauss[s]) : st.roots[s];
+    if (st.r[s] < 2 || st.r[s] > 512 || table == nullptr) return false;
     if (s + 1 < st.k && st.tw[s] == nullptr) return false;
     prod *= st.r[s];
   }
@@ -78,9 +99,10 @@ static inline int roots_total(const Stages& st) {
 // groups.
 static __host__ __device__ inline int pad16(int elems) { return (elems + 15) & ~15; }
 
-// Bytes of dynamic shared memory for a tile: two buffers plus the roots.
-static inline size_t tile_smem_bytes(int elems, const Stages& st) {
-  return (2 * (size_t)pad16(elems) + (size_t)roots_total(st)) * sizeof(float2);
+// Bytes of dynamic shared memory for a tile: two buffers plus the roots
+// (one float2 per root), or the Gauss tables (one float4 per root).
+static inline size_t tile_smem_bytes(int elems, const Stages& st, bool gauss = false) {
+  return (2 * (size_t)pad16(elems) + (gauss ? 2 : 1) * (size_t)roots_total(st)) * sizeof(float2);
 }
 
 // Bank swizzle: permutes the low 4 bits (16 x 8 bytes = one pass over the
@@ -101,6 +123,30 @@ static __device__ void load_roots(const Stages& st, float2* sroots) {
   for (int s = 0; s < st.k; ++s) {
     for (int i = threadIdx.x; i < st.r[s]; i += blockDim.x) sroots[off + i] = st.roots[s][i];
     off += st.r[s];
+  }
+}
+
+// Copy every stage's Gauss tables into shared memory, back to back, as
+// {Wr, Wi, Ws, 0} per root index: one 16-byte broadcast read per term.
+static __device__ void load_gauss(const Stages& st, float4* sg) {
+  int off = 0;
+  for (int s = 0; s < st.k; ++s) {
+    const int r = st.r[s];
+    const float* g = st.gauss[s];
+    for (int i = threadIdx.x; i < r; i += blockDim.x)
+      sg[off + i] = make_float4(g[i], g[r + i], g[2 * r + i], 0.f);
+    off += r;
+  }
+}
+
+// The stage tables a tile's chain reads: the roots, or with kGauss the
+// Gauss tables (2 float2 slots per root).
+template <bool kGauss>
+static __device__ void load_tables(const Stages& st, float2* stables) {
+  if constexpr (kGauss) {
+    load_gauss(st, reinterpret_cast<float4*>(stables));
+  } else {
+    load_roots(st, stables);
   }
 }
 
@@ -146,6 +192,63 @@ static __device__ void fft_stage(const float2* __restrict__ in, float2* __restri
       const int k = k0 + g;
       if (k < r) {
         float2 y = acc[g];
+        if (tw != nullptr) y = cmul(y, __ldg(&tw[k * rest + jr]));
+        out[swz(k * ncols + c)] = y;
+      }
+    }
+  }
+}
+
+// fft_stage in the Gauss form (the port of the Gauss stages of
+// rustfft_tpu/ops/pallas/large.py:_kernel_a_gauss, fftq_sublane_gauss and
+// conv_radix.py:_kernel's gauss_mode): each output is three real sums over
+// the column,
+//   P1 = sum_j xr*Wr,  P2 = sum_j xi*Wi,  P3 = sum_j (xr + xi)*Ws,
+//   re = P1 - P2,      im = P3 - P1 - P2,
+// with {Wr, Wi, Ws} = g[(j*k) mod r], three multiply-adds per term where
+// fft_stage takes four.  The twiddle after it stays a complex product.
+static __device__ void gauss_stage(const float2* __restrict__ in, float2* __restrict__ out,
+                                   int r, int lead, int rest, int T,
+                                   const float4* __restrict__ g,
+                                   const float2* __restrict__ tw) {
+  const int step = rest * T;
+  const int ncols = lead * step;
+  const int nchunks = (r + kChunk - 1) / kChunk;
+  for (int item = threadIdx.x; item < ncols * nchunks; item += blockDim.x) {
+    const int chunk = item / ncols;
+    const int c = item - chunk * ncols;   // c = l*step + j'*T + t
+    const int l = c / step;
+    const int rt = c - l * step;
+    const int k0 = chunk * kChunk;
+    float p1[kChunk], p2[kChunk], p3[kChunk];
+    int e[kChunk], inc[kChunk];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      p1[i] = p2[i] = p3[i] = 0.f;
+      e[i] = 0;
+      inc[i] = (k0 + i < r) ? k0 + i : 0;
+    }
+    int idx = l * r * step + rt;
+    for (int j = 0; j < r; ++j) {
+      const float2 a = in[swz(idx)];
+      const float s = a.x + a.y;
+      idx += step;
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const float4 w = g[e[i]];
+        p1[i] = fmaf(a.x, w.x, p1[i]);
+        p2[i] = fmaf(a.y, w.y, p2[i]);
+        p3[i] = fmaf(s, w.z, p3[i]);
+        e[i] += inc[i];
+        if (e[i] >= r) e[i] -= r;
+      }
+    }
+    const int jr = rt / T;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int k = k0 + i;
+      if (k < r) {
+        float2 y = make_float2(p1[i] - p2[i], p3[i] - p1[i] - p2[i]);
         if (tw != nullptr) y = cmul(y, __ldg(&tw[k * rest + jr]));
         out[swz(k * ncols + c)] = y;
       }
@@ -239,41 +342,49 @@ static __device__ void fft_stage_reg(const float2* __restrict__ in, float2* __re
 }
 
 // Dispatch on the radix: register stages for 2-9, 12 and 16 (mirrored by
-// ops/kernels/lanepack.py REGISTER_RADICES), fft_stage for the rest.
+// ops/kernels/lanepack.py REGISTER_RADICES), fft_stage for the rest; with
+// kGauss, gauss_stage for every radix (`tables` then holds float4s).
+template <bool kGauss = false>
 static __device__ void run_stage(const float2* in, float2* out, int r, int lead, int rest,
-                                 int T, const float2* roots, const float2* tw) {
-  switch (r) {
-    case 2: fft_stage_reg<2>(in, out, lead, rest, T, roots, tw); break;
-    case 3: fft_stage_reg<3>(in, out, lead, rest, T, roots, tw); break;
-    case 4: fft_stage_reg<4>(in, out, lead, rest, T, roots, tw); break;
-    case 5: fft_stage_reg<5>(in, out, lead, rest, T, roots, tw); break;
-    case 6: fft_stage_reg<6>(in, out, lead, rest, T, roots, tw); break;
-    case 7: fft_stage_reg<7>(in, out, lead, rest, T, roots, tw); break;
-    case 8: fft_stage_reg<8>(in, out, lead, rest, T, roots, tw); break;
-    case 9: fft_stage_reg<9>(in, out, lead, rest, T, roots, tw); break;
-    case 12: fft_stage_reg<12>(in, out, lead, rest, T, roots, tw); break;
-    case 16: fft_stage_reg<16>(in, out, lead, rest, T, roots, tw); break;
-    default: fft_stage(in, out, r, lead, rest, T, roots, tw); break;
+                                 int T, const float2* tables, const float2* tw) {
+  if constexpr (kGauss) {
+    gauss_stage(in, out, r, lead, rest, T, reinterpret_cast<const float4*>(tables), tw);
+  } else {
+    const float2* roots = tables;
+    switch (r) {
+      case 2: fft_stage_reg<2>(in, out, lead, rest, T, roots, tw); break;
+      case 3: fft_stage_reg<3>(in, out, lead, rest, T, roots, tw); break;
+      case 4: fft_stage_reg<4>(in, out, lead, rest, T, roots, tw); break;
+      case 5: fft_stage_reg<5>(in, out, lead, rest, T, roots, tw); break;
+      case 6: fft_stage_reg<6>(in, out, lead, rest, T, roots, tw); break;
+      case 7: fft_stage_reg<7>(in, out, lead, rest, T, roots, tw); break;
+      case 8: fft_stage_reg<8>(in, out, lead, rest, T, roots, tw); break;
+      case 9: fft_stage_reg<9>(in, out, lead, rest, T, roots, tw); break;
+      case 12: fft_stage_reg<12>(in, out, lead, rest, T, roots, tw); break;
+      case 16: fft_stage_reg<16>(in, out, lead, rest, T, roots, tw); break;
+      default: fft_stage(in, out, r, lead, rest, T, roots, tw); break;
+    }
   }
 }
 
 // The whole chain on a tile loaded in `a` (callers __syncthreads() after
-// loading), ping-ponging with `b`.  Returns the buffer holding the
-// natural-order result; every thread has passed a barrier after the last
-// write to it.
+// loading), ping-ponging with `b`; `stables` from load_tables<kGauss>.
+// Returns the buffer holding the natural-order result; every thread has
+// passed a barrier after the last write to it.
+template <bool kGauss = false>
 static __device__ float2* fft_tile(float2* a, float2* b, int m, int T, const Stages& st,
-                                   const float2* sroots) {
+                                   const float2* stables) {
   int lead = 1, rest = m, off = 0;
   for (int s = 0; s < st.k; ++s) {
     const int r = st.r[s];
     rest /= r;
-    run_stage(a, b, r, lead, rest, T, sroots + off, s + 1 < st.k ? st.tw[s] : nullptr);
+    run_stage<kGauss>(a, b, r, lead, rest, T, stables + off, s + 1 < st.k ? st.tw[s] : nullptr);
     __syncthreads();
     float2* t = a;
     a = b;
     b = t;
     lead *= r;
-    off += r;
+    off += kGauss ? 2 * r : r;
   }
   return a;
 }

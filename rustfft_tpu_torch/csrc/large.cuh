@@ -11,7 +11,10 @@
 // csrc/conv_radix.cu with the two-pass convolution core's gathers, sums and
 // epilogues (K14); csrc/large2f.cu and csrc/large3.cu with outer twiddles
 // factored into small tables (K10, K11).  Two reads and two writes of the
-// signal in device memory per FFT, as on the TPU.
+// signal in device memory per FFT, as on the TPU.  The general kernels take
+// two options: ragged last tiles (kRagged, K12) and the Gauss form of every
+// radix stage (kGauss, K4's Gauss kernels and K14's gauss_mode;
+// fft_tile.cuh gauss_stage), launched by launch_col_gauss / launch_row_gauss.
 //
 // What bounds them on this card: memory alone is 32 bytes per point over the
 // two stages.  Arithmetic is FP32 on the CUDA cores.  The TPU kernels
@@ -137,7 +140,8 @@ static __device__ __forceinline__ void store_transposed(const float2* res, float
 // kRagged: the tile width qt need not divide Q (the port of K12's padded
 // lane axes, csrc/largepad.cu): the last tile's columns past Q load zero
 // and are not stored, so the padding lives in shared memory only.
-template <class Src, class Outer, bool kRagged = false>
+// kGauss: every radix stage in the Gauss form.
+template <class Src, class Outer, bool kRagged = false, bool kGauss = false>
 __global__ void __launch_bounds__(256) col_kernel(Src src, float2* __restrict__ y, int p, int q,
                                                   int qt, Stages st, Outer outer) {
   extern __shared__ float2 smem[];
@@ -145,7 +149,7 @@ __global__ void __launch_bounds__(256) col_kernel(Src src, float2* __restrict__ 
   float2* a = smem;
   float2* b = smem + pad16(elems);
   float2* sroots = smem + 2 * pad16(elems);
-  load_roots(st, sroots);
+  load_tables<kGauss>(st, sroots);
   const int tiles = kRagged ? (q + qt - 1) / qt : q / qt;
   const size_t batch_idx = blockIdx.x / tiles;
   const int tile = (int)(blockIdx.x % tiles);
@@ -158,13 +162,14 @@ __global__ void __launch_bounds__(256) col_kernel(Src src, float2* __restrict__ 
   }
   src.finish(batch_idx, tile, tiles, acc);
   __syncthreads();
-  const float2* res = fft_tile(a, b, p, qt, st, sroots);
+  const float2* res = fft_tile<kGauss>(a, b, p, qt, st, sroots);
   store_transposed(res, y + batch_idx * (size_t)p * (size_t)q, p, q0, qt, live, outer);
 }
 
 // kRagged: the tile width pt need not divide P; the last tile's columns
-// past P load zero and are not stored.
-template <class Dst, bool kRagged = false>
+// past P load zero and are not stored.  kGauss: every radix stage in the
+// Gauss form.
+template <class Dst, bool kRagged = false, bool kGauss = false>
 __global__ void __launch_bounds__(512) row_kernel(const float2* __restrict__ x, Dst dst, int q,
                                                   int p, int pt, Stages st) {
   extern __shared__ float2 smem[];
@@ -172,7 +177,7 @@ __global__ void __launch_bounds__(512) row_kernel(const float2* __restrict__ x, 
   float2* a = smem;
   float2* b = smem + pad16(elems);
   float2* sroots = smem + 2 * pad16(elems);
-  load_roots(st, sroots);
+  load_tables<kGauss>(st, sroots);
   const int tiles = kRagged ? (p + pt - 1) / pt : p / pt;
   const size_t batch_idx = blockIdx.x / tiles;
   const int p0 = (int)(blockIdx.x % tiles) * pt;
@@ -183,7 +188,7 @@ __global__ void __launch_bounds__(512) row_kernel(const float2* __restrict__ x, 
     a[swz(f)] = t < live ? xb[(size_t)j2 * p + p0 + t] : make_float2(0.f, 0.f);
   }
   __syncthreads();
-  const float2* res = fft_tile(a, b, q, pt, st, sroots);
+  const float2* res = fft_tile<kGauss>(a, b, q, pt, st, sroots);
   const auto row = dst.row(batch_idx);
   for (int f = threadIdx.x; f < elems; f += blockDim.x) {
     const int k2 = f / pt, t = f - k2 * pt;
@@ -247,6 +252,36 @@ static cudaError_t launch_col_fixed(const Src& src, float2* y, long long blocks,
   return cudaGetLastError();
 }
 
+// The general column kernel over (batch, ceil(Q/qt)) blocks (Q/qt unless
+// kRagged).
+template <bool kRagged, bool kGauss, class Src, class Outer>
+static cudaError_t launch_col_general(const Src& src, float2* y, long long batch, int p, int q,
+                                     int qt, const Stages& st, const Outer& outer,
+                                     cudaStream_t s) {
+  const long long blocks = batch * ((q + qt - 1) / qt);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(p * qt, st, kGauss);
+  cudaError_t err = allow_smem(col_kernel<Src, Outer, kRagged, kGauss>, smem);
+  if (err != cudaSuccess) return err;
+  col_kernel<Src, Outer, kRagged, kGauss>
+      <<<(unsigned)blocks, 256, smem, s>>>(src, y, p, q, qt, st, outer);
+  return cudaGetLastError();
+}
+
+// The general row kernel over (batch, ceil(P/pt)) blocks (P/pt unless
+// kRagged).
+template <bool kRagged, bool kGauss, class Dst>
+static cudaError_t launch_row_general(const float2* x, const Dst& dst, long long batch, int q,
+                                     int p, int pt, const Stages& st, cudaStream_t s) {
+  const long long blocks = batch * ((p + pt - 1) / pt);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(q * pt, st, kGauss);
+  cudaError_t err = allow_smem(row_kernel<Dst, kRagged, kGauss>, smem);
+  if (err != cudaSuccess) return err;
+  row_kernel<Dst, kRagged, kGauss><<<(unsigned)blocks, 512, smem, s>>>(x, dst, q, p, pt, st);
+  return cudaGetLastError();
+}
+
 // Launch the column stage over (batch, Q/qt) blocks: a compile-time kernel
 // for P = 16 x 16 over 16 columns and for the 128 KiB tiles of P = 1024,
 // 2048, 4096 and 8192 (ops/kernels/large.py FIXED_COL); the general kernel
@@ -268,11 +303,7 @@ static cudaError_t launch_col_stage(const Src& src, float2* y, long long batch, 
     return launch_col_fixed<4, 16, 16, 16>(src, y, blocks, q, st, outer, s);
   if (k == 3 && r0 == 32 && r1 == 16 && r2 == 16 && qt == 2)
     return launch_col_fixed<2, 32, 16, 16>(src, y, blocks, q, st, outer, s);
-  const size_t smem = tile_smem_bytes(p * qt, st);
-  cudaError_t err = allow_smem(col_kernel<Src, Outer>, smem);
-  if (err != cudaSuccess) return err;
-  col_kernel<Src, Outer><<<(unsigned)blocks, 256, smem, s>>>(src, y, p, q, qt, st, outer);
-  return cudaGetLastError();
+  return launch_col_general<false, false>(src, y, batch, p, q, qt, st, outer, s);
 }
 
 template <int T, int R0, int R1, int R2, class Dst>
@@ -303,11 +334,7 @@ static cudaError_t launch_row_stage(const float2* x, const Dst& dst, long long b
     if (r0 == 16 && r1 == 8) return launch_row_fixed<16, 16, 8, 1>(x, dst, blocks, p, st, s);
     if (r0 == 8 && r1 == 8) return launch_row_fixed<16, 8, 8, 1>(x, dst, blocks, p, st, s);
   }
-  const size_t smem = tile_smem_bytes(q * pt, st);
-  cudaError_t err = allow_smem(row_kernel<Dst>, smem);
-  if (err != cudaSuccess) return err;
-  row_kernel<Dst><<<(unsigned)blocks, 512, smem, s>>>(x, dst, q, p, pt, st);
-  return cudaGetLastError();
+  return launch_row_general<false, false>(x, dst, batch, q, p, pt, st, s);
 }
 
 // The column and row stages with ragged last tiles (kRagged above) on the
@@ -316,25 +343,29 @@ template <class Src, class Outer>
 static cudaError_t launch_col_ragged(const Src& src, float2* y, long long batch, int p, int q,
                                      int qt, const Stages& st, const Outer& outer,
                                      cudaStream_t s) {
-  const long long blocks = batch * ((q + qt - 1) / qt);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes(p * qt, st);
-  cudaError_t err = allow_smem(col_kernel<Src, Outer, true>, smem);
-  if (err != cudaSuccess) return err;
-  col_kernel<Src, Outer, true><<<(unsigned)blocks, 256, smem, s>>>(src, y, p, q, qt, st, outer);
-  return cudaGetLastError();
+  return launch_col_general<true, false>(src, y, batch, p, q, qt, st, outer, s);
 }
 
 template <class Dst>
 static cudaError_t launch_row_ragged(const float2* x, const Dst& dst, long long batch, int q,
                                      int p, int pt, const Stages& st, cudaStream_t s) {
-  const long long blocks = batch * ((p + pt - 1) / pt);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes(q * pt, st);
-  cudaError_t err = allow_smem(row_kernel<Dst, true>, smem);
-  if (err != cudaSuccess) return err;
-  row_kernel<Dst, true><<<(unsigned)blocks, 512, smem, s>>>(x, dst, q, p, pt, st);
-  return cudaGetLastError();
+  return launch_row_general<true, false>(x, dst, batch, q, p, pt, st, s);
+}
+
+// The column and row stages in the Gauss form (kGauss above) on the general
+// kernels, `st` from make_gauss_stages: no compile-time chain has a Gauss
+// form.  qt divides Q, pt divides P.
+template <class Src, class Outer>
+static cudaError_t launch_col_gauss(const Src& src, float2* y, long long batch, int p, int q,
+                                    int qt, const Stages& st, const Outer& outer,
+                                    cudaStream_t s) {
+  return launch_col_general<false, true>(src, y, batch, p, q, qt, st, outer, s);
+}
+
+template <class Dst>
+static cudaError_t launch_row_gauss(const float2* x, const Dst& dst, long long batch, int q,
+                                    int p, int pt, const Stages& st, cudaStream_t s) {
+  return launch_row_general<false, true>(x, dst, batch, q, p, pt, st, s);
 }
 
 }  // namespace rf

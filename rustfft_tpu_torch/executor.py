@@ -14,7 +14,8 @@ to each device once.
 
 Built functions are memoized per (recipe, direction, dtype, config state), the
 analogue of the reference's FftCache (fft_cache.rs:5-39) shared across
-planners because recipes are pure hashable data.
+planners because recipes are pure hashable data.  The config state is
+config.switch_key(): every field a built function bakes in.
 """
 from __future__ import annotations
 
@@ -60,7 +61,9 @@ def route(n: int, dtype) -> Optional[str]:
                   odd composites 15625, 19683, 59049, 78125, 177147, 531441
                   (one-column tiles on large) and splits such as 256 x 113;
       'large'     c64, n = P * q1 * q2 with P <= 512, q1, q2 <= 256 and both
-                  passes' tiles in shared memory;
+                  passes' tiles in shared memory (config.large_gauss and
+                  large_blocks2d pick its stages' form; no other route
+                  reads them);
       'large2f'   c64, n = P1 * P2 * Q (large2f.choose_split2f) with the
                   fused column stage's (P1*P2, 16384/(P1*P2)) tile in shared
                   memory: 2^23 .. 2^25, and 2^22, which it takes from
@@ -143,7 +146,7 @@ def _kernel_fn(n: int, direction: FftDirection, dtype) -> Optional[Callable]:
 def build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
     """Return fn: complex (..., n) -> complex (..., n), the unnormalized DFT."""
     dtype = np.dtype(dtype)
-    key = (recipe, direction, dtype, config.kernels, config.use_native)
+    key = (recipe, direction, dtype) + config.switch_key()
     fn = _CACHE.get(key)
     if fn is None:
         fn = _kernel_fn(recipe.length, direction, dtype)

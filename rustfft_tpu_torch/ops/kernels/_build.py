@@ -51,8 +51,12 @@ _SIGNATURES = {
     "rf_large_row_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
                            _int, _vp, _vp, _vp, _vp, _vp, _vp],
     "rf_conv_fft": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8 + [_int, _vp],
-    "rf_conv_col_stage": [_vp, _vp, _vp, _ll] + [_int] * 8 + [_vp] * 9,
-    "rf_conv_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 10
+    "rf_large_col_stage_gauss": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
+                                 _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    "rf_large_row_stage_gauss": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
+                                 _int, _vp, _vp, _vp, _vp, _vp, _vp],
+    "rf_conv_col_stage": [_vp, _vp, _vp, _ll, _int, _ll] + [_int] * 8 + [_vp] * 9,
+    "rf_conv_row_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 8 + [_ll, _vp, _vp]
                          + [_int, _int, _int, _ll, _vp],
     "rf_permute": [_vp, _vp, _vp, _ll, _int, _vp],
     "rf_large2f_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 8,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ...common import FftDirection
+from ...config import config
 from .. import calg
 from ..bluestein import bluestein_tables
 from ..raders import raders_tables
@@ -199,22 +200,36 @@ def make_raders_fn(p: int, direction: FftDirection, dtype):
 
     One-pass core: the root-order gathers are two permute launches around it
     (the JAX package's default rader_gather = "kernel"), and the DC bin and
-    the "+x0" fixup are torch glue.  Two-pass core: both gathers, the +x0 and
-    the DC-first layout ride its passes (x0_add, emit_sum, full_out).  The
-    reference's "+x0 to the DC bin before the second transform" is hoisted
-    out of the core: FFT(c + conj(x0) e0) = FFT(c) + conj(x0).
+    the "+x0" fixup are torch glue.  Two-pass core: both gathers and the +x0
+    ride its passes (x0_add, emit_sum); with config.rader_full_out the
+    DC-first layout too, and with config.rader_in_shift as well the core
+    reads the raw rows (no copy of x[:, 1:]), as the JAX package's
+    conv.py:286-350 does.  The reference's "+x0 to the DC bin before the
+    second transform" is hoisted out of the core:
+    FFT(c + conj(x0) e0) = FFT(c) + conj(x0).
     """
     m = p - 1
     perm_in, inv_gather, b_fft = raders_tables(p, direction)
     if not conv_supported(m, dtype):
+        full_out = bool(config.rader_full_out)
+        in_shift = full_out and bool(config.rader_in_shift)
         core = conv_radix.make_radix_conv_fn(
             m, direction, dtype, h=b_fft, conj_out=True, in_perm=perm_in - 1,
-            out_perm=inv_gather, x0_add=True, emit_sum=True, full_out=True,
+            out_perm=inv_gather, x0_add=True, emit_sum=True, full_out=full_out,
+            in_shift=in_shift,
         )
 
         def apply_fused(x):
             flat = x.reshape(-1, p)
-            out = core(flat[:, 1:].contiguous(), const=flat[:, :1].contiguous())
+            if in_shift:
+                out = core(flat)
+            elif full_out:
+                out = core(flat[:, 1:].contiguous(), const=flat[:, :1].contiguous())
+            else:
+                # out[0] = x0 + sum(x[1:]); the rest already holds conj(D[inv]) + x0
+                x0 = flat[:, :1].contiguous()
+                rest, sums = core(flat[:, 1:].contiguous(), const=x0)
+                out = torch.cat([x0 + sums, rest], dim=1)
             return out.reshape(x.shape)
 
         return apply_fused

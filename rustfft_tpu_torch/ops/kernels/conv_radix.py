@@ -21,9 +21,18 @@ csrc/conv_radix.cu):
 Four launches and eight traversals of m (the TPU kernel: two and four).
 The prime path's shapes (P = 256; Q = 256, 128, 64 without the output
 scatter) run compile-time kernels, other shapes general ones.
-The JAX kernel's `in_shift` and `gauss` options are off by default there
-and are not ported (ROADMAP).  Each wrapper runs its plain torch version on
-a CPU tensor and launches its kernel on a CUDA tensor, or raises.
+
+The JAX kernel's two options, off by default there and here:
+  gauss     (config.conv_radix_gauss; conv_radix.py:183, :232, :266): every
+            stage in the Gauss form on the general kernels, counted by
+            `conv_col_stage_gauss` and `conv_row_stage_gauss`;
+  in_shift  (config.rader_in_shift; conv_radix.py:161, :327): the Rader
+            core reads the raw (batch, m + 1) rows.  Pass 1's column stage
+            takes the view x[:, 1:] (rows m + 1 apart, no copy) and pass 2
+            reads x0 = x[:, 0] from the same rows; the DC bin stays x0 plus
+            the partial sums of the raw input, never the core's output.
+Each wrapper runs its plain torch version on a CPU tensor and launches its
+kernel on a CUDA tensor, or raises.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from ...common import FftDirection
+from ...config import config
 from .. import calg
 from . import _build, large
 from .lanepack import (
@@ -46,21 +56,21 @@ from .permute import check_index, permutation_index
 _COL_STATIC_SMEM = 32 * 8
 
 
-def col_tile(p: int, q: int) -> Optional[int]:
+def col_tile(p: int, q: int, gauss: bool = False) -> Optional[int]:
     """Columns j2 per column-stage block: the largest of 16, 8, 4, 2, 1 that
-    divides Q and fits shared memory."""
+    divides Q and fits shared memory (with the Gauss tables with `gauss`)."""
     for qt in (16, 8, 4, 2, 1):
-        need = smem_bytes(p * qt, large.stage_radices(p)) + _COL_STATIC_SMEM
+        need = smem_bytes(p * qt, large.stage_radices(p), gauss) + _COL_STATIC_SMEM
         if q % qt == 0 and need <= _build.SMEM_MAX:
             return qt
     return None
 
 
-def row_tile(q: int, p: int) -> Optional[int]:
+def row_tile(q: int, p: int, gauss: bool = False) -> Optional[int]:
     """Columns k1 per row-stage block: the largest of 16, 8, 4, 2, 1 that
     divides P and fits shared memory (16 columns are 128-byte segments)."""
     for pt in (16, 8, 4, 2, 1):
-        if p % pt == 0 and smem_bytes(q * pt, large.stage_radices(q)) <= _build.SMEM_MAX:
+        if p % pt == 0 and smem_bytes(q * pt, large.stage_radices(q), gauss) <= _build.SMEM_MAX:
             return pt
     return None
 
@@ -91,50 +101,66 @@ def _check_table(t, shape, device, what: str) -> None:
         raise ValueError(f"{what}: on {t.device}, input on {device}")
 
 
-def conv_col_stage_plain(x, p, q, tables, pre=None, perm=None, emit_sum=False):
+def _check_rows(x: torch.Tensor, what: str) -> None:
+    """A (batch, width) complex64 tensor whose rows are contiguous, each at
+    least `width` elements after the one before: a contiguous tensor, or a
+    column slice such as x[:, 1:] of one."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{what}: expected a torch.Tensor, got {type(x).__name__}")
+    if x.dtype != torch.complex64:
+        raise TypeError(f"{what}: expected complex64, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (batch, n_in), got {tuple(x.shape)}")
+    if (x.shape[1] > 1 and x.stride(1) != 1) or (x.shape[0] > 1 and x.stride(0) < x.shape[1]):
+        raise ValueError(f"{what}: rows must be contiguous and must not overlap")
+
+
+def conv_col_stage_plain(x, p, q, tables, pre=None, perm=None, emit_sum=False, gauss=False):
     """Plain torch version of conv_col_stage."""
     m = p * q
     v = torch.index_select(x, 1, perm) if perm is not None else x
     v = torch.nn.functional.pad(v, (0, m - v.shape[1]))
     partials = None
     if emit_sum:
-        qt = col_tile(p, q)
+        qt = col_tile(p, q, gauss)
         partials = v.reshape(-1, p, q // qt, qt).sum(dim=(1, 3))
     if pre is not None:
         v = v * pre
-    return large.large_col_stage_plain(v, p, q, tables), partials
+    plain = large.large_col_stage_gauss_plain if gauss else large.large_col_stage_plain
+    return plain(v, p, q, tables), partials
 
 
 def conv_col_stage(x: torch.Tensor, p: int, q: int, tables, pre=None, perm=None,
-                   emit_sum: bool = False):
+                   emit_sum: bool = False, gauss: bool = False):
     """Column stage of FFT_m, m = P*Q, for x (batch, n_in) complex64 zero-padded
     to m -> (a (batch, Q, P), partials (batch, Q/qt) or None).
 
-    tables = (roots, tws, outer) from large.col_tables(P, Q, direction); pre:
-    (m,) complex64 multiplied in after the load; perm: (m,) int32 gather
+    x's rows need only be contiguous: the Rader core's in_shift passes the
+    view x[:, 1:] of the raw (batch, m + 1) rows.  tables = (roots, tws,
+    outer) from large.col_tables(P, Q, direction, gauss); pre: (m,)
+    complex64 multiplied in after the load; perm: (m,) int32 gather
     a[j] = x[perm[j]] (needs n_in == m); emit_sum: also return the sums of
-    the raw input over each block's tile (their row sum is sum(x)).
+    the raw input over each block's tile (their row sum is sum(x)); gauss:
+    the Gauss form (counted by conv_col_stage_gauss).
     """
-    if x.dim() != 2:
-        raise ValueError(f"conv_col_stage: expected (batch, n_in), got {tuple(x.shape)}")
+    _check_rows(x, "conv_col_stage input")
     m = p * q
     n_in = x.shape[1]
-    check_operand(x, (x.shape[0], n_in), "conv_col_stage input")
     if not 0 < n_in <= m:
         raise ValueError(f"conv_col_stage: n_in={n_in} not in [1, {m}]")
     roots, tws, outer = tables
-    check_stage_tables(p, large.stage_radices(p), roots, tws, x.device, "conv_col_stage")
+    check_stage_tables(p, large.stage_radices(p), roots, tws, x.device, "conv_col_stage", gauss)
     _check_table(outer, (q, p), x.device, "conv_col_stage outer twiddle")
     _check_table(pre, (m,), x.device, "conv_col_stage pre")
     if perm is not None:
         check_index(perm, m, x.device, "conv_col_stage perm")
         if n_in != m:
             raise ValueError(f"conv_col_stage: a gather needs n_in == m, got {n_in} != {m}")
-    qt = col_tile(p, q)
+    qt = col_tile(p, q, gauss)
     if qt is None:
         raise ValueError(f"conv_col_stage: no tile for P={p}, Q={q}")
     if x.device.type == "cpu":
-        return conv_col_stage_plain(x, p, q, tables, pre, perm, emit_sum)
+        return conv_col_stage_plain(x, p, q, tables, pre, perm, emit_sum, gauss)
     require_cuda(x, "conv_col_stage")
     a = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
     partials = (torch.empty((x.shape[0], q // qt), dtype=x.dtype, device=x.device)
@@ -145,25 +171,35 @@ def conv_col_stage(x: torch.Tensor, p: int, q: int, tables, pre=None, perm=None,
     with torch.cuda.device(x.device):
         code = lib.rf_conv_col_stage(
             x.data_ptr(), a.data_ptr(), None if partials is None else partials.data_ptr(),
-            x.shape[0], n_in, p, q, qt,
+            x.shape[0], n_in, x.stride(0) if x.shape[0] > 1 else n_in, p, q, qt, int(gauss),
             *padded_stage_args(large.stage_radices(p), roots, tws), outer.data_ptr(),
             None if pre is None else pre.data_ptr(),
             None if perm is None else perm.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, code, "conv_col_stage")
-    conv_col_stage.launches += 1
+    (conv_col_stage_gauss if gauss else conv_col_stage).launches += 1
     return a, partials
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (the default form)
 conv_col_stage.launches = 0
 
 
+def conv_col_stage_gauss(x: torch.Tensor, p: int, q: int, tables, **kw):
+    """conv_col_stage in the Gauss form (K14's gauss_mode); its launches are
+    counted here.  tables from large.col_tables(P, Q, direction, gauss=True)."""
+    return conv_col_stage(x, p, q, tables, gauss=True, **kw)
+
+
+conv_col_stage_gauss.launches = 0
+
+
 def conv_row_stage_plain(a, q, p, tables, n_out, h=None, conj_out=False, post=None,
-                         x0=None, scatter=None, partials=None):
+                         x0=None, scatter=None, partials=None, gauss=False):
     """Plain torch version of conv_row_stage."""
-    z = large.large_row_stage_plain(a, q, p, tables)
+    plain = large.large_row_stage_gauss_plain if gauss else large.large_row_stage_plain
+    z = plain(a, q, p, tables)
     if h is not None:
         z = torch.conj(z * h)
     if conj_out:
@@ -182,16 +218,18 @@ def conv_row_stage_plain(a, q, p, tables, n_out, h=None, conj_out=False, post=No
 
 def conv_row_stage(a: torch.Tensor, q: int, p: int, tables, n_out: int, h=None,
                    conj_out: bool = False, post=None, x0=None, scatter=None,
-                   partials=None) -> torch.Tensor:
+                   partials=None, gauss: bool = False) -> torch.Tensor:
     """Row stage of FFT_m and the core's epilogue: a (batch, Q, P) complex64
     -> z (batch, n_out), z[k] for the natural-order FFT output k < n_out.
 
-    tables = (roots, tws) from large.row_tables(Q, direction).  In order:
-    h (m,): z = conj(z * h); conj_out: z = conj(z); post (m,): z = z * post;
-    x0 (batch,): z = z + x0; scatter (m,) int32 (n_out == m): z[k] is
-    written to position scatter[k]; partials (batch, tiles) from pass 1's
-    conv_col_stage (needs x0 and scatter, full_out): the output is
-    (batch, m + 1) with out[0] = x0 + sum(partials) and the rest shifted by 1.
+    tables = (roots, tws) from large.row_tables(Q, direction, gauss).  In
+    order: h (m,): z = conj(z * h); conj_out: z = conj(z); post (m,):
+    z = z * post; x0 (batch,), any stride (the in_shift core passes the view
+    x[:, 0] of the raw rows): z = z + x0; scatter (m,) int32 (n_out == m):
+    z[k] is written to position scatter[k]; partials (batch, tiles) from
+    pass 1's conv_col_stage (needs x0 and scatter, full_out): the output is
+    (batch, m + 1) with out[0] = x0 + sum(partials) and the rest shifted by
+    1; gauss: the Gauss form (counted by conv_row_stage_gauss).
     """
     if a.dim() != 3:
         raise ValueError(f"conv_row_stage: expected (batch, Q, P), got {tuple(a.shape)}")
@@ -199,12 +237,15 @@ def conv_row_stage(a: torch.Tensor, q: int, p: int, tables, n_out: int, h=None,
     batch = a.shape[0]
     check_operand(a, (batch, q, p), "conv_row_stage input")
     roots, tws = tables
-    check_stage_tables(q, large.stage_radices(q), roots, tws, a.device, "conv_row_stage")
+    check_stage_tables(q, large.stage_radices(q), roots, tws, a.device, "conv_row_stage", gauss)
     if not 0 < n_out <= m:
         raise ValueError(f"conv_row_stage: n_out={n_out} not in [1, {m}]")
     _check_table(h, (m,), a.device, "conv_row_stage h")
     _check_table(post, (m,), a.device, "conv_row_stage post")
-    _check_table(x0, (batch,), a.device, "conv_row_stage x0")
+    if x0 is not None and (x0.dtype != torch.complex64 or tuple(x0.shape) != (batch,)
+                           or x0.device != a.device):
+        raise ValueError(f"conv_row_stage: x0 must be a ({batch},) complex64 tensor on "
+                         f"{a.device}")
     if scatter is not None:
         check_index(scatter, m, a.device, "conv_row_stage scatter")
         if n_out != m:
@@ -213,12 +254,12 @@ def conv_row_stage(a: torch.Tensor, q: int, p: int, tables, n_out: int, h=None,
         if x0 is None or scatter is None or partials.dim() != 2:
             raise ValueError("conv_row_stage: full_out needs x0, scatter and 2-D partials")
         _check_table(partials, (batch, partials.shape[1]), a.device, "conv_row_stage partials")
-    pt = row_tile(q, p)
+    pt = row_tile(q, p, gauss)
     if pt is None:
         raise ValueError(f"conv_row_stage: no tile for Q={q}, P={p}")
     if a.device.type == "cpu":
         return conv_row_stage_plain(a, q, p, tables, n_out, h, conj_out, post, x0,
-                                    scatter, partials)
+                                    scatter, partials, gauss)
     require_cuda(a, "conv_row_stage")
     width = n_out + (1 if partials is not None else 0)
     y = torch.empty((batch, width), dtype=a.dtype, device=a.device)
@@ -231,18 +272,29 @@ def conv_row_stage(a: torch.Tensor, q: int, p: int, tables, n_out: int, h=None,
 
     with torch.cuda.device(a.device):
         code = lib.rf_conv_row_stage(
-            a.data_ptr(), y.data_ptr(), batch, q, p, pt,
+            a.data_ptr(), y.data_ptr(), batch, q, p, pt, int(gauss),
             *padded_stage_args(large.stage_radices(q), roots, tws),
-            ptr(h), ptr(post), ptr(x0), ptr(scatter), ptr(partials),
+            ptr(h), ptr(post), ptr(x0), 0 if x0 is None else x0.stride(0),
+            ptr(scatter), ptr(partials),
             0 if partials is None else partials.shape[1], int(conj_out), n_out, width,
             torch.cuda.current_stream(a.device).cuda_stream,
         )
     _build.check(lib, code, "conv_row_stage")
-    conv_row_stage.launches += 1
+    (conv_row_stage_gauss if gauss else conv_row_stage).launches += 1
     return y
 
 
+#: kernel launches since the count was last set to 0 (the default form)
 conv_row_stage.launches = 0
+
+
+def conv_row_stage_gauss(a: torch.Tensor, q: int, p: int, tables, n_out: int, **kw):
+    """conv_row_stage in the Gauss form (K14's gauss_mode); its launches are
+    counted here.  tables from large.row_tables(Q, direction, gauss=True)."""
+    return conv_row_stage(a, q, p, tables, n_out, gauss=True, **kw)
+
+
+conv_row_stage_gauss.launches = 0
 
 
 def zero_extended(a, m: int) -> Optional[np.ndarray]:
@@ -256,17 +308,18 @@ def zero_extended(a, m: int) -> Optional[np.ndarray]:
 
 
 def radix_conv_tables(m: int, direction: FftDirection, h=None, pre=None, post=None,
-                      in_perm=None, out_perm=None) -> Dict[str, Any]:
+                      in_perm=None, out_perm=None, gauss: bool = False) -> Dict[str, Any]:
     """Host tables of the two-pass core for m, by name: "col" (roots, tws,
     outer) of the column stage and "row" (roots, tws) of the row stage, as
-    large.col_tables / row_tables at choose_split(m); "h", "pre", "post"
-    zero-extended to (m,) complex64; "perm" the in_perm gather and "scatter"
-    the inverse of out_perm, (m,) int32; absent ones None."""
+    large.col_tables / row_tables at choose_split(m) (the Gauss tables in
+    place of the roots with `gauss`); "h", "pre", "post" zero-extended to
+    (m,) complex64; "perm" the in_perm gather and "scatter" the inverse of
+    out_perm, (m,) int32; absent ones None."""
     p, q = choose_split(m)
-    roots_p, tws_p, outer = large.col_tables(p, q, direction)
+    roots_p, tws_p, outer = large.col_tables(p, q, direction, gauss)
     return {
         "col": (roots_p, tws_p, outer),
-        "row": large.row_tables(q, direction),
+        "row": large.row_tables(q, direction, gauss),
         "h": zero_extended(h, m), "pre": zero_extended(pre, m), "post": zero_extended(post, m),
         "perm": None if in_perm is None else permutation_index(in_perm),
         "scatter": (None if out_perm is None
@@ -289,6 +342,8 @@ def make_radix_conv_fn(
     x0_add: bool = False,
     emit_sum: bool = False,
     full_out: bool = False,
+    gauss: Optional[bool] = None,
+    in_shift: bool = False,
 ):
     """Build fn: complex64 (..., n_in) -> (..., n_out) computing
 
@@ -301,20 +356,30 @@ def make_radix_conv_fn(
     no pre / no post); x0_add: fn(x, const) adds const (..., 1) to every
     bin; emit_sum: fn returns (out, sums (..., 1)), the f32 sums of the raw
     input; full_out (needs all of them): fn returns the whole DC-first
-    (..., m + 1) Rader output, out[0] = const + sum.
+    (..., m + 1) Rader output, out[0] = const + sum.  gauss: None resolves
+    to config.conv_radix_gauss (conv_radix.py:720); every stage in the Gauss
+    form.  in_shift (needs full_out and in_perm, as conv_radix.py:726
+    asserts): fn(x) takes the raw (..., m + 1) Rader rows; pass 1 reads
+    x[..., 1:] and pass 2 takes const = x[..., 0], both from those rows, with
+    no copy.
     """
     if not radix_conv_supported(m, dtype):
         raise ValueError(f"no two-pass conv core for m={m}, dtype={np.dtype(dtype)}")
     p, q = choose_split(m)
     n_in = n_in or m
     n_out = n_out or m
+    gauss = config.conv_radix_gauss if gauss is None else bool(gauss)
     if in_perm is not None and (n_in != m or pre is not None):
         raise ValueError("in_perm needs n_in == m and no pre table")
     if out_perm is not None and post is not None:
         raise ValueError("out_perm needs no post table")
     if full_out and not (x0_add and emit_sum and out_perm is not None and n_out == m):
         raise ValueError("full_out needs x0_add, emit_sum, out_perm and n_out == m")
-    host = radix_conv_tables(m, direction, h, pre, post, in_perm, out_perm)
+    if in_shift and not (full_out and in_perm is not None):
+        raise ValueError("in_shift needs full_out and in_perm")
+    if col_tile(p, q, gauss) is None or row_tile(q, p, gauss) is None:
+        raise ValueError(f"no two-pass conv core for m={m} in the Gauss form")
+    host = radix_conv_tables(m, direction, h, pre, post, in_perm, out_perm, gauss)
     kp, kq = len(host["col"][0]), len(host["row"][0])
     names = [k for k in ("h", "pre", "post", "perm", "scatter") if host[k] is not None]
     tables = calg.DeviceTables([*host["col"][0], *host["col"][1], host["col"][2],
@@ -326,19 +391,27 @@ def make_radix_conv_fn(
         row = (t[2 * kp : 2 * kp + kq], t[2 * kp + kq : 2 * kp + 2 * kq - 1])
         tab = dict(zip(names, t[2 * kp + 2 * kq - 1 :]))
         shape = x.shape
-        flat = x.reshape(-1, n_in).contiguous()
+        if in_shift:
+            if const is not None:
+                raise ValueError("in_shift: x0 comes from the raw rows; call fn(x)")
+            raw = x.reshape(-1, m + 1)
+            if raw.shape[1] > 1 and raw.stride(1) != 1:
+                raw = raw.contiguous()
+            flat, x0 = raw[:, 1:], raw[:, 0]
+        else:
+            flat = x.reshape(-1, n_in).contiguous()
+            x0 = None
+            if x0_add:
+                if const is None:
+                    raise ValueError("x0_add: call fn(x, const)")
+                x0 = const.reshape(-1).contiguous()
         a, partials = conv_col_stage(flat, p, q, col, pre=tab.get("pre"),
-                                     perm=tab.get("perm"), emit_sum=emit_sum)
-        z = conv_row_stage(a, q, p, row, m, h=tab.get("h"))
-        b, _ = conv_col_stage(z, p, q, col)
-        x0 = None
-        if x0_add:
-            if const is None:
-                raise ValueError("x0_add: call fn(x, const)")
-            x0 = const.reshape(-1).contiguous()
+                                     perm=tab.get("perm"), emit_sum=emit_sum, gauss=gauss)
+        z = conv_row_stage(a, q, p, row, m, h=tab.get("h"), gauss=gauss)
+        b, _ = conv_col_stage(z, p, q, col, gauss=gauss)
         out = conv_row_stage(b, q, p, row, n_out, conj_out=conj_out, post=tab.get("post"),
                              x0=x0, scatter=tab.get("scatter"),
-                             partials=partials if full_out else None)
+                             partials=partials if full_out else None, gauss=gauss)
         out = out.reshape(shape[:-1] + (out.shape[-1],))
         if emit_sum and not full_out:
             return out, partials.sum(dim=1).reshape(shape[:-1] + (1,))

@@ -94,11 +94,11 @@ def choose_radices(n: int) -> Optional[Tuple[int, ...]]:
     return cheapest_split(n, 2)
 
 
-def smem_bytes(elems: int, radices: Sequence[int]) -> int:
+def smem_bytes(elems: int, radices: Sequence[int], gauss: bool = False) -> int:
     """Shared memory of a kernel tile (csrc/fft_tile.cuh tile_smem_bytes):
     two buffers of `elems` complex values (rounded up to 16) and the roots
-    tables."""
-    return (2 * (-(-elems // 16) * 16) + sum(radices)) * 8
+    tables, 8 bytes per root (16 in the Gauss form: {Wr, Wi, Ws, 0})."""
+    return (2 * (-(-elems // 16) * 16) + (2 if gauss else 1) * sum(radices)) * 8
 
 
 def lanepack_supported(n: int, dtype) -> bool:
@@ -162,7 +162,11 @@ def check_operand(t: torch.Tensor, shape, what: str) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
-def check_stage_tables(m: int, radices: Sequence[int], roots, tws, device, what: str) -> None:
+def check_stage_tables(m: int, radices: Sequence[int], roots, tws, device, what: str,
+                       gauss: bool = False) -> None:
+    """Raise unless roots and tws are the DIT chain's tables for `radices`
+    on `device`; with gauss, roots are the Gauss form's (3, r) float32
+    tables (ops/kernels/large.py gauss_tables)."""
     if len(radices) not in (1, 2, 3) or math.prod(radices) != m:
         raise ValueError(f"{what}: radices {tuple(radices)} do not split {m}")
     if len(roots) != len(radices) or len(tws) != len(radices) - 1:
@@ -171,7 +175,14 @@ def check_stage_tables(m: int, radices: Sequence[int], roots, tws, device, what:
     rest = m
     for s, r in enumerate(radices):
         rest //= r
-        check_operand(roots[s], (r,), f"{what} roots[{s}]")
+        if gauss:
+            t = roots[s]
+            if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+                    or tuple(t.shape) != (3, r) or not t.is_contiguous()):
+                raise ValueError(f"{what}: Gauss table {s} must be a contiguous (3, {r}) "
+                                 "float32 tensor")
+        else:
+            check_operand(roots[s], (r,), f"{what} roots[{s}]")
         if s < len(tws):
             check_operand(tws[s], (r, rest), f"{what} tws[{s}]")
     for t in list(roots) + list(tws):

@@ -1,8 +1,9 @@
-"""Large-n FFT as two passes: the ports of K2 and K3.
+"""Large-n FFT as two passes: the ports of K2, K3 and K4.
 
 Replaces rustfft_tpu/ops/pallas/large.py (`_kernel_a`, `_kernel_b` with
-`fftq_sublane`, `choose_pqq`, `make_large_fft_fn`).  For n = P * Q,
-Q = q1 * q2, the input viewed as (B, P, Q) [j1, j2]:
+`fftq_sublane`, their Gauss, deep and 2-D forms, `choose_pqq`,
+`make_large_fft_fn`).  For n = P * Q, Q = q1 * q2, the input viewed as
+(B, P, Q) [j1, j2]:
 
   column stage (`large_col_stage`, K2):
       a[b, j2, k1] = w_n^(k1*j2) * sum_j1 x[b, j1, j2] * w_P^(j1*k1)
@@ -16,19 +17,28 @@ matrix unit; on the CUDA cores both stages compute their DFT in the radix
 stages `stage_radices` picks (the same chain as the lanepack kernel), an
 exact DFT either way.  `choose_pqq` keeps the JAX rule for P, q1, q2.
 
+K4's Gauss kernels (`_kernel_a_gauss`, `_kernel_b_gauss` with
+`fftq_sublane_gauss`) are `large_col_stage_gauss` and
+`large_row_stage_gauss` (csrc/large_gauss.cu): the same stages with every
+radix stage's DFT as three real products (P1 = xr.Wr, P2 = xi.Wi,
+P3 = (xr + xi).Ws; re = P1 - P2, im = P3 - P1 - P2) from `gauss_tables`, on
+the general kernels.  K4's deep and 2-D forms are K2 and K3 themselves (see
+make_large_fft_fn).
+
 Two reads and two writes of the signal in device memory.  Each wrapper runs
 its plain torch version on a CPU tensor and launches its kernel in
-csrc/large.cu on a CUDA tensor, or raises.
+csrc/large.cu or csrc/large_gauss.cu on a CUDA tensor, or raises.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ...common import FftDirection
+from ...config import config
 from ... import twiddles
 from .. import calg
 from . import _build
@@ -62,31 +72,33 @@ FIXED_ROW = ((16, 16, 16), 4)
 FIXED_COL = {(16, 16): 16, (16, 16, 4): 16, (16, 16, 8): 8, (16, 16, 16): 4, (32, 16, 16): 2}
 
 
-def col_tile(p: int, q: int, ragged: bool = False) -> Optional[int]:
+def col_tile(p: int, q: int, ragged: bool = False, gauss: bool = False) -> Optional[int]:
     """Columns j2 per column-stage block: the compile-time kernel's width
     (FIXED_COL) where it divides Q, else 16 (128-byte row segments) where it
     divides Q and two buffers fit shared memory, else the next smaller power
     of 2.  ragged: the same rule without "divides Q" (the width the tile
-    would have if it need not divide, ops/kernels/largepad.py)."""
-    fixed = FIXED_COL.get(stage_radices(p))
+    would have if it need not divide, ops/kernels/largepad.py).  gauss: the
+    Gauss form, which has no compile-time kernel."""
+    fixed = None if gauss else FIXED_COL.get(stage_radices(p))
     if fixed is not None and (ragged or q % fixed == 0):
         return fixed
     for qt in (16, 8, 4, 2, 1):
-        if (ragged or q % qt == 0) and smem_bytes(p * qt, stage_radices(p)) <= _build.SMEM_MAX:
+        if ((ragged or q % qt == 0)
+                and smem_bytes(p * qt, stage_radices(p), gauss) <= _build.SMEM_MAX):
             return qt
     return None
 
 
-def row_tile(q: int, p: int, ragged: bool = False) -> Optional[int]:
+def row_tile(q: int, p: int, ragged: bool = False, gauss: bool = False) -> Optional[int]:
     """Columns k1 per row-stage block: 4 for the compile-time chain (one
     buffer of 128 KiB), else 2 where a (Q, 2) tile fits shared memory, else
     1; None when one column does not fit.  ragged: the same rule without
-    "divides P"."""
+    "divides P".  gauss: the Gauss form, which has no compile-time kernel."""
     radices = stage_radices(q)
-    if radices == FIXED_ROW[0] and (ragged or p % FIXED_ROW[1] == 0):
+    if not gauss and radices == FIXED_ROW[0] and (ragged or p % FIXED_ROW[1] == 0):
         return FIXED_ROW[1]
     for pt in (2, 1):
-        if (ragged or p % pt == 0) and smem_bytes(q * pt, radices) <= _build.SMEM_MAX:
+        if (ragged or p % pt == 0) and smem_bytes(q * pt, radices, gauss) <= _build.SMEM_MAX:
             return pt
     return None
 
@@ -135,17 +147,63 @@ def large_supported(n: int, dtype) -> bool:
     return np.dtype(dtype) == np.complex64 and choose_pqq(n) is not None
 
 
-def col_tables(p: int, q: int, direction: FftDirection):
-    """Host tables of the column stage: DFT_P's stage tables and the outer
-    twiddle (Q, P) [j2, k1] = w_n^(k1*j2), complex64."""
+def gauss_tables(radices: Sequence[int], direction: FftDirection) -> List[np.ndarray]:
+    """The Gauss form's stage tables: per radix r a (3, r) float32 array of
+    Wr, Wi and Ws = Wr + Wi of the roots w_r^e, each computed in float64 and
+    cast, so that W[j][k] = table[:, (j*k) mod r] is the entry of the JAX
+    package's gauss_tables(dft_matrix(r)) (rustfft_tpu/ops/pallas/fused.py,
+    without its bf16 split: the card contracts in float32)."""
+    out = []
+    for r in radices:
+        w = twiddles.dft_matrix(r, direction)[1]
+        out.append(np.stack([w.real, w.imag, w.real + w.imag]).astype(np.float32))
+    return out
+
+
+def col_tables(p: int, q: int, direction: FftDirection, gauss: bool = False):
+    """Host tables of the column stage: DFT_P's stage tables (the Gauss
+    tables in place of the roots with `gauss`) and the outer twiddle (Q, P)
+    [j2, k1] = w_n^(k1*j2), complex64."""
     roots, tws = stage_tables(p, stage_radices(p), direction)
+    if gauss:
+        roots = gauss_tables(stage_radices(p), direction)
     outer = np.ascontiguousarray(twiddles.twiddle_table(p, q, direction).T)
     return roots, tws, outer.astype(np.complex64)
 
 
-def row_tables(q: int, direction: FftDirection):
-    """Host tables of the row stage: the length-Q FFT's stage tables."""
-    return stage_tables(q, stage_radices(q), direction)
+def row_tables(q: int, direction: FftDirection, gauss: bool = False):
+    """Host tables of the row stage: the length-Q FFT's stage tables (the
+    Gauss tables in place of the roots with `gauss`)."""
+    roots, tws = stage_tables(q, stage_radices(q), direction)
+    if gauss:
+        roots = gauss_tables(stage_radices(q), direction)
+    return roots, tws
+
+
+def gauss_stages_plain(x: torch.Tensor, radices: Sequence[int], gtabs, tws) -> torch.Tensor:
+    """lanepack.fft_stages_plain with every stage's contraction in the Gauss
+    form: three real products P1 = xr.Wr, P2 = xi.Wi, P3 = (xr + xi).Ws,
+    then re = P1 - P2, im = P3 - P1 - P2; the twiddles stay complex
+    products."""
+    shape = x.shape
+    m = shape[-1]
+    v = x.reshape(-1, 1, m)
+    lead, rest = 1, m
+    for s, r in enumerate(radices):
+        rest //= r
+        j = torch.arange(r, device=x.device)
+        w = gtabs[s][:, (j[:, None] * j[None, :]) % r]  # (3, r, r) [., j, k]
+        u = v.reshape(-1, lead, r, rest)
+        ur, ui = u.real, u.imag
+        p1 = torch.einsum("jk,bljr->bklr", w[0], ur)
+        p2 = torch.einsum("jk,bljr->bklr", w[1], ui)
+        p3 = torch.einsum("jk,bljr->bklr", w[2], ur + ui)
+        a = torch.complex(p1 - p2, p3 - p1 - p2)
+        if s + 1 < len(radices):
+            a = a * tws[s].reshape(1, r, 1, rest)
+        lead *= r
+        v = a.reshape(-1, lead, rest)
+    return v.reshape(shape)
 
 
 def large_col_stage_plain(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
@@ -155,41 +213,69 @@ def large_col_stage_plain(x: torch.Tensor, p: int, q: int, tables) -> torch.Tens
     return (fft_stages_plain(xt, stage_radices(p), roots, tws) * outer).contiguous()
 
 
+def large_col_stage_gauss_plain(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
+    """Plain torch version of large_col_stage_gauss."""
+    gtabs, tws, outer = tables
+    xt = x.reshape(-1, p, q).transpose(1, 2)  # (B, Q, P) [j2, j1]
+    return (gauss_stages_plain(xt, stage_radices(p), gtabs, tws) * outer).contiguous()
+
+
+def _col_stage(x: torch.Tensor, p: int, q: int, tables, gauss: bool, counter) -> torch.Tensor:
+    """The column stage in either form; counter.launches counts the launches."""
+    what = counter.__name__
+    roots, tws, outer = tables
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (batch, n), got {tuple(x.shape)}")
+    check_operand(x, (x.shape[0], p * q), f"{what} input")
+    check_stage_tables(p, stage_radices(p), roots, tws, x.device, what, gauss)
+    check_operand(outer, (q, p), f"{what} outer twiddle")
+    if outer.device != x.device:
+        raise ValueError(f"{what}: tables on {outer.device}, input on {x.device}")
+    if x.device.type == "cpu":
+        plain = large_col_stage_gauss_plain if gauss else large_col_stage_plain
+        return plain(x, p, q, tables)
+    require_cuda(x, what)
+    qt = col_tile(p, q, gauss=gauss)
+    if qt is None:
+        raise ValueError(f"{what}: no tile for P={p}, Q={q}")
+    y = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
+    if x.shape[0] == 0:
+        return y
+    lib = _build.load()
+    launch = lib.rf_large_col_stage_gauss if gauss else lib.rf_large_col_stage
+    with torch.cuda.device(x.device):
+        code = launch(
+            x.data_ptr(), y.data_ptr(), x.shape[0], p, q, qt,
+            *padded_stage_args(stage_radices(p), roots, tws), outer.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, code, what)
+    counter.launches += 1
+    return y
+
+
 def large_col_stage(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
     """Column stage of x (batch, P*Q) complex64 -> (batch, Q, P).
 
     tables = (roots, tws, outer) from col_tables, on x's device.
     """
-    roots, tws, outer = tables
-    if x.dim() != 2:
-        raise ValueError(f"large_col_stage: expected (batch, n), got {tuple(x.shape)}")
-    check_operand(x, (x.shape[0], p * q), "large_col_stage input")
-    check_stage_tables(p, stage_radices(p), roots, tws, x.device, "large_col_stage")
-    check_operand(outer, (q, p), "large_col_stage outer twiddle")
-    if outer.device != x.device:
-        raise ValueError(f"large_col_stage: tables on {outer.device}, input on {x.device}")
-    if x.device.type == "cpu":
-        return large_col_stage_plain(x, p, q, tables)
-    require_cuda(x, "large_col_stage")
-    qt = col_tile(p, q)
-    if qt is None:
-        raise ValueError(f"large_col_stage: no tile for P={p}, Q={q}")
-    y = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
-    if x.shape[0] == 0:
-        return y
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.rf_large_col_stage(
-            x.data_ptr(), y.data_ptr(), x.shape[0], p, q, qt,
-            *padded_stage_args(stage_radices(p), roots, tws), outer.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(lib, code, "large_col_stage")
-    large_col_stage.launches += 1
-    return y
+    return _col_stage(x, p, q, tables, False, large_col_stage)
 
 
 large_col_stage.launches = 0
+
+
+def large_col_stage_gauss(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
+    """large_col_stage in the Gauss form (K4's _kernel_a_gauss): DFT_P's
+    radix stages as three real products each.
+
+    tables = (gauss tables, tws, outer) from col_tables(..., gauss=True), on
+    x's device.
+    """
+    return _col_stage(x, p, q, tables, True, large_col_stage_gauss)
+
+
+large_col_stage_gauss.launches = 0
 
 
 def large_row_stage_plain(a: torch.Tensor, q: int, p: int, tables) -> torch.Tensor:
@@ -199,58 +285,136 @@ def large_row_stage_plain(a: torch.Tensor, q: int, p: int, tables) -> torch.Tens
     return d.transpose(1, 2).reshape(a.shape[0], -1)
 
 
+def large_row_stage_gauss_plain(a: torch.Tensor, q: int, p: int, tables) -> torch.Tensor:
+    """Plain torch version of large_row_stage_gauss."""
+    gtabs, tws = tables
+    d = gauss_stages_plain(a.transpose(1, 2), stage_radices(q), gtabs, tws)  # [k1, k2]
+    return d.transpose(1, 2).reshape(a.shape[0], -1)
+
+
+def _row_stage(a: torch.Tensor, q: int, p: int, tables, gauss: bool, counter) -> torch.Tensor:
+    """The row stage in either form; counter.launches counts the launches."""
+    what = counter.__name__
+    roots, tws = tables
+    if a.dim() != 3:
+        raise ValueError(f"{what}: expected (batch, Q, P), got {tuple(a.shape)}")
+    check_operand(a, (a.shape[0], q, p), f"{what} input")
+    radices = stage_radices(q)
+    check_stage_tables(q, radices, roots, tws, a.device, what, gauss)
+    if a.device.type == "cpu":
+        plain = large_row_stage_gauss_plain if gauss else large_row_stage_plain
+        return plain(a, q, p, tables)
+    require_cuda(a, what)
+    pt = row_tile(q, p, gauss=gauss)
+    if pt is None:
+        raise ValueError(f"{what}: no tile for Q={q}, P={p}")
+    y = torch.empty((a.shape[0], q * p), dtype=a.dtype, device=a.device)
+    if a.shape[0] == 0:
+        return y
+    lib = _build.load()
+    launch = lib.rf_large_row_stage_gauss if gauss else lib.rf_large_row_stage
+    with torch.cuda.device(a.device):
+        code = launch(
+            a.data_ptr(), y.data_ptr(), a.shape[0], q, p, pt,
+            *padded_stage_args(radices, roots, tws),
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    _build.check(lib, code, what)
+    counter.launches += 1
+    return y
+
+
 def large_row_stage(a: torch.Tensor, q: int, p: int, tables) -> torch.Tensor:
     """Row stage of a (batch, Q, P) complex64 -> (batch, Q*P) natural order.
 
     tables = (roots, tws) from row_tables, on a's device.
     """
-    roots, tws = tables
-    if a.dim() != 3:
-        raise ValueError(f"large_row_stage: expected (batch, Q, P), got {tuple(a.shape)}")
-    check_operand(a, (a.shape[0], q, p), "large_row_stage input")
-    radices = stage_radices(q)
-    check_stage_tables(q, radices, roots, tws, a.device, "large_row_stage")
-    if a.device.type == "cpu":
-        return large_row_stage_plain(a, q, p, tables)
-    require_cuda(a, "large_row_stage")
-    pt = row_tile(q, p)
-    if pt is None:
-        raise ValueError(f"large_row_stage: no tile for Q={q}, P={p}")
-    y = torch.empty((a.shape[0], q * p), dtype=a.dtype, device=a.device)
-    if a.shape[0] == 0:
-        return y
-    lib = _build.load()
-    with torch.cuda.device(a.device):
-        code = lib.rf_large_row_stage(
-            a.data_ptr(), y.data_ptr(), a.shape[0], q, p, pt,
-            *padded_stage_args(radices, roots, tws),
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
-    _build.check(lib, code, "large_row_stage")
-    large_row_stage.launches += 1
-    return y
+    return _row_stage(a, q, p, tables, False, large_row_stage)
 
 
 large_row_stage.launches = 0
 
 
-def make_large_fft_fn(n: int, direction: FftDirection, dtype):
+def large_row_stage_gauss(a: torch.Tensor, q: int, p: int, tables) -> torch.Tensor:
+    """large_row_stage in the Gauss form (K4's _kernel_b_gauss with
+    fftq_sublane_gauss): the length-Q FFT's radix stages as three real
+    products each.
+
+    tables = (gauss tables, tws) from row_tables(..., gauss=True), on a's
+    device.
+    """
+    return _row_stage(a, q, p, tables, True, large_row_stage_gauss)
+
+
+large_row_stage_gauss.launches = 0
+
+
+#: make_large_fft_fn's contraction orders of the TPU row stage
+VARIANTS = ("swap", "wlhs")
+
+
+def make_large_fft_fn(n: int, direction: FftDirection, dtype,
+                      split: Optional[Tuple[int, int, int]] = None, variant: str = "swap",
+                      deep_a: Optional[bool] = None, gauss: Optional[bool] = None,
+                      blocks2d: Optional[bool] = None):
     """Return fn: complex64 (..., n) -> (..., n), the two-pass pipeline at
-    the split choose_pqq(n)."""
-    if not large_supported(n, dtype):
-        raise ValueError(f"no large pipeline for n={n}, dtype={np.dtype(dtype)}")
-    p, q1, q2 = choose_pqq(n)
+    split = (P, q1, q2) (default choose_pqq(n)), with the keywords of the
+    JAX package's make_large_fft_fn (large.py:376-619):
+
+      gauss     None resolves to config.large_gauss: the column and row
+                stages in the Gauss form, large_col_stage_gauss and
+                large_row_stage_gauss (K4's _kernel_a_gauss, _kernel_b_gauss);
+      deep_a    None resolves to False, as in the JAX package.  K4's
+                _kernel_a_deep computes DFT_P in 2-3 radix stages, then the
+                outer twiddle and a (P, qt) -> (qt, P) transposed store: that
+                is what large_col_stage already does, so deep_a runs it;
+      blocks2d  None resolves to config.large_blocks2d.  K4's _kernel_a_2d
+                and _kernel_b_2d are K2 and K3 on (B*P, Q) and (B*Q, P)
+                block descriptions of the same bytes; in flat device memory
+                those are the same pointer and strides as (B, P, Q) and
+                (B, Q, P), so blocks2d runs large_col_stage and
+                large_row_stage.  With deep_a or gauss it raises, as the JAX
+                package asserts;
+      variant   "swap" or "wlhs": two contraction orders of the TPU row
+                stage's q1 x q2 split.  The card's row stage runs the radix
+                stages of stage_radices(Q) for either.
+
+    A split given by the caller (the CPU tests give small ones) is taken as
+    is when P*q1*q2 == n and both stages have a tile.  Not ported: qt and pt
+    (TPU block shapes; the card's tiles are col_tile and row_tile),
+    precision (the MXU tiers; the card computes in float32) and interpret.
+    `fn.stages` holds the column and row stage wrappers the pipeline runs.
+    """
+    if np.dtype(dtype) != np.complex64:
+        raise ValueError(f"large pipeline is complex64 only, got {np.dtype(dtype)}")
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    gauss = config.large_gauss if gauss is None else bool(gauss)
+    blocks2d = config.large_blocks2d if blocks2d is None else bool(blocks2d)
+    if blocks2d and (deep_a or gauss):
+        raise ValueError("blocks2d: default kernels only (no deep_a, no gauss)")
+    pqq = split or choose_pqq(n)
+    if pqq is None:
+        raise ValueError(f"no large pipeline for n={n}")
+    p, q1, q2 = pqq
     q = q1 * q2
-    roots_p, tws_p, outer = col_tables(p, q, direction)
-    roots_q, tws_q = row_tables(q, direction)
+    if p * q != n:
+        raise ValueError(f"split {tuple(pqq)} does not give n={n}")
+    if col_tile(p, q, gauss=gauss) is None or row_tile(q, p, gauss=gauss) is None:
+        raise ValueError(f"split {tuple(pqq)}: no tile fits shared memory")
+    roots_p, tws_p, outer = col_tables(p, q, direction, gauss)
+    roots_q, tws_q = row_tables(q, direction, gauss)
     tables = calg.DeviceTables(roots_p + tws_p + [outer] + roots_q + tws_q)
     kp, kq = len(roots_p), len(roots_q)
+    col_stage, row_stage = ((large_col_stage_gauss, large_row_stage_gauss) if gauss
+                            else (large_col_stage, large_row_stage))
 
     def apply(x):
         t = tables.on(x.device)
         col = (t[:kp], t[kp : 2 * kp - 1], t[2 * kp - 1])
         row = (t[2 * kp : 2 * kp + kq], t[2 * kp + kq :])
-        a = large_col_stage(x.reshape(-1, n).contiguous(), p, q, col)
-        return large_row_stage(a, q, p, row).reshape(x.shape)
+        a = col_stage(x.reshape(-1, n).contiguous(), p, q, col)
+        return row_stage(a, q, p, row).reshape(x.shape)
 
+    apply.stages = (col_stage, row_stage)
     return apply

@@ -81,8 +81,9 @@ class _PlannerBase:
 
     @property
     def algorithm_cache(self) -> FftCache:
-        """The plan cache for the *current* config state."""
-        key = self._recipe_cache_key() + (config.kernels,)
+        """The plan cache for the *current* config state: the recipe
+        design's key and every switch a built plan bakes in."""
+        key = self._recipe_cache_key() + config.switch_key()
         cache = self._algorithm_caches.get(key)
         if cache is None:
             cache = self._algorithm_caches[key] = FftCache()
