@@ -24,7 +24,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    at r = 2, 4, 8 and 16 (one cluster of r blocks per transform; the
    cudaOccupancyMaxActiveClusters of each r is printed), two_stage_fft at
    16384 (the radix body at R = 1), 20480, 24576 and 14464 (a prime p = 113)
-   and three_stage_fft at K8's split (128, 8, 16).  The last three tiers
+   and three_stage_fft at K8's split (128, 8, 16).  K7's cluster band at
+   batch 2: two_stage_cluster_fft at every CLUSTER path's n and at 32896
+   (clusters of 2, 4, 8 and 16 blocks; ragged row shares at 32896 and
+   260608, a prime p above 256 at both), with the
+   cudaOccupancyMaxActiveClusters of each cluster size.  The last three tiers
    at small batches: dense_fft at n = 5, 127, 251 and 1009 in both forms,
    the two ragged-tile stages of large_pad at 78125 and 531441 (a ragged
    last tile on both axes), and the fused large Bluestein's three kernels
@@ -43,10 +47,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the top band at 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX bench's rows)
    and 2^26 x 2, and the mid band at 16384 x 4096 and 24576 x 2048
    (two_stage), 32768 x 2048, 65536 x 1024 (the JAX bench's row),
-   131072 x 512 and 262144 x 256 (radix), the primes 127 x 262144 and
+   131072 x 512 and 262144 x 256 (radix), K7's cluster band at 28928 x
+   4096, 49152 x 2048, 98304 x 1024, 196608 x 512, 245760 x 256 and
+   260608 x 256 (two_stage, one cluster launch each), the primes 127 x
+   262144 and
    251 x 131072 (dense), the odd composites 15625 x 4096, 78125 x 512,
-   177147 x 256 and 531441 x 64 (large_pad), 1000003 x 64 (the fused large
-   Bluestein) and 746497 x 64 (the recipe the planner designs).  Then the
+   177147 x 256 and 531441 x 64 (large_pad), 1000003 x 64 and 24571 x 2048
+   (the fused large Bluestein; 24571's inner m = 49152 is on the cluster
+   band) and 746497 x 64 (the recipe the planner designs).  Then the
    switched paths, each switch set just before its plans are made and set
    back in a `finally`: 2^20 x 1024 under config.large_gauss (the Gauss
    stages), under config.large_blocks2d and through
@@ -55,7 +63,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    config.conv_radix_gauss and both, 7919 x 4096 under conv_radix_gauss,
    and with every switch on 15625 x 4096, 1000003 x 64, 2^23 x 8 and 2^26 x 2
    (no Gauss stage: the switches do not reach large_pad, K15, large2f or
-   large3f).  Every launch counter is set to 0 just before each run and
+   large3f), and 4096 x 16384 under config.lanepack_variant = "flat" (K1's
+   flat I/O variant, bit-equal to the block variant on 64 rows).  Every
+   launch counter is set to 0 just before each run and
    read just after: each path must launch exactly its kernels.  Errors
    against a float64 numpy oracle on 4 rows (1 row from 2^23 up) and
    against torch.fft (an oracle only) on the whole batch, and the round
@@ -71,7 +81,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    MixedRadix(2, Raders(617))); 2^24 x 4 also through the recipe tree the
    planner designs (MixedRadix(4096, 4096) on lanepack leaves); 2^22 x 16
    through the large and the large2f routes; every mid-band path against
-   the large route it replaced, and three_stage_fft at 16384 x 4096.
+   the large route it replaced, and three_stage_fft at 16384 x 4096.  K7's
+   cluster band: the kernel at each path's shape against its plain version,
+   its bound (operations per point from chain_ops: bytes bind at the
+   register radices, operations where p runs a roots-table stage) and
+   torch.fft, and each path against the large or large_pad route it
+   replaced; 24571 x 2048 (Bluestein, m = 49152) on K15, which the
+   planner keeps, and on the two-pass core the JAX rule gives it, in turns.
    The two-stage kernel's general body is reported at 24576; its phase 2
    checks at 20480 and 14464 count into that entry's max_abs_err.  The
    last three tiers: dense_fft in both forms against x @ W (the Dft leaf
@@ -119,6 +135,12 @@ TOP = {1 << 23: 8, 1 << 24: 4, 1 << 25: 2, 1 << 26: 2}
 
 #: the one-pass mid band's paths: n -> batch (256-512 MiB each)
 MID = {16384: 4096, 24576: 2048, 1 << 15: 2048, 1 << 16: 1024, 1 << 17: 512, 1 << 18: 256}
+
+#: K7's cluster band (two_stage_cluster_fft): n -> batch (480-904 MiB each);
+#: p x q and the blocks per transform: 226 x 128 (a radix-113 stage) on 2,
+#: 192 x 256 on 4, 256 x 384 on 8, 384 x 512, 480 x 512 and 509 x 512 (a
+#: prime p as one stage, ragged row shares) on 16
+CLUSTER = {28928: 4096, 49152: 2048, 98304: 1024, 196608: 512, 245760: 256, 260608: 256}
 
 #: the dense tier's paths (K5): the primes n -> batch (266 and 263 MiB)
 DENSE = {127: 262144, 251: 131072}
@@ -170,6 +192,10 @@ for _n in (16384, 24576):
                                       "rustfft_tpu/ops/pallas/fused.py:439")
 KERNELS["three_stage_fft/16384"] = ("rustfft_tpu_torch/csrc/fused.cu",
                                    "rustfft_tpu/ops/pallas/fused.py:711")
+#: K7's cluster band at each of its paths
+for _n in CLUSTER:
+    KERNELS[f"two_stage_cluster_fft/{_n}"] = ("rustfft_tpu_torch/csrc/fused.cu",
+                                              "rustfft_tpu/ops/pallas/fused.py:439")
 #: the last three tiers: K5 at each dense path (the block form, n <= 256),
 #: K12's two stages at each odd composite, K15's three kernels (its kernel
 #: A is the two-pass core's column stage, in place of large._kernel_a)
@@ -222,6 +248,15 @@ def bound(nbytes: float, flops: float):
 def fft_ops(m: float) -> float:
     """FP32 operations of one length-m transform: 5*m*log2(m)."""
     return 5 * m * math.log2(m)
+
+
+def chain_ops(radices) -> float:
+    """FP32 operations per point of a DIT chain as the kernels run it: 5
+    log2(r) for a power-of-2 radix (a radix-2 FFT in registers), 8r for any
+    other (a direct sum, r complex multiply-adds per output), and 6 per
+    inter-stage twiddle."""
+    return (sum(5 * math.log2(r) if r & (r - 1) == 0 else 8 * r for r in radices)
+            + 6 * (len(radices) - 1))
 
 
 def gauss_ops(radices) -> float:
@@ -343,7 +378,7 @@ def main() -> None:
 
     def mid_kernel(n, d):
         """(name, kernel(x), plain(x), host tables) of the mid-band kernel
-        routed at n."""
+        routed at n (K9, K7 on one block, or K7 on a cluster)."""
         if fused.radix_supported(n, np.complex64):
             r = n // (128 * 128)
             host = fused.radix_tables(r, 128, 128, d)
@@ -353,6 +388,11 @@ def main() -> None:
         p, q = fused.choose_pq(n)
         host = fused.two_stage_tables(p, large.stage_radices(q), d)
         tabs = card_tables(host)
+        if fused.two_stage_cluster_supported(n, np.complex64):
+            c = fused.choose_cluster(n)
+            return (f"two_stage_cluster_fft/{n}",
+                    lambda x: fused.two_stage_cluster_fft(x, p, q, c, tabs),
+                    lambda x: fused.two_stage_cluster_fft_plain(x, p, q, c, tabs), host)
         name = "two_stage_fft/16384" if (p, q) == (128, 128) else "two_stage_fft/24576"
         return (name, lambda x: fused.two_stage_fft(x, p, q, tabs),
                 lambda x: fused.two_stage_fft_plain(x, p, q, tabs), host)
@@ -650,6 +690,28 @@ def main() -> None:
     del x, got
     free()
 
+    # K7's cluster band at batch 2: two_stage_cluster_fft at every path's n
+    # and at 32896 (257 x 128 on 4 blocks: a prime p above 256 and ragged
+    # row shares; it counts into the entry of the path with its cluster size)
+    print("  cudaOccupancyMaxActiveClusters of two_stage_cluster_fft: " + ", ".join(
+        f"c={c} {fused.two_stage_cluster_max_active_clusters(c)}" for c in fused.CLUSTER_SIZES),
+        flush=True)
+    for n in (*CLUSTER, 32896):
+        x = signal(2, n)
+        p, q = fused.choose_pq(n)
+        c = fused.choose_cluster(n)
+        key = n if n in CLUSTER else next(m for m in CLUSTER if fused.choose_cluster(m) == c)
+        for d in directions:
+            _, kernel, plain, _ = mid_kernel(n, d)
+            got = kernel(x)
+            torch.cuda.synchronize()
+            note(f"two_stage_cluster_fft/{key}", got, plain(x),
+                 f"two_stage_cluster_fft n={n} ({p} x {q}, {large.stage_radices(p)} x "
+                 f"{large.stage_radices(q)}) on {c} blocks, row shares "
+                 f"{sorted({hi - lo for lo, hi in fused.row_shares(p, c)})} batch=2 {d.name}")
+    del x, got
+    free()
+
     # the last three tiers: dense_fft in both forms (5 and 127 count into
     # the 127 entry, 251 and 1009 into the 251 one); large_pad's stages with
     # a ragged last tile on both axes; the fused large Bluestein's kernels at
@@ -719,6 +781,7 @@ def main() -> None:
                 "large3_p2": large3.large3_p2,
                 "radix_fft": fused.radix_fft,
                 "two_stage_fft": fused.two_stage_fft,
+                "two_stage_cluster_fft": fused.two_stage_cluster_fft,
                 "three_stage_fft": fused.three_stage_fft,
                 "dense_fft": dense.dense_fft,
                 "largepad_col_stage": largepad.largepad_col_stage,
@@ -733,6 +796,7 @@ def main() -> None:
     assert route(4096, np.complex64) == "lanepack" and route(1 << 20, np.complex64) == "large"
     assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 3 + ["large3f"]
     assert [route(n, np.complex64) for n in MID] == ["two_stage"] * 2 + ["radix"] * 4
+    assert [route(n, np.complex64) for n in CLUSTER] == ["two_stage"] * len(CLUSTER)
     assert [route(n, np.complex64) for n in DENSE] == ["dense"] * len(DENSE)
     assert [route(n, np.complex64) for n in PAD] == ["large_pad"] * len(PAD)
     assert route(10 ** 6, np.complex64) == "large"
@@ -790,10 +854,12 @@ def main() -> None:
           for n, batch in TOP.items()),
         *((n, batch, {"radix_fft" if n >= 1 << 15 else "two_stage_fft": 1})
           for n, batch in MID.items()),
+        *((n, batch, {"two_stage_cluster_fft": 1}) for n, batch in CLUSTER.items()),
         *((n, batch, {"dense_fft": 1}) for n, batch in DENSE.items()),
         *((n, batch, {"largepad_col_stage": 1, "largepad_row_stage": 1})
           for n, batch in PAD.items()),
         *((n, batch, k15) for n, (_, batch) in BLUE.items()),
+        (24571, 2048, k15),
         (746497, 64, prime_launches(746497)),
     )
     def drive(key, n, batch, expected, fwd, inv, what, same_as=None):
@@ -835,7 +901,7 @@ def main() -> None:
     # set back after; with every switch on, the routes the switches must not
     # reach launch their default kernels
     every = dict(large_gauss=True, large_blocks2d=True, conv_radix_gauss=True,
-                 rader_in_shift=True)
+                 rader_in_shift=True, lanepack_variant="flat")
     gauss4 = {"conv_col_stage_gauss": 2, "conv_row_stage_gauss": 2}
     default_large = {"large_col_stage": 1, "large_row_stage": 1}
 
@@ -843,7 +909,11 @@ def main() -> None:
         return large.make_large_fft_fn(1 << 20, d, np.complex64, gauss=False,
                                        blocks2d=False)(rows)
 
+    def block_4096(d, rows):
+        return lanepack.make_lanepack_fn(4096, d, np.complex64, variant="block")(rows)
+
     switched_paths = (
+        ("flat", 4096, 16384, {"lanepack_fft": 1}, dict(lanepack_variant="flat"), block_4096),
         ("gauss", 1 << 20, 1024, {"large_col_stage_gauss": 1, "large_row_stage_gauss": 1},
          dict(large_gauss=True), None),
         ("blocks2d", 1 << 20, 1024, default_large, dict(large_blocks2d=True), default_2_20),
@@ -1302,6 +1372,71 @@ def main() -> None:
                    batch * (fft_ops(n) + 6 * n), lib)
         del x
         free()
+
+    # K7's cluster band at its paths' shapes: the kernel against its plain
+    # version, then times, the achieved rate and the bound (operations bind
+    # where p runs a roots-table stage); each path against the route it
+    # replaced (large or large_pad, built directly) and torch.fft
+    for n, batch in CLUSTER.items():
+        x = signal(batch, n)
+        name, kernel, plain, host = mid_kernel(n, FftDirection.FORWARD)
+        p, q = fused.choose_pq(n)
+        c = fused.choose_cluster(n)
+        note(name, kernel(x), plain(x), f"{name} {p} x {q} on {c} blocks batch={batch} "
+                                        "(the main path's shape)")
+        free()
+        k = median_ms(lambda: kernel(x))
+        plain_ms = median_ms(lambda: plain(x))
+        lib = median_ms(lambda: torch.fft.fft(x))
+        ops = batch * n * (chain_ops(large.stage_radices(p)) + chain_ops(large.stage_radices(q)) + 6)
+        nbytes = 16 * batch * n + table_bytes(host)
+        print(f"  {name} {p} x {q} ({large.stage_radices(p)} x {large.stage_radices(q)}) on {c} "
+              f"blocks, batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; its "
+              f"operations {ops / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak, its bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms:", flush=True)
+        record(name, k, plain_ms, nbytes, ops, lib)
+        plan = planner.plan_fft_forward(n)
+        path = median_ms(lambda: plan.process(x))
+        pad = largepad.largepad_supported(n, np.complex64) and largepad.narrowed_by_division(n)
+        old_route = "large_pad" if pad else "large"
+        old = (largepad.make_largepad_fft_fn if pad else large.make_large_fft_fn)(
+            n, FftDirection.FORWARD, np.complex64)
+        check(f"n={n} x {batch} via the {old_route} route vs torch.fft",
+              rel_err(old(x), torch.fft.fft(x)))
+        free()
+        old_ms = median_ms(lambda: old(x))
+        print(f"  cluster-band path n={n} batch={batch}: {path:.3f} ms "
+              f"({gflops(n, batch, path):.0f} GF/s); the {old_route} route {old_ms:.3f} ms "
+              f"({gflops(n, batch, old_ms):.0f} GF/s); torch.fft {lib:.3f} ms "
+              f"({gflops(n, batch, lib):.0f} GF/s)", flush=True)
+        del x
+        free()
+
+    # 24571 x 2048: a Bluestein prime whose inner m = 49152 left "large" for
+    # the cluster band, where the JAX rule would hand it to the two-pass
+    # core; the fused large Bluestein (K15, which convlarge.bconv_supported
+    # keeps) against that core, in turns
+    n, batch = 24571, 2048
+    recipe = planner.plan_fft_forward(n).recipe
+    m = recipe.inner.length
+    assert executor.build(recipe, FftDirection.FORWARD, np.complex64).__module__ == \
+        convlarge.__name__
+    x = signal(batch, n)
+    want = torch.fft.fft(x)
+    cores = {"K15": convlarge.make_bluestein_large_fn(n, m, FftDirection.FORWARD, np.complex64),
+             "the two-pass core": conv.make_bluestein_fn(n, m, FftDirection.FORWARD, np.complex64)}
+    for what, fn in cores.items():
+        check(f"{n} x {batch} (m = {m}) on {what} vs torch.fft", rel_err(fn(x), want))
+        free()
+    times = {what: [] for what in cores}
+    for what in (*cores, *reversed(cores)):
+        times[what].append(median_ms(lambda: cores[what](x)))
+    ref = median_ms(lambda: torch.fft.fft(x))
+    print(f"  {n} x {batch} (Bluestein, m = {m}), in turns: " + "; ".join(
+        f"{what} {t[0]:.3f} / {t[1]:.3f} ms" for what, t in times.items())
+          + f"; torch.fft {ref:.3f} ms; the planner takes K15", flush=True)
+    del x, want, cores
+    free()
 
     def dense_ops(n, variant):
         """FP32 operations of one length-n dense_fft row: 4 real products

@@ -89,7 +89,7 @@ static inline bool stages_ok(const Stages& st, int m, bool gauss = false) {
   return prod == m;
 }
 
-static inline int roots_total(const Stages& st) {
+static __host__ __device__ inline int roots_total(const Stages& st) {
   int total = 0;
   for (int s = 0; s < st.k; ++s) total += st.r[s];
   return total;

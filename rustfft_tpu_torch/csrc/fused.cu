@@ -7,8 +7,8 @@
 // twiddles, is far under the card's peak.  What is left between them and
 // that bound is latency: one 512-thread block per SM (the tile fills its
 // shared memory), whose loads, stages and stores run in turn.  Every stage
-// holds one column of at most 16 values a thread at a time, so neither
-// kernel spills at 512 threads.
+// holds at most 16 values a thread at a time (the cluster kernel's exchange
+// 32), so no kernel here spills at 512 threads.
 //
 // radix_fft (K9: fused.py _fused_kernel_vpur, _ctw, _ctwg, _ctwgn, _ctwgx,
 // one function in five TPU layouts).  n = r * 128 * 128 is 256 KiB .. 2 MiB
@@ -41,11 +41,36 @@
 // store reads each natural index from its digit-reversed place through two
 // small index tables (p + q ints).  Register radices load one column into
 // registers; a roots-table radix (a prime p such as 113) gives a column's
-// ceil(r/8) chunks of 8 outputs to neighbouring lanes of one warp, which
-// read every input before __syncwarp() and write after it.  DFT_p over j1
-// for every j2, the outer twiddle w_n^(k1*j2) from a (q, p) table folded
-// into DFT_p's last stage, DFT_q over j2 for every k1, the store at
+// ceil(r/8) chunks of 8 outputs to as many threads, which read every input
+// before a block barrier and write after it (stage_table_inplace).  DFT_p
+// over j1 for every j2, the outer twiddle w_n^(k1*j2) from a (q, p) table
+// folded into DFT_p's last stage, DFT_q over j2 for every k1, the store at
 // k = k2*p + k1.
+//
+// two_stage_cluster_fft (K7's cluster band, the same function): the aligned
+// n from 28928 to 261632 (226 KiB .. 2 MiB a transform, p = 129 .. 511,
+// q = 128 .. 512) do not fit one SM, so one thread-block cluster of c = 2,
+// 4, 8 or 16 blocks computes one transform, in one read and one write of
+// device memory:
+//   1. block b loads the columns j2 = b*q/c .. (b+1)*q/c - 1 of every row j1
+//      (segments of 8q/c bytes) and runs DFT_p on them in place, the outer
+//      twiddle folded into the last stage (chain_inplace, as above);
+//   2. cluster barrier; block b pulls its rows k1 = b*p/c .. (b+1)*p/c - 1
+//      (balanced shares, ragged where c does not divide p) of every peer's
+//      columns through distributed shared memory into registers, 32 values
+//      a thread at 512 threads; cluster barrier; it writes them into its
+//      buffer as rows of q.  There is no room for a second buffer (a share
+//      is up to 128 KiB), so registers carry the exchange, and that sets
+//      the share cap of 16384 values and with it c (ops/kernels/fused.py
+//      choose_cluster);
+//   3. DFT_q over j2 on each of its rows in place, then the store at
+//      k = k2*p + k1, rows of p/c values per k2.
+// Bytes bind where p and q split into small radices (0.30-0.57 ms for the
+// 480-904 MiB of chip_smoke.py's paths).  921 of the band's 1009 sizes have
+// a radix without a register stage (637 a radix from 17 to 256, 172 a prime
+// p above 256): a roots-table stage of 8r FP32 operations a point, where
+// operations bind (1.7 ms at 28928 x 4096, 4.1 ms at 260608 x 256); radices
+// above 256 take 16 accumulators a thread (stage_table_inplace<16>).
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -329,30 +354,37 @@ static __device__ void stage_reg_inplace(float2* buf, int lead, int rest, int T,
   }
 }
 
-// One roots-table stage in place, any radix r <= 256: the nchunks =
-// ceil(r/8) chunks of a column are neighbouring lanes of one warp, which
-// all read the column before __syncwarp() and overwrite it after.
+// One roots-table stage in place, any radix r <= 512, in passes over L
+// neighbouring columns: thread t takes column t % L of the pass and its
+// chunk t / L of G outputs.  A pass costs one run over the r inputs
+// however few columns it holds, so the stage takes the fewest passes the
+// block's threads allow and spreads the columns evenly over them.  A warp
+// reads one or two roots per term (broadcasts; a warp whose lanes read 32
+// different roots replayed on the banks up to ~5x) and neighbouring places
+// of the tile.  Every chunk of a pass's columns reads them before the
+// block barrier and overwrites them after it.  G = kChunk (8) up to radix
+// 256; 16 up to 512 (the cluster band's primes p = 257 .. 509).
+template <int G>
 static __device__ void stage_table_inplace(float2* buf, int r, int lead, int rest, int T,
                                            const float2* __restrict__ roots,
                                            const float2* __restrict__ tw, const OuterFold& fold) {
   const int step = rest * T;
   const int ncols = lead * step;
-  const int nchunks = (r + kChunk - 1) / kChunk;
-  const int per_warp = 32 / nchunks;
-  const int lane = threadIdx.x & 31;
-  const int sub = lane / nchunks;
-  const int k0 = (lane - sub * nchunks) * kChunk;
-  const int nwarps = blockDim.x >> 5;
-  for (int c0 = (threadIdx.x >> 5) * per_warp; c0 < ncols; c0 += nwarps * per_warp) {
-    const int c = c0 + sub;
-    const bool active = sub < per_warp && c < ncols;
+  const int nchunks = (r + G - 1) / G;
+  const int per_pass = (int)blockDim.x / nchunks;  // the most columns a pass holds
+  const int passes = (ncols + per_pass - 1) / per_pass;
+  const int L = (ncols + passes - 1) / passes;
+  const int k0 = (int)threadIdx.x / L * G;
+  for (int c0 = 0; c0 < ncols; c0 += L) {
+    const int c = c0 + (int)threadIdx.x % L;
+    const bool active = k0 < r && c < ncols;
     const int l = active ? c / step : 0;
     const int rt = active ? c - l * step : 0;
     const int base = l * r * step + rt;
-    float2 acc[kChunk];
-    int e[kChunk], inc[kChunk];
+    float2 acc[G];
+    int e[G], inc[G];
 #pragma unroll
-    for (int g = 0; g < kChunk; ++g) {
+    for (int g = 0; g < G; ++g) {
       acc[g] = make_float2(0.f, 0.f);
       e[g] = 0;
       inc[g] = (k0 + g < r) ? k0 + g : 0;
@@ -361,7 +393,7 @@ static __device__ void stage_table_inplace(float2* buf, int r, int lead, int res
       for (int j = 0; j < r; ++j) {
         const float2 a = buf[swz(base + j * step)];
 #pragma unroll
-        for (int g = 0; g < kChunk; ++g) {
+        for (int g = 0; g < G; ++g) {
           const float2 w = roots[e[g]];
           acc[g].x = fmaf(a.x, w.x, fmaf(-a.y, w.y, acc[g].x));
           acc[g].y = fmaf(a.x, w.y, fmaf(a.y, w.x, acc[g].y));
@@ -370,11 +402,11 @@ static __device__ void stage_table_inplace(float2* buf, int r, int lead, int res
         }
       }
     }
-    __syncwarp();
+    __syncthreads();
     if (active) {
       const int jr = rt / T;
 #pragma unroll
-      for (int g = 0; g < kChunk; ++g) {
+      for (int g = 0; g < G; ++g) {
         const int k = k0 + g;
         if (k < r) {
           float2 v = acc[g];
@@ -401,7 +433,13 @@ static __device__ void run_stage_inplace(float2* buf, int r, int lead, int rest,
     case 9: stage_reg_inplace<9>(buf, lead, rest, T, roots, tw, fold); break;
     case 12: stage_reg_inplace<12>(buf, lead, rest, T, roots, tw, fold); break;
     case 16: stage_reg_inplace<16>(buf, lead, rest, T, roots, tw, fold); break;
-    default: stage_table_inplace(buf, r, lead, rest, T, roots, tw, fold); break;
+    default:
+      if (r <= 32 * kChunk) {
+        stage_table_inplace<kChunk>(buf, r, lead, rest, T, roots, tw, fold);
+      } else {
+        stage_table_inplace<2 * kChunk>(buf, r, lead, rest, T, roots, tw, fold);
+      }
+      break;
   }
 }
 
@@ -499,6 +537,164 @@ __global__ void __launch_bounds__(kTwoStageThreads)
   }
 }
 
+// ---- the cluster form of the two-stage kernel ---------------------------------
+
+constexpr int kClusterThreads = 512;
+constexpr int kHold = 32;                                // values a thread holds in the exchange
+constexpr int kClusterIo = 8;                            // loads and stores a thread has in flight
+constexpr int kClusterShare = kClusterThreads * kHold;   // 16384: the most values of a block
+
+// First row k1 of block b's share of the p rows (balanced: the shares of a
+// cluster of c blocks differ by at most one row).
+static __host__ __device__ __forceinline__ int share_lo(int b, int p, int c) { return b * p / c; }
+
+// Values a block's buffer holds: its column share (p rows of q/c columns)
+// or its widest row share (ceil(p/c) rows of q), whichever is more.
+static __host__ __device__ __forceinline__ int cluster_share(int p, int q, int c) {
+  const int cols = p * (q / c), rows = (p + c - 1) / c * q;
+  return cols > rows ? cols : rows;
+}
+
+// The (row, column) of f = f0 + u*kClusterThreads in rows of width w, for
+// u = 0, 1, ..., advanced without a division.
+struct Walk {
+  int row, col;
+  const int w, drow, dcol;
+  __device__ Walk(int f0, int w_)
+      : row(f0 / w_), col(f0 % w_), w(w_), drow(kClusterThreads / w_), dcol(kClusterThreads % w_) {}
+  __device__ void next() {
+    row += drow;
+    col += dcol;
+    if (col >= w) {
+      col -= w;
+      ++row;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kClusterThreads)
+    two_stage_cluster_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
+                             int c, Stages sp, Stages sq, const float2* __restrict__ outer) {
+  extern __shared__ float2 smem[];
+  const int b = (int)cg::this_cluster().block_rank();
+  const int tid = threadIdx.x;
+  const int qs = q / c;
+  const int lo = share_lo(b, p, c);
+  const int rb = share_lo(b + 1, p, c) - lo;
+  float2* buf = smem;
+  float2* roots_p = smem + pad16(cluster_share(p, q, c));
+  float2* roots_q = roots_p + roots_total(sp);
+  int* prow = reinterpret_cast<int*>(roots_q + roots_total(sq));
+  int* qcol = prow + p;
+  int* peer_col = qcol + q;  // (a << 16) | t: column j2 = a*qs + t of block a
+  load_roots(sp, roots_p);
+  load_roots(sq, roots_q);
+  for (int k = tid; k < p; k += kClusterThreads) prow[k] = place_of(k, p, sp) * qs;
+  for (int k = tid; k < q; k += kClusterThreads) {
+    qcol[k] = place_of(k, q, sq);
+    peer_col[k] = (k / qs) << 16 | (k % qs);
+  }
+  const size_t base = (size_t)(blockIdx.x / c) * (size_t)p * (size_t)q;
+
+  // 1. the share's columns j2 = b*qs + t of every row j1, (j1, t) at j1*qs + t
+  const int ncol = p * qs;
+  {
+    const float2* src = x + base + (size_t)b * qs;
+    Walk w(tid, qs);
+    for (int f0 = tid; f0 < ncol; f0 += kClusterIo * kClusterThreads) {
+      float2 v[kClusterIo];
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u, w.next())
+        if (f0 + u * kClusterThreads < ncol) v[u] = src[(size_t)w.row * q + w.col];
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u) {
+        const int f = f0 + u * kClusterThreads;
+        if (f < ncol) buf[swz(f)] = v[u];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. DFT_p over j1 for each of the share's columns, the outer twiddle
+  //    w_n^(k1*j2) (rows b*qs .. of the (q, p) table) folded into its last
+  //    stage: row k1 then sits at prow[k1]
+  chain_inplace(buf, p, 1, qs, sp, roots_p, outer + (size_t)b * qs * p, p);
+
+  // 3. the exchange: every block's DFT_p is done (barrier), this block pulls
+  //    its rows lo .. lo + rb of every peer's columns into registers, every
+  //    peer has read this block's columns (barrier), and the rows go into
+  //    the buffer as rb rows of q, (i, j2) at i*q + j2
+  cg::this_cluster().sync();
+  const uint32_t buf_addr = (uint32_t)__cvta_generic_to_shared(buf);
+  const int nrow = rb * q;
+  float2 hold[kHold];
+  {
+    Walk w(tid, q);
+#pragma unroll
+    for (int u = 0; u < kHold; ++u, w.next()) {
+      if (u * kClusterThreads + tid < nrow) {
+        const int m = peer_col[w.col];
+        const int s = swz(prow[lo + w.row] + (m & 0xffff));
+        hold[u] = peer_load(peer_addr(buf_addr + (uint32_t)(s * sizeof(float2)), m >> 16));
+      }
+    }
+  }
+  cg::this_cluster().sync();
+#pragma unroll
+  for (int u = 0; u < kHold; ++u) {
+    const int f = u * kClusterThreads + tid;
+    if (f < nrow) buf[swz(f)] = hold[u];
+  }
+  __syncthreads();
+
+  // 4. DFT_q over j2 for each of the share's rows
+  chain_inplace(buf, q, rb, 1, sq, roots_q, nullptr, 0);
+
+  // 5. the store at k = k2*p + lo + i, rb values per k2 in a row
+  {
+    float2* dst = y + base + lo;
+    Walk w(tid, rb);
+    for (int f0 = tid; f0 < nrow; f0 += kClusterIo * kClusterThreads) {
+      float2 v[kClusterIo];
+      Walk r = w;
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u, r.next())
+        if (f0 + u * kClusterThreads < nrow) v[u] = buf[swz(r.col * q + qcol[r.row])];
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u, w.next())
+        if (f0 + u * kClusterThreads < nrow) dst[(size_t)w.row * p + w.col] = v[u];
+    }
+  }
+}
+
+static size_t cluster_smem_bytes(int p, int q, int c, int roots) {
+  return ((size_t)pad16(cluster_share(p, q, c)) + roots) * sizeof(float2) +
+         (size_t)(p + 2 * q) * sizeof(int);
+}
+
+static cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                                  long long batch, int c, size_t smem, cudaStream_t s) {
+  cudaError_t err = allow_smem(two_stage_cluster_kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(two_stage_cluster_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(batch * c), 1, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+static bool cluster_size_ok(int c) { return c == 2 || c == 4 || c == 8 || c == 16; }
+
 static bool is_chain(const Stages& st, int r0, int r1) {
   return st.k == 2 && st.r[0] == r0 && st.r[1] == r1;
 }
@@ -580,4 +776,52 @@ extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, 
   if (err != cudaSuccess) return err;
   two_stage_kernel<<<(unsigned)batch, kTwoStageThreads, smem, s>>>(tx, ty, p, q, sp, sq, to);
   return cudaGetLastError();
+}
+
+// x, y: (batch, p*q) complex64; sp / sq the chains of DFT_p and DFT_q (the
+// padded_stage_args of each, radices up to 512); outer: (q, p) w_n^(k1*j2).
+// One thread-block cluster of c blocks (2, 4, 8 or 16) per transform, block
+// b holding the columns b*q/c .. of DFT_p and then the rows b*p/c .. of
+// DFT_q; c must divide q and each share fit kClusterShare values.  Returns
+// a cudaError_t code; launches on `stream`.
+extern "C" int rf_two_stage_cluster_fft(const void* x, void* y, long long batch, int p, int q,
+                                        int c, int kp, int rp0, int rp1, int rp2,
+                                        const void* rootsp0, const void* rootsp1,
+                                        const void* rootsp2, const void* twp0, const void* twp1,
+                                        int kq, int rq0, int rq1, int rq2, const void* rootsq0,
+                                        const void* rootsq1, const void* rootsq2,
+                                        const void* twq0, const void* twq1, const void* outer,
+                                        void* stream) {
+  using namespace rf;
+  if (batch <= 0 || p < c || q <= 0 || outer == nullptr || !cluster_size_ok(c) || q % c ||
+      batch * c > 0x7fffffffLL || cluster_share(p, q, c) > kClusterShare)
+    return cudaErrorInvalidValue;
+  const Stages sp = make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1);
+  const Stages sq = make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1);
+  if (!stages_ok(sp, p) || !stages_ok(sq, q)) return cudaErrorInvalidValue;
+  const size_t smem = cluster_smem_bytes(p, q, c, roots_total(sp) + roots_total(sq));
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(cfg, attr, batch, c, smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, two_stage_cluster_kernel, static_cast<const float2*>(x),
+                           static_cast<float2*>(y), p, q, c, sp, sq,
+                           static_cast<const float2*>(outer));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of rf_two_stage_cluster_fft's kernel in
+// clusters of c blocks at the most shared memory it takes (a share of
+// kClusterShare values, roots of two 512-point chains, p = q = 512) into
+// *out.
+extern "C" int rf_two_stage_cluster_max_active_clusters(int c, int* out) {
+  using namespace rf;
+  if (!cluster_size_ok(c)) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const size_t smem = ((size_t)kClusterShare + 2 * 512) * sizeof(float2) + 3 * 512 * sizeof(int);
+  cudaError_t err = cluster_config(cfg, attr, 1, c, smem, 0);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out, two_stage_cluster_kernel, &cfg);
 }

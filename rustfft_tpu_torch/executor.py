@@ -52,14 +52,19 @@ def route(n: int, dtype) -> Optional[str]:
       'radix'     c64, n = r * 128 * 128 with r in {2, 4, 8, 16}
                   (fused.choose_rpq): 32768 .. 262144, one thread-block
                   cluster of r blocks per transform;
-      'two_stage' c64, fused.choose_pq(n) = (p, q) with q % 128 == 0, lanepack
-                  does not serve n, and one transform fits a block's shared
-                  memory in place: the multiples of 128 from 14464 to 28800;
+      'two_stage' c64, fused.choose_pq(n) = (p, q) with q % 128 == 0 and
+                  lanepack does not serve n (the JAX package's aligned
+                  sizes): one block per transform where it fits shared
+                  memory in place, the multiples of 128 from 14464 to 28800,
+                  else one thread-block cluster of 2-16 blocks
+                  (fused.choose_cluster), the 1009 aligned sizes from 28928
+                  to 261632 that radix does not take;
       'large_pad' c64, the 'large' split exists and large's column or row
                   tile is narrower than shared memory allows only because it
                   must divide Q or P (largepad.narrowed_by_division): the
                   odd composites 15625, 19683, 59049, 78125, 177147, 531441
-                  (one-column tiles on large) and splits such as 256 x 113;
+                  (one-column tiles on large) and splits such as 129 x 113
+                  (14577);
       'large'     c64, n = P * q1 * q2 with P <= 512, q1, q2 <= 256 and both
                   passes' tiles in shared memory (config.large_gauss and
                   large_blocks2d pick its stages' form; no other route
@@ -87,7 +92,7 @@ def route(n: int, dtype) -> Optional[str]:
         return "lanepack"
     if fused.radix_supported(n, dtype):
         return "radix"
-    if fused.two_stage_supported(n, dtype):
+    if fused.two_stage_supported(n, dtype) or fused.two_stage_cluster_supported(n, dtype):
         return "two_stage"
     if largepad.largepad_supported(n, dtype) and largepad.narrowed_by_division(n):
         return "large_pad"

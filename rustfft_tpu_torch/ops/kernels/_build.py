@@ -66,6 +66,9 @@ _SIGNATURES = {
     "rf_radix_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_two_stage_fft": [_vp, _vp, _ll, _int, _int] + ([_int] * 4 + [_vp] * 5) * 2
                         + [_vp, _vp],
+    "rf_two_stage_cluster_fft": [_vp, _vp, _ll, _int, _int, _int] + ([_int] * 4 + [_vp] * 5) * 2
+                                + [_vp, _vp],
+    "rf_two_stage_cluster_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_dense_fft": [_vp, _vp, _ll, _int, _int, _vp, _vp, _vp],
     "rf_largepad_col_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
                               _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp],

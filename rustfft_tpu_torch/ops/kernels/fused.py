@@ -22,7 +22,13 @@ signal in device memory:
   `two_stage_fft` (K7: `_fused_kernel`, `_fused_kernel_gauss`,
       `_fused_kernel_twodot`): n = p * q, j = j1*q + j2, k = k2*p + k1:
       DFT_p over j1, the twiddle w_n^(k1*j2), DFT_q over j2.  One block per
-      transform, the whole transform in place in its shared memory.
+      transform, the whole transform in place in its shared memory
+      (14464 .. 28800).
+  `two_stage_cluster_fft` (K7's cluster band, 28928 .. 261632): the same
+      function on one thread-block cluster of c = choose_cluster(n) blocks
+      per transform.  Block b runs DFT_p on the columns j2 of its share,
+      pulls the rows k1 of its share from every block through distributed
+      shared memory, and runs DFT_q on them.
   `three_stage_fft` (K8: `_fused_kernel_3s`): n = p * q1 * q2, the
       two-stage kernel with DFT_q run as DFT_q1, the inner twiddle
       w_q^(ka*jb) and DFT_q2.  Ported and tested, not routed (as in the JAX
@@ -62,9 +68,15 @@ MAX_FACTOR = 512
 #: the radix kernel's fixed slice: p = q = 128 (csrc/fused.cu)
 RADIX_PQ = 128
 
-#: the largest radix of a roots-table stage the in-place two-stage kernel
+#: the largest radix of a roots-table stage the one-block two-stage kernel
 #: runs: a column's ceil(r/8) output chunks share one warp
 MAX_INPLACE_RADIX = 256
+
+#: the cluster kernel's blocks per transform, and the most values a block
+#: holds: 512 threads carry a share through the exchange in registers, 32
+#: values each (csrc/fused.cu two_stage_cluster_kernel)
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_SHARE_MAX = 512 * 32
 
 
 # -- split rules ------------------------------------------------------------
@@ -103,19 +115,75 @@ def two_stage_smem_bytes(n: int, p_radices: Sequence[int], q_radices: Sequence[i
             + 4 * (math.prod(p_radices) + math.prod(q_radices)))
 
 
-def two_stage_supported(n: int, dtype) -> bool:
-    """The one-block two-stage route: c64, choose_pq(n) gives q % 128 == 0
-    (the JAX package's `aligned`), the lanepack kernel does not serve n,
-    and one transform with its roots fits one block's shared memory in
-    place (14464 .. 28800)."""
-    if not fused_supported(n, dtype) or lanepack_supported(n, dtype):
-        return False
-    p, q = choose_pq(n)
-    if q % 128:
-        return False
+def _one_block_fits(p: int, q: int) -> bool:
+    """One transform of the split p x q with its roots fits one block's
+    shared memory in place, and no radix is above MAX_INPLACE_RADIX."""
     pr, qr = large.stage_radices(p), large.stage_radices(q)
     return (max(pr + qr) <= MAX_INPLACE_RADIX
-            and two_stage_smem_bytes(n, pr, qr) <= _build.SMEM_MAX)
+            and two_stage_smem_bytes(p * q, pr, qr) <= _build.SMEM_MAX)
+
+
+def _aligned(n: int, dtype) -> bool:
+    """c64, choose_pq(n) gives q % 128 == 0 (the JAX package's `aligned`,
+    which routes n to K7), and the lanepack kernel does not serve n."""
+    if not fused_supported(n, dtype) or lanepack_supported(n, dtype):
+        return False
+    return choose_pq(n)[1] % 128 == 0
+
+
+def two_stage_supported(n: int, dtype) -> bool:
+    """The one-block two-stage route: aligned (_aligned) and one transform
+    with its roots fits one block's shared memory in place (14464 ..
+    28800)."""
+    return _aligned(n, dtype) and _one_block_fits(*choose_pq(n))
+
+
+def cluster_share(p: int, q: int, c: int) -> int:
+    """Values a cluster kernel's block holds: its column share (p rows of
+    q/c columns) or its widest row share (ceil(p/c) rows of q), whichever is
+    more (csrc/fused.cu cluster_share).  At CLUSTER_SHARE_MAX, with the
+    roots of two 512-point chains and the index tables, a block takes
+    145408 bytes of shared memory."""
+    return max(p * (q // c), -(-p // c) * q)
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_cluster(n: int, split: Optional[Tuple[int, int]] = None) -> Optional[int]:
+    """Blocks per transform of the cluster kernel at split = (p, q)
+    (default choose_pq(n)): the fewest of CLUSTER_SIZES that divides q and
+    whose shares hold at most CLUSTER_SHARE_MAX values, or None.
+
+    The fewest blocks that fit give the widest load segments (q/c columns
+    of a row, 8q/c bytes) and the fewest blocks waiting on each cluster
+    barrier; more blocks only shorten each thread's exchange (the share it
+    holds in registers).  On the card the fewest were the fastest at every
+    size timed: 49152 x 2048 ran 3.407 ms on 4 blocks, 3.929 on 8 and 6.859
+    on 16 (tools/torch_cluster_sizes.py; NVIDIA H100 80GB HBM3, 700 W).  The
+    cap is the exchange's: a share goes through 512 threads' registers, 32
+    values each, since a second buffer does not fit beside one of up to 128
+    KiB.  So 28928 (226 x 128) takes 2 blocks, 49152 (192 x 256) 4, 98304
+    (256 x 384) 8 and 196608 (384 x 512) 16.
+    """
+    sp = split or choose_pq(n)
+    if sp is None:
+        return None
+    p, q = sp
+    return next((c for c in CLUSTER_SIZES
+                 if q % c == 0 and cluster_share(p, q, c) <= CLUSTER_SHARE_MAX), None)
+
+
+def two_stage_cluster_supported(n: int, dtype) -> bool:
+    """The cluster two-stage route: aligned (_aligned), one block does not
+    hold a transform (two_stage_supported), and a cluster of at most 16
+    blocks does (choose_cluster): the aligned sizes from 28928 to 261632."""
+    return (_aligned(n, dtype) and not _one_block_fits(*choose_pq(n))
+            and choose_cluster(n) is not None)
+
+
+def row_shares(p: int, c: int):
+    """The rows k1 of DFT_q each block of a cluster of c takes: (lo, hi)
+    with lo = b*p // c, shares differing by at most one row."""
+    return [(b * p // c, (b + 1) * p // c) for b in range(c)]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -300,10 +368,7 @@ def _two_stage_plain(x, p, p_radices, q_radices, tables):
     return d.transpose(1, 2).reshape(-1, p * q)
 
 
-def _two_stage(x, p, p_radices, q_radices, tables, counter):
-    """Check the operands; the plain version on the CPU, else one launch of
-    csrc/fused.cu's two-stage kernel, counted on `counter`."""
-    what = counter.__name__
+def _check_two_stage(x, p, p_radices, q_radices, tables, what):
     roots_p, tws_p, outer, roots_q, tws_q = tables
     q = math.prod(q_radices)
     if x.dim() != 2:
@@ -314,6 +379,15 @@ def _two_stage(x, p, p_radices, q_radices, tables, counter):
     check_operand(outer, (q, p), f"{what} outer twiddle")
     if outer.device != x.device:
         raise ValueError(f"{what}: tables on {outer.device}, input on {x.device}")
+
+
+def _two_stage(x, p, p_radices, q_radices, tables, counter):
+    """Check the operands; the plain version on the CPU, else one launch of
+    csrc/fused.cu's two-stage kernel, counted on `counter`."""
+    what = counter.__name__
+    roots_p, tws_p, outer, roots_q, tws_q = tables
+    q = math.prod(q_radices)
+    _check_two_stage(x, p, p_radices, q_radices, tables, what)
     if x.device.type == "cpu":
         return _two_stage_plain(x, p, p_radices, q_radices, tables)
     require_cuda(x, what)
@@ -353,6 +427,77 @@ def two_stage_fft(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
 
 
 two_stage_fft.launches = 0
+
+
+def two_stage_cluster_fft_plain(x: torch.Tensor, p: int, q: int, c: int, tables) -> torch.Tensor:
+    """Plain torch version of two_stage_cluster_fft, share by share as the
+    cluster computes it: block b's columns j2 in [b*q/c, (b+1)*q/c) through
+    DFT_p and the outer twiddle; the exchange (block b takes the rows
+    row_shares(p, c)[b] of every block's columns); DFT_q on those rows; the
+    store at k2*p + k1."""
+    roots_p, tws_p, outer, roots_q, tws_q = tables
+    qs = q // c
+    v = x.reshape(-1, p, q)
+    cols = [fft_stages_plain(v[:, :, b * qs:(b + 1) * qs].transpose(1, 2), large.stage_radices(p),
+                             roots_p, tws_p) * outer[b * qs:(b + 1) * qs]
+            for b in range(c)]  # c of (B, q/c, p) [j2, k1]
+    rows = [fft_stages_plain(torch.cat([a[:, :, lo:hi] for a in cols], dim=1).transpose(1, 2),
+                             large.stage_radices(q), roots_q, tws_q)
+            for lo, hi in row_shares(p, c)]  # c of (B, hi - lo, q) [k1, k2]
+    return torch.cat(rows, dim=1).transpose(1, 2).reshape(-1, p * q)
+
+
+def two_stage_cluster_fft(x: torch.Tensor, p: int, q: int, c: int, tables) -> torch.Tensor:
+    """DFT of every row of x (batch, p*q) complex64 as two_stage_fft
+    computes it, by one thread-block cluster of c blocks per row on the
+    card (csrc/fused.cu two_stage_cluster_kernel): c in CLUSTER_SIZES
+    dividing q, every share at most CLUSTER_SHARE_MAX values, radices up to
+    512.
+
+    tables = two_stage_tables(p, large.stage_radices(q)) on x's device.
+    CPU tensors run the plain version (any c dividing q); CUDA tensors
+    launch the kernel or raise.
+    """
+    p_radices, q_radices = large.stage_radices(p), large.stage_radices(q)
+    what = "two_stage_cluster_fft"
+    _check_two_stage(x, p, p_radices, q_radices, tables, what)
+    if c < 1 or q % c:
+        raise ValueError(f"{what}: a cluster of {c} blocks does not split q={q}")
+    if x.device.type == "cpu":
+        return two_stage_cluster_fft_plain(x, p, q, c, tables)
+    require_cuda(x, what)
+    if c not in CLUSTER_SIZES or cluster_share(p, q, c) > CLUSTER_SHARE_MAX:
+        raise ValueError(f"{what}: the kernel takes c in {CLUSTER_SIZES} with shares of at most "
+                         f"{CLUSTER_SHARE_MAX} values; got p={p}, q={q}, c={c}")
+    y = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return y
+    roots_p, tws_p, outer, roots_q, tws_q = tables
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.rf_two_stage_cluster_fft(
+            x.data_ptr(), y.data_ptr(), x.shape[0], p, q, c,
+            *padded_stage_args(p_radices, roots_p, tws_p),
+            *padded_stage_args(q_radices, roots_q, tws_q), outer.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, code, what)
+    two_stage_cluster_fft.launches += 1
+    return y
+
+
+two_stage_cluster_fft.launches = 0
+
+
+def two_stage_cluster_max_active_clusters(c: int) -> int:
+    """cudaOccupancyMaxActiveClusters of two_stage_cluster_fft's cluster of
+    c blocks on the current device, at the most shared memory a block
+    takes."""
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.rf_two_stage_cluster_max_active_clusters(c, ctypes.byref(out)),
+                 "two_stage_cluster_max_active_clusters")
+    return out.value
 
 
 def three_stage_fft_plain(x: torch.Tensor, p: int, q1: int, q2: int, tables) -> torch.Tensor:
@@ -399,19 +544,28 @@ def _two_stage_fn(n, p, q_radices, direction, run):
 
 def make_fused_two_stage_fn(n: int, direction: FftDirection, dtype,
                             split: Optional[Tuple[int, int]] = None):
-    """Return fn: complex64 (..., n) -> (..., n) through two_stage_fft at
-    split = (p, q) (default choose_pq(n) where the one-block route serves
-    n); a split given by the caller is taken as is."""
+    """Return fn: complex64 (..., n) -> (..., n), K7's two-stage DFT at
+    split = (p, q) (default choose_pq(n) where a two-stage route serves
+    n): two_stage_fft where one block holds a transform, else
+    two_stage_cluster_fft on a cluster of choose_cluster(n, split) blocks.
+    A split given by the caller is taken as is."""
     if np.dtype(dtype) != np.complex64:
         raise ValueError(f"two-stage kernel is complex64 only, got {np.dtype(dtype)}")
-    sp = split or (choose_pq(n) if two_stage_supported(n, dtype) else None)
+    routed = two_stage_supported(n, dtype) or two_stage_cluster_supported(n, dtype)
+    sp = split or (choose_pq(n) if routed else None)
     if sp is None:
-        raise ValueError(f"no one-block two-stage kernel for n={n}")
+        raise ValueError(f"no two-stage kernel for n={n}")
     p, q = sp
     if p * q != n:
         raise ValueError(f"split {sp} does not give n={n}")
-    return _two_stage_fn(n, p, large.stage_radices(q), direction,
-                         lambda x, t: two_stage_fft(x, p, q, t))
+    q_radices = large.stage_radices(q)
+    if _one_block_fits(p, q):
+        return _two_stage_fn(n, p, q_radices, direction, lambda x, t: two_stage_fft(x, p, q, t))
+    c = choose_cluster(n, (p, q))
+    if c is None:
+        raise ValueError(f"split {sp}: neither one block nor a cluster holds n={n}")
+    return _two_stage_fn(n, p, q_radices, direction,
+                         lambda x, t: two_stage_cluster_fft(x, p, q, c, t))
 
 
 def make_fused_three_stage_fn(n: int, direction: FftDirection, dtype,

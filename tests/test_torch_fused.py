@@ -155,14 +155,19 @@ def test_routes_equal_jax_pallas_route(log2n):
 
 
 def test_mid_band_routes():
-    assert [n for n in range(128, 65537, 128) if route(n, np.complex64) == "two_stage"] == ONE_BLOCK
+    two_stage = [n for n in range(128, 65537, 128) if route(n, np.complex64) == "two_stage"]
+    assert [n for n in two_stage if fused.two_stage_supported(n, np.complex64)] == ONE_BLOCK
+    assert all(fused.two_stage_cluster_supported(n, np.complex64)
+               for n in two_stage if n > ONE_BLOCK[-1])  # above it, K7's cluster band
+    assert two_stage[len(ONE_BLOCK)] == 28928
     for n in (14336, 12288):
         assert route(n, np.complex64) == "lanepack"  # lanepack keeps its band
     # aligned, but one transform does not fit one block: K7's cluster band
     assert fused.choose_pq(49152) == (192, 256)
-    assert route(49152, np.complex64) == "large"
-    assert route(28928, np.complex64) == "large_pad"  # 256 x 113: ragged tiles
-    assert route(3 * 16384, np.complex64) == "large"  # no radix split: r = 3
+    assert route(49152, np.complex64) == "two_stage"  # no radix split: r = 3
+    assert not fused.two_stage_supported(49152, np.complex64)
+    assert fused.two_stage_cluster_supported(49152, np.complex64)
+    assert route(28928, np.complex64) == "two_stage"  # 226 x 128, the cluster band's first size
     assert route(1 << 19, np.complex64) == "large"  # r = 32 is above the cap
     for n in (16384, 65536, 262144):
         assert route(n, np.complex128) is None
@@ -262,7 +267,7 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError):
         fused.make_fused_radix_fn(3 * 16384, FftDirection.FORWARD, np.complex64)
     with pytest.raises(ValueError):
-        fused.make_fused_two_stage_fn(49152, FftDirection.FORWARD, np.complex64)
+        fused.make_fused_two_stage_fn(1 << 19, FftDirection.FORWARD, np.complex64)  # above the band
     with pytest.raises(ValueError):
         fused.make_fused_radix_fn(65536, FftDirection.FORWARD, np.complex128)
 

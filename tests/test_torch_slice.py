@@ -236,9 +236,10 @@ def test_main_path_on_card_launches_kernels():
 @pytest.mark.parametrize("n,batch", [
     (24, 3), (210, 3), (1000, 3), (4016, 3), (7776, 3), (14400, 3),  # lanepack, general kernel
     (59049, 2), (390625, 2), (509 * 4096, 2),  # large_pad: ragged tiles
-    (14465, 3), (28928, 3),  # large_pad: a prime P = 263; 256 x 113
+    (14465, 3), (14577, 3),  # large_pad: a prime P = 263; 129 x 113
     (15520, 3),  # large, general kernels (P = 194)
     (16384, 3), (24576, 3),  # two_stage: the radix body at R = 1, the general kernel
+    (28928, 3), (32896, 2), (49152, 2), (98304, 2), (260608, 1),  # two_stage: clusters of 2-16
     (65536, 2), (262144, 1),  # radix: clusters of 4 and 16 blocks
     (1 << 22, 1),  # large2f
 ])
@@ -251,6 +252,8 @@ def test_routed_sizes_on_card(n, batch):
                "large_pad": largepad.largepad_row_stage,
                "two_stage": fused.two_stage_fft, "radix": fused.radix_fft,
                "large2f": large.large_row_stage}[route(n, np.complex64)]
+    if counter is fused.two_stage_fft and fused.two_stage_cluster_supported(n, np.complex64):
+        counter = fused.two_stage_cluster_fft
     planner = FftPlanner(np.complex64, device="cuda")
     x = _signal((batch, n), seed=n)
     for direction in (FftDirection.FORWARD, FftDirection.INVERSE):

@@ -181,7 +181,7 @@ def test_largepad_routes():
     for n in (10 ** 6, 1 << 20, 1 << 21, 393216):
         assert route(n, np.complex64) == "large", n
         assert not largepad.narrowed_by_division(n)
-    assert route(28928, np.complex64) == "large_pad"  # 256 x 113: one column on large
+    assert route(14577, np.complex64) == "large_pad"  # 129 x 113: one column on large
     assert route(78125, np.complex128) is None
     # today's other routes are unchanged
     assert [route(n, np.complex64) for n in (4096, 16384, 65536, 1 << 22, 1 << 26)] == \
