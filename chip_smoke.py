@@ -63,9 +63,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    config.conv_radix_gauss and both, 7919 x 4096 under conv_radix_gauss,
    and with every switch on 15625 x 4096, 1000003 x 64, 2^23 x 8 and 2^26 x 2
    (no Gauss stage: the switches do not reach large_pad, K15, large2f or
-   large3f), and 4096 x 16384 under config.lanepack_variant = "flat" (K1's
-   flat I/O variant, bit-equal to the block variant on 64 rows).  Every
-   launch counter is set to 0 just before each run and
+   large3f).  Every launch counter is set to 0 just before each run and
    read just after: each path must launch exactly its kernels.  Errors
    against a float64 numpy oracle on 4 rows (1 row from 2^23 up) and
    against torch.fft (an oracle only) on the whole batch, and the round
@@ -74,8 +72,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    launches it with (the same relative bound; max_abs_err covers phases 2
    and 4), then times from CUDA events (median of 7 after 2 warm-ups):
    each kernel against its plain version, its bound (the larger of its
-   bytes over 3.35 TB/s and its FP32 operations over 67 TFLOP/s, from this
-   run's shapes) and, where one PyTorch call computes the same function,
+   bytes over 3.35 TB/s and the FP32 operations its function needs, 5 n
+   log2 n a transform and 6 a twiddle, over 67 TFLOP/s, from this run's
+   shapes) and, where one PyTorch call computes the same function,
    that call; every path against torch.fft, GF/s as 5*n*log2(n) per
    transform; 1234 three ways (whole-n Bluestein at m = 3072 and 2592, and
    MixedRadix(2, Raders(617))); 2^24 x 4 also through the recipe tree the
@@ -83,9 +82,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    through the large and the large2f routes; every mid-band path against
    the large route it replaced, and three_stage_fft at 16384 x 4096.  K7's
    cluster band: the kernel at each path's shape against its plain version,
-   its bound (operations per point from chain_ops: bytes bind at the
-   register radices, operations where p runs a roots-table stage) and
-   torch.fft, and each path against the large or large_pad route it
+   its bound and torch.fft (with the operations its chain spends,
+   chain_ops: a direct sum of 8r a point for a radix without a register
+   stage), and each path against the large or large_pad route it
    replaced; 24571 x 2048 (Bluestein, m = 49152) on K15, which the
    planner keeps, and on the two-pass core the JAX rule gives it, in turns.
    The two-stage kernel's general body is reported at 24576; its phase 2
@@ -100,8 +99,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    core and torch.fft; 746497 x 64 as Raders(746496) on the two-pass core
    and as Bluesteins(746497, 1572864) on the fused large Bluestein.  The
    switches: K4's Gauss stages at 64 x 2^20 against the default stages,
-   their plain versions, their bound (with the Gauss form's own operation
-   count) and, for the row stage, torch.fft over dim 1; the two-pass core's
+   their plain versions, their bound (that of the default stages, with the
+   Gauss form's own operation count beside it) and, for the row stage, torch.fft over dim 1; the two-pass core's
    Gauss stages and the in_shift column stage at the Rader 65537 x 512
    shape; every switched path against its default path (in turns: the
    default, each variant, the variants in reverse, the default) and
@@ -239,7 +238,11 @@ def tag(n: int) -> str:
 
 def bound(nbytes: float, flops: float):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the FP32 operations over the peak rate."""
+    and the FP32 operations over the peak rate.  `flops` is what the
+    function needs (fft_ops for a DFT), not what a kernel's algorithm
+    spends on it: a direct sum, a Gauss form or a dense product is the
+    kernel's choice, and its count (chain_ops, gauss_ops, dense_ops) is
+    printed beside the bound, never put in it."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / FP32_FLOPS * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
@@ -251,7 +254,8 @@ def fft_ops(m: float) -> float:
 
 
 def chain_ops(radices) -> float:
-    """FP32 operations per point of a DIT chain as the kernels run it: 5
+    """FP32 operations per point of a DIT chain as the kernels run it (a
+    diagnostic beside the bound, not the bound): 5
     log2(r) for a power-of-2 radix (a radix-2 FFT in registers), 8r for any
     other (a direct sum, r complex multiply-adds per output), and 6 per
     inter-stage twiddle."""
@@ -260,7 +264,8 @@ def chain_ops(radices) -> float:
 
 
 def gauss_ops(radices) -> float:
-    """FP32 operations per point of a DIT chain in the Gauss form
+    """FP32 operations per point of a DIT chain in the Gauss form (a
+    diagnostic beside the bound, not the bound)
     (csrc/fft_tile.cuh gauss_stage): per radix-r stage three multiply-adds
     per term (6r), the xr + xi add and the three subtractions of
     re = P1 - P2, im = P3 - P1 - P2 (4), and a complex product (6) per
@@ -901,7 +906,7 @@ def main() -> None:
     # set back after; with every switch on, the routes the switches must not
     # reach launch their default kernels
     every = dict(large_gauss=True, large_blocks2d=True, conv_radix_gauss=True,
-                 rader_in_shift=True, lanepack_variant="flat")
+                 rader_in_shift=True)
     gauss4 = {"conv_col_stage_gauss": 2, "conv_row_stage_gauss": 2}
     default_large = {"large_col_stage": 1, "large_row_stage": 1}
 
@@ -909,11 +914,7 @@ def main() -> None:
         return large.make_large_fft_fn(1 << 20, d, np.complex64, gauss=False,
                                        blocks2d=False)(rows)
 
-    def block_4096(d, rows):
-        return lanepack.make_lanepack_fn(4096, d, np.complex64, variant="block")(rows)
-
     switched_paths = (
-        ("flat", 4096, 16384, {"lanepack_fft": 1}, dict(lanepack_variant="flat"), block_4096),
         ("gauss", 1 << 20, 1024, {"large_col_stage_gauss": 1, "large_row_stage_gauss": 1},
          dict(large_gauss=True), None),
         ("blocks2d", 1 << 20, 1024, default_large, dict(large_blocks2d=True), default_2_20),
@@ -1034,7 +1035,9 @@ def main() -> None:
               f"{default_ms:.3f} ({k / default_ms:.2f}x); the Gauss form's operations "
               f"{ops / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak, its bytes "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms:", flush=True)
-        record(name, k, plain, nbytes, ops, lib)
+        # the bound: the default stages' need (the same function)
+        record(name, k, plain, nbytes, batch * (n * (fft_ops(p) / p + 6) if "col" in name
+                                                 else p * fft_ops(q)), lib)
     del x, a, ga
     free()
     for batch in (64, 1024):
@@ -1174,14 +1177,20 @@ def main() -> None:
                                                               True))
     print(f"  conv_col_stage_gauss m={m} batch={batch}: the default form "
           f"{results['conv_col_stage']['ms']:.3f} ms; in the Gauss form:", flush=True)
+    print(f"    the Gauss form's operations "
+          f"{batch * m * (gauss_ops(large.stage_radices(p)) + 8) / FP32_FLOPS * 1e3:.3f} ms "
+          "at the FP32 peak", flush=True)
     record("conv_col_stage_gauss", k, plain, 16 * batch * m + 12 * m + 8 * part.numel(),
-           batch * m * (gauss_ops(large.stage_radices(p)) + 8))
+           batch * m * (fft_ops(p) / p + 8))
     k = median_ms(lambda: conv_radix.conv_row_stage_gauss(a, q, p, grow, m, **kw))
     plain = median_ms(lambda: conv_radix.conv_row_stage_plain(a, q, p, grow, m, gauss=True, **kw))
     print(f"  conv_row_stage_gauss m={m} batch={batch}: the default form "
           f"{results['conv_row_stage']['ms']:.3f} ms; in the Gauss form:", flush=True)
+    print(f"    the Gauss form's operations "
+          f"{batch * m * (gauss_ops(large.stage_radices(q)) + 2) / FP32_FLOPS * 1e3:.3f} ms "
+          "at the FP32 peak", flush=True)
     record("conv_row_stage_gauss", k, plain, 16 * batch * m + 4 * m + 16 * batch + 8 * part.numel(),
-           batch * m * (gauss_ops(large.stage_radices(q)) + 2))
+           batch * (p * fft_ops(q) + 2 * m))
     del raw, src, x0, a, part, kw
     free()
 
@@ -1388,13 +1397,15 @@ def main() -> None:
         k = median_ms(lambda: kernel(x))
         plain_ms = median_ms(lambda: plain(x))
         lib = median_ms(lambda: torch.fft.fft(x))
-        ops = batch * n * (chain_ops(large.stage_radices(p)) + chain_ops(large.stage_radices(q)) + 6)
+        spent = batch * n * (chain_ops(large.stage_radices(p)) + chain_ops(large.stage_radices(q))
+                             + 6)
         nbytes = 16 * batch * n + table_bytes(host)
         print(f"  {name} {p} x {q} ({large.stage_radices(p)} x {large.stage_radices(q)}) on {c} "
-              f"blocks, batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; its "
-              f"operations {ops / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak, its bytes "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms:", flush=True)
-        record(name, k, plain_ms, nbytes, ops, lib)
+              f"blocks, batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; the "
+              f"operations its chain spends {spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak, "
+              f"its bytes {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms:", flush=True)
+        # the bound: the DFT's 5 n log2 n and the outer twiddle, as at 24576
+        record(name, k, plain_ms, nbytes, batch * (fft_ops(n) + 6 * n), lib)
         plan = planner.plan_fft_forward(n)
         path = median_ms(lambda: plan.process(x))
         pad = largepad.largepad_supported(n, np.complex64) and largepad.narrowed_by_division(n)
@@ -1466,9 +1477,11 @@ def main() -> None:
               rel_err(dense.dense_fft(x, otabs, other), torch.fft.fft(x)))
         k_other = median_ms(lambda: dense.dense_fft(x, otabs, other))
         print(f"  {name} batch={batch}: {variant} {k:.3f} ms, {other} {k_other:.3f} ms; "
-              f"x @ W {lib:.3f} ms", flush=True)
+              f"x @ W {lib:.3f} ms; the {variant} product's operations "
+              f"{batch * dense_ops(n, variant) / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak",
+              flush=True)
         record(name, k, plain, 16 * batch * n + table_bytes([t for t in tabs if t is not None]),
-               batch * dense_ops(n, variant), lib)
+               batch * fft_ops(n), lib)
         plan = planner.plan_fft_forward(n)
         path = median_ms(lambda: plan.process(x))
         ref = median_ms(lambda: torch.fft.fft(x))

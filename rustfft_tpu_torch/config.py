@@ -53,17 +53,11 @@ class FftConfig:
     #: (rustfft_tpu/config.py:227).
     rader_full_out: bool = True
 
-    #: The lanepack route's I/O view, "block" or "flat" (K1's flat variant,
-    #: rustfft_tpu/config.py:100): on the card the same kernel on the same
-    #: bytes (lanepack.make_lanepack_fn).
-    lanepack_variant: str = "block"
-
     def switch_key(self) -> Tuple:
         """Every field a built function or plan bakes in: the key of
         executor.build's cache and of the planners' plan caches."""
         return (self.kernels, self.use_native, self.large_gauss, self.large_blocks2d,
-                self.conv_radix_gauss, self.rader_in_shift, self.rader_full_out,
-                self.lanepack_variant)
+                self.conv_radix_gauss, self.rader_in_shift, self.rader_full_out)
 
 
 #: Module-level config; mutate fields to retune.

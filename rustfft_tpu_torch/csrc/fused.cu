@@ -65,12 +65,13 @@
 //      choose_cluster);
 //   3. DFT_q over j2 on each of its rows in place, then the store at
 //      k = k2*p + k1, rows of p/c values per k2.
-// Bytes bind where p and q split into small radices (0.30-0.57 ms for the
-// 480-904 MiB of chip_smoke.py's paths).  921 of the band's 1009 sizes have
-// a radix without a register stage (637 a radix from 17 to 256, 172 a prime
-// p above 256): a roots-table stage of 8r FP32 operations a point, where
-// operations bind (1.7 ms at 28928 x 4096, 4.1 ms at 260608 x 256); radices
-// above 256 take 16 accumulators a thread (stage_table_inplace<16>).
+// The function's bound is its bytes (0.30-0.57 ms for the 480-904 MiB of
+// chip_smoke.py's paths; its 5 n log2 n operations take less).  921 of the
+// band's 1009 sizes have a radix without a register stage (637 a radix from
+// 17 to 256, 172 a prime p above 256), a direct sum of 8r FP32 operations a
+// point: at the FP32 peak that alone takes 1.7 ms at 28928 x 4096 and 4.1 ms
+// at 260608 x 256, several times the bound.  Radices above 256 take 16
+// accumulators a thread (stage_table_inplace<16>, the cluster kernel only).
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -419,6 +420,15 @@ static __device__ void stage_table_inplace(float2* buf, int r, int lead, int res
   }
 }
 
+// The largest radix of each kernel's chains: the one-block kernel's
+// (ops/kernels/fused.py MAX_INPLACE_RADIX) and the cluster kernel's, whose
+// primes p up to 509 run one stage.  A kernel instantiates the stages of
+// its own cap only: G = 16 accumulators would cost the one-block kernel
+// registers it never uses.
+constexpr int kOneBlockMaxRadix = 32 * kChunk;
+constexpr int kClusterMaxRadix = 64 * kChunk;
+
+template <int MaxR>
 static __device__ void run_stage_inplace(float2* buf, int r, int lead, int rest, int T,
                                          const float2* roots, const float2* tw,
                                          const OuterFold& fold) {
@@ -434,18 +444,22 @@ static __device__ void run_stage_inplace(float2* buf, int r, int lead, int rest,
     case 12: stage_reg_inplace<12>(buf, lead, rest, T, roots, tw, fold); break;
     case 16: stage_reg_inplace<16>(buf, lead, rest, T, roots, tw, fold); break;
     default:
-      if (r <= 32 * kChunk) {
-        stage_table_inplace<kChunk>(buf, r, lead, rest, T, roots, tw, fold);
-      } else {
-        stage_table_inplace<2 * kChunk>(buf, r, lead, rest, T, roots, tw, fold);
+      if constexpr (MaxR > kOneBlockMaxRadix) {
+        if (r > kOneBlockMaxRadix) {
+          stage_table_inplace<2 * kChunk>(buf, r, lead, rest, T, roots, tw, fold);
+          break;
+        }
       }
+      stage_table_inplace<kChunk>(buf, r, lead, rest, T, roots, tw, fold);
       break;
   }
 }
 
 // The chain over a length-m axis of `lead` blocks of T interleaved
 // transforms, in place, with the outer twiddle `outer` (or null) folded
-// into its last stage; every thread has passed a barrier after it.
+// into its last stage; every thread has passed a barrier after it.  No
+// radix is above MaxR.
+template <int MaxR>
 static __device__ void chain_inplace(float2* buf, int m, int lead, int T, const Stages& st,
                                      const float2* sroots, const float2* outer, int p) {
   int rest = m, off = 0;
@@ -454,7 +468,7 @@ static __device__ void chain_inplace(float2* buf, int m, int lead, int T, const 
     rest /= r;
     const bool last = s + 1 == st.k;
     const OuterFold fold{last ? outer : nullptr, p, s == 2 ? st.r[1] : 1, s >= 1 ? st.r[0] : 1};
-    run_stage_inplace(buf, r, lead, rest, T, sroots + off, last ? nullptr : st.tw[s], fold);
+    run_stage_inplace<MaxR>(buf, r, lead, rest, T, sroots + off, last ? nullptr : st.tw[s], fold);
     __syncthreads();
     lead *= r;
     off += r;
@@ -511,8 +525,8 @@ __global__ void __launch_bounds__(kTwoStageThreads)
   // DFT_p over j1 for every j2 (the rows j1 of q interleaved transforms),
   // its last stage times the outer twiddle; then DFT_q over j2 for every
   // k1 (p contiguous rows of q)
-  chain_inplace(buf, p, 1, q, sp, roots_p, outer, p);
-  chain_inplace(buf, q, p, 1, sq, roots_q, nullptr, 0);
+  chain_inplace<kOneBlockMaxRadix>(buf, p, 1, q, sp, roots_p, outer, p);
+  chain_inplace<kOneBlockMaxRadix>(buf, q, p, 1, sq, roots_q, nullptr, 0);
   // k = k2*p + k1 from row prow[k1], column qcol[k2]; (k1, k2) advance
   // without a division
   const int dq = (int)blockDim.x / p, dr = (int)blockDim.x - dq * p;
@@ -618,7 +632,7 @@ __global__ void __launch_bounds__(kClusterThreads)
   // 2. DFT_p over j1 for each of the share's columns, the outer twiddle
   //    w_n^(k1*j2) (rows b*qs .. of the (q, p) table) folded into its last
   //    stage: row k1 then sits at prow[k1]
-  chain_inplace(buf, p, 1, qs, sp, roots_p, outer + (size_t)b * qs * p, p);
+  chain_inplace<kClusterMaxRadix>(buf, p, 1, qs, sp, roots_p, outer + (size_t)b * qs * p, p);
 
   // 3. the exchange: every block's DFT_p is done (barrier), this block pulls
   //    its rows lo .. lo + rb of every peer's columns into registers, every
@@ -648,7 +662,7 @@ __global__ void __launch_bounds__(kClusterThreads)
   __syncthreads();
 
   // 4. DFT_q over j2 for each of the share's rows
-  chain_inplace(buf, q, rb, 1, sq, roots_q, nullptr, 0);
+  chain_inplace<kClusterMaxRadix>(buf, q, rb, 1, sq, roots_q, nullptr, 0);
 
   // 5. the store at k = k2*p + lo + i, rb values per k2 in a row
   {
@@ -760,8 +774,8 @@ extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, 
   const Stages sp = make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1);
   const Stages sq = make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1);
   if (!stages_ok(sp, p) || !stages_ok(sq, q)) return cudaErrorInvalidValue;
-  for (int s = 0; s < sp.k; ++s) if (sp.r[s] > 256) return cudaErrorInvalidValue;
-  for (int s = 0; s < sq.k; ++s) if (sq.r[s] > 256) return cudaErrorInvalidValue;
+  for (int s = 0; s < sp.k; ++s) if (sp.r[s] > kOneBlockMaxRadix) return cudaErrorInvalidValue;
+  for (int s = 0; s < sq.k; ++s) if (sq.r[s] > kOneBlockMaxRadix) return cudaErrorInvalidValue;
   const auto* tx = static_cast<const float2*>(x);
   auto* ty = static_cast<float2*>(y);
   const auto* to = static_cast<const float2*>(outer);

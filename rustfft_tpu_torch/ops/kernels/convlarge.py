@@ -37,7 +37,7 @@ import torch
 from ...common import FftDirection
 from .. import calg
 from ..bluestein import bluestein_tables
-from . import _build, conv_radix, fused, large
+from . import _build, conv_radix, fused, large, largepad
 from .lanepack import (
     check_operand, check_stage_tables, fft_stages_plain, padded_stage_args, require_cuda,
 )
@@ -74,19 +74,22 @@ def _tiles_fit(p: int, q: int) -> bool:
 def bconv_supported(m: int, dtype) -> bool:
     """c64, a large split of m whose three kernels' tiles fit shared memory,
     and executor.route(m) == "large" (the JAX rule: the JAX executor's
-    condition pallas_route(m) == "large") or "two_stage" on a cluster
-    (fused.two_stage_cluster_supported: K7's cluster band, which took such
-    m as 36864, 41472 and 49152 from "large").  The JAX rule would leave
-    the cluster band's m to the two-pass core, and K15 beat it on the card:
-    24571 x 2048 (m = 49152) ran 5.846 / 5.854 ms on K15 against 7.208 /
-    7.233 ms on the two-pass core, in turns (chip_smoke.py; NVIDIA H100
-    80GB HBM3, 700 W)."""
+    condition pallas_route(m) == "large"), or "two_stage" on a cluster
+    where the route was "large" before K7's cluster band took it: large's
+    tiles are not narrowed (largepad.narrowed_by_division), as at 36864
+    and 49152.  The band's former large_pad m (41472 = 256 x 162, 62208 =
+    256 x 243) stay off K15, as before the band.  The JAX rule would leave the former
+    "large" m to the two-pass core, and K15 beat it on the card: 24571 x
+    2048 (m = 49152) ran 5.846 / 5.854 ms on K15 against 7.208 / 7.233 ms on
+    the two-pass core, in turns (chip_smoke.py; NVIDIA H100 80GB HBM3,
+    700 W)."""
     from ... import executor
 
     if np.dtype(dtype) != np.complex64 or not large.large_supported(m, dtype):
         return False
     name = executor.route(m, dtype)
-    if name != "large" and not (name == "two_stage" and fused.two_stage_cluster_supported(m, dtype)):
+    if name != "large" and not (name == "two_stage" and fused.two_stage_cluster_supported(m, dtype)
+                                and not largepad.narrowed_by_division(m)):
         return False
     p, q1, q2 = large.choose_pqq(m)
     return _tiles_fit(p, q1 * q2)

@@ -10,9 +10,9 @@ the same chain in plain torch; on a CUDA tensor it launches the hand-written
 kernel in csrc/lanepack.cu or raises.  The DFT matrices of both come from a
 table of r roots, roots[e] = w_r^e, and W[j, k] = roots[(j*k) mod r] is
 bit-equal to the JAX package's f64-computed, f32-cast matrix entry.
-`make_lanepack_fn` takes the JAX factory's `radices=` and `variant=`; the
-flat I/O variant (`_flat_group_load`, `_flat_group_store`) is the same
-kernel on the same bytes.
+`make_lanepack_fn` takes the JAX factory's `radices=` and `variant=`;
+variant="flat" (the JAX kernel's flat I/O, `_flat_group_load`,
+`_flat_group_store`) names the same function as "block".
 """
 from __future__ import annotations
 
@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from ...common import FftDirection
-from ...config import config
 from ... import twiddles
 from .. import calg
 from . import _build
@@ -253,25 +252,12 @@ def lanepack_fft(x: torch.Tensor, radices: Sequence[int], tables) -> torch.Tenso
 lanepack_fft.launches = 0
 
 
-#: the I/O views of make_lanepack_fn (the JAX package's lanepack variants)
+#: the I/O views make_lanepack_fn accepts (the JAX package's lanepack variants)
 VARIANTS = ("block", "flat")
-
-#: the flat variant's row width (the JAX package's _FLAT_W)
-FLAT_WIDTH = 65536
-
-
-def flat_pack(n: int) -> Optional[int]:
-    """Transforms per flat row of the flat variant, or None: the JAX
-    package's rule (lanepack.py:flat_pack), whole transforms packed into a
-    FLAT_WIDTH-wide row at 128-aligned offsets, so n is a power-of-two
-    multiple of 128 up to FLAT_WIDTH / 2."""
-    if n < 128 or n > FLAT_WIDTH // 2 or FLAT_WIDTH % n or n % 128:
-        return None
-    return FLAT_WIDTH // n
 
 
 def make_lanepack_fn(n: int, direction: FftDirection, dtype,
-                     radices: Optional[Sequence[int]] = None, variant: Optional[str] = None):
+                     radices: Optional[Sequence[int]] = None, variant: str = "block"):
     """Return fn: complex64 (..., n) -> (..., n), the unnormalized DFT of
     every length-n row through lanepack_fft, with the keywords of the JAX
     package's make_lanepack_fn (lanepack.py:339-369):
@@ -279,19 +265,15 @@ def make_lanepack_fn(n: int, direction: FftDirection, dtype,
       radices  the DIT chain (default choose_radices(n)): 1-3 radices from
                2 to MAX_STAGE whose product is n and whose tile fits shared
                memory; any other raises;
-      variant  "block" or "flat", None resolves to config.lanepack_variant.
+      variant  "block" or "flat", an alias: both build the same function.
                The JAX kernel's flat variant reads and writes whole
-               (tb, flat_pack(n) * n) rows (_flat_group_load,
-               _flat_group_store) for the TPU's DMA; in device memory those
-               rows are the same bytes as (batch, n), so on the card it is
-               the same kernel on the same pointer, bit-equal to "block".
-               Where flat_pack(n) is None the JAX package falls back to
-               block, and so does fn.variant.
+               (tb, pack * n) rows (_flat_group_load, _flat_group_store)
+               for the TPU's DMA; in device memory those rows are the same
+               bytes as (batch, n), so on the card there is nothing to vary.
 
     Not ported: group, stack, precision, interpret and in_place (TPU block
     shapes, MXU tiers and aliasing).
     """
-    variant = config.lanepack_variant if variant is None else variant
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if radices is None:
@@ -314,5 +296,4 @@ def make_lanepack_fn(n: int, direction: FftDirection, dtype,
         return y.reshape(x.shape)
 
     apply.radices = radices
-    apply.variant = variant if variant == "block" or flat_pack(n) else "block"
     return apply

@@ -23,7 +23,9 @@ from rustfft_tpu.executor import pallas_route
 from rustfft_tpu.ops.pallas import fused as ref_fused
 from rustfft_tpu_torch import FftPlanner, executor, recipes, route
 from rustfft_tpu_torch.common import FftDirection
-from rustfft_tpu_torch.ops.kernels import conv, conv_radix, convlarge, fused, lanepack, large
+from rustfft_tpu_torch.ops.kernels import (
+    conv, conv_radix, convlarge, fused, lanepack, large, largepad,
+)
 from rustfft_tpu_torch.twiddles import host_dft
 
 DIRECTIONS = [(FftDirection.FORWARD, RefDirection.FORWARD),
@@ -220,6 +222,18 @@ def test_bluestein_primes_keep_the_fused_large_bluestein(n, m):
     fn = conv.make_bluestein_fn(n, m, FftDirection.FORWARD, np.complex64)  # the JAX rule's core
     assert fn.__module__ == conv_radix.__name__
     assert _rel(fn(torch.from_numpy(x)), host_dft(x, FftDirection.FORWARD)) <= TOL
+
+
+def test_fused_large_bluestein_keeps_only_the_bands_former_large_sizes():
+    """K15 serves the band's m that routed to "large" before the band (153
+    of them: 157 less four whose tiles do not fit), never one that routed
+    to "large_pad", whose tiles large narrows (28928 = 256 x 113, 41472 =
+    256 x 162, 62208 = 256 x 243)."""
+    served = [m for m in BAND if convlarge.bconv_supported(m, np.complex64)]
+    assert len(served) == 153 and {36864, 49152} <= set(served)
+    assert not any(largepad.narrowed_by_division(m) for m in served)
+    for m in (28928, 41472, 62208):
+        assert largepad.narrowed_by_division(m) and not convlarge.bconv_supported(m, np.complex64)
 
 
 # -- the wrappers --------------------------------------------------------------

@@ -36,11 +36,9 @@ DIR_IDS = ["fwd", "inv"]
 HIGHEST = jax.lax.Precision.HIGHEST
 TOL = 1e-5
 
-#: the switches and their defaults (those of the JAX package), and the
-#: other setting of each that is not a bool
+#: the switches and their defaults (those of the JAX package)
 SWITCHES = {"large_gauss": False, "large_blocks2d": False, "conv_radix_gauss": False,
-            "rader_in_shift": False, "rader_full_out": True, "lanepack_variant": "block"}
-OTHER = {"lanepack_variant": "flat"}
+            "rader_in_shift": False, "rader_full_out": True}
 
 
 def _signal(batch, n, seed):
@@ -382,13 +380,13 @@ def test_rader_full_out_off_takes_the_sums_form(switches, monkeypatch):
 
 @pytest.mark.parametrize("name,n", [("large_gauss", 1 << 20), ("large_blocks2d", 1 << 20),
                                     ("conv_radix_gauss", 65537), ("rader_in_shift", 65537),
-                                    ("rader_full_out", 65537), ("lanepack_variant", 4096)])
+                                    ("rader_full_out", 65537)])
 def test_switches_key_both_caches(name, n, switches):
     planner = FftPlanner(np.complex64, device="cpu")
     plan = planner.plan_fft_forward(n)
     fn = executor.build(plan.recipe, FftDirection.FORWARD, np.complex64)
     assert plan.raw_fn is fn and planner.plan_fft_forward(n) is plan
-    switches(**{name: OTHER.get(name, not SWITCHES[name])})
+    switches(**{name: not SWITCHES[name]})
     other = planner.plan_fft_forward(n)
     assert other is not plan and other.raw_fn is not fn
     assert executor.build(plan.recipe, FftDirection.FORWARD, np.complex64) is other.raw_fn
