@@ -24,11 +24,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    at r = 2, 4, 8 and 16 (one cluster of r blocks per transform; the
    cudaOccupancyMaxActiveClusters of each r is printed), two_stage_fft at
    16384 (the radix body at R = 1), 20480, 24576 and 14464 (a prime p = 113)
-   and three_stage_fft at K8's split (128, 8, 16).  K7's cluster band at
-   batch 2: two_stage_cluster_fft at every CLUSTER path's n and at 32896
-   (clusters of 2, 4, 8 and 16 blocks; ragged row shares at 32896 and
-   260608, a prime p above 256 at both), with the
-   cudaOccupancyMaxActiveClusters of each cluster size.  The last three tiers
+   and three_stage_fft at K8's split (128, 8, 16); two_stage_fft at the ONE
+   paths' n (a prime p from 113 to 223 as a Bluestein stage, its table read
+   from device memory).  K7's cluster band at batch 2:
+   two_stage_cluster_fft at every CLUSTER path's n and at 32896 and 65792
+   (a Bluestein stage on clusters of 2, 4, 8 and 16 blocks; ragged row
+   shares at 32896, 65792 and 260608), 29184 and 132480 (a direct-sum
+   stage, p = (19, 12) and (23, 5, 3)) and 40832 (a Bluestein stage, then
+   a direct sum: p = (29, 11)), with the cudaOccupancyMaxActiveClusters of
+   each cluster size.  The last three tiers
    at small batches: dense_fft at n = 5, 127, 251 and 1009 in both forms,
    the two ragged-tile stages of large_pad at 78125 and 531441 (a ragged
    last tile on both axes), and the fused large Bluestein's three kernels
@@ -46,7 +50,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    7919 x 4096 and 65537 x 512 (the JAX bench's rows and the 7919 cell),
    the top band at 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX bench's rows)
    and 2^26 x 2, and the mid band at 16384 x 4096 and 24576 x 2048
-   (two_stage), 32768 x 2048, 65536 x 1024 (the JAX bench's row),
+   (two_stage), 14464 and 16256 x 4096 and 28544 x 2048 (two_stage with a
+   Bluestein stage), 32768 x 2048, 65536 x 1024 (the JAX bench's row),
    131072 x 512 and 262144 x 256 (radix), K7's cluster band at 28928 x
    4096, 49152 x 2048, 98304 x 1024, 196608 x 512, 245760 x 256 and
    260608 x 256 (two_stage, one cluster launch each), the primes 127 x
@@ -81,14 +86,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    planner designs (MixedRadix(4096, 4096) on lanepack leaves); 2^22 x 16
    through the large and the large2f routes; every mid-band path against
    the large route it replaced, and three_stage_fft at 16384 x 4096.  K7's
-   cluster band: the kernel at each path's shape against its plain version,
+   two-stage paths with a Bluestein stage (ONE) and cluster band: the
+   kernel at each path's shape against its plain version (K7 within 1e-6),
    its bound and torch.fft (with the operations its chain spends,
-   chain_ops: a direct sum of 8r a point for a radix without a register
-   stage), and each path against the large or large_pad route it
-   replaced; 24571 x 2048 (Bluestein, m = 49152) on K15, which the
+   chain_ops), and each cluster path against the large or large_pad route
+   it replaced; 24571 x 2048 (Bluestein, m = 49152) on K15, which the
    planner keeps, and on the two-pass core the JAX rule gives it, in turns.
-   The two-stage kernel's general body is reported at 24576; its phase 2
-   checks at 20480 and 14464 count into that entry's max_abs_err.  The
+   The two-stage kernel's general body is reported at 24576 (its phase 2
+   check at 20480 counts into that entry's max_abs_err) and at each ONE
+   path.  The
    last three tiers: dense_fft in both forms against x @ W (the Dft leaf
    it replaced, and the one-call PyTorch time) and each dense path against
    torch.fft; dense_fft against the lanepack route at 256 x 262144 and the
@@ -123,6 +129,9 @@ import numpy as np
 import torch
 
 TOL = 1e-5
+#: K7's kernels against their plain versions (the same tables and stages,
+#: the sums in another order)
+K7_TOL = 1e-6
 SEED = 0
 
 #: the card's peaks for the bound (NVIDIA's H100 SXM data sheet, 700 W)
@@ -135,10 +144,15 @@ TOP = {1 << 23: 8, 1 << 24: 4, 1 << 25: 2, 1 << 26: 2}
 #: the one-pass mid band's paths: n -> batch (256-512 MiB each)
 MID = {16384: 4096, 24576: 2048, 1 << 15: 2048, 1 << 16: 1024, 1 << 17: 512, 1 << 18: 256}
 
+#: K7 on one block with a prime p that runs a Bluestein stage: n -> batch
+#: (113, 127 and 223 x 128; 28544 = 223 x 128 is the one-block size with
+#: the least shared memory left)
+ONE = {14464: 4096, 16256: 4096, 28544: 2048}
+
 #: K7's cluster band (two_stage_cluster_fft): n -> batch (480-904 MiB each);
 #: p x q and the blocks per transform: 226 x 128 (a radix-113 stage) on 2,
 #: 192 x 256 on 4, 256 x 384 on 8, 384 x 512, 480 x 512 and 509 x 512 (a
-#: prime p as one stage, ragged row shares) on 16
+#: prime p as one Bluestein stage, ragged row shares) on 16
 CLUSTER = {28928: 4096, 49152: 2048, 98304: 1024, 196608: 512, 245760: 256, 260608: 256}
 
 #: the dense tier's paths (K5): the primes n -> batch (266 and 263 MiB)
@@ -186,7 +200,7 @@ KERNELS["large_row_stage/2^26"] = ("rustfft_tpu_torch/csrc/large.cu",
 for _t in ("2^15", "2^16", "2^17", "2^18"):
     KERNELS[f"radix_fft/{_t}"] = ("rustfft_tpu_torch/csrc/fused.cu",
                                   "rustfft_tpu/ops/pallas/fused.py:1212")
-for _n in (16384, 24576):
+for _n in (16384, 24576, *ONE):
     KERNELS[f"two_stage_fft/{_n}"] = ("rustfft_tpu_torch/csrc/fused.cu",
                                       "rustfft_tpu/ops/pallas/fused.py:439")
 KERNELS["three_stage_fft/16384"] = ("rustfft_tpu_torch/csrc/fused.cu",
@@ -253,14 +267,21 @@ def fft_ops(m: float) -> float:
     return 5 * m * math.log2(m)
 
 
-def chain_ops(radices) -> float:
-    """FP32 operations per point of a DIT chain as the kernels run it (a
-    diagnostic beside the bound, not the bound): 5
-    log2(r) for a power-of-2 radix (a radix-2 FFT in registers), 8r for any
-    other (a direct sum, r complex multiply-adds per output), and 6 per
-    inter-stage twiddle."""
-    return (sum(5 * math.log2(r) if r & (r - 1) == 0 else 8 * r for r in radices)
-            + 6 * (len(radices) - 1))
+def chain_ops(radices, stage_m) -> float:
+    """FP32 operations per point of a DIT chain as K7's kernels run it (a
+    diagnostic beside the bound, not the bound): 5 log2(r) for a power-of-2
+    radix (a radix-2 FFT in registers), (M/r)(10 log2 M + 6) + 12 for a
+    Bluestein stage of length M = stage_m(r) (two FFT_M, the spectrum and
+    the chirps), 8r for any other (a direct sum, r complex multiply-adds per
+    output), and 6 per inter-stage twiddle."""
+
+    def ops(r):
+        if r & (r - 1) == 0:
+            return 5 * math.log2(r)
+        m = stage_m(r)
+        return m / r * (10 * math.log2(m) + 6) + 12 if m else 8 * r
+
+    return sum(ops(r) for r in radices) + 6 * (len(radices) - 1)
 
 
 def gauss_ops(radices) -> float:
@@ -398,7 +419,8 @@ def main() -> None:
             return (f"two_stage_cluster_fft/{n}",
                     lambda x: fused.two_stage_cluster_fft(x, p, q, c, tabs),
                     lambda x: fused.two_stage_cluster_fft_plain(x, p, q, c, tabs), host)
-        name = "two_stage_fft/16384" if (p, q) == (128, 128) else "two_stage_fft/24576"
+        name = ("two_stage_fft/16384" if (p, q) == (128, 128) else
+                f"two_stage_fft/{n}" if n in ONE else "two_stage_fft/24576")
         return (name, lambda x: fused.two_stage_fft(x, p, q, tabs),
                 lambda x: fused.two_stage_fft_plain(x, p, q, tabs), host)
 
@@ -472,8 +494,8 @@ def main() -> None:
     del x, a, a_plain, y, y_plain
     free()
 
-    def note(name, got, want, what):
-        check(what, rel_err(got, want))
+    def note(name, got, want, what, tol=TOL):
+        check(what, rel_err(got, want), tol)
         max_abs[name] = max(max_abs[name], (got - want).abs().max().item())
 
     # K4 at 2^20: the Gauss stages against their plain versions at batch 1
@@ -678,13 +700,14 @@ def main() -> None:
     # at K8's split
     print("  cudaOccupancyMaxActiveClusters of radix_fft: " + ", ".join(
         f"r={r} {fused.radix_max_active_clusters(r)}" for r in (2, 4, 8, 16)), flush=True)
-    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 18, 16384, 20480, 24576, 14464):
+    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 18, 16384, 20480, 24576, *ONE):
         x = signal(2, n)
         for d in directions:
             name, kernel, plain, _ = mid_kernel(n, d)
             got = kernel(x)
             torch.cuda.synchronize()
-            note(name, got, plain(x), f"{name.split('/')[0]} n={n} batch=2 {d.name}")
+            note(name, got, plain(x), f"{name.split('/')[0]} n={n} batch=2 {d.name}",
+                 K7_TOL if name.startswith("two_stage") else TOL)
     x = signal(2, 16384)
     for d in directions:
         tabs = card_tables(fused.two_stage_tables(128, (8, 16), d))
@@ -695,13 +718,18 @@ def main() -> None:
     del x, got
     free()
 
-    # K7's cluster band at batch 2: two_stage_cluster_fft at every path's n
-    # and at 32896 (257 x 128 on 4 blocks: a prime p above 256 and ragged
-    # row shares; it counts into the entry of the path with its cluster size)
+    # K7's cluster band at batch 2: two_stage_cluster_fft at every path's n,
+    # at 32896 (257 x 128 on 4 blocks: a prime p above 256 and ragged row
+    # shares) and at 65792 (257 x 256 on 8), so that a Bluestein stage runs
+    # on clusters of 2, 4, 8 and 16 blocks; at 29184 (228 = (19, 12) on 2)
+    # and 132480 (345 = (23, 5, 3) on 16), a direct sum in the kernel's form
+    # without a Bluestein stage, and at 40832 (319 = (29, 11) on 4), a
+    # Bluestein stage before a direct sum; each n off the paths counts into
+    # the entry of the path with its cluster size
     print("  cudaOccupancyMaxActiveClusters of two_stage_cluster_fft: " + ", ".join(
         f"c={c} {fused.two_stage_cluster_max_active_clusters(c)}" for c in fused.CLUSTER_SIZES),
         flush=True)
-    for n in (*CLUSTER, 32896):
+    for n in (*CLUSTER, 32896, 65792, 29184, 40832, 132480):
         x = signal(2, n)
         p, q = fused.choose_pq(n)
         c = fused.choose_cluster(n)
@@ -713,7 +741,8 @@ def main() -> None:
             note(f"two_stage_cluster_fft/{key}", got, plain(x),
                  f"two_stage_cluster_fft n={n} ({p} x {q}, {large.stage_radices(p)} x "
                  f"{large.stage_radices(q)}) on {c} blocks, row shares "
-                 f"{sorted({hi - lo for lo, hi in fused.row_shares(p, c)})} batch=2 {d.name}")
+                 f"{sorted({hi - lo for lo, hi in fused.row_shares(p, c)})}, Bluestein lengths "
+                 f"{fused.bluestein_ms(large.stage_radices(p))} batch=2 {d.name}", K7_TOL)
     del x, got
     free()
 
@@ -802,6 +831,7 @@ def main() -> None:
     assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 3 + ["large3f"]
     assert [route(n, np.complex64) for n in MID] == ["two_stage"] * 2 + ["radix"] * 4
     assert [route(n, np.complex64) for n in CLUSTER] == ["two_stage"] * len(CLUSTER)
+    assert [route(n, np.complex64) for n in ONE] == ["two_stage"] * len(ONE)
     assert [route(n, np.complex64) for n in DENSE] == ["dense"] * len(DENSE)
     assert [route(n, np.complex64) for n in PAD] == ["large_pad"] * len(PAD)
     assert route(10 ** 6, np.complex64) == "large"
@@ -859,6 +889,7 @@ def main() -> None:
           for n, batch in TOP.items()),
         *((n, batch, {"radix_fft" if n >= 1 << 15 else "two_stage_fft": 1})
           for n, batch in MID.items()),
+        *((n, batch, {"two_stage_fft": 1}) for n, batch in ONE.items()),
         *((n, batch, {"two_stage_cluster_fft": 1}) for n, batch in CLUSTER.items()),
         *((n, batch, {"dense_fft": 1}) for n, batch in DENSE.items()),
         *((n, batch, {"largepad_col_stage": 1, "largepad_row_stage": 1})
@@ -1346,7 +1377,8 @@ def main() -> None:
     for n, batch in MID.items():
         x = signal(batch, n)
         name, kernel, plain, host = mid_kernel(n, FftDirection.FORWARD)
-        note(name, kernel(x), plain(x), f"{name} n={n} batch={batch} (the main path's shape)")
+        note(name, kernel(x), plain(x), f"{name} n={n} batch={batch} (the main path's shape)",
+             K7_TOL if name.startswith("two_stage") else TOL)
         free()
         k = median_ms(lambda: kernel(x))
         plain_ms = median_ms(lambda: plain(x))
@@ -1382,23 +1414,54 @@ def main() -> None:
         del x
         free()
 
+    # K7 on one block with a prime p (a Bluestein stage) at its paths'
+    # shapes: the kernel against its plain version, then times, the achieved
+    # rate, the operations its chain spends and the bound; each path
+    # against torch.fft
+    for n, batch in ONE.items():
+        x = signal(batch, n)
+        name, kernel, plain, host = mid_kernel(n, FftDirection.FORWARD)
+        p, q = fused.choose_pq(n)
+        note(name, kernel(x), plain(x), f"{name} {p} x {q} batch={batch} (the main path's shape)",
+             K7_TOL)
+        free()
+        k = median_ms(lambda: kernel(x))
+        plain_ms = median_ms(lambda: plain(x))
+        lib = median_ms(lambda: torch.fft.fft(x))
+        spent = batch * n * (chain_ops(large.stage_radices(p), fused.bluestein_stage_m)
+                             + chain_ops(large.stage_radices(q), fused.bluestein_stage_m) + 6)
+        print(f"  {name} {p} x {q} ({large.stage_radices(p)} x {large.stage_radices(q)}, "
+              f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}), shared memory "
+              f"{fused.two_stage_smem_bytes(n, large.stage_radices(p), large.stage_radices(q))} "
+              f"bytes, batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; the "
+              f"operations its chain spends {spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak:",
+              flush=True)
+        record(name, k, plain_ms, 16 * batch * n + table_bytes(host), batch * (fft_ops(n) + 6 * n),
+               lib)
+        plan = planner.plan_fft_forward(n)
+        path = median_ms(lambda: plan.process(x))
+        print(f"  one-block path n={n} batch={batch}: {path:.3f} ms ({gflops(n, batch, path):.0f} "
+              f"GF/s); torch.fft {lib:.3f} ms ({gflops(n, batch, lib):.0f} GF/s)", flush=True)
+        del x
+        free()
+
     # K7's cluster band at its paths' shapes: the kernel against its plain
-    # version, then times, the achieved rate and the bound (operations bind
-    # where p runs a roots-table stage); each path against the route it
-    # replaced (large or large_pad, built directly) and torch.fft
+    # version, then times, the achieved rate and the bound; each path
+    # against the route it replaced (large or large_pad, built directly) and
+    # torch.fft
     for n, batch in CLUSTER.items():
         x = signal(batch, n)
         name, kernel, plain, host = mid_kernel(n, FftDirection.FORWARD)
         p, q = fused.choose_pq(n)
         c = fused.choose_cluster(n)
         note(name, kernel(x), plain(x), f"{name} {p} x {q} on {c} blocks batch={batch} "
-                                        "(the main path's shape)")
+                                        "(the main path's shape)", K7_TOL)
         free()
         k = median_ms(lambda: kernel(x))
         plain_ms = median_ms(lambda: plain(x))
         lib = median_ms(lambda: torch.fft.fft(x))
-        spent = batch * n * (chain_ops(large.stage_radices(p)) + chain_ops(large.stage_radices(q))
-                             + 6)
+        spent = batch * n * (chain_ops(large.stage_radices(p), fused.bluestein_stage_m)
+                             + chain_ops(large.stage_radices(q), fused.bluestein_stage_m) + 6)
         nbytes = 16 * batch * n + table_bytes(host)
         print(f"  {name} {p} x {q} ({large.stage_radices(p)} x {large.stage_radices(q)}) on {c} "
               f"blocks, batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; the "

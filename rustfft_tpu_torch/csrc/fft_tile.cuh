@@ -46,6 +46,9 @@ struct Stages {
   const float2* roots[kMaxStages];        // (r_s,) w_{r_s}^e, device memory
   const float2* tw[kMaxStages - 1];       // (r_s, rest_s) twiddles, device memory
   const float* gauss[kMaxStages];         // Gauss form: (3, r_s) Wr, Wi, Ws of w_{r_s}^e
+  int bm[kMaxStages];                     // K7's chains (fused.cu): the FFT length of a
+                                          // Bluestein stage, whose roots[s] is then its
+                                          // table; 0 elsewhere
 };
 
 static inline Stages make_stages(int k, int r0, int r1, int r2, const void* roots0,
@@ -60,6 +63,7 @@ static inline Stages make_stages(int k, int r0, int r1, int r2, const void* root
   st.tw[0] = static_cast<const float2*>(tw0);
   st.tw[1] = static_cast<const float2*>(tw1);
   st.gauss[0] = st.gauss[1] = st.gauss[2] = nullptr;
+  st.bm[0] = st.bm[1] = st.bm[2] = 0;
   return st;
 }
 

@@ -8,7 +8,8 @@
 // that bound is latency: one 512-thread block per SM (the tile fills its
 // shared memory), whose loads, stages and stores run in turn.  Every stage
 // holds at most 16 values a thread at a time (the cluster kernel's exchange
-// 32), so no kernel here spills at 512 threads.
+// 32).  At 512 threads only the two-stage kernels' forms with a Bluestein
+// stage spill, 36-44 bytes (ptxas, sm_90a); their forms without one do not.
 //
 // radix_fft (K9: fused.py _fused_kernel_vpur, _ctw, _ctwg, _ctwgn, _ctwgx,
 // one function in five TPU layouts).  n = r * 128 * 128 is 256 KiB .. 2 MiB
@@ -40,9 +41,11 @@
 // a stage's column writes its outputs where it read its inputs, and the
 // store reads each natural index from its digit-reversed place through two
 // small index tables (p + q ints).  Register radices load one column into
-// registers; a roots-table radix (a prime p such as 113) gives a column's
-// ceil(r/8) chunks of 8 outputs to as many threads, which read every input
-// before a block barrier and write after it (stage_table_inplace).  DFT_p
+// registers; a prime radix from 29 up (such as p = 113) runs a Bluestein
+// stage, one warp per column in registers (stage_bluestein_inplace); the
+// primes 11 to 23 give a column's ceil(r/8) chunks of 8 outputs to as many
+// threads, which read every input before a block barrier and write after
+// it (stage_table_inplace, a direct sum of 8r operations a point).  DFT_p
 // over j1 for every j2, the outer twiddle w_n^(k1*j2) from a (q, p) table
 // folded into DFT_p's last stage, DFT_q over j2 for every k1, the store at
 // k = k2*p + k1.
@@ -67,11 +70,12 @@
 //      k = k2*p + k1, rows of p/c values per k2.
 // The function's bound is its bytes (0.30-0.57 ms for the 480-904 MiB of
 // chip_smoke.py's paths; its 5 n log2 n operations take less).  921 of the
-// band's 1009 sizes have a radix without a register stage (637 a radix from
-// 17 to 256, 172 a prime p above 256), a direct sum of 8r FP32 operations a
-// point: at the FP32 peak that alone takes 1.7 ms at 28928 x 4096 and 4.1 ms
-// at 260608 x 256, several times the bound.  Radices above 256 take 16
-// accumulators a thread (stage_table_inplace<16>, the cluster kernel only).
+// band's 1009 sizes have a radix without a register stage.  In 665 it is a
+// prime from 29 to 509, whose direct sum (8r FP32 operations a point) alone
+// would take 1.7 ms at 28928 x 4096 and 4.1 ms at 260608 x 256 at the FP32
+// peak, several times the bound: those run the Bluestein stage (M up to
+// 1024, the cluster kernel only above 512), about 190-440 operations a
+// point.  The other 256 keep the direct sum of a prime from 11 to 23.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -355,20 +359,21 @@ static __device__ void stage_reg_inplace(float2* buf, int lead, int rest, int T,
   }
 }
 
-// One roots-table stage in place, any radix r <= 512, in passes over L
-// neighbouring columns: thread t takes column t % L of the pass and its
-// chunk t / L of G outputs.  A pass costs one run over the r inputs
-// however few columns it holds, so the stage takes the fewest passes the
-// block's threads allow and spreads the columns evenly over them.  A warp
-// reads one or two roots per term (broadcasts; a warp whose lanes read 32
-// different roots replayed on the banks up to ~5x) and neighbouring places
-// of the tile.  Every chunk of a pass's columns reads them before the
-// block barrier and overwrites them after it.  G = kChunk (8) up to radix
-// 256; 16 up to 512 (the cluster band's primes p = 257 .. 509).
-template <int G>
+// One roots-table stage in place, a radix r <= 256 with neither a register
+// nor a Bluestein stage (the primes 11 to 23 and the composites 10, 14, 15
+// and 20 of the band's chains), a direct sum of 8r operations a point, in
+// passes over L neighbouring columns: thread t takes column t % L of the
+// pass and its chunk t / L of G = kChunk outputs.  A pass costs one run
+// over the r inputs however few columns it holds, so the stage takes the
+// fewest passes the block's threads allow and spreads the columns evenly
+// over them.  A warp reads one or two roots per term (broadcasts; a warp
+// whose lanes read 32 different roots replayed on the banks up to ~5x) and
+// neighbouring places of the tile.  Every chunk of a pass's columns reads
+// them before the block barrier and overwrites them after it.
 static __device__ void stage_table_inplace(float2* buf, int r, int lead, int rest, int T,
                                            const float2* __restrict__ roots,
                                            const float2* __restrict__ tw, const OuterFold& fold) {
+  constexpr int G = kChunk;
   const int step = rest * T;
   const int ncols = lead * step;
   const int nchunks = (r + G - 1) / G;
@@ -420,18 +425,314 @@ static __device__ void stage_table_inplace(float2* buf, int r, int lead, int res
   }
 }
 
-// The largest radix of each kernel's chains: the one-block kernel's
-// (ops/kernels/fused.py MAX_INPLACE_RADIX) and the cluster kernel's, whose
-// primes p up to 509 run one stage.  A kernel instantiates the stages of
-// its own cap only: G = 16 accumulators would cost the one-block kernel
-// registers it never uses.
-constexpr int kOneBlockMaxRadix = 32 * kChunk;
-constexpr int kClusterMaxRadix = 64 * kChunk;
+// ---- the in-place Bluestein stage ---------------------------------------------
+//
+// DFT_r of a prime r from 29 to 509 (ops/kernels/fused.py bluestein_stage_m)
+// as a cyclic convolution of length M, a power of 2 >= 2r - 1, 64 .. 1024:
+//   X[k] = w_k * conj(FFT_M(conj(FFT_M(a) * H)))[k],  a_j = x_j * w_j (j < r),
+// w_j = exp(-+i pi j^2 / r) the chirp and H = FFT_M(b) / M the spectrum of
+// the conjugate chirp b, wrapped cyclically (ops/bluestein.py
+// bluestein_tables).  About (M/r)(10 log2 M + 6) + 12 operations a point
+// where the direct sum spends 8r: 225 against 4072 at r = 509.
+//
+// One warp owns one column at a time, in registers: lane l holds the
+// values j = l + 32t of the V = M/32 a lane; as M/4 < r <= M/2, t >= V/2
+// start at zero and hold no output.  FFT_M runs forward in both directions (the
+// spectrum of the symmetric wrapped chirp is the same either way) as the
+// chain (V, 32): a radix-V FFT in each lane's registers (fft_fwd_dif,
+// bit-reversed out), the twiddle w_M^(k1*l) and five __shfl_xor_sync
+// radix-2 steps across the lanes (lanes_dif, bit-reversed lanes out), so
+// lane l's register s holds frequency bitrev_V(s) + V*bitrev_32(l); the
+// spectrum is stored in that order.  The second FFT_M runs the same steps
+// backwards (lanes_dit, the twiddle, fft_fwd_dit), which take that order
+// in and give output k = l + 32t back where input j = l + 32t came from.  A warp reads all r
+// inputs of its column before it writes any output (the shuffles carry
+// every input into every output), and columns are disjoint, so the stage
+// is safe in place with no shared scratch and no block barrier.
+//
+// The stage's table, one array (ops/kernels/fused.py
+// bluestein_stage_tables): [0, r) the chirp; [r, r + M) the spectrum in the
+// lanes' order; then M entries of the chain's twiddle (V, 32) [k1][l] =
+// w_M^(k1*l); V roots w_V^e (immediates here, w32); 32 roots w_32^e; the
+// chain's tables are the forward direction's.  The stage reads it from
+// device memory (at most 3.6 KiB a stage, L1-resident), never from shared
+// memory: a kernel's shared memory holds its buffer and the roots of its
+// direct stages only.  The reads are plain loads, not __ldg: with
+// ld.global.nc the compiler issued them early and held their values, and
+// the cluster kernel spilled 144 bytes instead of 36 (ptxas, sm_90a).
 
-template <int MaxR>
-static __device__ void run_stage_inplace(float2* buf, int r, int lead, int rest, int T,
+static __host__ __device__ __forceinline__ int bluestein_len(int r, int m) {
+  return r + 2 * m + m / 32 + 32;
+}
+
+// w_32^e = exp(-2 pi i e / 32) for e < 16, the f64 values rounded to float
+// (bit-equal to the stage table's roots, ops/kernels/fused.py), as
+// immediates: the stage's FFT_M always runs forward (the spectrum of the
+// symmetric wrapped chirp is the same in both directions), so its radix-V
+// twiddles w_V^e = w_32^(e*32/V) need no table reads and no registers.
+static __device__ __forceinline__ float2 w32(int e) {
+  constexpr float kRe[16] = {1.f, 0.980785251f, 0.923879504f, 0.831469595f, 0.707106769f, 0.555570245f, 0.382683426f, 0.195090324f, 6.12323426e-17f, -0.195090324f, -0.382683426f, -0.555570245f, -0.707106769f, -0.831469595f, -0.923879504f, -0.980785251f};
+  constexpr float kIm[16] = {-0.f, -0.195090324f, -0.382683426f, -0.555570245f, -0.707106769f, -0.831469595f, -0.923879504f, -0.980785251f, -1.f, -0.980785251f, -0.923879504f, -0.831469595f, -0.707106769f, -0.555570245f, -0.382683426f, -0.195090324f};
+  return make_float2(kRe[e], kIm[e]);
+}
+
+// In-register radix-2 forward FFT of R = 2^m <= 32 values, decimation in
+// frequency: natural order in, x[bitrev(k)] = X[k] out (fft_pow2_reg with
+// the twiddles as immediates).
+template <int R, int HALF = R / 2>
+static __device__ __forceinline__ void fft_fwd_dif(float2 (&x)[R]) {
+  if constexpr (HALF >= 1) {
+#pragma unroll
+    for (int blk = 0; blk < R; blk += 2 * HALF) {
+#pragma unroll
+      for (int i = 0; i < HALF; ++i) {
+        constexpr int kStride = 32 / (2 * HALF);
+        const float2 a = x[blk + i];
+        const float2 b = x[blk + i + HALF];
+        x[blk + i] = make_float2(a.x + b.x, a.y + b.y);
+        const float2 d = make_float2(a.x - b.x, a.y - b.y);
+        x[blk + i + HALF] = i == 0 ? d : cmul(d, w32(i * kStride));
+      }
+    }
+    fft_fwd_dif<R, HALF / 2>(x);
+  }
+}
+
+// Decimation in time: bit-reversed order in (x[bitrev(j)] = x_j), x[k] =
+// X[k] out.
+template <int R, int HALF = 1>
+static __device__ __forceinline__ void fft_fwd_dit(float2 (&x)[R]) {
+  if constexpr (HALF < R) {
+#pragma unroll
+    for (int blk = 0; blk < R; blk += 2 * HALF) {
+#pragma unroll
+      for (int i = 0; i < HALF; ++i) {
+        constexpr int kStride = 32 / (2 * HALF);
+        const float2 a = x[blk + i];
+        const float2 b = i == 0 ? x[blk + i + HALF] : cmul(x[blk + i + HALF], w32(i * kStride));
+        x[blk + i] = make_float2(a.x + b.x, a.y + b.y);
+        x[blk + i + HALF] = make_float2(a.x - b.x, a.y - b.y);
+      }
+    }
+    fft_fwd_dit<R, 2 * HALF>(x);
+  }
+}
+
+// Step h = 2^b of the radix-2 FFT across the lanes of a warp pairs lane l
+// with l ^ h: the butterfly twiddle w_{2h}^(l mod h) (roots w_32^e in r32)
+// in the upper lane of a pair (l & h), 1 in the lower; *sg -1 in the upper
+// lane, +1 in the lower.
+static __device__ __forceinline__ float2 lane_twiddle(const float2* r32, int lane, int b,
+                                                      float* sg) {
+  const bool upper = (lane >> b) & 1;
+  *sg = upper ? -1.f : 1.f;
+  return upper ? r32[(lane & ((1 << b) - 1)) * (16 >> b)] : make_float2(1.f, 0.f);
+}
+
+// The radix-2 steps of a 32-point FFT across the lanes, for each of V
+// registers.  Decimation in frequency: natural lane order in, bit-reversed
+// out.
+template <int V>
+static __device__ __forceinline__ void lanes_dif(float2 (&x)[V], const float2* r32, int lane) {
+#pragma unroll
+  for (int b = 4; b >= 0; --b) {
+    float sg;
+    const float2 w = lane_twiddle(r32, lane, b, &sg);
+#pragma unroll
+    for (int s = 0; s < V; ++s) {
+      const float px = __shfl_xor_sync(0xffffffffu, x[s].x, 1 << b);
+      const float py = __shfl_xor_sync(0xffffffffu, x[s].y, 1 << b);
+      // lower: x + partner; upper: (partner - x) * w
+      const float2 d = make_float2(fmaf(sg, x[s].x, px), fmaf(sg, x[s].y, py));
+      x[s] = b > 0 ? cmul(d, w) : d;
+    }
+  }
+}
+
+// Decimation in time: bit-reversed lane order in, natural out.
+template <int V>
+static __device__ __forceinline__ void lanes_dit(float2 (&x)[V], const float2* r32, int lane) {
+#pragma unroll
+  for (int b = 0; b < 5; ++b) {
+    float sg;
+    const float2 w = lane_twiddle(r32, lane, b, &sg);
+#pragma unroll
+    for (int s = 0; s < V; ++s) {
+      const float2 t = b > 0 ? cmul(x[s], w) : x[s];
+      const float px = __shfl_xor_sync(0xffffffffu, t.x, 1 << b);
+      const float py = __shfl_xor_sync(0xffffffffu, t.y, 1 << b);
+      // lower: x + partner * w; upper: partner - x * w
+      x[s] = make_float2(fmaf(sg, t.x, px), fmaf(sg, t.y, py));
+    }
+  }
+}
+
+// p itself, as a value the compiler cannot see through: a table read or a
+// place computed from it is read or computed anew, not kept live in
+// registers from an earlier read of the same address.
+template <typename P>
+static __device__ __forceinline__ P opaque(P p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+static __device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// opaque(p), there only once v is computed: reads through it wait for v
+// instead of being issued early and held in registers.
+template <typename P>
+static __device__ __forceinline__ P opaque_after(P p, float2 v) {
+  asm volatile("" : "+l"(p) : "f"(v.x), "f"(v.y));
+  return p;
+}
+
+static __device__ __forceinline__ int opaque_after(int i, float2 v) {
+  asm volatile("" : "+r"(i) : "f"(v.x), "f"(v.y));
+  return i;
+}
+
+// Half h of the stage's two FFT_M: the registers s = h*H .. h*H + H - 1 (H =
+// V/2) of the radix-V chain, from y[t] = the first radix-2 layer's output
+// (the upper inputs are zeros) through the twiddle, the lanes, the spectrum
+// and back to y[i], block h of the second FFT_M's radix-V DIT before its
+// last layer.  The halves are independent until then.
+template <int V, int h>
+static __device__ __forceinline__ void bluestein_half(float2 (&y)[V / 2], const float2* tab,
+                                                      int r, int lane) {
+  constexpr int H = V / 2, M = 32 * V;
+  // the table past the chirp: the spectrum, the chain's twiddle, its roots
+  fft_fwd_dif<H>(y);
+  const float2* t = opaque_after(tab, y[H - 1]) + r;
+#pragma unroll
+  for (int s = 0; s < H; ++s)
+    if (bitrev<V>(h * H + s) > 0) y[s] = cmul(y[s], t[M + bitrev<V>(h * H + s) * 32 + lane]);
+  lanes_dif<H>(y, t + 2 * M + V, lane);
+  // times the spectrum, conjugated: the second FFT_M is then the inverse
+  t = opaque_after(tab, y[H - 1]) + r;
+#pragma unroll
+  for (int s = 0; s < H; ++s) {
+    const float2 z = cmul(y[s], t[(h * H + s) * 32 + lane]);
+    y[s] = make_float2(z.x, -z.y);
+  }
+  lanes_dit<H>(y, opaque_after(tab, y[H - 1]) + r + 2 * M + V, lane);
+  t = opaque_after(tab, y[H - 1]) + r;
+#pragma unroll
+  for (int s = 0; s < H; ++s)
+    if (bitrev<V>(h * H + s) > 0) y[s] = cmul(y[s], t[M + bitrev<V>(h * H + s) * 32 + lane]);
+  fft_fwd_dit<H>(y);
+}
+
+// One Bluestein stage in place: (lead, r, rest, T) -> the same places, as
+// stage_table_inplace, from the stage's table `tab` in device memory.  The two halves of the radix-V chain run in turn, V/2 values a
+// lane each: between them the odd half's inputs come out of the column's
+// places and the even half's results go in (only k < r, the outputs), and
+// the last layer of the second FFT_M joins them in the store.  So a lane
+// holds V/2 values, not V (16 at M = 1024), and reads each table entry
+// where it uses it (opaque) rather than keeping it live across the halves.
+template <int M>
+static __device__ void stage_bluestein_inplace(float2* buf, int r, int lead, int rest, int T,
+                                               const float2* tab, const float2* __restrict__ tw,
+                                               const OuterFold& fold) {
+  constexpr int V = M / 32, H = V / 2;
+  const int lane = (int)threadIdx.x & 31;
+  const int step = rest * T;
+  const int ncols = lead * step;
+  for (int c = (int)threadIdx.x >> 5; c < ncols; c += (int)blockDim.x >> 5) {
+    const int l = c / step;
+    const int rt = c - l * step;
+    // input j = lane + 32t is nonzero for t < H only (M/4 < r <= M/2), and
+    // always there for t < V/4
+    float2 y[H];
+    {
+      const int base = opaque(l * r * step + rt);
+      const float2* chirp = opaque(tab);
+#pragma unroll
+      for (int t = 0; t < H; ++t) {
+        const int j = lane + 32 * t;
+        y[t] = make_float2(0.f, 0.f);
+        if (t < V / 4 || j < r) y[t] = cmul(buf[swz(base + j * step)], chirp[j]);
+      }
+    }
+    bluestein_half<V, 0>(y, tab, r, lane);
+    {
+      const int base = opaque_after(l * r * step + rt, y[H - 1]);
+      const float2* chirp = opaque_after(tab, y[H - 1]);
+#pragma unroll
+      for (int t = 0; t < H; ++t) {
+        const int j = lane + 32 * t;
+        float2 a = make_float2(0.f, 0.f);
+        if (t < V / 4 || j < r) {
+          const int at = swz(base + j * step);
+          a = cmul(buf[at], chirp[j]);
+          buf[at] = y[t];
+        }
+        y[t] = t == 0 ? a : cmul(a, w32(t * 32 / V));
+      }
+    }
+    bluestein_half<V, 1>(y, tab, r, lane);
+    // every read of the store waits for the FFTs (the twiddles, the outer
+    // fold and the chirp would otherwise be read ahead, V/2 of each)
+    const int base = opaque_after(l * r * step + rt, y[H - 1]);
+    const float2* chirp = opaque_after(tab, y[H - 1]);
+    const float2* tws = opaque_after(tw, y[H - 1]);
+    OuterFold out = fold;
+    out.outer = opaque_after(fold.outer, y[H - 1]);
+    const int jr = rt / T;
+#pragma unroll
+    for (int t = 0; t < H; ++t) {
+      const int k = lane + 32 * t;
+      if (t < V / 4 || k < r) {
+        const int at = swz(base + k * step);
+        const float2 e = buf[at];
+        const float2 o = t == 0 ? y[t] : cmul(y[t], w32(t * 32 / V));
+        float2 v = cmul(make_float2(e.x + o.x, -(e.y + o.y)), chirp[k]);
+        if (tws != nullptr) v = cmul(v, __ldg(&tws[k * rest + jr]));
+        if (out.outer != nullptr) v = out(v, l, lead, k, rt - jr * T);
+        buf[at] = v;
+      }
+    }
+  }
+}
+
+// The largest direct-sum radix of both kernels (ops/kernels/fused.py
+// MAX_INPLACE_RADIX), and each kernel's largest Bluestein length: the
+// one-block kernel's radices stay under 256 (M <= 512, 16 values a lane);
+// the cluster kernel's primes p up to 509 take M = 1024, 32 values a lane,
+// as many as its exchange holds.  A kernel instantiates the stages of its
+// own cap only, and each kernel has a second form, MaxM = 0, with no
+// Bluestein stage at all, which the launchers take for the chains without
+// one: those chains (every register-radix path) then pay none of its
+// registers.
+constexpr int kOneBlockMaxRadix = 32 * kChunk;
+constexpr int kOneBlockMaxM = 512;
+constexpr int kClusterMaxM = 1024;
+
+// The Bluestein length of radix r, the least power of 2 >= 2r - 1 and 64
+// (so that M/4 < r <= M/2), and a kernel of cap max_m runs it.
+static __host__ __device__ __forceinline__ bool bluestein_ok(int r, int m, int max_m) {
+  return m <= max_m && (m & (m - 1)) == 0 && m >= 2 * r - 1 && (m == 64 || m / 2 < 2 * r - 1);
+}
+
+template <int MaxM>
+static __device__ void run_stage_inplace(float2* buf, int r, int bm, int lead, int rest, int T,
                                          const float2* roots, const float2* tw,
                                          const OuterFold& fold) {
+  if constexpr (MaxM > 0) {
+    switch (bm) {
+      case 0: break;
+      case 64: stage_bluestein_inplace<64>(buf, r, lead, rest, T, roots, tw, fold); return;
+      case 128: stage_bluestein_inplace<128>(buf, r, lead, rest, T, roots, tw, fold); return;
+      case 256: stage_bluestein_inplace<256>(buf, r, lead, rest, T, roots, tw, fold); return;
+      case 512: stage_bluestein_inplace<512>(buf, r, lead, rest, T, roots, tw, fold); return;
+      default:
+        if constexpr (MaxM >= 1024)
+          stage_bluestein_inplace<1024>(buf, r, lead, rest, T, roots, tw, fold);
+        return;
+    }
+  }
   switch (r) {
     case 2: stage_reg_inplace<2>(buf, lead, rest, T, roots, tw, fold); break;
     case 3: stage_reg_inplace<3>(buf, lead, rest, T, roots, tw, fold); break;
@@ -443,35 +744,69 @@ static __device__ void run_stage_inplace(float2* buf, int r, int lead, int rest,
     case 9: stage_reg_inplace<9>(buf, lead, rest, T, roots, tw, fold); break;
     case 12: stage_reg_inplace<12>(buf, lead, rest, T, roots, tw, fold); break;
     case 16: stage_reg_inplace<16>(buf, lead, rest, T, roots, tw, fold); break;
-    default:
-      if constexpr (MaxR > kOneBlockMaxRadix) {
-        if (r > kOneBlockMaxRadix) {
-          stage_table_inplace<2 * kChunk>(buf, r, lead, rest, T, roots, tw, fold);
-          break;
-        }
-      }
-      stage_table_inplace<kChunk>(buf, r, lead, rest, T, roots, tw, fold);
-      break;
+    default: stage_table_inplace(buf, r, lead, rest, T, roots, tw, fold); break;
   }
+}
+
+// Entries of stage s's table a kernel holds in shared memory: the roots of
+// a direct stage; none of a Bluestein stage (read from device memory).
+static __host__ __device__ __forceinline__ int stage_smem_len(const Stages& st, int s) {
+  return st.bm[s] == 0 ? st.r[s] : 0;
+}
+
+static __host__ __device__ inline int chain_smem_len(const Stages& st) {
+  int total = 0;
+  for (int s = 0; s < st.k; ++s) total += stage_smem_len(st, s);
+  return total;
+}
+
+// Copy what stage_smem_len counts into shared memory, back to back.
+static __device__ void load_chain_tables(const Stages& st, float2* stables) {
+  int off = 0;
+  for (int s = 0; s < st.k; ++s) {
+    const int len = stage_smem_len(st, s);
+    for (int i = threadIdx.x; i < len; i += blockDim.x) stables[off + i] = st.roots[s][i];
+    off += len;
+  }
+}
+
+static __host__ __device__ inline bool has_bluestein(const Stages& st) {
+  for (int s = 0; s < st.k; ++s)
+    if (st.bm[s] != 0) return true;
+  return false;
+}
+
+// The stages of a chain a kernel of Bluestein cap max_m runs: every
+// Bluestein length valid, every other radix a register radix or at most
+// kOneBlockMaxRadix (no direct sum above it).
+static bool chain_ok(const Stages& st, int max_m) {
+  for (int s = 0; s < st.k; ++s) {
+    if (st.bm[s] != 0 ? !bluestein_ok(st.r[s], st.bm[s], max_m) : st.r[s] > kOneBlockMaxRadix)
+      return false;
+  }
+  return true;
 }
 
 // The chain over a length-m axis of `lead` blocks of T interleaved
 // transforms, in place, with the outer twiddle `outer` (or null) folded
-// into its last stage; every thread has passed a barrier after it.  No
-// radix is above MaxR.
-template <int MaxR>
+// into its last stage; every thread has passed a barrier after it.  The
+// direct stages' roots from load_chain_tables at `stables`; no Bluestein
+// length is above MaxM (none at MaxM = 0).
+template <int MaxM>
 static __device__ void chain_inplace(float2* buf, int m, int lead, int T, const Stages& st,
-                                     const float2* sroots, const float2* outer, int p) {
+                                     const float2* stables, const float2* outer, int p) {
   int rest = m, off = 0;
   for (int s = 0; s < st.k; ++s) {
     const int r = st.r[s];
     rest /= r;
     const bool last = s + 1 == st.k;
     const OuterFold fold{last ? outer : nullptr, p, s == 2 ? st.r[1] : 1, s >= 1 ? st.r[0] : 1};
-    run_stage_inplace<MaxR>(buf, r, lead, rest, T, sroots + off, last ? nullptr : st.tw[s], fold);
+    const float2* tab = st.bm[s] != 0 ? st.roots[s] : stables + off;
+    run_stage_inplace<MaxM>(buf, r, st.bm[s], lead, rest, T, tab, last ? nullptr : st.tw[s],
+                            fold);
     __syncthreads();
     lead *= r;
-    off += r;
+    off += stage_smem_len(st, s);
   }
 }
 
@@ -491,19 +826,19 @@ static __device__ __forceinline__ int place_of(int k, int m, const Stages& st) {
 // Loads and stores of a whole transform, kIo per thread in flight.
 constexpr int kIo = 4;
 
+template <int MaxM>
 __global__ void __launch_bounds__(kTwoStageThreads)
     two_stage_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
                      Stages sp, Stages sq, const float2* __restrict__ outer) {
   extern __shared__ float2 smem[];
   const int n = p * q;
   float2* buf = smem;
-  float2* roots_p = smem + pad16(n);
-  float2* roots_q = roots_p + sp.r[0] + (sp.k > 1 ? sp.r[1] : 0) + (sp.k > 2 ? sp.r[2] : 0);
-  int* prow = reinterpret_cast<int*>(roots_q + sq.r[0] + (sq.k > 1 ? sq.r[1] : 0) +
-                                     (sq.k > 2 ? sq.r[2] : 0));
+  float2* tabs_p = smem + pad16(n);
+  float2* tabs_q = tabs_p + chain_smem_len(sp);
+  int* prow = reinterpret_cast<int*>(tabs_q + chain_smem_len(sq));
   int* qcol = prow + p;
-  load_roots(sp, roots_p);
-  load_roots(sq, roots_q);
+  load_chain_tables(sp, tabs_p);
+  load_chain_tables(sq, tabs_q);
   for (int k = threadIdx.x; k < p; k += blockDim.x) prow[k] = place_of(k, p, sp) * q;
   for (int k = threadIdx.x; k < q; k += blockDim.x) qcol[k] = place_of(k, q, sq);
   const size_t base = (size_t)blockIdx.x * (size_t)n;
@@ -525,8 +860,8 @@ __global__ void __launch_bounds__(kTwoStageThreads)
   // DFT_p over j1 for every j2 (the rows j1 of q interleaved transforms),
   // its last stage times the outer twiddle; then DFT_q over j2 for every
   // k1 (p contiguous rows of q)
-  chain_inplace<kOneBlockMaxRadix>(buf, p, 1, q, sp, roots_p, outer, p);
-  chain_inplace<kOneBlockMaxRadix>(buf, q, p, 1, sq, roots_q, nullptr, 0);
+  chain_inplace<MaxM>(buf, p, 1, q, sp, tabs_p, outer, p);
+  chain_inplace<MaxM>(buf, q, p, 1, sq, tabs_q, nullptr, 0);
   // k = k2*p + k1 from row prow[k1], column qcol[k2]; (k1, k2) advance
   // without a division
   const int dq = (int)blockDim.x / p, dr = (int)blockDim.x - dq * p;
@@ -586,23 +921,46 @@ struct Walk {
   }
 };
 
+// Phase stamps of the cluster kernel (its kStamp form, built only into the
+// library compiled with RF_PHASE_STAMPS, which no route loads):
+// %globaltimer at the kernel's start and after the load, DFT_p, the
+// exchange, DFT_q and the store, each read by thread 0 of every block after
+// a block barrier (tools/torch_phase_times.py).
+constexpr int kStamps = 6;
+
+static __device__ __forceinline__ unsigned long long global_timer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+template <bool kStamp>
+static __device__ __forceinline__ void stamp(unsigned long long* stamps, int i) {
+  if constexpr (kStamp) {
+    if (threadIdx.x == 0) stamps[(size_t)blockIdx.x * kStamps + i] = global_timer();
+  }
+}
+
+template <int MaxM, bool kStamp>
 __global__ void __launch_bounds__(kClusterThreads)
     two_stage_cluster_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
-                             int c, Stages sp, Stages sq, const float2* __restrict__ outer) {
+                             int c, Stages sp, Stages sq, const float2* __restrict__ outer,
+                             unsigned long long* stamps) {
   extern __shared__ float2 smem[];
+  stamp<kStamp>(stamps, 0);
   const int b = (int)cg::this_cluster().block_rank();
   const int tid = threadIdx.x;
   const int qs = q / c;
   const int lo = share_lo(b, p, c);
   const int rb = share_lo(b + 1, p, c) - lo;
   float2* buf = smem;
-  float2* roots_p = smem + pad16(cluster_share(p, q, c));
-  float2* roots_q = roots_p + roots_total(sp);
-  int* prow = reinterpret_cast<int*>(roots_q + roots_total(sq));
+  float2* tabs_p = smem + pad16(cluster_share(p, q, c));
+  float2* tabs_q = tabs_p + chain_smem_len(sp);
+  int* prow = reinterpret_cast<int*>(tabs_q + chain_smem_len(sq));
   int* qcol = prow + p;
   int* peer_col = qcol + q;  // (a << 16) | t: column j2 = a*qs + t of block a
-  load_roots(sp, roots_p);
-  load_roots(sq, roots_q);
+  load_chain_tables(sp, tabs_p);
+  load_chain_tables(sq, tabs_q);
   for (int k = tid; k < p; k += kClusterThreads) prow[k] = place_of(k, p, sp) * qs;
   for (int k = tid; k < q; k += kClusterThreads) {
     qcol[k] = place_of(k, q, sq);
@@ -628,11 +986,13 @@ __global__ void __launch_bounds__(kClusterThreads)
     }
   }
   __syncthreads();
+  stamp<kStamp>(stamps, 1);
 
   // 2. DFT_p over j1 for each of the share's columns, the outer twiddle
   //    w_n^(k1*j2) (rows b*qs .. of the (q, p) table) folded into its last
   //    stage: row k1 then sits at prow[k1]
-  chain_inplace<kClusterMaxRadix>(buf, p, 1, qs, sp, roots_p, outer + (size_t)b * qs * p, p);
+  chain_inplace<MaxM>(buf, p, 1, qs, sp, tabs_p, outer + (size_t)b * qs * p, p);
+  stamp<kStamp>(stamps, 2);
 
   // 3. the exchange: every block's DFT_p is done (barrier), this block pulls
   //    its rows lo .. lo + rb of every peer's columns into registers, every
@@ -660,9 +1020,11 @@ __global__ void __launch_bounds__(kClusterThreads)
     if (f < nrow) buf[swz(f)] = hold[u];
   }
   __syncthreads();
+  stamp<kStamp>(stamps, 3);
 
   // 4. DFT_q over j2 for each of the share's rows
-  chain_inplace<kClusterMaxRadix>(buf, q, rb, 1, sq, roots_q, nullptr, 0);
+  chain_inplace<MaxM>(buf, q, rb, 1, sq, tabs_q, nullptr, 0);
+  stamp<kStamp>(stamps, 4);
 
   // 5. the store at k = k2*p + lo + i, rb values per k2 in a row
   {
@@ -679,18 +1041,28 @@ __global__ void __launch_bounds__(kClusterThreads)
         if (f0 + u * kClusterThreads < nrow) dst[(size_t)w.row * p + w.col] = v[u];
     }
   }
+  if constexpr (kStamp) {
+    __syncthreads();
+    stamp<kStamp>(stamps, 5);
+  }
 }
 
-static size_t cluster_smem_bytes(int p, int q, int c, int roots) {
-  return ((size_t)pad16(cluster_share(p, q, c)) + roots) * sizeof(float2) +
-         (size_t)(p + 2 * q) * sizeof(int);
+// Shared memory of a kernel whose fixed part (its buffer and index tables)
+// takes `fixed` bytes, with the roots of the direct stages of chains a and b.
+static size_t with_chain_tables(size_t fixed, const Stages& a, const Stages& b) {
+  return fixed + (size_t)(chain_smem_len(a) + chain_smem_len(b)) * sizeof(float2);
 }
 
+static size_t cluster_smem_fixed(int p, int q, int c) {
+  return (size_t)pad16(cluster_share(p, q, c)) * sizeof(float2) + (size_t)(p + 2 * q) * sizeof(int);
+}
+
+template <int MaxM, bool kStamp>
 static cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
                                   long long batch, int c, size_t smem, cudaStream_t s) {
-  cudaError_t err = allow_smem(two_stage_cluster_kernel, smem);
+  cudaError_t err = allow_smem(two_stage_cluster_kernel<MaxM, kStamp>, smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(two_stage_cluster_kernel,
+  err = cudaFuncSetAttribute(two_stage_cluster_kernel<MaxM, kStamp>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cfg = cudaLaunchConfig_t{};
@@ -707,7 +1079,52 @@ static cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& 
   return cudaSuccess;
 }
 
+template <int MaxM, bool kStamp>
+static cudaError_t launch_cluster(const float2* x, float2* y, long long batch, int p, int q, int c,
+                                  const Stages& sp, const Stages& sq, const float2* outer,
+                                  unsigned long long* stamps, cudaStream_t s) {
+  const size_t smem = with_chain_tables(cluster_smem_fixed(p, q, c), sp, sq);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<MaxM, kStamp>(cfg, attr, batch, c, smem, s);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, two_stage_cluster_kernel<MaxM, kStamp>, x, y, p, q, c, sp, sq,
+                           outer, stamps);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 static bool cluster_size_ok(int c) { return c == 2 || c == 4 || c == 8 || c == 16; }
+
+// rf_two_stage_cluster_fft's checks and launch: the kernel's form without a
+// Bluestein stage where neither chain has one; its stamped form (`stamps`
+// (batch*c, kStamps)) where kStamp.
+template <bool kStamp>
+static int cluster_fft(const void* x, void* y, long long batch, int p, int q, int c,
+                       const Stages& sp, const Stages& sq, const void* outer,
+                       unsigned long long* stamps, void* stream) {
+  if (batch <= 0 || p < c || q <= 0 || outer == nullptr || !cluster_size_ok(c) || q % c ||
+      batch * c > 0x7fffffffLL || cluster_share(p, q, c) > kClusterShare)
+    return cudaErrorInvalidValue;
+  if (!stages_ok(sp, p) || !stages_ok(sq, q) || !chain_ok(sp, kClusterMaxM) ||
+      !chain_ok(sq, kClusterMaxM))
+    return cudaErrorInvalidValue;
+  const auto* tx = static_cast<const float2*>(x);
+  auto* ty = static_cast<float2*>(y);
+  const auto* to = static_cast<const float2*>(outer);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (has_bluestein(sp) || has_bluestein(sq))
+    return launch_cluster<kClusterMaxM, kStamp>(tx, ty, batch, p, q, c, sp, sq, to, stamps, s);
+  return launch_cluster<0, kStamp>(tx, ty, batch, p, q, c, sp, sq, to, stamps, s);
+}
+
+// The chain st with the Bluestein lengths of its stages (0: none).
+static Stages with_bluestein(Stages st, int m0, int m1, int m2) {
+  st.bm[0] = m0;
+  st.bm[1] = m1;
+  st.bm[2] = m2;
+  return st;
+}
 
 static bool is_chain(const Stages& st, int r0, int r1) {
   return st.k == 2 && st.r[0] == r0 && st.r[1] == r1;
@@ -757,25 +1174,29 @@ extern "C" int rf_radix_max_active_clusters(int r, int* out) {
 }
 
 // x, y: (batch, p*q) complex64; sp / sq the chains of DFT_p and DFT_q (the
-// padded_stage_args of each); outer: (q, p) w_n^(k1*j2).  One block per
-// transform, in place in shared memory; p = q = 128 with both chains
-// (16, 8) runs the radix kernel's body at R = 1.  Returns a cudaError_t
-// code; launches on `stream`.
+// chain_args of each: padded_stage_args and the Bluestein length M of each
+// stage, 0 for the others, whose roots slot then holds the stage's
+// Bluestein table); outer: (q, p) w_n^(k1*j2).  One block per transform, in
+// place in shared memory; p = q = 128 with both chains (16, 8) runs the
+// radix kernel's body at R = 1.  Returns a cudaError_t code; launches on
+// `stream`.
 extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, int q, int kp,
                                 int rp0, int rp1, int rp2, const void* rootsp0,
                                 const void* rootsp1, const void* rootsp2, const void* twp0,
-                                const void* twp1, int kq, int rq0, int rq1, int rq2,
-                                const void* rootsq0, const void* rootsq1, const void* rootsq2,
-                                const void* twq0, const void* twq1, const void* outer,
-                                void* stream) {
+                                const void* twp1, int mp0, int mp1, int mp2, int kq, int rq0,
+                                int rq1, int rq2, const void* rootsq0, const void* rootsq1,
+                                const void* rootsq2, const void* twq0, const void* twq1, int mq0,
+                                int mq1, int mq2, const void* outer, void* stream) {
   using namespace rf;
   if (batch <= 0 || batch > 0x7fffffffLL || p <= 0 || q <= 0 || outer == nullptr)
     return cudaErrorInvalidValue;
-  const Stages sp = make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1);
-  const Stages sq = make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1);
-  if (!stages_ok(sp, p) || !stages_ok(sq, q)) return cudaErrorInvalidValue;
-  for (int s = 0; s < sp.k; ++s) if (sp.r[s] > kOneBlockMaxRadix) return cudaErrorInvalidValue;
-  for (int s = 0; s < sq.k; ++s) if (sq.r[s] > kOneBlockMaxRadix) return cudaErrorInvalidValue;
+  const Stages sp = with_bluestein(
+      make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1), mp0, mp1, mp2);
+  const Stages sq = with_bluestein(
+      make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1), mq0, mq1, mq2);
+  if (!stages_ok(sp, p) || !stages_ok(sq, q) || !chain_ok(sp, kOneBlockMaxM) ||
+      !chain_ok(sq, kOneBlockMaxM))
+    return cudaErrorInvalidValue;
   const auto* tx = static_cast<const float2*>(x);
   auto* ty = static_cast<float2*>(y);
   const auto* to = static_cast<const float2*>(outer);
@@ -784,58 +1205,77 @@ extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, 
     // the rows of the identity DFT_1: t1 and cfac are never read at R = 1
     return launch_radix<1>(tx, ty, batch, sp, to, to, to, to, s);
   }
-  const size_t smem = ((size_t)pad16(p * q) + roots_total(sp) + roots_total(sq)) * sizeof(float2) +
-                      (size_t)(p + q) * sizeof(int);
-  cudaError_t err = allow_smem(two_stage_kernel, smem);
+  const size_t smem = with_chain_tables(
+      (size_t)pad16(p * q) * sizeof(float2) + (size_t)(p + q) * sizeof(int), sp, sq);
+  // the form without a Bluestein stage where neither chain has one
+  const auto kernel = has_bluestein(sp) || has_bluestein(sq) ? two_stage_kernel<kOneBlockMaxM>
+                                                             : two_stage_kernel<0>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  two_stage_kernel<<<(unsigned)batch, kTwoStageThreads, smem, s>>>(tx, ty, p, q, sp, sq, to);
+  kernel<<<(unsigned)batch, kTwoStageThreads, smem, s>>>(tx, ty, p, q, sp, sq, to);
   return cudaGetLastError();
 }
 
 // x, y: (batch, p*q) complex64; sp / sq the chains of DFT_p and DFT_q (the
-// padded_stage_args of each, radices up to 512); outer: (q, p) w_n^(k1*j2).
-// One thread-block cluster of c blocks (2, 4, 8 or 16) per transform, block
-// b holding the columns b*q/c .. of DFT_p and then the rows b*p/c .. of
-// DFT_q; c must divide q and each share fit kClusterShare values.  Returns
-// a cudaError_t code; launches on `stream`.
+// chain_args of each, as rf_two_stage_fft's; Bluestein lengths up to 1024);
+// outer: (q, p) w_n^(k1*j2).  One thread-block cluster of c blocks (2, 4, 8
+// or 16) per transform, block b holding the columns b*q/c .. of DFT_p and
+// then the rows b*p/c .. of DFT_q; c must divide q and each share fit
+// kClusterShare values.  Returns a cudaError_t code; launches on `stream`.
 extern "C" int rf_two_stage_cluster_fft(const void* x, void* y, long long batch, int p, int q,
                                         int c, int kp, int rp0, int rp1, int rp2,
                                         const void* rootsp0, const void* rootsp1,
                                         const void* rootsp2, const void* twp0, const void* twp1,
-                                        int kq, int rq0, int rq1, int rq2, const void* rootsq0,
-                                        const void* rootsq1, const void* rootsq2,
-                                        const void* twq0, const void* twq1, const void* outer,
+                                        int mp0, int mp1, int mp2, int kq, int rq0, int rq1,
+                                        int rq2, const void* rootsq0, const void* rootsq1,
+                                        const void* rootsq2, const void* twq0, const void* twq1,
+                                        int mq0, int mq1, int mq2, const void* outer,
                                         void* stream) {
   using namespace rf;
-  if (batch <= 0 || p < c || q <= 0 || outer == nullptr || !cluster_size_ok(c) || q % c ||
-      batch * c > 0x7fffffffLL || cluster_share(p, q, c) > kClusterShare)
-    return cudaErrorInvalidValue;
-  const Stages sp = make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1);
-  const Stages sq = make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1);
-  if (!stages_ok(sp, p) || !stages_ok(sq, q)) return cudaErrorInvalidValue;
-  const size_t smem = cluster_smem_bytes(p, q, c, roots_total(sp) + roots_total(sq));
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(cfg, attr, batch, c, smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, two_stage_cluster_kernel, static_cast<const float2*>(x),
-                           static_cast<float2*>(y), p, q, c, sp, sq,
-                           static_cast<const float2*>(outer));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return cluster_fft<false>(
+      x, y, batch, p, q, c,
+      with_bluestein(make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1), mp0,
+                     mp1, mp2),
+      with_bluestein(make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1), mq0,
+                     mq1, mq2),
+      outer, nullptr, stream);
 }
 
-// cudaOccupancyMaxActiveClusters of rf_two_stage_cluster_fft's kernel in
-// clusters of c blocks at the most shared memory it takes (a share of
-// kClusterShare values, roots of two 512-point chains, p = q = 512) into
-// *out.
+#ifdef RF_PHASE_STAMPS
+// rf_two_stage_cluster_fft through the kernel's stamped form: stamps
+// (batch*c, kStamps) uint64 %globaltimer nanoseconds.  Only the library
+// built with RF_PHASE_STAMPS has it (ops/kernels/_build.py
+// load(phase_stamps=True); tools/torch_phase_times.py).
+extern "C" int rf_two_stage_cluster_phase_stamps(
+    const void* x, void* y, long long batch, int p, int q, int c, int kp, int rp0, int rp1,
+    int rp2, const void* rootsp0, const void* rootsp1, const void* rootsp2, const void* twp0,
+    const void* twp1, int mp0, int mp1, int mp2, int kq, int rq0, int rq1, int rq2,
+    const void* rootsq0, const void* rootsq1, const void* rootsq2, const void* twq0,
+    const void* twq1, int mq0, int mq1, int mq2, const void* outer, void* stamps, void* stream) {
+  using namespace rf;
+  if (stamps == nullptr) return cudaErrorInvalidValue;
+  return cluster_fft<true>(
+      x, y, batch, p, q, c,
+      with_bluestein(make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1), mp0,
+                     mp1, mp2),
+      with_bluestein(make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1), mq0,
+                     mq1, mq2),
+      outer, static_cast<unsigned long long*>(stamps), stream);
+}
+#endif
+
+// cudaOccupancyMaxActiveClusters of rf_two_stage_cluster_fft's kernel (its
+// form with the Bluestein stage) in clusters of c blocks at the most shared
+// memory it takes (a share of kClusterShare values, the index tables and
+// the roots of two 512-point chains of direct stages, p = q = 512, an upper
+// bound) into *out.
 extern "C" int rf_two_stage_cluster_max_active_clusters(int c, int* out) {
   using namespace rf;
   if (!cluster_size_ok(c)) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   const size_t smem = ((size_t)kClusterShare + 2 * 512) * sizeof(float2) + 3 * 512 * sizeof(int);
-  cudaError_t err = cluster_config(cfg, attr, 1, c, smem, 0);
+  cudaError_t err = cluster_config<kClusterMaxM, false>(cfg, attr, 1, c, smem, 0);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(out, two_stage_cluster_kernel, &cfg);
+  return cudaOccupancyMaxActiveClusters(out, two_stage_cluster_kernel<kClusterMaxM, false>, &cfg);
 }

@@ -11,6 +11,12 @@ The library goes to `build/rustfft_tpu_torch/` at the repository root, named
 by a hash of the sources' contents, so an edit rebuilds and an unchanged
 checkout reuses the last build.  The build runs on first use, never at
 import: the CPU-only test runs import every module and have no nvcc.
+
+`load(phase_stamps=True)` builds and loads a second library from the same
+sources with `-DRF_PHASE_STAMPS`, which adds the stamped form of K7's
+cluster kernel (`rf_two_stage_cluster_phase_stamps`,
+tools/torch_phase_times.py); no route loads it, so no other build pays for
+that form.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG_DIR / "csrc"
@@ -64,10 +70,10 @@ _SIGNATURES = {
     "rf_large3_p2": [_vp, _vp, _ll, _int, _int, _int, _vp, _vp, _vp, _vp],
     "rf_radix_fft": [_vp, _vp, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 5,
     "rf_radix_max_active_clusters": [_int, ctypes.POINTER(_int)],
-    "rf_two_stage_fft": [_vp, _vp, _ll, _int, _int] + ([_int] * 4 + [_vp] * 5) * 2
+    "rf_two_stage_fft": [_vp, _vp, _ll, _int, _int] + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
                         + [_vp, _vp],
-    "rf_two_stage_cluster_fft": [_vp, _vp, _ll, _int, _int, _int] + ([_int] * 4 + [_vp] * 5) * 2
-                                + [_vp, _vp],
+    "rf_two_stage_cluster_fft": [_vp, _vp, _ll, _int, _int, _int]
+                                + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2 + [_vp, _vp],
     "rf_two_stage_cluster_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_dense_fft": [_vp, _vp, _ll, _int, _int, _vp, _vp, _vp],
     "rf_largepad_col_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
@@ -78,8 +84,17 @@ _SIGNATURES = {
     "rf_bconv_out_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
 }
 
+#: the entry points only the RF_PHASE_STAMPS library has
+_STAMP_SIGNATURES = {
+    "rf_two_stage_cluster_phase_stamps": [_vp, _vp, _ll, _int, _int, _int]
+                                         + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
+                                         + [_vp, _vp, _vp],
+}
+STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)
+
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+#: the loaded libraries: False the kernels', True the phase-stamps build
+_libs: Dict[bool, ctypes.CDLL] = {}
 #: seconds the last build took (0.0 when an existing library was reused)
 last_build_seconds = 0.0
 
@@ -106,8 +121,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"librustfft_tpu_torch-{source_hash()}.so"
+def library_path(phase_stamps: bool = False) -> Path:
+    tag = "-stamps" if phase_stamps else ""
+    return BUILD_DIR / f"librustfft_tpu_torch-{source_hash()}{tag}.so"
 
 
 def _run(procs, what: str) -> None:
@@ -121,10 +137,12 @@ def _run(procs, what: str) -> None:
         raise RuntimeError(failed)
 
 
-def build() -> Path:
-    """Compile the sources unless a library for their hash exists; return it."""
+def build(phase_stamps: bool = False) -> Path:
+    """Compile the sources unless a library for their hash exists; return it.
+    With phase_stamps, the library with -DRF_PHASE_STAMPS."""
     global last_build_seconds
-    out = library_path()
+    out = library_path(phase_stamps)
+    flags = NVCC_FLAGS + (STAMP_FLAGS if phase_stamps else ())
     if out.exists():
         last_build_seconds = 0.0
         return out
@@ -134,7 +152,7 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, p.stem + ".o") for p in sorted(SRC_DIR.glob("*.cu"))]
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+            subprocess.Popen([nvcc, *flags, "-c", "-o", obj, str(src)],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for src, obj in zip(sorted(SRC_DIR.glob("*.cu")), objs)
         ]
@@ -149,20 +167,21 @@ def build() -> Path:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' library, built on first use."""
-    global _lib
+def load(phase_stamps: bool = False) -> ctypes.CDLL:
+    """The kernels' library, built on first use; with phase_stamps, the
+    library that also has the stamped cluster kernel."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+        if phase_stamps not in _libs:
+            lib = ctypes.CDLL(str(build(phase_stamps)))
+            signatures = {**_SIGNATURES, **(_STAMP_SIGNATURES if phase_stamps else {})}
+            for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.rf_error_string.argtypes = [ctypes.c_int]
             lib.rf_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            _libs[phase_stamps] = lib
+        return _libs[phase_stamps]
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -54,10 +54,11 @@ import torch
 from ...common import FftDirection
 from ... import twiddles
 from .. import calg
+from ..bluestein import bluestein_tables
 from . import _build, large
 from .lanepack import (
-    check_operand, check_stage_tables, fft_stages_plain, lanepack_supported,
-    padded_stage_args, require_cuda, stage_tables,
+    REGISTER_RADICES, check_operand, check_stage_tables, dft_from_roots, fft_stages_plain,
+    lanepack_supported, padded_stage_args, require_cuda, stage_tables,
 )
 from .large3 import p2_chain_plain
 
@@ -68,8 +69,9 @@ MAX_FACTOR = 512
 #: the radix kernel's fixed slice: p = q = 128 (csrc/fused.cu)
 RADIX_PQ = 128
 
-#: the largest radix of a roots-table stage the one-block two-stage kernel
-#: runs: a column's ceil(r/8) output chunks share one warp
+#: the largest radix of the one-block two-stage kernel's chains, and of a
+#: direct-sum stage in either kernel (csrc/fused.cu kOneBlockMaxRadix); the
+#: cluster kernel's primes p above it run the Bluestein stage
 MAX_INPLACE_RADIX = 256
 
 #: the cluster kernel's blocks per transform, and the most values a block
@@ -107,12 +109,158 @@ def fused_supported(n: int, dtype) -> bool:
     return choose_pq(n) is not None
 
 
+# -- the Bluestein stage of K7's in-place chains ----------------------------
+
+@functools.lru_cache(maxsize=1024)
+def bluestein_stage_m(r: int) -> Optional[int]:
+    """The length M of the in-place Bluestein stage that computes a radix-r
+    stage of K7's chains (csrc/fused.cu stage_bluestein_inplace), or None
+    where the direct sum stays: M is the power of 2 >= 2r - 1 (at least 64,
+    two values a lane of a warp), taken where the stage's FP32 operations
+    a point,
+        (M / r) * (10 log2 M + 6) + 12
+    (two FFT_M, the spectrum product, the chirp before and after), are
+    fewer than the direct sum's 8r.  That holds for every prime from 29
+    (M = 64: 158 against 232) to 509 (M = 1024: 225 against 4072); 11, 13,
+    17, 19 and 23 (23: 196 against 184) and the register radices keep
+    their stages."""
+    if r in REGISTER_RADICES or r > MAX_FACTOR:
+        return None
+    m = max(64, 1 << (2 * r - 2).bit_length())
+    return m if m / r * (10 * math.log2(m) + 6) + 12 < 8 * r else None
+
+
+def bluestein_table_len(r: int, m: int) -> int:
+    """Entries of a Bluestein stage's table (bluestein_stage_tables)."""
+    return r + 2 * m + m // 32 + 32
+
+
+def _bitrev(k: np.ndarray, size: int) -> np.ndarray:
+    bits = size.bit_length() - 1
+    return sum(((k >> b) & 1) << (bits - 1 - b) for b in range(bits))
+
+
+def bluestein_lane_order(m: int) -> np.ndarray:
+    """order[s*32 + l]: the frequency that lane l's register s holds after
+    the stage's forward FFT_M, bitrev_V(s) + V*bitrev_32(l) with V = m/32
+    (the chain (V, 32): a radix-V FFT in registers, bit-reversed out, then
+    radix-2 steps across the lanes, bit-reversed lanes out)."""
+    v = m // 32
+    return (_bitrev(np.arange(v), v)[:, None] + v * _bitrev(np.arange(32), 32)[None, :]).reshape(-1)
+
+
+def bluestein_stage_tables(r: int, m: int, direction: FftDirection) -> np.ndarray:
+    """The table of a Bluestein stage of radix r at length m, complex64,
+    from f64 values, one array in the kernel's order:
+      [0, r)           the chirp w_j = exp(-+i pi j^2 / r) (j^2 mod 2r in
+                       integers; ops/bluestein.py bluestein_tables);
+      [r, r + m)       the spectrum FFT_m(b) / m of the conjugate chirp b,
+                       wrapped cyclically, in bluestein_lane_order(m);
+      then m entries   the twiddle (V, 32) [k1][l] = w_m^(k1*l) of the
+                       FFT_m chain (V, 32), V = m/32;
+      V entries        the roots w_V^e;
+      32 entries       the roots w_32^e.
+    The chain's tables are the forward direction's in both directions: the
+    wrapped conjugate chirp is symmetric, so its spectrum is the same under
+    either FFT, and the stage runs FFT_m forward twice (the second on the
+    conjugate: the inverse)."""
+    chirp, spectrum = bluestein_tables(r, m, direction)
+    roots, tws = stage_tables(m, (m // 32, 32), FftDirection.FORWARD)
+    return np.concatenate([chirp.astype(np.complex64),
+                           spectrum[bluestein_lane_order(m)].astype(np.complex64),
+                           tws[0].reshape(-1), roots[0], roots[1]])
+
+
+def bluestein_parts(table, r: int, m: int):
+    """(chirp, spectrum in lane order, chain twiddle (V, 32), roots w_V^e,
+    roots w_32^e): views of a bluestein_stage_tables array."""
+    v = m // 32
+    cuts = np.cumsum([r, m, m, v])
+    chirp, spectrum, tw, roots_v, roots_32 = (table[a:b] for a, b in zip((0, *cuts),
+                                                                         (*cuts, len(table))))
+    return chirp, spectrum, tw.reshape(v, 32), roots_v, roots_32
+
+
+def bluestein_dft_plain(u: torch.Tensor, r: int, m: int, table: torch.Tensor) -> torch.Tensor:
+    """DFT_r over the last axis of u (..., r) as the kernels' Bluestein
+    stage computes it, step by step from its table: the chirp, the zero pad
+    to m, the forward FFT_m by the chain (V, 32), the spectrum, the
+    conjugate and the same FFT_m again (the inverse), the conjugate, the
+    chirp."""
+    chirp, spectrum, tw, roots_v, roots_32 = bluestein_parts(table, r, m)
+    h = torch.empty_like(spectrum)
+    h[torch.from_numpy(bluestein_lane_order(m)).to(u.device)] = spectrum
+    chain = ((m // 32, 32), [roots_v, roots_32], [tw])
+    a = fft_stages_plain(torch.nn.functional.pad(u * chirp, (0, m - r)), *chain)
+    z = fft_stages_plain(torch.conj(a * h).resolve_conj(), *chain)
+    return torch.conj(z[..., :r]).resolve_conj() * chirp
+
+
+def chain_tables(m: int, radices: Sequence[int], direction: FftDirection):
+    """Tables of a K7 chain over a length-m axis: stage_tables, with the
+    Bluestein table in place of the roots of each stage that has one."""
+    roots, tws = stage_tables(m, radices, direction)
+    for s, r in enumerate(radices):
+        bm = bluestein_stage_m(r)
+        if bm:
+            roots[s] = bluestein_stage_tables(r, bm, direction)
+    return roots, tws
+
+
+def chain_root_lens(radices: Sequence[int]):
+    """The length of each stage's table in chain_tables."""
+    return [bluestein_table_len(r, bluestein_stage_m(r)) if bluestein_stage_m(r) else r
+            for r in radices]
+
+
+def chain_stages_plain(x: torch.Tensor, radices: Sequence[int], roots, tws) -> torch.Tensor:
+    """fft_stages_plain for K7's chains (chain_tables): a stage with a
+    Bluestein stage runs bluestein_dft_plain over its digit."""
+    shape = x.shape
+    m = shape[-1]
+    v = x.reshape(-1, 1, m)
+    lead, rest = 1, m
+    for s, r in enumerate(radices):
+        rest //= r
+        u = v.reshape(-1, lead, r, rest)
+        bm = bluestein_stage_m(r)
+        if bm:
+            a = bluestein_dft_plain(u.transpose(2, 3), r, bm, roots[s]).permute(0, 3, 1, 2)
+        else:
+            a = torch.einsum("jk,bljr->bklr", dft_from_roots(roots[s]), u)
+        if s + 1 < len(radices):
+            a = a * tws[s].reshape(1, r, 1, rest)
+        lead *= r
+        v = a.reshape(-1, lead, rest)
+    return v.reshape(shape)
+
+
+def bluestein_ms(radices: Sequence[int]):
+    """Each stage's Bluestein length (0: none), unused slots 0."""
+    return [bluestein_stage_m(r) or 0 for r in radices] + [0] * (3 - len(radices))
+
+
+def chain_args(radices: Sequence[int], roots, tws):
+    """padded_stage_args and bluestein_ms for csrc/fused.cu's two-stage
+    launchers."""
+    return padded_stage_args(radices, roots, tws) + bluestein_ms(radices)
+
+
+def _with_chain_tables(fixed: int, radices: Sequence[int]) -> int:
+    """Bytes of a two-stage kernel's shared memory whose buffer and index
+    tables take `fixed` (csrc/fused.cu with_chain_tables), with the roots of
+    the direct stages: a Bluestein stage reads its table from device
+    memory."""
+    return fixed + 8 * sum(r for r in radices if not bluestein_stage_m(r))
+
+
 def two_stage_smem_bytes(n: int, p_radices: Sequence[int], q_radices: Sequence[int]) -> int:
     """Shared memory of the in-place two-stage kernel: one transform
-    (rounded up to 16 values), the roots of both chains and the store's
-    two index tables (p + q ints)."""
-    return ((-(-n // 16) * 16 + sum(p_radices) + sum(q_radices)) * 8
-            + 4 * (math.prod(p_radices) + math.prod(q_radices)))
+    (rounded up to 16 values), the store's two index tables (p + q ints)
+    and the chains' tables (_with_chain_tables)."""
+    return _with_chain_tables(-(-n // 16) * 16 * 8 + 4 * (math.prod(p_radices)
+                                                          + math.prod(q_radices)),
+                              tuple(p_radices) + tuple(q_radices))
 
 
 def _one_block_fits(p: int, q: int) -> bool:
@@ -141,10 +289,17 @@ def two_stage_supported(n: int, dtype) -> bool:
 def cluster_share(p: int, q: int, c: int) -> int:
     """Values a cluster kernel's block holds: its column share (p rows of
     q/c columns) or its widest row share (ceil(p/c) rows of q), whichever is
-    more (csrc/fused.cu cluster_share).  At CLUSTER_SHARE_MAX, with the
-    roots of two 512-point chains and the index tables, a block takes
-    145408 bytes of shared memory."""
+    more (csrc/fused.cu cluster_share)."""
     return max(p * (q // c), -(-p // c) * q)
+
+
+def cluster_smem_bytes(p: int, q: int, c: int) -> int:
+    """Shared memory of a cluster kernel's block: its share (rounded up to
+    16 values), the index tables (p + 2q ints) and the chains' tables
+    (_with_chain_tables); at most 137672 bytes over the band (at 506 x
+    512)."""
+    return _with_chain_tables(-(-cluster_share(p, q, c) // 16) * 16 * 8 + 4 * (p + 2 * q),
+                              large.stage_radices(p) + large.stage_radices(q))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -274,12 +429,14 @@ def radix_tables(r: int, p: int, q: int, direction: FftDirection):
 
 
 def two_stage_tables(p: int, q_radices: Sequence[int], direction: FftDirection):
-    """Host tables of the two-stage kernel, complex64: DFT_p's chain, the
+    """Host tables of the two-stage kernel, complex64: DFT_p's chain
+    (chain_tables: a Bluestein stage's table in place of its roots), the
     outer twiddle (q, p) [j2, k1] = w_n^(k1*j2), DFT_q's chain over
     q_radices (K8's (q1, q2) carries the inner twiddle w_q^(ka*jb))."""
     q = math.prod(q_radices)
-    roots_p, tws_p, outer = large.col_tables(p, q, direction)
-    roots_q, tws_q = stage_tables(q, q_radices, direction)
+    _, _, outer = large.col_tables(p, q, direction)
+    roots_p, tws_p = chain_tables(p, large.stage_radices(p), direction)
+    roots_q, tws_q = chain_tables(q, q_radices, direction)
     return roots_p, tws_p, outer, roots_q, tws_q
 
 
@@ -363,8 +520,8 @@ def radix_max_active_clusters(r: int) -> int:
 def _two_stage_plain(x, p, p_radices, q_radices, tables):
     roots_p, tws_p, outer, roots_q, tws_q = tables
     q = math.prod(q_radices)
-    a = fft_stages_plain(x.reshape(-1, p, q).transpose(1, 2), p_radices, roots_p, tws_p)
-    d = fft_stages_plain((a * outer).transpose(1, 2), q_radices, roots_q, tws_q)  # [k1, k2]
+    a = chain_stages_plain(x.reshape(-1, p, q).transpose(1, 2), p_radices, roots_p, tws_p)
+    d = chain_stages_plain((a * outer).transpose(1, 2), q_radices, roots_q, tws_q)  # [k1, k2]
     return d.transpose(1, 2).reshape(-1, p * q)
 
 
@@ -374,8 +531,10 @@ def _check_two_stage(x, p, p_radices, q_radices, tables, what):
     if x.dim() != 2:
         raise ValueError(f"{what}: expected (batch, n), got {tuple(x.shape)}")
     check_operand(x, (x.shape[0], p * q), f"{what} input")
-    check_stage_tables(p, p_radices, roots_p, tws_p, x.device, what)
-    check_stage_tables(q, q_radices, roots_q, tws_q, x.device, what)
+    check_stage_tables(p, p_radices, roots_p, tws_p, x.device, what,
+                       root_lens=chain_root_lens(p_radices))
+    check_stage_tables(q, q_radices, roots_q, tws_q, x.device, what,
+                       root_lens=chain_root_lens(q_radices))
     check_operand(outer, (q, p), f"{what} outer twiddle")
     if outer.device != x.device:
         raise ValueError(f"{what}: tables on {outer.device}, input on {x.device}")
@@ -402,8 +561,8 @@ def _two_stage(x, p, p_radices, q_radices, tables, counter):
     with torch.cuda.device(x.device):
         code = lib.rf_two_stage_fft(
             x.data_ptr(), y.data_ptr(), x.shape[0], p, q,
-            *padded_stage_args(p_radices, roots_p, tws_p),
-            *padded_stage_args(q_radices, roots_q, tws_q), outer.data_ptr(),
+            *chain_args(p_radices, roots_p, tws_p),
+            *chain_args(q_radices, roots_q, tws_q), outer.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, code, what)
@@ -438,33 +597,25 @@ def two_stage_cluster_fft_plain(x: torch.Tensor, p: int, q: int, c: int, tables)
     roots_p, tws_p, outer, roots_q, tws_q = tables
     qs = q // c
     v = x.reshape(-1, p, q)
-    cols = [fft_stages_plain(v[:, :, b * qs:(b + 1) * qs].transpose(1, 2), large.stage_radices(p),
-                             roots_p, tws_p) * outer[b * qs:(b + 1) * qs]
+    cols = [chain_stages_plain(v[:, :, b * qs:(b + 1) * qs].transpose(1, 2),
+                               large.stage_radices(p), roots_p, tws_p) * outer[b * qs:(b + 1) * qs]
             for b in range(c)]  # c of (B, q/c, p) [j2, k1]
-    rows = [fft_stages_plain(torch.cat([a[:, :, lo:hi] for a in cols], dim=1).transpose(1, 2),
-                             large.stage_radices(q), roots_q, tws_q)
+    rows = [chain_stages_plain(torch.cat([a[:, :, lo:hi] for a in cols], dim=1).transpose(1, 2),
+                               large.stage_radices(q), roots_q, tws_q)
             for lo, hi in row_shares(p, c)]  # c of (B, hi - lo, q) [k1, k2]
     return torch.cat(rows, dim=1).transpose(1, 2).reshape(-1, p * q)
 
 
-def two_stage_cluster_fft(x: torch.Tensor, p: int, q: int, c: int, tables) -> torch.Tensor:
-    """DFT of every row of x (batch, p*q) complex64 as two_stage_fft
-    computes it, by one thread-block cluster of c blocks per row on the
-    card (csrc/fused.cu two_stage_cluster_kernel): c in CLUSTER_SIZES
-    dividing q, every share at most CLUSTER_SHARE_MAX values, radices up to
-    512.
-
-    tables = two_stage_tables(p, large.stage_radices(q)) on x's device.
-    CPU tensors run the plain version (any c dividing q); CUDA tensors
-    launch the kernel or raise.
-    """
-    p_radices, q_radices = large.stage_radices(p), large.stage_radices(q)
-    what = "two_stage_cluster_fft"
-    _check_two_stage(x, p, p_radices, q_radices, tables, what)
+def _check_cluster(x, p, q, c, tables, what):
+    _check_two_stage(x, p, large.stage_radices(p), large.stage_radices(q), tables, what)
     if c < 1 or q % c:
         raise ValueError(f"{what}: a cluster of {c} blocks does not split q={q}")
-    if x.device.type == "cpu":
-        return two_stage_cluster_fft_plain(x, p, q, c, tables)
+
+
+def _launch_cluster(x, p, q, c, tables, what, stamps=None):
+    """One launch of csrc/fused.cu's cluster kernel; y.  With `stamps`, a
+    (batch*c, PHASE_STAMPS) int64 tensor, its stamped form from the
+    library built for it (_build.load(phase_stamps=True))."""
     require_cuda(x, what)
     if c not in CLUSTER_SIZES or cluster_share(p, q, c) > CLUSTER_SHARE_MAX:
         raise ValueError(f"{what}: the kernel takes c in {CLUSTER_SIZES} with shares of at most "
@@ -473,20 +624,64 @@ def two_stage_cluster_fft(x: torch.Tensor, p: int, q: int, c: int, tables) -> to
     if x.shape[0] == 0:
         return y
     roots_p, tws_p, outer, roots_q, tws_q = tables
-    lib = _build.load()
+    lib = _build.load(phase_stamps=stamps is not None)
+    args = (x.data_ptr(), y.data_ptr(), x.shape[0], p, q, c,
+            *chain_args(large.stage_radices(p), roots_p, tws_p),
+            *chain_args(large.stage_radices(q), roots_q, tws_q), outer.data_ptr())
     with torch.cuda.device(x.device):
-        code = lib.rf_two_stage_cluster_fft(
-            x.data_ptr(), y.data_ptr(), x.shape[0], p, q, c,
-            *padded_stage_args(p_radices, roots_p, tws_p),
-            *padded_stage_args(q_radices, roots_q, tws_q), outer.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if stamps is None:
+            code = lib.rf_two_stage_cluster_fft(*args, stream)
+        else:
+            code = lib.rf_two_stage_cluster_phase_stamps(*args, stamps.data_ptr(), stream)
     _build.check(lib, code, what)
+    return y
+
+
+def two_stage_cluster_fft(x: torch.Tensor, p: int, q: int, c: int, tables) -> torch.Tensor:
+    """DFT of every row of x (batch, p*q) complex64 as two_stage_fft
+    computes it, by one thread-block cluster of c blocks per row on the
+    card (csrc/fused.cu two_stage_cluster_kernel): c in CLUSTER_SIZES
+    dividing q, every share at most CLUSTER_SHARE_MAX values, radices up to
+    512 (above MAX_INPLACE_RADIX a Bluestein stage).
+
+    tables = two_stage_tables(p, large.stage_radices(q)) on x's device.
+    CPU tensors run the plain version (any c dividing q); CUDA tensors
+    launch the kernel or raise.
+    """
+    what = "two_stage_cluster_fft"
+    _check_cluster(x, p, q, c, tables, what)
+    if x.device.type == "cpu":
+        return two_stage_cluster_fft_plain(x, p, q, c, tables)
+    y = _launch_cluster(x, p, q, c, tables, what)
     two_stage_cluster_fft.launches += 1
     return y
 
 
 two_stage_cluster_fft.launches = 0
+
+#: the cluster kernel's phase stamps a block: its start, and the ends of the
+#: load, DFT_p, the exchange, DFT_q and the store
+PHASES = ("load", "DFT_p", "exchange", "DFT_q", "store")
+PHASE_STAMPS = len(PHASES) + 1
+
+
+def two_stage_cluster_phase_stamps(x: torch.Tensor, p: int, q: int, c: int, tables):
+    """two_stage_cluster_fft on the card through the kernel's stamped form,
+    which only the library built with RF_PHASE_STAMPS holds (no route
+    launches it; the first call builds that library): (y, stamps), stamps
+    (batch*c, PHASE_STAMPS) int64 nanoseconds of %globaltimer, read by each
+    block's thread 0 after a block barrier at the start and at the end of
+    each of PHASES."""
+    what = "two_stage_cluster_phase_stamps"
+    _check_cluster(x, p, q, c, tables, what)
+    stamps = torch.zeros((x.shape[0] * c, PHASE_STAMPS), dtype=torch.int64, device=x.device)
+    y = _launch_cluster(x, p, q, c, tables, what, stamps)
+    two_stage_cluster_phase_stamps.launches += 1
+    return y, stamps
+
+
+two_stage_cluster_phase_stamps.launches = 0
 
 
 def two_stage_cluster_max_active_clusters(c: int) -> int:

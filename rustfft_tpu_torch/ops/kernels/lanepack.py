@@ -166,10 +166,12 @@ def check_operand(t: torch.Tensor, shape, what: str) -> None:
 
 
 def check_stage_tables(m: int, radices: Sequence[int], roots, tws, device, what: str,
-                       gauss: bool = False) -> None:
+                       gauss: bool = False, root_lens: Optional[Sequence[int]] = None) -> None:
     """Raise unless roots and tws are the DIT chain's tables for `radices`
     on `device`; with gauss, roots are the Gauss form's (3, r) float32
-    tables (ops/kernels/large.py gauss_tables)."""
+    tables (ops/kernels/large.py gauss_tables); root_lens: the length of
+    each stage's roots table where it is not r (ops/kernels/fused.py
+    chain_tables)."""
     if len(radices) not in (1, 2, 3) or math.prod(radices) != m:
         raise ValueError(f"{what}: radices {tuple(radices)} do not split {m}")
     if len(roots) != len(radices) or len(tws) != len(radices) - 1:
@@ -185,7 +187,7 @@ def check_stage_tables(m: int, radices: Sequence[int], roots, tws, device, what:
                 raise ValueError(f"{what}: Gauss table {s} must be a contiguous (3, {r}) "
                                  "float32 tensor")
         else:
-            check_operand(roots[s], (r,), f"{what} roots[{s}]")
+            check_operand(roots[s], (root_lens[s] if root_lens else r,), f"{what} roots[{s}]")
         if s < len(tws):
             check_operand(tws[s], (r, rest), f"{what} tws[{s}]")
     for t in list(roots) + list(tws):

@@ -17,6 +17,7 @@ import torch
 import rustfft_tpu
 from rustfft_tpu.common import FftDirection as RefDirection
 from rustfft_tpu.executor import pallas_route
+from rustfft_tpu.ops import bluestein as ref_bluestein
 from rustfft_tpu.ops.pallas import fused as ref_fused
 from rustfft_tpu_torch import FftPlanner, executor, route
 from rustfft_tpu_torch.common import FftDirection
@@ -228,8 +229,16 @@ def test_two_and_three_stage_tables_bit_equal_to_jax():
             for roots, r in zip(roots_q, (q1, q2)):
                 np.testing.assert_array_equal(
                     roots, rustfft_tpu.twiddles.dft_matrix(r, rd)[1].astype(np.complex64))
-            w = lanepack.dft_from_roots(torch.from_numpy(roots_p[0])).numpy()
             r0 = large.stage_radices(p)[0]
+            m = fused.bluestein_stage_m(r0)
+            if m:  # a prime p from 29 up: the Bluestein stage's chirp and spectrum
+                chirp, spectrum = ref_bluestein.bluestein_tables(r0, m, rd)
+                got = fused.bluestein_parts(roots_p[0], r0, m)
+                np.testing.assert_array_equal(got[0], chirp.astype(np.complex64))
+                np.testing.assert_array_equal(
+                    got[1], spectrum[fused.bluestein_lane_order(m)].astype(np.complex64))
+                continue
+            w = lanepack.dft_from_roots(torch.from_numpy(roots_p[0])).numpy()
             np.testing.assert_array_equal(w, rustfft_tpu.twiddles.dft_matrix(r0, rd).astype(np.complex64))
 
 

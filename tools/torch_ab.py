@@ -13,10 +13,12 @@ warm-ups; of 15 for the paths other than 2^20): K1 (`lanepack_fft`,
 16384 x 4096), K2 and K3 (`large_col_stage`, `large_row_stage`,
 64 x 2^20), and the paths 4096 x 16384, 2^20 x 1024,
 1009 x 8192, 1234 x 8192, 7919 x 4096 and 65537 x 512, and the one-block
-two-stage paths 14464 x 4096 (p = 113) and 16256 x 4096 (p = 127), whose
-prime p runs a roots-table stage, and 24576 x 2048, whose radices are all
-register stages, through FftPlanner(np.complex64, device="cuda").  It prints one JSON line per run
-and then a table, each row a quantity and each column a run.
+two-stage paths 14464 x 4096 (p = 113) and 16256 x 4096 (p = 127), and
+the cluster paths 28928 x 4096 (226 = 113 x 2) and 260608 x 256 (509 x 512),
+whose prime runs a Bluestein stage, and 24576 x 2048, 49152 x 2048 and
+98304 x 1024, whose radices are all register stages,
+through FftPlanner(np.complex64, device="cuda").  It prints one JSON line
+per run and then a table, each row a quantity and each column a run.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import subprocess
 import sys
 
 PATHS = ((4096, 16384), (1 << 20, 1024), (1009, 8192), (1234, 8192), (7919, 4096), (65537, 512),
-         (14464, 4096), (16256, 4096), (24576, 2048))
+         (14464, 4096), (16256, 4096), (24576, 2048), (28928, 4096), (260608, 256), (49152, 2048),
+         (98304, 1024))
 
 
 def run_one(root: str) -> dict:
