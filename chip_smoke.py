@@ -34,8 +34,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    a direct sum: p = (29, 11)), with the cudaOccupancyMaxActiveClusters of
    each cluster size.  The last three tiers
    at small batches: dense_fft at n = 5, 127, 251 and 1009 in both forms,
-   the two ragged-tile stages of large_pad at 78125 and 531441 (a ragged
-   last tile on both axes), and the fused large Bluestein's three kernels
+   the two ragged-tile stages of large_pad (K12's in-place chain) within
+   1e-6 at PAD_CHECKS: every stage kind (register, direct sum, Bluestein at
+   M = 64 .. 1024) and a ragged last tile on both axes (17161 counts into
+   the 412519 entries), and the fused large Bluestein's three kernels
    at m = 2^21 (n = 1000003) and m = 1572864 (n = 746497), with the result
    against the float64 oracle.  The kernel-variant switches: K4's Gauss
    column and row stages at 2^20 x 1 and x 64, deep_a and blocks2d bit-equal
@@ -57,7 +59,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    260608 x 256 (two_stage, one cluster launch each), the primes 127 x
    262144 and
    251 x 131072 (dense), the odd composites 15625 x 4096, 78125 x 512,
-   177147 x 256 and 531441 x 64 (large_pad), 1000003 x 64 and 24571 x 2048
+   177147 x 256 and 531441 x 64 and the route's bulk 234617 x 256, 775575
+   x 64, 412519 x 128 and 50666 x 1024 (large_pad), 1000003 x 64 and 24571 x 2048
    (the fused large Bluestein; 24571's inner m = 49152 is on the cluster
    band) and 746497 x 64 (the recipe the planner designs).  Then the
    switched paths, each switch set just before its plans are made and set
@@ -99,7 +102,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    it replaced, and the one-call PyTorch time) and each dense path against
    torch.fft; dense_fft against the lanepack route at 256 x 262144 and the
    convolution cores at 1009 and 1234 x 8192 (the dense crossover); each
-   large_pad stage against large's stage at one-column tiles and each
+   large_pad stage against its plain version (within 1e-6), its bound,
+   the operations its chain spends and large's stage at one-column tiles, and each
    large_pad path against the large route and torch.fft; the fused large
    Bluestein's kernels at 1000003 x 64 and the path against the two-pass
    core and torch.fft; 746497 x 64 as Raders(746496) on the two-pass core
@@ -129,8 +133,8 @@ import numpy as np
 import torch
 
 TOL = 1e-5
-#: K7's kernels against their plain versions (the same tables and stages,
-#: the sums in another order)
+#: K7's and K12's kernels against their plain versions (the same in-place
+#: chain's tables and stages, the sums in another order)
 K7_TOL = 1e-6
 SEED = 0
 
@@ -158,8 +162,22 @@ CLUSTER = {28928: 4096, 49152: 2048, 98304: 1024, 196608: 512, 245760: 256, 2606
 #: the dense tier's paths (K5): the primes n -> batch (266 and 263 MiB)
 DENSE = {127: 262144, 251: 131072}
 
-#: the ragged-tile paths (K12): the odd composites n -> batch
-PAD = {15625: 4096, 78125: 512, 177147: 256, 531441: 64}
+#: the ragged-tile paths (K12): the odd composites n -> batch, and the
+#: route's bulk at about 400 MiB each: 234617 = 373 x (37 x 17) (a
+#: 1024-point Bluestein stage on the column stage; 128-point and a direct
+#: sum on the row stage), 775575 = 383 x (15 x 15 x 9) (1024; direct sums),
+#: 412519 = 131 x (67 x 47) (512; 256 and 128, eight-column row tiles) and
+#: 50666 = (11 x 7 x 2) x (47 x 7) (a direct sum; 128)
+PAD = {15625: 4096, 78125: 512, 177147: 256, 531441: 64, 234617: 256, 775575: 64, 412519: 128,
+       50666: 1024}
+
+#: K12's kernels against their plain versions at batch 2, both directions:
+#: every stage kind (register 177147's chains; direct sums 50666's P and
+#: 775575's Q; Bluestein M = 64 at 78125's and 531441's Q, 128 and 256 at
+#: 412519's Q, 512 at 17161 = 131 x 131 on both stages, 1024 at 234617's and
+#: 775575's P; a Bluestein stage beside a direct sum at 234617's Q) and a
+#: ragged last tile on both axes at each
+PAD_CHECKS = (78125, 177147, 531441, 17161, 234617, 775575, 412519, 50666)
 
 #: the fused large Bluestein's paths (K15): the prime n -> (inner m, batch)
 BLUE = {1000003: (1 << 21, 64)}
@@ -363,6 +381,7 @@ def switched(config, switches, fn):
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false: needs an NVIDIA GPU")
     card = card_line()
@@ -429,12 +448,13 @@ def main() -> None:
         return tuple(None if t is None else torch.from_numpy(t).to(dev)
                      for t in dense.dense_tables(n, d, variant))
 
-    def pad_card(n, d):
+    def pad_card(n, d, tables=largepad):
         """(P, Q, column-stage tables, row-stage tables) of large_pad at n,
-        on the card."""
+        on the card (tables=large: large's, for its stages on the same
+        split)."""
         p, q1, q2 = large.choose_pqq(n)
         q = q1 * q2
-        return p, q, card_tables(large.col_tables(p, q, d)), card_tables(large.row_tables(q, d))
+        return p, q, card_tables(tables.col_tables(p, q, d)), card_tables(tables.row_tables(q, d))
 
     def bconv_card(n, m, d):
         """(P, Q, column tables, row tables, pre, h, chirp) of the fused large
@@ -456,7 +476,8 @@ def main() -> None:
           f"-> {_build.library_path()}", flush=True)
 
     # ---- phase 2: each kernel against its plain version on the card ----
-    print("phase 2: kernels against their plain torch versions", flush=True)
+    print(f"phase 2: kernels against their plain torch versions (t = "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
     max_abs = {name: 0.0 for name in KERNELS}
     for n, batch, radices in ((4096, 257, lanepack.choose_radices(4096)),
                               (4096, 257, (256, 16)),
@@ -761,21 +782,23 @@ def main() -> None:
                 torch.cuda.synchronize()
                 note(key, got, dense.dense_fft_plain(x, tabs, variant),
                      f"dense_fft n={n} {variant} batch=300 {d.name}")
-    for n in (78125, 531441):
+    for n in PAD_CHECKS:
         x = signal(2, n)
+        key = n if n in PAD else 412519
         for d in directions:
             p, q, col, row = pad_card(n, d)
             qt, pt = largepad.tile(p), largepad.tile(q)
+            rp, rq = large.stage_radices(p), large.stage_radices(q)
             a = largepad.largepad_col_stage(x, p, q, col)
             torch.cuda.synchronize()
-            note(f"largepad_col_stage/{n}", a, large.large_col_stage_plain(x, p, q, col),
-                 f"largepad_col_stage n={n} P={p} Q={q} tile {qt} (last {q % qt or qt}) "
-                 f"batch=2 {d.name}")
+            note(f"largepad_col_stage/{key}", a, largepad.largepad_col_stage_plain(x, p, q, col),
+                 f"largepad_col_stage n={n} P={p} {rp} Bluestein {fused.bluestein_ms(rp)} Q={q} "
+                 f"tile {qt} (last {q % qt or qt}) batch=2 {d.name}", K7_TOL)
             y = largepad.largepad_row_stage(a, q, p, row)
             torch.cuda.synchronize()
-            note(f"largepad_row_stage/{n}", y, large.large_row_stage_plain(a, q, p, row),
-                 f"largepad_row_stage n={n} Q={q} P={p} tile {pt} (last {p % pt or pt}) "
-                 f"batch=2 {d.name}")
+            note(f"largepad_row_stage/{key}", y, largepad.largepad_row_stage_plain(a, q, p, row),
+                 f"largepad_row_stage n={n} Q={q} {rq} Bluestein {fused.bluestein_ms(rq)} P={p} "
+                 f"tile {pt} (last {p % pt or pt}) batch=2 {d.name}", K7_TOL)
     for n, m in ((1000003, 1 << 21), (746497, routed_bluestein_inner(746497, np.complex64))):
         x = signal(2, n)
         key = n if n in BLUE else next(iter(BLUE))
@@ -802,7 +825,8 @@ def main() -> None:
     free()
 
     # ---- phase 3: the main path through the public entry ----
-    print("phase 3: main path, FftPlanner(np.complex64, device='cuda')", flush=True)
+    print(f"phase 3: main path, FftPlanner(np.complex64, device='cuda') (t = "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
     counters = {"lanepack_fft": lanepack.lanepack_fft,
                 "large_col_stage": large.large_col_stage,
                 "large_row_stage": large.large_row_stage,
@@ -922,7 +946,8 @@ def main() -> None:
                 if not torch.equal(out[:64], same_as(d, inp[:64])):
                     raise AssertionError(f"{what} {d.name}: differs from the default path")
             print(f"  {what}: bit-equal to the default path on 64 rows", flush=True)
-        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB (t = "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
         del x, y, z
         free()
         torch.cuda.reset_peak_memory_stats()
@@ -976,7 +1001,8 @@ def main() -> None:
             raise AssertionError(f"{name} was not launched on the main paths")
 
     # ---- phase 4: times ----
-    print(f"phase 4: times on {card} (CUDA events, median of 7)", flush=True)
+    print(f"phase 4: times on {card} (CUDA events, median of 7; t = "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
     results = {}
 
     def record(name, k, plain, nbytes, flops, library=None):
@@ -987,7 +1013,8 @@ def main() -> None:
                          "library_ms": library}
         print(f"  {name}: kernel {k:.3f} ms, plain {plain:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}), library "
-              f"{'none' if library is None else f'{library:.3f} ms'}", flush=True)
+              f"{'none' if library is None else f'{library:.3f} ms'} (t = "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
     n, batch = 4096, 16384
     x = signal(batch, n)
@@ -1573,33 +1600,43 @@ def main() -> None:
         free()
 
     # large_pad at its paths' shapes: each stage against its plain version,
-    # its bound and large's stage on the same split (one-column tiles); each
+    # its bound and large's stage on the same split (one-column tiles, two
+    # buffers, a direct sum for every radix without a register stage); each
     # path against the large route it replaced and torch.fft
     for n, batch in PAD.items():
         x = signal(batch, n)
         p, q, col, row = pad_card(n, fwd)
+        _, _, lcol, lrow = pad_card(n, fwd, large)
+        rp, rq = large.stage_radices(p), large.stage_radices(q)
         what = f"n={n} P={p} Q={q} batch={batch} (the main path's shape)"
         name = f"largepad_col_stage/{n}"
         a = largepad.largepad_col_stage(x, p, q, col)
-        note(name, a, large.large_col_stage_plain(x, p, q, col), f"{name} {what}")
+        note(name, a, largepad.largepad_col_stage_plain(x, p, q, col), f"{name} {what}", K7_TOL)
         free()
         k = median_ms(lambda: largepad.largepad_col_stage(x, p, q, col))
-        plain = median_ms(lambda: large.large_col_stage_plain(x, p, q, col))
-        old = median_ms(lambda: large.large_col_stage(x, p, q, col))
-        print(f"  {name} tile {largepad.tile(p)}: {16 * batch * n / (k * 1e6):.0f} GB/s; "
-              f"large_col_stage (tile {large.col_tile(p, q)}) {old:.3f} ms", flush=True)
+        plain = median_ms(lambda: largepad.largepad_col_stage_plain(x, p, q, col))
+        old = median_ms(lambda: large.large_col_stage(x, p, q, lcol))
+        spent = batch * n * (chain_ops(rp, fused.bluestein_stage_m) + 6)
+        print(f"  {name} {rp} Bluestein {fused.bluestein_ms(rp)} tile {largepad.tile(p)}: "
+              f"{16 * batch * n / (k * 1e6):.0f} GB/s; the operations its chain spends "
+              f"{spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak; large_col_stage (tile "
+              f"{large.col_tile(p, q)}) {old:.3f} ms", flush=True)
         record(name, k, plain, 16 * batch * n + table_bytes(col[:2]) + 8 * n,
                batch * n * (fft_ops(p) / p + 6))
+        free()
         name = f"largepad_row_stage/{n}"
         note(name, largepad.largepad_row_stage(a, q, p, row),
-             large.large_row_stage_plain(a, q, p, row), f"{name} {what}")
+             largepad.largepad_row_stage_plain(a, q, p, row), f"{name} {what}", K7_TOL)
         free()
         k = median_ms(lambda: largepad.largepad_row_stage(a, q, p, row))
-        plain = median_ms(lambda: large.large_row_stage_plain(a, q, p, row))
-        old = median_ms(lambda: large.large_row_stage(a, q, p, row))
+        plain = median_ms(lambda: largepad.largepad_row_stage_plain(a, q, p, row))
+        old = median_ms(lambda: large.large_row_stage(a, q, p, lrow))
         lib = median_ms(lambda: torch.fft.fft(a, dim=1))
-        print(f"  {name} tile {largepad.tile(q)}: {16 * batch * n / (k * 1e6):.0f} GB/s; "
-              f"large_row_stage (tile {large.row_tile(q, p)}) {old:.3f} ms", flush=True)
+        spent = batch * n * chain_ops(rq, fused.bluestein_stage_m)
+        print(f"  {name} {rq} Bluestein {fused.bluestein_ms(rq)} tile {largepad.tile(q)}: "
+              f"{16 * batch * n / (k * 1e6):.0f} GB/s; the operations its chain spends "
+              f"{spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak; large_row_stage (tile "
+              f"{large.row_tile(q, p)}) {old:.3f} ms", flush=True)
         record(name, k, plain, 16 * batch * n + table_bytes(row), batch * p * fft_ops(q), lib)
         del a
         free()
@@ -1705,6 +1742,7 @@ def main() -> None:
          "launches": launches_of(name), "max_abs_err": max_abs[name], **results[name]}
         for name, (src, replaces) in KERNELS.items()
     ]
+    print(f"all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,9 +12,9 @@
 // epilogues (K14); csrc/large2f.cu and csrc/large3.cu with outer twiddles
 // factored into small tables (K10, K11).  Two reads and two writes of the
 // signal in device memory per FFT, as on the TPU.  The general kernels take
-// two options: ragged last tiles (kRagged, K12) and the Gauss form of every
-// radix stage (kGauss, K4's Gauss kernels and K14's gauss_mode;
-// fft_tile.cuh gauss_stage), launched by launch_col_gauss / launch_row_gauss.
+// one option: the Gauss form of every radix stage (kGauss, K4's Gauss
+// kernels and K14's gauss_mode; fft_tile.cuh gauss_stage), launched by
+// launch_col_gauss / launch_row_gauss.
 //
 // What bounds them on this card: memory alone is 32 bytes per point over the
 // two stages.  Arithmetic is FP32 on the CUDA cores.  The TPU kernels
@@ -125,23 +125,19 @@ struct ModOuter {
 };
 
 // The column stage's store: the tile's DFT_P output res[k1*qt + t] goes,
-// times the outer twiddle, to yb[(q0 + t)*P + k1] (contiguous in k1), for
-// the tile's first `live` columns (qt but in a ragged last tile).
+// times the outer twiddle, to yb[(q0 + t)*P + k1] (contiguous in k1).
 template <class Outer>
 static __device__ __forceinline__ void store_transposed(const float2* res, float2* __restrict__ yb,
-                                                        int p, int q0, int qt, int live,
+                                                        int p, int q0, int qt,
                                                         const Outer& outer) {
-  for (int f = threadIdx.x; f < p * live; f += blockDim.x) {
+  for (int f = threadIdx.x; f < p * qt; f += blockDim.x) {
     const int t = f / p, k1 = f - t * p;
     yb[(size_t)(q0 + t) * p + k1] = cmul(res[swz(k1 * qt + t)], outer(q0 + t, k1));
   }
 }
 
-// kRagged: the tile width qt need not divide Q (the port of K12's padded
-// lane axes, csrc/largepad.cu): the last tile's columns past Q load zero
-// and are not stored, so the padding lives in shared memory only.
-// kGauss: every radix stage in the Gauss form.
-template <class Src, class Outer, bool kRagged = false, bool kGauss = false>
+// The tile width qt divides Q.  kGauss: every radix stage in the Gauss form.
+template <class Src, class Outer, bool kGauss = false>
 __global__ void __launch_bounds__(256) col_kernel(Src src, float2* __restrict__ y, int p, int q,
                                                   int qt, Stages st, Outer outer) {
   extern __shared__ float2 smem[];
@@ -150,26 +146,24 @@ __global__ void __launch_bounds__(256) col_kernel(Src src, float2* __restrict__ 
   float2* b = smem + pad16(elems);
   float2* sroots = smem + 2 * pad16(elems);
   load_tables<kGauss>(st, sroots);
-  const int tiles = kRagged ? (q + qt - 1) / qt : q / qt;
+  const int tiles = q / qt;
   const size_t batch_idx = blockIdx.x / tiles;
   const int tile = (int)(blockIdx.x % tiles);
   const int q0 = tile * qt;
-  const int live = kRagged ? min(qt, q - q0) : qt;
   float2 acc = make_float2(0.f, 0.f);
   for (int f = threadIdx.x; f < elems; f += blockDim.x) {
     const int j1 = f / qt, t = f - j1 * qt;
-    a[swz(f)] = t < live ? src.load(batch_idx, j1 * q + q0 + t, acc) : make_float2(0.f, 0.f);
+    a[swz(f)] = src.load(batch_idx, j1 * q + q0 + t, acc);
   }
   src.finish(batch_idx, tile, tiles, acc);
   __syncthreads();
   const float2* res = fft_tile<kGauss>(a, b, p, qt, st, sroots);
-  store_transposed(res, y + batch_idx * (size_t)p * (size_t)q, p, q0, qt, live, outer);
+  store_transposed(res, y + batch_idx * (size_t)p * (size_t)q, p, q0, qt, outer);
 }
 
-// kRagged: the tile width pt need not divide P; the last tile's columns
-// past P load zero and are not stored.  kGauss: every radix stage in the
-// Gauss form.
-template <class Dst, bool kRagged = false, bool kGauss = false>
+// The tile width pt divides P.  kGauss: every radix stage in the Gauss
+// form.
+template <class Dst, bool kGauss = false>
 __global__ void __launch_bounds__(512) row_kernel(const float2* __restrict__ x, Dst dst, int q,
                                                   int p, int pt, Stages st) {
   extern __shared__ float2 smem[];
@@ -178,21 +172,20 @@ __global__ void __launch_bounds__(512) row_kernel(const float2* __restrict__ x, 
   float2* b = smem + pad16(elems);
   float2* sroots = smem + 2 * pad16(elems);
   load_tables<kGauss>(st, sroots);
-  const int tiles = kRagged ? (p + pt - 1) / pt : p / pt;
+  const int tiles = p / pt;
   const size_t batch_idx = blockIdx.x / tiles;
   const int p0 = (int)(blockIdx.x % tiles) * pt;
-  const int live = kRagged ? min(pt, p - p0) : pt;
   const float2* xb = x + batch_idx * (size_t)q * (size_t)p;
   for (int f = threadIdx.x; f < elems; f += blockDim.x) {
     const int j2 = f / pt, t = f - j2 * pt;
-    a[swz(f)] = t < live ? xb[(size_t)j2 * p + p0 + t] : make_float2(0.f, 0.f);
+    a[swz(f)] = xb[(size_t)j2 * p + p0 + t];
   }
   __syncthreads();
   const float2* res = fft_tile<kGauss>(a, b, q, pt, st, sroots);
   const auto row = dst.row(batch_idx);
   for (int f = threadIdx.x; f < elems; f += blockDim.x) {
     const int k2 = f / pt, t = f - k2 * pt;
-    if (t < live) row.store(k2 * p + p0 + t, res[swz(f)]);
+    row.store(k2 * p + p0 + t, res[swz(f)]);
   }
   dst.finish(batch_idx, p0);
 }
@@ -216,7 +209,7 @@ __global__ void __launch_bounds__(kFixedThreads<T, R0, R1, R2>)
                              sroots, st);
   src.finish(batch_idx, tile, tiles, acc);
   __syncthreads();
-  store_transposed(buf, y + batch_idx * (size_t)P * (size_t)q, P, q0, T, T, outer);
+  store_transposed(buf, y + batch_idx * (size_t)P * (size_t)q, P, q0, T, outer);
 }
 
 // row_kernel for one compile-time length-Q chain and tile width T: stage 0
@@ -252,33 +245,31 @@ static cudaError_t launch_col_fixed(const Src& src, float2* y, long long blocks,
   return cudaGetLastError();
 }
 
-// The general column kernel over (batch, ceil(Q/qt)) blocks (Q/qt unless
-// kRagged).
-template <bool kRagged, bool kGauss, class Src, class Outer>
+// The general column kernel over (batch, Q/qt) blocks.
+template <bool kGauss, class Src, class Outer>
 static cudaError_t launch_col_general(const Src& src, float2* y, long long batch, int p, int q,
                                      int qt, const Stages& st, const Outer& outer,
                                      cudaStream_t s) {
-  const long long blocks = batch * ((q + qt - 1) / qt);
+  const long long blocks = batch * (q / qt);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = tile_smem_bytes(p * qt, st, kGauss);
-  cudaError_t err = allow_smem(col_kernel<Src, Outer, kRagged, kGauss>, smem);
+  cudaError_t err = allow_smem(col_kernel<Src, Outer, kGauss>, smem);
   if (err != cudaSuccess) return err;
-  col_kernel<Src, Outer, kRagged, kGauss>
+  col_kernel<Src, Outer, kGauss>
       <<<(unsigned)blocks, 256, smem, s>>>(src, y, p, q, qt, st, outer);
   return cudaGetLastError();
 }
 
-// The general row kernel over (batch, ceil(P/pt)) blocks (P/pt unless
-// kRagged).
-template <bool kRagged, bool kGauss, class Dst>
+// The general row kernel over (batch, P/pt) blocks.
+template <bool kGauss, class Dst>
 static cudaError_t launch_row_general(const float2* x, const Dst& dst, long long batch, int q,
                                      int p, int pt, const Stages& st, cudaStream_t s) {
-  const long long blocks = batch * ((p + pt - 1) / pt);
+  const long long blocks = batch * (p / pt);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = tile_smem_bytes(q * pt, st, kGauss);
-  cudaError_t err = allow_smem(row_kernel<Dst, kRagged, kGauss>, smem);
+  cudaError_t err = allow_smem(row_kernel<Dst, kGauss>, smem);
   if (err != cudaSuccess) return err;
-  row_kernel<Dst, kRagged, kGauss><<<(unsigned)blocks, 512, smem, s>>>(x, dst, q, p, pt, st);
+  row_kernel<Dst, kGauss><<<(unsigned)blocks, 512, smem, s>>>(x, dst, q, p, pt, st);
   return cudaGetLastError();
 }
 
@@ -303,7 +294,7 @@ static cudaError_t launch_col_stage(const Src& src, float2* y, long long batch, 
     return launch_col_fixed<4, 16, 16, 16>(src, y, blocks, q, st, outer, s);
   if (k == 3 && r0 == 32 && r1 == 16 && r2 == 16 && qt == 2)
     return launch_col_fixed<2, 32, 16, 16>(src, y, blocks, q, st, outer, s);
-  return launch_col_general<false, false>(src, y, batch, p, q, qt, st, outer, s);
+  return launch_col_general<false>(src, y, batch, p, q, qt, st, outer, s);
 }
 
 template <int T, int R0, int R1, int R2, class Dst>
@@ -334,22 +325,7 @@ static cudaError_t launch_row_stage(const float2* x, const Dst& dst, long long b
     if (r0 == 16 && r1 == 8) return launch_row_fixed<16, 16, 8, 1>(x, dst, blocks, p, st, s);
     if (r0 == 8 && r1 == 8) return launch_row_fixed<16, 8, 8, 1>(x, dst, blocks, p, st, s);
   }
-  return launch_row_general<false, false>(x, dst, batch, q, p, pt, st, s);
-}
-
-// The column and row stages with ragged last tiles (kRagged above) on the
-// general kernels: blocks over (batch, ceil(Q/qt)) and (batch, ceil(P/pt)).
-template <class Src, class Outer>
-static cudaError_t launch_col_ragged(const Src& src, float2* y, long long batch, int p, int q,
-                                     int qt, const Stages& st, const Outer& outer,
-                                     cudaStream_t s) {
-  return launch_col_general<true, false>(src, y, batch, p, q, qt, st, outer, s);
-}
-
-template <class Dst>
-static cudaError_t launch_row_ragged(const float2* x, const Dst& dst, long long batch, int q,
-                                     int p, int pt, const Stages& st, cudaStream_t s) {
-  return launch_row_general<true, false>(x, dst, batch, q, p, pt, st, s);
+  return launch_row_general<false>(x, dst, batch, q, p, pt, st, s);
 }
 
 // The column and row stages in the Gauss form (kGauss above) on the general
@@ -359,13 +335,13 @@ template <class Src, class Outer>
 static cudaError_t launch_col_gauss(const Src& src, float2* y, long long batch, int p, int q,
                                     int qt, const Stages& st, const Outer& outer,
                                     cudaStream_t s) {
-  return launch_col_general<false, true>(src, y, batch, p, q, qt, st, outer, s);
+  return launch_col_general<true>(src, y, batch, p, q, qt, st, outer, s);
 }
 
 template <class Dst>
 static cudaError_t launch_row_gauss(const float2* x, const Dst& dst, long long batch, int q,
                                     int p, int pt, const Stages& st, cudaStream_t s) {
-  return launch_row_general<false, true>(x, dst, batch, q, p, pt, st, s);
+  return launch_row_general<true>(x, dst, batch, q, p, pt, st, s);
 }
 
 }  // namespace rf

@@ -13,10 +13,11 @@ checkout reuses the last build.  The build runs on first use, never at
 import: the CPU-only test runs import every module and have no nvcc.
 
 `load(phase_stamps=True)` builds and loads a second library from the same
-sources with `-DRF_PHASE_STAMPS`, which adds the stamped form of K7's
-cluster kernel (`rf_two_stage_cluster_phase_stamps`,
+sources with `-DRF_PHASE_STAMPS`, which adds the stamped forms of K7's
+cluster kernel (`rf_two_stage_cluster_phase_stamps`) and of K12's two
+kernels (`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`;
 tools/torch_phase_times.py); no route loads it, so no other build pays for
-that form.
+those forms.
 """
 from __future__ import annotations
 
@@ -76,10 +77,8 @@ _SIGNATURES = {
                                 + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2 + [_vp, _vp],
     "rf_two_stage_cluster_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_dense_fft": [_vp, _vp, _ll, _int, _int, _vp, _vp, _vp],
-    "rf_largepad_col_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
-                              _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
-    "rf_largepad_row_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
-                              _int, _vp, _vp, _vp, _vp, _vp, _vp],
+    "rf_largepad_col_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3 + [_vp, _vp],
+    "rf_largepad_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3 + [_vp],
     "rf_bconv_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8,
     "rf_bconv_out_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
 }
@@ -89,6 +88,10 @@ _STAMP_SIGNATURES = {
     "rf_two_stage_cluster_phase_stamps": [_vp, _vp, _ll, _int, _int, _int]
                                          + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
                                          + [_vp, _vp, _vp],
+    "rf_largepad_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3
+                                    + [_vp, _vp, _vp],
+    "rf_largepad_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3
+                                    + [_vp, _vp],
 }
 STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)
 

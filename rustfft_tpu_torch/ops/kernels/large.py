@@ -77,8 +77,9 @@ def col_tile(p: int, q: int, ragged: bool = False, gauss: bool = False) -> Optio
     (FIXED_COL) where it divides Q, else 16 (128-byte row segments) where it
     divides Q and two buffers fit shared memory, else the next smaller power
     of 2.  ragged: the same rule without "divides Q" (the width the tile
-    would have if it need not divide, ops/kernels/largepad.py).  gauss: the
-    Gauss form, which has no compile-time kernel."""
+    would have if it need not divide; largepad.narrowed_by_division
+    compares the two).  gauss: the Gauss form, which has no compile-time
+    kernel."""
     fixed = None if gauss else FIXED_COL.get(stage_radices(p))
     if fixed is not None and (ragged or q % fixed == 0):
         return fixed

@@ -338,16 +338,17 @@ def test_largepad_stages_match_plain_on_card(cuda_device, n):
     q = q1 * q2
     x = torch.from_numpy(_signal(3, n, seed=n)).to(cuda_device)
     for d, _ in DIRECTIONS:
-        r, t, outer = large.col_tables(p, q, d)
+        r, t, outer = largepad.col_tables(p, q, d)
         col = ([torch.from_numpy(a).to(cuda_device) for a in r],
                [torch.from_numpy(a).to(cuda_device) for a in t], torch.from_numpy(outer).to(cuda_device))
-        row = tuple([torch.from_numpy(a).to(cuda_device) for a in tabs] for tabs in large.row_tables(q, d))
+        row = tuple([torch.from_numpy(a).to(cuda_device) for a in tabs]
+                    for tabs in largepad.row_tables(q, d))
         a = largepad.largepad_col_stage(x, p, q, col)
         torch.cuda.synchronize()
-        assert _rel(a.cpu(), large.large_col_stage_plain(x, p, q, col).cpu()) <= TOL
+        assert _rel(a.cpu(), largepad.largepad_col_stage_plain(x, p, q, col).cpu()) <= TOL
         y = largepad.largepad_row_stage(a, q, p, row)
         torch.cuda.synchronize()
-        assert _rel(y.cpu(), large.large_row_stage_plain(a, q, p, row).cpu()) <= TOL
+        assert _rel(y.cpu(), largepad.largepad_row_stage_plain(a, q, p, row).cpu()) <= TOL
 
 
 @pytest.mark.cuda

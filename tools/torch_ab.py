@@ -16,9 +16,17 @@ warm-ups; of 15 for the paths other than 2^20): K1 (`lanepack_fft`,
 two-stage paths 14464 x 4096 (p = 113) and 16256 x 4096 (p = 127), and
 the cluster paths 28928 x 4096 (226 = 113 x 2) and 260608 x 256 (509 x 512),
 whose prime runs a Bluestein stage, and 24576 x 2048, 49152 x 2048 and
-98304 x 1024, whose radices are all register stages,
-through FftPlanner(np.complex64, device="cuda").  It prints one JSON line
-per run and then a table, each row a quantity and each column a run.
+98304 x 1024, whose radices are all register stages, and the large_pad
+paths (K12) at the odd composites 15625 x 4096, 78125 x 512, 177147 x 256
+and 531441 x 64 and at the route's bulk 234617 x 256 (P = 373, a
+1024-point Bluestein stage), 775575 x 64 (P = 383; Q = 15 x 15 x 9, direct
+sums), 412519 x 128 (P = 131; Q = 67 x 47) and 50666 x 1024 (P = 11 x 7
+x 2; Q = 47 x 7), through FftPlanner(np.complex64, device="cuda"), and
+K12's two stages alone at each large_pad path (`largepad_col_stage`,
+`largepad_row_stage`; a tree whose largepad module has no `col_tables`
+takes large's tables, as K12 did before its in-place chain).  It prints
+one JSON line per run and then a table, each row a quantity and each
+column a run.
 """
 from __future__ import annotations
 
@@ -32,6 +40,10 @@ PATHS = ((4096, 16384), (1 << 20, 1024), (1009, 8192), (1234, 8192), (7919, 4096
          (14464, 4096), (16256, 4096), (24576, 2048), (28928, 4096), (260608, 256), (49152, 2048),
          (98304, 1024))
 
+#: the large_pad paths (K12): the odd composites and the route's bulk
+PAD = ((15625, 4096), (78125, 512), (177147, 256), (531441, 64), (234617, 256), (775575, 64),
+       (412519, 128), (50666, 1024))
+
 
 def run_one(root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
@@ -39,7 +51,7 @@ def run_one(root: str) -> dict:
     import torch
 
     from rustfft_tpu_torch import FftDirection, FftPlanner
-    from rustfft_tpu_torch.ops.kernels import lanepack, large
+    from rustfft_tpu_torch.ops.kernels import lanepack, large, largepad
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -79,12 +91,30 @@ def run_one(root: str) -> dict:
     out["K3 large_row_stage 64x2^20"] = ms(lambda: large.large_row_stage(a, q, p, row))
     del x, a
     planner = FftPlanner(np.complex64, device="cuda")
-    for n, batch in PATHS:
+    for n, batch in PATHS + PAD:
         torch.cuda.empty_cache()
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
         plan = planner.plan_fft_forward(n)
         out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=7 if n == 1 << 20 else 15)
         del x
+    pad_tables = getattr(largepad, "col_tables", None)
+    for n, batch in PAD:
+        torch.cuda.empty_cache()
+        p, q1, q2 = large.choose_pqq(n)
+        q = q1 * q2
+        if pad_tables is not None:
+            r, t, outer = largepad.col_tables(p, q, FftDirection.FORWARD)
+            rows = largepad.row_tables(q, FftDirection.FORWARD)
+        else:
+            r, t, outer = large.col_tables(p, q, FftDirection.FORWARD)
+            rows = large.row_tables(q, FftDirection.FORWARD)
+        col = (on(r), on(t), on([outer])[0])
+        row = tuple(on(v) for v in rows)
+        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+        a = largepad.largepad_col_stage(x, p, q, col)
+        out[f"K12 col {n}x{batch}"] = ms(lambda: largepad.largepad_col_stage(x, p, q, col), reps=15)
+        out[f"K12 row {n}x{batch}"] = ms(lambda: largepad.largepad_row_stage(a, q, p, row), reps=15)
+        del x, a
     return out
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Split the time of K7's cluster kernel into its phases on one GPU.
+"""Split the time of K7's cluster kernel and K12's kernels into phases on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -7,12 +7,17 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 Default shapes: 49152:2048 (192 x 256, register radices only, 4 blocks a
 transform) and 260608:256 (509 x 512, the prime p = 509 as a Bluestein
-stage, 16 blocks).  For each shape it runs the stamped form of
-two_stage_cluster_kernel (fused.two_stage_cluster_phase_stamps, which no
+stage, 16 blocks) on K7's cluster kernel, and 531441:64 (243 x 2187, a
+radix-27 Bluestein stage on the row stage) and 234617:256 (373 x 629, the
+prime P = 373 as a 1024-point Bluestein stage) on K12's two kernels; a
+shape goes to K12 where `route` sends it to large_pad.  For each shape it
+runs the stamped form of each kernel (fused.two_stage_cluster_phase_stamps,
+largepad.largepad_col_phase_stamps and largepad_row_phase_stamps, which no
 route launches: thread 0 of every block reads %globaltimer after a block
-barrier at the kernel's start and at the end of the load, DFT_p, the
-exchange, DFT_q and the store), checks its output bit for bit against the
-kernel's, and prints:
+barrier at the kernel's start and at the end of each phase: the load,
+DFT_p, the exchange, DFT_q and the store of the cluster kernel; the load,
+the chain and the store of K12's), checks its output bit for bit against
+the kernel's, and prints:
 
   - per phase, the mean and median over blocks of its time in a block, in
     microseconds, and its share of a block's span (start to store);
@@ -33,7 +38,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SHAPES = ((49152, 2048), (260608, 256))
+SHAPES = ((49152, 2048), (260608, 256), (531441, 64), (234617, 256))
 
 
 def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -53,9 +58,69 @@ def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def main() -> None:
+def report(what: str, stamps, phases, stamped: float, plain: float) -> None:
+    """Print the phases of (blocks, len(phases) + 1) stamps in ns and the
+    wall times of the stamped launch and the kernel's own."""
+    s = stamps.double().cpu()
+    times = (s[:, 1:] - s[:, :-1]) / 1e3  # (blocks, phases) microseconds
+    span = (s[:, -1] - s[:, 0]) / 1e3
+    wall = (s[:, -1].max() - s[:, 0].min()).item() / 1e3
+    print(f"{what}: {s.shape[0]} blocks", flush=True)
+    for i, name in enumerate(phases):
+        col = times[:, i]
+        print(f"  {name:9s} mean {col.mean().item():9.2f} us  median "
+              f"{col.median().item():9.2f} us  {100 * col.mean().item() / span.mean().item():5.1f}% "
+              "of a block's span", flush=True)
+    print(f"  span: mean {span.mean().item():.2f} us; blocks resident at once "
+          f"{span.sum().item() / wall:.1f}; first to last stamp {wall / 1e3:.3f} ms; "
+          f"stamped launch {stamped:.3f} ms, kernel {plain:.3f} ms", flush=True)
+
+
+def largepad_phases(n: int, batch: int, gen) -> None:
+    """K12's column and row kernels at n x batch through their stamped
+    forms."""
     import torch
 
+    from rustfft_tpu_torch.common import FftDirection
+    from rustfft_tpu_torch.ops.kernels import fused, large, largepad
+
+    dev = torch.device("cuda")
+
+    def card(tables):
+        return tuple([torch.from_numpy(a).to(dev) for a in t] if isinstance(t, list)
+                     else torch.from_numpy(t).to(dev) for t in tables)
+
+    p, q1, q2 = large.choose_pqq(n)
+    q = q1 * q2
+    col = card(largepad.col_tables(p, q, FftDirection.FORWARD))
+    row = card(largepad.row_tables(q, FftDirection.FORWARD))
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+    a = largepad.largepad_col_stage(x, p, q, col)
+    for stage, stamped_fn, fn, inp, m, other, tabs in (
+            ("col", largepad.largepad_col_phase_stamps, largepad.largepad_col_stage, x, p, q,
+             col),
+            ("row", largepad.largepad_row_phase_stamps, largepad.largepad_row_stage, a, q, p,
+             row)):
+        stamped_fn(inp, m, other, tabs)  # warm-up (and the stamped library's build)
+        y, stamps = stamped_fn(inp, m, other, tabs)
+        torch.cuda.synchronize()
+        if not torch.equal(y, fn(inp, m, other, tabs)):
+            raise SystemExit(f"n={n} {stage}: the stamped kernel differs from the kernel")
+        report(f"n={n} ({p} x {q}) batch={batch} largepad_{stage}_stage over "
+               f"{large.stage_radices(m)} (Bluestein lengths "
+               f"{fused.bluestein_ms(large.stage_radices(m))}), tile {largepad.tile(m)}",
+               stamps, largepad.PHASES,
+               median_ms(lambda: stamped_fn(inp, m, other, tabs)),
+               median_ms(lambda: fn(inp, m, other, tabs)))
+    del x, a
+    torch.cuda.empty_cache()
+
+
+def main() -> None:
+    import numpy as np
+    import torch
+
+    from rustfft_tpu_torch import route
     from rustfft_tpu_torch.common import FftDirection
     from rustfft_tpu_torch.ops.kernels import fused, large
 
@@ -67,6 +132,9 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for n, batch in shapes:
+        if route(n, np.complex64) == "large_pad":
+            largepad_phases(n, batch, gen)
+            continue
         p, q = fused.choose_pq(n)
         c = fused.choose_cluster(n)
         host = fused.two_stage_tables(p, large.stage_radices(q), FftDirection.FORWARD)
@@ -78,23 +146,11 @@ def main() -> None:
         torch.cuda.synchronize()
         if not torch.equal(y, fused.two_stage_cluster_fft(x, p, q, c, tabs)):
             raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
-        s = stamps.double().cpu()
-        phases = (s[:, 1:] - s[:, :-1]) / 1e3  # (blocks, 5) microseconds
-        span = (s[:, -1] - s[:, 0]) / 1e3
-        wall = (s[:, -1].max() - s[:, 0].min()).item() / 1e3
-        print(f"n={n} ({p} x {q}, {large.stage_radices(p)} x {large.stage_radices(q)}, "
-              f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}) batch={batch} "
-              f"on clusters of {c}: {s.shape[0]} blocks", flush=True)
-        for i, name in enumerate(fused.PHASES):
-            col = phases[:, i]
-            print(f"  {name:9s} mean {col.mean().item():9.2f} us  median "
-                  f"{col.median().item():9.2f} us  {100 * col.mean().item() / span.mean().item():5.1f}% "
-                  "of a block's span", flush=True)
-        stamped = median_ms(lambda: fused.two_stage_cluster_phase_stamps(x, p, q, c, tabs))
-        plain = median_ms(lambda: fused.two_stage_cluster_fft(x, p, q, c, tabs))
-        print(f"  span: mean {span.mean().item():.2f} us; blocks resident at once "
-              f"{span.sum().item() / wall:.1f}; first to last stamp {wall / 1e3:.3f} ms; "
-              f"stamped launch {stamped:.3f} ms, kernel {plain:.3f} ms", flush=True)
+        report(f"n={n} ({p} x {q}, {large.stage_radices(p)} x {large.stage_radices(q)}, "
+               f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}) batch={batch} "
+               f"on clusters of {c}", stamps, fused.PHASES,
+               median_ms(lambda: fused.two_stage_cluster_phase_stamps(x, p, q, c, tabs)),
+               median_ms(lambda: fused.two_stage_cluster_fft(x, p, q, c, tabs)))
         del x, y, stamps
         torch.cuda.empty_cache()
 

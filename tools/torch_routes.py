@@ -3,19 +3,30 @@
 
 Run from the repository root; it needs no GPU:
 
-    python3 tools/torch_routes.py [LO HI]
+    python3 tools/torch_routes.py [--chains] [LO HI]
 
 For complex64 and every n in [LO, HI) (default [14464, 2^20), about four
 minutes on one CPU core) prints how many sizes `rustfft_tpu_torch.route`
 sends to each route, with the first few of each.  It shows how far a route
 rule reaches beyond the sizes its tests pin: for example how many of the
 sizes with a `large` split go to `large_pad` (largepad.narrowed_by_division).
+
+With --chains it also splits the sizes of each two-chain route (large_pad
+and large: the column stage's P and the row stage's Q of large.choose_pqq;
+two_stage: p and q of fused.choose_pq) by the class of each chain's
+costliest stage, as K7's and K12's kernels run them
+(fused.bluestein_stage_m): "register" (every radix 2-9, 12 or 16), "direct
+sum" (a roots-table stage, no Bluestein stage), "Bluestein r<=256" (a
+Bluestein stage of M <= 512) and "Bluestein 257-509" (the prime P as one
+stage of M = 1024).  `large`'s own kernels run every radix without a
+register stage as a direct sum; the class says what K7's chain would run.
 """
 from __future__ import annotations
 
 import os
 import sys
 from collections import Counter
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -23,20 +34,77 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from rustfft_tpu_torch import route  # noqa: E402
+from rustfft_tpu_torch.ops.kernels import fused, large, lanepack  # noqa: E402
+
+#: the chain classes, cheapest first
+CLASSES = ("register", "direct sum", "Bluestein r<=256", "Bluestein 257-509")
 
 
-def main() -> None:
-    lo, hi = (int(a) for a in sys.argv[1:3]) if len(sys.argv) > 2 else (14464, 1 << 20)
+def chain_class(m: int) -> str:
+    """The class of the costliest stage of large.stage_radices(m)."""
+    worst = 0
+    for r in large.stage_radices(m):
+        bm = fused.bluestein_stage_m(r)
+        worst = max(worst, 3 if bm == 1024 else 2 if bm else 0 if r in lanepack.REGISTER_RADICES
+                    else 1)
+    return CLASSES[worst]
+
+
+def chains(n: int, name: Optional[str]) -> Optional[Tuple[str, str]]:
+    """(first chain's class, second chain's class) of n on a two-chain
+    route, else None."""
+    if name in ("large_pad", "large"):
+        p, q1, q2 = large.choose_pqq(n)
+        return chain_class(p), chain_class(q1 * q2)
+    if name == "two_stage":
+        p, q = fused.choose_pq(n)
+        return chain_class(p), chain_class(q)
+    return None
+
+
+def count_routes(lo: int, hi: int, with_chains: bool = False):
+    """(sizes per route, first few n per route, sizes per (route, chain
+    classes) with with_chains) over n in [lo, hi)."""
     counts: Counter = Counter()
+    by_chain: Counter = Counter()
     first: dict = {}
     for n in range(lo, hi):
         name = route(n, np.complex64)
         counts[name] += 1
         if len(first.setdefault(name, [])) < 5:
             first[name].append(n)
+        if with_chains:
+            pair = chains(n, name)
+            if pair is not None:
+                by_chain[(name, *pair)] += 1
+    return counts, first, by_chain
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    with_chains = "--chains" in args
+    args = [a for a in args if a != "--chains"]
+    lo, hi = (int(a) for a in args[:2]) if len(args) > 1 else (14464, 1 << 20)
+    counts, first, by_chain = count_routes(lo, hi, with_chains)
     print(f"routes of complex64 n in [{lo}, {hi}):")
     for name, count in counts.most_common():
         print(f"  {name}: {count} sizes (first {', '.join(map(str, first[name]))})")
+    if with_chains:
+        print("two-chain routes by the class of each chain (first stage x second stage):")
+        for name in ("large_pad", "large", "two_stage"):
+            total = sum(c for key, c in by_chain.items() if key[0] == name)
+            for a in CLASSES:
+                for b in CLASSES:
+                    c = by_chain.get((name, a, b), 0)
+                    if c:
+                        print(f"  {name}: {a} x {b}: {c} sizes ({100 * c / total:.1f}%)")
+            for i, stage in enumerate(("first", "second")):
+                cls = Counter()
+                for key, c in by_chain.items():
+                    if key[0] == name:
+                        cls[key[1 + i]] += c
+                print(f"  {name} {stage} chain: " + ", ".join(
+                    f"{k} {cls[k]} ({100 * cls[k] / total:.1f}%)" for k in CLASSES if cls[k]))
 
 
 if __name__ == "__main__":
