@@ -24,7 +24,7 @@
 // last stage written to device memory).  The TPU kernel's lane<->sublane
 // transposes, 128-row batch groups, lane padding and bf16 hi/lo tables have
 // no counterpart here.
-#include "fft_tile.cuh"
+#include "inplace_chain.cuh"
 
 namespace rf {
 
@@ -58,6 +58,37 @@ __global__ void __launch_bounds__(kFixedThreads<1, R0, R1, R2>)
                              sroots, st);
 }
 
+#ifdef RF_PHASE_STAMPS
+// lanepack_fixed_kernel<16, 16, 16> with phase stamps: %globaltimer at the
+// start and after stage 0 (the load and the first DFT_16), stage 1 and
+// stage 2 (the last DFT_16 and the store), read by thread 0 after a block
+// barrier (tools/torch_phase_times.py).
+constexpr int kLpStamps = 4;
+
+__global__ void __launch_bounds__(kFixedThreads<1, 16, 16, 16>)
+    lanepack_fixed_stamped_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                                  Stages st, unsigned long long* stamps) {
+  constexpr int NT = kFixedThreads<1, 16, 16, 16>;
+  __shared__ float2 buf[4096];
+  __shared__ float2 sroots[48];
+  auto stamp = [&](int i) {
+    __syncthreads();
+    if (threadIdx.x == 0) stamps[(size_t)blockIdx.x * kLpStamps + i] = global_timer();
+  };
+  stamp(0);
+  load_roots(st, sroots);
+  __syncthreads();
+  const size_t base = (size_t)blockIdx.x * 4096;
+  const SmemTile tile{buf};
+  fixed_stage<16, 1, 256, 1, NT>(GlobalIn<1>{x + base, 1}, tile, sroots, st.tw[0]);
+  stamp(1);
+  fixed_stage<16, 16, 16, 1, NT>(tile, tile, sroots + 16, st.tw[1]);
+  stamp(2);
+  fixed_stage<16, 256, 1, 1, NT>(tile, GlobalOut<1>{y + base, 1}, sroots + 32, nullptr);
+  stamp(3);
+}
+#endif
+
 }  // namespace rf
 
 extern "C" const char* rf_error_string(int code) {
@@ -89,3 +120,22 @@ extern "C" int rf_lanepack_fft(const void* x, void* y, long long batch, int n, i
       static_cast<const float2*>(x), static_cast<float2*>(y), n, st);
   return cudaGetLastError();
 }
+
+#ifdef RF_PHASE_STAMPS
+// The main-path chain (16, 16, 16) through its stamped form: stamps (batch,
+// 4) uint64 %globaltimer nanoseconds.  Only the library built with
+// RF_PHASE_STAMPS has it (tools/torch_phase_times.py).
+extern "C" int rf_lanepack_phase_stamps(const void* x, void* y, long long batch,
+                                        const void* roots0, const void* roots1,
+                                        const void* roots2, const void* tw0, const void* tw1,
+                                        void* stamps, void* stream) {
+  using namespace rf;
+  if (batch <= 0 || batch > 0x7fffffffLL || stamps == nullptr) return cudaErrorInvalidValue;
+  const Stages st = make_stages(3, 16, 16, 16, roots0, roots1, roots2, tw0, tw1);
+  lanepack_fixed_stamped_kernel<<<(unsigned)batch, kFixedThreads<1, 16, 16, 16>, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<float2*>(y), st,
+      static_cast<unsigned long long*>(stamps));
+  return cudaGetLastError();
+}
+#endif

@@ -92,6 +92,7 @@ _STAMP_SIGNATURES = {
                                     + [_vp, _vp, _vp],
     "rf_largepad_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3
                                     + [_vp, _vp],
+    "rf_lanepack_phase_stamps": [_vp, _vp, _ll] + [_vp] * 7,
 }
 STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)
 

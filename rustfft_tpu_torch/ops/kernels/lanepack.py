@@ -254,6 +254,35 @@ def lanepack_fft(x: torch.Tensor, radices: Sequence[int], tables) -> torch.Tenso
 lanepack_fft.launches = 0
 
 
+#: the stamped form's phases (tools/torch_phase_times.py): stage 0 with the
+#: load, stage 1, stage 2 with the store
+PHASES = ("load+stage0", "stage1", "stage2+store")
+PHASE_STAMPS = len(PHASES) + 1
+
+
+def lanepack_phase_stamps(x: torch.Tensor, tables):
+    """lanepack_fft at n = 4096, radices (16, 16, 16), through the stamped
+    form of its compile-time kernel, which only the library built with
+    RF_PHASE_STAMPS holds: (y, stamps), stamps (batch, PHASE_STAMPS) int64
+    nanoseconds of %globaltimer, read by each block's thread 0 after a block
+    barrier at its start and at the end of each of PHASES."""
+    roots, tws = tables
+    radices = (16, 16, 16)
+    check_operand(x, (x.shape[0], 4096), "lanepack_phase_stamps input")
+    check_stage_tables(4096, radices, roots, tws, x.device, "lanepack_phase_stamps")
+    require_cuda(x, "lanepack_phase_stamps")
+    y = torch.empty_like(x)
+    stamps = torch.zeros((x.shape[0], PHASE_STAMPS), dtype=torch.int64, device=x.device)
+    lib = _build.load(phase_stamps=True)
+    with torch.cuda.device(x.device):
+        code = lib.rf_lanepack_phase_stamps(
+            x.data_ptr(), y.data_ptr(), x.shape[0], *[t.data_ptr() for t in roots],
+            *[t.data_ptr() for t in tws], stamps.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "lanepack_phase_stamps")
+    return y, stamps
+
+
 #: the I/O views make_lanepack_fn accepts (the JAX package's lanepack variants)
 VARIANTS = ("block", "flat")
 

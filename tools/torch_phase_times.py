@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Split the time of K7's cluster kernel and K12's kernels into phases on one GPU.
+"""Split the time of K1's, K7's cluster kernel's and K12's kernels into phases on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/torch_phase_times.py [N:BATCH ...]
 
-Default shapes: 49152:2048 (192 x 256, register radices only, 4 blocks a
+Default shapes: 4096:16384 (K1's compile-time kernel, (16, 16, 16)),
+49152:2048 (192 x 256, register radices only, 4 blocks a
 transform) and 260608:256 (509 x 512, the prime p = 509 as a Bluestein
 stage, 16 blocks) on K7's cluster kernel, and 531441:64 (243 x 2187, a
 radix-27 Bluestein stage on the row stage) and 234617:256 (373 x 629, the
 prime P = 373 as a 1024-point Bluestein stage) on K12's two kernels; a
-shape goes to K12 where `route` sends it to large_pad.  For each shape it
-runs the stamped form of each kernel (fused.two_stage_cluster_phase_stamps,
+shape goes to K12 where `route` sends it to large_pad, to K1 where it
+sends it to lanepack.  For each shape it
+runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
+fused.two_stage_cluster_phase_stamps,
 largepad.largepad_col_phase_stamps and largepad_row_phase_stamps, which no
 route launches: thread 0 of every block reads %globaltimer after a block
 barrier at the kernel's start and at the end of each phase: the load,
 DFT_p, the exchange, DFT_q and the store of the cluster kernel; the load,
-the chain and the store of K12's), checks its output bit for bit against
+the chain and the store of K12's; K1's stages, the first with the load
+and the last with the store), checks its output bit for bit against
 the kernel's, and prints:
 
   - per phase, the mean and median over blocks of its time in a block, in
@@ -38,7 +42,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SHAPES = ((49152, 2048), (260608, 256), (531441, 64), (234617, 256))
+SHAPES = ((4096, 16384), (49152, 2048), (260608, 256), (531441, 64), (234617, 256))
 
 
 def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -116,6 +120,32 @@ def largepad_phases(n: int, batch: int, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def lanepack_phases(n: int, batch: int, gen) -> None:
+    """K1's compile-time kernel at 4096 x batch through its stamped form."""
+    import torch
+
+    from rustfft_tpu_torch.common import FftDirection
+    from rustfft_tpu_torch.ops.kernels import lanepack
+
+    if n != 4096:
+        raise SystemExit(f"n={n}: K1's stamped form is the 4096 kernel's only")
+    dev = torch.device("cuda")
+    radices = lanepack.choose_radices(n)
+    tables = tuple([torch.from_numpy(a).to(dev) for a in t]
+                   for t in lanepack.stage_tables(n, radices, FftDirection.FORWARD))
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+    lanepack.lanepack_phase_stamps(x, tables)  # warm-up (and the stamped library's build)
+    y, stamps = lanepack.lanepack_phase_stamps(x, tables)
+    torch.cuda.synchronize()
+    if not torch.equal(y, lanepack.lanepack_fft(x, radices, tables)):
+        raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
+    report(f"n={n} {radices} batch={batch} lanepack_fft", stamps, lanepack.PHASES,
+           median_ms(lambda: lanepack.lanepack_phase_stamps(x, tables)),
+           median_ms(lambda: lanepack.lanepack_fft(x, radices, tables)))
+    del x, y, stamps
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -132,6 +162,9 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for n, batch in shapes:
+        if route(n, np.complex64) == "lanepack":
+            lanepack_phases(n, batch, gen)
+            continue
         if route(n, np.complex64) == "large_pad":
             largepad_phases(n, batch, gen)
             continue
