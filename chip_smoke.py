@@ -12,7 +12,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the build;
 2. each kernel against its plain torch version on the card, forward and
    inverse, relative mean error <= 1e-5: the whole-transform kernels
-   (lanepack, large), the one-pass convolution core at m = 1008 (the Rader
+   (K1 within 1e-6: the pipelined 4096 kernel, and the chain kernel at
+   packed small n, four register stages, Bluestein stages of 512 points,
+   direct sums, ragged last blocks; large), the one-pass convolution core at m = 1008 (the Rader
    1009 shape) and m = 3072 (the Bluestein 1234 shape) with its tables and
    conj off and on, the two-pass core stage by stage at m = 65536 (Rader
    65537: gathers, x0, sums, full output) and m = 16384 (Bluestein 7919),
@@ -33,7 +35,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    stage, p = (19, 12) and (23, 5, 3)) and 40832 (a Bluestein stage, then
    a direct sum: p = (29, 11)), with the cudaOccupancyMaxActiveClusters of
    each cluster size.  The last three tiers
-   at small batches: dense_fft at n = 5, 127, 251 and 1009 in both forms,
+   at small batches: dense_fft at n = 5, 23, 127, 251 and 1009 in both
+   forms, K5's chain form (dense_chain_fft, one Bluestein stage on K1's
+   chain kernel) within 1e-6 at 29, 127 and 251,
    the two ragged-tile stages of large_pad (K12's in-place chain) within
    1e-6 at PAD_CHECKS: every stage kind (register, direct sum, Bluestein at
    M = 64 .. 1024) and a ragged last tile on both axes (17161 counts into
@@ -46,7 +50,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (Bluestein, Gauss only), with the result against the float64 oracle;
 3. the main paths through the public entry,
    FftPlanner(np.complex64, device="cuda").plan_fft_forward/inverse(n)
-   .process(x): n = 4096 at batch 8 and 16384, n = 2^20 at batch 1024
+   .process(x): n = 4096 at batch 8 and 16384 (the pipelined kernel), K1's
+   chain kernel at 64 x 2^20, 1000 x 65536, 2008 x 32768, 8192 x 8192 and
+   14400 x 4096, n = 2^20 at batch 1024
    (the flagship n; batch cut from 4096 so that input, intermediate and
    output fit the card), the prime path at 1009 x 8192, 1234 x 8192,
    7919 x 4096 and 65537 x 512 (the JAX bench's rows and the 7919 cell),
@@ -56,9 +62,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    Bluestein stage), 32768 x 2048, 65536 x 1024 (the JAX bench's row),
    131072 x 512 and 262144 x 256 (radix), K7's cluster band at 28928 x
    4096, 49152 x 2048, 98304 x 1024, 196608 x 512, 245760 x 256 and
-   260608 x 256 (two_stage, one cluster launch each), the primes 127 x
-   262144 and
-   251 x 131072 (dense), the odd composites 15625 x 4096, 78125 x 512,
+   260608 x 256 (two_stage, one cluster launch each), the primes 29 x
+   2^20, 127 x 262144 and 251 x 131072 (dense, K5's chain form) and 23 x
+   2^21 (dense, the product), the odd composites 15625 x 4096, 78125 x 512,
    177147 x 256 and 531441 x 64 and the route's bulk 234617 x 256, 775575
    x 64, 412519 x 128 and 50666 x 1024 (large_pad), 1000003 x 64 and 24571 x 2048
    (the fused large Bluestein; 24571's inner m = 49152 is on the cluster
@@ -97,10 +103,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    planner keeps, and on the two-pass core the JAX rule gives it, in turns.
    The two-stage kernel's general body is reported at 24576 (its phase 2
    check at 20480 counts into that entry's max_abs_err) and at each ONE
-   path.  The
-   last three tiers: dense_fft in both forms against x @ W (the Dft leaf
-   it replaced, and the one-call PyTorch time) and each dense path against
-   torch.fft; dense_fft against the lanepack route at 256 x 262144 and the
+   path.  K1: each kernel at each of its paths against its plain version
+   (within 1e-6), its bound, torch.fft and the operations its chain spends;
+   the pipelined kernel also against the chain kernel on the same chain.
+   The last three tiers: K5's chain form against its plain version (within
+   1e-6), its bound, torch.fft (its one-call PyTorch time), x @ W and the
+   block product; the product at 23 against x @ W (the Dft leaf it
+   replaced, and the one-call PyTorch time), its other form and torch.fft;
+   each dense path against torch.fft; dense_fft against the lanepack route
+   at 256 x 262144 and the
    convolution cores at 1009 and 1234 x 8192 (the dense crossover); each
    large_pad stage against its plain version (within 1e-6), its bound,
    the operations its chain spends and large's stage at one-column tiles, and each
@@ -159,8 +170,17 @@ ONE = {14464: 4096, 16256: 4096, 28544: 2048}
 #: prime p as one Bluestein stage, ragged row shares) on 16
 CLUSTER = {28928: 4096, 49152: 2048, 98304: 1024, 196608: 512, 245760: 256, 260608: 256}
 
-#: the dense tier's paths (K5): the primes n -> batch (266 and 263 MiB)
-DENSE = {127: 262144, 251: 131072}
+#: K1's chain kernel (lanepack_chain_fft) at the route's sizes: n -> batch
+#: (450-512 MiB each): 64 (128 transforms a block), 1000 = 8 x 5 x 5 x 5
+#: and 8192 = 16 x 16 x 16 x 2 (four register stages), 2008 = 251 x 8 (a
+#: 512-point Bluestein stage), 14400 = 16 x 10 x 10 x 9 (direct sums)
+LANE = {64: 1 << 20, 1000: 65536, 2008: 32768, 8192: 8192, 14400: 4096}
+
+#: the dense tier's paths (K5): the primes from 29 as one Bluestein stage on
+#: K1's chain kernel (dense_chain_fft), n -> batch (232-266 MiB), and 23, a
+#: prime below the Bluestein crossover, on the product (dense_fft)
+DENSE = {29: 1 << 20, 127: 262144, 251: 131072}
+DENSE_PRODUCT = {23: 1 << 21}
 
 #: the ragged-tile paths (K12): the odd composites n -> batch, and the
 #: route's bulk at about 400 MiB each: 234617 = 373 x (37 x 17) (a
@@ -189,7 +209,8 @@ NOT_ROUTED = {"three_stage_fft"}
 #: every ported kernel: (its source, the TPU kernel it replaces); conv_fft
 #: serves K13 and K6, reported at the shape of each
 KERNELS = {
-    "lanepack_fft": ("rustfft_tpu_torch/csrc/lanepack.cu", "rustfft_tpu/ops/pallas/lanepack.py:250"),
+    "lanepack_pipe_fft": ("rustfft_tpu_torch/csrc/lanepack.cu",
+                          "rustfft_tpu/ops/pallas/lanepack.py:250"),
     "large_col_stage": ("rustfft_tpu_torch/csrc/large.cu", "rustfft_tpu/ops/pallas/large.py:60"),
     "large_row_stage": ("rustfft_tpu_torch/csrc/large.cu", "rustfft_tpu/ops/pallas/large.py:241"),
     "conv_fft/K13": ("rustfft_tpu_torch/csrc/conv.cu", "rustfft_tpu/ops/pallas/conv.py:119"),
@@ -227,10 +248,18 @@ KERNELS["three_stage_fft/16384"] = ("rustfft_tpu_torch/csrc/fused.cu",
 for _n in CLUSTER:
     KERNELS[f"two_stage_cluster_fft/{_n}"] = ("rustfft_tpu_torch/csrc/fused.cu",
                                               "rustfft_tpu/ops/pallas/fused.py:439")
-#: the last three tiers: K5 at each dense path (the block form, n <= 256),
-#: K12's two stages at each odd composite, K15's three kernels (its kernel
-#: A is the two-pass core's column stage, in place of large._kernel_a)
+#: K1's chain kernel at each of its paths
+for _n in LANE:
+    KERNELS[f"lanepack_chain_fft/{_n}"] = ("rustfft_tpu_torch/csrc/lanepack.cu",
+                                           "rustfft_tpu/ops/pallas/lanepack.py:250")
+#: the last three tiers: K5 at each dense path (the chain form from 29, the
+#: product's block form below), K12's two stages at each odd composite,
+#: K15's three kernels (its kernel A is the two-pass core's column stage, in
+#: place of large._kernel_a)
 for _n in DENSE:
+    KERNELS[f"dense_chain_fft/{_n}"] = ("rustfft_tpu_torch/csrc/lanepack.cu",
+                                        "rustfft_tpu/ops/pallas/dense.py:161")
+for _n in DENSE_PRODUCT:
     KERNELS[f"dense_fft/{_n}"] = ("rustfft_tpu_torch/csrc/dense.cu",
                                   "rustfft_tpu/ops/pallas/dense.py:161")
 for _n in PAD:
@@ -479,18 +508,29 @@ def main() -> None:
     print(f"phase 2: kernels against their plain torch versions (t = "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     max_abs = {name: 0.0 for name in KERNELS}
-    for n, batch, radices in ((4096, 257, lanepack.choose_radices(4096)),
-                              (4096, 257, (256, 16)),
-                              (3888, 130, lanepack.choose_radices(3888))):
+    # K1's two kernels within 1e-6 of their plain versions: the pipelined
+    # 4096 kernel (257 rows: a ragged last wave), and the chain kernel at
+    # packed small n with a ragged last block (64, 12), four register stages
+    # (1000, 8192), Bluestein stages (M = 512 at 2008 and in the explicit
+    # chains (256, 16) and (16, 243)) and direct sums (14400); the entries
+    # of sizes that are not paths count into 2008's
+    for n, batch, radices in ((4096, 257, lanepack.PIPE_RADICES), (64, 300, None),
+                              (1000, 17, None), (2008, 9, None), (8192, 3, None),
+                              (14400, 2, None), (12, 1000, None), (4096, 5, (256, 16)),
+                              (3888, 5, (16, 243))):
+        radices = radices or lanepack.choose_radices(n)
+        name = ("lanepack_pipe_fft" if radices == lanepack.PIPE_RADICES else
+                f"lanepack_chain_fft/{n if n in LANE else 2008}")
         x = signal(batch, n)
         for d in directions:
-            roots, tws = lanepack.stage_tables(n, radices, d)
-            tables = (on_card(roots), on_card(tws))
+            tables = card_tables(lanepack.chain_tables(n, radices, d))
             got = lanepack.lanepack_fft(x, radices, tables)
             torch.cuda.synchronize()
             want = lanepack.lanepack_fft_plain(x, radices, tables)
-            check(f"lanepack_fft n={n} {radices} batch={batch} {d.name}", rel_err(got, want))
-            max_abs["lanepack_fft"] = max(max_abs["lanepack_fft"], (got - want).abs().max().item())
+            check(f"{name.split('/')[0]} n={n} {radices} Bluestein "
+                  f"{lanepack.bluestein_ms(radices, lanepack.MAX_STAGES)} width "
+                  f"{lanepack.chain_width(n)} batch={batch} {d.name}", rel_err(got, want), K7_TOL)
+            max_abs[name] = max(max_abs[name], (got - want).abs().max().item())
     for n, batch in ((1 << 20, 4), (32768, 3)):
         p, q1, q2 = large.choose_pqq(n)
         q = q1 * q2
@@ -552,7 +592,7 @@ def main() -> None:
         free()
 
     def conv_tables(m, d, h, pre=None, post=None):
-        radices = lanepack.choose_radices(m)
+        radices = lanepack.tile_radices(m)
         roots, tws = lanepack.stage_tables(m, radices, d)
         extra = [None if t is None else torch.from_numpy(conv_radix.zero_extended(t, m)).to(dev)
                  for t in (h, pre, post)]
@@ -772,16 +812,25 @@ def main() -> None:
     # a ragged last tile on both axes; the fused large Bluestein's kernels at
     # both inner lengths (746497 counts into the 1000003 entries unless it
     # is a path of its own)
-    for n in (5, 127, 251, 1009):
+    for n in (5, 23, 127, 251, 1009):
         x = signal(300, n)
-        key = "dense_fft/127" if n <= 127 else "dense_fft/251"
         for d in directions:
             for variant in dense.VARIANTS:
                 tabs = dense_card(n, d, variant)
                 got = dense.dense_fft(x, tabs, variant)
                 torch.cuda.synchronize()
-                note(key, got, dense.dense_fft_plain(x, tabs, variant),
+                note("dense_fft/23", got, dense.dense_fft_plain(x, tabs, variant),
                      f"dense_fft n={n} {variant} batch=300 {d.name}")
+    # K5's chain form within 1e-6: one Bluestein stage at M = 64, 256, 512
+    for n in DENSE:
+        x = signal(300, n)
+        for d in directions:
+            table = torch.from_numpy(dense.chain_table(n, d)).to(dev)
+            got = dense.dense_chain_fft(x, table)
+            torch.cuda.synchronize()
+            note(f"dense_chain_fft/{n}", got, dense.dense_chain_fft_plain(x, table),
+                 f"dense_chain_fft n={n} Bluestein {lanepack.bluestein_stage_m(n)} width "
+                 f"{lanepack.chain_width(n)} batch=300 {d.name}", K7_TOL)
     for n in PAD_CHECKS:
         x = signal(2, n)
         key = n if n in PAD else 412519
@@ -827,7 +876,8 @@ def main() -> None:
     # ---- phase 3: the main path through the public entry ----
     print(f"phase 3: main path, FftPlanner(np.complex64, device='cuda') (t = "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    counters = {"lanepack_fft": lanepack.lanepack_fft,
+    counters = {"lanepack_pipe_fft": lanepack.lanepack_pipe_fft,
+                "lanepack_chain_fft": lanepack.lanepack_chain_fft,
                 "large_col_stage": large.large_col_stage,
                 "large_row_stage": large.large_row_stage,
                 "conv_fft": conv.conv_fft,
@@ -842,6 +892,7 @@ def main() -> None:
                 "two_stage_cluster_fft": fused.two_stage_cluster_fft,
                 "three_stage_fft": fused.three_stage_fft,
                 "dense_fft": dense.dense_fft,
+                "dense_chain_fft": dense.dense_chain_fft,
                 "largepad_col_stage": largepad.largepad_col_stage,
                 "largepad_row_stage": largepad.largepad_row_stage,
                 "bconv_row_stage": convlarge.bconv_row_stage,
@@ -856,7 +907,8 @@ def main() -> None:
     assert [route(n, np.complex64) for n in MID] == ["two_stage"] * 2 + ["radix"] * 4
     assert [route(n, np.complex64) for n in CLUSTER] == ["two_stage"] * len(CLUSTER)
     assert [route(n, np.complex64) for n in ONE] == ["two_stage"] * len(ONE)
-    assert [route(n, np.complex64) for n in DENSE] == ["dense"] * len(DENSE)
+    assert [route(n, np.complex64) for n in {**DENSE, **DENSE_PRODUCT}] == ["dense"] * 4
+    assert [route(n, np.complex64) for n in LANE] == ["lanepack"] * len(LANE)
     assert [route(n, np.complex64) for n in PAD] == ["large_pad"] * len(PAD)
     assert route(10 ** 6, np.complex64) == "large"
     k15 = {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}
@@ -901,8 +953,9 @@ def main() -> None:
               float(np.mean(np.abs(out - ref)) / np.mean(np.abs(ref))))
 
     paths = (
-        (4096, 8, {"lanepack_fft": 1}),
-        (4096, 16384, {"lanepack_fft": 1}),
+        (4096, 8, {"lanepack_pipe_fft": 1}),
+        (4096, 16384, {"lanepack_pipe_fft": 1}),
+        *((n, batch, {"lanepack_chain_fft": 1}) for n, batch in LANE.items()),
         (1 << 20, 1024, {"large_col_stage": 1, "large_row_stage": 1}),
         (1009, 8192, {"conv_fft": 1, "permute": 2}),
         (1234, 8192, {"conv_fft": 1}),
@@ -915,7 +968,8 @@ def main() -> None:
           for n, batch in MID.items()),
         *((n, batch, {"two_stage_fft": 1}) for n, batch in ONE.items()),
         *((n, batch, {"two_stage_cluster_fft": 1}) for n, batch in CLUSTER.items()),
-        *((n, batch, {"dense_fft": 1}) for n, batch in DENSE.items()),
+        *((n, batch, {"dense_chain_fft": 1}) for n, batch in DENSE.items()),
+        *((n, batch, {"dense_fft": 1}) for n, batch in DENSE_PRODUCT.items()),
         *((n, batch, {"largepad_col_stage": 1, "largepad_row_stage": 1})
           for n, batch in PAD.items()),
         *((n, batch, k15) for n, (_, batch) in BLUE.items()),
@@ -1016,30 +1070,38 @@ def main() -> None:
               f"{'none' if library is None else f'{library:.3f} ms'} (t = "
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
-    n, batch = 4096, 16384
-    x = signal(batch, n)
-    default = lanepack.choose_radices(n)
-    for radices in (default, (256, 16)):
-        roots, tws = lanepack.stage_tables(n, radices, FftDirection.FORWARD)
-        tables = (on_card(roots), on_card(tws))
-        if radices == default:
-            note("lanepack_fft", lanepack.lanepack_fft(x, radices, tables),
-                 lanepack.lanepack_fft_plain(x, radices, tables),
-                 f"lanepack_fft n={n} {radices} batch={batch} (the main path's shape)")
+    # K1: the pipelined kernel at the main path's shape (and the chain
+    # kernel on the same chain, the design it replaced at 4096), then the
+    # chain kernel at each of its paths; each against its plain version,
+    # its bound (with the operations its chain spends, chain_ops) and
+    # torch.fft
+    for n, batch in ((4096, 16384), *LANE.items()):
+        x = signal(batch, n)
+        radices = lanepack.choose_radices(n)
+        tables = card_tables(lanepack.chain_tables(n, radices, FftDirection.FORWARD))
+        name = ("lanepack_pipe_fft" if radices == lanepack.PIPE_RADICES
+                else f"lanepack_chain_fft/{n}")
+        note(name, lanepack.lanepack_fft(x, radices, tables),
+             lanepack.lanepack_fft_plain(x, radices, tables),
+             f"{name} n={n} {radices} batch={batch} (the main path's shape)", K7_TOL)
+        free()
         k = median_ms(lambda: lanepack.lanepack_fft(x, radices, tables))
         plain = median_ms(lambda: lanepack.lanepack_fft_plain(x, radices, tables))
-        print(f"  lanepack_fft n={n} {radices} batch={batch}: kernel {k:.3f} ms "
-              f"({gflops(n, batch, k):.0f} GF/s), plain {plain:.3f} ms", flush=True)
-        if radices == default:
-            k_default, plain_default = k, plain
-    plan = planner.plan_fft_forward(n)
-    path = median_ms(lambda: plan.process(x))
-    ref = median_ms(lambda: torch.fft.fft(x))
-    record("lanepack_fft", k_default, plain_default, 16 * batch * n, batch * fft_ops(n), ref)
-    print(f"  main path n={n} batch={batch}: {path:.3f} ms ({gflops(n, batch, path):.0f} GF/s); "
-          f"torch.fft {ref:.3f} ms ({gflops(n, batch, ref):.0f} GF/s)", flush=True)
-    del x
-    free()
+        ref = median_ms(lambda: torch.fft.fft(x))
+        plan = planner.plan_fft_forward(n)
+        path = median_ms(lambda: plan.process(x))
+        extra = ""
+        if name == "lanepack_pipe_fft":
+            general = median_ms(lambda: lanepack.lanepack_chain_fft(x, radices, tables))
+            extra = f"; the chain kernel on the same chain {general:.3f} ms"
+        print(f"  {name} n={n} {radices} batch={batch}: kernel {k:.3f} ms "
+              f"({gflops(n, batch, k):.0f} GF/s){extra}; path {path:.3f} ms; torch.fft {ref:.3f} "
+              f"ms; the chain's operations "
+              f"{batch * n * chain_ops(radices, lanepack.bluestein_stage_m) / FP32_FLOPS * 1e3:.3f} "
+              "ms at the FP32 peak", flush=True)
+        record(name, k, plain, 16 * batch * n + table_bytes(tables), batch * fft_ops(n), ref)
+        del x
+        free()
 
     n = 1 << 20
     p, q1, q2 = large.choose_pqq(n)
@@ -1544,41 +1606,62 @@ def main() -> None:
         (8 n^2), or the Gauss form's 3 and its adds (6 n^2 + 4 n)."""
         return 8 * n * n if variant == "block" else 6 * n * n + 4 * n
 
-    # the dense tier at its paths' shapes: dense_fft in its default form
-    # against its plain version, its bound, x @ W (the Dft leaf it replaced
-    # and the one-call PyTorch time) and the other form; each path against
-    # torch.fft
+    # the dense tier at its paths' shapes: K5's chain form (the primes from
+    # 29) against its plain version (within 1e-6), its bound (with the
+    # Bluestein stage's operations beside it), torch.fft (the one-call
+    # PyTorch time), x @ W and the product kernel it replaced on the path;
+    # the product (below 29) against its plain version, its bound, x @ W
+    # (the Dft leaf it replaced, the one-call PyTorch time), the other form
+    # and torch.fft; each path against torch.fft
     fwd = FftDirection.FORWARD
-    for n, batch in DENSE.items():
+    for n, batch in {**DENSE, **DENSE_PRODUCT}.items():
         x = signal(batch, n)
-        variant = dense.choose_variant(n)
-        name = f"dense_fft/{n}"
-        tabs = dense_card(n, fwd, variant)
-        note(name, dense.dense_fft(x, tabs, variant), dense.dense_fft_plain(x, tabs, variant),
-             f"{name} {variant} batch={batch} (the main path's shape)")
-        free()
-        k = median_ms(lambda: dense.dense_fft(x, tabs, variant))
-        plain = median_ms(lambda: dense.dense_fft_plain(x, tabs, variant))
-        w = tabs[0]
-        lib = median_ms(lambda: x @ w)
-        other = "gauss" if variant == "block" else "block"
-        otabs = dense_card(n, fwd, other)
-        check(f"{name} {other} batch={batch} vs torch.fft",
-              rel_err(dense.dense_fft(x, otabs, other), torch.fft.fft(x)))
-        k_other = median_ms(lambda: dense.dense_fft(x, otabs, other))
-        print(f"  {name} batch={batch}: {variant} {k:.3f} ms, {other} {k_other:.3f} ms; "
-              f"x @ W {lib:.3f} ms; the {variant} product's operations "
-              f"{batch * dense_ops(n, variant) / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak",
-              flush=True)
-        record(name, k, plain, 16 * batch * n + table_bytes([t for t in tabs if t is not None]),
-               batch * fft_ops(n), lib)
+        block = dense_card(n, fwd, "block")
+        lib = median_ms(lambda: x @ block[0])
+        ref = median_ms(lambda: torch.fft.fft(x))
+        product = median_ms(lambda: dense.dense_fft(x, block, "block"))
+        if n in DENSE:
+            name = f"dense_chain_fft/{n}"
+            table = torch.from_numpy(dense.chain_table(n, fwd)).to(dev)
+            note(name, dense.dense_chain_fft(x, table), dense.dense_chain_fft_plain(x, table),
+                 f"{name} batch={batch} (the main path's shape)", K7_TOL)
+            free()
+            k = median_ms(lambda: dense.dense_chain_fft(x, table))
+            plain = median_ms(lambda: dense.dense_chain_fft_plain(x, table))
+            m = lanepack.bluestein_stage_m(n)
+            print(f"  {name} batch={batch}: chain {k:.3f} ms, the block product {product:.3f} ms, "
+                  f"x @ W {lib:.3f} ms, torch.fft {ref:.3f} ms; the Bluestein stage's "
+                  f"operations {batch * n * lanepack.bluestein_ops(n, m) / FP32_FLOPS * 1e3:.3f} "
+                  "ms at the FP32 peak", flush=True)
+            record(name, k, plain, 16 * batch * n + table.numel() * 8, batch * fft_ops(n), ref)
+            del table
+        else:
+            name = f"dense_fft/{n}"
+            variant = dense.choose_variant(n)
+            tabs = dense_card(n, fwd, variant)
+            note(name, dense.dense_fft(x, tabs, variant), dense.dense_fft_plain(x, tabs, variant),
+                 f"{name} {variant} batch={batch} (the main path's shape)")
+            free()
+            k = median_ms(lambda: dense.dense_fft(x, tabs, variant))
+            plain = median_ms(lambda: dense.dense_fft_plain(x, tabs, variant))
+            other = "gauss" if variant == "block" else "block"
+            otabs = dense_card(n, fwd, other)
+            check(f"{name} {other} batch={batch} vs torch.fft",
+                  rel_err(dense.dense_fft(x, otabs, other), torch.fft.fft(x)))
+            k_other = median_ms(lambda: dense.dense_fft(x, otabs, other))
+            print(f"  {name} batch={batch}: {variant} {k:.3f} ms, {other} {k_other:.3f} ms; "
+                  f"x @ W {lib:.3f} ms; torch.fft {ref:.3f} ms; the {variant} product's "
+                  f"operations {batch * dense_ops(n, variant) / FP32_FLOPS * 1e3:.3f} ms at the "
+                  "FP32 peak", flush=True)
+            record(name, k, plain, 16 * batch * n + table_bytes([t for t in tabs if t is not None]),
+                   batch * fft_ops(n), lib)
+            del tabs, otabs
         plan = planner.plan_fft_forward(n)
         path = median_ms(lambda: plan.process(x))
-        ref = median_ms(lambda: torch.fft.fft(x))
         print(f"  dense path n={n} batch={batch}: {path:.3f} ms ({gflops(n, batch, path):.0f} GF/s); "
               f"x @ W {lib:.3f} ms; torch.fft {ref:.3f} ms ({gflops(n, batch, ref):.0f} GF/s)",
               flush=True)
-        del x, w, tabs, otabs
+        del x, block
         free()
 
     # the dense crossover: dense_fft in both forms against the route each

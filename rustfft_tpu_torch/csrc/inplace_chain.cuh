@@ -409,6 +409,8 @@ static __host__ __device__ __forceinline__ bool bluestein_ok(int r, int m, int m
   return m <= max_m && (m & (m - 1)) == 0 && m >= 2 * r - 1 && (m == 64 || m / 2 < 2 * r - 1);
 }
 
+// One stage of the chain by its kind; a kernel of Bluestein cap MaxM
+// compiles the Bluestein stages up to MaxM points only.
 template <int MaxM>
 static __device__ void run_stage_inplace(float2* buf, int r, int bm, int lead, int rest, int T,
                                          const float2* roots, const float2* tw,
@@ -418,8 +420,14 @@ static __device__ void run_stage_inplace(float2* buf, int r, int bm, int lead, i
       case 0: break;
       case 64: stage_bluestein_inplace<64>(buf, r, lead, rest, T, roots, tw, fold); return;
       case 128: stage_bluestein_inplace<128>(buf, r, lead, rest, T, roots, tw, fold); return;
-      case 256: stage_bluestein_inplace<256>(buf, r, lead, rest, T, roots, tw, fold); return;
-      case 512: stage_bluestein_inplace<512>(buf, r, lead, rest, T, roots, tw, fold); return;
+      case 256:
+        if constexpr (MaxM >= 256)
+          stage_bluestein_inplace<256>(buf, r, lead, rest, T, roots, tw, fold);
+        return;
+      case 512:
+        if constexpr (MaxM >= 512)
+          stage_bluestein_inplace<512>(buf, r, lead, rest, T, roots, tw, fold);
+        return;
       default:
         if constexpr (MaxM >= 1024)
           stage_bluestein_inplace<1024>(buf, r, lead, rest, T, roots, tw, fold);

@@ -13,9 +13,11 @@ checkout reuses the last build.  The build runs on first use, never at
 import: the CPU-only test runs import every module and have no nvcc.
 
 `load(phase_stamps=True)` builds and loads a second library from the same
-sources with `-DRF_PHASE_STAMPS`, which adds the stamped forms of K7's
-cluster kernel (`rf_two_stage_cluster_phase_stamps`) and of K12's two
-kernels (`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`;
+sources with `-DRF_PHASE_STAMPS`, which adds the stamped forms of K1's
+two kernels (`rf_lanepack_chain_phase_stamps`,
+`rf_lanepack_pipe_phase_stamps`), K7's cluster kernel
+(`rf_two_stage_cluster_phase_stamps`) and K12's two kernels
+(`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`;
 tools/torch_phase_times.py); no route loads it, so no other build pays for
 those forms.
 """
@@ -51,8 +53,10 @@ _ll = ctypes.c_longlong
 #: argtypes of every C entry point; pointers and the stream as c_void_p so
 #: that ctypes does not cut them to 32 bits
 _SIGNATURES = {
-    "rf_lanepack_fft": [_vp, _vp, _ll, _int, _int, _int, _int, _int,
-                        _vp, _vp, _vp, _vp, _vp, _vp],
+    "rf_lanepack_chain": [_vp, _vp, _ll, _int, _int] + [_int] * 5 + [_vp] * 7 + [_int] * 4
+                         + [_vp],
+    "rf_lanepack_pipe": [_vp, _vp, _ll] + [_vp] * 6,
+    "rf_lanepack_pipe_blocks": [ctypes.POINTER(_int)],
     "rf_large_col_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
                            _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
     "rf_large_row_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
@@ -92,7 +96,9 @@ _STAMP_SIGNATURES = {
                                     + [_vp, _vp, _vp],
     "rf_largepad_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3
                                     + [_vp, _vp],
-    "rf_lanepack_phase_stamps": [_vp, _vp, _ll] + [_vp] * 7,
+    "rf_lanepack_chain_phase_stamps": [_vp, _vp, _ll, _int, _int] + [_int] * 5 + [_vp] * 7
+                                      + [_int] * 4 + [_vp, _vp],
+    "rf_lanepack_pipe_phase_stamps": [_vp, _vp, _ll] + [_vp] * 7,
 }
 STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)
 

@@ -59,7 +59,7 @@ def conv_aligned(m: int, dtype) -> bool:
     take the generic stage, about twice the work per point
     (lanepack.stage_cost)."""
     if conv_supported(m, dtype):
-        chains = [lanepack.choose_radices(m)]
+        chains = [lanepack.tile_radices(m)]
     elif conv_radix.radix_conv_supported(m, dtype):
         p, q = conv_radix.choose_split(m)
         chains = [large.stage_radices(p), large.stage_radices(q)]
@@ -150,13 +150,13 @@ def make_conv_fn(
 
         out = [post *] maybe_conj( FFT_m( conj( FFT_m([pre *] zeropad(x)) * H ) ) )
 
-    through conv_fft at lanepack.choose_radices(m).  h, pre, post are
+    through conv_fft at lanepack.tile_radices(m).  h, pre, post are
     complex128 host arrays; pre / post may be shorter than m (zero-extended,
     which is the Bluestein zero-padding).  n_in / n_out default to m.
     """
     if not conv_supported(m, dtype):
         raise ValueError(f"no one-pass conv core for m={m}, dtype={np.dtype(dtype)}")
-    radices = lanepack.choose_radices(m)
+    radices = lanepack.tile_radices(m)
     n_in = n_in or m
     n_out = n_out or m
     roots, tws = lanepack.stage_tables(m, radices, direction)

@@ -14,6 +14,16 @@ on a CUDA tensor, or raises, and runs `dense_fft_plain` on a CPU tensor.
 The tables are the JAX package's: W_n = twiddles.dft_matrix cast to
 complex64, and for the Gauss form its f32 Wr + Wi.
 
+The product costs 8n FP32 operations a point (2008 at n = 251).  Where the
+in-place Bluestein stage is cheaper (`lanepack.bluestein_stage_m(n)`: the
+primes from 29 to 251 of the "dense" route, M = 64 .. 512, about 158 to 208
+operations a point), `make_dense_fft_fn` takes the chain form instead:
+`dense_chain_fft`, one Bluestein stage on K1's chain kernel
+(csrc/lanepack.cu, `lanepack.chain_width(n)` transforms a block), whose
+plain version is `lanepack.bluestein_dft_plain`.  The primes 5..23 keep the
+product, as K7's chains keep the direct sum there; an explicit "block" or
+"gauss" runs the product at any n.
+
 Not ported, because they serve the TPU's lanes, its v5e measurements or its
 VMEM budget: `_pack_group` (g = 128 // n transforms per lane row with
 block-diagonal weights; on the card that would multiply the work by g),
@@ -33,8 +43,10 @@ from ...common import FftDirection
 from ... import twiddles
 from .. import calg
 from . import _build
+from . import lanepack
 from .lanepack import check_operand, require_cuda
 
+#: the dense product's forms; make_dense_fft_fn also takes "chain"
 VARIANTS = ("block", "gauss")
 
 
@@ -119,13 +131,67 @@ def dense_fft(x: torch.Tensor, tables, variant: str) -> torch.Tensor:
 dense_fft.launches = 0
 
 
+def chain_form(n: int) -> bool:
+    """The whole DFT runs as one in-place Bluestein stage (dense_chain_fft):
+    lanepack.bluestein_stage_m(n) names a length and the chain kernel runs
+    it (n <= lanepack.MAX_STAGE, M <= 512)."""
+    return n <= lanepack.MAX_STAGE and lanepack.bluestein_stage_m(n) is not None
+
+
+def chain_table(n: int, direction: FftDirection) -> np.ndarray:
+    """The Bluestein stage's table of the chain form
+    (lanepack.bluestein_stage_tables at bluestein_stage_m(n))."""
+    return lanepack.bluestein_stage_tables(n, lanepack.bluestein_stage_m(n), direction)
+
+
+def dense_chain_fft_plain(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of dense_chain_fft: the Bluestein stage step by
+    step."""
+    n = x.shape[1]
+    return lanepack.bluestein_dft_plain(x, n, lanepack.bluestein_stage_m(n), table)
+
+
+def dense_chain_fft(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """DFT of every row of x (batch, n) complex64 as one in-place Bluestein
+    stage on K1's chain kernel, chain_form(n).
+
+    table from chain_table, on x's device.
+    """
+    what = "dense_chain_fft"
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (batch, n), got shape {tuple(x.shape)}")
+    n = x.shape[1]
+    if not chain_form(n):
+        raise ValueError(f"{what}: n={n} has no Bluestein stage of at most 512 points")
+    lanepack.check_stage_tables(n, (n,), [table], [], x.device, what,
+                                root_lens=lanepack.chain_root_lens((n,)))
+    check_operand(x, (x.shape[0], n), f"{what} input")
+    if x.device.type == "cpu":
+        return dense_chain_fft_plain(x, table)
+    y = lanepack.launch_chain(x, (n,), ([table], []), what)
+    dense_chain_fft.launches += 1
+    return y
+
+
+dense_chain_fft.launches = 0
+
+
 def make_dense_fft_fn(n: int, direction: FftDirection, dtype, variant=None):
     """Return fn: complex64 (..., n) -> (..., n), the unnormalized DFT of
-    every length-n row through dense_fft in `variant` (default
-    choose_variant(n))."""
+    every length-n row: through dense_chain_fft in `variant` "chain"
+    (default where chain_form(n)), else through dense_fft in `variant`
+    (default choose_variant(n))."""
     if not dense_supported(n, dtype):
         raise ValueError(f"no dense kernel for n={n}, dtype={np.dtype(dtype)}")
-    variant = variant or choose_variant(n)
+    variant = variant or ("chain" if chain_form(n) else choose_variant(n))
+    if variant == "chain":
+        tables = calg.DeviceTables([chain_table(n, direction)])
+
+        def apply_chain(x):
+            y = dense_chain_fft(x.reshape(-1, n).contiguous(), tables.on(x.device)[0])
+            return y.reshape(x.shape)
+
+        return apply_chain
     w, ws = dense_tables(n, direction, variant)
     tables = calg.DeviceTables([w] if ws is None else [w, ws])
 

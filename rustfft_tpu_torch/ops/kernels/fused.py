@@ -54,11 +54,12 @@ import torch
 from ...common import FftDirection
 from ... import twiddles
 from .. import calg
-from ..bluestein import bluestein_tables
 from . import _build, large
-from .lanepack import (
-    REGISTER_RADICES, check_operand, check_stage_tables, dft_from_roots, fft_stages_plain,
-    lanepack_supported, padded_stage_args, require_cuda, stage_tables,
+from .lanepack import (  # noqa: F401 (the in-place chain's host side, also as fused.*)
+    REGISTER_RADICES, bluestein_dft_plain, bluestein_lane_order, bluestein_ms, bluestein_parts,
+    bluestein_stage_m, bluestein_stage_tables, bluestein_table_len, chain_args, chain_root_lens,
+    chain_stages_plain, chain_tables, check_operand, check_stage_tables, dft_from_roots,
+    fft_stages_plain, lanepack_supported, padded_stage_args, require_cuda, stage_tables,
 )
 from .large3 import p2_chain_plain
 
@@ -107,143 +108,6 @@ def fused_supported(n: int, dtype) -> bool:
     if np.dtype(dtype) != np.complex64 or n < 4 or n > MAX_FUSED_N:
         return False
     return choose_pq(n) is not None
-
-
-# -- the Bluestein stage of K7's in-place chains ----------------------------
-
-@functools.lru_cache(maxsize=1024)
-def bluestein_stage_m(r: int) -> Optional[int]:
-    """The length M of the in-place Bluestein stage that computes a radix-r
-    stage of K7's chains (csrc/fused.cu stage_bluestein_inplace), or None
-    where the direct sum stays: M is the power of 2 >= 2r - 1 (at least 64,
-    two values a lane of a warp), taken where the stage's FP32 operations
-    a point,
-        (M / r) * (10 log2 M + 6) + 12
-    (two FFT_M, the spectrum product, the chirp before and after), are
-    fewer than the direct sum's 8r.  That holds for every prime from 29
-    (M = 64: 158 against 232) to 509 (M = 1024: 225 against 4072); 11, 13,
-    17, 19 and 23 (23: 196 against 184) and the register radices keep
-    their stages."""
-    if r in REGISTER_RADICES or r > MAX_FACTOR:
-        return None
-    m = max(64, 1 << (2 * r - 2).bit_length())
-    return m if m / r * (10 * math.log2(m) + 6) + 12 < 8 * r else None
-
-
-def bluestein_table_len(r: int, m: int) -> int:
-    """Entries of a Bluestein stage's table (bluestein_stage_tables)."""
-    return r + 2 * m + m // 32 + 32
-
-
-def _bitrev(k: np.ndarray, size: int) -> np.ndarray:
-    bits = size.bit_length() - 1
-    return sum(((k >> b) & 1) << (bits - 1 - b) for b in range(bits))
-
-
-def bluestein_lane_order(m: int) -> np.ndarray:
-    """order[s*32 + l]: the frequency that lane l's register s holds after
-    the stage's forward FFT_M, bitrev_V(s) + V*bitrev_32(l) with V = m/32
-    (the chain (V, 32): a radix-V FFT in registers, bit-reversed out, then
-    radix-2 steps across the lanes, bit-reversed lanes out)."""
-    v = m // 32
-    return (_bitrev(np.arange(v), v)[:, None] + v * _bitrev(np.arange(32), 32)[None, :]).reshape(-1)
-
-
-def bluestein_stage_tables(r: int, m: int, direction: FftDirection) -> np.ndarray:
-    """The table of a Bluestein stage of radix r at length m, complex64,
-    from f64 values, one array in the kernel's order:
-      [0, r)           the chirp w_j = exp(-+i pi j^2 / r) (j^2 mod 2r in
-                       integers; ops/bluestein.py bluestein_tables);
-      [r, r + m)       the spectrum FFT_m(b) / m of the conjugate chirp b,
-                       wrapped cyclically, in bluestein_lane_order(m);
-      then m entries   the twiddle (V, 32) [k1][l] = w_m^(k1*l) of the
-                       FFT_m chain (V, 32), V = m/32;
-      V entries        the roots w_V^e;
-      32 entries       the roots w_32^e.
-    The chain's tables are the forward direction's in both directions: the
-    wrapped conjugate chirp is symmetric, so its spectrum is the same under
-    either FFT, and the stage runs FFT_m forward twice (the second on the
-    conjugate: the inverse)."""
-    chirp, spectrum = bluestein_tables(r, m, direction)
-    roots, tws = stage_tables(m, (m // 32, 32), FftDirection.FORWARD)
-    return np.concatenate([chirp.astype(np.complex64),
-                           spectrum[bluestein_lane_order(m)].astype(np.complex64),
-                           tws[0].reshape(-1), roots[0], roots[1]])
-
-
-def bluestein_parts(table, r: int, m: int):
-    """(chirp, spectrum in lane order, chain twiddle (V, 32), roots w_V^e,
-    roots w_32^e): views of a bluestein_stage_tables array."""
-    v = m // 32
-    cuts = np.cumsum([r, m, m, v])
-    chirp, spectrum, tw, roots_v, roots_32 = (table[a:b] for a, b in zip((0, *cuts),
-                                                                         (*cuts, len(table))))
-    return chirp, spectrum, tw.reshape(v, 32), roots_v, roots_32
-
-
-def bluestein_dft_plain(u: torch.Tensor, r: int, m: int, table: torch.Tensor) -> torch.Tensor:
-    """DFT_r over the last axis of u (..., r) as the kernels' Bluestein
-    stage computes it, step by step from its table: the chirp, the zero pad
-    to m, the forward FFT_m by the chain (V, 32), the spectrum, the
-    conjugate and the same FFT_m again (the inverse), the conjugate, the
-    chirp."""
-    chirp, spectrum, tw, roots_v, roots_32 = bluestein_parts(table, r, m)
-    h = torch.empty_like(spectrum)
-    h[torch.from_numpy(bluestein_lane_order(m)).to(u.device)] = spectrum
-    chain = ((m // 32, 32), [roots_v, roots_32], [tw])
-    a = fft_stages_plain(torch.nn.functional.pad(u * chirp, (0, m - r)), *chain)
-    z = fft_stages_plain(torch.conj(a * h).resolve_conj(), *chain)
-    return torch.conj(z[..., :r]).resolve_conj() * chirp
-
-
-def chain_tables(m: int, radices: Sequence[int], direction: FftDirection):
-    """Tables of a K7 chain over a length-m axis: stage_tables, with the
-    Bluestein table in place of the roots of each stage that has one."""
-    roots, tws = stage_tables(m, radices, direction)
-    for s, r in enumerate(radices):
-        bm = bluestein_stage_m(r)
-        if bm:
-            roots[s] = bluestein_stage_tables(r, bm, direction)
-    return roots, tws
-
-
-def chain_root_lens(radices: Sequence[int]):
-    """The length of each stage's table in chain_tables."""
-    return [bluestein_table_len(r, bluestein_stage_m(r)) if bluestein_stage_m(r) else r
-            for r in radices]
-
-
-def chain_stages_plain(x: torch.Tensor, radices: Sequence[int], roots, tws) -> torch.Tensor:
-    """fft_stages_plain for K7's chains (chain_tables): a stage with a
-    Bluestein stage runs bluestein_dft_plain over its digit."""
-    shape = x.shape
-    m = shape[-1]
-    v = x.reshape(-1, 1, m)
-    lead, rest = 1, m
-    for s, r in enumerate(radices):
-        rest //= r
-        u = v.reshape(-1, lead, r, rest)
-        bm = bluestein_stage_m(r)
-        if bm:
-            a = bluestein_dft_plain(u.transpose(2, 3), r, bm, roots[s]).permute(0, 3, 1, 2)
-        else:
-            a = torch.einsum("jk,bljr->bklr", dft_from_roots(roots[s]), u)
-        if s + 1 < len(radices):
-            a = a * tws[s].reshape(1, r, 1, rest)
-        lead *= r
-        v = a.reshape(-1, lead, rest)
-    return v.reshape(shape)
-
-
-def bluestein_ms(radices: Sequence[int]):
-    """Each stage's Bluestein length (0: none), unused slots 0."""
-    return [bluestein_stage_m(r) or 0 for r in radices] + [0] * (3 - len(radices))
-
-
-def chain_args(radices: Sequence[int], roots, tws):
-    """padded_stage_args and bluestein_ms for csrc/fused.cu's two-stage
-    launchers."""
-    return padded_stage_args(radices, roots, tws) + bluestein_ms(radices)
 
 
 def _with_chain_tables(fixed: int, radices: Sequence[int]) -> int:

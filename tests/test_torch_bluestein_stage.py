@@ -201,8 +201,8 @@ def test_three_stage_plain_with_a_bluestein_stage(d, rd):
 
 def test_chain_plain_runs_the_bluestein_stage(monkeypatch):
     calls = []
-    real = fused.bluestein_dft_plain
-    monkeypatch.setattr(fused, "bluestein_dft_plain",
+    real = lanepack.bluestein_dft_plain
+    monkeypatch.setattr(lanepack, "bluestein_dft_plain",
                         lambda u, r, m, t: calls.append((tuple(u.shape), r, m)) or real(u, r, m, t))
     p, q = 226, 128
     x = torch.from_numpy(_signal(1, p * q, 5))

@@ -60,7 +60,7 @@ def _k1_cases():
 @pytest.mark.parametrize("d,rd", DIRECTIONS, ids=["fwd", "inv"])
 def test_lanepack_plain_matches_jax_kernel(n, radices, d, rd):
     x = _signal(130, n, seed=n + len(radices))
-    roots, tws = lanepack.stage_tables(n, radices, d)
+    roots, tws = lanepack.chain_tables(n, radices, d)
     got = lanepack.lanepack_fft(torch.from_numpy(x), radices, (_tensors(roots), _tensors(tws)))
     ref_fn = ref_lanepack.make_lanepack_fn(n, rd, np.complex64, radices=radices, interpret=True)
     want = _jax_out(ref_fn, x)
@@ -178,7 +178,7 @@ def test_lanepack_fn_radices_match_jax_and_oracle(n, radices):
 
 
 def test_lanepack_fn_rejects_what_the_kernel_cannot_run():
-    for radices in ((16, 16), (512, 8), (4096,), (1, 4096), (8, 8, 8, 8), (2, 2, 1024)):
+    for radices in ((16, 16), (512, 8), (4096,), (1, 4096), (2, 2, 2, 2, 256), (2, 2, 1024)):
         with pytest.raises(ValueError):
             lanepack.make_lanepack_fn(4096, FftDirection.FORWARD, np.complex64, radices=radices)
     with pytest.raises(ValueError):
@@ -189,12 +189,16 @@ def test_lanepack_fn_rejects_what_the_kernel_cannot_run():
 
 def test_choose_radices_rules():
     assert lanepack.choose_radices(4096) == (16, 16, 16)
-    assert lanepack.choose_radices(3) is None  # no 2-stage split
+    assert lanepack.tile_radices(4096) == (16, 16, 16)
+    assert lanepack.tile_radices(3) is None  # no 2-stage split
+    assert lanepack.choose_radices(3) == (3,)  # the chain kernel runs one stage
     assert lanepack.choose_radices(1009) is None  # prime > 256
     for n in (4, 12, 96, 1000, 3888, 4096, 7776, 65536):
         rad = lanepack.choose_radices(n)
-        assert int(np.prod(rad)) == n and 2 <= len(rad) <= 3
+        assert int(np.prod(rad)) == n and 1 <= len(rad) <= lanepack.MAX_STAGES
         assert max(rad) <= lanepack.MAX_STAGE
+        tile = lanepack.tile_radices(n)
+        assert int(np.prod(tile)) == n and 2 <= len(tile) <= 3
     assert large.stage_radices(256) == (16, 16)
     assert large.stage_radices(4096) == (16, 16, 16)
     assert large.stage_radices(509) == (509,)  # prime P: one dense stage
@@ -246,14 +250,16 @@ def test_wrappers_reject_bad_operands():
 
 
 def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
-    before = (lanepack.lanepack_fft.launches, large.large_col_stage.launches,
-              large.large_row_stage.launches)
+    def counts():
+        return (lanepack.lanepack_chain_fft.launches, lanepack.lanepack_pipe_fft.launches,
+                large.large_col_stage.launches, large.large_row_stage.launches)
+
+    before = counts()
     x, rad, tb = _k1_args()
     got = lanepack.lanepack_fft(x, rad, tb)
     torch.testing.assert_close(got, lanepack.lanepack_fft_plain(x, rad, tb), rtol=0, atol=0)
     assert lanepack.lanepack_fft(x[:0], rad, tb).shape == (0, 64)
-    after = (lanepack.lanepack_fft.launches, large.large_col_stage.launches,
-             large.large_row_stage.launches)
+    after = counts()
     assert after == before
 
 
@@ -276,13 +282,15 @@ def cuda_device():
 def test_lanepack_kernel_matches_plain_on_card(cuda_device, n, radices):
     radices = radices or lanepack.choose_radices(n)
     x = torch.from_numpy(_signal(257, n, 9)).to(cuda_device)
+    counter = (lanepack.lanepack_pipe_fft if radices == lanepack.PIPE_RADICES
+               else lanepack.lanepack_chain_fft)
     for d, _ in DIRECTIONS:
-        roots, tws = lanepack.stage_tables(n, radices, d)
+        roots, tws = lanepack.chain_tables(n, radices, d)
         tb = (_tensors(roots, cuda_device), _tensors(tws, cuda_device))
-        before = lanepack.lanepack_fft.launches
+        before = counter.launches
         got = lanepack.lanepack_fft(x, radices, tb)
         torch.cuda.synchronize()
-        assert lanepack.lanepack_fft.launches == before + 1
+        assert counter.launches == before + 1
         want = lanepack.lanepack_fft_plain(x, radices, tb)
         assert _rel(got.cpu(), want.cpu()) <= VS_ORACLE
 

@@ -248,7 +248,7 @@ def test_one_pass_raders_matches_jax_kernel(p, d, rd):
 def test_conv_fft_matches_definition(m, n_in, n_out):
     """conv_fft alone, with pre, post and conj on and off: an m with no
     register stage (616 = 11 x 8 x 7), ragged n_in / n_out."""
-    radices = lanepack.choose_radices(m)
+    radices = lanepack.tile_radices(m)
     rng = np.random.default_rng(m)
     x = _signal(2, n_in, seed=m + 1)
     for d, _ in DIRECTIONS:
@@ -384,7 +384,7 @@ def test_permutation_index_checks():
 
 def test_wrappers_reject_bad_operands():
     m = 1008
-    radices = lanepack.choose_radices(m)
+    radices = lanepack.tile_radices(m)
     roots, tws = lanepack.stage_tables(m, radices, FftDirection.FORWARD)
     h = torch.ones(m, dtype=torch.complex64)
     tables = (_tensors(roots), _tensors(tws), h, None, None)
@@ -505,7 +505,7 @@ def cuda_device():
     (1008, 1008, 1008, False), (3072, 1234, 1234, True), (616, 616, 600, True), (262, 262, 262, False),
 ])
 def test_conv_fft_matches_plain_on_card(cuda_device, m, n_in, n_out, with_tables):
-    radices = lanepack.choose_radices(m)
+    radices = lanepack.tile_radices(m)
     rng = np.random.default_rng(m)
     x = torch.from_numpy(_signal(257, n_in, seed=m)).to(cuda_device)
     for d, _ in DIRECTIONS:

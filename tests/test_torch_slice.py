@@ -32,8 +32,8 @@ def _rel(got, want):
 
 
 def _counts():
-    return (lanepack.lanepack_fft.launches, large.large_col_stage.launches,
-            large.large_row_stage.launches)
+    return (lanepack.lanepack_chain_fft.launches, lanepack.lanepack_pipe_fft.launches,
+            large.large_col_stage.launches, large.large_row_stage.launches)
 
 
 @pytest.fixture(scope="module")
@@ -220,7 +220,7 @@ def test_main_path_on_card_launches_kernels():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
     planner = FftPlanner(np.complex64, device="cuda")
-    for n, batch, counter in ((4096, 8, lanepack.lanepack_fft),
+    for n, batch, counter in ((4096, 8, lanepack.lanepack_pipe_fft),
                               (1 << 20, 2, large.large_row_stage)):
         x = _signal((batch, n), seed=n)
         before = counter.launches
@@ -248,7 +248,7 @@ def test_routed_sizes_on_card(n, batch):
     radices, one-column tiles, a prime P as one dense stage."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
-    counter = {"lanepack": lanepack.lanepack_fft, "large": large.large_row_stage,
+    counter = {"lanepack": lanepack.lanepack_chain_fft, "large": large.large_row_stage,
                "large_pad": largepad.largepad_row_stage,
                "two_stage": fused.two_stage_fft, "radix": fused.radix_fft,
                "large2f": large.large_row_stage}[route(n, np.complex64)]

@@ -57,7 +57,8 @@ def _jax_out(fn, x):
 
 
 def _counts():
-    return (dense.dense_fft.launches, largepad.largepad_col_stage.launches,
+    return (dense.dense_fft.launches, dense.dense_chain_fft.launches,
+            largepad.largepad_col_stage.launches,
             largepad.largepad_row_stage.launches, convlarge.bconv_row_stage.launches,
             convlarge.bconv_out_stage.launches, conv_radix.conv_col_stage.launches,
             conv_radix.conv_row_stage.launches, large.large_col_stage.launches,
@@ -376,13 +377,14 @@ def test_bconv_stages_match_plain_on_card(cuda_device, n, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,rises", [
-    (127, {"dense_fft": 1}), (251, {"dense_fft": 1}),
+    (127, {"dense_chain_fft": 1}), (251, {"dense_chain_fft": 1}),
     (15625, {"largepad_col_stage": 1, "largepad_row_stage": 1}),
     (78125, {"largepad_col_stage": 1, "largepad_row_stage": 1}),
     (1000003, {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}),
 ])
 def test_tiers_through_the_planner_on_card(cuda_device, n, rises):
-    counters = {"dense_fft": dense.dense_fft, "largepad_col_stage": largepad.largepad_col_stage,
+    counters = {"dense_fft": dense.dense_fft, "dense_chain_fft": dense.dense_chain_fft,
+                "largepad_col_stage": largepad.largepad_col_stage,
                 "largepad_row_stage": largepad.largepad_row_stage,
                 "bconv_row_stage": convlarge.bconv_row_stage,
                 "bconv_out_stage": convlarge.bconv_out_stage,

@@ -9,8 +9,8 @@ then this tree twice, then the parent again):
 
 Each checkout runs in its own process (its own import of rustfft_tpu_torch
 and its own kernel build) and times, with CUDA events (median of 7 after 2
-warm-ups; of 15 for the paths other than 2^20): K1 (`lanepack_fft`,
-16384 x 4096), K2 and K3 (`large_col_stage`, `large_row_stage`,
+warm-ups; of 15 for the paths other than 2^20): K1 (`lanepack_fft` on
+the checkout's own chain and tables, at K1 below), K2 and K3 (`large_col_stage`, `large_row_stage`,
 64 x 2^20), and the paths 4096 x 16384, 2^20 x 1024,
 1009 x 8192, 1234 x 8192, 7919 x 4096 and 65537 x 512, and the one-block
 two-stage paths 14464 x 4096 (p = 113) and 16256 x 4096 (p = 127), and
@@ -24,7 +24,12 @@ sums), 412519 x 128 (P = 131; Q = 67 x 47) and 50666 x 1024 (P = 11 x 7
 x 2; Q = 47 x 7), through FftPlanner(np.complex64, device="cuda"), and
 K12's two stages alone at each large_pad path (`largepad_col_stage`,
 `largepad_row_stage`; a tree whose largepad module has no `col_tables`
-takes large's tables, as K12 did before its in-place chain).  It prints
+takes large's tables, as K12 did before its in-place chain), K1's paths
+and kernel at 4096 x 16384, 8192 x 8192, 1024 x 65536, 64 x 1048576,
+1000 x 65536, 2008 x 32768 and 12288 x 5120 (a tree whose lanepack module
+has no `chain_tables` takes its `stage_tables`, as K1 did before the
+in-place chain), and K5's paths 127 x 262144, 251 x 131072 and 29 x
+2097152.  It prints
 one JSON line per run and then a table, each row a quantity and each
 column a run.
 """
@@ -43,6 +48,12 @@ PATHS = ((4096, 16384), (1 << 20, 1024), (1009, 8192), (1234, 8192), (7919, 4096
 #: the large_pad paths (K12): the odd composites and the route's bulk
 PAD = ((15625, 4096), (78125, 512), (177147, 256), (531441, 64), (234617, 256), (775575, 64),
        (412519, 128), (50666, 1024))
+
+#: K1's shapes (the pipelined kernel at 4096, the chain kernel elsewhere)
+#: and K5's (the dense route's primes), about 512 MiB each
+K1 = ((4096, 16384), (8192, 8192), (1024, 65536), (64, 1 << 20), (1000, 65536), (2008, 32768),
+      (12288, 5120))
+K5 = ((127, 262144), (251, 131072), (29, 1 << 21))
 
 
 def run_one(root: str) -> dict:
@@ -74,11 +85,15 @@ def run_one(root: str) -> dict:
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
     out = {}
-    n = 4096
-    radices = lanepack.choose_radices(n)
-    x = torch.randn((16384, n), dtype=torch.complex64, generator=gen, device=dev)
-    tables = tuple(on(t) for t in lanepack.stage_tables(n, radices, FftDirection.FORWARD))
-    out["K1 lanepack_fft 16384x4096"] = ms(lambda: lanepack.lanepack_fft(x, radices, tables))
+    k1_tables = getattr(lanepack, "chain_tables", lanepack.stage_tables)
+    for n, batch in K1:
+        torch.cuda.empty_cache()
+        radices = lanepack.choose_radices(n)
+        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+        tables = tuple(on(t) for t in k1_tables(n, radices, FftDirection.FORWARD))
+        out[f"K1 lanepack_fft {n}x{batch}"] = ms(lambda: lanepack.lanepack_fft(x, radices, tables),
+                                                 reps=15)
+        del x
     n = 1 << 20
     p, q1, q2 = large.choose_pqq(n)
     q = q1 * q2
@@ -91,7 +106,7 @@ def run_one(root: str) -> dict:
     out["K3 large_row_stage 64x2^20"] = ms(lambda: large.large_row_stage(a, q, p, row))
     del x, a
     planner = FftPlanner(np.complex64, device="cuda")
-    for n, batch in PATHS + PAD:
+    for n, batch in PATHS + PAD + K1[1:] + K5:  # K1[0] is PATHS[0]
         torch.cuda.empty_cache()
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
         plan = planner.plan_fft_forward(n)

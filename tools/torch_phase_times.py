@@ -5,22 +5,26 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/torch_phase_times.py [N:BATCH ...]
 
-Default shapes: 4096:16384 (K1's compile-time kernel, (16, 16, 16)),
-49152:2048 (192 x 256, register radices only, 4 blocks a
+Default shapes: 4096:16384 (K1's pipelined kernel, (16, 16, 16)),
+8192:8192 and 2008:32768 (K1's chain kernel: four register stages; a
+512-point Bluestein stage), 251:131072 (K5's chain form, one Bluestein
+stage on the chain kernel), 49152:2048 (192 x 256, register radices only, 4 blocks a
 transform) and 260608:256 (509 x 512, the prime p = 509 as a Bluestein
 stage, 16 blocks) on K7's cluster kernel, and 531441:64 (243 x 2187, a
 radix-27 Bluestein stage on the row stage) and 234617:256 (373 x 629, the
 prime P = 373 as a 1024-point Bluestein stage) on K12's two kernels; a
 shape goes to K12 where `route` sends it to large_pad, to K1 where it
-sends it to lanepack.  For each shape it
-runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
+sends it to lanepack, to K5's chain form where it sends it to dense (a
+prime from 29).  For each shape it runs the stamped form of each kernel
+(lanepack.lanepack_phase_stamps,
 fused.two_stage_cluster_phase_stamps,
 largepad.largepad_col_phase_stamps and largepad_row_phase_stamps, which no
 route launches: thread 0 of every block reads %globaltimer after a block
 barrier at the kernel's start and at the end of each phase: the load,
 DFT_p, the exchange, DFT_q and the store of the cluster kernel; the load,
-the chain and the store of K12's; K1's stages, the first with the load
-and the last with the store), checks its output bit for bit against
+the chain and the store of K12's and of K1's chain kernel; the time K1's
+pipelined kernel spends waiting for its loads, in stages 0-1 and in stage
+2 with the store, summed over a block's transforms), checks its output bit for bit against
 the kernel's, and prints:
 
   - per phase, the mean and median over blocks of its time in a block, in
@@ -42,7 +46,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SHAPES = ((4096, 16384), (49152, 2048), (260608, 256), (531441, 64), (234617, 256))
+SHAPES = ((4096, 16384), (8192, 8192), (2008, 32768), (251, 131072), (49152, 2048),
+          (260608, 256), (531441, 64), (234617, 256))
 
 
 def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -121,26 +126,32 @@ def largepad_phases(n: int, batch: int, gen) -> None:
 
 
 def lanepack_phases(n: int, batch: int, gen) -> None:
-    """K1's compile-time kernel at 4096 x batch through its stamped form."""
+    """K1's kernel for n (the pipelined kernel at 4096, else the chain
+    kernel), or K5's chain form for a prime n of the dense route (the chain
+    kernel on one Bluestein stage), at n x batch through its stamped form."""
     import torch
 
     from rustfft_tpu_torch.common import FftDirection
-    from rustfft_tpu_torch.ops.kernels import lanepack
+    from rustfft_tpu_torch.ops.kernels import dense, lanepack
 
-    if n != 4096:
-        raise SystemExit(f"n={n}: K1's stamped form is the 4096 kernel's only")
     dev = torch.device("cuda")
-    radices = lanepack.choose_radices(n)
-    tables = tuple([torch.from_numpy(a).to(dev) for a in t]
-                   for t in lanepack.stage_tables(n, radices, FftDirection.FORWARD))
+    if dense.chain_form(n) and lanepack.choose_radices(n) == (n,):
+        radices, host = (n,), ([dense.chain_table(n, FftDirection.FORWARD)], [])
+    else:
+        radices = lanepack.choose_radices(n)
+        host = lanepack.chain_tables(n, radices, FftDirection.FORWARD)
+    tables = tuple([torch.from_numpy(a).to(dev) for a in t] for t in host)
     x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
-    lanepack.lanepack_phase_stamps(x, tables)  # warm-up (and the stamped library's build)
-    y, stamps = lanepack.lanepack_phase_stamps(x, tables)
+    lanepack.lanepack_phase_stamps(x, radices, tables)  # warm-up (and the stamped library's build)
+    y, stamps, phases = lanepack.lanepack_phase_stamps(x, radices, tables)
     torch.cuda.synchronize()
     if not torch.equal(y, lanepack.lanepack_fft(x, radices, tables)):
         raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
-    report(f"n={n} {radices} batch={batch} lanepack_fft", stamps, lanepack.PHASES,
-           median_ms(lambda: lanepack.lanepack_phase_stamps(x, tables)),
+    kernel = ("lanepack_pipe_fft" if radices == lanepack.PIPE_RADICES else
+              f"lanepack_chain_fft ({lanepack.chain_width(n)} transforms a block, Bluestein "
+              f"lengths {lanepack.bluestein_ms(radices, lanepack.MAX_STAGES)})")
+    report(f"n={n} {radices} batch={batch} {kernel}", stamps, phases,
+           median_ms(lambda: lanepack.lanepack_phase_stamps(x, radices, tables)),
            median_ms(lambda: lanepack.lanepack_fft(x, radices, tables)))
     del x, y, stamps
     torch.cuda.empty_cache()
@@ -162,7 +173,7 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for n, batch in shapes:
-        if route(n, np.complex64) == "lanepack":
+        if route(n, np.complex64) in ("lanepack", "dense"):
             lanepack_phases(n, batch, gen)
             continue
         if route(n, np.complex64) == "large_pad":

@@ -4,6 +4,7 @@
 Run from the repository root; it needs no GPU:
 
     python3 tools/torch_routes.py [--chains] [LO HI]
+    python3 tools/torch_routes.py --lanepack
 
 For complex64 and every n in [LO, HI) (default [14464, 2^20), about four
 minutes on one CPU core) prints how many sizes `rustfft_tpu_torch.route`
@@ -20,6 +21,14 @@ sum" (a roots-table stage, no Bluestein stage), "Bluestein r<=256" (a
 Bluestein stage of M <= 512) and "Bluestein 257-509" (the prime P as one
 stage of M = 1024).  `large`'s own kernels run every radix without a
 register stage as a direct sum; the class says what K7's chain would run.
+
+With --lanepack it counts the lanepack sizes of [2, 16384] (a few seconds)
+by the class of their chain's costliest stage, before and after K1 moved to
+the in-place chain: before, `lanepack.tile_radices` (2-3 stages) on the
+two-buffer kernel, which ran every radix without a register stage as a
+direct sum from a roots table; after, `lanepack.choose_radices` (1-4
+stages) as the chain kernel runs it: "register", "direct sum" (no
+Bluestein stage) or "Bluestein" (lanepack.bluestein_stage_m).
 """
 from __future__ import annotations
 
@@ -38,6 +47,29 @@ from rustfft_tpu_torch.ops.kernels import fused, large, lanepack  # noqa: E402
 
 #: the chain classes, cheapest first
 CLASSES = ("register", "direct sum", "Bluestein r<=256", "Bluestein 257-509")
+
+
+#: the lanepack classes, cheapest first
+LANE_CLASSES = ("register", "direct sum", "Bluestein")
+
+
+def lanepack_classes(lo: int = 2, hi: int = 16385):
+    """(sizes per class before, sizes per class after, stages after) over
+    the lanepack sizes of [lo, hi)."""
+    before: Counter = Counter()
+    after: Counter = Counter()
+    stages: Counter = Counter()
+    for n in range(lo, hi):
+        if route(n, np.complex64) != "lanepack":
+            continue
+        old = lanepack.tile_radices(n)
+        before[LANE_CLASSES[0 if all(r in lanepack.REGISTER_RADICES for r in old) else 1]] += 1
+        new = lanepack.choose_radices(n)
+        worst = max(2 if fused.bluestein_stage_m(r) else 0 if r in lanepack.REGISTER_RADICES
+                    else 1 for r in new)
+        after[LANE_CLASSES[worst]] += 1
+        stages[len(new)] += 1
+    return before, after, stages
 
 
 def chain_class(m: int) -> str:
@@ -82,6 +114,16 @@ def count_routes(lo: int, hi: int, with_chains: bool = False):
 
 def main() -> None:
     args = sys.argv[1:]
+    if "--lanepack" in args:
+        before, after, stages = lanepack_classes()
+        total = sum(before.values())
+        print(f"lanepack sizes of [2, 16384]: {total}, by their chain's costliest stage")
+        for what, cls in (("before (tile_radices, two-buffer kernel)", before),
+                          ("after (choose_radices, in-place chain)", after)):
+            print(f"  {what}: " + ", ".join(f"{k} {cls[k]} ({100 * cls[k] / total:.1f}%)"
+                                            for k in LANE_CLASSES if cls[k]))
+        print("  stages after: " + ", ".join(f"{k}: {stages[k]}" for k in sorted(stages)))
+        return
     with_chains = "--chains" in args
     args = [a for a in args if a != "--chains"]
     lo, hi = (int(a) for a in args[:2]) if len(args) > 1 else (14464, 1 << 20)
