@@ -49,12 +49,9 @@ namespace rf {
 // ---- the chain kernel ---------------------------------------------------------
 
 constexpr int kLpMaxStages = 4;
-// Threads a block: 256 for one transform of more than 4096 points, else 128
-// (T transforms of n <= 4096, at most 4096 points, six blocks an SM): more
-// blocks an SM overlap one block's loads with another's stages.
+// The most threads a block has (ops/kernels/lanepack.py chain_threads picks
+// 128 or 256).
 constexpr int kLpThreads = 256;
-constexpr int kLpSmallThreads = 128;
-constexpr int kLpSmallN = 4096;
 // The Bluestein cap: lanepack's radices are at most 256 (MAX_STAGE), M <= 512.
 constexpr int kLpMaxM = 512;
 
@@ -196,7 +193,8 @@ __global__ void __launch_bounds__(kLpThreads, MaxM > 128 ? 2 : 3)
 // The chain describes a length-n transform, every table is there, every
 // stage is one the kernel runs (a Bluestein length up to kLpMaxM, a direct
 // sum up to kMaxDirectRadix), and the block and the grid fit.
-static bool lp_ok(long long batch, int n, int T, const LpChain& ch) {
+static bool lp_ok(long long batch, int n, int T, int threads, const LpChain& ch) {
+  if (threads < 32 || threads > kLpThreads || threads % 32 != 0) return false;
   if (batch <= 0 || T <= 0 || n <= 0 || ch.k < 1 || ch.k > kLpMaxStages)
     return false;
   long long prod = 1;
@@ -213,31 +211,32 @@ static bool lp_ok(long long batch, int n, int T, const LpChain& ch) {
 
 template <int MaxM, bool kStamp>
 static cudaError_t launch_chain(const float2* x, float2* y, long long batch, int n, int T,
-                                const LpChain& ch, unsigned long long* stamps, cudaStream_t s) {
+                                int threads, const LpChain& ch, unsigned long long* stamps,
+                                cudaStream_t s) {
   const size_t smem = lp_smem_bytes(n, T, ch);
   cudaError_t err = allow_smem(lanepack_chain_kernel<MaxM, kStamp>, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (batch + T - 1) / T;
   lanepack_chain_kernel<MaxM, kStamp>
-      <<<(unsigned)blocks, n <= kLpSmallN ? kLpSmallThreads : kLpThreads, smem, s>>>(
-          x, y, batch, n, T, ch, stamps);
+      <<<(unsigned)blocks, threads, smem, s>>>(x, y, batch, n, T, ch, stamps);
   return cudaGetLastError();
 }
 
 // The form for the chain's longest Bluestein stage: none (MaxM = 0), up to
 // 128 points (the radices up to 64; three blocks an SM), up to 512.
 template <bool kStamp>
-static int chain_fft(const void* x, void* y, long long batch, int n, int T, const LpChain& ch,
-                     unsigned long long* stamps, void* stream) {
-  if (!lp_ok(batch, n, T, ch)) return cudaErrorInvalidValue;
+static int chain_fft(const void* x, void* y, long long batch, int n, int T, int threads,
+                     const LpChain& ch, unsigned long long* stamps, void* stream) {
+  if (!lp_ok(batch, n, T, threads, ch)) return cudaErrorInvalidValue;
   const auto* tx = static_cast<const float2*>(x);
   auto* ty = static_cast<float2*>(y);
   const auto s = static_cast<cudaStream_t>(stream);
   int max_m = 0;
   for (int i = 0; i < ch.k; ++i) max_m = ch.bm[i] > max_m ? ch.bm[i] : max_m;
-  if (max_m > 128) return launch_chain<kLpMaxM, kStamp>(tx, ty, batch, n, T, ch, stamps, s);
-  if (max_m > 0) return launch_chain<128, kStamp>(tx, ty, batch, n, T, ch, stamps, s);
-  return launch_chain<0, kStamp>(tx, ty, batch, n, T, ch, stamps, s);
+  if (max_m > 128)
+    return launch_chain<kLpMaxM, kStamp>(tx, ty, batch, n, T, threads, ch, stamps, s);
+  if (max_m > 0) return launch_chain<128, kStamp>(tx, ty, batch, n, T, threads, ch, stamps, s);
+  return launch_chain<0, kStamp>(tx, ty, batch, n, T, threads, ch, stamps, s);
 }
 
 static LpChain make_chain(int k, int r0, int r1, int r2, int r3, const void* tab0,
@@ -432,8 +431,9 @@ static int pipe_fft(const void* x, void* y, long long batch, const void* roots0,
   if (err == cudaSuccess) err = allow_smem(lanepack_pipe_kernel<kStamp>, kPipeSmem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)(batch < grid ? batch : grid);
-  lanepack_pipe_kernel<kStamp><<<blocks, kPipeThreads, kPipeSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), batch, st, stamps);
+  lanepack_pipe_kernel<kStamp>
+      <<<blocks, kPipeThreads, kPipeSmem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float2*>(x), static_cast<float2*>(y), batch, st, stamps);
   return cudaGetLastError();
 }
 
@@ -446,14 +446,16 @@ extern "C" const char* rf_error_string(int code) {
 // x, y: (batch, n) complex64 on the current device; the chain of 1..4
 // stages (ops/kernels/lanepack.py chain_args at four slots: a Bluestein
 // stage's table in its tab slot, its length m_s, else 0); T transforms a
-// block.  Returns a cudaError_t code (0 on success); launches on `stream`.
-extern "C" int rf_lanepack_chain(const void* x, void* y, long long batch, int n, int T, int k,
+// block of `threads` (a multiple of 32 up to 256).  Returns a cudaError_t
+// code (0 on success); launches on `stream`.
+extern "C" int rf_lanepack_chain(const void* x, void* y, long long batch, int n, int T,
+                                 int threads, int k,
                                  int r0, int r1, int r2, int r3, const void* tab0,
                                  const void* tab1, const void* tab2, const void* tab3,
                                  const void* tw0, const void* tw1, const void* tw2, int m0,
                                  int m1, int m2, int m3, void* stream) {
   using namespace rf;
-  return chain_fft<false>(x, y, batch, n, T,
+  return chain_fft<false>(x, y, batch, n, T, threads,
                           make_chain(k, r0, r1, r2, r3, tab0, tab1, tab2, tab3, tw0, tw1, tw2,
                                      m0, m1, m2, m3),
                           nullptr, stream);
@@ -468,27 +470,20 @@ extern "C" int rf_lanepack_pipe(const void* x, void* y, long long batch, const v
   return pipe_fft<false>(x, y, batch, roots0, roots1, roots2, tw0, tw1, nullptr, stream);
 }
 
-// The pipelined kernel's grid on the current device (blocks the card holds
-// at once).
-extern "C" int rf_lanepack_pipe_blocks(int* blocks) {
-  using namespace rf;
-  return pipe_grid(blocks);
-}
-
 #ifdef RF_PHASE_STAMPS
 // The two kernels through their stamped forms: stamps (blocks, 4) uint64
 // nanoseconds of %globaltimer.  Only the library built with
 // RF_PHASE_STAMPS has them (tools/torch_phase_times.py).
 extern "C" int rf_lanepack_chain_phase_stamps(const void* x, void* y, long long batch, int n,
-                                              int T, int k, int r0, int r1, int r2, int r3,
-                                              const void* tab0, const void* tab1,
+                                              int T, int threads, int k, int r0, int r1,
+                                              int r2, int r3, const void* tab0, const void* tab1,
                                               const void* tab2, const void* tab3,
                                               const void* tw0, const void* tw1, const void* tw2,
                                               int m0, int m1, int m2, int m3, void* stamps,
                                               void* stream) {
   using namespace rf;
   if (stamps == nullptr) return cudaErrorInvalidValue;
-  return chain_fft<true>(x, y, batch, n, T,
+  return chain_fft<true>(x, y, batch, n, T, threads,
                          make_chain(k, r0, r1, r2, r3, tab0, tab1, tab2, tab3, tw0, tw1, tw2,
                                     m0, m1, m2, m3),
                          static_cast<unsigned long long*>(stamps), stream);

@@ -53,10 +53,9 @@ _ll = ctypes.c_longlong
 #: argtypes of every C entry point; pointers and the stream as c_void_p so
 #: that ctypes does not cut them to 32 bits
 _SIGNATURES = {
-    "rf_lanepack_chain": [_vp, _vp, _ll, _int, _int] + [_int] * 5 + [_vp] * 7 + [_int] * 4
-                         + [_vp],
+    "rf_lanepack_chain": [_vp, _vp, _ll, _int, _int, _int] + [_int] * 5 + [_vp] * 7
+                         + [_int] * 4 + [_vp],
     "rf_lanepack_pipe": [_vp, _vp, _ll] + [_vp] * 6,
-    "rf_lanepack_pipe_blocks": [ctypes.POINTER(_int)],
     "rf_large_col_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
                            _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
     "rf_large_row_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
@@ -96,8 +95,8 @@ _STAMP_SIGNATURES = {
                                     + [_vp, _vp, _vp],
     "rf_largepad_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3
                                     + [_vp, _vp],
-    "rf_lanepack_chain_phase_stamps": [_vp, _vp, _ll, _int, _int] + [_int] * 5 + [_vp] * 7
-                                      + [_int] * 4 + [_vp, _vp],
+    "rf_lanepack_chain_phase_stamps": [_vp, _vp, _ll, _int, _int, _int] + [_int] * 5
+                                      + [_vp] * 7 + [_int] * 4 + [_vp, _vp],
     "rf_lanepack_pipe_phase_stamps": [_vp, _vp, _ll] + [_vp] * 7,
 }
 STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)

@@ -46,7 +46,6 @@ from . import _build
 from . import lanepack
 from .lanepack import check_operand, require_cuda
 
-#: the dense product's forms; make_dense_fft_fn also takes "chain"
 VARIANTS = ("block", "gauss")
 
 
@@ -178,13 +177,12 @@ dense_chain_fft.launches = 0
 
 def make_dense_fft_fn(n: int, direction: FftDirection, dtype, variant=None):
     """Return fn: complex64 (..., n) -> (..., n), the unnormalized DFT of
-    every length-n row: through dense_chain_fft in `variant` "chain"
-    (default where chain_form(n)), else through dense_fft in `variant`
-    (default choose_variant(n))."""
+    every length-n row: with no `variant` through dense_chain_fft where
+    chain_form(n), else through dense_fft in `variant` (default
+    choose_variant(n))."""
     if not dense_supported(n, dtype):
         raise ValueError(f"no dense kernel for n={n}, dtype={np.dtype(dtype)}")
-    variant = variant or ("chain" if chain_form(n) else choose_variant(n))
-    if variant == "chain":
+    if variant is None and chain_form(n):
         tables = calg.DeviceTables([chain_table(n, direction)])
 
         def apply_chain(x):
@@ -192,6 +190,7 @@ def make_dense_fft_fn(n: int, direction: FftDirection, dtype, variant=None):
             return y.reshape(x.shape)
 
         return apply_chain
+    variant = variant or choose_variant(n)
     w, ws = dense_tables(n, direction, variant)
     tables = calg.DeviceTables([w] if ws is None else [w, ws])
 

@@ -36,7 +36,6 @@ f32-cast matrix entry.  `make_lanepack_fn` takes the JAX factory's
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import List, Optional, Sequence, Tuple
@@ -66,7 +65,7 @@ REGISTER_RADICES = frozenset({2, 3, 4, 5, 6, 7, 8, 9, 12, 16})
 
 #: the chain kernel's buffer: chain_width(n) transforms of n values, at
 #: most this many values (32 KB, a block of 128 threads, six an SM) unless
-#: one transform is longer (csrc/lanepack.cu kLpSmallN)
+#: one transform is longer (then 256 threads: chain_threads)
 CHAIN_TILE = 4096
 
 #: the compile-time chain of lanepack_pipe_fft
@@ -301,6 +300,13 @@ def chain_width(n: int) -> int:
     return 1 << max(0, (CHAIN_TILE // n).bit_length() - 1)
 
 
+def chain_threads(n: int) -> int:
+    """Threads of a chain-kernel block: 128 for the transforms of n <=
+    CHAIN_TILE (six blocks an SM at 80 registers: one block's load overlaps
+    another's stages), 256 for one longer transform."""
+    return 128 if n <= CHAIN_TILE else 256
+
+
 def chain_smem_bytes(n: int, width: int, radices: Sequence[int]) -> int:
     """Shared memory of a chain-kernel block (csrc/lanepack.cu
     lp_smem_bytes): ONE buffer of width * n values (rounded up to 16) and
@@ -487,20 +493,25 @@ def _check(x: torch.Tensor, radices: Sequence[int], tables, what: str) -> int:
 
 
 def launch_chain(x: torch.Tensor, radices: Sequence[int], tables, what: str,
-                 stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 stamps: Optional[torch.Tensor] = None, width: Optional[int] = None,
+                 threads: Optional[int] = None) -> torch.Tensor:
     """One launch of csrc/lanepack.cu's chain kernel on x (batch, n), n =
-    prod(radices), over blocks of chain_width(n) transforms; y.  With
-    `stamps`, its stamped form from the library built for it."""
+    prod(radices), over blocks of `width` transforms (default
+    chain_width(n)) and `threads` threads (default chain_threads(n)); y.
+    With `stamps`, its stamped form from the library built for it."""
     roots, tws = tables
     n = math.prod(radices)
+    width = width or chain_width(n)
+    threads = threads or chain_threads(n)
     require_cuda(x, what)
-    if not chain_runs(n, radices):
-        raise ValueError(f"{what}: the chain kernel cannot run n={n} as {tuple(radices)}")
+    if not chain_runs(n, radices) or chain_smem_bytes(n, width, radices) > _build.SMEM_MAX:
+        raise ValueError(f"{what}: the chain kernel cannot run n={n} as {tuple(radices)} "
+                         f"{width} a block")
     y = torch.empty_like(x)
     if x.shape[0] == 0:
         return y
     lib = _build.load(phase_stamps=stamps is not None)
-    args = (x.data_ptr(), y.data_ptr(), x.shape[0], n, chain_width(n),
+    args = (x.data_ptr(), y.data_ptr(), x.shape[0], n, width, threads,
             *chain_args(radices, roots, tws, MAX_STAGES))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -617,22 +628,14 @@ def lanepack_phase_stamps(x: torch.Tensor, radices: Sequence[int], tables):
     n = _check(x, radices, tables, what)
     require_cuda(x, what)
     if tuple(radices) == PIPE_RADICES:
-        blocks = pipe_blocks(x.shape[0], x.device)
-        stamps = torch.zeros((blocks, PHASE_STAMPS), dtype=torch.int64, device=x.device)
-        return _launch_pipe(x, tables, what, stamps), stamps, PIPE_PHASES
+        # a row a transform, the most the grid can have; the rows of the
+        # blocks it launched are the ones stamped
+        stamps = torch.zeros((x.shape[0], PHASE_STAMPS), dtype=torch.int64, device=x.device)
+        y = _launch_pipe(x, tables, what, stamps)
+        return y, stamps[stamps[:, 0] != 0], PIPE_PHASES
     blocks = -(-x.shape[0] // chain_width(n))
     stamps = torch.zeros((blocks, PHASE_STAMPS), dtype=torch.int64, device=x.device)
     return launch_chain(x, radices, tables, what, stamps), stamps, CHAIN_PHASES
-
-
-def pipe_blocks(batch: int, device) -> int:
-    """The pipelined kernel's grid at `batch`: the blocks the card holds at
-    once, at most one a transform (csrc/lanepack.cu rf_lanepack_pipe_blocks)."""
-    lib = _build.load()
-    out = ctypes.c_int()
-    with torch.cuda.device(device):
-        _build.check(lib, lib.rf_lanepack_pipe_blocks(ctypes.byref(out)), "pipe_blocks")
-    return min(batch, out.value)
 
 
 #: the I/O views make_lanepack_fn accepts (the JAX package's lanepack variants)
