@@ -376,18 +376,12 @@ __global__ void __launch_bounds__(kPipeThreads, 3)
   tw1[t] = st.tw[1][t];
   tw0[t] = st.tw[0][(t >> 4) * 256 + (t & 15)];
   const auto tw_none = [](float2 o, int, int) { return o; };
+  // stage 0's twiddle w_4096^(k*j'), j' = 16a + b: w_256^(k*a) * w_4096^(k*b)
+  const auto tw_0 = [&](float2 o, int k, int jr) {
+    return cmul(o, cmul(tw1[k * 16 + (jr >> 4)], tw0[k * 16 + (jr & 15)]));
+  };
+  const auto tw_1 = [&](float2 o, int k, int jr) { return cmul(o, tw1[k * 16 + jr]); };
   for (int it = 0; b < batch; ++it, b += gridDim.x) {
-    // a thread's twiddles are the same for every transform: at an offset the
-    // compiler cannot see through, they are read where they are used, not
-    // held in registers across the loop
-    const int o = opaque(0);
-    const float2* t1 = tw1 + o;
-    const float2* t0 = tw0 + o;
-    // stage 0's twiddle w_4096^(k*j'), j' = 16a + b: w_256^(k*a) * w_4096^(k*b)
-    const auto tw_0 = [&](float2 o, int k, int jr) {
-      return cmul(o, cmul(t1[k * 16 + (jr >> 4)], t0[k * 16 + (jr & 15)]));
-    };
-    const auto tw_1 = [&](float2 o, int k, int jr) { return cmul(o, t1[k * 16 + jr]); };
     const SmemTile cur{smem + (it & 1) * kPipeN};
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     // transform b is in cur for every thread, and the other buffer (read by
