@@ -523,8 +523,9 @@ def launch_chain(x: torch.Tensor, radices: Sequence[int], tables, what: str,
     return y
 
 
-def lanepack_chain_fft_plain(x: torch.Tensor, radices: Sequence[int], tables) -> torch.Tensor:
-    """Plain torch version of lanepack_chain_fft."""
+def lanepack_fft_plain(x: torch.Tensor, radices: Sequence[int], tables) -> torch.Tensor:
+    """Plain torch version of lanepack_fft and of each kernel's wrapper: the
+    chain's stages, every Bluestein stage step by step."""
     return chain_stages_plain(x, radices, *tables)
 
 
@@ -537,7 +538,7 @@ def lanepack_chain_fft(x: torch.Tensor, radices: Sequence[int], tables) -> torch
     what = "lanepack_chain_fft"
     _check(x, radices, tables, what)
     if x.device.type == "cpu":
-        return lanepack_chain_fft_plain(x, radices, tables)
+        return lanepack_fft_plain(x, radices, tables)
     y = launch_chain(x, radices, tables, what)
     lanepack_chain_fft.launches += 1
     return y
@@ -567,11 +568,6 @@ def _launch_pipe(x: torch.Tensor, tables, what: str,
     return y
 
 
-def lanepack_pipe_fft_plain(x: torch.Tensor, tables) -> torch.Tensor:
-    """Plain torch version of lanepack_pipe_fft."""
-    return fft_stages_plain(x, PIPE_RADICES, *tables)
-
-
 def lanepack_pipe_fft(x: torch.Tensor, tables) -> torch.Tensor:
     """DFT of every row of x (batch, 4096) complex64 by the chain (16, 16,
     16) on csrc/lanepack.cu's persistent, double-buffered kernel.
@@ -582,7 +578,7 @@ def lanepack_pipe_fft(x: torch.Tensor, tables) -> torch.Tensor:
     what = "lanepack_pipe_fft"
     _check(x, PIPE_RADICES, tables, what)
     if x.device.type == "cpu":
-        return lanepack_pipe_fft_plain(x, tables)
+        return lanepack_fft_plain(x, PIPE_RADICES, tables)
     y = _launch_pipe(x, tables, what)
     lanepack_pipe_fft.launches += 1
     return y
@@ -600,11 +596,6 @@ def lanepack_fft(x: torch.Tensor, radices: Sequence[int], tables) -> torch.Tenso
     if tuple(radices) == PIPE_RADICES:
         return lanepack_pipe_fft(x, tables)
     return lanepack_chain_fft(x, radices, tables)
-
-
-def lanepack_fft_plain(x: torch.Tensor, radices: Sequence[int], tables) -> torch.Tensor:
-    """Plain torch version of lanepack_fft."""
-    return chain_stages_plain(x, radices, *tables)
 
 
 #: the stamped forms' phases (tools/torch_phase_times.py): a chain-kernel

@@ -29,7 +29,7 @@ and kernel at 4096 x 16384, 8192 x 8192, 1024 x 65536, 64 x 1048576,
 1000 x 65536, 2008 x 32768 and 12288 x 5120 (a tree whose lanepack module
 has no `chain_tables` takes its `stage_tables`, as K1 did before the
 in-place chain), and K5's paths 127 x 262144, 251 x 131072 and 29 x
-2097152.  It prints
+2097152, each of K1's and K5's shapes also through torch.fft.  It prints
 one JSON line per run and then a table, each row a quantity and each
 column a run.
 """
@@ -111,6 +111,8 @@ def run_one(root: str) -> dict:
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
         plan = planner.plan_fft_forward(n)
         out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=7 if n == 1 << 20 else 15)
+        if (n, batch) in K1 + K5:
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
         del x
     pad_tables = getattr(largepad, "col_tables", None)
     for n, batch in PAD:

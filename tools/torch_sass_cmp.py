@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""Compare the machine code (SASS) of CUDA sources between two checkouts.
+
+Run from the repository root on a machine with nvcc:
+
+    python3 tools/torch_sass_cmp.py OLD_CHECKOUT NEW_CHECKOUT [SOURCE ...]
+
+Default sources: fused.cu, largepad.cu and largepad_row.cu (K7's and K12's
+kernels, which include csrc/inplace_chain.cuh).  Each source of each
+checkout is compiled with the build's own flags (one nvcc each, in
+parallel), disassembled with cuobjdump -sass, and the two listings are
+compared line by line with the instruction addresses stripped; it
+prints, per source, the SASS lines of each side and how many differ (at
+the same position, plus the difference in length).  0 means the kernels are
+the same instructions, so a difference in their times is not the code's.
+"""
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from rustfft_tpu_torch.ops.kernels import _build  # noqa: E402
+
+SOURCES = ("fused.cu", "largepad.cu", "largepad_row.cu")
+
+
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    return found or os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+
+
+def main() -> None:
+    if len(sys.argv) < 3:
+        raise SystemExit(__doc__)
+    old, new = Path(sys.argv[1]), Path(sys.argv[2])
+    sources = sys.argv[3:] or SOURCES
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {}
+        for src in sources:
+            for tag, root in (("old", old), ("new", new)):
+                obj = os.path.join(tmp, f"{tag}-{src}.o")
+                jobs[(src, tag)] = (obj, subprocess.Popen(
+                    [_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", obj,
+                     str(root / "rustfft_tpu_torch" / "csrc" / src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for (src, tag), (_, proc) in jobs.items():
+            if proc.wait() != 0:
+                raise SystemExit(f"nvcc failed on {tag} {src}:\n{proc.stdout.read()}")
+        for src in sources:
+            listings = []
+            for tag in ("old", "new"):
+                out = subprocess.run([cuobjdump(), "-sass", jobs[(src, tag)][0]],
+                                     capture_output=True, text=True, check=True).stdout
+                listings.append([re.sub(r"/\*[0-9a-f]+\*/", "", line)
+                                 for line in out.splitlines() if line.strip()])
+            old_lines, new_lines = listings
+            differ = (sum(a != b for a, b in zip(old_lines, new_lines))
+                      + abs(len(old_lines) - len(new_lines)))
+            print(f"{src}: {len(listings[0])} / {len(listings[1])} SASS lines; "
+                  f"differing lines: {differ}", flush=True)
+
+
+if __name__ == "__main__":
+    main()
