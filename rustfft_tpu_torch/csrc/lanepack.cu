@@ -287,7 +287,8 @@ static __device__ __forceinline__ void fft16(float2 (&x)[16], float sg) {
         x[blk + i] = make_float2(a.x + b.x, a.y + b.y);
         const float2 d = make_float2(a.x - b.x, a.y - b.y);
         // w_16^4 = -+i: a swap and two signs, not a complex product (the
-        // same bits: the root's real part, 6e-17, is below a rounding)
+        // table's root has a real part of 6e-17, which the product rounds
+        // away unless one component is ~1e-17 of the other)
         x[blk + i + HALF] = i == 0                  ? d
                             : i * (8 / HALF) == 4 ? make_float2(sg * d.y, -sg * d.x)
                                                   : cmul(d, w16(i * (8 / HALF), sg));
