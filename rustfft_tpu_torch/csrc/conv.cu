@@ -17,8 +17,8 @@
 // reads from L2.  At the prime path's shapes (m = 1008, 3072) the chains
 // dominate, as in K1.
 //
-// Design: one block owns one transform in shared memory, like
-// lanepack_kernel (two m*8-byte buffers and the roots), so the grid is the
+// Design: one block owns one transform in shared memory, on fft_tile.cuh's
+// two-buffer tile (two m*8-byte buffers and the roots), so the grid is the
 // batch and a ragged n_in / n_out is a per-element bound, not a tile mask.
 // Load with the pre-multiply (zero beyond n_in), run the fft_tile chain,
 // multiply by H and conjugate in place (H is in natural order, the order the
