@@ -103,15 +103,53 @@ constexpr int kTwoStageThreads = 512;
 // rows b leaves frequency d = k0 + 16*k1 at row k0*8 + k1 (place_row), not
 // at row d.
 
+// Phase stamps of the radix kernel (its kStamp form, built only into the
+// library compiled with RF_PHASE_STAMPS, which no route loads): per block,
+// its start and that start plus the running sums of the time in each of its
+// kRadixPhases phases (stage A's load and radix 16, stage A's radix 8, the
+// exchange with its two cluster barriers, stage B's radix 16, stage B's
+// radix 8 with the store), each lap read by thread 0 after a block barrier
+// (tools/torch_phase_times.py).
+constexpr int kRadixPhases = 5;
+
+template <bool kStamp>
+struct RadixClock {
+  unsigned long long start = 0, mark = 0, sum[kRadixPhases] = {};
+  __device__ void begin() {
+    if constexpr (kStamp) {
+      __syncthreads();
+      start = mark = global_timer();
+    }
+  }
+  __device__ void lap(int phase) {
+    if constexpr (kStamp) {
+      __syncthreads();
+      const unsigned long long now = global_timer();
+      sum[phase] += now - mark;
+      mark = now;
+    }
+  }
+  __device__ void write(unsigned long long* stamps) const {
+    if constexpr (kStamp) {
+      if (threadIdx.x == 0) {
+        unsigned long long* out = stamps + (size_t)blockIdx.x * (kRadixPhases + 1);
+        out[0] = start;
+        for (int i = 0; i < kRadixPhases; ++i) out[i + 1] = out[i] + sum[i];
+      }
+    }
+  }
+};
+
 // Row of the tile that holds frequency d after stage A.
 static __device__ __forceinline__ int place_row(int d) { return (d & 15) * 8 + (d >> 4); }
 
 // Stage A: DFT_128 over the rows b = j0*8 + j1 of the slice x[b, :] (rows
 // kLd apart in device memory).
-template <int kLd>
+template <int kLd, bool kStamp>
 static __device__ __forceinline__ void slice_dft_rows(const float2* __restrict__ x, float2* buf,
                                                       const float2* __restrict__ sroots,
-                                                      const float2* __restrict__ tw) {
+                                                      const float2* __restrict__ tw,
+                                                      RadixClock<kStamp>& clock) {
   // radix 16 over j0 for each (j1, t), from device memory to row k0*8 + j1
   for (int c = threadIdx.x; c < 1024; c += kFusedThreads) {
     float2 v[16];
@@ -122,6 +160,7 @@ static __device__ __forceinline__ void slice_dft_rows(const float2* __restrict__
     for (int i = 0; i < 16; ++i) buf[swz(bitrev<16>(i) * 1024 + c)] = v[i];
   }
   __syncthreads();
+  clock.lap(0);
   // twiddle and radix 8 over j1 for each (k0, t), in place
   for (int c = threadIdx.x; c < 2048; c += kFusedThreads) {
     const int k0 = c >> 7;
@@ -140,10 +179,11 @@ static __device__ __forceinline__ void slice_dft_rows(const float2* __restrict__
 
 // Stage B: DFT_128 over the columns j2 = j0*8 + j1 of the tile for every
 // frequency d, stored in natural order y[k2*kLd + d].
-template <int kLd>
+template <int kLd, bool kStamp>
 static __device__ __forceinline__ void slice_dft_cols(float2* buf, float2* __restrict__ y,
                                                       const float2* __restrict__ sroots,
-                                                      const float2* __restrict__ tw) {
+                                                      const float2* __restrict__ tw,
+                                                      RadixClock<kStamp>& clock) {
   // radix 16 over j0 for each (row, j1), in place
   for (int c = threadIdx.x; c < 1024; c += kFusedThreads) {
     const int base = (c & (kSlice - 1)) * kSlice + (c >> 7);
@@ -155,6 +195,7 @@ static __device__ __forceinline__ void slice_dft_cols(float2* buf, float2* __res
     for (int i = 0; i < 16; ++i) buf[swz(base + bitrev<16>(i) * 8)] = v[i];
   }
   __syncthreads();
+  clock.lap(3);
   // twiddle and radix 8 over j1 for each (d, k0), to k2 = k0 + 16*k1
   for (int c = threadIdx.x; c < 2048; c += kFusedThreads) {
     const int d = c & (kSlice - 1), k0 = c >> 7;
@@ -200,12 +241,15 @@ static __device__ __forceinline__ void cluster_barrier() {
   }
 }
 
-template <int R>
+template <int R, bool kStamp>
 __global__ void __launch_bounds__(kFusedThreads)
     radix_kernel(const float2* __restrict__ x, float2* __restrict__ y, Stages st,
                  const float2* __restrict__ t1, const float2* __restrict__ tn,
-                 const float2* __restrict__ rroots, const float2* __restrict__ cfac) {
+                 const float2* __restrict__ rroots, const float2* __restrict__ cfac,
+                 unsigned long long* stamps) {
   constexpr int N = R * kSliceElems;
+  RadixClock<kStamp> clock;
+  clock.begin();
   constexpr int kShare = kSliceElems / R;
   extern __shared__ float2 smem[];
   float2* buf = smem;
@@ -231,7 +275,8 @@ __global__ void __launch_bounds__(kFusedThreads)
   constexpr int kLd = R * kSlice;
 
   // stage A: DFT_128 over b of the slice x[b, a, :]
-  slice_dft_rows<kLd>(x + base + a * kSlice, buf, sroots, stw);
+  slice_dft_rows<kLd>(x + base + a * kSlice, buf, sroots, stw, clock);
+  clock.lap(1);
   cluster_barrier<R>();
 
   // the twiddles and the DFT_r across the cluster, on this block's share
@@ -265,23 +310,27 @@ __global__ void __launch_bounds__(kFusedThreads)
     }
   }
   cluster_barrier<R>();
+  clock.lap(2);
 
   // stage B: DFT_128 over j2 for every d, stored at k2*rp + c*p + d (c = a)
-  slice_dft_cols<kLd>(buf, y + base + a * kSlice, sroots, stw);
+  slice_dft_cols<kLd>(buf, y + base + a * kSlice, sroots, stw, clock);
+  clock.lap(4);
+  clock.write(stamps);
 }
 
 static size_t radix_smem_bytes(int r) {
   return (size_t)(kSliceElems + kSliceRoots + r + kSlice + 2 * r * kSlice) * sizeof(float2);
 }
 
-template <int R>
+template <int R, bool kStamp>
 static cudaError_t radix_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
                                 long long batch, cudaStream_t s) {
   const size_t smem = radix_smem_bytes(R);
-  cudaError_t err = allow_smem(radix_kernel<R>, smem);
+  cudaError_t err = allow_smem(radix_kernel<R, kStamp>, smem);
   if (err != cudaSuccess) return err;
   if constexpr (R > 8) {
-    err = cudaFuncSetAttribute(radix_kernel<R>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(radix_kernel<R, kStamp>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   cfg = cudaLaunchConfig_t{};
@@ -298,16 +347,16 @@ static cudaError_t radix_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& at
   return cudaSuccess;
 }
 
-template <int R>
+template <int R, bool kStamp = false>
 static cudaError_t launch_radix(const float2* x, float2* y, long long batch, const Stages& st,
                                 const float2* t1, const float2* tn, const float2* rroots,
-                                const float2* cfac, cudaStream_t s) {
+                                const float2* cfac, unsigned long long* stamps, cudaStream_t s) {
   if (batch * R > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = radix_config<R>(cfg, attr, batch, s);
+  cudaError_t err = radix_config<R, kStamp>(cfg, attr, batch, s);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, radix_kernel<R>, x, y, st, t1, tn, rroots, cfac);
+  err = cudaLaunchKernelEx(&cfg, radix_kernel<R, kStamp>, x, y, st, t1, tn, rroots, cfac, stamps);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -316,9 +365,9 @@ template <int R>
 static cudaError_t max_active_clusters(int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = radix_config<R>(cfg, attr, 1, 0);
+  cudaError_t err = radix_config<R, false>(cfg, attr, 1, 0);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(out, radix_kernel<R>, &cfg);
+  return cudaOccupancyMaxActiveClusters(out, radix_kernel<R, false>, &cfg);
 }
 
 // Each two-stage kernel's largest Bluestein length: the one-block kernel's
@@ -632,6 +681,30 @@ static bool is_chain(const Stages& st, int r0, int r1) {
   return st.k == 2 && st.r[0] == r0 && st.r[1] == r1;
 }
 
+// rf_radix_fft's checks and launch; its stamped form where kStamp.
+template <bool kStamp>
+static int radix_fft(const void* x, void* y, long long batch, int r, const Stages& st,
+                     const void* t1, const void* tn, const void* rroots, const void* cfac,
+                     unsigned long long* stamps, void* stream) {
+  if (batch <= 0 || t1 == nullptr || tn == nullptr || rroots == nullptr || cfac == nullptr)
+    return cudaErrorInvalidValue;
+  if (!stages_ok(st, kSlice) || !is_chain(st, 16, 8)) return cudaErrorInvalidValue;
+  const auto* tx = static_cast<const float2*>(x);
+  auto* ty = static_cast<float2*>(y);
+  const auto* a = static_cast<const float2*>(t1);
+  const auto* b = static_cast<const float2*>(tn);
+  const auto* c = static_cast<const float2*>(rroots);
+  const auto* d = static_cast<const float2*>(cfac);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 2: return launch_radix<2, kStamp>(tx, ty, batch, st, a, b, c, d, stamps, s);
+    case 4: return launch_radix<4, kStamp>(tx, ty, batch, st, a, b, c, d, stamps, s);
+    case 8: return launch_radix<8, kStamp>(tx, ty, batch, st, a, b, c, d, stamps, s);
+    case 16: return launch_radix<16, kStamp>(tx, ty, batch, st, a, b, c, d, stamps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace rf
 
 // x, y: (batch, r*128*128) complex64; `st` the DFT_128 chain (16, 8); t1:
@@ -643,25 +716,29 @@ extern "C" int rf_radix_fft(const void* x, void* y, long long batch, int r, int 
                             const void* tw0, const void* tw1, const void* t1, const void* tn,
                             const void* rroots, const void* cfac, void* stream) {
   using namespace rf;
-  if (batch <= 0 || t1 == nullptr || tn == nullptr || rroots == nullptr || cfac == nullptr)
-    return cudaErrorInvalidValue;
-  const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
-  if (!stages_ok(st, kSlice) || !is_chain(st, 16, 8)) return cudaErrorInvalidValue;
-  const auto* tx = static_cast<const float2*>(x);
-  auto* ty = static_cast<float2*>(y);
-  const auto* a = static_cast<const float2*>(t1);
-  const auto* b = static_cast<const float2*>(tn);
-  const auto* c = static_cast<const float2*>(rroots);
-  const auto* d = static_cast<const float2*>(cfac);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (r) {
-    case 2: return launch_radix<2>(tx, ty, batch, st, a, b, c, d, s);
-    case 4: return launch_radix<4>(tx, ty, batch, st, a, b, c, d, s);
-    case 8: return launch_radix<8>(tx, ty, batch, st, a, b, c, d, s);
-    case 16: return launch_radix<16>(tx, ty, batch, st, a, b, c, d, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return radix_fft<false>(x, y, batch, r, make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0,
+                                                      tw1),
+                          t1, tn, rroots, cfac, nullptr, stream);
 }
+
+#ifdef RF_PHASE_STAMPS
+// rf_radix_fft through the kernel's stamped form: stamps (batch*r,
+// kRadixPhases + 1) uint64 %globaltimer nanoseconds, a block's start and the
+// ends of its phases.  Only the library built with RF_PHASE_STAMPS has it
+// (ops/kernels/_build.py load(phase_stamps=True); tools/torch_phase_times.py).
+extern "C" int rf_radix_phase_stamps(const void* x, void* y, long long batch, int r, int k,
+                                     int r0, int r1, int r2, const void* roots0,
+                                     const void* roots1, const void* roots2, const void* tw0,
+                                     const void* tw1, const void* t1, const void* tn,
+                                     const void* rroots, const void* cfac, void* stamps,
+                                     void* stream) {
+  using namespace rf;
+  if (stamps == nullptr) return cudaErrorInvalidValue;
+  return radix_fft<true>(x, y, batch, r, make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0,
+                                                     tw1),
+                         t1, tn, rroots, cfac, static_cast<unsigned long long*>(stamps), stream);
+}
+#endif
 
 // cudaOccupancyMaxActiveClusters of rf_radix_fft's kernel at r into *out.
 extern "C" int rf_radix_max_active_clusters(int r, int* out) {
@@ -705,7 +782,7 @@ extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, 
   const auto s = static_cast<cudaStream_t>(stream);
   if (p == kSlice && q == kSlice && is_chain(sp, 16, 8) && is_chain(sq, 16, 8)) {
     // the rows of the identity DFT_1: t1 and cfac are never read at R = 1
-    return launch_radix<1>(tx, ty, batch, sp, to, to, to, to, s);
+    return launch_radix<1>(tx, ty, batch, sp, to, to, to, to, nullptr, s);
   }
   const size_t smem = with_chain_tables(
       (size_t)pad16(p * q) * sizeof(float2) + (size_t)(p + q) * sizeof(int), sp, sq);

@@ -15,7 +15,8 @@ import: the CPU-only test runs import every module and have no nvcc.
 `load(phase_stamps=True)` builds and loads a second library from the same
 sources with `-DRF_PHASE_STAMPS`, which adds the stamped forms of K1's
 two kernels (`rf_lanepack_chain_phase_stamps`,
-`rf_lanepack_pipe_phase_stamps`), K7's cluster kernel
+`rf_lanepack_pipe_phase_stamps`), K9's radix kernel (`rf_radix_phase_stamps`),
+K7's cluster kernel
 (`rf_two_stage_cluster_phase_stamps`) and K12's two kernels
 (`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`;
 tools/torch_phase_times.py); no route loads it, so no other build pays for
@@ -88,6 +89,8 @@ _SIGNATURES = {
 
 #: the entry points only the RF_PHASE_STAMPS library has
 _STAMP_SIGNATURES = {
+    "rf_radix_phase_stamps": [_vp, _vp, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 5
+                             + [_vp, _vp],
     "rf_two_stage_cluster_phase_stamps": [_vp, _vp, _ll, _int, _int, _int]
                                          + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
                                          + [_vp, _vp, _vp],

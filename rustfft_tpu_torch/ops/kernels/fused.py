@@ -344,29 +344,64 @@ def radix_fft(x: torch.Tensor, r: int, p: int, tables) -> torch.Tensor:
     _check_radix(x, r, p, tables, "radix_fft")
     if x.device.type == "cpu":
         return radix_fft_plain(x, r, p, tables)
-    require_cuda(x, "radix_fft")
-    if p != RADIX_PQ or r > 16:
-        raise ValueError(f"radix_fft: the kernel takes p = q = {RADIX_PQ}, r <= 16; "
-                         f"got r={r}, p={p}")
-    y = torch.empty_like(x)
-    if x.shape[0] == 0:
-        return y
-    roots, tws, t1, tn, rroots, cfac = tables
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.rf_radix_fft(
-            x.data_ptr(), y.data_ptr(), x.shape[0], r,
-            *padded_stage_args(large.stage_radices(p), roots, tws),
-            t1.data_ptr(), tn.data_ptr(), rroots.data_ptr(), cfac.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(lib, code, "radix_fft")
+    y = _launch_radix(x, r, p, tables, "radix_fft")
     radix_fft.launches += 1
     return y
 
 
 #: kernel launches since the count was last set to 0
 radix_fft.launches = 0
+
+
+def _launch_radix(x, r, p, tables, what, stamps=None):
+    """One launch of csrc/fused.cu's radix kernel; y.  With `stamps`, a
+    (blocks, RADIX_PHASES + 1) int64 tensor, its stamped form from the
+    library built for it (_build.load(phase_stamps=True))."""
+    require_cuda(x, what)
+    if p != RADIX_PQ or r > 16:
+        raise ValueError(f"{what}: the kernel takes p = q = {RADIX_PQ}, r <= 16; "
+                         f"got r={r}, p={p}")
+    y = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return y
+    roots, tws, t1, tn, rroots, cfac = tables
+    lib = _build.load(phase_stamps=stamps is not None)
+    args = (x.data_ptr(), y.data_ptr(), x.shape[0], r,
+            *padded_stage_args(large.stage_radices(p), roots, tws),
+            t1.data_ptr(), tn.data_ptr(), rroots.data_ptr(), cfac.data_ptr())
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if stamps is None:
+            code = lib.rf_radix_fft(*args, stream)
+        else:
+            code = lib.rf_radix_phase_stamps(*args, stamps.data_ptr(), stream)
+    _build.check(lib, code, what)
+    return y
+
+
+#: the radix kernel's phases: stage A's load and radix 16, stage A's radix
+#: 8, the exchange with its two cluster barriers, stage B's radix 16, stage
+#: B's radix 8 with the store
+RADIX_PHASES = ("load+A16", "A8", "exchange", "B16", "B8+store")
+
+
+def radix_phase_stamps(x: torch.Tensor, r: int, p: int, tables):
+    """radix_fft on the card through the kernel's stamped form, which only
+    the library built with RF_PHASE_STAMPS holds (no route launches it; the
+    first call builds that library): (y, stamps), stamps (blocks,
+    len(RADIX_PHASES) + 1) int64 nanoseconds of %globaltimer, each block's
+    start and that start plus the running sums of its RADIX_PHASES, each
+    read by the block's thread 0 after a block barrier."""
+    what = "radix_phase_stamps"
+    _check_radix(x, r, p, tables, what)
+    stamps = torch.zeros((x.shape[0] * r, len(RADIX_PHASES) + 1), dtype=torch.int64,
+                         device=x.device)
+    y = _launch_radix(x, r, p, tables, what, stamps)
+    radix_phase_stamps.launches += 1
+    return y, stamps[stamps[:, 0] != 0]
+
+
+radix_phase_stamps.launches = 0
 
 
 def radix_max_active_clusters(r: int) -> int:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Split the time of K1's, K7's cluster kernel's and K12's kernels into phases on one GPU.
+"""Split the time of K1's, K7's cluster kernel's, K9's and K12's kernels into phases on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -15,16 +15,18 @@ radix-27 Bluestein stage on the row stage) and 234617:256 (373 x 629, the
 prime P = 373 as a 1024-point Bluestein stage) on K12's two kernels; a
 shape goes to K12 where `route` sends it to large_pad, to K1 where it
 sends it to lanepack, to K5's chain form where it sends it to dense (a
-prime from 29).  For each shape it runs the stamped form of each kernel
-(lanepack.lanepack_phase_stamps,
-fused.two_stage_cluster_phase_stamps,
+prime from 29), and 32768:2048 and 262144:256 to K9's radix kernel (r = 2
+and 16; any n the route sends to radix goes there).  For each shape it
+runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
+fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps,
 largepad.largepad_col_phase_stamps and largepad_row_phase_stamps, which no
 route launches: thread 0 of every block reads %globaltimer after a block
 barrier at the kernel's start and at the end of each phase: the load,
 DFT_p, the exchange, DFT_q and the store of the cluster kernel; the load,
 the chain and the store of K12's and of K1's chain kernel; the time K1's
 pipelined kernel spends waiting for its loads, in stages 0-1 and in stage
-2 with the store, summed over a block's transforms), checks its output bit for bit against
+2 with the store, summed over a block's transforms; K9's fused.RADIX_PHASES,
+summed over the transforms a block runs), checks its output bit for bit against
 the kernel's, and prints:
 
   - per phase, the mean and median over blocks of its time in a block, in
@@ -46,8 +48,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SHAPES = ((4096, 16384), (8192, 8192), (2008, 32768), (251, 131072), (49152, 2048),
-          (260608, 256), (531441, 64), (234617, 256))
+SHAPES = ((4096, 16384), (8192, 8192), (2008, 32768), (251, 131072), (32768, 2048),
+          (262144, 256), (49152, 2048), (260608, 256), (531441, 64), (234617, 256))
 
 
 def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -157,6 +159,32 @@ def lanepack_phases(n: int, batch: int, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def radix_phases(n: int, batch: int, gen) -> None:
+    """K9's radix kernel at n x batch through its stamped form."""
+    import torch
+
+    from rustfft_tpu_torch.common import FftDirection
+    from rustfft_tpu_torch.ops.kernels import fused
+
+    dev = torch.device("cuda")
+    r, p, _ = fused.choose_rpq(n)
+    tabs = tuple([torch.from_numpy(a).to(dev) for a in t] if isinstance(t, list)
+                 else torch.from_numpy(t).to(dev)
+                 for t in fused.radix_tables(r, p, p, FftDirection.FORWARD))
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+    fused.radix_phase_stamps(x, r, p, tabs)  # warm-up (and the stamped library's build)
+    y, stamps = fused.radix_phase_stamps(x, r, p, tabs)
+    torch.cuda.synchronize()
+    if not torch.equal(y, fused.radix_fft(x, r, p, tabs)):
+        raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
+    report(f"n={n} (r = {r}) batch={batch} radix_fft, {stamps.shape[0] // r} clusters of {r}, "
+           f"{fused.radix_max_active_clusters(r)} resident", stamps, fused.RADIX_PHASES,
+           median_ms(lambda: fused.radix_phase_stamps(x, r, p, tabs)),
+           median_ms(lambda: fused.radix_fft(x, r, p, tabs)))
+    del x, y, stamps
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -178,6 +206,9 @@ def main() -> None:
             continue
         if route(n, np.complex64) == "large_pad":
             largepad_phases(n, batch, gen)
+            continue
+        if route(n, np.complex64) == "radix":
+            radix_phases(n, batch, gen)
             continue
         p, q = fused.choose_pq(n)
         c = fused.choose_cluster(n)
