@@ -18,13 +18,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    1009 shape) and m = 3072 (the Bluestein 1234 shape) with its tables and
    conj off and on, the two-pass core stage by stage at m = 65536 (Rader
    65537: gathers, x0, sums, full output) and m = 16384 (Bluestein 7919),
-   and the permutation at m = 1008 and 114688;
+   and the permutation at m = 1008 and 114688 and on both sides of its
+   shared-memory cut-over (8192 through shared memory, 8193 direct);
    The top power-of-two band at batch 1: large2f's fused column stage at
    P = 2048, 4096 and 8192 and the row stage after it, large3f's pass 1
    (the modular j3 twiddle), its pass 2 with the j2 factor on and off, and
    the row stage at P = 16384.  The one-pass mid band at batch 2: radix_fft
-   at r = 2, 4, 8 and 16 (one cluster of r blocks per transform; the
-   cudaOccupancyMaxActiveClusters of each r is printed), two_stage_fft at
+   at r = 2, 4, 8 and 16 (a persistent grid of clusters of r blocks; the
+   cudaOccupancyMaxActiveClusters of each r is printed, and each r and
+   16384 run again at 3 x that + 1 transforms), two_stage_fft at
    16384 (the radix body at R = 1), 20480, 24576 and 14464 (a prime p = 113)
    and three_stage_fft at K8's split (128, 8, 16); two_stage_fft at the ONE
    paths' n (a prime p from 113 to 223 as a Bluestein stage, its table read
@@ -687,7 +689,8 @@ def main() -> None:
             check(f"Bluestein 7919 two-pass core gauss={gauss} vs float64 oracle {d.name}",
                   rel_err(out.cpu().to(torch.complex128),
                           torch.from_numpy(host_dft(x.cpu().numpy(), d))))
-    for m, batch in ((1008, 257), (114688, 5)):
+    for m, batch in ((1008, 257), (114688, 5), (permute.SMEM_ROW_MAX, 33),
+                     (permute.SMEM_ROW_MAX + 1, 33)):
         idx = torch.from_numpy(permute.permutation_index(
             np.random.default_rng(m).permutation(m))).to(dev)
         x = signal(batch, m)
@@ -768,6 +771,19 @@ def main() -> None:
             got = kernel(x)
             torch.cuda.synchronize()
             note(name, got, plain(x), f"{name.split('/')[0]} n={n} batch=2 {d.name}",
+                 K7_TOL if name.startswith("two_stage") else TOL)
+    # the radix body's persistent walk at 3 x the resident clusters + 1 (a
+    # second and third pass, the overlapped loads and a remainder); R = 1
+    # at 16384
+    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 18, 16384):
+        r = n // (128 * 128)
+        batch = 3 * fused.radix_max_active_clusters(r) + 1
+        x = signal(batch, n)
+        for d in directions:
+            name, kernel, plain, _ = mid_kernel(n, d)
+            got = kernel(x)
+            torch.cuda.synchronize()
+            note(name, got, plain(x), f"{name.split('/')[0]} n={n} batch={batch} {d.name}",
                  K7_TOL if name.startswith("two_stage") else TOL)
     x = signal(2, 16384)
     for d in directions:

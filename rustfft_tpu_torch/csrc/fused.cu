@@ -6,7 +6,9 @@
 // 65536 x 1024: 0.32 ms at 3.35 TB/s); the FP32 work, 5*n*log2(n) plus the
 // twiddles, is far under the card's peak.  What is left between them and
 // that bound is latency: one 512-thread block per SM (the tile fills its
-// shared memory), whose loads, stages and stores run in turn.  Every stage
+// shared memory), whose loads, stages and stores run in turn in the
+// two-stage kernels (the radix kernel overlaps a transform's load with the
+// stage B of the one before, below).  Every stage
 // holds at most 16 values a thread at a time (the cluster kernel's exchange
 // 32).  At 512 threads only the two-stage kernels' forms with a Bluestein
 // stage spill, 36-44 bytes (ptxas, sm_90a); their forms without one do not.
@@ -17,22 +19,36 @@
 // transform is one thread-block cluster of r blocks (cudaLaunchKernelEx with
 // a cluster dimension; r = 16 is a non-portable cluster size), block a
 // holding the 128 x 128 slice x[b, a, j2] (128 KiB), j = b*rq + a*q + j2:
-//   1. stage A: DFT_128 over b for every j2 (the chain (16, 8), read
-//      straight from device memory in 1 KiB row segments), A[d, j2] in the
-//      tile (row place_row(d));
+//   1. stage A: DFT_128 over b for every j2 (the chain (16, 8)), A[d, j2]
+//      in the tile (row place_row(d)).  The slice arrives by bulk copies
+//      (TMA) in eight chunks of 16 rows, one mbarrier each, and the radix
+//      16 of a chunk starts as soon as it lands;
 //   2. cluster barrier, then the DFT_r across the cluster through
 //      distributed shared memory: block t takes the points (d, j2) of its
 //      1/r share, reads A_a[d, j2] from every block a, multiplies by
 //      w_rp^(a*d), runs the radix-2 chain in registers (fft_pow2_reg<R>),
 //      multiplies output c by w_n^(j2*d) * w_rq^(c*j2) and writes it into
-//      block c's tile at the same place.  The shares are disjoint, so this
-//      is safe in place.  The TPU kernels' merged table w_n^((a*q+j2)*d) of
-//      n entries is factored into t1 (r, 128) and tn (128, 128);
+//      block c's tile at the same place, several points a pass so that a
+//      thread keeps at least 8 peer loads in flight.  The shares are
+//      disjoint, so this is safe in place.  The TPU kernels' merged table
+//      w_n^((a*q+j2)*d) of n entries is factored into t1 (r, 128) and tn
+//      (128, 128);
 //   3. cluster barrier again (no block leaves while a peer reads it), then
 //      stage B: DFT_128 over j2 for every d (the tile read transposed) and
-//      the store in natural order at k2*rp + c*p + d, 1 KiB segments.
-// With R = 1 the same body, without a cluster, is the two-stage kernel at
-// 16384 = 128 x 128 (tn is then its outer twiddle w_n^(k1*j2)).
+//      the store in natural order at k2*rp + c*p + d, 1 KiB segments; the
+//      radix 8 walks the chunks in order and starts the next transform's
+//      copies into each pair of chunks it has read.
+// The grid is persistent: as many clusters as the card holds at once
+// (cudaOccupancyMaxActiveClusters; 7 of 16 blocks fill 112 of 132 SMs), at
+// most one a transform, each walking the batch, so that one transform's
+// load overlaps the one before's stage B and store.  The bound is the
+// bytes, 16 a point (0.32 ms at 2^28 points); the exchange, whose remote
+// loads and stores move as many bytes through distributed shared memory as
+// the transform moves through device memory, takes the largest share of a
+// block's time.  With R = 1 the same body, without a cluster, is the
+// two-stage kernel at 16384 = 128 x 128 (tn is then its outer twiddle
+// w_n^(k1*j2)); it runs the persistent body too, which read faster there
+// than one transform a block (PERF.md, PR 11).
 //
 // two_stage_fft (K7: fused.py _fused_kernel, _fused_kernel_gauss,
 // _fused_kernel_twodot; K8: _fused_kernel_3s with DFT_q as the chain
@@ -107,10 +123,11 @@ constexpr int kTwoStageThreads = 512;
 // library compiled with RF_PHASE_STAMPS, which no route loads): per block,
 // its start and that start plus the running sums of the time in each of its
 // kRadixPhases phases (stage A's load and radix 16, stage A's radix 8, the
-// exchange with its two cluster barriers, stage B's radix 16, stage B's
-// radix 8 with the store), each lap read by thread 0 after a block barrier
+// wait at the cluster barrier before the exchange, the exchange, the wait at
+// the barrier after it, stage B's radix 16, stage B's radix 8 with the
+// store), each lap read by thread 0 after a block barrier
 // (tools/torch_phase_times.py).
-constexpr int kRadixPhases = 5;
+constexpr int kRadixPhases = 7;
 
 template <bool kStamp>
 struct RadixClock {
@@ -143,18 +160,89 @@ struct RadixClock {
 // Row of the tile that holds frequency d after stage A.
 static __device__ __forceinline__ int place_row(int d) { return (d & 15) * 8 + (d >> 4); }
 
-// Stage A: DFT_128 over the rows b = j0*8 + j1 of the slice x[b, :] (rows
-// kLd apart in device memory).
-template <int kLd, bool kStamp>
-static __device__ __forceinline__ void slice_dft_rows(const float2* __restrict__ x, float2* buf,
+// ---- stage A's input, asynchronously, by chunks ----------------------------
+//
+// The slice's rows b = j0*8 + j1 fall into kChunks chunks by j1 = b & 7, 16
+// rows (16 KiB) each.  Stage A's radix 16 over j0 reads and writes only the
+// rows of its own j1, so it starts on a chunk as soon as that chunk lands;
+// its radix 8 reads every chunk.  Stage B's radix 8 reads row place_row(d)
+// for frequency d, and (place_row(d) & 7) == d >> 4: run in the order of
+// d >> 4, it frees the rows of chunk d >> 4, which the next transform's
+// chunk fills.  A chunk is 16 bulk copies (cp.async.bulk, the TMA unit, no
+// thread's loads) of 1 KiB row segments, one mbarrier each chunk that
+// counts its bytes: it completes once per transform, so a transform waits
+// on the parity of its count in the block's walk.  The copies land in
+// plain row order (a bulk copy writes contiguous bytes); the radix 16
+// reads them so, and writes its outputs in the tile's bank swizzle.
+constexpr int kChunks = 8;
+constexpr int kChunkRows = kSlice / kChunks;            // 16
+constexpr int kRowBytes = kSlice * (int)sizeof(float2);  // 1 KiB
+
+static __device__ __forceinline__ void chunk_bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the mbarrier at `bar` has
+// completed: every byte of that chunk has landed and is visible to this
+// thread.
+static __device__ __forceinline__ void chunk_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Chunks 2*pair and 2*pair + 1 of the slice at src (rows kLd apart in
+// device memory) into their rows of buf, in plain order, by the 32 lanes
+// of the calling warp: lane l copies row (l & 15)*8 + j1 of chunk j1 =
+// 2*pair + (l >> 4), and lanes 0 and 16 first arm their chunk's mbarrier
+// for its 16 KiB.  Generic accesses to those rows must be ordered before
+// the call (a barrier); the proxy fence then orders them before the
+// copies.  Reads x only.
+template <int kLd>
+static __device__ __forceinline__ void load_chunk_pair(const float2* __restrict__ src,
+                                                       float2* buf, int pair, uint32_t bar0) {
+  const int lane = (int)threadIdx.x & 31;
+  const int j1 = 2 * pair + (lane >> 4);
+  const int row = (lane & 15) * kChunks + j1;
+  const uint32_t bar = bar0 + 8 * j1;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if ((lane & 15) == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(kChunkRows * kRowBytes)
+                 : "memory");
+  }
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(buf + row * kSlice);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src + row * kLd), "r"(kRowBytes), "r"(bar)
+      : "memory");
+}
+
+// Stage A: DFT_128 over the rows b = j0*8 + j1 of the slice in the tile,
+// chunk by chunk as the copies land (the mbarriers from bar0, 8 bytes
+// apart, at `parity`).
+template <bool kStamp>
+static __device__ __forceinline__ void slice_dft_rows(float2* buf, uint32_t bar0, uint32_t parity,
                                                       const float2* __restrict__ sroots,
                                                       const float2* __restrict__ tw,
                                                       RadixClock<kStamp>& clock) {
-  // radix 16 over j0 for each (j1, t), from device memory to row k0*8 + j1
+  // radix 16 over j0 for each (j1, t): row j0*8 + j1 in plain order to row
+  // k0*8 + j1 in the swizzle.  The swizzle moves values within a row, so a
+  // chunk's 128 threads (warps 4g .. 4g + 3) read all of its rows before any
+  // writes (named barrier 1 + g).
+  const int group = (int)threadIdx.x >> 7;
   for (int c = threadIdx.x; c < 1024; c += kFusedThreads) {
+    chunk_wait(bar0 + 8 * (c >> 7), parity);
     float2 v[16];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) v[j] = x[(j * 8 + (c >> 7)) * kLd + (c & (kSlice - 1))];
+    for (int j = 0; j < 16; ++j) v[j] = buf[j * 1024 + c];
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
     fft_pow2_reg<16>(v, sroots);
 #pragma unroll
     for (int i = 0; i < 16; ++i) buf[swz(bitrev<16>(i) * 1024 + c)] = v[i];
@@ -178,9 +266,15 @@ static __device__ __forceinline__ void slice_dft_rows(const float2* __restrict__
 }
 
 // Stage B: DFT_128 over the columns j2 = j0*8 + j1 of the tile for every
-// frequency d, stored in natural order y[k2*kLd + d].
+// frequency d, stored in natural order y[k2*kLd + d].  The radix 8 runs in
+// the order of d >> 4, a pair of chunks' rows a pass (a warp on one k0 and
+// 32 neighbouring d, as stores of 256 bytes); after each pass the block
+// barrier frees those rows and, where `next` is not null, warp 0 starts the
+// copies of the same two chunks of the next slice.
 template <int kLd, bool kStamp>
 static __device__ __forceinline__ void slice_dft_cols(float2* buf, float2* __restrict__ y,
+                                                      const float2* __restrict__ next,
+                                                      uint32_t bar0,
                                                       const float2* __restrict__ sroots,
                                                       const float2* __restrict__ tw,
                                                       RadixClock<kStamp>& clock) {
@@ -195,10 +289,12 @@ static __device__ __forceinline__ void slice_dft_cols(float2* buf, float2* __res
     for (int i = 0; i < 16; ++i) buf[swz(base + bitrev<16>(i) * 8)] = v[i];
   }
   __syncthreads();
-  clock.lap(3);
+  clock.lap(5);
   // twiddle and radix 8 over j1 for each (d, k0), to k2 = k0 + 16*k1
-  for (int c = threadIdx.x; c < 2048; c += kFusedThreads) {
-    const int d = c & (kSlice - 1), k0 = c >> 7;
+  const int k0 = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int pass = 0; pass < kChunks / 2; ++pass) {
+    const int d = pass * 32 + (threadIdx.x & 31);
     const int base = place_row(d) * kSlice + k0 * 8;
     float2 v[8];
 #pragma unroll
@@ -209,6 +305,8 @@ static __device__ __forceinline__ void slice_dft_cols(float2* buf, float2* __res
     fft_pow2_reg<8>(v, sroots + 16);
 #pragma unroll
     for (int i = 0; i < 8; ++i) y[(k0 + 16 * bitrev<8>(i)) * kLd + d] = v[i];
+    __syncthreads();
+    if (next != nullptr && threadIdx.x < 32) load_chunk_pair<kLd>(next, buf, pass, bar0);
   }
 }
 
@@ -241,24 +339,56 @@ static __device__ __forceinline__ void cluster_barrier() {
   }
 }
 
+constexpr int kStaggerGroups = 4;
+constexpr unsigned long long kStaggerNs = 5000;
+
+// The radix kernel: a persistent grid of clusters of R blocks (R = 1: of
+// single blocks, K7's 16384), cluster g computing the transforms g, g +
+// clusters, ...  The walk is the cluster's, never the block's, so every
+// block of a cluster passes the same cluster barriers.  While a transform
+// runs stage B, the next one's chunks are copied into the rows stage B has
+// read; peers write into this tile only in a transform's exchange, after
+// the cluster barrier that follows every block's stage A, so those copies
+// (issued after this block's exchange of the transform before) never meet
+// a peer's access.
 template <int R, bool kStamp>
 __global__ void __launch_bounds__(kFusedThreads)
-    radix_kernel(const float2* __restrict__ x, float2* __restrict__ y, Stages st,
+    radix_kernel(const float2* __restrict__ x, float2* __restrict__ y, long long batch, Stages st,
                  const float2* __restrict__ t1, const float2* __restrict__ tn,
                  const float2* __restrict__ rroots, const float2* __restrict__ cfac,
                  unsigned long long* stamps) {
   constexpr int N = R * kSliceElems;
+  constexpr int kShare = kSliceElems / R;
+  constexpr int kLd = R * kSlice;
+  // points a thread takes a pass in the exchange: at least 8 peer loads in
+  // flight
+  constexpr int kPoints = R >= 8 ? 1 : 8 / R;
   RadixClock<kStamp> clock;
   clock.begin();
-  constexpr int kShare = kSliceElems / R;
   extern __shared__ float2 smem[];
   float2* buf = smem;
   // the small tables in shared memory: the chain's roots, w_R^e, the
-  // chain's twiddle (16, 8), t1 (R, 128) and cfac (R, 128)
+  // chain's twiddle (16, 8), t1 (R, 128) and cfac (R, 128); then the
+  // chunks' mbarriers
   float2* sroots = smem + kSliceElems;
   float2* stw = sroots + kSliceRoots + R;
   float2* st1 = stw + kSlice;
   float2* scfac = st1 + R * kSlice;
+  const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(scfac + R * kSlice);
+  int a = 0;
+  if constexpr (R > 1) a = (int)cg::this_cluster().block_rank();
+  const long long clusters = gridDim.x / R;
+  long long t = blockIdx.x / R;
+  const float2* src = x + a * kSlice;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < kChunks; ++j) chunk_bar_init(bar0 + 8 * j);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t < batch && threadIdx.x < 32) {
+    for (int pair = 0; pair < kChunks / 2; ++pair)
+      load_chunk_pair<kLd>(src + t * N, buf, pair, bar0);
+  }
   load_roots(st, sroots);
   for (int i = threadIdx.x; i < R; i += blockDim.x) sroots[kSliceRoots + i] = rroots[i];
   for (int i = threadIdx.x; i < kSlice; i += blockDim.x) stw[i] = st.tw[0][i];
@@ -269,62 +399,89 @@ __global__ void __launch_bounds__(kFusedThreads)
     }
   }
   __syncthreads();
-  int a = 0;
-  if constexpr (R > 1) a = (int)cg::this_cluster().block_rank();
-  const size_t base = (size_t)(blockIdx.x / R) * (size_t)N;
-  constexpr int kLd = R * kSlice;
-
-  // stage A: DFT_128 over b of the slice x[b, a, :]
-  slice_dft_rows<kLd>(x + base + a * kSlice, buf, sroots, stw, clock);
-  clock.lap(1);
-  cluster_barrier<R>();
-
-  // the twiddles and the DFT_r across the cluster, on this block's share
-  for (int f = a * kShare + threadIdx.x; f < (a + 1) * kShare; f += blockDim.x) {
-    const int i = f >> 7, j2 = f & (kSlice - 1);
-    const int d = (i >> 3) + 16 * (i & 7);  // row i = place_row(d)
-    const int s = swz(f);
-    const uint32_t local = (uint32_t)__cvta_generic_to_shared(buf + s);
-    float2 v[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if constexpr (R > 1) {
-        v[r] = peer_load(peer_addr(local, r));
-      } else {
-        v[r] = buf[s];
-      }
-      if (r > 0) v[r] = cmul(v[r], st1[r * kSlice + d]);
-    }
-    fft_pow2_reg<R>(v, sroots + kSliceRoots);  // v[bitrev(c)] = C[c]
-    const float2 w = __ldg(&tn[j2 * kSlice + d]);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int c = bitrev<R>(r);
-      float2 z = cmul(v[r], w);
-      if (c > 0) z = cmul(z, scfac[c * kSlice + j2]);
-      if constexpr (R > 1) {
-        peer_store(peer_addr(local, c), z);
-      } else {
-        buf[s] = z;
-      }
+  // Stagger the clusters: cluster g starts (g % kStaggerGroups) *
+  // kStaggerNs late, so that one cluster's store and next load (stage B)
+  // meet another's exchange, which asks device memory for nothing, rather
+  // than every SM asking for its bytes at once.
+  {
+    const unsigned long long t0 = global_timer();
+    const unsigned long long wait = (unsigned long long)(t % kStaggerGroups) * kStaggerNs;
+    while (global_timer() - t0 < wait) {
     }
   }
-  cluster_barrier<R>();
-  clock.lap(2);
 
-  // stage B: DFT_128 over j2 for every d, stored at k2*rp + c*p + d (c = a)
-  slice_dft_cols<kLd>(buf, y + base + a * kSlice, sroots, stw, clock);
-  clock.lap(4);
+  for (uint32_t parity = 0; t < batch; t += clusters, parity ^= 1) {
+    // stage A: DFT_128 over b of the slice x[b, a, :]
+    slice_dft_rows<kStamp>(buf, bar0, parity, sroots, stw, clock);
+    clock.lap(1);
+    cluster_barrier<R>();
+    clock.lap(2);
+
+    // the twiddles and the DFT_r across the cluster, on this block's share,
+    // kPoints points a pass with all their peer loads in flight
+    for (int f0 = a * kShare + threadIdx.x; f0 < (a + 1) * kShare;
+         f0 += kPoints * kFusedThreads) {
+      float2 v[kPoints][R];
+#pragma unroll
+      for (int u = 0; u < kPoints; ++u) {
+        const int s = swz(f0 + u * kFusedThreads);
+        const uint32_t local = (uint32_t)__cvta_generic_to_shared(buf + s);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if constexpr (R > 1) {
+            v[u][r] = peer_load(peer_addr(local, r));
+          } else {
+            v[u][r] = buf[s];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPoints; ++u) {
+        const int f = f0 + u * kFusedThreads;
+        const int i = f >> 7, j2 = f & (kSlice - 1);
+        const int d = (i >> 3) + 16 * (i & 7);  // row i = place_row(d)
+        const int s = swz(f);
+        const uint32_t local = (uint32_t)__cvta_generic_to_shared(buf + s);
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[u][r] = cmul(v[u][r], st1[r * kSlice + d]);
+        fft_pow2_reg<R>(v[u], sroots + kSliceRoots);  // v[bitrev(c)] = C[c]
+        const float2 w = __ldg(&tn[j2 * kSlice + d]);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int c = bitrev<R>(r);
+          float2 z = cmul(v[u][r], w);
+          if (c > 0) z = cmul(z, scfac[c * kSlice + j2]);
+          if constexpr (R > 1) {
+            peer_store(peer_addr(local, c), z);
+          } else {
+            buf[s] = z;
+          }
+        }
+      }
+    }
+    clock.lap(3);
+    cluster_barrier<R>();
+    clock.lap(4);
+
+    // stage B: DFT_128 over j2 for every d, stored at k2*rp + c*p + d (c =
+    // a), the next transform's copies started as its rows free up
+    const long long next = t + clusters;
+    slice_dft_cols<kLd, kStamp>(buf, y + t * N + a * kSlice,
+                                next < batch ? src + next * N : nullptr, bar0, sroots, stw,
+                                clock);
+    clock.lap(6);
+  }
   clock.write(stamps);
 }
 
 static size_t radix_smem_bytes(int r) {
-  return (size_t)(kSliceElems + kSliceRoots + r + kSlice + 2 * r * kSlice) * sizeof(float2);
+  return (size_t)(kSliceElems + kSliceRoots + r + kSlice + 2 * r * kSlice) * sizeof(float2) +
+         kChunks * sizeof(uint64_t);
 }
 
 template <int R, bool kStamp>
 static cudaError_t radix_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                                long long batch, cudaStream_t s) {
+                                long long clusters, cudaStream_t s) {
   const size_t smem = radix_smem_bytes(R);
   cudaError_t err = allow_smem(radix_kernel<R, kStamp>, smem);
   if (err != cudaSuccess) return err;
@@ -334,7 +491,7 @@ static cudaError_t radix_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& at
     if (err != cudaSuccess) return err;
   }
   cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3((unsigned)(batch * R), 1, 1);
+  cfg.gridDim = dim3((unsigned)(clusters * R), 1, 1);
   cfg.blockDim = dim3(kFusedThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -347,16 +504,23 @@ static cudaError_t radix_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& at
   return cudaSuccess;
 }
 
+// One launch of `clusters` clusters (1 <= clusters <= batch; the caller's
+// persistent grid, ops/kernels/fused.py radix_grid) over the batch.  Rows
+// are read by bulk copies, so x must be 16-byte aligned.
 template <int R, bool kStamp = false>
-static cudaError_t launch_radix(const float2* x, float2* y, long long batch, const Stages& st,
-                                const float2* t1, const float2* tn, const float2* rroots,
-                                const float2* cfac, unsigned long long* stamps, cudaStream_t s) {
-  if (batch * R > 0x7fffffffLL) return cudaErrorInvalidValue;
+static cudaError_t launch_radix(const float2* x, float2* y, long long batch, long long clusters,
+                                const Stages& st, const float2* t1, const float2* tn,
+                                const float2* rroots, const float2* cfac,
+                                unsigned long long* stamps, cudaStream_t s) {
+  if (clusters < 1 || clusters > batch || clusters * R > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = radix_config<R, kStamp>(cfg, attr, batch, s);
+  cudaError_t err = radix_config<R, kStamp>(cfg, attr, clusters, s);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, radix_kernel<R, kStamp>, x, y, st, t1, tn, rroots, cfac, stamps);
+  err = cudaLaunchKernelEx(&cfg, radix_kernel<R, kStamp>, x, y, batch, st, t1, tn, rroots, cfac,
+                           stamps);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -367,7 +531,19 @@ static cudaError_t max_active_clusters(int* out) {
   cudaLaunchAttribute attr;
   cudaError_t err = radix_config<R, false>(cfg, attr, 1, 0);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(out, radix_kernel<R, false>, &cfg);
+  if constexpr (R > 1) {
+    return cudaOccupancyMaxActiveClusters(out, radix_kernel<R, false>, &cfg);
+  } else {
+    // single blocks: the blocks an SM holds (one: the tile fills it) times the SMs
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, radix_kernel<1, false>,
+                                                          kFusedThreads, radix_smem_bytes(1));
+    *out = sms * per_sm;
+    return err;
+  }
 }
 
 // Each two-stage kernel's largest Bluestein length: the one-block kernel's
@@ -683,9 +859,9 @@ static bool is_chain(const Stages& st, int r0, int r1) {
 
 // rf_radix_fft's checks and launch; its stamped form where kStamp.
 template <bool kStamp>
-static int radix_fft(const void* x, void* y, long long batch, int r, const Stages& st,
-                     const void* t1, const void* tn, const void* rroots, const void* cfac,
-                     unsigned long long* stamps, void* stream) {
+static int radix_fft(const void* x, void* y, long long batch, long long clusters, int r,
+                     const Stages& st, const void* t1, const void* tn, const void* rroots,
+                     const void* cfac, unsigned long long* stamps, void* stream) {
   if (batch <= 0 || t1 == nullptr || tn == nullptr || rroots == nullptr || cfac == nullptr)
     return cudaErrorInvalidValue;
   if (!stages_ok(st, kSlice) || !is_chain(st, 16, 8)) return cudaErrorInvalidValue;
@@ -697,53 +873,57 @@ static int radix_fft(const void* x, void* y, long long batch, int r, const Stage
   const auto* d = static_cast<const float2*>(cfac);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (r) {
-    case 2: return launch_radix<2, kStamp>(tx, ty, batch, st, a, b, c, d, stamps, s);
-    case 4: return launch_radix<4, kStamp>(tx, ty, batch, st, a, b, c, d, stamps, s);
-    case 8: return launch_radix<8, kStamp>(tx, ty, batch, st, a, b, c, d, stamps, s);
-    case 16: return launch_radix<16, kStamp>(tx, ty, batch, st, a, b, c, d, stamps, s);
+    case 2: return launch_radix<2, kStamp>(tx, ty, batch, clusters, st, a, b, c, d, stamps, s);
+    case 4: return launch_radix<4, kStamp>(tx, ty, batch, clusters, st, a, b, c, d, stamps, s);
+    case 8: return launch_radix<8, kStamp>(tx, ty, batch, clusters, st, a, b, c, d, stamps, s);
+    case 16: return launch_radix<16, kStamp>(tx, ty, batch, clusters, st, a, b, c, d, stamps, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace rf
 
-// x, y: (batch, r*128*128) complex64; `st` the DFT_128 chain (16, 8); t1:
-// (r, 128) w_{128r}^(a*d), tn: (128, 128) w_n^(j2*d), rroots: (r,) w_r^e,
-// cfac: (r, 128) w_{128r}^(c*j2).  r in {2, 4, 8, 16}.  Returns a
-// cudaError_t code; launches on `stream`.
-extern "C" int rf_radix_fft(const void* x, void* y, long long batch, int r, int k, int r0, int r1,
-                            int r2, const void* roots0, const void* roots1, const void* roots2,
-                            const void* tw0, const void* tw1, const void* t1, const void* tn,
-                            const void* rroots, const void* cfac, void* stream) {
+// x, y: (batch, r*128*128) complex64, x 16-byte aligned; `clusters` the
+// persistent grid's clusters of r blocks (1 .. batch); `st` the DFT_128
+// chain (16, 8); t1: (r, 128) w_{128r}^(a*d), tn: (128, 128) w_n^(j2*d),
+// rroots: (r,) w_r^e, cfac: (r, 128) w_{128r}^(c*j2).  r in {2, 4, 8, 16}.
+// Returns a cudaError_t code; launches on `stream`.
+extern "C" int rf_radix_fft(const void* x, void* y, long long batch, long long clusters, int r,
+                            int k, int r0, int r1, int r2, const void* roots0, const void* roots1,
+                            const void* roots2, const void* tw0, const void* tw1, const void* t1,
+                            const void* tn, const void* rroots, const void* cfac, void* stream) {
   using namespace rf;
-  return radix_fft<false>(x, y, batch, r, make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0,
+  return radix_fft<false>(x, y, batch, clusters, r, make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0,
                                                       tw1),
                           t1, tn, rroots, cfac, nullptr, stream);
 }
 
 #ifdef RF_PHASE_STAMPS
-// rf_radix_fft through the kernel's stamped form: stamps (batch*r,
-// kRadixPhases + 1) uint64 %globaltimer nanoseconds, a block's start and the
-// ends of its phases.  Only the library built with RF_PHASE_STAMPS has it
-// (ops/kernels/_build.py load(phase_stamps=True); tools/torch_phase_times.py).
-extern "C" int rf_radix_phase_stamps(const void* x, void* y, long long batch, int r, int k,
-                                     int r0, int r1, int r2, const void* roots0,
+// rf_radix_fft through the kernel's stamped form: stamps (clusters*r,
+// kRadixPhases + 1) uint64 %globaltimer nanoseconds, a block's start and that
+// start plus the running sums of its phases over its transforms.  Only the
+// library built with RF_PHASE_STAMPS has it (ops/kernels/_build.py
+// load(phase_stamps=True); tools/torch_phase_times.py).
+extern "C" int rf_radix_phase_stamps(const void* x, void* y, long long batch, long long clusters,
+                                     int r, int k, int r0, int r1, int r2, const void* roots0,
                                      const void* roots1, const void* roots2, const void* tw0,
                                      const void* tw1, const void* t1, const void* tn,
                                      const void* rroots, const void* cfac, void* stamps,
                                      void* stream) {
   using namespace rf;
   if (stamps == nullptr) return cudaErrorInvalidValue;
-  return radix_fft<true>(x, y, batch, r, make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0,
+  return radix_fft<true>(x, y, batch, clusters, r, make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0,
                                                      tw1),
                          t1, tn, rroots, cfac, static_cast<unsigned long long*>(stamps), stream);
 }
 #endif
 
-// cudaOccupancyMaxActiveClusters of rf_radix_fft's kernel at r into *out.
+// cudaOccupancyMaxActiveClusters of rf_radix_fft's kernel at r into *out;
+// at r = 1 (K7's 16384) the blocks the card holds at once.
 extern "C" int rf_radix_max_active_clusters(int r, int* out) {
   using namespace rf;
   switch (r) {
+    case 1: return max_active_clusters<1>(out);
     case 2: return max_active_clusters<2>(out);
     case 4: return max_active_clusters<4>(out);
     case 8: return max_active_clusters<8>(out);
@@ -781,8 +961,15 @@ extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, 
   const auto* to = static_cast<const float2*>(outer);
   const auto s = static_cast<cudaStream_t>(stream);
   if (p == kSlice && q == kSlice && is_chain(sp, 16, 8) && is_chain(sq, 16, 8)) {
-    // the rows of the identity DFT_1: t1 and cfac are never read at R = 1
-    return launch_radix<1>(tx, ty, batch, sp, to, to, to, to, nullptr, s);
+    // the rows of the identity DFT_1: t1 and cfac are never read at R = 1;
+    // the persistent grid: as many blocks as the card holds, at most one a
+    // transform (ops/kernels/fused.py radix_grid)
+    int resident = 0;
+    const cudaError_t err = max_active_clusters<1>(&resident);
+    if (err != cudaSuccess) return err;
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+    return launch_radix<1>(tx, ty, batch, batch < resident ? batch : resident, sp, to, to, to, to,
+                           nullptr, s);
   }
   const size_t smem = with_chain_tables(
       (size_t)pad16(p * q) * sizeof(float2) + (size_t)(p + q) * sizeof(int), sp, sq);

@@ -69,11 +69,11 @@ _SIGNATURES = {
     "rf_conv_col_stage": [_vp, _vp, _vp, _ll, _int, _ll] + [_int] * 8 + [_vp] * 9,
     "rf_conv_row_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 8 + [_ll, _vp, _vp]
                          + [_int, _int, _int, _ll, _vp],
-    "rf_permute": [_vp, _vp, _vp, _ll, _int, _vp],
+    "rf_permute": [_vp, _vp, _vp, _ll, _int, _int, _vp],
     "rf_large2f_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 8,
     "rf_large3_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
     "rf_large3_p2": [_vp, _vp, _ll, _int, _int, _int, _vp, _vp, _vp, _vp],
-    "rf_radix_fft": [_vp, _vp, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 5,
+    "rf_radix_fft": [_vp, _vp, _ll, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 5,
     "rf_radix_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_two_stage_fft": [_vp, _vp, _ll, _int, _int] + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
                         + [_vp, _vp],
@@ -89,7 +89,7 @@ _SIGNATURES = {
 
 #: the entry points only the RF_PHASE_STAMPS library has
 _STAMP_SIGNATURES = {
-    "rf_radix_phase_stamps": [_vp, _vp, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 5
+    "rf_radix_phase_stamps": [_vp, _vp, _ll, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 4
                              + [_vp, _vp],
     "rf_two_stage_cluster_phase_stamps": [_vp, _vp, _ll, _int, _int, _int]
                                          + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2

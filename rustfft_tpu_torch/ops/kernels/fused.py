@@ -338,12 +338,16 @@ def radix_fft(x: torch.Tensor, r: int, p: int, tables) -> torch.Tensor:
     """DFT of every row of x (batch, r*p*p) complex64 by the radix-r split.
 
     tables = radix_tables(r, p, p) on x's device.  CPU tensors run the
-    plain version; CUDA tensors launch one cluster of r blocks per row
-    (csrc/fused.cu, p = 128 only).
+    plain version; CUDA tensors launch csrc/fused.cu's kernel (p = 128
+    only) on a persistent grid of radix_grid clusters of r blocks, each
+    walking its rows (radix_walk).
     """
     _check_radix(x, r, p, tables, "radix_fft")
     if x.device.type == "cpu":
         return radix_fft_plain(x, r, p, tables)
+    require_cuda(x, "radix_fft")
+    if x.shape[0] == 0:
+        return torch.empty_like(x)
     y = _launch_radix(x, r, p, tables, "radix_fft")
     radix_fft.launches += 1
     return y
@@ -354,19 +358,20 @@ radix_fft.launches = 0
 
 
 def _launch_radix(x, r, p, tables, what, stamps=None):
-    """One launch of csrc/fused.cu's radix kernel; y.  With `stamps`, a
-    (blocks, RADIX_PHASES + 1) int64 tensor, its stamped form from the
-    library built for it (_build.load(phase_stamps=True))."""
-    require_cuda(x, what)
+    """One launch of csrc/fused.cu's radix kernel on a non-empty batch on the
+    card; y.  With `stamps`, a (blocks, RADIX_PHASES + 1) int64 tensor, its
+    stamped form from the library built for it
+    (_build.load(phase_stamps=True))."""
     if p != RADIX_PQ or r > 16:
         raise ValueError(f"{what}: the kernel takes p = q = {RADIX_PQ}, r <= 16; "
                          f"got r={r}, p={p}")
     y = torch.empty_like(x)
-    if x.shape[0] == 0:
-        return y
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: the kernel's bulk copies need a 16-byte aligned input")
     roots, tws, t1, tn, rroots, cfac = tables
     lib = _build.load(phase_stamps=stamps is not None)
-    args = (x.data_ptr(), y.data_ptr(), x.shape[0], r,
+    clusters = radix_grid(x.shape[0], _resident_clusters(x.device, r))
+    args = (x.data_ptr(), y.data_ptr(), x.shape[0], clusters, r,
             *padded_stage_args(large.stage_radices(p), roots, tws),
             t1.data_ptr(), tn.data_ptr(), rroots.data_ptr(), cfac.data_ptr())
     with torch.cuda.device(x.device):
@@ -379,10 +384,12 @@ def _launch_radix(x, r, p, tables, what, stamps=None):
     return y
 
 
-#: the radix kernel's phases: stage A's load and radix 16, stage A's radix
-#: 8, the exchange with its two cluster barriers, stage B's radix 16, stage
-#: B's radix 8 with the store
-RADIX_PHASES = ("load+A16", "A8", "exchange", "B16", "B8+store")
+#: the radix kernel's phases: stage A's load and radix 16 (the first with the
+#: tables' load and the cluster's start stagger), stage A's radix 8, the
+#: wait at the cluster barrier before the exchange, the exchange, the wait
+#: at the barrier after it, stage B's radix 16, stage B's radix 8 with the
+#: store and the next transform's copies started
+RADIX_PHASES = ("load+A16", "A8", "barrier1", "exchange", "barrier2", "B16", "B8+store")
 
 
 def radix_phase_stamps(x: torch.Tensor, r: int, p: int, tables):
@@ -394,8 +401,11 @@ def radix_phase_stamps(x: torch.Tensor, r: int, p: int, tables):
     read by the block's thread 0 after a block barrier."""
     what = "radix_phase_stamps"
     _check_radix(x, r, p, tables, what)
-    stamps = torch.zeros((x.shape[0] * r, len(RADIX_PHASES) + 1), dtype=torch.int64,
-                         device=x.device)
+    require_cuda(x, what)
+    if x.shape[0] == 0:
+        raise ValueError(f"{what}: an empty batch has no phases")
+    blocks = radix_grid(x.shape[0], _resident_clusters(x.device, r)) * r
+    stamps = torch.zeros((blocks, len(RADIX_PHASES) + 1), dtype=torch.int64, device=x.device)
     y = _launch_radix(x, r, p, tables, what, stamps)
     radix_phase_stamps.launches += 1
     return y, stamps[stamps[:, 0] != 0]
@@ -406,12 +416,40 @@ radix_phase_stamps.launches = 0
 
 def radix_max_active_clusters(r: int) -> int:
     """cudaOccupancyMaxActiveClusters of radix_fft's cluster of r blocks on
-    the current device."""
+    the current device (at r = 1, K7's 16384 on the same body, the blocks
+    the card holds at once)."""
     lib = _build.load()
     out = ctypes.c_int(0)
     _build.check(lib, lib.rf_radix_max_active_clusters(r, ctypes.byref(out)),
                  "radix_max_active_clusters")
     return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, r: int) -> int:
+    with torch.cuda.device(device_index):
+        return radix_max_active_clusters(r)
+
+
+def _resident_clusters(device: torch.device, r: int) -> int:
+    return _resident(device.index if device.index is not None else torch.cuda.current_device(), r)
+
+
+def radix_grid(batch: int, resident: int) -> int:
+    """Clusters of the radix kernel's persistent grid for `batch`
+    transforms when the card holds `resident` clusters at once: every
+    resident cluster, at most one a transform.  Cluster g runs the
+    transforms radix_walk(g, clusters, batch)."""
+    if batch < 1 or resident < 1:
+        raise ValueError(f"radix_grid: batch={batch}, resident={resident}")
+    return min(batch, resident)
+
+
+def radix_walk(cluster: int, clusters: int, batch: int) -> range:
+    """The transforms cluster `cluster` of `clusters` runs, as the kernel
+    walks them: a function of the cluster's index only, so every block of
+    a cluster passes the same number of cluster barriers."""
+    return range(cluster, batch, clusters)
 
 
 # -- two_stage_fft (K7) and three_stage_fft (K8) -----------------------------
@@ -456,6 +494,9 @@ def _two_stage(x, p, p_radices, q_radices, tables, counter):
     y = torch.empty_like(x)
     if x.shape[0] == 0:
         return y
+    if tuple(p_radices) == tuple(q_radices) == (16, 8) and x.data_ptr() % 16:
+        raise ValueError(f"{what}: 16384 runs the radix kernel, whose bulk copies need a "
+                         "16-byte aligned input")
     lib = _build.load()
     with torch.cuda.device(x.device):
         code = lib.rf_two_stage_fft(

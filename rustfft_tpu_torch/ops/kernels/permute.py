@@ -9,8 +9,10 @@ address, so the port is a plain gather and has no host-side decomposition.
 
 `permute` is the wrapper: on a CPU tensor it runs `permute_plain`
 (torch.index_select); on a CUDA tensor it launches csrc/permute.cu or
-raises.  Indices are int32, checked on the host to be a permutation of
-range(m) when the table is made (`permutation_index`).
+raises.  Rows of up to SMEM_ROW_MAX values go through shared memory,
+`smem_rows(m)` of them a block; longer rows take the direct gather.
+Indices are int32, checked on the host to be a permutation of range(m)
+when the table is made (`permutation_index`).
 """
 from __future__ import annotations
 
@@ -44,6 +46,31 @@ def check_index(idx: torch.Tensor, m: int, device, what: str) -> None:
         raise ValueError(f"{what}: index on {idx.device}, input on {device}")
 
 
+#: the longest row the kernel reads whole into shared memory: a block of
+#: one such row takes 64 KiB, so three still share an SM and overlap one
+#: block's copy with another's gather.  On the H100 one row a block read
+#: 25% faster than the direct gather at m = 4097 and 8193
+#: (tools/torch_permute_rows.py); longer rows keep the direct gather
+SMEM_ROW_MAX = 8192
+
+#: values a block gathers on the shared-memory path: whole rows up to 8
+#: KiB, so that eight blocks of 256 threads share an SM (one row a block
+#: read as fast as or faster than two or four at m = 1008 on the H100)
+SMEM_BLOCK_VALUES = 1024
+
+
+def smem_rows(m: int) -> int:
+    """Rows of length m a block of csrc/permute.cu reads whole into shared
+    memory and gathers from there (as many as SMEM_BLOCK_VALUES holds, at
+    least one), or 0 where m > SMEM_ROW_MAX: the direct gather from device
+    memory."""
+    if m < 1:
+        raise ValueError(f"smem_rows: m={m}")
+    if m > SMEM_ROW_MAX:
+        return 0
+    return max(1, SMEM_BLOCK_VALUES // m)
+
+
 def permute_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain torch version of permute."""
     return torch.index_select(x, 1, idx)
@@ -52,28 +79,55 @@ def permute_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def permute(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[b, i] = x[b, idx[i]] for x (batch, m) complex64 and idx an int32
     permutation of range(m) (from permutation_index) on x's device."""
-    if x.dim() != 2:
-        raise ValueError(f"permute: expected (batch, m), got shape {tuple(x.shape)}")
-    m = x.shape[1]
-    check_operand(x, (x.shape[0], m), "permute input")
-    check_index(idx, m, x.device, "permute")
+    m = _check(x, idx, "permute")
     if x.device.type == "cpu":
         return permute_plain(x, idx)
     require_cuda(x, "permute")
-    y = torch.empty_like(x)
     if x.shape[0] == 0 or m == 0:
-        return y
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.rf_permute(x.data_ptr(), y.data_ptr(), idx.data_ptr(), x.shape[0], m,
-                              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "permute")
+        return torch.empty_like(x)
+    y = _launch(x, idx, smem_rows(m), "permute")
     permute.launches += 1
     return y
 
 
 #: kernel launches since the count was last set to 0
 permute.launches = 0
+
+
+def permute_rows(x: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """permute on the card with the rows a block reads into shared memory
+    chosen by the caller (0: the direct gather), whatever smem_rows says;
+    no route calls it (tools/torch_ab.py times both forms at one m)."""
+    _check(x, idx, "permute_rows")
+    require_cuda(x, "permute_rows")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    y = _launch(x, idx, rows, "permute_rows")
+    permute_rows.launches += 1
+    return y
+
+
+permute_rows.launches = 0
+
+
+def _check(x, idx, what) -> int:
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (batch, m), got shape {tuple(x.shape)}")
+    m = x.shape[1]
+    check_operand(x, (x.shape[0], m), f"{what} input")
+    check_index(idx, m, x.device, what)
+    return m
+
+
+def _launch(x, idx, rows, what):
+    """One launch of csrc/permute.cu on a non-empty CUDA tensor; y."""
+    y = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.rf_permute(x.data_ptr(), y.data_ptr(), idx.data_ptr(), x.shape[0],
+                              x.shape[1], rows, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, what)
+    return y
 
 
 def make_permute_fn(perm):

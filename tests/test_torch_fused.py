@@ -290,6 +290,36 @@ def test_cpu_wrappers_count_no_launches():
     assert _counts() == before
 
 
+@pytest.mark.parametrize("r", [1, 2, 4, 16])
+@pytest.mark.parametrize("resident", [1, 2, 3, 7, 66, 132])
+def test_radix_persistent_grid_covers_each_transform_once(r, resident):
+    """The radix kernel's persistent grid (radix_grid) and walk
+    (radix_walk), as the kernel runs them: cluster g = block // r; every
+    transform of the batch runs exactly once, and every block of a cluster
+    runs the same transforms, so it passes the same cluster barriers."""
+    for batch in [1, 2, resident - 1, resident, resident + 1, 2 * resident + 1,
+                  3 * resident + 1, 5 * resident + 3]:
+        if batch < 1:
+            continue
+        clusters = fused.radix_grid(batch, resident)
+        assert 1 <= clusters <= min(batch, resident)
+        assert clusters == min(batch, resident)  # no resident cluster left idle
+        walks = [list(fused.radix_walk(block // r, clusters, batch)) for block in range(clusters * r)]
+        for block in range(clusters * r):
+            assert walks[block] == walks[block - block % r]  # the cluster's walk
+        done = sorted(t for g in range(clusters) for t in fused.radix_walk(g, clusters, batch))
+        assert done == list(range(batch))
+        counts = [len(fused.radix_walk(g, clusters, batch)) for g in range(clusters)]
+        assert max(counts) - min(counts) <= 1
+
+
+def test_radix_grid_rejects_empty_inputs():
+    with pytest.raises(ValueError):
+        fused.radix_grid(0, 7)
+    with pytest.raises(ValueError):
+        fused.radix_grid(5, 0)
+
+
 # -- on the card -----------------------------------------------------------------
 
 @pytest.fixture
@@ -307,16 +337,35 @@ def _on(tables, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [2, 4, 8, 16])
 def test_radix_fft_on_card(cuda_device, r):
+    """At batch 1, 2 and 3 x the resident clusters + 1: the persistent walk's
+    second and later passes, its overlapped loads and a remainder."""
     n = r * 128 * 128
-    x = torch.from_numpy(_signal(2, n, r)).to(cuda_device)
+    resident = fused.radix_max_active_clusters(r)
+    assert resident >= 1
+    for batch in (1, 2, 3 * resident + 1):
+        x = torch.from_numpy(_signal(batch, n, r)).to(cuda_device)
+        for d, _ in DIRECTIONS:
+            tabs = _on(fused.radix_tables(r, 128, 128, d), cuda_device)
+            before = fused.radix_fft.launches
+            got = fused.radix_fft(x, r, 128, tabs)
+            torch.cuda.synchronize()
+            assert fused.radix_fft.launches == before + 1
+            assert _rel(got.cpu(), fused.radix_fft_plain(x, r, 128, tabs).cpu()) <= TOL
+
+
+@pytest.mark.cuda
+def test_two_stage_16384_persistent_on_card(cuda_device):
+    """K7's 16384 runs the radix body at R = 1 on a persistent grid of the
+    blocks the card holds: at a batch of 3 x those + 1."""
+    batch = 3 * fused.radix_max_active_clusters(1) + 1
+    x = torch.from_numpy(_signal(batch, 16384, 1)).to(cuda_device)
     for d, _ in DIRECTIONS:
-        tabs = _on(fused.radix_tables(r, 128, 128, d), cuda_device)
-        before = fused.radix_fft.launches
-        got = fused.radix_fft(x, r, 128, tabs)
+        tabs = _on(fused.two_stage_tables(128, large.stage_radices(128), d), cuda_device)
+        before = fused.two_stage_fft.launches
+        got = fused.two_stage_fft(x, 128, 128, tabs)
         torch.cuda.synchronize()
-        assert fused.radix_fft.launches == before + 1
-        assert _rel(got.cpu(), fused.radix_fft_plain(x, r, 128, tabs).cpu()) <= TOL
-    assert fused.radix_max_active_clusters(r) >= 1
+        assert fused.two_stage_fft.launches == before + 1
+        assert _rel(got.cpu(), fused.two_stage_fft_plain(x, 128, 128, tabs).cpu()) <= TOL
 
 
 @pytest.mark.cuda

@@ -365,6 +365,28 @@ def test_permute_rader_tables_match_definition(p):
         np.testing.assert_array_equal(got.numpy(), x[..., perm])
 
 
+@pytest.mark.parametrize("m", [1, 2, 3, 1008, 1009, 4096, 4097, permute.SMEM_ROW_MAX,
+                               permute.SMEM_ROW_MAX + 1, 16384, 114688])
+def test_permute_smem_cut_over(m):
+    """K16's one host rule: rows up to SMEM_ROW_MAX go through shared memory,
+    as many whole rows a block as SMEM_BLOCK_VALUES holds (at least one, so
+    at most 64 KiB a block); longer rows take the direct gather (0)."""
+    rows = permute.smem_rows(m)
+    if m > permute.SMEM_ROW_MAX:
+        assert rows == 0
+    else:
+        assert rows >= 1
+        assert rows * m <= max(permute.SMEM_BLOCK_VALUES, m)
+        assert rows * m * 8 <= 64 * 1024
+        assert (rows + 1) * m > permute.SMEM_BLOCK_VALUES  # as many rows as fit
+    assert permute.smem_rows(1008) == 1  # the Rader 1009 gathers: one row a block
+
+
+def test_permute_smem_rows_rejects_empty_rows():
+    with pytest.raises(ValueError):
+        permute.smem_rows(0)
+
+
 def test_permutation_index_checks():
     assert permute.permutation_index(np.array([2, 0, 1], np.int64)).dtype == np.int32
     for bad in ([0, 0, 1], [1, 2, 3], np.array([0.0, 1.0]), np.zeros((2, 2), np.int64)):
@@ -526,7 +548,7 @@ def test_conv_fft_matches_plain_on_card(cuda_device, m, n_in, n_out, with_tables
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1008, 114688])
+@pytest.mark.parametrize("m", [1008, 114688, permute.SMEM_ROW_MAX, permute.SMEM_ROW_MAX + 1, 1009])
 def test_permute_matches_plain_on_card(cuda_device, m):
     idx = torch.from_numpy(permute.permutation_index(np.random.default_rng(m).permutation(m))).to(cuda_device)
     x = torch.from_numpy(_signal(5, m, seed=m)).to(cuda_device)

@@ -29,9 +29,13 @@ and kernel at 4096 x 16384, 8192 x 8192, 1024 x 65536, 64 x 1048576,
 1000 x 65536, 2008 x 32768 and 12288 x 5120 (a tree whose lanepack module
 has no `chain_tables` takes its `stage_tables`, as K1 did before the
 in-place chain), and K5's paths 127 x 262144, 251 x 131072 and 29 x
-2097152, each of K1's and K5's shapes also through torch.fft.  It prints
-one JSON line per run and then a table, each row a quantity and each
-column a run.
+2097152, each of K1's and K5's shapes also through torch.fft, and K9's
+mid band: `radix_fft` alone and the planner's path at 32768 x 2048, 65536
+x 1024, 131072 x 512 and 262144 x 256, `two_stage_fft` alone and the path
+at 16384 x 4096 (the radix body at R = 1), each also through torch.fft,
+and K16: `permute` alone at 8192 x 1008 (the 1009 path's gather) beside
+torch.index_select.  It prints one JSON line per run and then a table,
+each row a quantity and each column a run.
 """
 from __future__ import annotations
 
@@ -55,6 +59,10 @@ K1 = ((4096, 16384), (8192, 8192), (1024, 65536), (64, 1 << 20), (1000, 65536), 
       (12288, 5120))
 K5 = ((127, 262144), (251, 131072), (29, 1 << 21))
 
+#: K9's four sizes (r = 2, 4, 8, 16) and the radix body at R = 1 (K7's
+#: 16384), 512 MiB each
+K9 = ((1 << 15, 2048), (1 << 16, 1024), (1 << 17, 512), (1 << 18, 256), (16384, 4096))
+
 
 def run_one(root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
@@ -62,7 +70,7 @@ def run_one(root: str) -> dict:
     import torch
 
     from rustfft_tpu_torch import FftDirection, FftPlanner
-    from rustfft_tpu_torch.ops.kernels import lanepack, large, largepad
+    from rustfft_tpu_torch.ops.kernels import fused, lanepack, large, largepad, permute
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -114,6 +122,31 @@ def run_one(root: str) -> dict:
         if (n, batch) in K1 + K5:
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
         del x
+    for n, batch in K9:
+        torch.cuda.empty_cache()
+        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+        r = n // (128 * 128)
+        if r > 1:
+            tabs = tuple(on(t) if isinstance(t, list) else on([t])[0]
+                         for t in fused.radix_tables(r, 128, 128, FftDirection.FORWARD))
+            out[f"K9 radix_fft {n}x{batch}"] = ms(lambda: fused.radix_fft(x, r, 128, tabs),
+                                                  reps=15)
+        else:
+            tabs = tuple(on(t) if isinstance(t, list) else on([t])[0]
+                         for t in fused.two_stage_tables(128, large.stage_radices(128),
+                                                         FftDirection.FORWARD))
+            out[f"K7 two_stage_fft {n}x{batch}"] = ms(
+                lambda: fused.two_stage_fft(x, 128, 128, tabs), reps=15)
+        plan = planner.plan_fft_forward(n)
+        out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+        out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+        del x
+    m = 1008
+    idx = torch.from_numpy(permute.permutation_index(np.random.default_rng(m).permutation(m))).to(dev)
+    x = torch.randn((8192, m), dtype=torch.complex64, generator=gen, device=dev)
+    out[f"K16 permute 8192x{m}"] = ms(lambda: permute.permute(x, idx), reps=31)
+    out[f"index_select 8192x{m}"] = ms(lambda: torch.index_select(x, 1, idx), reps=31)
+    del x
     pad_tables = getattr(largepad, "col_tables", None)
     for n, batch in PAD:
         torch.cuda.empty_cache()

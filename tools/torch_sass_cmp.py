@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with nvcc:
 
-    python3 tools/torch_sass_cmp.py OLD_CHECKOUT NEW_CHECKOUT [SOURCE ...]
+    python3 tools/torch_sass_cmp.py [--per-kernel] OLD_CHECKOUT NEW_CHECKOUT [SOURCE ...]
 
 Default sources: fused.cu, largepad.cu and largepad_row.cu (K7's and K12's
 kernels, which include csrc/inplace_chain.cuh).  Each source of each
@@ -13,6 +13,14 @@ compared line by line with the instruction addresses stripped; it
 prints, per source, the SASS lines of each side and how many differ (at
 the same position, plus the difference in length).  0 means the kernels are
 the same instructions, so a difference in their times is not the code's.
+
+With --per-kernel the listings are split by function (cuobjdump's
+"Function :" headers) and compared function by function, so that the
+kernels of a source that did not change show 0 while another kernel of
+the same source changed (for example fused.cu's two_stage_kernel and
+two_stage_cluster_kernel while its radix_kernel changes): one line per
+kernel, demangled, with its SASS lines on each side and how many differ,
+or "only in old" / "only in new".
 """
 from __future__ import annotations
 
@@ -37,11 +45,36 @@ def cuobjdump() -> str:
     return found or os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
 
 
+def differing(old_lines, new_lines) -> int:
+    return (sum(a != b for a, b in zip(old_lines, new_lines))
+            + abs(len(old_lines) - len(new_lines)))
+
+
+def by_function(lines):
+    """{mangled name: its SASS lines} of one listing."""
+    out, name = {}, None
+    for line in lines:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out
+
+
+def demangle(name: str) -> str:
+    return subprocess.run(["c++filt", name], capture_output=True, text=True).stdout.strip()
+
+
 def main() -> None:
-    if len(sys.argv) < 3:
+    args = sys.argv[1:]
+    per_kernel = "--per-kernel" in args
+    args = [a for a in args if a != "--per-kernel"]
+    if len(args) < 2:
         raise SystemExit(__doc__)
-    old, new = Path(sys.argv[1]), Path(sys.argv[2])
-    sources = sys.argv[3:] or SOURCES
+    old, new = Path(args[0]), Path(args[1])
+    sources = args[2:] or SOURCES
     with tempfile.TemporaryDirectory() as tmp:
         jobs = {}
         for src in sources:
@@ -62,10 +95,19 @@ def main() -> None:
                 listings.append([re.sub(r"/\*[0-9a-f]+\*/", "", line)
                                  for line in out.splitlines() if line.strip()])
             old_lines, new_lines = listings
-            differ = (sum(a != b for a, b in zip(old_lines, new_lines))
-                      + abs(len(old_lines) - len(new_lines)))
             print(f"{src}: {len(listings[0])} / {len(listings[1])} SASS lines; "
-                  f"differing lines: {differ}", flush=True)
+                  f"differing lines: {differing(old_lines, new_lines)}", flush=True)
+            if per_kernel:
+                funcs = [by_function(lines) for lines in listings]
+                for name in sorted(set(funcs[0]) | set(funcs[1])):
+                    label = demangle(name)[:120]
+                    if name not in funcs[0] or name not in funcs[1]:
+                        side = "old" if name in funcs[0] else "new"
+                        print(f"  {label}: only in {side}", flush=True)
+                        continue
+                    a, b = funcs[0][name], funcs[1][name]
+                    print(f"  {label}: {len(a)} / {len(b)} SASS lines; differing lines: "
+                          f"{differing(a, b)}", flush=True)
 
 
 if __name__ == "__main__":
