@@ -46,16 +46,16 @@ def check_index(idx: torch.Tensor, m: int, device, what: str) -> None:
         raise ValueError(f"{what}: index on {idx.device}, input on {device}")
 
 
-#: the longest row the kernel reads whole into shared memory: a block of
-#: one such row takes 64 KiB, so three still share an SM and overlap one
-#: block's copy with another's gather.  On the H100 one row a block read
-#: 25% faster than the direct gather at m = 4097 and 8193
-#: (tools/torch_permute_rows.py); longer rows keep the direct gather
-SMEM_ROW_MAX = 8192
+#: the longest row the kernel reads whole into shared memory: one row fills
+#: a block's 227 KB.  On the H100 one row a block read faster than the
+#: direct gather at every m measured, 1008 to 28672 (0.073 against 0.081 ms
+#: at 1008 x 8192, 0.080 against 0.103 at 28672 x 292:
+#: tools/torch_permute_rows.py); longer rows keep the direct gather
+SMEM_ROW_MAX = _build.SMEM_MAX // 8
 
 #: values a block gathers on the shared-memory path: whole rows up to 8
-#: KiB, so that eight blocks of 256 threads share an SM (one row a block
-#: read as fast as or faster than two or four at m = 1008 on the H100)
+#: KiB, so that eight blocks of 256 threads share an SM (at m = 1008 one row
+#: a block read as fast as two or four on the H100, same tool)
 SMEM_BLOCK_VALUES = 1024
 
 

@@ -30,7 +30,7 @@ import rustfft_tpu_torch
 from rustfft_tpu_torch import config, executor, math_utils, native, recipes, twiddles
 from rustfft_tpu_torch.common import FftDirection
 from rustfft_tpu_torch.ops import bluestein, good_thomas, raders
-from rustfft_tpu_torch.ops.kernels import conv, conv_radix, lanepack, large, permute
+from rustfft_tpu_torch.ops.kernels import _build, conv, conv_radix, lanepack, large, permute
 from rustfft_tpu_torch.twiddles import host_dft
 
 DIRECTIONS = [(FftDirection.FORWARD, RefDirection.FORWARD),
@@ -365,19 +365,20 @@ def test_permute_rader_tables_match_definition(p):
         np.testing.assert_array_equal(got.numpy(), x[..., perm])
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 1008, 1009, 4096, 4097, permute.SMEM_ROW_MAX,
-                               permute.SMEM_ROW_MAX + 1, 16384, 114688])
+@pytest.mark.parametrize("m", [1, 2, 3, 1008, 1009, 4096, 4097, 16384, permute.SMEM_ROW_MAX,
+                               permute.SMEM_ROW_MAX + 1, 114688])
 def test_permute_smem_cut_over(m):
-    """K16's one host rule: rows up to SMEM_ROW_MAX go through shared memory,
-    as many whole rows a block as SMEM_BLOCK_VALUES holds (at least one, so
-    at most 64 KiB a block); longer rows take the direct gather (0)."""
+    """K16's one host rule: rows that fit a block's shared memory go through
+    it, as many whole rows a block as SMEM_BLOCK_VALUES holds (at least
+    one); longer rows take the direct gather (0)."""
     rows = permute.smem_rows(m)
+    assert permute.SMEM_ROW_MAX * 8 <= _build.SMEM_MAX < (permute.SMEM_ROW_MAX + 1) * 8
     if m > permute.SMEM_ROW_MAX:
         assert rows == 0
     else:
         assert rows >= 1
         assert rows * m <= max(permute.SMEM_BLOCK_VALUES, m)
-        assert rows * m * 8 <= 64 * 1024
+        assert rows * m * 8 <= _build.SMEM_MAX
         assert (rows + 1) * m > permute.SMEM_BLOCK_VALUES  # as many rows as fit
     assert permute.smem_rows(1008) == 1  # the Rader 1009 gathers: one row a block
 

@@ -6,8 +6,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/torch_permute_rows.py [M:BATCH ...]
 
 Default shapes: 1008:8192 (the Rader 1009 path's gathers), 4096:2048,
-4097:2047, 8192:1024, 8193:1023, 16384:512 and 28672:292 (about 64 MiB
-each).  For each shape and a random permutation it times
+4097:2047, 8192:1024, 8193:1023, 16384:512, 28672:292, and 29056:288 and
+29057:288 on both sides of the wrapper's cut-over (about 64 MiB each).  For each shape and a random permutation it times
 `permute.permute_rows` with 0 rows a block (the direct gather from device
 memory) and with 1, 2 and 4 whole rows a block in shared memory where
 they fit, checks each output bit for bit against torch.index_select, and
@@ -27,7 +27,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SHAPES = ((1008, 8192), (4096, 2048), (4097, 2047), (8192, 1024), (8193, 1023), (16384, 512),
-          (28672, 292))
+          (28672, 292), (29056, 288), (29057, 288))
 
 #: bytes of shared memory one block may use on sm_90
 SMEM_MAX = 232448
