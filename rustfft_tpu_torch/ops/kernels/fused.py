@@ -16,9 +16,10 @@ signal in device memory:
         X[k2, c, d] = sum_j2 C[c, j2, d] * w_q^(j2*k2)         (stage B)
       The merged twiddle w_n^((a*q+j2)*d) of the JAX kernels is factored
       as w_rp^(a*d) * w_n^(j2*d): an (r, p) and a (q, p) table, none of n
-      entries.  On the card one cluster of r blocks computes one transform,
+      entries.  On the card one cluster of r blocks computes a transform,
       block a holding the slice a; the DFT_r crosses the cluster through
-      distributed shared memory (csrc/fused.cu).
+      distributed shared memory, and a persistent grid of radix_grid
+      clusters walks the batch (csrc/fused.cu).
   `two_stage_fft` (K7: `_fused_kernel`, `_fused_kernel_gauss`,
       `_fused_kernel_twodot`): n = p * q, j = j1*q + j2, k = k2*p + k1:
       DFT_p over j1, the twiddle w_n^(k1*j2), DFT_q over j2.  One block per
