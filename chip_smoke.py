@@ -19,7 +19,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    conj off and on, the two-pass core stage by stage at m = 65536 (Rader
    65537: gathers, x0, sums, full output) and m = 16384 (Bluestein 7919),
    and the permutation at m = 1008 and 114688 and on both sides of its
-   shared-memory cut-over (8192 through shared memory, 8193 direct);
+   shared-memory cut-over (permute.SMEM_ROW_MAX = 29056 through shared
+   memory, 29057 direct);
    The top power-of-two band at batch 1: large2f's fused column stage at
    P = 2048, 4096 and 8192 and the row stage after it, large3f's pass 1
    (the modular j3 twiddle), its pass 2 with the j2 factor on and off, and

@@ -399,11 +399,13 @@ __global__ void __launch_bounds__(kFusedThreads)
     }
   }
   __syncthreads();
-  // Stagger the clusters: cluster g starts (g % kStaggerGroups) *
-  // kStaggerNs late, so that one cluster's store and next load (stage B)
-  // meet another's exchange, which asks device memory for nothing, rather
-  // than every SM asking for its bytes at once.
-  {
+  // Where a cluster walks more than one transform, stagger the clusters:
+  // cluster g starts (g % kStaggerGroups) * kStaggerNs late, so that one
+  // cluster's store and next load (stage B) meet another's exchange, which
+  // asks device memory for nothing, rather than every SM asking for its
+  // bytes at once.  A batch of at most one transform a cluster has no next
+  // load to overlap and starts at once.
+  if (batch > clusters) {
     const unsigned long long t0 = global_timer();
     const unsigned long long wait = (unsigned long long)(t % kStaggerGroups) * kStaggerNs;
     while (global_timer() - t0 < wait) {
@@ -937,15 +939,17 @@ extern "C" int rf_radix_max_active_clusters(int r, int* out) {
 // stage, 0 for the others, whose roots slot then holds the stage's
 // Bluestein table); outer: (q, p) w_n^(k1*j2).  One block per transform, in
 // place in shared memory; p = q = 128 with both chains (16, 8) runs the
-// radix kernel's body at R = 1.  Returns a cudaError_t code; launches on
-// `stream`.
+// radix kernel's body at R = 1 on `clusters` blocks, the caller's persistent
+// grid (ops/kernels/fused.py radix_grid; ignored at every other n).
+// Returns a cudaError_t code; launches on `stream`.
 extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, int q, int kp,
                                 int rp0, int rp1, int rp2, const void* rootsp0,
                                 const void* rootsp1, const void* rootsp2, const void* twp0,
                                 const void* twp1, int mp0, int mp1, int mp2, int kq, int rq0,
                                 int rq1, int rq2, const void* rootsq0, const void* rootsq1,
                                 const void* rootsq2, const void* twq0, const void* twq1, int mq0,
-                                int mq1, int mq2, const void* outer, void* stream) {
+                                int mq1, int mq2, const void* outer, long long clusters,
+                                void* stream) {
   using namespace rf;
   if (batch <= 0 || batch > 0x7fffffffLL || p <= 0 || q <= 0 || outer == nullptr)
     return cudaErrorInvalidValue;
@@ -961,15 +965,8 @@ extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, 
   const auto* to = static_cast<const float2*>(outer);
   const auto s = static_cast<cudaStream_t>(stream);
   if (p == kSlice && q == kSlice && is_chain(sp, 16, 8) && is_chain(sq, 16, 8)) {
-    // the rows of the identity DFT_1: t1 and cfac are never read at R = 1;
-    // the persistent grid: as many blocks as the card holds, at most one a
-    // transform (ops/kernels/fused.py radix_grid)
-    int resident = 0;
-    const cudaError_t err = max_active_clusters<1>(&resident);
-    if (err != cudaSuccess) return err;
-    if (resident < 1) return cudaErrorInvalidConfiguration;
-    return launch_radix<1>(tx, ty, batch, batch < resident ? batch : resident, sp, to, to, to, to,
-                           nullptr, s);
+    // the rows of the identity DFT_1: t1 and cfac are never read at R = 1
+    return launch_radix<1>(tx, ty, batch, clusters, sp, to, to, to, to, nullptr, s);
   }
   const size_t smem = with_chain_tables(
       (size_t)pad16(p * q) * sizeof(float2) + (size_t)(p + q) * sizeof(int), sp, sq);

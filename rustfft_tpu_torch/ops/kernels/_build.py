@@ -76,7 +76,7 @@ _SIGNATURES = {
     "rf_radix_fft": [_vp, _vp, _ll, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 5,
     "rf_radix_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_two_stage_fft": [_vp, _vp, _ll, _int, _int] + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
-                        + [_vp, _vp],
+                        + [_vp, _ll, _vp],
     "rf_two_stage_cluster_fft": [_vp, _vp, _ll, _int, _int, _int]
                                 + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2 + [_vp, _vp],
     "rf_two_stage_cluster_max_active_clusters": [_int, ctypes.POINTER(_int)],

@@ -340,8 +340,8 @@ def radix_fft(x: torch.Tensor, r: int, p: int, tables) -> torch.Tensor:
 
     tables = radix_tables(r, p, p) on x's device.  CPU tensors run the
     plain version; CUDA tensors launch csrc/fused.cu's kernel (p = 128
-    only) on a persistent grid of radix_grid clusters of r blocks, each
-    walking its rows (radix_walk).
+    only) on a persistent grid of radix_grid clusters of r blocks, cluster
+    g walking the rows g, g + clusters, ...
     """
     _check_radix(x, r, p, tables, "radix_fft")
     if x.device.type == "cpu":
@@ -367,8 +367,7 @@ def _launch_radix(x, r, p, tables, what, stamps=None):
         raise ValueError(f"{what}: the kernel takes p = q = {RADIX_PQ}, r <= 16; "
                          f"got r={r}, p={p}")
     y = torch.empty_like(x)
-    if x.data_ptr() % 16:
-        raise ValueError(f"{what}: the kernel's bulk copies need a 16-byte aligned input")
+    x = _aligned16(x)
     roots, tws, t1, tn, rroots, cfac = tables
     lib = _build.load(phase_stamps=stamps is not None)
     clusters = radix_grid(x.shape[0], _resident_clusters(x.device, r))
@@ -440,17 +439,17 @@ def radix_grid(batch: int, resident: int) -> int:
     """Clusters of the radix kernel's persistent grid for `batch`
     transforms when the card holds `resident` clusters at once: every
     resident cluster, at most one a transform.  Cluster g runs the
-    transforms radix_walk(g, clusters, batch)."""
+    transforms g, g + clusters, ... below batch: a walk of the cluster's
+    index, so every block of a cluster passes the same cluster barriers."""
     if batch < 1 or resident < 1:
         raise ValueError(f"radix_grid: batch={batch}, resident={resident}")
     return min(batch, resident)
 
 
-def radix_walk(cluster: int, clusters: int, batch: int) -> range:
-    """The transforms cluster `cluster` of `clusters` runs, as the kernel
-    walks them: a function of the cluster's index only, so every block of
-    a cluster passes the same number of cluster barriers."""
-    return range(cluster, batch, clusters)
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where its data is not 16-byte aligned (a view at
+    an odd offset): the radix kernel reads its rows by bulk copies."""
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 # -- two_stage_fft (K7) and three_stage_fft (K8) -----------------------------
@@ -495,15 +494,16 @@ def _two_stage(x, p, p_radices, q_radices, tables, counter):
     y = torch.empty_like(x)
     if x.shape[0] == 0:
         return y
-    if tuple(p_radices) == tuple(q_radices) == (16, 8) and x.data_ptr() % 16:
-        raise ValueError(f"{what}: 16384 runs the radix kernel, whose bulk copies need a "
-                         "16-byte aligned input")
+    clusters = 0
+    if tuple(p_radices) == tuple(q_radices) == (16, 8):  # 16384: the radix body at R = 1
+        x = _aligned16(x)
+        clusters = radix_grid(x.shape[0], _resident_clusters(x.device, 1))
     lib = _build.load()
     with torch.cuda.device(x.device):
         code = lib.rf_two_stage_fft(
             x.data_ptr(), y.data_ptr(), x.shape[0], p, q,
             *chain_args(p_radices, roots_p, tws_p),
-            *chain_args(q_radices, roots_q, tws_q), outer.data_ptr(),
+            *chain_args(q_radices, roots_q, tws_q), outer.data_ptr(), clusters,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, code, what)

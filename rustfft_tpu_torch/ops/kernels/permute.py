@@ -47,15 +47,20 @@ def check_index(idx: torch.Tensor, m: int, device, what: str) -> None:
 
 
 #: the longest row the kernel reads whole into shared memory: one row fills
-#: a block's 227 KB.  On the H100 one row a block read faster than the
-#: direct gather at every m measured, 1008 to 28672 (0.073 against 0.081 ms
-#: at 1008 x 8192, 0.080 against 0.103 at 28672 x 292:
-#: tools/torch_permute_rows.py); longer rows keep the direct gather
+#: a block's 227 KB.  On the H100 the shared-memory form smem_rows(m) read
+#: faster than the direct gather at every m measured, 256 to 29056 (0.0640
+#: against 0.0682 ms at 256 x 32768, 0.0788 against 0.0879 at 1008 x 8192,
+#: 0.0905 against 0.1118 at 29056 x 288: tools/torch_permute_rows.py, the
+#: forms in turns); longer rows keep the direct gather
 SMEM_ROW_MAX = _build.SMEM_MAX // 8
 
-#: values a block gathers on the shared-memory path: whole rows up to 8
-#: KiB, so that eight blocks of 256 threads share an SM (at m = 1008 one row
-#: a block read as fast as two or four on the H100, same tool)
+#: values a block gathers on the shared-memory path: whole rows, as many as
+#: fill 8 KiB, so that eight blocks of 256 threads share an SM.  Short rows
+#: need several a block to keep enough bytes in flight: on the H100 (same
+#: tool) four rows of 256 read 0.0640 ms against one row's 0.0742 (two
+#: 0.0654, eight 0.0644), three of 262 0.0753 against 0.0868; from m = 1008
+#: up one to four rows read within 3% of each other (1008: 0.0788, 0.0780,
+#: 0.0802), and one row is the rule there
 SMEM_BLOCK_VALUES = 1024
 
 

@@ -290,13 +290,19 @@ def test_cpu_wrappers_count_no_launches():
     assert _counts() == before
 
 
+def _walk(cluster, clusters, batch):
+    """The transforms a cluster runs, as csrc/fused.cu's radix_kernel walks
+    them: t = cluster, cluster + clusters, ... while t < batch."""
+    return range(cluster, batch, clusters)
+
+
 @pytest.mark.parametrize("r", [1, 2, 4, 16])
 @pytest.mark.parametrize("resident", [1, 2, 3, 7, 66, 132])
 def test_radix_persistent_grid_covers_each_transform_once(r, resident):
-    """The radix kernel's persistent grid (radix_grid) and walk
-    (radix_walk), as the kernel runs them: cluster g = block // r; every
-    transform of the batch runs exactly once, and every block of a cluster
-    runs the same transforms, so it passes the same cluster barriers."""
+    """The radix kernel's persistent grid (radix_grid) and the kernel's walk
+    over it: cluster g = block // r; every transform of the batch runs
+    exactly once, and every block of a cluster runs the same transforms, so
+    it passes the same cluster barriers."""
     for batch in [1, 2, resident - 1, resident, resident + 1, 2 * resident + 1,
                   3 * resident + 1, 5 * resident + 3]:
         if batch < 1:
@@ -304,12 +310,12 @@ def test_radix_persistent_grid_covers_each_transform_once(r, resident):
         clusters = fused.radix_grid(batch, resident)
         assert 1 <= clusters <= min(batch, resident)
         assert clusters == min(batch, resident)  # no resident cluster left idle
-        walks = [list(fused.radix_walk(block // r, clusters, batch)) for block in range(clusters * r)]
+        walks = [list(_walk(block // r, clusters, batch)) for block in range(clusters * r)]
         for block in range(clusters * r):
             assert walks[block] == walks[block - block % r]  # the cluster's walk
-        done = sorted(t for g in range(clusters) for t in fused.radix_walk(g, clusters, batch))
+        done = sorted(t for g in range(clusters) for t in _walk(g, clusters, batch))
         assert done == list(range(batch))
-        counts = [len(fused.radix_walk(g, clusters, batch)) for g in range(clusters)]
+        counts = [len(_walk(g, clusters, batch)) for g in range(clusters)]
         assert max(counts) - min(counts) <= 1
 
 
@@ -366,6 +372,34 @@ def test_two_stage_16384_persistent_on_card(cuda_device):
         torch.cuda.synchronize()
         assert fused.two_stage_fft.launches == before + 1
         assert _rel(got.cpu(), fused.two_stage_fft_plain(x, 128, 128, tabs).cpu()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32768, 16384])
+def test_radix_body_odd_offset_on_card(cuda_device, n):
+    """An input whose data starts 8 bytes past a 16-byte boundary (a view at
+    an odd element offset) still runs the radix kernel, whose bulk copies
+    need 16-byte aligned rows: the wrapper copies it first.  radix_fft at r
+    = 2 and two_stage_fft at 16384 (the body at R = 1)."""
+    batch = 5
+    buf = torch.from_numpy(_signal(1, batch * n + 1, n)).to(cuda_device)
+    x = buf[0, 1:].view(batch, n)
+    assert x.data_ptr() % 16 == 8
+    r = n // 16384
+    for d, _ in DIRECTIONS:
+        if r == 1:
+            tabs = _on(fused.two_stage_tables(128, large.stage_radices(128), d), cuda_device)
+            counter, before = fused.two_stage_fft, fused.two_stage_fft.launches
+            got = fused.two_stage_fft(x, 128, 128, tabs)
+            want = fused.two_stage_fft_plain(x, 128, 128, tabs)
+        else:
+            tabs = _on(fused.radix_tables(r, 128, 128, d), cuda_device)
+            counter, before = fused.radix_fft, fused.radix_fft.launches
+            got = fused.radix_fft(x, r, 128, tabs)
+            want = fused.radix_fft_plain(x, r, 128, tabs)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert _rel(got.cpu(), want.cpu()) <= TOL
 
 
 @pytest.mark.cuda

@@ -561,6 +561,23 @@ def test_permute_matches_plain_on_card(cuda_device, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1008, 29000])
+def test_permute_odd_offset_on_card(cuda_device, m):
+    """An input whose data starts 8 bytes past a 16-byte boundary takes the
+    shared-memory gather's 8-byte cp.async form: bit-equal all the same."""
+    batch = 5
+    idx = torch.from_numpy(permute.permutation_index(np.random.default_rng(m).permutation(m))).to(cuda_device)
+    buf = torch.from_numpy(_signal(1, batch * m + 1, seed=m)).to(cuda_device)
+    x = buf[0, 1:].view(batch, m)
+    assert x.data_ptr() % 16 == 8 and permute.smem_rows(m) >= 1
+    before = permute.permute.launches
+    got = permute.permute(x, idx)
+    torch.cuda.synchronize()
+    assert permute.permute.launches == before + 1
+    assert torch.equal(got, permute.permute_plain(x, idx))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,m", [(7919, 16384), (15625, 32768)])
 def test_two_pass_bluestein_matches_plain_on_card(cuda_device, n, m):
     x = _signal(3, n, seed=n)

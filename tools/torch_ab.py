@@ -5,7 +5,7 @@ Run from the repository root, naming each checkout in the order to run it
 (for example a parent unpacked with `git archive` into tmp_chip/parent,
 then this tree twice, then the parent again):
 
-    python3 tools/torch_ab.py tmp_chip/parent . . tmp_chip/parent
+    python3 tools/torch_ab.py [--only GROUP,...] tmp_chip/parent . . tmp_chip/parent
 
 Each checkout runs in its own process (its own import of rustfft_tpu_torch
 and its own kernel build) and times, with CUDA events (median of 7 after 2
@@ -33,9 +33,15 @@ in-place chain), and K5's paths 127 x 262144, 251 x 131072 and 29 x
 mid band: `radix_fft` alone and the planner's path at 32768 x 2048, 65536
 x 1024, 131072 x 512 and 262144 x 256, `two_stage_fft` alone and the path
 at 16384 x 4096 (the radix body at R = 1), each also through torch.fft,
-and K16: `permute` alone at 8192 x 1008 (the 1009 path's gather) beside
-torch.index_select.  It prints one JSON line per run and then a table,
-each row a quantity and each column a run.
+and the kernels alone at small batches, 16384 x 8, 32768 x 4 and 262144
+x 4 (a cluster's single transform, where a launch's latency counts; the
+device's time a call, 50 calls queued behind a sleep kernel so that the
+host's launch overhead is hidden, median of 7), and K16:
+`permute` alone at 8192 x 1008 (the 1009 path's gather) beside
+torch.index_select.  `--only` keeps the named groups of these (K1, K2 for
+K2 and K3, paths for the planner's paths and K1's and K5's torch.fft, K9,
+K16, K12).  It prints one JSON line per run and then a table, each row a
+quantity and each column a run.
 """
 from __future__ import annotations
 
@@ -63,8 +69,13 @@ K5 = ((127, 262144), (251, 131072), (29, 1 << 21))
 #: 16384), 512 MiB each
 K9 = ((1 << 15, 2048), (1 << 16, 1024), (1 << 17, 512), (1 << 18, 256), (16384, 4096))
 
+#: the same kernels at batches of at most one transform a cluster
+K9_SMALL = ((16384, 8), (1 << 15, 4), (1 << 18, 4))
 
-def run_one(root: str) -> dict:
+GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12")
+
+
+def run_one(root: str, groups=GROUPS) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -89,12 +100,27 @@ def run_one(root: str) -> dict:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    def queued_ms(fn, calls=50, reps=7):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(50_000_000)  # cycles: longer than the host takes to queue the calls
+            a.record()
+            for _ in range(calls):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / calls)
+        return statistics.median(times)
+
     def on(arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
     out = {}
     k1_tables = getattr(lanepack, "chain_tables", lanepack.stage_tables)
-    for n, batch in K1:
+    for n, batch in K1 if "K1" in groups else ():
         torch.cuda.empty_cache()
         radices = lanepack.choose_radices(n)
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
@@ -102,19 +128,21 @@ def run_one(root: str) -> dict:
         out[f"K1 lanepack_fft {n}x{batch}"] = ms(lambda: lanepack.lanepack_fft(x, radices, tables),
                                                  reps=15)
         del x
-    n = 1 << 20
-    p, q1, q2 = large.choose_pqq(n)
-    q = q1 * q2
-    r, t, outer = large.col_tables(p, q, FftDirection.FORWARD)
-    col = (on(r), on(t), on([outer])[0])
-    row = tuple(on(v) for v in large.row_tables(q, FftDirection.FORWARD))
-    x = torch.randn((64, n), dtype=torch.complex64, generator=gen, device=dev)
-    a = large.large_col_stage(x, p, q, col)
-    out["K2 large_col_stage 64x2^20"] = ms(lambda: large.large_col_stage(x, p, q, col))
-    out["K3 large_row_stage 64x2^20"] = ms(lambda: large.large_row_stage(a, q, p, row))
-    del x, a
+    if "K2" in groups:
+        n = 1 << 20
+        p, q1, q2 = large.choose_pqq(n)
+        q = q1 * q2
+        r, t, outer = large.col_tables(p, q, FftDirection.FORWARD)
+        col = (on(r), on(t), on([outer])[0])
+        row = tuple(on(v) for v in large.row_tables(q, FftDirection.FORWARD))
+        x = torch.randn((64, n), dtype=torch.complex64, generator=gen, device=dev)
+        a = large.large_col_stage(x, p, q, col)
+        out["K2 large_col_stage 64x2^20"] = ms(lambda: large.large_col_stage(x, p, q, col))
+        out["K3 large_row_stage 64x2^20"] = ms(lambda: large.large_row_stage(a, q, p, row))
+        del x, a
     planner = FftPlanner(np.complex64, device="cuda")
-    for n, batch in PATHS + PAD + K1[1:] + K5:  # K1[0] is PATHS[0]
+    # K1[0] is PATHS[0]
+    for n, batch in PATHS + PAD + K1[1:] + K5 if "paths" in groups else ():
         torch.cuda.empty_cache()
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
         plan = planner.plan_fft_forward(n)
@@ -122,33 +150,36 @@ def run_one(root: str) -> dict:
         if (n, batch) in K1 + K5:
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
         del x
-    for n, batch in K9:
+    for n, batch in K9 + K9_SMALL if "K9" in groups else ():
         torch.cuda.empty_cache()
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
         r = n // (128 * 128)
+        time = (lambda fn: ms(fn, reps=15)) if (n, batch) in K9 else queued_ms
         if r > 1:
             tabs = tuple(on(t) if isinstance(t, list) else on([t])[0]
                          for t in fused.radix_tables(r, 128, 128, FftDirection.FORWARD))
-            out[f"K9 radix_fft {n}x{batch}"] = ms(lambda: fused.radix_fft(x, r, 128, tabs),
-                                                  reps=15)
+            out[f"K9 radix_fft {n}x{batch}"] = time(lambda: fused.radix_fft(x, r, 128, tabs))
         else:
             tabs = tuple(on(t) if isinstance(t, list) else on([t])[0]
                          for t in fused.two_stage_tables(128, large.stage_radices(128),
                                                          FftDirection.FORWARD))
-            out[f"K7 two_stage_fft {n}x{batch}"] = ms(
-                lambda: fused.two_stage_fft(x, 128, 128, tabs), reps=15)
-        plan = planner.plan_fft_forward(n)
-        out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
-        out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+            out[f"K7 two_stage_fft {n}x{batch}"] = time(
+                lambda: fused.two_stage_fft(x, 128, 128, tabs))
+        if (n, batch) in K9:
+            plan = planner.plan_fft_forward(n)
+            out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
         del x
-    m = 1008
-    idx = torch.from_numpy(permute.permutation_index(np.random.default_rng(m).permutation(m))).to(dev)
-    x = torch.randn((8192, m), dtype=torch.complex64, generator=gen, device=dev)
-    out[f"K16 permute 8192x{m}"] = ms(lambda: permute.permute(x, idx), reps=31)
-    out[f"index_select 8192x{m}"] = ms(lambda: torch.index_select(x, 1, idx), reps=31)
-    del x
+    if "K16" in groups:
+        m = 1008
+        idx = torch.from_numpy(permute.permutation_index(
+            np.random.default_rng(m).permutation(m))).to(dev)
+        x = torch.randn((8192, m), dtype=torch.complex64, generator=gen, device=dev)
+        out[f"K16 permute 8192x{m}"] = ms(lambda: permute.permute(x, idx), reps=31)
+        out[f"index_select 8192x{m}"] = ms(lambda: torch.index_select(x, 1, idx), reps=31)
+        del x
     pad_tables = getattr(largepad, "col_tables", None)
-    for n, batch in PAD:
+    for n, batch in PAD if "K12" in groups else ():
         torch.cuda.empty_cache()
         p, q1, q2 = large.choose_pqq(n)
         q = q1 * q2
@@ -169,16 +200,21 @@ def run_one(root: str) -> dict:
 
 
 def main() -> None:
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        print(json.dumps(run_one(sys.argv[2])), flush=True)
+    if len(sys.argv) > 3 and sys.argv[1] == "--one":
+        print(json.dumps(run_one(sys.argv[2], sys.argv[3].split(","))), flush=True)
         return
-    roots = sys.argv[1:]
+    roots, groups = sys.argv[1:], ",".join(GROUPS)
+    if roots[:1] == ["--only"]:
+        groups, roots = roots[1], roots[2:]
+        unknown = set(groups.split(",")) - set(GROUPS)
+        if unknown:
+            raise SystemExit(f"torch_ab: unknown groups {sorted(unknown)}; known {GROUPS}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     runs = []
     for root in roots:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, groups],
                               capture_output=True, text=True)
         if proc.returncode:
             raise SystemExit(f"{root}: exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
