@@ -14,7 +14,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    inverse, relative mean error <= 1e-5: the whole-transform kernels
    (K1 within 1e-6: the pipelined 4096 kernel, and the chain kernel at
    packed small n, four register stages, Bluestein stages of 512 points,
-   direct sums, ragged last blocks; large), the one-pass convolution core at m = 1008 (the Rader
+   direct sums, ragged last blocks; large: K2's and K3's persistent tile
+   kernels within 1e-6 at 2^20 x 1, x 3, x 4 and at a batch that leaves
+   both walks ragged, each grid printed, 32768 x 3, and each stage on a
+   view 8 bytes into its storage, which the wrapper copies), the one-pass convolution core at m = 1008 (the Rader
    1009 shape) and m = 3072 (the Bluestein 1234 shape) with its tables and
    conj off and on, the two-pass core stage by stage at m = 65536 (Rader
    65537: gathers, x0, sums, full output) and m = 16384 (Bluestein 7919),
@@ -511,6 +514,11 @@ def main() -> None:
     print(f"phase 2: kernels against their plain torch versions (t = "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     max_abs = {name: 0.0 for name in KERNELS}
+
+    def note(name, got, want, what, tol=TOL):
+        check(what, rel_err(got, want), tol)
+        max_abs[name] = max(max_abs[name], (got - want).abs().max().item())
+
     # K1's two kernels within 1e-6 of their plain versions: the pipelined
     # 4096 kernel (257 rows: a ragged last wave), and the chain kernel at
     # packed small n with a ragged last block (64, 12), four register stages
@@ -534,7 +542,17 @@ def main() -> None:
                   f"{lanepack.bluestein_ms(radices, lanepack.MAX_STAGES)} width "
                   f"{lanepack.chain_width(n)} batch={batch} {d.name}", rel_err(got, want), K7_TOL)
             max_abs[name] = max(max_abs[name], (got - want).abs().max().item())
-    for n, batch in ((1 << 20, 4), (32768, 3)):
+    # K2's and K3's persistent tile kernels within 1e-6 of their plain
+    # versions at 2^20 x 1, x 3, x 4 and a batch at which both walks are
+    # ragged (K2's last block takes fewer units, K3's blocks unequal tiles),
+    # each grid printed; 32768 x 3 on K2's tile kernel at Q = 128 and the
+    # general row kernel; at 2^20 x 2 each stage on a view one element into
+    # its storage (not 16-byte aligned: the wrapper copies it)
+    col_res, row_res = large.resident_blocks("col"), large.resident_blocks("row")
+    ragged = next(b for b in range(2, 4096)
+                  if (b * 256) % large.col_walk(b * 256, col_res)[1]
+                  and (b * 64) % large.row_grid(b * 64, row_res))
+    for n, batch in ((1 << 20, 1), (1 << 20, 3), (1 << 20, 4), (1 << 20, ragged), (32768, 3)):
         p, q1, q2 = large.choose_pqq(n)
         q = q1 * q2
         x = signal(batch, n)
@@ -546,21 +564,41 @@ def main() -> None:
             a = large.large_col_stage(x, p, q, col)
             torch.cuda.synchronize()
             a_plain = large.large_col_stage_plain(x, p, q, col)
-            check(f"large_col_stage n={n} P={p} {large.stage_radices(p)} batch={batch} {d.name}",
-                  rel_err(a, a_plain))
+            walk = (f"grid {large.col_walk(batch * q // 16, col_res)} (blocks, units a block) of "
+                    f"{col_res} resident" if (large.stage_radices(p), large.col_tile(p, q))
+                    == large.TILE_COL else "general kernel")
+            check(f"large_col_stage n={n} P={p} {large.stage_radices(p)} batch={batch} {walk} "
+                  f"{d.name}", rel_err(a, a_plain), K7_TOL)
             y = large.large_row_stage(a, q, p, row)
             torch.cuda.synchronize()
             y_plain = large.large_row_stage_plain(a, q, p, row)
-            check(f"large_row_stage n={n} Q={q} {large.stage_radices(q)} batch={batch} {d.name}",
-                  rel_err(y, y_plain))
+            walk = (f"grid {large.row_grid(batch * p // 4, row_res)} of {row_res} resident"
+                    if (large.stage_radices(q), large.row_tile(q, p)) == large.TILE_ROW
+                    else "general kernel")
+            check(f"large_row_stage n={n} Q={q} {large.stage_radices(q)} batch={batch} {walk} "
+                  f"{d.name}", rel_err(y, y_plain), K7_TOL)
             max_abs["large_col_stage"] = max(max_abs["large_col_stage"], (a - a_plain).abs().max().item())
             max_abs["large_row_stage"] = max(max_abs["large_row_stage"], (y - y_plain).abs().max().item())
-    del x, a, a_plain, y, y_plain
+    n, d = 1 << 20, directions[0]
+    p, q1, q2 = large.choose_pqq(n)
+    q = q1 * q2
+    col, row = card_tables(large.col_tables(p, q, d)), card_tables(large.row_tables(q, d))
+    x = signal(2, n)
+    base = torch.zeros(2 * n + 1, dtype=torch.complex64, device=dev)
+    base[1:] = x.reshape(-1)
+    a = large.large_col_stage(base[1:].view(2, n), p, q, col)
+    torch.cuda.synchronize()
+    note("large_col_stage", a, large.large_col_stage_plain(x, p, q, col),
+         f"large_col_stage n=2^20 batch=2 on a view at data_ptr % 16 = "
+         f"{base[1:].data_ptr() % 16} {d.name}", K7_TOL)
+    base[1:] = a.reshape(-1)
+    y = large.large_row_stage(base[1:].view(2, q, p), q, p, row)
+    torch.cuda.synchronize()
+    note("large_row_stage", y, large.large_row_stage_plain(a, q, p, row),
+         f"large_row_stage n=2^20 batch=2 on a view at data_ptr % 16 = "
+         f"{base[1:].data_ptr() % 16} {d.name}", K7_TOL)
+    del x, a, a_plain, y, y_plain, base
     free()
-
-    def note(name, got, want, what, tol=TOL):
-        check(what, rel_err(got, want), tol)
-        max_abs[name] = max(max_abs[name], (got - want).abs().max().item())
 
     # K4 at 2^20: the Gauss stages against their plain versions at batch 1
     # and 64; deep_a and blocks2d (the default stages) bit-equal to the default

@@ -33,9 +33,11 @@
 // 128 KiB in place: 16 down to 2 columns, 128- down to 16-byte segments.
 // The row stage's block holds a
 // (Q, pt) tile in shared memory: at Q = 4096 the TPU's 128-lane tile would
-// be 4 MiB; the main path's compile-time kernel takes pt = 4 (32-byte row
-// segments, one sector; 1024 threads, 128 KiB in place), the general kernel
-// pt = 2 or 1.  The chains with compile-time kernels (fixed_chain) also read
+// be 4 MiB; the compile-time kernel takes pt = 4 (32-byte row segments, one
+// sector; 1024 threads, 128 KiB in place), the general kernel pt = 2 or 1.
+// The main path's chains with plain loads and stores (K2, K3, and K10's and
+// K11's Q passes) run csrc/large.cu's persistent tile kernels instead; the
+// compile-time bodies here serve K14's and K15's sources and sinks.  The chains with compile-time kernels (fixed_chain) also read
 // stage 0 from, and the row stage's last stage write to, device memory
 // directly.  Grids are one-dimensional over (batch, tile) and every offset
 // into device memory is size_t: batch 1024 at n = 2^20 is 2^31 floats.

@@ -18,8 +18,10 @@ two kernels (`rf_lanepack_chain_phase_stamps`,
 `rf_lanepack_pipe_phase_stamps`), K9's radix kernel (`rf_radix_phase_stamps`),
 K7's cluster kernel
 (`rf_two_stage_cluster_phase_stamps`) and K12's two kernels
-(`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`;
-tools/torch_phase_times.py); no route loads it, so no other build pays for
+(`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`), K2's and
+K3's (`rf_large_col_phase_stamps`, `rf_large_row_phase_stamps`) and the
+access-pattern probe of K3's tile (`rf_large_copy_probe`;
+tools/torch_phase_times.py, tools/torch_ab.py); no route loads it, so no other build pays for
 those forms.
 """
 from __future__ import annotations
@@ -57,10 +59,9 @@ _SIGNATURES = {
     "rf_lanepack_chain": [_vp, _vp, _ll, _int, _int, _int] + [_int] * 5 + [_vp] * 7
                          + [_int] * 4 + [_vp],
     "rf_lanepack_pipe": [_vp, _vp, _ll] + [_vp] * 6,
-    "rf_large_col_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
-                           _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
-    "rf_large_row_stage": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
-                           _int, _vp, _vp, _vp, _vp, _vp, _vp],
+    "rf_large_col_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 6 + [_ll, _ll, _vp],
+    "rf_large_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp],
+    "rf_large_resident_blocks": [_int, ctypes.POINTER(_int)],
     "rf_conv_fft": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8 + [_int, _vp],
     "rf_large_col_stage_gauss": [_vp, _vp, _ll, _int, _int, _int, _int, _int, _int,
                                  _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
@@ -101,6 +102,9 @@ _STAMP_SIGNATURES = {
     "rf_lanepack_chain_phase_stamps": [_vp, _vp, _ll, _int, _int, _int] + [_int] * 5
                                       + [_vp] * 7 + [_int] * 4 + [_vp, _vp],
     "rf_lanepack_pipe_phase_stamps": [_vp, _vp, _ll] + [_vp] * 7,
+    "rf_large_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 6 + [_ll, _ll, _vp, _vp],
+    "rf_large_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp, _vp],
+    "rf_large_copy_probe": [_vp, _vp, _ll, _int, _int, _vp],
 }
 STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)
 

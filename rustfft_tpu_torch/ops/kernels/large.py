@@ -27,10 +27,17 @@ make_large_fft_fn).
 
 Two reads and two writes of the signal in device memory.  Each wrapper runs
 its plain torch version on a CPU tensor and launches its kernel in
-csrc/large.cu or csrc/large_gauss.cu on a CUDA tensor, or raises.
+csrc/large.cu or csrc/large_gauss.cu on a CUDA tensor, or raises.  The 2^20
+main path's chains (TILE_COL: P = 16 x 16 over 16 columns; TILE_ROW: Q = 16
+x 16 x 16 over 4, also K10's and K11's Q passes) run csrc/large.cu's
+persistent tile kernels: a grid sized here from the blocks the card holds
+(col_walk, row_grid, resident_blocks), each block walking its units with
+the next one's input landing by cp.async while it computes; an input that
+is not 16-byte aligned is copied first.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import List, Optional, Sequence, Tuple
 
@@ -144,6 +151,70 @@ def choose_pqq(n: int) -> Optional[Tuple[int, int, int]]:
     return p, q1, q2
 
 
+#: the column and row chains that run the persistent tile kernels of
+#: csrc/large.cu (K2 at P = 16 x 16, K3 at Q = 16 x 16 x 16)
+TILE_COL = ((16, 16), 16)
+TILE_ROW = FIXED_ROW
+
+
+def row_grid(tiles: int, resident: int) -> int:
+    """Blocks of K3's persistent grid for `tiles` (batch*P/4) tiles when the
+    card holds `resident` blocks at once: every resident block, at most one
+    a tile.  Block g runs the tiles g, g + grid, ... below tiles, so the
+    blocks at work at one time hold neighbouring tiles."""
+    if tiles < 1 or resident < 1:
+        raise ValueError(f"row_grid: tiles={tiles}, resident={resident}")
+    return min(tiles, resident)
+
+
+def col_walk(units: int, resident: int) -> Tuple[int, int]:
+    """(grid, per) of K2's persistent grid for `units` (batch*Q/16) units
+    when the card holds `resident` blocks at once.  Unit v is the tile v //
+    batch of the batch row v % batch (batch fastest); block g runs the
+    contiguous units [g*per, min((g + 1)*per, units)), so that it keeps one
+    tile, and with it one slice of the outer twiddle, over many rows.  per
+    is the fewest units a block that lets `resident` blocks cover them; grid
+    the blocks that then hold any."""
+    if units < 1 or resident < 1:
+        raise ValueError(f"col_walk: units={units}, resident={resident}")
+    per = -(-units // resident)
+    return -(-units // per), per
+
+
+def walk_units(grid: int, per: int, units: int):
+    """The units block g of col_walk's grid runs, for g < grid: the ranges
+    the kernel walks (csrc/large.cu col_tile_kernel)."""
+    return [range(g * per, min((g + 1) * per, units)) for g in range(grid)]
+
+
+def resident_blocks(kind: str) -> int:
+    """The blocks of K2's ("col") or K3's ("row") tile kernel the current
+    device holds at once (its SMs times cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor)."""
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.rf_large_resident_blocks(("col", "row").index(kind), ctypes.byref(out)),
+                 "resident_blocks")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, kind: str) -> int:
+    with torch.cuda.device(device_index):
+        return resident_blocks(kind)
+
+
+def _resident_on(device: torch.device, kind: str) -> int:
+    return _resident(device.index if device.index is not None else torch.cuda.current_device(),
+                     kind)
+
+
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where its data is not 16-byte aligned (a view at
+    an odd offset): the tile kernels read their input by 16-byte copies."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def large_supported(n: int, dtype) -> bool:
     return np.dtype(dtype) == np.complex64 and choose_pqq(n) is not None
 
@@ -221,8 +292,11 @@ def large_col_stage_gauss_plain(x: torch.Tensor, p: int, q: int, tables) -> torc
     return (gauss_stages_plain(xt, stage_radices(p), gtabs, tws) * outer).contiguous()
 
 
-def _col_stage(x: torch.Tensor, p: int, q: int, tables, gauss: bool, counter) -> torch.Tensor:
-    """The column stage in either form; counter.launches counts the launches."""
+def _col_stage(x: torch.Tensor, p: int, q: int, tables, gauss: bool, counter,
+               stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The column stage in either form; counter.launches counts the launches.
+    With `stamps`, the tile kernel's stamped form (the library built with
+    RF_PHASE_STAMPS)."""
     what = counter.__name__
     roots, tws, outer = tables
     if x.dim() != 2:
@@ -242,14 +316,20 @@ def _col_stage(x: torch.Tensor, p: int, q: int, tables, gauss: bool, counter) ->
     y = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
-    lib = _build.load()
+    lib = _build.load(phase_stamps=stamps is not None)
     launch = lib.rf_large_col_stage_gauss if gauss else lib.rf_large_col_stage
+    walk = []
+    if not gauss:
+        walk = [0, 0]
+        if (stage_radices(p), qt) == TILE_COL:
+            x = _aligned16(x)
+            walk = list(col_walk(x.shape[0] * (q // qt), _resident_on(x.device, "col")))
+    args = [x.data_ptr(), y.data_ptr(), x.shape[0], p, q, qt,
+            *padded_stage_args(stage_radices(p), roots, tws), outer.data_ptr(), *walk]
+    if stamps is not None:
+        launch, args = lib.rf_large_col_phase_stamps, args + [stamps.data_ptr()]
     with torch.cuda.device(x.device):
-        code = launch(
-            x.data_ptr(), y.data_ptr(), x.shape[0], p, q, qt,
-            *padded_stage_args(stage_radices(p), roots, tws), outer.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        code = launch(*args, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, what)
     counter.launches += 1
     return y
@@ -293,8 +373,11 @@ def large_row_stage_gauss_plain(a: torch.Tensor, q: int, p: int, tables) -> torc
     return d.transpose(1, 2).reshape(a.shape[0], -1)
 
 
-def _row_stage(a: torch.Tensor, q: int, p: int, tables, gauss: bool, counter) -> torch.Tensor:
-    """The row stage in either form; counter.launches counts the launches."""
+def _row_stage(a: torch.Tensor, q: int, p: int, tables, gauss: bool, counter,
+               stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The row stage in either form; counter.launches counts the launches.
+    With `stamps`, the tile kernel's stamped form (the library built with
+    RF_PHASE_STAMPS)."""
     what = counter.__name__
     roots, tws = tables
     if a.dim() != 3:
@@ -312,14 +395,20 @@ def _row_stage(a: torch.Tensor, q: int, p: int, tables, gauss: bool, counter) ->
     y = torch.empty((a.shape[0], q * p), dtype=a.dtype, device=a.device)
     if a.shape[0] == 0:
         return y
-    lib = _build.load()
+    lib = _build.load(phase_stamps=stamps is not None)
     launch = lib.rf_large_row_stage_gauss if gauss else lib.rf_large_row_stage
+    grid = []
+    if not gauss:
+        grid = [0]
+        if (radices, pt) == TILE_ROW:
+            a = _aligned16(a)
+            grid = [row_grid(a.shape[0] * (p // pt), _resident_on(a.device, "row"))]
+    args = [a.data_ptr(), y.data_ptr(), a.shape[0], q, p, pt,
+            *padded_stage_args(radices, roots, tws), *grid]
+    if stamps is not None:
+        launch, args = lib.rf_large_row_phase_stamps, args + [stamps.data_ptr()]
     with torch.cuda.device(a.device):
-        code = launch(
-            a.data_ptr(), y.data_ptr(), a.shape[0], q, p, pt,
-            *padded_stage_args(radices, roots, tws),
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
+        code = launch(*args, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, code, what)
     counter.launches += 1
     return y
@@ -348,6 +437,76 @@ def large_row_stage_gauss(a: torch.Tensor, q: int, p: int, tables) -> torch.Tens
 
 
 large_row_stage_gauss.launches = 0
+
+
+#: the phases of K2's and K3's stamped forms: the tables and the load with
+#: stage 0, stage 1, and the last step (K3: stage 2 with the store; K2: the
+#: twiddled transposed store)
+COL_PHASES = ("load+s0", "s1", "store")
+ROW_PHASES = ("load+s0", "s1", "s2+store")
+
+
+def _stamped(stage, inp, m: int, other: int, tables, kind: str, counter):
+    """One launch of a tile kernel's stamped form: (y, the rows of the
+    blocks that ran), from a stamps tensor of a row for every block the card
+    holds (the grid's most)."""
+    what = counter.__name__
+    require_cuda(inp, what)
+    if inp.shape[0] == 0:
+        raise ValueError(f"{what}: an empty batch has no phases")
+    stamps = torch.zeros((_resident_on(inp.device, kind), len(COL_PHASES) + 1),
+                         dtype=torch.int64, device=inp.device)
+    y = stage(inp, m, other, tables, False, counter, stamps)
+    return y, stamps[stamps[:, 0] != 0]
+
+
+def large_col_phase_stamps(x: torch.Tensor, p: int, q: int, tables):
+    """large_col_stage on the card through the tile kernel's stamped form
+    (P = 16 x 16; only the library built with RF_PHASE_STAMPS has it, and
+    no route launches it): (y, stamps), stamps (blocks, 4) int64
+    nanoseconds of %globaltimer, each block's start and that start plus
+    the running sums of its COL_PHASES over its units, each read by the
+    block's thread 0 after a block barrier."""
+    if (stage_radices(p), col_tile(p, q)) != TILE_COL:
+        raise ValueError(f"large_col_phase_stamps: P={p}, Q={q} has no stamped form")
+    return _stamped(_col_stage, x, p, q, tables, "col", large_col_phase_stamps)
+
+
+large_col_phase_stamps.launches = 0
+
+
+def large_row_phase_stamps(a: torch.Tensor, q: int, p: int, tables):
+    """large_row_stage on the card through the tile kernel's stamped form
+    (Q = 16 x 16 x 16), as large_col_phase_stamps: (y, stamps), stamps
+    (blocks, 4) with ROW_PHASES over each block's tiles."""
+    if (stage_radices(q), row_tile(q, p)) != TILE_ROW:
+        raise ValueError(f"large_row_phase_stamps: Q={q}, P={p} has no stamped form")
+    return _stamped(_row_stage, a, q, p, tables, "row", large_row_phase_stamps)
+
+
+large_row_phase_stamps.launches = 0
+
+
+def copy_probe(x: torch.Tensor, p: int, strided: bool) -> torch.Tensor:
+    """The access-pattern probe of K3's tile (the RF_PHASE_STAMPS library
+    only; for timing): a copy of x (batch, 4096*P) complex64 by the grid
+    and threads of large.cuh's compile-time row body (one 1024-thread block
+    a (4096, 4) tile), 16 values a thread loaded, then stored.  strided:
+    each block moves the 32-byte segments of its window from rows P*8 bytes
+    apart, as that body's stage 0 loads and its stage 2 stores; else 128 KiB
+    of consecutive values."""
+    what = "copy_probe"
+    check_operand(x, (x.shape[0], 4096 * p), what)
+    require_cuda(x, what)
+    if p % 4:
+        raise ValueError(f"{what}: P={p} is not a multiple of 4")
+    y = torch.empty_like(x)
+    lib = _build.load(phase_stamps=True)
+    with torch.cuda.device(x.device):
+        code = lib.rf_large_copy_probe(x.data_ptr(), y.data_ptr(), x.shape[0], p, int(strided),
+                                       torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, what)
+    return y
 
 
 #: make_large_fft_fn's contraction orders of the TPU row stage

@@ -11,7 +11,14 @@ Each checkout runs in its own process (its own import of rustfft_tpu_torch
 and its own kernel build) and times, with CUDA events (median of 7 after 2
 warm-ups; of 15 for the paths other than 2^20): K1 (`lanepack_fft` on
 the checkout's own chain and tables, at K1 below), K2 and K3 (`large_col_stage`, `large_row_stage`,
-64 x 2^20), and the paths 4096 x 16384, 2^20 x 1024,
+64 x 2^20, median of 15; K3 also at K10's and K11's Q passes, 8 x 4096 x
+2048 and 2 x 4096 x 16384) with
+the paths through them (LARGE_PATHS: 2^20 x 1024, 2^23 x 8, 2^26 x 2,
+65537 x 512, and 2^20 x 1 and x 4 as the device's time a call, queued as
+below) and, where the checkout has it, the access-pattern probe of K3's
+tile (`large.copy_probe`: a copy of the 64 x 2^20 input by K3's grid in
+32-byte segments of rows 2 KiB apart, against a copy of the same bytes in
+consecutive 128 KiB, and `clone`), and the paths 4096 x 16384, 2^20 x 1024,
 1009 x 8192, 1234 x 8192, 7919 x 4096 and 65537 x 512, and the one-block
 two-stage paths 14464 x 4096 (p = 113) and 16256 x 4096 (p = 127), and
 the cluster paths 28928 x 4096 (226 = 113 x 2) and 260608 x 256 (509 x 512),
@@ -71,6 +78,12 @@ K9 = ((1 << 15, 2048), (1 << 16, 1024), (1 << 17, 512), (1 << 18, 256), (16384, 
 
 #: the same kernels at batches of at most one transform a cluster
 K9_SMALL = ((16384, 8), (1 << 15, 4), (1 << 18, 4))
+
+#: the paths through K2 and K3 (the 2^20 main path at the flagship batch
+#: cut to the card and at batches of one and four transforms) and through
+#: K3's body (the top band's Q pass, K14's two-pass core at m = 65536)
+LARGE_PATHS = ((1 << 20, 1024), (1 << 23, 8), (1 << 26, 2), (65537, 512), (1 << 20, 1),
+               (1 << 20, 4))
 
 GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12")
 
@@ -137,9 +150,38 @@ def run_one(root: str, groups=GROUPS) -> dict:
         row = tuple(on(v) for v in large.row_tables(q, FftDirection.FORWARD))
         x = torch.randn((64, n), dtype=torch.complex64, generator=gen, device=dev)
         a = large.large_col_stage(x, p, q, col)
-        out["K2 large_col_stage 64x2^20"] = ms(lambda: large.large_col_stage(x, p, q, col))
-        out["K3 large_row_stage 64x2^20"] = ms(lambda: large.large_row_stage(a, q, p, row))
+        out["K2 large_col_stage 64x2^20"] = ms(lambda: large.large_col_stage(x, p, q, col),
+                                               reps=15)
+        out["K3 large_row_stage 64x2^20"] = ms(lambda: large.large_row_stage(a, q, p, row),
+                                               reps=15)
+        if hasattr(large, "copy_probe"):
+            y = large.copy_probe(x, p, True)
+            if not torch.equal(y, x) or not torch.equal(large.copy_probe(x, p, False), x):
+                raise SystemExit("copy_probe: the copy differs from its input")
+            for strided in (True, False):
+                out[f"probe {'K3 pattern' if strided else 'streaming'} 64x2^20"] = ms(
+                    lambda: large.copy_probe(x, p, strided), reps=15)
+            out["clone 64x2^20"] = ms(lambda: x.clone(), reps=15)
+            del y
         del x, a
+        # K3 at P = 2048 and 16384 (K10's Q pass at 2^23 x 8, K11's at 2^26 x 2)
+        row = tuple(on(v) for v in large.row_tables(q, FftDirection.FORWARD))
+        for batch, p in ((8, 2048), (2, 16384)):
+            a = torch.randn((batch, q, p), dtype=torch.complex64, generator=gen, device=dev)
+            out[f"K3 large_row_stage {batch}x4096x{p}"] = ms(
+                lambda: large.large_row_stage(a, q, p, row), reps=15)
+            del a
+        planner = FftPlanner(np.complex64, device="cuda")
+        for n, batch in LARGE_PATHS:
+            torch.cuda.empty_cache()
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            plan = planner.plan_fft_forward(n)
+            if n * batch <= 1 << 22:
+                out[f"path {n}x{batch} (queued)"] = queued_ms(lambda: plan.process(x))
+            else:
+                out[f"path {n}x{batch}"] = ms(lambda: plan.process(x),
+                                              reps=7 if n * batch >= 1 << 30 else 15)
+            del x
     planner = FftPlanner(np.complex64, device="cuda")
     # K1[0] is PATHS[0]
     for n, batch in PATHS + PAD + K1[1:] + K5 if "paths" in groups else ():

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Split the time of K1's, K7's cluster kernel's, K9's and K12's kernels into phases on one GPU.
+"""Split the time of K1's, K2's, K3's, K7's cluster kernel's, K9's and K12's kernels into phases on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -16,17 +16,21 @@ prime P = 373 as a 1024-point Bluestein stage) on K12's two kernels; a
 shape goes to K12 where `route` sends it to large_pad, to K1 where it
 sends it to lanepack, to K5's chain form where it sends it to dense (a
 prime from 29), and 32768:2048 and 262144:256 to K9's radix kernel (r = 2
-and 16; any n the route sends to radix goes there).  For each shape it
+and 16; any n the route sends to radix goes there), and 1048576:64 to
+K2's and K3's persistent tile kernels (any n the route sends to large
+whose split is (256, 64, 64)).  For each shape it
 runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
 fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps,
-largepad.largepad_col_phase_stamps and largepad_row_phase_stamps, which no
+largepad.largepad_col_phase_stamps and largepad_row_phase_stamps,
+large.large_col_phase_stamps and large_row_phase_stamps, which no
 route launches: thread 0 of every block reads %globaltimer after a block
 barrier at the kernel's start and at the end of each phase: the load,
 DFT_p, the exchange, DFT_q and the store of the cluster kernel; the load,
 the chain and the store of K12's and of K1's chain kernel; the time K1's
 pipelined kernel spends waiting for its loads, in stages 0-1 and in stage
 2 with the store, summed over a block's transforms; K9's fused.RADIX_PHASES,
-summed over the transforms a block runs), checks its output bit for bit against
+summed over the transforms a block runs; K2's large.COL_PHASES and K3's
+large.ROW_PHASES, summed over the tiles a block runs), checks its output bit for bit against
 the kernel's, and prints:
 
   - per phase, the mean and median over blocks of its time in a block, in
@@ -49,7 +53,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SHAPES = ((4096, 16384), (8192, 8192), (2008, 32768), (251, 131072), (32768, 2048),
-          (262144, 256), (49152, 2048), (260608, 256), (531441, 64), (234617, 256))
+          (262144, 256), (49152, 2048), (260608, 256), (531441, 64), (234617, 256),
+          (1 << 20, 64))
 
 
 def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -185,6 +190,42 @@ def radix_phases(n: int, batch: int, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def large_phases(n: int, batch: int, gen) -> None:
+    """K2's and K3's tile kernels (the column stage at P = 16 x 16, the row
+    stage at Q = 16 x 16 x 16) at n x batch through their stamped forms."""
+    import torch
+
+    from rustfft_tpu_torch.common import FftDirection
+    from rustfft_tpu_torch.ops.kernels import large
+
+    dev = torch.device("cuda")
+    p, q1, q2 = large.choose_pqq(n)
+    q = q1 * q2
+    r, t, outer = large.col_tables(p, q, FftDirection.FORWARD)
+    col = ([torch.from_numpy(v).to(dev) for v in r], [torch.from_numpy(v).to(dev) for v in t],
+           torch.from_numpy(outer).to(dev))
+    row = tuple([torch.from_numpy(v).to(dev) for v in tabs]
+                for tabs in large.row_tables(q, FftDirection.FORWARD))
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+    a = large.large_col_stage(x, p, q, col)
+    for stage, stamped_fn, fn, inp, m, other, tabs, phases in (
+            ("col", large.large_col_phase_stamps, large.large_col_stage, x, p, q, col,
+             large.COL_PHASES),
+            ("row", large.large_row_phase_stamps, large.large_row_stage, a, q, p, row,
+             large.ROW_PHASES)):
+        stamped_fn(inp, m, other, tabs)  # warm-up (and the stamped library's build)
+        y, stamps = stamped_fn(inp, m, other, tabs)
+        torch.cuda.synchronize()
+        if not torch.equal(y, fn(inp, m, other, tabs)):
+            raise SystemExit(f"n={n} {stage}: the stamped kernel differs from the kernel")
+        report(f"n={n} ({p} x {q}) batch={batch} large_{stage}_stage over "
+               f"{large.stage_radices(m)}", stamps, phases,
+               median_ms(lambda: stamped_fn(inp, m, other, tabs)),
+               median_ms(lambda: fn(inp, m, other, tabs)))
+    del x, a
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -209,6 +250,9 @@ def main() -> None:
             continue
         if route(n, np.complex64) == "radix":
             radix_phases(n, batch, gen)
+            continue
+        if route(n, np.complex64) == "large":
+            large_phases(n, batch, gen)
             continue
         p, q = fused.choose_pq(n)
         c = fused.choose_cluster(n)
