@@ -214,3 +214,98 @@ extern "C" int rf_conv_row_stage(const void* a, void* y, long long batch, int q,
   if (gauss) return launch_row_gauss(in, dst, batch, q, p, pt, st, s);
   return launch_row_stage(in, dst, batch, q, p, pt, st, scatter == nullptr, s);
 }
+
+#ifdef RF_PHASE_STAMPS
+#include "tile_walk.cuh"
+
+namespace rf {
+
+// large.cuh's col_fixed_kernel<16, 16, 16, 1> with ConvIn (the column stage
+// at P = 16 x 16, K15's kernel A), stamped: the load with stage 0, stage 1
+// and the partial sums, the twiddled transposed store.
+__global__ void __launch_bounds__(kFixedThreads<16, 16, 16, 1>)
+    conv_col_stamp_kernel(ConvIn src, float2* __restrict__ y, int q, Stages st, FullOuter outer,
+                          unsigned long long* stamps) {
+  constexpr int T = 16, P = 256, NT = kFixedThreads<16, 16, 16, 1>;
+  PhaseClock<true, 3> clock;
+  clock.begin();
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  float2* sroots = smem + P * T;
+  load_roots(st, sroots);
+  __syncthreads();
+  const int tiles = q / T;
+  const size_t batch_idx = blockIdx.x / tiles;
+  const int tile = (int)(blockIdx.x % tiles);
+  const int q0 = tile * T;
+  float2 acc = make_float2(0.f, 0.f);
+  const SmemTile stile{buf};
+  fixed_stage<16, 1, 16, T, NT>(TileIn<T, ConvIn>{src, batch_idx, q, q0, acc}, stile, sroots,
+                                st.tw[0]);
+  clock.lap(0);
+  fixed_stage<16, 16, 1, T, NT>(stile, stile, sroots + 16, nullptr);
+  src.finish(batch_idx, tile, tiles, acc);
+  clock.lap(1);
+  store_transposed(buf, y + batch_idx * (size_t)P * (size_t)q, P, q0, T, outer);
+  clock.lap(2);
+  clock.write(stamps);
+}
+
+// The access-pattern probe of the Rader core's gather and scatter: one
+// thread an element of (batch, m) complex64.  mode 0: y[b, i] = x[b, i]
+// (streaming); 1: y[b, i] = x[b, idx[i]] (8-byte reads at the permutation);
+// 2: y[b, idx[i]] = x[b, i] (8-byte writes at it).
+__global__ void __launch_bounds__(256)
+    gather_probe_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                        const int* __restrict__ idx, int m, int mode) {
+  const size_t f = (size_t)blockIdx.x * 256 + threadIdx.x;
+  const size_t row = f / m * (size_t)m;
+  const int i = (int)(f - row);
+  if (mode == 0) y[f] = x[f];
+  else if (mode == 1) y[f] = x[row + __ldg(&idx[i])];
+  else y[row + __ldg(&idx[i])] = x[f];
+}
+
+}  // namespace rf
+
+// conv_col_stage's kernel A form (P = 16 x 16 over 16 columns, a chirp pre
+// table, no gather, no sums) through conv_col_stamp_kernel: stamps (blocks,
+// 4).  Only the library built with RF_PHASE_STAMPS has it.
+extern "C" int rf_conv_col_phase_stamps(const void* x, void* y, long long batch, int n_in,
+                                        long long ld, int p, int q, int k, int r0, int r1,
+                                        const void* roots0, const void* roots1, const void* tw0,
+                                        const void* tw_outer, const void* pre, void* stamps,
+                                        void* stream) {
+  using namespace rf;
+  if (batch <= 0 || p != 256 || q % 16 != 0 || k != 2 || r0 != 16 || r1 != 16 || n_in <= 0 ||
+      ld < n_in || (long long)n_in > (long long)p * q || stamps == nullptr ||
+      batch * (q / 16) > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const Stages st = make_stages(k, r0, r1, 1, roots0, roots1, nullptr, tw0, nullptr);
+  const ConvIn src{static_cast<const float2*>(x), static_cast<const float2*>(pre), nullptr,
+                   nullptr, n_in, (size_t)ld};
+  const size_t smem = (size_t)(256 * 16 + 32) * sizeof(float2);
+  cudaError_t err = allow_smem(conv_col_stamp_kernel, smem);
+  if (err != cudaSuccess) return err;
+  conv_col_stamp_kernel<<<(unsigned)(batch * (q / 16)), kFixedThreads<16, 16, 16, 1>, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      src, static_cast<float2*>(y), q, st, FullOuter{static_cast<const float2*>(tw_outer), p},
+      static_cast<unsigned long long*>(stamps));
+  return cudaGetLastError();
+}
+
+// The gather probe (gather_probe_kernel): x, y (batch, m) complex64, idx
+// (m,) int32 a permutation of [0, m), batch*m a multiple of 256.
+extern "C" int rf_gather_probe(const void* x, void* y, const void* idx, long long batch, int m,
+                               int mode, void* stream) {
+  using namespace rf;
+  const long long total = batch * (long long)m;
+  if (batch <= 0 || m <= 0 || total % 256 != 0 || total / 256 > 0x7fffffffLL || mode < 0 ||
+      mode > 2)
+    return cudaErrorInvalidValue;
+  gather_probe_kernel<<<(unsigned)(total / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<float2*>(y), static_cast<const int*>(idx), m,
+      mode);
+  return cudaGetLastError();
+}
+#endif

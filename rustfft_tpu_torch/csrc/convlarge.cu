@@ -31,6 +31,7 @@
 // chain runs both FFTs in place in one buffer instead, two columns per
 // tile.  A2 stores 16 consecutive l1 per l2 (128-byte segments).
 #include "large.cuh"
+#include "tile_walk.cuh"
 
 namespace rf {
 
@@ -78,11 +79,14 @@ __global__ void __launch_bounds__(512) bconv_row_kernel(const float2* __restrict
 // chain 2 runs in the tile, and the store multiplies by the outer twiddle.
 // At <2, 32, 16, 16> (512 threads, 128 registers) ptxas reports 316 bytes
 // of spill stores (tools/torch_ptxas.py on the H100's toolkit).
-template <int T, int R0, int R1, int R2>
+template <int T, int R0, int R1, int R2, bool kStamp = false>
 __global__ void __launch_bounds__(kFixedThreads<T, R0, R1, R2>)
     bconv_fixed_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, Stages st,
-                       const float2* __restrict__ h, const float2* __restrict__ outer) {
+                       const float2* __restrict__ h, const float2* __restrict__ outer,
+                       unsigned long long* stamps) {
   constexpr int Q = R0 * R1 * R2;
+  PhaseClock<kStamp, 4> clock;
+  clock.begin();
   extern __shared__ float2 smem[];
   float2* buf = smem;
   float2* sroots = smem + Q * T;
@@ -94,37 +98,46 @@ __global__ void __launch_bounds__(kFixedThreads<T, R0, R1, R2>)
   const size_t base = batch_idx * (size_t)Q * (size_t)p + p0;
   fixed_chain<T, R0, R1, R2>(GlobalIn<T>{x + base, (size_t)p}, SmemTile{buf}, buf, sroots, st);
   __syncthreads();
+  clock.lap(0);
   for (int f = threadIdx.x; f < Q * T; f += blockDim.x) {  // [k2, t]
     const float2 v = cmul(buf[swz(f)], __ldg(&h[(size_t)(f / T) * p + p0 + f % T]));
     buf[swz(f)] = make_float2(v.x, -v.y);
   }
   __syncthreads();
+  clock.lap(1);
   fixed_chain<T, R0, R1, R2>(SmemTile{buf}, SmemTile{buf}, buf, sroots, st);
   __syncthreads();
+  clock.lap(2);
   for (int f = threadIdx.x; f < Q * T; f += blockDim.x) {  // [l1, t]
     const size_t i = (size_t)(f / T) * p + f % T;
     y[base + i] = cmul(buf[swz(f)], __ldg(&outer[p0 + i]));
   }
+  clock.lap(3);
+  clock.write(stamps);
 }
 
-template <int T, int R0, int R1, int R2>
+template <int T, int R0, int R1, int R2, bool kStamp = false>
 static cudaError_t launch_bconv_fixed(const float2* x, float2* y, long long blocks, int p,
                                       const Stages& st, const float2* h, const float2* outer,
-                                      cudaStream_t s) {
+                                      unsigned long long* stamps, cudaStream_t s) {
   const size_t smem = (size_t)(R0 * R1 * R2 * T + R0 + R1 + R2) * sizeof(float2);
-  cudaError_t err = allow_smem(bconv_fixed_kernel<T, R0, R1, R2>, smem);
+  cudaError_t err = allow_smem(bconv_fixed_kernel<T, R0, R1, R2, kStamp>, smem);
   if (err != cudaSuccess) return err;
-  bconv_fixed_kernel<T, R0, R1, R2>
-      <<<(unsigned)blocks, kFixedThreads<T, R0, R1, R2>, smem, s>>>(x, y, p, st, h, outer);
+  bconv_fixed_kernel<T, R0, R1, R2, kStamp><<<(unsigned)blocks, kFixedThreads<T, R0, R1, R2>,
+                                              smem, s>>>(x, y, p, st, h, outer, stamps);
   return cudaGetLastError();
 }
 
 // A2 over (batch, Q/qt) blocks: x (batch, Q, P) [l1, k1]; y (batch, n);
 // chirp (n,).
+template <bool kStamp = false>
 __global__ void __launch_bounds__(256) bconv_out_kernel(const float2* __restrict__ x,
                                                         float2* __restrict__ y, int p, int q,
                                                         int qt, int n, Stages st,
-                                                        const float2* __restrict__ chirp) {
+                                                        const float2* __restrict__ chirp,
+                                                        unsigned long long* stamps) {
+  PhaseClock<kStamp, 3> clock;
+  clock.begin();
   extern __shared__ float2 smem[];
   const int elems = p * qt;
   float2* a = smem;
@@ -140,7 +153,9 @@ __global__ void __launch_bounds__(256) bconv_out_kernel(const float2* __restrict
     a[swz(k1 * qt + t)] = xb[(size_t)t * p + k1];
   }
   __syncthreads();
+  clock.lap(0);
   const float2* res = fft_tile(a, b, p, qt, st, sroots);  // [l2, t]
+  clock.lap(1);
   float2* yb = y + batch_idx * (size_t)n;
   for (int f = threadIdx.x; f < elems; f += blockDim.x) {
     const int l2 = f / qt, t = f - l2 * qt;
@@ -150,19 +165,17 @@ __global__ void __launch_bounds__(256) bconv_out_kernel(const float2* __restrict
     const float2 c = __ldg(&chirp[l]);
     yb[l] = make_float2(d.x * c.x + d.y * c.y, d.x * c.y - d.y * c.x);  // chirp . conj(d)
   }
+  clock.lap(2);
+  clock.write(stamps);
 }
 
-}  // namespace rf
-
-// x, y: (batch, Q, P) complex64 (not the same buffer), Q = product of the
-// radices of `st`, pt divides P; h, outer: (Q, P).  Returns a cudaError_t
-// code; launches on `stream`.
-extern "C" int rf_bconv_row_stage(const void* x, void* y, long long batch, int q, int p, int pt,
-                                  int k, int r0, int r1, int r2, const void* roots0,
-                                  const void* roots1, const void* roots2, const void* tw0,
-                                  const void* tw1, const void* h, const void* outer,
-                                  void* stream) {
-  using namespace rf;
+// rf_bconv_row_stage's checks and launch; the stamped form (the
+// compile-time chain only) where kStamp.
+template <bool kStamp>
+static int bconv_row_stage(const void* x, void* y, long long batch, int q, int p, int pt, int k,
+                           int r0, int r1, int r2, const void* roots0, const void* roots1,
+                           const void* roots2, const void* tw0, const void* tw1, const void* h,
+                           const void* outer, unsigned long long* stamps, void* stream) {
   if (batch <= 0 || p <= 0 || pt <= 0 || p % pt != 0 || h == nullptr || outer == nullptr)
     return cudaErrorInvalidValue;
   const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
@@ -177,12 +190,49 @@ extern "C" int rf_bconv_row_stage(const void* x, void* y, long long batch, int q
   // the compile-time chain of the 1000003 path, Q = 8192 (m = 2^21;
   // ops/kernels/convlarge.py FIXED_BCONV)
   if (k == 3 && r0 == 32 && r1 == 16 && r2 == 16 && pt == 2)
-    return launch_bconv_fixed<2, 32, 16, 16>(xp, yp, blocks, p, st, hp, op, s);
+    return launch_bconv_fixed<2, 32, 16, 16, kStamp>(xp, yp, blocks, p, st, hp, op, stamps, s);
+  if (kStamp) return cudaErrorInvalidValue;
   const size_t smem = tile_smem_bytes(q * pt, st);
   cudaError_t err = allow_smem(bconv_row_kernel, smem);
   if (err != cudaSuccess) return err;
   bconv_row_kernel<<<(unsigned)blocks, 512, smem, s>>>(xp, yp, q, p, pt, st, hp, op);
   return cudaGetLastError();
+}
+
+// rf_bconv_out_stage's checks and launch; the stamped form where kStamp.
+template <bool kStamp>
+static int bconv_out_stage(const void* x, void* y, long long batch, int p, int q, int qt, int n,
+                           int k, int r0, int r1, int r2, const void* roots0, const void* roots1,
+                           const void* roots2, const void* tw0, const void* tw1,
+                           const void* chirp, unsigned long long* stamps, void* stream) {
+  if (batch <= 0 || q <= 0 || qt <= 0 || q % qt != 0 || n <= 0 ||
+      (long long)n > (long long)p * q || chirp == nullptr)
+    return cudaErrorInvalidValue;
+  const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
+  if (!stages_ok(st, p)) return cudaErrorInvalidValue;
+  const long long blocks = batch * (q / qt);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(p * qt, st);
+  cudaError_t err = allow_smem(bconv_out_kernel<kStamp>, smem);
+  if (err != cudaSuccess) return err;
+  bconv_out_kernel<kStamp><<<(unsigned)blocks, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<float2*>(y), p, q, qt, n, st,
+      static_cast<const float2*>(chirp), stamps);
+  return cudaGetLastError();
+}
+
+}  // namespace rf
+
+// x, y: (batch, Q, P) complex64 (not the same buffer), Q = product of the
+// radices of `st`, pt divides P; h, outer: (Q, P).  Returns a cudaError_t
+// code; launches on `stream`.
+extern "C" int rf_bconv_row_stage(const void* x, void* y, long long batch, int q, int p, int pt,
+                                  int k, int r0, int r1, int r2, const void* roots0,
+                                  const void* roots1, const void* roots2, const void* tw0,
+                                  const void* tw1, const void* h, const void* outer,
+                                  void* stream) {
+  return rf::bconv_row_stage<false>(x, y, batch, q, p, pt, k, r0, r1, r2, roots0, roots1, roots2,
+                                    tw0, tw1, h, outer, nullptr, stream);
 }
 
 // x: (batch, Q, P) complex64, P = product of the radices of `st`, qt
@@ -192,19 +242,97 @@ extern "C" int rf_bconv_out_stage(const void* x, void* y, long long batch, int p
                                   int n, int k, int r0, int r1, int r2, const void* roots0,
                                   const void* roots1, const void* roots2, const void* tw0,
                                   const void* tw1, const void* chirp, void* stream) {
+  return rf::bconv_out_stage<false>(x, y, batch, p, q, qt, n, k, r0, r1, r2, roots0, roots1,
+                                    roots2, tw0, tw1, chirp, nullptr, stream);
+}
+
+#ifdef RF_PHASE_STAMPS
+// rf_bconv_row_stage and rf_bconv_out_stage through their stamped forms:
+// stamps (blocks, phases + 1) uint64 %globaltimer nanoseconds, a block's
+// start and that start plus the running sums of its phases.  Only the
+// library built with RF_PHASE_STAMPS has them (ops/kernels/_build.py
+// load(phase_stamps=True); tools/torch_phase_times.py).
+extern "C" int rf_bconv_row_phase_stamps(const void* x, void* y, long long batch, int q, int p,
+                                         int pt, int k, int r0, int r1, int r2,
+                                         const void* roots0, const void* roots1,
+                                         const void* roots2, const void* tw0, const void* tw1,
+                                         const void* h, const void* outer, void* stamps,
+                                         void* stream) {
+  if (stamps == nullptr) return cudaErrorInvalidValue;
+  return rf::bconv_row_stage<true>(x, y, batch, q, p, pt, k, r0, r1, r2, roots0, roots1, roots2,
+                                   tw0, tw1, h, outer, static_cast<unsigned long long*>(stamps),
+                                   stream);
+}
+
+extern "C" int rf_bconv_out_phase_stamps(const void* x, void* y, long long batch, int p, int q,
+                                         int qt, int n, int k, int r0, int r1, int r2,
+                                         const void* roots0, const void* roots1,
+                                         const void* roots2, const void* tw0, const void* tw1,
+                                         const void* chirp, void* stamps, void* stream) {
+  if (stamps == nullptr) return cudaErrorInvalidValue;
+  return rf::bconv_out_stage<true>(x, y, batch, p, q, qt, n, k, r0, r1, r2, roots0, roots1,
+                                   roots2, tw0, tw1, chirp,
+                                   static_cast<unsigned long long*>(stamps), stream);
+}
+
+namespace rf {
+
+// The access-pattern probe of B_conv's tile: a copy of (batch, Q, P)
+// complex64, one 512-thread block a unit, each unit 16 bytes (two columns)
+// from each of the Q rows P*8 bytes apart, as B_conv's tile reads them.
+// order 0: unit u is tile u % (P/2) of row u / (P/2) (batch-major, the
+// grid of the compile-time body); 1: the tiles 2s and 2s + 1 of one row on
+// neighbouring blocks, rows fastest within a pair of tiles (the sector
+// pairs of a 32-byte sector on neighbouring blocks); 2: 2*Q consecutive
+// values a unit (streaming).
+__global__ void __launch_bounds__(512)
+    bconv_probe_kernel(const float4* __restrict__ x, float4* __restrict__ y, int q, int p,
+                       unsigned batch, int order) {
+  const unsigned u = blockIdx.x;
+  const unsigned tiles = (unsigned)p / 2;
+  size_t base;
+  size_t ld;
+  if (order == 2) {
+    base = (size_t)u * q;
+    ld = 1;
+  } else {
+    unsigned b, tile;
+    if (order == 0) {
+      b = u / tiles;
+      tile = u % tiles;
+    } else {
+      const unsigned pair = u / (2 * batch);
+      b = (u >> 1) % batch;
+      tile = 2 * pair + (u & 1);
+    }
+    base = (size_t)b * q * tiles + tile;
+    ld = tiles;
+  }
+  float4 v[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int row = threadIdx.x + 512 * j;
+    if (row < q) v[j] = x[base + (size_t)row * ld];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int row = threadIdx.x + 512 * j;
+    if (row < q) y[base + (size_t)row * ld] = v[j];
+  }
+}
+
+}  // namespace rf
+
+// The access-pattern probe (bconv_probe_kernel): x, y (batch, Q, P)
+// complex64, P even, Q <= 8192, 16-byte aligned.
+extern "C" int rf_bconv_copy_probe(const void* x, void* y, long long batch, int q, int p,
+                                   int order, void* stream) {
   using namespace rf;
-  if (batch <= 0 || q <= 0 || qt <= 0 || q % qt != 0 || n <= 0 ||
-      (long long)n > (long long)p * q || chirp == nullptr)
+  if (batch <= 0 || p <= 0 || p % 4 != 0 || q <= 0 || q > 8192 || order < 0 || order > 2 ||
+      batch * (p / 2) > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
-  if (!stages_ok(st, p)) return cudaErrorInvalidValue;
-  const long long blocks = batch * (q / qt);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes(p * qt, st);
-  cudaError_t err = allow_smem(bconv_out_kernel, smem);
-  if (err != cudaSuccess) return err;
-  bconv_out_kernel<<<(unsigned)blocks, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), p, q, qt, n, st,
-      static_cast<const float2*>(chirp));
+  bconv_probe_kernel<<<(unsigned)(batch * (p / 2)), 512, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<float4*>(y), q, p, (unsigned)batch, order);
   return cudaGetLastError();
 }
+#endif

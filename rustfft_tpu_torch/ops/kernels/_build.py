@@ -105,6 +105,11 @@ _STAMP_SIGNATURES = {
     "rf_large_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 6 + [_ll, _ll, _vp, _vp],
     "rf_large_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp, _vp],
     "rf_large_copy_probe": [_vp, _vp, _ll, _int, _int, _vp],
+    "rf_bconv_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8 + [_vp],
+    "rf_bconv_out_phase_stamps": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7 + [_vp],
+    "rf_bconv_copy_probe": [_vp, _vp, _ll, _int, _int, _int, _vp],
+    "rf_conv_col_phase_stamps": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 7,
+    "rf_gather_probe": [_vp, _vp, _vp, _ll, _int, _int, _vp],
 }
 STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)
 

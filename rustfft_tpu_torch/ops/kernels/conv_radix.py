@@ -297,6 +297,30 @@ def conv_row_stage_gauss(a: torch.Tensor, q: int, p: int, tables, n_out: int, **
 conv_row_stage_gauss.launches = 0
 
 
+#: gather_probe's modes
+GATHER_MODES = ("streaming", "gather", "scatter")
+
+
+def gather_probe(x: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
+    """The access-pattern probe of the Rader core's permutations (the
+    RF_PHASE_STAMPS library only; for timing): x (batch, m) complex64 into
+    y, one thread an element: "streaming" y = x, "gather" y[:, i] =
+    x[:, idx[i]] (8-byte reads at the permutation), "scatter" y[:, idx[i]]
+    = x[:, i] (8-byte writes); idx (m,) int32 a permutation."""
+    what = "gather_probe"
+    check_operand(x, (x.shape[0], x.shape[1]), what)
+    check_index(idx, x.shape[1], x.device, what)
+    require_cuda(x, what)
+    y = torch.empty_like(x)
+    lib = _build.load(phase_stamps=True)
+    with torch.cuda.device(x.device):
+        code = lib.rf_gather_probe(x.data_ptr(), y.data_ptr(), idx.data_ptr(), x.shape[0],
+                                   x.shape[1], GATHER_MODES.index(mode),
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, what)
+    return y
+
+
 def zero_extended(a, m: int) -> Optional[np.ndarray]:
     """Complex table zero-extended (or cut) to length m, complex64."""
     if a is None:

@@ -213,6 +213,114 @@ def bconv_out_stage(b: torch.Tensor, p: int, q: int, tables, chirp: torch.Tensor
 bconv_out_stage.launches = 0
 
 
+def bconv_in_stage(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor) -> torch.Tensor:
+    """Kernel A: x (batch, n) complex64 -> (batch, Q, P), the chirp pre
+    multiplied in, zero-padded to m = P*Q, DFT_P and w_m^(k1*j2)
+    (conv_radix.conv_col_stage with pre)."""
+    return conv_radix.conv_col_stage(x, p, q, tables, pre=pre)[0]
+
+
+#: the phases of the stamped forms (tools/torch_phase_times.py): B_conv's
+#: chain 1 with its load, the conj(. * H) pass, chain 2 and the twiddled
+#: store; A2's load, DFT_P and the chirped store; kernel A's load with stage
+#: 0, stage 1 and the twiddled transposed store
+BCONV_PHASES = ("load+chain1", "H", "chain2", "store")
+OUT_PHASES = ("load", "DFT_P", "store")
+IN_PHASES = ("load+s0", "s1", "store")
+
+
+def _stamps(x: torch.Tensor, blocks: int, phases, what: str) -> torch.Tensor:
+    require_cuda(x, what)
+    if x.shape[0] == 0:
+        raise ValueError(f"{what}: an empty batch has no phases")
+    return torch.zeros((blocks, len(phases) + 1), dtype=torch.int64, device=x.device)
+
+
+def bconv_row_phase_stamps(a: torch.Tensor, q: int, p: int, tables, h: torch.Tensor,
+                           outer: torch.Tensor):
+    """bconv_row_stage on the card through its stamped form (Q = 32 x 16 x
+    16 only; the RF_PHASE_STAMPS library, which no route loads): (y,
+    stamps), stamps (blocks, 5) int64 nanoseconds of %globaltimer, each
+    block's start and that start plus the running sums of BCONV_PHASES."""
+    what = "bconv_row_phase_stamps"
+    roots, tws = tables
+    pt = bconv_tile(q, p)
+    stamps = _stamps(a, a.shape[0] * (p // pt), BCONV_PHASES, what)
+    y = torch.empty_like(a)
+    lib = _build.load(phase_stamps=True)
+    with torch.cuda.device(a.device):
+        code = lib.rf_bconv_row_phase_stamps(
+            a.data_ptr(), y.data_ptr(), a.shape[0], q, p, pt,
+            *padded_stage_args(large.stage_radices(q), roots, tws), h.data_ptr(),
+            outer.data_ptr(), stamps.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, code, what)
+    return y, stamps[stamps[:, 0] != 0]
+
+
+def bconv_out_phase_stamps(b: torch.Tensor, p: int, q: int, tables, chirp: torch.Tensor,
+                           n: int):
+    """bconv_out_stage through its stamped form, as bconv_row_phase_stamps:
+    (y, stamps (blocks, 4)) with OUT_PHASES."""
+    what = "bconv_out_phase_stamps"
+    roots, tws = tables
+    qt = out_tile(p, q)
+    stamps = _stamps(b, b.shape[0] * (q // qt), OUT_PHASES, what)
+    y = torch.empty((b.shape[0], n), dtype=b.dtype, device=b.device)
+    lib = _build.load(phase_stamps=True)
+    with torch.cuda.device(b.device):
+        code = lib.rf_bconv_out_phase_stamps(
+            b.data_ptr(), y.data_ptr(), b.shape[0], p, q, qt, n,
+            *padded_stage_args(large.stage_radices(p), roots, tws), chirp.data_ptr(),
+            stamps.data_ptr(), torch.cuda.current_stream(b.device).cuda_stream)
+    _build.check(lib, code, what)
+    return y, stamps[stamps[:, 0] != 0]
+
+
+def bconv_in_phase_stamps(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor):
+    """Kernel A (conv_col_stage with the chirp as pre, P = 16 x 16) through
+    its stamped form, as bconv_row_phase_stamps: (a, stamps (blocks, 4))
+    with IN_PHASES."""
+    what = "bconv_in_phase_stamps"
+    roots, tws, outer = tables
+    if large.stage_radices(p) != (16, 16) or q % 16:
+        raise ValueError(f"{what}: P={p}, Q={q} has no stamped form")
+    stamps = _stamps(x, x.shape[0] * (q // 16), IN_PHASES, what)
+    a = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
+    lib = _build.load(phase_stamps=True)
+    with torch.cuda.device(x.device):
+        code = lib.rf_conv_col_phase_stamps(
+            x.data_ptr(), a.data_ptr(), x.shape[0], x.shape[1], x.stride(0), p, q, 2, 16, 16,
+            roots[0].data_ptr(), roots[1].data_ptr(), tws[0].data_ptr(), outer.data_ptr(),
+            pre.data_ptr(), stamps.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, what)
+    return a, stamps[stamps[:, 0] != 0]
+
+
+#: bconv_copy_probe's unit orders
+PROBE_ORDERS = ("batch-major", "sector pairs", "streaming")
+
+
+def bconv_copy_probe(a: torch.Tensor, q: int, p: int, order: str) -> torch.Tensor:
+    """The access-pattern probe of B_conv's tile (the RF_PHASE_STAMPS
+    library only; for timing): a copy of a (batch, Q, P) complex64, one
+    512-thread block a unit of 16 bytes from each of the Q rows, as B_conv
+    reads them.  order: "batch-major" (the compile-time body's grid),
+    "sector pairs" (the units holding the two halves of one 32-byte sector
+    on neighbouring blocks, batch fastest within a pair), or "streaming"
+    (the same bytes in consecutive 2*Q values a unit)."""
+    what = "bconv_copy_probe"
+    check_operand(a, (a.shape[0], q, p), what)
+    require_cuda(a, what)
+    y = torch.empty_like(a)
+    lib = _build.load(phase_stamps=True)
+    with torch.cuda.device(a.device):
+        code = lib.rf_bconv_copy_probe(a.data_ptr(), y.data_ptr(), a.shape[0], q, p,
+                                       PROBE_ORDERS.index(order),
+                                       torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, code, what)
+    return y
+
+
 def make_bluestein_large_fn(n: int, m: int, direction: FftDirection, dtype,
                             split: Optional[Tuple[int, int, int]] = None):
     """Return fn: complex64 (..., n) -> (..., n): Bluestein through the three

@@ -45,9 +45,20 @@ x 4 (a cluster's single transform, where a launch's latency counts; the
 device's time a call, 50 calls queued behind a sleep kernel so that the
 host's launch overhead is hidden, median of 7), and K16:
 `permute` alone at 8192 x 1008 (the 1009 path's gather) beside
-torch.index_select.  `--only` keeps the named groups of these (K1, K2 for
-K2 and K3, paths for the planner's paths and K1's and K5's torch.fft, K9,
-K16, K12).  It prints one JSON line per run and then a table, each row a
+torch.index_select, and K15 (the fused large Bluestein): kernel A, B_conv
+and A2 alone at 64 x 1000003 (m = 2^21), the access-pattern probe of
+B_conv's tile where the checkout has it (`convlarge.bconv_copy_probe`:
+the 1 GiB of 64 x 2^21 copied in B_conv's 16-byte row pieces, units
+batch-major and in sector pairs, against consecutive runs, and `clone`),
+the paths 1000003 x 64 and 24571 x 2048 with torch.fft, and K14 (the
+two-pass convolution core): the Rader core (gather, sums, scatter,
+full_out) and the plain core at 512 x 65536, the gather probe where the
+checkout has it (`conv_radix.gather_probe`: 8-byte reads and writes at the
+65537 Rader permutation against a streaming copy), the paths 65537 x 512,
+7919 x 4096 and 746497 x 64 with torch.fft, and K9's band as in K9.
+`--only` keeps the named groups of these (K1, K2 for K2 and K3, paths for
+the planner's paths and K1's and K5's torch.fft, K9, K16, K12, K15,
+K14).  It prints one JSON line per run and then a table, each row a
 quantity and each column a run.
 """
 from __future__ import annotations
@@ -85,7 +96,13 @@ K9_SMALL = ((16384, 8), (1 << 15, 4), (1 << 18, 4))
 LARGE_PATHS = ((1 << 20, 1024), (1 << 23, 8), (1 << 26, 2), (65537, 512), (1 << 20, 1),
                (1 << 20, 4))
 
-GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12")
+#: the paths through K15 (the fused large Bluestein: 1000003 at m = 2^21,
+#: 24571 at m = 49152) and K14 (the two-pass core: the Rader 65537 at m =
+#: 65536, the Bluestein 7919 at m = 16384, the Rader 746497 at m = 746496)
+K15_PATHS = ((1000003, 64), (24571, 2048))
+K14_PATHS = ((65537, 512), (7919, 4096), (746497, 64))
+
+GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14")
 
 
 def run_one(root: str, groups=GROUPS) -> dict:
@@ -192,7 +209,73 @@ def run_one(root: str, groups=GROUPS) -> dict:
         if (n, batch) in K1 + K5:
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
         del x
-    for n, batch in K9 + K9_SMALL if "K9" in groups else ():
+    if "K15" in groups:
+        from rustfft_tpu_torch.ops.kernels import conv_radix, convlarge
+
+        n, m, batch = 1000003, 1 << 21, 64
+        p, q1, q2 = large.choose_pqq(m)
+        q = q1 * q2
+        host = convlarge.bconv_tables(n, m, p, q, FftDirection.FORWARD)
+        col = (on(host["col"][0]), on(host["col"][1]), on([host["col"][2]])[0])
+        row = tuple(on(v) for v in host["row"])
+        pre, h, chirp = on([host[k] for k in ("pre", "h", "chirp")])
+        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+        if hasattr(convlarge, "bconv_in_stage"):
+            kernel_a = lambda: convlarge.bconv_in_stage(x, p, q, col, pre)  # noqa: E731
+        else:
+            kernel_a = lambda: conv_radix.conv_col_stage(x, p, q, col, pre=pre)[0]  # noqa: E731
+        a = kernel_a()
+        b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
+        out[f"K15 kernel A {batch}x{n}"] = ms(kernel_a, reps=15)
+        out[f"K15 B_conv {batch}x2^21"] = ms(
+            lambda: convlarge.bconv_row_stage(a, q, p, row, h, col[2]), reps=15)
+        out[f"K15 A2 {batch}x2^21"] = ms(
+            lambda: convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n), reps=15)
+        del x
+        if hasattr(convlarge, "bconv_copy_probe"):
+            for order in convlarge.PROBE_ORDERS:
+                if not torch.equal(convlarge.bconv_copy_probe(a, q, p, order), a):
+                    raise SystemExit(f"bconv_copy_probe {order}: the copy differs")
+                out[f"probe B_conv {order} {batch}x2^21"] = ms(
+                    lambda: convlarge.bconv_copy_probe(a, q, p, order), reps=15)
+            out[f"clone {batch}x2^21"] = ms(lambda: a.clone(), reps=15)
+        del a, b
+        for n, batch in K15_PATHS:
+            torch.cuda.empty_cache()
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            plan = planner.plan_fft_forward(n)
+            out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+            del x
+    if "K14" in groups:
+        from rustfft_tpu_torch.ops.kernels import conv_radix
+        from rustfft_tpu_torch.ops.raders import raders_tables
+
+        torch.cuda.empty_cache()
+        m, batch = 65536, 512
+        perm_in, inv_gather, b_fft = raders_tables(m + 1, FftDirection.FORWARD)
+        rader = conv_radix.make_radix_conv_fn(
+            m, FftDirection.FORWARD, np.complex64, h=b_fft, conj_out=True, in_perm=perm_in - 1,
+            out_perm=inv_gather, x0_add=True, emit_sum=True, full_out=True)
+        blue = conv_radix.make_radix_conv_fn(m, FftDirection.FORWARD, np.complex64, h=b_fft)
+        x = torch.randn((batch, m), dtype=torch.complex64, generator=gen, device=dev)
+        x0 = torch.randn((batch, 1), dtype=torch.complex64, generator=gen, device=dev)
+        out[f"K14 Rader core {batch}x{m}"] = ms(lambda: rader(x, x0), reps=15)
+        out[f"K14 plain core {batch}x{m}"] = ms(lambda: blue(x), reps=15)
+        if hasattr(conv_radix, "gather_probe"):
+            idx = torch.from_numpy((perm_in - 1).astype(np.int32)).to(dev)
+            for mode in conv_radix.GATHER_MODES:
+                out[f"probe {mode} {batch}x{m}"] = ms(
+                    lambda: conv_radix.gather_probe(x, idx, mode), reps=15)
+        del x
+        for n, batch in K14_PATHS:
+            torch.cuda.empty_cache()
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            plan = planner.plan_fft_forward(n)
+            out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+            del x
+    for n, batch in K9 + K9_SMALL if {"K9", "K14"} & set(groups) else ():
         torch.cuda.empty_cache()
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
         r = n // (128 * 128)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Split the time of K1's, K2's, K3's, K7's cluster kernel's, K9's and K12's kernels into phases on one GPU.
+"""Split the time of K1's, K2's, K3's, K7's cluster kernel's, K9's, K12's and K15's kernels into phases on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -18,7 +18,9 @@ sends it to lanepack, to K5's chain form where it sends it to dense (a
 prime from 29), and 32768:2048 and 262144:256 to K9's radix kernel (r = 2
 and 16; any n the route sends to radix goes there), and 1048576:64 to
 K2's and K3's persistent tile kernels (any n the route sends to large
-whose split is (256, 64, 64)).  For each shape it
+whose split is (256, 64, 64)), and 1000003:64 to K15's three kernels (any
+n whose plan is a Bluestein on the fused large Bluestein: kernel A, B_conv
+and A2, convlarge.IN_PHASES, BCONV_PHASES, OUT_PHASES).  For each shape it
 runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
 fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps,
 largepad.largepad_col_phase_stamps and largepad_row_phase_stamps,
@@ -54,7 +56,7 @@ sys.path.insert(0, ROOT)
 
 SHAPES = ((4096, 16384), (8192, 8192), (2008, 32768), (251, 131072), (32768, 2048),
           (262144, 256), (49152, 2048), (260608, 256), (531441, 64), (234617, 256),
-          (1 << 20, 64))
+          (1 << 20, 64), (1000003, 64))
 
 
 def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -226,13 +228,53 @@ def large_phases(n: int, batch: int, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def bluestein_large_phases(n: int, m: int, batch: int, gen) -> None:
+    """K15's three kernels (the fused large Bluestein of length n at inner
+    m) at n x batch through their stamped forms."""
+    import torch
+
+    from rustfft_tpu_torch.common import FftDirection
+    from rustfft_tpu_torch.ops.kernels import convlarge, large
+
+    dev = torch.device("cuda")
+
+    def card(tables):
+        return tuple([torch.from_numpy(a).to(dev) for a in t] if isinstance(t, list)
+                     else torch.from_numpy(t).to(dev) for t in tables)
+
+    p, q1, q2 = large.choose_pqq(m)
+    q = q1 * q2
+    host = convlarge.bconv_tables(n, m, p, q, FftDirection.FORWARD)
+    col, row = card(host["col"]), card(host["row"])
+    pre, h, chirp = (torch.from_numpy(host[k]).to(dev) for k in ("pre", "h", "chirp"))
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+    a = convlarge.bconv_in_stage(x, p, q, col, pre)
+    b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
+    for what, stamped_fn, fn, args, phases in (
+            ("kernel A", convlarge.bconv_in_phase_stamps, convlarge.bconv_in_stage,
+             (x, p, q, col, pre), convlarge.IN_PHASES),
+            ("B_conv", convlarge.bconv_row_phase_stamps, convlarge.bconv_row_stage,
+             (a, q, p, row, h, col[2]), convlarge.BCONV_PHASES),
+            ("A2", convlarge.bconv_out_phase_stamps, convlarge.bconv_out_stage,
+             (b, p, q, col[:2], chirp, n), convlarge.OUT_PHASES)):
+        stamped_fn(*args)  # warm-up (and the stamped library's build)
+        y, stamps = stamped_fn(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(y, fn(*args)):
+            raise SystemExit(f"n={n} {what}: the stamped kernel differs from the kernel")
+        report(f"n={n} (m = {m} = {p} x {q}) batch={batch} {what}", stamps, phases,
+               median_ms(lambda: stamped_fn(*args)), median_ms(lambda: fn(*args)))
+    del x, a, b
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import numpy as np
     import torch
 
-    from rustfft_tpu_torch import route
+    from rustfft_tpu_torch import FftPlanner, recipes, route
     from rustfft_tpu_torch.common import FftDirection
-    from rustfft_tpu_torch.ops.kernels import fused, large
+    from rustfft_tpu_torch.ops.kernels import convlarge, fused, large
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_phase_times: needs an NVIDIA GPU")
@@ -242,6 +284,11 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for n, batch in shapes:
+        recipe = FftPlanner(np.complex64, device="cpu").plan_fft_forward(n).recipe
+        if (isinstance(recipe, recipes.Bluesteins)
+                and convlarge.bconv_supported(recipe.inner.length, np.complex64)):
+            bluestein_large_phases(n, recipe.inner.length, batch, gen)
+            continue
         if route(n, np.complex64) in ("lanepack", "dense"):
             lanepack_phases(n, batch, gen)
             continue
