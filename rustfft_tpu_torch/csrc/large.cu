@@ -71,8 +71,7 @@
 // memory is size_t.
 #include <stdint.h>
 
-#include "large.cuh"
-#include "tile_walk.cuh"
+#include "col_tile.cuh"
 
 namespace rf {
 
@@ -235,136 +234,6 @@ static cudaError_t launch_row_tile(const float2* x, float2* y, long long batch, 
   return cudaGetLastError();
 }
 
-// ---- K2 at P = 256 ----------------------------------------------------------
-
-constexpr int kColT = 16;
-constexpr int kColP = 256;
-constexpr int kColElems = kColP * kColT;
-constexpr int kColThreads = kFixedThreads<kColT, 16, 16, 1>;  // 256
-static_assert(kColThreads == 256, "one thread per column of a radix-16 stage");
-
-// This thread's copies of the (256, 16) tile at src (rows q apart) into buf
-// in plain order, one group: warp w copies the rows j*16 + 2w and j*16 + 2w
-// + 1 (j < 16), 128 bytes a row as eight 16-byte copies.
-static __device__ __forceinline__ void col_tile_copy(float2* buf, const float2* __restrict__ src,
-                                                     unsigned q) {
-  const int c = opaque_int(threadIdx.x);
-  const int warp = c >> 5, lane = c & 31;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int idx = i * 32 + lane;
-    const int row = (idx >> 4) * 16 + 2 * warp + ((idx >> 3) & 1);
-    const int piece = (idx & 7) * 2;
-    cp_async16(buf + row * kColT + piece, src + (size_t)row * q + piece);
-  }
-  cp_async_commit();
-}
-
-template <bool kStamp>
-__global__ void __launch_bounds__(kColThreads, 2)
-    col_tile_kernel(const float2* __restrict__ x, float2* __restrict__ y, unsigned batch,
-                    unsigned units, unsigned per, int q, Stages st,
-                    const float2* __restrict__ outer, unsigned long long* stamps) {
-  LargeClock<kStamp> clock;
-  clock.begin();
-  extern __shared__ float4 col_smem[];
-  float2* bufs = reinterpret_cast<float2*>(col_smem);  // two tiles
-  float2* souter = bufs + 2 * kColElems;
-  float2* sroots = souter + kColElems;
-  const size_t row_elems = (size_t)kColP * (size_t)q;
-  const unsigned u0 = blockIdx.x * per;
-  const unsigned u1 = min(u0 + per, units);
-  if (u0 < u1)
-    col_tile_copy(bufs, x + (size_t)(u0 % batch) * row_elems + (u0 / batch) * kColT, q);
-  load_roots(st, sroots);
-  __syncthreads();
-  unsigned slice = ~0u;  // the tile whose outer slice souter holds
-  int cur = 0;
-  for (unsigned u = u0; u < u1; ++u, cur ^= 1) {
-    const int c = opaque_int(threadIdx.x);
-    const unsigned t = u / batch;
-    float2* buf = bufs + cur * kColElems;
-    if (t != slice) {  // the (16, 256) slice [j2 - q0, k1] at its tile place swz(k1*16 + j2 - q0)
-      const float2* __restrict__ src = outer + (size_t)t * kColElems;
-      for (int i = c; i < kColElems; i += kColThreads)
-        souter[swz((i & (kColP - 1)) * kColT + (i >> 8))] = __ldg(&src[i]);
-      slice = t;
-    }
-    if (u + 1 < u1) {
-      const unsigned v = u + 1;
-      col_tile_copy(bufs + (cur ^ 1) * kColElems,
-                    x + (size_t)(v % batch) * row_elems + (v / batch) * kColT, q);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncwarp();
-    // stage 0, radix 16 over the top digit of j1 for column c, in place
-    {
-      float2 v[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) v[j] = buf[c + 256 * j];
-      __syncwarp();
-      const float2* __restrict__ tw = opaque_ptr(st.tw[0]);
-      dft_column<16>(v, sroots, [&](int k, float2 z) {
-        z = cmul(z, __ldg(&tw[k * 16 + (c >> 4)]));
-        buf[swz(k * 256 + c)] = z;
-      });
-    }
-    clock.lap(0);
-    __syncthreads();  // stage 0's outputs and the slice, for every thread
-    // stage 1, radix 16 over the low digit, times the outer twiddle, in place
-    {
-      const int base = (c >> 4) * 256 + (c & 15);
-      float2 v[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) v[j] = buf[swz(base + 16 * j)];
-      __syncthreads();
-      dft_column<16>(v, sroots + 16, [&](int k, float2 z) {
-        const int f = swz(k * 256 + c);
-        buf[f] = cmul(z, souter[f]);
-      });
-    }
-    clock.lap(1);
-    __syncthreads();
-    // the transposed store: y[b, q0 + j2, k1], two k1 a thread
-    float2* __restrict__ yb = y + (size_t)(u % batch) * row_elems + (size_t)t * kColElems;
-    for (int i = c; i < kColElems / 2; i += kColThreads) {
-      const int j2 = i >> 7, k1 = (i & 127) * 2;
-      const float2 a0 = buf[swz(k1 * kColT + j2)], a1 = buf[swz((k1 + 1) * kColT + j2)];
-      *reinterpret_cast<float4*>(yb + j2 * kColP + k1) = make_float4(a0.x, a0.y, a1.x, a1.y);
-    }
-    clock.lap(2);
-    __syncthreads();  // this buffer and the slice are free
-  }
-  clock.write(stamps);
-}
-
-static size_t col_tile_smem() { return (size_t)(3 * kColElems + 32) * sizeof(float2); }
-
-// One launch of `grid` persistent blocks over the units (tile, batch),
-// batch fastest, `per` units a block (grid*per >= units > (grid - 1)*per).
-template <bool kStamp>
-static cudaError_t launch_col_tile(const float2* x, float2* y, long long batch, int q,
-                                   long long grid, long long per, const Stages& st,
-                                   const float2* outer, unsigned long long* stamps,
-                                   cudaStream_t s) {
-  const long long units = batch * (q / kColT);
-  if (q % kColT != 0 || grid < 1 || per < 1 || units > 0x7fffffffLL || grid * per < units ||
-      (grid - 1) * per >= units || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(y) % 16 != 0)
-    return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(col_tile_kernel<kStamp>, col_tile_smem());
-  if (err != cudaSuccess) return err;
-  col_tile_kernel<kStamp><<<(unsigned)grid, kColThreads, col_tile_smem(), s>>>(
-      x, y, (unsigned)batch, (unsigned)units, (unsigned)per, q, st, outer, stamps);
-  return cudaGetLastError();
-}
-
-static bool col_tile_chain(int k, int r0, int r1, int qt) {
-  return k == 2 && r0 == 16 && r1 == 16 && qt == kColT;
-}
-
 static bool row_tile_chain(int k, int r0, int r1, int r2, int pt) {
   return k == 3 && r0 == 16 && r1 == 16 && r2 == 16 && pt == kRowT;
 }
@@ -383,7 +252,8 @@ static int col_stage(const void* x, void* y, long long batch, int p, int q, int 
   float2* ty = static_cast<float2*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (col_tile_chain(k, r0, r1, qt))
-    return launch_col_tile<kStamp>(tx, ty, batch, q, grid, per, st, to, stamps, s);
+    return launch_col_tile<kStamp>(ColRows{tx}, ty, batch, q, grid, per,
+                                   st, to, stamps, s);
   if (kStamp) return cudaErrorInvalidValue;
   return launch_col_stage(RowsIn{tx, (size_t)p * (size_t)q}, ty, batch, p, q, qt, st,
                           FullOuter{to, p}, s);
@@ -440,7 +310,7 @@ extern "C" int rf_large_row_stage(const void* x, void* y, long long batch, int q
 extern "C" int rf_large_resident_blocks(int which, int* out) {
   using namespace rf;
   if (which == 0)
-    return resident_blocks(col_tile_kernel<false>, kColThreads, col_tile_smem(), out);
+    return resident_blocks(col_tile_kernel<ColRows, false>, kColThreads, col_tile_smem(), out);
   if (which == 1)
     return resident_blocks(row_tile_kernel<false>, kRowThreads, row_tile_smem(), out);
   return cudaErrorInvalidValue;

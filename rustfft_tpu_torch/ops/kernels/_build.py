@@ -86,6 +86,14 @@ _SIGNATURES = {
     "rf_largepad_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3 + [_vp],
     "rf_bconv_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8,
     "rf_bconv_out_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
+    "rf_bconv_col_tile": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 5 + [_ll, _ll, _vp],
+    "rf_bconv_row_tile": [_vp, _vp, _ll, _int] + [_vp] * 5 + [_ll, _vp],
+    "rf_bconv_out_tile": [_vp, _vp, _ll, _int, _int, _ll] + [_int] * 3 + [_vp] * 4
+                         + [_ll, _ll, _vp],
+    "rf_bconv_resident_blocks": [_int, ctypes.POINTER(_int)],
+    "rf_conv_radix_pass1": [_vp, _vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 12 + [_ll, _vp],
+    "rf_conv_radix_pass2": [_vp, _vp, _ll] + [_int] * 5 + [_vp] * 11 + [_ll, _vp, _vp]
+                           + [_int] * 3 + [_ll, _ll, _vp],
 }
 
 #: the entry points only the RF_PHASE_STAMPS library has
@@ -105,10 +113,12 @@ _STAMP_SIGNATURES = {
     "rf_large_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 6 + [_ll, _ll, _vp, _vp],
     "rf_large_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp, _vp],
     "rf_large_copy_probe": [_vp, _vp, _ll, _int, _int, _vp],
-    "rf_bconv_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8 + [_vp],
-    "rf_bconv_out_phase_stamps": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7 + [_vp],
+    "rf_bconv_col_tile_stamps": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 5
+                                + [_ll, _ll, _vp, _vp],
+    "rf_bconv_row_tile_stamps": [_vp, _vp, _ll, _int] + [_vp] * 5 + [_ll, _vp, _vp],
+    "rf_bconv_out_tile_stamps": [_vp, _vp, _ll, _int, _int, _ll] + [_int] * 3 + [_vp] * 4
+                                + [_ll, _ll, _vp, _vp],
     "rf_bconv_copy_probe": [_vp, _vp, _ll, _int, _int, _int, _vp],
-    "rf_conv_col_phase_stamps": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 7,
     "rf_gather_probe": [_vp, _vp, _vp, _ll, _int, _int, _vp],
 }
 STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)

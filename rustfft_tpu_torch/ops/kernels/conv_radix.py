@@ -45,9 +45,10 @@ import torch
 from ...common import FftDirection
 from ...config import config
 from .. import calg
-from . import _build, large
+from . import _build, fused, large
 from .lanepack import (
     check_operand, check_stage_tables, padded_stage_args, require_cuda, smem_bytes,
+    stage_tables,
 )
 from .permute import check_index, permutation_index
 
@@ -297,6 +298,209 @@ def conv_row_stage_gauss(a: torch.Tensor, q: int, p: int, tables, n_out: int, **
 conv_row_stage_gauss.launches = 0
 
 
+# -- the cluster form: each pass one launch of the radix body ---------------
+
+#: the inner lengths m = r * 128 * 128 the radix body serves (K9's r = 2 ..
+#: 16 and K7's 16384 at r = 1)
+CLUSTER_RADICES = (1, 2, 4, 8, 16)
+
+
+def cluster_form(m: int, gauss: bool = False, in_shift: bool = False) -> Optional[int]:
+    """r where the core runs as two cluster passes (conv_radix_pass1,
+    conv_radix_pass2: one launch of csrc/radix.cuh's body each) at m =
+    r*16384, r in CLUSTER_RADICES; None where it keeps the four launches
+    of the column and row stages: every other m (746496, and any whose
+    split is not 128 x 128 x r), the Gauss form (the radix body has none)
+    and in_shift (its x0 column rides the raw rows; the cluster form's
+    pass 1 would take the ld stride, but the switch's own path stays as
+    the JAX package's)."""
+    if gauss or in_shift or m % (fused.RADIX_PQ * fused.RADIX_PQ):
+        return None
+    r = m // (fused.RADIX_PQ * fused.RADIX_PQ)
+    return r if r in CLUSTER_RADICES else None
+
+
+def cluster_tables(r: int, direction: FftDirection):
+    """The radix body's tables at m = r*16384, complex64: (roots, tws) of
+    the DFT_128 chain (16, 8), t1, tn, rroots, cfac (fused.radix_tables; at
+    r = 1, where the body reads tn alone, t1, rroots and cfac are ones)."""
+    if r > 1:
+        return fused.radix_tables(r, fused.RADIX_PQ, fused.RADIX_PQ, direction)
+    p = fused.RADIX_PQ
+    roots, tws = stage_tables(p, large.stage_radices(p), direction)
+    _, tn, _ = fused.radix_twiddles(1, p, p, direction)
+    ones = np.ones((1, p), np.complex64)
+    return roots, tws, ones, tn.astype(np.complex64), np.ones(1, np.complex64), ones
+
+
+def _check_cluster_tables(r: int, tables, device, what: str) -> None:
+    roots, tws, t1, tn, rroots, cfac = tables
+    p = fused.RADIX_PQ
+    check_stage_tables(p, large.stage_radices(p), roots, tws, device, what)
+    for t, shape, name in ((t1, (r, p), "t1"), (tn, (p, p), "tn"), (rroots, (r,), "roots_r"),
+                           (cfac, (r, p), "cfac")):
+        check_operand(t, shape, f"{what} {name}")
+        if t.device != device:
+            raise ValueError(f"{what}: tables on {t.device}, input on {device}")
+
+
+def _cluster_fft_plain(v: torch.Tensor, r: int, tables) -> torch.Tensor:
+    return fused.radix_fft_plain(v, r, fused.RADIX_PQ, tables)
+
+
+def _cluster_args(r: int, tables, device):
+    roots, tws, t1, tn, rroots, cfac = tables
+    clusters_of = fused._resident_clusters(device, r)
+    return ([r, *padded_stage_args(large.stage_radices(fused.RADIX_PQ), roots, tws),
+             t1.data_ptr(), tn.data_ptr(), rroots.data_ptr(), cfac.data_ptr()], clusters_of)
+
+
+def conv_radix_pass1_plain(x, m, r, tables, h, pre=None, perm=None, emit_sum=False):
+    """Plain torch version of conv_radix_pass1."""
+    v = torch.index_select(x, 1, perm) if perm is not None else x
+    v = torch.nn.functional.pad(v, (0, m - v.shape[1]))
+    partials = None
+    if emit_sum:  # block a of a cluster sums the rows b*r*128 + a*128 + j2 of its slice
+        partials = v.reshape(-1, fused.RADIX_PQ, r, fused.RADIX_PQ).sum(dim=(1, 3))
+    if pre is not None:
+        v = v * pre
+    z = torch.conj(_cluster_fft_plain(v, r, tables) * h).resolve_conj()
+    return z, partials
+
+
+def conv_radix_pass1(x: torch.Tensor, m: int, tables, h: torch.Tensor, pre=None, perm=None,
+                     emit_sum: bool = False):
+    """Pass 1 of the cluster form at m = r*16384 (cluster_form): x (batch,
+    n_in) complex64 -> (z (batch, m) = conj(FFT_m([pre *] x zero-padded to
+    m) * h), partials (batch, r) or None).
+
+    x's rows need only be contiguous (any stride between them, any 8-byte
+    alignment: the loads are direct).  tables = cluster_tables(r,
+    direction) on x's device; h, pre (m,) complex64; perm (m,) int32 the
+    Rader gather a[j] = x[perm[j]] (needs n_in == m); emit_sum: the sums
+    of the raw input over each cluster block's slice (their row sum is
+    sum(x)).
+    """
+    what = "conv_radix_pass1"
+    _check_rows(x, f"{what} input")
+    r = cluster_form(m)
+    if r is None:
+        raise ValueError(f"{what}: m={m} has no cluster form")
+    n_in = x.shape[1]
+    if not 0 < n_in <= m:
+        raise ValueError(f"{what}: n_in={n_in} not in [1, {m}]")
+    _check_cluster_tables(r, tables, x.device, what)
+    _check_table(h, (m,), x.device, f"{what} h")
+    _check_table(pre, (m,), x.device, f"{what} pre")
+    if perm is not None:
+        check_index(perm, m, x.device, f"{what} perm")
+        if n_in != m:
+            raise ValueError(f"{what}: a gather needs n_in == m, got {n_in} != {m}")
+    if x.device.type == "cpu":
+        return conv_radix_pass1_plain(x, m, r, tables, h, pre, perm, emit_sum)
+    require_cuda(x, what)
+    batch = x.shape[0]
+    z = torch.empty((batch, m), dtype=x.dtype, device=x.device)
+    partials = (torch.empty((batch, r), dtype=x.dtype, device=x.device) if emit_sum else None)
+    if batch == 0:
+        return z, partials
+    args, resident = _cluster_args(r, tables, x.device)
+    lib = _build.load()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        code = lib.rf_conv_radix_pass1(
+            x.data_ptr(), z.data_ptr(), ptr(partials), batch, n_in,
+            x.stride(0) if batch > 1 else n_in, *args, h.data_ptr(), ptr(pre), ptr(perm),
+            fused.radix_grid(batch, resident), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, what)
+    conv_radix_pass1.launches += 1
+    return z, partials
+
+
+conv_radix_pass1.launches = 0
+
+
+def conv_radix_pass2_plain(z, m, r, tables, n_out, conj_out=False, post=None, x0=None,
+                           scatter=None, partials=None):
+    """Plain torch version of conv_radix_pass2."""
+    u = _cluster_fft_plain(z, r, tables)
+    if conj_out:
+        u = torch.conj(u)
+    if post is not None:
+        u = u * post
+    if x0 is not None:
+        u = u + x0[:, None]
+    u = u.resolve_conj()[:, :n_out]
+    if scatter is not None:
+        u = torch.empty_like(u).index_copy_(1, scatter.long(), u)
+    if partials is not None:
+        u = torch.cat([(x0 + partials.sum(dim=1))[:, None], u], dim=1)
+    return u
+
+
+def conv_radix_pass2(z: torch.Tensor, m: int, tables, n_out: int, conj_out: bool = False,
+                     post=None, x0=None, scatter=None, partials=None) -> torch.Tensor:
+    """Pass 2 of the cluster form at m = r*16384: z (batch, m) complex64 ->
+    (batch, n_out): FFT_m, then in order [conj] [* post (m,)] [+ x0
+    (batch,), any stride]; scatter (m,) int32 (n_out == m): bin k goes to
+    position scatter[k]; partials (batch, r) from pass 1 (full_out: needs
+    x0 and scatter): the output is (batch, m + 1) with out[0] = x0 +
+    sum(partials) and the rest shifted by 1.  tables = cluster_tables(r,
+    direction) on z's device.
+    """
+    what = "conv_radix_pass2"
+    r = cluster_form(m)
+    if r is None:
+        raise ValueError(f"{what}: m={m} has no cluster form")
+    check_operand(z, (z.shape[0], m), f"{what} input")
+    batch = z.shape[0]
+    if not 0 < n_out <= m:
+        raise ValueError(f"{what}: n_out={n_out} not in [1, {m}]")
+    _check_cluster_tables(r, tables, z.device, what)
+    _check_table(post, (m,), z.device, f"{what} post")
+    if x0 is not None and (x0.dtype != torch.complex64 or tuple(x0.shape) != (batch,)
+                           or x0.device != z.device):
+        raise ValueError(f"{what}: x0 must be a ({batch},) complex64 tensor on {z.device}")
+    if scatter is not None:
+        check_index(scatter, m, z.device, f"{what} scatter")
+        if n_out != m:
+            raise ValueError(f"{what}: a scatter needs n_out == m")
+    if partials is not None:
+        if x0 is None or scatter is None:
+            raise ValueError(f"{what}: full_out needs x0 and scatter")
+        _check_table(partials, (batch, r), z.device, f"{what} partials")
+    if z.device.type == "cpu":
+        return conv_radix_pass2_plain(z, m, r, tables, n_out, conj_out, post, x0, scatter,
+                                      partials)
+    require_cuda(z, what)
+    width = n_out + (1 if partials is not None else 0)
+    y = torch.empty((batch, width), dtype=z.dtype, device=z.device)
+    if batch == 0:
+        return y
+    src = fused._aligned16(z)
+    args, resident = _cluster_args(r, tables, z.device)
+    lib = _build.load()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(z.device):
+        code = lib.rf_conv_radix_pass2(
+            src.data_ptr(), y.data_ptr(), batch, *args, ptr(post), ptr(x0),
+            0 if x0 is None else x0.stride(0), ptr(scatter), ptr(partials),
+            0 if partials is None else r, int(conj_out), n_out, width,
+            fused.radix_grid(batch, resident), torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(lib, code, what)
+    conv_radix_pass2.launches += 1
+    return y
+
+
+conv_radix_pass2.launches = 0
+
+
 #: gather_probe's modes
 GATHER_MODES = ("streaming", "gather", "scatter")
 
@@ -403,6 +607,10 @@ def make_radix_conv_fn(
         raise ValueError("in_shift needs full_out and in_perm")
     if col_tile(p, q, gauss) is None or row_tile(q, p, gauss) is None:
         raise ValueError(f"no two-pass conv core for m={m} in the Gauss form")
+    r = cluster_form(m, gauss, in_shift)
+    if r is not None:
+        return _cluster_conv_fn(m, r, direction, h, pre, post, conj_out, n_in, n_out, in_perm,
+                                out_perm, x0_add, emit_sum, full_out)
     host = radix_conv_tables(m, direction, h, pre, post, in_perm, out_perm, gauss)
     kp, kq = len(host["col"][0]), len(host["row"][0])
     names = [k for k in ("h", "pre", "post", "perm", "scatter") if host[k] is not None]
@@ -436,6 +644,42 @@ def make_radix_conv_fn(
         out = conv_row_stage(b, q, p, row, n_out, conj_out=conj_out, post=tab.get("post"),
                              x0=x0, scatter=tab.get("scatter"),
                              partials=partials if full_out else None, gauss=gauss)
+        out = out.reshape(shape[:-1] + (out.shape[-1],))
+        if emit_sum and not full_out:
+            return out, partials.sum(dim=1).reshape(shape[:-1] + (1,))
+        return out
+
+    return apply
+
+
+def _cluster_conv_fn(m, r, direction, h, pre, post, conj_out, n_in, n_out, in_perm, out_perm,
+                     x0_add, emit_sum, full_out):
+    """make_radix_conv_fn's core in the cluster form: conv_radix_pass1 and
+    conv_radix_pass2 at m = r*16384."""
+    host = radix_conv_tables(m, direction, h, pre, post, in_perm, out_perm)
+    roots, tws, *rest = cluster_tables(r, direction)
+    names = [k for k in ("h", "pre", "post", "perm", "scatter") if host[k] is not None]
+    k = len(roots)
+    tables = calg.DeviceTables([*roots, *tws, *rest] + [host[n] for n in names])
+
+    def apply(x, const=None):
+        t = tables.on(x.device)
+        radix = (t[:k], t[k : 2 * k - 1], *t[2 * k - 1 : 2 * k + 3])
+        tab = dict(zip(names, t[2 * k + 3 :]))
+        shape = x.shape
+        flat = x.reshape(-1, n_in)
+        if flat.shape[1] > 1 and flat.stride(1) != 1:
+            flat = flat.contiguous()
+        x0 = None
+        if x0_add:
+            if const is None:
+                raise ValueError("x0_add: call fn(x, const)")
+            x0 = const.reshape(-1)
+        z, partials = conv_radix_pass1(flat, m, radix, tab["h"], pre=tab.get("pre"),
+                                       perm=tab.get("perm"), emit_sum=emit_sum)
+        out = conv_radix_pass2(z, m, radix, n_out, conj_out=conj_out, post=tab.get("post"),
+                               x0=x0, scatter=tab.get("scatter"),
+                               partials=partials if full_out else None)
         out = out.reshape(shape[:-1] + (out.shape[-1],))
         if emit_sum and not full_out:
             return out, partials.sum(dim=1).reshape(shape[:-1] + (1,))

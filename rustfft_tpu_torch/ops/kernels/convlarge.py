@@ -16,19 +16,36 @@ two-pass core (ops/kernels/conv_radix.py) takes four:
 
 The JAX kernel slices DFT_P to its `pkeep` live rows and slices the output
 after; here A2 computes every row and skips the stores with l >= n, so the
-epilogue's slice pass disappears.  B_conv holds one (Q, pt) tile in shared
-memory for both chains; the tile rule `bconv_tile` checks that it fits.
-The general kernel's two buffers hold one column at Q = 8192 (m = 2^21);
-there a compile-time chain runs both FFTs in place in one buffer of two
-columns (FIXED_BCONV).  Q = 6144 (m = 1572864) takes two columns on the
-general kernel.  Host tables are the JAX package's, built in f64 and cast
-to complex64: the chirp, H = h_fft as (Q, P), the (Q, P) outer twiddle and
-the output chirp.  Each
-wrapper runs its plain version on a CPU tensor and launches its kernel
-(csrc/convlarge.cu) on a CUDA tensor, or raises.
+epilogue's slice pass disappears.
+
+The 1000003 path's split (P = 16 x 16, Q = 32 x 16 x 16, m = 2^21;
+`tile_form`) runs the tile form instead, three persistent tile walks
+(csrc/convlarge.cu) that hold the signal between them in column pairs
+(B, P/2, Q, 2) (`to_pairs`), so that B_conv's (Q, 2) tile and its slices
+of h and outer (held the same way) are 128 KiB of consecutive values:
+  `bconv_col_tile` (kernel A): K2's column-tile kernel with a chirp source
+      (pre from L1 in stage 0, rows beyond n zero, 8-byte copies of the
+      rows that are not 16-byte aligned) and a column-pair store;
+  `bconv_row_tile` (B_conv): one tile an SM, landing by cp.async, chain 1
+      in place with conj(. * h) in its last stage, chain 2 in place, the
+      next tile's copies under chain 2's last stage and its stores;
+  `bconv_out_tile` (A2): 16 rows l1 a unit, DFT_P in place, the next
+      unit's tile landing in a second buffer, 16 consecutive l a store.
+B_conv's units run batch rows fastest (`bconv_unit`, `bconv_grid`), kernel
+A's and A2's contiguous ranges of them (large.col_walk), so the tables'
+slices are read from device memory about once.  Other splits (24571 at Q =
+192, the Bluestein 746497 at Q = 6144) keep `conv_radix.conv_col_stage`,
+`bconv_row_stage` and `bconv_out_stage`: B_conv holds a (Q, pt) tile in
+two buffers, `bconv_tile` checks that it fits.  Host tables are the JAX
+package's, built in f64 and cast to complex64: the chirp, H = h_fft as (Q,
+P), the (Q, P) outer twiddle and the output chirp.  Each wrapper runs its
+plain version on a CPU tensor and launches its kernel (csrc/convlarge.cu)
+on a CUDA tensor, or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -40,22 +57,14 @@ from ..bluestein import bluestein_tables
 from . import _build, conv_radix, fused, large, largepad
 from .lanepack import (
     check_operand, check_stage_tables, fft_stages_plain, padded_stage_args, require_cuda,
+    stage_tables,
 )
 
 
-#: B_conv's compile-time chain (csrc/convlarge.cu bconv_fixed_kernel): the
-#: radices of Q -> the tile width, both chains in place in one buffer
-FIXED_BCONV = {(32, 16, 16): 2}
-
-
 def bconv_tile(q: int, p: int) -> Optional[int]:
-    """Columns k1 per B_conv block: the compile-time kernel's width
-    (FIXED_BCONV) where it divides P, else the widest of 16, 8, 4, 2, 1
-    that divides P and whose (Q, pt) tile (two buffers, both chains in
-    turn) fits shared memory."""
-    fixed = FIXED_BCONV.get(large.stage_radices(q))
-    if fixed is not None and p % fixed == 0:
-        return fixed
+    """Columns k1 per block of the general B_conv kernel: the widest of 16,
+    8, 4, 2, 1 that divides P and whose (Q, pt) tile (two buffers, both
+    chains in turn) fits shared memory."""
     return conv_radix.row_tile(q, p)
 
 
@@ -213,87 +222,371 @@ def bconv_out_stage(b: torch.Tensor, p: int, q: int, tables, chirp: torch.Tensor
 bconv_out_stage.launches = 0
 
 
-def bconv_in_stage(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor) -> torch.Tensor:
-    """Kernel A: x (batch, n) complex64 -> (batch, Q, P), the chirp pre
-    multiplied in, zero-padded to m = P*Q, DFT_P and w_m^(k1*j2)
-    (conv_radix.conv_col_stage with pre)."""
-    return conv_radix.conv_col_stage(x, p, q, tables, pre=pre)[0]
+# -- the tile form (P = 16 x 16, Q = 32 x 16 x 16: the 1000003 path) --------
+
+#: the tile form's chains (csrc/convlarge.cu): DFT_P of kernel A and A2 at
+#: P = 256, and B_conv's two FFT_Q at Q = 8192, in place: chain 1 the DIT
+#: chain (2, 16, 16, 16), which leaves its output digit-reversed
+#: (bconv_positions), chain 2 the DIT chain (16, 16, 16, 2) from there,
+#: which leaves it in natural order
+TILE_P = (16, 16)
+TILE_Q = 8192
+BCONV_CHAIN1 = (2, 16, 16, 16)
+BCONV_CHAIN2 = (16, 16, 16, 2)
 
 
-#: the phases of the stamped forms (tools/torch_phase_times.py): B_conv's
-#: chain 1 with its load, the conj(. * H) pass, chain 2 and the twiddled
-#: store; A2's load, DFT_P and the chirped store; kernel A's load with stage
-#: 0, stage 1 and the twiddled transposed store
-BCONV_PHASES = ("load+chain1", "H", "chain2", "store")
-OUT_PHASES = ("load", "DFT_P", "store")
-IN_PHASES = ("load+s0", "s1", "store")
+def tile_form(p: int, q: int) -> bool:
+    """The split runs the tile form: DFT_P as 16 x 16 and Q = 8192 (m =
+    2^21 at P = 256); other splits keep the general kernels."""
+    return large.stage_radices(p) == TILE_P and q == TILE_Q
 
 
-def _stamps(x: torch.Tensor, blocks: int, phases, what: str) -> torch.Tensor:
+@functools.lru_cache(maxsize=1)
+def bconv_positions() -> np.ndarray:
+    """(Q,) int64: the frequency k whose value chain 1 leaves at position
+    pos = 4096*k0 + 256*k1 + 16*k2 + k3, k = k0 + 2*k1 + 32*k2 + 512*k3."""
+    pos = np.arange(TILE_Q)
+    k0, k1, k2, k3 = pos >> 12, (pos >> 8) & 15, (pos >> 4) & 15, pos & 15
+    return k0 + 2 * k1 + 32 * k2 + 512 * k3
+
+
+def bconv_chain_tables(direction: FftDirection):
+    """B_conv's tables in the tile form, complex64: (roots, tws), roots the
+    roots of w_2 and w_16, tws chain 1's three twiddle tables (r_s, rest_s)
+    and chain 2's three, whose columns (the input digits not yet taken)
+    are laid out by the column's position digits above the stage: stage s
+    of chain 2 reads column hi, the position of its column divided by
+    16^(s + 1)."""
+    roots1, tws1 = stage_tables(TILE_Q, BCONV_CHAIN1, direction)
+    _, tws2 = stage_tables(TILE_Q, BCONV_CHAIN2, direction)
+    hi = [np.arange(512), np.arange(32), np.arange(2)]
+    rest = [(hi[0] & 15) * 32 + ((hi[0] >> 4) & 15) * 2 + (hi[0] >> 8),
+            (hi[1] & 15) * 2 + (hi[1] >> 4), hi[2]]
+    tws2 = [np.ascontiguousarray(t[:, r]) for t, r in zip(tws2, rest)]
+    return [roots1[0], roots1[1]], list(tws1) + tws2
+
+
+def bconv_h_table(h: np.ndarray) -> np.ndarray:
+    """B_conv's h in the tile form: the (Q, P) spectrum in column pairs (P/2,
+    Q, 2), each column in chain 1's output positions (bconv_positions)."""
+    pairs = to_pairs(torch.from_numpy(np.ascontiguousarray(h))).numpy()
+    return np.ascontiguousarray(pairs[:, bconv_positions(), :])
+
+
+def to_pairs(a: torch.Tensor) -> torch.Tensor:
+    """(..., Q, P) -> the column-pair layout (..., P/2, Q, 2) of the tile
+    form: the (Q, 2) columns a B_conv tile holds are consecutive values."""
+    q, p = a.shape[-2:]
+    return a.reshape(*a.shape[:-1], p // 2, 2).transpose(-3, -2).contiguous()
+
+
+def from_pairs(a: torch.Tensor) -> torch.Tensor:
+    """The inverse of to_pairs: (..., P/2, Q, 2) -> (..., Q, P)."""
+    half, q = a.shape[-3:-1]
+    return a.transpose(-3, -2).reshape(*a.shape[:-3], q, 2 * half)
+
+
+def bconv_unit(u: int, batch: int) -> Tuple[int, int]:
+    """(tile, batch row) of unit u of B_conv's tile walk: batch rows fastest,
+    so that the blocks at work at one time share one or two tiles' slices
+    of h and outer (csrc/convlarge.cu bc_offset)."""
+    return u // batch, u % batch
+
+
+def bconv_grid(units: int, resident: int) -> int:
+    """Blocks of B_conv's persistent grid for `units` (batch * P/2) units
+    when the card holds `resident` blocks at once: every resident block, at
+    most one a unit.  Block g runs the units g, g + grid, ... below units
+    (bconv_unit)."""
+    if units < 1 or resident < 1:
+        raise ValueError(f"bconv_grid: units={units}, resident={resident}")
+    return min(units, resident)
+
+
+#: the tile kernels, by resident_blocks' index
+TILE_KERNELS = ("col", "row", "out")
+
+
+def resident_blocks(kind: str) -> int:
+    """The blocks of the tile form's kernel A ("col"), B_conv ("row") or A2
+    ("out") the current device holds at once."""
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.rf_bconv_resident_blocks(TILE_KERNELS.index(kind), ctypes.byref(out)),
+                 "bconv resident_blocks")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, kind: str) -> int:
+    with torch.cuda.device(device_index):
+        return resident_blocks(kind)
+
+
+def _resident_on(device: torch.device, kind: str) -> int:
+    return _resident(device.index if device.index is not None else torch.cuda.current_device(),
+                     kind)
+
+
+def _check_tile_form(p: int, q: int, what: str) -> None:
+    if not tile_form(p, q):
+        raise ValueError(f"{what}: P={p}, Q={q} is not the tile form ({TILE_P}, {TILE_Q})")
+
+
+def bconv_col_tile_plain(x: torch.Tensor, p: int, q: int, tables, pre) -> torch.Tensor:
+    """Plain torch version of bconv_col_tile."""
+    return to_pairs(conv_radix.conv_col_stage_plain(x, p, q, tables, pre)[0])
+
+
+def _col_tile_checks(x, p, q, tables, pre, what):
+    conv_radix._check_rows(x, f"{what} input")
+    _check_tile_form(p, q, what)
+    if not 0 < x.shape[1] <= p * q:
+        raise ValueError(f"{what}: n={x.shape[1]} not in [1, {p * q}]")
+    roots, tws, outer = tables
+    check_stage_tables(p, TILE_P, roots, tws, x.device, what)
+    for t, shape, name in ((outer, (q, p), "outer twiddle"), (pre, (p * q,), "pre")):
+        check_operand(t, shape, f"{what} {name}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} on {t.device}, input on {x.device}")
+
+
+def _col_tile_launch(x, p, q, tables, pre, what, stamps=None):
+    roots, tws, outer = tables
+    batch = x.shape[0]
+    a = torch.empty((batch, p // 2, q, 2), dtype=x.dtype, device=x.device)
+    grid, per = large.col_walk(batch * (q // 16), _resident_on(x.device, "col"))
+    lib = _build.load(phase_stamps=stamps is not None)
+    args = (x.data_ptr(), a.data_ptr(), batch, x.shape[1],
+            x.stride(0) if batch > 1 else x.shape[1], p, q, 2, 16, 16, roots[0].data_ptr(),
+            roots[1].data_ptr(), tws[0].data_ptr(), outer.data_ptr(), pre.data_ptr(), grid, per)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if stamps is None:
+            code = lib.rf_bconv_col_tile(*args, stream)
+        else:
+            code = lib.rf_bconv_col_tile_stamps(*args, stamps.data_ptr(), stream)
+    _build.check(lib, code, what)
+    return a
+
+
+def bconv_col_tile(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor) -> torch.Tensor:
+    """Kernel A of the tile form: x (batch, n) complex64, rows contiguous
+    (any stride between them) -> (batch, P/2, Q, 2) in column pairs: the
+    input zero-padded to m = P*Q, times pre, DFT_P over j1 and w_m^(k1*j2).
+
+    tables = (roots, tws, outer) from large.col_tables(P, Q, direction);
+    pre (m,) complex64, zero from n.  K2's persistent column-tile kernel
+    (csrc/col_tile.cuh) on col_walk's grid with a chirp source that copies
+    rows 8 bytes at a time where they are not 16-byte aligned, so a
+    misaligned input is never copied.
+    """
+    what = "bconv_col_tile"
+    _col_tile_checks(x, p, q, tables, pre, what)
+    if x.device.type == "cpu":
+        return bconv_col_tile_plain(x, p, q, tables, pre)
+    require_cuda(x, what)
+    if x.shape[0] == 0:
+        return torch.empty((0, p // 2, q, 2), dtype=x.dtype, device=x.device)
+    a = _col_tile_launch(x, p, q, tables, pre, what)
+    bconv_col_tile.launches += 1
+    return a
+
+
+#: kernel launches since the count was last set to 0
+bconv_col_tile.launches = 0
+
+
+def bconv_row_tile_plain(a: torch.Tensor, q: int, p: int, tables, h, outer) -> torch.Tensor:
+    """Plain torch version of bconv_row_tile, in natural order: FFT_Q of each
+    column by chain 1's stages, conj(. * h), FFT_Q, times outer."""
+    (r2, r16), tws = tables
+    roots = [r2, r16, r16, r16]
+    inv = torch.from_numpy(np.argsort(bconv_positions())).to(h.device)
+    h_nat = torch.index_select(h, -2, inv)
+    z = fft_stages_plain(a.transpose(-2, -1), BCONV_CHAIN1, roots, tws[:3])
+    z = torch.conj(z * h_nat.transpose(-2, -1)).resolve_conj()
+    u = fft_stages_plain(z, BCONV_CHAIN1, roots, tws[:3]) * outer.transpose(-2, -1)
+    return u.transpose(-2, -1).contiguous()
+
+
+def _row_tile_checks(a, q, p, tables, h, outer, what):
+    _check_tile_form(p, q, what)
+    if a.dim() != 4:
+        raise ValueError(f"{what}: expected (batch, P/2, Q, 2), got {tuple(a.shape)}")
+    check_operand(a, (a.shape[0], p // 2, q, 2), f"{what} input")
+    (r2, r16), tws = tables
+    check_operand(r2, (2,), f"{what} roots[0]")
+    check_operand(r16, (16,), f"{what} roots[1]")
+    shapes = [(2, 4096), (16, 256), (16, 16), (16, 512), (16, 32), (16, 2)]
+    if len(tws) != len(shapes):
+        raise ValueError(f"{what}: expected {len(shapes)} twiddle tables")
+    for i, (t, shape) in enumerate(zip(tws, shapes)):
+        check_operand(t, shape, f"{what} tws[{i}]")
+    for t in [r2, r16, *tws]:
+        if t.device != a.device:
+            raise ValueError(f"{what}: tables on {t.device}, input on {a.device}")
+    for t, name in ((h, "h"), (outer, "outer twiddle")):
+        check_operand(t, (p // 2, q, 2), f"{what} {name}")
+        if t.device != a.device:
+            raise ValueError(f"{what}: {name} on {t.device}, input on {a.device}")
+
+
+def _row_tile_launch(a, q, p, tables, h, outer, what, stamps=None):
+    (r2, r16), tws = tables
+    y = torch.empty_like(a)
+    src = large._aligned16(a)
+    grid = bconv_grid(a.shape[0] * (p // 2), _resident_on(a.device, "row"))
+    tw = (ctypes.c_void_p * len(tws))(*[t.data_ptr() for t in tws])  # host array of pointers
+    lib = _build.load(phase_stamps=stamps is not None)
+    args = (src.data_ptr(), y.data_ptr(), a.shape[0], p, r2.data_ptr(), r16.data_ptr(),
+            ctypes.addressof(tw), h.data_ptr(), outer.data_ptr(), grid)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        if stamps is None:
+            code = lib.rf_bconv_row_tile(*args, stream)
+        else:
+            code = lib.rf_bconv_row_tile_stamps(*args, stamps.data_ptr(), stream)
+    _build.check(lib, code, what)
+    return y
+
+
+def bconv_row_tile(a: torch.Tensor, q: int, p: int, tables, h: torch.Tensor,
+                   outer: torch.Tensor) -> torch.Tensor:
+    """B_conv of the tile form: a (batch, P/2, Q, 2) [j2, k1] in column
+    pairs -> the same layout [l1, k1]: FFT_Q, conj(. * h), FFT_Q, times
+    outer (bconv_row_stage on column pairs).
+
+    tables = bconv_chain_tables(direction) on a's device, Q = 8192; h
+    (P/2, Q, 2) from bconv_h_table, outer (P/2, Q, 2) (to_pairs of the (Q,
+    P) outer twiddle), complex64 on a's device.  A persistent grid of bconv_grid blocks, one
+    (Q, 2) tile of 128 KiB an SM.
+    """
+    what = "bconv_row_tile"
+    _row_tile_checks(a, q, p, tables, h, outer, what)
+    if a.device.type == "cpu":
+        return bconv_row_tile_plain(a, q, p, tables, h, outer)
+    require_cuda(a, what)
+    if a.shape[0] == 0:
+        return torch.empty_like(a)
+    y = _row_tile_launch(a, q, p, tables, h, outer, what)
+    bconv_row_tile.launches += 1
+    return y
+
+
+bconv_row_tile.launches = 0
+
+
+def bconv_out_tile_plain(b: torch.Tensor, p: int, q: int, tables, chirp, n: int) -> torch.Tensor:
+    """Plain torch version of bconv_out_tile."""
+    return bconv_out_stage_plain(from_pairs(b), p, q, tables, chirp, n)
+
+
+def _out_tile_checks(b, p, q, tables, chirp, n, what):
+    _check_tile_form(p, q, what)
+    if b.dim() != 4:
+        raise ValueError(f"{what}: expected (batch, P/2, Q, 2), got {tuple(b.shape)}")
+    check_operand(b, (b.shape[0], p // 2, q, 2), f"{what} input")
+    if not 0 < n <= p * q:
+        raise ValueError(f"{what}: n={n} not in [1, {p * q}]")
+    roots, tws = tables
+    check_stage_tables(p, TILE_P, roots, tws, b.device, what)
+    check_operand(chirp, (n,), f"{what} chirp")
+    if chirp.device != b.device:
+        raise ValueError(f"{what}: chirp on {chirp.device}, input on {b.device}")
+
+
+def _out_tile_launch(b, p, q, tables, chirp, n, what, stamps=None):
+    roots, tws = tables
+    y = torch.empty((b.shape[0], n), dtype=b.dtype, device=b.device)
+    src = large._aligned16(b)
+    grid, per = large.col_walk(b.shape[0] * (q // 16), _resident_on(b.device, "out"))
+    lib = _build.load(phase_stamps=stamps is not None)
+    args = (src.data_ptr(), y.data_ptr(), b.shape[0], q, n, n, 2, 16, 16, roots[0].data_ptr(),
+            roots[1].data_ptr(), tws[0].data_ptr(), chirp.data_ptr(), grid, per)
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        if stamps is None:
+            code = lib.rf_bconv_out_tile(*args, stream)
+        else:
+            code = lib.rf_bconv_out_tile_stamps(*args, stamps.data_ptr(), stream)
+    _build.check(lib, code, what)
+    return y
+
+
+def bconv_out_tile(b: torch.Tensor, p: int, q: int, tables, chirp: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """A2 of the tile form: b (batch, P/2, Q, 2) [l1, k1] in column pairs
+    -> (batch, n): out[l2*Q + l1] = chirp[l] * conj(DFT_P over k1) for l < n
+    (bconv_out_stage on column pairs).
+
+    tables = (roots, tws) of DFT_P = 16 x 16; chirp (n,) complex64.  A
+    persistent grid of col_walk blocks over (16-row tile, batch) units,
+    batch fastest.
+    """
+    what = "bconv_out_tile"
+    _out_tile_checks(b, p, q, tables, chirp, n, what)
+    if b.device.type == "cpu":
+        return bconv_out_tile_plain(b, p, q, tables, chirp, n)
+    require_cuda(b, what)
+    if b.shape[0] == 0:
+        return torch.empty((0, n), dtype=b.dtype, device=b.device)
+    y = _out_tile_launch(b, p, q, tables, chirp, n, what)
+    bconv_out_tile.launches += 1
+    return y
+
+
+bconv_out_tile.launches = 0
+
+
+#: the phases of the tile kernels' stamped forms (tools/torch_phase_times.py):
+#: kernel A's load with stage 0, stage 1 with the outer twiddle, the store in
+#: column pairs (large.COL_PHASES); B_conv's wait for its tile with chain 1
+#: and h, chain 2's first two stages, its last stage with the store (the next
+#: tile's copies started); A2's stage 0 (with the wait), stage 1, the store
+COL_TILE_PHASES = ("load+s0", "s1", "store")
+ROW_TILE_PHASES = ("load+chain1+h", "chain2 s0-s1", "s2+store")
+OUT_TILE_PHASES = ("load+s0", "s1", "store")
+
+
+def _stamps(x: torch.Tensor, kind: str, what: str) -> torch.Tensor:
     require_cuda(x, what)
     if x.shape[0] == 0:
         raise ValueError(f"{what}: an empty batch has no phases")
-    return torch.zeros((blocks, len(phases) + 1), dtype=torch.int64, device=x.device)
+    return torch.zeros((_resident_on(x.device, kind), 4), dtype=torch.int64, device=x.device)
 
 
-def bconv_row_phase_stamps(a: torch.Tensor, q: int, p: int, tables, h: torch.Tensor,
-                           outer: torch.Tensor):
-    """bconv_row_stage on the card through its stamped form (Q = 32 x 16 x
-    16 only; the RF_PHASE_STAMPS library, which no route loads): (y,
-    stamps), stamps (blocks, 5) int64 nanoseconds of %globaltimer, each
-    block's start and that start plus the running sums of BCONV_PHASES."""
-    what = "bconv_row_phase_stamps"
-    roots, tws = tables
-    pt = bconv_tile(q, p)
-    stamps = _stamps(a, a.shape[0] * (p // pt), BCONV_PHASES, what)
-    y = torch.empty_like(a)
-    lib = _build.load(phase_stamps=True)
-    with torch.cuda.device(a.device):
-        code = lib.rf_bconv_row_phase_stamps(
-            a.data_ptr(), y.data_ptr(), a.shape[0], q, p, pt,
-            *padded_stage_args(large.stage_radices(q), roots, tws), h.data_ptr(),
-            outer.data_ptr(), stamps.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(lib, code, what)
-    return y, stamps[stamps[:, 0] != 0]
-
-
-def bconv_out_phase_stamps(b: torch.Tensor, p: int, q: int, tables, chirp: torch.Tensor,
-                           n: int):
-    """bconv_out_stage through its stamped form, as bconv_row_phase_stamps:
-    (y, stamps (blocks, 4)) with OUT_PHASES."""
-    what = "bconv_out_phase_stamps"
-    roots, tws = tables
-    qt = out_tile(p, q)
-    stamps = _stamps(b, b.shape[0] * (q // qt), OUT_PHASES, what)
-    y = torch.empty((b.shape[0], n), dtype=b.dtype, device=b.device)
-    lib = _build.load(phase_stamps=True)
-    with torch.cuda.device(b.device):
-        code = lib.rf_bconv_out_phase_stamps(
-            b.data_ptr(), y.data_ptr(), b.shape[0], p, q, qt, n,
-            *padded_stage_args(large.stage_radices(p), roots, tws), chirp.data_ptr(),
-            stamps.data_ptr(), torch.cuda.current_stream(b.device).cuda_stream)
-    _build.check(lib, code, what)
-    return y, stamps[stamps[:, 0] != 0]
-
-
-def bconv_in_phase_stamps(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor):
-    """Kernel A (conv_col_stage with the chirp as pre, P = 16 x 16) through
-    its stamped form, as bconv_row_phase_stamps: (a, stamps (blocks, 4))
-    with IN_PHASES."""
-    what = "bconv_in_phase_stamps"
-    roots, tws, outer = tables
-    if large.stage_radices(p) != (16, 16) or q % 16:
-        raise ValueError(f"{what}: P={p}, Q={q} has no stamped form")
-    stamps = _stamps(x, x.shape[0] * (q // 16), IN_PHASES, what)
-    a = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
-    lib = _build.load(phase_stamps=True)
-    with torch.cuda.device(x.device):
-        code = lib.rf_conv_col_phase_stamps(
-            x.data_ptr(), a.data_ptr(), x.shape[0], x.shape[1], x.stride(0), p, q, 2, 16, 16,
-            roots[0].data_ptr(), roots[1].data_ptr(), tws[0].data_ptr(), outer.data_ptr(),
-            pre.data_ptr(), stamps.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, what)
+def bconv_col_tile_stamps(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor):
+    """bconv_col_tile on the card through its stamped form (the
+    RF_PHASE_STAMPS library, which no route loads): (a, stamps), stamps
+    (blocks, 4) int64 nanoseconds of %globaltimer, each block's start and
+    that start plus the running sums of COL_TILE_PHASES over its units."""
+    what = "bconv_col_tile_stamps"
+    _col_tile_checks(x, p, q, tables, pre, what)
+    stamps = _stamps(x, "col", what)
+    a = _col_tile_launch(x, p, q, tables, pre, what, stamps)
     return a, stamps[stamps[:, 0] != 0]
+
+
+def bconv_row_tile_stamps(a: torch.Tensor, q: int, p: int, tables, h: torch.Tensor,
+                          outer: torch.Tensor):
+    """bconv_row_tile through its stamped form, as bconv_col_tile_stamps:
+    (y, stamps) with ROW_TILE_PHASES."""
+    what = "bconv_row_tile_stamps"
+    _row_tile_checks(a, q, p, tables, h, outer, what)
+    stamps = _stamps(a, "row", what)
+    y = _row_tile_launch(a, q, p, tables, h, outer, what, stamps)
+    return y, stamps[stamps[:, 0] != 0]
+
+
+def bconv_out_tile_stamps(b: torch.Tensor, p: int, q: int, tables, chirp: torch.Tensor, n: int):
+    """bconv_out_tile through its stamped form, as bconv_col_tile_stamps:
+    (y, stamps) with OUT_TILE_PHASES."""
+    what = "bconv_out_tile_stamps"
+    _out_tile_checks(b, p, q, tables, chirp, n, what)
+    stamps = _stamps(b, "out", what)
+    y = _out_tile_launch(b, p, q, tables, chirp, n, what, stamps)
+    return y, stamps[stamps[:, 0] != 0]
 
 
 #: bconv_copy_probe's unit orders
@@ -338,16 +631,30 @@ def make_bluestein_large_fn(n: int, m: int, direction: FftDirection, dtype,
     roots_p, tws_p, outer = host["col"]
     roots_q, tws_q = host["row"]
     kp, kq = len(roots_p), len(roots_q)
+    tiled = tile_form(p, q)
+    h = host["h"]
+    bconv_outer = outer
+    if tiled:  # B_conv's chain and tables in column pairs
+        roots_q, tws_q = bconv_chain_tables(direction)
+        kq = len(roots_q)
+        h, bconv_outer = bconv_h_table(h), to_pairs(torch.from_numpy(outer)).numpy()
     tables = calg.DeviceTables([*roots_p, *tws_p, outer, *roots_q, *tws_q,
-                                host["pre"], host["h"], host["chirp"]])
+                                host["pre"], h, bconv_outer, host["chirp"]])
+
+    kt = len(tws_q)
 
     def apply(x):
         t = tables.on(x.device)
         col = (t[:kp], t[kp : 2 * kp - 1], t[2 * kp - 1])
-        row = (t[2 * kp : 2 * kp + kq], t[2 * kp + kq : 2 * kp + 2 * kq - 1])
-        pre, h, chirp = t[2 * kp + 2 * kq - 1 :]
-        a, _ = conv_radix.conv_col_stage(x.reshape(-1, n).contiguous(), p, q, col, pre=pre)
-        b = bconv_row_stage(a, q, p, row, h, col[2])
+        row = (t[2 * kp : 2 * kp + kq], t[2 * kp + kq : 2 * kp + kq + kt])
+        pre, h, bconv_outer, chirp = t[2 * kp + kq + kt :]
+        rows = x.reshape(-1, n)
+        if tiled:
+            a = bconv_col_tile(rows if rows.stride(-1) == 1 else rows.contiguous(), p, q, col, pre)
+            b = bconv_row_tile(a, q, p, row, h, bconv_outer)
+            return bconv_out_tile(b, p, q, col[:2], chirp, n).reshape(x.shape)
+        a, _ = conv_radix.conv_col_stage(rows.contiguous(), p, q, col, pre=pre)
+        b = bconv_row_stage(a, q, p, row, h, bconv_outer)
         return bconv_out_stage(b, p, q, col[:2], chirp, n).reshape(x.shape)
 
     return apply

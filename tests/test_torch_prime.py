@@ -585,10 +585,11 @@ def test_two_pass_bluestein_matches_plain_on_card(cuda_device, n, m):
         chirp, h_fft = bluestein.bluestein_tables(n, m, d)
         fn = conv_radix.make_radix_conv_fn(m, d, np.complex64, h=h_fft, pre=chirp, post=chirp,
                                            conj_out=True, n_in=n, n_out=n)
-        before = conv_radix.conv_row_stage.launches
+        # m = 16384 and 32768: the cluster form, one launch of each pass
+        before = conv_radix.conv_radix_pass2.launches
         got = fn(torch.from_numpy(x).to(cuda_device))
         torch.cuda.synchronize()
-        assert conv_radix.conv_row_stage.launches == before + 2
+        assert conv_radix.conv_radix_pass2.launches == before + 1
         assert _rel(got.cpu(), fn(torch.from_numpy(x))) <= VS_ORACLE
 
 
@@ -598,21 +599,24 @@ def test_two_pass_rader_matches_plain_on_card(cuda_device, p):
     x = _signal(2, p, seed=p)
     for d, _ in DIRECTIONS:
         fn = conv.make_raders_fn(p, d, np.complex64)
-        before = conv_radix.conv_col_stage.launches
+        # 65537 (m = 4 x 16384): the two cluster passes; 114689: four stages
+        counter, rise = ((conv_radix.conv_radix_pass1, 1) if p == 65537 else
+                         (conv_radix.conv_col_stage, 2))
+        before = counter.launches
         got = fn(torch.from_numpy(x).to(cuda_device))
         torch.cuda.synchronize()
-        assert conv_radix.conv_col_stage.launches == before + 2
+        assert counter.launches == before + rise
         assert _rel(got.cpu(), fn(torch.from_numpy(x))) <= VS_ORACLE
         assert _rel(got.cpu(), host_dft(x, d)) <= VS_ORACLE
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,counter,rise", [
-    (1009, "conv_fft", 1), (1234, "conv_fft", 1), (7919, "conv_row_stage", 2),
-    (65537, "conv_row_stage", 2), (263, "conv_fft", 1), (257, "permute", 2),
+    (1009, "conv_fft", 1), (1234, "conv_fft", 1), (7919, "conv_radix_pass2", 1),
+    (65537, "conv_radix_pass2", 1), (263, "conv_fft", 1), (257, "permute", 2),
 ])
 def test_prime_path_on_card(cuda_device, n, counter, rise):
-    fn = {"conv_fft": conv.conv_fft, "conv_row_stage": conv_radix.conv_row_stage,
+    fn = {"conv_fft": conv.conv_fft, "conv_radix_pass2": conv_radix.conv_radix_pass2,
           "permute": permute.permute}[counter]
     planner = rustfft_tpu_torch.FftPlanner(np.complex64, device="cuda")
     x = _signal(4, n, seed=n)
@@ -673,13 +677,14 @@ def test_huge_primes_match_oracle(n):
 @pytest.mark.parametrize("n", [746497, 1000003])
 def test_huge_primes_on_card(cuda_device, n):
     """746497: Rader on the two-pass core (two column and two row stages);
-    1000003: the fused large Bluestein (one column stage, B_conv, A2)."""
+    1000003: the fused large Bluestein's tile form (kernel A, B_conv, A2)."""
     from rustfft_tpu_torch.ops.kernels import convlarge
 
     counters = {"col": conv_radix.conv_col_stage, "row": conv_radix.conv_row_stage,
-                "bconv": convlarge.bconv_row_stage, "out": convlarge.bconv_out_stage}
-    rises = ({"col": 2, "row": 2, "bconv": 0, "out": 0} if n == 746497 else
-             {"col": 1, "row": 0, "bconv": 1, "out": 1})
+                "a": convlarge.bconv_col_tile, "bconv": convlarge.bconv_row_tile,
+                "out": convlarge.bconv_out_tile}
+    rises = ({"col": 2, "row": 2, "a": 0, "bconv": 0, "out": 0} if n == 746497 else
+             {"col": 0, "row": 0, "a": 1, "bconv": 1, "out": 1})
     planner = rustfft_tpu_torch.FftPlanner(np.complex64, device="cuda")
     x = _signal(2, n, seed=n)
     for d, _ in DIRECTIONS:

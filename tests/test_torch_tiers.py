@@ -257,16 +257,17 @@ def test_convlarge_stages_compose():
 
 
 def test_bconv_tiles():
-    """B_conv's tiles at the two K15 inner lengths: two columns each, on the
-    compile-time chain at Q = 8192 (where the general kernel's two buffers
-    hold one) and on the general kernel at Q = 6144; A2 stores 16 rows."""
+    """B_conv's tiles at the two K15 inner lengths: at Q = 8192 (m = 2^21)
+    the tile form (ops/kernels/convlarge.py tile_form: one (Q, 2) tile of
+    column pairs an SM, csrc/convlarge.cu bconv_tile_kernel), where the
+    general kernel's two buffers hold one column; at Q = 6144 two columns
+    on the general kernel; A2 stores 16 rows."""
     for m, q, general in ((1 << 21, 8192, 1), (1572864, 6144, 2)):
         p, q1, q2 = large.choose_pqq(m)
         assert (p, q1 * q2) == (256, q)
-        assert convlarge.bconv_tile(q, p) == 2
-        assert conv_radix.row_tile(q, p) == general
+        assert convlarge.bconv_tile(q, p) == conv_radix.row_tile(q, p) == general
+        assert convlarge.tile_form(p, q) == (q == 8192)
         assert convlarge.out_tile(p, q) == 16
-    assert convlarge.FIXED_BCONV == {large.stage_radices(8192): 2}
     assert convlarge.bconv_tile(8192, 3) == conv_radix.row_tile(8192, 3) == 1
 
 
@@ -380,10 +381,13 @@ def test_bconv_stages_match_plain_on_card(cuda_device, n, m):
     (127, {"dense_chain_fft": 1}), (251, {"dense_chain_fft": 1}),
     (15625, {"largepad_col_stage": 1, "largepad_row_stage": 1}),
     (78125, {"largepad_col_stage": 1, "largepad_row_stage": 1}),
-    (1000003, {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}),
+    (1000003, {"bconv_col_tile": 1, "bconv_row_tile": 1, "bconv_out_tile": 1}),
 ])
 def test_tiers_through_the_planner_on_card(cuda_device, n, rises):
     counters = {"dense_fft": dense.dense_fft, "dense_chain_fft": dense.dense_chain_fft,
+                "bconv_col_tile": convlarge.bconv_col_tile,
+                "bconv_row_tile": convlarge.bconv_row_tile,
+                "bconv_out_tile": convlarge.bconv_out_tile,
                 "largepad_col_stage": largepad.largepad_col_stage,
                 "largepad_row_stage": largepad.largepad_row_stage,
                 "bconv_row_stage": convlarge.bconv_row_stage,

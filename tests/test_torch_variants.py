@@ -511,13 +511,14 @@ def test_rader_core_stages_on_card(cuda_device, p, gauss):
     (65537, dict(rader_in_shift=True, conv_radix_gauss=True), {6: 2, 7: 2}),
     (7919, dict(conv_radix_gauss=True), {6: 2, 7: 2}),
     (15625, dict(large_gauss=True, conv_radix_gauss=True, rader_in_shift=True), {}),
-    (1000003, dict(large_gauss=True, conv_radix_gauss=True, rader_in_shift=True), {4: 1}),
+    (1000003, dict(large_gauss=True, conv_radix_gauss=True, rader_in_shift=True), {}),
 ], ids=["2^20-gauss", "2^20-2d", "65537-in_shift", "65537-gauss", "65537-both", "7919-gauss",
         "15625-all", "1000003-all"])
 def test_switched_paths_on_card(cuda_device, n, sw, rise, switches):
     """Each switched path launches exactly its stages: the Gauss stages
     under large_gauss / conv_radix_gauss, the default core under in_shift,
-    none of the eight counters' Gauss stages on large_pad or K15."""
+    none of the eight counters' stages on large_pad or K15 (its tile form
+    launches kernels of its own, convlarge.bconv_col_tile ...)."""
     switches(**sw)
     planner = FftPlanner(np.complex64, device="cuda")
     x = _signal(2, n, seed=n)

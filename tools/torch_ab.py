@@ -220,18 +220,25 @@ def run_one(root: str, groups=GROUPS) -> dict:
         row = tuple(on(v) for v in host["row"])
         pre, h, chirp = on([host[k] for k in ("pre", "h", "chirp")])
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
-        if hasattr(convlarge, "bconv_in_stage"):
-            kernel_a = lambda: convlarge.bconv_in_stage(x, p, q, col, pre)  # noqa: E731
+        if hasattr(convlarge, "tile_form"):  # the tile form, in column pairs
+            h2, outer2 = on([convlarge.bconv_h_table(host["h"])])[0], convlarge.to_pairs(col[2])
+            row = tuple(on(v) for v in convlarge.bconv_chain_tables(FftDirection.FORWARD))
+            kernel_a = lambda: convlarge.bconv_col_tile(x, p, q, col, pre)  # noqa: E731
+            a = kernel_a()
+            b_conv = lambda: convlarge.bconv_row_tile(a, q, p, row, h2, outer2)  # noqa: E731
+            b = b_conv()
+            a2 = lambda: convlarge.bconv_out_tile(b, p, q, col[:2], chirp, n)  # noqa: E731
         else:
             kernel_a = lambda: conv_radix.conv_col_stage(x, p, q, col, pre=pre)[0]  # noqa: E731
-        a = kernel_a()
-        b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
+            a = kernel_a()
+            b_conv = lambda: convlarge.bconv_row_stage(a, q, p, row, h, col[2])  # noqa: E731
+            b = b_conv()
+            a2 = lambda: convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n)  # noqa: E731
         out[f"K15 kernel A {batch}x{n}"] = ms(kernel_a, reps=15)
-        out[f"K15 B_conv {batch}x2^21"] = ms(
-            lambda: convlarge.bconv_row_stage(a, q, p, row, h, col[2]), reps=15)
-        out[f"K15 A2 {batch}x2^21"] = ms(
-            lambda: convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n), reps=15)
+        out[f"K15 B_conv {batch}x2^21"] = ms(b_conv, reps=15)
+        out[f"K15 A2 {batch}x2^21"] = ms(a2, reps=15)
         del x
+        a = a.reshape(batch, -1, p)  # the probe's (batch, Q, P) view of the same bytes
         if hasattr(convlarge, "bconv_copy_probe"):
             for order in convlarge.PROBE_ORDERS:
                 if not torch.equal(convlarge.bconv_copy_probe(a, q, p, order), a):

@@ -18,9 +18,10 @@ sends it to lanepack, to K5's chain form where it sends it to dense (a
 prime from 29), and 32768:2048 and 262144:256 to K9's radix kernel (r = 2
 and 16; any n the route sends to radix goes there), and 1048576:64 to
 K2's and K3's persistent tile kernels (any n the route sends to large
-whose split is (256, 64, 64)), and 1000003:64 to K15's three kernels (any
-n whose plan is a Bluestein on the fused large Bluestein: kernel A, B_conv
-and A2, convlarge.IN_PHASES, BCONV_PHASES, OUT_PHASES).  For each shape it
+whose split is (256, 64, 64)), and 1000003:64 to K15's three tile kernels (any
+n whose plan is a Bluestein on the fused large Bluestein's tile form:
+kernel A, B_conv and A2, convlarge.COL_TILE_PHASES, ROW_TILE_PHASES,
+OUT_TILE_PHASES).  For each shape it
 runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
 fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps,
 largepad.largepad_col_phase_stamps and largepad_row_phase_stamps,
@@ -229,8 +230,8 @@ def large_phases(n: int, batch: int, gen) -> None:
 
 
 def bluestein_large_phases(n: int, m: int, batch: int, gen) -> None:
-    """K15's three kernels (the fused large Bluestein of length n at inner
-    m) at n x batch through their stamped forms."""
+    """K15's three tile kernels (the fused large Bluestein of length n at an
+    inner m of the tile form) at n x batch through their stamped forms."""
     import torch
 
     from rustfft_tpu_torch.common import FftDirection
@@ -244,19 +245,23 @@ def bluestein_large_phases(n: int, m: int, batch: int, gen) -> None:
 
     p, q1, q2 = large.choose_pqq(m)
     q = q1 * q2
+    if not convlarge.tile_form(p, q):
+        raise SystemExit(f"n={n}: m={m} = {p} x {q} does not run the tile form")
     host = convlarge.bconv_tables(n, m, p, q, FftDirection.FORWARD)
-    col, row = card(host["col"]), card(host["row"])
-    pre, h, chirp = (torch.from_numpy(host[k]).to(dev) for k in ("pre", "h", "chirp"))
+    col, row = card(host["col"]), card(convlarge.bconv_chain_tables(FftDirection.FORWARD))
+    pre, chirp = (torch.from_numpy(host[k]).to(dev) for k in ("pre", "chirp"))
+    h = torch.from_numpy(convlarge.bconv_h_table(host["h"])).to(dev)
+    outer = convlarge.to_pairs(col[2])
     x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
-    a = convlarge.bconv_in_stage(x, p, q, col, pre)
-    b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
+    a = convlarge.bconv_col_tile(x, p, q, col, pre)
+    b = convlarge.bconv_row_tile(a, q, p, row, h, outer)
     for what, stamped_fn, fn, args, phases in (
-            ("kernel A", convlarge.bconv_in_phase_stamps, convlarge.bconv_in_stage,
-             (x, p, q, col, pre), convlarge.IN_PHASES),
-            ("B_conv", convlarge.bconv_row_phase_stamps, convlarge.bconv_row_stage,
-             (a, q, p, row, h, col[2]), convlarge.BCONV_PHASES),
-            ("A2", convlarge.bconv_out_phase_stamps, convlarge.bconv_out_stage,
-             (b, p, q, col[:2], chirp, n), convlarge.OUT_PHASES)):
+            ("kernel A", convlarge.bconv_col_tile_stamps, convlarge.bconv_col_tile,
+             (x, p, q, col, pre), convlarge.COL_TILE_PHASES),
+            ("B_conv", convlarge.bconv_row_tile_stamps, convlarge.bconv_row_tile,
+             (a, q, p, row, h, outer), convlarge.ROW_TILE_PHASES),
+            ("A2", convlarge.bconv_out_tile_stamps, convlarge.bconv_out_tile,
+             (b, p, q, col[:2], chirp, n), convlarge.OUT_TILE_PHASES)):
         stamped_fn(*args)  # warm-up (and the stamped library's build)
         y, stamps = stamped_fn(*args)
         torch.cuda.synchronize()

@@ -9,7 +9,9 @@ Default sources: fused.cu, largepad.cu and largepad_row.cu (K7's and K12's
 kernels, which include csrc/inplace_chain.cuh).  Each source of each
 checkout is compiled with the build's own flags (one nvcc each, in
 parallel), disassembled with cuobjdump -sass, and the two listings are
-compared line by line with the instruction addresses stripped; it
+compared line by line with the instruction addresses stripped and runs
+of white space made one (cuobjdump pads its columns to the longest line
+of the file, so a kernel added to a source shifts every line's padding); it
 prints, per source, the SASS lines of each side and how many differ (at
 the same position, plus the difference in length).  0 means the kernels are
 the same instructions, so a difference in their times is not the code's.
@@ -92,7 +94,7 @@ def main() -> None:
             for tag in ("old", "new"):
                 out = subprocess.run([cuobjdump(), "-sass", jobs[(src, tag)][0]],
                                      capture_output=True, text=True, check=True).stdout
-                listings.append([re.sub(r"/\*[0-9a-f]+\*/", "", line)
+                listings.append([" ".join(re.sub(r"/\*[0-9a-f]+\*/", "", line).split())
                                  for line in out.splitlines() if line.strip()])
             old_lines, new_lines = listings
             print(f"{src}: {len(listings[0])} / {len(listings[1])} SASS lines; "
