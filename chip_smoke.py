@@ -19,8 +19,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    both walks ragged, each grid printed, 32768 x 3, and each stage on a
    view 8 bytes into its storage, which the wrapper copies), the one-pass convolution core at m = 1008 (the Rader
    1009 shape) and m = 3072 (the Bluestein 1234 shape) with its tables and
-   conj off and on, the two-pass core stage by stage at m = 65536 (Rader
-   65537: gathers, x0, sums, full output) and m = 16384 (Bluestein 7919),
+   conj off and on, the two-pass core's cluster passes within 1e-6 at
+   65537 x 1 and x 3 (Rader: gather, sums, scatter, x0, full output) and
+   7919 x 1 and x 5 (Bluestein), and its four stages stage by stage at m =
+   65536 and 16384 (the form 746497 and the switches run),
    and the permutation at m = 1008 and 114688 and on both sides of its
    shared-memory cut-over (permute.SMEM_ROW_MAX = 29056 through shared
    memory, 29057 direct);
@@ -47,9 +49,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the two ragged-tile stages of large_pad (K12's in-place chain) within
    1e-6 at PAD_CHECKS: every stage kind (register, direct sum, Bluestein at
    M = 64 .. 1024) and a ragged last tile on both axes (17161 counts into
-   the 412519 entries), and the fused large Bluestein's three kernels
-   at m = 2^21 (n = 1000003) and m = 1572864 (n = 746497), with the result
-   against the float64 oracle.  The kernel-variant switches: K4's Gauss
+   the 412519 entries), and the fused large Bluestein's three kernels:
+   the tile form's within 1e-6 at 1000003 x 1 and x 3, the general form's at
+   m = 1572864 (n = 746497) and 49152 (24571), with the result against the
+   float64 oracle.  The kernel-variant switches: K4's Gauss
    column and row stages at 2^20 x 1 and x 64, deep_a and blocks2d bit-equal
    to the default at 2^20 x 64, and the two-pass core's Gauss stages and
    in_shift column stage stage by stage at m = 65536 (Rader) and 16384
@@ -61,7 +64,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    14400 x 4096, n = 2^20 at batch 1024
    (the flagship n; batch cut from 4096 so that input, intermediate and
    output fit the card), the prime path at 1009 x 8192, 1234 x 8192,
-   7919 x 4096 and 65537 x 512 (the JAX bench's rows and the 7919 cell),
+   7919 x 4096 and 65537 x 512 (the JAX bench's rows and the 7919 cell;
+   their cluster passes also at 7919 x 1 and x 5, 65537 x 1 and x 3),
    the top band at 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX bench's rows)
    and 2^26 x 2, and the mid band at 16384 x 4096 and 24576 x 2048
    (two_stage), 14464 and 16256 x 4096 and 28544 x 2048 (two_stage with a
@@ -72,9 +76,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    2^20, 127 x 262144 and 251 x 131072 (dense, K5's chain form) and 23 x
    2^21 (dense, the product), the odd composites 15625 x 4096, 78125 x 512,
    177147 x 256 and 531441 x 64 and the route's bulk 234617 x 256, 775575
-   x 64, 412519 x 128 and 50666 x 1024 (large_pad), 1000003 x 64 and 24571 x 2048
-   (the fused large Bluestein; 24571's inner m = 49152 is on the cluster
-   band) and 746497 x 64 (the recipe the planner designs).  Then the
+   x 64, 412519 x 128 and 50666 x 1024 (large_pad), 1000003 x 64, x 1 and
+   x 3 (the fused large Bluestein's tile form) and 24571 x 2048 (its
+   general form; 24571's inner m = 49152 is on the cluster band) and
+   746497 x 64 (the recipe the planner designs).  Then the
    switched paths, each switch set just before its plans are made and set
    back in a `finally`: 2^20 x 1024 under config.large_gauss (the Gauss
    stages), under config.large_blocks2d and through
@@ -122,8 +127,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    large_pad stage against its plain version (within 1e-6), its bound,
    the operations its chain spends and large's stage at one-column tiles, and each
    large_pad path against the large route and torch.fft; the fused large
-   Bluestein's kernels at 1000003 x 64 and the path against the two-pass
-   core and torch.fft; 746497 x 64 as Raders(746496) on the two-pass core
+   Bluestein's tile kernels at 1000003 x 64 (within 1e-6) and the path
+   against the two-pass core and torch.fft, its general B_conv and A2 at
+   24571 x 2048; the two-pass core's cluster passes at 65537 x 512 and
+   7919 x 4096 (within 1e-6); 746497 x 64 as Raders(746496) on the two-pass core
    and as Bluesteins(746497, 1572864) on the fused large Bluestein.  The
    switches: K4's Gauss stages at 64 x 2^20 against the default stages,
    their plain versions, their bound (that of the default stages, with the
@@ -208,6 +215,11 @@ PAD_CHECKS = (78125, 177147, 531441, 17161, 234617, 775575, 412519, 50666)
 #: the fused large Bluestein's paths (K15): the prime n -> (inner m, batch)
 BLUE = {1000003: (1 << 21, 64)}
 
+#: the primes whose two-pass core runs the cluster passes (K14 at m =
+#: r*16384): the Rader 65537 (m = 65536) and the Bluestein 7919 (m = 16384)
+#: -> batch
+CLUSTER_PRIMES = {65537: 512, 7919: 4096}
+
 #: kernels ported and checked but on no route (the JAX package routes none
 #: of them either)
 NOT_ROUTED = {"three_stage_fft"}
@@ -273,13 +285,24 @@ for _n in PAD:
                                            "rustfft_tpu/ops/pallas/largepad.py:109")
     KERNELS[f"largepad_row_stage/{_n}"] = ("rustfft_tpu_torch/csrc/largepad.cu",
                                            "rustfft_tpu/ops/pallas/largepad.py:134")
-for _n in BLUE:
-    KERNELS[f"conv_col_stage/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+for _n in BLUE:  # the tile form (convlarge.tile_form)
+    KERNELS[f"bconv_col_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                        "rustfft_tpu/ops/pallas/large.py:60")
-    KERNELS[f"bconv_row_stage/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
-                                        "rustfft_tpu/ops/pallas/convlarge.py:72")
-    KERNELS[f"bconv_out_stage/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
-                                        "rustfft_tpu/ops/pallas/convlarge.py:99")
+    KERNELS[f"bconv_row_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
+                                       "rustfft_tpu/ops/pallas/convlarge.py:72")
+    KERNELS[f"bconv_out_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
+                                       "rustfft_tpu/ops/pallas/convlarge.py:99")
+#: K15's general form at 24571 (Q = 192; its kernel A is conv_col_stage)
+KERNELS["bconv_row_stage/24571"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
+                                    "rustfft_tpu/ops/pallas/convlarge.py:72")
+KERNELS["bconv_out_stage/24571"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
+                                    "rustfft_tpu/ops/pallas/convlarge.py:99")
+#: K14's cluster passes (m = r*16384 on the radix body) at each of their paths
+for _n in CLUSTER_PRIMES:
+    KERNELS[f"conv_radix_pass1/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                         "rustfft_tpu/ops/pallas/conv_radix.py:70")
+    KERNELS[f"conv_radix_pass2/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                         "rustfft_tpu/ops/pallas/conv_radix.py:70")
 #: the kernel-variant switches: K4's Gauss stages, K14's stages in the Gauss
 #: form, and K14's column stage on the raw Rader rows (in_shift; its launches
 #: are conv_col_stage's on the 65537 in_shift path, pass 1 and pass 2)
@@ -499,6 +522,39 @@ def main() -> None:
         host = convlarge.bconv_tables(n, m, p, q, d)
         return (p, q, card_tables(host["col"]), card_tables(host["row"]),
                 *(torch.from_numpy(host[k]).to(dev) for k in ("pre", "h", "chirp")))
+
+    def bconv_tile_card(n, m, d, col):
+        """B_conv's tables of the tile form on the card: (its chain's
+        tables, h in chain 1's output positions, the outer twiddle), both
+        in column pairs."""
+        host = convlarge.bconv_tables(n, m, *col[2].shape[::-1], d)
+        return (card_tables(convlarge.bconv_chain_tables(d)),
+                torch.from_numpy(convlarge.bconv_h_table(host["h"])).to(dev),
+                convlarge.to_columns(col[2]))
+
+    def cluster_card(n, d):
+        """(m, r, the radix body's tables, pass 1's and pass 2's keywords, n_in,
+        n_out) of the two-pass core of the prime n on its cluster passes, on
+        the card: 65537 the Rader core (gather, sums, scatter; pass 2's x0
+        and partials are the caller's), 7919 the Bluestein core."""
+        if n == 65537:
+            m = n - 1
+            perm_in, inv_gather, b_fft = raders_tables(n, d)
+            tabs = conv_radix.radix_conv_tables(m, d, h=b_fft, in_perm=perm_in - 1,
+                                                out_perm=inv_gather)
+            kw1 = dict(perm=torch.from_numpy(tabs["perm"]).to(dev), emit_sum=True)
+            kw2 = dict(conj_out=True, scatter=torch.from_numpy(tabs["scatter"]).to(dev))
+            n_in = n_out = m
+        else:
+            m = 16384
+            chirp, h_fft = bluestein_tables(n, m, d)
+            tabs = conv_radix.radix_conv_tables(m, d, h=h_fft, pre=chirp, post=chirp)
+            kw1 = dict(pre=torch.from_numpy(tabs["pre"]).to(dev))
+            kw2 = dict(conj_out=True, post=torch.from_numpy(tabs["post"]).to(dev))
+            n_in = n_out = n
+        kw1["h"] = torch.from_numpy(tabs["h"]).to(dev)
+        r = conv_radix.cluster_form(m)
+        return m, r, card_tables(conv_radix.cluster_tables(r, d)), kw1, kw2, n_in, n_out
 
     directions = (FftDirection.FORWARD, FftDirection.INVERSE)
 
@@ -903,30 +959,79 @@ def main() -> None:
             note(f"largepad_row_stage/{key}", y, largepad.largepad_row_stage_plain(a, q, p, row),
                  f"largepad_row_stage n={n} Q={q} {rq} Bluestein {fused.bluestein_ms(rq)} P={p} "
                  f"tile {pt} (last {p % pt or pt}) batch=2 {d.name}", K7_TOL)
-    for n, m in ((1000003, 1 << 21), (746497, routed_bluestein_inner(746497, np.complex64))):
-        x = signal(2, n)
-        key = n if n in BLUE else next(iter(BLUE))
-        for d in directions:
+    # the fused large Bluestein: the tile form's kernels at 1000003 x 1 and
+    # x 3 (within 1e-6 of plain), the general form's at the inner lengths
+    # of 746497 (m = 1572864) and 24571 (m = 49152)
+    for n, m, batches in ((1000003, 1 << 21, (1, 3)),
+                          (746497, routed_bluestein_inner(746497, np.complex64), (2,)),
+                          (24571, 49152, (2,))):
+        for batch, d in ((b, d) for b in batches for d in directions):
+            x = signal(batch, n)
             p, q, col, row, pre, h, chirp = bconv_card(n, m, d)
-            what = f"n={n} m={m} P={p} Q={q} batch=2 {d.name}"
-            a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
-            torch.cuda.synchronize()
-            note(f"conv_col_stage/{key}", a, conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0],
-                 f"conv_col_stage (kernel A) {what}")
-            b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
-            torch.cuda.synchronize()
-            note(f"bconv_row_stage/{key}", b,
-                 convlarge.bconv_row_stage_plain(a, q, p, row, h, col[2]), f"bconv_row_stage {what}")
-            out = convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n)
-            torch.cuda.synchronize()
-            note(f"bconv_out_stage/{key}", out,
-                 convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n),
-                 f"bconv_out_stage {what}")
+            what = f"n={n} m={m} P={p} Q={q} batch={batch} {d.name}"
+            if convlarge.tile_form(p, q):
+                trow, th, touter = bconv_tile_card(n, m, d, col)
+                a = convlarge.bconv_col_tile(x, p, q, col, pre)
+                torch.cuda.synchronize()
+                note(f"bconv_col_tile/{n}", a, convlarge.bconv_col_tile_plain(x, p, q, col, pre),
+                     f"bconv_col_tile (kernel A) {what}", K7_TOL)
+                b = convlarge.bconv_row_tile(a, q, p, trow, th, touter)
+                torch.cuda.synchronize()
+                note(f"bconv_row_tile/{n}", b,
+                     convlarge.bconv_row_tile_plain(a, q, p, trow, th, touter),
+                     f"bconv_row_tile (B_conv) {what}", K7_TOL)
+                out = convlarge.bconv_out_tile(b, p, q, col[:2], chirp, n)
+                torch.cuda.synchronize()
+                note(f"bconv_out_tile/{n}", out,
+                     convlarge.bconv_out_tile_plain(b, p, q, col[:2], chirp, n),
+                     f"bconv_out_tile (A2) {what}", K7_TOL)
+            else:
+                a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
+                torch.cuda.synchronize()
+                note("conv_col_stage", a, conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0],
+                     f"conv_col_stage (kernel A) {what}")
+                b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
+                torch.cuda.synchronize()
+                note("bconv_row_stage/24571", b,
+                     convlarge.bconv_row_stage_plain(a, q, p, row, h, col[2]),
+                     f"bconv_row_stage {what}")
+                out = convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n)
+                torch.cuda.synchronize()
+                note("bconv_out_stage/24571", out,
+                     convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n),
+                     f"bconv_out_stage {what}")
             check(f"fused large Bluestein {what} vs float64 oracle",
                   rel_err(out.cpu().to(torch.complex128),
                           torch.from_numpy(host_dft(x.cpu().numpy(), d))))
-    del x, got, a, y, b, out
-    free()
+            del x, a, b, out
+            free()
+
+    # K14's cluster passes at 65537 x 1 and x 3 (the Rader core: gather,
+    # sums, scatter, full_out) and 7919 x 1 and x 5 (the Bluestein core),
+    # within 1e-6 of plain
+    for n, batches in ((65537, (1, 3)), (7919, (1, 5))):
+        for batch, d in ((b, d) for b in batches for d in directions):
+            m, r, radix, kw1, kw2, n_in, n_out = cluster_card(n, d)
+            x = signal(batch, n_in)
+            what = f"n={n} m={m} (r = {r}) batch={batch} {d.name}"
+            z, part = conv_radix.conv_radix_pass1(x, m, radix, **kw1)
+            torch.cuda.synchronize()
+            z_p, part_p = conv_radix.conv_radix_pass1_plain(x, m, r, radix, kw1["h"],
+                                                            kw1.get("pre"), kw1.get("perm"),
+                                                            kw1.get("emit_sum", False))
+            note(f"conv_radix_pass1/{n}", z, z_p, f"conv_radix_pass1 {what}", K7_TOL)
+            if part is not None:
+                check(f"conv_radix_pass1 partial sums {what}", rel_err(part, part_p), K7_TOL)
+                check(f"conv_radix_pass1 partial sums {what} vs sum(x)",
+                      rel_err(part.sum(dim=1), x.sum(dim=1)))
+                kw2 = dict(kw2, x0=signal(batch, 1).reshape(-1), partials=part)
+            y = conv_radix.conv_radix_pass2(z, m, radix, n_out, **kw2)
+            torch.cuda.synchronize()
+            note(f"conv_radix_pass2/{n}", y,
+                 conv_radix.conv_radix_pass2_plain(z, m, r, radix, n_out, **kw2),
+                 f"conv_radix_pass2 {what}", K7_TOL)
+            del x, z, part, y
+            free()
 
     # ---- phase 3: the main path through the public entry ----
     print(f"phase 3: main path, FftPlanner(np.complex64, device='cuda') (t = "
@@ -952,6 +1057,11 @@ def main() -> None:
                 "largepad_row_stage": largepad.largepad_row_stage,
                 "bconv_row_stage": convlarge.bconv_row_stage,
                 "bconv_out_stage": convlarge.bconv_out_stage,
+                "bconv_col_tile": convlarge.bconv_col_tile,
+                "bconv_row_tile": convlarge.bconv_row_tile,
+                "bconv_out_tile": convlarge.bconv_out_tile,
+                "conv_radix_pass1": conv_radix.conv_radix_pass1,
+                "conv_radix_pass2": conv_radix.conv_radix_pass2,
                 "large_col_stage_gauss": large.large_col_stage_gauss,
                 "large_row_stage_gauss": large.large_row_stage_gauss,
                 "conv_col_stage_gauss": conv_radix.conv_col_stage_gauss,
@@ -966,7 +1076,11 @@ def main() -> None:
     assert [route(n, np.complex64) for n in LANE] == ["lanepack"] * len(LANE)
     assert [route(n, np.complex64) for n in PAD] == ["large_pad"] * len(PAD)
     assert route(10 ** 6, np.complex64) == "large"
-    k15 = {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}
+    # the fused large Bluestein's tile form (1000003) and its general form
+    # (24571); the two-pass core's cluster passes (65537, 7919)
+    k15 = {"bconv_col_tile": 1, "bconv_row_tile": 1, "bconv_out_tile": 1}
+    k15_general = {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}
+    k14 = {"conv_radix_pass1": 1, "conv_radix_pass2": 1}
     for n, (m, _) in BLUE.items():
         recipe = planner.plan_fft_forward(n).recipe
         assert isinstance(recipe, recipes.Bluesteins) and recipe.inner.length == m, recipe
@@ -978,7 +1092,7 @@ def main() -> None:
         on a two-pass kernel: the fused large Bluestein, or Rader on the
         two-pass core."""
         if isinstance(planner.plan_fft_forward(n).recipe, recipes.Bluesteins):
-            return k15
+            return k15_general
         return {"conv_col_stage": 2, "conv_row_stage": 2}
     main_launches = {name: 0 for name in counters}
     path_launches = {}
@@ -1014,8 +1128,8 @@ def main() -> None:
         (1 << 20, 1024, {"large_col_stage": 1, "large_row_stage": 1}),
         (1009, 8192, {"conv_fft": 1, "permute": 2}),
         (1234, 8192, {"conv_fft": 1}),
-        (7919, 4096, {"conv_col_stage": 2, "conv_row_stage": 2}),
-        (65537, 512, {"conv_col_stage": 2, "conv_row_stage": 2}),
+        (7919, 4096, k14), (7919, 1, k14), (7919, 5, k14),
+        (65537, 512, k14), (65537, 1, k14), (65537, 3, k14),
         *((n, batch, {"large2f_col_stage": 1, "large_row_stage": 1} if n < 1 << 26 else
            {"large3_col_stage": 1, "large3_p2": 1, "large_row_stage": 1})
           for n, batch in TOP.items()),
@@ -1028,7 +1142,8 @@ def main() -> None:
         *((n, batch, {"largepad_col_stage": 1, "largepad_row_stage": 1})
           for n, batch in PAD.items()),
         *((n, batch, k15) for n, (_, batch) in BLUE.items()),
-        (24571, 2048, k15),
+        *((n, batch, k15) for n in BLUE for batch in (1, 3)),
+        (24571, 2048, k15_general),
         (746497, 64, prime_launches(746497)),
     )
     def drive(key, n, batch, expected, fwd, inv, what, same_as=None):
@@ -1258,16 +1373,18 @@ def main() -> None:
     del x
     free()
 
-    # the two-pass core's stages at the Bluestein 7919 x 4096 shape, against
-    # their plain versions
+    # the two-pass core's four stages (which 7919 and 65537 ran before their
+    # cluster passes, and 746497 runs) at the Bluestein 7919 x 4096 shape,
+    # against their plain versions
     n, m = 7919, 16384
     chirp, h_fft = bluestein_tables(n, m, FftDirection.FORWARD)
     tabs = conv_radix.radix_conv_tables(m, FftDirection.FORWARD, h=h_fft, pre=chirp, post=chirp)
     two_pass_stages(signal(4096, n), m, FftDirection.FORWARD, tabs,
-                    "m=16384 Bluestein 7919 batch=4096 (the main path's shape)", n, conj_out=True)
+                    "m=16384 Bluestein 7919 batch=4096 (the four stages)", n, conj_out=True)
     free()
 
-    # the two-pass core's stages at the Rader 65537 x 512 shape
+    # the two-pass core's four stages at the Rader 65537 x 512 shape (its
+    # in_shift and Gauss paths' form)
     m, batch = 65536, 512
     p, q = conv_radix.choose_split(m)
     perm_in, inv_gather, b_fft = raders_tables(m + 1, FftDirection.FORWARD)
@@ -1282,7 +1399,7 @@ def main() -> None:
     x0 = signal(batch, 1).reshape(-1)
     a, part = conv_radix.conv_col_stage(x, p, q, col, perm=perm, emit_sum=True)
     a_p, part_p = conv_radix.conv_col_stage_plain(x, p, q, col, None, perm, True)
-    what = f"m={m} Rader batch={batch} (the main path's shape)"
+    what = f"m={m} Rader batch={batch} (the four stages)"
     note("conv_col_stage", a, a_p, f"conv_col_stage pass 1 {what}")
     check(f"conv_col_stage partial sums {what}", rel_err(part, part_p))
     del a_p, part_p
@@ -1791,40 +1908,42 @@ def main() -> None:
         del x
         free()
 
-    # the fused large Bluestein at its path's shape: kernel A, B_conv and A2
-    # against their plain versions and bounds; the path against the
-    # two-pass core it replaced and torch.fft
+    # the fused large Bluestein at its path's shape: the tile form's kernel
+    # A, B_conv and A2 against their plain versions and bounds; the path
+    # against the two-pass core it replaced and torch.fft
     for n, (m, batch) in BLUE.items():
         x = signal(batch, n)
         p, q, col, row, pre, h, chirp = bconv_card(n, m, fwd)
+        trow, th, touter = bconv_tile_card(n, m, fwd, col)
         what = f"n={n} m={m} P={p} Q={q} batch={batch} (the main path's shape)"
-        name = f"conv_col_stage/{n}"
-        a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
-        note(name, a, conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0], f"{name} {what}")
+        name = f"bconv_col_tile/{n}"
+        a = convlarge.bconv_col_tile(x, p, q, col, pre)
+        note(name, a, convlarge.bconv_col_tile_plain(x, p, q, col, pre), f"{name} {what}",
+             K7_TOL)
         free()
-        k = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col, pre=pre))
-        plain = median_ms(lambda: conv_radix.conv_col_stage_plain(x, p, q, col, pre))
+        k = median_ms(lambda: convlarge.bconv_col_tile(x, p, q, col, pre))
+        plain = median_ms(lambda: convlarge.bconv_col_tile_plain(x, p, q, col, pre))
         record(name, k, plain, 8 * batch * (n + m) + table_bytes(col[:2]) + 16 * m,
                batch * m * (fft_ops(p) / p + 12))
-        name = f"bconv_row_stage/{n}"
-        b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
-        note(name, b, convlarge.bconv_row_stage_plain(a, q, p, row, h, col[2]), f"{name} {what}")
+        name = f"bconv_row_tile/{n}"
+        b = convlarge.bconv_row_tile(a, q, p, trow, th, touter)
+        note(name, b, convlarge.bconv_row_tile_plain(a, q, p, trow, th, touter), f"{name} {what}",
+             K7_TOL)
         free()
-        k = median_ms(lambda: convlarge.bconv_row_stage(a, q, p, row, h, col[2]))
-        plain = median_ms(lambda: convlarge.bconv_row_stage_plain(a, q, p, row, h, col[2]))
-        print(f"  {name} tile {convlarge.bconv_tile(q, p)}: {16 * batch * m / (k * 1e6):.0f} GB/s",
-              flush=True)
-        record(name, k, plain, 16 * batch * m + table_bytes(row) + 16 * m,
+        k = median_ms(lambda: convlarge.bconv_row_tile(a, q, p, trow, th, touter))
+        plain = median_ms(lambda: convlarge.bconv_row_tile_plain(a, q, p, trow, th, touter))
+        print(f"  {name}: {16 * batch * m / (k * 1e6):.0f} GB/s", flush=True)
+        record(name, k, plain, 16 * batch * m + table_bytes(trow) + 16 * m,
                batch * (2 * p * fft_ops(q) + 12 * m))
         del a
-        name = f"bconv_out_stage/{n}"
-        out = convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n)
-        note(name, out, convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n),
-             f"{name} {what}")
+        name = f"bconv_out_tile/{n}"
+        out = convlarge.bconv_out_tile(b, p, q, col[:2], chirp, n)
+        note(name, out, convlarge.bconv_out_tile_plain(b, p, q, col[:2], chirp, n),
+             f"{name} {what}", K7_TOL)
         del out
         free()
-        k = median_ms(lambda: convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n))
-        plain = median_ms(lambda: convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n))
+        k = median_ms(lambda: convlarge.bconv_out_tile(b, p, q, col[:2], chirp, n))
+        plain = median_ms(lambda: convlarge.bconv_out_tile_plain(b, p, q, col[:2], chirp, n))
         record(name, k, plain, 8 * batch * (m + n) + table_bytes(col[:2]) + 8 * n,
                batch * (q * fft_ops(p) + 6 * n))
         del b
@@ -1842,6 +1961,74 @@ def main() -> None:
               f"({gflops(n, batch, old):.0f} GF/s); torch.fft {ref:.3f} ms "
               f"({gflops(n, batch, ref):.0f} GF/s)", flush=True)
         del x
+        free()
+
+    # the fused large Bluestein's general form at 24571 x 2048 (Q = 192):
+    # B_conv and A2 against their plain versions and bounds
+    n, batch = 24571, 2048
+    m = planner.plan_fft_forward(n).recipe.inner.length
+    x = signal(batch, n)
+    p, q, col, row, pre, h, chirp = bconv_card(n, m, fwd)
+    what = f"n={n} m={m} P={p} Q={q} batch={batch} (the main path's shape)"
+    a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
+    del x
+    name = "bconv_row_stage/24571"
+    b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
+    note(name, b, convlarge.bconv_row_stage_plain(a, q, p, row, h, col[2]), f"{name} {what}")
+    free()
+    k = median_ms(lambda: convlarge.bconv_row_stage(a, q, p, row, h, col[2]))
+    plain = median_ms(lambda: convlarge.bconv_row_stage_plain(a, q, p, row, h, col[2]))
+    record(name, k, plain, 16 * batch * m + table_bytes(row) + 16 * m,
+           batch * (2 * p * fft_ops(q) + 12 * m))
+    del a
+    name = "bconv_out_stage/24571"
+    out = convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n)
+    note(name, out, convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n), f"{name} {what}")
+    del out
+    free()
+    k = median_ms(lambda: convlarge.bconv_out_stage(b, p, q, col[:2], chirp, n))
+    plain = median_ms(lambda: convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n))
+    record(name, k, plain, 8 * batch * (m + n) + table_bytes(col[:2]) + 8 * n,
+           batch * (q * fft_ops(p) + 6 * n))
+    del b
+    free()
+
+    # the two-pass core's cluster passes at their paths' shapes (65537 x 512,
+    # 7919 x 4096) against their plain versions and bounds
+    for n, batch in CLUSTER_PRIMES.items():
+        m, r, radix, kw1, kw2, n_in, n_out = cluster_card(n, fwd)
+        x = signal(batch, n_in)
+        what = f"n={n} m={m} (r = {r}) batch={batch} (the main path's shape)"
+        name = f"conv_radix_pass1/{n}"
+        z, part = conv_radix.conv_radix_pass1(x, m, radix, **kw1)
+        z_p, _ = conv_radix.conv_radix_pass1_plain(x, m, r, radix, kw1["h"], kw1.get("pre"),
+                                                   kw1.get("perm"), kw1.get("emit_sum", False))
+        note(name, z, z_p, f"{name} {what}", K7_TOL)
+        del z_p
+        free()
+        k = median_ms(lambda: conv_radix.conv_radix_pass1(x, m, radix, **kw1))
+        plain = median_ms(lambda: conv_radix.conv_radix_pass1_plain(
+            x, m, r, radix, kw1["h"], kw1.get("pre"), kw1.get("perm"), kw1.get("emit_sum", False)))
+        # bytes: x read once (gathered or not), z written, h and pre or the
+        # gather's index read once; operations: FFT_m and the products
+        record(name, k, plain, 8 * batch * (n_in + m) + 8 * m + (8 if n != 65537 else 4) * m
+               + 8 * (0 if part is None else part.numel()),
+               batch * (fft_ops(m) + 6 * m + (6 * m if n != 65537 else 0)))
+        del x
+        if part is not None:
+            kw2 = dict(kw2, x0=signal(batch, 1).reshape(-1), partials=part)
+        name = f"conv_radix_pass2/{n}"
+        y = conv_radix.conv_radix_pass2(z, m, radix, n_out, **kw2)
+        note(name, y, conv_radix.conv_radix_pass2_plain(z, m, r, radix, n_out, **kw2),
+             f"{name} {what}", K7_TOL)
+        del y
+        free()
+        k = median_ms(lambda: conv_radix.conv_radix_pass2(z, m, radix, n_out, **kw2))
+        plain = median_ms(lambda: conv_radix.conv_radix_pass2_plain(z, m, r, radix, n_out, **kw2))
+        record(name, k, plain, 8 * batch * (m + n_out) + (4 if n == 65537 else 8) * m
+               + 8 * (0 if part is None else part.numel() + batch),
+               batch * (fft_ops(m) + (2 * m if n == 65537 else 6 * m)))
+        del z, part, kw2
         free()
 
     # 746497 x 64 both ways, each built through executor.build: the

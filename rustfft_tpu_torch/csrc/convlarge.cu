@@ -1,35 +1,40 @@
 // The fused large Bluestein convolution: the port of K15.
 //
 // Replaces rustfft_tpu/ops/pallas/convlarge.py:_kernel_bconv (B_conv) and
-// _kernel_a2 (A2); its kernel A (large._kernel_a after an XLA prologue) is
-// the port's two-pass core column stage (csrc/conv_radix.cu), which loads
-// the zero-padded, chirped input itself.  For a Bluestein of length n on an
-// inner m = P * Q, in three launches:
+// _kernel_a2 (A2) and its kernel A (large._kernel_a after an XLA
+// prologue), which loads the zero-padded, chirped input itself.  For a
+// Bluestein of length n on an inner m = P * Q, in three launches:
 //
-//   A       (conv_col_stage): a[j2, k1] = w_m^(k1*j2) DFT_P(chirp . x)[k1],
-//           written as (B, Q, P);
-//   B_conv  (bconv_row_kernel): per (Q, pt) tile, FFT_Q over j2 -> k2 (the
-//           first FFT's natural-order X[k2*P + k1]), z = conj(X . H[k2, k1]),
-//           FFT_Q over k2 -> l1 in the same direction, times w_m^(l1*k1) (the
-//           mirrored factorisation of the second FFT, convlarge.py:13-32),
-//           written as (B, Q, P) [l1, k1];
-//   A2      (bconv_out_kernel): per (qt, P) tile of rows l1, DFT_P over k1 ->
-//           l2, out[l2*Q + l1] = chirp[l] . conj(.) for l < n, straight into
-//           the (B, n) output.
+//   A       a[j2, k1] = w_m^(k1*j2) DFT_P(chirp . x)[k1];
+//   B_conv  per column k1, FFT_Q over j2 -> k2 (the first FFT's
+//           natural-order X[k2*P + k1]), z = conj(X . H[k2, k1]), FFT_Q over
+//           k2 -> l1 in the same direction, times w_m^(l1*k1) (the mirrored
+//           factorisation of the second FFT, convlarge.py:13-32);
+//   A2      per tile of rows l1, DFT_P over k1 -> l2, out[l2*Q + l1] =
+//           chirp[l] . conj(.) for l < n, straight into the (B, n) output.
 //
 // So the JAX package's `pkeep` row slice of DFT_P becomes the store mask
 // l < n and its epilogue slice pass disappears.  Traversals: A reads n and
 // writes m, B_conv reads and writes m, A2 reads m and writes n; the two-pass
-// core makes four launches and eight traversals of m.
+// core makes four launches and eight traversals of m.  What bounds them on
+// this card is memory (each kernel's bytes, tables included); B_conv also
+// runs two length-Q chains per column in FP32 on the CUDA cores.
 //
-// What bounds it: memory (each kernel's bytes, tables included) and, in
-// B_conv, two length-Q chains per tile on the CUDA cores in FP32.  B_conv
-// holds one (Q, pt) tile in shared memory for both chains
-// (ops/kernels/convlarge.py:bconv_tile).  The general kernel ping-pongs
-// between two buffers, so at Q = 8192 only one column fits and its loads
-// read 8 bytes per 32-byte sector (175 GB/s, PERF.md); there a compile-time
-// chain runs both FFTs in place in one buffer instead, two columns per
-// tile.  A2 stores 16 consecutive l1 per l2 (128-byte segments).
+// Two forms:
+//  - the tile form (P = 16 x 16, Q = 8192: the 1000003 path; below),
+//    three persistent tile walks on the column layout (B, P, Q): kernel A
+//    (K2's column-tile kernel, csrc/col_tile.cuh, with the chirp source
+//    ColChirp), B_conv (bconv_tile_kernel, one column a unit) and A2
+//    (bconv_out_tile_kernel).  In (B, Q, P) a B_conv tile of two columns
+//    read 16 bytes from each of Q rows 2 KiB apart: the parent's
+//    compile-time body took 5.37 ms at 64 x 2^21, and a copy in that
+//    pattern alone 2.22 ms against 0.73 for a streaming copy of the same
+//    bytes (tools/torch_ab.py --only K15; H100 80GB HBM3, 700 W);
+//  - the general form (every other split: 24571 at Q = 192, the Bluestein
+//    746497 at Q = 6144): kernel A is the two-pass core's column stage
+//    (csrc/conv_radix.cu), bconv_row_kernel holds a (Q, pt) tile in two
+//    buffers for both chains, bconv_out_kernel stores 16 consecutive l1 per
+//    l2 (128-byte segments).
 #include "col_tile.cuh"
 
 namespace rf {
@@ -104,17 +109,17 @@ __global__ void __launch_bounds__(256) bconv_out_kernel(const float2* __restrict
   }
 }
 
-// ---- the tile form: P = 16 x 16, Q = 32 x 16 x 16 (the 1000003 path) -------
+// ---- the tile form: P = 16 x 16, Q = 8192 (the 1000003 path) ---------------
 //
-// Between the three kernels the signal is held in column pairs, (B, P/2, Q,
-// 2): element (j2, k1) of a batch row at (k1/2)*2Q + 2*j2 + k1 % 2, so that
-// B_conv's (Q, 2) tile is 128 KiB of consecutive values, and so are the
-// slices of its tables h and outer (held the same way, (P/2, Q, 2)).
+// Between the three kernels the signal is held in columns, (B, P, Q):
+// element (j2, k1) of a batch row at k1*Q + j2, so that B_conv's tile, one
+// column of Q values, is 64 KiB of consecutive values, and so are the
+// slices of its tables h and outer (held the same way, (P, Q)).
 
 // Kernel A's input and output on csrc/col_tile.cuh's kernel: x (B, n) rows
 // ld apart (8-byte aligned: 1000003's odd rows are), element j = j1*Q + j2
 // of the zero-padded input, times pre[j] (zero from n) in stage 0; the
-// output in column pairs.
+// output in columns.
 struct ColChirp {
   const float2* __restrict__ x;
   const float2* __restrict__ pre;
@@ -152,23 +157,26 @@ struct ColChirp {
 #pragma unroll
     for (int j = 0; j < 16; ++j) v[j] = cmul(v[j], __ldg(&p[j * 16 * q]));
   }
-  // y[b] in column pairs: the 16 j2 of a pair of k1 are 256 consecutive
-  // bytes, 16 a thread
+  // y[b] in columns (P, Q): the 16 j2 of a k1 are 128 consecutive bytes,
+  // two j2 a thread
   __device__ void store(const float2* buf, float2* __restrict__ yb, unsigned t, unsigned q,
                         int c) const {
-    yb += (size_t)t * kColT * 2;
+    yb += (size_t)t * kColT;
     for (int i = c; i < kColElems / 2; i += kColThreads) {
-      const int j2 = i & 15, k1 = (i >> 4) * 2;
-      const float2 a0 = buf[swz(k1 * kColT + j2)], a1 = buf[swz((k1 + 1) * kColT + j2)];
-      *reinterpret_cast<float4*>(yb + (size_t)(k1 >> 1) * 2 * q + 2 * j2) =
-          make_float4(a0.x, a0.y, a1.x, a1.y);
+      const int j2 = (i & 7) * 2, k1 = i >> 3;
+      const float2 a0 = buf[swz(k1 * kColT + j2)], a1 = buf[swz(k1 * kColT + j2 + 1)];
+      *reinterpret_cast<float4*>(yb + (size_t)k1 * q + j2) = make_float4(a0.x, a0.y, a1.x, a1.y);
     }
   }
   bool aligned() const { return reinterpret_cast<uintptr_t>(x) % 8 == 0; }
 };
 
-// B_conv's tile: (Q, 2) = 16384 values, 128 KiB, one 512-thread block an SM,
-// the value of column t at position pos at pos*2 + t.  Both FFT_Q run in
+// B_conv's tile: one column of Q = 8192 values, 64 KiB, two 256-thread
+// blocks an SM at up to 128 registers (with two columns, 128 KiB, one
+// 512-thread block an SM ran 2.67 ms at 64 x 2^21 on an H100 80GB HBM3 at
+// 700 W: its barriers and table reads stalled all the SM's warps at once;
+// one column ran 2.04-2.13 ms there, at three blocks an SM with 68 bytes
+// of spill at 80 registers as at two without).  Both FFT_Q run in
 // place with every column of a stage writing its outputs where it read its
 // inputs, so a stage needs no barrier between its reads and its writes and
 // a thread computes its columns one after another (16 values and their
@@ -187,10 +195,10 @@ struct ColChirp {
 //    significant digit k3 sits at weight 1: it takes the position digits of
 //    weight 1, 16, 256, 4096 in turn and leaves its output l = l0 + 16*l1
 //    + 256*l2 + 4096*l3 at position l, natural order.
-constexpr int kBcT = 2;
+constexpr int kBcT = 1;
 constexpr int kBcQ = 8192;
 constexpr int kBcElems = kBcQ * kBcT;
-constexpr int kBcThreads = 512;
+constexpr int kBcThreads = 256;
 
 // The tables in device memory: the roots of w_2 and w_16, and the twiddles
 // of the two chains, chain 1's (r_s, rest_s) of (2, 16, 16, 16) and chain
@@ -204,9 +212,9 @@ struct BcChain {
 };
 
 // One in-place stage: radix R over the position digit of weight W of the
-// tile, column (t, lo, hi) = the values at positions hi*R*W + j*W + lo of
-// column t, j < R; this thread's columns c = tid + 512*i, t = c & 1, (c >>
-// 1) = hi*W + lo, one after another.  Output k goes where input k was read,
+// tile, column (lo, hi) = the values at positions hi*R*W + j*W + lo, j < R;
+// this thread's columns c = tid + 256*i, c = hi*W + lo (kBcT = 1: t = 0),
+// one after another.  Output k goes where input k was read,
 // times tw[k*REST + lo] (chain 1) or tw[k*REST + hi] (kByHi: chain 2, whose
 // twiddle columns the host lays out by hi) where tw is not null, through
 // dst.store(element, v).  The tile reads are swizzled (swz) unless kLanded
@@ -219,7 +227,7 @@ static __device__ __forceinline__ void bc_stage(int tid, const float2* buf, cons
   constexpr int kCols = kBcElems / R;
 #pragma unroll 1
   for (int c = tid; c < kCols; c += kBcThreads) {
-    const int t = c & 1, lo = (c >> 1) % W, hi = (c >> 1) / W;
+    const int t = c % kBcT, lo = (c / kBcT) % W, hi = (c / kBcT) / W;
     const int e0 = (hi * R * W + lo) * kBcT + t;
     float2 x[R];
 #pragma unroll
@@ -253,9 +261,9 @@ struct BcTimesH {
   }
 };
 
-// Unit u of B_conv's walk: the tile u / batch of the batch row u % batch
-// (ops/kernels/convlarge.py bconv_unit), as an offset into (B, P/2, Q, 2)
-// and into the tables (P/2, Q, 2).
+// Unit u of B_conv's walk: the column u / batch of the batch row u % batch
+// (ops/kernels/convlarge.py bconv_unit), as an offset into (B, P, Q) and
+// into the tables (P, Q).
 static __device__ __forceinline__ size_t bc_offset(unsigned u, unsigned batch, unsigned tiles,
                                                    size_t* table) {
   const unsigned t = u / batch;
@@ -263,7 +271,7 @@ static __device__ __forceinline__ size_t bc_offset(unsigned u, unsigned batch, u
   return ((size_t)(u - t * batch) * tiles + t) * kBcElems;
 }
 
-// This thread's copies of a tile (128 KiB at src) in plain order, one group.
+// This thread's copies of a tile (64 KiB at src) in plain order, one group.
 static __device__ __forceinline__ void bc_copy(float2* buf, const float2* __restrict__ src) {
   const int c = opaque_int(threadIdx.x);
 #pragma unroll
@@ -274,17 +282,15 @@ static __device__ __forceinline__ void bc_copy(float2* buf, const float2* __rest
   cp_async_commit();
 }
 
-// B_conv at Q = 8192 on column pairs: a persistent grid, block g walking the
+// B_conv at Q = 8192 on columns: a persistent grid, block g walking the
 // units g, g + grid, ... (batch rows fastest, so that the blocks at work at
-// one time share one or two tiles' slices of h and outer in L2).  The tile
-// lands by cp.async in plain order; chain 1 runs in place from it, its last
-// stage multiplying by h and conjugating from registers; chain 2 runs in
-// place; its last stage (radix 2 at weight 4096, 16 columns a thread) reads
-// all its columns, and after the block barrier that follows, the next
-// unit's copies start into the tile under that stage's DFT and its stores
-// times the outer twiddle.
+// one time share one or two columns' slices of h and outer in L2).  The
+// tile lands by cp.async in plain order; chain 1 runs in place from it, its
+// last stage multiplying by h and conjugating from registers; chain 2 runs
+// in place, its last stage storing times the outer twiddle; then the next
+// unit's copies start, and the SM's other block computes while they land.
 template <bool kStamp>
-__global__ void __launch_bounds__(kBcThreads, 1)
+__global__ void __launch_bounds__(kBcThreads, 2)
     bconv_tile_kernel(const float2* __restrict__ x, float2* __restrict__ y, unsigned batch,
                       unsigned units, unsigned tiles, BcChain ch, const float2* __restrict__ h,
                       const float2* __restrict__ outer, unsigned long long* stamps) {
@@ -329,35 +335,37 @@ __global__ void __launch_bounds__(kBcThreads, 1)
                                    opaque_ptr(ch.tw2[2]));
     clock.lap(1);
     __syncthreads();
-    // the last stage, radix 2 over the digit of weight 4096: every column
-    // read, then the next unit's copies, then the butterflies and the
-    // stores times outer, one column at a time
+    // the last stage, radix 2 over the digit of weight 4096, stored times
+    // outer four columns at a time; then the next unit's copies (the SM's
+    // other block computes while they land)
     {
       const int c0 = opaque_int(threadIdx.x);
-      constexpr int kPer = kBcElems / 2 / kBcThreads;  // 16
-      float2 v[kPer][2];
+      float2* __restrict__ yt = y + at;
+      const float2* __restrict__ ot = opaque_ptr(outer) + table;
+#pragma unroll 1
+      for (int i0 = 0; i0 < kBcElems / 2; i0 += 4 * kBcThreads) {
+        float2 v[4][2], w[4][2];
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int e = c0 + kBcThreads * i;  // (lo, t) of the column; its pair at e + 8192
-        v[i][0] = buf[swz(e)];
-        v[i][1] = buf[swz(e + kBcElems / 2)];
+        for (int i = 0; i < 4; ++i) {
+          const int e = c0 + i0 + kBcThreads * i;  // a column's first value; its other at + Q/2
+          v[i][0] = buf[swz(e)];
+          v[i][1] = buf[swz(e + kBcElems / 2)];
+          w[i][0] = __ldg(&ot[e]);
+          w[i][1] = __ldg(&ot[e + kBcElems / 2]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = c0 + i0 + kBcThreads * i;
+          const float2 a = v[i][0], b = v[i][1];
+          yt[e] = cmul(make_float2(a.x + b.x, a.y + b.y), w[i][0]);
+          yt[e + kBcElems / 2] = cmul(make_float2(a.x - b.x, a.y - b.y), w[i][1]);
+        }
       }
       __syncthreads();
       const unsigned next = u + gridDim.x;
       if (next < units) {
         size_t unused;
         bc_copy(buf, x + bc_offset(next, batch, tiles, &unused));
-      }
-      float2* __restrict__ yt = y + at;
-      const float2* __restrict__ ot = opaque_ptr(outer) + table;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int e = c0 + kBcThreads * i;
-        const float2 a = v[i][0], b = v[i][1];
-        yt[e] = cmul(make_float2(a.x + b.x, a.y + b.y), __ldg(&ot[e]));
-        yt[e + kBcElems / 2] =
-            cmul(make_float2(a.x - b.x, a.y - b.y), __ldg(&ot[e + kBcElems / 2]));
-        asm volatile("" ::: "memory");  // one column's outer reads at a time
       }
     }
     clock.lap(2);
@@ -367,7 +375,7 @@ __global__ void __launch_bounds__(kBcThreads, 1)
 
 static size_t bc_tile_smem() { return (size_t)(kBcElems + 2 + 16) * sizeof(float2); }
 
-// A2 at P = 16 x 16 on column pairs: a (256, 16) tile of rows l1 = q0 ..
+// A2 at P = 16 x 16 on columns: a (256, 16) tile of rows l1 = q0 ..
 // q0 + 15, 32 KiB, 256 threads, three blocks an SM.  A persistent grid,
 // block g walking the contiguous units [g*per, min((g + 1)*per, units)) of
 // (tile, batch), batch fastest (ops/kernels/large.py col_walk), so that a
@@ -378,20 +386,21 @@ constexpr int kOutP = 256;
 constexpr int kOutElems = kOutP * kOutT;
 constexpr int kOutThreads = 256;
 
-// This thread's copies of a unit's tile at src (its row of pairs at the
-// unit's q0), one group: the 16 l1 of a pair kp of k1 are 256 consecutive
-// bytes of x; they land in plain order, element (r, k1) at (k1/2)*32 + 2*r +
-// k1 % 2, warp w copying the pairs 8*j0 + w (j0 < 16), which hold the k1
-// = 16*j0 + 2w, 16*j0 + 2w + 1 its stage-0 columns read.
+// This thread's copies of a unit's tile at src (its q0 in column 0 of the
+// batch row), one group: the 16 l1 of a k1 are 128 consecutive bytes of
+// x; they land in plain order, element (r, k1) at k1*16 + r, warp w
+// copying the k1 = 16*j0 + 2w + e (j0 < 16, e < 2) its stage-0 columns
+// read.
 static __device__ __forceinline__ void out_copy(float2* buf, const float2* __restrict__ src,
                                                 unsigned q) {
   const int c = opaque_int(threadIdx.x);
   const int warp = c >> 5, lane = c & 31;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int kp = 8 * (2 * i + (lane >> 4)) + warp;
-    const int piece = (lane & 15) * 2;
-    cp_async16(buf + kp * 32 + piece, src + (size_t)kp * 2 * q + piece);
+    const int idx = i * 32 + lane;
+    const int k1 = 16 * (idx >> 4) + 2 * warp + ((idx >> 3) & 1);
+    const int piece = (idx & 7) * 2;
+    cp_async16(buf + k1 * kOutT + piece, src + (size_t)k1 * q + piece);
   }
   cp_async_commit();
 }
@@ -410,7 +419,7 @@ __global__ void __launch_bounds__(kOutThreads, 3)
   const size_t row_elems = (size_t)kOutP * (size_t)q;
   const unsigned u0 = blockIdx.x * per;
   const unsigned u1 = min(u0 + per, units);
-  if (u0 < u1) out_copy(bufs, x + (size_t)(u0 % batch) * row_elems + (u0 / batch) * kOutT * 2, q);
+  if (u0 < u1) out_copy(bufs, x + (size_t)(u0 % batch) * row_elems + (u0 / batch) * kOutT, q);
   load_roots(st, sroots);
   for (int i = threadIdx.x; i < 256; i += kOutThreads) stw[i] = st.tw[0][i];
   __syncthreads();
@@ -422,35 +431,35 @@ __global__ void __launch_bounds__(kOutThreads, 3)
     if (u + 1 < u1) {
       const unsigned v = u + 1;
       out_copy(bufs + (cur ^ 1) * kOutElems,
-               x + (size_t)(v % batch) * row_elems + (v / batch) * kOutT * 2, q);
+               x + (size_t)(v % batch) * row_elems + (v / batch) * kOutT, q);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncwarp();
     // stage 0: radix 16 over the top digit j0 of k1 = 16*j0 + j' for the
-    // row r and the column j' = 2*(c >> 5) + (c & 1) (warp w: j' = 2w, 2w + 1
-    // of every row), in place, swizzled
-    const int r = (c >> 1) & 15, jp = 2 * (c >> 5) + (c & 1);
+    // row r and the column j' = 2*(c >> 5) + ((c >> 4) & 1) (warp w: j' =
+    // 2w, 2w + 1 of every row), in place, swizzled within the 16 rows of a
+    // k1, which one half-warp reads
+    const int r = c & 15, jp = 2 * (c >> 5) + ((c >> 4) & 1);
     {
       float2 v[16];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) v[j] = buf[(8 * j + (jp >> 1)) * 32 + 2 * r + (jp & 1)];
+      for (int j = 0; j < 16; ++j) v[j] = buf[(16 * j + jp) * kOutT + r];
       __syncwarp();
       dft_column<16>(v, sroots, [&](int k, float2 z) {
-        buf[swz((8 * k + (jp >> 1)) * 32 + 2 * r + (jp & 1))] = cmul(z, stw[k * 16 + jp]);
+        buf[swz((16 * k + jp) * kOutT + r)] = cmul(z, stw[k * 16 + jp]);
       });
     }
     clock.lap(0);
     __syncthreads();
-    // stage 1: radix 16 over j' for the row r and k0 = (c >> 5) * 2 + (c & 1),
-    // to the tile [l2, r] with l2 = k0 + 16*k1
+    // stage 1: radix 16 over j' for the row r and k0 = jp, to the tile
+    // [l2, r] with l2 = k0 + 16*k1
     {
       const int k0 = jp;
       float2 v[16];
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        v[j] = buf[swz((8 * k0 + (j >> 1)) * 32 + 2 * r + (j & 1))];
+      for (int j = 0; j < 16; ++j) v[j] = buf[swz((16 * k0 + j) * kOutT + r)];
       __syncthreads();
       dft_column<16>(v, sroots + 16, [&](int k, float2 z) { buf[swz((k0 + 16 * k) * 16 + r)] = z; });
     }
@@ -597,7 +606,7 @@ extern "C" int rf_bconv_out_stage(const void* x, void* y, long long batch, int p
 }
 
 // The tile form.  Kernel A: x (batch, n) complex64, rows ld apart, 8-byte
-// aligned; y (batch, P/2, Q, 2); the DFT_P chain (16, 16); tw_outer (Q, P);
+// aligned; y (batch, P, Q); the DFT_P chain (16, 16); tw_outer (Q, P);
 // pre (P*Q,) zero from n; `grid` blocks of `per` units (large.col_walk).
 extern "C" int rf_bconv_col_tile(const void* x, void* y, long long batch, int n, long long ld,
                                  int p, int q, int k, int r0, int r1, const void* roots0,
@@ -609,11 +618,11 @@ extern "C" int rf_bconv_col_tile(const void* x, void* y, long long batch, int n,
                                tw_outer, pre, grid, per, nullptr, stream);
 }
 
-// B_conv: x, y (batch, P/2, 8192, 2) complex64, x 16-byte aligned; roots2,
+// B_conv: x, y (batch, P, 8192) complex64, x 16-byte aligned; roots2,
 // roots16 the roots of w_2 and w_16; tw the six twiddle tables, chain 1's
-// three of (2, 16, 16, 16) and chain 2's of (16, 16, 16, 2); h (P/2, 8192,
-// 2) in chain 1's output positions (convlarge.bconv_h_table), outer (P/2,
-// 8192, 2); `grid` persistent blocks (convlarge.bconv_grid).
+// three of (2, 16, 16, 16) and chain 2's of (16, 16, 16, 2); h (P, 8192)
+// in chain 1's output positions (convlarge.bconv_h_table), outer (P,
+// 8192); `grid` persistent blocks (convlarge.bconv_grid).
 extern "C" int rf_bconv_row_tile(const void* x, void* y, long long batch, int p,
                                  const void* roots2, const void* roots16, const void* tw,
                                  const void* h, const void* outer, long long grid,
@@ -625,7 +634,7 @@ extern "C" int rf_bconv_row_tile(const void* x, void* y, long long batch, int p,
                                outer, grid, nullptr, stream);
 }
 
-// A2: x (batch, 128, Q, 2) complex64, 16-byte aligned; y (batch, n) rows ld
+// A2: x (batch, 256, Q) complex64, 16-byte aligned; y (batch, n) rows ld
 // apart; the DFT_P chain (16, 16); chirp (n,); `grid` blocks of `per` units
 // (large.col_walk).
 extern "C" int rf_bconv_out_tile(const void* x, void* y, long long batch, int q, int n,

@@ -18,17 +18,19 @@ The JAX kernel slices DFT_P to its `pkeep` live rows and slices the output
 after; here A2 computes every row and skips the stores with l >= n, so the
 epilogue's slice pass disappears.
 
-The 1000003 path's split (P = 16 x 16, Q = 32 x 16 x 16, m = 2^21;
-`tile_form`) runs the tile form instead, three persistent tile walks
-(csrc/convlarge.cu) that hold the signal between them in column pairs
-(B, P/2, Q, 2) (`to_pairs`), so that B_conv's (Q, 2) tile and its slices
-of h and outer (held the same way) are 128 KiB of consecutive values:
+The 1000003 path's split (P = 16 x 16, Q = 8192, m = 2^21; `tile_form`)
+runs the tile form instead, three persistent tile walks
+(csrc/convlarge.cu) that hold the signal between them in columns (B, P,
+Q) (`to_columns`), so that a B_conv tile, one column, and its slices of h
+and outer (held the same way) are 64 KiB of consecutive values:
   `bconv_col_tile` (kernel A): K2's column-tile kernel with a chirp source
       (pre from L1 in stage 0, rows beyond n zero, 8-byte copies of the
-      rows that are not 16-byte aligned) and a column-pair store;
-  `bconv_row_tile` (B_conv): one tile an SM, landing by cp.async, chain 1
-      in place with conj(. * h) in its last stage, chain 2 in place, the
-      next tile's copies under chain 2's last stage and its stores;
+      rows that are not 16-byte aligned) and a column store;
+  `bconv_row_tile` (B_conv): two blocks an SM, the column landing by
+      cp.async, two in-place chains (the first leaves its output
+      digit-reversed, `bconv_positions`, and multiplies by h, which the
+      host stores in that order, `bconv_h_table`), the last stage storing
+      times outer;
   `bconv_out_tile` (A2): 16 rows l1 a unit, DFT_P in place, the next
       unit's tile landing in a second buffer, 16 consecutive l a store.
 B_conv's units run batch rows fastest (`bconv_unit`, `bconv_grid`), kernel
@@ -267,34 +269,31 @@ def bconv_chain_tables(direction: FftDirection):
 
 
 def bconv_h_table(h: np.ndarray) -> np.ndarray:
-    """B_conv's h in the tile form: the (Q, P) spectrum in column pairs (P/2,
-    Q, 2), each column in chain 1's output positions (bconv_positions)."""
-    pairs = to_pairs(torch.from_numpy(np.ascontiguousarray(h))).numpy()
-    return np.ascontiguousarray(pairs[:, bconv_positions(), :])
+    """B_conv's h in the tile form: the (Q, P) spectrum as columns (P, Q),
+    each column in chain 1's output positions (bconv_positions)."""
+    return np.ascontiguousarray(np.asarray(h).T[:, bconv_positions()])
 
 
-def to_pairs(a: torch.Tensor) -> torch.Tensor:
-    """(..., Q, P) -> the column-pair layout (..., P/2, Q, 2) of the tile
-    form: the (Q, 2) columns a B_conv tile holds are consecutive values."""
-    q, p = a.shape[-2:]
-    return a.reshape(*a.shape[:-1], p // 2, 2).transpose(-3, -2).contiguous()
+def to_columns(a: torch.Tensor) -> torch.Tensor:
+    """(..., Q, P) -> the column layout (..., P, Q) of the tile form: the Q
+    values of a column, one B_conv tile, are consecutive."""
+    return a.transpose(-2, -1).contiguous()
 
 
-def from_pairs(a: torch.Tensor) -> torch.Tensor:
-    """The inverse of to_pairs: (..., P/2, Q, 2) -> (..., Q, P)."""
-    half, q = a.shape[-3:-1]
-    return a.transpose(-3, -2).reshape(*a.shape[:-3], q, 2 * half)
+def from_columns(a: torch.Tensor) -> torch.Tensor:
+    """The inverse of to_columns: (..., P, Q) -> (..., Q, P)."""
+    return a.transpose(-2, -1).contiguous()
 
 
 def bconv_unit(u: int, batch: int) -> Tuple[int, int]:
-    """(tile, batch row) of unit u of B_conv's tile walk: batch rows fastest,
-    so that the blocks at work at one time share one or two tiles' slices
-    of h and outer (csrc/convlarge.cu bc_offset)."""
+    """(column, batch row) of unit u of B_conv's tile walk: batch rows
+    fastest, so that the blocks at work at one time share one or two
+    columns' slices of h and outer (csrc/convlarge.cu bc_offset)."""
     return u // batch, u % batch
 
 
 def bconv_grid(units: int, resident: int) -> int:
-    """Blocks of B_conv's persistent grid for `units` (batch * P/2) units
+    """Blocks of B_conv's persistent grid for `units` (batch * P) units
     when the card holds `resident` blocks at once: every resident block, at
     most one a unit.  Block g runs the units g, g + grid, ... below units
     (bconv_unit)."""
@@ -335,7 +334,7 @@ def _check_tile_form(p: int, q: int, what: str) -> None:
 
 def bconv_col_tile_plain(x: torch.Tensor, p: int, q: int, tables, pre) -> torch.Tensor:
     """Plain torch version of bconv_col_tile."""
-    return to_pairs(conv_radix.conv_col_stage_plain(x, p, q, tables, pre)[0])
+    return to_columns(conv_radix.conv_col_stage_plain(x, p, q, tables, pre)[0])
 
 
 def _col_tile_checks(x, p, q, tables, pre, what):
@@ -354,7 +353,7 @@ def _col_tile_checks(x, p, q, tables, pre, what):
 def _col_tile_launch(x, p, q, tables, pre, what, stamps=None):
     roots, tws, outer = tables
     batch = x.shape[0]
-    a = torch.empty((batch, p // 2, q, 2), dtype=x.dtype, device=x.device)
+    a = torch.empty((batch, p, q), dtype=x.dtype, device=x.device)
     grid, per = large.col_walk(batch * (q // 16), _resident_on(x.device, "col"))
     lib = _build.load(phase_stamps=stamps is not None)
     args = (x.data_ptr(), a.data_ptr(), batch, x.shape[1],
@@ -372,7 +371,7 @@ def _col_tile_launch(x, p, q, tables, pre, what, stamps=None):
 
 def bconv_col_tile(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor) -> torch.Tensor:
     """Kernel A of the tile form: x (batch, n) complex64, rows contiguous
-    (any stride between them) -> (batch, P/2, Q, 2) in column pairs: the
+    (any stride between them) -> (batch, P, Q) in columns: the
     input zero-padded to m = P*Q, times pre, DFT_P over j1 and w_m^(k1*j2).
 
     tables = (roots, tws, outer) from large.col_tables(P, Q, direction);
@@ -387,7 +386,7 @@ def bconv_col_tile(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor) -
         return bconv_col_tile_plain(x, p, q, tables, pre)
     require_cuda(x, what)
     if x.shape[0] == 0:
-        return torch.empty((0, p // 2, q, 2), dtype=x.dtype, device=x.device)
+        return torch.empty((0, p, q), dtype=x.dtype, device=x.device)
     a = _col_tile_launch(x, p, q, tables, pre, what)
     bconv_col_tile.launches += 1
     return a
@@ -403,18 +402,16 @@ def bconv_row_tile_plain(a: torch.Tensor, q: int, p: int, tables, h, outer) -> t
     (r2, r16), tws = tables
     roots = [r2, r16, r16, r16]
     inv = torch.from_numpy(np.argsort(bconv_positions())).to(h.device)
-    h_nat = torch.index_select(h, -2, inv)
-    z = fft_stages_plain(a.transpose(-2, -1), BCONV_CHAIN1, roots, tws[:3])
-    z = torch.conj(z * h_nat.transpose(-2, -1)).resolve_conj()
-    u = fft_stages_plain(z, BCONV_CHAIN1, roots, tws[:3]) * outer.transpose(-2, -1)
-    return u.transpose(-2, -1).contiguous()
+    z = fft_stages_plain(a, BCONV_CHAIN1, roots, tws[:3])
+    z = torch.conj(z * torch.index_select(h, -1, inv)).resolve_conj()
+    return fft_stages_plain(z, BCONV_CHAIN1, roots, tws[:3]) * outer
 
 
 def _row_tile_checks(a, q, p, tables, h, outer, what):
     _check_tile_form(p, q, what)
-    if a.dim() != 4:
-        raise ValueError(f"{what}: expected (batch, P/2, Q, 2), got {tuple(a.shape)}")
-    check_operand(a, (a.shape[0], p // 2, q, 2), f"{what} input")
+    if a.dim() != 3:
+        raise ValueError(f"{what}: expected (batch, P, Q), got {tuple(a.shape)}")
+    check_operand(a, (a.shape[0], p, q), f"{what} input")
     (r2, r16), tws = tables
     check_operand(r2, (2,), f"{what} roots[0]")
     check_operand(r16, (16,), f"{what} roots[1]")
@@ -427,7 +424,7 @@ def _row_tile_checks(a, q, p, tables, h, outer, what):
         if t.device != a.device:
             raise ValueError(f"{what}: tables on {t.device}, input on {a.device}")
     for t, name in ((h, "h"), (outer, "outer twiddle")):
-        check_operand(t, (p // 2, q, 2), f"{what} {name}")
+        check_operand(t, (p, q), f"{what} {name}")
         if t.device != a.device:
             raise ValueError(f"{what}: {name} on {t.device}, input on {a.device}")
 
@@ -436,7 +433,7 @@ def _row_tile_launch(a, q, p, tables, h, outer, what, stamps=None):
     (r2, r16), tws = tables
     y = torch.empty_like(a)
     src = large._aligned16(a)
-    grid = bconv_grid(a.shape[0] * (p // 2), _resident_on(a.device, "row"))
+    grid = bconv_grid(a.shape[0] * p, _resident_on(a.device, "row"))
     tw = (ctypes.c_void_p * len(tws))(*[t.data_ptr() for t in tws])  # host array of pointers
     lib = _build.load(phase_stamps=stamps is not None)
     args = (src.data_ptr(), y.data_ptr(), a.shape[0], p, r2.data_ptr(), r16.data_ptr(),
@@ -453,14 +450,14 @@ def _row_tile_launch(a, q, p, tables, h, outer, what, stamps=None):
 
 def bconv_row_tile(a: torch.Tensor, q: int, p: int, tables, h: torch.Tensor,
                    outer: torch.Tensor) -> torch.Tensor:
-    """B_conv of the tile form: a (batch, P/2, Q, 2) [j2, k1] in column
-    pairs -> the same layout [l1, k1]: FFT_Q, conj(. * h), FFT_Q, times
-    outer (bconv_row_stage on column pairs).
+    """B_conv of the tile form: a (batch, P, Q) [k1, j2] in columns -> the
+    same layout [k1, l1]: FFT_Q, conj(. * h), FFT_Q, times outer
+    (bconv_row_stage on columns).
 
-    tables = bconv_chain_tables(direction) on a's device, Q = 8192; h
-    (P/2, Q, 2) from bconv_h_table, outer (P/2, Q, 2) (to_pairs of the (Q,
-    P) outer twiddle), complex64 on a's device.  A persistent grid of bconv_grid blocks, one
-    (Q, 2) tile of 128 KiB an SM.
+    tables = bconv_chain_tables(direction) on a's device, Q = 8192; h (P,
+    Q) from bconv_h_table, outer (P, Q) (to_columns of the (Q, P) outer
+    twiddle), complex64 on a's device.  A persistent grid of bconv_grid
+    blocks, one column of 64 KiB a block, two blocks an SM.
     """
     what = "bconv_row_tile"
     _row_tile_checks(a, q, p, tables, h, outer, what)
@@ -479,14 +476,14 @@ bconv_row_tile.launches = 0
 
 def bconv_out_tile_plain(b: torch.Tensor, p: int, q: int, tables, chirp, n: int) -> torch.Tensor:
     """Plain torch version of bconv_out_tile."""
-    return bconv_out_stage_plain(from_pairs(b), p, q, tables, chirp, n)
+    return bconv_out_stage_plain(from_columns(b), p, q, tables, chirp, n)
 
 
 def _out_tile_checks(b, p, q, tables, chirp, n, what):
     _check_tile_form(p, q, what)
-    if b.dim() != 4:
-        raise ValueError(f"{what}: expected (batch, P/2, Q, 2), got {tuple(b.shape)}")
-    check_operand(b, (b.shape[0], p // 2, q, 2), f"{what} input")
+    if b.dim() != 3:
+        raise ValueError(f"{what}: expected (batch, P, Q), got {tuple(b.shape)}")
+    check_operand(b, (b.shape[0], p, q), f"{what} input")
     if not 0 < n <= p * q:
         raise ValueError(f"{what}: n={n} not in [1, {p * q}]")
     roots, tws = tables
@@ -516,9 +513,9 @@ def _out_tile_launch(b, p, q, tables, chirp, n, what, stamps=None):
 
 def bconv_out_tile(b: torch.Tensor, p: int, q: int, tables, chirp: torch.Tensor,
                    n: int) -> torch.Tensor:
-    """A2 of the tile form: b (batch, P/2, Q, 2) [l1, k1] in column pairs
-    -> (batch, n): out[l2*Q + l1] = chirp[l] * conj(DFT_P over k1) for l < n
-    (bconv_out_stage on column pairs).
+    """A2 of the tile form: b (batch, P, Q) [k1, l1] in columns -> (batch,
+    n): out[l2*Q + l1] = chirp[l] * conj(DFT_P over k1) for l < n
+    (bconv_out_stage on columns).
 
     tables = (roots, tws) of DFT_P = 16 x 16; chirp (n,) complex64.  A
     persistent grid of col_walk blocks over (16-row tile, batch) units,
@@ -541,11 +538,12 @@ bconv_out_tile.launches = 0
 
 #: the phases of the tile kernels' stamped forms (tools/torch_phase_times.py):
 #: kernel A's load with stage 0, stage 1 with the outer twiddle, the store in
-#: column pairs (large.COL_PHASES); B_conv's wait for its tile with chain 1
-#: and h, chain 2's first two stages, its last stage with the store (the next
-#: tile's copies started); A2's stage 0 (with the wait), stage 1, the store
+#: columns (large.COL_PHASES); B_conv's wait for its tile with chain 1 and
+#: h, chain 2's first three stages, its last stage with the store and the
+#: next tile's copies started; A2's stage 0 (with the wait), stage 1, the
+#: store
 COL_TILE_PHASES = ("load+s0", "s1", "store")
-ROW_TILE_PHASES = ("load+chain1+h", "chain2 s0-s1", "s2+store")
+ROW_TILE_PHASES = ("load+chain1+h", "chain2 s0-s2", "s3+store")
 OUT_TILE_PHASES = ("load+s0", "s1", "store")
 
 
@@ -634,10 +632,10 @@ def make_bluestein_large_fn(n: int, m: int, direction: FftDirection, dtype,
     tiled = tile_form(p, q)
     h = host["h"]
     bconv_outer = outer
-    if tiled:  # B_conv's chain and tables in column pairs
+    if tiled:  # B_conv's chain and tables as columns
         roots_q, tws_q = bconv_chain_tables(direction)
         kq = len(roots_q)
-        h, bconv_outer = bconv_h_table(h), to_pairs(torch.from_numpy(outer)).numpy()
+        h, bconv_outer = bconv_h_table(h), to_columns(torch.from_numpy(outer)).numpy()
     tables = calg.DeviceTables([*roots_p, *tws_p, outer, *roots_q, *tws_q,
                                 host["pre"], h, bconv_outer, host["chirp"]])
 

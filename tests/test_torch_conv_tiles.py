@@ -2,8 +2,8 @@
 compositions they replace and the JAX package.
 
 K15 (ops/kernels/convlarge.py): at m = 2^21 (1000003) the fused large
-Bluestein runs three persistent tile walks on the column-pair layout
-(B, P/2, Q, 2): kernel A (`bconv_col_tile`), B_conv (`bconv_row_tile`, two
+Bluestein runs three persistent tile walks on the column layout (B, P,
+Q): kernel A (`bconv_col_tile`), B_conv (`bconv_row_tile`, two
 in-place chains whose first leaves its output digit-reversed) and A2
 (`bconv_out_tile`).  K14 (ops/kernels/conv_radix.py): at m = r*16384, r =
 1, 2, 4, 8, 16, the two-pass core runs two launches of the radix body
@@ -80,19 +80,19 @@ def _k15_tables(d, device="cpu"):
     pre, h, chirp = (_on(host[k], device) for k in ("pre", "h", "chirp"))
     tile_row = tuple(_on(t, device) for t in convlarge.bconv_chain_tables(d))
     tile_h = _on(convlarge.bconv_h_table(host["h"]), device)
-    return col, row, pre, h, chirp, tile_row, tile_h, convlarge.to_pairs(col[2])
+    return col, row, pre, h, chirp, tile_row, tile_h, convlarge.to_columns(col[2])
 
 
 # -- the walks ------------------------------------------------------------------
 
-@pytest.mark.parametrize("batch,resident", [(1, 132), (1, 129), (1, 127), (64, 132), (3, 5)],
+@pytest.mark.parametrize("batch,resident", [(1, 264), (1, 257), (1, 255), (64, 264), (3, 5)],
                          ids=["1-under", "1-one-under", "1-one-over", "64", "3-small-card"])
 def test_bconv_walk_covers_every_unit_once(batch, resident):
     """B_conv's units (tile, row), batch rows fastest: block g of
     bconv_grid's grid runs g, g + grid, ... (csrc/convlarge.cu
-    bc_offset); at 64 x 2^21 on the H100's 132 blocks, and with the grid
-    above, at and below the 128 units of one row."""
-    tiles = P15 // 2
+    bc_offset); at 64 x 2^21 on the H100's 264 blocks (two an SM), and
+    with the grid above, at and below the 256 units of one row."""
+    tiles = P15
     units = batch * tiles
     grid = convlarge.bconv_grid(units, resident)
     assert grid == min(units, resident)
@@ -126,10 +126,10 @@ def test_tile_form_rule_and_layout():
     p, q1, q2 = large.choose_pqq(M15)
     assert (p, q1 * q2) == (P15, Q15)
     a = torch.from_numpy(_signal(3 * Q15, P15, seed=1)).reshape(3, Q15, P15)
-    pairs = convlarge.to_pairs(a)
-    assert pairs.shape == (3, P15 // 2, Q15, 2)
-    assert torch.equal(pairs[1, 7, 100], a[1, 100, 14:16])
-    assert torch.equal(convlarge.from_pairs(pairs), a)
+    cols = convlarge.to_columns(a)
+    assert cols.shape == (3, P15, Q15) and cols.is_contiguous()
+    assert torch.equal(cols[1, 14, 100:102], a[1, 100:102, 14])
+    assert torch.equal(convlarge.from_columns(cols), a)
     pos = convlarge.bconv_positions()
     assert sorted(pos.tolist()) == list(range(Q15))
     assert pos[4096 * 1 + 256 * 3 + 16 * 5 + 7] == 1 + 2 * 3 + 32 * 5 + 512 * 7
@@ -149,11 +149,11 @@ def test_tile_form_plain_equals_three_stage_plain(d, rd):
     x = torch.from_numpy(_signal(2, N15, seed=2))
     a_old, _ = conv_radix.conv_col_stage(x, P15, Q15, col, pre=pre)
     a = convlarge.bconv_col_tile(x, P15, Q15, col, pre)
-    assert torch.equal(convlarge.from_pairs(a), a_old)
+    assert torch.equal(convlarge.from_columns(a), a_old)
     b_old = convlarge.bconv_row_stage(a_old, Q15, P15, row, h, col[2])
     b = convlarge.bconv_row_tile(a, Q15, P15, tile_row, tile_h, tile_outer)
-    assert _rel(convlarge.from_pairs(b), b_old) <= TOL
-    out_old = convlarge.bconv_out_stage(convlarge.from_pairs(b), P15, Q15, col[:2], chirp, N15)
+    assert _rel(convlarge.from_columns(b), b_old) <= TOL
+    out_old = convlarge.bconv_out_stage(convlarge.from_columns(b), P15, Q15, col[:2], chirp, N15)
     assert torch.equal(convlarge.bconv_out_tile(b, P15, Q15, col[:2], chirp, N15), out_old)
 
 
@@ -175,7 +175,7 @@ def test_tile_wrappers_check_their_operands():
         convlarge.bconv_col_tile(x, 256, 192, col, pre)  # not the tile form
     a = convlarge.bconv_col_tile(x, P15, Q15, col, pre)
     with pytest.raises(ValueError):
-        convlarge.bconv_row_tile(convlarge.from_pairs(a), Q15, P15, tile_row, tile_h, tile_outer)
+        convlarge.bconv_row_tile(convlarge.from_columns(a), Q15, P15, tile_row, tile_h, tile_outer)
     with pytest.raises(ValueError):
         convlarge.bconv_row_tile(a, Q15, P15, row, tile_h, tile_outer)  # the old chain's tables
     with pytest.raises(ValueError):

@@ -221,7 +221,7 @@ def run_one(root: str, groups=GROUPS) -> dict:
         pre, h, chirp = on([host[k] for k in ("pre", "h", "chirp")])
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
         if hasattr(convlarge, "tile_form"):  # the tile form, in column pairs
-            h2, outer2 = on([convlarge.bconv_h_table(host["h"])])[0], convlarge.to_pairs(col[2])
+            h2, outer2 = on([convlarge.bconv_h_table(host["h"])])[0], convlarge.to_columns(col[2])
             row = tuple(on(v) for v in convlarge.bconv_chain_tables(FftDirection.FORWARD))
             kernel_a = lambda: convlarge.bconv_col_tile(x, p, q, col, pre)  # noqa: E731
             a = kernel_a()

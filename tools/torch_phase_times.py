@@ -251,7 +251,7 @@ def bluestein_large_phases(n: int, m: int, batch: int, gen) -> None:
     col, row = card(host["col"]), card(convlarge.bconv_chain_tables(FftDirection.FORWARD))
     pre, chirp = (torch.from_numpy(host[k]).to(dev) for k in ("pre", "chirp"))
     h = torch.from_numpy(convlarge.bconv_h_table(host["h"])).to(dev)
-    outer = convlarge.to_pairs(col[2])
+    outer = convlarge.to_columns(col[2])
     x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
     a = convlarge.bconv_col_tile(x, p, q, col, pre)
     b = convlarge.bconv_row_tile(a, q, p, row, h, outer)
