@@ -14,7 +14,8 @@
 // stage spill, 36-44 bytes (ptxas, sm_90a); their forms without one do not.
 //
 // radix_fft (K9: fused.py _fused_kernel_vpur, _ctw, _ctwg, _ctwgn, _ctwgx,
-// one function in five TPU layouts).  n = r * 128 * 128 is 256 KiB .. 2 MiB
+// one function in five TPU layouts; its body is csrc/radix.cuh, which the
+// two-pass convolution core's cluster passes share).  n = r * 128 * 128 is 256 KiB .. 2 MiB
 // at r = 2 .. 16, more than one SM's 227 KB of shared memory, so one
 // transform is one thread-block cluster of r blocks (cudaLaunchKernelEx with
 // a cluster dimension; r = 16 is a non-portable cluster size), block a
