@@ -26,7 +26,7 @@
 //    (K2's column-tile kernel, csrc/col_tile.cuh, with the chirp source
 //    ColChirp), B_conv (bconv_tile_kernel, one column a unit) and A2
 //    (bconv_out_tile_kernel).  In (B, Q, P) a B_conv tile of two columns
-//    read 16 bytes from each of Q rows 2 KiB apart: the parent's
+//    read 16 bytes from each of Q rows 2 KiB apart: a
 //    compile-time body took 5.37 ms at 64 x 2^21, and a copy in that
 //    pattern alone 2.22 ms against 0.73 for a streaming copy of the same
 //    bytes (tools/torch_ab.py --only K15; H100 80GB HBM3, 700 W);
