@@ -21,8 +21,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    1009 shape) and m = 3072 (the Bluestein 1234 shape) with its tables and
    conj off and on, the two-pass core's cluster passes within 1e-6 at
    65537 x 1 and x 3 (Rader: gather, sums, scatter, x0, full output) and
-   7919 x 1 and x 5 (Bluestein), and its four stages stage by stage at m =
-   65536 and 16384 (the form 746497 and the switches run),
+   7919 x 1 and x 5, 65521 x 1 and x 3 and 131071 x 1 and x 2 (Bluestein
+   at r = 1, 8 and 16, each against the float64 oracle), and its four
+   stages stage by stage at m = 746496 (the Rader 746497, the form the
+   planner gives it), 65536 and 16384 (the forms the switches run),
    and the permutation at m = 1008 and 114688 and on both sides of its
    shared-memory cut-over (permute.SMEM_ROW_MAX = 29056 through shared
    memory, 29057 direct);
@@ -65,7 +67,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (the flagship n; batch cut from 4096 so that input, intermediate and
    output fit the card), the prime path at 1009 x 8192, 1234 x 8192,
    7919 x 4096 and 65537 x 512 (the JAX bench's rows and the 7919 cell;
-   their cluster passes also at 7919 x 1 and x 5, 65537 x 1 and x 3),
+   their cluster passes also at 7919 x 1 and x 5, 65537 x 1 and x 3) and
+   the cluster passes' largest forms at 65521 x 512 and x 3 (r = 8) and
+   131071 x 256 and x 3 (r = 16),
    the top band at 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX bench's rows)
    and 2^26 x 2, and the mid band at 16384 x 4096 and 24576 x 2048
    (two_stage), 14464 and 16256 x 4096 and 28544 x 2048 (two_stage with a
@@ -128,15 +132,20 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the operations its chain spends and large's stage at one-column tiles, and each
    large_pad path against the large route and torch.fft; the fused large
    Bluestein's tile kernels at 1000003 x 64 (within 1e-6) and the path
-   against the two-pass core and torch.fft, its general B_conv and A2 at
-   24571 x 2048; the two-pass core's cluster passes at 65537 x 512 and
-   7919 x 4096 (within 1e-6); 746497 x 64 as Raders(746496) on the two-pass core
+   against the two-pass core and torch.fft, its general kernel A (the
+   two-pass core's column stage with the chirp), B_conv and A2 at 24571 x
+   2048; the two-pass core's cluster passes at 65537 x 512, 7919 x 4096,
+   65521 x 512 and 131071 x 256 (within 1e-6); its four stages at the
+   Rader 746497 x 64 (m = 746496: pass 1's column stage with the gather
+   and sums, pass 2's row stage with the scatter and the DC-first output)
+   and at 65537 x 512 on the raw rows (in_shift); 746497 x 64 as
+   Raders(746496) on the two-pass core
    and as Bluesteins(746497, 1572864) on the fused large Bluestein.  The
    switches: K4's Gauss stages at 64 x 2^20 against the default stages,
    their plain versions, their bound (that of the default stages, with the
    Gauss form's own operation count beside it) and, for the row stage, torch.fft over dim 1; the two-pass core's
-   Gauss stages and the in_shift column stage at the Rader 65537 x 512
-   shape; every switched path against its default path (in turns: the
+   Gauss stages at the Rader 65537 x 512 shape against in_shift's default
+   stages; every switched path against its default path (in turns: the
    default, each variant, the variants in reverse, the default) and
    torch.fft.
 
@@ -216,9 +225,10 @@ PAD_CHECKS = (78125, 177147, 531441, 17161, 234617, 775575, 412519, 50666)
 BLUE = {1000003: (1 << 21, 64)}
 
 #: the primes whose two-pass core runs the cluster passes (K14 at m =
-#: r*16384): the Rader 65537 (m = 65536) and the Bluestein 7919 (m = 16384)
-#: -> batch
-CLUSTER_PRIMES = {65537: 512, 7919: 4096}
+#: r*16384): the Rader 65537 (m = 65536, r = 4) and the Bluesteins 7919
+#: (16384, r = 1), 65521 (131072, r = 8) and 131071 (262144, r = 16) ->
+#: batch
+CLUSTER_PRIMES = {65537: 512, 7919: 4096, 65521: 512, 131071: 256}
 
 #: kernels ported and checked but on no route (the JAX package routes none
 #: of them either)
@@ -233,10 +243,10 @@ KERNELS = {
     "large_row_stage": ("rustfft_tpu_torch/csrc/large.cu", "rustfft_tpu/ops/pallas/large.py:241"),
     "conv_fft/K13": ("rustfft_tpu_torch/csrc/conv.cu", "rustfft_tpu/ops/pallas/conv.py:119"),
     "conv_fft/K6": ("rustfft_tpu_torch/csrc/conv.cu", "rustfft_tpu/ops/pallas/lanepack.py:501"),
-    "conv_col_stage": ("rustfft_tpu_torch/csrc/conv_radix.cu",
-                       "rustfft_tpu/ops/pallas/conv_radix.py:70"),
-    "conv_row_stage": ("rustfft_tpu_torch/csrc/conv_radix.cu",
-                       "rustfft_tpu/ops/pallas/conv_radix.py:70"),
+    "conv_col_stage/746497": ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                              "rustfft_tpu/ops/pallas/conv_radix.py:70"),
+    "conv_row_stage/746497": ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                              "rustfft_tpu/ops/pallas/conv_radix.py:70"),
     "permute": ("rustfft_tpu_torch/csrc/permute.cu", "rustfft_tpu/ops/pallas/permute.py:229"),
 }
 #: the top band's kernels, one entry per path shape: K10's fused column
@@ -293,6 +303,8 @@ for _n in BLUE:  # the tile form (convlarge.tile_form)
     KERNELS[f"bconv_out_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                        "rustfft_tpu/ops/pallas/convlarge.py:99")
 #: K15's general form at 24571 (Q = 192; its kernel A is conv_col_stage)
+KERNELS["conv_col_stage/24571"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                   "rustfft_tpu/ops/pallas/large.py:60")
 KERNELS["bconv_row_stage/24571"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                     "rustfft_tpu/ops/pallas/convlarge.py:72")
 KERNELS["bconv_out_stage/24571"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
@@ -304,8 +316,9 @@ for _n in CLUSTER_PRIMES:
     KERNELS[f"conv_radix_pass2/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
                                          "rustfft_tpu/ops/pallas/conv_radix.py:70")
 #: the kernel-variant switches: K4's Gauss stages, K14's stages in the Gauss
-#: form, and K14's column stage on the raw Rader rows (in_shift; its launches
-#: are conv_col_stage's on the 65537 in_shift path, pass 1 and pass 2)
+#: form, and K14's four stages with the column stage on the raw Rader rows
+#: (in_shift; its launches are conv_col_stage's and conv_row_stage's on the
+#: 65537 in_shift path)
 KERNELS["large_col_stage_gauss"] = ("rustfft_tpu_torch/csrc/large_gauss.cu",
                                     "rustfft_tpu/ops/pallas/large.py:76")
 KERNELS["large_row_stage_gauss"] = ("rustfft_tpu_torch/csrc/large_gauss.cu",
@@ -315,6 +328,8 @@ KERNELS["conv_col_stage_gauss"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
 KERNELS["conv_row_stage_gauss"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
                                    "rustfft_tpu/ops/pallas/conv_radix.py:70")
 KERNELS["conv_col_stage/in_shift"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                      "rustfft_tpu/ops/pallas/conv_radix.py:70")
+KERNELS["conv_row_stage/in_shift"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
                                       "rustfft_tpu/ops/pallas/conv_radix.py:70")
 
 #: the path whose launches a "kernel/tag" entry reports, for tags that are
@@ -536,7 +551,8 @@ def main() -> None:
         """(m, r, the radix body's tables, pass 1's and pass 2's keywords, n_in,
         n_out) of the two-pass core of the prime n on its cluster passes, on
         the card: 65537 the Rader core (gather, sums, scatter; pass 2's x0
-        and partials are the caller's), 7919 the Bluestein core."""
+        and partials are the caller's), the others the Bluestein core at
+        the inner length the planner gives them."""
         if n == 65537:
             m = n - 1
             perm_in, inv_gather, b_fft = raders_tables(n, d)
@@ -546,7 +562,7 @@ def main() -> None:
             kw2 = dict(conj_out=True, scatter=torch.from_numpy(tabs["scatter"]).to(dev))
             n_in = n_out = m
         else:
-            m = 16384
+            m = FftPlanner(np.complex64, device="cuda").plan_fft_forward(n).recipe.inner.length
             chirp, h_fft = bluestein_tables(n, m, d)
             tabs = conv_radix.radix_conv_tables(m, d, h=h_fft, pre=chirp, post=chirp)
             kw1 = dict(pre=torch.from_numpy(tabs["pre"]).to(dev))
@@ -721,22 +737,23 @@ def main() -> None:
         """The two-pass core stage by stage, each kernel against its plain
         version on the kernel's own input; tabs from radix_conv_tables(...,
         gauss).  in_shift: x and x0 are views x[:, 1:] and x[:, 0] of the
-        raw Rader rows."""
+        raw Rader rows.  The default stages' errors count into the entries
+        of 746497, the main path that launches them, or of in_shift."""
         p, q = conv_radix.choose_split(m)
         col = card_tables(tabs["col"])
         row = card_tables(tabs["row"])
         t = {k: None if tabs[k] is None else torch.from_numpy(tabs[k]).to(dev)
              for k in ("h", "pre", "post", "perm", "scatter")}
+        key = "in_shift" if in_shift else "746497"
         col_name, row_name = (("conv_col_stage_gauss", "conv_row_stage_gauss") if gauss
-                              else ("conv_col_stage", "conv_row_stage"))
+                              else (f"conv_col_stage/{key}", f"conv_row_stage/{key}"))
         form = f"{'Gauss form ' if gauss else ''}{'in_shift ' if in_shift else ''}"
         a, part = conv_radix.conv_col_stage(x, p, q, col, pre=t["pre"], perm=t["perm"],
                                             emit_sum=full_out, gauss=gauss)
         torch.cuda.synchronize()
         a_p, part_p = conv_radix.conv_col_stage_plain(x, p, q, col, t["pre"], t["perm"], full_out,
                                                       gauss)
-        note("conv_col_stage/in_shift" if in_shift else col_name, a, a_p,
-             f"conv_col_stage pass 1 {form}{batch_what} {d.name}")
+        note(col_name, a, a_p, f"conv_col_stage pass 1 {form}{batch_what} {d.name}")
         if full_out:
             check(f"conv_col_stage partial sums {form}{batch_what} {d.name}", rel_err(part, part_p))
         z = conv_radix.conv_row_stage(a, q, p, row, m, h=t["h"], gauss=gauss)
@@ -784,6 +801,17 @@ def main() -> None:
             check(f"Bluestein 7919 two-pass core gauss={gauss} vs float64 oracle {d.name}",
                   rel_err(out.cpu().to(torch.complex128),
                           torch.from_numpy(host_dft(x.cpu().numpy(), d))))
+        # the four stages as the main path runs them: Rader 746497 (m = 746496)
+        n = 746497
+        perm_in, inv_gather, b_fft = raders_tables(n, d)
+        tabs = conv_radix.radix_conv_tables(n - 1, d, h=b_fft, in_perm=perm_in - 1,
+                                            out_perm=inv_gather)
+        x = signal(2, n)
+        out = two_pass_stages(x[:, 1:].contiguous(), n - 1, d, tabs, "m=746496 Rader batch=2",
+                              n - 1, conj_out=True, x0=x[:, 0].contiguous(), full_out=True)
+        check(f"Rader {n} two-pass core vs float64 oracle {d.name}",
+              rel_err(out.cpu().to(torch.complex128),
+                      torch.from_numpy(host_dft(x.cpu().numpy(), d))))
     for m, batch in ((1008, 257), (114688, 5), (permute.SMEM_ROW_MAX, 33),
                      (permute.SMEM_ROW_MAX + 1, 33)):
         idx = torch.from_numpy(permute.permutation_index(
@@ -988,7 +1016,8 @@ def main() -> None:
             else:
                 a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
                 torch.cuda.synchronize()
-                note("conv_col_stage", a, conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0],
+                note("conv_col_stage/24571", a,
+                     conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0],
                      f"conv_col_stage (kernel A) {what}")
                 b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
                 torch.cuda.synchronize()
@@ -1007,9 +1036,10 @@ def main() -> None:
             free()
 
     # K14's cluster passes at 65537 x 1 and x 3 (the Rader core: gather,
-    # sums, scatter, full_out) and 7919 x 1 and x 5 (the Bluestein core),
-    # within 1e-6 of plain
-    for n, batches in ((65537, (1, 3)), (7919, (1, 5))):
+    # sums, scatter, full_out) and the Bluestein core at 7919 x 1 and x 5,
+    # 65521 x 1 and x 3 (r = 8) and 131071 x 1 and x 2 (r = 16), within
+    # 1e-6 of plain, with the result against the float64 oracle
+    for n, batches in ((65537, (1, 3)), (7919, (1, 5)), (65521, (1, 3)), (131071, (1, 2))):
         for batch, d in ((b, d) for b in batches for d in directions):
             m, r, radix, kw1, kw2, n_in, n_out = cluster_card(n, d)
             x = signal(batch, n_in)
@@ -1030,6 +1060,10 @@ def main() -> None:
             note(f"conv_radix_pass2/{n}", y,
                  conv_radix.conv_radix_pass2_plain(z, m, r, radix, n_out, **kw2),
                  f"conv_radix_pass2 {what}", K7_TOL)
+            if n != 65537:  # the Bluestein core is the whole transform
+                check(f"Bluestein {n} cluster passes {what} vs float64 oracle",
+                      rel_err(y.cpu().to(torch.complex128),
+                              torch.from_numpy(host_dft(x.cpu().numpy(), d))))
             del x, z, part, y
             free()
 
@@ -1130,6 +1164,7 @@ def main() -> None:
         (1234, 8192, {"conv_fft": 1}),
         (7919, 4096, k14), (7919, 1, k14), (7919, 5, k14),
         (65537, 512, k14), (65537, 1, k14), (65537, 3, k14),
+        (65521, 512, k14), (65521, 3, k14), (131071, 256, k14), (131071, 3, k14),
         *((n, batch, {"large2f_col_stage": 1, "large_row_stage": 1} if n < 1 << 26 else
            {"large3_col_stage": 1, "large3_p2": 1, "large_row_stage": 1})
           for n, batch in TOP.items()),
@@ -1383,74 +1418,80 @@ def main() -> None:
                     "m=16384 Bluestein 7919 batch=4096 (the four stages)", n, conj_out=True)
     free()
 
-    # the two-pass core's four stages at the Rader 65537 x 512 shape (its
-    # in_shift and Gauss paths' form)
-    m, batch = 65536, 512
-    p, q = conv_radix.choose_split(m)
-    perm_in, inv_gather, b_fft = raders_tables(m + 1, FftDirection.FORWARD)
-    tabs = conv_radix.radix_conv_tables(m, FftDirection.FORWARD, h=b_fft, in_perm=perm_in - 1,
-                                        out_perm=inv_gather)
-    col = (on_card(tabs["col"][0]), on_card(tabs["col"][1]), torch.from_numpy(tabs["col"][2]).to(dev))
-    row = (on_card(tabs["row"][0]), on_card(tabs["row"][1]))
-    perm = torch.from_numpy(tabs["perm"]).to(dev)
-    scatter = torch.from_numpy(tabs["scatter"]).to(dev)
-    h = torch.from_numpy(tabs["h"]).to(dev)
-    x = signal(batch, m)
-    x0 = signal(batch, 1).reshape(-1)
-    a, part = conv_radix.conv_col_stage(x, p, q, col, perm=perm, emit_sum=True)
-    a_p, part_p = conv_radix.conv_col_stage_plain(x, p, q, col, None, perm, True)
-    what = f"m={m} Rader batch={batch} (the four stages)"
-    note("conv_col_stage", a, a_p, f"conv_col_stage pass 1 {what}")
-    check(f"conv_col_stage partial sums {what}", rel_err(part, part_p))
-    del a_p, part_p
-    z = conv_radix.conv_row_stage(a, q, p, row, m, h=h)
-    note("conv_row_stage", z, conv_radix.conv_row_stage_plain(a, q, p, row, m, h=h),
-         f"conv_row_stage pass 1 {what}")
-    b, _ = conv_radix.conv_col_stage(z, p, q, col)
-    note("conv_col_stage", b, conv_radix.conv_col_stage_plain(z, p, q, col)[0],
-         f"conv_col_stage pass 2 {what}")
-    kw = dict(conj_out=True, x0=x0, scatter=scatter, partials=part)
-    note("conv_row_stage", conv_radix.conv_row_stage(b, q, p, row, m, **kw),
-         conv_radix.conv_row_stage_plain(b, q, p, row, m, **kw), f"conv_row_stage pass 2 {what}")
-    del z, b
-    free()
-    k = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col, perm=perm, emit_sum=True))
-    plain = median_ms(lambda: conv_radix.conv_col_stage_plain(x, p, q, col, None, perm, True))
-    no_gather = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col))
-    print(f"  conv_col_stage m={m} P={p} batch={batch}: {no_gather:.3f} ms with a plain load; "
-          "with the Rader gather and sums:", flush=True)
-    record("conv_col_stage", k, plain, 16 * batch * m + 12 * m + 8 * part.numel(),
-           batch * m * (fft_ops(p) / p + 8))
-    k1 = median_ms(lambda: conv_radix.conv_row_stage(a, q, p, row, m, h=h))
-    k = median_ms(lambda: conv_radix.conv_row_stage(a, q, p, row, m, **kw))
-    plain = median_ms(lambda: conv_radix.conv_row_stage_plain(a, q, p, row, m, **kw))
-    print(f"  conv_row_stage m={m} Q={q} batch={batch}: {k1:.3f} ms with the H epilogue; with the "
-          "scatter and full output:", flush=True)
-    record("conv_row_stage", k, plain, 16 * batch * m + 4 * m + 16 * batch + 8 * part.numel(),
-           batch * (p * fft_ops(q) + 2 * m))
-    del x, a, part
-    free()
+    def rader_stages(n, batch, key, in_shift=False):
+        """The two-pass core's four stages of the Rader n at (batch, n) rows,
+        each against its plain version, the result against the float64
+        oracle on 4 rows; pass 1's column stage (the gather and sums) and
+        pass 2's row stage (the scatter, x0 and the DC-first output) timed
+        as conv_col_stage/key and conv_row_stage/key.  in_shift: pass 1
+        reads the raw rows.  Returns what the Gauss form's run reuses."""
+        m = n - 1
+        p, q = conv_radix.choose_split(m)
+        perm_in, inv_gather, b_fft = raders_tables(n, FftDirection.FORWARD)
+        tabs = conv_radix.radix_conv_tables(m, FftDirection.FORWARD, h=b_fft,
+                                            in_perm=perm_in - 1, out_perm=inv_gather)
+        col, row = card_tables(tabs["col"]), card_tables(tabs["row"])
+        perm, scatter, h = (torch.from_numpy(tabs[k]).to(dev) for k in ("perm", "scatter", "h"))
+        raw = signal(batch, n)
+        x, x0 = ((raw[:, 1:], raw[:, 0]) if in_shift
+                 else (raw[:, 1:].contiguous(), raw[:, 0].contiguous()))
+        col_name, row_name = f"conv_col_stage/{key}", f"conv_row_stage/{key}"
+        what = (f"m={m} P={p} Q={q} Rader batch={batch}{' in_shift' if in_shift else ''} "
+                "(the main path's shape)")
+        a, part = conv_radix.conv_col_stage(x, p, q, col, perm=perm, emit_sum=True)
+        a_p, part_p = conv_radix.conv_col_stage_plain(x, p, q, col, None, perm, True)
+        note(col_name, a, a_p, f"conv_col_stage pass 1 {what}")
+        check(f"conv_col_stage partial sums {what}", rel_err(part, part_p))
+        del a_p, part_p
+        z = conv_radix.conv_row_stage(a, q, p, row, m, h=h)
+        note(row_name, z, conv_radix.conv_row_stage_plain(a, q, p, row, m, h=h),
+             f"conv_row_stage pass 1 {what}")
+        del a
+        b, _ = conv_radix.conv_col_stage(z, p, q, col)
+        note(col_name, b, conv_radix.conv_col_stage_plain(z, p, q, col)[0],
+             f"conv_col_stage pass 2 {what}")
+        del z
+        kw = dict(conj_out=True, x0=x0, scatter=scatter, partials=part)
+        out = conv_radix.conv_row_stage(b, q, p, row, m, **kw)
+        note(row_name, out, conv_radix.conv_row_stage_plain(b, q, p, row, m, **kw),
+             f"conv_row_stage pass 2 {what}")
+        check(f"Rader {n} four stages {what} vs float64 oracle (4 rows)",
+              rel_err(out[:4].cpu().to(torch.complex128),
+                      torch.from_numpy(host_dft(raw[:4].cpu().numpy(), FftDirection.FORWARD))))
+        del out
+        free()
+        k = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col, perm=perm, emit_sum=True))
+        plain = median_ms(lambda: conv_radix.conv_col_stage_plain(x, p, q, col, None, perm, True))
+        print(f"  {col_name} m={m} P={p} batch={batch}, pass 1 with the Rader gather and sums:",
+              flush=True)
+        record(col_name, k, plain, 16 * batch * m + 12 * m + 8 * part.numel(),
+               batch * m * (fft_ops(p) / p + 8))
+        k = median_ms(lambda: conv_radix.conv_row_stage(b, q, p, row, m, **kw))
+        plain = median_ms(lambda: conv_radix.conv_row_stage_plain(b, q, p, row, m, **kw))
+        print(f"  {row_name} m={m} Q={q} batch={batch}, pass 2 with the scatter and full "
+              "output:", flush=True)
+        record(row_name, k, plain, 16 * batch * m + 4 * m + 16 * batch + 8 * part.numel(),
+               batch * (p * fft_ops(q) + 2 * m))
+        del b
+        free()
+        return raw, x, x0, p, q, col, perm, scatter, part, (perm_in, inv_gather, b_fft)
 
-    # K14's options at the same shape: the column stage on the raw (batch,
-    # m + 1) rows (in_shift) against the copy of x[:, 1:] it saves, and both
-    # stages in the Gauss form against the default stages above
-    raw = signal(batch, m + 1)
-    src, x0 = raw[:, 1:], raw[:, 0]
-    a, part = conv_radix.conv_col_stage(src, p, q, col, perm=perm, emit_sum=True)
-    a_p, part_p = conv_radix.conv_col_stage_plain(src, p, q, col, None, perm, True)
-    note("conv_col_stage/in_shift", a, a_p, f"conv_col_stage pass 1 in_shift {what}")
-    check(f"conv_col_stage partial sums in_shift {what}", rel_err(part, part_p))
-    del a, a_p, part_p
+    # the two-pass core's four stages at the main path's Rader 746497 x 64
+    # (m = 746496); at 65537 x 512 on the raw rows (the in_shift path), with
+    # the copy of x[:, 1:] that in_shift saves, and in the Gauss form (its
+    # paths' form) against in_shift's default stages
+    rader_stages(746497, 64, "746497")
     free()
-    k = median_ms(lambda: conv_radix.conv_col_stage(src, p, q, col, perm=perm, emit_sum=True))
-    plain = median_ms(lambda: conv_radix.conv_col_stage_plain(src, p, q, col, None, perm, True))
+    m, batch = 65536, 512
+    raw, src, x0, p, q, col, perm, scatter, part, (perm_in, inv_gather, b_fft) = rader_stages(
+        m + 1, batch, "in_shift", in_shift=True)
     copy = median_ms(lambda: src.contiguous())
     copied = median_ms(lambda: conv_radix.conv_col_stage(src.contiguous(), p, q, col, perm=perm,
                                                          emit_sum=True))
     print(f"  conv_col_stage in_shift m={m} batch={batch}: the copy of x[:, 1:] it saves "
-          f"{copy:.3f} ms; copy and stage {copied:.3f} ms; on the raw rows:", flush=True)
-    record("conv_col_stage/in_shift", k, plain, 16 * batch * m + 12 * m + 8 * part.numel(),
-           batch * m * (fft_ops(p) / p + 8))
+          f"{copy:.3f} ms; copy and stage {copied:.3f} ms; on the raw rows "
+          f"{results['conv_col_stage/in_shift']['ms']:.3f} ms", flush=True)
+    what = f"m={m} Rader batch={batch} on the raw rows"
     gtabs = conv_radix.radix_conv_tables(m, FftDirection.FORWARD, h=b_fft, in_perm=perm_in - 1,
                                          out_perm=inv_gather, gauss=True)
     gcol, grow = card_tables(gtabs["col"]), card_tables(gtabs["row"])
@@ -1468,7 +1509,7 @@ def main() -> None:
     plain = median_ms(lambda: conv_radix.conv_col_stage_plain(src, p, q, gcol, None, perm, True,
                                                               True))
     print(f"  conv_col_stage_gauss m={m} batch={batch}: the default form "
-          f"{results['conv_col_stage']['ms']:.3f} ms; in the Gauss form:", flush=True)
+          f"{results['conv_col_stage/in_shift']['ms']:.3f} ms; in the Gauss form:", flush=True)
     print(f"    the Gauss form's operations "
           f"{batch * m * (gauss_ops(large.stage_radices(p)) + 8) / FP32_FLOPS * 1e3:.3f} ms "
           "at the FP32 peak", flush=True)
@@ -1477,7 +1518,7 @@ def main() -> None:
     k = median_ms(lambda: conv_radix.conv_row_stage_gauss(a, q, p, grow, m, **kw))
     plain = median_ms(lambda: conv_radix.conv_row_stage_plain(a, q, p, grow, m, gauss=True, **kw))
     print(f"  conv_row_stage_gauss m={m} batch={batch}: the default form "
-          f"{results['conv_row_stage']['ms']:.3f} ms; in the Gauss form:", flush=True)
+          f"{results['conv_row_stage/in_shift']['ms']:.3f} ms; in the Gauss form:", flush=True)
     print(f"    the Gauss form's operations "
           f"{batch * m * (gauss_ops(large.stage_radices(q)) + 2) / FP32_FLOPS * 1e3:.3f} ms "
           "at the FP32 peak", flush=True)
@@ -1520,7 +1561,7 @@ def main() -> None:
         free()
 
     # every prime-path size against torch.fft
-    for n, batch in ((1009, 8192), (1234, 8192), (7919, 4096), (65537, 512)):
+    for n, batch in ((1009, 8192), (1234, 8192), *CLUSTER_PRIMES.items()):
         x = signal(batch, n)
         plan = planner.plan_fft_forward(n)
         path = median_ms(lambda: plan.process(x))
@@ -1964,13 +2005,21 @@ def main() -> None:
         free()
 
     # the fused large Bluestein's general form at 24571 x 2048 (Q = 192):
+    # kernel A (the two-pass core's column stage with the chirp as pre),
     # B_conv and A2 against their plain versions and bounds
     n, batch = 24571, 2048
     m = planner.plan_fft_forward(n).recipe.inner.length
     x = signal(batch, n)
     p, q, col, row, pre, h, chirp = bconv_card(n, m, fwd)
     what = f"n={n} m={m} P={p} Q={q} batch={batch} (the main path's shape)"
+    name = "conv_col_stage/24571"
     a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
+    note(name, a, conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0], f"{name} {what}")
+    free()
+    k = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col, pre=pre))
+    plain = median_ms(lambda: conv_radix.conv_col_stage_plain(x, p, q, col, pre))
+    record(name, k, plain, 8 * batch * (n + m) + table_bytes(col[:2]) + 16 * m,
+           batch * m * (fft_ops(p) / p + 12))
     del x
     name = "bconv_row_stage/24571"
     b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])

@@ -701,65 +701,4 @@ extern "C" int rf_bconv_out_tile_stamps(const void* x, void* y, long long batch,
                               make_stages(k, r0, r1, 1, roots0, roots1, nullptr, tw0, nullptr),
                               chirp, grid, per, static_cast<unsigned long long*>(stamps), stream);
 }
-
-namespace rf {
-
-// The access-pattern probe of B_conv's tile: a copy of (batch, Q, P)
-// complex64, one 512-thread block a unit, each unit 16 bytes (two columns)
-// from each of the Q rows P*8 bytes apart, as B_conv's tile reads them.
-// order 0: unit u is tile u % (P/2) of row u / (P/2) (batch-major, the
-// grid of the compile-time body); 1: the tiles 2s and 2s + 1 of one row on
-// neighbouring blocks, rows fastest within a pair of tiles (the sector
-// pairs of a 32-byte sector on neighbouring blocks); 2: 2*Q consecutive
-// values a unit (streaming).
-__global__ void __launch_bounds__(512)
-    bconv_probe_kernel(const float4* __restrict__ x, float4* __restrict__ y, int q, int p,
-                       unsigned batch, int order) {
-  const unsigned u = blockIdx.x;
-  const unsigned tiles = (unsigned)p / 2;
-  size_t base;
-  size_t ld;
-  if (order == 2) {
-    base = (size_t)u * q;
-    ld = 1;
-  } else {
-    unsigned b, tile;
-    if (order == 0) {
-      b = u / tiles;
-      tile = u % tiles;
-    } else {
-      const unsigned pair = u / (2 * batch);
-      b = (u >> 1) % batch;
-      tile = 2 * pair + (u & 1);
-    }
-    base = (size_t)b * q * tiles + tile;
-    ld = tiles;
-  }
-  float4 v[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int row = threadIdx.x + 512 * j;
-    if (row < q) v[j] = x[base + (size_t)row * ld];
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int row = threadIdx.x + 512 * j;
-    if (row < q) y[base + (size_t)row * ld] = v[j];
-  }
-}
-
-}  // namespace rf
-
-// The access-pattern probe (bconv_probe_kernel): x, y (batch, Q, P)
-// complex64, P even, Q <= 8192, 16-byte aligned.
-extern "C" int rf_bconv_copy_probe(const void* x, void* y, long long batch, int q, int p,
-                                   int order, void* stream) {
-  using namespace rf;
-  if (batch <= 0 || p <= 0 || p % 4 != 0 || q <= 0 || q > 8192 || order < 0 || order > 2 ||
-      batch * (p / 2) > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  bconv_probe_kernel<<<(unsigned)(batch * (p / 2)), 512, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x), static_cast<float4*>(y), q, p, (unsigned)batch, order);
-  return cudaGetLastError();
-}
 #endif

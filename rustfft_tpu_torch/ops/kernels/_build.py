@@ -118,7 +118,6 @@ _STAMP_SIGNATURES = {
     "rf_bconv_row_tile_stamps": [_vp, _vp, _ll, _int] + [_vp] * 5 + [_ll, _vp, _vp],
     "rf_bconv_out_tile_stamps": [_vp, _vp, _ll, _int, _int, _ll] + [_int] * 3 + [_vp] * 4
                                 + [_ll, _ll, _vp, _vp],
-    "rf_bconv_copy_probe": [_vp, _vp, _ll, _int, _int, _int, _vp],
     "rf_gather_probe": [_vp, _vp, _vp, _ll, _int, _int, _vp],
 }
 STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)

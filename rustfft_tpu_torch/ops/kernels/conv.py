@@ -213,7 +213,6 @@ def make_raders_fn(p: int, direction: FftDirection, dtype):
     if not conv_supported(m, dtype):
         full_out = bool(config.rader_full_out)
         in_shift = full_out and bool(config.rader_in_shift)
-        cluster = conv_radix.cluster_form(m, bool(config.conv_radix_gauss), in_shift) is not None
         core = conv_radix.make_radix_conv_fn(
             m, direction, dtype, h=b_fft, conj_out=True, in_perm=perm_in - 1,
             out_perm=inv_gather, x0_add=True, emit_sum=True, full_out=full_out,
@@ -224,10 +223,8 @@ def make_raders_fn(p: int, direction: FftDirection, dtype):
             flat = x.reshape(-1, p)
             if in_shift:
                 out = core(flat)
-            elif full_out and cluster:  # its pass 1 reads rows m + 1 apart: no copy
-                out = core(flat[:, 1:], const=flat[:, :1])
             elif full_out:
-                out = core(flat[:, 1:].contiguous(), const=flat[:, :1].contiguous())
+                out = core(flat[:, 1:], const=flat[:, :1])
             else:
                 # out[0] = x0 + sum(x[1:]); the rest already holds conj(D[inv]) + x0
                 x0 = flat[:, :1].contiguous()

@@ -587,31 +587,6 @@ def bconv_out_tile_stamps(b: torch.Tensor, p: int, q: int, tables, chirp: torch.
     return y, stamps[stamps[:, 0] != 0]
 
 
-#: bconv_copy_probe's unit orders
-PROBE_ORDERS = ("batch-major", "sector pairs", "streaming")
-
-
-def bconv_copy_probe(a: torch.Tensor, q: int, p: int, order: str) -> torch.Tensor:
-    """The access-pattern probe of B_conv's tile (the RF_PHASE_STAMPS
-    library only; for timing): a copy of a (batch, Q, P) complex64, one
-    512-thread block a unit of 16 bytes from each of the Q rows, as B_conv
-    reads them.  order: "batch-major" (the compile-time body's grid),
-    "sector pairs" (the units holding the two halves of one 32-byte sector
-    on neighbouring blocks, batch fastest within a pair), or "streaming"
-    (the same bytes in consecutive 2*Q values a unit)."""
-    what = "bconv_copy_probe"
-    check_operand(a, (a.shape[0], q, p), what)
-    require_cuda(a, what)
-    y = torch.empty_like(a)
-    lib = _build.load(phase_stamps=True)
-    with torch.cuda.device(a.device):
-        code = lib.rf_bconv_copy_probe(a.data_ptr(), y.data_ptr(), a.shape[0], q, p,
-                                       PROBE_ORDERS.index(order),
-                                       torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(lib, code, what)
-    return y
-
-
 def make_bluestein_large_fn(n: int, m: int, direction: FftDirection, dtype,
                             split: Optional[Tuple[int, int, int]] = None):
     """Return fn: complex64 (..., n) -> (..., n): Bluestein through the three

@@ -28,7 +28,7 @@ from rustfft_tpu.ops.pallas import convlarge as ref_convlarge
 from rustfft_tpu_torch import FftPlanner, config
 from rustfft_tpu_torch.common import FftDirection
 from rustfft_tpu_torch.ops import bluestein, raders
-from rustfft_tpu_torch.ops.kernels import conv_radix, convlarge, large
+from rustfft_tpu_torch.ops.kernels import conv_radix, convlarge, fused, large
 from rustfft_tpu_torch.twiddles import host_dft
 
 DIRECTIONS = [(FftDirection.FORWARD, RefDirection.FORWARD),
@@ -209,11 +209,13 @@ def _spy_passes(monkeypatch):
 
 
 @pytest.mark.parametrize("n,form", [(65537, "cluster"), (7919, "cluster"),
+                                    (65521, "cluster"), (131071, "cluster"),
                                     (65537, "in_shift"), (7919, "gauss")])
 def test_planner_takes_the_cluster_passes(n, form, monkeypatch):
-    """65537 (Rader, m = 65536) and 7919 (Bluestein, m = 16384) take the two
-    cluster passes; under rader_in_shift or conv_radix_gauss they keep the
-    four launches of the column and row stages."""
+    """65537 (Rader, m = 65536), 7919, 65521 and 131071 (Bluestein, m =
+    16384, 131072 and 262144: r = 1, 8 and 16) take the two cluster passes;
+    under rader_in_shift or conv_radix_gauss they keep the four launches of
+    the column and row stages."""
     calls = _spy_passes(monkeypatch)
     old = (config.rader_in_shift, config.conv_radix_gauss)
     try:
@@ -425,10 +427,36 @@ def test_cluster_passes_match_plain_on_card(cuda_device, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(65521, 8), (131071, 16)])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_cluster_passes_largest_clusters_on_card(cuda_device, n, r, batch):
+    """Both passes of the Bluestein core on the largest clusters: 65521 (m =
+    131072, r = 8) and 131071 (m = 262144, r = 16, a non-portable cluster
+    size), against their plain versions and the oracle, both directions."""
+    m = r * fused.RADIX_PQ * fused.RADIX_PQ
+    for d, _ in DIRECTIONS:
+        chirp, h_fft = bluestein.bluestein_tables(n, m, d)
+        host = conv_radix.radix_conv_tables(m, d, h_fft, chirp, chirp)
+        radix = tuple(_on(t, cuda_device) for t in conv_radix.cluster_tables(r, d))
+        h, pre, post = (_on(host[k], cuda_device) for k in ("h", "pre", "post"))
+        x = torch.from_numpy(_signal(batch, n, seed=n + batch)).to(cuda_device)
+        z, _ = conv_radix.conv_radix_pass1(x, m, radix, h, pre=pre)
+        torch.cuda.synchronize()
+        assert _rel(z.cpu(), conv_radix.conv_radix_pass1_plain(x, m, r, radix, h, pre)[0].cpu()) <= ON_CARD
+        y = conv_radix.conv_radix_pass2(z, m, radix, n, conj_out=True, post=post)
+        torch.cuda.synchronize()
+        want = conv_radix.conv_radix_pass2_plain(z, m, r, radix, n, conj_out=True, post=post)
+        assert _rel(y.cpu(), want.cpu()) <= ON_CARD
+        assert _rel(y.cpu(), host_dft(x.cpu().numpy(), d)) <= TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,rises", [
     (1000003, {"bconv_col_tile": 1, "bconv_row_tile": 1, "bconv_out_tile": 1}),
     (65537, {"conv_radix_pass1": 1, "conv_radix_pass2": 1}),
     (7919, {"conv_radix_pass1": 1, "conv_radix_pass2": 1}),
+    (65521, {"conv_radix_pass1": 1, "conv_radix_pass2": 1}),
+    (131071, {"conv_radix_pass1": 1, "conv_radix_pass2": 1}),
     (746497, {"conv_col_stage": 2, "conv_row_stage": 2}),
     (24571, {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}),
 ])

@@ -46,11 +46,7 @@ device's time a call, 50 calls queued behind a sleep kernel so that the
 host's launch overhead is hidden, median of 7), and K16:
 `permute` alone at 8192 x 1008 (the 1009 path's gather) beside
 torch.index_select, and K15 (the fused large Bluestein): kernel A, B_conv
-and A2 alone at 64 x 1000003 (m = 2^21), the access-pattern probe of
-B_conv's tile where the checkout has it (`convlarge.bconv_copy_probe`:
-the 1 GiB of 64 x 2^21 copied in B_conv's 16-byte row pieces, units
-batch-major and in sector pairs, against consecutive runs, and `clone`),
-the paths 1000003 x 64 and 24571 x 2048 with torch.fft, and K14 (the
+and A2 alone at 64 x 1000003 (m = 2^21), the paths 1000003 x 64 and 24571 x 2048 with torch.fft, and K14 (the
 two-pass convolution core): the Rader core (gather, sums, scatter,
 full_out) and the plain core at 512 x 65536, the gather probe where the
 checkout has it (`conv_radix.gather_probe`: 8-byte reads and writes at the
@@ -237,16 +233,7 @@ def run_one(root: str, groups=GROUPS) -> dict:
         out[f"K15 kernel A {batch}x{n}"] = ms(kernel_a, reps=15)
         out[f"K15 B_conv {batch}x2^21"] = ms(b_conv, reps=15)
         out[f"K15 A2 {batch}x2^21"] = ms(a2, reps=15)
-        del x
-        a = a.reshape(batch, -1, p)  # the probe's (batch, Q, P) view of the same bytes
-        if hasattr(convlarge, "bconv_copy_probe"):
-            for order in convlarge.PROBE_ORDERS:
-                if not torch.equal(convlarge.bconv_copy_probe(a, q, p, order), a):
-                    raise SystemExit(f"bconv_copy_probe {order}: the copy differs")
-                out[f"probe B_conv {order} {batch}x2^21"] = ms(
-                    lambda: convlarge.bconv_copy_probe(a, q, p, order), reps=15)
-            out[f"clone {batch}x2^21"] = ms(lambda: a.clone(), reps=15)
-        del a, b
+        del x, a, b
         for n, batch in K15_PATHS:
             torch.cuda.empty_cache()
             x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
