@@ -51,7 +51,12 @@ two-pass convolution core): the Rader core (gather, sums, scatter,
 full_out) and the plain core at 512 x 65536, the gather probe where the
 checkout has it (`conv_radix.gather_probe`: 8-byte reads and writes at the
 65537 Rader permutation against a streaming copy), the paths 65537 x 512,
-7919 x 4096 and 746497 x 64 with torch.fft, and K9's band as in K9.
+7919 x 4096 and 746497 x 64 with torch.fft, and K9's band as in K9; and,
+for the paths K15_GENERAL (524309 x 64, 393241 x 64, 294919 x 128) and
+K14_FOUR (746497 x 64, 196613 x 256, 88589 x 512), each launch of the
+path's core alone on the inputs the path gave it (recorded through the
+RECORDED wrappers: K15's kernel A, B_conv and A2 in whichever form the
+checkout runs; K14's col1, row1, col2, row2), the path and torch.fft.
 `--only` keeps the named groups of these (K1, K2 for K2 and K3, paths for
 the planner's paths and K1's and K5's torch.fft, K9, K16, K12, K15,
 K14).  It prints one JSON line per run and then a table, each row a
@@ -98,6 +103,23 @@ LARGE_PATHS = ((1 << 20, 1024), (1 << 23, 8), (1 << 26, 2), (65537, 512), (1 << 
 K15_PATHS = ((1000003, 64), (24571, 2048))
 K14_PATHS = ((65537, 512), (7919, 4096), (746497, 64))
 
+#: the paths whose kernels are timed one by one, each launch alone on the
+#: inputs the path gave it (recorded): K15 at the general form's most
+#: common inner lengths (m = 1572864, 2^20, 786432 at P = 256: Q = 6144,
+#: 4096, 3072) and K14's four stages (the Rader 746497 at m = 746496 = 256
+#: x 2916, the Bluesteins 196613 at m = 419904 = 243 x 1728 and 88589 at
+#: m = 186624 = 256 x 729)
+K15_GENERAL = ((524309, 64), (393241, 64), (294919, 128))
+K14_FOUR = ((746497, 64), (196613, 256), (88589, 512))
+
+#: the kernel wrappers of the two cores, by module, with the name each
+#: launch is timed under (K15's general and tile kernels share a name)
+RECORDED = {
+    "conv_radix": {"conv_col_stage": "col", "conv_row_stage": "row"},
+    "convlarge": {"bconv_col_tile": "kernel A", "bconv_row_stage": "B_conv",
+                  "bconv_row_tile": "B_conv", "bconv_out_stage": "A2", "bconv_out_tile": "A2"},
+}
+
 GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14")
 
 
@@ -143,6 +165,52 @@ def run_one(root: str, groups=GROUPS) -> dict:
 
     def on(arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    def recorded(fn):
+        """[(label, wrapper, args, kwargs)] of the RECORDED wrappers fn()
+        called, in order (each call still runs)."""
+        import importlib
+
+        calls, saved = [], []
+        for mod_name, names in RECORDED.items():
+            mod = importlib.import_module(f"rustfft_tpu_torch.ops.kernels.{mod_name}")
+            for name, label in names.items():
+                orig = getattr(mod, name, None)
+                if orig is None:
+                    continue
+
+                def wrap(*args, _orig=orig, _label=label, **kw):
+                    calls.append((_label, _orig, args, kw))
+                    return _orig(*args, **kw)
+
+                saved.append((mod, name, orig))
+                setattr(mod, name, wrap)
+        try:
+            fn()
+        finally:
+            for mod, name, orig in saved:
+                setattr(mod, name, orig)
+        return calls
+
+    def kernels_alone(group, n, batch, first=None):
+        """Each launch of the path n x batch alone (K14: col and row of pass 1,
+        then pass 2; K15: kernel A, B_conv, A2, where `first` names the
+        leading column stage), then the path and torch.fft."""
+        torch.cuda.empty_cache()
+        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+        plan = planner.plan_fft_forward(n)
+        calls = recorded(lambda: plan.process(x))
+        seen = {}
+        for label, wrapper, args, kw in calls:
+            if first is not None and label == "col":
+                label = first
+            seen[label] = seen.get(label, 0) + 1
+            key = f"{group} {label}{seen[label] if group == 'K14' else ''} {n}x{batch}"
+            out[key] = ms(lambda: wrapper(*args, **kw), reps=15)
+        del calls
+        out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+        out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+        del x
 
     out = {}
     k1_tables = getattr(lanepack, "chain_tables", lanepack.stage_tables)
@@ -241,6 +309,8 @@ def run_one(root: str, groups=GROUPS) -> dict:
             out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
             del x
+        for n, batch in K15_GENERAL:
+            kernels_alone("K15", n, batch, first="kernel A")
     if "K14" in groups:
         from rustfft_tpu_torch.ops.kernels import conv_radix
         from rustfft_tpu_torch.ops.raders import raders_tables
@@ -269,6 +339,8 @@ def run_one(root: str, groups=GROUPS) -> dict:
             out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
             del x
+        for n, batch in K14_FOUR:
+            kernels_alone("K14", n, batch)
     for n, batch in K9 + K9_SMALL if {"K9", "K14"} & set(groups) else ():
         torch.cuda.empty_cache()
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
