@@ -183,6 +183,7 @@ def run_one(root: str, groups=GROUPS) -> dict:
                     calls.append((_label, _orig, args, kw))
                     return _orig(*args, **kw)
 
+                wrap.launches = getattr(orig, "launches", 0)  # the wrapper counts through it
                 saved.append((mod, name, orig))
                 setattr(mod, name, wrap)
         try:
