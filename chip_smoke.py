@@ -52,9 +52,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    1e-6 at PAD_CHECKS: every stage kind (register, direct sum, Bluestein at
    M = 64 .. 1024) and a ragged last tile on both axes (17161 counts into
    the 412519 entries), and the fused large Bluestein's three kernels:
-   the tile form's within 1e-6 at 1000003 x 1 and x 3, the general form's at
-   m = 1572864 (n = 746497) and 49152 (24571), with the result against the
-   float64 oracle.  The kernel-variant switches: K4's Gauss
+   the tile form's within 1e-6 at every Q of convlarge.COLUMN_FORMS x 1 and
+   x 3 (BLUE's paths 1000003, 524309, 393241, 294919 and K15_CHECKS'
+   primes 165901, 209959, 221197, 262147) and at 746497's Bluestein inner
+   (m = 1572864) x 2, the general form's at 24571 (m = 49152), with the
+   result against the float64 oracle.  The kernel-variant switches: K4's Gauss
    column and row stages at 2^20 x 1 and x 64, deep_a and blocks2d bit-equal
    to the default at 2^20 x 64, and the two-pass core's Gauss stages and
    in_shift column stage stage by stage at m = 65536 (Rader) and 16384
@@ -80,10 +82,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    2^20, 127 x 262144 and 251 x 131072 (dense, K5's chain form) and 23 x
    2^21 (dense, the product), the odd composites 15625 x 4096, 78125 x 512,
    177147 x 256 and 531441 x 64 and the route's bulk 234617 x 256, 775575
-   x 64, 412519 x 128 and 50666 x 1024 (large_pad), 1000003 x 64, x 1 and
-   x 3 (the fused large Bluestein's tile form) and 24571 x 2048 (its
-   general form; 24571's inner m = 49152 is on the cluster band) and
-   746497 x 64 (the recipe the planner designs).  Then the
+   x 64, 412519 x 128 and 50666 x 1024 (large_pad), 1000003 x 64, 524309 x
+   64, 393241 x 64 and 294919 x 128, each also x 1 and x 3 (the fused large
+   Bluestein's tile form at Q = 8192, 6144, 4096, 3072) and 24571 x 2048
+   (its general form; 24571's inner m = 49152 is on the cluster band), and
+   the two-pass core's four stages at 746497 x 64 (Rader), 196613 x 256
+   and 88589 x 512 (Bluestein).  Then the
    switched paths, each switch set just before its plans are made and set
    back in a `finally`: 2^20 x 1024 under config.large_gauss (the Gauss
    stages), under config.large_blocks2d and through
@@ -132,13 +136,17 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the operations its chain spends and large's stage at one-column tiles, and each
    large_pad path against the large route and torch.fft; the fused large
    Bluestein's tile kernels at 1000003 x 64 (within 1e-6) and the path
-   against the two-pass core and torch.fft, its general kernel A (the
-   two-pass core's column stage with the chirp), B_conv and A2 at 24571 x
-   2048; the two-pass core's cluster passes at 65537 x 512, 7919 x 4096,
-   65521 x 512 and 131071 x 256 (within 1e-6); its four stages at the
-   Rader 746497 x 64 (m = 746496: pass 1's column stage with the gather
-   and sums, pass 2's row stage with the scatter and the DC-first output)
-   and at 65537 x 512 on the raw rows (in_shift); 746497 x 64 as
+   against the two-pass core and torch.fft, also at 524309 x 64, 393241 x
+   64 and 294919 x 128 (the column forms of csrc/bconv_cols.cu), its
+   general kernel A (the two-pass core's column stage with the chirp),
+   B_conv and A2 at 24571 x 2048; the two-pass core's cluster passes at
+   65537 x 512, 7919 x 4096, 65521 x 512 and 131071 x 256 (within 1e-6);
+   its four stages on the ragged tiles (within 1e-6) at the Rader 746497 x
+   64 (m = 746496: pass 1's column stage with the gather and sums, pass 2's
+   row stage with the scatter and the DC-first output), the Bluesteins
+   196613 x 256 and 88589 x 512 (pass 1's column stage with the chirp,
+   pass 2's row stage with post), the middle two launches of each printed
+   with their bounds, and at 65537 x 512 on the raw rows (in_shift); 746497 x 64 as
    Raders(746496) on the two-pass core
    and as Bluesteins(746497, 1572864) on the fused large Bluestein.  The
    switches: K4's Gauss stages at 64 x 2^20 against the default stages,
@@ -222,7 +230,20 @@ PAD = {15625: 4096, 78125: 512, 177147: 256, 531441: 64, 234617: 256, 775575: 64
 PAD_CHECKS = (78125, 177147, 531441, 17161, 234617, 775575, 412519, 50666)
 
 #: the fused large Bluestein's paths (K15): the prime n -> (inner m, batch)
-BLUE = {1000003: (1 << 21, 64)}
+BLUE = {1000003: (1 << 21, 64), 524309: (1572864, 64), 393241: (1 << 20, 64),
+        294919: (786432, 128)}
+
+#: the tile form's other new Q (1536, 1728, 2048, 2304), each at the
+#: smallest prime whose inner the planner puts there, and 746497's Bluestein
+#: inner (m = 1572864): checked at small batches, counted into the entries of
+#: the BLUE path named
+K15_CHECKS = {165901: 294919, 209959: 294919, 221197: 294919, 262147: 294919, 746497: 524309}
+
+#: the primes whose two-pass core runs the four stages on the ragged tiles
+#: (K14 at every other m): the Rader 746497 (m = 746496 = 256 x 2916) and
+#: the Bluesteins 196613 (419904 = 243 x 1728) and 88589 (186624 = 256 x
+#: 729) -> batch
+FOUR = {746497: 64, 196613: 256, 88589: 512}
 
 #: the primes whose two-pass core runs the cluster passes (K14 at m =
 #: r*16384): the Rader 65537 (m = 65536, r = 4) and the Bluesteins 7919
@@ -243,10 +264,6 @@ KERNELS = {
     "large_row_stage": ("rustfft_tpu_torch/csrc/large.cu", "rustfft_tpu/ops/pallas/large.py:241"),
     "conv_fft/K13": ("rustfft_tpu_torch/csrc/conv.cu", "rustfft_tpu/ops/pallas/conv.py:119"),
     "conv_fft/K6": ("rustfft_tpu_torch/csrc/conv.cu", "rustfft_tpu/ops/pallas/lanepack.py:501"),
-    "conv_col_stage/746497": ("rustfft_tpu_torch/csrc/conv_radix.cu",
-                              "rustfft_tpu/ops/pallas/conv_radix.py:70"),
-    "conv_row_stage/746497": ("rustfft_tpu_torch/csrc/conv_radix.cu",
-                              "rustfft_tpu/ops/pallas/conv_radix.py:70"),
     "permute": ("rustfft_tpu_torch/csrc/permute.cu", "rustfft_tpu/ops/pallas/permute.py:229"),
 }
 #: the top band's kernels, one entry per path shape: K10's fused column
@@ -295,20 +312,30 @@ for _n in PAD:
                                            "rustfft_tpu/ops/pallas/largepad.py:109")
     KERNELS[f"largepad_row_stage/{_n}"] = ("rustfft_tpu_torch/csrc/largepad.cu",
                                            "rustfft_tpu/ops/pallas/largepad.py:134")
-for _n in BLUE:  # the tile form (convlarge.tile_form)
+for _n, (_m, _) in BLUE.items():  # the tile form (convlarge.tile_form)
     KERNELS[f"bconv_col_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                        "rustfft_tpu/ops/pallas/large.py:60")
-    KERNELS[f"bconv_row_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
+    KERNELS[f"bconv_row_tile/{_n}"] = ("rustfft_tpu_torch/csrc/"
+                                       + ("convlarge.cu" if _m == 1 << 21 else "bconv_cols.cu"),
                                        "rustfft_tpu/ops/pallas/convlarge.py:72")
     KERNELS[f"bconv_out_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                        "rustfft_tpu/ops/pallas/convlarge.py:99")
-#: K15's general form at 24571 (Q = 192; its kernel A is conv_col_stage)
-KERNELS["conv_col_stage/24571"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+#: K15's general form at 24571 (Q = 192; its kernel A is conv_col_stage,
+#: K14's ragged column stage)
+KERNELS["conv_col_stage/24571"] = ("rustfft_tpu_torch/csrc/conv_pad.cu",
                                    "rustfft_tpu/ops/pallas/large.py:60")
 KERNELS["bconv_row_stage/24571"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                     "rustfft_tpu/ops/pallas/convlarge.py:72")
 KERNELS["bconv_out_stage/24571"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                     "rustfft_tpu/ops/pallas/convlarge.py:99")
+#: K14's four stages on the ragged tiles at each of their paths: pass 1's
+#: column stage (the gather or the chirp, the sums) and pass 2's row stage
+#: (the epilogue)
+for _n in FOUR:
+    KERNELS[f"conv_col_stage/{_n}"] = ("rustfft_tpu_torch/csrc/conv_pad.cu",
+                                       "rustfft_tpu/ops/pallas/conv_radix.py:70")
+    KERNELS[f"conv_row_stage/{_n}"] = ("rustfft_tpu_torch/csrc/conv_pad_row.cu",
+                                       "rustfft_tpu/ops/pallas/conv_radix.py:70")
 #: K14's cluster passes (m = r*16384 on the radix body) at each of their paths
 for _n in CLUSTER_PRIMES:
     KERNELS[f"conv_radix_pass1/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
@@ -327,9 +354,9 @@ KERNELS["conv_col_stage_gauss"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
                                    "rustfft_tpu/ops/pallas/conv_radix.py:70")
 KERNELS["conv_row_stage_gauss"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
                                    "rustfft_tpu/ops/pallas/conv_radix.py:70")
-KERNELS["conv_col_stage/in_shift"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+KERNELS["conv_col_stage/in_shift"] = ("rustfft_tpu_torch/csrc/conv_pad.cu",
                                       "rustfft_tpu/ops/pallas/conv_radix.py:70")
-KERNELS["conv_row_stage/in_shift"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+KERNELS["conv_row_stage/in_shift"] = ("rustfft_tpu_torch/csrc/conv_pad_row.cu",
                                       "rustfft_tpu/ops/pallas/conv_radix.py:70")
 
 #: the path whose launches a "kernel/tag" entry reports, for tags that are
@@ -542,8 +569,9 @@ def main() -> None:
         """B_conv's tables of the tile form on the card: (its chain's
         tables, h in chain 1's output positions, the outer twiddle), both
         in column pairs."""
-        host = convlarge.bconv_tables(n, m, *col[2].shape[::-1], d)
-        return (card_tables(convlarge.bconv_chain_tables(d)),
+        p, q = col[2].shape[::-1]
+        host = convlarge.bconv_tables(n, m, p, q, d)
+        return (card_tables(convlarge.bconv_chain_tables(d, q)),
                 torch.from_numpy(convlarge.bconv_h_table(host["h"])).to(dev),
                 convlarge.to_columns(col[2]))
 
@@ -733,18 +761,19 @@ def main() -> None:
                                      f"batch={batch} {d.name}")
 
     def two_pass_stages(x, m, d, tabs, batch_what, n_out, conj_out=False, x0=None,
-                        full_out=False, gauss=False, in_shift=False):
+                        full_out=False, gauss=False, in_shift=False, key="746497",
+                        tol=TOL):
         """The two-pass core stage by stage, each kernel against its plain
-        version on the kernel's own input; tabs from radix_conv_tables(...,
-        gauss).  in_shift: x and x0 are views x[:, 1:] and x[:, 0] of the
-        raw Rader rows.  The default stages' errors count into the entries
-        of 746497, the main path that launches them, or of in_shift."""
+        version (within tol) on the kernel's own input; tabs from
+        radix_conv_tables(..., gauss).  in_shift: x and x0 are views x[:, 1:]
+        and x[:, 0] of the raw Rader rows.  The default stages' errors count
+        into the entries of `key` (a FOUR path) or of in_shift."""
         p, q = conv_radix.choose_split(m)
         col = card_tables(tabs["col"])
         row = card_tables(tabs["row"])
         t = {k: None if tabs[k] is None else torch.from_numpy(tabs[k]).to(dev)
              for k in ("h", "pre", "post", "perm", "scatter")}
-        key = "in_shift" if in_shift else "746497"
+        key = "in_shift" if in_shift else key
         col_name, row_name = (("conv_col_stage_gauss", "conv_row_stage_gauss") if gauss
                               else (f"conv_col_stage/{key}", f"conv_row_stage/{key}"))
         form = f"{'Gauss form ' if gauss else ''}{'in_shift ' if in_shift else ''}"
@@ -753,23 +782,24 @@ def main() -> None:
         torch.cuda.synchronize()
         a_p, part_p = conv_radix.conv_col_stage_plain(x, p, q, col, t["pre"], t["perm"], full_out,
                                                       gauss)
-        note(col_name, a, a_p, f"conv_col_stage pass 1 {form}{batch_what} {d.name}")
+        note(col_name, a, a_p, f"conv_col_stage pass 1 {form}{batch_what} {d.name}", tol)
         if full_out:
-            check(f"conv_col_stage partial sums {form}{batch_what} {d.name}", rel_err(part, part_p))
+            check(f"conv_col_stage partial sums {form}{batch_what} {d.name}", rel_err(part, part_p),
+                  tol)
         z = conv_radix.conv_row_stage(a, q, p, row, m, h=t["h"], gauss=gauss)
         torch.cuda.synchronize()
         note(row_name, z, conv_radix.conv_row_stage_plain(a, q, p, row, m, h=t["h"], gauss=gauss),
-             f"conv_row_stage pass 1 {form}{batch_what} {d.name}")
+             f"conv_row_stage pass 1 {form}{batch_what} {d.name}", tol)
         b, _ = conv_radix.conv_col_stage(z, p, q, col, gauss=gauss)
         torch.cuda.synchronize()
         note(col_name, b, conv_radix.conv_col_stage_plain(z, p, q, col, gauss=gauss)[0],
-             f"conv_col_stage pass 2 {form}{batch_what} {d.name}")
+             f"conv_col_stage pass 2 {form}{batch_what} {d.name}", tol)
         kw = dict(conj_out=conj_out, post=t["post"], x0=x0, scatter=t["scatter"],
                   partials=part if full_out else None, gauss=gauss)
         out = conv_radix.conv_row_stage(b, q, p, row, n_out, **kw)
         torch.cuda.synchronize()
         note(row_name, out, conv_radix.conv_row_stage_plain(b, q, p, row, n_out, **kw),
-             f"conv_row_stage pass 2 {form}{batch_what} {d.name}")
+             f"conv_row_stage pass 2 {form}{batch_what} {d.name}", tol)
         return out
 
     # the two-pass core: Rader 65537 (m = 65536, gathers, x0, sums and the
@@ -786,7 +816,7 @@ def main() -> None:
                        else (x[:, 1:].contiguous(), x[:, 0].contiguous()))
             out = two_pass_stages(src, p_prime - 1, d, tabs, "m=65536 Rader batch=3",
                                   p_prime - 1, conj_out=True, x0=x0, full_out=True, gauss=gauss,
-                                  in_shift=in_shift)
+                                  in_shift=in_shift, tol=TOL if gauss else K7_TOL)
             check(f"Rader 65537 two-pass core gauss={gauss} in_shift={in_shift} vs float64 "
                   f"oracle {d.name}",
                   rel_err(out.cpu().to(torch.complex128),
@@ -797,21 +827,39 @@ def main() -> None:
         for gauss in (False, True):
             tabs = conv_radix.radix_conv_tables(m, d, h=h_fft, pre=chirp, post=chirp, gauss=gauss)
             out = two_pass_stages(x, m, d, tabs, "m=16384 Bluestein 7919 batch=3", n,
-                                  conj_out=True, gauss=gauss)
+                                  conj_out=True, gauss=gauss, tol=TOL if gauss else K7_TOL)
             check(f"Bluestein 7919 two-pass core gauss={gauss} vs float64 oracle {d.name}",
                   rel_err(out.cpu().to(torch.complex128),
                           torch.from_numpy(host_dft(x.cpu().numpy(), d))))
-        # the four stages as the main path runs them: Rader 746497 (m = 746496)
-        n = 746497
-        perm_in, inv_gather, b_fft = raders_tables(n, d)
-        tabs = conv_radix.radix_conv_tables(n - 1, d, h=b_fft, in_perm=perm_in - 1,
-                                            out_perm=inv_gather)
-        x = signal(2, n)
-        out = two_pass_stages(x[:, 1:].contiguous(), n - 1, d, tabs, "m=746496 Rader batch=2",
-                              n - 1, conj_out=True, x0=x[:, 0].contiguous(), full_out=True)
-        check(f"Rader {n} two-pass core vs float64 oracle {d.name}",
-              rel_err(out.cpu().to(torch.complex128),
-                      torch.from_numpy(host_dft(x.cpu().numpy(), d))))
+        # the four stages on the ragged tiles (K14's source and sink on K12's
+        # kernels) within 1e-6 of plain at batch 1 and 3, as the main paths
+        # run them: the Rader 746497 (m = 746496, Q = 2916: ragged column
+        # tiles) and the Bluesteins 196613 (P = 243: ragged row tiles) and
+        # 88589 (Q = 729); the Rader 17011 (m = 17010 = 243 x 70, ragged on
+        # both axes, a direct-sum radix 7) counts into 746497's entries
+        for n, batch in ((746497, 1), (746497, 3), (17011, 3), (196613, 1), (196613, 3),
+                         (88589, 1), (88589, 3)):
+            key = n if n in FOUR else 746497
+            planned = FftPlanner(np.complex64, device="cuda").plan_fft_forward(n).recipe
+            m = planned.inner.length
+            if isinstance(planned, recipes.Raders):
+                perm_in, inv_gather, b_fft = raders_tables(n, d)
+                tabs = conv_radix.radix_conv_tables(m, d, h=b_fft, in_perm=perm_in - 1,
+                                                    out_perm=inv_gather)
+                x = signal(batch, n)
+                out = two_pass_stages(x[:, 1:].contiguous(), m, d, tabs,
+                                      f"m={m} Rader batch={batch}", m, conj_out=True,
+                                      x0=x[:, 0].contiguous(), full_out=True, key=key,
+                                      tol=K7_TOL)
+            else:
+                chirp, h_fft = bluestein_tables(n, m, d)
+                tabs = conv_radix.radix_conv_tables(m, d, h=h_fft, pre=chirp, post=chirp)
+                x = signal(batch, n)
+                out = two_pass_stages(x, m, d, tabs, f"m={m} Bluestein batch={batch}", n,
+                                      conj_out=True, key=key, tol=K7_TOL)
+            check(f"{type(planned).__name__} {n} four stages batch={batch} vs float64 oracle "
+                  f"{d.name}", rel_err(out.cpu().to(torch.complex128),
+                                       torch.from_numpy(host_dft(x.cpu().numpy(), d))))
     for m, batch in ((1008, 257), (114688, 5), (permute.SMEM_ROW_MAX, 33),
                      (permute.SMEM_ROW_MAX + 1, 33)):
         idx = torch.from_numpy(permute.permutation_index(
@@ -987,12 +1035,17 @@ def main() -> None:
             note(f"largepad_row_stage/{key}", y, largepad.largepad_row_stage_plain(a, q, p, row),
                  f"largepad_row_stage n={n} Q={q} {rq} Bluestein {fused.bluestein_ms(rq)} P={p} "
                  f"tile {pt} (last {p % pt or pt}) batch=2 {d.name}", K7_TOL)
-    # the fused large Bluestein: the tile form's kernels at 1000003 x 1 and
-    # x 3 (within 1e-6 of plain), the general form's at the inner lengths
-    # of 746497 (m = 1572864) and 24571 (m = 49152)
+    # the fused large Bluestein: the tile form's kernels within 1e-6 of
+    # plain at batch 1 and 3 at every Q of convlarge.COLUMN_FORMS (the BLUE
+    # paths' and K15_CHECKS'), on 746497's Bluestein inner (m = 1572864),
+    # and the general form's at 24571 (m = 49152)
     for n, m, batches in ((1000003, 1 << 21, (1, 3)),
+                          *((n, m, (1, 3)) for n, (m, _) in BLUE.items() if n != 1000003),
+                          *((n, None, (1, 3)) for n in K15_CHECKS if n != 746497),
                           (746497, routed_bluestein_inner(746497, np.complex64), (2,)),
                           (24571, 49152, (2,))):
+        m = m or FftPlanner(np.complex64, device="cuda").plan_fft_forward(n).recipe.inner.length
+        key = K15_CHECKS.get(n, n)
         for batch, d in ((b, d) for b in batches for d in directions):
             x = signal(batch, n)
             p, q, col, row, pre, h, chirp = bconv_card(n, m, d)
@@ -1001,16 +1054,16 @@ def main() -> None:
                 trow, th, touter = bconv_tile_card(n, m, d, col)
                 a = convlarge.bconv_col_tile(x, p, q, col, pre)
                 torch.cuda.synchronize()
-                note(f"bconv_col_tile/{n}", a, convlarge.bconv_col_tile_plain(x, p, q, col, pre),
+                note(f"bconv_col_tile/{key}", a, convlarge.bconv_col_tile_plain(x, p, q, col, pre),
                      f"bconv_col_tile (kernel A) {what}", K7_TOL)
                 b = convlarge.bconv_row_tile(a, q, p, trow, th, touter)
                 torch.cuda.synchronize()
-                note(f"bconv_row_tile/{n}", b,
+                note(f"bconv_row_tile/{key}", b,
                      convlarge.bconv_row_tile_plain(a, q, p, trow, th, touter),
-                     f"bconv_row_tile (B_conv) {what}", K7_TOL)
+                     f"bconv_row_tile (B_conv) {convlarge.COLUMN_FORMS[q]} {what}", K7_TOL)
                 out = convlarge.bconv_out_tile(b, p, q, col[:2], chirp, n)
                 torch.cuda.synchronize()
-                note(f"bconv_out_tile/{n}", out,
+                note(f"bconv_out_tile/{key}", out,
                      convlarge.bconv_out_tile_plain(b, p, q, col[:2], chirp, n),
                      f"bconv_out_tile (A2) {what}", K7_TOL)
             else:
@@ -1121,13 +1174,13 @@ def main() -> None:
         assert executor.build(recipe, FftDirection.FORWARD, np.complex64).__module__ == \
             convlarge.__name__
 
-    def prime_launches(n):
-        """The launches of the planner's recipe for a prime whose inner runs
-        on a two-pass kernel: the fused large Bluestein, or Rader on the
-        two-pass core."""
-        if isinstance(planner.plan_fft_forward(n).recipe, recipes.Bluesteins):
-            return k15_general
-        return {"conv_col_stage": 2, "conv_row_stage": 2}
+    four = {"conv_col_stage": 2, "conv_row_stage": 2}
+    for n in FOUR:
+        recipe = planner.plan_fft_forward(n).recipe
+        m = recipe.inner.length
+        assert isinstance(recipe, (recipes.Raders, recipes.Bluesteins)), recipe
+        assert (conv_radix.radix_conv_supported(m, np.complex64) and conv_radix.cluster_form(m)
+                is None and not convlarge.bconv_supported(m, np.complex64)), (n, m)
     main_launches = {name: 0 for name in counters}
     path_launches = {}
 
@@ -1179,7 +1232,7 @@ def main() -> None:
         *((n, batch, k15) for n, (_, batch) in BLUE.items()),
         *((n, batch, k15) for n in BLUE for batch in (1, 3)),
         (24571, 2048, k15_general),
-        (746497, 64, prime_launches(746497)),
+        *((n, batch, four) for n, batch in FOUR.items()),
     )
     def drive(key, n, batch, expected, fwd, inv, what, same_as=None):
         """fwd and inv through run_counted, each against the float64 oracle
@@ -1418,6 +1471,18 @@ def main() -> None:
                     "m=16384 Bluestein 7919 batch=4096 (the four stages)", n, conj_out=True)
     free()
 
+    def middle_stages(a, z, p, q, col, row, h, batch, m, key):
+        """The times of the four stages' middle launches, pass 1's row stage
+        (conj(. * h)) and pass 2's plain column stage (K12's own), printed
+        beside their bounds: neither has an entry of its own."""
+        row1 = median_ms(lambda: conv_radix.conv_row_stage(a, q, p, row, m, h=h))
+        col2 = median_ms(lambda: conv_radix.conv_col_stage(z, p, q, col))
+        b1, _ = bound(16 * batch * m + 8 * m + table_bytes(row), batch * (p * fft_ops(q) + 6 * m))
+        b2, _ = bound(16 * batch * m + 8 * m + table_bytes(col[:2]),
+                      batch * m * (fft_ops(p) / p + 6))
+        print(f"  {key}: pass 1's row stage {row1:.3f} ms (bound {b1:.3f}), pass 2's column "
+              f"stage {col2:.3f} ms (bound {b2:.3f})", flush=True)
+
     def rader_stages(n, batch, key, in_shift=False):
         """The two-pass core's four stages of the Rader n at (batch, n) rows,
         each against its plain version, the result against the float64
@@ -1446,11 +1511,11 @@ def main() -> None:
         z = conv_radix.conv_row_stage(a, q, p, row, m, h=h)
         note(row_name, z, conv_radix.conv_row_stage_plain(a, q, p, row, m, h=h),
              f"conv_row_stage pass 1 {what}")
-        del a
         b, _ = conv_radix.conv_col_stage(z, p, q, col)
         note(col_name, b, conv_radix.conv_col_stage_plain(z, p, q, col)[0],
              f"conv_col_stage pass 2 {what}")
-        del z
+        middle_stages(a, z, p, q, col, row, h, batch, m, key)
+        del a, z
         kw = dict(conj_out=True, x0=x0, scatter=scatter, partials=part)
         out = conv_radix.conv_row_stage(b, q, p, row, m, **kw)
         note(row_name, out, conv_radix.conv_row_stage_plain(b, q, p, row, m, **kw),
@@ -1476,12 +1541,67 @@ def main() -> None:
         free()
         return raw, x, x0, p, q, col, perm, scatter, part, (perm_in, inv_gather, b_fft)
 
+    def bluestein_stages(n, batch):
+        """The two-pass core's four stages of the Bluestein n at (batch, n)
+        rows (the planner's inner m), each against its plain version within
+        1e-6, the result against the float64 oracle on 4 rows; pass 1's
+        column stage (the chirp) and pass 2's row stage (post, n_out < m)
+        timed as conv_col_stage/n and conv_row_stage/n."""
+        m = planner.plan_fft_forward(n).recipe.inner.length
+        p, q = conv_radix.choose_split(m)
+        chirp, h_fft = bluestein_tables(n, m, FftDirection.FORWARD)
+        tabs = conv_radix.radix_conv_tables(m, FftDirection.FORWARD, h=h_fft, pre=chirp,
+                                            post=chirp)
+        col, row = card_tables(tabs["col"]), card_tables(tabs["row"])
+        h, pre, post = (torch.from_numpy(tabs[k]).to(dev) for k in ("h", "pre", "post"))
+        x = signal(batch, n)
+        col_name, row_name = f"conv_col_stage/{n}", f"conv_row_stage/{n}"
+        what = f"m={m} P={p} Q={q} Bluestein batch={batch} (the main path's shape)"
+        a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
+        note(col_name, a, conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0],
+             f"conv_col_stage pass 1 {what}", K7_TOL)
+        z = conv_radix.conv_row_stage(a, q, p, row, m, h=h)
+        note(row_name, z, conv_radix.conv_row_stage_plain(a, q, p, row, m, h=h),
+             f"conv_row_stage pass 1 {what}", K7_TOL)
+        b, _ = conv_radix.conv_col_stage(z, p, q, col)
+        note(col_name, b, conv_radix.conv_col_stage_plain(z, p, q, col)[0],
+             f"conv_col_stage pass 2 {what}", K7_TOL)
+        kw = dict(conj_out=True, post=post)
+        out = conv_radix.conv_row_stage(b, q, p, row, n, **kw)
+        note(row_name, out, conv_radix.conv_row_stage_plain(b, q, p, row, n, **kw),
+             f"conv_row_stage pass 2 {what}", K7_TOL)
+        check(f"Bluestein {n} four stages {what} vs float64 oracle (4 rows)",
+              rel_err(out[:4].cpu().to(torch.complex128),
+                      torch.from_numpy(host_dft(x[:4].cpu().numpy(), FftDirection.FORWARD))))
+        del out
+        free()
+        middle_stages(a, z, p, q, col, row, h, batch, m, n)
+        del z
+        free()
+        k = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col, pre=pre))
+        plain = median_ms(lambda: conv_radix.conv_col_stage_plain(x, p, q, col, pre))
+        print(f"  {col_name} m={m} P={p} {large.stage_radices(p)} tile {largepad.tile(p)} "
+              f"batch={batch}, pass 1 with the chirp:", flush=True)
+        record(col_name, k, plain, 8 * batch * (n + m) + 16 * m + table_bytes(col[:2]),
+               batch * m * (fft_ops(p) / p + 12))
+        k = median_ms(lambda: conv_radix.conv_row_stage(b, q, p, row, n, **kw))
+        plain = median_ms(lambda: conv_radix.conv_row_stage_plain(b, q, p, row, n, **kw))
+        print(f"  {row_name} m={m} Q={q} {large.stage_radices(q)} tile {largepad.tile(q)} "
+              f"batch={batch}, pass 2 with post and n_out = n:", flush=True)
+        record(row_name, k, plain, 8 * batch * (m + n) + 8 * n + table_bytes(row),
+               batch * (p * fft_ops(q) + 6 * n))
+        del x, a, b
+        free()
+
     # the two-pass core's four stages at the main path's Rader 746497 x 64
     # (m = 746496); at 65537 x 512 on the raw rows (the in_shift path), with
     # the copy of x[:, 1:] that in_shift saves, and in the Gauss form (its
     # paths' form) against in_shift's default stages
     rader_stages(746497, 64, "746497")
     free()
+    for n, batch in FOUR.items():
+        if n != 746497:
+            bluestein_stages(n, batch)
     m, batch = 65536, 512
     raw, src, x0, p, q, col, perm, scatter, part, (perm_in, inv_gather, b_fft) = rader_stages(
         m + 1, batch, "in_shift", in_shift=True)

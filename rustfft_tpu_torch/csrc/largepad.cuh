@@ -40,6 +40,12 @@
 // twice the width in the same shared memory; each kernel has a form
 // without a Bluestein stage (MaxM = 0), which the launchers take where the
 // chain has none, so that register-radix chains keep their registers.
+//
+// Both kernels are templates on what they load and store (below): the
+// column kernel on a source policy, the row kernel on a sink policy.  K12's
+// own are plain rows (PadRowsIn, PadRowsOut); the two-pass convolution
+// core's four stages (K14, csrc/conv_pad.cu and csrc/conv_pad_row.cu) run
+// the same kernels with its gather, partial sums and epilogues.
 #pragma once
 
 #include "inplace_chain.cuh"
@@ -153,6 +159,163 @@ static Stages pad_chain(int k, int r0, int r1, int r2, const void* roots0, const
   st.bm[1] = m1;
   st.bm[2] = m2;
   return st;
+}
+
+// ---- the kernels, on a source and a sink policy --------------------------------
+//
+// The column kernel reads its tile through a source policy `Src`:
+//   static constexpr int kBlocks;  // blocks an SM of the form without a
+//                                  // Bluestein stage (its register cap)
+//   float2 load(const float2* x, size_t b, int p, int q, int q0, int T,
+//               float2* buf) const
+//     // rows j1 < P, columns q0 .. q0 + T of batch row b into
+//     // buf[swz(j1*T + t)]; returns this thread's sum of the values it read
+//   void finish(size_t b, int tile, int tiles, float2 acc) const
+//     // every thread, once, after the loads
+// and the row kernel stores through a sink policy `Sink`:
+//   Row row(float2* y, size_t b, int q, int p, int p0) const
+//     // the block's outputs, Row providing
+//     //   void put(int k2, int t, float2 v) const  // natural output
+//     //                                            // k = k2*P + p0 + t
+//   void finish(size_t b, int p0) const  // every thread, after the stores
+
+// K12's source: x (B, P, Q) rows of P*Q values.
+struct PadRowsIn {
+  static constexpr int kBlocks = kPadColPlainBlocks;
+  __device__ float2 load(const float2* __restrict__ x, size_t b, int p, int q, int q0, int T,
+                         float2* buf) const {
+    load_tile(x + b * (size_t)p * (size_t)q + q0, (size_t)q, p, T, buf);
+    return make_float2(0.f, 0.f);
+  }
+  __device__ void finish(size_t, int, int, float2) const {}
+};
+
+// K12's sink: y (B, Q*P) in natural order, T values a row k2.
+struct PadRowsOut {
+  struct Row {
+    float2* __restrict__ dst;
+    int p;
+    __device__ void put(int k2, int t, float2 v) const { dst[(size_t)k2 * p + t] = v; }
+  };
+  __device__ Row row(float2* __restrict__ y, size_t b, int q, int p, int p0) const {
+    return Row{y + b * (size_t)q * (size_t)p + p0, p};
+  }
+  __device__ void finish(size_t, int) const {}
+};
+
+// Column stage: block (b, tile) loads x[b, :, q0 .. q0 + T) as (P, T) (T =
+// qt but in the last tile) through the source, runs DFT_P in place with the
+// outer twiddle of its columns (rows q0 .. of the (Q, P) table) folded in,
+// and writes the rows q0 .. q0 + T of y[b] (Q, P), T*P contiguous values.
+template <class Src, int MaxM, bool kStamp>
+__global__ void __launch_bounds__(kPadColThreads, MaxM == 0 ? Src::kBlocks : 2)
+    largepad_col_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
+                        int qt, Stages st, const float2* __restrict__ outer,
+                        unsigned long long* stamps, Src src) {
+  extern __shared__ float2 smem[];
+  pad_stamp<kStamp>(stamps, 0);
+  float2* buf = smem;
+  float2* stables = smem + pad16(p * qt);
+  auto* place = reinterpret_cast<unsigned short*>(stables + chain_smem_len(st));
+  load_chain_tables(st, stables);
+  load_places(p, st, place);
+  const int tiles = (q + qt - 1) / qt;
+  const size_t b = blockIdx.x / tiles;
+  const int tile = (int)(blockIdx.x % tiles);
+  const int q0 = tile * qt;
+  const int T = min(qt, q - q0);
+  src.finish(b, tile, tiles, src.load(x, b, p, q, q0, T, buf));
+  __syncthreads();
+  pad_stamp<kStamp>(stamps, 1);
+  chain_inplace<MaxM>(buf, p, 1, T, st, stables, outer + (size_t)q0 * p, p);
+  pad_stamp<kStamp>(stamps, 2);
+  // y[b, q0 + t, k1] = row place[k1], column t of the tile
+  float2* dst = y + b * (size_t)p * (size_t)q + (size_t)q0 * p;
+  const int elems = T * p, nt = (int)blockDim.x;
+  TileWalk w((int)threadIdx.x, p);
+  for (int f0 = threadIdx.x; f0 < elems; f0 += kPadIo * nt) {
+    float2 v[kPadIo];
+#pragma unroll
+    for (int u = 0; u < kPadIo; ++u, w.next())
+      if (f0 + u * nt < elems) v[u] = buf[swz(place[w.col] * T + w.row)];
+#pragma unroll
+    for (int u = 0; u < kPadIo; ++u) {
+      const int f = f0 + u * nt;
+      if (f < elems) dst[f] = v[u];
+    }
+  }
+  pad_stamp<kStamp>(stamps, 3);
+}
+
+// Row stage: block (b, tile) loads a[b, :, p0 .. p0 + T) as (Q, T) (T = pt
+// but in the last tile), runs the length-Q FFT in place and stores its
+// natural outputs through the sink.
+template <class Sink, int MaxM, bool kStamp>
+__global__ void __launch_bounds__(kPadMaxThreads)
+    largepad_row_kernel(const float2* __restrict__ x, float2* __restrict__ y, int q, int p,
+                        int pt, Stages st, unsigned long long* stamps, Sink sink) {
+  extern __shared__ float2 smem[];
+  pad_stamp<kStamp>(stamps, 0);
+  float2* buf = smem;
+  float2* stables = smem + pad16(q * pt);
+  auto* place = reinterpret_cast<unsigned short*>(stables + chain_smem_len(st));
+  load_chain_tables(st, stables);
+  load_places(q, st, place);
+  const int tiles = (p + pt - 1) / pt;
+  const size_t b = blockIdx.x / tiles;
+  const int p0 = (int)(blockIdx.x % tiles) * pt;
+  const int T = min(pt, p - p0);
+  load_tile(x + b * (size_t)q * (size_t)p + p0, (size_t)p, q, T, buf);
+  __syncthreads();
+  pad_stamp<kStamp>(stamps, 1);
+  chain_inplace<MaxM>(buf, q, 1, T, st, stables, nullptr, 0);
+  pad_stamp<kStamp>(stamps, 2);
+  const auto out = sink.row(y, b, q, p, p0);
+  const int elems = q * T, nt = (int)blockDim.x;
+  TileWalk w((int)threadIdx.x, T);
+  for (int f0 = threadIdx.x; f0 < elems; f0 += kPadIo * nt) {
+    float2 v[kPadIo];
+    TileWalk r = w;
+#pragma unroll
+    for (int u = 0; u < kPadIo; ++u, r.next())
+      if (f0 + u * nt < elems) v[u] = buf[swz(place[r.row] * T + r.col)];
+#pragma unroll
+    for (int u = 0; u < kPadIo; ++u, w.next())
+      if (f0 + u * nt < elems) out.put(w.row, w.col, v[u]);
+  }
+  sink.finish(b, p0);
+  pad_stamp<kStamp>(stamps, 3);
+}
+
+// 256 threads where two blocks of smem bytes fit an SM, else 512.
+static inline int pad_threads(size_t smem) {
+  return 2 * (smem + kBlockReserved) <= (size_t)kSmShared ? 256 : 512;
+}
+
+template <class Src, int MaxM, bool kStamp>
+static cudaError_t launch_pad_col(const float2* x, float2* y, long long batch, int p, int q,
+                                  int qt, const Stages& st, const float2* outer,
+                                  unsigned long long* stamps, const Src& src, cudaStream_t s) {
+  const size_t smem = pad_smem_bytes(p, qt, st);
+  cudaError_t err = allow_smem(largepad_col_kernel<Src, MaxM, kStamp>, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = batch * ((q + qt - 1) / qt);
+  largepad_col_kernel<Src, MaxM, kStamp>
+      <<<(unsigned)blocks, kPadColThreads, smem, s>>>(x, y, p, q, qt, st, outer, stamps, src);
+  return cudaGetLastError();
+}
+
+template <class Sink, int MaxM, bool kStamp>
+static cudaError_t launch_pad_row(const float2* x, float2* y, long long batch, int q, int p,
+                                  int pt, const Stages& st, unsigned long long* stamps,
+                                  const Sink& sink, cudaStream_t s) {
+  const size_t smem = pad_smem_bytes(q, pt, st);
+  cudaError_t err = allow_smem(largepad_row_kernel<Sink, MaxM, kStamp>, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = batch * ((p + pt - 1) / pt);
+  largepad_row_kernel<Sink, MaxM, kStamp>
+      <<<(unsigned)blocks, pad_threads(smem), smem, s>>>(x, y, q, p, pt, st, stamps, sink);
+  return cudaGetLastError();
 }
 
 }  // namespace rf

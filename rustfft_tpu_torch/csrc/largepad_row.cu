@@ -1,65 +1,8 @@
-// The row kernel of K12 (largepad.py:_kernel_b_pad): csrc/largepad.cuh has
-// the design.
+// The row kernel of K12 (largepad.py:_kernel_b_pad) with its natural-order
+// store (PadRowsOut): csrc/largepad.cuh has the design and the kernel.
 #include "largepad.cuh"
 
 namespace rf {
-
-// 256 threads where two blocks of smem bytes fit an SM, else 512.
-static int pad_threads(size_t smem) {
-  return 2 * (smem + kBlockReserved) <= (size_t)kSmShared ? 256 : 512;
-}
-
-// Row stage: block (b, tile) loads a[b, :, p0 .. p0 + T) as (Q, T) (T = pt
-// but in the last tile), runs the length-Q FFT in place and writes
-// X[b, k2*P + p0 + t], T values a row.
-template <int MaxM, bool kStamp>
-__global__ void __launch_bounds__(kPadMaxThreads)
-    largepad_row_kernel(const float2* __restrict__ x, float2* __restrict__ y, int q, int p,
-                        int pt, Stages st, unsigned long long* stamps) {
-  extern __shared__ float2 smem[];
-  pad_stamp<kStamp>(stamps, 0);
-  float2* buf = smem;
-  float2* stables = smem + pad16(q * pt);
-  auto* place = reinterpret_cast<unsigned short*>(stables + chain_smem_len(st));
-  load_chain_tables(st, stables);
-  load_places(q, st, place);
-  const int tiles = (p + pt - 1) / pt;
-  const size_t b = blockIdx.x / tiles;
-  const int p0 = (int)(blockIdx.x % tiles) * pt;
-  const int T = min(pt, p - p0);
-  load_tile(x + b * (size_t)q * (size_t)p + p0, (size_t)p, q, T, buf);
-  __syncthreads();
-  pad_stamp<kStamp>(stamps, 1);
-  chain_inplace<MaxM>(buf, q, 1, T, st, stables, nullptr, 0);
-  pad_stamp<kStamp>(stamps, 2);
-  float2* dst = y + b * (size_t)q * (size_t)p + p0;
-  const int elems = q * T, nt = (int)blockDim.x;
-  TileWalk w((int)threadIdx.x, T);
-  for (int f0 = threadIdx.x; f0 < elems; f0 += kPadIo * nt) {
-    float2 v[kPadIo];
-    TileWalk r = w;
-#pragma unroll
-    for (int u = 0; u < kPadIo; ++u, r.next())
-      if (f0 + u * nt < elems) v[u] = buf[swz(place[r.row] * T + r.col)];
-#pragma unroll
-    for (int u = 0; u < kPadIo; ++u, w.next())
-      if (f0 + u * nt < elems) dst[(size_t)w.row * p + w.col] = v[u];
-  }
-  pad_stamp<kStamp>(stamps, 3);
-}
-
-template <int MaxM, bool kStamp>
-static cudaError_t launch_row(const float2* x, float2* y, long long batch, int q, int p, int pt,
-                              const Stages& st, unsigned long long* stamps,
-                              cudaStream_t s) {
-  const size_t smem = pad_smem_bytes(q, pt, st);
-  cudaError_t err = allow_smem(largepad_row_kernel<MaxM, kStamp>, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = batch * ((p + pt - 1) / pt);
-  largepad_row_kernel<MaxM, kStamp>
-      <<<(unsigned)blocks, pad_threads(smem), smem, s>>>(x, y, q, p, pt, st, stamps);
-  return cudaGetLastError();
-}
 
 template <bool kStamp>
 static int row_stage(const void* x, void* y, long long batch, int q, int p, int pt,
@@ -69,8 +12,10 @@ static int row_stage(const void* x, void* y, long long batch, int q, int p, int 
   auto* ty = static_cast<float2*>(y);
   const auto s = static_cast<cudaStream_t>(stream);
   if (has_bluestein(st))
-    return launch_row<kPadRowMaxM, kStamp>(tx, ty, batch, q, p, pt, st, stamps, s);
-  return launch_row<0, kStamp>(tx, ty, batch, q, p, pt, st, stamps, s);
+    return launch_pad_row<PadRowsOut, kPadRowMaxM, kStamp>(tx, ty, batch, q, p, pt, st, stamps,
+                                                           PadRowsOut{}, s);
+  return launch_pad_row<PadRowsOut, 0, kStamp>(tx, ty, batch, q, p, pt, st, stamps, PadRowsOut{},
+                                               s);
 }
 
 }  // namespace rf

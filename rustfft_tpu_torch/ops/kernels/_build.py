@@ -91,6 +91,12 @@ _SIGNATURES = {
     "rf_bconv_out_tile": [_vp, _vp, _ll, _int, _int, _ll] + [_int] * 3 + [_vp] * 4
                          + [_ll, _ll, _vp],
     "rf_bconv_resident_blocks": [_int, ctypes.POINTER(_int)],
+    "rf_bconv_cols": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 4 + [_ll, _vp],
+    "rf_bconv_cols_resident": [_int, ctypes.POINTER(_int)],
+    "rf_conv_pad_col_stage": [_vp, _vp, _vp, _ll, _int, _ll] + [_int] * 7 + [_vp] * 5
+                             + [_int] * 3 + [_vp] * 4,
+    "rf_conv_pad_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3 + [_vp] * 3
+                             + [_ll, _vp, _vp, _int, _int, _int, _ll, _vp],
     "rf_conv_radix_pass1": [_vp, _vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 12 + [_ll, _vp],
     "rf_conv_radix_pass2": [_vp, _vp, _ll] + [_int] * 5 + [_vp] * 11 + [_ll, _vp, _vp]
                            + [_int] * 3 + [_ll, _ll, _vp],
@@ -116,6 +122,7 @@ _STAMP_SIGNATURES = {
     "rf_bconv_col_tile_stamps": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 5
                                 + [_ll, _ll, _vp, _vp],
     "rf_bconv_row_tile_stamps": [_vp, _vp, _ll, _int] + [_vp] * 5 + [_ll, _vp, _vp],
+    "rf_bconv_cols_stamps": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 4 + [_ll, _vp, _vp],
     "rf_bconv_out_tile_stamps": [_vp, _vp, _ll, _int, _int, _ll] + [_int] * 3 + [_vp] * 4
                                 + [_ll, _ll, _vp, _vp],
     "rf_gather_probe": [_vp, _vp, _vp, _ll, _int, _int, _vp],

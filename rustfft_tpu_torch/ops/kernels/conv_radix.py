@@ -5,27 +5,36 @@ Replaces rustfft_tpu/ops/pallas/conv_radix.py (`_kernel`, `_make_pass`,
 
     out = [post *] maybe_conj( FFT_m( conj( FFT_m([pre *] zeropad(x)) * H ) ) )
 
-for inner lengths m whose transform does not fit one block.  Each FFT_m is
-the port's column stage and row stage (ops/kernels/large.py) at the split
-large.choose_pqq(m), with the pointwise work fused into their loads and
-stores (the stage kernels of csrc/large.cuh with the source and sink of
-csrc/conv_radix.cu):
+for inner lengths m whose transform does not fit one block, at the split
+choose_split(m) = (P, Q).  Two forms:
+
+  the cluster passes (cluster_form: m = r*16384, r = 1, 2, 4, 8, 16): each
+      FFT_m one launch of csrc/radix.cuh's body, `conv_radix_pass1` and
+      `conv_radix_pass2`, the pointwise work in its load and store;
+  the four stages (every other m: 633 inner lengths of the primes in
+      [8192, 2^20], tools/torch_prime_cores.py): each FFT_m K12's column
+      and row stage on ragged in-place tiles (csrc/largepad.cuh; `tile(P)`
+      and `tile(Q)` columns a block whatever divides the other axis, K7's
+      register, Bluestein and direct stages, ops/kernels/largepad.py), with
+      the pointwise work in their source and sink (csrc/conv_pad.cu,
+      csrc/conv_pad_row.cu):
 
   pass 1: `conv_col_stage` loads [pre *] x or the Rader gather x[perm[j]]
-          and emits per-tile partial sums of the raw input;
+          and emits per-(row, tile) partial sums of the raw input;
           `conv_row_stage` stores conj(. * H) in natural order;
-  pass 2: `conv_col_stage` plain; `conv_row_stage` stores [conj] [* post]
-          [+ x0], scattered by the Rader output permutation, with full_out
-          in the DC-first layout out[0] = x0 + sum(x).
+  pass 2: `conv_col_stage` plain (K12's own source); `conv_row_stage`
+          stores [conj] [* post] [+ x0], scattered by the Rader output
+          permutation, with full_out in the DC-first layout out[0] = x0 +
+          sum(x).
 
 Four launches and eight traversals of m (the TPU kernel: two and four).
-The prime path's shapes (P = 256; Q = 256, 128, 64 without the output
-scatter) run compile-time kernels, other shapes general ones.
 
 The JAX kernel's two options, off by default there and here:
   gauss     (config.conv_radix_gauss; conv_radix.py:183, :232, :266): every
-            stage in the Gauss form on the general kernels, counted by
-            `conv_col_stage_gauss` and `conv_row_stage_gauss`;
+            stage in the Gauss form.  By that switch, and only there, the
+            four stages run csrc/large.cuh's general kernels (tiles that
+            divide the other axis, two buffers; csrc/conv_radix.cu), counted
+            by `conv_col_stage_gauss` and `conv_row_stage_gauss`;
   in_shift  (config.rader_in_shift; conv_radix.py:161, :327): the Rader
             core reads the raw (batch, m + 1) rows.  Pass 1's column stage
             takes the view x[:, 1:] (rows m + 1 apart, no copy) and pass 2
@@ -45,7 +54,7 @@ import torch
 from ...common import FftDirection
 from ...config import config
 from .. import calg
-from . import _build, fused, large
+from . import _build, fused, large, largepad
 from .lanepack import (
     check_operand, check_stage_tables, padded_stage_args, require_cuda, smem_bytes,
     stage_tables,
@@ -58,7 +67,8 @@ _COL_STATIC_SMEM = 32 * 8
 
 
 def col_tile(p: int, q: int, gauss: bool = False) -> Optional[int]:
-    """Columns j2 per column-stage block: the largest of 16, 8, 4, 2, 1 that
+    """Columns j2 per block of csrc/large.cuh's general column kernel (the
+    Gauss form's; choose_split's rule): the largest of 16, 8, 4, 2, 1 that
     divides Q and fits shared memory (with the Gauss tables with `gauss`)."""
     for qt in (16, 8, 4, 2, 1):
         need = smem_bytes(p * qt, large.stage_radices(p), gauss) + _COL_STATIC_SMEM
@@ -68,7 +78,8 @@ def col_tile(p: int, q: int, gauss: bool = False) -> Optional[int]:
 
 
 def row_tile(q: int, p: int, gauss: bool = False) -> Optional[int]:
-    """Columns k1 per row-stage block: the largest of 16, 8, 4, 2, 1 that
+    """Columns k1 per block of csrc/large.cuh's general row kernel (the
+    Gauss form's; choose_split's rule): the largest of 16, 8, 4, 2, 1 that
     divides P and fits shared memory (16 columns are 128-byte segments)."""
     for pt in (16, 8, 4, 2, 1):
         if p % pt == 0 and smem_bytes(q * pt, large.stage_radices(q), gauss) <= _build.SMEM_MAX:
@@ -87,6 +98,25 @@ def choose_split(m: int) -> Optional[Tuple[int, int]]:
     if col_tile(p, q) is None or row_tile(q, p) is None:
         return None
     return p, q
+
+
+def tiles(p: int, q: int, gauss: bool = False) -> int:
+    """Column-stage tiles a batch row has, one partial sum each: ceil(Q /
+    largepad.tile(P)) on the ragged tiles, Q / col_tile in the Gauss form."""
+    if gauss:
+        return q // col_tile(p, q, True)
+    return -(-q // largepad.tile(p))
+
+
+def _ragged_ok(p: int, q: int) -> bool:
+    """K12's kernels run both chains of the split (largepad's Bluestein caps
+    and tiles)."""
+    try:
+        largepad._check_chain(p, large.stage_radices(p), largepad.COL_MAX_M, "col")
+        largepad._check_chain(q, large.stage_radices(q), largepad.ROW_MAX_M, "row")
+    except ValueError:
+        return False
+    return largepad.tile(p) is not None and largepad.tile(q) is not None
 
 
 def radix_conv_supported(m: int, dtype) -> bool:
@@ -116,69 +146,104 @@ def _check_rows(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: rows must be contiguous and must not overlap")
 
 
+def tile_partials(v: torch.Tensor, p: int, q: int, gauss: bool = False) -> torch.Tensor:
+    """(batch, tiles(P, Q)): the sums of v (batch, P*Q) over each column
+    tile, qt = largepad.tile(P) columns (col_tile in the Gauss form), the
+    last one as wide as the columns left."""
+    qt = col_tile(p, q, True) if gauss else largepad.tile(p)
+    cols = torch.nn.functional.pad(v.reshape(-1, p, q), (0, -q % qt))
+    return cols.reshape(cols.shape[0], p, -1, qt).sum(dim=(1, 3))
+
+
 def conv_col_stage_plain(x, p, q, tables, pre=None, perm=None, emit_sum=False, gauss=False):
     """Plain torch version of conv_col_stage."""
     m = p * q
     v = torch.index_select(x, 1, perm) if perm is not None else x
     v = torch.nn.functional.pad(v, (0, m - v.shape[1]))
-    partials = None
-    if emit_sum:
-        qt = col_tile(p, q, gauss)
-        partials = v.reshape(-1, p, q // qt, qt).sum(dim=(1, 3))
+    partials = tile_partials(v, p, q, gauss) if emit_sum else None
     if pre is not None:
         v = v * pre
-    plain = large.large_col_stage_gauss_plain if gauss else large.large_col_stage_plain
+    plain = large.large_col_stage_gauss_plain if gauss else largepad.largepad_col_stage_plain
     return plain(v, p, q, tables), partials
+
+
+def _check_chain_tables(m: int, roots, tws, device, what: str, gauss: bool) -> None:
+    """The tables of the length-m chain of the stage's form: the Gauss
+    form's (3, r) tables, else the in-place chain's (largepad.col_tables /
+    row_tables: a Bluestein stage's table in place of its roots)."""
+    radices = large.stage_radices(m)
+    check_stage_tables(m, radices, roots, tws, device, what, gauss,
+                       root_lens=None if gauss else fused.chain_root_lens(radices))
 
 
 def conv_col_stage(x: torch.Tensor, p: int, q: int, tables, pre=None, perm=None,
                    emit_sum: bool = False, gauss: bool = False):
     """Column stage of FFT_m, m = P*Q, for x (batch, n_in) complex64 zero-padded
-    to m -> (a (batch, Q, P), partials (batch, Q/qt) or None).
+    to m -> (a (batch, Q, P), partials (batch, tiles(P, Q)) or None).
 
     x's rows need only be contiguous: the Rader core's in_shift passes the
     view x[:, 1:] of the raw (batch, m + 1) rows.  tables = (roots, tws,
-    outer) from large.col_tables(P, Q, direction, gauss); pre: (m,)
-    complex64 multiplied in after the load; perm: (m,) int32 gather
-    a[j] = x[perm[j]] (needs n_in == m); emit_sum: also return the sums of
-    the raw input over each block's tile (their row sum is sum(x)); gauss:
-    the Gauss form (counted by conv_col_stage_gauss).
+    outer) from largepad.col_tables(P, Q, direction) (in the Gauss form
+    large.col_tables(P, Q, direction, gauss=True)); pre: (m,) complex64
+    multiplied in after the load; perm: (m,) int32 gather a[j] = x[perm[j]]
+    (needs n_in == m); emit_sum: also return the sums of the raw input over
+    each block's tile, largepad.tile(P) columns j2 with the last one ragged
+    (tile_partials; their row sum is sum(x)); gauss: the Gauss form on
+    csrc/large.cuh's general kernel (counted by conv_col_stage_gauss).  On
+    the card K14's ragged source (csrc/conv_pad.cu), or K12's own column
+    kernel where the stage is plain (pass 2: no pre, perm or sums, rows of
+    m contiguous values).
     """
-    _check_rows(x, "conv_col_stage input")
+    what = "conv_col_stage"
+    _check_rows(x, f"{what} input")
     m = p * q
     n_in = x.shape[1]
     if not 0 < n_in <= m:
-        raise ValueError(f"conv_col_stage: n_in={n_in} not in [1, {m}]")
+        raise ValueError(f"{what}: n_in={n_in} not in [1, {m}]")
     roots, tws, outer = tables
-    check_stage_tables(p, large.stage_radices(p), roots, tws, x.device, "conv_col_stage", gauss)
-    _check_table(outer, (q, p), x.device, "conv_col_stage outer twiddle")
-    _check_table(pre, (m,), x.device, "conv_col_stage pre")
+    _check_chain_tables(p, roots, tws, x.device, what, gauss)
+    _check_table(outer, (q, p), x.device, f"{what} outer twiddle")
+    _check_table(pre, (m,), x.device, f"{what} pre")
     if perm is not None:
-        check_index(perm, m, x.device, "conv_col_stage perm")
+        check_index(perm, m, x.device, f"{what} perm")
         if n_in != m:
-            raise ValueError(f"conv_col_stage: a gather needs n_in == m, got {n_in} != {m}")
-    qt = col_tile(p, q, gauss)
+            raise ValueError(f"{what}: a gather needs n_in == m, got {n_in} != {m}")
+    qt = col_tile(p, q, gauss) if gauss else largepad.tile(p)
     if qt is None:
-        raise ValueError(f"conv_col_stage: no tile for P={p}, Q={q}")
+        raise ValueError(f"{what}: no tile for P={p}, Q={q}")
     if x.device.type == "cpu":
         return conv_col_stage_plain(x, p, q, tables, pre, perm, emit_sum, gauss)
-    require_cuda(x, "conv_col_stage")
-    a = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
-    partials = (torch.empty((x.shape[0], q // qt), dtype=x.dtype, device=x.device)
+    require_cuda(x, what)
+    radices = large.stage_radices(p)
+    if not gauss:
+        largepad._check_chain(p, radices, largepad.COL_MAX_M, what)
+    batch = x.shape[0]
+    a = torch.empty((batch, q, p), dtype=x.dtype, device=x.device)
+    partials = (torch.empty((batch, tiles(p, q, gauss)), dtype=x.dtype, device=x.device)
                 if emit_sum else None)
-    if x.shape[0] == 0:
+    if batch == 0:
         return a, partials
+    ld = x.stride(0) if batch > 1 else n_in
     lib = _build.load()
     with torch.cuda.device(x.device):
-        code = lib.rf_conv_col_stage(
-            x.data_ptr(), a.data_ptr(), None if partials is None else partials.data_ptr(),
-            x.shape[0], n_in, x.stride(0) if x.shape[0] > 1 else n_in, p, q, qt, int(gauss),
-            *padded_stage_args(large.stage_radices(p), roots, tws), outer.data_ptr(),
-            None if pre is None else pre.data_ptr(),
-            None if perm is None else perm.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(lib, code, "conv_col_stage")
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if gauss:
+            code = lib.rf_conv_col_stage(
+                x.data_ptr(), a.data_ptr(), None if partials is None else partials.data_ptr(),
+                batch, n_in, ld, p, q, qt, 1, *padded_stage_args(radices, roots, tws),
+                outer.data_ptr(), None if pre is None else pre.data_ptr(),
+                None if perm is None else perm.data_ptr(), stream)
+        elif pre is None and perm is None and not emit_sum and n_in == m and ld == m:
+            code = lib.rf_largepad_col_stage(x.data_ptr(), a.data_ptr(), batch, p, q, qt,
+                                             *fused.chain_args(radices, roots, tws),
+                                             outer.data_ptr(), stream)
+        else:
+            code = lib.rf_conv_pad_col_stage(
+                x.data_ptr(), a.data_ptr(), None if partials is None else partials.data_ptr(),
+                batch, n_in, ld, p, q, qt, *fused.chain_args(radices, roots, tws),
+                outer.data_ptr(), None if pre is None else pre.data_ptr(),
+                None if perm is None else perm.data_ptr(), stream)
+    _build.check(lib, code, what)
     (conv_col_stage_gauss if gauss else conv_col_stage).launches += 1
     return a, partials
 
@@ -199,7 +264,7 @@ conv_col_stage_gauss.launches = 0
 def conv_row_stage_plain(a, q, p, tables, n_out, h=None, conj_out=False, post=None,
                          x0=None, scatter=None, partials=None, gauss=False):
     """Plain torch version of conv_row_stage."""
-    plain = large.large_row_stage_gauss_plain if gauss else large.large_row_stage_plain
+    plain = large.large_row_stage_gauss_plain if gauss else largepad.largepad_row_stage_plain
     z = plain(a, q, p, tables)
     if h is not None:
         z = torch.conj(z * h)
@@ -223,45 +288,51 @@ def conv_row_stage(a: torch.Tensor, q: int, p: int, tables, n_out: int, h=None,
     """Row stage of FFT_m and the core's epilogue: a (batch, Q, P) complex64
     -> z (batch, n_out), z[k] for the natural-order FFT output k < n_out.
 
-    tables = (roots, tws) from large.row_tables(Q, direction, gauss).  In
-    order: h (m,): z = conj(z * h); conj_out: z = conj(z); post (m,):
-    z = z * post; x0 (batch,), any stride (the in_shift core passes the view
-    x[:, 0] of the raw rows): z = z + x0; scatter (m,) int32 (n_out == m):
-    z[k] is written to position scatter[k]; partials (batch, tiles) from
-    pass 1's conv_col_stage (needs x0 and scatter, full_out): the output is
-    (batch, m + 1) with out[0] = x0 + sum(partials) and the rest shifted by
-    1; gauss: the Gauss form (counted by conv_row_stage_gauss).
+    tables = (roots, tws) from largepad.row_tables(Q, direction) (in the
+    Gauss form large.row_tables(Q, direction, gauss=True)).  In order: h
+    (m,): z = conj(z * h); conj_out: z = conj(z); post (m,): z = z * post;
+    x0 (batch,), any stride (the in_shift core passes the view x[:, 0] of
+    the raw rows): z = z + x0; scatter (m,) int32 (n_out == m): z[k] is
+    written to position scatter[k]; partials (batch, tiles) from pass 1's
+    conv_col_stage (needs x0 and scatter, full_out): the output is (batch,
+    m + 1) with out[0] = x0 + sum(partials) and the rest shifted by 1;
+    gauss: the Gauss form on csrc/large.cuh's general kernel (counted by
+    conv_row_stage_gauss).  On the card K14's ragged sink
+    (csrc/conv_pad_row.cu) over largepad.tile(Q) columns k1 a block.
     """
+    what = "conv_row_stage"
     if a.dim() != 3:
-        raise ValueError(f"conv_row_stage: expected (batch, Q, P), got {tuple(a.shape)}")
+        raise ValueError(f"{what}: expected (batch, Q, P), got {tuple(a.shape)}")
     m = p * q
     batch = a.shape[0]
-    check_operand(a, (batch, q, p), "conv_row_stage input")
+    check_operand(a, (batch, q, p), f"{what} input")
     roots, tws = tables
-    check_stage_tables(q, large.stage_radices(q), roots, tws, a.device, "conv_row_stage", gauss)
+    _check_chain_tables(q, roots, tws, a.device, what, gauss)
     if not 0 < n_out <= m:
-        raise ValueError(f"conv_row_stage: n_out={n_out} not in [1, {m}]")
-    _check_table(h, (m,), a.device, "conv_row_stage h")
-    _check_table(post, (m,), a.device, "conv_row_stage post")
+        raise ValueError(f"{what}: n_out={n_out} not in [1, {m}]")
+    _check_table(h, (m,), a.device, f"{what} h")
+    _check_table(post, (m,), a.device, f"{what} post")
     if x0 is not None and (x0.dtype != torch.complex64 or tuple(x0.shape) != (batch,)
                            or x0.device != a.device):
-        raise ValueError(f"conv_row_stage: x0 must be a ({batch},) complex64 tensor on "
-                         f"{a.device}")
+        raise ValueError(f"{what}: x0 must be a ({batch},) complex64 tensor on {a.device}")
     if scatter is not None:
-        check_index(scatter, m, a.device, "conv_row_stage scatter")
+        check_index(scatter, m, a.device, f"{what} scatter")
         if n_out != m:
-            raise ValueError("conv_row_stage: a scatter needs n_out == m")
+            raise ValueError(f"{what}: a scatter needs n_out == m")
     if partials is not None:
         if x0 is None or scatter is None or partials.dim() != 2:
-            raise ValueError("conv_row_stage: full_out needs x0, scatter and 2-D partials")
-        _check_table(partials, (batch, partials.shape[1]), a.device, "conv_row_stage partials")
-    pt = row_tile(q, p, gauss)
+            raise ValueError(f"{what}: full_out needs x0, scatter and 2-D partials")
+        _check_table(partials, (batch, partials.shape[1]), a.device, f"{what} partials")
+    pt = row_tile(q, p, gauss) if gauss else largepad.tile(q)
     if pt is None:
-        raise ValueError(f"conv_row_stage: no tile for Q={q}, P={p}")
+        raise ValueError(f"{what}: no tile for Q={q}, P={p}")
     if a.device.type == "cpu":
         return conv_row_stage_plain(a, q, p, tables, n_out, h, conj_out, post, x0,
                                     scatter, partials, gauss)
-    require_cuda(a, "conv_row_stage")
+    require_cuda(a, what)
+    radices = large.stage_radices(q)
+    if not gauss:
+        largepad._check_chain(q, radices, largepad.ROW_MAX_M, what)
     width = n_out + (1 if partials is not None else 0)
     y = torch.empty((batch, width), dtype=a.dtype, device=a.device)
     if batch == 0:
@@ -271,16 +342,20 @@ def conv_row_stage(a: torch.Tensor, q: int, p: int, tables, n_out: int, h=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    epilogue = (ptr(h), ptr(post), ptr(x0), 0 if x0 is None else x0.stride(0), ptr(scatter),
+                ptr(partials), 0 if partials is None else partials.shape[1], int(conj_out),
+                n_out, width)
     with torch.cuda.device(a.device):
-        code = lib.rf_conv_row_stage(
-            a.data_ptr(), y.data_ptr(), batch, q, p, pt, int(gauss),
-            *padded_stage_args(large.stage_radices(q), roots, tws),
-            ptr(h), ptr(post), ptr(x0), 0 if x0 is None else x0.stride(0),
-            ptr(scatter), ptr(partials),
-            0 if partials is None else partials.shape[1], int(conj_out), n_out, width,
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
-    _build.check(lib, code, "conv_row_stage")
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        if gauss:
+            code = lib.rf_conv_row_stage(a.data_ptr(), y.data_ptr(), batch, q, p, pt, 1,
+                                         *padded_stage_args(radices, roots, tws), *epilogue,
+                                         stream)
+        else:
+            code = lib.rf_conv_pad_row_stage(a.data_ptr(), y.data_ptr(), batch, q, p, pt,
+                                             *fused.chain_args(radices, roots, tws), *epilogue,
+                                             stream)
+    _build.check(lib, code, what)
     (conv_row_stage_gauss if gauss else conv_row_stage).launches += 1
     return y
 
@@ -539,15 +614,20 @@ def radix_conv_tables(m: int, direction: FftDirection, h=None, pre=None, post=No
                       in_perm=None, out_perm=None, gauss: bool = False) -> Dict[str, Any]:
     """Host tables of the two-pass core for m, by name: "col" (roots, tws,
     outer) of the column stage and "row" (roots, tws) of the row stage, as
-    large.col_tables / row_tables at choose_split(m) (the Gauss tables in
-    place of the roots with `gauss`); "h", "pre", "post" zero-extended to
-    (m,) complex64; "perm" the in_perm gather and "scatter" the inverse of
-    out_perm, (m,) int32; absent ones None."""
+    largepad.col_tables / row_tables at choose_split(m) (the in-place
+    chains' tables; with `gauss` large.col_tables / row_tables in the Gauss
+    form); "h", "pre", "post" zero-extended to (m,) complex64; "perm" the
+    in_perm gather and "scatter" the inverse of out_perm, (m,) int32; absent
+    ones None."""
     p, q = choose_split(m)
-    roots_p, tws_p, outer = large.col_tables(p, q, direction, gauss)
+    if gauss:
+        col, row = large.col_tables(p, q, direction, True), large.row_tables(q, direction, True)
+    else:
+        col, row = largepad.col_tables(p, q, direction), largepad.row_tables(q, direction)
+    roots_p, tws_p, outer = col
     return {
         "col": (roots_p, tws_p, outer),
-        "row": large.row_tables(q, direction, gauss),
+        "row": row,
         "h": zero_extended(h, m), "pre": zero_extended(pre, m), "post": zero_extended(post, m),
         "perm": None if in_perm is None else permutation_index(in_perm),
         "scatter": (None if out_perm is None
@@ -605,8 +685,10 @@ def make_radix_conv_fn(
         raise ValueError("full_out needs x0_add, emit_sum, out_perm and n_out == m")
     if in_shift and not (full_out and in_perm is not None):
         raise ValueError("in_shift needs full_out and in_perm")
-    if col_tile(p, q, gauss) is None or row_tile(q, p, gauss) is None:
+    if gauss and (col_tile(p, q, gauss) is None or row_tile(q, p, gauss) is None):
         raise ValueError(f"no two-pass conv core for m={m} in the Gauss form")
+    if not gauss and not _ragged_ok(p, q):
+        raise ValueError(f"no two-pass conv core for m={m} on the ragged tiles")
     r = cluster_form(m, gauss, in_shift)
     if r is not None:
         return _cluster_conv_fn(m, r, direction, h, pre, post, conj_out, n_in, n_out, in_perm,

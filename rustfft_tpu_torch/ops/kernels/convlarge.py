@@ -18,31 +18,36 @@ The JAX kernel slices DFT_P to its `pkeep` live rows and slices the output
 after; here A2 computes every row and skips the stores with l >= n, so the
 epilogue's slice pass disappears.
 
-The 1000003 path's split (P = 16 x 16, Q = 8192, m = 2^21; `tile_form`)
-runs the tile form instead, three persistent tile walks
-(csrc/convlarge.cu) that hold the signal between them in columns (B, P,
-Q) (`to_columns`), so that a B_conv tile, one column, and its slices of h
-and outer (held the same way) are 64 KiB of consecutive values:
+The splits at P = 16 x 16 and Q in COLUMN_FORMS (`tile_form`: Q = 8192,
+m = 2^21, the 1000003 path, and Q = 1536 .. 6144, the inner lengths of
+46381 of the primes in [8192, 2^20], tools/torch_prime_cores.py) run the
+tile form instead, three persistent tile walks that hold the signal
+between them in columns (B, P, Q) (`to_columns`), so that a B_conv unit of
+T columns and its slices of h and outer (held the same way) are T*Q
+consecutive values:
   `bconv_col_tile` (kernel A): K2's column-tile kernel with a chirp source
       (pre from L1 in stage 0, rows beyond n zero, 8-byte copies of the
       rows that are not 16-byte aligned) and a column store;
-  `bconv_row_tile` (B_conv): two blocks an SM, the column landing by
-      cp.async, two in-place chains (the first leaves its output
-      digit-reversed, `bconv_positions`, and multiplies by h, which the
-      host stores in that order, `bconv_h_table`), the last stage storing
-      times outer;
+  `bconv_row_tile` (B_conv): two blocks an SM, the unit landing by
+      cp.async, two in-place chains of register radices (the first leaves
+      its output digit-reversed, `bconv_positions`, and multiplies by h,
+      which the host stores in that order, `bconv_h_table`; the second,
+      the first reversed, ends in natural order), the last stage storing
+      times outer: csrc/convlarge.cu at Q = 8192 (one column a unit),
+      csrc/bconv_cols.cu at the others (COLUMN_FORMS: 2 to 8 columns);
   `bconv_out_tile` (A2): 16 rows l1 a unit, DFT_P in place, the next
       unit's tile landing in a second buffer, 16 consecutive l a store.
 B_conv's units run batch rows fastest (`bconv_unit`, `bconv_grid`), kernel
 A's and A2's contiguous ranges of them (large.col_walk), so the tables'
-slices are read from device memory about once.  Other splits (24571 at Q =
-192, the Bluestein 746497 at Q = 6144) keep `conv_radix.conv_col_stage`,
-`bconv_row_stage` and `bconv_out_stage`: B_conv holds a (Q, pt) tile in
-two buffers, `bconv_tile` checks that it fits.  Host tables are the JAX
+slices are read from device memory about once.  By that rule, and only
+there, other splits (Q below 1536: 3432 primes of [8192, 2^20], 24571 at Q
+= 192) keep `conv_radix.conv_col_stage` (K14's ragged column stage),
+`bconv_row_stage` and `bconv_out_stage`: B_conv holds a (Q, pt) tile in two
+buffers, `bconv_tile` checks that it fits.  Host tables are the JAX
 package's, built in f64 and cast to complex64: the chirp, H = h_fft as (Q,
 P), the (Q, P) outer twiddle and the output chirp.  Each wrapper runs its
-plain version on a CPU tensor and launches its kernel (csrc/convlarge.cu)
-on a CUDA tensor, or raises.
+plain version on a CPU tensor and launches its kernel (csrc/convlarge.cu,
+csrc/bconv_cols.cu) on a CUDA tensor, or raises.
 """
 from __future__ import annotations
 
@@ -224,54 +229,103 @@ def bconv_out_stage(b: torch.Tensor, p: int, q: int, tables, chirp: torch.Tensor
 bconv_out_stage.launches = 0
 
 
-# -- the tile form (P = 16 x 16, Q = 32 x 16 x 16: the 1000003 path) --------
+# -- the tile form (P = 16 x 16 and the Q of COLUMN_FORMS) -------------------
 
-#: the tile form's chains (csrc/convlarge.cu): DFT_P of kernel A and A2 at
-#: P = 256, and B_conv's two FFT_Q at Q = 8192, in place: chain 1 the DIT
-#: chain (2, 16, 16, 16), which leaves its output digit-reversed
-#: (bconv_positions), chain 2 the DIT chain (16, 16, 16, 2) from there,
-#: which leaves it in natural order
+#: the tile form's chains: DFT_P of kernel A and A2 at P = 256 (K2's
+#: column-tile kernel, csrc/col_tile.cuh, and bconv_out_tile_kernel)
 TILE_P = (16, 16)
+#: Q of the 1000003 path (m = 2^21), whose B_conv has its own kernel
+#: (csrc/convlarge.cu bconv_tile_kernel)
 TILE_Q = 8192
-BCONV_CHAIN1 = (2, 16, 16, 16)
-BCONV_CHAIN2 = (16, 16, 16, 2)
+
+#: B_conv's forms by Q: chain 1's radices (register radices, the first
+#: leaving W_0 = Q / r_0 a multiple of 16) and the columns a unit holds, the
+#: most at which two 256-thread blocks fit an SM (csrc/bconv_cols.cu FORMS;
+#: 8192, one column, csrc/convlarge.cu).  Chain 1, in place, leaves its
+#: output digit-reversed (bconv_positions); chain 2 is the chain reversed
+#: and ends in natural order.  The seven Q below 8192 carry 46381 of the
+#: primes in [8192, 2^20] (tools/torch_prime_cores.py).
+COLUMN_FORMS = {
+    1536: ((6, 16, 16), 8),
+    1728: ((12, 16, 9), 8),
+    2048: ((8, 16, 16), 4),
+    2304: ((9, 16, 16), 4),
+    3072: ((12, 16, 16), 4),
+    4096: ((16, 16, 16), 2),
+    6144: ((3, 8, 16, 16), 2),
+    TILE_Q: ((2, 16, 16, 16), 1),
+}
+#: the chains of Q = 8192 (csrc/convlarge.cu)
+BCONV_CHAIN1 = COLUMN_FORMS[TILE_Q][0]
+BCONV_CHAIN2 = BCONV_CHAIN1[::-1]
 
 
 def tile_form(p: int, q: int) -> bool:
-    """The split runs the tile form: DFT_P as 16 x 16 and Q = 8192 (m =
-    2^21 at P = 256); other splits keep the general kernels."""
-    return large.stage_radices(p) == TILE_P and q == TILE_Q
+    """The split runs the tile form: DFT_P as 16 x 16 (P = 256) and Q one
+    of COLUMN_FORMS; other splits (Q below 1536: 24571 at Q = 192) keep the
+    general kernels."""
+    return large.stage_radices(p) == TILE_P and q in COLUMN_FORMS
 
 
-@functools.lru_cache(maxsize=1)
-def bconv_positions() -> np.ndarray:
-    """(Q,) int64: the frequency k whose value chain 1 leaves at position
-    pos = 4096*k0 + 256*k1 + 16*k2 + k3, k = k0 + 2*k1 + 32*k2 + 512*k3."""
-    pos = np.arange(TILE_Q)
-    k0, k1, k2, k3 = pos >> 12, (pos >> 8) & 15, (pos >> 4) & 15, pos & 15
-    return k0 + 2 * k1 + 32 * k2 + 512 * k3
+def column_chain(q: int) -> Tuple[int, ...]:
+    """Chain 1's radices of B_conv at Q (COLUMN_FORMS)."""
+    return COLUMN_FORMS[q][0]
 
 
-def bconv_chain_tables(direction: FftDirection):
-    """B_conv's tables in the tile form, complex64: (roots, tws), roots the
-    roots of w_2 and w_16, tws chain 1's three twiddle tables (r_s, rest_s)
-    and chain 2's three, whose columns (the input digits not yet taken)
-    are laid out by the column's position digits above the stage: stage s
-    of chain 2 reads column hi, the position of its column divided by
-    16^(s + 1)."""
-    roots1, tws1 = stage_tables(TILE_Q, BCONV_CHAIN1, direction)
-    _, tws2 = stage_tables(TILE_Q, BCONV_CHAIN2, direction)
-    hi = [np.arange(512), np.arange(32), np.arange(2)]
-    rest = [(hi[0] & 15) * 32 + ((hi[0] >> 4) & 15) * 2 + (hi[0] >> 8),
-            (hi[1] & 15) * 2 + (hi[1] >> 4), hi[2]]
-    tws2 = [np.ascontiguousarray(t[:, r]) for t, r in zip(tws2, rest)]
-    return [roots1[0], roots1[1]], list(tws1) + tws2
+def _weights(chain) -> list:
+    """The position weight W_s = Q / (r_0 .. r_s) of each digit of chain 1."""
+    w, out = int(np.prod(chain)), []
+    for r in chain:
+        w //= r
+        out.append(w)
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def bconv_positions(q: int = TILE_Q) -> np.ndarray:
+    """(Q,) int64: the frequency k whose value chain 1 (radices r_s) leaves
+    at position pos = sum_s k_s * W_s, k = k_0 + r_0*k_1 + r_0*r_1*k_2 + ...
+    (at Q = 8192: pos = 4096*k0 + 256*k1 + 16*k2 + k3, k = k0 + 2*k1 +
+    32*k2 + 512*k3)."""
+    chain = column_chain(q)
+    pos = np.arange(q)
+    k, scale = np.zeros(q, np.int64), 1
+    for r, w in zip(chain, _weights(chain)):
+        k += (pos // w % r) * scale
+        scale *= r
+    return k
+
+
+def bconv_chain_tables(direction: FftDirection, q: int = TILE_Q):
+    """B_conv's tables in the tile form, complex64: (roots, tws).  roots: at
+    Q = 8192 the roots of w_2 and w_16, else each stage's roots; tws: chain
+    1's twiddle tables (r_s, W_s) and chain 2's, whose columns (the input
+    digits not yet taken) are laid out by the column's position digits
+    above the stage: stage t of chain 2 (radix r_{n-1-t}) reads column hi,
+    the position of its column divided by W_{n-2-t}."""
+    chain = column_chain(q)
+    n = len(chain)
+    roots1, tws1 = stage_tables(q, chain, direction)
+    _, tws2 = stage_tables(q, chain[::-1], direction)
+    weights = _weights(chain)
+    remapped = []
+    for t, table in enumerate(tws2):
+        top = n - 2 - t  # the lowest chain-1 digit above the stage
+        hi = np.arange(table.shape[1])
+        rest, scale = np.zeros_like(hi), 1
+        for s in range(top + 1):
+            rest += (hi // (weights[s] // weights[top]) % chain[s]) * scale
+            scale *= chain[s]
+        remapped.append(np.ascontiguousarray(table[:, rest]))
+    roots = [roots1[0], roots1[1]] if q == TILE_Q else list(roots1)
+    return roots, list(tws1) + remapped
 
 
 def bconv_h_table(h: np.ndarray) -> np.ndarray:
     """B_conv's h in the tile form: the (Q, P) spectrum as columns (P, Q),
     each column in chain 1's output positions (bconv_positions)."""
-    return np.ascontiguousarray(np.asarray(h).T[:, bconv_positions()])
+    h = np.asarray(h)
+    return np.ascontiguousarray(h.T[:, bconv_positions(h.shape[0])])
 
 
 def to_columns(a: torch.Tensor) -> torch.Tensor:
@@ -329,7 +383,28 @@ def _resident_on(device: torch.device, kind: str) -> int:
 
 def _check_tile_form(p: int, q: int, what: str) -> None:
     if not tile_form(p, q):
-        raise ValueError(f"{what}: P={p}, Q={q} is not the tile form ({TILE_P}, {TILE_Q})")
+        raise ValueError(f"{what}: P={p}, Q={q} is not the tile form ({TILE_P}, Q in "
+                         f"{sorted(COLUMN_FORMS)})")
+
+
+@functools.lru_cache(maxsize=None)
+def _cols_resident(device_index: int, q: int) -> int:
+    """The blocks of B_conv's form at Q (csrc/bconv_cols.cu) the device
+    holds at once."""
+    with torch.cuda.device(device_index):
+        lib = _build.load()
+        out = ctypes.c_int(0)
+        _build.check(lib, lib.rf_bconv_cols_resident(q, ctypes.byref(out)),
+                     "bconv_cols resident_blocks")
+        return out.value
+
+
+def row_tile_resident(device: torch.device, q: int) -> int:
+    """The blocks of B_conv's tile kernel at Q the device holds at once."""
+    if q == TILE_Q:
+        return _resident_on(device, "row")
+    return _cols_resident(device.index if device.index is not None
+                          else torch.cuda.current_device(), q)
 
 
 def bconv_col_tile_plain(x: torch.Tensor, p: int, q: int, tables, pre) -> torch.Tensor:
@@ -396,15 +471,36 @@ def bconv_col_tile(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor) -
 bconv_col_tile.launches = 0
 
 
+def _stage_roots(q: int, roots):
+    """Each stage's roots of chain 1 from bconv_chain_tables' roots."""
+    if q == TILE_Q:
+        r2, r16 = roots
+        return [r2, r16, r16, r16]
+    return list(roots)
+
+
 def bconv_row_tile_plain(a: torch.Tensor, q: int, p: int, tables, h, outer) -> torch.Tensor:
     """Plain torch version of bconv_row_tile, in natural order: FFT_Q of each
     column by chain 1's stages, conj(. * h), FFT_Q, times outer."""
-    (r2, r16), tws = tables
-    roots = [r2, r16, r16, r16]
-    inv = torch.from_numpy(np.argsort(bconv_positions())).to(h.device)
-    z = fft_stages_plain(a, BCONV_CHAIN1, roots, tws[:3])
+    roots, tws = tables
+    chain = column_chain(q)
+    roots = _stage_roots(q, roots)
+    inv = torch.from_numpy(np.argsort(bconv_positions(q))).to(h.device)
+    chain_tws = tws[: len(chain) - 1]
+    z = fft_stages_plain(a, chain, roots, chain_tws)
     z = torch.conj(z * torch.index_select(h, -1, inv)).resolve_conj()
-    return fft_stages_plain(z, BCONV_CHAIN1, roots, tws[:3]) * outer
+    return fft_stages_plain(z, chain, roots, chain_tws) * outer
+
+
+def chain_table_shapes(q: int):
+    """(roots shapes, twiddle shapes) of bconv_chain_tables at Q."""
+    chain = column_chain(q)
+    weights = _weights(chain)
+    tw1 = [(r, w) for r, w in zip(chain[:-1], weights[:-1])]
+    tw2 = [(chain[-1 - t], int(np.prod(chain[: len(chain) - 1 - t])))
+           for t in range(len(chain) - 1)]
+    roots = [(2,), (16,)] if q == TILE_Q else [(r,) for r in chain]
+    return roots, tw1 + tw2
 
 
 def _row_tile_checks(a, q, p, tables, h, outer, what):
@@ -412,15 +508,16 @@ def _row_tile_checks(a, q, p, tables, h, outer, what):
     if a.dim() != 3:
         raise ValueError(f"{what}: expected (batch, P, Q), got {tuple(a.shape)}")
     check_operand(a, (a.shape[0], p, q), f"{what} input")
-    (r2, r16), tws = tables
-    check_operand(r2, (2,), f"{what} roots[0]")
-    check_operand(r16, (16,), f"{what} roots[1]")
-    shapes = [(2, 4096), (16, 256), (16, 16), (16, 512), (16, 32), (16, 2)]
-    if len(tws) != len(shapes):
-        raise ValueError(f"{what}: expected {len(shapes)} twiddle tables")
-    for i, (t, shape) in enumerate(zip(tws, shapes)):
+    roots, tws = tables
+    root_shapes, tw_shapes = chain_table_shapes(q)
+    if len(roots) != len(root_shapes) or len(tws) != len(tw_shapes):
+        raise ValueError(f"{what}: expected {len(root_shapes)} roots and {len(tw_shapes)} "
+                         "twiddle tables")
+    for i, (t, shape) in enumerate(zip(roots, root_shapes)):
+        check_operand(t, shape, f"{what} roots[{i}]")
+    for i, (t, shape) in enumerate(zip(tws, tw_shapes)):
         check_operand(t, shape, f"{what} tws[{i}]")
-    for t in [r2, r16, *tws]:
+    for t in [*roots, *tws]:
         if t.device != a.device:
             raise ValueError(f"{what}: tables on {t.device}, input on {a.device}")
     for t, name in ((h, "h"), (outer, "outer twiddle")):
@@ -430,20 +527,30 @@ def _row_tile_checks(a, q, p, tables, h, outer, what):
 
 
 def _row_tile_launch(a, q, p, tables, h, outer, what, stamps=None):
-    (r2, r16), tws = tables
+    roots, tws = tables
     y = torch.empty_like(a)
     src = large._aligned16(a)
-    grid = bconv_grid(a.shape[0] * p, _resident_on(a.device, "row"))
+    chain, width = COLUMN_FORMS[q]
+    grid = bconv_grid(a.shape[0] * (p // width), row_tile_resident(a.device, q))
     tw = (ctypes.c_void_p * len(tws))(*[t.data_ptr() for t in tws])  # host array of pointers
     lib = _build.load(phase_stamps=stamps is not None)
-    args = (src.data_ptr(), y.data_ptr(), a.shape[0], p, r2.data_ptr(), r16.data_ptr(),
-            ctypes.addressof(tw), h.data_ptr(), outer.data_ptr(), grid)
+    if q == TILE_Q:
+        r2, r16 = roots
+        args = (src.data_ptr(), y.data_ptr(), a.shape[0], p, r2.data_ptr(), r16.data_ptr(),
+                ctypes.addressof(tw), h.data_ptr(), outer.data_ptr(), grid)
+        launch = lib.rf_bconv_row_tile_stamps if stamps is not None else lib.rf_bconv_row_tile
+    else:
+        rp = (ctypes.c_void_p * len(roots))(*[t.data_ptr() for t in roots])
+        radices = list(chain) + [1] * (4 - len(chain))
+        args = (src.data_ptr(), y.data_ptr(), a.shape[0], p, q, len(chain), *radices, width,
+                ctypes.addressof(rp), ctypes.addressof(tw), h.data_ptr(), outer.data_ptr(), grid)
+        launch = lib.rf_bconv_cols_stamps if stamps is not None else lib.rf_bconv_cols
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if stamps is None:
-            code = lib.rf_bconv_row_tile(*args, stream)
+            code = launch(*args, stream)
         else:
-            code = lib.rf_bconv_row_tile_stamps(*args, stamps.data_ptr(), stream)
+            code = launch(*args, stamps.data_ptr(), stream)
     _build.check(lib, code, what)
     return y
 
@@ -454,10 +561,12 @@ def bconv_row_tile(a: torch.Tensor, q: int, p: int, tables, h: torch.Tensor,
     same layout [k1, l1]: FFT_Q, conj(. * h), FFT_Q, times outer
     (bconv_row_stage on columns).
 
-    tables = bconv_chain_tables(direction) on a's device, Q = 8192; h (P,
-    Q) from bconv_h_table, outer (P, Q) (to_columns of the (Q, P) outer
-    twiddle), complex64 on a's device.  A persistent grid of bconv_grid
-    blocks, one column of 64 KiB a block, two blocks an SM.
+    tables = bconv_chain_tables(direction, Q) on a's device, Q one of
+    COLUMN_FORMS; h (P, Q) from bconv_h_table, outer (P, Q) (to_columns of
+    the (Q, P) outer twiddle), complex64 on a's device.  A persistent grid
+    of bconv_grid blocks over units of COLUMN_FORMS[Q][1] columns, two
+    blocks an SM: at Q = 8192 one column of 64 KiB (csrc/convlarge.cu),
+    else 64-108 KiB (csrc/bconv_cols.cu).
     """
     what = "bconv_row_tile"
     _row_tile_checks(a, q, p, tables, h, outer, what)
@@ -547,11 +656,12 @@ ROW_TILE_PHASES = ("load+chain1+h", "chain2 s0-s2", "s3+store")
 OUT_TILE_PHASES = ("load+s0", "s1", "store")
 
 
-def _stamps(x: torch.Tensor, kind: str, what: str) -> torch.Tensor:
+def _stamps(x: torch.Tensor, kind: str, what: str, resident: Optional[int] = None) -> torch.Tensor:
     require_cuda(x, what)
     if x.shape[0] == 0:
         raise ValueError(f"{what}: an empty batch has no phases")
-    return torch.zeros((_resident_on(x.device, kind), 4), dtype=torch.int64, device=x.device)
+    blocks = _resident_on(x.device, kind) if resident is None else resident
+    return torch.zeros((blocks, 4), dtype=torch.int64, device=x.device)
 
 
 def bconv_col_tile_stamps(x: torch.Tensor, p: int, q: int, tables, pre: torch.Tensor):
@@ -572,7 +682,7 @@ def bconv_row_tile_stamps(a: torch.Tensor, q: int, p: int, tables, h: torch.Tens
     (y, stamps) with ROW_TILE_PHASES."""
     what = "bconv_row_tile_stamps"
     _row_tile_checks(a, q, p, tables, h, outer, what)
-    stamps = _stamps(a, "row", what)
+    stamps = _stamps(a, "row", what, row_tile_resident(a.device, q))
     y = _row_tile_launch(a, q, p, tables, h, outer, what, stamps)
     return y, stamps[stamps[:, 0] != 0]
 
@@ -608,7 +718,7 @@ def make_bluestein_large_fn(n: int, m: int, direction: FftDirection, dtype,
     h = host["h"]
     bconv_outer = outer
     if tiled:  # B_conv's chain and tables as columns
-        roots_q, tws_q = bconv_chain_tables(direction)
+        roots_q, tws_q = bconv_chain_tables(direction, q)
         kq = len(roots_q)
         h, bconv_outer = bconv_h_table(h), to_columns(torch.from_numpy(outer)).numpy()
     tables = calg.DeviceTables([*roots_p, *tws_p, outer, *roots_q, *tws_q,

@@ -21,8 +21,12 @@ With --per-kernel the listings are split by function (cuobjdump's
 kernels of a source that did not change show 0 while another kernel of
 the same source changed (for example fused.cu's two_stage_kernel and
 two_stage_cluster_kernel while its radix_kernel changes): one line per
-kernel, demangled, with its SASS lines on each side and how many differ,
-or "only in old" / "only in new".
+kernel, demangled, with its SASS lines on each side and how many differ.
+A kernel whose name changed (a template argument added, as K12's kernels
+gained their source and sink policies) is paired with the kernel of the
+other side that differs from it least, and printed as "old -> new"; what
+is left unpaired is "only in old" / "only in new".  With --show N it also
+prints the first N differing lines of each kernel pair, old above new.
 """
 from __future__ import annotations
 
@@ -65,6 +69,15 @@ def by_function(lines):
     return out
 
 
+def show_differences(old_lines, new_lines, count: int) -> None:
+    """Print the first `count` positions where the listings differ."""
+    shown = 0
+    for i, (a, b) in enumerate(zip(old_lines, new_lines)):
+        if a != b and shown < count:
+            print(f"    {i}: - {a}\n    {i}: + {b}", flush=True)
+            shown += 1
+
+
 def demangle(name: str) -> str:
     return subprocess.run(["c++filt", name], capture_output=True, text=True).stdout.strip()
 
@@ -73,6 +86,11 @@ def main() -> None:
     args = sys.argv[1:]
     per_kernel = "--per-kernel" in args
     args = [a for a in args if a != "--per-kernel"]
+    show = 0
+    if "--show" in args:
+        at = args.index("--show")
+        show = int(args[at + 1])
+        del args[at : at + 2]
     if len(args) < 2:
         raise SystemExit(__doc__)
     old, new = Path(args[0]), Path(args[1])
@@ -101,15 +119,27 @@ def main() -> None:
                   f"differing lines: {differing(old_lines, new_lines)}", flush=True)
             if per_kernel:
                 funcs = [by_function(lines) for lines in listings]
-                for name in sorted(set(funcs[0]) | set(funcs[1])):
+                only_new = sorted(set(funcs[1]) - set(funcs[0]))
+                for name in sorted(funcs[0]):
                     label = demangle(name)[:120]
-                    if name not in funcs[0] or name not in funcs[1]:
-                        side = "old" if name in funcs[0] else "new"
-                        print(f"  {label}: only in {side}", flush=True)
+                    a = funcs[0][name]
+                    if name in funcs[1]:
+                        b = funcs[1][name]
+                        print(f"  {label}: {len(a)} / {len(b)} SASS lines; differing lines: "
+                              f"{differing(a, b)}", flush=True)
+                        show_differences(a, b, show)
                         continue
-                    a, b = funcs[0][name], funcs[1][name]
-                    print(f"  {label}: {len(a)} / {len(b)} SASS lines; differing lines: "
-                          f"{differing(a, b)}", flush=True)
+                    if not only_new:
+                        print(f"  {label}: only in old", flush=True)
+                        continue
+                    best = min(only_new, key=lambda other: differing(a, funcs[1][other]))
+                    only_new.remove(best)
+                    b = funcs[1][best]
+                    print(f"  {label} -> {demangle(best)[:120]}: {len(a)} / {len(b)} SASS lines; "
+                          f"differing lines: {differing(a, b)}", flush=True)
+                    show_differences(a, b, show)
+                for name in only_new:
+                    print(f"  {demangle(name)[:120]}: only in new", flush=True)
 
 
 if __name__ == "__main__":
