@@ -320,9 +320,9 @@ for _n, (_m, _) in BLUE.items():  # the tile form (convlarge.tile_form)
                                        "rustfft_tpu/ops/pallas/convlarge.py:72")
     KERNELS[f"bconv_out_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                        "rustfft_tpu/ops/pallas/convlarge.py:99")
-#: K15's general form at 24571 (Q = 192; its kernel A is conv_col_stage,
-#: K14's ragged column stage)
-KERNELS["conv_col_stage/24571"] = ("rustfft_tpu_torch/csrc/conv_pad.cu",
+#: K15's general form at 24571 (Q = 192; its kernel A is conv_col_stage on
+#: csrc/large.cuh's kernels, general=True)
+KERNELS["conv_col_stage/24571"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
                                    "rustfft_tpu/ops/pallas/large.py:60")
 KERNELS["bconv_row_stage/24571"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                     "rustfft_tpu/ops/pallas/convlarge.py:72")
@@ -1067,10 +1067,10 @@ def main() -> None:
                      convlarge.bconv_out_tile_plain(b, p, q, col[:2], chirp, n),
                      f"bconv_out_tile (A2) {what}", K7_TOL)
             else:
-                a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
+                a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre, general=True)
                 torch.cuda.synchronize()
                 note("conv_col_stage/24571", a,
-                     conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0],
+                     conv_radix.conv_col_stage_plain(x, p, q, col, pre, general=True)[0],
                      f"conv_col_stage (kernel A) {what}")
                 b = convlarge.bconv_row_stage(a, q, p, row, h, col[2])
                 torch.cuda.synchronize()
@@ -2133,11 +2133,12 @@ def main() -> None:
     p, q, col, row, pre, h, chirp = bconv_card(n, m, fwd)
     what = f"n={n} m={m} P={p} Q={q} batch={batch} (the main path's shape)"
     name = "conv_col_stage/24571"
-    a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre)
-    note(name, a, conv_radix.conv_col_stage_plain(x, p, q, col, pre)[0], f"{name} {what}")
+    a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre, general=True)
+    note(name, a, conv_radix.conv_col_stage_plain(x, p, q, col, pre, general=True)[0],
+         f"{name} {what}")
     free()
-    k = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col, pre=pre))
-    plain = median_ms(lambda: conv_radix.conv_col_stage_plain(x, p, q, col, pre))
+    k = median_ms(lambda: conv_radix.conv_col_stage(x, p, q, col, pre=pre, general=True))
+    plain = median_ms(lambda: conv_radix.conv_col_stage_plain(x, p, q, col, pre, general=True))
     record(name, k, plain, 8 * batch * (n + m) + table_bytes(col[:2]) + 16 * m,
            batch * m * (fft_ops(p) / p + 12))
     del x

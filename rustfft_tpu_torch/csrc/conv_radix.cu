@@ -6,10 +6,24 @@
 //   out = [post .] maybe_conj( FFT_m( conj( FFT_m([pre .] zeropad(x)) . H ) ) )
 //
 // for inner lengths whose transform does not fit one block (m = 65536 is
-// 512 KiB).  Each FFT_m is the port's two-stage large-n pipeline (the
-// column and row stages of csrc/large.cuh) at the split large.choose_pqq(m),
-// m = P * Q, with the pointwise work fused into the stages' loads and stores
-// (ConvIn and ConvOut below):
+// 512 KiB), in two of its three forms (ops/kernels/conv_radix.py):
+//
+//  - the cluster passes (below), at m = r*16384, r = 1, 2, 4, 8, 16: each
+//    FFT_m one launch of csrc/radix.cuh's body;
+//  - the four stages in the Gauss form (config.conv_radix_gauss, the JAX
+//    kernel's gauss_mode: every DFT stage as three real products,
+//    conv_radix.py:183, :232, :266): csrc/large.cuh's general column and
+//    row kernels with every radix stage in the Gauss form (fft_tile.cuh
+//    gauss_stage), the twiddles staying complex products, and the core's
+//    source and sink (csrc/conv_io.cuh ConvIn, ConvOut).
+//
+// The four stages' default form runs K12's ragged in-place tiles with the
+// same source and sink (csrc/conv_pad.cu, csrc/conv_pad_row.cu).  The one
+// launch of the default form left here is the column stage on
+// csrc/large.cuh's kernels (the compile-time kernel at P = 256 over 16
+// columns, else the general one; tiles that divide Q), which the fused
+// large Bluestein's general form runs as its kernel A at Q below 1536
+// (ops/kernels/convlarge.py).  In every form:
 //
 //   pass 1, column stage: load [pre .] x, or the Rader input gather x[perm[j]],
 //                         and emit per-tile partial sums of the raw input;
@@ -19,24 +33,12 @@
 //                         output permutation, and with full_out the DC-first
 //                         layout: out[0] = x0 + sum(x), out[1 + dst[k]] = z[k].
 //
-// That is four launches and eight traversals of m, where the TPU made two
-// launches and four traversals (one VMEM-resident FFT per pass).
-//
-// The JAX kernel's two options (off by default there and here):
-//  - gauss_mode: every DFT stage as three real products (conv_radix.py:183,
-//    :232, :266); here `gauss` runs both stages on large.cuh's general
-//    kernels with every radix stage in the Gauss form (fft_tile.cuh
-//    gauss_stage), the twiddles staying complex products.
-//  - in_shift: pass 1 reads the raw (batch, m + 1) Rader rows instead of a
-//    copy of x[:, 1:] (conv_radix.py:161, :327).  Here the column stage's
-//    rows are `ld` apart (ld = m + 1 from x[:, 1:] of the raw rows) and pass
-//    2 reads x0 = x[:, 0] at a stride of x0_ld; the DC bin stays x0 + the
-//    partial sums of the raw input.
-//
-// What bounds it on this card: 8 traversals of 8 bytes per point, plus the
-// radix chains of the column and row stages on the CUDA cores and the outer
-// twiddle table.  The Rader gather breaks the column stage's 16-column
-// (128-byte) load segments into single 8-byte reads.
+// The JAX kernel's in_shift (off by default there and here): pass 1 reads
+// the raw (batch, m + 1) Rader rows instead of a copy of x[:, 1:]
+// (conv_radix.py:161, :327).  Here the column stage's rows are `ld` apart
+// (ld = m + 1 from x[:, 1:] of the raw rows) and pass 2 reads x0 = x[:, 0]
+// at a stride of x0_ld; the DC bin stays x0 + the partial sums of the raw
+// input.
 //
 // The DC bin comes from the f32 sum of the raw input, never from the core's
 // output (the JAX package measured a 30x larger error that way).  Each
@@ -44,12 +46,6 @@
 // shuffles, then one warp over the warp sums) into partials[b, tile]; the
 // pass-2 row block that holds k1 = 0 adds the row's partials in tile order.
 // No atomics, no extra kernel: the result is deterministic.
-//
-// The stages' compile-time kernels serve the prime path's shapes (P = 256
-// over 16 columns; Q = 256, 128 or 64 over 16 columns), except that the
-// Rader output scatter stays on the general row kernel: with the scatter the
-// compile-time kernel measured slower (1.216 against 0.924 ms at
-// 512 x 65536 on the H100), without it faster (0.410 against 0.748).
 #include "conv_io.cuh"
 #include "large.cuh"
 #include "radix.cuh"
@@ -257,36 +253,33 @@ extern "C" int rf_conv_col_stage(const void* x, void* y, void* partials, long lo
   return launch_col_stage(src, out, batch, p, q, qt, st, outer, s);
 }
 
-// a: (batch, Q, P) complex64; y: (batch, ld_out); gauss: roots0..2 are the
-// (3, r_s) float32 Gauss tables and the stage runs in the Gauss form; h,
-// post: (P*Q,) or NULL; x0: (batch,) x0_ld apart, or NULL; scatter: (P*Q,)
-// int32 or NULL; partials: (batch, n_partials) or NULL (full_out: needs x0
-// and ld_out >= n_out + 1).  Returns a cudaError_t code; launches on
-// `stream`.
-extern "C" int rf_conv_row_stage(const void* a, void* y, long long batch, int q, int p, int pt,
-                                 int gauss, int k, int r0, int r1, int r2, const void* roots0,
-                                 const void* roots1, const void* roots2, const void* tw0,
-                                 const void* tw1, const void* h, const void* post,
-                                 const void* x0, long long x0_ld, const void* scatter,
-                                 const void* partials, int n_partials, int conj_out, int n_out,
-                                 long long ld_out, void* stream) {
+// The row stage in the Gauss form.  a: (batch, Q, P) complex64; y: (batch,
+// ld_out); g0..g2: the (3, r_s) float32 Gauss tables; h, post: (P*Q,) or
+// NULL; x0: (batch,) x0_ld apart, or NULL; scatter: (P*Q,) int32 or NULL;
+// partials: (batch, n_partials) or NULL (full_out: needs x0 and ld_out >=
+// n_out + 1).  Returns a cudaError_t code; launches on `stream`.
+extern "C" int rf_conv_row_stage_gauss(const void* a, void* y, long long batch, int q, int p,
+                                       int pt, int k, int r0, int r1, int r2, const void* g0,
+                                       const void* g1, const void* g2, const void* tw0,
+                                       const void* tw1, const void* h, const void* post,
+                                       const void* x0, long long x0_ld, const void* scatter,
+                                       const void* partials, int n_partials, int conj_out,
+                                       int n_out, long long ld_out, void* stream) {
   using namespace rf;
   const long long m = (long long)p * q;
   if (batch <= 0 || p <= 0 || pt <= 0 || p % pt != 0 || n_out <= 0 || n_out > m ||
       ld_out < n_out + (partials != nullptr ? 1 : 0) || x0_ld < 0 ||
       (partials != nullptr && (x0 == nullptr || n_partials <= 0)))
     return cudaErrorInvalidValue;
-  const Stages st = gauss ? make_gauss_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1)
-                          : make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
-  if (!stages_ok(st, q, gauss)) return cudaErrorInvalidValue;
+  const Stages st = make_gauss_stages(k, r0, r1, r2, g0, g1, g2, tw0, tw1);
+  if (!stages_ok(st, q, true)) return cudaErrorInvalidValue;
   const ConvOut dst{static_cast<float2*>(y),           static_cast<const float2*>(h),
                     static_cast<const float2*>(post),  static_cast<const float2*>(x0),
                     static_cast<const int*>(scatter),  static_cast<const float2*>(partials),
                     n_partials, conj_out, n_out, ld_out, x0_ld};
   const float2* in = static_cast<const float2*>(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gauss) return launch_row_gauss(in, dst, batch, q, p, pt, st, s);
-  return launch_row_stage(in, dst, batch, q, p, pt, st, scatter == nullptr, s);
+  return launch_row_gauss(in, dst, batch, q, p, pt, st, s);
 }
 
 // Pass 1 of the cluster form at m = r*16384: x (batch, n_in) complex64,

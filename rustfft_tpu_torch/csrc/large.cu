@@ -46,8 +46,8 @@
 //    64 x 2^20 in that pattern in 0.525 ms against 0.416 in consecutive
 //    128 KiB (same card), the floor this kernel (0.58-0.61 ms there) works
 //    against.
-//  - Every other Dst (K14's ConvOut at m = 2^20) stays on large.cuh's
-//    row_fixed_kernel: this kernel takes RowsOut only.
+//  - It takes RowsOut only (K14's sinks run K12's ragged kernels,
+//    csrc/conv_pad_row.cu).
 //
 // K2, col_tile_kernel (P = 256, a (256, 16) tile of 32 KiB, 256 threads,
 // two blocks an SM at 96 KiB).  A persistent grid, block g walking the
@@ -64,7 +64,6 @@
 //    j*16 + 2w + 1 that its stage 0 reads, in plain order, and stage 0
 //    re-swizzles in place behind a __syncwarp, as in K3;
 //  - the store writes 16 bytes a thread (two k1), 2 KiB runs per j2.
-//  K14's column stage (ConvIn) stays on large.cuh's col_fixed_kernel.
 //
 // Both read their input by 16-byte copies, so x must be 16-byte aligned
 // (the wrappers copy a misaligned view first).  Every offset into device

@@ -37,7 +37,8 @@
 // sector; 1024 threads, 128 KiB in place), the general kernel pt = 2 or 1.
 // The main path's chains with plain loads and stores (K2, K3, and K10's and
 // K11's Q passes) run csrc/large.cu's persistent tile kernels instead; the
-// compile-time bodies here serve K14's and K15's sources and sinks.  The chains with compile-time kernels (fixed_chain) also read
+// compile-time bodies here serve the top band's column stages (K10, K11)
+// and K2's and K3's other chains.  The chains with compile-time kernels (fixed_chain) also read
 // stage 0 from, and the row stage's last stage write to, device memory
 // directly.  Grids are one-dimensional over (batch, tile) and every offset
 // into device memory is size_t: batch 1024 at n = 2^20 is 2^31 floats.

@@ -100,11 +100,12 @@ def choose_split(m: int) -> Optional[Tuple[int, int]]:
     return p, q
 
 
-def tiles(p: int, q: int, gauss: bool = False) -> int:
+def tiles(p: int, q: int, gauss: bool = False, general: bool = False) -> int:
     """Column-stage tiles a batch row has, one partial sum each: ceil(Q /
-    largepad.tile(P)) on the ragged tiles, Q / col_tile in the Gauss form."""
-    if gauss:
-        return q // col_tile(p, q, True)
+    largepad.tile(P)) on the ragged tiles, Q / col_tile on csrc/large.cuh's
+    kernels (the Gauss form, `general`)."""
+    if gauss or general:
+        return q // col_tile(p, q, gauss)
     return -(-q // largepad.tile(p))
 
 
@@ -146,38 +147,43 @@ def _check_rows(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: rows must be contiguous and must not overlap")
 
 
-def tile_partials(v: torch.Tensor, p: int, q: int, gauss: bool = False) -> torch.Tensor:
+def tile_partials(v: torch.Tensor, p: int, q: int, gauss: bool = False,
+                  general: bool = False) -> torch.Tensor:
     """(batch, tiles(P, Q)): the sums of v (batch, P*Q) over each column
-    tile, qt = largepad.tile(P) columns (col_tile in the Gauss form), the
-    last one as wide as the columns left."""
-    qt = col_tile(p, q, True) if gauss else largepad.tile(p)
+    tile, qt = largepad.tile(P) columns (col_tile on csrc/large.cuh's
+    kernels), the last one as wide as the columns left."""
+    qt = col_tile(p, q, gauss) if gauss or general else largepad.tile(p)
     cols = torch.nn.functional.pad(v.reshape(-1, p, q), (0, -q % qt))
     return cols.reshape(cols.shape[0], p, -1, qt).sum(dim=(1, 3))
 
 
-def conv_col_stage_plain(x, p, q, tables, pre=None, perm=None, emit_sum=False, gauss=False):
+def conv_col_stage_plain(x, p, q, tables, pre=None, perm=None, emit_sum=False, gauss=False,
+                         general=False):
     """Plain torch version of conv_col_stage."""
     m = p * q
     v = torch.index_select(x, 1, perm) if perm is not None else x
     v = torch.nn.functional.pad(v, (0, m - v.shape[1]))
-    partials = tile_partials(v, p, q, gauss) if emit_sum else None
+    partials = tile_partials(v, p, q, gauss, general) if emit_sum else None
     if pre is not None:
         v = v * pre
-    plain = large.large_col_stage_gauss_plain if gauss else largepad.largepad_col_stage_plain
+    plain = (large.large_col_stage_gauss_plain if gauss else
+             large.large_col_stage_plain if general else largepad.largepad_col_stage_plain)
     return plain(v, p, q, tables), partials
 
 
-def _check_chain_tables(m: int, roots, tws, device, what: str, gauss: bool) -> None:
+def _check_chain_tables(m: int, roots, tws, device, what: str, gauss: bool,
+                        general: bool = False) -> None:
     """The tables of the length-m chain of the stage's form: the Gauss
-    form's (3, r) tables, else the in-place chain's (largepad.col_tables /
-    row_tables: a Bluestein stage's table in place of its roots)."""
+    form's (3, r) tables, csrc/large.cuh's roots (`general`), else the
+    in-place chain's (largepad.col_tables / row_tables: a Bluestein stage's
+    table in place of its roots)."""
     radices = large.stage_radices(m)
     check_stage_tables(m, radices, roots, tws, device, what, gauss,
-                       root_lens=None if gauss else fused.chain_root_lens(radices))
+                       root_lens=None if gauss or general else fused.chain_root_lens(radices))
 
 
 def conv_col_stage(x: torch.Tensor, p: int, q: int, tables, pre=None, perm=None,
-                   emit_sum: bool = False, gauss: bool = False):
+                   emit_sum: bool = False, gauss: bool = False, general: bool = False):
     """Column stage of FFT_m, m = P*Q, for x (batch, n_in) complex64 zero-padded
     to m -> (a (batch, Q, P), partials (batch, tiles(P, Q)) or None).
 
@@ -189,8 +195,11 @@ def conv_col_stage(x: torch.Tensor, p: int, q: int, tables, pre=None, perm=None,
     (needs n_in == m); emit_sum: also return the sums of the raw input over
     each block's tile, largepad.tile(P) columns j2 with the last one ragged
     (tile_partials; their row sum is sum(x)); gauss: the Gauss form on
-    csrc/large.cuh's general kernel (counted by conv_col_stage_gauss).  On
-    the card K14's ragged source (csrc/conv_pad.cu), or K12's own column
+    csrc/large.cuh's general kernel (counted by conv_col_stage_gauss);
+    general: the default form on csrc/large.cuh's kernels (tiles that divide
+    Q, large.col_tables), which the fused large Bluestein's general form
+    takes as its kernel A (convlarge.make_bluestein_large_fn).  Else, on
+    the card, K14's ragged source (csrc/conv_pad.cu), or K12's own column
     kernel where the stage is plain (pass 2: no pre, perm or sums, rows of
     m contiguous values).
     """
@@ -201,36 +210,36 @@ def conv_col_stage(x: torch.Tensor, p: int, q: int, tables, pre=None, perm=None,
     if not 0 < n_in <= m:
         raise ValueError(f"{what}: n_in={n_in} not in [1, {m}]")
     roots, tws, outer = tables
-    _check_chain_tables(p, roots, tws, x.device, what, gauss)
+    _check_chain_tables(p, roots, tws, x.device, what, gauss, general)
     _check_table(outer, (q, p), x.device, f"{what} outer twiddle")
     _check_table(pre, (m,), x.device, f"{what} pre")
     if perm is not None:
         check_index(perm, m, x.device, f"{what} perm")
         if n_in != m:
             raise ValueError(f"{what}: a gather needs n_in == m, got {n_in} != {m}")
-    qt = col_tile(p, q, gauss) if gauss else largepad.tile(p)
+    qt = col_tile(p, q, gauss) if gauss or general else largepad.tile(p)
     if qt is None:
         raise ValueError(f"{what}: no tile for P={p}, Q={q}")
     if x.device.type == "cpu":
-        return conv_col_stage_plain(x, p, q, tables, pre, perm, emit_sum, gauss)
+        return conv_col_stage_plain(x, p, q, tables, pre, perm, emit_sum, gauss, general)
     require_cuda(x, what)
     radices = large.stage_radices(p)
-    if not gauss:
+    if not (gauss or general):
         largepad._check_chain(p, radices, largepad.COL_MAX_M, what)
     batch = x.shape[0]
     a = torch.empty((batch, q, p), dtype=x.dtype, device=x.device)
-    partials = (torch.empty((batch, tiles(p, q, gauss)), dtype=x.dtype, device=x.device)
-                if emit_sum else None)
+    partials = (torch.empty((batch, tiles(p, q, gauss, general)), dtype=x.dtype,
+                            device=x.device) if emit_sum else None)
     if batch == 0:
         return a, partials
     ld = x.stride(0) if batch > 1 else n_in
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if gauss:
+        if gauss or general:
             code = lib.rf_conv_col_stage(
                 x.data_ptr(), a.data_ptr(), None if partials is None else partials.data_ptr(),
-                batch, n_in, ld, p, q, qt, 1, *padded_stage_args(radices, roots, tws),
+                batch, n_in, ld, p, q, qt, int(gauss), *padded_stage_args(radices, roots, tws),
                 outer.data_ptr(), None if pre is None else pre.data_ptr(),
                 None if perm is None else perm.data_ptr(), stream)
         elif pre is None and perm is None and not emit_sum and n_in == m and ld == m:
@@ -348,9 +357,9 @@ def conv_row_stage(a: torch.Tensor, q: int, p: int, tables, n_out: int, h=None,
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if gauss:
-            code = lib.rf_conv_row_stage(a.data_ptr(), y.data_ptr(), batch, q, p, pt, 1,
-                                         *padded_stage_args(radices, roots, tws), *epilogue,
-                                         stream)
+            code = lib.rf_conv_row_stage_gauss(a.data_ptr(), y.data_ptr(), batch, q, p, pt,
+                                               *padded_stage_args(radices, roots, tws),
+                                               *epilogue, stream)
         else:
             code = lib.rf_conv_pad_row_stage(a.data_ptr(), y.data_ptr(), batch, q, p, pt,
                                              *fused.chain_args(radices, roots, tws), *epilogue,

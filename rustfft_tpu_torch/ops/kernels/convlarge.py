@@ -5,9 +5,10 @@ Replaces rustfft_tpu/ops/pallas/convlarge.py (`_kernel_bconv`, `_kernel_a2`,
 an inner m = P * Q (large.choose_pqq(m)) in three launches, where the
 two-pass core (ops/kernels/conv_radix.py) takes four:
 
-  A       `conv_radix.conv_col_stage` with pre = the chirp: the zero pad, the
-          chirp, DFT_P and w_m^(k1*j2), (B, n) -> (B, Q, P).  It takes the
-          place of the JAX package's XLA prologue and `large._kernel_a`;
+  A       `conv_radix.conv_col_stage(general=True)` with pre = the chirp:
+          the zero pad, the chirp, DFT_P and w_m^(k1*j2), (B, n) -> (B, Q,
+          P).  It takes the place of the JAX package's XLA prologue and
+          `large._kernel_a`;
   B_conv  `bconv_row_stage`: per (Q, pt) tile, FFT_Q, conj(. * H), FFT_Q
           in the same direction and w_m^(l1*k1), (B, Q, P) -> (B, Q, P)
           [l1, k1] (the mirrored factorisation, convlarge.py:13-32);
@@ -41,8 +42,9 @@ B_conv's units run batch rows fastest (`bconv_unit`, `bconv_grid`), kernel
 A's and A2's contiguous ranges of them (large.col_walk), so the tables'
 slices are read from device memory about once.  By that rule, and only
 there, other splits (Q below 1536: 3432 primes of [8192, 2^20], 24571 at Q
-= 192) keep `conv_radix.conv_col_stage` (K14's ragged column stage),
-`bconv_row_stage` and `bconv_out_stage`: B_conv holds a (Q, pt) tile in two
+= 192) keep the general kernels: `conv_radix.conv_col_stage(general=True)`
+(the two-pass core's column stage on csrc/large.cuh), `bconv_row_stage` and
+`bconv_out_stage`: B_conv holds a (Q, pt) tile in two
 buffers, `bconv_tile` checks that it fits.  Host tables are the JAX
 package's, built in f64 and cast to complex64: the chirp, H = h_fft as (Q,
 P), the (Q, P) outer twiddle and the output chirp.  Each wrapper runs its
@@ -736,7 +738,7 @@ def make_bluestein_large_fn(n: int, m: int, direction: FftDirection, dtype,
             a = bconv_col_tile(rows if rows.stride(-1) == 1 else rows.contiguous(), p, q, col, pre)
             b = bconv_row_tile(a, q, p, row, h, bconv_outer)
             return bconv_out_tile(b, p, q, col[:2], chirp, n).reshape(x.shape)
-        a, _ = conv_radix.conv_col_stage(rows.contiguous(), p, q, col, pre=pre)
+        a, _ = conv_radix.conv_col_stage(rows.contiguous(), p, q, col, pre=pre, general=True)
         b = bconv_row_stage(a, q, p, row, h, bconv_outer)
         return bconv_out_stage(b, p, q, col[:2], chirp, n).reshape(x.shape)
 

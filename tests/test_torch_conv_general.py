@@ -435,6 +435,41 @@ def test_tile_form_matches_jax_and_oracle(q):
     assert _rel(got, host_dft(x, d)) <= TOL
 
 
+def test_small_q_keeps_the_general_kernels(monkeypatch):
+    """By convlarge's rule, Q below 1536 (24571, Q = 192) keeps the general
+    kernels: kernel A is conv_col_stage on csrc/large.cuh (general=True,
+    dividing tiles), whose plain version equals the ragged form's on the
+    same values, then bconv_row_stage and bconv_out_stage."""
+    calls = []
+    real = conv_radix.conv_col_stage
+
+    def spy(*a, **kw):
+        calls.append(kw.get("general", False))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(conv_radix, "conv_col_stage", spy)
+    n, m = 24571, 49152
+    d = FftDirection.FORWARD
+    x = _signal(2, n, seed=24)
+    got = convlarge.make_bluestein_large_fn(n, m, d, np.complex64)(torch.from_numpy(x))
+    assert calls == [True]
+    assert _rel(got, host_dft(x, d)) <= TOL
+    p, q1, q2 = large.choose_pqq(m)
+    q = q1 * q2
+    assert (p, q) == (256, 192) and not convlarge.tile_form(p, q)
+    host = convlarge.bconv_tables(n, m, p, q, d)
+    col = (_on(host["col"][0]), _on(host["col"][1]), _on(host["col"][2]))
+    pre = _on(host["pre"])
+    xt = torch.from_numpy(x)
+    a_general, part_g = conv_radix.conv_col_stage_plain(xt, p, q, col, pre, None, True,
+                                                        general=True)
+    a_ragged, part_r = conv_radix.conv_col_stage_plain(xt, p, q, col, pre, None, True)
+    assert _rel(a_general, a_ragged) <= TOL
+    assert part_g.shape == (2, q // conv_radix.col_tile(p, q))
+    assert part_r.shape == (2, conv_radix.tiles(p, q))
+    assert _rel(part_g.sum(dim=1), part_r.sum(dim=1)) <= TOL
+
+
 def test_tile_wrappers_check_the_column_form():
     """B_conv at a new Q refuses the tables of another Q and the old row
     layout."""

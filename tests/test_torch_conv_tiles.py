@@ -121,8 +121,8 @@ def test_col_and_out_walks_cover_every_unit_once(batch, resident):
 # -- K15's tile form ----------------------------------------------------------------
 
 def test_tile_form_rule_and_layout():
-    assert convlarge.tile_form(P15, Q15)
-    assert not convlarge.tile_form(256, 192) and not convlarge.tile_form(256, 6144)
+    assert convlarge.tile_form(P15, Q15) and convlarge.tile_form(256, 6144)
+    assert not convlarge.tile_form(256, 192) and not convlarge.tile_form(243, 6144)
     p, q1, q2 = large.choose_pqq(M15)
     assert (p, q1 * q2) == (P15, Q15)
     a = torch.from_numpy(_signal(3 * Q15, P15, seed=1)).reshape(3, Q15, P15)

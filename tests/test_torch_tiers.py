@@ -258,15 +258,16 @@ def test_convlarge_stages_compose():
 
 def test_bconv_tiles():
     """B_conv's tiles at the two K15 inner lengths: at Q = 8192 (m = 2^21)
-    the tile form (ops/kernels/convlarge.py tile_form: one (Q, 2) tile of
-    column pairs an SM, csrc/convlarge.cu bconv_tile_kernel), where the
-    general kernel's two buffers hold one column; at Q = 6144 two columns
-    on the general kernel; A2 stores 16 rows."""
+    and Q = 6144 (m = 1572864) the tile form (ops/kernels/convlarge.py
+    tile_form: a unit of COLUMN_FORMS[Q][1] columns, csrc/convlarge.cu and
+    csrc/bconv_cols.cu), where the general kernel's two buffers would hold
+    one and two columns; A2 stores 16 rows."""
     for m, q, general in ((1 << 21, 8192, 1), (1572864, 6144, 2)):
         p, q1, q2 = large.choose_pqq(m)
         assert (p, q1 * q2) == (256, q)
         assert convlarge.bconv_tile(q, p) == conv_radix.row_tile(q, p) == general
-        assert convlarge.tile_form(p, q) == (q == 8192)
+        assert convlarge.tile_form(p, q)
+        assert convlarge.COLUMN_FORMS[q][1] == (1 if q == 8192 else 2)
         assert convlarge.out_tile(p, q) == 16
     assert convlarge.bconv_tile(8192, 3) == conv_radix.row_tile(8192, 3) == 1
 
