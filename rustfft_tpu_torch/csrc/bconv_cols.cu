@@ -15,9 +15,9 @@
 // (Q, pt) tiles of the row layout (B, Q, P): 16 bytes from each of Q rows
 // 2 KiB apart, which a copy alone ran at 3x a streaming copy.
 //
-// Design, per form (FORMS below: the chain (R0, R1, R2[, R3]) of register
-// radices and T, the most columns whose tile fits two 256-thread blocks an
-// SM): a persistent grid, block g walking the units g, g + grid, ...
+// Design, per form (with_form below: the chain (R0, R1, R2[, R3]) of
+// register radices and T, the most columns whose tile fits two 256-thread
+// blocks an SM): a persistent grid, block g walking the units g, g + grid, ...
 // (batch rows fastest, ops/kernels/convlarge.py bconv_unit, so that the
 // blocks at work share one or two units' slices of h and outer).  The unit
 // lands by 16-byte cp.async in plain order, buf[t*Q + e]; then, in place in

@@ -23,21 +23,43 @@
 
 namespace rf {
 
-// The source: ConvIn's elements over the (P, T) tile, eight loads in flight
-// a thread as PadRowsIn's, their raw values summed into the partials.
+// The source: ConvIn's elements over the (P, T) tile, eight a thread in
+// three steps, so that the gather's index reads, then its value reads, then
+// pre's reads are each in flight together: the raw values are summed into
+// the partials, then multiplied by pre.
 struct ConvPadIn {
   static constexpr int kBlocks = kPadColPlainBlocks;
   ConvIn in;
   __device__ float2 load(const float2*, size_t b, int p, int q, int q0, int T,
                          float2* buf) const {
     float2 acc = make_float2(0.f, 0.f);
+    const float2* __restrict__ row = in.x + b * in.ld;
     const int elems = p * T, nt = (int)blockDim.x;
     TileWalk w((int)threadIdx.x, T);
     for (int f0 = threadIdx.x; f0 < elems; f0 += kPadIo * nt) {
+      int j[kPadIo], at[kPadIo];
+#pragma unroll
+      for (int u = 0; u < kPadIo; ++u, w.next()) {
+        j[u] = w.row * q + q0 + w.col;
+        at[u] = f0 + u * nt < elems && j[u] < in.n_in ? j[u] : -1;
+      }
+      if (in.perm != nullptr) {
+#pragma unroll
+        for (int u = 0; u < kPadIo; ++u)
+          if (at[u] >= 0) at[u] = __ldg(&in.perm[j[u]]);
+      }
       float2 v[kPadIo];
 #pragma unroll
-      for (int u = 0; u < kPadIo; ++u, w.next())
-        if (f0 + u * nt < elems) v[u] = in.load(b, w.row * q + q0 + w.col, acc);
+      for (int u = 0; u < kPadIo; ++u) {
+        v[u] = at[u] >= 0 ? row[at[u]] : make_float2(0.f, 0.f);
+        acc.x += v[u].x;
+        acc.y += v[u].y;
+      }
+      if (in.pre != nullptr) {
+#pragma unroll
+        for (int u = 0; u < kPadIo; ++u)
+          if (at[u] >= 0) v[u] = cmul(v[u], __ldg(&in.pre[j[u]]));
+      }
 #pragma unroll
       for (int u = 0; u < kPadIo; ++u) {
         const int f = f0 + u * nt;

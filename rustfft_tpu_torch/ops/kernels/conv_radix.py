@@ -31,10 +31,13 @@ Four launches and eight traversals of m (the TPU kernel: two and four).
 
 The JAX kernel's two options, off by default there and here:
   gauss     (config.conv_radix_gauss; conv_radix.py:183, :232, :266): every
-            stage in the Gauss form.  By that switch, and only there, the
-            four stages run csrc/large.cuh's general kernels (tiles that
-            divide the other axis, two buffers; csrc/conv_radix.cu), counted
-            by `conv_col_stage_gauss` and `conv_row_stage_gauss`;
+            stage in the Gauss form.  By that switch the four stages run
+            csrc/large.cuh's general kernels (tiles that divide the other
+            axis, two buffers; csrc/conv_radix.cu), counted by
+            `conv_col_stage_gauss` and `conv_row_stage_gauss`; the only
+            other launch left there is the column stage's default form
+            (`conv_col_stage(general=True)`), the fused large Bluestein's
+            kernel A at Q below 1536 (ops/kernels/convlarge.py);
   in_shift  (config.rader_in_shift; conv_radix.py:161, :327): the Rader
             core reads the raw (batch, m + 1) rows.  Pass 1's column stage
             takes the view x[:, 1:] (rows m + 1 apart, no copy) and pass 2

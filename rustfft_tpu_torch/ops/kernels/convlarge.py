@@ -242,10 +242,10 @@ TILE_Q = 8192
 
 #: B_conv's forms by Q: chain 1's radices (register radices, the first
 #: leaving W_0 = Q / r_0 a multiple of 16) and the columns a unit holds, the
-#: most at which two 256-thread blocks fit an SM (csrc/bconv_cols.cu FORMS;
-#: 8192, one column, csrc/convlarge.cu).  Chain 1, in place, leaves its
-#: output digit-reversed (bconv_positions); chain 2 is the chain reversed
-#: and ends in natural order.  The seven Q below 8192 carry 46381 of the
+#: most at which two 256-thread blocks fit an SM (csrc/bconv_cols.cu
+#: with_form; 8192, one column, csrc/convlarge.cu).  Chain 1, in place,
+#: leaves its output digit-reversed (bconv_positions); chain 2 is the chain
+#: reversed and ends in natural order.  The seven Q below 8192 carry 46381 of the
 #: primes in [8192, 2^20] (tools/torch_prime_cores.py).
 COLUMN_FORMS = {
     1536: ((6, 16, 16), 8),
@@ -257,9 +257,6 @@ COLUMN_FORMS = {
     6144: ((3, 8, 16, 16), 2),
     TILE_Q: ((2, 16, 16, 16), 1),
 }
-#: the chains of Q = 8192 (csrc/convlarge.cu)
-BCONV_CHAIN1 = COLUMN_FORMS[TILE_Q][0]
-BCONV_CHAIN2 = BCONV_CHAIN1[::-1]
 
 
 def tile_form(p: int, q: int) -> bool:
