@@ -70,9 +70,10 @@ _COL_STATIC_SMEM = 32 * 8
 
 
 def col_tile(p: int, q: int, gauss: bool = False) -> Optional[int]:
-    """Columns j2 per block of csrc/large.cuh's general column kernel (the
-    Gauss form's; choose_split's rule): the largest of 16, 8, 4, 2, 1 that
-    divides Q and fits shared memory (with the Gauss tables with `gauss`)."""
+    """Columns j2 per block of csrc/large.cuh's column kernels (the Gauss
+    form's and conv_col_stage(general=True)'s; choose_split's rule): the
+    largest of 16, 8, 4, 2, 1 that divides Q and fits shared memory (with
+    the Gauss tables with `gauss`)."""
     for qt in (16, 8, 4, 2, 1):
         need = smem_bytes(p * qt, large.stage_radices(p), gauss) + _COL_STATIC_SMEM
         if q % qt == 0 and need <= _build.SMEM_MAX:

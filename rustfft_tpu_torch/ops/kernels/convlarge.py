@@ -398,7 +398,7 @@ def _cols_resident(device_index: int, q: int) -> int:
         return out.value
 
 
-def row_tile_resident(device: torch.device, q: int) -> int:
+def _row_tile_resident(device: torch.device, q: int) -> int:
     """The blocks of B_conv's tile kernel at Q the device holds at once."""
     if q == TILE_Q:
         return _resident_on(device, "row")
@@ -530,7 +530,7 @@ def _row_tile_launch(a, q, p, tables, h, outer, what, stamps=None):
     y = torch.empty_like(a)
     src = large._aligned16(a)
     chain, width = COLUMN_FORMS[q]
-    grid = bconv_grid(a.shape[0] * (p // width), row_tile_resident(a.device, q))
+    grid = bconv_grid(a.shape[0] * (p // width), _row_tile_resident(a.device, q))
     tw = (ctypes.c_void_p * len(tws))(*[t.data_ptr() for t in tws])  # host array of pointers
     lib = _build.load(phase_stamps=stamps is not None)
     if q == TILE_Q:
@@ -681,7 +681,7 @@ def bconv_row_tile_stamps(a: torch.Tensor, q: int, p: int, tables, h: torch.Tens
     (y, stamps) with ROW_TILE_PHASES."""
     what = "bconv_row_tile_stamps"
     _row_tile_checks(a, q, p, tables, h, outer, what)
-    stamps = _stamps(a, "row", what, row_tile_resident(a.device, q))
+    stamps = _stamps(a, "row", what, _row_tile_resident(a.device, q))
     y = _row_tile_launch(a, q, p, tables, h, outer, what, stamps)
     return y, stamps[stamps[:, 0] != 0]
 
