@@ -24,7 +24,8 @@ inner length runs on:
   torch recipe tree  no kernel core.
 
 It prints the primes by recipe and inner length (the most common inner
-lengths first), then by core form, then each core form's inner lengths.
+lengths first), then by core form (with the number of distinct inner
+lengths), then each core form's most common inner lengths.
 About 45 s for [8192, 2^20] on one CPU core.
 """
 from __future__ import annotations
@@ -36,6 +37,10 @@ from collections import Counter
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: the (recipe, inner length) pairs printed for each core form, most primes
+#: first
+SHOWN = 24
 
 #: the core forms, in the order they are printed
 FORMS = ("one-pass core", "K15 tile form", "K15 general form", "K14 cluster passes",
@@ -116,13 +121,15 @@ def main() -> None:
             kc = Counter()
             for (kind, _), c in inners[form].items():
                 kc[kind] += c
-            print(f"  {form}: {by_form[form]} primes, {len(inners[form])} inner lengths ("
+            lengths = len({m for _, m in inners[form]})
+            print(f"  {form}: {by_form[form]} primes, {lengths} inner lengths ("
                   + ", ".join(f"{k} {c}" for k, c in kc.most_common()) + ")")
     for form in FORMS:
         if by_form[form]:
             top = sorted(inners[form].items(), key=lambda kv: (-kv[1], kv[0]))
-            print(f"{form}, inner lengths by primes: " + ", ".join(
-                f"{kind[0]}{m}:{c}" for (kind, m), c in top))
+            more = f", and {len(top) - SHOWN} more" if len(top) > SHOWN else ""
+            print(f"{form}, inner lengths by primes (b Bluestein, r Rader): " + ", ".join(
+                f"{kind[0]}{m}:{c}" for (kind, m), c in top[:SHOWN]) + more)
 
 
 if __name__ == "__main__":
