@@ -50,3 +50,54 @@ extern "C" int rf_large2f_col_stage(const void* x, void* y, long long batch, int
                                         static_cast<const float2*>(wm), p1, p2},
                           static_cast<cudaStream_t>(stream));
 }
+
+#ifdef RF_PHASE_STAMPS
+namespace rf {
+
+// The access-pattern probe of K10's column tile: a copy of (batch, P, Q)
+// complex64 by 1024-thread blocks of 16384 values, 16 a thread loaded, then
+// stored.  t > 0: block (b, g, tile) moves the window of t columns at tile*t
+// of the rows J = g + G*i (G = P*t / 16384 row groups, i < 16384 / t), t*8
+// bytes from rows Q*8 bytes apart: at t = 16384 / P the tile of
+// col_fixed_kernel (64-, 32- and 16-byte pieces at P = 2048, 4096, 8192), at
+// t = 16 the rows J = g mod G in 128-byte pieces.  t = 0: 128 KiB of
+// consecutive values.
+__global__ void __launch_bounds__(1024)
+    k10_copy_probe_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
+                          int t) {
+  size_t at[16];
+  float2 v[16];
+  const int groups = t > 0 ? p * t / 16384 : 1;
+  const int tiles = t > 0 ? q / t : 1;
+  const size_t b = blockIdx.x / ((unsigned)groups * (unsigned)tiles);
+  const int rest = (int)(blockIdx.x % ((unsigned)groups * (unsigned)tiles));
+  const int g = rest / tiles, tile = rest % tiles;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int f = j * 1024 + (int)threadIdx.x;
+    at[j] = t > 0 ? b * (size_t)p * (size_t)q + (size_t)(g + groups * (f / t)) * q + tile * t +
+                        f % t
+                  : (size_t)blockIdx.x * 16384 + f;
+    v[j] = x[at[j]];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) y[at[j]] = v[j];
+}
+
+}  // namespace rf
+
+// The access-pattern probe (k10_copy_probe_kernel): x, y (batch, P, Q)
+// complex64; t = 0, or t divides Q and P*t is a multiple of 16384.
+extern "C" int rf_large2f_copy_probe(const void* x, void* y, long long batch, int p, int q, int t,
+                                     void* stream) {
+  using namespace rf;
+  if (batch <= 0 || p <= 0 || q <= 0 || t < 0 || (long long)p * q % 16384 != 0 ||
+      (t > 0 && (q % t != 0 || (long long)p * t % 16384 != 0)))
+    return cudaErrorInvalidValue;
+  const long long blocks = batch * (long long)p * q / 16384;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  k10_copy_probe_kernel<<<(unsigned)blocks, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<float2*>(y), p, q, t);
+  return cudaGetLastError();
+}
+#endif

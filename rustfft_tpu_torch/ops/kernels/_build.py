@@ -20,7 +20,8 @@ K7's cluster kernel
 (`rf_two_stage_cluster_phase_stamps`) and K12's two kernels
 (`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`), K2's and
 K3's (`rf_large_col_phase_stamps`, `rf_large_row_phase_stamps`) and the
-access-pattern probe of K3's tile (`rf_large_copy_probe`;
+access-pattern probes of K3's and K10's tiles (`rf_large_copy_probe`,
+`rf_large2f_copy_probe`;
 tools/torch_phase_times.py, tools/torch_ab.py); no route loads it, so no other build pays for
 those forms.
 """
@@ -119,6 +120,7 @@ _STAMP_SIGNATURES = {
     "rf_large_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 6 + [_ll, _ll, _vp, _vp],
     "rf_large_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp, _vp],
     "rf_large_copy_probe": [_vp, _vp, _ll, _int, _int, _vp],
+    "rf_large2f_copy_probe": [_vp, _vp, _ll, _int, _int, _int, _vp],
     "rf_bconv_col_tile_stamps": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 5
                                 + [_ll, _ll, _vp, _vp],
     "rf_bconv_row_tile_stamps": [_vp, _vp, _ll, _int] + [_vp] * 5 + [_ll, _vp, _vp],

@@ -189,3 +189,23 @@ def make_large2f_fft_fn(n: int, direction: FftDirection, dtype,
 
     apply.tables = tables
     return apply
+
+
+def copy_probe(x: torch.Tensor, p: int, q: int, t: int) -> torch.Tensor:
+    """The access-pattern probe of the fused column stage's tile (the
+    RF_PHASE_STAMPS library only; for timing): a copy of x (batch, P*Q)
+    complex64 by 1024-thread blocks of 16384 values.  t > 0: each block
+    moves t columns of P*t / 16384 interleaved row groups' rows (at t =
+    16384 / P the (P, t) tile of col_fixed_kernel: 64-, 32- and 16-byte row
+    pieces at P = 2048, 4096, 8192; at t = 16, 128-byte pieces of every
+    (P / 1024)-th row); t = 0: 128 KiB of consecutive values."""
+    what = "large2f.copy_probe"
+    check_operand(x, (x.shape[0], p * q), what)
+    require_cuda(x, what)
+    y = torch.empty_like(x)
+    lib = _build.load(phase_stamps=True)
+    with torch.cuda.device(x.device):
+        code = lib.rf_large2f_copy_probe(x.data_ptr(), y.data_ptr(), x.shape[0], p, q, t,
+                                         torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, what)
+    return y

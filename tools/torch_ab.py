@@ -57,9 +57,17 @@ K14_FOUR (746497 x 64, 196613 x 256, 88589 x 512), each launch of the
 path's core alone on the inputs the path gave it (recorded through the
 RECORDED wrappers: K15's kernel A, B_conv and A2 in whichever form the
 checkout runs; K14's col1, row1, col2, row2), the path and torch.fft.
+And K5's product (`dense_fft`, the block form) at
+each prime of the dense route below 29 (K5_PRODUCT, about 384 MiB each)
+beside `x @ W` and torch.fft, and K10's fused column stage
+(`large2f_col_stage`) at 16 x 2^22, 8 x 2^23, 4 x 2^24 and 2 x 2^25 with
+each path and its torch.fft and, where the checkout has it, the
+access-pattern probe of its tile (`large2f.copy_probe`: the input copied
+in the old tile's 64-, 32- and 16-byte row pieces, in 128-byte pieces of
+every (P/1024)-th row, and streaming, beside `clone`).
 `--only` keeps the named groups of these (K1, K2 for K2 and K3, paths for
-the planner's paths and K1's and K5's torch.fft, K9, K16, K12, K15,
-K14).  It prints one JSON line per run and then a table, each row a
+the planner's paths and K1's and K5's chain paths' torch.fft, K9, K16,
+K12, K15, K14, K5 for K5's product, K10).  It prints one JSON line per run and then a table, each row a
 quantity and each column a run.
 """
 from __future__ import annotations
@@ -83,6 +91,15 @@ PAD = ((15625, 4096), (78125, 512), (177147, 256), (531441, 64), (234617, 256), 
 K1 = ((4096, 16384), (8192, 8192), (1024, 65536), (64, 1 << 20), (1000, 65536), (2008, 32768),
       (12288, 5120))
 K5 = ((127, 262144), (251, 131072), (29, 1 << 21))
+
+#: K5's product (dense_fft, the route's primes below 29) at about 384 MiB
+#: of input each
+K5_PRODUCT = ((5, 1 << 23), (7, 7 << 20), (11, 1 << 22), (13, 1 << 22), (17, 1 << 21),
+              (19, 1 << 21), (23, 1 << 21))
+
+#: K10's fused column stage (large2f_col_stage) at each split of the
+#: route: P = 1024, 2048, 4096 and 8192, Q = 4096, 512 MiB each
+K10 = ((1 << 22, 16), (1 << 23, 8), (1 << 24, 4), (1 << 25, 2))
 
 #: K9's four sizes (r = 2, 4, 8, 16) and the radix body at R = 1 (K7's
 #: 16384), 512 MiB each
@@ -120,7 +137,7 @@ RECORDED = {
                   "bconv_row_tile": "B_conv", "bconv_out_stage": "A2", "bconv_out_tile": "A2"},
 }
 
-GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14")
+GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10")
 
 
 def run_one(root: str, groups=GROUPS) -> dict:
@@ -370,6 +387,45 @@ def run_one(root: str, groups=GROUPS) -> dict:
         out[f"K16 permute 8192x{m}"] = ms(lambda: permute.permute(x, idx), reps=31)
         out[f"index_select 8192x{m}"] = ms(lambda: torch.index_select(x, 1, idx), reps=31)
         del x
+    if "K5" in groups:
+        from rustfft_tpu_torch.ops.kernels import dense
+
+        for n, batch in K5_PRODUCT:
+            torch.cuda.empty_cache()
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            tabs = tuple(None if t is None else torch.from_numpy(t).to(dev)
+                         for t in dense.dense_tables(n, FftDirection.FORWARD, "block"))
+            out[f"K5 dense_fft {n}x{batch}"] = ms(lambda: dense.dense_fft(x, tabs, "block"),
+                                                  reps=15)
+            out[f"x @ W {n}x{batch}"] = ms(lambda: x @ tabs[0], reps=15)
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+            del x
+    if "K10" in groups:
+        from rustfft_tpu_torch.ops.kernels import large2f
+
+        for n, batch in K10:
+            torch.cuda.empty_cache()
+            p1, p2, _, _, q = large2f.choose_split2f(n)
+            p = p1 * p2
+            r, t, wob, wm = large2f.col_tables(p1, p2, q, FftDirection.FORWARD)
+            col = (on(r), on(t), *on([wob, wm]))
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            out[f"K10 large2f_col_stage {n}x{batch}"] = ms(
+                lambda: large2f.large2f_col_stage(x, p1, p2, q, col), reps=15)
+            if hasattr(large2f, "copy_probe"):
+                # the old tile's row pieces, 128-byte pieces of every (P/1024)-th row,
+                # streaming; each copy must equal its input
+                for what, width in ((f"{16384 // p * 8}-byte", 16384 // p), ("128-byte", 16),
+                                    ("streaming", 0)):
+                    if not torch.equal(large2f.copy_probe(x, p, q, width), x):
+                        raise SystemExit("large2f.copy_probe: the copy differs from its input")
+                    out[f"probe {what} {n}x{batch}"] = ms(
+                        lambda: large2f.copy_probe(x, p, q, width), reps=15)
+                out[f"clone {n}x{batch}"] = ms(lambda: x.clone(), reps=15)
+            plan = planner.plan_fft_forward(n)
+            out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+            del x
     pad_tables = getattr(largepad, "col_tables", None)
     for n, batch in PAD if "K12" in groups else ():
         torch.cuda.empty_cache()
