@@ -28,8 +28,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    and the permutation at m = 1008 and 114688 and on both sides of its
    shared-memory cut-over (permute.SMEM_ROW_MAX = 29056 through shared
    memory, 29057 direct);
-   The top power-of-two band at batch 1: large2f's fused column stage at
-   P = 2048, 4096 and 8192 and the row stage after it, large3f's pass 1
+   The top power-of-two band: large2f's fused column stage (K10's cluster
+   kernel, within 1e-6) at P = 1024, 2048, 4096 and 8192 at batch 1 and at
+   a batch that leaves its walk of clusters ragged (the resident clusters
+   of each cluster size printed) and the row stage after it at batch 1,
+   large3f's pass 1
    (the modular j3 twiddle), its pass 2 with the j2 factor on and off, and
    the row stage at P = 16384.  The one-pass mid band at batch 2: radix_fft
    at r = 2, 4, 8 and 16 (a persistent grid of clusters of r blocks; the
@@ -46,7 +49,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    a direct sum: p = (29, 11)), with the cudaOccupancyMaxActiveClusters of
    each cluster size.  The last three tiers
    at small batches: dense_fft at n = 5, 23, 127, 251 and 1009 in both
-   forms, K5's chain form (dense_chain_fft, one Bluestein stage on K1's
+   forms (the block form at 5 and 23 is K5's pair kernel, within 1e-6 at
+   batch 300, 1, 3 and a batch that leaves its persistent walk ragged, the
+   resident blocks printed), K5's chain form (dense_chain_fft, one Bluestein stage on K1's
    chain kernel) within 1e-6 at 29, 127 and 251,
    the two ragged-tile stages of large_pad (K12's in-place chain) within
    1e-6 at PAD_CHECKS: every stage kind (register, direct sum, Bluestein at
@@ -72,15 +77,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    their cluster passes also at 7919 x 1 and x 5, 65537 x 1 and x 3) and
    the cluster passes' largest forms at 65521 x 512 and x 3 (r = 8) and
    131071 x 256 and x 3 (r = 16),
-   the top band at 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX bench's rows)
-   and 2^26 x 2, and the mid band at 16384 x 4096 and 24576 x 2048
+   the top band at 2^22 x 16, 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX
+   bench's rows) and 2^26 x 2, and the mid band at 16384 x 4096 and 24576 x 2048
    (two_stage), 14464 and 16256 x 4096 and 28544 x 2048 (two_stage with a
    Bluestein stage), 32768 x 2048, 65536 x 1024 (the JAX bench's row),
    131072 x 512 and 262144 x 256 (radix), K7's cluster band at 28928 x
    4096, 49152 x 2048, 98304 x 1024, 196608 x 512, 245760 x 256 and
    260608 x 256 (two_stage, one cluster launch each), the primes 29 x
-   2^20, 127 x 262144 and 251 x 131072 (dense, K5's chain form) and 23 x
-   2^21 (dense, the product), the odd composites 15625 x 4096, 78125 x 512,
+   2^20, 127 x 262144 and 251 x 131072 (dense, K5's chain form) and 5 x
+   2^23 and 23 x 2^21 (dense, the product's pair kernel), the odd composites 15625 x 4096, 78125 x 512,
    177147 x 256 and 531441 x 64 and the route's bulk 234617 x 256, 775575
    x 64, 412519 x 128 and 50666 x 1024 (large_pad), 1000003 x 64, 524309 x
    64, 393241 x 64 and 294919 x 128, each also x 1 and x 3 (the fused large
@@ -127,8 +132,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the pipelined kernel also against the chain kernel on the same chain.
    The last three tiers: K5's chain form against its plain version (within
    1e-6), its bound, torch.fft (its one-call PyTorch time), x @ W and the
-   block product; the product at 23 against x @ W (the Dft leaf it
-   replaced, and the one-call PyTorch time), its other form and torch.fft;
+   block product; the product at 5 and 23 (the pair kernel, within 1e-6)
+   against x @ W (the Dft leaf it replaced, and the one-call PyTorch time),
+   its other form and torch.fft;
    each dense path against torch.fft; dense_fft against the lanepack route
    at 256 x 262144 and the
    convolution cores at 1009 and 1234 x 8192 (the dense crossover); each
@@ -184,7 +190,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
 #: the top band's paths: n -> batch, and the tag of their kernel entries
-TOP = {1 << 23: 8, 1 << 24: 4, 1 << 25: 2, 1 << 26: 2}
+TOP = {1 << 22: 16, 1 << 23: 8, 1 << 24: 4, 1 << 25: 2, 1 << 26: 2}
 
 #: the one-pass mid band's paths: n -> batch (256-512 MiB each)
 MID = {16384: 4096, 24576: 2048, 1 << 15: 2048, 1 << 16: 1024, 1 << 17: 512, 1 << 18: 256}
@@ -200,6 +206,11 @@ ONE = {14464: 4096, 16256: 4096, 28544: 2048}
 #: prime p as one Bluestein stage, ragged row shares) on 16
 CLUSTER = {28928: 4096, 49152: 2048, 98304: 1024, 196608: 512, 245760: 256, 260608: 256}
 
+#: the kernels redesigned onto new bodies, held within 1e-6 of their plain
+#: versions: K5's pair kernel (dense_fft's block form at n <= 23) and K10's
+#: cluster kernel (large2f_col_stage)
+PAIR_TOL = 1e-6
+
 #: K1's chain kernel (lanepack_chain_fft) at the route's sizes: n -> batch
 #: (450-512 MiB each): 64 (128 transforms a block), 1000 = 8 x 5 x 5 x 5
 #: and 8192 = 16 x 16 x 16 x 2 (four register stages), 2008 = 251 x 8 (a
@@ -207,10 +218,11 @@ CLUSTER = {28928: 4096, 49152: 2048, 98304: 1024, 196608: 512, 245760: 256, 2606
 LANE = {64: 1 << 20, 1000: 65536, 2008: 32768, 8192: 8192, 14400: 4096}
 
 #: the dense tier's paths (K5): the primes from 29 as one Bluestein stage on
-#: K1's chain kernel (dense_chain_fft), n -> batch (232-266 MiB), and 23, a
-#: prime below the Bluestein crossover, on the product (dense_fft)
+#: K1's chain kernel (dense_chain_fft), n -> batch (232-266 MiB), and 5 and
+#: 23, the smallest and largest primes below the Bluestein crossover, on the
+#: product (dense_fft: the pair kernel), 320 and 368 MiB
 DENSE = {29: 1 << 20, 127: 262144, 251: 131072}
-DENSE_PRODUCT = {23: 1 << 21}
+DENSE_PRODUCT = {5: 1 << 23, 23: 1 << 21}
 
 #: the ragged-tile paths (K12): the odd composites n -> batch, and the
 #: route's bulk at about 400 MiB each: 234617 = 373 x (37 x 17) (a
@@ -268,7 +280,7 @@ KERNELS = {
 }
 #: the top band's kernels, one entry per path shape: K10's fused column
 #: stage and its Q-FFT pass (K3's row stage), K11's three passes
-for _t in ("2^23", "2^24", "2^25"):
+for _t in ("2^22", "2^23", "2^24", "2^25"):
     KERNELS[f"large2f_col_stage/{_t}"] = ("rustfft_tpu_torch/csrc/large2f.cu",
                                           "rustfft_tpu/ops/pallas/large2f.py:149")
     KERNELS[f"large_row_stage/{_t}"] = ("rustfft_tpu_torch/csrc/large.cu",
@@ -892,23 +904,38 @@ def main() -> None:
                 tuple(on_card(v) for v in large.row_tables(q, d)))
 
     # the top band at batch 1: large2f's column stage at each split and the
-    # row stage after it; large3f's pass 1, pass 2 (j2 factor on and off)
-    # and the row stage at P = 16384
-    for n in list(TOP)[:3]:
-        x = signal(1, n)
-        for d in directions:
-            (p1, p2, q), col, row = top2f_tables(n, d)
-            p = p1 * p2
-            a = large2f.large2f_col_stage(x, p1, p2, q, col)
-            torch.cuda.synchronize()
-            note(f"large2f_col_stage/{tag(n)}", a, large2f.large2f_col_stage_plain(x, p1, p2, q, col),
-                 f"large2f_col_stage n={tag(n)} P={p1}x{p2} {large.stage_radices(p)} batch=1 {d.name}")
-            y = large.large_row_stage(a, q, p, row)
-            torch.cuda.synchronize()
-            note(f"large_row_stage/{tag(n)}", y, large.large_row_stage_plain(a, q, p, row),
-                 f"large_row_stage n={tag(n)} Q={q} P={p} batch=1 {d.name}")
-        del x, a, y
-        free()
+    # row stage after it, the column stage (K10's cluster kernel) also at a
+    # batch that leaves its walk of clusters ragged; large3f's pass 1, pass 2
+    # (j2 factor on and off) and the row stage at P = 16384
+    resident = {c: large2f.max_active_clusters(c) for c in (1, 2, 4, 8)}
+    print("  cudaOccupancyMaxActiveClusters of large2f's cluster kernel: " + ", ".join(
+        f"C={c} {k}" for c, k in resident.items()), flush=True)
+    for n in [m for m in TOP if m < 1 << 26]:
+        p1, p2, _, _, q = large2f.choose_split2f(n)
+        p = p1 * p2
+        c = large2f.cluster_form(p, p1, q)
+        tiles = q // large2f.CLUSTER_COLS
+        # a batch whose units leave the last round of clusters part-full
+        # (none where the resident clusters divide every batch's units)
+        ragged = next((b for b in range(2, 64) if b * tiles % resident[c]), 3)
+        for batch in (1, ragged):
+            x = signal(batch, n)
+            for d in directions:
+                (p1, p2, q), col, row = top2f_tables(n, d)
+                a = large2f.large2f_col_stage(x, p1, p2, q, col)
+                torch.cuda.synchronize()
+                note(f"large2f_col_stage/{tag(n)}", a,
+                     large2f.large2f_col_stage_plain(x, p1, p2, q, col),
+                     f"large2f_col_stage n={tag(n)} P={p1}x{p2} {large.stage_radices(p)} on "
+                     f"clusters of {c}, {large2f.cluster_grid(batch * tiles, resident[c])} "
+                     f"clusters, {batch * tiles} units, batch={batch} {d.name}", PAIR_TOL)
+                if batch == 1:
+                    y = large.large_row_stage(a, q, p, row)
+                    torch.cuda.synchronize()
+                    note(f"large_row_stage/{tag(n)}", y, large.large_row_stage_plain(a, q, p, row),
+                         f"large_row_stage n={tag(n)} Q={q} P={p} batch=1 {d.name}")
+            del x, a
+            free()
     x = signal(1, 1 << 26)
     for d in directions:
         (p1, p2, q), col, mids, row = top3f_tables(d)
@@ -1006,8 +1033,27 @@ def main() -> None:
                 tabs = dense_card(n, d, variant)
                 got = dense.dense_fft(x, tabs, variant)
                 torch.cuda.synchronize()
-                note("dense_fft/23", got, dense.dense_fft_plain(x, tabs, variant),
-                     f"dense_fft n={n} {variant} batch=300 {d.name}")
+                pair = dense.pair_form(n, variant)
+                note(f"dense_fft/{5 if n == 5 else 23}", got,
+                     dense.dense_fft_plain(x, tabs, variant),
+                     f"dense_fft n={n} {variant} batch=300 {d.name}", PAIR_TOL if pair else TOL)
+    # K5's pair kernel (the block form at 5 and 23) at batches 1 and 3 and at
+    # a batch that leaves its persistent walk ragged
+    for n in DENSE_PRODUCT:
+        blocks = dense.resident_blocks(n)
+        ragged = blocks * dense.pair_rows(n) + 3
+        print(f"  dense_pair_kernel<{n}>: {blocks} resident blocks, "
+              f"{dense.pair_rows(n)} rows a tile", flush=True)
+        for batch in (1, 3, ragged):
+            x = signal(batch, n)
+            for d in directions:
+                tabs = dense_card(n, d, "block")
+                got = dense.dense_fft(x, tabs, "block")
+                torch.cuda.synchronize()
+                note(f"dense_fft/{n}", got, dense.dense_fft_plain(x, tabs, "block"),
+                     f"dense_fft n={n} block (pair form) on "
+                     f"{dense.pair_grid(batch, n, blocks)} blocks, batch={batch} {d.name}",
+                     PAIR_TOL)
     # K5's chain form within 1e-6: one Bluestein stage at M = 64, 256, 512
     for n in DENSE:
         x = signal(300, n)
@@ -1155,11 +1201,11 @@ def main() -> None:
                 "conv_row_stage_gauss": conv_radix.conv_row_stage_gauss}
     planner = FftPlanner(np.complex64, device="cuda")
     assert route(4096, np.complex64) == "lanepack" and route(1 << 20, np.complex64) == "large"
-    assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 3 + ["large3f"]
+    assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 4 + ["large3f"]
     assert [route(n, np.complex64) for n in MID] == ["two_stage"] * 2 + ["radix"] * 4
     assert [route(n, np.complex64) for n in CLUSTER] == ["two_stage"] * len(CLUSTER)
     assert [route(n, np.complex64) for n in ONE] == ["two_stage"] * len(ONE)
-    assert [route(n, np.complex64) for n in {**DENSE, **DENSE_PRODUCT}] == ["dense"] * 4
+    assert [route(n, np.complex64) for n in {**DENSE, **DENSE_PRODUCT}] == ["dense"] * 5
     assert [route(n, np.complex64) for n in LANE] == ["lanepack"] * len(LANE)
     assert [route(n, np.complex64) for n in PAD] == ["large_pad"] * len(PAD)
     assert route(10 ** 6, np.complex64) == "large"
@@ -1718,7 +1764,8 @@ def main() -> None:
             p = p1 * p2
             name = f"large2f_col_stage/{tag(n)}"
             a = large2f.large2f_col_stage(x, p1, p2, q, col)
-            note(name, a, large2f.large2f_col_stage_plain(x, p1, p2, q, col), f"{name} {what}")
+            note(name, a, large2f.large2f_col_stage_plain(x, p1, p2, q, col), f"{name} {what}",
+                 PAIR_TOL)
             free()
             k = median_ms(lambda: large2f.large2f_col_stage(x, p1, p2, q, col))
             plain = median_ms(lambda: large2f.large2f_col_stage_plain(x, p1, p2, q, col))
@@ -1974,7 +2021,7 @@ def main() -> None:
             variant = dense.choose_variant(n)
             tabs = dense_card(n, fwd, variant)
             note(name, dense.dense_fft(x, tabs, variant), dense.dense_fft_plain(x, tabs, variant),
-                 f"{name} {variant} batch={batch} (the main path's shape)")
+                 f"{name} {variant} batch={batch} (the main path's shape)", PAIR_TOL)
             free()
             k = median_ms(lambda: dense.dense_fft(x, tabs, variant))
             plain = median_ms(lambda: dense.dense_fft_plain(x, tabs, variant))

@@ -25,8 +25,41 @@
 // form) against 16 n bytes, so arithmetic from n ~ 8 up (ops/kernels/
 // dense.py); the tile's shared loads (TM + TN values per 2 TM TN FMAs in the
 // block form) and the single-buffered tiles are what keep it from the FP32
-// peak.
-#include "fft_tile.cuh"
+// peak.  It serves the Gauss form and the block form above kPairMax.
+//
+// The block form at 2 <= n <= kPairMax (the route's primes 5..23) runs
+// dense_pair_kernel<n> instead: the same DFT of every row, which the tiled
+// product computed at 8 * 32^2 = 8192 operations a row at n = 23 (356 a
+// point, with every block reading W from L2 and transposing x through
+// shared memory) and 2048 at n = 5.
+//  - One thread holds one row in registers and computes its DFT in the
+//    conjugate-pair form of RustFFT's prime butterflies: a_j = x_j +
+//    x_{n-j}, b_j = x_j - x_{n-j} (j = 1..(n-1)/2; x_{n-j} - x_j for the
+//    inverse), X_0 = x_0 + sum a_j, and for k = 1..(n-1)/2
+//        C = x_0 + sum_j cos(2 pi jk/n) a_j,  S = sum_j sin(2 pi jk/n) b_j,
+//        X_k = C - iS,  X_{n-k} = C + iS,
+//    with the middle term x_{n/2} at even n.  The cosines and sines are
+//    compile-time constants (csrc/dense_pair.cuh: dft_matrix's entries cast
+//    to f32), FMA immediates: (n-1)^2 + 4n operations a row (594 at 23, 26
+//    a point against the 160 the card's FLOP/byte balance leaves per 16
+//    bytes), so bytes bound it.  The direction is the sign of Im W[1, 1],
+//    one read of the table a block.
+//  - Rows are contiguous, so a tile of R = kPairThreads * (24 / n, at least
+//    1) rows is one run of R*n*8 bytes (26-48 KiB), 16-byte aligned (R is
+//    even): it lands by 16-byte cp.async (8 bytes for an odd tail) and
+//    leaves by 16-byte stores, both consecutive.  The row reads from shared
+//    memory are n*8 bytes apart: at odd n a half-warp's 8-byte reads fall
+//    on 16 distinct bank pairs, no conflict; the results go back in place.
+//  - A persistent grid (ops/kernels/dense.py pair_grid: at most the blocks
+//    the card holds, two or more an SM) walks the tiles g, g + grid, ...;
+//    the next tile lands in a second buffer while this one computes and is
+//    stored.
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "dense_pair.cuh"
+#include "tile_walk.cuh"
 
 namespace rf {
 
@@ -148,13 +181,163 @@ static cudaError_t launch_dense_form(const float2* x, float2* y, long long batch
   return launch_dense<4, 4, kGauss>(x, y, batch, n, w, ws, s);
 }
 
+// ---- the pair form (block form, 2 <= n <= kPairMax) -----------------------
+
+constexpr int kPairMax = 23;
+constexpr int kPairThreads = 256;
+
+// Rows a thread takes in one tile, and the tile's rows (ops/kernels/dense.py
+// pair_rows).
+template <int N>
+constexpr int kPairPer = 24 / N > 1 ? 24 / N : 1;
+template <int N>
+constexpr int kPairRows = kPairThreads * kPairPer<N>;
+
+// The DFT of one row, in place at `row` (N values in shared memory).
+template <int N>
+static __device__ __forceinline__ void pair_dft_row(float2* row, bool inverse) {
+  constexpr int H = (N - 1) / 2;
+  using W = PairRoots<N>;
+  const float2 x0 = row[0];
+  float2 a[H + 1], b[H + 1];  // [1..H]
+#pragma unroll
+  for (int j = 1; j <= H; ++j) {
+    const float2 u = row[j], v = row[N - j];
+    a[j] = make_float2(u.x + v.x, u.y + v.y);
+    b[j] = inverse ? make_float2(v.x - u.x, v.y - u.y) : make_float2(u.x - v.x, u.y - v.y);
+  }
+  float2 mid = make_float2(0.f, 0.f);
+  if constexpr (N % 2 == 0) mid = row[N / 2];
+  float2 s0 = x0;
+#pragma unroll
+  for (int j = 1; j <= H; ++j) s0 = make_float2(s0.x + a[j].x, s0.y + a[j].y);
+  if constexpr (N % 2 == 0) {
+    s0 = make_float2(s0.x + mid.x, s0.y + mid.y);
+    float2 h = make_float2(x0.x + ((N / 2) % 2 ? -mid.x : mid.x),
+                           x0.y + ((N / 2) % 2 ? -mid.y : mid.y));
+#pragma unroll
+    for (int j = 1; j <= H; ++j)
+      h = j % 2 ? make_float2(h.x - a[j].x, h.y - a[j].y)
+                : make_float2(h.x + a[j].x, h.y + a[j].y);
+    row[N / 2] = h;
+  }
+  row[0] = s0;
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float cr = x0.x, ci = x0.y, sr = 0.f, si = 0.f;
+    if constexpr (N % 2 == 0) {
+      cr += k % 2 ? -mid.x : mid.x;
+      ci += k % 2 ? -mid.y : mid.y;
+    }
+#pragma unroll
+    for (int j = 1; j <= H; ++j) {
+      const float c = W::c((j * k) % N), s = W::s((j * k) % N);
+      cr = fmaf(c, a[j].x, cr);
+      ci = fmaf(c, a[j].y, ci);
+      sr = fmaf(s, b[j].y, sr);
+      si = fmaf(s, b[j].x, si);
+    }
+    row[k] = make_float2(cr + sr, ci - si);
+    row[N - k] = make_float2(cr - sr, ci + si);
+  }
+}
+
+// This thread's copies of the tile of `rows` rows at src into buf, one
+// cp.async group: 16 bytes a copy, the odd 8 bytes of an odd value count by
+// thread 0.
+template <int N>
+static __device__ __forceinline__ void pair_tile_in(float2* buf, const float2* __restrict__ src,
+                                                    int rows) {
+  const int vals = rows * N;
+  for (int i = threadIdx.x; i < vals / 2; i += kPairThreads) cp_async16(buf + 2 * i, src + 2 * i);
+  if ((vals & 1) && threadIdx.x == 0) cp_async8(buf + vals - 1, src + vals - 1);
+  cp_async_commit();
+}
+
+template <int N>
+__global__ void __launch_bounds__(kPairThreads)
+    dense_pair_kernel(const float2* __restrict__ x, float2* __restrict__ y, long long batch,
+                      const float2* __restrict__ w) {
+  constexpr int R = kPairRows<N>;
+  constexpr int kTile = R * N;
+  extern __shared__ float4 pair_smem[];
+  float2* bufs = reinterpret_cast<float2*>(pair_smem);
+  bool inverse = false;
+  if constexpr (N >= 3) inverse = __ldg(&w[N + 1]).y > 0.f;  // W[1, 1] = w_N^(+-1)
+  const long long tiles = (batch + R - 1) / R;
+  long long t = blockIdx.x;
+  if (t < tiles) pair_tile_in<N>(bufs, x + t * kTile, (int)min((long long)R, batch - t * R));
+  for (int cur = 0; t < tiles; t += gridDim.x, cur ^= 1) {
+    float2* buf = bufs + cur * kTile;
+    const int rows = (int)min((long long)R, batch - t * R);
+    const long long next = t + gridDim.x;
+    if (next < tiles) {
+      pair_tile_in<N>(bufs + (cur ^ 1) * kTile, x + next * kTile,
+                      (int)min((long long)R, batch - next * R));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the tile, every thread's copies
+#pragma unroll
+    for (int i = 0; i < kPairPer<N>; ++i) {
+      const int r = threadIdx.x + i * kPairThreads;
+      if (r < rows) pair_dft_row<N>(buf + r * N, inverse);
+    }
+    __syncthreads();
+    float2* __restrict__ dst = y + t * kTile;
+    const int vals = rows * N;
+    for (int i = threadIdx.x; i < vals / 2; i += kPairThreads)
+      *reinterpret_cast<float4*>(dst + 2 * i) = *reinterpret_cast<const float4*>(buf + 2 * i);
+    if ((vals & 1) && threadIdx.x == 0) dst[vals - 1] = buf[vals - 1];
+    __syncthreads();  // this buffer is free for the tile after next
+  }
+}
+
+template <int N>
+static size_t pair_smem() {
+  return 2 * (size_t)kPairRows<N> * N * sizeof(float2);
+}
+
+template <int N>
+static cudaError_t launch_pair(const float2* x, float2* y, long long batch, long long grid,
+                               const float2* w, cudaStream_t s) {
+  const long long tiles = (batch + kPairRows<N> - 1) / kPairRows<N>;
+  if (grid < 1 || grid > tiles || grid > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(dense_pair_kernel<N>, pair_smem<N>());
+  if (err != cudaSuccess) return err;
+  dense_pair_kernel<N><<<(unsigned)grid, kPairThreads, pair_smem<N>(), s>>>(x, y, batch, w);
+  return cudaGetLastError();
+}
+
+template <int N>
+static cudaError_t pair_resident(int* out) {
+  return resident_blocks(dense_pair_kernel<N>, kPairThreads, pair_smem<N>(), out);
+}
+
+// f<N>(args...) for the runtime n, 2 <= n <= kPairMax.
+template <int N = 2, class F>
+static cudaError_t pair_dispatch(int n, F f) {
+  if constexpr (N <= kPairMax) {
+    if (n == N) return f(std::integral_constant<int, N>{});
+    return pair_dispatch<N + 1>(n, f);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace rf
 
 // x, y: (batch, n) complex64; w: (n, n) complex64 W_n; gauss != 0: the
-// 3-multiply form, which also reads ws: (n, n) float32 Wr + Wi.  Returns a
-// cudaError_t code; launches on `stream`.
+// 3-multiply form, which also reads ws: (n, n) float32 Wr + Wi.  The block
+// form at 2 <= n <= 23 runs dense_pair_kernel on `grid` persistent blocks
+// (1 <= grid <= the tiles; ops/kernels/dense.py pair_grid), x and y 16-byte
+// aligned; grid is not read otherwise.  Returns a cudaError_t code;
+// launches on `stream`.
 extern "C" int rf_dense_fft(const void* x, void* y, long long batch, int n, int gauss,
-                            const void* w, const void* ws, void* stream) {
+                            const void* w, const void* ws, long long grid, void* stream) {
   using namespace rf;
   if (batch <= 0 || n <= 0 || w == nullptr || (gauss && ws == nullptr))
     return cudaErrorInvalidValue;
@@ -163,6 +346,16 @@ extern "C" int rf_dense_fft(const void* x, void* y, long long batch, int n, int 
   const auto* wp = static_cast<const float2*>(w);
   const auto* wsp = static_cast<const float*>(ws);
   auto s = static_cast<cudaStream_t>(stream);
+  if (!gauss && n >= 2 && n <= kPairMax)
+    return pair_dispatch(n, [&](auto c) {
+      return launch_pair<decltype(c)::value>(xp, yp, batch, grid, wp, s);
+    });
   return gauss ? launch_dense_form<true>(xp, yp, batch, n, wp, wsp, s)
                : launch_dense_form<false>(xp, yp, batch, n, wp, wsp, s);
+}
+
+// The blocks of dense_pair_kernel<n> the card holds at once, into *out.
+extern "C" int rf_dense_pair_resident(int n, int* out) {
+  using namespace rf;
+  return pair_dispatch(n, [&](auto c) { return pair_resident<decltype(c)::value>(out); });
 }

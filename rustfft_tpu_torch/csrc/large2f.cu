@@ -22,82 +22,370 @@
 //
 // What bounds it on this card: one read and one write of the signal, 16
 // bytes per point (1.07 GB at 2^23 x 8: 0.32 ms at 3.35 TB/s); the chain's
-// FP32 work is well under the card's peak.  The block holds one 128 KiB
-// (P, 16384/P) tile in place (large.cuh col_fixed_kernel): 8, 4 and 2
-// columns j3 at P = 2048, 4096 and 8192, so rows are read in 64-, 32- and
-// 16-byte segments; at 8192 the neighbouring block (the next block index,
-// in flight at the same time) reads the other half of each 32-byte sector,
-// which L2 then serves.  Stores are contiguous runs of P values.
+// FP32 work is well under the card's peak.  large.cuh's col_fixed_kernel
+// held one 128 KiB (P, 16384/P) tile a block: 8, 4 and 2 columns j3 at P =
+// 2048, 4096 and 8192, rows read in 64-, 32- and 16-byte pieces, the tile
+// loaded, computed and stored in turn.  col_cluster_kernel below gives every
+// row piece 16 columns (128 bytes) at every P = 1024*C, C = 1, 2, 4, 8:
+//
+//  - A thread-block cluster of C blocks (a portable size) holds one (P, 16)
+//    tile, 128 KiB a block: block r the rows J = C*rho + r, rho < 1024,
+//    landing by 16-byte cp.async in plain order.
+//  - Block r runs the P chain's stages on its rows: with P's radices (R0,
+//    R1, R2) and C dividing R2, J = j0*R1*R2 + j1*R2 + j2 and j2 = r + C*u,
+//    stage 0 (DFT_R0 over j0, times tw0[k0, j1*R2 + j2]) and stage 1
+//    (DFT_R1 over j1, times tw1[k1, j2]) see only this block's j2; stage 2's
+//    DFT_R2 over j2 splits as DFT_M over u (M = R2/C) here, times
+//    w_R2^(r*v), then DFT_C over r across the cluster:
+//        X[f + 1024*w] = sum_r w_C^(r*w) Z_r[f],
+//        Z_r[f] = w_R2^(r*v) sum_u y_r[u] w_M^(u*v),  f = k0 + R0*k1 + R0*R1*v,
+//    with the P chain's own tables (roots, tw0, tw1) and w_M, w_C read off
+//    w_R2's roots: the same DFT_P as the chain.
+//  - After a cluster barrier, block s pulls the Z_r[f] of its slice f in
+//    [s*1024/C, (s+1)*1024/C) from every peer through distributed shared
+//    memory, 32 values a thread all in flight at once, arrives at the
+//    cluster barrier, runs DFT_C in registers, waits, starts the copies of
+//    its next unit into its tile (no peer reads it any more), then applies
+//    the factored outer twiddle (one wob read per f, one wm read per value)
+//    and stores runs of 1024/C contiguous K per column from registers, a
+//    warp 256 consecutive bytes a store.
+//  - A persistent grid of clusters walks the units (b, tile), unit u =
+//    b*Q/16 + tile, cluster g taking g, g + clusters, ... (ops/kernels/
+//    large2f.py cluster_grid, cluster_walk), so the clusters at work at one
+//    time read neighbouring 128-byte pieces of the same rows; the next
+//    unit's loads are in flight under the twiddle and the stores.
+//  - 512 threads, one block an SM (128 KiB and the roots); every stage,
+//    the exchange and the store hold 32 complex values a thread.  At C = 1
+//    (P = 1024) the exchange reads the block's own tile.
+#include <stdint.h>
+
+#include <type_traits>
+
 #include "large.cuh"
+#include "tile_walk.cuh"
+
+namespace rf {
+
+constexpr int kK10Threads = 512;
+constexpr int kK10T = 16;                       // columns of a unit: 128-byte row pieces
+constexpr int kK10Rows = 1024;                  // rows a block holds: P / C
+constexpr int kK10Elems = kK10Rows * kK10T;     // 128 KiB
+
+static __device__ __forceinline__ unsigned k10_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+static __device__ __forceinline__ void k10_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void k10_cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The value at the shared-memory address `local` of block `rank` of the
+// cluster (distributed shared memory).
+static __device__ __forceinline__ float2 k10_peer_load(const float2* local, unsigned rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr) : "r"((uint32_t)__cvta_generic_to_shared(local)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// This thread's copies of a block's (1024, 16) tile, rows `ld` values apart
+// from src, into buf in plain order (element rho*16 + t), one group: copy
+// i = thread + 512*k is row i/8, 16 bytes at column 2*(i % 8).
+static __device__ __forceinline__ void k10_tile_in(float2* buf, const float2* __restrict__ src,
+                                                   size_t ld) {
+  const int c = opaque_int(threadIdx.x);
+#pragma unroll
+  for (int k = 0; k < kK10Elems / 2 / kK10Threads; ++k) {
+    const int i = c + kK10Threads * k;
+    const int rho = i >> 3, piece = (i & 7) * 2;
+    cp_async16(buf + rho * kK10T + piece, src + rho * ld + piece);
+  }
+  cp_async_commit();
+}
+
+// One stage in place over the tile: each thread reads its kCols / 512
+// columns of R values (value j of column c at in(c, j)), the block passes a
+// barrier, then each column's DFT_R output k, through tw(c, k, z), goes to
+// out(c, k).
+template <int R, int kCols, class In, class Out, class Tw>
+static __device__ __forceinline__ void k10_stage(float2* buf, const float2* roots, In in, Out out,
+                                                 Tw tw) {
+  constexpr int kPer = kCols / kK10Threads;
+  static_assert(kPer * kK10Threads == kCols && kPer * R == 32, "32 values a thread");
+  const int c0 = opaque_int(threadIdx.x);
+  float2 v[kPer][R];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) v[i][j] = buf[in(c0 + kK10Threads * i, j)];
+  }
+  __syncthreads();  // every column read before any is overwritten
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = c0 + kK10Threads * i;
+    dft_column<R>(v[i], roots, [&](int k, float2 z) { buf[out(c, k)] = tw(c, k, z); });
+  }
+}
+
+// K10's fused column stage on clusters of C blocks (the header above).  The
+// chain (R0, R1, R2) is DFT_P's, P = R0*R1*R2 = 1024*C; x (B, P, Q) and y
+// (B, Q, P); units = B*Q/16, clusters = gridDim.x / C.
+template <int C, int R0, int R1, int R2>
+__global__ void __launch_bounds__(kK10Threads, 1)
+    col_cluster_kernel(const float2* __restrict__ x, float2* __restrict__ y, unsigned units,
+                       int q, Stages st, FactoredOuter outer) {
+  constexpr int P = R0 * R1 * R2;
+  constexpr int M = R2 / C;            // the local radix of stage 2
+  constexpr int S = kK10Rows / C;      // f a block stores
+  constexpr int kPairs = 32 / C;       // (f, t) a thread exchanges
+  static_assert(M * C == R2 && R0 * R1 * M == kK10Rows, "P = 1024*C, C divides R2");
+  extern __shared__ float4 k10_smem[];
+  float2* buf = reinterpret_cast<float2*>(k10_smem);
+  float2* sroots = buf + kK10Elems;    // w_R0, w_R1, w_R2, then w_M, w_C
+  float2* sm = sroots + R0 + R1 + R2;
+  float2* sc = sm + M;
+  const unsigned r = C > 1 ? k10_rank() : 0u;
+  const unsigned clusters = gridDim.x / C;
+  const unsigned tiles = (unsigned)q / kK10T;
+  const size_t plane = (size_t)P * (size_t)q;
+  const size_t ld = (size_t)C * (size_t)q;  // between this block's rows
+  // block r's rows of unit u start at row r of batch row u / tiles
+  const auto rows_of = [&](unsigned u) {
+    return x + (u / tiles) * plane + r * (size_t)q + (u % tiles) * kK10T;
+  };
+  unsigned u = blockIdx.x / C;
+  if (u < units) k10_tile_in(buf, rows_of(u), ld);
+  load_roots(st, sroots);
+  for (int i = threadIdx.x; i < M; i += kK10Threads) sm[i] = st.roots[2][i * C];
+  for (int i = threadIdx.x; i < C; i += kK10Threads) sc[i] = st.roots[2][i * M];
+  const float2* __restrict__ tw0 = st.tw[0];
+  const float2* __restrict__ tw1 = st.tw[1];
+  for (; u < units; u += clusters) {
+    const unsigned b = u / tiles, tile = u % tiles;
+    cp_async_wait<0>();
+    __syncthreads();  // the tile (every thread's copies) and the tables
+    // stage 0: DFT_R0 over j0; column c = jr*16 + t, jr = j1*M + u'
+    {
+      constexpr int kCols = R1 * M * kK10T;
+      const float2* __restrict__ t0 = opaque_ptr(tw0);
+      k10_stage<R0, kCols>(
+          buf, sroots, [](int c, int j) { return j * kCols + c; },
+          [](int c, int k) { return swz(k * kCols + c); },
+          [&](int c, int k, float2 z) {
+            const int jr = c / kK10T;
+            return k == 0 ? z
+                          : cmul(z, __ldg(&t0[k * (R1 * R2) + (jr / M) * R2 + (int)r +
+                                              C * (jr % M)]));
+          });
+    }
+    __syncthreads();
+    // stage 1: DFT_R1 over j1; column c = k0*M*16 + u'*16 + t
+    {
+      constexpr int kCols = R0 * M * kK10T;
+      constexpr int kRt = M * kK10T;
+      const float2* __restrict__ t1 = opaque_ptr(tw1);
+      k10_stage<R1, kCols>(
+          buf, sroots + R0,
+          [](int c, int j) { return swz((c / kRt) * R1 * kRt + j * kRt + c % kRt); },
+          [](int c, int k) { return swz(k * kCols + c); },
+          [&](int c, int k, float2 z) {
+            return k == 0 ? z : cmul(z, __ldg(&t1[k * R2 + (int)r + C * ((c % kRt) / kK10T)]));
+          });
+    }
+    __syncthreads();
+    // stage 2, its local part: DFT_M over u'; column c = (k1*R0 + k0)*16 + t;
+    // output v times w_R2^(r*v) at f*16 + t
+    {
+      constexpr int kCols = R0 * R1 * kK10T;
+      const float2* rr2 = sroots + R0 + R1;
+      k10_stage<M, kCols>(
+          buf, sm,
+          [](int c, int j) { return swz((c / kK10T) * M * kK10T + j * kK10T + c % kK10T); },
+          [](int c, int k) { return swz(k * kCols + c); },
+          [&](int, int k, float2 z) { return r == 0 || k == 0 ? z : cmul(z, rr2[r * k]); });
+    }
+    // the exchange: pair e = thread + 512*i is (t, f) = (e / S, r*S + e % S)
+    float2 v[kPairs][C];
+    const int c0 = opaque_int(threadIdx.x);
+    if constexpr (C > 1) {
+      k10_cluster_arrive();
+      k10_cluster_wait();  // every block's Z
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int e = c0 + kK10Threads * i;
+        const float2* at = buf + swz(((int)r * S + e % S) * kK10T + e / S);
+#pragma unroll
+        for (int p = 0; p < C; ++p) v[i][p] = k10_peer_load(at, p);
+      }
+      k10_cluster_arrive();  // this block's peer reads are done
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) fft_pow2_reg<C>(v[i], sc);  // v[bitrev(w)] = X_w
+      k10_cluster_wait();  // no peer reads this tile any more
+    } else {
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int e = c0 + kK10Threads * i;
+        v[i][0] = buf[swz((e % S) * kK10T + e / S)];
+      }
+      __syncthreads();
+    }
+    const unsigned next = u + clusters;
+    if (next < units) k10_tile_in(buf, rows_of(next), ld);
+    // the outer twiddle w_n^(K*j3) = wob[j3, K mod P1] * wm[j3, K / P1] and
+    // the stores y[b, j3, K], K = f + 1024*w
+    float2* __restrict__ yb = y + b * plane;
+    const float2* __restrict__ wob = opaque_ptr(outer.wob);
+    const float2* __restrict__ wm = opaque_ptr(outer.wm);
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int e = c0 + kK10Threads * i;
+      const int f = (int)r * S + e % S;
+      const int j3 = (int)tile * kK10T + e / S;
+      const float2 wo = __ldg(&wob[(size_t)j3 * outer.p1 + f % outer.p1]);
+      float2* __restrict__ yr = yb + (size_t)j3 * P;
+#pragma unroll
+      for (int w = 0; w < C; ++w) {
+        const int k = f + kK10Rows * w;
+        const float2 tw = cmul(wo, __ldg(&wm[(size_t)j3 * outer.p2 + k / outer.p1]));
+        yr[k] = cmul(v[i][bitrev<C>(w)], tw);
+      }
+    }
+  }
+}
+
+static size_t col_cluster_smem(int r0, int r1, int r2, int c) {
+  return (size_t)(kK10Elems + r0 + r1 + r2 + r2 / c + c) * sizeof(float2);
+}
+
+// The launch of col_cluster_kernel<C, R0, R1, R2> on `clusters` clusters.
+template <int C, int R0, int R1, int R2>
+static cudaError_t col_cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                                      long long clusters, cudaStream_t s) {
+  const size_t smem = col_cluster_smem(R0, R1, R2, C);
+  cudaError_t err = allow_smem(col_cluster_kernel<C, R0, R1, R2>, smem);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(clusters * C), 1, 1);
+  cfg.blockDim = dim3(kK10Threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  return cudaSuccess;
+}
+
+template <int C, int R0, int R1, int R2>
+static cudaError_t launch_col_cluster(const float2* x, float2* y, long long batch, int q,
+                                      long long clusters, const Stages& st,
+                                      const FactoredOuter& outer, cudaStream_t s) {
+  const long long units = batch * (q / kK10T);
+  if (q % kK10T != 0 || clusters < 1 || clusters > units || units > 0xffffffffLL ||
+      clusters * C > 0x7fffffffLL || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      kK10Rows % outer.p1 != 0)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = col_cluster_config<C, R0, R1, R2>(cfg, attr, clusters, s);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, col_cluster_kernel<C, R0, R1, R2>, x, y, (unsigned)units, q, st,
+                           outer);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The chains of P = 1024*C with a cluster kernel (ops/kernels/large2f.py
+// CLUSTER_CHAINS): (16, 16, 4), (16, 16, 8), (16, 16, 16), (32, 16, 16) at
+// C = 1, 2, 4, 8.
+static bool col_cluster_chain(const Stages& st) {
+  const int r0 = st.r[0], r2 = st.r[2];
+  return st.k == 3 && st.r[1] == 16 &&
+         ((r0 == 16 && (r2 == 4 || r2 == 8 || r2 == 16)) || (r0 == 32 && r2 == 16));
+}
+
+// f(C, R0, R2) as integral constants for a col_cluster_chain.
+template <class F>
+static cudaError_t col_cluster_dispatch(const Stages& st, F f) {
+  using std::integral_constant;
+  const int r0 = st.r[0], r2 = st.r[2];
+  if (r0 == 32)
+    return f(integral_constant<int, 8>{}, integral_constant<int, 32>{},
+             integral_constant<int, 16>{});
+  if (r2 == 4)
+    return f(integral_constant<int, 1>{}, integral_constant<int, 16>{},
+             integral_constant<int, 4>{});
+  if (r2 == 8)
+    return f(integral_constant<int, 2>{}, integral_constant<int, 16>{},
+             integral_constant<int, 8>{});
+  return f(integral_constant<int, 4>{}, integral_constant<int, 16>{},
+           integral_constant<int, 16>{});
+}
+
+}  // namespace rf
 
 // x: (batch, P1*P2*Q), y: (batch, Q, P1*P2), complex64; the radices of `st`
-// split P1*P2, qt divides Q; wob: (Q, P1), wm: (Q, P2).  Returns a
-// cudaError_t code; launches on `stream`.
+// split P1*P2, qt divides Q; wob: (Q, P1), wm: (Q, P2).  With qt = 16, a
+// chain of col_cluster_chain and P1 dividing 1024: the cluster kernel on
+// `clusters` clusters (1 <= clusters <= the batch*Q/16 units; ops/kernels/
+// large2f.py cluster_grid), x 16-byte aligned; otherwise large.cuh's column
+// stage, clusters not read.  Returns a cudaError_t code; launches on
+// `stream`.
 extern "C" int rf_large2f_col_stage(const void* x, void* y, long long batch, int p1, int p2,
                                     int q, int qt, int k, int r0, int r1, int r2,
                                     const void* roots0, const void* roots1, const void* roots2,
                                     const void* tw0, const void* tw1, const void* wob,
-                                    const void* wm, void* stream) {
+                                    const void* wm, long long clusters, void* stream) {
   using namespace rf;
   if (batch <= 0 || p1 <= 0 || p2 <= 0 || q <= 0 || qt <= 0 || q % qt != 0)
     return cudaErrorInvalidValue;
   const int p = p1 * p2;
   const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
   if (!stages_ok(st, p) || wob == nullptr || wm == nullptr) return cudaErrorInvalidValue;
-  return launch_col_stage(RowsIn{static_cast<const float2*>(x), (size_t)p * (size_t)q},
-                          static_cast<float2*>(y), batch, p, q, qt, st,
-                          FactoredOuter{static_cast<const float2*>(wob),
-                                        static_cast<const float2*>(wm), p1, p2},
-                          static_cast<cudaStream_t>(stream));
+  const auto* xp = static_cast<const float2*>(x);
+  auto* yp = static_cast<float2*>(y);
+  const FactoredOuter outer{static_cast<const float2*>(wob), static_cast<const float2*>(wm), p1,
+                            p2};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (qt == kK10T && col_cluster_chain(st) && kK10Rows % p1 == 0)
+    return col_cluster_dispatch(st, [&](auto c, auto a, auto b) {
+      return launch_col_cluster<decltype(c)::value, decltype(a)::value, 16, decltype(b)::value>(
+          xp, yp, batch, q, clusters, st, outer, s);
+    });
+  return launch_col_stage(RowsIn{xp, (size_t)p * (size_t)q}, yp, batch, p, q, qt, st, outer, s);
 }
 
-#ifdef RF_PHASE_STAMPS
-namespace rf {
-
-// The access-pattern probe of K10's column tile: a copy of (batch, P, Q)
-// complex64 by 1024-thread blocks of 16384 values, 16 a thread loaded, then
-// stored.  t > 0: block (b, g, tile) moves the window of t columns at tile*t
-// of the rows J = g + G*i (G = P*t / 16384 row groups, i < 16384 / t), t*8
-// bytes from rows Q*8 bytes apart: at t = 16384 / P the tile of
-// col_fixed_kernel (64-, 32- and 16-byte pieces at P = 2048, 4096, 8192), at
-// t = 16 the rows J = g mod G in 128-byte pieces.  t = 0: 128 KiB of
-// consecutive values.
-__global__ void __launch_bounds__(1024)
-    k10_copy_probe_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
-                          int t) {
-  size_t at[16];
-  float2 v[16];
-  const int groups = t > 0 ? p * t / 16384 : 1;
-  const int tiles = t > 0 ? q / t : 1;
-  const size_t b = blockIdx.x / ((unsigned)groups * (unsigned)tiles);
-  const int rest = (int)(blockIdx.x % ((unsigned)groups * (unsigned)tiles));
-  const int g = rest / tiles, tile = rest % tiles;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int f = j * 1024 + (int)threadIdx.x;
-    at[j] = t > 0 ? b * (size_t)p * (size_t)q + (size_t)(g + groups * (f / t)) * q + tile * t +
-                        f % t
-                  : (size_t)blockIdx.x * 16384 + f;
-    v[j] = x[at[j]];
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) y[at[j]] = v[j];
-}
-
-}  // namespace rf
-
-// The access-pattern probe (k10_copy_probe_kernel): x, y (batch, P, Q)
-// complex64; t = 0, or t divides Q and P*t is a multiple of 16384.
-extern "C" int rf_large2f_copy_probe(const void* x, void* y, long long batch, int p, int q, int t,
-                                     void* stream) {
+// The clusters of C blocks (C = 1, 2, 4, 8) of the cluster kernel the card
+// holds at once (cudaOccupancyMaxActiveClusters; at C = 1 the SMs times the
+// blocks an SM holds), into *out.
+extern "C" int rf_large2f_max_active_clusters(int c, int* out) {
   using namespace rf;
-  if (batch <= 0 || p <= 0 || q <= 0 || t < 0 || (long long)p * q % 16384 != 0 ||
-      (t > 0 && (q % t != 0 || (long long)p * t % 16384 != 0)))
-    return cudaErrorInvalidValue;
-  const long long blocks = batch * (long long)p * q / 16384;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  k10_copy_probe_kernel<<<(unsigned)blocks, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), p, q, t);
-  return cudaGetLastError();
+  if (c != 1 && c != 2 && c != 4 && c != 8) return cudaErrorInvalidValue;
+  Stages st = make_stages(3, c == 8 ? 32 : 16, 16, c == 1 ? 4 : c == 2 ? 8 : 16, nullptr,
+                          nullptr, nullptr, nullptr, nullptr);
+  return col_cluster_dispatch(st, [&](auto cc, auto a, auto b) -> cudaError_t {
+    constexpr int C = decltype(cc)::value, R0 = decltype(a)::value, R2 = decltype(b)::value;
+    if constexpr (C == 1) {
+      return resident_blocks(col_cluster_kernel<1, R0, 16, R2>, kK10Threads,
+                             col_cluster_smem(R0, 16, R2, 1), out);
+    } else {
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute attr;
+      cudaError_t err = col_cluster_config<C, R0, 16, R2>(cfg, attr, 1, 0);
+      if (err != cudaSuccess) return err;
+      return cudaOccupancyMaxActiveClusters(out, col_cluster_kernel<C, R0, 16, R2>, &cfg);
+    }
+  });
 }
-#endif

@@ -9,10 +9,27 @@ memory, in either complex form of the JAX package:
     "gauss": P1 = xr.Wr, P2 = xi.Wi, P3 = (xr + xi).(Wr + Wi),
              re = P1 - P2, im = P3 - P1 - P2 (3 real products).
 
-`dense_fft` launches csrc/dense.cu (a tiled FP32 product on the CUDA cores)
-on a CUDA tensor, or raises, and runs `dense_fft_plain` on a CPU tensor.
-The tables are the JAX package's: W_n = twiddles.dft_matrix cast to
-complex64, and for the Gauss form its f32 Wr + Wi.
+`dense_fft` launches csrc/dense.cu on a CUDA tensor, or raises, and runs
+`dense_fft_plain` on a CPU tensor.  The tables are the JAX package's: W_n =
+twiddles.dft_matrix cast to complex64, and for the Gauss form its f32
+Wr + Wi.  Two kernels:
+
+- the block form at 2 <= n <= PAIR_MAX (the route's primes 5..23;
+  `pair_form`): `dense_pair_kernel<n>`, one row a thread in registers in
+  the conjugate-pair form of RustFFT's prime butterflies, with the
+  cosines and sines of dft_matrix's entries as compile-time constants
+  (csrc/dense_pair.cuh, written by `pair_header`): for k and n - k the
+  sums over j = 1..(n-1)/2 of cos(2 pi jk/n)(x_j + x_{n-j}) and
+  sin(2 pi jk/n)(x_j - x_{n-j}), about (n-1)^2 + 4n real operations a row
+  (594 at n = 23) against the tiled product's 8 * 32^2.  A persistent grid
+  (`pair_grid`) of blocks walks tiles of `pair_rows(n)` rows, each tile one
+  contiguous run of bytes landing by 16-byte cp.async in one of two
+  buffers while the other computes and is stored, so bytes bound it.  The
+  kernel reads the direction from the table (Im W[1, 1] > 0 for the
+  inverse) and nothing else of it.  `pair_dft_plain` is the pair form step
+  by step in torch (for the tests);
+- the Gauss form, and the block form at larger n: `dense_kernel`, a tiled
+  FP32 product on the CUDA cores.
 
 The product costs 8n FP32 operations a point (2008 at n = 251).  Where the
 in-place Bluestein stage is cheaper (`lanepack.bluestein_stage_m(n)`: the
@@ -32,9 +49,14 @@ padding, the batch tile and the bf16 precision tiers.  Without packing,
 `choose_variant`'s rule reads "block" up to n = 256 and "gauss" above.
 
 On the card the product costs 8 n^2 FP32 operations per transform (6 n^2
-in the Gauss form) against 16 n bytes: arithmetic bounds it from n ~ 8 up.
+in the Gauss form) against 16 n bytes: arithmetic bounds it from n ~ 8 up;
+the pair form's (n-1)^2 + 4n leaves bytes the bound up to 23.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -59,6 +81,140 @@ def choose_variant(n: int) -> str:
     "block" form while the (packed, 128-padded) row is at most 256 lanes,
     which is n <= 256, and the 3-multiply "gauss" form above."""
     return "block" if n <= 256 else "gauss"
+
+
+#: the largest n of the pair form (dense_pair_kernel)
+PAIR_MAX = 23
+
+#: threads of a dense_pair_kernel block, one row each per pass
+PAIR_THREADS = 256
+
+#: the header of the pair form's constants (pair_header)
+PAIR_HEADER = Path(__file__).resolve().parents[2] / "csrc" / "dense_pair.cuh"
+
+
+def pair_form(n: int, variant: str) -> bool:
+    """dense_fft runs dense_pair_kernel: the block form at 2 <= n <= PAIR_MAX."""
+    return variant == "block" and 2 <= n <= PAIR_MAX
+
+
+def pair_rows(n: int) -> int:
+    """Rows of one tile of dense_pair_kernel<n>: PAIR_THREADS times
+    max(1, 24 // n) rows a thread, a run of 40-48 KiB (26 KiB at 13, 35-39
+    at 17 and 19) that starts 16-byte aligned (an even count of rows)."""
+    return PAIR_THREADS * max(1, 24 // n)
+
+
+def pair_grid(batch: int, n: int, resident: int) -> int:
+    """Blocks of dense_pair_kernel's persistent grid for `batch` rows when
+    the card holds `resident` blocks at once: at most one a tile.  Block g
+    runs the tiles g, g + grid, ... (pair_walk)."""
+    if batch < 1 or resident < 1:
+        raise ValueError(f"pair_grid: batch={batch}, resident={resident}")
+    return min(-(-batch // pair_rows(n)), resident)
+
+
+def pair_walk(grid: int, batch: int, n: int):
+    """The tiles block g of pair_grid's grid runs, for g < grid, each as
+    (first row, rows): the walk of csrc/dense.cu dense_pair_kernel."""
+    rows = pair_rows(n)
+    tiles = -(-batch // rows)
+    return [[(t * rows, min(rows, batch - t * rows)) for t in range(g, tiles, grid)]
+            for g in range(grid)]
+
+
+def pair_roots(n: int):
+    """(cos, sin), float32 (n,): cos[m] = Re W[1, m] and sin[m] = -Im W[1, m]
+    of the forward dft_matrix(n) cast to float32, so that W[j, k] in f32 is
+    cos[jk mod n] - i sin[jk mod n] (the inverse's is its conjugate): the
+    pair form's constants."""
+    w = twiddles.dft_matrix(n, FftDirection.FORWARD)[1]
+    return w.real.astype(np.float32), (-w.imag).astype(np.float32)
+
+
+def pair_header() -> str:
+    """The text of csrc/dense_pair.cuh: pair_roots(n) for 2 <= n <= PAIR_MAX
+    as the float literals of PairRoots<n>::c(m) and ::s(m), each the
+    shortest decimal that reads back as the same float32."""
+    lines = [
+        "// The constants of the pair form (csrc/dense.cu dense_pair_kernel):",
+        "// PairRoots<n>::c(m) = cos(2 pi m / n) and ::s(m) = sin(2 pi m / n), 0 <= m",
+        "// < n, as the forward twiddles.dft_matrix(n)'s entry W[1, m] = c - i s holds",
+        "// them, cast to float32.  Written by",
+        "// rustfft_tpu_torch/ops/kernels/dense.py pair_header(); tests/",
+        "// test_torch_dense_pair.py holds this file to it.  Every call in the kernel",
+        "// has a constant m after unrolling, so each switch folds to an immediate.",
+        "#pragma once",
+        "",
+        "namespace rf {",
+        "",
+        "template <int N>",
+        "struct PairRoots;",
+    ]
+    for n in range(2, PAIR_MAX + 1):
+        lines += ["", "template <>", f"struct PairRoots<{n}> {{"]
+        for name, vals in zip(("c", "s"), pair_roots(n)):
+            lines.append(f"  static __device__ __forceinline__ float {name}(int m) {{")
+            lines.append("    switch (m) {")
+            for m, v in enumerate(vals):
+                lines.append(f"      case {m}: return {np.float32(v)!s}f;")
+            lines += ["      default: return 0.f;", "    }", "  }"]
+        lines.append("};")
+    lines += ["", "}  // namespace rf", ""]
+    return "\n".join(lines)
+
+
+def pair_dft_plain(x: torch.Tensor, direction: FftDirection) -> torch.Tensor:
+    """The pair form step by step in float32 (for the tests; dense_fft_plain
+    is the wrapper's plain version): a_j = x_j + x_{n-j}, b_j = x_j -
+    x_{n-j} (x_{n-j} - x_j for the inverse), j = 1..(n-1)/2; X_0 = x_0 +
+    sum a_j; for k = 1..(n-1)/2 the real sums C = x_0 + sum_j cos[jk] a_j
+    and S = sum_j sin[jk] b_j, X_k = C - iS and X_{n-k} = C + iS (re and im
+    parts as csrc/dense.cu forms them); at even n the middle term x_{n/2}
+    and X_{n/2}.  cos, sin: pair_roots(n)."""
+    n = x.shape[-1]
+    h = (n - 1) // 2
+    cos, sin = (torch.from_numpy(t).to(x.device) for t in pair_roots(n))
+    xr, xi = x.real, x.imag
+    j = torch.arange(1, h + 1, device=x.device)
+    sign = -1.0 if direction == FftDirection.INVERSE else 1.0
+    ar, ai = xr[..., j] + xr[..., n - j], xi[..., j] + xi[..., n - j]
+    br, bi = sign * (xr[..., j] - xr[..., n - j]), sign * (xi[..., j] - xi[..., n - j])
+    m = (j[:, None] * j[None, :]) % n  # [j, k]
+    c, s = cos[m], sin[m]
+    cr = xr[..., :1] + ar @ c
+    ci = xi[..., :1] + ai @ c
+    sr, si = bi @ s, br @ s
+    out_r = torch.empty_like(xr)
+    out_i = torch.empty_like(xi)
+    out_r[..., 0], out_i[..., 0] = xr[..., 0] + ar.sum(-1), xi[..., 0] + ai.sum(-1)
+    if n % 2 == 0:
+        alt = (-1.0) ** j.to(xr.dtype)
+        mr, mi = xr[..., n // 2 : n // 2 + 1], xi[..., n // 2 : n // 2 + 1]
+        cr, ci = cr + mr * alt, ci + mi * alt
+        out_r[..., 0] += mr[..., 0]
+        out_i[..., 0] += mi[..., 0]
+        half = (-1.0) ** (n // 2)
+        out_r[..., n // 2] = xr[..., 0] + half * mr[..., 0] + ar @ alt
+        out_i[..., n // 2] = xi[..., 0] + half * mi[..., 0] + ai @ alt
+    out_r[..., 1 : h + 1], out_i[..., 1 : h + 1] = cr + sr, ci - si
+    out_r[..., n - h :], out_i[..., n - h :] = (cr - sr).flip(-1), (ci + si).flip(-1)
+    return torch.complex(out_r, out_i)
+
+
+def resident_blocks(n: int) -> int:
+    """The blocks of dense_pair_kernel<n> the current device holds at once
+    (its SMs times cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.rf_dense_pair_resident(n, ctypes.byref(out)), "dense resident_blocks")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, n: int) -> int:
+    with torch.cuda.device(device_index):
+        return resident_blocks(n)
 
 
 def dense_tables(n: int, direction: FftDirection, variant: str):
@@ -88,7 +244,8 @@ def dense_fft_plain(x: torch.Tensor, tables, variant: str) -> torch.Tensor:
 
 
 def dense_fft(x: torch.Tensor, tables, variant: str) -> torch.Tensor:
-    """DFT of every row of x (batch, n) complex64 as one dense product.
+    """DFT of every row of x (batch, n) complex64 as one dense product (in
+    the pair form where pair_form(n, variant)).
 
     tables = (w, ws) from dense_tables, on x's device.
     """
@@ -114,11 +271,17 @@ def dense_fft(x: torch.Tensor, tables, variant: str) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.shape[0] == 0:
         return y
+    grid = 0
+    if pair_form(n, variant):
+        if x.data_ptr() % 16:  # the tiles land by 16-byte copies
+            x = x.clone()
+        index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+        grid = pair_grid(x.shape[0], n, _resident(index, n))
     lib = _build.load()
     with torch.cuda.device(x.device):
         code = lib.rf_dense_fft(
             x.data_ptr(), y.data_ptr(), x.shape[0], n, int(variant == "gauss"),
-            w.data_ptr(), None if ws is None else ws.data_ptr(),
+            w.data_ptr(), None if ws is None else ws.data_ptr(), grid,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, code, "dense_fft")

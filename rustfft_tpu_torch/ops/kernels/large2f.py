@@ -19,9 +19,19 @@ same transform.  The outer twiddle is factored into a (Q, P1) and a (Q, P2)
 table, as on the TPU, so no table of n entries exists.  Four traversals of
 the signal in device memory.  The wrapper runs its plain torch version on a
 CPU tensor and launches csrc/large2f.cu on a CUDA tensor, or raises.
+
+At the route's splits (P = 1024*C, C = 1, 2, 4, 8; `cluster_form`) the
+column stage runs csrc/large2f.cu's col_cluster_kernel: a thread-block
+cluster of C blocks holds a (P, 16) tile, block r the rows J = r mod C, so
+every row piece is 128 bytes; each block runs the chain's stages on its
+rows, DFT_C runs across the cluster through distributed shared memory, and
+a persistent grid of clusters (`cluster_grid`) walks the (batch, tile)
+units (`cluster_walk`).  Other splits keep csrc/large.cuh's column stage at
+the tile width large.col_tile gives.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -111,6 +121,60 @@ def col_tables(p1: int, p2: int, q: int, direction: FftDirection):
     return roots, tws, wob, wm
 
 
+#: the column chains with a cluster kernel and their cluster sizes C, P =
+#: 1024*C (csrc/large2f.cu col_cluster_chain)
+CLUSTER_CHAINS = {(16, 16, 4): 1, (16, 16, 8): 2, (16, 16, 16): 4, (32, 16, 16): 8}
+
+#: rows a block of the cluster kernel holds (P / C) and columns of a unit
+CLUSTER_ROWS = 1024
+CLUSTER_COLS = 16
+
+
+def cluster_form(p: int, p1: int, q: int) -> Optional[int]:
+    """The cluster size C of col_cluster_kernel at P = p (P = 1024*C), or
+    None where the column stage keeps large.cuh's kernel: a chain of
+    CLUSTER_CHAINS, Q a multiple of 16 and P1 dividing 1024 (the kernel reads
+    wob[j3, K mod P1] once for the C outputs K = f + 1024*w)."""
+    c = CLUSTER_CHAINS.get(large.stage_radices(p))
+    if c is None or q % CLUSTER_COLS or CLUSTER_ROWS % p1:
+        return None
+    return c
+
+
+def cluster_grid(units: int, resident: int) -> int:
+    """Clusters of the cluster kernel's persistent grid for `units`
+    (batch*Q/16) units when the card holds `resident` clusters at once: every
+    resident cluster, at most one a unit."""
+    if units < 1 or resident < 1:
+        raise ValueError(f"cluster_grid: units={units}, resident={resident}")
+    return min(units, resident)
+
+
+def cluster_walk(clusters: int, units: int, tiles: int):
+    """The units cluster g of cluster_grid's grid runs, for g < clusters, as
+    (batch row, column tile): unit u = b*tiles + tile, cluster g taking u =
+    g, g + clusters, ... (csrc/large2f.cu col_cluster_kernel), so that the
+    clusters at work at one time hold neighbouring tiles of the same rows."""
+    return [[divmod(u, tiles) for u in range(g, units, clusters)] for g in range(clusters)]
+
+
+def max_active_clusters(c: int) -> int:
+    """The clusters of c blocks of the cluster kernel the current device holds
+    at once (cudaOccupancyMaxActiveClusters; at c = 1 the SMs times the
+    blocks an SM holds)."""
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.rf_large2f_max_active_clusters(c, ctypes.byref(out)),
+                 "large2f max_active_clusters")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, c: int) -> int:
+    with torch.cuda.device(device_index):
+        return max_active_clusters(c)
+
+
 def large2f_col_stage_plain(x: torch.Tensor, p1: int, p2: int, q: int, tables) -> torch.Tensor:
     """Plain torch version of large2f_col_stage."""
     roots, tws, wob, wm = tables
@@ -139,18 +203,25 @@ def large2f_col_stage(x: torch.Tensor, p1: int, p2: int, q: int, tables) -> torc
     if x.device.type == "cpu":
         return large2f_col_stage_plain(x, p1, p2, q, tables)
     require_cuda(x, "large2f_col_stage")
-    qt = large.col_tile(p, q)
+    c = cluster_form(p, p1, q)
+    qt = CLUSTER_COLS if c is not None else large.col_tile(p, q)
     if qt is None:
         raise ValueError(f"large2f_col_stage: no tile for P={p}, Q={q}")
     y = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
+    clusters = 0
+    if c is not None:
+        if x.data_ptr() % 16:  # the tiles land by 16-byte copies
+            x = x.clone()
+        index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+        clusters = cluster_grid(x.shape[0] * (q // CLUSTER_COLS), _resident(index, c))
     lib = _build.load()
     with torch.cuda.device(x.device):
         code = lib.rf_large2f_col_stage(
             x.data_ptr(), y.data_ptr(), x.shape[0], p1, p2, q, qt,
             *padded_stage_args(large.stage_radices(p), roots, tws), wob.data_ptr(),
-            wm.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+            wm.data_ptr(), clusters, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, code, "large2f_col_stage")
     large2f_col_stage.launches += 1
@@ -190,22 +261,3 @@ def make_large2f_fft_fn(n: int, direction: FftDirection, dtype,
     apply.tables = tables
     return apply
 
-
-def copy_probe(x: torch.Tensor, p: int, q: int, t: int) -> torch.Tensor:
-    """The access-pattern probe of the fused column stage's tile (the
-    RF_PHASE_STAMPS library only; for timing): a copy of x (batch, P*Q)
-    complex64 by 1024-thread blocks of 16384 values.  t > 0: each block
-    moves t columns of P*t / 16384 interleaved row groups' rows (at t =
-    16384 / P the (P, t) tile of col_fixed_kernel: 64-, 32- and 16-byte row
-    pieces at P = 2048, 4096, 8192; at t = 16, 128-byte pieces of every
-    (P / 1024)-th row); t = 0: 128 KiB of consecutive values."""
-    what = "large2f.copy_probe"
-    check_operand(x, (x.shape[0], p * q), what)
-    require_cuda(x, what)
-    y = torch.empty_like(x)
-    lib = _build.load(phase_stamps=True)
-    with torch.cuda.device(x.device):
-        code = lib.rf_large2f_copy_probe(x.data_ptr(), y.data_ptr(), x.shape[0], p, q, t,
-                                         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, what)
-    return y

@@ -61,10 +61,7 @@ And K5's product (`dense_fft`, the block form) at
 each prime of the dense route below 29 (K5_PRODUCT, about 384 MiB each)
 beside `x @ W` and torch.fft, and K10's fused column stage
 (`large2f_col_stage`) at 16 x 2^22, 8 x 2^23, 4 x 2^24 and 2 x 2^25 with
-each path and its torch.fft and, where the checkout has it, the
-access-pattern probe of its tile (`large2f.copy_probe`: the input copied
-in the old tile's 64-, 32- and 16-byte row pieces, in 128-byte pieces of
-every (P/1024)-th row, and streaming, beside `clone`).
+each path and its torch.fft.
 `--only` keeps the named groups of these (K1, K2 for K2 and K3, paths for
 the planner's paths and K1's and K5's chain paths' torch.fft, K9, K16,
 K12, K15, K14, K5 for K5's product, K10).  It prints one JSON line per run and then a table, each row a
@@ -412,16 +409,6 @@ def run_one(root: str, groups=GROUPS) -> dict:
             x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
             out[f"K10 large2f_col_stage {n}x{batch}"] = ms(
                 lambda: large2f.large2f_col_stage(x, p1, p2, q, col), reps=15)
-            if hasattr(large2f, "copy_probe"):
-                # the old tile's row pieces, 128-byte pieces of every (P/1024)-th row,
-                # streaming; each copy must equal its input
-                for what, width in ((f"{16384 // p * 8}-byte", 16384 // p), ("128-byte", 16),
-                                    ("streaming", 0)):
-                    if not torch.equal(large2f.copy_probe(x, p, q, width), x):
-                        raise SystemExit("large2f.copy_probe: the copy differs from its input")
-                    out[f"probe {what} {n}x{batch}"] = ms(
-                        lambda: large2f.copy_probe(x, p, q, width), reps=15)
-                out[f"clone {n}x{batch}"] = ms(lambda: x.clone(), reps=15)
             plan = planner.plan_fft_forward(n)
             out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
