@@ -907,17 +907,17 @@ def main() -> None:
     # row stage after it, the column stage (K10's cluster kernel) also at a
     # batch that leaves its walk of clusters ragged; large3f's pass 1, pass 2
     # (j2 factor on and off) and the row stage at P = 16384
-    resident = {c: large2f.max_active_clusters(c) for c in (1, 2, 4, 8)}
-    print("  cudaOccupancyMaxActiveClusters of large2f's cluster kernel: " + ", ".join(
-        f"C={c} {k}" for c, k in resident.items()), flush=True)
     for n in [m for m in TOP if m < 1 << 26]:
         p1, p2, _, _, q = large2f.choose_split2f(n)
         p = p1 * p2
         c = large2f.cluster_form(p, p1, q)
+        resident = large2f.max_active_clusters(p)
+        print(f"  cudaOccupancyMaxActiveClusters of large2f's cluster kernel at P={p}: {resident} "
+              f"clusters of {c}", flush=True)
         tiles = q // large2f.CLUSTER_COLS
         # a batch whose units leave the last round of clusters part-full
         # (none where the resident clusters divide every batch's units)
-        ragged = next((b for b in range(2, 64) if b * tiles % resident[c]), 3)
+        ragged = next((b for b in range(2, 64) if b * tiles % resident), 3)
         for batch in (1, ragged):
             x = signal(batch, n)
             for d in directions:
@@ -927,7 +927,7 @@ def main() -> None:
                 note(f"large2f_col_stage/{tag(n)}", a,
                      large2f.large2f_col_stage_plain(x, p1, p2, q, col),
                      f"large2f_col_stage n={tag(n)} P={p1}x{p2} {large.stage_radices(p)} on "
-                     f"clusters of {c}, {large2f.cluster_grid(batch * tiles, resident[c])} "
+                     f"clusters of {c}, {large2f.cluster_grid(batch * tiles, resident)} "
                      f"clusters, {batch * tiles} units, batch={batch} {d.name}", PAIR_TOL)
                 if batch == 1:
                     y = large.large_row_stage(a, q, p, row)

@@ -19,7 +19,8 @@ two kernels (`rf_lanepack_chain_phase_stamps`,
 K7's cluster kernel
 (`rf_two_stage_cluster_phase_stamps`) and K12's two kernels
 (`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`), K2's and
-K3's (`rf_large_col_phase_stamps`, `rf_large_row_phase_stamps`) and the
+K3's (`rf_large_col_phase_stamps`, `rf_large_row_phase_stamps`), K10's
+cluster kernel (`rf_large2f_col_phase_stamps`) and the
 access-pattern probe of K3's tile (`rf_large_copy_probe`;
 tools/torch_phase_times.py, tools/torch_ab.py); no route loads it, so no other build pays for
 those forms.
@@ -71,7 +72,7 @@ _SIGNATURES = {
     "rf_conv_row_stage_gauss": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8 + [_ll, _vp, _vp]
                                + [_int, _int, _int, _ll, _vp],
     "rf_permute": [_vp, _vp, _vp, _ll, _int, _int, _vp],
-    "rf_large2f_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7 + [_ll, _vp],
+    "rf_large2f_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7 + [_int, _ll, _int, _vp],
     "rf_large2f_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_large3_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
     "rf_large3_p2": [_vp, _vp, _ll, _int, _int, _int, _vp, _vp, _vp, _vp],
@@ -121,6 +122,8 @@ _STAMP_SIGNATURES = {
     "rf_large_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 6 + [_ll, _ll, _vp, _vp],
     "rf_large_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp, _vp],
     "rf_large_copy_probe": [_vp, _vp, _ll, _int, _int, _vp],
+    "rf_large2f_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7
+                                   + [_int, _ll, _int, _vp, _vp],
     "rf_bconv_col_tile_stamps": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 5
                                 + [_ll, _ll, _vp, _vp],
     "rf_bconv_row_tile_stamps": [_vp, _vp, _ll, _int] + [_vp] * 5 + [_ll, _vp, _vp],

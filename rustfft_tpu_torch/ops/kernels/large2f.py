@@ -20,14 +20,14 @@ table, as on the TPU, so no table of n entries exists.  Four traversals of
 the signal in device memory.  The wrapper runs its plain torch version on a
 CPU tensor and launches csrc/large2f.cu on a CUDA tensor, or raises.
 
-At the route's splits (P = 1024*C, C = 1, 2, 4, 8; `cluster_form`) the
+At the route's splits (P = 512*C, C = 2, 4, 8, 16; `cluster_form`) the
 column stage runs csrc/large2f.cu's col_cluster_kernel: a thread-block
 cluster of C blocks holds a (P, 16) tile, block r the rows J = r mod C, so
-every row piece is 128 bytes; each block runs the chain's stages on its
-rows, DFT_C runs across the cluster through distributed shared memory, and
-a persistent grid of clusters (`cluster_grid`) walks the (batch, tile)
-units (`cluster_walk`).  Other splits keep csrc/large.cuh's column stage at
-the tile width large.col_tile gives.
+every row piece is 128 bytes; each block runs the chain's first two stages
+on its rows, the last stage runs across the cluster through distributed
+shared memory, and a persistent grid of clusters (`cluster_grid`) walks the
+(batch, tile) units (`cluster_walk`).  Other splits keep csrc/large.cuh's
+column stage at the tile width large.col_tile gives.
 """
 from __future__ import annotations
 
@@ -121,24 +121,29 @@ def col_tables(p1: int, p2: int, q: int, direction: FftDirection):
     return roots, tws, wob, wm
 
 
-#: the column chains with a cluster kernel and their cluster sizes C, P =
-#: 1024*C (csrc/large2f.cu col_cluster_chain)
-CLUSTER_CHAINS = {(16, 16, 4): 1, (16, 16, 8): 2, (16, 16, 16): 4, (32, 16, 16): 8}
+#: the column chains with a cluster kernel, P = 1024 .. 8192
+#: (csrc/large2f.cu col_cluster_chain)
+CLUSTER_CHAINS = ((16, 16, 4), (16, 16, 8), (16, 16, 16), (32, 16, 16))
 
-#: rows a block of the cluster kernel holds (P / C) and columns of a unit
-CLUSTER_ROWS = 1024
+#: rows a block of the cluster kernel holds, P / C, and columns of a unit
+CLUSTER_ROWS = 512
 CLUSTER_COLS = 16
+
+#: where the clusters walk several units, cluster g starts (g % 4) times
+#: this many nanoseconds late (csrc/large2f.cu col_cluster_kernel)
+CLUSTER_STAGGER_NS = 4000
 
 
 def cluster_form(p: int, p1: int, q: int) -> Optional[int]:
-    """The cluster size C of col_cluster_kernel at P = p (P = 1024*C), or
-    None where the column stage keeps large.cuh's kernel: a chain of
-    CLUSTER_CHAINS, Q a multiple of 16 and P1 dividing 1024 (the kernel reads
-    wob[j3, K mod P1] once for the C outputs K = f + 1024*w)."""
-    c = CLUSTER_CHAINS.get(large.stage_radices(p))
-    if c is None or q % CLUSTER_COLS or CLUSTER_ROWS % p1:
+    """The cluster size C = P / CLUSTER_ROWS of col_cluster_kernel at P = p,
+    or None where the column stage keeps large.cuh's kernel: a chain
+    (R0, R1, R2) of CLUSTER_CHAINS, Q a multiple of 16 and P1 dividing R0*R1
+    (the kernel reads wob[j3, K mod P1] once for the R2 outputs K = h +
+    R0*R1*k2)."""
+    radices = large.stage_radices(p)
+    if radices not in CLUSTER_CHAINS or q % CLUSTER_COLS or (radices[0] * radices[1]) % p1:
         return None
-    return c
+    return p // CLUSTER_ROWS
 
 
 def cluster_grid(units: int, resident: int) -> int:
@@ -158,21 +163,20 @@ def cluster_walk(clusters: int, units: int, tiles: int):
     return [[divmod(u, tiles) for u in range(g, units, clusters)] for g in range(clusters)]
 
 
-def max_active_clusters(c: int) -> int:
-    """The clusters of c blocks of the cluster kernel the current device holds
-    at once (cudaOccupancyMaxActiveClusters; at c = 1 the SMs times the
-    blocks an SM holds)."""
+def max_active_clusters(p: int) -> int:
+    """The clusters of the cluster kernel at P = p (P / 512 blocks each) the
+    current device holds at once (cudaOccupancyMaxActiveClusters)."""
     lib = _build.load()
     out = ctypes.c_int(0)
-    _build.check(lib, lib.rf_large2f_max_active_clusters(c, ctypes.byref(out)),
+    _build.check(lib, lib.rf_large2f_max_active_clusters(p, ctypes.byref(out)),
                  "large2f max_active_clusters")
     return out.value
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(device_index: int, c: int) -> int:
+def _resident(device_index: int, p: int) -> int:
     with torch.cuda.device(device_index):
-        return max_active_clusters(c)
+        return max_active_clusters(p)
 
 
 def large2f_col_stage_plain(x: torch.Tensor, p1: int, p2: int, q: int, tables) -> torch.Tensor:
@@ -185,28 +189,29 @@ def large2f_col_stage_plain(x: torch.Tensor, p1: int, p2: int, q: int, tables) -
     return (a.reshape(-1, q, p2, p1) * outer).reshape(-1, q, p).contiguous()
 
 
-def large2f_col_stage(x: torch.Tensor, p1: int, p2: int, q: int, tables) -> torch.Tensor:
-    """Fused column stage of x (batch, P1*P2*Q) complex64 -> (batch, Q, P1*P2).
-
-    tables = (roots, tws, wob, wm) from col_tables, on x's device.
-    """
+def _col_stage(x: torch.Tensor, p1: int, p2: int, q: int, tables, counter,
+               stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """large2f_col_stage; counter.launches counts the launches.  With
+    `stamps`, the cluster kernel's stamped form (the library built with
+    RF_PHASE_STAMPS)."""
+    what = counter.__name__
     roots, tws, wob, wm = tables
     p = p1 * p2
     if x.dim() != 2:
-        raise ValueError(f"large2f_col_stage: expected (batch, n), got {tuple(x.shape)}")
-    check_operand(x, (x.shape[0], p * q), "large2f_col_stage input")
-    check_stage_tables(p, large.stage_radices(p), roots, tws, x.device, "large2f_col_stage")
-    check_operand(wob, (q, p1), "large2f_col_stage wob")
-    check_operand(wm, (q, p2), "large2f_col_stage wm")
+        raise ValueError(f"{what}: expected (batch, n), got {tuple(x.shape)}")
+    check_operand(x, (x.shape[0], p * q), f"{what} input")
+    check_stage_tables(p, large.stage_radices(p), roots, tws, x.device, what)
+    check_operand(wob, (q, p1), f"{what} wob")
+    check_operand(wm, (q, p2), f"{what} wm")
     if wob.device != x.device or wm.device != x.device:
-        raise ValueError(f"large2f_col_stage: tables on {wob.device}, input on {x.device}")
+        raise ValueError(f"{what}: tables on {wob.device}, input on {x.device}")
     if x.device.type == "cpu":
         return large2f_col_stage_plain(x, p1, p2, q, tables)
-    require_cuda(x, "large2f_col_stage")
+    require_cuda(x, what)
     c = cluster_form(p, p1, q)
     qt = CLUSTER_COLS if c is not None else large.col_tile(p, q)
     if qt is None:
-        raise ValueError(f"large2f_col_stage: no tile for P={p}, Q={q}")
+        raise ValueError(f"{what}: no tile for P={p}, Q={q}")
     y = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
@@ -215,20 +220,58 @@ def large2f_col_stage(x: torch.Tensor, p1: int, p2: int, q: int, tables) -> torc
         if x.data_ptr() % 16:  # the tiles land by 16-byte copies
             x = x.clone()
         index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-        clusters = cluster_grid(x.shape[0] * (q // CLUSTER_COLS), _resident(index, c))
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.rf_large2f_col_stage(
-            x.data_ptr(), y.data_ptr(), x.shape[0], p1, p2, q, qt,
+        clusters = cluster_grid(x.shape[0] * (q // CLUSTER_COLS), _resident(index, p))
+    lib = _build.load(phase_stamps=stamps is not None)
+    args = [x.data_ptr(), y.data_ptr(), x.shape[0], p1, p2, q, qt,
             *padded_stage_args(large.stage_radices(p), roots, tws), wob.data_ptr(),
-            wm.data_ptr(), clusters, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(lib, code, "large2f_col_stage")
-    large2f_col_stage.launches += 1
+            wm.data_ptr(), c or 0, clusters, CLUSTER_STAGGER_NS]
+    launch = lib.rf_large2f_col_stage
+    if stamps is not None:
+        launch, args = lib.rf_large2f_col_phase_stamps, args + [stamps.data_ptr()]
+    with torch.cuda.device(x.device):
+        code = launch(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, what)
+    counter.launches += 1
     return y
 
 
+def large2f_col_stage(x: torch.Tensor, p1: int, p2: int, q: int, tables) -> torch.Tensor:
+    """Fused column stage of x (batch, P1*P2*Q) complex64 -> (batch, Q, P1*P2).
+
+    tables = (roots, tws, wob, wm) from col_tables, on x's device.
+    """
+    return _col_stage(x, p1, p2, q, tables, large2f_col_stage)
+
+
 large2f_col_stage.launches = 0
+
+#: the phases of the cluster kernel's stamped form: the wait for a unit's
+#: tile, the two local stages, the exchange with the last stage, the next
+#: unit's copies with the twiddled stores
+K10_PHASES = ("wait", "stages", "exchange", "store")
+
+
+def large2f_col_phase_stamps(x: torch.Tensor, p1: int, p2: int, q: int, tables):
+    """large2f_col_stage on the card through the cluster kernel's stamped
+    form (cluster_form only; only the library built with RF_PHASE_STAMPS
+    has it, and no route launches it): (y, stamps), stamps (blocks, 5)
+    int64 nanoseconds of %globaltimer, each block's start and that start
+    plus the running sums of its K10_PHASES over its units, each read by
+    the block's thread 0 after a block barrier."""
+    what = "large2f_col_phase_stamps"
+    require_cuda(x, what)
+    p = p1 * p2
+    c = cluster_form(p, p1, q)
+    if c is None or x.shape[0] == 0:
+        raise ValueError(f"{what}: P={p}, Q={q}, batch {x.shape[0]} has no stamped form")
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    blocks = c * cluster_grid(x.shape[0] * (q // CLUSTER_COLS), _resident(index, p))
+    stamps = torch.zeros((blocks, len(K10_PHASES) + 1), dtype=torch.int64, device=x.device)
+    y = _col_stage(x, p1, p2, q, tables, large2f_col_phase_stamps, stamps)
+    return y, stamps
+
+
+large2f_col_phase_stamps.launches = 0
 
 
 def make_large2f_fft_fn(n: int, direction: FftDirection, dtype,

@@ -1,12 +1,12 @@
 """K10's fused column stage on clusters (csrc/large2f.cu col_cluster_kernel).
 
 On the CPU: a numpy simulation of the cluster decomposition, block by block
-(block r the rows J = r mod C, the chain's first stages with the chain's
-own twiddles, DFT_M over the last digit times w_R2^(r*v), DFT_C across the
-blocks, each block's output runs), held against large2f_col_stage_plain and
+(block r the rows J = r mod C, the chain's stages but the last with the
+chain's own twiddles, the last stage over values gathered from every
+block, each block's output runs), held against large2f_col_stage_plain and
 the JAX large2f pipeline in Pallas interpret mode at the splits
-tests/test_torch_top.py uses, at every cluster size their last radix
-allows, and against the float64 oracle; a mirror of the kernel's index
+tests/test_torch_top.py uses, at every cluster size their radices allow,
+and against the float64 oracle; a mirror of the kernel's index
 arithmetic (its stages' column maps and twiddle offsets, the exchange and
 the stores) at the route's four chains, P = 1024 .. 8192; the host rules:
 the cluster size by P, the grid, and the walk, every (batch, tile) unit
@@ -68,19 +68,21 @@ def _dft(v, axis, roots):
 
 def simulate_clusters(x, p1, p2, q, tables, c):
     """The column stage (batch, Q, P) as clusters of c blocks compute it, in
-    float64, c dividing the chain's last radix: block r takes the rows J = r
-    mod c and runs the chain's stages but the last on them (the chain's own
-    twiddles, indexed by the global digits), then DFT_M over the last digit
-    u (j_last = r + c*u, M = r_last / c) times w_{r_last}^(r*v): Z_r[f], f
-    the natural order of (k_0 .. k_{k-2}, v).  Block s then owns f in [s*S,
-    (s+1)*S), S = P/c^2, and writes X[f + (P/c)*w] = sum_r w_c^(r*w) Z_r[f]
-    times the factored outer twiddle, a run of S contiguous K per w and
-    column.  Every (j3, K) must be written once."""
+    float64, c dividing the chain's last radix R and P / R: block r takes
+    the rows J = r mod c and runs the chain's stages but the last on them
+    (the chain's own twiddles, indexed by the global digits), leaving
+    Z_r[u, h] (j_last = r + c*u, h the natural order of k_0 .. k_{k-2}).
+    Block s then owns h in [s*H, (s+1)*H), H = P/(R*c), gathers for each
+    (h, j3) the R values y[r + c*u] = Z_r[u, h] from every block, runs the
+    last stage DFT_R over them and writes X[h + (P/R)*k] times the factored
+    outer twiddle, a run of H contiguous K per k and column.  Every (j3, K)
+    must be written once."""
     roots, tws, wob, wm = tables
     p = p1 * p2
     rad = large.stage_radices(p)
     k, last = len(rad), rad[-1]
-    m, s_len, pl = last // c, p // (c * c), p // c
+    m, lead = last // c, p // last
+    h_len = lead // c
     batch = x.shape[0]
     xt = x.astype(np.complex128).reshape(batch, p, q)
     z = []
@@ -101,46 +103,49 @@ def simulate_clusters(x, p1, p2, q, tables, c):
                 rest = rest + digit.reshape(shape) * stride
                 stride *= rad[axis]
             tw = tws[s][:, rest]  # [k_s, j_{s+1} .., u]
-            v = v * np.moveaxis(tw, 0, 0).reshape((1,) * (1 + s) + tw.shape + (1,))
+            v = v * tw.reshape((1,) * (1 + s) + tw.shape + (1,))
             v = np.moveaxis(v, 1 + s, 1)  # k_s to the front
-        # the local part of the last stage over u, then w_{r_last}^(r*v)
-        v = _dft(v, k, roots[-1][np.arange(m) * c])
-        v = v * roots[-1][(r * np.arange(m)) % last].reshape((1,) * k + (m, 1))
-        v = np.moveaxis(v, k, 1)  # [b, v, k_{k-2} .. k_0, j3]: flat f
-        z.append(v.reshape(batch, pl, q))
+        # [b, k_{k-2} .. k_0, u, j3] -> Z_r [b, u, h, j3]
+        z.append(np.moveaxis(v.reshape(batch, lead, m, q), 2, 1))
     out = np.zeros((batch, q, p), dtype=np.complex128)
     written = np.zeros((q, p), dtype=np.int64)
-    wc = roots[-1][np.arange(c) * m]
     j3 = np.arange(q)[:, None]
     for s in range(c):
-        f = np.arange(s * s_len, (s + 1) * s_len)
-        for w in range(c):
-            kk = f + pl * w  # this block's run of S contiguous K
-            val = sum(wc[(r * w) % c] * z[r][:, f, :] for r in range(c))  # [b, f, j3]
+        h = np.arange(s * h_len, (s + 1) * h_len)
+        # y[b, j_last, h, j3], j_last = r + c*u
+        y = np.stack([z[j_last % c][:, j_last // c, h, :] for j_last in range(last)], axis=1)
+        xk = _dft(y, 1, roots[-1])  # [b, k_last, h, j3]
+        for kl in range(last):
+            kk = h + lead * kl  # this block's run of H contiguous K
             twid = wob[j3, kk[None, :] % p1] * wm[j3, kk[None, :] // p1]
-            out[:, :, kk] = val.transpose(0, 2, 1) * twid
+            out[:, :, kk] = xk[:, kl].transpose(0, 2, 1) * twid
             written[:, kk] += 1
     assert (written == 1).all()
     return out
 
 
 def mirror_kernel(x, p1, p2, q, tables):
-    """col_cluster_kernel's own index arithmetic in numpy, at a route chain:
-    the tile loaded in plain order (element rho*16 + t = row C*rho + r), each
-    k10_stage's column map, input and output offsets and twiddle offsets as
-    csrc/large2f.cu writes them (without the bank swizzle, a bijection
-    applied on both sides), the exchange's (t, f) of pair e and the stores
-    y[b, j3, f + 1024*w]."""
+    """col_cluster_kernel's own index arithmetic in numpy, at a route chain
+    (C = P/512 blocks a cluster, 512 rows a block): the tile loaded in plain
+    order (element rho*16 + t = row C*rho + r), each k10_stage's column
+    map, input and output offsets and twiddle offsets as csrc/large2f.cu
+    writes them (without the bank swizzle of stage 0's outputs, a bijection
+    applied on both sides), Z[g, t] at k10_z's t*512 + (g ^ t), the
+    exchange's (t, h) of pair e and its peer reads, and the stores y[b, j3,
+    h + R0*R1*k2]."""
     roots, tws, wob, wm = tables
     p = p1 * p2
     r0, r1, r2 = large.stage_radices(p)
-    c = large2f.CLUSTER_CHAINS[(r0, r1, r2)]
-    t_cols, rows = large2f.CLUSTER_COLS, large2f.CLUSTER_ROWS
-    m, s_len = r2 // c, rows // c
+    rows, t_cols = large2f.CLUSTER_ROWS, large2f.CLUSTER_COLS
+    c = p // rows
+    m, h_len = r2 // c, r0 * r1 // c
     tw0, tw1 = tws[0].reshape(-1), tws[1].reshape(-1)
     batch = x.shape[0]
     xr = x.astype(np.complex128).reshape(batch, p, q)
     y = np.full((batch, q, p), np.nan, dtype=np.complex128)
+
+    def z_at(g, t):  # csrc/large2f.cu k10_z: column-major, g permuted by t
+        return t * rows + (g ^ t)
 
     def stage(buf, radix, cols, roots_r, in_at, out_at, tw):
         col = np.arange(cols)[:, None]
@@ -166,37 +171,34 @@ def mirror_kernel(x, p1, p2, q, tables):
                 k1c, rt = r0 * m * t_cols, m * t_cols
                 buf = stage(buf, r1, k1c, roots[1],
                             lambda cc, j: (cc // rt) * r1 * rt + j * rt + cc % rt,
-                            lambda cc, k: k * k1c + cc,
+                            lambda cc, k: z_at((cc % rt) // t_cols * (r0 * r1) + k * r0 + cc // rt,
+                                               cc % t_cols),
                             lambda cc, k, z: np.where(
                                 k == 0, z, z * tw1[k * r2 + r + c * ((cc % rt) // t_cols)]))
-                k2c = r0 * r1 * t_cols
-                buf = stage(buf, m, k2c, roots[2][np.arange(m) * c],
-                            lambda cc, j: (cc // t_cols) * m * t_cols + j * t_cols + cc % t_cols,
-                            lambda cc, k: k * k2c + cc,
-                            lambda cc, k, z: z * roots[2][(r * k) % r2])
                 assert not np.isnan(buf).any()
                 bufs.append(buf)
-            sc = roots[2][np.arange(c) * m]
+            w = roots[2][(np.arange(r2)[:, None] * np.arange(r2)[None, :]) % r2]  # [j2, k2]
             for s in range(c):
-                e = np.arange(t_cols * s_len)
-                t, f = e // s_len, s * s_len + e % s_len
-                v = np.stack([bufs[pp][f * t_cols + t] for pp in range(c)])  # [peer, e]
+                e = np.arange(t_cols * h_len)
+                t, h = e // h_len, s * h_len + e % h_len
+                v = np.stack([bufs[j2 % c][z_at((j2 // c) * (r0 * r1) + h, t)]
+                              for j2 in range(r2)])  # [j2, e]
+                xk = w.T @ v  # [k2, e]
                 j3 = tile * t_cols + t
-                wo = wob[j3, f % p1]
-                for w in range(c):
-                    xw = (sc[(np.arange(c) * w) % c][:, None] * v).sum(0)
-                    k = f + rows * w
+                wo = wob[j3, h % p1]
+                for k2 in range(r2):
+                    k = h + r0 * r1 * k2
                     assert np.isnan(y[b, j3, k]).all()
-                    y[b, j3, k] = xw * (wo * wm[j3, k // p1])
+                    y[b, j3, k] = xk[k2] * (wo * wm[j3, k // p1])
     assert not np.isnan(y).any()
     return y
 
 
 def _cluster_sizes(p):
-    """Every c the decomposition takes at P: c divides the last radix and
-    each block stores at least one f (c^2 <= P)."""
+    """Every c the decomposition takes at P: c divides the last radix R and
+    P / R (each block stores at least one h)."""
     last = large.stage_radices(p)[-1]
-    return [c for c in (1, 2, 4, 8, 16) if last % c == 0 and c * c <= p]
+    return [c for c in (1, 2, 4, 8, 16) if last % c == 0 and (p // last) % c == 0]
 
 
 @pytest.mark.parametrize("split", SPLITS, ids=lambda s: "x".join(map(str, s)))
@@ -239,13 +241,15 @@ def test_mirror_of_the_kernel_matches_plain(log2n, d):
     plain = large2f.large2f_col_stage_plain(torch.from_numpy(x), p1, p2, q, col).numpy()
     got = mirror_kernel(x, p1, p2, q, tables)
     assert _rel(got, plain) <= VS_PLAIN
-    assert _rel(got, simulate_clusters(x, p1, p2, q, tables, p1 * p2 // 1024)) <= VS_PLAIN
+    sim = simulate_clusters(x, p1, p2, q, tables, p1 * p2 // large2f.CLUSTER_ROWS)
+    assert _rel(got, sim) <= VS_PLAIN
 
 
-@pytest.mark.parametrize("log2n,c", [(22, 1), (23, 2), (24, 4), (25, 8)])
+@pytest.mark.parametrize("log2n,c", [(22, 2), (23, 4), (24, 8), (25, 16)])
 def test_cluster_size_by_p(log2n, c):
     p1, p2, _, _, q = large2f.choose_split2f(1 << log2n)
     assert large2f.cluster_form(p1 * p2, p1, q) == c == p1 * p2 // large2f.CLUSTER_ROWS
+    assert large.stage_radices(p1 * p2) in large2f.CLUSTER_CHAINS
     # the route's chains are large.FIXED_COL's; col_tile, which the route
     # reads, is unchanged
     assert large.stage_radices(p1 * p2) in large.FIXED_COL
@@ -253,13 +257,14 @@ def test_cluster_size_by_p(log2n, c):
 
 
 def test_cluster_form_elsewhere():
-    # the CPU splits, 2^26's P = 16384, Q not a multiple of 16, P1 not dividing 1024
+    # the CPU splits, 2^26's P = 16384, Q not a multiple of 16, P1 not dividing 512
     for p1, p2, _, _, q in SPLITS:
         assert large2f.cluster_form(p1 * p2, p1, q) is None
     assert large2f.cluster_form(16384, 256, 4096) is None
     assert large2f.cluster_form(2048, 128, 4104) is None
     assert large2f.cluster_form(2048, 2048, 4096) is None
-    assert large2f.cluster_form(2048, 256, 2048) == 2
+    assert large2f.cluster_form(2048, 1024, 4096) is None
+    assert large2f.cluster_form(2048, 256, 2048) == 4
 
 
 @pytest.mark.parametrize("batch,tiles,resident", [
@@ -308,7 +313,7 @@ def test_cluster_kernel_matches_plain_on_card(cuda_device, log2n):
     n = 1 << log2n
     p1, p2, _, _, q = large2f.choose_split2f(n)
     c = large2f.cluster_form(p1 * p2, p1, q)
-    resident = large2f.max_active_clusters(c)
+    resident = large2f.max_active_clusters(p1 * p2)
     ragged = next((b for b in range(2, 64) if b * (q // 16) % resident), 3)
     for d, _ in DIRECTIONS:
         col = tuple([torch.from_numpy(a).to(cuda_device) for a in t] if isinstance(t, list)

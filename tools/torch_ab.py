@@ -19,7 +19,7 @@ below) and, where the checkout has it, the access-pattern probe of K3's
 tile (`large.copy_probe`: a copy of the 64 x 2^20 input by K3's grid in
 32-byte segments of rows 2 KiB apart, against a copy of the same bytes in
 consecutive 128 KiB, and `clone`), and the paths 4096 x 16384, 2^20 x 1024,
-1009 x 8192, 1234 x 8192, 7919 x 4096 and 65537 x 512, and the one-block
+1009 x 8192, 1234 x 8192, 7919 x 4096, 65537 x 512 and 1000003 x 64, and the one-block
 two-stage paths 14464 x 4096 (p = 113) and 16256 x 4096 (p = 127), and
 the cluster paths 28928 x 4096 (226 = 113 x 2) and 260608 x 256 (509 x 512),
 whose prime runs a Bluestein stage, and 24576 x 2048, 49152 x 2048 and
@@ -61,7 +61,8 @@ And K5's product (`dense_fft`, the block form) at
 each prime of the dense route below 29 (K5_PRODUCT, about 384 MiB each)
 beside `x @ W` and torch.fft, and K10's fused column stage
 (`large2f_col_stage`) at 16 x 2^22, 8 x 2^23, 4 x 2^24 and 2 x 2^25 with
-each path and its torch.fft.
+each path and its torch.fft; both kernels also queued (the device's time
+a call, 20 calls behind a sleep kernel, without the host's time a call).
 `--only` keeps the named groups of these (K1, K2 for K2 and K3, paths for
 the planner's paths and K1's and K5's chain paths' torch.fft, K9, K16,
 K12, K15, K14, K5 for K5's product, K10).  It prints one JSON line per run and then a table, each row a
@@ -77,7 +78,7 @@ import sys
 
 PATHS = ((4096, 16384), (1 << 20, 1024), (1009, 8192), (1234, 8192), (7919, 4096), (65537, 512),
          (14464, 4096), (16256, 4096), (24576, 2048), (28928, 4096), (260608, 256), (49152, 2048),
-         (98304, 1024))
+         (98304, 1024), (1000003, 64))
 
 #: the large_pad paths (K12): the odd composites and the route's bulk
 PAD = ((15625, 4096), (78125, 512), (177147, 256), (531441, 64), (234617, 256), (775575, 64),
@@ -394,6 +395,8 @@ def run_one(root: str, groups=GROUPS) -> dict:
                          for t in dense.dense_tables(n, FftDirection.FORWARD, "block"))
             out[f"K5 dense_fft {n}x{batch}"] = ms(lambda: dense.dense_fft(x, tabs, "block"),
                                                   reps=15)
+            out[f"K5 dense_fft {n}x{batch} (queued)"] = queued_ms(
+                lambda: dense.dense_fft(x, tabs, "block"), calls=20)
             out[f"x @ W {n}x{batch}"] = ms(lambda: x @ tabs[0], reps=15)
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
             del x
@@ -409,6 +412,8 @@ def run_one(root: str, groups=GROUPS) -> dict:
             x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
             out[f"K10 large2f_col_stage {n}x{batch}"] = ms(
                 lambda: large2f.large2f_col_stage(x, p1, p2, q, col), reps=15)
+            out[f"K10 large2f_col_stage {n}x{batch} (queued)"] = queued_ms(
+                lambda: large2f.large2f_col_stage(x, p1, p2, q, col), calls=20)
             plan = planner.plan_fft_forward(n)
             out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)

@@ -18,7 +18,8 @@ sends it to lanepack, to K5's chain form where it sends it to dense (a
 prime from 29), and 32768:2048 and 262144:256 to K9's radix kernel (r = 2
 and 16; any n the route sends to radix goes there), and 1048576:64 to
 K2's and K3's persistent tile kernels (any n the route sends to large
-whose split is (256, 64, 64)), and 1000003:64 to K15's three tile kernels (any
+whose split is (256, 64, 64)), any n the route sends to large2f (2^22 ..
+2^25) to K10's cluster kernel (large2f.K10_PHASES), and 1000003:64 to K15's three tile kernels (any
 n whose plan is a Bluestein on the fused large Bluestein's tile form:
 kernel A, B_conv and A2, convlarge.COL_TILE_PHASES, ROW_TILE_PHASES,
 OUT_TILE_PHASES).  For each shape it
@@ -229,6 +230,34 @@ def large_phases(n: int, batch: int, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def large2f_phases(n: int, batch: int, gen) -> None:
+    """K10's cluster kernel (the fused column stage of the top band) at n x
+    batch through its stamped form."""
+    import torch
+
+    from rustfft_tpu_torch.common import FftDirection
+    from rustfft_tpu_torch.ops.kernels import large, large2f
+
+    dev = torch.device("cuda")
+    p1, p2, _, _, q = large2f.choose_split2f(n)
+    r, t, wob, wm = large2f.col_tables(p1, p2, q, FftDirection.FORWARD)
+    col = ([torch.from_numpy(v).to(dev) for v in r], [torch.from_numpy(v).to(dev) for v in t],
+           torch.from_numpy(wob).to(dev), torch.from_numpy(wm).to(dev))
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+    stamped = lambda: large2f.large2f_col_phase_stamps(x, p1, p2, q, col)  # noqa: E731
+    stamped()  # warm-up (and the stamped library's build)
+    y, stamps = stamped()
+    torch.cuda.synchronize()
+    if not torch.equal(y, large2f.large2f_col_stage(x, p1, p2, q, col)):
+        raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
+    report(f"n={n} (P = {p1} x {p2}, {large.stage_radices(p1 * p2)}, Q = {q}) batch={batch} "
+           f"large2f_col_stage on clusters of {large2f.cluster_form(p1 * p2, p1, q)}", stamps,
+           large2f.K10_PHASES, median_ms(stamped),
+           median_ms(lambda: large2f.large2f_col_stage(x, p1, p2, q, col)))
+    del x, y
+    torch.cuda.empty_cache()
+
+
 def bluestein_large_phases(n: int, m: int, batch: int, gen) -> None:
     """K15's three tile kernels (the fused large Bluestein of length n at an
     inner m of the tile form) at n x batch through their stamped forms."""
@@ -305,6 +334,9 @@ def main() -> None:
             continue
         if route(n, np.complex64) == "large":
             large_phases(n, batch, gen)
+            continue
+        if route(n, np.complex64) == "large2f":
+            large2f_phases(n, batch, gen)
             continue
         p, q = fused.choose_pq(n)
         c = fused.choose_cluster(n)
