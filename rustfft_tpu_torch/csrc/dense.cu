@@ -28,10 +28,10 @@
 // peak.  It serves the Gauss form and the block form above kPairMax.
 //
 // The block form at 2 <= n <= kPairMax (the route's primes 5..23) runs
-// dense_pair_kernel<n> instead: the same DFT of every row, which the tiled
-// product computed at 8 * 32^2 = 8192 operations a row at n = 23 (356 a
-// point, with every block reading W from L2 and transposing x through
-// shared memory) and 2048 at n = 5.
+// dense_pair_kernel<n> instead: the same DFT of every row, for which the
+// tile above would spend 8 * 32^2 = 8192 operations a row at n = 23 (356 a
+// point, every block reading W from L2 and transposing x through shared
+// memory) and 2048 at n = 5.
 //  - One thread holds one row in registers and computes its DFT in the
 //    conjugate-pair form of RustFFT's prime butterflies: a_j = x_j +
 //    x_{n-j}, b_j = x_j - x_{n-j} (j = 1..(n-1)/2; x_{n-j} - x_j for the

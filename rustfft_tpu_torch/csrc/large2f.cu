@@ -22,11 +22,12 @@
 //
 // What bounds it on this card: one read and one write of the signal, 16
 // bytes per point (1.07 GB at 2^23 x 8: 0.32 ms at 3.35 TB/s); the chain's
-// FP32 work is well under the card's peak.  large.cuh's col_fixed_kernel
-// held one 128 KiB (P, 16384/P) tile a block: 8, 4 and 2 columns j3 at P =
-// 2048, 4096 and 8192, rows read in 64-, 32- and 16-byte pieces, the tile
-// loaded, computed and stored in turn.  col_cluster_kernel below gives every
-// row piece 16 columns (128 bytes) at every P = 512*C, C = 2, 4, 8, 16:
+// FP32 work is well under the card's peak.  A whole (P, T) tile in one
+// block's 128 KiB leaves T = 16384/P columns: 64-, 32- and 16-byte row
+// pieces at P = 2048, 4096 and 8192, which copy alone in 1.1x, 1.4x and
+// 3.6x the time of 128-byte pieces on an H100 (PERF.md, PR 15 step 0).
+// col_cluster_kernel gives every row piece 16 columns (128 bytes) at every
+// P = 512*C, C = 2, 4, 8, 16:
 //
 //  - A thread-block cluster of C blocks holds one (P, 16) tile, 64 KiB a
 //    block, two blocks an SM: block r the rows J = C*rho + r, rho < 512,
@@ -52,8 +53,8 @@
 //    b*Q/16 + tile, cluster g taking g, g + clusters, ... (ops/kernels/
 //    large2f.py cluster_grid, cluster_walk), so the clusters at work at one
 //    time read neighbouring 128-byte pieces of the same rows; where a
-//    cluster walks several units it starts (g % 4)*stagger_ns late; the next
-//    unit's loads are in flight under the twiddle and the stores.
+//    cluster walks several units it starts (g % 4)*kK10StaggerNs late; the
+//    next unit's loads are in flight under the twiddle and the stores.
 //  - 256 threads a block; each stage, the exchange and the store hold 32
 //    complex values a thread.  C = 16 (P = 8192) is a non-portable cluster
 //    size, which the H100 allows.
@@ -69,6 +70,9 @@ namespace rf {
 constexpr int kK10T = 16;       // columns of a unit: 128-byte row pieces
 constexpr int kK10Rows = 512;   // rows a block holds: P / C (64 KiB)
 constexpr int kK10Threads = 256;
+// the start stagger of cluster g: (g % 4) times this many nanoseconds (of
+// 0, 2, 4 and 8 us, 4 read best or level at every P on an H100)
+constexpr unsigned kK10StaggerNs = 4000;
 
 static __device__ __forceinline__ unsigned k10_rank() {
   unsigned r;
@@ -154,8 +158,7 @@ constexpr int kK10Phases = 4;
 template <bool kStamp, int C, int R0, int R1, int R2>
 __global__ void __launch_bounds__(kK10Threads, 2)
     col_cluster_kernel(const float2* __restrict__ x, float2* __restrict__ y, unsigned units,
-                       int q, Stages st, FactoredOuter outer, unsigned stagger_ns,
-                       unsigned long long* stamps) {
+                       int q, Stages st, FactoredOuter outer, unsigned long long* stamps) {
   constexpr int P = R0 * R1 * R2;
   constexpr int M = R2 / C;             // this block's values of the last digit
   constexpr int H = R0 * R1 / C;        // h a block stores
@@ -180,11 +183,12 @@ __global__ void __launch_bounds__(kK10Threads, 2)
     return x + (u / tiles) * plane + r * (size_t)q + (u % tiles) * kK10T;
   };
   unsigned u = blockIdx.x / C;
-  // where a cluster walks several units, cluster g starts (g % 4)*stagger_ns
-  // late, so that the clusters' memory phases spread over their stages
+  // where a cluster walks several units, cluster g starts (g % 4) *
+  // kK10StaggerNs late, so that the clusters' memory phases spread over
+  // their stages
   if (units > clusters) {
     const unsigned long long t0 = walk_timer();
-    const unsigned long long wait = (unsigned long long)(u % 4) * stagger_ns;
+    const unsigned long long wait = (unsigned long long)(u % 4) * kK10StaggerNs;
     while (walk_timer() - t0 < wait) {
     }
   }
@@ -309,7 +313,7 @@ static cudaError_t col_cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribu
 
 template <bool kStamp, int C, int R0, int R1, int R2>
 static cudaError_t launch_col_cluster(const float2* x, float2* y, long long batch, int q,
-                                      long long clusters, unsigned stagger_ns, const Stages& st,
+                                      long long clusters, const Stages& st,
                                       const FactoredOuter& outer, unsigned long long* stamps,
                                       cudaStream_t s) {
   const long long units = batch * (q / kK10T);
@@ -322,7 +326,7 @@ static cudaError_t launch_col_cluster(const float2* x, float2* y, long long batc
   cudaError_t err = col_cluster_config<kStamp, C, R0, R1, R2>(cfg, attr, clusters, s);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, col_cluster_kernel<kStamp, C, R0, R1, R2>, x, y,
-                           (unsigned)units, q, st, outer, stagger_ns, stamps);
+                           (unsigned)units, q, st, outer, stamps);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -357,8 +361,8 @@ template <bool kStamp>
 static int large2f_col(const void* x, void* y, long long batch, int p1, int p2, int q, int qt,
                        int k, int r0, int r1, int r2, const void* roots0, const void* roots1,
                        const void* roots2, const void* tw0, const void* tw1, const void* wob,
-                       const void* wm, int c, long long clusters, int stagger_ns,
-                       unsigned long long* stamps, void* stream) {
+                       const void* wm, int c, long long clusters, unsigned long long* stamps,
+                       void* stream) {
   if (batch <= 0 || p1 <= 0 || p2 <= 0 || q <= 0 || qt <= 0 || q % qt != 0)
     return cudaErrorInvalidValue;
   const int p = p1 * p2;
@@ -373,8 +377,8 @@ static int large2f_col(const void* x, void* y, long long batch, int p1, int p2, 
     if (qt != kK10T || !col_cluster_chain(st, c)) return cudaErrorInvalidValue;
     return col_cluster_dispatch(st, [&](auto cc, auto a, auto b) {
       return launch_col_cluster<kStamp, decltype(cc)::value, decltype(a)::value, 16,
-                                decltype(b)::value>(xp, yp, batch, q, clusters,
-                                                    (unsigned)stagger_ns, st, outer, stamps, s);
+                                decltype(b)::value>(xp, yp, batch, q, clusters, st, outer,
+                                                    stamps, s);
     });
   }
   if (kStamp) return cudaErrorInvalidValue;
@@ -387,19 +391,16 @@ static int large2f_col(const void* x, void* y, long long batch, int p1, int p2, 
 // split P1*P2, qt divides Q; wob: (Q, P1), wm: (Q, P2).  With c > 0 (qt
 // = 16, col_cluster_chain(st, c), P1 dividing R0*R1): the cluster kernel on
 // `clusters` clusters of c blocks (1 <= clusters <= the batch*Q/16 units;
-// ops/kernels/large2f.py cluster_grid), cluster g starting (g % 4) *
-// stagger_ns late where the clusters walk more than one unit, x 16-byte
-// aligned; with c = 0 large.cuh's column stage, clusters and stagger_ns
-// not read.  Returns a cudaError_t code; launches on `stream`.
+// ops/kernels/large2f.py cluster_grid), x 16-byte aligned; with c = 0
+// large.cuh's column stage, clusters not read.  Returns a cudaError_t code;
+// launches on `stream`.
 extern "C" int rf_large2f_col_stage(const void* x, void* y, long long batch, int p1, int p2,
                                     int q, int qt, int k, int r0, int r1, int r2,
                                     const void* roots0, const void* roots1, const void* roots2,
                                     const void* tw0, const void* tw1, const void* wob,
-                                    const void* wm, int c, long long clusters, int stagger_ns,
-                                    void* stream) {
+                                    const void* wm, int c, long long clusters, void* stream) {
   return rf::large2f_col<false>(x, y, batch, p1, p2, q, qt, k, r0, r1, r2, roots0, roots1,
-                                roots2, tw0, tw1, wob, wm, c, clusters, stagger_ns, nullptr,
-                                stream);
+                                roots2, tw0, tw1, wob, wm, c, clusters, nullptr, stream);
 }
 
 #ifdef RF_PHASE_STAMPS
@@ -412,11 +413,10 @@ extern "C" int rf_large2f_col_phase_stamps(const void* x, void* y, long long bat
                                            const void* roots0, const void* roots1,
                                            const void* roots2, const void* tw0, const void* tw1,
                                            const void* wob, const void* wm, int c,
-                                           long long clusters, int stagger_ns, void* stamps,
-                                           void* stream) {
+                                           long long clusters, void* stamps, void* stream) {
   if (stamps == nullptr || c <= 0) return cudaErrorInvalidValue;
   return rf::large2f_col<true>(x, y, batch, p1, p2, q, qt, k, r0, r1, r2, roots0, roots1, roots2,
-                               tw0, tw1, wob, wm, c, clusters, stagger_ns,
+                               tw0, tw1, wob, wm, c, clusters,
                                static_cast<unsigned long long*>(stamps), stream);
 }
 #endif

@@ -72,7 +72,7 @@ _SIGNATURES = {
     "rf_conv_row_stage_gauss": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8 + [_ll, _vp, _vp]
                                + [_int, _int, _int, _ll, _vp],
     "rf_permute": [_vp, _vp, _vp, _ll, _int, _int, _vp],
-    "rf_large2f_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7 + [_int, _ll, _int, _vp],
+    "rf_large2f_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7 + [_int, _ll, _vp],
     "rf_large2f_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_large3_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
     "rf_large3_p2": [_vp, _vp, _ll, _int, _int, _int, _vp, _vp, _vp, _vp],
@@ -123,7 +123,7 @@ _STAMP_SIGNATURES = {
     "rf_large_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp, _vp],
     "rf_large_copy_probe": [_vp, _vp, _ll, _int, _int, _vp],
     "rf_large2f_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7
-                                   + [_int, _ll, _int, _vp, _vp],
+                                   + [_int, _ll, _vp, _vp],
     "rf_bconv_col_tile_stamps": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 5
                                 + [_ll, _ll, _vp, _vp],
     "rf_bconv_row_tile_stamps": [_vp, _vp, _ll, _int] + [_vp] * 5 + [_ll, _vp, _vp],

@@ -129,10 +129,6 @@ CLUSTER_CHAINS = ((16, 16, 4), (16, 16, 8), (16, 16, 16), (32, 16, 16))
 CLUSTER_ROWS = 512
 CLUSTER_COLS = 16
 
-#: where the clusters walk several units, cluster g starts (g % 4) times
-#: this many nanoseconds late (csrc/large2f.cu col_cluster_kernel)
-CLUSTER_STAGGER_NS = 4000
-
 
 def cluster_form(p: int, p1: int, q: int) -> Optional[int]:
     """The cluster size C = P / CLUSTER_ROWS of col_cluster_kernel at P = p,
@@ -224,7 +220,7 @@ def _col_stage(x: torch.Tensor, p1: int, p2: int, q: int, tables, counter,
     lib = _build.load(phase_stamps=stamps is not None)
     args = [x.data_ptr(), y.data_ptr(), x.shape[0], p1, p2, q, qt,
             *padded_stage_args(large.stage_radices(p), roots, tws), wob.data_ptr(),
-            wm.data_ptr(), c or 0, clusters, CLUSTER_STAGGER_NS]
+            wm.data_ptr(), c or 0, clusters]
     launch = lib.rf_large2f_col_stage
     if stamps is not None:
         launch, args = lib.rf_large2f_col_phase_stamps, args + [stamps.data_ptr()]
