@@ -31,17 +31,38 @@
 // than the general kernel in 10 of 10 alternated rounds (median 0.553
 // against 0.583 ms).  At m = 1008 it was faster in 2 of 10 (0.299 against
 // 0.287), so that chain runs the general kernel.
-#include "fft_tile.cuh"
+#include "tile_walk.cuh"
 
 namespace rf {
 
+// Phase stamps of the kStamp forms (only in the library built with
+// RF_PHASE_STAMPS): %globaltimer read by thread 0 of every block after a
+// block barrier, stamp i of the block's row of `per` (tools/torch_phase_times.py).
+template <bool kStamp>
+static __device__ __forceinline__ void conv_stamp(unsigned long long* stamps, int per, int i) {
+  if constexpr (kStamp) {
+    __syncthreads();
+    if (threadIdx.x == 0) stamps[(size_t)blockIdx.x * per + i] = walk_timer();
+  }
+}
+
+// The general kernel's stamps: its start and the ends of the load, chain 1,
+// the H multiply, chain 2 and the store.
+constexpr int kConvStamps = 6;
+// The compile-time kernel's: its start and the ends of chain 1 (with the
+// load), the H multiply and chain 2 (with the store).
+constexpr int kConvFixedStamps = 4;
+
+template <bool kStamp>
 __global__ void __launch_bounds__(256) conv_fft_kernel(const float2* __restrict__ x,
                                                        float2* __restrict__ y, int n_in,
                                                        int n_out, int m, Stages st,
                                                        const float2* __restrict__ h,
                                                        const float2* __restrict__ pre,
                                                        const float2* __restrict__ post,
-                                                       int conj_out) {
+                                                       int conj_out,
+                                                       unsigned long long* stamps) {
+  conv_stamp<kStamp>(stamps, kConvStamps, 0);
   extern __shared__ float2 smem[];
   float2* a = smem;
   float2* b = smem + pad16(m);
@@ -57,7 +78,9 @@ __global__ void __launch_bounds__(256) conv_fft_kernel(const float2* __restrict_
     a[swz(i)] = v;
   }
   __syncthreads();
+  conv_stamp<kStamp>(stamps, kConvStamps, 1);
   float2* res = fft_tile(a, b, m, 1, st, sroots);
+  conv_stamp<kStamp>(stamps, kConvStamps, 2);
   float2* other = res == a ? b : a;
   // z = conj(Y . H), in place: each element is read and written by one thread
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
@@ -65,7 +88,9 @@ __global__ void __launch_bounds__(256) conv_fft_kernel(const float2* __restrict_
     res[swz(i)] = make_float2(v.x, -v.y);
   }
   __syncthreads();
+  conv_stamp<kStamp>(stamps, kConvStamps, 3);
   res = fft_tile(res, other, m, 1, st, sroots);
+  conv_stamp<kStamp>(stamps, kConvStamps, 4);
   float2* yr = y + (size_t)blockIdx.x * (size_t)n_out;
   for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
     float2 v = res[swz(i)];
@@ -73,6 +98,7 @@ __global__ void __launch_bounds__(256) conv_fft_kernel(const float2* __restrict_
     if (post != nullptr) v = cmul(v, __ldg(&post[i]));
     yr[i] = v;
   }
+  conv_stamp<kStamp>(stamps, kConvStamps, 5);
 }
 
 // Stage-0 source of the compile-time core: x[i] (zero beyond n_in) times pre[i].
@@ -100,12 +126,13 @@ struct ConvStore {
 
 // conv_fft_kernel for one compile-time chain (fixed_chain): one buffer, the
 // first chain reading from device memory, the second writing to it.
-template <int R0, int R1, int R2>
+template <int R0, int R1, int R2, bool kStamp>
 __global__ void __launch_bounds__(kFixedThreads<1, R0, R1, R2>)
     conv_fft_fixed_kernel(const float2* __restrict__ x, float2* __restrict__ y, int n_in,
                           int n_out, Stages st, const float2* __restrict__ h,
                           const float2* __restrict__ pre, const float2* __restrict__ post,
-                          int conj_out) {
+                          int conj_out, unsigned long long* stamps) {
+  conv_stamp<kStamp>(stamps, kConvFixedStamps, 0);
   constexpr int M = R0 * R1 * R2;
   __shared__ float2 buf[M];
   __shared__ float2 sroots[R0 + R1 + R2];
@@ -115,14 +142,50 @@ __global__ void __launch_bounds__(kFixedThreads<1, R0, R1, R2>)
   fixed_chain<1, R0, R1, R2>(ConvLoad{x + (size_t)blockIdx.x * (size_t)n_in, pre, n_in}, tile,
                              buf, sroots, st);
   __syncthreads();
+  conv_stamp<kStamp>(stamps, kConvFixedStamps, 1);
   for (int i = threadIdx.x; i < M; i += blockDim.x) {
     const float2 v = cmul(buf[swz(i)], __ldg(&h[i]));
     buf[swz(i)] = make_float2(v.x, -v.y);
   }
   __syncthreads();
+  conv_stamp<kStamp>(stamps, kConvFixedStamps, 2);
   fixed_chain<1, R0, R1, R2>(
       tile, ConvStore{y + (size_t)blockIdx.x * (size_t)n_out, post, n_out, conj_out}, buf,
       sroots, st);
+  conv_stamp<kStamp>(stamps, kConvFixedStamps, 3);
+}
+
+// rf_conv_fft's checks and launch; the stamped forms where kStamp.
+template <bool kStamp>
+static int conv_fft_launch(const void* x, void* y, long long batch, int n_in, int n_out, int m,
+                           const Stages& st, const void* h, const void* pre, const void* post,
+                           int conj_out, unsigned long long* stamps, void* stream) {
+  if (batch <= 0 || batch > 0x7fffffffLL || n_in <= 0 || n_in > m || n_out <= 0 ||
+      n_out > m || h == nullptr)
+    return cudaErrorInvalidValue;
+  if (!stages_ok(st, m)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* in = static_cast<const float2*>(x);
+  float2* out = static_cast<float2*>(y);
+  const float2* tab[3] = {static_cast<const float2*>(h), static_cast<const float2*>(pre),
+                          static_cast<const float2*>(post)};
+  if (st.k == 3 && st.r[0] == 16 && st.r[1] == 16 && st.r[2] == 12) {  // m = 3072: Bluestein 1234
+    conv_fft_fixed_kernel<16, 16, 12, kStamp>
+        <<<(unsigned)batch, kFixedThreads<1, 16, 16, 12>, 0, s>>>(
+            in, out, n_in, n_out, st, tab[0], tab[1], tab[2], conj_out, stamps);
+    return cudaGetLastError();
+  }
+  const size_t smem = tile_smem_bytes(m, st);
+  cudaError_t err = allow_smem(conv_fft_kernel<kStamp>, smem);
+  if (err != cudaSuccess) return err;
+  // one thread per column of the stage with the most columns (smallest radix)
+  int rmin = st.r[0];
+  for (int i = 1; i < st.k; ++i) rmin = st.r[i] < rmin ? st.r[i] : rmin;
+  int threads = (m / rmin + 31) / 32 * 32;
+  threads = threads < 64 ? 64 : (threads > 256 ? 256 : threads);
+  conv_fft_kernel<kStamp><<<(unsigned)batch, threads, smem, s>>>(
+      in, out, n_in, n_out, m, st, tab[0], tab[1], tab[2], conj_out, stamps);
+  return cudaGetLastError();
 }
 
 }  // namespace rf
@@ -136,30 +199,25 @@ extern "C" int rf_conv_fft(const void* x, void* y, long long batch, int n_in, in
                            const void* tw1, const void* h, const void* pre, const void* post,
                            int conj_out, void* stream) {
   using namespace rf;
-  if (batch <= 0 || batch > 0x7fffffffLL || n_in <= 0 || n_in > m || n_out <= 0 ||
-      n_out > m || h == nullptr)
-    return cudaErrorInvalidValue;
   const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
-  if (!stages_ok(st, m)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float2* in = static_cast<const float2*>(x);
-  float2* out = static_cast<float2*>(y);
-  const float2* tab[3] = {static_cast<const float2*>(h), static_cast<const float2*>(pre),
-                          static_cast<const float2*>(post)};
-  if (k == 3 && r0 == 16 && r1 == 16 && r2 == 12) {  // m = 3072: Bluestein 1234
-    conv_fft_fixed_kernel<16, 16, 12><<<(unsigned)batch, kFixedThreads<1, 16, 16, 12>, 0, s>>>(
-        in, out, n_in, n_out, st, tab[0], tab[1], tab[2], conj_out);
-    return cudaGetLastError();
-  }
-  const size_t smem = tile_smem_bytes(m, st);
-  cudaError_t err = allow_smem(conv_fft_kernel, smem);
-  if (err != cudaSuccess) return err;
-  // one thread per column of the stage with the most columns (smallest radix)
-  int rmin = st.r[0];
-  for (int i = 1; i < st.k; ++i) rmin = st.r[i] < rmin ? st.r[i] : rmin;
-  int threads = (m / rmin + 31) / 32 * 32;
-  threads = threads < 64 ? 64 : (threads > 256 ? 256 : threads);
-  conv_fft_kernel<<<(unsigned)batch, threads, smem, s>>>(in, out, n_in, n_out, m, st, tab[0],
-                                                         tab[1], tab[2], conj_out);
-  return cudaGetLastError();
+  return conv_fft_launch<false>(x, y, batch, n_in, n_out, m, st, h, pre, post, conj_out,
+                                nullptr, stream);
 }
+
+#ifdef RF_PHASE_STAMPS
+// rf_conv_fft through its stamped form: stamps (batch, 6) uint64 (the
+// general kernel: start, load, chain 1, H, chain 2, store) or (batch, 4)
+// (the compile-time kernel at (16, 16, 12): start, load + chain 1, H,
+// chain 2 + store), %globaltimer nanoseconds at each phase's end.
+extern "C" int rf_conv_fft_stamps(const void* x, void* y, long long batch, int n_in, int n_out,
+                                  int m, int k, int r0, int r1, int r2, const void* roots0,
+                                  const void* roots1, const void* roots2, const void* tw0,
+                                  const void* tw1, const void* h, const void* pre,
+                                  const void* post, int conj_out, void* stamps, void* stream) {
+  using namespace rf;
+  if (stamps == nullptr) return cudaErrorInvalidValue;
+  const Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
+  return conv_fft_launch<true>(x, y, batch, n_in, n_out, m, st, h, pre, post, conj_out,
+                               static_cast<unsigned long long*>(stamps), stream);
+}
+#endif

@@ -20,7 +20,8 @@ K7's cluster kernel
 (`rf_two_stage_cluster_phase_stamps`) and K12's two kernels
 (`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`), K2's and
 K3's (`rf_large_col_phase_stamps`, `rf_large_row_phase_stamps`), K10's
-cluster kernel (`rf_large2f_col_phase_stamps`) and the
+cluster kernel (`rf_large2f_col_phase_stamps`), the one-pass convolution
+core's kernels (`rf_conv_fft_stamps`) and the
 access-pattern probe of K3's tile (`rf_large_copy_probe`;
 tools/torch_phase_times.py, tools/torch_ab.py); no route loads it, so no other build pays for
 those forms.
@@ -131,6 +132,7 @@ _STAMP_SIGNATURES = {
     "rf_bconv_out_tile_stamps": [_vp, _vp, _ll, _int, _int, _ll] + [_int] * 3 + [_vp] * 4
                                 + [_ll, _ll, _vp, _vp],
     "rf_gather_probe": [_vp, _vp, _vp, _ll, _int, _int, _vp],
+    "rf_conv_fft_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 8 + [_int, _vp, _vp],
 }
 STAMP_FLAGS = ("-DRF_PHASE_STAMPS",)
 

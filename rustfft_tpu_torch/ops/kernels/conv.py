@@ -84,6 +84,52 @@ def conv_fft_plain(x: torch.Tensor, m: int, radices: Sequence[int], tables, n_ou
     return out
 
 
+def _conv_fft_checks(x, radices, tables, n_out, what) -> int:
+    """Raise unless conv_fft takes these operands; return m."""
+    roots, tws, h, pre, post = tables
+    m = math.prod(radices)
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (batch, n_in), got shape {tuple(x.shape)}")
+    n_in = x.shape[1]
+    check_operand(x, (x.shape[0], n_in), f"{what} input")
+    if not (0 < n_in <= m and 0 < n_out <= m):
+        raise ValueError(f"{what}: n_in={n_in}, n_out={n_out} must lie in [1, {m}]")
+    check_stage_tables(m, radices, roots, tws, x.device, what)
+    for t, name in ((h, "h"), (pre, "pre"), (post, "post")):
+        if t is not None or name == "h":  # h is required
+            check_operand(t, (m,), f"{what} {name}")
+            if t.device != x.device:
+                raise ValueError(f"{what}: {name} on {t.device}, input on {x.device}")
+    return m
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_fits(m, radices, what) -> None:
+    if lanepack.smem_bytes(m, radices) > _build.SMEM_MAX or max(radices) > lanepack.MAX_STAGE:
+        raise ValueError(f"{what}: m={m} with radices {tuple(radices)} does not fit one block")
+
+
+def _conv_fft_launch(x, radices, tables, n_out, conj_out, what, stamps=None):
+    roots, tws, h, pre, post = tables
+    m = math.prod(radices)
+    y = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
+    lib = _build.load(phase_stamps=stamps is not None)
+    args = (x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1], n_out, m,
+            *padded_stage_args(radices, roots, tws), h.data_ptr(), _ptr(pre), _ptr(post),
+            int(conj_out))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if stamps is None:
+            code = lib.rf_conv_fft(*args, stream)
+        else:
+            code = lib.rf_conv_fft_stamps(*args, stamps.data_ptr(), stream)
+    _build.check(lib, code, what)
+    return y
+
+
 def conv_fft(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
              conj_out: bool = False) -> torch.Tensor:
     """The convolution core for x (batch, n_in) complex64 -> (batch, n_out),
@@ -93,46 +139,43 @@ def conv_fft(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
     lanepack.stage_tables(m, radices, direction); h (m,); pre, post (m,)
     complex64 or None (zero beyond n_in / n_out).
     """
-    roots, tws, h, pre, post = tables
-    m = math.prod(radices)
-    if x.dim() != 2:
-        raise ValueError(f"conv_fft: expected (batch, n_in), got shape {tuple(x.shape)}")
-    n_in = x.shape[1]
-    check_operand(x, (x.shape[0], n_in), "conv_fft input")
-    if not (0 < n_in <= m and 0 < n_out <= m):
-        raise ValueError(f"conv_fft: n_in={n_in}, n_out={n_out} must lie in [1, {m}]")
-    check_stage_tables(m, radices, roots, tws, x.device, "conv_fft")
-    for t, what in ((h, "h"), (pre, "pre"), (post, "post")):
-        if t is not None or what == "h":  # h is required
-            check_operand(t, (m,), f"conv_fft {what}")
-            if t.device != x.device:
-                raise ValueError(f"conv_fft: {what} on {t.device}, input on {x.device}")
+    m = _conv_fft_checks(x, radices, tables, n_out, "conv_fft")
     if x.device.type == "cpu":
         return conv_fft_plain(x, m, radices, tables, n_out, conj_out)
     require_cuda(x, "conv_fft")
-    if lanepack.smem_bytes(m, radices) > _build.SMEM_MAX or max(radices) > lanepack.MAX_STAGE:
-        raise ValueError(f"conv_fft: m={m} with radices {tuple(radices)} does not fit one block")
-    y = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
+    _check_fits(m, radices, "conv_fft")
     if x.shape[0] == 0:
-        return y
-    lib = _build.load()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(x.device):
-        code = lib.rf_conv_fft(
-            x.data_ptr(), y.data_ptr(), x.shape[0], n_in, n_out, m,
-            *padded_stage_args(radices, roots, tws), h.data_ptr(), ptr(pre), ptr(post),
-            int(conj_out), torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(lib, code, "conv_fft")
+        return torch.empty((0, n_out), dtype=x.dtype, device=x.device)
+    y = _conv_fft_launch(x, radices, tables, n_out, conj_out, "conv_fft")
     conv_fft.launches += 1
     return y
 
 
 #: kernel launches since the count was last set to 0
 conv_fft.launches = 0
+
+#: the stamped forms' phases (tools/torch_phase_times.py): the general
+#: kernel's, and the compile-time kernel's at (16, 16, 12), whose chains read
+#: from and write to device memory themselves
+CONV_PHASES = ("load", "chain 1", "H", "chain 2", "store")
+CONV_FIXED_PHASES = ("load+chain 1", "H", "chain 2+store")
+FIXED_RADICES = (16, 16, 12)
+
+
+def conv_phase_stamps(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
+                      conj_out: bool = False):
+    """conv_fft through its stamped form, which only the library built with
+    RF_PHASE_STAMPS holds (no route launches it): (y, stamps, phases),
+    stamps (batch, len(phases) + 1) int64 nanoseconds of %globaltimer, read
+    by each block's thread 0 after a block barrier at its start and at the
+    end of each phase."""
+    what = "conv_phase_stamps"
+    m = _conv_fft_checks(x, radices, tables, n_out, what)
+    require_cuda(x, what)
+    _check_fits(m, radices, what)
+    phases = CONV_FIXED_PHASES if tuple(radices) == FIXED_RADICES else CONV_PHASES
+    stamps = torch.zeros((x.shape[0], len(phases) + 1), dtype=torch.int64, device=x.device)
+    return _conv_fft_launch(x, radices, tables, n_out, conj_out, what, stamps), stamps, phases
 
 
 def make_conv_fn(

@@ -63,9 +63,15 @@ beside `x @ W` and torch.fft, and K10's fused column stage
 (`large2f_col_stage`) at 16 x 2^22, 8 x 2^23, 4 x 2^24 and 2 x 2^25 with
 each path and its torch.fft; both kernels also queued (the device's time
 a call, 20 calls behind a sleep kernel, without the host's time a call).
-`--only` keeps the named groups of these (K1, K2 for K2 and K3, paths for
-the planner's paths and K1's and K5's chain paths' torch.fft, K9, K16,
-K12, K15, K14, K5 for K5's product, K10).  It prints one JSON line per run and then a table, each row a
+And K13: the one-pass convolution core at each path of K13 (1009, 1234,
+2063, 3083 and 2531 x 8192, 257 x 65536), its launch alone on the input
+the path gave it (`conv_fft`, or `conv_chain_fft` where the checkout routes
+m to it), the path and torch.fft, and, in a checkout that has
+`conv.chain_radices`, `conv_fft` (the parent's kernel) at the same shape
+on tables of the same sizes.  `--only` keeps the named groups of these
+(K1, K2 for K2 and K3, paths for the planner's paths and K1's and K5's
+chain paths' torch.fft, K9, K16, K12, K15, K14, K5 for K5's product, K10,
+K13).  It prints one JSON line per run and then a table, each row a
 quantity and each column a run.
 """
 from __future__ import annotations
@@ -127,15 +133,23 @@ K14_PATHS = ((65537, 512), (7919, 4096), (746497, 64))
 K15_GENERAL = ((524309, 64), (393241, 64), (294919, 128))
 K14_FOUR = ((746497, 64), (196613, 256), (88589, 512))
 
-#: the kernel wrappers of the two cores, by module, with the name each
-#: launch is timed under (K15's general and tile kernels share a name)
+#: the one-pass convolution core's paths (K13 and K6): the Rader 1009 (m =
+#: 1008, K6's shape) and 2531 (m = 2530 = 23 x 11 x 5 x 2), the Bluestein
+#: 1234 (m = 3072, K13's shape), 2063 (m = 6144) and 3083 (m = 8192), and the
+#: Rader 257 (m = 256, 16 transforms a block)
+K13 = ((1009, 8192), (1234, 8192), (2063, 8192), (3083, 8192), (2531, 8192), (257, 65536))
+
+#: the kernel wrappers of the cores, by module, with the name each launch
+#: is timed under (K15's general and tile kernels share a name; so do the
+#: one-pass core's two forms)
 RECORDED = {
+    "conv": {"conv_fft": "core", "conv_chain_fft": "core"},
     "conv_radix": {"conv_col_stage": "col", "conv_row_stage": "row"},
     "convlarge": {"bconv_col_tile": "kernel A", "bconv_row_stage": "B_conv",
                   "bconv_row_tile": "B_conv", "bconv_out_stage": "A2", "bconv_out_tile": "A2"},
 }
 
-GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10")
+GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13")
 
 
 def run_one(root: str, groups=GROUPS) -> dict:
@@ -211,7 +225,8 @@ def run_one(root: str, groups=GROUPS) -> dict:
     def kernels_alone(group, n, batch, first=None):
         """Each launch of the path n x batch alone (K14: col and row of pass 1,
         then pass 2; K15: kernel A, B_conv, A2, where `first` names the
-        leading column stage), then the path and torch.fft."""
+        leading column stage; K13: the one-pass core), then the path and
+        torch.fft."""
         torch.cuda.empty_cache()
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
         plan = planner.plan_fft_forward(n)
@@ -418,6 +433,27 @@ def run_one(root: str, groups=GROUPS) -> dict:
             out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
             del x
+    if "K13" in groups:
+        from rustfft_tpu_torch import recipes
+        from rustfft_tpu_torch.ops.kernels import conv
+
+        for n, batch in K13:
+            kernels_alone("K13", n, batch)
+            m = planner.plan_fft_forward(n).recipe.inner.length
+            if hasattr(conv, "chain_radices"):  # the parent's kernel beside the new one
+                torch.cuda.empty_cache()
+                rader = m == n - 1
+                n_io = m if rader else n
+                radices = lanepack.tile_radices(m)
+                roots, tws = lanepack.stage_tables(m, radices, FftDirection.FORWARD)
+                rng = np.random.default_rng(n)
+                h, pre, post = (torch.from_numpy((rng.standard_normal(m) + 1j).astype(
+                    np.complex64)).to(dev) for _ in range(3))
+                tables = (on(roots), on(tws), h, None if rader else pre, None if rader else post)
+                x = torch.randn((batch, n_io), dtype=torch.complex64, generator=gen, device=dev)
+                out[f"K13 conv_fft (parent's kernel) {n}x{batch}"] = ms(
+                    lambda: conv.conv_fft(x, radices, tables, n_io, not rader), reps=15)
+                del x
     pad_tables = getattr(largepad, "col_tables", None)
     for n, batch in PAD if "K12" in groups else ():
         torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Split the time of K1's, K2's, K3's, K7's cluster kernel's, K9's, K12's and K15's kernels into phases on one GPU.
+"""Split the time of K1's, K2's, K3's, K7's cluster kernel's, K9's, K12's, K13's and K15's kernels into phases on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -22,7 +22,11 @@ whose split is (256, 64, 64)), any n the route sends to large2f (2^22 ..
 2^25) to K10's cluster kernel (large2f.K10_PHASES), and 1000003:64 to K15's three tile kernels (any
 n whose plan is a Bluestein on the fused large Bluestein's tile form:
 kernel A, B_conv and A2, convlarge.COL_TILE_PHASES, ROW_TILE_PHASES,
-OUT_TILE_PHASES).  For each shape it
+OUT_TILE_PHASES), and a prime whose plan is a Rader or a Bluestein on the
+one-pass convolution core (1009:8192, 1234:8192; m = n - 1 or the inner
+length) to that core's kernel (conv.CONV_PHASES: load, chain 1, the H
+multiply, chain 2, store; conv.CONV_FIXED_PHASES for the compile-time
+kernel at (16, 16, 12), whose chains read and write device memory).  For each shape it
 runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
 fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps,
 largepad.largepad_col_phase_stamps and largepad_row_phase_stamps,
@@ -258,6 +262,48 @@ def large2f_phases(n: int, batch: int, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def conv_phases(n: int, m: int, batch: int, gen) -> None:
+    """The one-pass convolution core of the prime n (a Rader at m = n - 1, a
+    Bluestein at an inner m) at the shape its path gives it, n x batch,
+    through the stamped form of its kernel."""
+    import torch
+
+    from rustfft_tpu_torch.common import FftDirection
+    from rustfft_tpu_torch.ops.bluestein import bluestein_tables
+    from rustfft_tpu_torch.ops.kernels import conv, conv_radix, lanepack
+    from rustfft_tpu_torch.ops.raders import raders_tables
+
+    dev = torch.device("cuda")
+    d = FftDirection.FORWARD
+    rader = m == n - 1
+    if rader:
+        h, pre, post, n_io = raders_tables(n, d)[2], None, None, m
+    else:
+        chirp, h = bluestein_tables(n, m, d)
+        pre = post = chirp
+        n_io = n
+
+    def card(t):
+        return None if t is None else torch.from_numpy(conv_radix.zero_extended(t, m)).to(dev)
+
+    radices = lanepack.tile_radices(m)
+    roots, tws = lanepack.stage_tables(m, radices, d)
+    tables = ([torch.from_numpy(a).to(dev) for a in roots],
+              [torch.from_numpy(a).to(dev) for a in tws], card(h), card(pre), card(post))
+    x = torch.randn((batch, n_io), dtype=torch.complex64, generator=gen, device=dev)
+    args = (x, radices, tables, n_io, not rader)
+    conv.conv_phase_stamps(*args)  # warm-up (and the stamped library's build)
+    y, stamps, phases = conv.conv_phase_stamps(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(y, conv.conv_fft(*args)):
+        raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
+    report(f"n={n} ({'Rader' if rader else 'Bluestein'}, m = {m}, {radices}) batch={batch} "
+           "conv_fft", stamps, phases, median_ms(lambda: conv.conv_phase_stamps(*args)),
+           median_ms(lambda: conv.conv_fft(*args)))
+    del x, y, stamps
+    torch.cuda.empty_cache()
+
+
 def bluestein_large_phases(n: int, m: int, batch: int, gen) -> None:
     """K15's three tile kernels (the fused large Bluestein of length n at an
     inner m of the tile form) at n x batch through their stamped forms."""
@@ -308,7 +354,7 @@ def main() -> None:
 
     from rustfft_tpu_torch import FftPlanner, recipes, route
     from rustfft_tpu_torch.common import FftDirection
-    from rustfft_tpu_torch.ops.kernels import convlarge, fused, large
+    from rustfft_tpu_torch.ops.kernels import conv, convlarge, fused, large
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_phase_times: needs an NVIDIA GPU")
@@ -319,6 +365,10 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     for n, batch in shapes:
         recipe = FftPlanner(np.complex64, device="cpu").plan_fft_forward(n).recipe
+        if (isinstance(recipe, (recipes.Raders, recipes.Bluesteins))
+                and conv.conv_supported(recipe.inner.length, np.complex64)):
+            conv_phases(n, recipe.inner.length, batch, gen)
+            continue
         if (isinstance(recipe, recipes.Bluesteins)
                 and convlarge.bconv_supported(recipe.inner.length, np.complex64)):
             bluestein_large_phases(n, recipe.inner.length, batch, gen)
