@@ -17,9 +17,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    direct sums, ragged last blocks; large: K2's and K3's persistent tile
    kernels within 1e-6 at 2^20 x 1, x 3, x 4 and at a batch that leaves
    both walks ragged, each grid printed, 32768 x 3, and each stage on a
-   view 8 bytes into its storage, which the wrapper copies), the one-pass convolution core at m = 1008 (the Rader
-   1009 shape) and m = 3072 (the Bluestein 1234 shape) with its tables and
-   conj off and on, the two-pass core's cluster passes within 1e-6 at
+   view 8 bytes into its storage, which the wrapper copies), the one-pass convolution core: its parent form
+   (conv_fft) at m = 1008 (the Rader 1009 shape) and m = 3072 (the
+   Bluestein 1234 shape) with its tables and conj off and on and at m = 928
+   and 3712, where it still serves, and its chain form (conv_chain_fft,
+   within 1e-6) at the inner length of every CORE path (m = 256, 1008,
+   2530, 3072, 6144, 8192), both directions, tables and conj off and on
+   (ragged n_in and n_out), at batch 1, a batch that leaves its last unit
+   and its persistent walk ragged, and the path's batch; the two-pass core's cluster passes within 1e-6 at
    65537 x 1 and x 3 (Rader: gather, sums, scatter, x0, full output) and
    7919 x 1 and x 5, 65521 x 1 and x 3 and 131071 x 1 and x 2 (Bluestein
    at r = 1, 8 and 16, each against the float64 oracle), and its four
@@ -73,6 +78,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    14400 x 4096, n = 2^20 at batch 1024
    (the flagship n; batch cut from 4096 so that input, intermediate and
    output fit the card), the prime path at 1009 x 8192, 1234 x 8192,
+   2063, 3083 and 2531 x 8192 and 257 x 65536 (the core's chain form),
    7919 x 4096 and 65537 x 512 (the JAX bench's rows and the 7919 cell;
    their cluster passes also at 7919 x 1 and x 5, 65537 x 1 and x 3) and
    the cluster passes' largest forms at 65521 x 512 and x 3 (r = 8) and
@@ -101,7 +107,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    config.conv_radix_gauss and both, 7919 x 4096 under conv_radix_gauss,
    and with every switch on 15625 x 4096, 1000003 x 64, 2^23 x 8 and 2^26 x 2
    (no Gauss stage: the switches do not reach large_pad, K15, large2f or
-   large3f).  Every launch counter is set to 0 just before each run and
+   large3f), and the core's parent form through executor.build at
+   Raders(928) (the prime 929) and Bluesteins(1234, 3712), 8192 rows each.
+   Every launch counter is set to 0 just before each run and
    read just after: each path must launch exactly its kernels.  Errors
    against a float64 numpy oracle on 4 rows (1 row from 2^23 up) and
    against torch.fft (an oracle only) on the whole batch, and the round
@@ -137,7 +145,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    its other form and torch.fft;
    each dense path against torch.fft; dense_fft against the lanepack route
    at 256 x 262144 and the
-   convolution cores at 1009 and 1234 x 8192 (the dense crossover); each
+   convolution cores at 1009 and 1234 x 8192 (the dense crossover); the
+   one-pass core's chain form at each CORE path against its plain version
+   (within 1e-6), its bound and, at 1009 and 1234, the parent form on the
+   same inputs, and the parent form at m = 928 and 3712; each
    large_pad stage against its plain version (within 1e-6), its bound,
    the operations its chain spends and large's stage at one-column tiles, and each
    large_pad path against the large route and torch.fft; the fused large
@@ -267,8 +278,21 @@ CLUSTER_PRIMES = {65537: 512, 7919: 4096, 65521: 512, 131071: 256}
 #: of them either)
 NOT_ROUTED = {"three_stage_fft"}
 
+#: the one-pass convolution core's paths on its chain form (conv_chain_fft):
+#: the Rader 1009 (m = 1008, K6's shape), 2531 (m = 2530, direct sums of 23
+#: and 11) and 257 (m = 256), the Bluestein 1234 (m = 3072, K13's shape),
+#: 2063 (m = 6144) and 3083 (m = 8192) -> batch
+CORE = {1009: 8192, 1234: 8192, 2063: 8192, 3083: 8192, 2531: 8192, 257: 65536}
+
+#: the parent form of the core (conv_fft) keeps the inner lengths whose
+#: four-stage chain needs a Bluestein stage, which no prime of [257, 8191]
+#: gets from the planner: its paths, built through executor.build, a Rader
+#: (K6's layout, m = 928 = 29 x 32) and a Bluestein of 1234 at m = 3712 =
+#: 29 x 128 (K13's), 8192 rows each
+CONV_FFT_PATHS = {"K6": (929, 928), "K13": (1234, 3712)}
+
 #: every ported kernel: (its source, the TPU kernel it replaces); conv_fft
-#: serves K13 and K6, reported at the shape of each
+#: and conv_chain_fft serve K13 and K6, reported at the shape of each
 KERNELS = {
     "lanepack_pipe_fft": ("rustfft_tpu_torch/csrc/lanepack.cu",
                           "rustfft_tpu/ops/pallas/lanepack.py:250"),
@@ -278,6 +302,14 @@ KERNELS = {
     "conv_fft/K6": ("rustfft_tpu_torch/csrc/conv.cu", "rustfft_tpu/ops/pallas/lanepack.py:501"),
     "permute": ("rustfft_tpu_torch/csrc/permute.cu", "rustfft_tpu/ops/pallas/permute.py:229"),
 }
+#: the core's chain form at each of its paths: K6 at 1009 and the other
+#: Raders, K13 at 1234 and the other Bluesteins
+for _n in CORE:
+    _tag = {1009: "K6", 1234: "K13"}.get(_n, str(_n))
+    KERNELS[f"conv_chain_fft/{_tag}"] = (
+        "rustfft_tpu_torch/csrc/conv.cu",
+        "rustfft_tpu/ops/pallas/" + ("conv.py:119" if _n in (1234, 2063, 3083, 257)
+                                     else "lanepack.py:501"))
 #: the top band's kernels, one entry per path shape: K10's fused column
 #: stage and its Q-FFT pass (K3's row stage), K11's three passes
 for _t in ("2^22", "2^23", "2^24", "2^25"):
@@ -771,6 +803,68 @@ def main() -> None:
                 want = conv.conv_fft_plain(x, m, radices, tables, n, tables_on)
                 note(key, got, want, f"conv_fft m={m} {radices} n={n} pre/post/conj={tables_on} "
                                      f"batch={batch} {d.name}")
+    # the parent form where it still serves: m = 928 (K6's layout) and 3712
+    # (K13's), whose four-stage chains need a Bluestein stage
+    for key, (p_or_n, m) in CONV_FFT_PATHS.items():
+        d = directions[0]
+        rader = m == p_or_n - 1
+        n = m if rader else p_or_n
+        h, pre = ((raders_tables(p_or_n, d)[2], None) if rader
+                  else bluestein_tables(p_or_n, m, d)[::-1])
+        radices, tables = conv_tables(m, d, h, pre, pre)
+        x = signal(257, n)
+        note(f"conv_fft/{key}", conv.conv_fft(x, radices, tables, n, not rader),
+             conv.conv_fft_plain(x, m, radices, tables, n, not rader),
+             f"conv_fft m={m} {radices} n={n} batch=257 {d.name} (where it serves)")
+
+    def chain_tables(m, d, h, pre=None, post=None):
+        """The chain form's tables on the card: h in chain 1's positions."""
+        radices = conv.chain_radices(m)
+        roots, tws1, tws2 = conv.double_chain_tables(m, radices, d)
+        h = conv.chain_h_table(conv_radix.zero_extended(h, m), radices)
+        extra = [None if t is None else torch.from_numpy(conv_radix.zero_extended(t, m)).to(dev)
+                 for t in (pre, post)]
+        return radices, (on_card(roots), on_card(tws1), on_card(tws2),
+                         torch.from_numpy(h).to(dev), *extra)
+
+    # the chain form within 1e-6 of its plain version at m = 256, 1008, 2530,
+    # 3072, 6144 and 8192, both directions, tables on (a Bluestein's pre,
+    # post, conj and ragged n_in / n_out) and off, at batch 1, a batch whose
+    # last unit is ragged and whose units are not a multiple of the grid,
+    # and the path's batch; each counts into the entry of its path
+    planner_cpu = FftPlanner(np.complex64, device="cpu")  # recipes only
+    core_m = {n: planner_cpu.plan_fft_forward(n).recipe.inner.length for n in CORE}
+    for n, path_batch in CORE.items():
+        m = core_m[n]
+        key = "conv_chain_fft/" + {1009: "K6", 1234: "K13"}.get(n, str(n))
+        radices = conv.chain_radices(m)
+        unit = conv.chain_unit(m)
+        # the blocks the grid of the checks without tables has
+        smem = conv.chain_smem_bytes(m, radices, m, m, False, False,
+                                     conv.chain_tables_smem(m, radices, m, m, False, False))
+        resident = conv.chain_resident(torch.cuda.current_device(),
+                                       conv.chain_kernel_form(radices, smem), smem)
+        ragged = unit * (resident + 3) + 1
+        for d in directions:
+            n_blue = (m + 1) // 2  # a Bluestein of n_blue at inner m: ragged n_in and n_out
+            chirp, h = bluestein_tables(n_blue, m, d)
+            for tables_on in (False, True):
+                if tables_on:
+                    radices, tables = chain_tables(m, d, h, chirp, chirp)
+                    n_io = n_blue
+                else:
+                    radices, tables = chain_tables(m, d, h)
+                    n_io = m
+                for batch in (1, ragged, path_batch):
+                    x = signal(batch, n_io)
+                    got = conv.conv_chain_fft(x, radices, tables, n_io, conj_out=tables_on)
+                    torch.cuda.synchronize()
+                    want = conv.conv_chain_fft_plain(x, radices, tables, n_io, tables_on)
+                    note(key, got, want, f"conv_chain_fft m={m} {radices} unit {unit} n={n_io} "
+                                         f"pre/post/conj={tables_on} batch={batch} {d.name}",
+                         K7_TOL)
+                    del x, got, want
+        free()
 
     def two_pass_stages(x, m, d, tabs, batch_what, n_out, conj_out=False, x0=None,
                         full_out=False, gauss=False, in_shift=False, key="746497",
@@ -1174,6 +1268,7 @@ def main() -> None:
                 "large_col_stage": large.large_col_stage,
                 "large_row_stage": large.large_row_stage,
                 "conv_fft": conv.conv_fft,
+                "conv_chain_fft": conv.conv_chain_fft,
                 "conv_col_stage": conv_radix.conv_col_stage,
                 "conv_row_stage": conv_radix.conv_row_stage,
                 "permute": permute.permute,
@@ -1259,8 +1354,8 @@ def main() -> None:
         (4096, 16384, {"lanepack_pipe_fft": 1}),
         *((n, batch, {"lanepack_chain_fft": 1}) for n, batch in LANE.items()),
         (1 << 20, 1024, {"large_col_stage": 1, "large_row_stage": 1}),
-        (1009, 8192, {"conv_fft": 1, "permute": 2}),
-        (1234, 8192, {"conv_fft": 1}),
+        *((n, batch, {"conv_chain_fft": 1, **({"permute": 2} if core_m[n] == n - 1 else {})})
+          for n, batch in CORE.items()),
         (7919, 4096, k14), (7919, 1, k14), (7919, 5, k14),
         (65537, 512, k14), (65537, 1, k14), (65537, 3, k14),
         (65521, 512, k14), (65521, 3, k14), (131071, 256, k14), (131071, 3, k14),
@@ -1353,6 +1448,15 @@ def main() -> None:
     fwd, inv = (large.make_large_fft_fn(1 << 20, d, np.complex64, deep_a=True) for d in directions)
     drive(f"{1 << 20} deep_a", 1 << 20, 1024, default_large, fwd, inv,
           "n=1048576 batch=1024 make_large_fft_fn(deep_a=True)", default_2_20)
+    # the parent form of the one-pass core where it still serves, through
+    # executor.build: Raders(928) and Bluesteins(1234, 3712)
+    for tag_, (n, m) in CONV_FFT_PATHS.items():
+        recipe = (recipes.Raders(recipes.Dft(m)) if m == n - 1
+                  else recipes.Bluesteins(n, recipes.Dft(m)))
+        fwd, inv = (executor.build(recipe, d, np.complex64) for d in directions)
+        drive(f"conv_fft {tag_}", n, 8192,
+              {"conv_fft": 1, **({"permute": 2} if m == n - 1 else {})}, fwd, inv,
+              f"n={n} batch=8192 {recipe!r}")
     print(f"  launches on the main paths: {main_launches}", flush=True)
     for name, count in main_launches.items():
         if count == 0 and name not in NOT_ROUTED:
@@ -1474,26 +1578,59 @@ def main() -> None:
         del x
         free()
 
-    # the one-pass core and the permutation at the prime path's shapes
-    for key, m, n in (("conv_fft/K6", 1008, 1008), ("conv_fft/K13", 3072, 1234)):
-        tables_on = m != n  # K6: the Rader 1009 core; K13: the Bluestein 1234 core
-        if tables_on:
-            chirp, h_fft = bluestein_tables(n, m, FftDirection.FORWARD)
-            radices, tables = conv_tables(m, FftDirection.FORWARD, h_fft, chirp, chirp)
-        else:
-            radices, tables = conv_tables(m, FftDirection.FORWARD,
-                                          raders_tables(m + 1, FftDirection.FORWARD)[2])
-        x = signal(8192, n)
-        note(key, conv.conv_fft(x, radices, tables, n, tables_on),
-             conv.conv_fft_plain(x, m, radices, tables, n, tables_on),
-             f"conv_fft m={m} {radices} n={n} batch=8192 (the main path's shape)")
-        k = median_ms(lambda: conv.conv_fft(x, radices, tables, n, tables_on))
-        plain = median_ms(lambda: conv.conv_fft_plain(x, m, radices, tables, n, tables_on))
-        print(f"  conv_fft m={m} {radices} n={n} batch=8192:", flush=True)
-        # two length-m transforms and the pointwise tables (H; with the
-        # Bluestein chirp also pre and post) per row
-        record(key, k, plain, 16 * 8192 * n + 8 * m * (3 if tables_on else 1),
-               8192 * (2 * fft_ops(m) + 6 * m * (3 if tables_on else 1)))
+    # the one-pass core at the prime paths' shapes: the chain form at each
+    # CORE path against its plain version, its bound and, at 1009 and 1234,
+    # the parent form on the same inputs; the parent form where it serves
+    # (m = 928 and 3712); two length-m transforms and the pointwise tables
+    # (H; with a Bluestein's chirp also pre and post) per row
+    def core_inputs(n, m, d, form):
+        rader = m == n - 1
+        h, pre = ((raders_tables(n, d)[2], None) if rader
+                  else bluestein_tables(n, m, d)[::-1])
+        radices, tables = form(m, d, h, pre, pre)
+        return rader, (m if rader else n), radices, tables
+
+    for n, batch in CORE.items():
+        m = core_m[n]
+        key = "conv_chain_fft/" + {1009: "K6", 1234: "K13"}.get(n, str(n))
+        rader, n_io, radices, tables = core_inputs(n, m, FftDirection.FORWARD, chain_tables)
+        x = signal(batch, n_io)
+        note(key, conv.conv_chain_fft(x, radices, tables, n_io, not rader),
+             conv.conv_chain_fft_plain(x, radices, tables, n_io, not rader),
+             f"conv_chain_fft m={m} {radices} n={n_io} batch={batch} (the main path's shape)",
+             K7_TOL)
+        free()
+        k = median_ms(lambda: conv.conv_chain_fft(x, radices, tables, n_io, not rader))
+        plain = median_ms(lambda: conv.conv_chain_fft_plain(x, radices, tables, n_io, not rader))
+        extra = ""
+        if n in (1009, 1234):
+            _, _, tile, parent_tables = core_inputs(n, m, FftDirection.FORWARD, conv_tables)
+            parent = median_ms(lambda: conv.conv_fft(x, tile, parent_tables, n_io, not rader))
+            extra = (f"; conv_fft (the parent form, {tile}) on the same inputs {parent:.3f} ms "
+                     f"({parent / k:.2f}x the chain form's time)")
+        spent = batch * m * 2 * chain_ops(radices, lambda r: None)
+        print(f"  {key} m={m} {radices} n={n_io} batch={batch} unit {conv.chain_unit(m)} "
+              f"tables on chip {conv.chain_tables_smem(m, radices, n_io, n_io, not rader, not rader)}"
+              f": the operations its chains spend {spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 "
+              f"peak{extra}", flush=True)
+        record(key, k, plain, 16 * batch * n_io + 8 * m * (1 if rader else 3),
+               batch * (2 * fft_ops(m) + 6 * m * (1 if rader else 3)))
+        del x
+        free()
+    for tag_, (n, m) in CONV_FFT_PATHS.items():
+        key = f"conv_fft/{tag_}"
+        rader, n_io, radices, tables = core_inputs(n, m, FftDirection.FORWARD, conv_tables)
+        x = signal(8192, n_io)
+        note(key, conv.conv_fft(x, radices, tables, n_io, not rader),
+             conv.conv_fft_plain(x, m, radices, tables, n_io, not rader),
+             f"conv_fft m={m} {radices} n={n_io} batch=8192 (where it serves)")
+        k = median_ms(lambda: conv.conv_fft(x, radices, tables, n_io, not rader))
+        plain = median_ms(lambda: conv.conv_fft_plain(x, m, radices, tables, n_io, not rader))
+        print(f"  {key} m={m} {radices} n={n_io} batch=8192:", flush=True)
+        record(key, k, plain, 16 * 8192 * n_io + 8 * m * (1 if rader else 3),
+               8192 * (2 * fft_ops(m) + 6 * m * (1 if rader else 3)))
+        del x
+        free()
     idx = torch.from_numpy(permute.permutation_index(
         raders_tables(1009, FftDirection.FORWARD)[0] - 1)).to(dev)
     x = signal(8192, 1008)
@@ -2276,6 +2413,8 @@ def main() -> None:
             return main_launches[base]
         if where in TAGGED:
             return path_launches[TAGGED[where]][base]
+        if base == "conv_fft":
+            return path_launches[f"conv_fft {where}"][base]
         n = {"K6": 1009, "K13": 1234}.get(where)
         n = n or (1 << int(where[2:]) if where.startswith("2^") else int(where))
         return path_launches[n][base]

@@ -9,19 +9,30 @@ Replaces rustfft_tpu/ops/pallas/conv.py (`_kernel`, `conv_supported`,
     out = [post *] maybe_conj( FFT_m( conj( FFT_m([pre *] zeropad(x)) * H ) ) )
 
 and differ only in their layout (m on lanes for 128-aligned m, on sublanes
-otherwise); `conv_fft` (csrc/conv.cu) serves both: one block owns one
-transform in shared memory, so its domain is that of the lanepack kernel,
-m up to ~14.5k with a 2-3 radix split.  Larger inner lengths go to the
-two-pass core (ops/kernels/conv_radix.py).
+otherwise); one kernel form serves both on the card.  The core's domain is
+that of the lanepack kernel, m up to ~14.5k with a 2-3 radix split; larger
+inner lengths go to the two-pass core (ops/kernels/conv_radix.py).  Two
+kernels (csrc/conv.cu):
 
-`conv_fft` runs `conv_fft_plain` on a CPU tensor and launches the kernel on
-a CUDA tensor, or raises.  H, pre and post are the JAX package's f64 tables
-cast to f32; H stays in natural order, the order the port's chains emit.
+  `conv_chain_fft`  the chain form, wherever `chain_radices(m)` holds (the
+      four-stage chain of register radices and direct sums, no Bluestein
+      stage; every inner length the planner gives a prime of [257, 8191]):
+      persistent blocks walking units of transforms, the next unit landing
+      while the current one runs two in-place chains, h stored in chain
+      1's output order (`chain_h_table`), chain 2 on the reversed digits;
+  `conv_fft`        the parent form, one block a transform on the two-buffer
+      tile at `lanepack.tile_radices(m)`, for the other lengths.
+
+Each runs its plain version on a CPU tensor and launches its kernel on a
+CUDA tensor, or raises.  H, pre and post are the JAX package's f64 tables
+cast to f32.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -178,6 +189,323 @@ def conv_phase_stamps(x: torch.Tensor, radices: Sequence[int], tables, n_out: in
     return _conv_fft_launch(x, radices, tables, n_out, conj_out, what, stamps), stamps, phases
 
 
+# -- the chain form: csrc/conv.cu conv_chain_kernel ------------------------------
+
+#: the radices the chain form runs in registers: lanepack.REGISTER_RADICES
+#: and every direct sum lanepack.choose_radices gives a length of the
+#: core's domain without a Bluestein stage (csrc/conv.cu cc_with_radix)
+CHAIN_RADICES = lanepack.REGISTER_RADICES | frozenset(
+    {10, 11, 13, 14, 15, 17, 18, 19, 21, 23, 35})
+
+#: the chain form's kernels (csrc/conv.cu kCcForms): (the direct sums
+#: compiled, the blocks an SM its register cap allows): the register
+#: radices at three and at two blocks an SM, with the direct sums at two
+CHAIN_FORMS = ((False, 3), (False, 2), (True, 2))
+
+#: shared memory of an SM (bytes) and what the card reserves for each block
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+
+
+def chain_big(radices: Sequence[int]) -> bool:
+    """The chain runs on the chain form's kernel with the direct sums (a
+    radix outside lanepack.REGISTER_RADICES); the other kernel compiles the
+    register stages only."""
+    return not all(r in lanepack.REGISTER_RADICES for r in radices)
+
+
+def chain_weights(radices: Sequence[int]) -> list:
+    """The position weight W_s = m / (r_0 .. r_s) of each digit of an
+    in-place chain over m = prod(radices): stage s runs radix r_s over the
+    digit of weight W_s (W_{S-1} = 1)."""
+    w, out = math.prod(radices), []
+    for r in radices:
+        w //= r
+        out.append(w)
+    return out
+
+
+def chain_positions(radices: Sequence[int]) -> np.ndarray:
+    """(m,) int64: the frequency k whose value the in-place DIT chain
+    `radices` leaves at position pos = sum_s k_s * W_s, k = k_0 + r_0*k_1 +
+    r_0*r_1*k_2 + ... (digit-reversed: its stage s puts output digit k_s
+    where it read input digit s)."""
+    m = math.prod(radices)
+    pos = np.arange(m)
+    k, scale = np.zeros(m, np.int64), 1
+    for r, w in zip(radices, chain_weights(radices)):
+        k += (pos // w % r) * scale
+        scale *= r
+    return k
+
+
+def double_chain_tables(m: int, radices: Sequence[int], direction: FftDirection):
+    """Tables of the double in-place chain over m = prod(radices),
+    complex64: (roots, tws1, tws2).  roots[s]: stage s's roots w_{r_s}^e
+    (chain 2 reads the same ones); tws1: chain 1's twiddles (r_s, W_s)
+    after every stage but the last (lanepack.stage_tables); tws2: chain
+    2's, which runs the radices reversed over the position digits: its
+    stage t (radix r_{S-1-t}, digit W_{S-1-t}) multiplies output k by
+    tws2[t][k, hi], hi = the position of its column over the digits above
+    it (pos // W_{S-2-t}), the reversed chain's twiddle column of the
+    input digits k_0 .. k_{S-2-t} not yet taken."""
+    n = len(radices)
+    roots, tws1 = lanepack.stage_tables(m, radices, direction)
+    _, tws2 = lanepack.stage_tables(m, radices[::-1], direction)
+    weights = chain_weights(radices)
+    remapped = []
+    for t, table in enumerate(tws2):
+        top = n - 2 - t  # the lowest chain-1 digit above the stage
+        hi = np.arange(table.shape[1])
+        rest, scale = np.zeros_like(hi), 1
+        for s in range(top + 1):
+            rest += (hi // (weights[s] // weights[top]) % radices[s]) * scale
+            scale *= radices[s]
+        remapped.append(np.ascontiguousarray(table[:, rest]))
+    return list(roots), list(tws1), remapped
+
+
+@functools.lru_cache(maxsize=4096)
+def chain_radices(m: int) -> Optional[Tuple[int, ...]]:
+    """The chain form's chain for inner length m, or None: the four-stage
+    rule lanepack.choose_radices(m) wherever it needs no Bluestein stage
+    (every radix a register radix or a direct sum of CHAIN_RADICES) and the
+    form's two padded buffers fit a block (not for 51 lengths from 13650
+    up); None elsewhere, where conv_fft keeps m."""
+    if not conv_supported(m, np.complex64):
+        return None
+    radices = lanepack.choose_radices(m)
+    if radices is None or not all(r in CHAIN_RADICES for r in radices):
+        return None
+    if chain_smem_bytes(m, radices, m, m, False, False, False) > _build.SMEM_MAX:
+        return None
+    return radices
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _padded(v: int) -> int:
+    """Values of a padded region of v values (csrc/conv.cu cc_pad of
+    pad16(v)): one pad every 16."""
+    p = _pad16(v)
+    return p + p // 16
+
+
+def chain_unit(m: int) -> int:
+    """Transforms a unit of the chain form: lanepack.chain_width of
+    pad16(m), the values a transform's padded region holds before its
+    pads, so that a unit holds at most 4096 of them unless one transform
+    is longer."""
+    return lanepack.chain_width(_pad16(m))
+
+
+def chain_smem_bytes(m: int, radices: Sequence[int], n_in: int, n_out: int, has_pre: bool,
+                     has_post: bool, tables_smem: bool) -> int:
+    """Shared memory of a chain-form block (csrc/conv.cu cc_smem_bytes): two
+    buffers of chain_unit(m) transforms, each a padded region of pad16(m)
+    values (one pad every 16); with tables_smem h, pre (n_in values) and
+    post (n_out) padded the same way; every stage's roots."""
+    values = 2 * chain_unit(m) * _padded(m) + sum(radices)
+    if tables_smem:
+        values += _padded(m) + (_padded(n_in) if has_pre else 0) + (_padded(n_out) if has_post
+                                                                   else 0)
+    return 8 * values
+
+
+def chain_kernel_form(radices: Sequence[int], smem: int) -> int:
+    """The index into CHAIN_FORMS of the kernel that runs `radices` with
+    blocks of `smem` bytes: the one with the direct sums where a radix needs
+    it (chain_big), else the register form at three blocks an SM where
+    shared memory holds three (its 80 registers spill a few hundred bytes;
+    PERF.md, PR 17: 5-20% faster than two at 1008, level at 3072 and 256),
+    at two where it holds fewer (128 registers, no spill; 1-7% faster at
+    6144 and 8192)."""
+    if chain_big(radices):
+        return 2
+    return 0 if SM_SMEM // (smem + BLOCK_RESERVED) >= CHAIN_FORMS[0][1] else 1
+
+
+def chain_blocks_per_sm(form: int, smem: int) -> int:
+    """Blocks of a form of `smem` bytes an SM holds: its register cap's
+    count (CHAIN_FORMS) or what shared memory allows, the fewer."""
+    return min(CHAIN_FORMS[form][1], SM_SMEM // (smem + BLOCK_RESERVED))
+
+
+def chain_tables_smem(m: int, radices: Sequence[int], n_in: int, n_out: int, has_pre: bool,
+                      has_post: bool) -> bool:
+    """The chain form holds h, pre and post in shared memory for a block's
+    life where that costs no resident block (at the register cap of the
+    chain's widest form), and reads them through L2 elsewhere."""
+    form = 2 if chain_big(radices) else 0
+    with_tables, without = (chain_blocks_per_sm(form, chain_smem_bytes(
+        m, radices, n_in, n_out, has_pre, has_post, on_chip)) for on_chip in (True, False))
+    return with_tables >= without
+
+
+def chain_h_table(h: np.ndarray, radices: Sequence[int]) -> np.ndarray:
+    """h (m,) in chain 1's output positions: entry pos holds
+    h[chain_positions(radices)[pos]]."""
+    return np.ascontiguousarray(np.asarray(h)[chain_positions(radices)])
+
+
+def conv_chain_fft_plain(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
+                         conj_out: bool) -> torch.Tensor:
+    """Plain torch version of conv_chain_fft: conv_fft_plain on chain 1's
+    tables with h back in natural order."""
+    roots, tws1, _, h, pre, post = tables
+    m = math.prod(radices)
+    inv = torch.from_numpy(np.argsort(chain_positions(radices))).to(h.device)
+    return conv_fft_plain(x, m, radices, (roots, tws1, h[inv], pre, post), n_out, conj_out)
+
+
+def _chain_checks(x, radices, tables, n_out, what) -> int:
+    """Raise unless conv_chain_fft takes these operands; return m."""
+    roots, tws1, tws2, h, pre, post = tables
+    radices = tuple(radices)
+    m = math.prod(radices)
+    if not (1 <= len(radices) <= lanepack.MAX_STAGES
+            and all(r in CHAIN_RADICES for r in radices)):
+        raise ValueError(f"{what}: radices {radices} are not 1..{lanepack.MAX_STAGES} of "
+                         f"{sorted(CHAIN_RADICES)}")
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (batch, n_in), got shape {tuple(x.shape)}")
+    n_in = x.shape[1]
+    check_operand(x, (x.shape[0], n_in), f"{what} input")
+    if not (0 < n_in <= m and 0 < n_out <= m):
+        raise ValueError(f"{what}: n_in={n_in}, n_out={n_out} must lie in [1, {m}]")
+    check_stage_tables(m, radices, roots, tws1, x.device, what,
+                       max_stages=lanepack.MAX_STAGES)
+    weights = chain_weights(radices)
+    if len(tws2) != len(radices) - 1:
+        raise ValueError(f"{what}: expected {len(radices) - 1} chain-2 twiddle tables")
+    for t, table in enumerate(tws2):
+        s = len(radices) - 1 - t
+        check_operand(table, (radices[s], m // (radices[s] * weights[s])), f"{what} tws2[{t}]")
+        if table.device != x.device:
+            raise ValueError(f"{what}: tws2[{t}] on {table.device}, input on {x.device}")
+    for t, name in ((h, "h"), (pre, "pre"), (post, "post")):
+        if t is not None or name == "h":  # h is required
+            check_operand(t, (m,), f"{what} {name}")
+            if t.device != x.device:
+                raise ValueError(f"{what}: {name} on {t.device}, input on {x.device}")
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def chain_resident(device_index: int, form: int, smem: int) -> int:
+    """The blocks of the chain form's kernel `form` (chain_kernel_form) of
+    `smem` bytes (chain_smem_bytes) the device holds at once."""
+    with torch.cuda.device(device_index):
+        lib = _build.load()
+        out = ctypes.c_int(0)
+        _build.check(lib, lib.rf_conv_chain_resident(form, smem, ctypes.byref(out)),
+                     "conv_chain resident blocks")
+        return out.value
+
+
+def chain_grid(units: int, resident: int) -> int:
+    """Blocks of the chain form's persistent grid: every resident block, at
+    most one a unit; block g runs the units g, g + grid, ..."""
+    if units < 1 or resident < 1:
+        raise ValueError(f"chain_grid: units={units}, resident={resident}")
+    return min(units, resident)
+
+
+@functools.lru_cache(maxsize=1024)
+def _chain_layout(radices: Tuple[int, ...], n_in: int, n_out: int, has_pre: bool,
+                  has_post: bool, tables_smem: Optional[bool]):
+    """(unit, tables_smem, smem bytes, kernel form) of a launch, by the rules
+    above (cached: a call's host time counts on the short paths)."""
+    m = math.prod(radices)
+    if tables_smem is None:
+        tables_smem = chain_tables_smem(m, radices, n_in, n_out, has_pre, has_post)
+    smem = chain_smem_bytes(m, radices, n_in, n_out, has_pre, has_post, tables_smem)
+    return chain_unit(m), tables_smem, smem, chain_kernel_form(radices, smem)
+
+
+def _chain_launch(x, radices, tables, n_out, conj_out, what, tables_smem=None, stamps=None):
+    roots, tws1, tws2, h, pre, post = tables
+    radices = tuple(radices)
+    n_in = x.shape[1]
+    width, tables_smem, smem, form = _chain_layout(radices, n_in, n_out, pre is not None,
+                                                   post is not None, tables_smem)
+    if smem > _build.SMEM_MAX:
+        raise ValueError(f"{what}: radices {radices} do not fit one block")
+    units = -(-x.shape[0] // width)
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    grid = chain_grid(units, chain_resident(device, form, smem))
+    y = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
+    k = len(radices)
+    rp = (ctypes.c_void_p * k)(*[t.data_ptr() for t in roots])  # host arrays of pointers
+    tw = (ctypes.c_void_p * (2 * k))(*[t.data_ptr() for t in list(tws1) + list(tws2)], None,
+                                    None)
+    lib = _build.load(phase_stamps=stamps is not None)
+    args = (x.data_ptr(), y.data_ptr(), x.shape[0], n_in, n_out, width, k,
+            *(list(radices) + [1] * (lanepack.MAX_STAGES - k)), ctypes.addressof(rp),
+            ctypes.addressof(tw), h.data_ptr(), _ptr(pre), _ptr(post), int(conj_out),
+            int(tables_smem), form, grid)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if stamps is None:
+            code = lib.rf_conv_chain_fft(*args, stream)
+        else:
+            code = lib.rf_conv_chain_fft_stamps(*args, stamps.data_ptr(), stream)
+    _build.check(lib, code, what)
+    return y, grid
+
+
+def conv_chain_fft(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
+                   conj_out: bool = False, tables_smem: Optional[bool] = None) -> torch.Tensor:
+    """The convolution core's chain form for x (batch, n_in) complex64 ->
+    (batch, n_out), m = prod(radices) >= n_in, n_out: the same function as
+    conv_fft on 1..4 radices of CHAIN_RADICES (chain_radices).
+
+    tables = (roots, tws1, tws2, h, pre, post) on x's device: roots, tws1,
+    tws2 from double_chain_tables(m, radices, direction); h (m,) in chain
+    1's output positions (chain_h_table); pre, post (m,) complex64 or None
+    (zero beyond n_in / n_out).  A persistent grid (chain_grid) walks units
+    of chain_unit(m) transforms, the next unit's rows landing
+    while the current one runs its chains; tables_smem forces where h, pre
+    and post are read from (timing only; default chain_tables_smem).
+    """
+    what = "conv_chain_fft"
+    m = _chain_checks(x, radices, tables, n_out, what)
+    if x.device.type == "cpu":
+        return conv_chain_fft_plain(x, radices, tables, n_out, conj_out)
+    require_cuda(x, what)
+    if x.shape[0] == 0:
+        return torch.empty((0, n_out), dtype=x.dtype, device=x.device)
+    y, _ = _chain_launch(x, radices, tables, n_out, conj_out, what, tables_smem)
+    conv_chain_fft.launches += 1
+    return y
+
+
+#: kernel launches since the count was last set to 0
+conv_chain_fft.launches = 0
+
+#: the chain form's stamped phases, summed over a persistent block's units
+#: (tools/torch_phase_times.py): waiting for its rows, chain 1 with the
+#: pre-multiply and h, chain 2 with the store
+CHAIN_PHASES = ("wait", "chain 1+H", "chain 2+store")
+
+
+def conv_chain_phase_stamps(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
+                            conj_out: bool = False):
+    """conv_chain_fft through its stamped form, which only the library
+    built with RF_PHASE_STAMPS holds (no route launches it): (y, stamps,
+    phases), stamps (grid, 4) int64 nanoseconds of %globaltimer: a block's
+    start and that start plus the running sums of its CHAIN_PHASES."""
+    what = "conv_chain_phase_stamps"
+    _chain_checks(x, radices, tables, n_out, what)
+    require_cuda(x, what)
+    stamps = torch.zeros((x.shape[0], len(CHAIN_PHASES) + 1), dtype=torch.int64,
+                         device=x.device)
+    y, grid = _chain_launch(x, radices, tables, n_out, conj_out, what, stamps=stamps)
+    return y, stamps[:grid], CHAIN_PHASES
+
+
 def make_conv_fn(
     m: int,
     direction: FftDirection,
@@ -193,28 +521,39 @@ def make_conv_fn(
 
         out = [post *] maybe_conj( FFT_m( conj( FFT_m([pre *] zeropad(x)) * H ) ) )
 
-    through conv_fft at lanepack.tile_radices(m).  h, pre, post are
+    through conv_chain_fft wherever chain_radices(m) holds (faster than
+    conv_fft at every length timed: PERF.md, PR 17), else through conv_fft
+    at lanepack.tile_radices(m).  h, pre, post are
     complex128 host arrays; pre / post may be shorter than m (zero-extended,
     which is the Bluestein zero-padding).  n_in / n_out default to m.
     """
     if not conv_supported(m, dtype):
         raise ValueError(f"no one-pass conv core for m={m}, dtype={np.dtype(dtype)}")
-    radices = lanepack.tile_radices(m)
     n_in = n_in or m
     n_out = n_out or m
-    roots, tws = lanepack.stage_tables(m, radices, direction)
     extra = [zero_extended(h, m), zero_extended(pre, m), zero_extended(post, m)]
     present = [t is not None for t in extra]
-    tables = calg.DeviceTables(roots + tws + [t for t in extra if t is not None])
-    k = len(radices)
+    radices = chain_radices(m)
+    chained = radices is not None
+    if chained:
+        groups = list(double_chain_tables(m, radices, direction))
+        extra[0] = chain_h_table(extra[0], radices)
+    else:
+        radices = lanepack.tile_radices(m)
+        groups = list(lanepack.stage_tables(m, radices, direction))
+    cuts = np.cumsum([len(g) for g in groups])
+    tables = calg.DeviceTables([a for g in groups for a in g]
+                               + [t for t in extra if t is not None])
 
     def apply(x):
         t = tables.on(x.device)
-        rest = iter(t[2 * k - 1:])
+        rest = iter(t[cuts[-1]:])
         h_t, pre_t, post_t = (next(rest) if has else None for has in present)
         shape = x.shape
-        y = conv_fft(x.reshape(-1, n_in).contiguous(), radices,
-                     (t[:k], t[k : 2 * k - 1], h_t, pre_t, post_t), n_out, conj_out)
+        chains = [list(t[a:b]) for a, b in zip((0, *cuts[:-1]), cuts)]
+        core = conv_chain_fft if chained else conv_fft
+        y = core(x.reshape(-1, n_in).contiguous(), radices, (*chains, h_t, pre_t, post_t), n_out,
+               conj_out)
         return y.reshape(shape[:-1] + (n_out,))
 
     return apply

@@ -63,10 +63,9 @@ import torch
 from ...common import FftDirection
 from .. import calg
 from ..bluestein import bluestein_tables
-from . import _build, conv_radix, fused, large, largepad
+from . import _build, conv, conv_radix, fused, large, largepad
 from .lanepack import (
     check_operand, check_stage_tables, fft_stages_plain, padded_stage_args, require_cuda,
-    stage_tables,
 )
 
 
@@ -273,11 +272,7 @@ def column_chain(q: int) -> Tuple[int, ...]:
 
 def _weights(chain) -> list:
     """The position weight W_s = Q / (r_0 .. r_s) of each digit of chain 1."""
-    w, out = int(np.prod(chain)), []
-    for r in chain:
-        w //= r
-        out.append(w)
-    return out
+    return conv.chain_weights(chain)
 
 
 @functools.lru_cache(maxsize=16)
@@ -285,14 +280,8 @@ def bconv_positions(q: int = TILE_Q) -> np.ndarray:
     """(Q,) int64: the frequency k whose value chain 1 (radices r_s) leaves
     at position pos = sum_s k_s * W_s, k = k_0 + r_0*k_1 + r_0*r_1*k_2 + ...
     (at Q = 8192: pos = 4096*k0 + 256*k1 + 16*k2 + k3, k = k0 + 2*k1 +
-    32*k2 + 512*k3)."""
-    chain = column_chain(q)
-    pos = np.arange(q)
-    k, scale = np.zeros(q, np.int64), 1
-    for r, w in zip(chain, _weights(chain)):
-        k += (pos // w % r) * scale
-        scale *= r
-    return k
+    32*k2 + 512*k3): conv.chain_positions of the form's chain."""
+    return conv.chain_positions(column_chain(q))
 
 
 def bconv_chain_tables(direction: FftDirection, q: int = TILE_Q):
@@ -300,24 +289,11 @@ def bconv_chain_tables(direction: FftDirection, q: int = TILE_Q):
     Q = 8192 the roots of w_2 and w_16, else each stage's roots; tws: chain
     1's twiddle tables (r_s, W_s) and chain 2's, whose columns (the input
     digits not yet taken) are laid out by the column's position digits
-    above the stage: stage t of chain 2 (radix r_{n-1-t}) reads column hi,
-    the position of its column divided by W_{n-2-t}."""
-    chain = column_chain(q)
-    n = len(chain)
-    roots1, tws1 = stage_tables(q, chain, direction)
-    _, tws2 = stage_tables(q, chain[::-1], direction)
-    weights = _weights(chain)
-    remapped = []
-    for t, table in enumerate(tws2):
-        top = n - 2 - t  # the lowest chain-1 digit above the stage
-        hi = np.arange(table.shape[1])
-        rest, scale = np.zeros_like(hi), 1
-        for s in range(top + 1):
-            rest += (hi // (weights[s] // weights[top]) % chain[s]) * scale
-            scale *= chain[s]
-        remapped.append(np.ascontiguousarray(table[:, rest]))
-    roots = [roots1[0], roots1[1]] if q == TILE_Q else list(roots1)
-    return roots, list(tws1) + remapped
+    above the stage (conv.double_chain_tables)."""
+    roots, tws1, tws2 = conv.double_chain_tables(q, column_chain(q), direction)
+    if q == TILE_Q:
+        roots = [roots[0], roots[1]]
+    return roots, tws1 + tws2
 
 
 def bconv_h_table(h: np.ndarray) -> np.ndarray:

@@ -218,7 +218,7 @@ def test_plain_bluestein_matches_reference(n, m, dtype, ref_pallas_off):
 
 # -- (b) the one-pass core against K13 / K6 in interpret mode -----------------
 
-@pytest.mark.parametrize("n,m", [(100, 256), (1234, 3072)])
+@pytest.mark.parametrize("n,m", [(100, 256), (1234, 3072), (2063, 6144)])
 @pytest.mark.parametrize("d,rd", DIRECTIONS, ids=DIR_IDS)
 def test_one_pass_bluestein_matches_jax_kernel(n, m, d, rd):
     assert conv.conv_supported(m, np.complex64)
@@ -230,11 +230,13 @@ def test_one_pass_bluestein_matches_jax_kernel(n, m, d, rd):
     assert _rel(got, host_dft(x, d)) <= VS_ORACLE
 
 
-@pytest.mark.parametrize("p", [257, 1009])
+@pytest.mark.parametrize("p", [257, 1009, 2531])
 @pytest.mark.parametrize("d,rd", DIRECTIONS, ids=DIR_IDS)
 def test_one_pass_raders_matches_jax_kernel(p, d, rd):
     """257: m = 256 reaches K13; 1009: m = 1008 is not 128-aligned and
-    reaches K6 (lanepack._conv_kernel)."""
+    reaches K6 (lanepack._conv_kernel); 2531: m = 2530, which the JAX
+    package serves through conv_any_supported as it serves 1008 (the port's
+    chain form with direct sums of 23 and 11)."""
     assert conv.conv_supported(p - 1, np.complex64)
     x = _signal(3, p, seed=p).reshape(1, 3, p)
     got = conv.make_raders_fn(p, d, np.complex64)(torch.from_numpy(x))
@@ -441,14 +443,16 @@ def test_wrappers_reject_bad_operands():
 
 
 def test_cpu_wrappers_count_no_launches():
-    before = (conv.conv_fft.launches, conv_radix.conv_col_stage.launches,
-              conv_radix.conv_row_stage.launches, permute.permute.launches)
+    before = (conv.conv_fft.launches, conv.conv_chain_fft.launches,
+              conv_radix.conv_col_stage.launches, conv_radix.conv_row_stage.launches,
+              permute.permute.launches)
     x = _signal(2, 1009, seed=9)
     for n in (1009, 1234, 7919, 65537):
         rustfft_tpu_torch.FftPlanner(device="cpu").plan_fft_forward(n).process(_signal(1, n, seed=n))
     conv.make_raders_fn(1009, FftDirection.FORWARD, np.complex64)(torch.from_numpy(x))
-    after = (conv.conv_fft.launches, conv_radix.conv_col_stage.launches,
-             conv_radix.conv_row_stage.launches, permute.permute.launches)
+    after = (conv.conv_fft.launches, conv.conv_chain_fft.launches,
+             conv_radix.conv_col_stage.launches, conv_radix.conv_row_stage.launches,
+             permute.permute.launches)
     assert after == before
 
 

@@ -68,7 +68,9 @@ And K13: the one-pass convolution core at each path of K13 (1009, 1234,
 the path gave it (`conv_fft`, or `conv_chain_fft` where the checkout routes
 m to it), the path and torch.fft, and, in a checkout that has
 `conv.chain_radices`, `conv_fft` (the parent's kernel) at the same shape
-on tables of the same sizes.  `--only` keeps the named groups of these
+on tables of the same sizes and `conv_chain_fft` with h, pre and post
+forced into shared memory and forced through L2, and on
+`lanepack.tile_radices(m)` where that chain is all register radices.  `--only` keeps the named groups of these
 (K1, K2 for K2 and K3, paths for the planner's paths and K1's and K5's
 chain paths' torch.fft, K9, K16, K12, K15, K14, K5 for K5's product, K10,
 K13).  It prints one JSON line per run and then a table, each row a
@@ -434,8 +436,7 @@ def run_one(root: str, groups=GROUPS) -> dict:
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
             del x
     if "K13" in groups:
-        from rustfft_tpu_torch import recipes
-        from rustfft_tpu_torch.ops.kernels import conv
+        from rustfft_tpu_torch.ops.kernels import _build, conv
 
         for n, batch in K13:
             kernels_alone("K13", n, batch)
@@ -453,6 +454,23 @@ def run_one(root: str, groups=GROUPS) -> dict:
                 x = torch.randn((batch, n_io), dtype=torch.complex64, generator=gen, device=dev)
                 out[f"K13 conv_fft (parent's kernel) {n}x{batch}"] = ms(
                     lambda: conv.conv_fft(x, radices, tables, n_io, not rader), reps=15)
+                chain = conv.chain_radices(m)
+                # the chain form with h, pre, post on chip and through L2, and
+                # on the tile chain where that is all register radices
+                variants = [(chain, True), (chain, False)]
+                if radices != chain and set(radices) <= lanepack.REGISTER_RADICES:
+                    variants.append((radices, None))
+                for chain, on_chip in variants if chain is not None else ():
+                    if conv.chain_smem_bytes(m, chain, n_io, n_io, not rader, not rader,
+                                             bool(on_chip)) > _build.SMEM_MAX:
+                        continue
+                    roots, tws1, tws2 = conv.double_chain_tables(m, chain, FftDirection.FORWARD)
+                    tabs = (on(roots), on(tws1), on(tws2), h, *tables[3:])
+                    what = ("default" if on_chip is None else "on chip" if on_chip
+                            else "via L2")
+                    out[f"K13 conv_chain_fft {chain} tables {what} {n}x{batch}"] = ms(
+                        lambda: conv.conv_chain_fft(x, chain, tabs, n_io, not rader,
+                                                    tables_smem=on_chip), reps=15)
                 del x
     pad_tables = getattr(largepad, "col_tables", None)
     for n, batch in PAD if "K12" in groups else ():
@@ -498,8 +516,10 @@ def main() -> None:
         print(f"{root}: {line}", flush=True)
         runs.append(json.loads(line))
     print("ms (CUDA events, median); runs: " + ", ".join(roots))
-    for key in runs[0]:
-        print(f"  {key:32s} " + " ".join(f"{r[key]:9.3f}" for r in runs))
+    keys = list(dict.fromkeys(key for r in runs for key in r))  # a run may time more
+    for key in keys:
+        print(f"  {key:32s} " + " ".join(f"{r[key]:9.3f}" if key in r else f"{'-':>9s}"
+                                         for r in runs))
 
 
 if __name__ == "__main__":

@@ -24,9 +24,11 @@ n whose plan is a Bluestein on the fused large Bluestein's tile form:
 kernel A, B_conv and A2, convlarge.COL_TILE_PHASES, ROW_TILE_PHASES,
 OUT_TILE_PHASES), and a prime whose plan is a Rader or a Bluestein on the
 one-pass convolution core (1009:8192, 1234:8192; m = n - 1 or the inner
-length) to that core's kernel (conv.CONV_PHASES: load, chain 1, the H
-multiply, chain 2, store; conv.CONV_FIXED_PHASES for the compile-time
-kernel at (16, 16, 12), whose chains read and write device memory).  For each shape it
+length) to that core's kernels: conv_fft (conv.CONV_PHASES: load, chain
+1, the H multiply, chain 2, store; conv.CONV_FIXED_PHASES for the
+compile-time kernel at (16, 16, 12), whose chains read and write device
+memory) and, where conv.chain_radices(m) holds, conv_chain_fft
+(conv.CHAIN_PHASES, summed over a persistent block's units).  For each shape it
 runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
 fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps,
 largepad.largepad_col_phase_stamps and largepad_row_phase_stamps,
@@ -286,21 +288,28 @@ def conv_phases(n: int, m: int, batch: int, gen) -> None:
     def card(t):
         return None if t is None else torch.from_numpy(conv_radix.zero_extended(t, m)).to(dev)
 
-    radices = lanepack.tile_radices(m)
-    roots, tws = lanepack.stage_tables(m, radices, d)
-    tables = ([torch.from_numpy(a).to(dev) for a in roots],
-              [torch.from_numpy(a).to(dev) for a in tws], card(h), card(pre), card(post))
     x = torch.randn((batch, n_io), dtype=torch.complex64, generator=gen, device=dev)
-    args = (x, radices, tables, n_io, not rader)
-    conv.conv_phase_stamps(*args)  # warm-up (and the stamped library's build)
-    y, stamps, phases = conv.conv_phase_stamps(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(y, conv.conv_fft(*args)):
-        raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
-    report(f"n={n} ({'Rader' if rader else 'Bluestein'}, m = {m}, {radices}) batch={batch} "
-           "conv_fft", stamps, phases, median_ms(lambda: conv.conv_phase_stamps(*args)),
-           median_ms(lambda: conv.conv_fft(*args)))
-    del x, y, stamps
+    forms = [("conv_fft", conv.conv_fft, conv.conv_phase_stamps, lanepack.tile_radices(m),
+              lambda r: [[torch.from_numpy(a).to(dev) for a in t]
+                         for t in lanepack.stage_tables(m, r, d)] + [card(h)])]
+    if getattr(conv, "chain_radices", lambda _: None)(m) is not None:  # the chain form
+        forms.append(("conv_chain_fft", conv.conv_chain_fft, conv.conv_chain_phase_stamps,
+                      conv.chain_radices(m),
+                      lambda r: [[torch.from_numpy(a).to(dev) for a in t]
+                                 for t in conv.double_chain_tables(m, r, d)]
+                      + [card(conv.chain_h_table(conv_radix.zero_extended(h, m), r))]))
+    for name, kernel, stamped, radices, make in forms:
+        args = (x, radices, (*make(radices), card(pre), card(post)), n_io, not rader)
+        stamped(*args)  # warm-up (and the stamped library's build)
+        y, stamps, phases = stamped(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(y, kernel(*args)):
+            raise SystemExit(f"n={n}: the stamped {name} differs from the kernel")
+        report(f"n={n} ({'Rader' if rader else 'Bluestein'}, m = {m}, {radices}) batch={batch} "
+               f"{name}", stamps, phases, median_ms(lambda: stamped(*args)),
+               median_ms(lambda: kernel(*args)))
+        del y, stamps
+    del x
     torch.cuda.empty_cache()
 
 
