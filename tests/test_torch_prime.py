@@ -616,11 +616,13 @@ def test_two_pass_rader_matches_plain_on_card(cuda_device, p):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,counter,rise", [
-    (1009, "conv_fft", 1), (1234, "conv_fft", 1), (7919, "conv_radix_pass2", 1),
-    (65537, "conv_radix_pass2", 1), (263, "conv_fft", 1), (257, "permute", 2),
+    (1009, "conv_chain_fft", 1), (1234, "conv_chain_fft", 1), (7919, "conv_radix_pass2", 1),
+    (65537, "conv_radix_pass2", 1), (263, "conv_chain_fft", 1), (257, "permute", 2),
 ])
 def test_prime_path_on_card(cuda_device, n, counter, rise):
-    fn = {"conv_fft": conv.conv_fft, "conv_radix_pass2": conv_radix.conv_radix_pass2,
+    """Each prime path launches its core once (the one-pass core's chain
+    form at 1009, 1234 and 263, whose inner lengths chain_radices takes)."""
+    fn = {"conv_chain_fft": conv.conv_chain_fft, "conv_radix_pass2": conv_radix.conv_radix_pass2,
           "permute": permute.permute}[counter]
     planner = rustfft_tpu_torch.FftPlanner(np.complex64, device="cuda")
     x = _signal(4, n, seed=n)
