@@ -319,9 +319,9 @@ def chain_kernel_form(radices: Sequence[int], smem: int) -> int:
     blocks of `smem` bytes: the one with the direct sums where a radix needs
     it (chain_big), else the register form at three blocks an SM where
     shared memory holds three (its 80 registers spill a few hundred bytes;
-    PERF.md, PR 17: 5-20% faster than two at 1008, level at 3072 and 256),
-    at two where it holds fewer (128 registers, no spill; 1-7% faster at
-    6144 and 8192)."""
+    on an H100 at 700 W it ran 5-20% faster than two at 1008, level at
+    3072 and 256: PERF.md), at two where it holds fewer (128 registers, no
+    spill; 1-7% faster at 6144 and 8192)."""
     if chain_big(radices):
         return 2
     return 0 if SM_SMEM // (smem + BLOCK_RESERVED) >= CHAIN_FORMS[0][1] else 1
@@ -522,8 +522,8 @@ def make_conv_fn(
         out = [post *] maybe_conj( FFT_m( conj( FFT_m([pre *] zeropad(x)) * H ) ) )
 
     through conv_chain_fft wherever chain_radices(m) holds (faster than
-    conv_fft at every length timed: PERF.md, PR 17), else through conv_fft
-    at lanepack.tile_radices(m).  h, pre, post are
+    conv_fft at every length timed on an H100: PERF.md), else through
+    conv_fft at lanepack.tile_radices(m).  h, pre, post are
     complex128 host arrays; pre / post may be shorter than m (zero-extended,
     which is the Bluestein zero-padding).  n_in / n_out default to m.
     """
