@@ -840,10 +840,10 @@ def main() -> None:
         radices = conv.chain_radices(m)
         unit = conv.chain_unit(m)
         # the blocks the grid of the checks without tables has
+        card = torch.cuda.current_device()
         smem = conv.chain_smem_bytes(m, radices, m, m, False, False,
-                                     conv.chain_tables_smem(m, radices, m, m, False, False))
-        resident = conv.chain_resident(torch.cuda.current_device(),
-                                       conv.chain_kernel_form(radices, smem), smem)
+                                     conv.chain_tables_smem(card, m, radices, m, m, False, False))
+        resident = conv.chain_resident(card, conv.chain_kernel_form(radices), smem)
         ragged = unit * (resident + 3) + 1
         for d in directions:
             n_blue = (m + 1) // 2  # a Bluestein of n_blue at inner m: ragged n_in and n_out
@@ -1606,12 +1606,14 @@ def main() -> None:
         if n in (1009, 1234):
             _, _, tile, parent_tables = core_inputs(n, m, FftDirection.FORWARD, conv_tables)
             parent = median_ms(lambda: conv.conv_fft(x, tile, parent_tables, n_io, not rader))
-            extra = (f"; conv_fft (the parent form, {tile}) on the same inputs {parent:.3f} ms "
+            extra = (f"; conv_fft at {tile} on the same inputs {parent:.3f} ms "
                      f"({parent / k:.2f}x the chain form's time)")
         spent = batch * m * 2 * chain_ops(radices, lambda r: None)
+        on_chip = conv.chain_tables_smem(torch.cuda.current_device(), m, radices, n_io, n_io,
+                                         not rader, not rader)
         print(f"  {key} m={m} {radices} n={n_io} batch={batch} unit {conv.chain_unit(m)} "
-              f"tables on chip {conv.chain_tables_smem(m, radices, n_io, n_io, not rader, not rader)}"
-              f": the operations its chains spend {spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 "
+              f"tables on chip {on_chip}: the operations its chains spend "
+              f"{spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 "
               f"peak{extra}", flush=True)
         record(key, k, plain, 16 * batch * n_io + 8 * m * (1 if rader else 3),
                batch * (2 * fft_ops(m) + 6 * m * (1 if rader else 3)))

@@ -25,12 +25,7 @@
 // chain leaves), run the chain again from that buffer, and store the first
 // n_out outputs with conj and post.  The TPU kernel's [k1, k2]-transposed H,
 // mirrored second factorisation, row-group trims and bf16 tables have no
-// counterpart here.  The Bluestein 1234 chain (m = 3072) has a compile-time
-// kernel (fixed_chain: one buffer, the first chain reading from and the
-// second writing to device memory): at 8192 rows on the H100 it was faster
-// than the general kernel in 10 of 10 alternated rounds (median 0.553
-// against 0.583 ms).  At m = 1008 it was faster in 2 of 10 (0.299 against
-// 0.287), so that chain runs the general kernel.
+// counterpart here.
 #include "tile_walk.cuh"
 
 namespace rf {
@@ -46,12 +41,9 @@ static __device__ __forceinline__ void conv_stamp(unsigned long long* stamps, in
   }
 }
 
-// The general kernel's stamps: its start and the ends of the load, chain 1,
-// the H multiply, chain 2 and the store.
+// The kernel's stamps: its start and the ends of the load, chain 1, the H
+// multiply, chain 2 and the store.
 constexpr int kConvStamps = 6;
-// The compile-time kernel's: its start and the ends of chain 1 (with the
-// load), the H multiply and chain 2 (with the store).
-constexpr int kConvFixedStamps = 4;
 
 template <bool kStamp>
 __global__ void __launch_bounds__(256) conv_fft_kernel(const float2* __restrict__ x,
@@ -101,66 +93,12 @@ __global__ void __launch_bounds__(256) conv_fft_kernel(const float2* __restrict_
   conv_stamp<kStamp>(stamps, kConvStamps, 5);
 }
 
-// Stage-0 source of the compile-time core: x[i] (zero beyond n_in) times pre[i].
-struct ConvLoad {
-  const float2* __restrict__ xr;
-  const float2* __restrict__ pre;
-  int n_in;
-  __device__ float2 load(int i) const {
-    if (i >= n_in) return make_float2(0.f, 0.f);
-    return pre != nullptr ? cmul(xr[i], __ldg(&pre[i])) : xr[i];
-  }
-};
-
-// Last-stage sink of the compile-time core: outputs i < n_out, [conj] [. post].
-struct ConvStore {
-  float2* __restrict__ yr;
-  const float2* __restrict__ post;
-  int n_out, conj_out;
-  __device__ void store(int i, float2 v) const {
-    if (i >= n_out) return;
-    if (conj_out) v.y = -v.y;
-    yr[i] = post != nullptr ? cmul(v, __ldg(&post[i])) : v;
-  }
-};
-
-// conv_fft_kernel for one compile-time chain (fixed_chain): one buffer, the
-// first chain reading from device memory, the second writing to it.
-template <int R0, int R1, int R2, bool kStamp>
-__global__ void __launch_bounds__(kFixedThreads<1, R0, R1, R2>)
-    conv_fft_fixed_kernel(const float2* __restrict__ x, float2* __restrict__ y, int n_in,
-                          int n_out, Stages st, const float2* __restrict__ h,
-                          const float2* __restrict__ pre, const float2* __restrict__ post,
-                          int conj_out, unsigned long long* stamps) {
-  conv_stamp<kStamp>(stamps, kConvFixedStamps, 0);
-  constexpr int M = R0 * R1 * R2;
-  __shared__ float2 buf[M];
-  __shared__ float2 sroots[R0 + R1 + R2];
-  load_roots(st, sroots);
-  __syncthreads();
-  const SmemTile tile{buf};
-  fixed_chain<1, R0, R1, R2>(ConvLoad{x + (size_t)blockIdx.x * (size_t)n_in, pre, n_in}, tile,
-                             buf, sroots, st);
-  __syncthreads();
-  conv_stamp<kStamp>(stamps, kConvFixedStamps, 1);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const float2 v = cmul(buf[swz(i)], __ldg(&h[i]));
-    buf[swz(i)] = make_float2(v.x, -v.y);
-  }
-  __syncthreads();
-  conv_stamp<kStamp>(stamps, kConvFixedStamps, 2);
-  fixed_chain<1, R0, R1, R2>(
-      tile, ConvStore{y + (size_t)blockIdx.x * (size_t)n_out, post, n_out, conj_out}, buf,
-      sroots, st);
-  conv_stamp<kStamp>(stamps, kConvFixedStamps, 3);
-}
-
 // ---- the chain form ------------------------------------------------------------
 //
-// conv_chain_kernel computes the same function as the kernels above on the
+// conv_chain_kernel computes the same function as the kernel above on the
 // chains of ops/kernels/conv.py chain_radices: lanepack.choose_radices(m),
 // 1..4 radices, each a register radix or a direct sum (cc_radix_ok), never a
-// Bluestein stage.  What held the parent's kernels back: a block for each
+// Bluestein stage.  What held conv_fft_kernel back: a block for each
 // transform doing the load, the chain, H, the chain and the store in turn
 // (nothing hid HBM within a block), h, pre and post read from L2 by every
 // transform (2.2x the signal's bytes at m = 3072), two ping-pong buffers and
@@ -196,9 +134,8 @@ __global__ void __launch_bounds__(kFixedThreads<1, R0, R1, R2>)
 //  - h, pre and post stay in shared memory for the block's life where that
 //    costs no resident block (conv.chain_tables_smem), else they are read
 //    through L2; the stages' roots always;
-//  - the register chains run at three blocks an SM (the register cap 80)
-//    where shared memory allows three, else at two (128, no spill);
-//    conv.chain_kernel_form.
+//  - the register chains run at a register cap of 80, three blocks an SM
+//    where shared memory allows three (it spills a few hundred bytes).
 // Every radix runs in registers: dft_column (radix-2 layers for 2, 4, 8,
 // 16, the unrolled direct sum for 3, 5, 6, 7, 9, 12), and for the other
 // radices of the chains (10, 11, 13 .. 23, 35) a direct sum one output
@@ -212,11 +149,10 @@ constexpr int kCcThreads = 256;
 constexpr int kCcMaxStages = 4;
 
 // The kernel's forms (ops/kernels/conv.py CHAIN_FORMS): the register radices
-// at three blocks an SM (the register cap 80; it spills a few hundred bytes)
-// and at two (128, none), for the lengths whose shared memory allows three
-// or fewer; the register radices with the direct sums at two.
-constexpr int kCcForms = 3;
-static __host__ __device__ constexpr bool cc_form_big(int form) { return form == 2; }
+// at three blocks an SM (the register cap 80), and the register radices
+// with the direct sums at two (128).
+constexpr int kCcForms = 2;
+static __host__ __device__ constexpr bool cc_form_big(int form) { return form == 1; }
 static __host__ __device__ constexpr int cc_form_blocks(int form) { return form == 0 ? 3 : 2; }
 
 // The chain in the kernel's terms: chain 1's stages; chain 2 runs them in
@@ -571,11 +507,7 @@ static size_t cc_smem_bytes(int m, int T, const CcChain& ch, int n_in, int n_out
 
 template <bool kStamp>
 static auto cc_kernel(int form) {
-  switch (form) {
-    case 1: return conv_chain_kernel<1, kStamp>;
-    case 2: return conv_chain_kernel<2, kStamp>;
-    default: return conv_chain_kernel<0, kStamp>;
-  }
+  return form == 1 ? conv_chain_kernel<1, kStamp> : conv_chain_kernel<0, kStamp>;
 }
 
 // rf_conv_chain_fft's checks and launch; the stamped form where kStamp.
@@ -631,7 +563,7 @@ static int conv_chain_launch(const void* x, void* y, long long batch, int n_in, 
   return cudaGetLastError();
 }
 
-// rf_conv_fft's checks and launch; the stamped forms where kStamp.
+// rf_conv_fft's checks and launch; the stamped form where kStamp.
 template <bool kStamp>
 static int conv_fft_launch(const void* x, void* y, long long batch, int n_in, int n_out, int m,
                            const Stages& st, const void* h, const void* pre, const void* post,
@@ -645,12 +577,6 @@ static int conv_fft_launch(const void* x, void* y, long long batch, int n_in, in
   float2* out = static_cast<float2*>(y);
   const float2* tab[3] = {static_cast<const float2*>(h), static_cast<const float2*>(pre),
                           static_cast<const float2*>(post)};
-  if (st.k == 3 && st.r[0] == 16 && st.r[1] == 16 && st.r[2] == 12) {  // m = 3072: Bluestein 1234
-    conv_fft_fixed_kernel<16, 16, 12, kStamp>
-        <<<(unsigned)batch, kFixedThreads<1, 16, 16, 12>, 0, s>>>(
-            in, out, n_in, n_out, st, tab[0], tab[1], tab[2], conj_out, stamps);
-    return cudaGetLastError();
-  }
   const size_t smem = tile_smem_bytes(m, st);
   cudaError_t err = allow_smem(conv_fft_kernel<kStamp>, smem);
   if (err != cudaSuccess) return err;
@@ -681,10 +607,9 @@ extern "C" int rf_conv_fft(const void* x, void* y, long long batch, int n_in, in
 }
 
 #ifdef RF_PHASE_STAMPS
-// rf_conv_fft through its stamped form: stamps (batch, 6) uint64 (the
-// general kernel: start, load, chain 1, H, chain 2, store) or (batch, 4)
-// (the compile-time kernel at (16, 16, 12): start, load + chain 1, H,
-// chain 2 + store), %globaltimer nanoseconds at each phase's end.
+// rf_conv_fft through its stamped form: stamps (batch, 6) uint64 (start,
+// load, chain 1, H, chain 2, store), %globaltimer nanoseconds at each
+// phase's end.
 extern "C" int rf_conv_fft_stamps(const void* x, void* y, long long batch, int n_in, int n_out,
                                   int m, int k, int r0, int r1, int r2, const void* roots0,
                                   const void* roots1, const void* roots2, const void* tw0,

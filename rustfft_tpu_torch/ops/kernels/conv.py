@@ -165,12 +165,8 @@ def conv_fft(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
 #: kernel launches since the count was last set to 0
 conv_fft.launches = 0
 
-#: the stamped forms' phases (tools/torch_phase_times.py): the general
-#: kernel's, and the compile-time kernel's at (16, 16, 12), whose chains read
-#: from and write to device memory themselves
+#: the stamped form's phases (tools/torch_phase_times.py)
 CONV_PHASES = ("load", "chain 1", "H", "chain 2", "store")
-CONV_FIXED_PHASES = ("load+chain 1", "H", "chain 2+store")
-FIXED_RADICES = (16, 16, 12)
 
 
 def conv_phase_stamps(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
@@ -184,9 +180,9 @@ def conv_phase_stamps(x: torch.Tensor, radices: Sequence[int], tables, n_out: in
     m = _conv_fft_checks(x, radices, tables, n_out, what)
     require_cuda(x, what)
     _check_fits(m, radices, what)
-    phases = CONV_FIXED_PHASES if tuple(radices) == FIXED_RADICES else CONV_PHASES
-    stamps = torch.zeros((x.shape[0], len(phases) + 1), dtype=torch.int64, device=x.device)
-    return _conv_fft_launch(x, radices, tables, n_out, conj_out, what, stamps), stamps, phases
+    stamps = torch.zeros((x.shape[0], len(CONV_PHASES) + 1), dtype=torch.int64,
+                         device=x.device)
+    return _conv_fft_launch(x, radices, tables, n_out, conj_out, what, stamps), stamps, CONV_PHASES
 
 
 # -- the chain form: csrc/conv.cu conv_chain_kernel ------------------------------
@@ -196,16 +192,6 @@ def conv_phase_stamps(x: torch.Tensor, radices: Sequence[int], tables, n_out: in
 #: core's domain without a Bluestein stage (csrc/conv.cu cc_with_radix)
 CHAIN_RADICES = lanepack.REGISTER_RADICES | frozenset(
     {10, 11, 13, 14, 15, 17, 18, 19, 21, 23, 35})
-
-#: the chain form's kernels (csrc/conv.cu kCcForms): (the direct sums
-#: compiled, the blocks an SM its register cap allows): the register
-#: radices at three and at two blocks an SM, with the direct sums at two
-CHAIN_FORMS = ((False, 3), (False, 2), (True, 2))
-
-#: shared memory of an SM (bytes) and what the card reserves for each block
-SM_SMEM = 233472
-BLOCK_RESERVED = 1024
-
 
 def chain_big(radices: Sequence[int]) -> bool:
     """The chain runs on the chain form's kernel with the direct sums (a
@@ -314,34 +300,24 @@ def chain_smem_bytes(m: int, radices: Sequence[int], n_in: int, n_out: int, has_
     return 8 * values
 
 
-def chain_kernel_form(radices: Sequence[int], smem: int) -> int:
-    """The index into CHAIN_FORMS of the kernel that runs `radices` with
-    blocks of `smem` bytes: the one with the direct sums where a radix needs
-    it (chain_big), else the register form at three blocks an SM where
-    shared memory holds three (its 80 registers spill a few hundred bytes;
-    on an H100 at 700 W it ran 5-20% faster than two at 1008, level at
-    3072 and 256: PERF.md), at two where it holds fewer (128 registers, no
-    spill; 1-7% faster at 6144 and 8192)."""
-    if chain_big(radices):
-        return 2
-    return 0 if SM_SMEM // (smem + BLOCK_RESERVED) >= CHAIN_FORMS[0][1] else 1
+def chain_kernel_form(radices: Sequence[int]) -> int:
+    """The chain form's kernel that runs `radices` (csrc/conv.cu kCcForms):
+    1, the one with the direct sums, where a radix needs it (chain_big), at
+    two blocks an SM (128 registers); else 0, the register radices at three
+    (80 registers and a spill of a few hundred bytes)."""
+    return 1 if chain_big(radices) else 0
 
 
-def chain_blocks_per_sm(form: int, smem: int) -> int:
-    """Blocks of a form of `smem` bytes an SM holds: its register cap's
-    count (CHAIN_FORMS) or what shared memory allows, the fewer."""
-    return min(CHAIN_FORMS[form][1], SM_SMEM // (smem + BLOCK_RESERVED))
-
-
-def chain_tables_smem(m: int, radices: Sequence[int], n_in: int, n_out: int, has_pre: bool,
-                      has_post: bool) -> bool:
+def chain_tables_smem(device_index: int, m: int, radices: Sequence[int], n_in: int, n_out: int,
+                      has_pre: bool, has_post: bool) -> bool:
     """The chain form holds h, pre and post in shared memory for a block's
-    life where that costs no resident block (at the register cap of the
-    chain's widest form), and reads them through L2 elsewhere."""
-    form = 2 if chain_big(radices) else 0
-    with_tables, without = (chain_blocks_per_sm(form, chain_smem_bytes(
-        m, radices, n_in, n_out, has_pre, has_post, on_chip)) for on_chip in (True, False))
-    return with_tables >= without
+    life where they fit a block and the device still holds as many of its
+    blocks at once (chain_resident), and reads them through L2 elsewhere."""
+    form = chain_kernel_form(radices)
+    with_tables, without = (chain_smem_bytes(m, radices, n_in, n_out, has_pre, has_post, on_chip)
+                            for on_chip in (True, False))
+    return with_tables <= _build.SMEM_MAX and (chain_resident(device_index, form, with_tables)
+                                               >= chain_resident(device_index, form, without))
 
 
 def chain_h_table(h: np.ndarray, radices: Sequence[int]) -> np.ndarray:
@@ -360,36 +336,33 @@ def conv_chain_fft_plain(x: torch.Tensor, radices: Sequence[int], tables, n_out:
     return conv_fft_plain(x, m, radices, (roots, tws1, h[inv], pre, post), n_out, conj_out)
 
 
-def _chain_checks(x, radices, tables, n_out, what) -> int:
-    """Raise unless conv_chain_fft takes these operands; return m."""
+def _chain_table_checks(radices, tables, n_in, n_out, what) -> int:
+    """Raise unless the chain form takes these tables for rows of n_in
+    values and n_out outputs; return m."""
     roots, tws1, tws2, h, pre, post = tables
-    radices = tuple(radices)
     m = math.prod(radices)
     if not (1 <= len(radices) <= lanepack.MAX_STAGES
             and all(r in CHAIN_RADICES for r in radices)):
         raise ValueError(f"{what}: radices {radices} are not 1..{lanepack.MAX_STAGES} of "
                          f"{sorted(CHAIN_RADICES)}")
-    if x.dim() != 2:
-        raise ValueError(f"{what}: expected (batch, n_in), got shape {tuple(x.shape)}")
-    n_in = x.shape[1]
-    check_operand(x, (x.shape[0], n_in), f"{what} input")
     if not (0 < n_in <= m and 0 < n_out <= m):
         raise ValueError(f"{what}: n_in={n_in}, n_out={n_out} must lie in [1, {m}]")
-    check_stage_tables(m, radices, roots, tws1, x.device, what,
-                       max_stages=lanepack.MAX_STAGES)
+    check_operand(h, (m,), f"{what} h")
+    device = h.device
+    check_stage_tables(m, radices, roots, tws1, device, what, max_stages=lanepack.MAX_STAGES)
     weights = chain_weights(radices)
     if len(tws2) != len(radices) - 1:
         raise ValueError(f"{what}: expected {len(radices) - 1} chain-2 twiddle tables")
     for t, table in enumerate(tws2):
         s = len(radices) - 1 - t
         check_operand(table, (radices[s], m // (radices[s] * weights[s])), f"{what} tws2[{t}]")
-        if table.device != x.device:
-            raise ValueError(f"{what}: tws2[{t}] on {table.device}, input on {x.device}")
-    for t, name in ((h, "h"), (pre, "pre"), (post, "post")):
-        if t is not None or name == "h":  # h is required
+        if table.device != device:
+            raise ValueError(f"{what}: tws2[{t}] on {table.device}, h on {device}")
+    for t, name in ((pre, "pre"), (post, "post")):
+        if t is not None:
             check_operand(t, (m,), f"{what} {name}")
-            if t.device != x.device:
-                raise ValueError(f"{what}: {name} on {t.device}, input on {x.device}")
+            if t.device != device:
+                raise ValueError(f"{what}: {name} on {t.device}, h on {device}")
     return m
 
 
@@ -413,51 +386,93 @@ def chain_grid(units: int, resident: int) -> int:
     return min(units, resident)
 
 
-@functools.lru_cache(maxsize=1024)
-def _chain_layout(radices: Tuple[int, ...], n_in: int, n_out: int, has_pre: bool,
-                  has_post: bool, tables_smem: Optional[bool]):
-    """(unit, tables_smem, smem bytes, kernel form) of a launch, by the rules
-    above (cached: a call's host time counts on the short paths)."""
-    m = math.prod(radices)
-    if tables_smem is None:
-        tables_smem = chain_tables_smem(m, radices, n_in, n_out, has_pre, has_post)
-    smem = chain_smem_bytes(m, radices, n_in, n_out, has_pre, has_post, tables_smem)
-    return chain_unit(m), tables_smem, smem, chain_kernel_form(radices, smem)
+class ChainCore:
+    """conv_chain_fft on one set of tables, checked and laid out once:
+    ChainCore(radices, tables, n_in, n_out, conj_out)(x) is
+    conv_chain_fft(x, radices, tables, n_out, conj_out) for x (batch,
+    n_in) on the tables' device.  make_conv_fn keeps one a device, so that
+    a call checks x alone and passes launch arguments made once."""
 
+    def __init__(self, radices: Sequence[int], tables, n_in: int, n_out: int,
+                 conj_out: bool = False):
+        self.radices = tuple(radices)
+        self.tables = tables
+        self.n_in, self.n_out, self.conj_out = n_in, n_out, conj_out
+        self.m = _chain_table_checks(self.radices, tables, n_in, n_out, "conv_chain_fft")
+        self.device = tables[3].device
+        self._laid_out = {}  # tables_smem -> (lib, unit, resident, arguments)
 
-def _chain_launch(x, radices, tables, n_out, conj_out, what, tables_smem=None, stamps=None):
-    roots, tws1, tws2, h, pre, post = tables
-    radices = tuple(radices)
-    n_in = x.shape[1]
-    width, tables_smem, smem, form = _chain_layout(radices, n_in, n_out, pre is not None,
-                                                   post is not None, tables_smem)
-    if smem > _build.SMEM_MAX:
-        raise ValueError(f"{what}: radices {radices} do not fit one block")
-    units = -(-x.shape[0] // width)
-    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    grid = chain_grid(units, chain_resident(device, form, smem))
-    y = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
-    k = len(radices)
-    rp = (ctypes.c_void_p * k)(*[t.data_ptr() for t in roots])  # host arrays of pointers
-    tw = (ctypes.c_void_p * (2 * k))(*[t.data_ptr() for t in list(tws1) + list(tws2)], None,
-                                    None)
-    lib = _build.load(phase_stamps=stamps is not None)
-    args = (x.data_ptr(), y.data_ptr(), x.shape[0], n_in, n_out, width, k,
-            *(list(radices) + [1] * (lanepack.MAX_STAGES - k)), ctypes.addressof(rp),
-            ctypes.addressof(tw), h.data_ptr(), _ptr(pre), _ptr(post), int(conj_out),
-            int(tables_smem), form, grid)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if stamps is None:
-            code = lib.rf_conv_chain_fft(*args, stream)
-        else:
-            code = lib.rf_conv_chain_fft_stamps(*args, stamps.data_ptr(), stream)
-    _build.check(lib, code, what)
-    return y, grid
+    def _check(self, x, what):
+        if x.dim() != 2 or x.shape[1] != self.n_in:
+            raise ValueError(f"{what}: expected (batch, {self.n_in}), got shape "
+                             f"{tuple(x.shape)}")
+        check_operand(x, x.shape, f"{what} input")
+        if x.device != self.device:
+            raise ValueError(f"{what}: input on {x.device}, tables on {self.device}")
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        what = "conv_chain_fft"
+        self._check(x, what)
+        if x.device.type == "cpu":
+            return conv_chain_fft_plain(x, self.radices, self.tables, self.n_out, self.conj_out)
+        require_cuda(x, what)
+        if x.shape[0] == 0:
+            return torch.empty((0, self.n_out), dtype=x.dtype, device=x.device)
+        y, _ = self._launch(x, what)
+        conv_chain_fft.launches += 1
+        return y
+
+    def _lay_out(self, tables_smem: Optional[bool], phase_stamps: bool):
+        """(lib, unit, resident blocks, the launcher's arguments from n_in to
+        form) of a launch, by the rules above where tables_smem is None."""
+        key = (tables_smem, phase_stamps)
+        if key in self._laid_out:
+            return self._laid_out[key]
+        roots, tws1, tws2, h, pre, post = self.tables
+        m, radices, n_in, n_out = self.m, self.radices, self.n_in, self.n_out
+        device = self.device.index if self.device.index is not None else (
+            torch.cuda.current_device())
+        if tables_smem is None:
+            tables_smem = chain_tables_smem(device, m, radices, n_in, n_out, pre is not None,
+                                            post is not None)
+        smem = chain_smem_bytes(m, radices, n_in, n_out, pre is not None, post is not None,
+                                tables_smem)
+        if smem > _build.SMEM_MAX:
+            raise ValueError(f"conv_chain_fft: radices {radices} do not fit one block")
+        form = chain_kernel_form(radices)
+        k = len(radices)
+        rp = (ctypes.c_void_p * k)(*[t.data_ptr() for t in roots])  # host arrays of pointers
+        tw = (ctypes.c_void_p * (2 * k))(*[t.data_ptr() for t in list(tws1) + list(tws2)],
+                                         None, None)
+        args = (n_in, n_out, chain_unit(m), k, *(radices + (1,) * (lanepack.MAX_STAGES - k)),
+                ctypes.addressof(rp), ctypes.addressof(tw), h.data_ptr(), _ptr(pre), _ptr(post),
+                int(self.conj_out), int(tables_smem), form)
+        out = (_build.load(phase_stamps=phase_stamps), chain_unit(m),
+               chain_resident(device, form, smem), args, (rp, tw))  # rp, tw kept alive
+        self._laid_out[key] = out
+        return out
+
+    def _launch(self, x, what, tables_smem=None, stamps=None):
+        """Launch the kernel on x (checked), h, pre and post where
+        tables_smem says (the rule where None), stamped where stamps is
+        given; return (y, grid)."""
+        lib, unit, resident, args, _ = self._lay_out(tables_smem, stamps is not None)
+        grid = chain_grid(-(-x.shape[0] // unit), resident)
+        y = torch.empty((x.shape[0], self.n_out), dtype=x.dtype, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if stamps is None:
+                code = lib.rf_conv_chain_fft(x.data_ptr(), y.data_ptr(), x.shape[0], *args, grid,
+                                             stream)
+            else:
+                code = lib.rf_conv_chain_fft_stamps(x.data_ptr(), y.data_ptr(), x.shape[0],
+                                                    *args, grid, stamps.data_ptr(), stream)
+        _build.check(lib, code, what)
+        return y, grid
 
 
 def conv_chain_fft(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
-                   conj_out: bool = False, tables_smem: Optional[bool] = None) -> torch.Tensor:
+                   conj_out: bool = False) -> torch.Tensor:
     """The convolution core's chain form for x (batch, n_in) complex64 ->
     (batch, n_out), m = prod(radices) >= n_in, n_out: the same function as
     conv_fft on 1..4 radices of CHAIN_RADICES (chain_radices).
@@ -466,20 +481,14 @@ def conv_chain_fft(x: torch.Tensor, radices: Sequence[int], tables, n_out: int,
     tws2 from double_chain_tables(m, radices, direction); h (m,) in chain
     1's output positions (chain_h_table); pre, post (m,) complex64 or None
     (zero beyond n_in / n_out).  A persistent grid (chain_grid) walks units
-    of chain_unit(m) transforms, the next unit's rows landing
-    while the current one runs its chains; tables_smem forces where h, pre
-    and post are read from (timing only; default chain_tables_smem).
+    of chain_unit(m) transforms, the next unit's rows landing while the
+    current one runs its chains; h, pre and post are read from shared
+    memory or through L2 by chain_tables_smem.  ChainCore checks the tables
+    once for many calls.
     """
-    what = "conv_chain_fft"
-    m = _chain_checks(x, radices, tables, n_out, what)
-    if x.device.type == "cpu":
-        return conv_chain_fft_plain(x, radices, tables, n_out, conj_out)
-    require_cuda(x, what)
-    if x.shape[0] == 0:
-        return torch.empty((0, n_out), dtype=x.dtype, device=x.device)
-    y, _ = _chain_launch(x, radices, tables, n_out, conj_out, what, tables_smem)
-    conv_chain_fft.launches += 1
-    return y
+    if x.dim() != 2:
+        raise ValueError(f"conv_chain_fft: expected (batch, n_in), got shape {tuple(x.shape)}")
+    return ChainCore(radices, tables, x.shape[1], n_out, conj_out)(x)
 
 
 #: kernel launches since the count was last set to 0
@@ -498,11 +507,14 @@ def conv_chain_phase_stamps(x: torch.Tensor, radices: Sequence[int], tables, n_o
     phases), stamps (grid, 4) int64 nanoseconds of %globaltimer: a block's
     start and that start plus the running sums of its CHAIN_PHASES."""
     what = "conv_chain_phase_stamps"
-    _chain_checks(x, radices, tables, n_out, what)
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (batch, n_in), got shape {tuple(x.shape)}")
+    core = ChainCore(radices, tables, x.shape[1], n_out, conj_out)
+    core._check(x, what)
     require_cuda(x, what)
     stamps = torch.zeros((x.shape[0], len(CHAIN_PHASES) + 1), dtype=torch.int64,
                          device=x.device)
-    y, grid = _chain_launch(x, radices, tables, n_out, conj_out, what, stamps=stamps)
+    y, grid = core._launch(x, what, stamps=stamps)
     return y, stamps[:grid], CHAIN_PHASES
 
 
@@ -521,8 +533,9 @@ def make_conv_fn(
 
         out = [post *] maybe_conj( FFT_m( conj( FFT_m([pre *] zeropad(x)) * H ) ) )
 
-    through conv_chain_fft wherever chain_radices(m) holds (faster than
-    conv_fft at every length timed on an H100: PERF.md), else through
+    through the chain form wherever chain_radices(m) holds (a ChainCore
+    for each device: conv_chain_fft with its tables checked once; faster
+    than conv_fft at every length timed on an H100: PERF.md), else through
     conv_fft at lanepack.tile_radices(m).  h, pre, post are
     complex128 host arrays; pre / post may be shorter than m (zero-extended,
     which is the Bluestein zero-padding).  n_in / n_out default to m.
@@ -545,16 +558,24 @@ def make_conv_fn(
     tables = calg.DeviceTables([a for g in groups for a in g]
                                + [t for t in extra if t is not None])
 
-    def apply(x):
-        t = tables.on(x.device)
+    cores = {}  # device -> ChainCore
+
+    def on(device):
+        t = tables.on(device)
         rest = iter(t[cuts[-1]:])
-        h_t, pre_t, post_t = (next(rest) if has else None for has in present)
-        shape = x.shape
         chains = [list(t[a:b]) for a, b in zip((0, *cuts[:-1]), cuts)]
-        core = conv_chain_fft if chained else conv_fft
-        y = core(x.reshape(-1, n_in).contiguous(), radices, (*chains, h_t, pre_t, post_t), n_out,
-               conj_out)
-        return y.reshape(shape[:-1] + (n_out,))
+        return (*chains, *(next(rest) if has else None for has in present))
+
+    def apply(x):
+        flat = x.reshape(-1, n_in).contiguous()
+        if chained:
+            core = cores.get(x.device)
+            if core is None:
+                core = cores[x.device] = ChainCore(radices, on(x.device), n_in, n_out, conj_out)
+            y = core(flat)
+        else:
+            y = conv_fft(flat, radices, on(x.device), n_out, conj_out)
+        return y.reshape(x.shape[:-1] + (n_out,))
 
     return apply
 

@@ -279,38 +279,55 @@ def test_h_table_is_a_permutation_of_h(m):
     assert np.array_equal(pos, np.argsort(pos_of_k))
 
 
-def test_tables_in_shared_memory_where_they_cost_no_block():
-    """h, pre and post stay on chip where the blocks an SM holds do not drop
-    for them: at 2530 (2 blocks either way) and 256 (3), not at 1008 and
-    3072 (2 blocks with them, 3 without), 6144 and 8192; the register
-    chains run three blocks an SM where shared memory holds three, else two,
-    and the chains with direct sums their own form."""
-    for m, n_io, tables, want, form in ((1008, 1008, False, False, 0),
-                                        (3072, 1234, True, False, 0),
-                                        (2530, 2530, False, True, 2), (256, 256, False, True, 0),
-                                        (6144, 2063, True, False, 1),
-                                        (8192, 3083, True, False, 1)):
+#: the SMs of an H100 and, for each of them, the shared memory (bytes), what
+#: a block reserves of it, and the chain form's block caps by kernel form
+#: (csrc/conv.cu cc_form_blocks)
+H100_SMS, SM_SMEM, BLOCK_RESERVED, FORM_BLOCKS = 132, 233472, 1024, (3, 2)
+
+
+def _per_sm(form, smem):
+    return min(FORM_BLOCKS[form], SM_SMEM // (smem + BLOCK_RESERVED))
+
+
+def _h100_resident(device_index, form, smem):
+    """A model of conv.chain_resident on an H100 (held against the card by
+    test_chain_resident_matches_the_h100_model), which refuses a block
+    larger than a block's shared memory as the card's does."""
+    if not 0 < smem <= _build.SMEM_MAX:
+        raise RuntimeError(f"conv_chain resident blocks: smem={smem} (invalid argument)")
+    return H100_SMS * _per_sm(form, smem)
+
+
+def test_tables_in_shared_memory_where_they_cost_no_block(monkeypatch):
+    """h, pre and post stay on chip where the blocks the device holds do
+    not drop for them: at 2530 (2 blocks an SM either way) and 256 (3), not
+    at 1008 and 3072 (2 with them, 3 without), 6144 (1, 2) and 8192 (they
+    do not fit a block; 1 without); the chains with direct sums run their
+    own form."""
+    monkeypatch.setattr(conv, "chain_resident", _h100_resident)
+    for m, n_io, tables, want, form, blocks in ((1008, 1008, False, False, 0, (2, 3)),
+                                                (3072, 1234, True, False, 0, (2, 3)),
+                                                (2530, 2530, False, True, 1, (2, 2)),
+                                                (256, 256, False, True, 0, (3, 3)),
+                                                (6144, 2063, True, False, 0, (1, 2)),
+                                                (8192, 3083, True, False, 0, (0, 1))):
         radices = conv.chain_radices(m)
-        on_chip = conv.chain_tables_smem(m, radices, n_io, n_io, tables, tables)
-        assert on_chip is want, m
-        smem = conv.chain_smem_bytes(m, radices, n_io, n_io, tables, tables, on_chip)
-        assert conv.chain_kernel_form(radices, smem) == form, m
-        cap = 2 if conv.chain_big(radices) else 3
-        blocks = [min(cap, conv.SM_SMEM // (conv.chain_smem_bytes(
-            m, radices, n_io, n_io, tables, tables, t) + conv.BLOCK_RESERVED))
-            for t in (True, False)]
-        assert (blocks[0] >= blocks[1]) is want
+        assert conv.chain_kernel_form(radices) == form, m
+        assert conv.chain_tables_smem(0, m, radices, n_io, n_io, tables, tables) is want, m
+        per_sm = tuple(_per_sm(form, conv.chain_smem_bytes(m, radices, n_io, n_io, tables,
+                                                           tables, t)) for t in (True, False))
+        assert per_sm == blocks, m
 
 
 @pytest.mark.parametrize("m", [1008, 3072, 616, 12288, 464, 1160])
 def test_make_conv_fn_takes_the_form_the_rule_gives(m, monkeypatch):
-    """make_conv_fn launches conv_chain_fft where chain_radices(m) holds and
-    conv_fft elsewhere (464 = 29 x 16 and 1160 = 29 x 8 x 5 need a
-    Bluestein stage), with the same result."""
+    """make_conv_fn launches the chain form (its ChainCore) where
+    chain_radices(m) holds and conv_fft elsewhere (464 = 29 x 16 and 1160 =
+    29 x 8 x 5 need a Bluestein stage), with the same result."""
     calls = []
-    for name in ("conv_fft", "conv_chain_fft"):
-        orig = getattr(conv, name)
-        monkeypatch.setattr(conv, name, lambda *a, _o=orig, _n=name, **k: calls.append(_n) or
+    for owner, name in ((conv, "conv_fft"), (conv.ChainCore, "__call__")):
+        orig = getattr(owner, name)
+        monkeypatch.setattr(owner, name, lambda *a, _o=orig, _n=name, **k: calls.append(_n) or
                             _o(*a, **k))
     rng = np.random.default_rng(m)
     h = rng.standard_normal(m) + 1j * rng.standard_normal(m)
@@ -318,7 +335,7 @@ def test_make_conv_fn_takes_the_form_the_rule_gives(m, monkeypatch):
     got = conv.make_conv_fn(m, FftDirection.FORWARD, np.complex64, h=h)(x)
     want = _definition(x.numpy().astype(np.complex128), m, h, None, None, m, False,
                        FftDirection.FORWARD)
-    assert calls == ["conv_chain_fft" if conv.chain_radices(m) else "conv_fft"]
+    assert calls == ["__call__" if conv.chain_radices(m) else "conv_fft"]
     assert (conv.chain_radices(m) is None) == (m in (464, 1160))
     assert _rel(got.numpy(), want) <= PLAIN_TOL
 
@@ -337,6 +354,36 @@ def test_wrapper_checks_its_operands():
         conv.conv_chain_fft(x, radices, (tables[0], tables[1], tables[2][:1], *tables[3:]), m)
     with pytest.raises(ValueError):
         conv.conv_chain_fft(x, (29, 29), tables, m)
+
+
+def test_chain_core_checks_its_tables_once_and_each_input():
+    """ChainCore checks its tables when it is made and each x it is called
+    on (shape, dtype, device), and computes what conv_chain_fft does."""
+    m, radices = 3072, conv.chain_radices(3072)
+    n = 1234
+    roots, tws1, tws2, h, pre, post = _host_tables(m, radices, FftDirection.INVERSE, n, n, True,
+                                                   seed=5)
+    tables = ([torch.from_numpy(a) for a in roots], [torch.from_numpy(a) for a in tws1],
+              [torch.from_numpy(a) for a in tws2],
+              torch.from_numpy(conv.chain_h_table(h, radices)), torch.from_numpy(pre),
+              torch.from_numpy(post))
+    with pytest.raises(ValueError):
+        conv.ChainCore(radices, (tables[0], tables[1][:1], *tables[2:]), n, n)
+    with pytest.raises(ValueError):
+        conv.ChainCore(radices, tables, m + 1, n)
+    core = conv.ChainCore(radices, tables, n, n, True)
+    x = torch.from_numpy(_signal(3, n, seed=6))
+    want = conv.conv_chain_fft(x, radices, tables, n, True)
+    for _ in range(2):
+        assert torch.equal(core(x), want)
+    with pytest.raises(ValueError):
+        core(x[:, :-1].contiguous())
+    with pytest.raises(TypeError):
+        core(x.to(torch.complex128))
+    with pytest.raises(ValueError):
+        core(x[0])
+    with pytest.raises(ValueError):
+        core(torch.empty((3, n), dtype=torch.complex64, device="meta"))
 
 
 # -- on the card ----------------------------------------------------------------
@@ -369,3 +416,23 @@ def test_chain_kernel_matches_its_plain_version_on_the_card(m):
                 torch.cuda.synchronize()
                 want = conv.conv_chain_fft_plain(x, radices, tables, n_out, with_tables)
                 assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= 1e-6, (m, batch, d)
+
+
+@pytest.mark.cuda
+def test_chain_resident_matches_the_h100_model():
+    """chain_resident on an H100 is _h100_resident, the model the CPU test
+    of chain_tables_smem runs, at the block sizes of the prime paths."""
+    if not torch.cuda.is_available() or "H100" not in torch.cuda.get_device_name(0):
+        pytest.skip("needs an NVIDIA H100")
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, n_io, tables in ((1008, 1008, False), (3072, 1234, True), (2530, 2530, False),
+                            (256, 256, False), (6144, 2063, True), (8192, 3083, True)):
+        radices = conv.chain_radices(m)
+        form = conv.chain_kernel_form(radices)
+        for on_chip in (True, False):
+            smem = conv.chain_smem_bytes(m, radices, n_io, n_io, tables, tables, on_chip)
+            if smem > _build.SMEM_MAX:
+                continue
+            assert conv.chain_resident(dev, form, smem) == _per_sm(form, smem) * sms, (
+                m, on_chip)

@@ -65,12 +65,16 @@ each path and its torch.fft; both kernels also queued (the device's time
 a call, 20 calls behind a sleep kernel, without the host's time a call).
 And K13: the one-pass convolution core at each path of K13 (1009, 1234,
 2063, 3083 and 2531 x 8192, 257 x 65536), its launch alone on the input
-the path gave it (`conv_fft`, or `conv_chain_fft` where the checkout routes
-m to it), the path and torch.fft, and, in a checkout that has
-`conv.chain_radices`, `conv_fft` (the parent's kernel) at the same shape
-on tables of the same sizes and `conv_chain_fft` with h, pre and post
-forced into shared memory and forced through L2, and on
-`lanepack.tile_radices(m)` where that chain is all register radices.  `--only` keeps the named groups of these
+the path gave it (`conv_fft`, or the chain form where the checkout routes
+m to it), the path, the path queued (the device's time a call, 20 calls
+behind a sleep kernel), the host's time a call of the core and of the
+path (us, the same 20 calls timed on the host) and torch.fft, and, in a checkout that has
+`conv.chain_radices`, `conv_fft` at `lanepack.tile_radices(m)` at the
+same shape on tables of the same sizes and the chain form with h, pre and
+post forced into shared memory and forced through L2 (`ChainCore._launch`,
+or `conv_chain_fft(..., tables_smem=)` in a checkout without ChainCore),
+and on `lanepack.tile_radices(m)` where that chain is all register
+radices.  `--only` keeps the named groups of these
 (K1, K2 for K2 and K3, paths for the planner's paths and K1's and K5's
 chain paths' torch.fft, K9, K16, K12, K15, K14, K5 for K5's product, K10,
 K13).  It prints one JSON line per run and then a table, each row a
@@ -83,6 +87,7 @@ import os
 import statistics
 import subprocess
 import sys
+from time import perf_counter
 
 PATHS = ((4096, 16384), (1 << 20, 1024), (1009, 8192), (1234, 8192), (7919, 4096), (65537, 512),
          (14464, 4096), (16256, 4096), (24576, 2048), (28928, 4096), (260608, 256), (49152, 2048),
@@ -143,9 +148,10 @@ K13 = ((1009, 8192), (1234, 8192), (2063, 8192), (3083, 8192), (2531, 8192), (25
 
 #: the kernel wrappers of the cores, by module, with the name each launch
 #: is timed under (K15's general and tile kernels share a name; so do the
-#: one-pass core's two forms)
+#: one-pass core's two forms: a checkout's paths call conv_fft, or
+#: conv_chain_fft or ChainCore's __call__ where it has them)
 RECORDED = {
-    "conv": {"conv_fft": "core", "conv_chain_fft": "core"},
+    "conv": {"conv_fft": "core", "conv_chain_fft": "core", "ChainCore.__call__": "core"},
     "conv_radix": {"conv_col_stage": "col", "conv_row_stage": "row"},
     "convlarge": {"bconv_col_tile": "kernel A", "bconv_row_stage": "B_conv",
                   "bconv_row_tile": "B_conv", "bconv_out_stage": "A2", "bconv_out_tile": "A2"},
@@ -194,6 +200,21 @@ def run_one(root: str, groups=GROUPS) -> dict:
             times.append(a.elapsed_time(b) / calls)
         return statistics.median(times)
 
+    def host_us(fn, calls=20, reps=7):
+        """The host's time a call (us, median): calls queued behind a sleep
+        kernel, so that none waits for the device."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            torch.cuda._sleep(50_000_000)
+            start = perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((perf_counter() - start) / calls * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(times)
+
     def on(arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
@@ -206,7 +227,9 @@ def run_one(root: str, groups=GROUPS) -> dict:
         for mod_name, names in RECORDED.items():
             mod = importlib.import_module(f"rustfft_tpu_torch.ops.kernels.{mod_name}")
             for name, label in names.items():
-                orig = getattr(mod, name, None)
+                owner, _, attr = name.rpartition(".")
+                owner = getattr(mod, owner, None) if owner else mod
+                orig = None if owner is None else getattr(owner, attr, None)
                 if orig is None:
                     continue
 
@@ -215,13 +238,13 @@ def run_one(root: str, groups=GROUPS) -> dict:
                     return _orig(*args, **kw)
 
                 wrap.launches = getattr(orig, "launches", 0)  # the wrapper counts through it
-                saved.append((mod, name, orig))
-                setattr(mod, name, wrap)
+                saved.append((owner, attr, orig))
+                setattr(owner, attr, wrap)
         try:
             fn()
         finally:
-            for mod, name, orig in saved:
-                setattr(mod, name, orig)
+            for owner, attr, orig in saved:
+                setattr(owner, attr, orig)
         return calls
 
     def kernels_alone(group, n, batch, first=None):
@@ -240,8 +263,13 @@ def run_one(root: str, groups=GROUPS) -> dict:
             seen[label] = seen.get(label, 0) + 1
             key = f"{group} {label}{seen[label] if group == 'K14' else ''} {n}x{batch}"
             out[key] = ms(lambda: wrapper(*args, **kw), reps=15)
+            if group == "K13":
+                out[f"{key} host us"] = host_us(lambda: wrapper(*args, **kw))
         del calls
         out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+        if group == "K13":  # the device's time a call without the host's, and the host's
+            out[f"path {n}x{batch} (queued)"] = queued_ms(lambda: plan.process(x), calls=20)
+            out[f"path {n}x{batch} host us"] = host_us(lambda: plan.process(x))
         out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
         del x
 
@@ -441,7 +469,7 @@ def run_one(root: str, groups=GROUPS) -> dict:
         for n, batch in K13:
             kernels_alone("K13", n, batch)
             m = planner.plan_fft_forward(n).recipe.inner.length
-            if hasattr(conv, "chain_radices"):  # the parent's kernel beside the new one
+            if hasattr(conv, "chain_radices"):  # conv_fft beside the chain form
                 torch.cuda.empty_cache()
                 rader = m == n - 1
                 n_io = m if rader else n
@@ -452,7 +480,7 @@ def run_one(root: str, groups=GROUPS) -> dict:
                     np.complex64)).to(dev) for _ in range(3))
                 tables = (on(roots), on(tws), h, None if rader else pre, None if rader else post)
                 x = torch.randn((batch, n_io), dtype=torch.complex64, generator=gen, device=dev)
-                out[f"K13 conv_fft (parent's kernel) {n}x{batch}"] = ms(
+                out[f"K13 conv_fft {n}x{batch}"] = ms(
                     lambda: conv.conv_fft(x, radices, tables, n_io, not rader), reps=15)
                 chain = conv.chain_radices(m)
                 # the chain form with h, pre, post on chip and through L2, and
@@ -468,9 +496,15 @@ def run_one(root: str, groups=GROUPS) -> dict:
                     tabs = (on(roots), on(tws1), on(tws2), h, *tables[3:])
                     what = ("default" if on_chip is None else "on chip" if on_chip
                             else "via L2")
-                    out[f"K13 conv_chain_fft {chain} tables {what} {n}x{batch}"] = ms(
-                        lambda: conv.conv_chain_fft(x, chain, tabs, n_io, not rader,
-                                                    tables_smem=on_chip), reps=15)
+                    if hasattr(conv, "ChainCore"):
+                        core = conv.ChainCore(chain, tabs, n_io, n_io, not rader)
+                        forced = lambda: core._launch(  # noqa: E731
+                            x, "torch_ab", tables_smem=on_chip)[0]
+                    else:
+                        forced = lambda: conv.conv_chain_fft(  # noqa: E731
+                            x, chain, tabs, n_io, not rader, tables_smem=on_chip)
+                    out[f"K13 conv_chain_fft {chain} tables {what} {n}x{batch}"] = ms(forced,
+                                                                                     reps=15)
                 del x
     pad_tables = getattr(largepad, "col_tables", None)
     for n, batch in PAD if "K12" in groups else ():

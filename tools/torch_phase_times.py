@@ -25,9 +25,8 @@ kernel A, B_conv and A2, convlarge.COL_TILE_PHASES, ROW_TILE_PHASES,
 OUT_TILE_PHASES), and a prime whose plan is a Rader or a Bluestein on the
 one-pass convolution core (1009:8192, 1234:8192; m = n - 1 or the inner
 length) to that core's kernels: conv_fft (conv.CONV_PHASES: load, chain
-1, the H multiply, chain 2, store; conv.CONV_FIXED_PHASES for the
-compile-time kernel at (16, 16, 12), whose chains read and write device
-memory) and, where conv.chain_radices(m) holds, conv_chain_fft
+1, the H multiply, chain 2, store) and, where conv.chain_radices(m)
+holds, conv_chain_fft
 (conv.CHAIN_PHASES, summed over a persistent block's units).  For each shape it
 runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
 fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps,
