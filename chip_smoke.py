@@ -172,7 +172,29 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    Gauss stages at the Rader 65537 x 512 shape against in_shift's default
    stages; every switched path against its default path (in turns: the
    default, each variant, the variants in reverse, the default) and
-   torch.fft.
+   torch.fft;
+5. pinned plans (rustfft_tpu_torch.algorithm), c64, both directions: each
+   of the ten constructors through utils.testing.check_fft_algorithm's
+   checks and against the float64 oracle (relative mean error <= 1e-5),
+   among them Radix4(4096), MixedRadix(Radix4(64), Radix4(64)),
+   GoodThomasAlgorithm(Butterfly(7), Radix4(128)) and RadersAlgorithm over
+   the planner's 1008; the launch counters: the pinned 4096 launches no
+   lanepack kernel and the planner's 4096 one, the pinned 1009 no
+   convolution core and the planner's its core and two gathers, each pair
+   built in both orders into an empty executor cache; the pinned
+   Good-Thomas launches K16 twice;
+6. the flagship spectral step (models.flagship.make_spectral_step) at n =
+   2^20, batch 1024, on one NCCL rank (a (1, 1) DeviceMesh, so the
+   six-step's transposes are local), its first run counted (exactly four
+   launches of K1's chain kernel: FFT_p and FFT_q at 1024 on 2^20 rows, a
+   transform each way): against the same step built from FftPlanner and
+   the float64 oracle on 4 rows, make_batch_sharded_fft bit-equal to
+   plan.process, K1's chain kernel at that shape (1024 on 2^20 rows, both
+   directions) within 1e-6 of its plain version and timed beside it, its
+   bound and torch.fft (the kernels line's lanepack_chain_fft/1024; phase
+   2 also checks 1024 with a ragged last block), then the step's time
+   beside the planner's step and the step on torch.fft, and its peak
+   device memory; the process group is destroyed before the last lines.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -227,6 +249,11 @@ PAIR_TOL = 1e-6
 #: and 8192 = 16 x 16 x 16 x 2 (four register stages), 2008 = 251 x 8 (a
 #: 512-point Bluestein stage), 14400 = 16 x 10 x 10 x 9 (direct sums)
 LANE = {64: 1 << 20, 1000: 65536, 2008: 32768, 8192: 8192, 14400: 4096}
+
+#: the flagship spectral step (phase 6): n = 2^20 at batch 1024 on a (1, 1)
+#: mesh; its six-step's local FFTs (p = q = 1024) are K1's chain kernel at
+#: STEP_LOCAL on STEP_BATCH * STEP_N / STEP_LOCAL = 2^20 rows
+STEP_N, STEP_BATCH, STEP_LOCAL = 1 << 20, 1024, 1024
 
 #: the dense tier's paths (K5): the primes from 29 as one Bluestein stage on
 #: K1's chain kernel (dense_chain_fft), n -> batch (232-266 MiB), and 5 and
@@ -338,7 +365,7 @@ for _n in CLUSTER:
     KERNELS[f"two_stage_cluster_fft/{_n}"] = ("rustfft_tpu_torch/csrc/fused.cu",
                                               "rustfft_tpu/ops/pallas/fused.py:439")
 #: K1's chain kernel at each of its paths
-for _n in LANE:
+for _n in (*LANE, STEP_LOCAL):
     KERNELS[f"lanepack_chain_fft/{_n}"] = ("rustfft_tpu_torch/csrc/lanepack.cu",
                                            "rustfft_tpu/ops/pallas/lanepack.py:250")
 #: the last three tiers: K5 at each dense path (the chain form from 29, the
@@ -524,6 +551,214 @@ def switched(config, switches, fn):
             setattr(config, name, value)
 
 
+def run_counted(counters, fn, expected, what, totals=()):
+    """fn() with every launch counter set to 0 just before and read just
+    after: exactly the expected launches (a name left out: none), each added
+    to every dict of `totals`."""
+    for counter in counters.values():
+        counter.launches = 0
+    y = fn()
+    torch.cuda.synchronize()
+    got = {name: counter.launches for name, counter in counters.items()}
+    want = {name: expected.get(name, 0) for name in counters}
+    if got != want:
+        raise AssertionError(f"{what}: launches "
+                             f"{ {k: v for k, v in got.items() if v} }, expected {expected}")
+    for tally in totals:
+        for name, count in got.items():
+            tally[name] = tally.get(name, 0) + count
+    return y
+
+
+def pinned_phase(counters, signal, t0) -> None:
+    """Phase 5: the hand-built constructors of rustfft_tpu_torch.algorithm on
+    the card, c64, both directions.  Each of the ten through
+    utils.testing.check_fft_algorithm's checks (length, direction, the three
+    other entry points equal to process, the (3, n) batch equal to the flat
+    buffer, the input untouched) and against the float64 oracle at a relative
+    mean error <= 1e-5; then the launch counters: a pinned plan runs its
+    literal recipe (Radix4(4096) no lanepack kernel, the Rader 1009 no
+    convolution core, Good-Thomas its two K16 gathers), the planner's 4096
+    and 1009 their kernels, with the pinned and the planner's plan built in
+    both orders into an empty executor cache."""
+    from rustfft_tpu_torch import FftDirection, FftPlanner, algorithm as alg, executor
+    from rustfft_tpu_torch.utils.testing import check_fft_algorithm
+
+    print(f"phase 5: pinned plans, rustfft_tpu_torch.algorithm on the card (t = "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    for d in (FftDirection.FORWARD, FftDirection.INVERSE):
+        planner = FftPlanner(np.complex64, device="cuda")
+        built = (
+            (alg.Dft(50, d), 50),
+            (alg.Butterfly(16, d), 16),
+            (alg.Radix4(4096, d), 4096),
+            (alg.Radix3(729, d), 729),
+            (alg.MixedRadix(alg.Radix4(64, d), alg.Radix4(64, d)), 4096),
+            (alg.MixedRadixSmall(alg.Butterfly(4, d), alg.Butterfly(6, d)), 24),
+            (alg.GoodThomasAlgorithm(alg.Butterfly(7, d), alg.Radix4(128, d)), 896),
+            (alg.GoodThomasAlgorithmSmall(alg.Butterfly(9, d), alg.Butterfly(16, d)), 144),
+            (alg.RadersAlgorithm(planner.plan_fft(1008, d)), 1009),
+            (alg.BluesteinsAlgorithm(1234, alg.Radix4(4096, d)), 1234),
+        )
+        for plan, n in built:
+            if not plan.pinned or plan.device.type != "cuda":
+                raise AssertionError(f"{plan!r}: not a pinned plan on the card")
+            check(f"{plan!r} {plan.recipe!r}"[:150] + " check_fft_algorithm vs float64 oracle",
+                  check_fft_algorithm(plan, n, d))
+        for n, pinned_of, planned in (
+            (4096, lambda: alg.Radix4(4096, d), {"lanepack_pipe_fft": 1}),
+            (1009, lambda: alg.RadersAlgorithm(planner.plan_fft(1008, d)),
+             {"conv_chain_fft": 1, "permute": 2}),
+        ):
+            for first in ("pinned", "planner"):
+                saved = executor._CACHE
+                executor._CACHE = type(saved)()
+                try:
+                    plans = {}
+                    for which in ((first, "planner") if first == "pinned" else (first, "pinned")):
+                        plans[which] = (pinned_of() if which == "pinned" else
+                                        FftPlanner(np.complex64, device="cuda").plan_fft(n, d))
+                finally:
+                    executor._CACHE = saved
+                if plans["pinned"].raw_fn is plans["planner"].raw_fn:
+                    raise AssertionError(f"{n}: the pinned and the planner's plan share a function")
+                x = signal(64, n)
+                want = torch.fft.fft(x) if d is FftDirection.FORWARD else torch.fft.ifft(x) * n
+                for which, expected in (("pinned", {}), ("planner", planned)):
+                    what = f"{which} {n} x 64 {d.name} ({first} built first)"
+                    y = run_counted(counters, lambda: plans[which].process(x), expected, what)
+                    print(f"  {what}: launches {expected or 'none'}", flush=True)
+                    check(f"{which} {n} x 64 {d.name} vs torch.fft", rel_err(y, want))
+        gt = alg.GoodThomasAlgorithm(alg.Butterfly(7, d), alg.Radix4(128, d))
+        x = signal(64, 896)
+        what = f"pinned GoodThomas(7, 128) x 64 {d.name}"
+        y = run_counted(counters, lambda: gt.process(x), {"permute": 2}, what)
+        print(f"  {what}: launches {{'permute': 2}}", flush=True)
+        want = torch.fft.fft(x) if d is FftDirection.FORWARD else torch.fft.ifft(x) * 896
+        check(f"pinned GoodThomas(7, 128) x 64 {d.name} vs torch.fft", rel_err(y, want))
+    free()
+
+
+def spectral_phase(counters, signal, card, t0, totals):
+    """Phase 6: the flagship spectral step (models.flagship.make_spectral_step)
+    at n = STEP_N, batch STEP_BATCH, on one NCCL rank (a (1, 1) mesh: the
+    six-step's transposes are local, no all-to-all runs), its first run
+    counted (two K1 chain launches a transform, added to `totals`), against
+    the same step built from FftPlanner (forward, filter, inverse, scale)
+    and the float64 oracle on 4 rows; make_batch_sharded_fft on the same
+    mesh bit-equal to plan.process; K1's chain kernel at the shape the step
+    gives it (STEP_LOCAL on 2^20 rows) against its plain version in both
+    directions and timed beside it, its bound and torch.fft; the step's time
+    (CUDA events, median of 7), the same step on torch.fft and the peak
+    device memory.  Returns K1's entry at STEP_LOCAL for the kernels line:
+    its times, bound and max_abs_err."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rustfft_tpu_torch import FftDirection, FftPlanner
+    from rustfft_tpu_torch.models.flagship import make_spectral_step, spectral_filter
+    from rustfft_tpu_torch.ops.kernels import lanepack
+    from rustfft_tpu_torch.parallel import make_batch_sharded_fft, make_mesh
+
+    print(f"phase 6: the flagship spectral step on one NCCL rank (t = "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/init", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1))
+        n, batch, m = STEP_N, STEP_BATCH, STEP_LOCAL
+        what = f"spectral step n=2^20 batch={batch}, mesh (data=1, fft=1)"
+        step = make_spectral_step(mesh, n, np.complex64)
+        planner = FftPlanner(np.complex64, device="cuda")
+        fwd, inv = planner.plan_fft_forward(n), planner.plan_fft_inverse(n)
+        filt = torch.from_numpy(spectral_filter(n).astype(np.float32)).cuda()
+
+        def planner_step(x):
+            f = fwd.process(x)
+            f.mul_(filt)
+            return inv.process(f).mul_(float(np.float32(1.0 / n)))
+
+        def library_step(x):
+            return torch.fft.ifft(torch.fft.fft(x) * filt)
+
+        x = signal(batch, n)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        y = run_counted(counters, lambda: step(x), {"lanepack_chain_fft": 4}, what, totals)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {what}: launches {{'lanepack_chain_fft': 4}}", flush=True)
+        if y.shape != x.shape or y.dtype != torch.complex64:
+            raise AssertionError(f"{what}: output {tuple(y.shape)} {y.dtype}")
+        if not bool(torch.isfinite(torch.view_as_real(y)).all()):
+            raise AssertionError(f"{what}: non-finite output")
+        rows = x[:4].cpu().numpy().astype(np.complex128)
+        want = np.fft.ifft(np.fft.fft(rows) * spectral_filter(n))
+        got = y[:4].cpu().numpy().astype(np.complex128)
+        check(f"{what} vs float64 oracle (4 rows)",
+              float(np.mean(np.abs(got - want)) / np.mean(np.abs(want))))
+        check(f"{what} vs the planner's step",
+              rel_err_chunked(y, lambda i, j: planner_step(x[i:j])))
+        del y
+        free()
+        sharded = make_batch_sharded_fft(fwd, mesh)
+        if not torch.equal(sharded(x), fwd.process(x)):
+            raise AssertionError("make_batch_sharded_fft differs from plan.process")
+        print(f"  make_batch_sharded_fft n=2^20 batch={batch}: bit-equal to plan.process",
+              flush=True)
+        free()
+
+        # K1's chain kernel at the local FFTs' shape, on the step's input
+        # seen as (2^20, 1024) rows
+        rows = x.reshape(-1, m)
+        radices = lanepack.choose_radices(m)
+        max_abs = 0.0
+        tables = {d: tuple([torch.from_numpy(a).cuda() for a in part]
+                           for part in lanepack.chain_tables(m, radices, d))
+                  for d in (FftDirection.FORWARD, FftDirection.INVERSE)}
+        for d, tabs in tables.items():
+            got = lanepack.lanepack_chain_fft(rows, radices, tabs)
+            num = den = 0.0
+            for i in range(0, rows.shape[0], 1 << 16):
+                want = lanepack.lanepack_fft_plain(rows[i:i + (1 << 16)], radices, tabs)
+                diff = (got[i:i + (1 << 16)] - want).abs()
+                num += diff.double().sum().item()
+                den += want.abs().double().sum().item()
+                max_abs = max(max_abs, diff.max().item())
+            check(f"lanepack_chain_fft n={m} {radices} batch={rows.shape[0]} {d.name} (the "
+                  f"spectral step's shape) vs its plain version", num / den, K7_TOL)
+            del got, want, diff
+            free()
+        tabs = tables[FftDirection.FORWARD]
+        k_ms = median_ms(lambda: lanepack.lanepack_chain_fft(rows, radices, tabs))
+        plain_ms = median_ms(lambda: lanepack.lanepack_fft_plain(rows, radices, tabs))
+        ref_ms = median_ms(lambda: torch.fft.fft(rows))
+        free()
+        nbytes = 16 * rows.numel() + sum(a.numel() * a.element_size()
+                                         for part in tabs for a in part)
+        bound_ms, bound_by = bound(nbytes, rows.shape[0] * fft_ops(m))
+        print(f"  lanepack_chain_fft n={m} {radices} batch={rows.shape[0]}: kernel {k_ms:.3f} ms "
+              f"({gflops(m, rows.shape[0], k_ms):.0f} GF/s), plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}), torch.fft {ref_ms:.3f} ms", flush=True)
+        del rows
+
+        ms = median_ms(lambda: step(x))
+        planner_ms = median_ms(lambda: planner_step(x))
+        library_ms = median_ms(lambda: library_step(x))
+        print(f"  {what}: {ms:.3f} ms; the planner's step (no six-step) {planner_ms:.3f} ms; "
+              f"torch.fft step {library_ms:.3f} ms; peak device memory of the step {peak:.2f} "
+              f"GiB ({card})", flush=True)
+        del x
+        free()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": ref_ms}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -667,15 +902,17 @@ def main() -> None:
     # 4096 kernel (257 rows: a ragged last wave), and the chain kernel at
     # packed small n with a ragged last block (64, 12), four register stages
     # (1000, 8192), Bluestein stages (M = 512 at 2008 and in the explicit
-    # chains (256, 16) and (16, 243)) and direct sums (14400); the entries
-    # of sizes that are not paths count into 2008's
+    # chains (256, 16) and (16, 243)), direct sums (14400) and the spectral
+    # step's local FFT (1024, a ragged last block); the entries of sizes
+    # that are not paths count into 2008's
     for n, batch, radices in ((4096, 257, lanepack.PIPE_RADICES), (64, 300, None),
                               (1000, 17, None), (2008, 9, None), (8192, 3, None),
                               (14400, 2, None), (12, 1000, None), (4096, 5, (256, 16)),
-                              (3888, 5, (16, 243))):
+                              (3888, 5, (16, 243)),
+                              (STEP_LOCAL, 3 * lanepack.chain_width(STEP_LOCAL) + 1, None)):
         radices = radices or lanepack.choose_radices(n)
         name = ("lanepack_pipe_fft" if radices == lanepack.PIPE_RADICES else
-                f"lanepack_chain_fft/{n if n in LANE else 2008}")
+                f"lanepack_chain_fft/{n if n in (*LANE, STEP_LOCAL) else 2008}")
         x = signal(batch, n)
         for d in directions:
             tables = card_tables(lanepack.chain_tables(n, radices, d))
@@ -840,10 +1077,10 @@ def main() -> None:
         radices = conv.chain_radices(m)
         unit = conv.chain_unit(m)
         # the blocks the grid of the checks without tables has
-        card = torch.cuda.current_device()
+        index = torch.cuda.current_device()
         smem = conv.chain_smem_bytes(m, radices, m, m, False, False,
-                                     conv.chain_tables_smem(card, m, radices, m, m, False, False))
-        resident = conv.chain_resident(card, conv.chain_kernel_form(radices), smem)
+                                     conv.chain_tables_smem(index, m, radices, m, m, False, False))
+        resident = conv.chain_resident(index, conv.chain_kernel_form(radices), smem)
         ragged = unit * (resident + 3) + 1
         for d in directions:
             n_blue = (m + 1) // 2  # a Bluestein of n_blue at inner m: ragged n_in and n_out
@@ -1325,23 +1562,6 @@ def main() -> None:
     main_launches = {name: 0 for name in counters}
     path_launches = {}
 
-    def run_counted(fn, x, expected, what, key):
-        """fn(x) with every counter set to 0 just before and read just after:
-        exactly the expected launches, added to path_launches[key]."""
-        for counter in counters.values():
-            counter.launches = 0
-        y = fn(x)
-        torch.cuda.synchronize()
-        got = {name: counter.launches for name, counter in counters.items()}
-        want = {name: expected.get(name, 0) for name in counters}
-        if got != want:
-            raise AssertionError(f"{what}: launches {got}, expected {want}")
-        for name, count in got.items():
-            main_launches[name] += count
-            path_launches.setdefault(key, {}).setdefault(name, 0)
-            path_launches[key][name] += count
-        return y
-
     def oracle_rows(x, got, direction, what):
         rows = 1 if x.shape[-1] >= 1 << 23 else 4
         ref = host_dft(x[:rows].cpu().numpy(), direction)
@@ -1375,13 +1595,15 @@ def main() -> None:
         (24571, 2048, k15_general),
         *((n, batch, four) for n, batch in FOUR.items()),
     )
+
     def drive(key, n, batch, expected, fwd, inv, what, same_as=None):
         """fwd and inv through run_counted, each against the float64 oracle
         and torch.fft, and the round trip; same_as(direction, rows): the
         output the default path gives for those rows, which fwd's and inv's
         must equal bit for bit."""
         x = signal(batch, n)
-        y = run_counted(fwd, x, expected, f"forward {what}", key)
+        y = run_counted(counters, lambda: fwd(x), expected, f"forward {what}",
+                        (main_launches, path_launches.setdefault(key, {})))
         if y.shape != x.shape or y.dtype != torch.complex64 or y.device != x.device:
             raise AssertionError(f"{what}: output {tuple(y.shape)} {y.dtype} on {y.device}")
         if not bool(torch.isfinite(torch.view_as_real(y)).all()):
@@ -1389,7 +1611,8 @@ def main() -> None:
         oracle_rows(x, y, FftDirection.FORWARD, f"forward {what}")
         check(f"forward {what} vs torch.fft",
               rel_err_chunked(y, lambda i, j: torch.fft.fft(x[i:j])))
-        z = run_counted(inv, y, expected, f"inverse {what}", key)
+        z = run_counted(counters, lambda: inv(y), expected, f"inverse {what}",
+                        (main_launches, path_launches.setdefault(key, {})))
         oracle_rows(y, z, FftDirection.INVERSE, f"inverse {what}")
         check(f"inverse {what} vs torch.fft",
               rel_err_chunked(z, lambda i, j: torch.fft.ifft(y[i:j]) * n))
@@ -2408,6 +2631,13 @@ def main() -> None:
     print(f"  the planner takes {planner.plan_fft_forward(n).recipe!r}"[:160], flush=True)
     del x, want
     free()
+
+    pinned_phase(counters, signal, t0)
+    name = f"lanepack_chain_fft/{STEP_LOCAL}"
+    step_k1 = spectral_phase(counters, signal, card, t0,
+                             (main_launches, path_launches.setdefault(STEP_LOCAL, {})))
+    max_abs[name] = max(max_abs[name], step_k1.pop("max_abs_err"))
+    results[name] = step_k1
 
     def launches_of(name):
         base, _, where = name.partition("/")

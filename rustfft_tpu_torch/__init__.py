@@ -7,6 +7,12 @@ lower to torch matmul stages; the sizes `executor.route` names run
 hand-written CUDA kernels for Hopper on CUDA tensors (their plain torch
 versions on CPU tensors).  The package imports torch and numpy, never jax.
 
+Beside the planners: `algorithm` builds any decomposition by hand (pinned
+plans that run their literal recipe), `utils.testing` is the conformance
+harness, `parallel` shards batches and single transforms across
+torch.distributed ranks on a DeviceMesh (one NCCL rank a card), and
+`models.flagship.make_spectral_step` is the sharded spectral step.
+
 Example::
 
     import numpy as np
@@ -23,7 +29,7 @@ from .executor import route  # noqa: F401
 from .plan import FftPlan  # noqa: F401
 from .planner import FftCache, FftPlanner, FftPlannerGpu, FftPlannerScalar  # noqa: F401
 from .recipes import from_reference_recipe  # noqa: F401
-from . import math_utils, recipes, twiddles  # noqa: F401
+from . import algorithm, math_utils, recipes, twiddles  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -41,6 +47,7 @@ __all__ = [
     "FftPlannerGpu",
     "FftPlannerScalar",
     "from_reference_recipe",
+    "algorithm",
     "math_utils",
     "recipes",
     "twiddles",

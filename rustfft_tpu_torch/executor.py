@@ -12,9 +12,14 @@ re-indexing as permute launches.
 Constant tables are precomputed on the host in f64 at build time and copied
 to each device once.
 
-Built functions are memoized per (recipe, direction, dtype, config state), the
-analogue of the reference's FftCache (fft_cache.rs:5-39) shared across
-planners because recipes are pure hashable data.  The config state is
+A pinned build (`pinned=True`, the hand-built constructors of algorithm.py)
+runs the literal recipe, where the JAX package's `allow_fused=False` acts: no
+whole-transform kernel at any node and no convolution core for Rader or
+Bluestein nodes; Good-Thomas keeps its permute gathers, as in the JAX package.
+
+Built functions are memoized per (recipe, direction, dtype, pinned, config
+state), the analogue of the reference's FftCache (fft_cache.rs:5-39) shared
+across planners because recipes are pure hashable data.  The config state is
 config.switch_key(): every field a built function bakes in.
 """
 from __future__ import annotations
@@ -148,15 +153,19 @@ def _kernel_fn(n: int, direction: FftDirection, dtype) -> Optional[Callable]:
     return None
 
 
-def build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
-    """Return fn: complex (..., n) -> complex (..., n), the unnormalized DFT."""
+def build(recipe: recipes.Recipe, direction: FftDirection, dtype,
+          pinned: bool = False) -> Callable:
+    """Return fn: complex (..., n) -> complex (..., n), the unnormalized DFT.
+
+    pinned=True runs the literal recipe at every node of the tree (the JAX
+    package's allow_fused=False)."""
     dtype = np.dtype(dtype)
-    key = (recipe, direction, dtype) + config.switch_key()
+    key = (recipe, direction, dtype, pinned) + config.switch_key()
     fn = _CACHE.get(key)
     if fn is None:
-        fn = _kernel_fn(recipe.length, direction, dtype)
+        fn = None if pinned else _kernel_fn(recipe.length, direction, dtype)
         if fn is None:
-            fn = _build(recipe, direction, dtype)
+            fn = _build(recipe, direction, dtype, pinned)
         _CACHE[key] = fn
         if len(_CACHE) > _CACHE_MAX:
             _CACHE.popitem(last=False)
@@ -165,18 +174,19 @@ def build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
     return fn
 
 
-def _build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
+def _build(recipe: recipes.Recipe, direction: FftDirection, dtype,
+           pinned: bool = False) -> Callable:
     if isinstance(recipe, (recipes.Dft, recipes.Butterfly)):
         return op_dft.make_dft_fn(recipe.length, direction, dtype)
 
     if isinstance(recipe, recipes.Radix4):
-        base_fn = build(recipe.base, direction, dtype)
+        base_fn = build(recipe.base, direction, dtype, pinned)
         return op_ct.make_ct_chain_fn(
             (4,) * recipe.k, recipe.base.length, base_fn, direction, dtype
         )
 
     if isinstance(recipe, recipes.RadixN):
-        base_fn = build(recipe.base, direction, dtype)
+        base_fn = build(recipe.base, direction, dtype, pinned)
         return op_ct.make_ct_chain_fn(
             recipe.factors, recipe.base.length, base_fn, direction, dtype
         )
@@ -184,18 +194,18 @@ def _build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
     if isinstance(recipe, (recipes.MixedRadix, recipes.MixedRadixSmall)):
         p = recipe.left.length
         q = recipe.right.length
-        right_fn = build(recipe.right, direction, dtype)
+        right_fn = build(recipe.right, direction, dtype, pinned)
         if (
             isinstance(recipe.left, (recipes.Dft, recipes.Butterfly))
             and p <= _MATRIX_LEAF_MAX
         ):
             return op_ct.make_ct_stage_fn(p, q, right_fn, direction, dtype)
-        left_fn = build(recipe.left, direction, dtype)
+        left_fn = build(recipe.left, direction, dtype, pinned)
         return op_ct.make_ct_stage_general_fn(p, q, left_fn, right_fn, direction, dtype)
 
     if isinstance(recipe, (recipes.GoodThomas, recipes.GoodThomasSmall)):
-        left_fn = build(recipe.left, direction, dtype)
-        right_fn = build(recipe.right, direction, dtype)
+        left_fn = build(recipe.left, direction, dtype, pinned)
+        right_fn = build(recipe.right, direction, dtype, pinned)
         return op_gt.make_good_thomas_fn(
             recipe.left.length, recipe.right.length, left_fn, right_fn,
             use_kernel=kernels_on(dtype),
@@ -204,9 +214,9 @@ def _build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
     if isinstance(recipe, recipes.Raders):
         # the kernel path: the convolution core with the root-order gathers
         # as permute launches (one-pass core) or fused into it (two-pass)
-        if kernels_on(dtype) and conv.conv_any_supported(recipe.inner.length, dtype):
+        if not pinned and kernels_on(dtype) and conv.conv_any_supported(recipe.inner.length, dtype):
             return conv.make_raders_fn(recipe.length, direction, dtype)
-        inner_fn = build(recipe.inner, direction, dtype)
+        inner_fn = build(recipe.inner, direction, dtype, pinned)
         return op_raders.make_raders_fn(recipe.length, inner_fn, direction, dtype)
 
     if isinstance(recipe, recipes.Bluesteins):
@@ -214,12 +224,12 @@ def _build(recipe: recipes.Recipe, direction: FftDirection, dtype) -> Callable:
         # the one-pass core; the fused large Bluestein where the inner length
         # runs on 'large'; the two-pass core
         m = recipe.inner.length
-        if kernels_on(dtype):
+        if not pinned and kernels_on(dtype):
             if not conv.conv_supported(m, dtype) and convlarge.bconv_supported(m, dtype):
                 return convlarge.make_bluestein_large_fn(recipe.length, m, direction, dtype)
             if conv.conv_any_supported(m, dtype):
                 return conv.make_bluestein_fn(recipe.length, m, direction, dtype)
-        inner_fn = build(recipe.inner, direction, dtype)
+        inner_fn = build(recipe.inner, direction, dtype, pinned)
         return op_bluestein.make_bluestein_fn(recipe.length, m, inner_fn, direction, dtype)
 
     raise TypeError(f"Unknown recipe node: {recipe!r}")

@@ -31,13 +31,16 @@ class FftPlan:
     immutable after construction."""
 
     def __init__(self, recipe: recipes.Recipe, direction: FftDirection, dtype,
-                 device="cuda"):
+                 device="cuda", pinned: bool = False):
         self._recipe = recipe
         self._direction = direction
         self._dtype = canonical_complex_dtype(dtype)
         self._torch_dtype = torch_dtype(self._dtype)
         self._device = torch.device(device)
-        self._fn = executor.build(recipe, direction, self._dtype)
+        # pinned=True (the hand-built algorithm.py constructors) runs the
+        # literal recipe: no whole-transform kernel and no convolution core
+        self._pinned = pinned
+        self._fn = executor.build(recipe, direction, self._dtype, pinned=pinned)
 
     # -- Length / Direction traits (lib.rs:140-143, 174-177) --
     @property
@@ -65,6 +68,11 @@ class FftPlan:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def pinned(self) -> bool:
+        """True where the plan runs its literal recipe (algorithm.py)."""
+        return self._pinned
 
     # -- process family (lib.rs:184-278) --
     def process(self, buffer: Any):
@@ -142,5 +150,5 @@ class FftPlan:
         return (
             f"FftPlan(len={self._recipe.length}, direction={self._direction.name}, "
             f"dtype={self._dtype}, device={self._device}, "
-            f"recipe={type(self._recipe).__name__})"
+            f"recipe={type(self._recipe).__name__}{', pinned' if self._pinned else ''})"
         )

@@ -540,3 +540,72 @@ def test_deep_and_2d_bit_equal_on_card(cuda_device):
         want = large.make_large_fft_fn(n, d, np.complex64)(x)
         for kw in (dict(deep_a=True), dict(blocks2d=True)):
             assert torch.equal(large.make_large_fft_fn(n, d, np.complex64, **kw)(x), want)
+
+
+def _forbid_kernels(monkeypatch):
+    """Make every whole-node kernel and convolution core the executor could
+    substitute raise when it is built."""
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a pinned build reached a kernel")
+
+    monkeypatch.setattr(executor, "_kernel_fn", forbidden)
+    monkeypatch.setattr(conv, "make_raders_fn", forbidden)
+    monkeypatch.setattr(conv, "make_bluestein_fn", forbidden)
+    monkeypatch.setattr(convlarge, "make_bluestein_large_fn", forbidden)
+
+
+@pytest.mark.parametrize("order", ["pinned_first", "unpinned_first"])
+@pytest.mark.parametrize("n", [4096, 1009, 1234])
+def test_pinned_keys_the_build_cache(n, order, monkeypatch):
+    """pinned joins executor.build's cache key: a pinned plan and an unpinned
+    plan of one recipe never share a built function, in either order of
+    construction into an empty cache; a pinned build never reaches a kernel
+    (route 'lanepack' at 4096, the one-pass core at 1009 and 1234); both
+    agree with the oracle."""
+    from collections import OrderedDict
+
+    from rustfft_tpu_torch.plan import FftPlan
+
+    monkeypatch.setattr(executor, "_CACHE", OrderedDict())
+    d = FftDirection.FORWARD
+    recipe = FftPlanner(np.complex64, device="cpu").design_fft_for_len(n)
+    assert route(n, np.complex64) == "lanepack" if n == 4096 else route(n, np.complex64) is None
+
+    def build(pinned):
+        return FftPlan(recipe, d, np.complex64, device="cpu", pinned=pinned)
+
+    if order == "pinned_first":
+        with monkeypatch.context() as m:
+            _forbid_kernels(m)
+            pinned = build(True)
+        unpinned = build(False)
+    else:
+        unpinned = build(False)
+        with monkeypatch.context() as m:
+            _forbid_kernels(m)
+            pinned = build(True)
+    assert pinned.pinned and not unpinned.pinned
+    assert pinned.raw_fn is not unpinned.raw_fn
+    assert executor.build(recipe, d, np.complex64, pinned=True) is pinned.raw_fn
+    assert executor.build(recipe, d, np.complex64) is unpinned.raw_fn
+    x = _signal(3, n, seed=n)
+    want = host_dft(x, d)
+    assert _rel(pinned.process(x), want) <= TOL
+    assert _rel(unpinned.process(x), want) <= TOL
+
+
+def test_pinned_good_thomas_keeps_its_gathers(monkeypatch):
+    """As in the JAX package (executor.py:336-344), a pinned Good-Thomas node
+    re-indexes through the permute wrapper (K16 on the card)."""
+    from rustfft_tpu_torch import algorithm
+    from rustfft_tpu_torch.ops.kernels import permute
+
+    calls = []
+    real = permute.make_permute_fn
+    monkeypatch.setattr(permute, "make_permute_fn", lambda idx: calls.append(len(idx)) or real(idx))
+    d = FftDirection.FORWARD
+    plan = algorithm.GoodThomasAlgorithm(algorithm.Butterfly(7, d, device="cpu"),
+                                         algorithm.Radix4(128, d, device="cpu"))
+    assert calls == [896, 896]
+    x = _signal(2, 896, seed=7)
+    assert _rel(plan.process(x), host_dft(x, d)) <= TOL
