@@ -113,3 +113,50 @@ extern "C" int rf_large3_p2(const void* a, void* y, long long batch, int p1, int
     default: return cudaErrorInvalidValue;
   }
 }
+
+#ifdef RF_PHASE_STAMPS
+namespace rf {
+
+// The access-pattern probe of K11's tiles: a copy of x, viewed as (B, R, L)
+// complex64, one block a (R, T) tile of R row pieces of T values (8*T
+// bytes), each thread loading 8 of the tile's 16-byte pieces, then storing
+// them; block v copies tile v / B of batch row v % B (batch fastest, as
+// K2's walk).  L = T copies consecutive bytes.
+__global__ void __launch_bounds__(1024)
+    tile_probe_kernel(const float4* __restrict__ x, float4* __restrict__ y, unsigned batch,
+                      int rows, long long len, int t) {
+  const size_t b = blockIdx.x % batch, tile = blockIdx.x / batch;
+  const int pieces = t / 2;                 // 16-byte pieces a row piece
+  const size_t ld = (size_t)len / 2;        // 16-byte pieces a row
+  const size_t base = b * (size_t)rows * ld + tile * (size_t)pieces;
+  size_t at[8];
+  float4 v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int idx = j * (int)blockDim.x + (int)threadIdx.x;
+    const int row = idx / pieces;
+    at[j] = base + (size_t)row * ld + (idx - row * pieces);
+    v[j] = x[at[j]];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) y[at[j]] = v[j];
+}
+
+}  // namespace rf
+
+// The access-pattern probe (tile_probe_kernel): x, y (batch, rows, len)
+// complex64 in (rows, t) tiles, rows * t / 16 threads a block (<= 1024).
+extern "C" int rf_large3_tile_probe(const void* x, void* y, long long batch, int rows,
+                                    long long len, int t, void* stream) {
+  using namespace rf;
+  const long long threads = (long long)rows * t / 16;
+  if (batch <= 0 || rows <= 0 || t < 2 || t % 2 != 0 || len % t != 0 ||
+      threads * 16 != (long long)rows * t || threads < 32 || threads > 1024 ||
+      batch * (len / t) > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  tile_probe_kernel<<<(unsigned)(batch * (len / t)), (unsigned)threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<float4*>(y), (unsigned)batch, rows, len, t);
+  return cudaGetLastError();
+}
+#endif

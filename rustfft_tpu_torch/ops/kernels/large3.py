@@ -248,6 +248,31 @@ def large3_p2(a: torch.Tensor, p1: int, p2: int, q: int, tables) -> torch.Tensor
 large3_p2.launches = 0
 
 
+def tile_probe(x: torch.Tensor, rows: int, length: int, cols: int) -> torch.Tensor:
+    """The access-pattern probe of K11's tiles (the RF_PHASE_STAMPS library
+    only; for timing): a copy of x, viewed as (B, rows, length) complex64,
+    one block a (rows, cols) tile of row pieces 8*cols bytes long, rows*cols
+    / 16 threads each loading eight 16-byte pieces, then storing them;
+    block v copies tile v // B of batch row v % B.  Pass 1's tile is (256,
+    16) at length M (rows 2 MiB apart at 2^26), K2's at length 4096 (32
+    KiB); pass 2's a (64, 64) tile at length Q*P1 (8 MiB); length == cols
+    copies consecutive bytes."""
+    what = "tile_probe"
+    require_cuda(x, what)
+    if x.dtype != torch.complex64 or not x.is_contiguous() or x.numel() % (rows * length):
+        raise ValueError(f"{what}: x is not a contiguous complex64 (B, {rows}, {length})")
+    if length % cols or cols % 2 or x.data_ptr() % 16:
+        raise ValueError(f"{what}: cols={cols} does not tile length={length} in 16-byte pieces")
+    y = torch.empty_like(x)
+    lib = _build.load(phase_stamps=True)
+    with torch.cuda.device(x.device):
+        code = lib.rf_large3_tile_probe(x.data_ptr(), y.data_ptr(), x.numel() // (rows * length),
+                                        rows, length, cols,
+                                        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, what)
+    return y
+
+
 def make_large3_fft_fn(n: int, direction: FftDirection, dtype,
                        split: Optional[Tuple[int, int, int, int, int]] = None,
                        factored: bool = False):

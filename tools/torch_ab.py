@@ -74,11 +74,19 @@ same shape on tables of the same sizes and the chain form with h, pre and
 post forced into shared memory and forced through L2 (`ChainCore._launch`,
 or `conv_chain_fft(..., tables_smem=)` in a checkout without ChainCore),
 and on `lanepack.tile_radices(m)` where that chain is all register
-radices.  `--only` keeps the named groups of these
-(K1, K2 for K2 and K3, paths for the planner's paths and K1's and K5's
-chain paths' torch.fft, K9, K16, K12, K15, K14, K5 for K5's product, K10,
-K13).  It prints one JSON line per run and then a table, each row a
-quantity and each column a run.
+radices.  And K11 (the three-pass 2^26 pipeline, large3f) at 2^26 x 2:
+pass 1 (`large3_col_stage`) and pass 2 (`large3_p2`) alone, each on the
+input its path gives it, K3's row stage at 2 x 4096 x 16384 (the Q pass),
+each also queued (20 calls behind a sleep kernel), the path (also queued)
+and torch.fft, and, where the checkout has it, the access-pattern probe
+of K11's tiles (`large3.tile_probe`, K11_PROBES: copies of the 2^26 x 2
+input in pass 1's (256, 16) tiles with rows 2 MiB apart against K2's 32
+KiB, each also 32 and 64 columns wide, pass 2's (64, 64) tiles with rows
+8 MiB apart, against consecutive tiles, and `clone`).  `--only` keeps the
+named groups of these (K1, K2 for K2 and K3, paths for the planner's paths
+and K1's and K5's chain paths' torch.fft, K9, K16, K12, K15, K14, K5 for
+K5's product, K10, K13, K11).  It prints one JSON line per run and then
+a table, each row a quantity and each column a run.
 """
 from __future__ import annotations
 
@@ -157,7 +165,17 @@ RECORDED = {
                   "bconv_row_tile": "B_conv", "bconv_out_stage": "A2", "bconv_out_tile": "A2"},
 }
 
-GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13")
+#: K11's path (large3f: P1 = 256, P2 = 64, Q = 4096) and the tiles of its
+#: access-pattern probe (rows, row length, columns): pass 1's (256, 16)
+#: tile at M = 2^18 (rows 2 MiB apart) and at K2's 4096 (32 KiB), each also
+#: 32 and 64 columns wide, and consecutive; pass 2's (64, 64) tile at Q*P1
+#: = 2^20 (8 MiB), and consecutive
+K11 = (1 << 26, 2)
+K11_PROBES = ((256, 1 << 18, 16), (256, 4096, 16), (256, 1 << 18, 32), (256, 4096, 32),
+              (256, 1 << 18, 64), (256, 4096, 64), (256, 16, 16), (64, 1 << 20, 64),
+              (64, 64, 64))
+
+GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13", "K11")
 
 
 def run_one(root: str, groups=GROUPS) -> dict:
@@ -463,6 +481,41 @@ def run_one(root: str, groups=GROUPS) -> dict:
             out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
             del x
+    if "K11" in groups:
+        from rustfft_tpu_torch.ops.kernels import large3
+
+        torch.cuda.empty_cache()
+        n, batch = K11
+        p1, p2, _, _, q = large3.choose_split3f(n)
+        m, tag = p2 * q, f"{batch}x2^{n.bit_length() - 1}"
+        r, t, wob = large3.col_tables(p1, m, q, FftDirection.FORWARD)
+        col = (on(r), on(t), on([wob])[0])
+        mid = tuple(on(large3.p2_tables(p1, p2, q, FftDirection.FORWARD, True)))
+        row = tuple(on(v) for v in large.row_tables(q, FftDirection.FORWARD))
+        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+        a = large3.large3_col_stage(x, p1, m, q, col)  # the inputs the path gives each pass
+        b = large3.large3_p2(a, p1, p2, q, mid)
+        stages = {"pass 1 large3_col_stage": lambda: large3.large3_col_stage(x, p1, m, q, col),
+                  "pass 2 large3_p2": lambda: large3.large3_p2(a, p1, p2, q, mid),
+                  f"K3 large_row_stage {batch}x{q}x{p1 * p2}":
+                      lambda: large.large_row_stage(b, q, p1 * p2, row)}
+        for name, fn in stages.items():
+            out[f"K11 {name} {tag}"] = ms(fn, reps=15)
+            out[f"K11 {name} {tag} (queued)"] = queued_ms(fn, calls=20)
+        del a, b
+        plan = planner.plan_fft_forward(n)
+        out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+        out[f"path {n}x{batch} (queued)"] = queued_ms(lambda: plan.process(x), calls=20)
+        out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+        if hasattr(large3, "tile_probe"):
+            for rows, length, cols in K11_PROBES:
+                if not torch.equal(large3.tile_probe(x, rows, length, cols), x):
+                    raise SystemExit("tile_probe: the copy differs from its input")
+                apart = "consecutive" if length == cols else f"rows {length // 128} KiB apart"
+                out[f"probe ({rows}, {cols}) tiles {apart}"] = ms(
+                    lambda: large3.tile_probe(x, rows, length, cols), reps=15)
+            out[f"clone {tag}"] = ms(lambda: x.clone(), reps=15)
+        del x
     if "K13" in groups:
         from rustfft_tpu_torch.ops.kernels import _build, conv
 
