@@ -38,8 +38,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    a batch that leaves its walk of clusters ragged (the resident clusters
    of each cluster size printed) and the row stage after it at batch 1,
    large3f's pass 1
-   (the modular j3 twiddle), its pass 2 with the j2 factor on and off, and
-   the row stage at P = 16384.  The one-pass mid band at batch 2: radix_fft
+   (K2's tile kernel with the modular j3 twiddle slice) and its pass 2 (the
+   two-buffer ring) with the j2 factor on and off, within 1e-6 at batch 1
+   and 3 (the resident blocks of both kernels and each walk's grid and
+   units a block printed), and the row stage at P = 16384.  The one-pass mid band at batch 2: radix_fft
    at r = 2, 4, 8 and 16 (a persistent grid of clusters of r blocks; the
    cudaOccupancyMaxActiveClusters of each r is printed, and each r and
    16384 run again at 3 x that + 1 transforms), two_stage_fft at
@@ -240,8 +242,9 @@ ONE = {14464: 4096, 16256: 4096, 28544: 2048}
 CLUSTER = {28928: 4096, 49152: 2048, 98304: 1024, 196608: 512, 245760: 256, 260608: 256}
 
 #: the kernels redesigned onto new bodies, held within 1e-6 of their plain
-#: versions: K5's pair kernel (dense_fft's block form at n <= 23) and K10's
-#: cluster kernel (large2f_col_stage)
+#: versions: K5's pair kernel (dense_fft's block form at n <= 23), K10's
+#: cluster kernel (large2f_col_stage) and K11's two (large3_col_stage,
+#: large3_p2)
 PAIR_TOL = 1e-6
 
 #: K1's chain kernel (lanepack_chain_fft) at the route's sizes: n -> batch
@@ -1267,25 +1270,44 @@ def main() -> None:
                          f"large_row_stage n={tag(n)} Q={q} P={p} batch=1 {d.name}")
             del x, a
             free()
-    x = signal(1, 1 << 26)
-    for d in directions:
-        (p1, p2, q), col, mids, row = top3f_tables(d)
-        a = large3.large3_col_stage(x, p1, p2 * q, q, col)
-        torch.cuda.synchronize()
-        note("large3_col_stage/2^26", a, large3.large3_col_stage_plain(x, p1, p2 * q, q, col),
-             f"large3_col_stage n=2^26 P1={p1} M={p2 * q} batch=1 {d.name}")
-        for tabs, onoff in zip(mids, ("on", "off")):
-            b = large3.large3_p2(a, p1, p2, q, tabs)
+    # large3f's pass 1 (K2's tile kernel with the modular slice) and pass 2
+    # (the two-buffer ring) within 1e-6 of their plain versions at batch 1
+    # and 3 (the path's batch 2 in phase 4), each walk printed; the row stage
+    # at P = 16384 at batch 1
+    p1, p2, _, _, q = large3.choose_split3f(1 << 26)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident3 = (large3.resident_blocks(0), large3.resident_blocks(p2))
+    print(f"  large3 resident blocks: pass 1 {resident3[0]} ({resident3[0] / sms:g} an SM), "
+          f"pass 2 at P2={p2} {resident3[1]} ({resident3[1] / sms:g} an SM)", flush=True)
+    for batch in (1, 3):
+        x = signal(batch, 1 << 26)
+        walk1 = large3.col_walk(batch, p2, q // 16, resident3[0])
+        walk2 = large3.p2_walk(batch, q, p1, resident3[1])
+        print(f"  large3 walks at 2^26 x {batch}: pass 1 grid {walk1[0]}, {walk1[1]} units a "
+              f"block; pass 2 grid {walk2[0]}, {walk2[1]} units a block", flush=True)
+        for d in directions:
+            (p1, p2, q), col, mids, row = top3f_tables(d)
+            a = large3.large3_col_stage(x, p1, p2 * q, q, col)
             torch.cuda.synchronize()
-            note("large3_p2/2^26", b, large3.large3_p2_plain(a, p1, p2, q, tabs),
-                 f"large3_p2 n=2^26 P2={p2} j2 factor {onoff} batch=1 {d.name}")
-        b = large3.large3_p2(a, p1, p2, q, mids[0])
-        y = large.large_row_stage(b, q, p1 * p2, row)
-        torch.cuda.synchronize()
-        note("large_row_stage/2^26", y, large.large_row_stage_plain(b, q, p1 * p2, row),
-             f"large_row_stage n=2^26 Q={q} P={p1 * p2} batch=1 {d.name}")
-    del x, a, b, y
-    free()
+            note("large3_col_stage/2^26", a, large3.large3_col_stage_plain(x, p1, p2 * q, q, col),
+                 f"large3_col_stage n=2^26 P1={p1} M={p2 * q} batch={batch} {d.name}", PAIR_TOL)
+            for tabs, onoff in zip(mids, ("on", "off")):
+                b = large3.large3_p2(a, p1, p2, q, tabs)
+                torch.cuda.synchronize()
+                note("large3_p2/2^26", b, large3.large3_p2_plain(a, p1, p2, q, tabs),
+                     f"large3_p2 n=2^26 P2={p2} j2 factor {onoff} batch={batch} {d.name}",
+                     PAIR_TOL)
+            if batch == 1:
+                b = large3.large3_p2(a, p1, p2, q, mids[0])
+                y = large.large_row_stage(b, q, p1 * p2, row)
+                torch.cuda.synchronize()
+                note("large_row_stage/2^26", y, large.large_row_stage_plain(b, q, p1 * p2, row),
+                     f"large_row_stage n=2^26 Q={q} P={p1 * p2} batch=1 {d.name}")
+                del y
+            del a, b
+            free()
+        del x
+        free()
 
     # the one-pass mid band at batch 2: radix_fft at every r, two_stage_fft
     # at the band's shapes (16384 on the radix body, the others on the
@@ -2140,7 +2162,8 @@ def main() -> None:
             p, m = p1 * p2, p2 * q
             name = "large3_col_stage/2^26"
             b = large3.large3_col_stage(x, p1, m, q, col)
-            note(name, b, large3.large3_col_stage_plain(x, p1, m, q, col), f"{name} {what}")
+            note(name, b, large3.large3_col_stage_plain(x, p1, m, q, col), f"{name} {what}",
+                 PAIR_TOL)
             free()
             k = median_ms(lambda: large3.large3_col_stage(x, p1, m, q, col))
             plain = median_ms(lambda: large3.large3_col_stage_plain(x, p1, m, q, col))
@@ -2149,7 +2172,8 @@ def main() -> None:
             record(name, k, plain, 16 * batch * n + 8 * q * p1, batch * n * (fft_ops(p1) / p1 + 6))
             name = "large3_p2/2^26"
             a = large3.large3_p2(b, p1, p2, q, mids[0])
-            note(name, a, large3.large3_p2_plain(b, p1, p2, q, mids[0]), f"{name} {what}")
+            note(name, a, large3.large3_p2_plain(b, p1, p2, q, mids[0]), f"{name} {what}",
+                 PAIR_TOL)
             free()
             k = median_ms(lambda: large3.large3_p2(b, p1, p2, q, mids[0]))
             plain = median_ms(lambda: large3.large3_p2_plain(b, p1, p2, q, mids[0]))

@@ -1,11 +1,24 @@
 // K2's persistent column-tile kernel (P = 16 x 16 over 16 columns), on an
 // input and output: csrc/large.cu runs it on plain rows (K2, ColRows),
-// csrc/convlarge.cu on the zero-padded, chirped input of the fused large
-// Bluestein and its column-pair output layout (K15's kernel A, ColChirp).  The design is large.cu's header's (K2): a persistent
-// grid of blocks each walking contiguous (tile, batch) units, batch fastest
-// (ops/kernels/large.py col_walk), the outer twiddle's (16, 256) slice in
-// shared memory once per tile, the next unit's tile landing by cp.async in
-// a second buffer while the current one computes and stores.
+// csrc/large3.cu on plain rows with the modular outer twiddle of the
+// three-pass pipeline's pass 1 (K11), csrc/convlarge.cu on the zero-padded,
+// chirped input of the fused large Bluestein and its column-pair output
+// layout (K15's kernel A, ColChirp).  The design is large.cu's header's
+// (K2): a persistent grid of blocks each walking contiguous units of
+// (tile, batch), batch fastest (ops/kernels/large.py col_walk), the outer
+// twiddle's (16, 256) slice in shared memory once per slice, the next
+// unit's tile landing by cp.async in a second buffer while the current one
+// computes and stores.
+//
+// The walk's order: the Q/16 tiles of a row fall into `groups` groups of
+// S = Q/(16*groups) consecutive tiles, tile t = g*S + s reading slice s
+// (rows 16s .. 16s + 15 of the outer table), and unit u is batch row u %
+// batch of the s-th tile of group g with (s, g) = divmod(u / batch,
+// groups): slice slowest, so a block keeps one slice over groups*batch
+// units.  K2 and K15 take one group (t = s = u / batch, the slices of the
+// whole (Q, P) table); K11's pass 1 takes P2 groups over M = P2*Q columns
+// (ops/kernels/large3.py col_walk, col_unit), its outer table the (Q, P1)
+// j3 factor wob, slice s = t mod Q/16.
 //
 // Its input and output `Io` provide
 //   void copy(float2* buf, unsigned b, unsigned t, unsigned q) const
@@ -50,9 +63,20 @@ static __device__ __forceinline__ void col_tile_copy(float2* buf, const float2* 
   cp_async_commit();
 }
 
+// The walk's unit order (above): unit u's batch row, tile and slice.
+struct ColUnits {
+  unsigned batch, groups, slices;
+  __device__ unsigned row(unsigned u) const { return u % batch; }
+  __device__ unsigned slice(unsigned u) const { return u / batch / groups; }
+  __device__ unsigned tile(unsigned u) const {
+    const unsigned w = u / batch, s = w / groups;
+    return (w - s * groups) * slices + s;
+  }
+};
+
 template <class Io, bool kStamp>
 __global__ void __launch_bounds__(kColThreads, 2)
-    col_tile_kernel(Io io, float2* __restrict__ y, unsigned batch, unsigned units,
+    col_tile_kernel(Io io, float2* __restrict__ y, ColUnits walk, unsigned units,
                     unsigned per, int q, Stages st, const float2* __restrict__ outer,
                     unsigned long long* stamps) {
   PhaseClock<kStamp, 3> clock;
@@ -64,24 +88,24 @@ __global__ void __launch_bounds__(kColThreads, 2)
   const size_t row_elems = (size_t)kColP * (size_t)q;
   const unsigned u0 = blockIdx.x * per;
   const unsigned u1 = min(u0 + per, units);
-  if (u0 < u1) io.copy(bufs, u0 % batch, u0 / batch, (unsigned)q);
+  if (u0 < u1) io.copy(bufs, walk.row(u0), walk.tile(u0), (unsigned)q);
   load_roots(st, sroots);
   __syncthreads();
-  unsigned slice = ~0u;  // the tile whose outer slice souter holds
+  unsigned slice = ~0u;  // the slice souter holds
   int cur = 0;
   for (unsigned u = u0; u < u1; ++u, cur ^= 1) {
     const int c = opaque_int(threadIdx.x);
-    const unsigned t = u / batch;
+    const unsigned t = walk.tile(u), s = walk.slice(u);
     float2* buf = bufs + cur * kColElems;
-    if (t != slice) {  // the (16, 256) slice [j2 - q0, k1] at its tile place swz(k1*16 + j2 - q0)
-      const float2* __restrict__ src = outer + (size_t)t * kColElems;
+    if (s != slice) {  // the (16, 256) slice [j2 - q0, k1] at its tile place swz(k1*16 + j2 - q0)
+      const float2* __restrict__ src = outer + (size_t)s * kColElems;
       for (int i = c; i < kColElems; i += kColThreads)
         souter[swz((i & (kColP - 1)) * kColT + (i >> 8))] = __ldg(&src[i]);
-      slice = t;
+      slice = s;
     }
     if (u + 1 < u1) {
       const unsigned v = u + 1;
-      io.copy(bufs + (cur ^ 1) * kColElems, v % batch, v / batch, (unsigned)q);
+      io.copy(bufs + (cur ^ 1) * kColElems, walk.row(v), walk.tile(v), (unsigned)q);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -117,7 +141,7 @@ __global__ void __launch_bounds__(kColThreads, 2)
     clock.lap(1);
     __syncthreads();
     // the transposed store of [k1, j2], two k1 a thread
-    io.store(buf, y + (size_t)(u % batch) * row_elems, t, (unsigned)q, c);
+    io.store(buf, y + (size_t)walk.row(u) * row_elems, t, (unsigned)q, c);
     clock.lap(2);
     __syncthreads();  // this buffer and the slice are free
   }
@@ -126,21 +150,24 @@ __global__ void __launch_bounds__(kColThreads, 2)
 
 static size_t col_tile_smem() { return (size_t)(3 * kColElems + 32) * sizeof(float2); }
 
-// One launch of `grid` persistent blocks over the units (tile, batch),
-// batch fastest, `per` units a block (grid*per >= units > (grid - 1)*per).
+// One launch of `grid` persistent blocks over the units (tile, batch) in
+// the walk's order with `groups` groups of tiles a row (above), `per` units
+// a block (grid*per >= units > (grid - 1)*per).
 template <bool kStamp, class Io>
 static cudaError_t launch_col_tile(const Io& io, float2* y, long long batch, int q,
                                    long long grid, long long per, const Stages& st,
                                    const float2* outer, unsigned long long* stamps,
-                                   cudaStream_t s) {
+                                   cudaStream_t s, int groups = 1) {
   const long long units = batch * (q / kColT);
-  if (q % kColT != 0 || grid < 1 || per < 1 || units > 0x7fffffffLL || grid * per < units ||
-      (grid - 1) * per >= units || !io.aligned() || reinterpret_cast<uintptr_t>(y) % 16 != 0)
+  if (q % kColT != 0 || groups < 1 || (q / kColT) % groups != 0 || grid < 1 || per < 1 ||
+      units > 0x7fffffffLL || grid * per < units || (grid - 1) * per >= units || !io.aligned() ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(col_tile_kernel<Io, kStamp>, col_tile_smem());
   if (err != cudaSuccess) return err;
+  const ColUnits walk{(unsigned)batch, (unsigned)groups, (unsigned)(q / kColT / groups)};
   col_tile_kernel<Io, kStamp><<<(unsigned)grid, kColThreads, col_tile_smem(), s>>>(
-      io, y, (unsigned)batch, (unsigned)units, (unsigned)per, q, st, outer, stamps);
+      io, y, walk, (unsigned)units, (unsigned)per, q, st, outer, stamps);
   return cudaGetLastError();
 }
 

@@ -35,10 +35,12 @@
 // (Q, pt) tile in shared memory: at Q = 4096 the TPU's 128-lane tile would
 // be 4 MiB; the compile-time kernel takes pt = 4 (32-byte row segments, one
 // sector; 1024 threads, 128 KiB in place), the general kernel pt = 2 or 1.
-// The main path's chains with plain loads and stores (K2, K3, and K10's and
-// K11's Q passes) run csrc/large.cu's persistent tile kernels instead; the
-// compile-time bodies here serve the top band's column stages (K10, K11)
-// and K2's and K3's other chains.  The chains with compile-time kernels (fixed_chain) also read
+// The main path's chains with plain loads and stores (K2, K3, K10's and
+// K11's Q passes, and K11's pass 1 at P1 = 16 x 16) run the persistent tile
+// kernels of csrc/large.cu and csrc/col_tile.cuh instead; the compile-time
+// bodies here serve the top band's column stages at other splits (K10's,
+// K11's pass 1) and K2's and K3's other chains.  The chains with
+// compile-time kernels (fixed_chain) also read
 // stage 0 from, and the row stage's last stage write to, device memory
 // directly.  Grids are one-dimensional over (batch, tile) and every offset
 // into device memory is size_t: batch 1024 at n = 2^20 is 2^31 floats.
@@ -118,7 +120,7 @@ struct FactoredOuter {
 };
 
 // wob[(j mod Q), k1] from a (Q, P) table: the j3 factor of K11's pass-1
-// twiddle, j = j2*Q + j3.
+// twiddle, j = j2*Q + j3 (pass 1 at P1 other than 16 x 16).
 struct ModOuter {
   const float2* __restrict__ wob;
   int p, q;

@@ -22,8 +22,7 @@ K7's cluster kernel
 K3's (`rf_large_col_phase_stamps`, `rf_large_row_phase_stamps`), K10's
 cluster kernel (`rf_large2f_col_phase_stamps`), the one-pass convolution
 core's kernels (`rf_conv_fft_stamps`, `rf_conv_chain_fft_stamps`) and the
-access-pattern probes of K3's tile (`rf_large_copy_probe`) and of K11's
-tiles (`rf_large3_tile_probe`;
+access-pattern probe of K3's tile (`rf_large_copy_probe`;
 tools/torch_phase_times.py, tools/torch_ab.py); no route loads it, so no other build pays for
 those forms.
 """
@@ -78,8 +77,9 @@ _SIGNATURES = {
     "rf_permute": [_vp, _vp, _vp, _ll, _int, _int, _vp],
     "rf_large2f_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7 + [_int, _ll, _vp],
     "rf_large2f_max_active_clusters": [_int, ctypes.POINTER(_int)],
-    "rf_large3_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7,
-    "rf_large3_p2": [_vp, _vp, _ll, _int, _int, _int, _vp, _vp, _vp, _vp],
+    "rf_large3_col_stage": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 6 + [_ll, _ll, _vp],
+    "rf_large3_p2": [_vp, _vp, _ll, _int, _int, _int, _vp, _vp, _vp, _ll, _ll, _vp],
+    "rf_large3_resident_blocks": [_int, ctypes.POINTER(_int)],
     "rf_radix_fft": [_vp, _vp, _ll, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 5,
     "rf_radix_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_two_stage_fft": [_vp, _vp, _ll, _int, _int] + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
@@ -126,7 +126,6 @@ _STAMP_SIGNATURES = {
     "rf_large_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 6 + [_ll, _ll, _vp, _vp],
     "rf_large_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp, _vp],
     "rf_large_copy_probe": [_vp, _vp, _ll, _int, _int, _vp],
-    "rf_large3_tile_probe": [_vp, _vp, _ll, _int, _ll, _int, _vp],
     "rf_large2f_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7
                                    + [_int, _ll, _vp, _vp],
     "rf_bconv_col_tile_stamps": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 5

@@ -17,10 +17,19 @@ X[k3*(P1*P2) + k2*P1 + k1]:
   pass 3: K3's row stage, `large.large_row_stage` at (Q, P1*P2).
 
 Six traversals of the signal.  Each wrapper runs its plain torch version on
-a CPU tensor and launches csrc/large3.cu on a CUDA tensor, or raises.
+a CPU tensor and launches csrc/large3.cu on a CUDA tensor, or raises.  Both
+kernels are persistent: a grid sized here from the blocks the card holds
+(`resident_blocks`), each block walking a contiguous range of units with
+the next unit's input landing by cp.async while it computes.  Pass 1 at P1
+= 16 x 16 runs K2's column-tile kernel (csrc/col_tile.cuh) in the unit
+order of `col_walk` / `col_unit`: (j3 tile, j2, batch), batch fastest, so
+that a block keeps one slice of wob; pass 2 walks the units of `p2_walk` /
+`p2_unit`, (k1 chunk, b, j3), and splits DFT_P2 as `p2_split`.  An input
+that is not 16-byte aligned is copied first.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import List, Optional, Tuple
 
@@ -37,8 +46,8 @@ from .lanepack import (
     stage_tables,
 )
 
-#: the largest P2 of the factored split: pass 2 holds a column of P2
-#: complex values in a thread's registers (128 of them at 64)
+#: the largest P2 of the factored split: pass 2's kernel splits DFT_P2 into
+#: two radices of at most 8 (p2_split)
 MAX_P2 = 64
 
 
@@ -116,6 +125,84 @@ def _fits(sp) -> bool:
     return large.col_tile(p1, p2 * q) is not None and large.row_tile(q, p1 * p2) is not None
 
 
+def col_walk(batch: int, groups: int, slices: int, resident: int) -> Tuple[int, int]:
+    """(grid, per) of pass 1's persistent grid over batch * groups * slices
+    units (groups = P2, slices = Q/16 tiles of 16 columns j3) when the card
+    holds `resident` blocks at once: large.col_walk's contiguous ranges, in
+    the order of col_unit."""
+    return large.col_walk(batch * groups * slices, resident)
+
+
+def col_unit(v: int, batch: int, groups: int, slices: int) -> Tuple[int, int, int, int]:
+    """(batch row, j2, slice s, tile t) of pass 1's unit v: batch fastest,
+    then j2 < groups, then the j3 tile s < slices, the slowest; the tile t =
+    j2 * slices + s holds the columns j2*Q + 16s .. + 15 and reads wob's
+    rows 16s .. 16s + 15 (s = t mod slices).  One group is K2's order
+    (large.col_walk: t = s = v // batch)."""
+    b, w = v % batch, v // batch
+    s, j2 = divmod(w, groups)
+    return b, j2, s, j2 * slices + s
+
+
+#: pass 2's unit: W k1 of one (b, j3), P2 row pieces of W*8 bytes (the
+#: last chunk of k1 narrower where W does not divide P1)
+P2_W = 64
+
+
+def p2_split(p2: int) -> Tuple[int, int]:
+    """(RA, RB) with RA * RB = P2 of pass 2's split DFT (csrc/large3.cu
+    P2Split): j2 = jb + RB*ja, k2 = ka + RA*kb, DFT_RA over ja in stage A,
+    DFT_RB over jb in stage B; 8 x 8 at 64, 8 x 4, 4 x 4, and one radix
+    (RB = 1) at 8, 4 and 2."""
+    if p2 < 2 or p2 > MAX_P2 or p2 & (p2 - 1):
+        raise ValueError(f"p2_split: P2={p2} is not a power of 2 in [2, {MAX_P2}]")
+    ra = 4 if p2 == 16 else min(p2, 8)
+    return ra, p2 // ra
+
+
+def p2_chunks(p1: int) -> int:
+    """Pass 2's chunks of W k1 (the last one narrower where W does not
+    divide P1)."""
+    return -(-p1 // P2_W)
+
+
+def p2_walk(batch: int, q: int, p1: int, resident: int) -> Tuple[int, int]:
+    """(grid, per) of pass 2's persistent grid over batch * Q * p2_chunks(P1)
+    units when the card holds `resident` blocks at once: contiguous ranges
+    (large.col_walk) in the order of p2_unit."""
+    return large.col_walk(batch * q * p2_chunks(p1), resident)
+
+
+def p2_unit(u: int, batch: int, q: int) -> Tuple[int, int, int]:
+    """(k1 chunk, b, j3) of pass 2's unit u: j3 fastest, then the batch
+    row, the chunk of W k1 the slowest, so that a block's range holds few
+    chunks and keeps one slice of wos over many units."""
+    chunk, r = divmod(u, batch * q)
+    b, j3 = divmod(r, q)
+    return chunk, b, j3
+
+
+def resident_blocks(which: int) -> int:
+    """The blocks the current device holds at once of pass 1's tile kernel
+    (which = 0) or of pass 2's kernel at P2 = which."""
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.rf_large3_resident_blocks(which, ctypes.byref(out)),
+                 "large3 resident_blocks")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, which: int) -> int:
+    with torch.cuda.device(device_index):
+        return resident_blocks(which)
+
+
+def _resident_on(device: torch.device, which: int) -> int:
+    return _resident(device.index if device.index is not None else torch.cuda.current_device(),
+                     which)
+
+
 def col_tables(p1: int, m: int, q: int, direction: FftDirection):
     """Host tables of the factored pass 1, complex64: DFT_P1's stage tables
     and wob (Q, P1) = w_n^(j3*k1), n = P1*M."""
@@ -163,11 +250,15 @@ def large3_col_stage(x: torch.Tensor, p1: int, m: int, q: int, tables) -> torch.
     y = torch.empty((x.shape[0], m, p1), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
+    walk = [0, 0]
+    if (large.stage_radices(p1), qt) == large.TILE_COL and q % qt == 0:
+        x = large._aligned16(x)
+        walk = list(col_walk(x.shape[0], m // q, q // qt, _resident_on(x.device, 0)))
     lib = _build.load()
     with torch.cuda.device(x.device):
         code = lib.rf_large3_col_stage(
             x.data_ptr(), y.data_ptr(), x.shape[0], p1, m, q, qt,
-            *padded_stage_args(large.stage_radices(p1), roots, tws), wob.data_ptr(),
+            *padded_stage_args(large.stage_radices(p1), roots, tws), wob.data_ptr(), *walk,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, code, "large3_col_stage")
@@ -230,14 +321,18 @@ def large3_p2(a: torch.Tensor, p1: int, p2: int, q: int, tables) -> torch.Tensor
     require_cuda(a, "large3_p2")
     if p2 > MAX_P2:
         raise ValueError(f"large3_p2: P2={p2} above {MAX_P2}")
+    if p1 % 2:
+        raise ValueError(f"large3_p2: P1={p1} is odd (the kernel copies 16-byte pieces)")
     y = torch.empty((a.shape[0], q, p2 * p1), dtype=a.dtype, device=a.device)
     if a.shape[0] == 0:
         return y
+    a = large._aligned16(a)
+    grid, per = p2_walk(a.shape[0], q, p1, _resident_on(a.device, p2))
     lib = _build.load()
     with torch.cuda.device(a.device):
         code = lib.rf_large3_p2(
             a.data_ptr(), y.data_ptr(), a.shape[0], p1, p2, q, roots.data_ptr(),
-            None if wos is None else wos.data_ptr(), wm.data_ptr(),
+            None if wos is None else wos.data_ptr(), wm.data_ptr(), grid, per,
             torch.cuda.current_stream(a.device).cuda_stream,
         )
     _build.check(lib, code, "large3_p2")
@@ -246,31 +341,6 @@ def large3_p2(a: torch.Tensor, p1: int, p2: int, q: int, tables) -> torch.Tensor
 
 
 large3_p2.launches = 0
-
-
-def tile_probe(x: torch.Tensor, rows: int, length: int, cols: int) -> torch.Tensor:
-    """The access-pattern probe of K11's tiles (the RF_PHASE_STAMPS library
-    only; for timing): a copy of x, viewed as (B, rows, length) complex64,
-    one block a (rows, cols) tile of row pieces 8*cols bytes long, rows*cols
-    / 16 threads each loading eight 16-byte pieces, then storing them;
-    block v copies tile v // B of batch row v % B.  Pass 1's tile is (256,
-    16) at length M (rows 2 MiB apart at 2^26), K2's at length 4096 (32
-    KiB); pass 2's a (64, 64) tile at length Q*P1 (8 MiB); length == cols
-    copies consecutive bytes."""
-    what = "tile_probe"
-    require_cuda(x, what)
-    if x.dtype != torch.complex64 or not x.is_contiguous() or x.numel() % (rows * length):
-        raise ValueError(f"{what}: x is not a contiguous complex64 (B, {rows}, {length})")
-    if length % cols or cols % 2 or x.data_ptr() % 16:
-        raise ValueError(f"{what}: cols={cols} does not tile length={length} in 16-byte pieces")
-    y = torch.empty_like(x)
-    lib = _build.load(phase_stamps=True)
-    with torch.cuda.device(x.device):
-        code = lib.rf_large3_tile_probe(x.data_ptr(), y.data_ptr(), x.numel() // (rows * length),
-                                        rows, length, cols,
-                                        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, what)
-    return y
 
 
 def make_large3_fft_fn(n: int, direction: FftDirection, dtype,

@@ -78,11 +78,7 @@ radices.  And K11 (the three-pass 2^26 pipeline, large3f) at 2^26 x 2:
 pass 1 (`large3_col_stage`) and pass 2 (`large3_p2`) alone, each on the
 input its path gives it, K3's row stage at 2 x 4096 x 16384 (the Q pass),
 each also queued (20 calls behind a sleep kernel), the path (also queued)
-and torch.fft, and, where the checkout has it, the access-pattern probe
-of K11's tiles (`large3.tile_probe`, K11_PROBES: copies of the 2^26 x 2
-input in pass 1's (256, 16) tiles with rows 2 MiB apart against K2's 32
-KiB, each also 32 and 64 columns wide, pass 2's (64, 64) tiles with rows
-8 MiB apart, against consecutive tiles, and `clone`).  `--only` keeps the
+and torch.fft.  `--only` keeps the
 named groups of these (K1, K2 for K2 and K3, paths for the planner's paths
 and K1's and K5's chain paths' torch.fft, K9, K16, K12, K15, K14, K5 for
 K5's product, K10, K13, K11).  It prints one JSON line per run and then
@@ -165,15 +161,8 @@ RECORDED = {
                   "bconv_row_tile": "B_conv", "bconv_out_stage": "A2", "bconv_out_tile": "A2"},
 }
 
-#: K11's path (large3f: P1 = 256, P2 = 64, Q = 4096) and the tiles of its
-#: access-pattern probe (rows, row length, columns): pass 1's (256, 16)
-#: tile at M = 2^18 (rows 2 MiB apart) and at K2's 4096 (32 KiB), each also
-#: 32 and 64 columns wide, and consecutive; pass 2's (64, 64) tile at Q*P1
-#: = 2^20 (8 MiB), and consecutive
+#: K11's path (large3f: P1 = 256, P2 = 64, Q = 4096)
 K11 = (1 << 26, 2)
-K11_PROBES = ((256, 1 << 18, 16), (256, 4096, 16), (256, 1 << 18, 32), (256, 4096, 32),
-              (256, 1 << 18, 64), (256, 4096, 64), (256, 16, 16), (64, 1 << 20, 64),
-              (64, 64, 64))
 
 GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13", "K11")
 
@@ -507,14 +496,6 @@ def run_one(root: str, groups=GROUPS) -> dict:
         out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
         out[f"path {n}x{batch} (queued)"] = queued_ms(lambda: plan.process(x), calls=20)
         out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
-        if hasattr(large3, "tile_probe"):
-            for rows, length, cols in K11_PROBES:
-                if not torch.equal(large3.tile_probe(x, rows, length, cols), x):
-                    raise SystemExit("tile_probe: the copy differs from its input")
-                apart = "consecutive" if length == cols else f"rows {length // 128} KiB apart"
-                out[f"probe ({rows}, {cols}) tiles {apart}"] = ms(
-                    lambda: large3.tile_probe(x, rows, length, cols), reps=15)
-            out[f"clone {tag}"] = ms(lambda: x.clone(), reps=15)
         del x
     if "K13" in groups:
         from rustfft_tpu_torch.ops.kernels import _build, conv
