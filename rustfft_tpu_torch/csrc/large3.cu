@@ -67,8 +67,9 @@
 
 namespace rf {
 
-// Pass 1's rows: K2's ColRows, a type of its own so that this source's
-// instantiation of the tile kernel is its own.
+// Pass 1's rows: K2's ColRows under a name of its own, so that the tile
+// kernel this source instantiates is a symbol of its own and not a second
+// definition of csrc/large.cu's col_tile_kernel<ColRows>.
 struct Pass1Rows : ColRows {};
 
 constexpr int kP2W = 64;         // k1 a unit
