@@ -78,10 +78,17 @@ radices.  And K11 (the three-pass 2^26 pipeline, large3f) at 2^26 x 2:
 pass 1 (`large3_col_stage`) and pass 2 (`large3_p2`) alone, each on the
 input its path gives it, K3's row stage at 2 x 4096 x 16384 (the Q pass),
 each also queued (20 calls behind a sleep kernel), the path (also queued)
-and torch.fft.  `--only` keeps the
-named groups of these (K1, K2 for K2 and K3, paths for the planner's paths
-and K1's and K5's chain paths' torch.fft, K9, K16, K12, K15, K14, K5 for
-K5's product, K10, K13, K11).  It prints one JSON line per run and then
+and torch.fft; and at 2^27 x 1 the same where the checkout routes 2^27 to
+large3f (P2 = 128), with the path as the planner runs it, the torch recipe
+tree (`config.kernels = "off"`) and torch.fft.  And K8
+(`three_stage_fft`, which no route takes) at 16384 x 4096 and at one size
+of each cluster c of its card forms (32768 x 2048, c = 2; 49152 x 2048,
+4; 98304 x 1024, 8; 196608 x 512, 16), where the checkout runs it on the
+card, beside the kernel the route runs at the same n and batch (the path,
+and K7's cluster kernel at choose_pq's split) and torch.fft.  `--only`
+keeps the named groups of these (K1, K2 for K2 and K3, paths for the
+planner's paths and K1's and K5's chain paths' torch.fft, K9, K16, K12,
+K15, K14, K5 for K5's product, K10, K13, K11, K8).  It prints one JSON line per run and then
 a table, each row a quantity and each column a run.
 """
 from __future__ import annotations
@@ -161,10 +168,13 @@ RECORDED = {
                   "bconv_row_tile": "B_conv", "bconv_out_stage": "A2", "bconv_out_tile": "A2"},
 }
 
-#: K11's path (large3f: P1 = 256, P2 = 64, Q = 4096)
-K11 = (1 << 26, 2)
+#: K11's paths (large3f: P1 = 256, Q = 4096; P2 = 64 at 2^26, 128 at 2^27)
+K11 = ((1 << 26, 2), (1 << 27, 1))
 
-GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13", "K11")
+#: K8's shapes: 16384 (the radix body at R = 1) and one size of each cluster c
+K8 = ((16384, 4096), (32768, 2048), (49152, 2048), (98304, 1024), (196608, 512))
+
+GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13", "K11", "K8")
 
 
 def run_one(root: str, groups=GROUPS) -> dict:
@@ -471,32 +481,61 @@ def run_one(root: str, groups=GROUPS) -> dict:
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
             del x
     if "K11" in groups:
+        from rustfft_tpu_torch.config import config
         from rustfft_tpu_torch.ops.kernels import large3
 
-        torch.cuda.empty_cache()
-        n, batch = K11
-        p1, p2, _, _, q = large3.choose_split3f(n)
-        m, tag = p2 * q, f"{batch}x2^{n.bit_length() - 1}"
-        r, t, wob = large3.col_tables(p1, m, q, FftDirection.FORWARD)
-        col = (on(r), on(t), on([wob])[0])
-        mid = tuple(on(large3.p2_tables(p1, p2, q, FftDirection.FORWARD, True)))
-        row = tuple(on(v) for v in large.row_tables(q, FftDirection.FORWARD))
-        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
-        a = large3.large3_col_stage(x, p1, m, q, col)  # the inputs the path gives each pass
-        b = large3.large3_p2(a, p1, p2, q, mid)
-        stages = {"pass 1 large3_col_stage": lambda: large3.large3_col_stage(x, p1, m, q, col),
-                  "pass 2 large3_p2": lambda: large3.large3_p2(a, p1, p2, q, mid),
-                  f"K3 large_row_stage {batch}x{q}x{p1 * p2}":
-                      lambda: large.large_row_stage(b, q, p1 * p2, row)}
-        for name, fn in stages.items():
-            out[f"K11 {name} {tag}"] = ms(fn, reps=15)
-            out[f"K11 {name} {tag} (queued)"] = queued_ms(fn, calls=20)
-        del a, b
-        plan = planner.plan_fft_forward(n)
-        out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
-        out[f"path {n}x{batch} (queued)"] = queued_ms(lambda: plan.process(x), calls=20)
-        out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
-        del x
+        for n, batch in K11:
+            torch.cuda.empty_cache()
+            tag = f"{batch}x2^{n.bit_length() - 1}"
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            if large3.large3f_supported(n, np.complex64):
+                p1, p2, _, _, q = large3.choose_split3f(n)
+                m = p2 * q
+                r, t, wob = large3.col_tables(p1, m, q, FftDirection.FORWARD)
+                col = (on(r), on(t), on([wob])[0])
+                mid = tuple(on(large3.p2_tables(p1, p2, q, FftDirection.FORWARD, True)))
+                row = tuple(on(v) for v in large.row_tables(q, FftDirection.FORWARD))
+                a = large3.large3_col_stage(x, p1, m, q, col)  # the inputs the path gives each pass
+                b = large3.large3_p2(a, p1, p2, q, mid)
+                stages = {"pass 1 large3_col_stage": lambda: large3.large3_col_stage(x, p1, m, q, col),
+                          "pass 2 large3_p2": lambda: large3.large3_p2(a, p1, p2, q, mid),
+                          f"K3 large_row_stage {batch}x{q}x{p1 * p2}":
+                              lambda: large.large_row_stage(b, q, p1 * p2, row)}
+                for name, fn in stages.items():
+                    out[f"K11 {name} {tag}"] = ms(fn, reps=15)
+                    out[f"K11 {name} {tag} (queued)"] = queued_ms(fn, calls=20)
+                del a, b
+            plan = planner.plan_fft_forward(n)
+            out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+            out[f"path {n}x{batch} (queued)"] = queued_ms(lambda: plan.process(x), calls=20)
+            if n > 1 << 26:  # the torch recipe tree 2^27 ran before large3f took it
+                config.kernels = "off"
+                try:
+                    tree = FftPlanner(np.complex64, device="cuda").plan_fft_forward(n)
+                    out[f"recipe tree {n}x{batch}"] = ms(lambda: tree.process(x), reps=7)
+                finally:
+                    config.kernels = "auto"
+                del tree
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+            del x
+    if "K8" in groups:
+        for n, batch in K8:
+            torch.cuda.empty_cache()
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            fn = fused.make_fused_three_stage_fn(n, FftDirection.FORWARD, np.complex64)
+            try:
+                fn(x)
+            except ValueError:  # a checkout whose K8 has no card form at n
+                del x
+                continue
+            out[f"K8 three_stage_fft {n}x{batch}"] = ms(lambda: fn(x), reps=15)
+            p, q = fused.choose_pq(n)
+            k7 = fused.make_fused_two_stage_fn(n, FftDirection.FORWARD, np.complex64, split=(p, q))
+            out[f"K7 two_stage {p}x{q} {n}x{batch}"] = ms(lambda: k7(x), reps=15)
+            plan = planner.plan_fft_forward(n)
+            out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+            del x
     if "K13" in groups:
         from rustfft_tpu_torch.ops.kernels import _build, conv
 
