@@ -1,5 +1,6 @@
-// The one-pass mid band: the ports of K9 (radix_fft) and K7/K8
-// (two_stage_fft, three_stage_fft).
+// The one-pass mid band: the ports of K9 (radix_fft), K7 (two_stage_fft,
+// two_stage_cluster_fft) and, on K9's and K7's bodies, K8
+// (three_stage_fft, ops/kernels/fused.py three_stage_form).
 //
 // Replaces rustfft_tpu/ops/pallas/fused.py.  Each kernel makes one read and
 // one write of the signal in device memory, 16 bytes per point (1.07 GB at
@@ -52,8 +53,7 @@
 // than one transform a block (PERF.md, PR 11).
 //
 // two_stage_fft (K7: fused.py _fused_kernel, _fused_kernel_gauss,
-// _fused_kernel_twodot; K8: _fused_kernel_3s with DFT_q as the chain
-// (q1, q2)).  n = p * q up to 28800 (225 KiB): one block per transform with
+// _fused_kernel_twodot).  n = p * q up to 28800 (225 KiB): one block per transform with
 // the whole transform in one shared buffer, so every stage runs in place:
 // a stage's column writes its outputs where it read its inputs, and the
 // store reads each natural index from its digit-reversed place through two
@@ -69,9 +69,10 @@
 //
 // two_stage_cluster_fft (K7's cluster band, the same function): the aligned
 // n from 28928 to 261632 (226 KiB .. 2 MiB a transform, p = 129 .. 511,
-// q = 128 .. 512) do not fit one SM, so one thread-block cluster of c = 2,
-// 4, 8 or 16 blocks computes one transform, in one read and one write of
-// device memory:
+// q = 128 .. 512), and K8 at p = 128, q = 256 .. 2048 (32768 .. 262144; its
+// DFT_q as the register chain of q, up to three radices), do not fit one
+// SM, so one thread-block cluster of c = 2, 4, 8 or 16 blocks computes one
+// transform, in one read and one write of device memory:
 //   1. block b loads the columns j2 = b*q/c .. (b+1)*q/c - 1 of every row j1
 //      (segments of 8q/c bytes) and runs DFT_p on them in place, the outer
 //      twiddle folded into the last stage (chain_inplace, as above);
@@ -584,15 +585,17 @@ extern "C" int rf_two_stage_cluster_phase_stamps(
 
 // cudaOccupancyMaxActiveClusters of rf_two_stage_cluster_fft's kernel (its
 // form with the Bluestein stage) in clusters of c blocks at the most shared
-// memory it takes (a share of kClusterShare values, the index tables and
-// the roots of two 512-point chains of direct stages, p = q = 512, an upper
-// bound) into *out.
+// memory it takes (a share of kClusterShare values, the index tables of p
+// <= 512 and q <= 2048 (K8's p + 2q = 4224 ints at 262144, K7's 1536 at
+// 512 x 512) and the roots of two 512-point chains of direct stages, an
+// upper bound) into *out.
 extern "C" int rf_two_stage_cluster_max_active_clusters(int c, int* out) {
   using namespace rf;
   if (!cluster_size_ok(c)) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const size_t smem = ((size_t)kClusterShare + 2 * 512) * sizeof(float2) + 3 * 512 * sizeof(int);
+  const size_t smem =
+      ((size_t)kClusterShare + 2 * 512) * sizeof(float2) + (512 + 2 * 2048) * sizeof(int);
   cudaError_t err = cluster_config<kClusterMaxM, false>(cfg, attr, 1, c, smem, 0);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(out, two_stage_cluster_kernel<kClusterMaxM, false>, &cfg);

@@ -99,7 +99,7 @@ constexpr int kRowPer = kRowCols / kRowThreads;
 // rows col/4 + 256*j, j = 8*(c & 1) .. + 7, columns (c & 2) and (c & 2) + 1,
 // the rows that column reads.  `at` is the first copy's offset, (c/4 +
 // 2048*(c & 1))*P + (c & 2), and `step` 256*P (every offset of a (4096, P)
-// row fits 32 bits: P <= 16384).
+// row, below 4096*P, fits 32 bits: P <= 32768, K11's P1*P2 at 2^27).
 static __device__ __forceinline__ void row_tile_copy(float2* buf, const float2* __restrict__ src,
                                                      unsigned at, unsigned step) {
   const int c = opaque_int(threadIdx.x);
@@ -223,7 +223,7 @@ static cudaError_t launch_row_tile(const float2* x, float2* y, long long batch, 
                                    long long grid, const Stages& st, unsigned long long* stamps,
                                    cudaStream_t s) {
   const long long tiles = batch * (p / kRowT);
-  if (p % kRowT != 0 || p > 16384 || grid < 1 || grid > tiles || tiles > 0x7fffffffLL ||
+  if (p % kRowT != 0 || p > 32768 || grid < 1 || grid > tiles || tiles > 0x7fffffffLL ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(row_tile_kernel<kStamp>, row_tile_smem());

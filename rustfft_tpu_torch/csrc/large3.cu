@@ -36,15 +36,20 @@
 // Pass 2, p2_ring_kernel: a persistent grid of the blocks the card holds
 // (two an SM, 512 threads) walks contiguous ranges of units (k1 chunk, b,
 // j3), j3 fastest and the chunk slowest (ops/kernels/large3.py p2_walk,
-// p2_unit).  A unit is W = 64 consecutive k1 of one (b, j3): P2 row
-// pieces of 512 bytes, Q*P1*8 bytes apart (8 MiB at 2^26), 32 KiB at P2 =
-// 64.  Where W does not divide P1 (an even P1: the pieces are 16-byte
-// copies) the last chunk is narrower and the columns past it idle.
+// p2_unit).  A unit is W consecutive k1 of one (b, j3): P2 row pieces of
+// W*8 bytes, Q*P1*8 bytes apart (8 MiB at 2^26 and 2^27), 32 KiB a unit:
+// W = 64 (512-byte pieces) up to P2 = 64, W = 32 (256-byte pieces) at P2 =
+// 128 (2^27), so that two buffers and the wos slice stay at 96 KiB and
+// two blocks an SM at every P2 (256-byte pieces read within 1% of 512-byte
+// ones in PR 19's probe of pass 1's tiles, PERF.md).  Where W does not
+// divide P1 (an even P1: the pieces are 16-byte copies) the last chunk is
+// narrower and the columns past it idle.
 //  - The next unit's pieces land by cp.async in the second of two buffers
 //    while the current unit computes and stores.  Warp w copies exactly the
 //    rows and columns its stage A reads, so a warp starts as soon as its
 //    own copies land (cp.async.wait_group and __syncwarp, no block barrier).
-//  - The DFT over j2 is split P2 = RA x RB (8 x 8 at 64; p2_split): j2 =
+//  - The DFT over j2 is split P2 = RA x RB (8 x 8 at 64, 16 x 8 at 128;
+//    p2_split): j2 =
 //    jb + RB*ja, k2 = ka + RA*kb.  Stage A: thread (col, jb) takes the RA
 //    values of rows jb + RB*ja into registers (times wos from the chunk's
 //    (P2, W) slice in shared memory), runs DFT_RA over ja, multiplies by
@@ -53,12 +58,17 @@
 //    second barrier frees the buffer, then DFT_RB over jb gives X[ka +
 //    RA*kb], times wm[j3, k2] (read by __ldg, one address a warp), stored
 //    to row k2 of the unit's output: P2 rows of 512 bytes, 2 KiB apart.
-//    A thread holds RA or RB values (8 at P2 = 64), not P2.  Consecutive
+//    A thread holds RA or RB values (8 at P2 = 64), not P2.  At 128 stage
+//    A's 256 threads (the other 256 idle through it) run their DFT_16 as
+//    two radix-4 passes through their own 16 cells of the buffer, four
+//    values in registers at a time (stage_a16), and stage B's 512 threads
+//    hold 8 each, so no thread needs more registers than at P2 = 64 (the
+//    64 of two blocks an SM).  Consecutive
 //    threads take consecutive columns at every step, so shared memory is
 //    read and written without bank conflicts and without a swizzle.
-//  - The wos slice (P2, W), 32 KiB at P2 = 64, is read once per chunk of
-//    a block's range, which holds at most two chunks where per <= B*Q
-//    (125 units against 8192 at 2^26 x 2).
+//  - The wos slice (P2, W), 32 KiB, is read once per chunk of a block's
+//    range, which holds at most two chunks where per <= B*Q (125 units
+//    against 8192 at 2^26 x 2, 125 against 4096 at 2^27 x 1).
 //  - Without wos (the unfactored pipeline) the slice is neither read nor
 //    applied.
 // The TPU kernel ran the P2 chain as whole-tile butterflies on its vector
@@ -72,19 +82,89 @@ namespace rf {
 // definition of csrc/large.cu's col_tile_kernel<ColRows>.
 struct Pass1Rows : ColRows {};
 
-constexpr int kP2W = 64;         // k1 a unit
 constexpr int kP2Threads = 512;
 
-// Pass 2's split of P2 = RA x RB (ops/kernels/large3.py p2_split).
+// Pass 2's split of P2 = RA x RB (ops/kernels/large3.py p2_split) and its
+// unit's width W, k1 a unit (p2_cols).
 template <int P2>
 struct P2Split {
-  static constexpr int RA = P2 == 16 ? 4 : P2 >= 8 ? 8 : P2;
+  static constexpr int RA = P2 == 16 ? 4 : P2 == 128 ? 16 : P2 >= 8 ? 8 : P2;
   static constexpr int RB = P2 / RA;
+  static constexpr int W = P2 > 64 ? 32 : 64;
 };
 
+// The slots of w_RA^e and of w_RB^e in shared memory: at least 8 each.
+template <int R>
+constexpr int kRootSlots = R > 8 ? R : 8;
+
+// Two units, the wos slice, w_P2^e, w_RA^e and w_RB^e.
 template <int P2>
 static size_t p2_smem() {
-  return (size_t)(3 * P2 * kP2W + P2 + 16) * sizeof(float2);
+  using Split = P2Split<P2>;
+  return (size_t)(3 * P2 * Split::W + P2 + kRootSlots<Split::RA> + kRootSlots<Split::RB>) *
+         sizeof(float2);
+}
+
+// DFT_4 of v in place, natural order, w = w_4 (w^2 = -1, w^3 = -w).
+static __device__ __forceinline__ void dft4(float2 (&v)[4], float2 w) {
+  const float2 t0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+  const float2 t1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+  const float2 t2 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+  const float2 t3 = cmul(make_float2(v[1].x - v[3].x, v[1].y - v[3].y), w);
+  v[0] = make_float2(t0.x + t2.x, t0.y + t2.y);
+  v[1] = make_float2(t1.x + t3.x, t1.y + t3.y);
+  v[2] = make_float2(t0.x - t2.x, t0.y - t2.y);
+  v[3] = make_float2(t1.x - t3.x, t1.y - t3.y);
+}
+
+// Stage A at RA = 16 (P2 = 128) for column col at jb: DFT_16 over ja of the
+// rows jb + RB*ja (times wos where `scale`) as two radix-4 passes through
+// the thread's own cells, row jb + RB*e of column col for e < 16, four
+// values in registers at a time.  With ja = ja0 + 4*ja1 and ka = ka1 +
+// 4*ka0, pass 1 leaves w_16^(ja0*ka1) * DFT_4 over ja1 in cell ja0 +
+// 4*ka1, pass 2 leaves X[ka] * w_P2^(jb*ka) in cell a16_cell(ka) = 4*ka1 +
+// ka0.  Each pass writes only the cells it read, which no other thread
+// reads or writes, so no barrier is needed.  roots16: w_16^e.
+template <int RB, int W>
+static __device__ __forceinline__ void stage_a16(float2* buf, const float2* swos, bool scale,
+                                                 const float2* roots16,
+                                                 const float2* sroots, int col, int jb) {
+  constexpr int kCell = RB * W;  // one cell to the next
+  float2* cell = buf + jb * W + col;
+  const float2* ws = swos + jb * W + col;
+  const float2 w4 = roots16[4];  // w_4 = w_16^4
+#pragma unroll
+  for (int ja0 = 0; ja0 < 4; ++ja0) {
+    float2 v[4];
+#pragma unroll
+    for (int ja1 = 0; ja1 < 4; ++ja1) {
+      v[ja1] = cell[(ja0 + 4 * ja1) * kCell];
+      if (scale) v[ja1] = cmul(v[ja1], ws[(ja0 + 4 * ja1) * kCell]);
+    }
+    dft4(v, w4);
+#pragma unroll
+    for (int ka1 = 0; ka1 < 4; ++ka1)
+      cell[(ja0 + 4 * ka1) * kCell] =
+          ja0 != 0 && ka1 != 0 ? cmul(v[ka1], roots16[ja0 * ka1]) : v[ka1];
+  }
+#pragma unroll
+  for (int ka1 = 0; ka1 < 4; ++ka1) {
+    float2 v[4];
+#pragma unroll
+    for (int ja0 = 0; ja0 < 4; ++ja0) v[ja0] = cell[(ja0 + 4 * ka1) * kCell];
+    dft4(v, w4);
+#pragma unroll
+    for (int ka0 = 0; ka0 < 4; ++ka0) {
+      const int ka = ka1 + 4 * ka0;
+      cell[(4 * ka1 + ka0) * kCell] = ka != 0 ? cmul(v[ka0], sroots[jb * ka]) : v[ka0];
+    }
+  }
+}
+
+// The cell of stage A's output ka (stage_a16's order at RA = 16, else ka).
+template <int RA>
+static __device__ __forceinline__ int a_cell(int ka) {
+  return RA == 16 ? 4 * (ka & 3) + (ka >> 2) : ka;
 }
 
 // Pass 2's unit order (above): unit u is j3 = u mod Q of batch row (u / Q)
@@ -96,105 +176,113 @@ struct P2Units {
 };
 
 // The columns of chunk c: W, or what is left of P1 in the last chunk.
+template <int W>
 static __device__ __forceinline__ int p2_width(unsigned c, int p1) {
-  return min(kP2W, p1 - (int)c * kP2W);
+  return min(W, p1 - (int)c * W);
 }
 
 // Warp w's copies of unit (r = b*Q + j3, chunk)'s P2 row pieces into buf
 // (row j2 at buf[j2*W]): the rows jb + RB*ja (ja < RA) and the 32 columns
-// its stage A reads, those below the chunk's width, RA/2 16-byte copies a
-// lane, one cp.async group (empty for the threads stage A leaves idle).
-template <int RA, int RB>
+// its stage A reads (warp w takes jb = w / (W/32)), those below the chunk's
+// width, RA/2 16-byte copies a lane, one cp.async group (empty for the
+// threads stage A leaves idle).
+template <int RA, int RB, int W>
 static __device__ __forceinline__ void p2_copy(float2* buf, const float2* __restrict__ a,
                                                unsigned r, unsigned chunk, unsigned q, int p1,
                                                int tid) {
-  const int width = p2_width(chunk, p1);
-  if (tid < kP2W * RB) {
+  const int width = p2_width<W>(chunk, p1);
+  if (tid < W * RB) {
+    static_assert(W == 32 || W == 64, "a row piece of one or two warps");
     const int warp = tid >> 5, lane = tid & 31;
-    const int jb = warp >> 1, col0 = (warp & 1) * 32;
+    const int jb = warp >> (W / 64), col0 = (warp & (W / 64)) * 32;
     const unsigned b = r / q, j3 = r - b * q;
     const size_t ld = (size_t)q * (size_t)p1;  // j2 rows apart
-    const float2* src = a + ((size_t)b * (RA * RB) * q + j3) * (size_t)p1 + chunk * kP2W;
+    const float2* src = a + ((size_t)b * (RA * RB) * q + j3) * (size_t)p1 + chunk * W;
 #pragma unroll
     for (int i = 0; i < RA / 2; ++i) {
       const int idx = i * 32 + lane;
       const int row = jb + RB * (idx >> 4), col = col0 + (idx & 15) * 2;
-      if (col < width) cp_async16(buf + row * kP2W + col, src + row * ld + col);
+      if (col < width) cp_async16(buf + row * W + col, src + row * ld + col);
     }
   }
   cp_async_commit();
 }
 
-template <int RA, int RB>
+template <int RA, int RB, int W>
 __global__ void __launch_bounds__(kP2Threads, 2)
     p2_ring_kernel(const float2* __restrict__ a, float2* __restrict__ y, P2Units walk,
                    unsigned units, unsigned per, int p1, const float2* __restrict__ roots,
                    const float2* __restrict__ wos, const float2* __restrict__ wm) {
   constexpr int P2 = RA * RB;
-  constexpr int kElems = P2 * kP2W;
+  constexpr int kElems = P2 * W;
   extern __shared__ float4 p2_smem_raw[];
   float2* bufs = reinterpret_cast<float2*>(p2_smem_raw);  // two units
   float2* swos = bufs + 2 * kElems;                        // the chunk's (P2, W) slice
   float2* sroots = swos + kElems;                          // w_P2^e
   float2* roots_a = sroots + P2;                           // w_RA^e = w_P2^(e*RB)
-  float2* roots_b = roots_a + 8;                           // w_RB^e = w_P2^(e*RA)
+  float2* roots_b = roots_a + kRootSlots<RA>;              // w_RB^e = w_P2^(e*RA)
   const unsigned q = walk.q;
   const unsigned u0 = blockIdx.x * per;
   const unsigned u1 = min(u0 + per, units);
-  if (u0 < u1) p2_copy<RA, RB>(bufs, a, walk.row(u0), walk.chunk(u0), q, p1, threadIdx.x);
+  if (u0 < u1) p2_copy<RA, RB, W>(bufs, a, walk.row(u0), walk.chunk(u0), q, p1, threadIdx.x);
   for (int i = threadIdx.x; i < P2; i += blockDim.x) sroots[i] = roots[i];
   if (threadIdx.x < RA) roots_a[threadIdx.x] = roots[threadIdx.x * RB];
   if (threadIdx.x < RB) roots_b[threadIdx.x] = roots[threadIdx.x * RA];
   __syncthreads();
-  unsigned slice = ~0u;  // the chunk whose wos slice swos holds
   int cur = 0;
   for (unsigned u = u0; u < u1; ++u, cur ^= 1) {
     const int tid = opaque_int(threadIdx.x);
     const unsigned r = walk.row(u), chunk = walk.chunk(u);
-    const int width = p2_width(chunk, p1);
+    const int width = p2_width<W>(chunk, p1);
     float2* buf = bufs + cur * kElems;
-    if (wos != nullptr && chunk != slice) {  // block-uniform
-      const float2* __restrict__ src = wos + chunk * kP2W;
+    // the chunk's wos slice at the range's first unit and where the chunk
+    // changes (r = 0): the chunk never falls along a range, so no register
+    // carries the chunk that swos holds (at P2 = 128 one spilled)
+    if (wos != nullptr && (u == blockIdx.x * per || r == 0)) {  // block-uniform
+      const float2* __restrict__ src = wos + chunk * W;
       for (int i = tid; i < kElems; i += kP2Threads)
-        if (i % kP2W < width) swos[i] = __ldg(&src[(i / kP2W) * p1 + (i % kP2W)]);
-      slice = chunk;
+        if (i % W < width) swos[i] = __ldg(&src[(i / W) * p1 + (i % W)]);
       __syncthreads();
     }
     if (u + 1 < u1) {
-      p2_copy<RA, RB>(bufs + (cur ^ 1) * kElems, a, walk.row(u + 1), walk.chunk(u + 1), q, p1,
-                      tid);
+      p2_copy<RA, RB, W>(bufs + (cur ^ 1) * kElems, a, walk.row(u + 1), walk.chunk(u + 1), q, p1,
+                         tid);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncwarp();
     // stage A: DFT_RA over ja of column col at jb, in place
-    if (tid < kP2W * RB && tid % kP2W < width) {
-      const int col = tid % kP2W, jb = tid / kP2W;
-      float2 v[RA];
+    if (tid < W * RB && tid % W < width) {
+      const int col = tid % W, jb = tid / W;
+      if constexpr (RA == 16) {
+        stage_a16<RB, W>(buf, swos, wos != nullptr, roots_a, sroots, col, jb);
+      } else {
+        float2 v[RA];
 #pragma unroll
-      for (int ja = 0; ja < RA; ++ja) v[ja] = buf[(jb + RB * ja) * kP2W + col];
-      if (wos != nullptr) {
+        for (int ja = 0; ja < RA; ++ja) v[ja] = buf[(jb + RB * ja) * W + col];
+        if (wos != nullptr) {
 #pragma unroll
-        for (int ja = 0; ja < RA; ++ja) v[ja] = cmul(v[ja], swos[(jb + RB * ja) * kP2W + col]);
+          for (int ja = 0; ja < RA; ++ja) v[ja] = cmul(v[ja], swos[(jb + RB * ja) * W + col]);
+        }
+        dft_column<RA>(v, roots_a, [&](int ka, float2 z) {
+          if (RB > 1 && ka != 0) z = cmul(z, sroots[jb * ka]);
+          buf[(jb + RB * ka) * W + col] = z;
+        });
       }
-      dft_column<RA>(v, roots_a, [&](int ka, float2 z) {
-        if (RB > 1 && ka != 0) z = cmul(z, sroots[jb * ka]);
-        buf[(jb + RB * ka) * kP2W + col] = z;
-      });
     }
     __syncthreads();  // stage A's outputs, for every thread
     // stage B: DFT_RB over jb of column col at ka, times wm, to row k2
-    const int col = tid % kP2W, ka = tid / kP2W;
-    const bool active = tid < kP2W * RA && col < width;
+    const int col = tid % W, ka = tid / W;
+    const bool active = tid < W * RA && col < width;
     float2 v[RB];
     if (active) {
 #pragma unroll
-      for (int jb = 0; jb < RB; ++jb) v[jb] = buf[(jb + RB * ka) * kP2W + col];
+      for (int jb = 0; jb < RB; ++jb) v[jb] = buf[(jb + RB * a_cell<RA>(ka)) * W + col];
     }
     __syncthreads();  // this buffer is free
     if (active) {
-      float2* __restrict__ yo = y + (size_t)r * P2 * (size_t)p1 + chunk * kP2W + col;
+      float2* __restrict__ yo = y + (size_t)r * P2 * (size_t)p1 + chunk * W + col;
       const float2* __restrict__ wmj = opaque_ptr(wm) + (size_t)(r % q) * P2;
       dft_column<RB>(v, roots_b, [&](int kb, float2 z) {
         const int k2 = ka + RA * kb;
@@ -209,15 +297,21 @@ static cudaError_t launch_p2(const float2* a, float2* y, long long batch, int p1
                              long long grid, long long per, const float2* roots,
                              const float2* wos, const float2* wm, cudaStream_t s) {
   using Split = P2Split<P2>;
-  static_assert(Split::RA * Split::RB == P2 && Split::RA >= 2 && Split::RA <= 8 &&
-                    Split::RB <= 8, "pass 2's split");
-  const long long units = batch * (long long)q * ((p1 + kP2W - 1) / kP2W);
+  // stage A's W*RB threads and stage B's W*RA fit the block; at most 8
+  // values a thread in registers (RA = 16 runs stage_a16), under the 64
+  // registers of two blocks an SM
+  static_assert(Split::RA * Split::RB == P2 && Split::RA >= 2 && Split::RA <= 16 &&
+                    Split::RB <= 8 && Split::W * Split::RB <= kP2Threads &&
+                    Split::W * Split::RA <= kP2Threads,
+                "pass 2's split");
+  const long long units = batch * (long long)q * ((p1 + Split::W - 1) / Split::W);
   if (grid < 1 || per < 1 || units > 0x7fffffffLL || grid * per < units ||
       (grid - 1) * per >= units)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(p2_ring_kernel<Split::RA, Split::RB>, p2_smem<P2>());
+  const auto kernel = p2_ring_kernel<Split::RA, Split::RB, Split::W>;
+  cudaError_t err = allow_smem(kernel, p2_smem<P2>());
   if (err != cudaSuccess) return err;
-  p2_ring_kernel<Split::RA, Split::RB><<<(unsigned)grid, kP2Threads, p2_smem<P2>(), s>>>(
+  kernel<<<(unsigned)grid, kP2Threads, p2_smem<P2>(), s>>>(
       a, y, P2Units{(unsigned)q, (unsigned)(batch * q)}, (unsigned)units, (unsigned)per, p1,
       roots, wos, wm);
   return cudaGetLastError();
@@ -226,7 +320,8 @@ static cudaError_t launch_p2(const float2* a, float2* y, long long batch, int p1
 template <int P2>
 static cudaError_t p2_resident(int* out) {
   using Split = P2Split<P2>;
-  return resident_blocks(p2_ring_kernel<Split::RA, Split::RB>, kP2Threads, p2_smem<P2>(), out);
+  return resident_blocks(p2_ring_kernel<Split::RA, Split::RB, Split::W>, kP2Threads,
+                         p2_smem<P2>(), out);
 }
 
 }  // namespace rf
@@ -260,7 +355,7 @@ extern "C" int rf_large3_col_stage(const void* x, void* y, long long batch, int 
 
 // a: (batch, P2, Q, P1), y: (batch, Q, P2, P1), complex64; roots: (P2,)
 // w_P2^e; wos: (P2, P1) or NULL; wm: (Q, P2).  P2 a power of 2 from 2 to
-// 64, P1 even, a and y 16-byte aligned; p2_ring_kernel on
+// 128, P1 even, a and y 16-byte aligned; p2_ring_kernel on
 // `grid` blocks of `per` units (ops/kernels/large3.py p2_walk).  Returns a
 // cudaError_t code; launches on `stream`.
 extern "C" int rf_large3_p2(const void* a, void* y, long long batch, int p1, int p2, int q,
@@ -283,6 +378,7 @@ extern "C" int rf_large3_p2(const void* a, void* y, long long batch, int p1, int
     case 16: return launch_p2<16>(ta, ty, batch, p1, q, grid, per, tr, tos, tm, s);
     case 32: return launch_p2<32>(ta, ty, batch, p1, q, grid, per, tr, tos, tm, s);
     case 64: return launch_p2<64>(ta, ty, batch, p1, q, grid, per, tr, tos, tm, s);
+    case 128: return launch_p2<128>(ta, ty, batch, p1, q, grid, per, tr, tos, tm, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -301,6 +397,7 @@ extern "C" int rf_large3_resident_blocks(int which, int* out) {
     case 16: return p2_resident<16>(out);
     case 32: return p2_resident<32>(out);
     case 64: return p2_resident<64>(out);
+    case 128: return p2_resident<128>(out);
     default: return cudaErrorInvalidValue;
   }
 }

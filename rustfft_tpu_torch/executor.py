@@ -78,8 +78,8 @@ def route(n: int, dtype) -> Optional[str]:
                   fused column stage's (P1*P2, 16384/(P1*P2)) tile in shared
                   memory: 2^23 .. 2^25, and 2^22, which it takes from
                   'large' (_large2f_first);
-      'large3f'   c64, n = P1 * P2 * Q (large3.choose_split3f), P2 <= 64:
-                  2^26;
+      'large3f'   c64, n = P1 * P2 * Q (large3.choose_split3f), P2 <= 128:
+                  2^26 (P2 = 64) and 2^27 (P2 = 128);
       'dense'     c64, 4 <= n <= config.dense_dft_max (the planner's Dft-leaf
                   bound) and no route above serves n: the primes 5..251.
                   256 stays on lanepack and 1009 and 1234 on the convolution

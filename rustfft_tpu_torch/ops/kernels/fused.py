@@ -30,10 +30,13 @@ signal in device memory:
       per transform.  Block b runs DFT_p on the columns j2 of its share,
       pulls the rows k1 of its share from every block through distributed
       shared memory, and runs DFT_q on them.
-  `three_stage_fft` (K8: `_fused_kernel_3s`): n = p * q1 * q2, the
-      two-stage kernel with DFT_q run as DFT_q1, the inner twiddle
-      w_q^(ka*jb) and DFT_q2.  Ported and tested, not routed (as in the JAX
-      package, whose `three_stage_min_n` is 2^40).
+  `three_stage_fft` (K8: `_fused_kernel_3s`): n = p * q1 * q2, DFT_p, the
+      outer twiddle, then DFT_q as DFT_q1, the inner twiddle w_q^(ka*jb)
+      and DFT_q2.  That is the two-stage function at (p, q): the card runs
+      DFT_q as a register chain of q (large.stage_radices), not (q1, q2),
+      on K7's and K9's bodies (three_stage_form); the plain version keeps
+      (q1, q2).  Not routed (as in the JAX package, whose
+      `three_stage_min_n` is 2^40).
 
 The JAX kernels contract dense DFT blocks on the matrix unit with bf16
 weight splits (`w_split`, `gauss_*`, `contract_*`); the card runs every DFT
@@ -161,8 +164,8 @@ def cluster_share(p: int, q: int, c: int) -> int:
 def cluster_smem_bytes(p: int, q: int, c: int) -> int:
     """Shared memory of a cluster kernel's block: its share (rounded up to
     16 values), the index tables (p + 2q ints) and the chains' tables
-    (_with_chain_tables); at most 137672 bytes over the band (at 506 x
-    512)."""
+    (_with_chain_tables); at most 137672 bytes over K7's band (at 506 x
+    512), 148480 over K8's cluster form (at 128 x 2048)."""
     return _with_chain_tables(-(-cluster_share(p, q, c) // 16) * 16 * 8 + 4 * (p + 2 * q),
                               large.stage_radices(p) + large.stage_radices(q))
 
@@ -206,11 +209,18 @@ def row_shares(p: int, c: int):
     return [(b * p // c, (b + 1) * p // c) for b in range(c)]
 
 
+#: the JAX package's VMEM budget of K8's split rule (90% of its default
+#: config.pallas_vmem_limit, 64 MiB): it bounds K8's domain to the 50 sizes
+#: 16384 k, k = 1 .. 50, all at p = 128
+THREE_STAGE_BUDGET = int(64 * 2**20 * 0.9)
+
+
 @functools.lru_cache(maxsize=1024)
 def choose_pqq_fused(n: int) -> Optional[Tuple[int, int, int]]:
     """Split n = p * (q1*q2) with p and q1*q2 multiples of 128, q1, q2 <= 256
     (the most balanced pair), minimizing p + q1 + q2, then |p - q|: the JAX
-    package's rule without its VMEM term."""
+    package's rule with its VMEM term at THREE_STAGE_BUDGET, so that K8 has
+    the JAX package's domain."""
     best = None
     for p in range(128, MAX_FACTOR + 1, 128):
         if n % p:
@@ -231,6 +241,9 @@ def choose_pqq_fused(n: int) -> Optional[Tuple[int, int, int]]:
         if inner is None:
             continue
         _, q1, q2 = inner
+        consts = 4 * (4 * p * p + 4 * q1 * q1 + 4 * q2 * q2 + 2 * q * p + 2 * q1 * q2)
+        if consts + 16 * 4 * n > THREE_STAGE_BUDGET:
+            continue
         key = (p + q1 + q2, abs(p - q))
         if best is None or key < best[0]:
             best = (key, p, q1, q2)
@@ -238,7 +251,40 @@ def choose_pqq_fused(n: int) -> Optional[Tuple[int, int, int]]:
 
 
 def three_stage_supported(n: int, dtype) -> bool:
+    """c64 and a split exists (the JAX rule); three_stage_form then names
+    the card's form."""
     return np.dtype(dtype) == np.complex64 and choose_pqq_fused(n) is not None
+
+
+def three_stage_form(n: int, split: Optional[Tuple[int, int, int]] = None
+                     ) -> Optional[Tuple[str, int]]:
+    """The card's form of K8 at split = (p, q1, q2) (default
+    choose_pqq_fused(n)), by q = q1*q2:
+
+      ("radix", 1)      p = q = 128 (16384): K9's persistent body at R = 1,
+                        as K7's 16384 runs it;
+      ("cluster", c)    a cluster of c = choose_cluster(n, (p, q)) blocks
+                        holds a transform: K7's cluster kernel (32768 ..
+                        262144; c = 2, 4, 8, 16);
+      ("two_pass", 0)   else, where K2's and K3's tiles hold (p, q): their
+                        column and row stages (278528 .. 819200).
+
+    None without a split or a form.  Each form runs DFT_q as the register
+    chain large.stage_radices(q) (at most three radices, 2048 = 16 x 16 x
+    8): q1 and q2 reach 100 and include composites no register stage holds,
+    and any split of q gives the same DFT."""
+    sp = split or choose_pqq_fused(n)
+    if sp is None:
+        return None
+    p, q = sp[0], sp[1] * sp[2]
+    if p == q == RADIX_PQ:
+        return "radix", 1
+    c = choose_cluster(p * q, (p, q))
+    if c is not None and p >= c:
+        return "cluster", c
+    if large.col_tile(p, q) is not None and large.row_tile(q, p) is not None:
+        return "two_pass", 0
+    return None
 
 
 def choose_rpq(n: int) -> Optional[Tuple[int, int, int]]:
@@ -291,6 +337,15 @@ def radix_tables(r: int, p: int, q: int, direction: FftDirection):
     rroots = stage_tables(r, (r,), direction)[0][0]
     c64 = [t.astype(np.complex64) for t in (t1, tn)]
     return roots, tws, c64[0], c64[1], rroots, cfac.astype(np.complex64)
+
+
+def three_stage_tables(p: int, q1: int, q2: int, direction: FftDirection):
+    """Host tables of three_stage_fft, complex64: two_stage_tables(p, (q1,
+    q2)) (DFT_p's chain, the outer twiddle, the chain (q1, q2) with the
+    inner twiddle, which the plain version runs) and the card's chain of
+    DFT_q, stage_tables(q, large.stage_radices(q)) (three_stage_form)."""
+    q = q1 * q2
+    return two_stage_tables(p, (q1, q2), direction) + large.row_tables(q, direction)
 
 
 def two_stage_tables(p: int, q_radices: Sequence[int], direction: FftDirection):
@@ -477,25 +532,21 @@ def _check_two_stage(x, p, p_radices, q_radices, tables, what):
         raise ValueError(f"{what}: tables on {outer.device}, input on {x.device}")
 
 
-def _two_stage(x, p, p_radices, q_radices, tables, counter):
-    """Check the operands; the plain version on the CPU, else one launch of
-    csrc/fused.cu's two-stage kernel, counted on `counter`."""
-    what = counter.__name__
+def _launch_two_stage(x, p, q, tables, what):
+    """One launch of csrc/fused.cu's rf_two_stage_fft on a non-empty batch
+    at chains large.stage_radices(p) and (q); y.  p = q = 128 runs the radix
+    body at R = 1 on a persistent grid (radix_grid), every other split the
+    one-block kernel, which raises where a transform does not fit one
+    block's shared memory in place."""
+    p_radices, q_radices = large.stage_radices(p), large.stage_radices(q)
     roots_p, tws_p, outer, roots_q, tws_q = tables
-    q = math.prod(q_radices)
-    _check_two_stage(x, p, p_radices, q_radices, tables, what)
-    if x.device.type == "cpu":
-        return _two_stage_plain(x, p, p_radices, q_radices, tables)
-    require_cuda(x, what)
     if (two_stage_smem_bytes(p * q, p_radices, q_radices) > _build.SMEM_MAX
-            or max(tuple(p_radices) + tuple(q_radices)) > MAX_INPLACE_RADIX):
-        raise ValueError(f"{what}: n={p * q} ({tuple(p_radices)} x {tuple(q_radices)}) "
+            or max(p_radices + q_radices) > MAX_INPLACE_RADIX):
+        raise ValueError(f"{what}: n={p * q} ({p_radices} x {q_radices}) "
                          "does not fit one block in place")
     y = torch.empty_like(x)
-    if x.shape[0] == 0:
-        return y
     clusters = 0
-    if tuple(p_radices) == tuple(q_radices) == (16, 8):  # 16384: the radix body at R = 1
+    if p_radices == q_radices == (16, 8):  # 16384: the radix body at R = 1
         x = _aligned16(x)
         clusters = radix_grid(x.shape[0], _resident_clusters(x.device, 1))
     lib = _build.load()
@@ -507,7 +558,6 @@ def _two_stage(x, p, p_radices, q_radices, tables, counter):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, code, what)
-    counter.launches += 1
     return y
 
 
@@ -522,8 +572,16 @@ def two_stage_fft(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
 
     tables = two_stage_tables(p, large.stage_radices(q)) on x's device.
     """
-    p_radices, q_radices = large.stage_radices(p), large.stage_radices(q)
-    return _two_stage(x, p, p_radices, q_radices, tables, two_stage_fft)
+    what = "two_stage_fft"
+    _check_two_stage(x, p, large.stage_radices(p), large.stage_radices(q), tables, what)
+    if x.device.type == "cpu":
+        return two_stage_fft_plain(x, p, q, tables)
+    require_cuda(x, what)
+    if x.shape[0] == 0:
+        return torch.empty_like(x)
+    y = _launch_two_stage(x, p, q, tables, what)
+    two_stage_fft.launches += 1
+    return y
 
 
 two_stage_fft.launches = 0
@@ -637,18 +695,50 @@ def two_stage_cluster_max_active_clusters(c: int) -> int:
 
 
 def three_stage_fft_plain(x: torch.Tensor, p: int, q1: int, q2: int, tables) -> torch.Tensor:
-    """Plain torch version of three_stage_fft: DFT_p, the outer twiddle,
-    DFT_q1 over ja, the inner twiddle w_q^(ka*jb), DFT_q2 over jb."""
-    return _two_stage_plain(x, p, large.stage_radices(p), (q1, q2), tables)
+    """Plain torch version of three_stage_fft, as the JAX body computes it:
+    DFT_p, the outer twiddle, DFT_q1 over ja, the inner twiddle
+    w_q^(ka*jb), DFT_q2 over jb (tables[:5])."""
+    return _two_stage_plain(x, p, large.stage_radices(p), (q1, q2), tables[:5])
 
 
 def three_stage_fft(x: torch.Tensor, p: int, q1: int, q2: int, tables) -> torch.Tensor:
-    """DFT of every row of x (batch, p*q1*q2) complex64 by K8's split: the
-    two-stage kernel with DFT_q as the chain (q1, q2).
+    """DFT of every row of x (batch, p*q1*q2) complex64 by K8's split.
 
-    tables = two_stage_tables(p, (q1, q2)) on x's device.
+    tables = three_stage_tables(p, q1, q2) on x's device: the plain
+    version's five and the card's chain of DFT_q (roots, tws).  A CPU
+    tensor runs the plain version; a CUDA tensor the card's form at (p,
+    q1*q2) (three_stage_form): K9's body at R = 1, K7's cluster kernel on
+    clusters of c blocks, or K2's and K3's stages; without a form it
+    raises before any launch.  One call on the card counts one launch.
     """
-    return _two_stage(x, p, large.stage_radices(p), (q1, q2), tables, three_stage_fft)
+    what = "three_stage_fft"
+    if len(tables) != 7:
+        raise ValueError(f"{what}: expected three_stage_tables' seven tables, got {len(tables)}")
+    q = q1 * q2
+    p_radices, q_radices = large.stage_radices(p), large.stage_radices(q)
+    _check_two_stage(x, p, p_radices, (q1, q2), tables[:5], what)
+    roots_c, tws_c = tables[5:]
+    check_stage_tables(q, q_radices, roots_c, tws_c, x.device, what)
+    if x.device.type == "cpu":
+        return three_stage_fft_plain(x, p, q1, q2, tables)
+    require_cuda(x, what)
+    form = three_stage_form(p * q, (p, q1, q2))
+    if form is None:
+        raise ValueError(f"{what}: no card form for p={p}, q={q}")
+    if x.shape[0] == 0:
+        return torch.empty_like(x)
+    roots_p, tws_p, outer = tables[:3]
+    card = (roots_p, tws_p, outer, roots_c, tws_c)
+    kind, c = form
+    if kind == "radix":
+        y = _launch_two_stage(x, p, q, card, what)
+    elif kind == "cluster":
+        y = _launch_cluster(x, p, q, c, card, what)
+    else:
+        a = large.large_col_stage(x, p, q, (roots_p, tws_p, outer))
+        y = large.large_row_stage(a, q, p, (roots_c, tws_c)).reshape(x.shape)
+    three_stage_fft.launches += 1
+    return y
 
 
 three_stage_fft.launches = 0
@@ -707,7 +797,8 @@ def make_fused_two_stage_fn(n: int, direction: FftDirection, dtype,
 def make_fused_three_stage_fn(n: int, direction: FftDirection, dtype,
                               split: Optional[Tuple[int, int, int]] = None):
     """Return fn: complex64 (..., n) -> (..., n) through three_stage_fft at
-    split = (p, q1, q2) (default choose_pqq_fused(n))."""
+    split = (p, q1, q2) (default choose_pqq_fused(n)), with the tables of
+    three_stage_tables."""
     if np.dtype(dtype) != np.complex64:
         raise ValueError(f"three-stage kernel is complex64 only, got {np.dtype(dtype)}")
     sp = split or choose_pqq_fused(n)
@@ -716,8 +807,17 @@ def make_fused_three_stage_fn(n: int, direction: FftDirection, dtype,
     p, q1, q2 = sp
     if p * q1 * q2 != n:
         raise ValueError(f"split {sp} does not give n={n}")
-    return _two_stage_fn(n, p, (q1, q2), direction,
-                         lambda x, t: three_stage_fft(x, p, q1, q2, t))
+    roots_p, tws_p, outer, roots_q, tws_q, roots_c, tws_c = three_stage_tables(p, q1, q2,
+                                                                               direction)
+    kp, kq, kc = len(roots_p), len(roots_q), len(roots_c)
+
+    def call(x, t):
+        i = 2 * kp  # roots_p, tws_p, outer
+        j = i + 2 * kq - 1
+        return three_stage_fft(x, p, q1, q2, (t[:kp], t[kp:i - 1], t[i - 1], t[i:i + kq],
+                                              t[i + kq:j], t[j:j + kc], t[j + kc:]))
+
+    return _plan(n, roots_p + tws_p + [outer] + roots_q + tws_q + roots_c + tws_c, call)
 
 
 def make_fused_radix_fn(n: int, direction: FftDirection, dtype,

@@ -24,8 +24,8 @@ the next unit's input landing by cp.async while it computes.  Pass 1 at P1
 = 16 x 16 runs K2's column-tile kernel (csrc/col_tile.cuh) in the unit
 order of `col_walk` / `col_unit`: (j3 tile, j2, batch), batch fastest, so
 that a block keeps one slice of wob; pass 2 walks the units of `p2_walk` /
-`p2_unit`, (k1 chunk, b, j3), and splits DFT_P2 as `p2_split`.  An input
-that is not 16-byte aligned is copied first.
+`p2_unit`, (k1 chunk, b, j3), units of `p2_cols` k1, and splits DFT_P2 as
+`p2_split`.  An input that is not 16-byte aligned is copied first.
 """
 from __future__ import annotations
 
@@ -46,9 +46,9 @@ from .lanepack import (
     stage_tables,
 )
 
-#: the largest P2 of the factored split: pass 2's kernel splits DFT_P2 into
-#: two radices of at most 8 (p2_split)
-MAX_P2 = 64
+#: the largest P2 of the factored split, the JAX rule's (2^27): pass 2's
+#: kernel splits DFT_P2 into two radices, RA <= 16 and RB <= 8 (p2_split)
+MAX_P2 = 128
 
 
 def _balanced_q(q: int) -> Optional[Tuple[int, int]]:
@@ -106,10 +106,10 @@ def large3_supported(n: int, dtype) -> bool:
 
 @functools.lru_cache(maxsize=256)
 def choose_split3f(n: int) -> Optional[Tuple[int, int, int, int, int]]:
-    """(P1, P2, q1, q2, Q) for the factored pipeline: choose_split3's rule
-    with P2 up to MAX_P2 and the preference largest Q, then the smallest P2,
-    then the smallest P1.  2^26 gives (256, 64, 64, 64, 4096).  The JAX rule
-    admits P2 = 128 (2^27); the port's pass 2 stops at 64."""
+    """(P1, P2, q1, q2, Q) for the factored pipeline, the JAX package's
+    rule: choose_split3's with P2 up to MAX_P2 and the preference largest
+    Q, then the smallest P2, then the smallest P1.  2^26 gives (256, 64,
+    64, 64, 4096), 2^27 (256, 128, 64, 64, 4096)."""
     return _choose(n, MAX_P2, lambda q, p1, p2: (-q, p2, p1))
 
 
@@ -144,33 +144,34 @@ def col_unit(v: int, batch: int, groups: int, slices: int) -> Tuple[int, int, in
     return b, j2, s, j2 * slices + s
 
 
-#: pass 2's unit: W k1 of one (b, j3), P2 row pieces of W*8 bytes (the
-#: last chunk of k1 narrower where W does not divide P1)
-P2_W = 64
-
-
 def p2_split(p2: int) -> Tuple[int, int]:
     """(RA, RB) with RA * RB = P2 of pass 2's split DFT (csrc/large3.cu
     P2Split): j2 = jb + RB*ja, k2 = ka + RA*kb, DFT_RA over ja in stage A,
-    DFT_RB over jb in stage B; 8 x 8 at 64, 8 x 4, 4 x 4, and one radix
-    (RB = 1) at 8, 4 and 2."""
+    DFT_RB over jb in stage B; 16 x 8 at 128, 8 x 8 at 64, 8 x 4, 4 x 4,
+    and one radix (RB = 1) at 8, 4 and 2."""
     if p2 < 2 or p2 > MAX_P2 or p2 & (p2 - 1):
         raise ValueError(f"p2_split: P2={p2} is not a power of 2 in [2, {MAX_P2}]")
-    ra = 4 if p2 == 16 else min(p2, 8)
+    ra = 4 if p2 == 16 else 16 if p2 == 128 else min(p2, 8)
     return ra, p2 // ra
 
 
-def p2_chunks(p1: int) -> int:
-    """Pass 2's chunks of W k1 (the last one narrower where W does not
-    divide P1)."""
-    return -(-p1 // P2_W)
+def p2_cols(p2: int) -> int:
+    """W, the k1 of pass 2's unit (csrc/large3.cu P2Split::W): P2 row
+    pieces of W*8 bytes, 32 KiB a unit; 64 up to P2 = 64, 32 at 128."""
+    return 32 if p2 > 64 else 64
 
 
-def p2_walk(batch: int, q: int, p1: int, resident: int) -> Tuple[int, int]:
-    """(grid, per) of pass 2's persistent grid over batch * Q * p2_chunks(P1)
-    units when the card holds `resident` blocks at once: contiguous ranges
-    (large.col_walk) in the order of p2_unit."""
-    return large.col_walk(batch * q * p2_chunks(p1), resident)
+def p2_chunks(p1: int, p2: int) -> int:
+    """Pass 2's chunks of W = p2_cols(P2) k1 (the last one narrower where
+    W does not divide P1)."""
+    return -(-p1 // p2_cols(p2))
+
+
+def p2_walk(batch: int, q: int, p1: int, p2: int, resident: int) -> Tuple[int, int]:
+    """(grid, per) of pass 2's persistent grid over batch * Q *
+    p2_chunks(P1, P2) units when the card holds `resident` blocks at once:
+    contiguous ranges (large.col_walk) in the order of p2_unit."""
+    return large.col_walk(batch * q * p2_chunks(p1, p2), resident)
 
 
 def p2_unit(u: int, batch: int, q: int) -> Tuple[int, int, int]:
@@ -327,7 +328,7 @@ def large3_p2(a: torch.Tensor, p1: int, p2: int, q: int, tables) -> torch.Tensor
     if a.shape[0] == 0:
         return y
     a = large._aligned16(a)
-    grid, per = p2_walk(a.shape[0], q, p1, _resident_on(a.device, p2))
+    grid, per = p2_walk(a.shape[0], q, p1, p2, _resident_on(a.device, p2))
     lib = _build.load()
     with torch.cuda.device(a.device):
         code = lib.rf_large3_p2(

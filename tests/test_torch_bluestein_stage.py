@@ -311,7 +311,9 @@ def test_cluster_kernel_on_card(cuda_device, n):
 def test_three_stage_kernel_with_a_bluestein_stage_on_card(cuda_device):
     p, q1, q2 = 113, 8, 16
     x = torch.from_numpy(_signal(3, p * q1 * q2, 3)).to(cuda_device)
-    tabs = _tables(p, (q1, q2), FftDirection.FORWARD, cuda_device)
+    tabs = tuple([torch.from_numpy(a).to(cuda_device) for a in t] if isinstance(t, list)
+                 else torch.from_numpy(t).to(cuda_device)
+                 for t in fused.three_stage_tables(p, q1, q2, FftDirection.FORWARD))
     got = fused.three_stage_fft(x, p, q1, q2, tabs)
     torch.cuda.synchronize()
     assert _rel(got.cpu(), fused.three_stage_fft_plain(x, p, q1, q2, tabs).cpu()) <= KERNEL_TOL

@@ -411,7 +411,7 @@ def test_two_and_three_stage_on_card(cuda_device, split):
     for d, _ in DIRECTIONS:
         if len(split) == 3:
             p, q1, q2 = split
-            tabs = _on(fused.two_stage_tables(p, (q1, q2), d), cuda_device)
+            tabs = _on(fused.three_stage_tables(p, q1, q2, d), cuda_device)
             got = fused.three_stage_fft(x, p, q1, q2, tabs)
             want = fused.three_stage_fft_plain(x, p, q1, q2, tabs)
         else:

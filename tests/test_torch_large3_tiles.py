@@ -206,14 +206,17 @@ def test_pass1_mirror_matches_plain_jax_and_oracle(monkeypatch, batch, d, rd):
 # -- pass 2: the walk and the split ----------------------------------------------------
 
 @pytest.mark.parametrize("p2,split", [(64, (8, 8)), (32, (8, 4)), (16, (4, 4)), (8, (8, 1)),
-                                      (4, (4, 1)), (2, (2, 1))])
+                                      (4, (4, 1)), (2, (2, 1)), (128, (16, 8))])
 def test_p2_split(p2, split):
     assert large3.p2_split(p2) == split
     ra, rb = split
-    assert ra * rb == p2 and ra % 2 == 0 and ra <= 8 and rb <= 8
+    # stage A holds RA values a thread: 16 only at P2 = 128 (2^27)
+    assert ra * rb == p2 and ra % 2 == 0 and ra <= (16 if p2 == 128 else 8) and rb <= 8
+    # a unit is 32 KiB: W = 64 k1, or 32 at P2 = 128
+    assert p2 * large3.p2_cols(p2) * 8 <= 32768 and large3.p2_cols(p2) == (32 if p2 == 128 else 64)
 
 
-@pytest.mark.parametrize("p2", [0, 1, 3, 12, 128])
+@pytest.mark.parametrize("p2", [0, 1, 3, 12, 256])
 def test_p2_split_refuses_other_p2(p2):
     with pytest.raises(ValueError):
         large3.p2_split(p2)
@@ -227,11 +230,12 @@ def test_p2_split_refuses_other_p2(p2):
     (3, 16, 128, 5), (2, 16, 128, 1), (1, 2048, 128, RESIDENT), (5, 7, 64, 4),
     (3, 16, 96, 5), (2, 16, 8, 3),
 ])
-def test_p2_walk_takes_every_unit_once(batch, q, p1, resident):
-    chunks = large3.p2_chunks(p1)
-    assert (chunks - 1) * large3.P2_W < p1 <= chunks * large3.P2_W
+def test_p2_walk_takes_every_unit_once(batch, q, p1, resident, p2=64):
+    w = large3.p2_cols(p2)
+    chunks = large3.p2_chunks(p1, p2)
+    assert (chunks - 1) * w < p1 <= chunks * w
     units = batch * q * chunks
-    grid, per = large3.p2_walk(batch, q, p1, resident)
+    grid, per = large3.p2_walk(batch, q, p1, p2, resident)
     assert 1 <= grid <= resident and (grid - 1) * per < units <= grid * per
     blocks = [[large3.p2_unit(u, batch, q) for u in r] for r in large.walk_units(grid, per, units)]
     seen = [u for block in blocks for u in block]
@@ -247,11 +251,38 @@ def test_p2_walk_at_the_main_path():
     """2^26 x 2: 32768 units of 32 KiB, 125 a block on the H100's 264
     blocks; a block's range holds at most two chunks of wos."""
     p1, p2, _, _, q = large3.choose_split3f(1 << 26)
-    assert large3.p2_chunks(p1) == 4
-    assert large3.p2_walk(2, q, p1, RESIDENT) == (263, 125)
+    assert large3.p2_chunks(p1, p2) == 4
+    assert large3.p2_walk(2, q, p1, p2, RESIDENT) == (263, 125)
 
 
 # -- pass 2: the mirror ---------------------------------------------------------------
+
+def _stage_a16(x, roots, rb):
+    """Stage A at RA = 16 as csrc/large3.cu's stage_a16 runs it, x (16, RB,
+    width) [ja, jb, col]: two radix-4 passes through the 16 cells e of each
+    (jb, col), ja = ja0 + 4*ja1, ka = ka1 + 4*ka0; pass 1 leaves
+    w_16^(ja0*ka1) * DFT_4 over ja1 in cell ja0 + 4*ka1, pass 2 X[ka] *
+    w_P2^(jb*ka) in cell 4*ka1 + ka0; stage B reads X[ka] from cell
+    a_cell(ka) = 4*(ka % 4) + ka // 4.  Returns X (16, RB, width) [ka, jb,
+    col], read through a_cell."""
+    p2 = roots.shape[0]
+    w16 = roots[np.arange(16) * (p2 // 16)]  # w_16^e
+    w4 = w16[::4]  # w_4^e
+    d4 = w4[np.outer(np.arange(4), np.arange(4)) % 4]
+    cells = x.copy()
+    for ja0 in range(4):
+        v = cells[[ja0 + 4 * ja1 for ja1 in range(4)]]
+        out = np.einsum("jbc,jk->kbc", v, d4)  # [ka1]
+        out *= w16[(ja0 * np.arange(4)) % 16][:, None, None]
+        cells[[ja0 + 4 * ka1 for ka1 in range(4)]] = out
+    for ka1 in range(4):
+        v = cells[[ja0 + 4 * ka1 for ja0 in range(4)]]
+        out = np.einsum("jbc,jk->kbc", v, d4)  # [ka0]
+        ka = ka1 + 4 * np.arange(4)
+        out *= roots[np.outer(ka, np.arange(rb)) % p2][:, :, None]  # w_P2^(jb*ka)
+        cells[[4 * ka1 + ka0 for ka0 in range(4)]] = out
+    return cells[[4 * (ka % 4) + ka // 4 for ka in range(16)]]
+
 
 def _pass2_mirror(a, p1, p2, q, roots, wos, wm, resident):
     """Pass 2 as p2_ring_kernel computes it, unit by unit in the walk's
@@ -263,15 +294,15 @@ def _pass2_mirror(a, p1, p2, q, roots, wos, wm, resident):
     ra, rb = large3.p2_split(p2)
     roots = np.asarray(roots, dtype=np.complex128)
     wm = np.asarray(wm, dtype=np.complex128)
-    batch, w = a.shape[0], large3.P2_W
+    batch, w = a.shape[0], large3.p2_cols(p2)
     av = a.reshape(batch, p2, q, p1).astype(np.complex128)
     y = np.full((batch, q, p2, p1), np.nan, dtype=np.complex128)
     da = roots[np.outer(np.arange(ra), np.arange(ra)) % ra * rb]  # w_RA^(ja*ka)
     db = roots[np.outer(np.arange(rb), np.arange(rb)) % rb * ra]  # w_RB^(jb*kb)
     inner = roots[np.outer(np.arange(ra), np.arange(rb))]  # w_P2^(ka*jb), [ka, jb]
-    grid, per = large3.p2_walk(batch, q, p1, resident)
+    grid, per = large3.p2_walk(batch, q, p1, p2, resident)
     loads = []
-    for block in large.walk_units(grid, per, batch * q * large3.p2_chunks(p1)):
+    for block in large.walk_units(grid, per, batch * q * large3.p2_chunks(p1, p2)):
         held, count = None, 0
         for u in block:
             chunk, b, j3 = large3.p2_unit(u, batch, q)
@@ -283,7 +314,10 @@ def _pass2_mirror(a, p1, p2, q, roots, wos, wm, resident):
                     sl = np.asarray(wos, dtype=np.complex128)[:, cols]
                     held, count = chunk, count + 1
                 tile = tile * sl
-            st_a = np.einsum("ajc,ak->kjc", tile.reshape(ra, rb, width), da) * inner[:, :, None]
+            if ra == 16:
+                st_a = _stage_a16(tile.reshape(ra, rb, width), roots, rb)
+            else:
+                st_a = np.einsum("ajc,ak->kjc", tile.reshape(ra, rb, width), da) * inner[:, :, None]
             st_b = np.einsum("kjc,jl->lkc", st_a, db)  # [kb, ka, col]: k2 = ka + RA*kb
             y[b, j3, :, cols] = st_b.reshape(p2, width) * wm[j3][:, None]
         loads.append(count)
@@ -345,6 +379,62 @@ def test_pass2_mirror_narrow_last_chunk(monkeypatch, p1, p2, d, rd):
     assert _rel(got, _pass2_oracle(a, p1, p2, q, d, True)) <= TOL
     want = jax_b.reshape(2, p2, q, p1).transpose(0, 2, 1, 3).reshape(2, q, p2 * p1)
     assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("d,rd", DIRECTIONS, ids=["fwd", "inv"])
+def test_pass2_mirror_p2_128_matches_plain_jax_and_oracle(monkeypatch, d, rd):
+    """2^27's form, P2 = 128 (units of W = 32 k1, DFT_128 as 16 x 8), at
+    the split (8, 128, 4, 4, 16), batch 2 on 3 blocks (a ragged walk):
+    the mirror against the plain version, the JAX pass 2 (_kernel_p2f) and
+    the oracle, and the port's pipeline against the JAX pipeline."""
+    split = p1, p2, _, _, q = (8, 128, 4, 4, 16)
+    x = _signal(2, p1 * p2 * q, seed=128)
+    jax_a, jax_b, jax_y = _jax_passes(monkeypatch, x, split, rd, True)
+    a = jax_a.astype(np.complex64)
+    roots, wos, wm = large3.p2_tables(p1, p2, q, d, True)
+    got, loads = _pass2_mirror(a, p1, p2, q, roots, wos, wm, resident=3)
+    assert not np.isnan(got).any() and max(loads) == 1
+    plain = large3.large3_p2_plain(torch.from_numpy(a), p1, p2, q,
+                                   tuple(torch.from_numpy(v) for v in (roots, wos, wm)))
+    assert _rel(got, plain) <= TOL
+    assert _rel(got, _pass2_oracle(a, p1, p2, q, d, True)) <= TOL
+    want = jax_b.reshape(2, p2, q, p1).transpose(0, 2, 1, 3).reshape(2, q, p2 * p1)
+    assert _rel(got, want) <= TOL
+    y = large3.make_large3_fft_fn(p1 * p2 * q, d, np.complex64, split=split, factored=True)(
+        torch.from_numpy(x)).numpy()
+    assert _rel(y, jax_y.reshape(y.shape)) <= TOL
+    assert _rel(y, host_dft(x, d)) <= TOL
+
+
+@pytest.mark.parametrize("factored", [True, False], ids=["p2f", "p2"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_pass2_mirror_p2_128_over_chunks(batch, factored):
+    """P2 = 128 at P1 = 96 (chunks of 32 k1: three) and batch 1 and 3 on 5
+    blocks: block ranges across chunks, a ragged last block, the j2 factor
+    on and off, against the plain version and the oracle."""
+    p1, p2, q = 96, 128, 8
+    d = FftDirection.INVERSE
+    a = _signal(batch, p1 * p2 * q, seed=batch + 128)
+    roots, wos, wm = large3.p2_tables(p1, p2, q, d, factored)
+    got, loads = _pass2_mirror(a, p1, p2, q, roots, wos, wm, resident=5)
+    assert not np.isnan(got).any()
+    if factored:
+        assert max(loads) == 2
+    plain = large3.large3_p2_plain(torch.from_numpy(a), p1, p2, q,
+                                   (torch.from_numpy(roots),
+                                    None if wos is None else torch.from_numpy(wos),
+                                    torch.from_numpy(wm)))
+    assert _rel(got, plain) <= TOL
+    assert _rel(got, _pass2_oracle(a, p1, p2, q, d, factored)) <= TOL
+
+
+@pytest.mark.parametrize("batch,q,p1,resident", [
+    (1, 4096, 256, RESIDENT), (2, 4096, 256, RESIDENT), (3, 16, 96, 5), (2, 16, 8, 3),
+])
+def test_p2_walk_at_p2_128_takes_every_unit_once(batch, q, p1, resident):
+    """The same walk over units of 32 k1 (2^27 x 1 and x 2, a narrower last
+    chunk at P1 = 96, one chunk at P1 = 8)."""
+    test_p2_walk_takes_every_unit_once(batch, q, p1, resident, p2=128)
 
 
 @pytest.mark.parametrize("batch", [1, 2, 3])

@@ -152,7 +152,7 @@ def test_host_tables_bit_equal_to_jax():
             np.testing.assert_array_equal(wob3, wob)
 
 
-@pytest.mark.parametrize("log2n", range(21, 27))
+@pytest.mark.parametrize("log2n", range(21, 29))
 def test_split_choosers_equal_jax(log2n):
     n = 1 << log2n
     assert large2f.choose_split2f(n) == ref_large2f.choose_split2f(n)
@@ -164,10 +164,10 @@ def test_split_choosers_equal_jax(log2n):
 
 
 def test_split_differences_from_jax():
-    # the port's pass 2 holds P2 <= 64 values in registers; the JAX rule
-    # admits 128, which only 2^27 reaches
+    # the port's pass 2 takes P2 = 128 (units of 32 k1, DFT_128 as 8 x 16),
+    # so 2^27 has the JAX split
     assert ref_large3.choose_split3f(1 << 27) == (256, 128, 64, 64, 4096)
-    assert large3.choose_split3f(1 << 27) is None
+    assert large3.choose_split3f(1 << 27) == (256, 128, 64, 64, 4096)
     assert large2f.choose_split2f(1 << 22) == (128, 8, 64, 64, 4096)
     assert large3.choose_split3f(1 << 26) == (256, 64, 64, 64, 4096)
     assert not large3.large3f_supported(1 << 26, np.complex128)
@@ -185,11 +185,11 @@ def test_top_band_routes():
     # compile-time Q = 4096 kernel (measured 3.2x faster on the H100)
     assert large.large_supported(1 << 22, np.complex64)
     assert route(1 << 22, np.complex64) == "large2f"
-    assert route(1 << 27, np.complex64) is None
+    assert route(1 << 27, np.complex64) == "large3f"
     assert route(1 << 24, np.complex128) is None
 
 
-@pytest.mark.parametrize("log2n", [23, 24, 25, 26])
+@pytest.mark.parametrize("log2n", [23, 24, 25, 26, 27])
 def test_no_top_band_plan_holds_an_n_entry_table(log2n):
     n = 1 << log2n
     for d, _ in DIRECTIONS:
@@ -225,8 +225,10 @@ def test_wrappers_reject_bad_operands():
         large3.large3_p2(a.reshape(2, 2, p2 * q // 2, p1), p1, p2, q, (roots, wos, wmid))
     with pytest.raises(ValueError):
         large2f.make_large2f_fft_fn(n, FftDirection.FORWARD, np.complex64, split=(8, 4, 4, 4, 8))
-    with pytest.raises(ValueError):
-        large3.make_large3_fft_fn(1 << 27, FftDirection.FORWARD, np.complex64, factored=True)
+    with pytest.raises(ValueError):  # P2 = 256 is above the JAX rule's 128
+        large3.make_large3_fft_fn(1 << 28, FftDirection.FORWARD, np.complex64, factored=True)
+    fn = large3.make_large3_fft_fn(1 << 27, FftDirection.FORWARD, np.complex64, factored=True)
+    assert max(a.size for a in fn.tables.host) == 4096 * 256  # wob, (Q, P1)
 
 
 def test_cpu_wrappers_count_no_launches():

@@ -11,6 +11,8 @@ minutes on one CPU core) prints how many sizes `rustfft_tpu_torch.route`
 sends to each route, with the first few of each.  It shows how far a route
 rule reaches beyond the sizes its tests pin: for example how many of the
 sizes with a `large` split go to `large_pad` (largepad.narrowed_by_division).
+Then the route of each power of two from 2^20 to 2^28 (the top band: 2^26
+and 2^27 on large3f).
 
 With --chains it also splits the sizes of each two-chain route (large_pad
 and large: the column stage's P and the row stage's Q of large.choose_pqq;
@@ -131,6 +133,8 @@ def main() -> None:
     print(f"routes of complex64 n in [{lo}, {hi}):")
     for name, count in counts.most_common():
         print(f"  {name}: {count} sizes (first {', '.join(map(str, first[name]))})")
+    print("the top band's powers of two: " + ", ".join(
+        f"2^{k} {route(1 << k, np.complex64)}" for k in range(20, 29)))
     if with_chains:
         print("two-chain routes by the class of each chain (first stage x second stage):")
         for name in ("large_pad", "large", "two_stage"):
