@@ -59,11 +59,9 @@
 //    RA*kb], times wm[j3, k2] (read by __ldg, one address a warp), stored
 //    to row k2 of the unit's output: P2 rows of 512 bytes, 2 KiB apart.
 //    A thread holds RA or RB values (8 at P2 = 64), not P2.  At 128 stage
-//    A's 256 threads (the other 256 idle through it) run their DFT_16 as
-//    two radix-4 passes through their own 16 cells of the buffer, four
-//    values in registers at a time (stage_a16), and stage B's 512 threads
-//    hold 8 each, so no thread needs more registers than at P2 = 64 (the
-//    64 of two blocks an SM).  Consecutive
+//    A's 256 threads hold 16 each (the other 256 idle through it), whose
+//    outputs go to shared memory, and stage B's 512 threads 8 each, which
+//    store to device memory: 64 registers and no spill.  Consecutive
 //    threads take consecutive columns at every step, so shared memory is
 //    read and written without bank conflicts and without a swizzle.
 //  - The wos slice (P2, W), 32 KiB, is read once per chunk of a block's
@@ -103,68 +101,6 @@ static size_t p2_smem() {
   using Split = P2Split<P2>;
   return (size_t)(3 * P2 * Split::W + P2 + kRootSlots<Split::RA> + kRootSlots<Split::RB>) *
          sizeof(float2);
-}
-
-// DFT_4 of v in place, natural order, w = w_4 (w^2 = -1, w^3 = -w).
-static __device__ __forceinline__ void dft4(float2 (&v)[4], float2 w) {
-  const float2 t0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
-  const float2 t1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
-  const float2 t2 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
-  const float2 t3 = cmul(make_float2(v[1].x - v[3].x, v[1].y - v[3].y), w);
-  v[0] = make_float2(t0.x + t2.x, t0.y + t2.y);
-  v[1] = make_float2(t1.x + t3.x, t1.y + t3.y);
-  v[2] = make_float2(t0.x - t2.x, t0.y - t2.y);
-  v[3] = make_float2(t1.x - t3.x, t1.y - t3.y);
-}
-
-// Stage A at RA = 16 (P2 = 128) for column col at jb: DFT_16 over ja of the
-// rows jb + RB*ja (times wos where `scale`) as two radix-4 passes through
-// the thread's own cells, row jb + RB*e of column col for e < 16, four
-// values in registers at a time.  With ja = ja0 + 4*ja1 and ka = ka1 +
-// 4*ka0, pass 1 leaves w_16^(ja0*ka1) * DFT_4 over ja1 in cell ja0 +
-// 4*ka1, pass 2 leaves X[ka] * w_P2^(jb*ka) in cell a16_cell(ka) = 4*ka1 +
-// ka0.  Each pass writes only the cells it read, which no other thread
-// reads or writes, so no barrier is needed.  roots16: w_16^e.
-template <int RB, int W>
-static __device__ __forceinline__ void stage_a16(float2* buf, const float2* swos, bool scale,
-                                                 const float2* roots16,
-                                                 const float2* sroots, int col, int jb) {
-  constexpr int kCell = RB * W;  // one cell to the next
-  float2* cell = buf + jb * W + col;
-  const float2* ws = swos + jb * W + col;
-  const float2 w4 = roots16[4];  // w_4 = w_16^4
-#pragma unroll
-  for (int ja0 = 0; ja0 < 4; ++ja0) {
-    float2 v[4];
-#pragma unroll
-    for (int ja1 = 0; ja1 < 4; ++ja1) {
-      v[ja1] = cell[(ja0 + 4 * ja1) * kCell];
-      if (scale) v[ja1] = cmul(v[ja1], ws[(ja0 + 4 * ja1) * kCell]);
-    }
-    dft4(v, w4);
-#pragma unroll
-    for (int ka1 = 0; ka1 < 4; ++ka1)
-      cell[(ja0 + 4 * ka1) * kCell] =
-          ja0 != 0 && ka1 != 0 ? cmul(v[ka1], roots16[ja0 * ka1]) : v[ka1];
-  }
-#pragma unroll
-  for (int ka1 = 0; ka1 < 4; ++ka1) {
-    float2 v[4];
-#pragma unroll
-    for (int ja0 = 0; ja0 < 4; ++ja0) v[ja0] = cell[(ja0 + 4 * ka1) * kCell];
-    dft4(v, w4);
-#pragma unroll
-    for (int ka0 = 0; ka0 < 4; ++ka0) {
-      const int ka = ka1 + 4 * ka0;
-      cell[(4 * ka1 + ka0) * kCell] = ka != 0 ? cmul(v[ka0], sroots[jb * ka]) : v[ka0];
-    }
-  }
-}
-
-// The cell of stage A's output ka (stage_a16's order at RA = 16, else ka).
-template <int RA>
-static __device__ __forceinline__ int a_cell(int ka) {
-  return RA == 16 ? 4 * (ka & 3) + (ka >> 2) : ka;
 }
 
 // Pass 2's unit order (above): unit u is j3 = u mod Q of batch row (u / Q)
@@ -237,7 +173,7 @@ __global__ void __launch_bounds__(kP2Threads, 2)
     float2* buf = bufs + cur * kElems;
     // the chunk's wos slice at the range's first unit and where the chunk
     // changes (r = 0): the chunk never falls along a range, so no register
-    // carries the chunk that swos holds (at P2 = 128 one spilled)
+    // carries the chunk that swos holds (at P2 = 128 ptxas spilled it)
     if (wos != nullptr && (u == blockIdx.x * per || r == 0)) {  // block-uniform
       const float2* __restrict__ src = wos + chunk * W;
       for (int i = tid; i < kElems; i += kP2Threads)
@@ -255,21 +191,17 @@ __global__ void __launch_bounds__(kP2Threads, 2)
     // stage A: DFT_RA over ja of column col at jb, in place
     if (tid < W * RB && tid % W < width) {
       const int col = tid % W, jb = tid / W;
-      if constexpr (RA == 16) {
-        stage_a16<RB, W>(buf, swos, wos != nullptr, roots_a, sroots, col, jb);
-      } else {
-        float2 v[RA];
+      float2 v[RA];
 #pragma unroll
-        for (int ja = 0; ja < RA; ++ja) v[ja] = buf[(jb + RB * ja) * W + col];
-        if (wos != nullptr) {
+      for (int ja = 0; ja < RA; ++ja) v[ja] = buf[(jb + RB * ja) * W + col];
+      if (wos != nullptr) {
 #pragma unroll
-          for (int ja = 0; ja < RA; ++ja) v[ja] = cmul(v[ja], swos[(jb + RB * ja) * W + col]);
-        }
-        dft_column<RA>(v, roots_a, [&](int ka, float2 z) {
-          if (RB > 1 && ka != 0) z = cmul(z, sroots[jb * ka]);
-          buf[(jb + RB * ka) * W + col] = z;
-        });
+        for (int ja = 0; ja < RA; ++ja) v[ja] = cmul(v[ja], swos[(jb + RB * ja) * W + col]);
       }
+      dft_column<RA>(v, roots_a, [&](int ka, float2 z) {
+        if (RB > 1 && ka != 0) z = cmul(z, sroots[jb * ka]);
+        buf[(jb + RB * ka) * W + col] = z;
+      });
     }
     __syncthreads();  // stage A's outputs, for every thread
     // stage B: DFT_RB over jb of column col at ka, times wm, to row k2
@@ -278,7 +210,7 @@ __global__ void __launch_bounds__(kP2Threads, 2)
     float2 v[RB];
     if (active) {
 #pragma unroll
-      for (int jb = 0; jb < RB; ++jb) v[jb] = buf[(jb + RB * a_cell<RA>(ka)) * W + col];
+      for (int jb = 0; jb < RB; ++jb) v[jb] = buf[(jb + RB * ka) * W + col];
     }
     __syncthreads();  // this buffer is free
     if (active) {
@@ -297,9 +229,9 @@ static cudaError_t launch_p2(const float2* a, float2* y, long long batch, int p1
                              long long grid, long long per, const float2* roots,
                              const float2* wos, const float2* wm, cudaStream_t s) {
   using Split = P2Split<P2>;
-  // stage A's W*RB threads and stage B's W*RA fit the block; at most 8
-  // values a thread in registers (RA = 16 runs stage_a16), under the 64
-  // registers of two blocks an SM
+  // stage A's W*RB threads and stage B's W*RA fit the block; RA <= 16
+  // values a thread (stage A at P2 = 128) and RB <= 8 (stage B, which
+  // stores to device memory), under the 64 registers of two blocks an SM
   static_assert(Split::RA * Split::RB == P2 && Split::RA >= 2 && Split::RA <= 16 &&
                     Split::RB <= 8 && Split::W * Split::RB <= kP2Threads &&
                     Split::W * Split::RA <= kP2Threads,

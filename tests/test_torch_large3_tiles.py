@@ -257,33 +257,6 @@ def test_p2_walk_at_the_main_path():
 
 # -- pass 2: the mirror ---------------------------------------------------------------
 
-def _stage_a16(x, roots, rb):
-    """Stage A at RA = 16 as csrc/large3.cu's stage_a16 runs it, x (16, RB,
-    width) [ja, jb, col]: two radix-4 passes through the 16 cells e of each
-    (jb, col), ja = ja0 + 4*ja1, ka = ka1 + 4*ka0; pass 1 leaves
-    w_16^(ja0*ka1) * DFT_4 over ja1 in cell ja0 + 4*ka1, pass 2 X[ka] *
-    w_P2^(jb*ka) in cell 4*ka1 + ka0; stage B reads X[ka] from cell
-    a_cell(ka) = 4*(ka % 4) + ka // 4.  Returns X (16, RB, width) [ka, jb,
-    col], read through a_cell."""
-    p2 = roots.shape[0]
-    w16 = roots[np.arange(16) * (p2 // 16)]  # w_16^e
-    w4 = w16[::4]  # w_4^e
-    d4 = w4[np.outer(np.arange(4), np.arange(4)) % 4]
-    cells = x.copy()
-    for ja0 in range(4):
-        v = cells[[ja0 + 4 * ja1 for ja1 in range(4)]]
-        out = np.einsum("jbc,jk->kbc", v, d4)  # [ka1]
-        out *= w16[(ja0 * np.arange(4)) % 16][:, None, None]
-        cells[[ja0 + 4 * ka1 for ka1 in range(4)]] = out
-    for ka1 in range(4):
-        v = cells[[ja0 + 4 * ka1 for ja0 in range(4)]]
-        out = np.einsum("jbc,jk->kbc", v, d4)  # [ka0]
-        ka = ka1 + 4 * np.arange(4)
-        out *= roots[np.outer(ka, np.arange(rb)) % p2][:, :, None]  # w_P2^(jb*ka)
-        cells[[4 * ka1 + ka0 for ka0 in range(4)]] = out
-    return cells[[4 * (ka % 4) + ka // 4 for ka in range(16)]]
-
-
 def _pass2_mirror(a, p1, p2, q, roots, wos, wm, resident):
     """Pass 2 as p2_ring_kernel computes it, unit by unit in the walk's
     order: the (P2, W) tile of rows Q*P1 apart times the block's wos slice,
@@ -314,10 +287,7 @@ def _pass2_mirror(a, p1, p2, q, roots, wos, wm, resident):
                     sl = np.asarray(wos, dtype=np.complex128)[:, cols]
                     held, count = chunk, count + 1
                 tile = tile * sl
-            if ra == 16:
-                st_a = _stage_a16(tile.reshape(ra, rb, width), roots, rb)
-            else:
-                st_a = np.einsum("ajc,ak->kjc", tile.reshape(ra, rb, width), da) * inner[:, :, None]
+            st_a = np.einsum("ajc,ak->kjc", tile.reshape(ra, rb, width), da) * inner[:, :, None]
             st_b = np.einsum("kjc,jl->lkc", st_a, db)  # [kb, ka, col]: k2 = ka + RA*kb
             y[b, j3, :, cols] = st_b.reshape(p2, width) * wm[j3][:, None]
         loads.append(count)
