@@ -39,14 +39,20 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    of each cluster size printed) and the row stage after it at batch 1,
    large3f's pass 1
    (K2's tile kernel with the modular j3 twiddle slice) and its pass 2 (the
-   two-buffer ring) with the j2 factor on and off, within 1e-6 at batch 1
-   and 3 (the resident blocks of both kernels and each walk's grid and
-   units a block printed), and the row stage at P = 16384.  The one-pass mid band at batch 2: radix_fft
+   two-buffer ring) with the j2 factor on and off, within 1e-6 at 2^26 x 1
+   and at 2^27 x 1 and x 2 (pass 2 at P2 = 128: units of 32 k1,
+   DFT_128 as 16 x 8; the resident blocks of both kernels and each walk's
+   grid and units a block printed), and the row stage at P = 16384 and
+   32768.  The one-pass mid band at batch 2: radix_fft
    at r = 2, 4, 8 and 16 (a persistent grid of clusters of r blocks; the
    cudaOccupancyMaxActiveClusters of each r is printed, and each r and
    16384 run again at 3 x that + 1 transforms), two_stage_fft at
    16384 (the radix body at R = 1), 20480, 24576 and 14464 (a prime p = 113)
-   and three_stage_fft at K8's split (128, 8, 16); two_stage_fft at the ONE
+   and three_stage_fft (K8) within 1e-6, one launch a call, at every size
+   of its domain on the one-pass bodies (16384 k for k = 1 .. 16: K9's body
+   at R = 1, K7's cluster kernel on 2 .. 16 blocks) and at five sizes on
+   K2's and K3's stages (above 262144), each form and cluster size
+   printed; two_stage_fft at the ONE
    paths' n (a prime p from 113 to 223 as a Bluestein stage, its table read
    from device memory).  K7's cluster band at batch 2:
    two_stage_cluster_fft at every CLUSTER path's n and at 32896 and 65792
@@ -86,7 +92,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the cluster passes' largest forms at 65521 x 512 and x 3 (r = 8) and
    131071 x 256 and x 3 (r = 16),
    the top band at 2^22 x 16, 2^23 x 8, 2^24 x 4, 2^25 x 2 (the JAX
-   bench's rows) and 2^26 x 2, and the mid band at 16384 x 4096 and 24576 x 2048
+   bench's rows), 2^26 x 2 and 2^27 x 1 (large3f, one launch of each of
+   its three passes), and the mid band at 16384 x 4096 and 24576 x 2048
    (two_stage), 14464 and 16256 x 4096 and 28544 x 2048 (two_stage with a
    Bluestein stage), 32768 x 2048, 65536 x 1024 (the JAX bench's row),
    131072 x 512 and 262144 x 256 (radix), K7's cluster band at 28928 x
@@ -107,9 +114,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    make_large_fft_fn(deep_a=True) (the default stages, bit-equal to the
    default on 64 rows), 65537 x 512 under config.rader_in_shift,
    config.conv_radix_gauss and both, 7919 x 4096 under conv_radix_gauss,
-   and with every switch on 15625 x 4096, 1000003 x 64, 2^23 x 8 and 2^26 x 2
+   and with every switch on 15625 x 4096, 1000003 x 64, 2^23 x 8 and 2^26 x 1
    (no Gauss stage: the switches do not reach large_pad, K15, large2f or
-   large3f), and the core's parent form through executor.build at
+   large3f; 2^23 and 2^26 bit-equal to their default paths in place of the
+   oracle), and the core's parent form through executor.build at
    Raders(928) (the prime 929) and Bluesteins(1234, 3712), 8192 rows each.
    Every launch counter is set to 0 just before each run and
    read just after: each path must launch exactly its kernels.  Errors
@@ -127,8 +135,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    transform; 1234 three ways (whole-n Bluestein at m = 3072 and 2592, and
    MixedRadix(2, Raders(617))); 2^24 x 4 also through the recipe tree the
    planner designs (MixedRadix(4096, 4096) on lanepack leaves); 2^22 x 16
-   through the large and the large2f routes; every mid-band path against
-   the large route it replaced, and three_stage_fft at 16384 x 4096.  K7's
+   through the large and the large2f routes; 2^27 x 1 also through the
+   recipe tree the planner designs with the kernels off (config.kernels =
+   "off"); every mid-band path against the large route
+   it replaced; three_stage_fft (K8) at 16384 x 4096 (K9's body at R =
+   1), at one size of each cluster c (32768 x 2048, 49152 x 2048, 98304 x
+   1024, 196608 x 512) and at 393216 x 256 (K2's and K3's stages), each
+   against its plain version, its bound, torch.fft and the kernel the
+   route runs at the same n and batch.  K7's
    two-stage paths with a Bluestein stage (ONE) and cluster band: the
    kernel at each path's shape against its plain version (K7 within 1e-6),
    its bound and torch.fft (with the operations its chain spends,
@@ -225,7 +239,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
 #: the top band's paths: n -> batch, and the tag of their kernel entries
-TOP = {1 << 22: 16, 1 << 23: 8, 1 << 24: 4, 1 << 25: 2, 1 << 26: 2}
+TOP = {1 << 22: 16, 1 << 23: 8, 1 << 24: 4, 1 << 25: 2, 1 << 26: 2, 1 << 27: 1}
+
+#: K11's paths (large3f): 2^26 at P2 = 64, 2^27 at P2 = 128 -> the batches
+#: its two kernels are checked at in phase 2 (2^27 x 2 leaves both walks
+#: ragged, 65536 units on 264 blocks)
+TOP3 = {1 << 26: (1,), 1 << 27: (1, 2)}
 
 #: the one-pass mid band's paths: n -> batch (256-512 MiB each)
 MID = {16384: 4096, 24576: 2048, 1 << 15: 2048, 1 << 16: 1024, 1 << 17: 512, 1 << 18: 256}
@@ -308,6 +327,15 @@ CLUSTER_PRIMES = {65537: 512, 7919: 4096, 65521: 512, 131071: 256}
 #: of them either)
 NOT_ROUTED = {"three_stage_fft"}
 
+#: K8's timed shapes: n -> batch (256-384 MiB), 16384 (K9's body at R = 1),
+#: one size of each cluster c of K7's cluster kernel (2, 4, 8, 16) and one
+#: on K2's and K3's stages (393216 = 128 x 3072)
+K8 = {16384: 4096, 32768: 2048, 49152: 2048, 98304: 1024, 196608: 512, 393216: 256}
+
+#: K8's sizes on K2's and K3's stages checked in phase 2: the first two
+#: (radices 17 and 9 in q), 393216, 2^19 and the largest, 819200
+K8_PAIR = (278528, 294912, 393216, 524288, 819200)
+
 #: the one-pass convolution core's paths on its chain form (conv_chain_fft):
 #: the Rader 1009 (m = 1008, K6's shape), 2531 (m = 2530, direct sums of 23
 #: and 11) and 257 (m = 256), the Bluestein 1234 (m = 3072, K13's shape),
@@ -353,16 +381,24 @@ KERNELS["large3_p2/2^26"] = ("rustfft_tpu_torch/csrc/large3.cu",
                              "rustfft_tpu/ops/pallas/large3.py:194")
 KERNELS["large_row_stage/2^26"] = ("rustfft_tpu_torch/csrc/large.cu",
                                    "rustfft_tpu/ops/pallas/large3.py:221")
+KERNELS["large3_col_stage/2^27"] = ("rustfft_tpu_torch/csrc/large3.cu",
+                                    "rustfft_tpu/ops/pallas/large.py:60")
+KERNELS["large3_p2/2^27"] = ("rustfft_tpu_torch/csrc/large3.cu",
+                             "rustfft_tpu/ops/pallas/large3.py:194")
+KERNELS["large_row_stage/2^27"] = ("rustfft_tpu_torch/csrc/large.cu",
+                                   "rustfft_tpu/ops/pallas/large3.py:221")
 #: the mid band: K9 at every r, K7 at 16384 (the radix body at R = 1) and at
-#: 24576 (the general in-place body), K8 at its split of 16384
+#: 24576 (the general in-place body), K8 at each of its timed shapes
 for _t in ("2^15", "2^16", "2^17", "2^18"):
     KERNELS[f"radix_fft/{_t}"] = ("rustfft_tpu_torch/csrc/fused.cu",
                                   "rustfft_tpu/ops/pallas/fused.py:1212")
 for _n in (16384, 24576, *ONE):
     KERNELS[f"two_stage_fft/{_n}"] = ("rustfft_tpu_torch/csrc/fused.cu",
                                       "rustfft_tpu/ops/pallas/fused.py:439")
-KERNELS["three_stage_fft/16384"] = ("rustfft_tpu_torch/csrc/fused.cu",
-                                   "rustfft_tpu/ops/pallas/fused.py:711")
+for _n in K8:
+    KERNELS[f"three_stage_fft/{_n}"] = ("rustfft_tpu_torch/csrc/"
+                                        + ("fused.cu" if _n <= 262144 else "large.cu"),
+                                        "rustfft_tpu/ops/pallas/fused.py:711")
 #: K7's cluster band at each of its paths
 for _n in CLUSTER:
     KERNELS[f"two_stage_cluster_fft/{_n}"] = ("rustfft_tpu_torch/csrc/fused.cu",
@@ -1224,10 +1260,10 @@ def main() -> None:
         return (p1, p2, q), (on_card(r), on_card(t), *on_card([wob, wm])), \
             tuple(on_card(v) for v in large.row_tables(q, d))
 
-    def top3f_tables(d):
+    def top3f_tables(n, d):
         """(split, pass-1 tables, pass-2 tables with the j2 factor on and
-        off, row-stage tables) of large3f at 2^26, on the card."""
-        p1, p2, _, _, q = large3.choose_split3f(1 << 26)
+        off, row-stage tables) of large3f at n, on the card."""
+        p1, p2, _, _, q = large3.choose_split3f(n)
         r, t, wob = large3.col_tables(p1, p2 * q, q, d)
         mids = []
         for factored in (True, False):
@@ -1271,43 +1307,51 @@ def main() -> None:
             del x, a
             free()
     # large3f's pass 1 (K2's tile kernel with the modular slice) and pass 2
-    # (the two-buffer ring) within 1e-6 of their plain versions at batch 1
-    # and 3 (the path's batch 2 in phase 4), each walk printed; the row stage
-    # at P = 16384 at batch 1
-    p1, p2, _, _, q = large3.choose_split3f(1 << 26)
+    # (the two-buffer ring) within 1e-6 of their plain versions at TOP3's
+    # batches (2^26 x 2 and 2^27 x 1 in phase 4), each walk printed; the row
+    # stage at P = P1*P2 at batch 1
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    resident3 = (large3.resident_blocks(0), large3.resident_blocks(p2))
-    print(f"  large3 resident blocks: pass 1 {resident3[0]} ({resident3[0] / sms:g} an SM), "
-          f"pass 2 at P2={p2} {resident3[1]} ({resident3[1] / sms:g} an SM)", flush=True)
-    for batch in (1, 3):
-        x = signal(batch, 1 << 26)
-        walk1 = large3.col_walk(batch, p2, q // 16, resident3[0])
-        walk2 = large3.p2_walk(batch, q, p1, resident3[1])
-        print(f"  large3 walks at 2^26 x {batch}: pass 1 grid {walk1[0]}, {walk1[1]} units a "
-              f"block; pass 2 grid {walk2[0]}, {walk2[1]} units a block", flush=True)
-        for d in directions:
-            (p1, p2, q), col, mids, row = top3f_tables(d)
-            a = large3.large3_col_stage(x, p1, p2 * q, q, col)
-            torch.cuda.synchronize()
-            note("large3_col_stage/2^26", a, large3.large3_col_stage_plain(x, p1, p2 * q, q, col),
-                 f"large3_col_stage n=2^26 P1={p1} M={p2 * q} batch={batch} {d.name}", PAIR_TOL)
-            for tabs, onoff in zip(mids, ("on", "off")):
-                b = large3.large3_p2(a, p1, p2, q, tabs)
+    for n, batches in TOP3.items():
+        p1, p2, _, _, q = large3.choose_split3f(n)
+        resident3 = (large3.resident_blocks(0), large3.resident_blocks(p2))
+        print(f"  large3 resident blocks at {tag(n)}: pass 1 {resident3[0]} "
+              f"({resident3[0] / sms:g} an SM), pass 2 at P2={p2} {resident3[1]} "
+              f"({resident3[1] / sms:g} an SM), {large3.p2_cols(p2)} k1 a unit, DFT_P2 as "
+              f"{large3.p2_split(p2)}", flush=True)
+        for batch in batches:
+            x = signal(batch, n)
+            walk1 = large3.col_walk(batch, p2, q // 16, resident3[0])
+            walk2 = large3.p2_walk(batch, q, p1, p2, resident3[1])
+            print(f"  large3 walks at {tag(n)} x {batch}: pass 1 grid {walk1[0]}, {walk1[1]} "
+                  f"units a block; pass 2 grid {walk2[0]}, {walk2[1]} units a block", flush=True)
+            for d in directions:
+                (p1, p2, q), col, mids, row = top3f_tables(n, d)
+                a = large3.large3_col_stage(x, p1, p2 * q, q, col)
                 torch.cuda.synchronize()
-                note("large3_p2/2^26", b, large3.large3_p2_plain(a, p1, p2, q, tabs),
-                     f"large3_p2 n=2^26 P2={p2} j2 factor {onoff} batch={batch} {d.name}",
+                note(f"large3_col_stage/{tag(n)}", a,
+                     large3.large3_col_stage_plain(x, p1, p2 * q, q, col),
+                     f"large3_col_stage n={tag(n)} P1={p1} M={p2 * q} batch={batch} {d.name}",
                      PAIR_TOL)
-            if batch == 1:
-                b = large3.large3_p2(a, p1, p2, q, mids[0])
-                y = large.large_row_stage(b, q, p1 * p2, row)
-                torch.cuda.synchronize()
-                note("large_row_stage/2^26", y, large.large_row_stage_plain(b, q, p1 * p2, row),
-                     f"large_row_stage n=2^26 Q={q} P={p1 * p2} batch=1 {d.name}")
-                del y
-            del a, b
+                for tabs, onoff in zip(mids, ("on", "off")):
+                    b = large3.large3_p2(a, p1, p2, q, tabs)
+                    torch.cuda.synchronize()
+                    note(f"large3_p2/{tag(n)}", b, large3.large3_p2_plain(a, p1, p2, q, tabs),
+                         f"large3_p2 n={tag(n)} P2={p2} j2 factor {onoff} batch={batch} "
+                         f"{d.name}", PAIR_TOL)
+                    del b
+                    free()
+                if batch == 1:
+                    b = large3.large3_p2(a, p1, p2, q, mids[0])
+                    y = large.large_row_stage(b, q, p1 * p2, row)
+                    torch.cuda.synchronize()
+                    note(f"large_row_stage/{tag(n)}", y,
+                         large.large_row_stage_plain(b, q, p1 * p2, row),
+                         f"large_row_stage n={tag(n)} Q={q} P={p1 * p2} batch=1 {d.name}")
+                    del y, b
+                del a
+                free()
+            del x
             free()
-        del x
-        free()
 
     # the one-pass mid band at batch 2: radix_fft at every r, two_stage_fft
     # at the band's shapes (16384 on the radix body, the others on the
@@ -1336,15 +1380,37 @@ def main() -> None:
             torch.cuda.synchronize()
             note(name, got, plain(x), f"{name.split('/')[0]} n={n} batch={batch} {d.name}",
                  K7_TOL if name.startswith("two_stage") else TOL)
-    x = signal(2, 16384)
-    for d in directions:
-        tabs = card_tables(fused.two_stage_tables(128, (8, 16), d))
-        got = fused.three_stage_fft(x, 128, 8, 16, tabs)
-        torch.cuda.synchronize()
-        note("three_stage_fft/16384", got, fused.three_stage_fft_plain(x, 128, 8, 16, tabs),
-             f"three_stage_fft n=16384 (128, 8, 16) batch=2 {d.name}")
-    del x, got
-    free()
+    # K8 at batch 2 within 1e-6 of its plain version (the chain (q1, q2) as
+    # the JAX body runs it), one launch a call: every size of its domain
+    # (16384 k, k = 1 .. 50) on the one-pass bodies (k <= 16) and K8_PAIR's
+    # on K2's and K3's stages (tests/test_torch_card_k8_k11.py takes all
+    # 50); each size counts into the entry of its form's timed shape (K8)
+    k8_sizes = [n for n in range(16384, 50 * 16384 + 1, 16384)
+                if fused.three_stage_supported(n, np.complex64)]
+    assert len(k8_sizes) == 50, k8_sizes
+    k8_forms = {}
+    for n in [m for m in k8_sizes if m <= 262144 or m in K8_PAIR]:
+        p, q1, q2 = fused.choose_pqq_fused(n)
+        form = fused.three_stage_form(n)
+        k8_forms.setdefault(form, []).append(n)
+        key = next(m for m in K8 if fused.three_stage_form(m) == form)
+        x = signal(2, n)
+        for d in directions:
+            tabs = card_tables(fused.three_stage_tables(p, q1, q2, d))
+            before = fused.three_stage_fft.launches
+            got = fused.three_stage_fft(x, p, q1, q2, tabs)
+            torch.cuda.synchronize()
+            if fused.three_stage_fft.launches != before + 1:
+                raise AssertionError(f"three_stage_fft n={n}: {fused.three_stage_fft.launches - before} "
+                                     "launches counted, not 1")
+            note(f"three_stage_fft/{key}", got, fused.three_stage_fft_plain(x, p, q1, q2, tabs),
+                 f"three_stage_fft n={n} ({p}, {q1}, {q2}) on {form} "
+                 f"{large.stage_radices(q1 * q2)} batch=2 {d.name}", K7_TOL)
+        del x, got
+        free()
+    print("  three_stage_fft forms: " + "; ".join(f"{kind} c={c}: {len(ns)} sizes {ns[0]}..{ns[-1]}"
+                                                  for (kind, c), ns in k8_forms.items()),
+          flush=True)
 
     # K7's cluster band at batch 2: two_stage_cluster_fft at every path's n,
     # at 32896 (257 x 128 on 4 blocks: a prime p above 256 and ragged row
@@ -1555,7 +1621,7 @@ def main() -> None:
                 "conv_row_stage_gauss": conv_radix.conv_row_stage_gauss}
     planner = FftPlanner(np.complex64, device="cuda")
     assert route(4096, np.complex64) == "lanepack" and route(1 << 20, np.complex64) == "large"
-    assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 4 + ["large3f"]
+    assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 4 + ["large3f"] * 2
     assert [route(n, np.complex64) for n in MID] == ["two_stage"] * 2 + ["radix"] * 4
     assert [route(n, np.complex64) for n in CLUSTER] == ["two_stage"] * len(CLUSTER)
     assert [route(n, np.complex64) for n in ONE] == ["two_stage"] * len(ONE)
@@ -1618,11 +1684,14 @@ def main() -> None:
         *((n, batch, four) for n, batch in FOUR.items()),
     )
 
-    def drive(key, n, batch, expected, fwd, inv, what, same_as=None):
+    def drive(key, n, batch, expected, fwd, inv, what, same_as=None, oracle=True):
         """fwd and inv through run_counted, each against the float64 oracle
-        and torch.fft, and the round trip; same_as(direction, rows): the
-        output the default path gives for those rows, which fwd's and inv's
-        must equal bit for bit."""
+        (unless not `oracle`: then same_as must hold) and torch.fft, and the
+        round trip; same_as(direction, rows): the output the default path
+        gives for those rows, which fwd's and inv's must equal bit for
+        bit."""
+        if not oracle and same_as is None:
+            raise ValueError(f"{what}: without the oracle the default path must be matched")
         x = signal(batch, n)
         y = run_counted(counters, lambda: fwd(x), expected, f"forward {what}",
                         (main_launches, path_launches.setdefault(key, {})))
@@ -1630,12 +1699,14 @@ def main() -> None:
             raise AssertionError(f"{what}: output {tuple(y.shape)} {y.dtype} on {y.device}")
         if not bool(torch.isfinite(torch.view_as_real(y)).all()):
             raise AssertionError(f"{what}: non-finite output")
-        oracle_rows(x, y, FftDirection.FORWARD, f"forward {what}")
+        if oracle:
+            oracle_rows(x, y, FftDirection.FORWARD, f"forward {what}")
         check(f"forward {what} vs torch.fft",
               rel_err_chunked(y, lambda i, j: torch.fft.fft(x[i:j])))
         z = run_counted(counters, lambda: inv(y), expected, f"inverse {what}",
                         (main_launches, path_launches.setdefault(key, {})))
-        oracle_rows(y, z, FftDirection.INVERSE, f"inverse {what}")
+        if oracle:
+            oracle_rows(y, z, FftDirection.INVERSE, f"inverse {what}")
         check(f"inverse {what} vs torch.fft",
               rel_err_chunked(z, lambda i, j: torch.fft.ifft(y[i:j]) * n))
         check(f"round trip / n {what} vs input", rel_err_chunked(z, lambda i, j: x[i:j] * n))
@@ -1668,6 +1739,12 @@ def main() -> None:
         return large.make_large_fft_fn(1 << 20, d, np.complex64, gauss=False,
                                        blocks2d=False)(rows)
 
+    def default_path(n):
+        """same_as for n: the planner's default path, which phase 3 held
+        to the oracle."""
+        return lambda d, rows: (planner.plan_fft_forward(n) if d is FftDirection.FORWARD
+                                else planner.plan_fft_inverse(n)).process(rows)
+
     switched_paths = (
         ("gauss", 1 << 20, 1024, {"large_col_stage_gauss": 1, "large_row_stage_gauss": 1},
          dict(large_gauss=True), None),
@@ -1681,15 +1758,19 @@ def main() -> None:
         ("every switch", 15625, 4096, {"largepad_col_stage": 1, "largepad_row_stage": 1}, every,
          None),
         ("every switch", 1000003, 64, k15, every, None),
-        ("every switch", 1 << 23, 8, {"large2f_col_stage": 1, "large_row_stage": 1}, every, None),
-        ("every switch", 1 << 26, 2, {"large3_col_stage": 1, "large3_p2": 1, "large_row_stage": 1},
-         every, None),
+        ("every switch", 1 << 23, 8, {"large2f_col_stage": 1, "large_row_stage": 1}, every,
+         default_path(1 << 23)),
+        ("every switch", 1 << 26, 1, {"large3_col_stage": 1, "large3_p2": 1, "large_row_stage": 1},
+         every, default_path(1 << 26)),
     )
     for tag_, n, batch, expected, switches, same_as in switched_paths:
         fwd, inv = switched(config, switches, lambda: (planner.plan_fft_forward(n),
                                                        planner.plan_fft_inverse(n)))
+        # the top band's are held bit for bit to their default paths, whose
+        # float64 oracle (15-20 s of host time a row at 2^26) phase 3 ran
         drive(f"{n} {tag_}", n, batch, expected, fwd.process, inv.process,
-              f"n={n} batch={batch} {tag_} ({type(fwd.recipe).__name__})", same_as)
+              f"n={n} batch={batch} {tag_} ({type(fwd.recipe).__name__})", same_as,
+              oracle=n < 1 << 23)
     fwd, inv = (large.make_large_fft_fn(1 << 20, d, np.complex64, deep_a=True) for d in directions)
     drive(f"{1 << 20} deep_a", 1 << 20, 1024, default_large, fwd, inv,
           "n=1048576 batch=1024 make_large_fft_fn(deep_a=True)", default_2_20)
@@ -2158,9 +2239,9 @@ def main() -> None:
             record(name, k, plain, 16 * batch * n + 8 * q * (p1 + p2),
                    batch * n * (fft_ops(p) / p + 12))
         else:
-            (p1, p2, q), col, mids, row = top3f_tables(FftDirection.FORWARD)
+            (p1, p2, q), col, mids, row = top3f_tables(n, FftDirection.FORWARD)
             p, m = p1 * p2, p2 * q
-            name = "large3_col_stage/2^26"
+            name = f"large3_col_stage/{tag(n)}"
             b = large3.large3_col_stage(x, p1, m, q, col)
             note(name, b, large3.large3_col_stage_plain(x, p1, m, q, col), f"{name} {what}",
                  PAIR_TOL)
@@ -2170,14 +2251,14 @@ def main() -> None:
             print(f"  {name} P1={p1} batch={batch}: pass 1 at "
                   f"{16 * batch * n / (k * 1e6):.0f} GB/s", flush=True)
             record(name, k, plain, 16 * batch * n + 8 * q * p1, batch * n * (fft_ops(p1) / p1 + 6))
-            name = "large3_p2/2^26"
+            name = f"large3_p2/{tag(n)}"
             a = large3.large3_p2(b, p1, p2, q, mids[0])
             note(name, a, large3.large3_p2_plain(b, p1, p2, q, mids[0]), f"{name} {what}",
                  PAIR_TOL)
             free()
             k = median_ms(lambda: large3.large3_p2(b, p1, p2, q, mids[0]))
             plain = median_ms(lambda: large3.large3_p2_plain(b, p1, p2, q, mids[0]))
-            print(f"  {name} P2={p2} batch={batch}: pass 2 at "
+            print(f"  {name} P2={p2} ({large3.p2_cols(p2)} k1 a unit) batch={batch}: pass 2 at "
                   f"{16 * batch * n / (k * 1e6):.0f} GB/s", flush=True)
             record(name, k, plain, 16 * batch * n + 8 * (p2 * p1 + q * p2 + p2),
                    batch * n * (fft_ops(p2) / p2 + 12))
@@ -2209,6 +2290,16 @@ def main() -> None:
             t = median_ms(lambda: tree(x), reps=5)
             print(f"  2^24 x {batch} through the recipe tree: {t:.3f} ms "
                   f"({gflops(n, batch, t):.0f} GF/s) against the route's {path:.3f} ms", flush=True)
+        if n == 1 << 27:
+            # the recipe tree the planner designs, with the kernels off
+            off = switched(config, dict(kernels="off"),
+                           lambda: FftPlanner(np.complex64, device="cuda").plan_fft_forward(n))
+            t_off = switched(config, dict(kernels="off"), lambda: median_ms(
+                lambda: off.process(x), reps=3, warmup=1))
+            print(f"  2^27 x {batch}: large3f {path:.3f} ms ({gflops(n, batch, path):.0f} GF/s); "
+                  f"the recipe tree {off.recipe!r} with the kernels off {t_off:.3f} ms; "
+                  f"torch.fft {ref:.3f} ms", flush=True)
+            del off
         del x
         free()
 
@@ -2254,20 +2345,45 @@ def main() -> None:
               f"({gflops(n, batch, path):.0f} GF/s); the large route {old_ms:.3f} ms "
               f"({gflops(n, batch, old_ms):.0f} GF/s); torch.fft {lib:.3f} ms "
               f"({gflops(n, batch, lib):.0f} GF/s)", flush=True)
-        if n == 16384:
-            host = fused.two_stage_tables(128, (8, 16), FftDirection.FORWARD)
-            tabs = card_tables(host)
-            name = "three_stage_fft/16384"
-            note(name, fused.three_stage_fft(x, 128, 8, 16, tabs),
-                 fused.three_stage_fft_plain(x, 128, 8, 16, tabs),
-                 f"{name} (128, 8, 16) batch={batch} (the two-stage path's shape)")
-            free()
-            k = median_ms(lambda: fused.three_stage_fft(x, 128, 8, 16, tabs))
-            plain_ms = median_ms(lambda: fused.three_stage_fft_plain(x, 128, 8, 16, tabs))
-            print(f"  {name} batch={batch} (not routed):", flush=True)
-            record(name, k, plain_ms, 16 * batch * n + table_bytes(host),
-                   batch * (fft_ops(n) + 6 * n), lib)
         del x
+        free()
+
+    # K8 (not routed) at its timed shapes: each form against its plain
+    # version, its bound, torch.fft and the kernel the route runs at the
+    # same n and batch (K9's radix kernel at 32768, K7's cluster kernel at
+    # its own split elsewhere, K2's and K3's stages at 393216)
+    for n, batch in K8.items():
+        x = signal(batch, n)
+        p, q1, q2 = fused.choose_pqq_fused(n)
+        q = q1 * q2
+        form = fused.three_stage_form(n)
+        host = fused.three_stage_tables(p, q1, q2, FftDirection.FORWARD)
+        tabs = card_tables(host)
+        name = f"three_stage_fft/{n}"
+        note(name, fused.three_stage_fft(x, p, q1, q2, tabs),
+             fused.three_stage_fft_plain(x, p, q1, q2, tabs),
+             f"{name} ({p}, {q1}, {q2}) on {form} batch={batch}", K7_TOL)
+        free()
+        k = median_ms(lambda: fused.three_stage_fft(x, p, q1, q2, tabs))
+        plain_ms = median_ms(lambda: fused.three_stage_fft_plain(x, p, q1, q2, tabs))
+        lib = median_ms(lambda: torch.fft.fft(x))
+        plan = planner.plan_fft_forward(n)
+        path = median_ms(lambda: plan.process(x))
+        k7 = ""
+        if route(n, np.complex64) == "two_stage":
+            kp, kq = fused.choose_pq(n)
+            kc = (fused.choose_cluster(n) if fused.two_stage_cluster_supported(n, np.complex64)
+                  else 1)
+            fn = fused.make_fused_two_stage_fn(n, FftDirection.FORWARD, np.complex64)
+            k7_ms = median_ms(lambda: fn(x))
+            k7 = f"; K7 at its split {kp} x {kq} ({kc} block{'s' * (kc > 1)}) {k7_ms:.3f} ms"
+        print(f"  {name} ({p}, {q1}, {q2}) on {form}, DFT_q as {large.stage_radices(q)}, "
+              f"batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; the path "
+              f"({route(n, np.complex64)}) {path:.3f} ms{k7}; torch.fft {lib:.3f} ms (not "
+              "routed):", flush=True)
+        record(name, k, plain_ms, 16 * batch * n + table_bytes(host[:3] + host[5:]),
+               batch * (fft_ops(n) + 6 * n), lib)
+        del x, tabs
         free()
 
     # K7 on one block with a prime p (a Bluestein stage) at its paths'
@@ -2673,6 +2789,8 @@ def main() -> None:
             return path_launches[f"conv_fft {where}"][base]
         n = {"K6": 1009, "K13": 1234}.get(where)
         n = n or (1 << int(where[2:]) if where.startswith("2^") else int(where))
+        if base in NOT_ROUTED:  # on no path: 0 wherever no path has its size
+            return path_launches.get(n, {}).get(base, 0)
         return path_launches[n][base]
 
     kernels = [

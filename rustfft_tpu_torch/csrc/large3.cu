@@ -41,7 +41,7 @@
 // W = 64 (512-byte pieces) up to P2 = 64, W = 32 (256-byte pieces) at P2 =
 // 128 (2^27), so that two buffers and the wos slice stay at 96 KiB and
 // two blocks an SM at every P2 (256-byte pieces read within 1% of 512-byte
-// ones in PR 19's probe of pass 1's tiles, PERF.md).  Where W does not
+// ones in a copy probe of pass 1's tiles on an H100, PERF.md).  Where W does not
 // divide P1 (an even P1: the pieces are 16-byte copies) the last chunk is
 // narrower and the columns past it idle.
 //  - The next unit's pieces land by cp.async in the second of two buffers
