@@ -2781,7 +2781,7 @@ def main() -> None:
 
     def launches_of(name):
         base, _, where = name.partition("/")
-        if not where:
+        if not where or base in NOT_ROUTED:  # a kernel on no path: its count over them all
             return main_launches[base]
         if where in TAGGED:
             return path_launches[TAGGED[where]][base]
@@ -2789,8 +2789,6 @@ def main() -> None:
             return path_launches[f"conv_fft {where}"][base]
         n = {"K6": 1009, "K13": 1234}.get(where)
         n = n or (1 << int(where[2:]) if where.startswith("2^") else int(where))
-        if base in NOT_ROUTED:  # on no path: 0 wherever no path has its size
-            return path_launches.get(n, {}).get(base, 0)
         return path_launches[n][base]
 
     kernels = [

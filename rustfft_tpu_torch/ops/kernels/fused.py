@@ -747,25 +747,26 @@ three_stage_fft.launches = 0
 # -- plan functions ---------------------------------------------------------
 
 def _plan(n, tables, run):
-    dev_tables = calg.DeviceTables(tables)
+    """fn over rows of n: run(x, t), t the copy of tables on x's device in
+    tables' groups (a tuple of arrays and lists of arrays, such as
+    two_stage_tables gives); fn.tables holds the arrays in order."""
+    groups = [None if isinstance(t, np.ndarray) else len(t) for t in tables]
+    dev_tables = calg.DeviceTables([a for t in tables
+                                    for a in ((t,) if isinstance(t, np.ndarray) else t)])
+
+    def regroup(flat):
+        out, i = [], 0
+        for k in groups:
+            out.append(flat[i] if k is None else flat[i:i + k])
+            i += 1 if k is None else k
+        return tuple(out)
 
     def apply(x):
-        t = dev_tables.on(x.device)
+        t = regroup(dev_tables.on(x.device))
         return run(x.reshape(-1, n).contiguous(), t).reshape(x.shape)
 
     apply.tables = dev_tables
     return apply
-
-
-def _two_stage_fn(n, p, q_radices, direction, run):
-    roots_p, tws_p, outer, roots_q, tws_q = two_stage_tables(p, q_radices, direction)
-    kp, kq = len(roots_p), len(roots_q)
-
-    def call(x, t):
-        rest = t[2 * kp:]
-        return run(x, (t[:kp], t[kp : 2 * kp - 1], t[2 * kp - 1], rest[:kq], rest[kq:]))
-
-    return _plan(n, roots_p + tws_p + [outer] + roots_q + tws_q, call)
 
 
 def make_fused_two_stage_fn(n: int, direction: FftDirection, dtype,
@@ -784,14 +785,13 @@ def make_fused_two_stage_fn(n: int, direction: FftDirection, dtype,
     p, q = sp
     if p * q != n:
         raise ValueError(f"split {sp} does not give n={n}")
-    q_radices = large.stage_radices(q)
+    tables = two_stage_tables(p, large.stage_radices(q), direction)
     if _one_block_fits(p, q):
-        return _two_stage_fn(n, p, q_radices, direction, lambda x, t: two_stage_fft(x, p, q, t))
+        return _plan(n, tables, lambda x, t: two_stage_fft(x, p, q, t))
     c = choose_cluster(n, (p, q))
     if c is None:
         raise ValueError(f"split {sp}: neither one block nor a cluster holds n={n}")
-    return _two_stage_fn(n, p, q_radices, direction,
-                         lambda x, t: two_stage_cluster_fft(x, p, q, c, t))
+    return _plan(n, tables, lambda x, t: two_stage_cluster_fft(x, p, q, c, t))
 
 
 def make_fused_three_stage_fn(n: int, direction: FftDirection, dtype,
@@ -807,17 +807,8 @@ def make_fused_three_stage_fn(n: int, direction: FftDirection, dtype,
     p, q1, q2 = sp
     if p * q1 * q2 != n:
         raise ValueError(f"split {sp} does not give n={n}")
-    roots_p, tws_p, outer, roots_q, tws_q, roots_c, tws_c = three_stage_tables(p, q1, q2,
-                                                                               direction)
-    kp, kq, kc = len(roots_p), len(roots_q), len(roots_c)
-
-    def call(x, t):
-        i = 2 * kp  # roots_p, tws_p, outer
-        j = i + 2 * kq - 1
-        return three_stage_fft(x, p, q1, q2, (t[:kp], t[kp:i - 1], t[i - 1], t[i:i + kq],
-                                              t[i + kq:j], t[j:j + kc], t[j + kc:]))
-
-    return _plan(n, roots_p + tws_p + [outer] + roots_q + tws_q + roots_c + tws_c, call)
+    return _plan(n, three_stage_tables(p, q1, q2, direction),
+                 lambda x, t: three_stage_fft(x, p, q1, q2, t))
 
 
 def make_fused_radix_fn(n: int, direction: FftDirection, dtype,
@@ -833,10 +824,4 @@ def make_fused_radix_fn(n: int, direction: FftDirection, dtype,
     r, p, q = sp
     if r * p * q != n or p != q:
         raise ValueError(f"split {sp} does not give n={n} with p == q")
-    roots, tws, t1, tn, rroots, cfac = radix_tables(r, p, q, direction)
-    k = len(roots)
-
-    def call(x, t):
-        return radix_fft(x, r, p, (t[:k], t[k : 2 * k - 1], *t[2 * k - 1:]))
-
-    return _plan(n, roots + tws + [t1, tn, rroots, cfac], call)
+    return _plan(n, radix_tables(r, p, q, direction), lambda x, t: radix_fft(x, r, p, t))

@@ -67,6 +67,25 @@ def test_three_stage_on_card(cuda_device, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [16384, 32768, 393216])
+def test_three_stage_plan_on_card(cuda_device, n):
+    """make_fused_three_stage_fn hands three_stage_fft its tables on the
+    card in three_stage_tables' groups: one launch a call, the plain
+    version's output."""
+    p, q1, q2 = fused.choose_pqq_fused(n)
+    x = _signal(2, n, n // 16384, cuda_device)
+    for d in DIRECTIONS:
+        fn = fused.make_fused_three_stage_fn(n, d, np.complex64)
+        before = fused.three_stage_fft.launches
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert fused.three_stage_fft.launches == before + 1
+        want = fused.three_stage_fft_plain(x, p, q1, q2,
+                                           _on(fused.three_stage_tables(p, q1, q2, d), cuda_device))
+        assert _rel(got, want) <= VS_PLAIN
+
+
+@pytest.mark.cuda
 def test_three_stage_two_pass_counts_its_stages(cuda_device):
     """Above 262144 the form is K2's and K3's stages: one launch of each."""
     n = 393216

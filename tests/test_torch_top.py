@@ -164,7 +164,7 @@ def test_split_choosers_equal_jax(log2n):
 
 
 def test_split_differences_from_jax():
-    # the port's pass 2 takes P2 = 128 (units of 32 k1, DFT_128 as 8 x 16),
+    # the port's pass 2 takes P2 = 128 (units of 32 k1, DFT_128 as 16 x 8),
     # so 2^27 has the JAX split
     assert ref_large3.choose_split3f(1 << 27) == (256, 128, 64, 64, 4096)
     assert large3.choose_split3f(1 << 27) == (256, 128, 64, 64, 4096)

@@ -520,14 +520,11 @@ def run_one(root: str, groups=GROUPS) -> dict:
             del x
     if "K8" in groups:
         for n, batch in K8:
+            if n > 1 << 14 and not hasattr(fused, "three_stage_form"):
+                continue  # a checkout whose K8 runs on the card at 16384 only
             torch.cuda.empty_cache()
             x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
             fn = fused.make_fused_three_stage_fn(n, FftDirection.FORWARD, np.complex64)
-            try:
-                fn(x)
-            except ValueError:  # a checkout whose K8 has no card form at n
-                del x
-                continue
             out[f"K8 three_stage_fft {n}x{batch}"] = ms(lambda: fn(x), reps=15)
             p, q = fused.choose_pq(n)
             k7 = fused.make_fused_two_stage_fn(n, FftDirection.FORWARD, np.complex64, split=(p, q))
