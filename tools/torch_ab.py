@@ -85,10 +85,17 @@ tree (`config.kernels = "off"`) and torch.fft.  And K8
 of each cluster c of its card forms (32768 x 2048, c = 2; 49152 x 2048,
 4; 98304 x 1024, 8; 196608 x 512, 16), where the checkout runs it on the
 card, beside the kernel the route runs at the same n and batch (the path,
-and K7's cluster kernel at choose_pq's split) and torch.fft.  `--only`
+and K7's cluster kernel at choose_pq's split) and torch.fft.  And K4's
+Gauss stages at 64 x 2^20: `large_col_stage_gauss` on the input the path
+gives it and `large_row_stage_gauss` on its output, K2 and K3 on the same
+tensors, torch.fft over the row stage's rows (dim 1), and, in a checkout
+whose Gauss wrappers take `general=`, the general Gauss bodies on the same
+tensors; each also queued (20 calls behind a sleep kernel); then the path
+2^20 x 1024 under config.large_gauss and by default, each also queued,
+and torch.fft there.  `--only`
 keeps the named groups of these (K1, K2 for K2 and K3, paths for the
 planner's paths and K1's and K5's chain paths' torch.fft, K9, K16, K12,
-K15, K14, K5 for K5's product, K10, K13, K11, K8).  It prints one JSON line per run and then
+K15, K14, K5 for K5's product, K10, K13, K11, K8, K4).  It prints one JSON line per run and then
 a table, each row a quantity and each column a run.
 """
 from __future__ import annotations
@@ -174,7 +181,8 @@ K11 = ((1 << 26, 2), (1 << 27, 1))
 #: K8's shapes: 16384 (the radix body at R = 1) and one size of each cluster c
 K8 = ((16384, 4096), (32768, 2048), (49152, 2048), (98304, 1024), (196608, 512))
 
-GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13", "K11", "K8")
+GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13", "K11", "K8",
+          "K4")
 
 
 def run_one(root: str, groups=GROUPS) -> dict:
@@ -533,6 +541,55 @@ def run_one(root: str, groups=GROUPS) -> dict:
             out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
             del x
+    if "K4" in groups:
+        import inspect
+
+        from rustfft_tpu_torch.config import config
+
+        torch.cuda.empty_cache()
+        n, batch, d = 1 << 20, 64, FftDirection.FORWARD
+        p, q1, q2 = large.choose_pqq(n)
+        q = q1 * q2
+        r, t, outer = large.col_tables(p, q, d)
+        col = (on(r), on(t), on([outer])[0])
+        row = tuple(on(v) for v in large.row_tables(q, d))
+        r, t, outer = large.col_tables(p, q, d, gauss=True)
+        gcol = (on(r), on(t), on([outer])[0])
+        grow = tuple(on(v) for v in large.row_tables(q, d, gauss=True))
+        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+        ga = large.large_col_stage_gauss(x, p, q, gcol)  # the row stage's input on the path
+        stages = {
+            "K4 large_col_stage_gauss": lambda: large.large_col_stage_gauss(x, p, q, gcol),
+            "K2 large_col_stage (same x)": lambda: large.large_col_stage(x, p, q, col),
+            "K4 large_row_stage_gauss": lambda: large.large_row_stage_gauss(ga, q, p, grow),
+            "K3 large_row_stage (same a)": lambda: large.large_row_stage(ga, q, p, row),
+            "torch.fft dim 1 (same a)": lambda: torch.fft.fft(ga, dim=1),
+        }
+        if "general" in inspect.signature(large.large_col_stage_gauss).parameters:
+            stages["K4 col general Gauss body"] = lambda: large.large_col_stage_gauss(
+                x, p, q, gcol, general=True)
+            stages["K4 row general Gauss body"] = lambda: large.large_row_stage_gauss(
+                ga, q, p, grow, general=True)
+        for name, fn in stages.items():
+            out[f"{name} {batch}x2^20"] = ms(fn, reps=15)
+            out[f"{name} {batch}x2^20 (queued)"] = queued_ms(fn, calls=20)
+        del x, ga
+        torch.cuda.empty_cache()
+        batch = 1024
+        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+        old = config.large_gauss
+        try:
+            config.large_gauss = True
+            gauss_plan = FftPlanner(np.complex64, device="cuda").plan_fft_forward(n)
+        finally:
+            config.large_gauss = old
+        plan = FftPlanner(np.complex64, device="cuda").plan_fft_forward(n)
+        for name, fn in (("path", lambda: plan.process(x)),
+                         ("path large_gauss", lambda: gauss_plan.process(x))):
+            out[f"{name} {n}x{batch}"] = ms(fn)
+            out[f"{name} {n}x{batch} (queued)"] = queued_ms(fn, calls=5, reps=5)
+        out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x))
+        del x
     if "K13" in groups:
         from rustfft_tpu_torch.ops.kernels import _build, conv
 
