@@ -75,8 +75,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    primes 165901, 209959, 221197, 262147) and at 746497's Bluestein inner
    (m = 1572864) x 2, the general form's at 24571 (m = 49152), with the
    result against the float64 oracle.  The kernel-variant switches: K4's Gauss
-   column and row stages at 2^20 x 1 and x 64, deep_a and blocks2d bit-equal
-   to the default at 2^20 x 64, and the two-pass core's Gauss stages and
+   column and row stages (the Gauss forms of K2's and K3's tile kernels)
+   within 1e-6 at 2^20 x 1, x 3 and x 64, each grid and the resident blocks
+   printed, and bit-equal to the general Gauss bodies at x 64, deep_a and
+   blocks2d bit-equal to the default at 2^20 x 64, and the two-pass core's Gauss stages and
    in_shift column stage stage by stage at m = 65536 (Rader) and 16384
    (Bluestein, Gauss only), with the result against the float64 oracle;
 3. the main paths through the public entry,
@@ -182,8 +184,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    with their bounds, and at 65537 x 512 on the raw rows (in_shift); 746497 x 64 as
    Raders(746496) on the two-pass core
    and as Bluesteins(746497, 1572864) on the fused large Bluestein.  The
-   switches: K4's Gauss stages at 64 x 2^20 against the default stages,
-   their plain versions, their bound (that of the default stages, with the
+   switches: K4's Gauss stages at 64 x 2^20 against the default stages
+   (K2 and K3) on the same inputs, their plain versions, their bound (that of the default stages, with the
    Gauss form's own operation count beside it) and, for the row stage, torch.fft over dim 1; the two-pass core's
    Gauss stages at the Rader 65537 x 512 shape against in_shift's default
    stages; every switched path against its default path (in turns: the
@@ -1020,12 +1022,15 @@ def main() -> None:
     del x, a, a_plain, y, y_plain, base
     free()
 
-    # K4 at 2^20: the Gauss stages against their plain versions at batch 1
-    # and 64; deep_a and blocks2d (the default stages) bit-equal to the default
+    # K4 at 2^20: the Gauss stages on K2's and K3's tile kernels within 1e-6
+    # of their plain versions at batch 1, 3 (both walks ragged) and 64, each
+    # grid printed, and bit-equal to the general Gauss bodies at batch 64;
+    # deep_a and blocks2d (the default stages) bit-equal to the default
     n = 1 << 20
     p, q1, q2 = large.choose_pqq(n)
     q = q1 * q2
-    for batch in (1, 64):
+    gcol_res, grow_res = large.resident_blocks("col_gauss"), large.resident_blocks("row_gauss")
+    for batch in (1, 3, 64):
         x = signal(batch, n)
         for d in directions:
             col = card_tables(large.col_tables(p, q, d, gauss=True))
@@ -1034,13 +1039,27 @@ def main() -> None:
             torch.cuda.synchronize()
             note("large_col_stage_gauss", a, large.large_col_stage_gauss_plain(x, p, q, col),
                  f"large_col_stage_gauss n=2^20 P={p} {large.stage_radices(p)} batch={batch} "
-                 f"{d.name}")
+                 f"grid {large.col_walk(batch * q // 16, gcol_res)} (blocks, units a block) of "
+                 f"{gcol_res} resident {d.name}", K7_TOL)
             y = large.large_row_stage_gauss(a, q, p, row)
             torch.cuda.synchronize()
             note("large_row_stage_gauss", y, large.large_row_stage_gauss_plain(a, q, p, row),
                  f"large_row_stage_gauss n=2^20 Q={q} {large.stage_radices(q)} batch={batch} "
-                 f"{d.name}")
-            if batch > 1:
+                 f"grid {large.row_grid(batch * p // 4, grow_res)} of {grow_res} resident "
+                 f"{d.name}", K7_TOL)
+            if batch == 64:
+                for name, got, general in (
+                        ("large_col_stage_gauss", a,
+                         large.large_col_stage_gauss(x, p, q, col, general=True)),
+                        ("large_row_stage_gauss", y,
+                         large.large_row_stage_gauss(a, q, p, row, general=True))):
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, general):
+                        raise AssertionError(f"{name} n=2^20 batch={batch} {d.name}: the tile "
+                                             "form differs from the general Gauss body")
+                    print(f"  {name} n=2^20 batch={batch} {d.name}: bit-equal to the general "
+                          "Gauss body", flush=True)
+                del general
                 want = large.make_large_fft_fn(n, d, np.complex64, gauss=False, blocks2d=False)(x)
                 for kw in (dict(deep_a=True), dict(blocks2d=True)):
                     got = large.make_large_fft_fn(n, d, np.complex64, **kw)(x)
@@ -1871,22 +1890,24 @@ def main() -> None:
          large.large_row_stage_gauss_plain(ga, q, p, grow),
          f"large_row_stage_gauss n={n} Q={q} batch={batch}")
     free()
-    for name, kernel, plain_fn, nbytes, ops, library in (
+    for name, kernel, plain_fn, nbytes, ops, library, default in (
         ("large_col_stage_gauss", lambda: large.large_col_stage_gauss(x, p, q, gcol),
          lambda: large.large_col_stage_gauss_plain(x, p, q, gcol),
          16 * batch * n + 8 * n + table_bytes(gcol[:2]),
-         batch * n * (gauss_ops(large.stage_radices(p)) + 6), None),
+         batch * n * (gauss_ops(large.stage_radices(p)) + 6), None,
+         lambda: large.large_col_stage(x, p, q, col)),
         ("large_row_stage_gauss", lambda: large.large_row_stage_gauss(ga, q, p, grow),
          lambda: large.large_row_stage_gauss_plain(ga, q, p, grow),
          16 * batch * n + table_bytes(grow), batch * n * gauss_ops(large.stage_radices(q)),
-         lambda: torch.fft.fft(ga, dim=1)),
+         lambda: torch.fft.fft(ga, dim=1), lambda: large.large_row_stage(ga, q, p, row)),
     ):
         k = median_ms(kernel)
         plain = median_ms(plain_fn)
         lib = None if library is None else median_ms(library)
-        default_ms = results[name[:-len("_gauss")]]["ms"]
+        default_ms = median_ms(default)
         print(f"  {name} n={n} batch={batch}: {k:.3f} ms against the default form's "
-              f"{default_ms:.3f} ({k / default_ms:.2f}x); the Gauss form's operations "
+              f"{default_ms:.3f} on the same input ({k / default_ms:.2f}x); the Gauss form's "
+              "operations "
               f"{ops / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak, its bytes "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms:", flush=True)
         # the bound: the default stages' need (the same function)

@@ -3,7 +3,9 @@
 // csrc/large3.cu on plain rows with the modular outer twiddle of the
 // three-pass pipeline's pass 1 (K11), csrc/convlarge.cu on the zero-padded,
 // chirped input of the fused large Bluestein and its column-pair output
-// layout (K15's kernel A, ColChirp).  The design is large.cu's header's
+// layout (K15's kernel A, ColChirp), csrc/large_gauss.cu on plain rows with
+// its two radix-16 stages in the Gauss form (K4's column stage, kForm =
+// kTileGauss: tile_walk.cuh tile_dft16; everything else as K2).  The design is large.cu's header's
 // (K2): a persistent grid of blocks each walking contiguous units of
 // (tile, batch), batch fastest (ops/kernels/large.py col_walk), the outer
 // twiddle's (16, 256) slice in shared memory once per slice, the next
@@ -74,7 +76,7 @@ struct ColUnits {
   }
 };
 
-template <class Io, bool kStamp>
+template <class Io, bool kStamp, int kForm = kTileRoots>
 __global__ void __launch_bounds__(kColThreads, 2)
     col_tile_kernel(Io io, float2* __restrict__ y, ColUnits walk, unsigned units,
                     unsigned per, int q, Stages st, const float2* __restrict__ outer,
@@ -84,12 +86,13 @@ __global__ void __launch_bounds__(kColThreads, 2)
   extern __shared__ float4 col_smem[];
   float2* bufs = reinterpret_cast<float2*>(col_smem);  // two tiles
   float2* souter = bufs + 2 * kColElems;
-  float2* sroots = souter + kColElems;
+  float2* sroots = souter + kColElems;  // the stages' tables (tile_table_slots)
   const size_t row_elems = (size_t)kColP * (size_t)q;
   const unsigned u0 = blockIdx.x * per;
   const unsigned u1 = min(u0 + per, units);
   if (u0 < u1) io.copy(bufs, walk.row(u0), walk.tile(u0), (unsigned)q);
-  load_roots(st, sroots);
+  load_tile_tables<kForm>(st, sroots);
+  const bool inverse = tile_inverse<kForm>(st);
   __syncthreads();
   unsigned slice = ~0u;  // the slice souter holds
   int cur = 0;
@@ -119,7 +122,7 @@ __global__ void __launch_bounds__(kColThreads, 2)
       __syncwarp();
       io.scale(v, c, t, (unsigned)q);
       const float2* __restrict__ tw = opaque_ptr(st.tw[0]);
-      dft_column<16>(v, sroots, [&](int k, float2 z) {
+      tile_dft16<kForm>(v, sroots, 0, inverse, [&](int k, float2 z) {
         z = cmul(z, __ldg(&tw[k * 16 + (c >> 4)]));
         buf[swz(k * 256 + c)] = z;
       });
@@ -133,7 +136,7 @@ __global__ void __launch_bounds__(kColThreads, 2)
 #pragma unroll
       for (int j = 0; j < 16; ++j) v[j] = buf[swz(base + 16 * j)];
       __syncthreads();
-      dft_column<16>(v, sroots + 16, [&](int k, float2 z) {
+      tile_dft16<kForm>(v, sroots, 1, inverse, [&](int k, float2 z) {
         const int f = swz(k * 256 + c);
         buf[f] = cmul(z, souter[f]);
       });
@@ -148,12 +151,15 @@ __global__ void __launch_bounds__(kColThreads, 2)
   clock.write(stamps);
 }
 
-static size_t col_tile_smem() { return (size_t)(3 * kColElems + 32) * sizeof(float2); }
+template <int kForm = kTileRoots>
+static size_t col_tile_smem() {
+  return (size_t)(3 * kColElems + tile_table_slots(kForm, 2)) * sizeof(float2);
+}
 
 // One launch of `grid` persistent blocks over the units (tile, batch) in
 // the walk's order with `groups` groups of tiles a row (above), `per` units
 // a block (grid*per >= units > (grid - 1)*per).
-template <bool kStamp, class Io>
+template <bool kStamp, int kForm = kTileRoots, class Io>
 static cudaError_t launch_col_tile(const Io& io, float2* y, long long batch, int q,
                                    long long grid, long long per, const Stages& st,
                                    const float2* outer, unsigned long long* stamps,
@@ -163,10 +169,10 @@ static cudaError_t launch_col_tile(const Io& io, float2* y, long long batch, int
       units > 0x7fffffffLL || grid * per < units || (grid - 1) * per >= units || !io.aligned() ||
       reinterpret_cast<uintptr_t>(y) % 16 != 0)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(col_tile_kernel<Io, kStamp>, col_tile_smem());
+  cudaError_t err = allow_smem(col_tile_kernel<Io, kStamp, kForm>, col_tile_smem<kForm>());
   if (err != cudaSuccess) return err;
   const ColUnits walk{(unsigned)batch, (unsigned)groups, (unsigned)(q / kColT / groups)};
-  col_tile_kernel<Io, kStamp><<<(unsigned)grid, kColThreads, col_tile_smem(), s>>>(
+  col_tile_kernel<Io, kStamp, kForm><<<(unsigned)grid, kColThreads, col_tile_smem<kForm>(), s>>>(
       io, y, walk, (unsigned)units, (unsigned)per, q, st, outer, stamps);
   return cudaGetLastError();
 }

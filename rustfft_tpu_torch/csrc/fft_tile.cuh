@@ -22,7 +22,9 @@
 //    contractions) runs every radix, 2-16 included, as gauss_stage: fft_stage's
 //    work items with each output as three real sums instead of a complex one.
 //    Its tables are (3, r) float rows Wr, Wi, Ws = Wr + Wi of the roots,
-//    held in shared memory as one float4 per root index.
+//    held in shared memory as one float4 per root index.  gauss_column is
+//    the same arithmetic on one column in registers (the tile kernels'
+//    DFT_16, its tables compile-time constants there).
 //  - Stages ping-pong between two buffers (the compile-time chains at the
 //    end of this file run in place in one); consecutive threads take
 //    consecutive (j', t), so writes are contiguous and reads are contiguous
@@ -318,6 +320,42 @@ static __device__ __forceinline__ void dft_column(float2 (&x)[R],
       }
       sink(k, make_float2(re, im));
     }
+  }
+}
+
+// The Gauss form's tables of one radix as gauss_column reads them: the
+// float4s {Wr, Wi, Ws, 0} of load_gauss in shared memory (one broadcast read
+// per term).  csrc/gauss16.cuh's Gauss16<kInverse> is the other kind, the
+// DFT_16 tables as compile-time constants.
+struct GaussSmem {
+  const float4* __restrict__ g;
+  __device__ __forceinline__ float4 operator()(int e) const { return g[e]; }
+};
+
+// DFT of one column of R values in registers in the Gauss form, handing each
+// output to sink(k, X[k]): gauss_stage's arithmetic for one column, the same
+// floats in the same order (j ascending, one fmaf per term per sum, s = xr +
+// xi, re = P1 - P2, im = (P3 - P1) - P2), with the root index (j*k) mod R a
+// compile-time constant after unrolling, so that constant tables fold into
+// the multiply-adds.  Outputs go one at a time: three sums live beside the
+// column and its R sums s.
+template <int R, class Tables, class Sink>
+static __device__ __forceinline__ void gauss_column(const float2 (&x)[R], const Tables& g,
+                                                    Sink sink) {
+  float s[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) s[j] = x[j].x + x[j].y;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    float p1 = 0.f, p2 = 0.f, p3 = 0.f;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float4 w = g((j * k) % R);
+      p1 = fmaf(x[j].x, w.x, p1);
+      p2 = fmaf(x[j].y, w.y, p2);
+      p3 = fmaf(s[j], w.z, p3);
+    }
+    sink(k, make_float2(p1 - p2, p3 - p1 - p2));
   }
 }
 

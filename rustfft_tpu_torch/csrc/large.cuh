@@ -13,8 +13,8 @@
 // factored into small tables (K10, K11).  Two reads and two writes of the
 // signal in device memory per FFT, as on the TPU.  The general kernels take
 // one option: the Gauss form of every radix stage (kGauss, K4's Gauss
-// kernels and K14's gauss_mode; fft_tile.cuh gauss_stage), launched by
-// launch_col_gauss / launch_row_gauss.
+// kernels off the tile kernels' chains and K14's gauss_mode; fft_tile.cuh
+// gauss_stage), launched by launch_col_gauss / launch_row_gauss.
 //
 // What bounds them on this card: memory alone is 32 bytes per point over the
 // two stages.  Arithmetic is FP32 on the CUDA cores.  The TPU kernels
@@ -334,8 +334,9 @@ static cudaError_t launch_row_stage(const float2* x, const Dst& dst, long long b
 }
 
 // The column and row stages in the Gauss form (kGauss above) on the general
-// kernels, `st` from make_gauss_stages: no compile-time chain has a Gauss
-// form.  qt divides Q, pt divides P.
+// kernels, `st` from make_gauss_stages: the compile-time chains here have
+// no Gauss form (K2's and K3's tile kernels have one, csrc/large_gauss.cu).
+// qt divides Q, pt divides P.
 template <class Src, class Outer>
 static cudaError_t launch_col_gauss(const Src& src, float2* y, long long batch, int p, int q,
                                     int qt, const Stages& st, const Outer& outer,

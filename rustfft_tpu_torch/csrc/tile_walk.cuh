@@ -1,14 +1,67 @@
 // Pieces of the persistent tile walks (csrc/large.cu's K2 and K3,
-// csrc/convlarge.cu's K15): asynchronous 16-byte copies into shared memory,
-// the empty asm that keeps per-thread values inside a walk's loop, and the
-// phase stamps of the kernels' stamped forms.
+// csrc/convlarge.cu's K15, csrc/large_gauss.cu's K4): asynchronous 16-byte
+// copies into shared memory, the empty asm that keeps per-thread values
+// inside a walk's loop, the phase stamps of the kernels' stamped forms, and
+// the DFT forms of the radix-16 stages.
 #pragma once
 
 #include <stdint.h>
 
 #include "fft_tile.cuh"
+#include "gauss16.cuh"
 
 namespace rf {
+
+// The DFT form of the tile kernels' radix-16 stages (csrc/col_tile.cuh,
+// csrc/row_tile.cuh), a template argument of each kernel: radix-2 register
+// FFTs on the roots (kTileRoots: K2, K3 and the kernels on their bodies),
+// or K4's Gauss form (gauss_column) with the DFT_16 tables as compile-time
+// constants (kTileGauss: csrc/gauss16.cuh, the direction read from the
+// Gauss table the caller passes) or read from shared memory
+// (kTileGaussSmem: one float4 broadcast a term; only in the library built
+// with RF_PHASE_STAMPS, the form the constants were measured against).
+enum TileForm { kTileRoots = 0, kTileGauss = 1, kTileGaussSmem = 2 };
+
+// float2 slots of shared memory the tables of `stages` radix-16 stages take
+// in the form: 16 roots a stage, 16 float4s a stage, or none.
+static __host__ __device__ constexpr int tile_table_slots(int form, int stages) {
+  return form == kTileRoots ? 16 * stages : form == kTileGaussSmem ? 32 * stages : 0;
+}
+
+// The stages' tables into shared memory, as the form reads them.
+template <int kForm>
+static __device__ __forceinline__ void load_tile_tables(const Stages& st, float2* tables) {
+  if constexpr (kForm == kTileRoots) {
+    load_roots(st, tables);
+  } else if constexpr (kForm == kTileGaussSmem) {
+    load_gauss(st, reinterpret_cast<float4*>(tables));
+  }
+}
+
+// The constants' direction: the sign of Wi(1) = Im w_16^(+-1) in stage 0's
+// Gauss table (negative forward, positive inverse).
+template <int kForm>
+static __device__ __forceinline__ bool tile_inverse(const Stages& st) {
+  if constexpr (kForm == kTileGauss) return __ldg(&st.gauss[0][16 + 1]) > 0.f;
+  return false;
+}
+
+// DFT_16 of one column of the radix-16 stage `stage` in the form kForm,
+// each output to sink(k, X[k]); `tables` as load_tile_tables left them.
+// The constants' branch is the same for every thread of the launch.
+template <int kForm, class Sink>
+static __device__ __forceinline__ void tile_dft16(float2 (&v)[16], const float2* tables,
+                                                  int stage, bool inverse, Sink sink) {
+  if constexpr (kForm == kTileRoots) {
+    dft_column<16>(v, tables + 16 * stage, sink);
+  } else if constexpr (kForm == kTileGaussSmem) {
+    gauss_column<16>(v, GaussSmem{reinterpret_cast<const float4*>(tables) + 16 * stage}, sink);
+  } else if (inverse) {
+    gauss_column<16>(v, Gauss16<true>{}, sink);
+  } else {
+    gauss_column<16>(v, Gauss16<false>{}, sink);
+  }
+}
 
 // %globaltimer in nanoseconds (the kernels' phase stamps).
 static __device__ __forceinline__ unsigned long long walk_timer() {

@@ -21,9 +21,11 @@ K4's Gauss kernels (`_kernel_a_gauss`, `_kernel_b_gauss` with
 `fftq_sublane_gauss`) are `large_col_stage_gauss` and
 `large_row_stage_gauss` (csrc/large_gauss.cu): the same stages with every
 radix stage's DFT as three real products (P1 = xr.Wr, P2 = xi.Wi,
-P3 = (xr + xi).Ws; re = P1 - P2, im = P3 - P1 - P2) from `gauss_tables`, on
-the general kernels.  K4's deep and 2-D forms are K2 and K3 themselves (see
-make_large_fft_fn).
+P3 = (xr + xi).Ws; re = P1 - P2, im = P3 - P1 - P2) from `gauss_tables`.
+At TILE_COL and TILE_ROW they run K2's and K3's tile kernels in that form,
+DFT_16 with its tables as constants (csrc/gauss16.cuh, `gauss_header`);
+elsewhere csrc/large.cuh's general kernels.  K4's deep and 2-D forms are
+K2 and K3 themselves (see make_large_fft_fn).
 
 Two reads and two writes of the signal in device memory.  Each wrapper runs
 its plain torch version on a CPU tensor and launches its kernel in
@@ -73,6 +75,10 @@ def stage_radices(m: int) -> Tuple[int, ...]:
 #: tile width; other chains run the general kernel.
 FIXED_ROW = ((16, 16, 16), 4)
 
+#: the widest P the row-tile kernel takes (csrc/row_tile.cuh: a (4096, P)
+#: row's offsets in 32 bits)
+ROW_TILE_MAX_P = 32768
+
 #: the column-stage chains with a compile-time kernel in csrc/large.cuh and
 #: their tile widths: P = 256 over 16 columns, and the top band's one
 #: 128 KiB tile in place, 16384 / P columns at P = 1024 .. 8192
@@ -85,11 +91,20 @@ def col_tile(p: int, q: int, ragged: bool = False, gauss: bool = False) -> Optio
     divides Q and two buffers fit shared memory, else the next smaller power
     of 2.  ragged: the same rule without "divides Q" (the width the tile
     would have if it need not divide; largepad.narrowed_by_division
-    compares the two).  gauss: the Gauss form, which has no compile-time
-    kernel."""
-    fixed = None if gauss else FIXED_COL.get(stage_radices(p))
+    compares the two).  gauss: the Gauss form, whose one compile-time
+    kernel is the tile kernel's (TILE_COL: P = 16 x 16 over 16 columns);
+    elsewhere it runs the general kernel (general_col_tile)."""
+    fixed = (TILE_COL[1] if stage_radices(p) == TILE_COL[0] else None) if gauss else \
+        FIXED_COL.get(stage_radices(p))
     if fixed is not None and (ragged or q % fixed == 0):
         return fixed
+    return general_col_tile(p, q, ragged, gauss)
+
+
+def general_col_tile(p: int, q: int, ragged: bool = False, gauss: bool = False) -> Optional[int]:
+    """Columns j2 per block of csrc/large.cuh's general column kernel: 16
+    where it divides Q and two buffers fit shared memory, else the next
+    smaller power of 2 (col_tile's rule off the compile-time kernels)."""
     for qt in (16, 8, 4, 2, 1):
         if ((ragged or q % qt == 0)
                 and smem_bytes(p * qt, stage_radices(p), gauss) <= _build.SMEM_MAX):
@@ -101,10 +116,21 @@ def row_tile(q: int, p: int, ragged: bool = False, gauss: bool = False) -> Optio
     """Columns k1 per row-stage block: 4 for the compile-time chain (one
     buffer of 128 KiB), else 2 where a (Q, 2) tile fits shared memory, else
     1; None when one column does not fit.  ragged: the same rule without
-    "divides P".  gauss: the Gauss form, which has no compile-time kernel."""
+    "divides P".  gauss: the Gauss form, whose one compile-time kernel is
+    the tile kernel's (TILE_ROW, at P <= ROW_TILE_MAX_P); elsewhere it runs
+    the general kernel (general_row_tile)."""
     radices = stage_radices(q)
-    if not gauss and radices == FIXED_ROW[0] and (ragged or p % FIXED_ROW[1] == 0):
+    if (radices == FIXED_ROW[0] and (ragged or p % FIXED_ROW[1] == 0)
+            and (not gauss or p <= ROW_TILE_MAX_P)):
         return FIXED_ROW[1]
+    return general_row_tile(q, p, ragged, gauss)
+
+
+def general_row_tile(q: int, p: int, ragged: bool = False, gauss: bool = False) -> Optional[int]:
+    """Columns k1 per block of csrc/large.cuh's general row kernel: 2 where
+    a (Q, 2) tile fits shared memory, else 1; None when one column does not
+    fit (row_tile's rule off the compile-time kernels)."""
+    radices = stage_radices(q)
     for pt in (2, 1):
         if (ragged or p % pt == 0) and smem_bytes(q * pt, radices, gauss) <= _build.SMEM_MAX:
             return pt
@@ -187,14 +213,20 @@ def walk_units(grid: int, per: int, units: int):
     return [range(g * per, min((g + 1) * per, units)) for g in range(grid)]
 
 
+#: the tile kernels whose resident blocks resident_blocks reads: K2's and
+#: K3's, and their Gauss forms (K4's column and row stages)
+RESIDENT_KINDS = ("col", "row", "col_gauss", "row_gauss")
+
+
 def resident_blocks(kind: str) -> int:
-    """The blocks of K2's ("col") or K3's ("row") tile kernel the current
-    device holds at once (its SMs times cudaOccupancyMaxActiveBlocksPer
-    Multiprocessor)."""
+    """The blocks of K2's ("col") or K3's ("row") tile kernel, or of its
+    Gauss form ("col_gauss", "row_gauss"), the current device holds at once
+    (its SMs times cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     lib = _build.load()
     out = ctypes.c_int(0)
-    _build.check(lib, lib.rf_large_resident_blocks(("col", "row").index(kind), ctypes.byref(out)),
-                 "resident_blocks")
+    which = RESIDENT_KINDS.index(kind)
+    fn = lib.rf_large_resident_blocks if which < 2 else lib.rf_large_gauss_resident_blocks
+    _build.check(lib, fn(which % 2, ctypes.byref(out)), "resident_blocks")
     return out.value
 
 
@@ -230,6 +262,43 @@ def gauss_tables(radices: Sequence[int], direction: FftDirection) -> List[np.nda
         w = twiddles.dft_matrix(r, direction)[1]
         out.append(np.stack([w.real, w.imag, w.real + w.imag]).astype(np.float32))
     return out
+
+
+def gauss_header() -> str:
+    """The text of csrc/gauss16.cuh: gauss_tables((16,), direction) of both
+    directions as the float literals of Gauss16<kInverse>, whose call at root
+    index e is {Wr, Wi, Ws, 0} there, each the shortest decimal that reads
+    back as the same float32 (the Gauss tile kernels' DFT_16 constants)."""
+    lines = [
+        "// The constants of the Gauss form's DFT_16 in the tile kernels",
+        "// (csrc/tile_walk.cuh tile_dft16, csrc/fft_tile.cuh gauss_column):",
+        "// Gauss16<kInverse>{}(e) = {Wr, Wi, Ws, 0} at root index e, 0 <= e < 16, the",
+        "// columns of rustfft_tpu_torch/ops/kernels/large.py gauss_tables((16,),",
+        "// direction) (Wr + i Wi = w_16^(+-e), Ws = Wr + Wi, each computed in float64",
+        "// and cast to float32).  Written by large.py gauss_header(); tests/",
+        "// test_torch_gauss_tiles.py holds this file to it.  Every call in the kernels",
+        "// has a constant e after unrolling, so each switch folds to immediates.",
+        "#pragma once",
+        "",
+        "#include <cuda_runtime.h>",
+        "",
+        "namespace rf {",
+        "",
+        "template <bool kInverse>",
+        "struct Gauss16;",
+    ]
+    for inverse, d in ((False, FftDirection.FORWARD), (True, FftDirection.INVERSE)):
+        (g,) = gauss_tables((16,), d)
+        lines += ["", "template <>", f"struct Gauss16<{str(inverse).lower()}> {{",
+                  "  __device__ __forceinline__ float4 operator()(int e) const {",
+                  "    switch (e) {"]
+        for e in range(16):
+            vals = ", ".join(f"{np.float32(v)!s}f" for v in g[:, e])
+            lines.append(f"      case {e}: return make_float4({vals}, 0.f);")
+        lines += ["      default: return make_float4(0.f, 0.f, 0.f, 0.f);", "    }", "  }",
+                  "};"]
+    lines += ["", "}  // namespace rf", ""]
+    return "\n".join(lines)
 
 
 def col_tables(p: int, q: int, direction: FftDirection, gauss: bool = False):
@@ -293,10 +362,13 @@ def large_col_stage_gauss_plain(x: torch.Tensor, p: int, q: int, tables) -> torc
 
 
 def _col_stage(x: torch.Tensor, p: int, q: int, tables, gauss: bool, counter,
-               stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+               stamps: Optional[torch.Tensor] = None, general: bool = False,
+               smem_tables: bool = False) -> torch.Tensor:
     """The column stage in either form; counter.launches counts the launches.
     With `stamps`, the tile kernel's stamped form (the library built with
-    RF_PHASE_STAMPS)."""
+    RF_PHASE_STAMPS).  Gauss form: `general` launches the general body where
+    the tile kernel would run; `smem_tables` the tile kernel with its DFT_16
+    tables in shared memory (the RF_PHASE_STAMPS library)."""
     what = counter.__name__
     roots, tws, outer = tables
     if x.dim() != 2:
@@ -310,20 +382,23 @@ def _col_stage(x: torch.Tensor, p: int, q: int, tables, gauss: bool, counter,
         plain = large_col_stage_gauss_plain if gauss else large_col_stage_plain
         return plain(x, p, q, tables)
     require_cuda(x, what)
-    qt = col_tile(p, q, gauss=gauss)
+    qt = general_col_tile(p, q, gauss=gauss) if general else col_tile(p, q, gauss=gauss)
     if qt is None:
         raise ValueError(f"{what}: no tile for P={p}, Q={q}")
+    tile = not general and (stage_radices(p), qt) == TILE_COL
+    if smem_tables and not tile:
+        raise ValueError(f"{what}: P={p}, Q={q} has no tile form with tables in shared memory")
     y = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
-    lib = _build.load(phase_stamps=stamps is not None)
-    launch = lib.rf_large_col_stage_gauss if gauss else lib.rf_large_col_stage
-    walk = []
-    if not gauss:
-        walk = [0, 0]
-        if (stage_radices(p), qt) == TILE_COL:
-            x = _aligned16(x)
-            walk = list(col_walk(x.shape[0] * (q // qt), _resident_on(x.device, "col")))
+    lib = _build.load(phase_stamps=stamps is not None or smem_tables)
+    launch = ((lib.rf_large_col_stage_gauss_smem if smem_tables else lib.rf_large_col_stage_gauss)
+              if gauss else lib.rf_large_col_stage)
+    walk = [0, 0]
+    if tile:
+        x = _aligned16(x)
+        walk = list(col_walk(x.shape[0] * (q // qt),
+                             _resident_on(x.device, "col_gauss" if gauss else "col")))
     args = [x.data_ptr(), y.data_ptr(), x.shape[0], p, q, qt,
             *padded_stage_args(stage_radices(p), roots, tws), outer.data_ptr(), *walk]
     if stamps is not None:
@@ -346,14 +421,16 @@ def large_col_stage(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
 large_col_stage.launches = 0
 
 
-def large_col_stage_gauss(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
+def large_col_stage_gauss(x: torch.Tensor, p: int, q: int, tables,
+                          general: bool = False) -> torch.Tensor:
     """large_col_stage in the Gauss form (K4's _kernel_a_gauss): DFT_P's
-    radix stages as three real products each.
+    radix stages as three real products each; at TILE_COL K2's tile kernel
+    in that form, elsewhere csrc/large.cuh's general body.
 
     tables = (gauss tables, tws, outer) from col_tables(..., gauss=True), on
-    x's device.
+    x's device.  general (for the tests): the general body at TILE_COL too.
     """
-    return _col_stage(x, p, q, tables, True, large_col_stage_gauss)
+    return _col_stage(x, p, q, tables, True, large_col_stage_gauss, general=general)
 
 
 large_col_stage_gauss.launches = 0
@@ -374,10 +451,11 @@ def large_row_stage_gauss_plain(a: torch.Tensor, q: int, p: int, tables) -> torc
 
 
 def _row_stage(a: torch.Tensor, q: int, p: int, tables, gauss: bool, counter,
-               stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+               stamps: Optional[torch.Tensor] = None, general: bool = False,
+               smem_tables: bool = False) -> torch.Tensor:
     """The row stage in either form; counter.launches counts the launches.
     With `stamps`, the tile kernel's stamped form (the library built with
-    RF_PHASE_STAMPS)."""
+    RF_PHASE_STAMPS); `general` and `smem_tables` as in _col_stage."""
     what = counter.__name__
     roots, tws = tables
     if a.dim() != 3:
@@ -389,20 +467,23 @@ def _row_stage(a: torch.Tensor, q: int, p: int, tables, gauss: bool, counter,
         plain = large_row_stage_gauss_plain if gauss else large_row_stage_plain
         return plain(a, q, p, tables)
     require_cuda(a, what)
-    pt = row_tile(q, p, gauss=gauss)
+    pt = general_row_tile(q, p, gauss=gauss) if general else row_tile(q, p, gauss=gauss)
     if pt is None:
         raise ValueError(f"{what}: no tile for Q={q}, P={p}")
+    tile = not general and (radices, pt) == TILE_ROW
+    if smem_tables and not tile:
+        raise ValueError(f"{what}: Q={q}, P={p} has no tile form with tables in shared memory")
     y = torch.empty((a.shape[0], q * p), dtype=a.dtype, device=a.device)
     if a.shape[0] == 0:
         return y
-    lib = _build.load(phase_stamps=stamps is not None)
-    launch = lib.rf_large_row_stage_gauss if gauss else lib.rf_large_row_stage
-    grid = []
-    if not gauss:
-        grid = [0]
-        if (radices, pt) == TILE_ROW:
-            a = _aligned16(a)
-            grid = [row_grid(a.shape[0] * (p // pt), _resident_on(a.device, "row"))]
+    lib = _build.load(phase_stamps=stamps is not None or smem_tables)
+    launch = ((lib.rf_large_row_stage_gauss_smem if smem_tables else lib.rf_large_row_stage_gauss)
+              if gauss else lib.rf_large_row_stage)
+    grid = [0]
+    if tile:
+        a = _aligned16(a)
+        grid = [row_grid(a.shape[0] * (p // pt),
+                         _resident_on(a.device, "row_gauss" if gauss else "row"))]
     args = [a.data_ptr(), y.data_ptr(), a.shape[0], q, p, pt,
             *padded_stage_args(radices, roots, tws), *grid]
     if stamps is not None:
@@ -425,18 +506,41 @@ def large_row_stage(a: torch.Tensor, q: int, p: int, tables) -> torch.Tensor:
 large_row_stage.launches = 0
 
 
-def large_row_stage_gauss(a: torch.Tensor, q: int, p: int, tables) -> torch.Tensor:
+def large_row_stage_gauss(a: torch.Tensor, q: int, p: int, tables,
+                          general: bool = False) -> torch.Tensor:
     """large_row_stage in the Gauss form (K4's _kernel_b_gauss with
     fftq_sublane_gauss): the length-Q FFT's radix stages as three real
-    products each.
+    products each; at TILE_ROW (P <= ROW_TILE_MAX_P) K3's tile kernel in
+    that form, elsewhere csrc/large.cuh's general body.
 
     tables = (gauss tables, tws) from row_tables(..., gauss=True), on a's
-    device.
+    device.  general (for the tests): the general body at TILE_ROW too.
     """
-    return _row_stage(a, q, p, tables, True, large_row_stage_gauss)
+    return _row_stage(a, q, p, tables, True, large_row_stage_gauss, general=general)
 
 
 large_row_stage_gauss.launches = 0
+
+
+def large_col_gauss_smem(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
+    """large_col_stage_gauss on its tile kernel with the DFT_16 tables read
+    from shared memory (one float4 a term) in place of the compile-time
+    constants: the form the constants were measured against (the
+    RF_PHASE_STAMPS library only; no route launches it; tools/torch_ab.py
+    K4)."""
+    return _col_stage(x, p, q, tables, True, large_col_gauss_smem, smem_tables=True)
+
+
+large_col_gauss_smem.launches = 0
+
+
+def large_row_gauss_smem(a: torch.Tensor, q: int, p: int, tables) -> torch.Tensor:
+    """large_row_stage_gauss on its tile kernel with the DFT_16 tables read
+    from shared memory, as large_col_gauss_smem."""
+    return _row_stage(a, q, p, tables, True, large_row_gauss_smem, smem_tables=True)
+
+
+large_row_gauss_smem.launches = 0
 
 
 #: the phases of K2's and K3's stamped forms: the tables and the load with

@@ -211,14 +211,22 @@ def test_gauss_tables_equal_jax(r, d, rd, use_native):
 
 
 def test_gauss_tile_rules():
-    """The Gauss form has no compile-time kernel: at 2^20, P = 256 over
-    (16, 16) and Q = 4096 over (16, 16, 16) take the general kernels, whose
-    shared memory holds 16 bytes per root."""
+    """The Gauss form runs K2's and K3's tile kernels where they take the
+    default form: at 2^20, P = 256 over (16, 16) and Q = 4096 over (16, 16,
+    16) take their widths, 16 and 4.  Off those chains it keeps the general
+    kernels' widths, whose shared memory holds 16 bytes per root (Q = 2048
+    over (16, 16, 8), and Q = 4096 at P = 65536, past the row-tile kernel's
+    32768); K14's Gauss tiles are its own rule's."""
     p, q1, q2 = large.choose_pqq(1 << 20)
     q = q1 * q2
     assert (large.stage_radices(p), large.stage_radices(q)) == ((16, 16), (16, 16, 16))
     assert (large.col_tile(p, q), large.row_tile(q, p)) == (16, 4)  # compile-time kernels
-    assert (large.col_tile(p, q, gauss=True), large.row_tile(q, p, gauss=True)) == (16, 2)
+    assert (large.col_tile(p, q, gauss=True), large.row_tile(q, p, gauss=True)) == (16, 4)
+    assert large.stage_radices(2048) == (16, 16, 8)
+    assert large.row_tile(2048, 256, gauss=True) == large.general_row_tile(2048, 256, gauss=True)
+    assert large.row_tile(2048, 256, gauss=True) == 2
+    assert (large.row_tile(4096, 65536), large.row_tile(4096, 65536, gauss=True)) == (4, 2)
+    assert large.col_tile(128, 2048, gauss=True) == large.general_col_tile(128, 2048, gauss=True)
     assert large.smem_bytes(4096, (16, 16), gauss=True) - large.smem_bytes(4096, (16, 16)) == 8 * 32
     assert conv_radix.col_tile(256, 256, gauss=True) == 16
     assert conv_radix.row_tile(256, 256, gauss=True) == 16
