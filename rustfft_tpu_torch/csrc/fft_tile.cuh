@@ -323,22 +323,14 @@ static __device__ __forceinline__ void dft_column(float2 (&x)[R],
   }
 }
 
-// The Gauss form's tables of one radix as gauss_column reads them: the
-// float4s {Wr, Wi, Ws, 0} of load_gauss in shared memory (one broadcast read
-// per term).  csrc/gauss16.cuh's Gauss16<kInverse> is the other kind, the
-// DFT_16 tables as compile-time constants.
-struct GaussSmem {
-  const float4* __restrict__ g;
-  __device__ __forceinline__ float4 operator()(int e) const { return g[e]; }
-};
-
 // DFT of one column of R values in registers in the Gauss form, handing each
-// output to sink(k, X[k]): gauss_stage's arithmetic for one column, the same
-// floats in the same order (j ascending, one fmaf per term per sum, s = xr +
-// xi, re = P1 - P2, im = (P3 - P1) - P2), with the root index (j*k) mod R a
-// compile-time constant after unrolling, so that constant tables fold into
-// the multiply-adds.  Outputs go one at a time: three sums live beside the
-// column and its R sums s.
+// output to sink(k, X[k]); g(e) is the float4 {Wr, Wi, Ws, 0} of root index
+// e (csrc/gauss16.cuh's constants).  gauss_stage's arithmetic for one column,
+// the same floats in the same order (j ascending, one fmaf per term per
+// sum, s = xr + xi, re = P1 - P2, im = (P3 - P1) - P2), with the root index
+// (j*k) mod R a compile-time constant after unrolling, so that constant
+// tables fold into the multiply-adds.  Outputs go one at a time: three sums
+// live beside the column and its R sums s.
 template <int R, class Tables, class Sink>
 static __device__ __forceinline__ void gauss_column(const float2 (&x)[R], const Tables& g,
                                                     Sink sink) {

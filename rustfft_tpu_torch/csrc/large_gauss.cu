@@ -29,20 +29,26 @@
 // constants (csrc/gauss16.cuh), so each term is three FFMAs with immediate
 // operands and nothing else, and the multiply-adds run under the tile
 // walks' cp.async lookahead.  A Gauss column needs 48 registers (xr, xi
-// and the 16 sums xr + xi) where the radix-2 FFT needs 32, so the row
-// form runs a thread's two columns one after the other: stage 0 in place
+// and the 16 sums xr + xi) where the radix-2 FFT needs 32, so the row form
+// runs a thread's two columns one after the other: stage 0 in place
 // (warp-local), stages 1 and 2 with the second column stashed in 64 KiB of
-// shared memory beside the tile (row_tile.cuh row_gauss_read); holding both
-// spilled 108 bytes at 128 registers.  Every other split, and K14's
-// gauss_mode, stay on the general bodies.  The tile forms compute the general bodies'
-// floats (the same sums in the same order): `grid` = 0 launches the
-// general body at any shape (the wrappers' general=True, for that check).
+// shared memory beside the tile (row_tile.cuh row_gauss_read); holding
+// both spilled 108 bytes at 128 registers.  Every other split, and K14's
+// gauss_mode, stay on the general bodies.  The tile forms compute the
+// general bodies' floats (the same sums in the same order, bit for bit on
+// the card): `grid` = 0 launches the general body at any shape (the
+// wrappers' general=True, for that check).
+//
+// Measured at 64 x 2^20 (tools/torch_ab.py K4; NVIDIA H100 80GB HBM3,
+// 700 W): the column stage 1.72-1.73 -> 0.51-0.55 ms (K2 on the same input
+// 0.50-0.51), the row stage 3.05-3.08 -> 0.71-0.72 ms (K3 0.60-0.64,
+// torch.fft over the same rows 1.04-1.05); 2^20 x 1024 under large_gauss
+// 72.8-73.6 -> 17.9 ms.
 #include "col_tile.cuh"
 #include "row_tile.cuh"
 
 namespace rf {
 
-template <int kForm>
 static int col_stage_gauss(const void* x, void* y, long long batch, int p, int q, int qt, int k,
                            int r0, int r1, int r2, const void* g0, const void* g1,
                            const void* g2, const void* tw0, const void* tw1,
@@ -56,15 +62,13 @@ static int col_stage_gauss(const void* x, void* y, long long batch, int p, int q
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid > 0) {
     if (!col_tile_chain(k, r0, r1, qt)) return cudaErrorInvalidValue;
-    return launch_col_tile<false, kForm>(ColRows{tx}, ty, batch, q, grid, per, st, to, nullptr,
-                                         s);
+    return launch_col_tile<false, kTileGauss>(ColRows{tx}, ty, batch, q, grid, per, st, to,
+                                              nullptr, s);
   }
-  if (kForm != kTileGauss) return cudaErrorInvalidValue;
   return launch_col_gauss(RowsIn{tx, (size_t)p * (size_t)q}, ty, batch, p, q, qt, st,
                           FullOuter{to, p}, s);
 }
 
-template <int kForm>
 static int row_stage_gauss(const void* x, void* y, long long batch, int q, int p, int pt, int k,
                            int r0, int r1, int r2, const void* g0, const void* g1,
                            const void* g2, const void* tw0, const void* tw1, long long grid,
@@ -77,9 +81,8 @@ static int row_stage_gauss(const void* x, void* y, long long batch, int q, int p
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid > 0) {
     if (!row_tile_chain(k, r0, r1, r2, pt)) return cudaErrorInvalidValue;
-    return launch_row_tile<false, kForm>(tx, ty, batch, p, grid, st, nullptr, s);
+    return launch_row_tile<false, kTileGauss>(tx, ty, batch, p, grid, st, nullptr, s);
   }
-  if (kForm != kTileGauss) return cudaErrorInvalidValue;
   return launch_row_gauss(tx, RowsOut{ty, (size_t)q * (size_t)p}, batch, q, p, pt, st, s);
 }
 
@@ -95,8 +98,8 @@ extern "C" int rf_large_col_stage_gauss(const void* x, void* y, long long batch,
                                         const void* g1, const void* g2, const void* tw0,
                                         const void* tw1, const void* tw_outer, long long grid,
                                         long long per, void* stream) {
-  return rf::col_stage_gauss<rf::kTileGauss>(x, y, batch, p, q, qt, k, r0, r1, r2, g0, g1, g2,
-                                             tw0, tw1, tw_outer, grid, per, stream);
+  return rf::col_stage_gauss(x, y, batch, p, q, qt, k, r0, r1, r2, g0, g1, g2, tw0, tw1, tw_outer,
+                             grid, per, stream);
 }
 
 // x, y: (batch, Q, P) complex64; g0..g2: (3, r_s) float32 Gauss tables of
@@ -108,8 +111,8 @@ extern "C" int rf_large_row_stage_gauss(const void* x, void* y, long long batch,
                                         int pt, int k, int r0, int r1, int r2, const void* g0,
                                         const void* g1, const void* g2, const void* tw0,
                                         const void* tw1, long long grid, void* stream) {
-  return rf::row_stage_gauss<rf::kTileGauss>(x, y, batch, q, p, pt, k, r0, r1, r2, g0, g1, g2,
-                                             tw0, tw1, grid, stream);
+  return rf::row_stage_gauss(x, y, batch, q, p, pt, k, r0, r1, r2, g0, g1, g2, tw0, tw1, grid,
+                             stream);
 }
 
 // The blocks of the Gauss column (which = 0) or row (which = 1) tile kernel
@@ -124,31 +127,3 @@ extern "C" int rf_large_gauss_resident_blocks(int which, int* out) {
                            row_tile_smem<kTileGauss>(), out);
   return cudaErrorInvalidValue;
 }
-
-#ifdef RF_PHASE_STAMPS
-// The tile forms with the DFT_16 tables read from shared memory (one float4
-// broadcast a term, kTileGaussSmem) in place of the constants, at the tile
-// kernels' shapes only (grid > 0): the form the constants were measured
-// against (ops/kernels/large.py large_col_gauss_smem, large_row_gauss_smem;
-// tools/torch_ab.py K4).
-extern "C" int rf_large_col_stage_gauss_smem(const void* x, void* y, long long batch, int p,
-                                             int q, int qt, int k, int r0, int r1, int r2,
-                                             const void* g0, const void* g1, const void* g2,
-                                             const void* tw0, const void* tw1,
-                                             const void* tw_outer, long long grid, long long per,
-                                             void* stream) {
-  if (grid < 1) return cudaErrorInvalidValue;
-  return rf::col_stage_gauss<rf::kTileGaussSmem>(x, y, batch, p, q, qt, k, r0, r1, r2, g0, g1,
-                                                 g2, tw0, tw1, tw_outer, grid, per, stream);
-}
-
-extern "C" int rf_large_row_stage_gauss_smem(const void* x, void* y, long long batch, int q,
-                                             int p, int pt, int k, int r0, int r1, int r2,
-                                             const void* g0, const void* g1, const void* g2,
-                                             const void* tw0, const void* tw1, long long grid,
-                                             void* stream) {
-  if (grid < 1) return cudaErrorInvalidValue;
-  return rf::row_stage_gauss<rf::kTileGaussSmem>(x, y, batch, q, p, pt, k, r0, r1, r2, g0, g1,
-                                                 g2, tw0, tw1, grid, stream);
-}
-#endif

@@ -15,27 +15,25 @@ namespace rf {
 // The DFT form of the tile kernels' radix-16 stages (csrc/col_tile.cuh,
 // csrc/row_tile.cuh), a template argument of each kernel: radix-2 register
 // FFTs on the roots (kTileRoots: K2, K3 and the kernels on their bodies),
-// or K4's Gauss form (gauss_column) with the DFT_16 tables as compile-time
-// constants (kTileGauss: csrc/gauss16.cuh, the direction read from the
-// Gauss table the caller passes) or read from shared memory
-// (kTileGaussSmem: one float4 broadcast a term; only in the library built
-// with RF_PHASE_STAMPS, the form the constants were measured against).
-enum TileForm { kTileRoots = 0, kTileGauss = 1, kTileGaussSmem = 2 };
+// or K4's Gauss form (kTileGauss: gauss_column with the DFT_16 tables as
+// compile-time constants, csrc/gauss16.cuh, the direction read from the
+// Gauss table the caller passes).  The constants took 0.51-0.55 and
+// 0.71-0.72 ms at 64 x 2^20 in the column and row stages where the same
+// kernels reading {Wr, Wi, Ws} from shared memory, one float4 broadcast a
+// term, took 0.76-0.77 and 1.05-1.06 (tools/torch_ab.py K4; NVIDIA H100
+// 80GB HBM3, 700 W).
+enum TileForm { kTileRoots = 0, kTileGauss = 1 };
 
 // float2 slots of shared memory the tables of `stages` radix-16 stages take
-// in the form: 16 roots a stage, 16 float4s a stage, or none.
+// in the form: 16 roots a stage, or none.
 static __host__ __device__ constexpr int tile_table_slots(int form, int stages) {
-  return form == kTileRoots ? 16 * stages : form == kTileGaussSmem ? 32 * stages : 0;
+  return form == kTileRoots ? 16 * stages : 0;
 }
 
 // The stages' tables into shared memory, as the form reads them.
 template <int kForm>
 static __device__ __forceinline__ void load_tile_tables(const Stages& st, float2* tables) {
-  if constexpr (kForm == kTileRoots) {
-    load_roots(st, tables);
-  } else if constexpr (kForm == kTileGaussSmem) {
-    load_gauss(st, reinterpret_cast<float4*>(tables));
-  }
+  if constexpr (kForm == kTileRoots) load_roots(st, tables);
 }
 
 // The constants' direction: the sign of Wi(1) = Im w_16^(+-1) in stage 0's
@@ -54,8 +52,6 @@ static __device__ __forceinline__ void tile_dft16(float2 (&v)[16], const float2*
                                                   int stage, bool inverse, Sink sink) {
   if constexpr (kForm == kTileRoots) {
     dft_column<16>(v, tables + 16 * stage, sink);
-  } else if constexpr (kForm == kTileGaussSmem) {
-    gauss_column<16>(v, GaussSmem{reinterpret_cast<const float4*>(tables) + 16 * stage}, sink);
   } else if (inverse) {
     gauss_column<16>(v, Gauss16<true>{}, sink);
   } else {

@@ -21,9 +21,7 @@ K7's cluster kernel
 (`rf_largepad_col_phase_stamps`, `rf_largepad_row_phase_stamps`), K2's and
 K3's (`rf_large_col_phase_stamps`, `rf_large_row_phase_stamps`), K10's
 cluster kernel (`rf_large2f_col_phase_stamps`), the one-pass convolution
-core's kernels (`rf_conv_fft_stamps`, `rf_conv_chain_fft_stamps`), K4's
-Gauss tile forms with their DFT_16 tables in shared memory
-(`rf_large_col_stage_gauss_smem`, `rf_large_row_stage_gauss_smem`) and the
+core's kernels (`rf_conv_fft_stamps`, `rf_conv_chain_fft_stamps`) and the
 access-pattern probe of K3's tile (`rf_large_copy_probe`;
 tools/torch_phase_times.py, tools/torch_ab.py); no route loads it, so no other build pays for
 those forms.
@@ -127,8 +125,6 @@ _STAMP_SIGNATURES = {
     "rf_large_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 6 + [_ll, _ll, _vp, _vp],
     "rf_large_row_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp, _vp],
     "rf_large_copy_probe": [_vp, _vp, _ll, _int, _int, _vp],
-    "rf_large_col_stage_gauss_smem": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 6 + [_ll, _ll, _vp],
-    "rf_large_row_stage_gauss_smem": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_ll, _vp],
     "rf_large2f_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 8 + [_vp] * 7
                                    + [_int, _ll, _vp, _vp],
     "rf_bconv_col_tile_stamps": [_vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 5

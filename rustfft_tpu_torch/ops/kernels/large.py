@@ -362,13 +362,11 @@ def large_col_stage_gauss_plain(x: torch.Tensor, p: int, q: int, tables) -> torc
 
 
 def _col_stage(x: torch.Tensor, p: int, q: int, tables, gauss: bool, counter,
-               stamps: Optional[torch.Tensor] = None, general: bool = False,
-               smem_tables: bool = False) -> torch.Tensor:
+               stamps: Optional[torch.Tensor] = None, general: bool = False) -> torch.Tensor:
     """The column stage in either form; counter.launches counts the launches.
     With `stamps`, the tile kernel's stamped form (the library built with
     RF_PHASE_STAMPS).  Gauss form: `general` launches the general body where
-    the tile kernel would run; `smem_tables` the tile kernel with its DFT_16
-    tables in shared memory (the RF_PHASE_STAMPS library)."""
+    the tile kernel would run."""
     what = counter.__name__
     roots, tws, outer = tables
     if x.dim() != 2:
@@ -386,14 +384,11 @@ def _col_stage(x: torch.Tensor, p: int, q: int, tables, gauss: bool, counter,
     if qt is None:
         raise ValueError(f"{what}: no tile for P={p}, Q={q}")
     tile = not general and (stage_radices(p), qt) == TILE_COL
-    if smem_tables and not tile:
-        raise ValueError(f"{what}: P={p}, Q={q} has no tile form with tables in shared memory")
     y = torch.empty((x.shape[0], q, p), dtype=x.dtype, device=x.device)
     if x.shape[0] == 0:
         return y
-    lib = _build.load(phase_stamps=stamps is not None or smem_tables)
-    launch = ((lib.rf_large_col_stage_gauss_smem if smem_tables else lib.rf_large_col_stage_gauss)
-              if gauss else lib.rf_large_col_stage)
+    lib = _build.load(phase_stamps=stamps is not None)
+    launch = lib.rf_large_col_stage_gauss if gauss else lib.rf_large_col_stage
     walk = [0, 0]
     if tile:
         x = _aligned16(x)
@@ -451,11 +446,10 @@ def large_row_stage_gauss_plain(a: torch.Tensor, q: int, p: int, tables) -> torc
 
 
 def _row_stage(a: torch.Tensor, q: int, p: int, tables, gauss: bool, counter,
-               stamps: Optional[torch.Tensor] = None, general: bool = False,
-               smem_tables: bool = False) -> torch.Tensor:
+               stamps: Optional[torch.Tensor] = None, general: bool = False) -> torch.Tensor:
     """The row stage in either form; counter.launches counts the launches.
     With `stamps`, the tile kernel's stamped form (the library built with
-    RF_PHASE_STAMPS); `general` and `smem_tables` as in _col_stage."""
+    RF_PHASE_STAMPS); `general` as in _col_stage."""
     what = counter.__name__
     roots, tws = tables
     if a.dim() != 3:
@@ -471,14 +465,11 @@ def _row_stage(a: torch.Tensor, q: int, p: int, tables, gauss: bool, counter,
     if pt is None:
         raise ValueError(f"{what}: no tile for Q={q}, P={p}")
     tile = not general and (radices, pt) == TILE_ROW
-    if smem_tables and not tile:
-        raise ValueError(f"{what}: Q={q}, P={p} has no tile form with tables in shared memory")
     y = torch.empty((a.shape[0], q * p), dtype=a.dtype, device=a.device)
     if a.shape[0] == 0:
         return y
-    lib = _build.load(phase_stamps=stamps is not None or smem_tables)
-    launch = ((lib.rf_large_row_stage_gauss_smem if smem_tables else lib.rf_large_row_stage_gauss)
-              if gauss else lib.rf_large_row_stage)
+    lib = _build.load(phase_stamps=stamps is not None)
+    launch = lib.rf_large_row_stage_gauss if gauss else lib.rf_large_row_stage
     grid = [0]
     if tile:
         a = _aligned16(a)
@@ -521,26 +512,6 @@ def large_row_stage_gauss(a: torch.Tensor, q: int, p: int, tables,
 
 large_row_stage_gauss.launches = 0
 
-
-def large_col_gauss_smem(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
-    """large_col_stage_gauss on its tile kernel with the DFT_16 tables read
-    from shared memory (one float4 a term) in place of the compile-time
-    constants: the form the constants were measured against (the
-    RF_PHASE_STAMPS library only; no route launches it; tools/torch_ab.py
-    K4)."""
-    return _col_stage(x, p, q, tables, True, large_col_gauss_smem, smem_tables=True)
-
-
-large_col_gauss_smem.launches = 0
-
-
-def large_row_gauss_smem(a: torch.Tensor, q: int, p: int, tables) -> torch.Tensor:
-    """large_row_stage_gauss on its tile kernel with the DFT_16 tables read
-    from shared memory, as large_col_gauss_smem."""
-    return _row_stage(a, q, p, tables, True, large_row_gauss_smem, smem_tables=True)
-
-
-large_row_gauss_smem.launches = 0
 
 
 #: the phases of K2's and K3's stamped forms: the tables and the load with

@@ -6,8 +6,7 @@ tests/test_torch_card_gauss_tiles.py`.  This file imports no JAX: at 2^20's
 split each Gauss stage is held against its plain torch version (relative
 mean error <= 1e-6: the same function, summed in another order) and bit
 for bit against the general Gauss body (`general=True`, which computes the
-same floats in the same order), one launch a call; the tile form with its
-DFT_16 tables in shared memory bit for bit against the constants; the
+same floats in the same order), one launch a call; a misaligned view; the
 2^20 path under config.large_gauss against torch.fft.  The same functions
 against the JAX package run on the CPU in tests/test_torch_gauss_tiles.py.
 """
@@ -89,21 +88,6 @@ def test_gauss_row_tile_on_card(cuda_device, batch, d):
     assert large.large_row_stage_gauss.launches == before + 2
     assert _rel(y, large.large_row_stage_gauss_plain(a, q, p, row)) <= VS_PLAIN
     assert torch.equal(y, general)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", DIRECTIONS, ids=["fwd", "inv"])
-def test_gauss_tiles_smem_tables_on_card(cuda_device, d):
-    """The tile forms with the DFT_16 tables in shared memory (the
-    RF_PHASE_STAMPS library) give the constants' bits."""
-    p, q = _split()
-    col = _on(large.col_tables(p, q, d, gauss=True), cuda_device)
-    row = _on(large.row_tables(q, d, gauss=True), cuda_device)
-    x = _signal(3, p * q, 7, cuda_device)
-    a = large.large_col_stage_gauss(x, p, q, col)
-    assert torch.equal(large.large_col_gauss_smem(x, p, q, col), a)
-    assert torch.equal(large.large_row_gauss_smem(a, q, p, row),
-                       large.large_row_stage_gauss(a, q, p, row))
 
 
 @pytest.mark.cuda

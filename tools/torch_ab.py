@@ -90,9 +90,7 @@ Gauss stages at 64 x 2^20: `large_col_stage_gauss` on the input the path
 gives it and `large_row_stage_gauss` on its output, K2 and K3 on the same
 tensors, torch.fft over the row stage's rows (dim 1), and, in a checkout
 whose Gauss wrappers take `general=`, the general Gauss bodies on the same
-tensors, and where it has them (`large.large_col_gauss_smem`, from the
-stamped library) the tile forms with their DFT_16 tables in shared memory
-in place of the constants; each also queued (20 calls behind a sleep kernel); then the path
+tensors; each also queued (20 calls behind a sleep kernel); then the path
 2^20 x 1024 under config.large_gauss and by default, each also queued,
 and torch.fft there.  `--only`
 keeps the named groups of these (K1, K2 for K2 and K3, paths for the
@@ -572,11 +570,6 @@ def run_one(root: str, groups=GROUPS) -> dict:
                 x, p, q, gcol, general=True)
             stages["K4 row general Gauss body"] = lambda: large.large_row_stage_gauss(
                 ga, q, p, grow, general=True)
-        if hasattr(large, "large_col_gauss_smem"):  # the tile forms' tables in shared memory
-            stages["K4 col tile, tables in smem"] = lambda: large.large_col_gauss_smem(
-                x, p, q, gcol)
-            stages["K4 row tile, tables in smem"] = lambda: large.large_row_gauss_smem(
-                ga, q, p, grow)
         for name, fn in stages.items():
             out[f"{name} {batch}x2^20"] = ms(fn, reps=15)
             out[f"{name} {batch}x2^20 (queued)"] = queued_ms(fn, calls=20)
