@@ -78,8 +78,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    column and row stages (the Gauss forms of K2's and K3's tile kernels)
    within 1e-6 at 2^20 x 1, x 3 and x 64, each grid and the resident blocks
    printed, and bit-equal to the general Gauss bodies at x 64, deep_a and
-   blocks2d bit-equal to the default at 2^20 x 64, and the two-pass core's Gauss stages and
-   in_shift column stage stage by stage at m = 65536 (Rader) and 16384
+   blocks2d bit-equal to the default at 2^20 x 64, and the two-pass core's
+   Gauss stages and in_shift column stage stage by stage at m = 65536 (Rader) and 16384
    (Bluestein, Gauss only), with the result against the float64 oracle;
 3. the main paths through the public entry,
    FftPlanner(np.complex64, device="cuda").plan_fft_forward/inverse(n)
@@ -185,8 +185,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    Raders(746496) on the two-pass core
    and as Bluesteins(746497, 1572864) on the fused large Bluestein.  The
    switches: K4's Gauss stages at 64 x 2^20 against the default stages
-   (K2 and K3) on the same inputs, their plain versions, their bound (that of the default stages, with the
-   Gauss form's own operation count beside it) and, for the row stage, torch.fft over dim 1; the two-pass core's
+   (K2 and K3) on the same inputs, their plain versions, their bound (that
+   of the default stages, with the Gauss form's own operation count beside
+   it) and, for the row stage, torch.fft over dim 1; the two-pass core's
    Gauss stages at the Rader 65537 x 512 shape against in_shift's default
    stages; every switched path against its default path (in turns: the
    default, each variant, the variants in reverse, the default) and
