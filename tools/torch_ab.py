@@ -92,11 +92,19 @@ tensors, torch.fft over the row stage's rows (dim 1), and, in a checkout
 whose Gauss wrappers take `general=`, the general Gauss bodies on the same
 tensors; each also queued (20 calls behind a sleep kernel); then the path
 2^20 x 1024 under config.large_gauss and by default, each also queued,
-and torch.fft there.  `--only`
+and torch.fft there.  And K14G, the two-pass core under
+config.conv_radix_gauss at the cluster passes' shapes (K14G: the Rader
+65537 x 512 and the Bluesteins 7919 x 4096, 65521 x 512, 131071 x 256):
+the path's launches under the switch (the four Gauss stages, or the two
+Gauss cluster passes where the checkout has them) and by default (the two
+cluster passes), each alone on the input the path gave it, the path under
+the switch and by default, and torch.fft, each also queued (20 calls
+behind a sleep kernel).  `--only`
 keeps the named groups of these (K1, K2 for K2 and K3, paths for the
 planner's paths and K1's and K5's chain paths' torch.fft, K9, K16, K12,
-K15, K14, K5 for K5's product, K10, K13, K11, K8, K4).  It prints one JSON line per run and then
-a table, each row a quantity and each column a run.
+K15, K14, K5 for K5's product, K10, K13, K11, K8, K4, K14G).  It prints
+one JSON line per run and then a table, each row a quantity and each
+column a run.
 """
 from __future__ import annotations
 
@@ -170,7 +178,8 @@ K13 = ((1009, 8192), (1234, 8192), (2063, 8192), (3083, 8192), (2531, 8192), (25
 #: conv_chain_fft or ChainCore's __call__ where it has them)
 RECORDED = {
     "conv": {"conv_fft": "core", "conv_chain_fft": "core", "ChainCore.__call__": "core"},
-    "conv_radix": {"conv_col_stage": "col", "conv_row_stage": "row"},
+    "conv_radix": {"conv_col_stage": "col", "conv_row_stage": "row",
+                   "conv_radix_pass1": "pass", "conv_radix_pass2": "pass"},
     "convlarge": {"bconv_col_tile": "kernel A", "bconv_row_stage": "B_conv",
                   "bconv_row_tile": "B_conv", "bconv_out_stage": "A2", "bconv_out_tile": "A2"},
 }
@@ -181,8 +190,13 @@ K11 = ((1 << 26, 2), (1 << 27, 1))
 #: K8's shapes: 16384 (the radix body at R = 1) and one size of each cluster c
 K8 = ((16384, 4096), (32768, 2048), (49152, 2048), (98304, 1024), (196608, 512))
 
+#: K14's Gauss form (config.conv_radix_gauss) at the cluster passes' shapes:
+#: the Rader 65537 (m = 65536, r = 4) and the Bluesteins 7919 (m = 16384,
+#: r = 1), 65521 (131072, r = 8) and 131071 (262144, r = 16)
+K14G = ((65537, 512), (7919, 4096), (65521, 512), (131071, 256))
+
 GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13", "K11", "K8",
-          "K4")
+          "K4", "K14G")
 
 
 def run_one(root: str, groups=GROUPS) -> dict:
@@ -590,6 +604,33 @@ def run_one(root: str, groups=GROUPS) -> dict:
             out[f"{name} {n}x{batch} (queued)"] = queued_ms(fn, calls=5, reps=5)
         out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x))
         del x
+    if "K14G" in groups:
+        from rustfft_tpu_torch.config import config
+
+        for n, batch in K14G:
+            torch.cuda.empty_cache()
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            for form, gauss in (("gauss", True), ("default", False)):
+                old = config.conv_radix_gauss
+                try:
+                    config.conv_radix_gauss = gauss
+                    plan = FftPlanner(np.complex64, device="cuda").plan_fft_forward(n)
+                finally:
+                    config.conv_radix_gauss = old
+                calls = recorded(lambda: plan.process(x))
+                seen = {}
+                for label, wrapper, args, kw in calls:
+                    seen[label] = seen.get(label, 0) + 1
+                    key = f"K14G {form} {label}{seen[label]} {n}x{batch}"
+                    out[key] = ms(lambda: wrapper(*args, **kw), reps=15)
+                    out[f"{key} (queued)"] = queued_ms(lambda: wrapper(*args, **kw), calls=20)
+                del calls
+                out[f"path {form} {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+                out[f"path {form} {n}x{batch} (queued)"] = queued_ms(lambda: plan.process(x),
+                                                                      calls=20)
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+            out[f"torch.fft {n}x{batch} (queued)"] = queued_ms(lambda: torch.fft.fft(x), calls=20)
+            del x
     if "K13" in groups:
         from rustfft_tpu_torch.ops.kernels import _build, conv
 
