@@ -27,7 +27,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    and its persistent walk ragged, and the path's batch; the two-pass core's cluster passes within 1e-6 at
    65537 x 1 and x 3 (Rader: gather, sums, scatter, x0, full output) and
    7919 x 1 and x 5, 65521 x 1 and x 3 and 131071 x 1 and x 2 (Bluestein
-   at r = 1, 8 and 16, each against the float64 oracle), and its four
+   at r = 1, 8 and 16, each against the float64 oracle), in the default
+   form and in the radix body's Gauss form (conv_radix_gauss), and its four
    stages stage by stage at m = 746496 (the Rader 746497, the form the
    planner gives it), 65536 and 16384 (the forms the switches run),
    and the permutation at m = 1008 and 114688 and on both sides of its
@@ -115,7 +116,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    stages), under config.large_blocks2d and through
    make_large_fft_fn(deep_a=True) (the default stages, bit-equal to the
    default on 64 rows), 65537 x 512 under config.rader_in_shift,
-   config.conv_radix_gauss and both, 7919 x 4096 under conv_radix_gauss,
+   config.conv_radix_gauss (one launch of each Gauss cluster pass) and both
+   (the four Gauss stages), 7919 x 4096, 65521 x 512 and 131071 x 256
+   under conv_radix_gauss (one of each Gauss cluster pass),
    and with every switch on 15625 x 4096, 1000003 x 64, 2^23 x 8 and 2^26 x 1
    (no Gauss stage: the switches do not reach large_pad, K15, large2f or
    large3f; 2^23 and 2^26 bit-equal to their default paths in place of the
@@ -175,7 +178,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    64 and 294919 x 128 (the column forms of csrc/bconv_cols.cu), its
    general kernel A (the two-pass core's column stage with the chirp),
    B_conv and A2 at 24571 x 2048; the two-pass core's cluster passes at
-   65537 x 512, 7919 x 4096, 65521 x 512 and 131071 x 256 (within 1e-6);
+   65537 x 512, 7919 x 4096, 65521 x 512 and 131071 x 256 (within 1e-6),
+   and the same in the radix body's Gauss form (the switched paths'
+   passes), both ways within 1e-6 of their plain versions, each timed
+   beside the default pass on the same input, its plain version and its
+   bound, with the Gauss chains' FP32 operations printed beside;
    its four stages on the ragged tiles (within 1e-6) at the Rader 746497 x
    64 (m = 746496: pass 1's column stage with the gather and sums, pass 2's
    row stage with the scatter and the DC-first output), the Bluesteins
@@ -449,12 +456,16 @@ for _n in FOUR:
                                        "rustfft_tpu/ops/pallas/conv_radix.py:70")
     KERNELS[f"conv_row_stage/{_n}"] = ("rustfft_tpu_torch/csrc/conv_pad_row.cu",
                                        "rustfft_tpu/ops/pallas/conv_radix.py:70")
-#: K14's cluster passes (m = r*16384 on the radix body) at each of their paths
+#: K14's cluster passes (m = r*16384 on the radix body) at each of their
+#: paths, in the default form and in the body's Gauss form (gauss_mode, the
+#: paths under config.conv_radix_gauss: their launches are those of the
+#: switched path "<n> gauss")
 for _n in CLUSTER_PRIMES:
-    KERNELS[f"conv_radix_pass1/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
-                                         "rustfft_tpu/ops/pallas/conv_radix.py:70")
-    KERNELS[f"conv_radix_pass2/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
-                                         "rustfft_tpu/ops/pallas/conv_radix.py:70")
+    for _form in ("", "_gauss"):
+        KERNELS[f"conv_radix_pass1{_form}/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                                    "rustfft_tpu/ops/pallas/conv_radix.py:70")
+        KERNELS[f"conv_radix_pass2{_form}/{_n}"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
+                                                    "rustfft_tpu/ops/pallas/conv_radix.py:70")
 #: the kernel-variant switches: K4's Gauss stages, K14's stages in the Gauss
 #: form, and K14's four stages with the column stage on the raw Rader rows
 #: (in_shift; its launches are conv_col_stage's and conv_row_stage's on the
@@ -896,12 +907,13 @@ def main() -> None:
                 torch.from_numpy(convlarge.bconv_h_table(host["h"])).to(dev),
                 convlarge.to_columns(col[2]))
 
-    def cluster_card(n, d):
+    def cluster_card(n, d, gauss=False):
         """(m, r, the radix body's tables, pass 1's and pass 2's keywords, n_in,
         n_out) of the two-pass core of the prime n on its cluster passes, on
         the card: 65537 the Rader core (gather, sums, scatter; pass 2's x0
         and partials are the caller's), the others the Bluestein core at
-        the inner length the planner gives them."""
+        the inner length the planner gives them; with `gauss` the tables of
+        the body's Gauss form."""
         if n == 65537:
             m = n - 1
             perm_in, inv_gather, b_fft = raders_tables(n, d)
@@ -918,8 +930,9 @@ def main() -> None:
             kw2 = dict(conj_out=True, post=torch.from_numpy(tabs["post"]).to(dev))
             n_in = n_out = n
         kw1["h"] = torch.from_numpy(tabs["h"]).to(dev)
-        r = conv_radix.cluster_form(m)
-        return m, r, card_tables(conv_radix.cluster_tables(r, d)), kw1, kw2, n_in, n_out
+        r = conv_radix.cluster_form(m, gauss)
+        return (m, r, card_tables(conv_radix.cluster_tables(r, d, gauss)), kw1, kw2, n_in,
+                n_out)
 
     directions = (FftDirection.FORWARD, FftDirection.INVERSE)
 
@@ -1573,33 +1586,37 @@ def main() -> None:
             del x, a, b, out
             free()
 
-    # K14's cluster passes at 65537 x 1 and x 3 (the Rader core: gather,
-    # sums, scatter, full_out) and the Bluestein core at 7919 x 1 and x 5,
-    # 65521 x 1 and x 3 (r = 8) and 131071 x 1 and x 2 (r = 16), within
-    # 1e-6 of plain, with the result against the float64 oracle
+    # K14's cluster passes, in the default form and in the body's Gauss
+    # form, at 65537 x 1 and x 3 (the Rader core: gather, sums, scatter,
+    # full_out) and the Bluestein core at 7919 x 1 and x 5, 65521 x 1 and x
+    # 3 (r = 8) and 131071 x 1 and x 2 (r = 16), within 1e-6 of plain, with
+    # the result against the float64 oracle
     for n, batches in ((65537, (1, 3)), (7919, (1, 5)), (65521, (1, 3)), (131071, (1, 2))):
-        for batch, d in ((b, d) for b in batches for d in directions):
-            m, r, radix, kw1, kw2, n_in, n_out = cluster_card(n, d)
+        for gauss, batch, d in ((g, b, d) for g in (False, True) for b in batches
+                                for d in directions):
+            m, r, radix, kw1, kw2, n_in, n_out = cluster_card(n, d, gauss)
             x = signal(batch, n_in)
+            form = "_gauss" if gauss else ""
             what = f"n={n} m={m} (r = {r}) batch={batch} {d.name}"
-            z, part = conv_radix.conv_radix_pass1(x, m, radix, **kw1)
+            z, part = conv_radix.conv_radix_pass1(x, m, radix, gauss=gauss, **kw1)
             torch.cuda.synchronize()
             z_p, part_p = conv_radix.conv_radix_pass1_plain(x, m, r, radix, kw1["h"],
                                                             kw1.get("pre"), kw1.get("perm"),
                                                             kw1.get("emit_sum", False))
-            note(f"conv_radix_pass1/{n}", z, z_p, f"conv_radix_pass1 {what}", K7_TOL)
+            note(f"conv_radix_pass1{form}/{n}", z, z_p, f"conv_radix_pass1{form} {what}", K7_TOL)
             if part is not None:
-                check(f"conv_radix_pass1 partial sums {what}", rel_err(part, part_p), K7_TOL)
-                check(f"conv_radix_pass1 partial sums {what} vs sum(x)",
+                check(f"conv_radix_pass1{form} partial sums {what}", rel_err(part, part_p),
+                      K7_TOL)
+                check(f"conv_radix_pass1{form} partial sums {what} vs sum(x)",
                       rel_err(part.sum(dim=1), x.sum(dim=1)))
                 kw2 = dict(kw2, x0=signal(batch, 1).reshape(-1), partials=part)
-            y = conv_radix.conv_radix_pass2(z, m, radix, n_out, **kw2)
+            y = conv_radix.conv_radix_pass2(z, m, radix, n_out, gauss=gauss, **kw2)
             torch.cuda.synchronize()
-            note(f"conv_radix_pass2/{n}", y,
+            note(f"conv_radix_pass2{form}/{n}", y,
                  conv_radix.conv_radix_pass2_plain(z, m, r, radix, n_out, **kw2),
-                 f"conv_radix_pass2 {what}", K7_TOL)
+                 f"conv_radix_pass2{form} {what}", K7_TOL)
             if n != 65537:  # the Bluestein core is the whole transform
-                check(f"Bluestein {n} cluster passes {what} vs float64 oracle",
+                check(f"Bluestein {n} cluster passes{form} {what} vs float64 oracle",
                       rel_err(y.cpu().to(torch.complex128),
                               torch.from_numpy(host_dft(x.cpu().numpy(), d))))
             del x, z, part, y
@@ -1635,6 +1652,8 @@ def main() -> None:
                 "bconv_out_tile": convlarge.bconv_out_tile,
                 "conv_radix_pass1": conv_radix.conv_radix_pass1,
                 "conv_radix_pass2": conv_radix.conv_radix_pass2,
+                "conv_radix_pass1_gauss": conv_radix.conv_radix_pass1_gauss,
+                "conv_radix_pass2_gauss": conv_radix.conv_radix_pass2_gauss,
                 "large_col_stage_gauss": large.large_col_stage_gauss,
                 "large_row_stage_gauss": large.large_row_stage_gauss,
                 "conv_col_stage_gauss": conv_radix.conv_col_stage_gauss,
@@ -1753,6 +1772,7 @@ def main() -> None:
     every = dict(large_gauss=True, large_blocks2d=True, conv_radix_gauss=True,
                  rader_in_shift=True)
     gauss4 = {"conv_col_stage_gauss": 2, "conv_row_stage_gauss": 2}
+    k14g = {"conv_radix_pass1_gauss": 1, "conv_radix_pass2_gauss": 1}
     default_large = {"large_col_stage": 1, "large_row_stage": 1}
 
     def default_2_20(d, rows):
@@ -1771,10 +1791,12 @@ def main() -> None:
         ("blocks2d", 1 << 20, 1024, default_large, dict(large_blocks2d=True), default_2_20),
         ("in_shift", 65537, 512, {"conv_col_stage": 2, "conv_row_stage": 2},
          dict(rader_in_shift=True), None),
-        ("gauss", 65537, 512, gauss4, dict(conv_radix_gauss=True), None),
+        ("gauss", 65537, 512, k14g, dict(conv_radix_gauss=True), None),
         ("in_shift+gauss", 65537, 512, gauss4, dict(rader_in_shift=True, conv_radix_gauss=True),
          None),
-        ("gauss", 7919, 4096, gauss4, dict(conv_radix_gauss=True), None),
+        ("gauss", 7919, 4096, k14g, dict(conv_radix_gauss=True), None),
+        ("gauss", 65521, 512, k14g, dict(conv_radix_gauss=True), None),
+        ("gauss", 131071, 256, k14g, dict(conv_radix_gauss=True), None),
         ("every switch", 15625, 4096, {"largepad_col_stage": 1, "largepad_row_stage": 1}, every,
          None),
         ("every switch", 1000003, 64, k15, every, None),
@@ -2193,6 +2215,8 @@ def main() -> None:
                        dict(rader_in_shift=True, conv_radix_gauss=True)),
                       ("rader_full_out off", dict(rader_full_out=False)))),
         (7919, 4096, (("conv_radix_gauss", dict(conv_radix_gauss=True)),)),
+        (65521, 512, (("conv_radix_gauss", dict(conv_radix_gauss=True)),)),
+        (131071, 256, (("conv_radix_gauss", dict(conv_radix_gauss=True)),)),
     ):
         x = signal(batch, n)
         reps = 5 if n > 65537 else 7
@@ -2773,6 +2797,60 @@ def main() -> None:
         del z, part, kw2
         free()
 
+    # the same passes in the body's Gauss form (K14's gauss_mode: the paths
+    # under config.conv_radix_gauss) at the same shapes, within 1e-6 of
+    # their plain versions both ways, and timed (forward) beside the default
+    # pass on the same input, their plain versions and their bounds (those
+    # of the same functions; the Gauss form's own operations printed beside)
+    for n, batch in CLUSTER_PRIMES.items():
+        for d in directions:
+            m, r, radix, kw1, kw2, n_in, n_out = cluster_card(n, d, gauss=True)
+            default = cluster_card(n, d)[2]
+            x = signal(batch, n_in)
+            what = f"n={n} m={m} (r = {r}) batch={batch} {d.name} (the switched path's shape)"
+            name = f"conv_radix_pass1_gauss/{n}"
+            z, part = conv_radix.conv_radix_pass1_gauss(x, m, radix, **kw1)
+            z_p, _ = conv_radix.conv_radix_pass1_plain(x, m, r, radix, kw1["h"], kw1.get("pre"),
+                                                       kw1.get("perm"), kw1.get("emit_sum", False))
+            note(name, z, z_p, f"{name} {what}", K7_TOL)
+            del z_p
+            free()
+            spent = (2 * gauss_ops(large.stage_radices(fused.RADIX_PQ)) * batch * m
+                     / FP32_FLOPS * 1e3)
+            if d is FftDirection.FORWARD:
+                k = median_ms(lambda: conv_radix.conv_radix_pass1_gauss(x, m, radix, **kw1))
+                old = median_ms(lambda: conv_radix.conv_radix_pass1(x, m, default, **kw1))
+                plain = median_ms(lambda: conv_radix.conv_radix_pass1_plain(
+                    x, m, r, radix, kw1["h"], kw1.get("pre"), kw1.get("perm"),
+                    kw1.get("emit_sum", False)))
+                print(f"  {name} m={m} batch={batch}: the default pass on the same input "
+                      f"{old:.3f} ms ({k / old:.2f}x); the Gauss form's DFT_128 chains "
+                      f"{spent:.3f} ms at the FP32 peak", flush=True)
+                record(name, k, plain, 8 * batch * (n_in + m) + 8 * m
+                       + (8 if n != 65537 else 4) * m + 8 * (0 if part is None else part.numel()),
+                       batch * (fft_ops(m) + 6 * m + (6 * m if n != 65537 else 0)))
+            if part is not None:
+                kw2 = dict(kw2, x0=signal(batch, 1).reshape(-1), partials=part)
+            name = f"conv_radix_pass2_gauss/{n}"
+            y = conv_radix.conv_radix_pass2_gauss(z, m, radix, n_out, **kw2)
+            note(name, y, conv_radix.conv_radix_pass2_plain(z, m, r, radix, n_out, **kw2),
+                 f"{name} {what}", K7_TOL)
+            del y
+            free()
+            if d is FftDirection.FORWARD:
+                k = median_ms(lambda: conv_radix.conv_radix_pass2_gauss(z, m, radix, n_out, **kw2))
+                old = median_ms(lambda: conv_radix.conv_radix_pass2(z, m, default, n_out, **kw2))
+                plain = median_ms(lambda: conv_radix.conv_radix_pass2_plain(z, m, r, radix, n_out,
+                                                                            **kw2))
+                print(f"  {name} m={m} batch={batch}: the default pass on the same input "
+                      f"{old:.3f} ms ({k / old:.2f}x); the Gauss form's DFT_128 chains "
+                      f"{spent:.3f} ms at the FP32 peak", flush=True)
+                record(name, k, plain, 8 * batch * (m + n_out) + (4 if n == 65537 else 8) * m
+                       + 8 * (0 if part is None else part.numel() + batch),
+                       batch * (fft_ops(m) + (2 * m if n == 65537 else 6 * m)))
+            del x, z, part, kw2
+            free()
+
     # 746497 x 64 both ways, each built through executor.build: the
     # reference rule's Rader and the JAX package's third prime rule (a
     # Bluestein whose inner a kernel route serves, routed_bluestein_inner)
@@ -2807,6 +2885,8 @@ def main() -> None:
             return main_launches[base]
         if where in TAGGED:
             return path_launches[TAGGED[where]][base]
+        if base.endswith("_gauss") and where.isdigit():  # the switched path
+            return path_launches[f"{where} gauss"][base]
         if base == "conv_fft":
             return path_launches[f"conv_fft {where}"][base]
         n = {"K6": 1009, "K13": 1234}.get(where)

@@ -9,13 +9,15 @@
 // 512 KiB), in two of its three forms (ops/kernels/conv_radix.py):
 //
 //  - the cluster passes (below), at m = r*16384, r = 1, 2, 4, 8, 16: each
-//    FFT_m one launch of csrc/radix.cuh's body;
-//  - the four stages in the Gauss form (config.conv_radix_gauss, the JAX
-//    kernel's gauss_mode: every DFT stage as three real products,
-//    conv_radix.py:183, :232, :266): csrc/large.cuh's general column and
-//    row kernels with every radix stage in the Gauss form (fft_tile.cuh
-//    gauss_stage), the twiddles staying complex products, and the core's
-//    source and sink (csrc/conv_io.cuh ConvIn, ConvOut).
+//    FFT_m one launch of csrc/radix.cuh's body, in its default form or,
+//    under config.conv_radix_gauss (the JAX kernel's gauss_mode: every DFT
+//    contraction as three real products, conv_radix.py:183, :232, :266), in
+//    its Gauss form (radix.cuh kRadixGauss);
+//  - the four stages in the Gauss form (config.conv_radix_gauss at every
+//    other m, and with config.rader_in_shift): csrc/large.cuh's general
+//    column and row kernels with every radix stage in the Gauss form
+//    (fft_tile.cuh gauss_stage), the twiddles staying complex products,
+//    and the core's source and sink (csrc/conv_io.cuh ConvIn, ConvOut).
 //
 // The four stages' default form runs K12's ragged in-place tiles with the
 // same source and sink (csrc/conv_pad.cu, csrc/conv_pad_row.cu).  The one
@@ -72,6 +74,19 @@ namespace rf {
 //     writes out[0] = x0 + the R partials added in order.
 // Two launches and four traversals of m, where the column and row stages
 // above make four and eight.
+//
+// The Gauss form (kRadixGauss, the same Io types, ten more instances): the
+// radix 16 and radix 8 of stages A and B as gauss_column with the DFT_16
+// and DFT_8 tables as compile-time constants (csrc/gauss16.cuh), the
+// direction read from the Gauss table the caller passes (st.gauss[0]); the
+// inter-stage twiddle, the exchange's radix-r FFT and the loads and stores
+// as in the default form, so the Gauss form keeps the two passes and four
+// traversals of the TPU kernel's gauss_mode.  What bounds it: the same 16
+// bytes a point a pass as the default form (0.160 ms at 512 x 65536), and
+// 3 multiply-adds a term, 3*16 + 3*8 = 72 FMAs a point a DFT_128, about
+// 0.15 ms of FP32 a pass there; a Gauss column of 16 keeps its inputs,
+// their 16 sums and three accumulators live (51 values) where the radix-2
+// FFT keeps 32, under the body's cap of 128 registers at 512 threads.
 
 struct RadixConvIn {
   static constexpr bool kBulk = false;
@@ -180,7 +195,7 @@ struct RadixConvOut {
   }
 };
 
-template <int R, class Io>
+template <int R, int kForm, class Io>
 static cudaError_t launch_radix_io(const float2* x, float2* y, long long batch,
                                    long long clusters, const Stages& st, const float2* t1,
                                    const float2* tn, const float2* rroots, const float2* cfac,
@@ -190,21 +205,39 @@ static cudaError_t launch_radix_io(const float2* x, float2* y, long long batch,
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = radix_config_of<R>(radix_io_kernel<R, Io>, cfg, attr, clusters, s);
+  cudaError_t err = radix_config_of<R>(radix_io_kernel<R, Io, kForm>, cfg, attr, clusters, s);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, radix_io_kernel<R, Io>, x, y, batch, st, t1, tn, rroots, cfac,
-                           io);
+  err = cudaLaunchKernelEx(&cfg, radix_io_kernel<R, Io, kForm>, x, y, batch, st, t1, tn, rroots,
+                           cfac, io);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// One cluster pass at m = r*16384: the checks and the launch.
+template <int kForm, class Io>
+static int radix_pass_of(const float2* x, float2* y, long long batch, long long clusters, int r,
+                         const Stages& st, const float2* a, const float2* b, const float2* c,
+                         const float2* d, const Io& io, cudaStream_t s) {
+  switch (r) {
+    case 1: return launch_radix_io<1, kForm>(x, y, batch, clusters, st, a, b, c, d, io, s);
+    case 2: return launch_radix_io<2, kForm>(x, y, batch, clusters, st, a, b, c, d, io, s);
+    case 4: return launch_radix_io<4, kForm>(x, y, batch, clusters, st, a, b, c, d, io, s);
+    case 8: return launch_radix_io<8, kForm>(x, y, batch, clusters, st, a, b, c, d, io, s);
+    case 16: return launch_radix_io<16, kForm>(x, y, batch, clusters, st, a, b, c, d, io, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// One cluster pass at m = r*16384: the checks and the launch, in the Gauss
+// form where st carries the Gauss tables of DFT_16 and DFT_8 (else the
+// default form).
 template <class Io>
 static int radix_pass(const void* x, void* y, long long batch, long long clusters, int r,
                       const Stages& st, const void* t1, const void* tn, const void* rroots,
                       const void* cfac, const Io& io, void* stream) {
+  const bool gauss = st.gauss[0] != nullptr || st.gauss[1] != nullptr;
   if (batch <= 0 || t1 == nullptr || tn == nullptr || rroots == nullptr || cfac == nullptr ||
-      !stages_ok(st, kSlice) || st.k != 2 || st.r[0] != 16 || st.r[1] != 8)
+      !stages_ok(st, kSlice) || st.k != 2 || st.r[0] != 16 || st.r[1] != 8 ||
+      (gauss && !stages_ok(st, kSlice, true)))
     return cudaErrorInvalidValue;
   const auto* tx = static_cast<const float2*>(x);
   auto* ty = static_cast<float2*>(y);
@@ -213,14 +246,19 @@ static int radix_pass(const void* x, void* y, long long batch, long long cluster
   const auto* c = static_cast<const float2*>(rroots);
   const auto* d = static_cast<const float2*>(cfac);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (r) {
-    case 1: return launch_radix_io<1>(tx, ty, batch, clusters, st, a, b, c, d, io, s);
-    case 2: return launch_radix_io<2>(tx, ty, batch, clusters, st, a, b, c, d, io, s);
-    case 4: return launch_radix_io<4>(tx, ty, batch, clusters, st, a, b, c, d, io, s);
-    case 8: return launch_radix_io<8>(tx, ty, batch, clusters, st, a, b, c, d, io, s);
-    case 16: return launch_radix_io<16>(tx, ty, batch, clusters, st, a, b, c, d, io, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (gauss) return radix_pass_of<kRadixGauss>(tx, ty, batch, clusters, r, st, a, b, c, d, io, s);
+  return radix_pass_of<kRadixRoots>(tx, ty, batch, clusters, r, st, a, b, c, d, io, s);
+}
+
+// The stages of a cluster pass: the DFT_128 chain (16, 8), and in the
+// Gauss form (g0, g1 not NULL) its (3, 16) and (3, 8) float32 Gauss tables.
+static Stages cluster_stages(int k, int r0, int r1, int r2, const void* roots0,
+                             const void* roots1, const void* roots2, const void* tw0,
+                             const void* tw1, const void* g0, const void* g1) {
+  Stages st = make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1);
+  st.gauss[0] = static_cast<const float*>(g0);
+  st.gauss[1] = static_cast<const float*>(g1);
+  return st;
 }
 
 }  // namespace rf
@@ -285,17 +323,19 @@ extern "C" int rf_conv_row_stage_gauss(const void* a, void* y, long long batch, 
 // Pass 1 of the cluster form at m = r*16384: x (batch, n_in) complex64,
 // rows ld >= n_in apart, any 8-byte alignment; z (batch, m); partials
 // (batch, r) or NULL; the DFT_128 chain (16, 8) and K9's t1, tn, rroots,
-// cfac (ops/kernels/fused.py radix_tables; at r = 1 only tn is read); h
-// (m,); pre (m,) or NULL; perm (m,) int32 or NULL (needs n_in == m);
-// `clusters` the persistent grid (fused.radix_grid).  Returns a cudaError_t
-// code; launches on `stream`.
+// cfac (ops/kernels/fused.py radix_tables; at r = 1 only tn is read); g0,
+// g1: the chain's (3, 16) and (3, 8) float32 Gauss tables for the Gauss
+// form, or NULL for the default form; h (m,); pre (m,) or NULL; perm (m,)
+// int32 or NULL (needs n_in == m); `clusters` the persistent grid
+// (fused.radix_grid).  Returns a cudaError_t code; launches on `stream`.
 extern "C" int rf_conv_radix_pass1(const void* x, void* z, void* partials, long long batch,
                                    int n_in, long long ld, int r, int k, int r0, int r1, int r2,
                                    const void* roots0, const void* roots1, const void* roots2,
                                    const void* tw0, const void* tw1, const void* t1,
                                    const void* tn, const void* rroots, const void* cfac,
-                                   const void* h, const void* pre, const void* perm,
-                                   long long clusters, void* stream) {
+                                   const void* g0, const void* g1, const void* h,
+                                   const void* pre, const void* perm, long long clusters,
+                                   void* stream) {
   using namespace rf;
   const long long m = (long long)r * kSliceElems;
   if (n_in <= 0 || ld < n_in || n_in > m || h == nullptr || (perm != nullptr && n_in != m))
@@ -305,20 +345,21 @@ extern "C" int rf_conv_radix_pass1(const void* x, void* z, void* partials, long 
                        static_cast<float2*>(partials),   n_in,
                        r,                                ld};
   return radix_pass(x, z, batch, clusters, r,
-                    make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1), t1, tn, rroots,
-                    cfac, io, stream);
+                    cluster_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1, g0, g1), t1,
+                    tn, rroots, cfac, io, stream);
 }
 
 // Pass 2 of the cluster form: z (batch, m) complex64, 16-byte aligned; y
 // (batch, ld_out); post (m,) or NULL; x0 (batch,) x0_ld apart or NULL;
 // scatter (m,) int32 or NULL; partials (batch, n_partials) or NULL
-// (full_out: needs x0 and ld_out >= n_out + 1); the tables and grid as
-// pass 1's.  Returns a cudaError_t code; launches on `stream`.
+// (full_out: needs x0 and ld_out >= n_out + 1); the tables, the form and
+// the grid as pass 1's.  Returns a cudaError_t code; launches on `stream`.
 extern "C" int rf_conv_radix_pass2(const void* z, void* y, long long batch, int r, int k, int r0,
                                    int r1, int r2, const void* roots0, const void* roots1,
                                    const void* roots2, const void* tw0, const void* tw1,
                                    const void* t1, const void* tn, const void* rroots,
-                                   const void* cfac, const void* post, const void* x0,
+                                   const void* cfac, const void* g0, const void* g1,
+                                   const void* post, const void* x0,
                                    long long x0_ld, const void* scatter, const void* partials,
                                    int n_partials, int conj_out, int n_out, long long ld_out,
                                    long long clusters, void* stream) {
@@ -334,8 +375,8 @@ extern "C" int rf_conv_radix_pass2(const void* z, void* y, long long batch, int 
                         conj_out,                          n_out,
                         ld_out,                            x0_ld};
   return radix_pass(z, y, batch, clusters, r,
-                    make_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1), t1, tn, rroots,
-                    cfac, io, stream);
+                    cluster_stages(k, r0, r1, r2, roots0, roots1, roots2, tw0, tw1, g0, g1), t1,
+                    tn, rroots, cfac, io, stream);
 }
 
 #ifdef RF_PHASE_STAMPS

@@ -11,6 +11,7 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include "gauss16.cuh"
 #include "inplace_chain.cuh"
 
 namespace cg = cooperative_groups;
@@ -21,6 +22,42 @@ constexpr int kSlice = 128;                 // p = q of the radix split
 constexpr int kSliceElems = kSlice * kSlice;
 constexpr int kSliceRoots = 16 + 8;         // the DFT_128 chain (16, 8)
 constexpr int kFusedThreads = 512;
+
+// The form of the body's DFT_128 chains (stages A and B), a template
+// argument of radix_body: radix-2 register FFTs on the roots in shared
+// memory (kRadixRoots: K9, K7's 16384, K8 there and K14's default cluster
+// passes), or K14's gauss_mode (kRadixGauss: each radix 16 and radix 8 as
+// gauss_column, three multiply-adds a term with the DFT_16 and DFT_8
+// tables as compile-time constants, csrc/gauss16.cuh, the outputs in
+// natural order, the direction read from the Gauss table the caller
+// passes).  In both forms the inter-stage twiddle stays a complex product
+// and the radix-r exchange a radix-2 FFT: the JAX kernel's gauss_mode
+// changes only its DFT_p and DFT_q contractions
+// (rustfft_tpu/ops/pallas/conv_radix.py:183, :232, :266).
+enum RadixForm { kRadixRoots = 0, kRadixGauss = 1 };
+
+template <int R, bool kInverse>
+struct GaussConstants;
+template <bool kInverse>
+struct GaussConstants<16, kInverse> {
+  using T = Gauss16<kInverse>;
+};
+template <bool kInverse>
+struct GaussConstants<8, kInverse> {
+  using T = Gauss8<kInverse>;
+};
+
+// DFT_R (R = 16 or 8) of one column in the Gauss form, each output to
+// sink(k, X[k]) in natural order.  The branch on the direction is the same
+// for every thread of the launch.
+template <int R, class Sink>
+static __device__ __forceinline__ void gauss_dft(const float2 (&v)[R], bool inverse, Sink sink) {
+  if (inverse) {
+    gauss_column<R>(v, typename GaussConstants<R, true>::T{}, sink);
+  } else {
+    gauss_column<R>(v, typename GaussConstants<R, false>::T{}, sink);
+  }
+}
 
 // The DFT_128 chain (16, 8) of the port (fft_tile.cuh: DIT, the top digit
 // first, the inter-stage twiddle tw[k0][j1] = w_128^(k0*j1)) over one axis
@@ -137,13 +174,14 @@ static __device__ __forceinline__ void load_chunk_pair(const float2* __restrict_
 
 // Stage A: DFT_128 over the rows b = j0*8 + j1 of the slice in the tile,
 // chunk by chunk as the copies land (the mbarriers from bar0, 8 bytes
-// apart, at `parity`).
-template <int kLd, bool kStamp, class Io>
+// apart, at `parity`), in the form kForm (`inverse`: the Gauss form's
+// direction).
+template <int kLd, bool kStamp, int kForm, class Io>
 static __device__ __forceinline__ void slice_dft_rows(float2* buf, uint32_t bar0, uint32_t parity,
                                                       const float2* __restrict__ sroots,
                                                       const float2* __restrict__ tw,
                                                       RadixClock<kStamp>& clock, const Io& io,
-                                                      long long t, int a) {
+                                                      long long t, int a, bool inverse) {
   // radix 16 over j0 for each (j1, t): row j0*8 + j1 in plain order to row
   // k0*8 + j1 in the swizzle.  The swizzle moves values within a row, so a
   // chunk's 128 threads (warps 4g .. 4g + 3) read all of its rows before any
@@ -160,9 +198,13 @@ static __device__ __forceinline__ void slice_dft_rows(float2* buf, uint32_t bar0
         v[j] = io.take((j * 8 + (c >> 7)) * kLd + a * kSlice + (c & (kSlice - 1)), v[j], acc);
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
-    fft_pow2_reg<16>(v, sroots);
+    if constexpr (kForm == kRadixRoots) {
+      fft_pow2_reg<16>(v, sroots);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) buf[swz(bitrev<16>(i) * 1024 + c)] = v[i];
+      for (int i = 0; i < 16; ++i) buf[swz(bitrev<16>(i) * 1024 + c)] = v[i];
+    } else {
+      gauss_dft<16>(v, inverse, [&](int k, float2 y) { buf[swz(k * 1024 + c)] = y; });
+    }
   }
   io.sum(t, a, acc);
   __syncthreads();
@@ -177,9 +219,13 @@ static __device__ __forceinline__ void slice_dft_rows(float2* buf, uint32_t bar0
       v[j] = buf[swz(base + j * kSlice)];
       if (j > 0) v[j] = cmul(v[j], tw[k0 * 8 + j]);
     }
-    fft_pow2_reg<8>(v, sroots + 16);
+    if constexpr (kForm == kRadixRoots) {
+      fft_pow2_reg<8>(v, sroots + 16);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) buf[swz(base + bitrev<8>(i) * kSlice)] = v[i];
+      for (int i = 0; i < 8; ++i) buf[swz(base + bitrev<8>(i) * kSlice)] = v[i];
+    } else {
+      gauss_dft<8>(v, inverse, [&](int k, float2 y) { buf[swz(base + k * kSlice)] = y; });
+    }
   }
 }
 
@@ -188,24 +234,29 @@ static __device__ __forceinline__ void slice_dft_rows(float2* buf, uint32_t bar0
 // the order of d >> 4, a pair of chunks' rows a pass (a warp on one k0 and
 // 32 neighbouring d, as stores of 256 bytes); after each pass the block
 // barrier frees those rows and, where `next` is not null, warp 0 starts the
-// copies of the same two chunks of the next slice.
-template <int kLd, bool kStamp, class Io, class Row>
+// copies of the same two chunks of the next slice.  In the form kForm, as
+// stage A.
+template <int kLd, bool kStamp, int kForm, class Io, class Row>
 static __device__ __forceinline__ void slice_dft_cols(float2* buf, const Io& io, long long next_t,
                                                       int a, const Row& y,
                                                       const float2* __restrict__ next,
                                                       uint32_t bar0,
                                                       const float2* __restrict__ sroots,
                                                       const float2* __restrict__ tw,
-                                                      RadixClock<kStamp>& clock) {
+                                                      RadixClock<kStamp>& clock, bool inverse) {
   // radix 16 over j0 for each (row, j1), in place
   for (int c = threadIdx.x; c < 1024; c += kFusedThreads) {
     const int base = (c & (kSlice - 1)) * kSlice + (c >> 7);
     float2 v[16];
 #pragma unroll
     for (int j = 0; j < 16; ++j) v[j] = buf[swz(base + j * 8)];
-    fft_pow2_reg<16>(v, sroots);
+    if constexpr (kForm == kRadixRoots) {
+      fft_pow2_reg<16>(v, sroots);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) buf[swz(base + bitrev<16>(i) * 8)] = v[i];
+      for (int i = 0; i < 16; ++i) buf[swz(base + bitrev<16>(i) * 8)] = v[i];
+    } else {
+      gauss_dft<16>(v, inverse, [&](int k, float2 u) { buf[swz(base + k * 8)] = u; });
+    }
   }
   __syncthreads();
   clock.lap(5);
@@ -221,9 +272,13 @@ static __device__ __forceinline__ void slice_dft_cols(float2* buf, const Io& io,
       v[j] = buf[swz(base + j)];
       if (j > 0) v[j] = cmul(v[j], tw[k0 * 8 + j]);
     }
-    fft_pow2_reg<8>(v, sroots + 16);
+    if constexpr (kForm == kRadixRoots) {
+      fft_pow2_reg<8>(v, sroots + 16);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) y.store((k0 + 16 * bitrev<8>(i)) * kLd + d, v[i]);
+      for (int i = 0; i < 8; ++i) y.store((k0 + 16 * bitrev<8>(i)) * kLd + d, v[i]);
+    } else {
+      gauss_dft<8>(v, inverse, [&](int k, float2 u) { y.store((k0 + 16 * k) * kLd + d, u); });
+    }
     __syncthreads();
     if constexpr (Io::kBulk) {
       if (next != nullptr && threadIdx.x < 32) load_chunk_pair<kLd>(next, buf, pass, bar0);
@@ -302,7 +357,10 @@ struct RadixPlain {
   __device__ void finish(long long, int) const {}
 };
 
-template <int R, bool kStamp, class Io>
+// The DFT_128 chains run in the form kForm; the Gauss form reads its
+// direction from st.gauss[0], DFT_16's Gauss table: the sign of Wi(1) =
+// Im w_16^(+-1) (negative forward, positive inverse).
+template <int R, bool kStamp, class Io, int kForm = kRadixRoots>
 static __device__ __forceinline__ void radix_body(
     const float2* __restrict__ x, float2* __restrict__ y, long long batch, const Stages& st,
     const float2* __restrict__ t1, const float2* __restrict__ tn,
@@ -326,6 +384,8 @@ static __device__ __forceinline__ void radix_body(
   float2* st1 = stw + kSlice;
   float2* scfac = st1 + R * kSlice;
   const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(scfac + R * kSlice);
+  bool inverse = false;
+  if constexpr (kForm == kRadixGauss) inverse = __ldg(&st.gauss[0][16 + 1]) > 0.f;
   int a = 0;
   if constexpr (R > 1) a = (int)cg::this_cluster().block_rank();
   const long long clusters = gridDim.x / R;
@@ -374,7 +434,7 @@ static __device__ __forceinline__ void radix_body(
       io.wait();
       __syncthreads();
     }
-    slice_dft_rows<kLd, kStamp>(buf, bar0, parity, sroots, stw, clock, io, t, a);
+    slice_dft_rows<kLd, kStamp, kForm>(buf, bar0, parity, sroots, stw, clock, io, t, a, inverse);
     clock.lap(1);
     cluster_barrier<R>();
     clock.lap(2);
@@ -429,9 +489,10 @@ static __device__ __forceinline__ void radix_body(
     // a), the next transform's copies started as its rows free up
     const long long next = t + clusters;
     io.finish(t, a);
-    slice_dft_cols<kLd, kStamp>(buf, io, next < batch ? next : -1, a, io.template row<N>(y, t, a),
-                                Io::kBulk && next < batch ? src + next * N : nullptr, bar0,
-                                sroots, stw, clock);
+    slice_dft_cols<kLd, kStamp, kForm>(buf, io, next < batch ? next : -1, a,
+                                       io.template row<N>(y, t, a),
+                                       Io::kBulk && next < batch ? src + next * N : nullptr, bar0,
+                                       sroots, stw, clock, inverse);
     clock.lap(6);
   }
   clock.write(stamps);
@@ -446,13 +507,14 @@ __global__ void __launch_bounds__(kFusedThreads)
   radix_body<R, kStamp>(x, y, batch, st, t1, tn, rroots, cfac, stamps, RadixPlain{});
 }
 
-// The radix body on another input and output (csrc/conv_radix.cu).
-template <int R, class Io>
+// The radix body on another input and output (csrc/conv_radix.cu), in the
+// form kForm.
+template <int R, class Io, int kForm = kRadixRoots>
 __global__ void __launch_bounds__(kFusedThreads)
     radix_io_kernel(const float2* __restrict__ x, float2* __restrict__ y, long long batch,
                     Stages st, const float2* __restrict__ t1, const float2* __restrict__ tn,
                     const float2* __restrict__ rroots, const float2* __restrict__ cfac, Io io) {
-  radix_body<R, false>(x, y, batch, st, t1, tn, rroots, cfac, nullptr, io);
+  radix_body<R, false, Io, kForm>(x, y, batch, st, t1, tn, rroots, cfac, nullptr, io);
 }
 
 static size_t radix_smem_bytes(int r) {

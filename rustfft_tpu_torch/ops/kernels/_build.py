@@ -103,8 +103,8 @@ _SIGNATURES = {
                              + [_int] * 3 + [_vp] * 4,
     "rf_conv_pad_row_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3 + [_vp] * 3
                              + [_ll, _vp, _vp, _int, _int, _int, _ll, _vp],
-    "rf_conv_radix_pass1": [_vp, _vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 12 + [_ll, _vp],
-    "rf_conv_radix_pass2": [_vp, _vp, _ll] + [_int] * 5 + [_vp] * 11 + [_ll, _vp, _vp]
+    "rf_conv_radix_pass1": [_vp, _vp, _vp, _ll, _int, _ll] + [_int] * 5 + [_vp] * 14 + [_ll, _vp],
+    "rf_conv_radix_pass2": [_vp, _vp, _ll] + [_int] * 5 + [_vp] * 13 + [_ll, _vp, _vp]
                            + [_int] * 3 + [_ll, _ll, _vp],
 }
 

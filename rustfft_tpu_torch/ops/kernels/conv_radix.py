@@ -10,7 +10,9 @@ choose_split(m) = (P, Q).  Two forms:
 
   the cluster passes (cluster_form: m = r*16384, r = 1, 2, 4, 8, 16): each
       FFT_m one launch of csrc/radix.cuh's body, `conv_radix_pass1` and
-      `conv_radix_pass2`, the pointwise work in its load and store;
+      `conv_radix_pass2`, the pointwise work in its load and store (under
+      config.conv_radix_gauss the body's Gauss form, counted by
+      `conv_radix_pass1_gauss` and `conv_radix_pass2_gauss`);
   the four stages (every other m: 633 inner lengths of the primes in
       [8192, 2^20], tools/torch_prime_cores.py): each FFT_m K12's column
       and row stage on ragged in-place tiles (csrc/largepad.cuh; `tile(P)`
@@ -31,7 +33,11 @@ Four launches and eight traversals of m (the TPU kernel: two and four).
 
 The JAX kernel's two options, off by default there and here:
   gauss     (config.conv_radix_gauss; conv_radix.py:183, :232, :266): every
-            stage in the Gauss form.  By that switch the four stages run
+            DFT contraction in the Gauss form.  At m = r*16384 the two
+            cluster passes in the radix body's Gauss form (DFT_128's radix
+            16 and radix 8 as gauss_column on constant tables; the
+            twiddles and the radix-r exchange as in the default form).
+            Elsewhere, and with in_shift, the four stages run
             csrc/large.cuh's general kernels (tiles that divide the other
             axis, two buffers; csrc/conv_radix.cu), counted by
             `conv_col_stage_gauss` and `conv_row_stage_gauss`; the only
@@ -395,36 +401,48 @@ CLUSTER_RADICES = (1, 2, 4, 8, 16)
 
 def cluster_form(m: int, gauss: bool = False, in_shift: bool = False) -> Optional[int]:
     """r where the core runs as two cluster passes (conv_radix_pass1,
-    conv_radix_pass2: one launch of csrc/radix.cuh's body each) at m =
-    r*16384, r in CLUSTER_RADICES; None where it keeps the four launches
-    of the column and row stages: every other m (746496, and any whose
-    split is not 128 x 128 x r), the Gauss form (the radix body has none)
-    and in_shift (its x0 column rides the raw rows; the cluster form's
-    pass 1 would take the ld stride, but the switch's own path stays as
-    the JAX package's)."""
-    if gauss or in_shift or m % (fused.RADIX_PQ * fused.RADIX_PQ):
+    conv_radix_pass2: one launch of csrc/radix.cuh's body each, in its
+    Gauss form with `gauss`) at m = r*16384, r in CLUSTER_RADICES; None
+    where it keeps the four launches of the column and row stages: every
+    other m (746496, and any whose split is not 128 x 128 x r) and
+    in_shift (its x0 column rides the raw rows; the cluster form's pass 1
+    would take the ld stride, but the switch's own path stays as the JAX
+    package's), in either form."""
+    if in_shift or m % (fused.RADIX_PQ * fused.RADIX_PQ):
         return None
     r = m // (fused.RADIX_PQ * fused.RADIX_PQ)
     return r if r in CLUSTER_RADICES else None
 
 
-def cluster_tables(r: int, direction: FftDirection):
+def cluster_tables(r: int, direction: FftDirection, gauss: bool = False):
     """The radix body's tables at m = r*16384, complex64: (roots, tws) of
     the DFT_128 chain (16, 8), t1, tn, rroots, cfac (fused.radix_tables; at
-    r = 1, where the body reads tn alone, t1, rroots and cfac are ones)."""
-    if r > 1:
-        return fused.radix_tables(r, fused.RADIX_PQ, fused.RADIX_PQ, direction)
+    r = 1, where the body reads tn alone, t1, rroots and cfac are ones);
+    with `gauss` also the chain's Gauss tables, large.gauss_tables((16, 8),
+    direction), which the Gauss form's plain version contracts with and
+    whose DFT_16 table the kernel reads its direction from (its constants
+    are csrc/gauss16.cuh)."""
     p = fused.RADIX_PQ
-    roots, tws = stage_tables(p, large.stage_radices(p), direction)
-    _, tn, _ = fused.radix_twiddles(1, p, p, direction)
-    ones = np.ones((1, p), np.complex64)
-    return roots, tws, ones, tn.astype(np.complex64), np.ones(1, np.complex64), ones
+    if r > 1:
+        tables = fused.radix_tables(r, p, p, direction)
+    else:
+        roots, tws = stage_tables(p, large.stage_radices(p), direction)
+        _, tn, _ = fused.radix_twiddles(1, p, p, direction)
+        ones = np.ones((1, p), np.complex64)
+        tables = roots, tws, ones, tn.astype(np.complex64), np.ones(1, np.complex64), ones
+    if gauss:
+        tables = (*tables, large.gauss_tables(large.stage_radices(p), direction))
+    return tables
 
 
-def _check_cluster_tables(r: int, tables, device, what: str) -> None:
-    roots, tws, t1, tn, rroots, cfac = tables
+def _check_cluster_tables(r: int, tables, device, what: str, gauss: bool) -> None:
+    if len(tables) != (7 if gauss else 6):
+        raise ValueError(f"{what}: expected cluster_tables(r, direction, gauss={gauss})")
+    roots, tws, t1, tn, rroots, cfac, *gtabs = tables
     p = fused.RADIX_PQ
     check_stage_tables(p, large.stage_radices(p), roots, tws, device, what)
+    if gauss:
+        check_stage_tables(p, large.stage_radices(p), gtabs[0], tws, device, what, gauss=True)
     for t, shape, name in ((t1, (r, p), "t1"), (tn, (p, p), "tn"), (rroots, (r,), "roots_r"),
                            (cfac, (r, p), "cfac")):
         check_operand(t, shape, f"{what} {name}")
@@ -433,14 +451,18 @@ def _check_cluster_tables(r: int, tables, device, what: str) -> None:
 
 
 def _cluster_fft_plain(v: torch.Tensor, r: int, tables) -> torch.Tensor:
+    """FFT_m of the cluster passes, in the Gauss form where the tables carry
+    the Gauss tables (fused.radix_fft_plain)."""
     return fused.radix_fft_plain(v, r, fused.RADIX_PQ, tables)
 
 
 def _cluster_args(r: int, tables, device):
-    roots, tws, t1, tn, rroots, cfac = tables
+    roots, tws, t1, tn, rroots, cfac, *gtabs = tables
     clusters_of = fused._resident_clusters(device, r)
+    gauss = [g.data_ptr() for g in gtabs[0]] if gtabs else [None, None]
     return ([r, *padded_stage_args(large.stage_radices(fused.RADIX_PQ), roots, tws),
-             t1.data_ptr(), tn.data_ptr(), rroots.data_ptr(), cfac.data_ptr()], clusters_of)
+             t1.data_ptr(), tn.data_ptr(), rroots.data_ptr(), cfac.data_ptr(), *gauss],
+            clusters_of)
 
 
 def conv_radix_pass1_plain(x, m, r, tables, h, pre=None, perm=None, emit_sum=False):
@@ -457,17 +479,18 @@ def conv_radix_pass1_plain(x, m, r, tables, h, pre=None, perm=None, emit_sum=Fal
 
 
 def conv_radix_pass1(x: torch.Tensor, m: int, tables, h: torch.Tensor, pre=None, perm=None,
-                     emit_sum: bool = False):
+                     emit_sum: bool = False, gauss: bool = False):
     """Pass 1 of the cluster form at m = r*16384 (cluster_form): x (batch,
     n_in) complex64 -> (z (batch, m) = conj(FFT_m([pre *] x zero-padded to
     m) * h), partials (batch, r) or None).
 
     x's rows need only be contiguous (any stride between them, any 8-byte
     alignment: the loads are direct).  tables = cluster_tables(r,
-    direction) on x's device; h, pre (m,) complex64; perm (m,) int32 the
-    Rader gather a[j] = x[perm[j]] (needs n_in == m); emit_sum: the sums
-    of the raw input over each cluster block's slice (their row sum is
-    sum(x)).
+    direction, gauss) on x's device; h, pre (m,) complex64; perm (m,)
+    int32 the Rader gather a[j] = x[perm[j]] (needs n_in == m); emit_sum:
+    the sums of the raw input over each cluster block's slice (their row
+    sum is sum(x)); gauss: the radix body's Gauss form (K14's gauss_mode,
+    counted by conv_radix_pass1_gauss).
     """
     what = "conv_radix_pass1"
     _check_rows(x, f"{what} input")
@@ -477,7 +500,7 @@ def conv_radix_pass1(x: torch.Tensor, m: int, tables, h: torch.Tensor, pre=None,
     n_in = x.shape[1]
     if not 0 < n_in <= m:
         raise ValueError(f"{what}: n_in={n_in} not in [1, {m}]")
-    _check_cluster_tables(r, tables, x.device, what)
+    _check_cluster_tables(r, tables, x.device, what, gauss)
     _check_table(h, (m,), x.device, f"{what} h")
     _check_table(pre, (m,), x.device, f"{what} pre")
     if perm is not None:
@@ -504,11 +527,21 @@ def conv_radix_pass1(x: torch.Tensor, m: int, tables, h: torch.Tensor, pre=None,
             x.stride(0) if batch > 1 else n_in, *args, h.data_ptr(), ptr(pre), ptr(perm),
             fused.radix_grid(batch, resident), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, what)
-    conv_radix_pass1.launches += 1
+    (conv_radix_pass1_gauss if gauss else conv_radix_pass1).launches += 1
     return z, partials
 
 
+#: kernel launches since the count was last set to 0 (the default form)
 conv_radix_pass1.launches = 0
+
+
+def conv_radix_pass1_gauss(x: torch.Tensor, m: int, tables, h: torch.Tensor, **kw):
+    """conv_radix_pass1 in the Gauss form (K14's gauss_mode); its launches
+    are counted here.  tables from cluster_tables(r, direction, gauss=True)."""
+    return conv_radix_pass1(x, m, tables, h, gauss=True, **kw)
+
+
+conv_radix_pass1_gauss.launches = 0
 
 
 def conv_radix_pass2_plain(z, m, r, tables, n_out, conj_out=False, post=None, x0=None,
@@ -530,14 +563,16 @@ def conv_radix_pass2_plain(z, m, r, tables, n_out, conj_out=False, post=None, x0
 
 
 def conv_radix_pass2(z: torch.Tensor, m: int, tables, n_out: int, conj_out: bool = False,
-                     post=None, x0=None, scatter=None, partials=None) -> torch.Tensor:
+                     post=None, x0=None, scatter=None, partials=None,
+                     gauss: bool = False) -> torch.Tensor:
     """Pass 2 of the cluster form at m = r*16384: z (batch, m) complex64 ->
     (batch, n_out): FFT_m, then in order [conj] [* post (m,)] [+ x0
     (batch,), any stride]; scatter (m,) int32 (n_out == m): bin k goes to
     position scatter[k]; partials (batch, r) from pass 1 (full_out: needs
     x0 and scatter): the output is (batch, m + 1) with out[0] = x0 +
     sum(partials) and the rest shifted by 1.  tables = cluster_tables(r,
-    direction) on z's device.
+    direction, gauss) on z's device; gauss: the radix body's Gauss form
+    (counted by conv_radix_pass2_gauss).
     """
     what = "conv_radix_pass2"
     r = cluster_form(m)
@@ -547,7 +582,7 @@ def conv_radix_pass2(z: torch.Tensor, m: int, tables, n_out: int, conj_out: bool
     batch = z.shape[0]
     if not 0 < n_out <= m:
         raise ValueError(f"{what}: n_out={n_out} not in [1, {m}]")
-    _check_cluster_tables(r, tables, z.device, what)
+    _check_cluster_tables(r, tables, z.device, what, gauss)
     _check_table(post, (m,), z.device, f"{what} post")
     if x0 is not None and (x0.dtype != torch.complex64 or tuple(x0.shape) != (batch,)
                            or x0.device != z.device):
@@ -582,11 +617,21 @@ def conv_radix_pass2(z: torch.Tensor, m: int, tables, n_out: int, conj_out: bool
             0 if partials is None else r, int(conj_out), n_out, width,
             fused.radix_grid(batch, resident), torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(lib, code, what)
-    conv_radix_pass2.launches += 1
+    (conv_radix_pass2_gauss if gauss else conv_radix_pass2).launches += 1
     return y
 
 
+#: kernel launches since the count was last set to 0 (the default form)
 conv_radix_pass2.launches = 0
+
+
+def conv_radix_pass2_gauss(z: torch.Tensor, m: int, tables, n_out: int, **kw) -> torch.Tensor:
+    """conv_radix_pass2 in the Gauss form (K14's gauss_mode); its launches
+    are counted here.  tables from cluster_tables(r, direction, gauss=True)."""
+    return conv_radix_pass2(z, m, tables, n_out, gauss=True, **kw)
+
+
+conv_radix_pass2_gauss.launches = 0
 
 
 #: gather_probe's modes
@@ -705,7 +750,7 @@ def make_radix_conv_fn(
     r = cluster_form(m, gauss, in_shift)
     if r is not None:
         return _cluster_conv_fn(m, r, direction, h, pre, post, conj_out, n_in, n_out, in_perm,
-                                out_perm, x0_add, emit_sum, full_out)
+                                out_perm, x0_add, emit_sum, full_out, gauss)
     host = radix_conv_tables(m, direction, h, pre, post, in_perm, out_perm, gauss)
     kp, kq = len(host["col"][0]), len(host["row"][0])
     names = [k for k in ("h", "pre", "post", "perm", "scatter") if host[k] is not None]
@@ -748,19 +793,24 @@ def make_radix_conv_fn(
 
 
 def _cluster_conv_fn(m, r, direction, h, pre, post, conj_out, n_in, n_out, in_perm, out_perm,
-                     x0_add, emit_sum, full_out):
+                     x0_add, emit_sum, full_out, gauss):
     """make_radix_conv_fn's core in the cluster form: conv_radix_pass1 and
-    conv_radix_pass2 at m = r*16384."""
+    conv_radix_pass2 at m = r*16384, in the radix body's Gauss form with
+    `gauss`."""
     host = radix_conv_tables(m, direction, h, pre, post, in_perm, out_perm)
     roots, tws, *rest = cluster_tables(r, direction)
+    gtabs = large.gauss_tables(large.stage_radices(fused.RADIX_PQ), direction) if gauss else []
     names = [k for k in ("h", "pre", "post", "perm", "scatter") if host[k] is not None]
     k = len(roots)
-    tables = calg.DeviceTables([*roots, *tws, *rest] + [host[n] for n in names])
+    g = len(gtabs)
+    tables = calg.DeviceTables([*roots, *tws, *rest, *gtabs] + [host[n] for n in names])
 
     def apply(x, const=None):
         t = tables.on(x.device)
         radix = (t[:k], t[k : 2 * k - 1], *t[2 * k - 1 : 2 * k + 3])
-        tab = dict(zip(names, t[2 * k + 3 :]))
+        if gauss:
+            radix = (*radix, t[2 * k + 3 : 2 * k + 3 + g])
+        tab = dict(zip(names, t[2 * k + 3 + g :]))
         shape = x.shape
         flat = x.reshape(-1, n_in)
         if flat.shape[1] > 1 and flat.stride(1) != 1:
@@ -771,10 +821,10 @@ def _cluster_conv_fn(m, r, direction, h, pre, post, conj_out, n_in, n_out, in_pe
                 raise ValueError("x0_add: call fn(x, const)")
             x0 = const.reshape(-1)
         z, partials = conv_radix_pass1(flat, m, radix, tab["h"], pre=tab.get("pre"),
-                                       perm=tab.get("perm"), emit_sum=emit_sum)
+                                       perm=tab.get("perm"), emit_sum=emit_sum, gauss=gauss)
         out = conv_radix_pass2(z, m, radix, n_out, conj_out=conj_out, post=tab.get("post"),
                                x0=x0, scatter=tab.get("scatter"),
-                               partials=partials if full_out else None)
+                               partials=partials if full_out else None, gauss=gauss)
         out = out.reshape(shape[:-1] + (out.shape[-1],))
         if emit_sum and not full_out:
             return out, partials.sum(dim=1).reshape(shape[:-1] + (1,))

@@ -363,15 +363,26 @@ def two_stage_tables(p: int, q_radices: Sequence[int], direction: FftDirection):
 # -- radix_fft (K9) ----------------------------------------------------------
 
 def radix_fft_plain(x: torch.Tensor, r: int, p: int, tables) -> torch.Tensor:
-    """Plain torch version of radix_fft, stage for stage."""
-    roots, tws, t1, tn, rroots, cfac = tables
+    """Plain torch version of radix_fft, stage for stage.  With a seventh
+    table, the Gauss tables of the DFT_p chain (large.gauss_tables; the
+    Gauss form of the two-pass core's cluster passes,
+    conv_radix.cluster_tables(..., gauss=True)), both DFT_p chains run in
+    the Gauss form (large.gauss_stages_plain); the twiddles and the DFT_r
+    stay as they are."""
+    roots, tws, t1, tn, rroots, cfac, *gauss = tables
     q = p
     radices = large.stage_radices(p)
+
+    def chain(u):
+        if gauss:
+            return large.gauss_stages_plain(u, radices, gauss[0], tws)
+        return fft_stages_plain(u, radices, roots, tws)
+
     v = x.reshape(-1, p, r, q).permute(0, 2, 3, 1)  # (B, r, q, p) [a, j2, b]
-    a = fft_stages_plain(v, radices, roots, tws) * t1[:, None, :]  # [a, j2, d]
+    a = chain(v) * t1[:, None, :]  # [a, j2, d]
     cs = p2_chain_plain(list(a.unbind(1)), rroots)  # DFT_r: r of (B, q, p) [j2, d]
     c = torch.stack([cc * tn * cfac[i][:, None] for i, cc in enumerate(cs)], dim=1)
-    e = fft_stages_plain(c.transpose(2, 3), radices, roots, tws)  # (B, r, p, q) [c, d, k2]
+    e = chain(c.transpose(2, 3))  # (B, r, p, q) [c, d, k2]
     return e.permute(0, 3, 1, 2).reshape(-1, r * p * q)  # [k2, c, d]
 
 

@@ -265,38 +265,42 @@ def gauss_tables(radices: Sequence[int], direction: FftDirection) -> List[np.nda
 
 
 def gauss_header() -> str:
-    """The text of csrc/gauss16.cuh: gauss_tables((16,), direction) of both
-    directions as the float literals of Gauss16<kInverse>, whose call at root
-    index e is {Wr, Wi, Ws, 0} there, each the shortest decimal that reads
-    back as the same float32 (the Gauss tile kernels' DFT_16 constants)."""
+    """The text of csrc/gauss16.cuh: gauss_tables((r,), direction) of both
+    directions for r = 16 and 8 as the float literals of Gauss16<kInverse>
+    and Gauss8<kInverse>, whose call at root index e is {Wr, Wi, Ws, 0}
+    there, each the shortest decimal that reads back as the same float32
+    (the DFT_16 constants of the Gauss tile kernels, and the DFT_16 and
+    DFT_8 constants of the radix body's Gauss form)."""
     lines = [
-        "// The constants of the Gauss form's DFT_16 in the tile kernels",
-        "// (csrc/tile_walk.cuh tile_dft16, csrc/fft_tile.cuh gauss_column):",
-        "// Gauss16<kInverse>{}(e) = {Wr, Wi, Ws, 0} at root index e, 0 <= e < 16, the",
-        "// columns of rustfft_tpu_torch/ops/kernels/large.py gauss_tables((16,),",
-        "// direction) (Wr + i Wi = w_16^(+-e), Ws = Wr + Wi, each computed in float64",
-        "// and cast to float32).  Written by large.py gauss_header(); tests/",
-        "// test_torch_gauss_tiles.py holds this file to it.  Every call in the kernels",
-        "// has a constant e after unrolling, so each switch folds to immediates.",
+        "// The constants of the Gauss form's DFT_16 and DFT_8: DFT_16 in the tile",
+        "// kernels (csrc/tile_walk.cuh tile_dft16), both in the radix body's Gauss",
+        "// form (csrc/radix.cuh gauss_dft), each through csrc/fft_tile.cuh",
+        "// gauss_column.  GaussR<kInverse>{}(e) = {Wr, Wi, Ws, 0} at root index e,",
+        "// 0 <= e < R, the columns of rustfft_tpu_torch/ops/kernels/large.py",
+        "// gauss_tables((R,), direction) (Wr + i Wi = w_R^(+-e), Ws = Wr + Wi, each",
+        "// computed in float64 and cast to float32).  Written by large.py",
+        "// gauss_header(); tests/test_torch_gauss_tiles.py and",
+        "// tests/test_torch_gauss_cluster.py hold this file to it.  Every call in the",
+        "// kernels has a constant e after unrolling, so each switch folds to",
+        "// immediates.",
         "#pragma once",
         "",
         "#include <cuda_runtime.h>",
         "",
         "namespace rf {",
-        "",
-        "template <bool kInverse>",
-        "struct Gauss16;",
     ]
-    for inverse, d in ((False, FftDirection.FORWARD), (True, FftDirection.INVERSE)):
-        (g,) = gauss_tables((16,), d)
-        lines += ["", "template <>", f"struct Gauss16<{str(inverse).lower()}> {{",
-                  "  __device__ __forceinline__ float4 operator()(int e) const {",
-                  "    switch (e) {"]
-        for e in range(16):
-            vals = ", ".join(f"{np.float32(v)!s}f" for v in g[:, e])
-            lines.append(f"      case {e}: return make_float4({vals}, 0.f);")
-        lines += ["      default: return make_float4(0.f, 0.f, 0.f, 0.f);", "    }", "  }",
-                  "};"]
+    for r in (16, 8):
+        lines += ["", "template <bool kInverse>", f"struct Gauss{r};"]
+        for inverse, d in ((False, FftDirection.FORWARD), (True, FftDirection.INVERSE)):
+            (g,) = gauss_tables((r,), d)
+            lines += ["", "template <>", f"struct Gauss{r}<{str(inverse).lower()}> {{",
+                      "  __device__ __forceinline__ float4 operator()(int e) const {",
+                      "    switch (e) {"]
+            for e in range(r):
+                vals = ", ".join(f"{np.float32(v)!s}f" for v in g[:, e])
+                lines.append(f"      case {e}: return make_float4({vals}, 0.f);")
+            lines += ["      default: return make_float4(0.f, 0.f, 0.f, 0.f);", "    }", "  }",
+                      "};"]
     lines += ["", "}  // namespace rf", ""]
     return "\n".join(lines)
 

@@ -191,7 +191,7 @@ def test_cluster_form_rule():
     assert conv_radix.cluster_form(746496) is None  # 746497's Rader
     assert conv_radix.cluster_form(114688) is None  # 7 x 16384
     assert conv_radix.cluster_form(32 * 16384) is None
-    assert conv_radix.cluster_form(65536, gauss=True) is None
+    assert conv_radix.cluster_form(65536, gauss=True) == 4  # the body's Gauss form
     assert conv_radix.cluster_form(65536, in_shift=True) is None
 
 
@@ -213,9 +213,10 @@ def _spy_passes(monkeypatch):
                                     (65537, "in_shift"), (7919, "gauss")])
 def test_planner_takes_the_cluster_passes(n, form, monkeypatch):
     """65537 (Rader, m = 65536), 7919, 65521 and 131071 (Bluestein, m =
-    16384, 131072 and 262144: r = 1, 8 and 16) take the two cluster passes;
-    under rader_in_shift or conv_radix_gauss they keep the four launches of
-    the column and row stages."""
+    16384, 131072 and 262144: r = 1, 8 and 16) take the two cluster passes,
+    under conv_radix_gauss too (the radix body's Gauss form); under
+    rader_in_shift they keep the four launches of the column and row
+    stages."""
     calls = _spy_passes(monkeypatch)
     old = (config.rader_in_shift, config.conv_radix_gauss)
     try:
@@ -226,7 +227,7 @@ def test_planner_takes_the_cluster_passes(n, form, monkeypatch):
         got = plan.process(x)
     finally:
         config.rader_in_shift, config.conv_radix_gauss = old
-    if form == "cluster":
+    if form in ("cluster", "gauss"):
         assert calls == ["conv_radix_pass1", "conv_radix_pass2"]
     else:
         assert calls.count("conv_col_stage") == 2 and calls.count("conv_row_stage") == 2
