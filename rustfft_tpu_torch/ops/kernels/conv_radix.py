@@ -798,8 +798,8 @@ def _cluster_conv_fn(m, r, direction, h, pre, post, conj_out, n_in, n_out, in_pe
     conv_radix_pass2 at m = r*16384, in the radix body's Gauss form with
     `gauss`."""
     host = radix_conv_tables(m, direction, h, pre, post, in_perm, out_perm)
-    roots, tws, *rest = cluster_tables(r, direction)
-    gtabs = large.gauss_tables(large.stage_radices(fused.RADIX_PQ), direction) if gauss else []
+    roots, tws, *rest = cluster_tables(r, direction, gauss)
+    gtabs = rest.pop() if gauss else []
     names = [k for k in ("h", "pre", "post", "perm", "scatter") if host[k] is not None]
     k = len(roots)
     g = len(gtabs)

@@ -64,7 +64,9 @@ def _tensors(arrays, device="cpu"):
 def _counters():
     return (large.large_col_stage, large.large_row_stage, large.large_col_stage_gauss,
             large.large_row_stage_gauss, conv_radix.conv_col_stage, conv_radix.conv_row_stage,
-            conv_radix.conv_col_stage_gauss, conv_radix.conv_row_stage_gauss)
+            conv_radix.conv_col_stage_gauss, conv_radix.conv_row_stage_gauss,
+            conv_radix.conv_radix_pass1, conv_radix.conv_radix_pass2,
+            conv_radix.conv_radix_pass1_gauss, conv_radix.conv_radix_pass2_gauss)
 
 
 def _counts():
@@ -515,18 +517,19 @@ def test_rader_core_stages_on_card(cuda_device, p, gauss):
     (1 << 20, dict(large_gauss=True), {2: 1, 3: 1}),
     (1 << 20, dict(large_blocks2d=True), {0: 1, 1: 1}),
     (65537, dict(rader_in_shift=True), {4: 2, 5: 2}),
-    (65537, dict(conv_radix_gauss=True), {6: 2, 7: 2}),
+    (65537, dict(conv_radix_gauss=True), {10: 1, 11: 1}),
     (65537, dict(rader_in_shift=True, conv_radix_gauss=True), {6: 2, 7: 2}),
-    (7919, dict(conv_radix_gauss=True), {6: 2, 7: 2}),
+    (7919, dict(conv_radix_gauss=True), {10: 1, 11: 1}),
     (15625, dict(large_gauss=True, conv_radix_gauss=True, rader_in_shift=True), {}),
     (1000003, dict(large_gauss=True, conv_radix_gauss=True, rader_in_shift=True), {}),
 ], ids=["2^20-gauss", "2^20-2d", "65537-in_shift", "65537-gauss", "65537-both", "7919-gauss",
         "15625-all", "1000003-all"])
 def test_switched_paths_on_card(cuda_device, n, sw, rise, switches):
     """Each switched path launches exactly its stages: the Gauss stages
-    under large_gauss / conv_radix_gauss, the default core under in_shift,
-    none of the eight counters' stages on large_pad or K15 (its tile form
-    launches kernels of its own, convlarge.bconv_col_tile ...)."""
+    under large_gauss, the Gauss cluster passes under conv_radix_gauss
+    (the four Gauss stages with in_shift too), the default core under
+    in_shift, none of the counters' kernels on large_pad or K15 (its tile
+    form launches kernels of its own, convlarge.bconv_col_tile ...)."""
     switches(**sw)
     planner = FftPlanner(np.complex64, device="cuda")
     x = _signal(2, n, seed=n)
@@ -536,7 +539,7 @@ def test_switched_paths_on_card(cuda_device, n, sw, rise, switches):
         got = plan.process(torch.from_numpy(x).to(cuda_device))
         torch.cuda.synchronize()
         after = _counts()
-        assert {i: after[i] - before[i] for i in range(8) if after[i] != before[i]} == rise
+        assert {i: a - b for i, (a, b) in enumerate(zip(after, before)) if a != b} == rise
         assert _rel(got.cpu(), host_dft(x, d)) <= TOL
 
 
