@@ -220,7 +220,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    bound and torch.fft (the kernels line's lanepack_chain_fft/1024; phase
    2 also checks 1024 with a ragged last block), then the step's time
    beside the planner's step and the step on torch.fft, and its peak
-   device memory; the process group is destroyed before the last lines.
+   device memory; the process group is destroyed before the last lines;
+7. route-wide accuracy: every check of tools/torch_accuracy.py's
+   default_checks() (the sizes of ACCURACY_TPU.md, a size for every route
+   and every convolution core form, complex128 on the recipe tree, the
+   pinned Rader and Bluestein, the variant switches) through its run_check
+   on the card, each within its relative mean error bar (1e-5 c64, 1e-12
+   c128) and mean element error < 0.1, then examples/torch_concurrency.py's
+   check in-process (one plan from four threads at 4096, 1009 and 2^20),
+   and one summary line with the phase's seconds.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -812,6 +820,45 @@ def spectral_phase(counters, signal, card, t0, totals):
             "bound_by": bound_by, "library_ms": ref_ms}
 
 
+def accuracy_phase(t0) -> None:
+    """Phase 7: tools/torch_accuracy.py's default_checks(), the list the
+    artifact ACCURACY_GPU.md is made of, on the card through run_check, each
+    held to its bars (a failed check raises); then the concurrency example's
+    check in-process.  To save host time the signal is made on the card and
+    the oracle is torch.fft in complex128 on the card, not the host float64
+    oracle of the artifact."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for sub in ("tools", "examples"):
+        sys.path.insert(0, os.path.join(here, sub))
+    import torch_accuracy
+    import torch_concurrency
+
+    print(f"phase 7: route-wide accuracy, tools/torch_accuracy.default_checks() (t = "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    start = time.perf_counter()
+    checks = torch_accuracy.default_checks()
+    worst = None
+    for c in checks:
+        r = torch_accuracy.run_check(c, "cuda", on_card=True)
+        what = (f"n={c.n} {c.tag} {c.dtype} batch={c.batch}" + (f" ({c.label})" if c.label else "")
+                + f" route {r['route']} {r['recipe']} {r['form']}")
+        if not r["ok"]:
+            raise AssertionError(f"{what}: mean element error {r['mean_err']:.3e}, relative "
+                                 f"{r['rel_err']:.3e} (bars {torch_accuracy.MEAN_TOL}, "
+                                 f"{torch_accuracy.REL_BAR[c.dtype]:.0e})")
+        if c.dtype == "complex64" and (worst is None or r["rel_err"] > worst[0]):
+            worst = (r["rel_err"], what)
+    free()
+    checked = time.perf_counter() - start
+    threads = torch_concurrency.check("cuda")
+    free()
+    print(f"  {len(checks)} checks passed in {checked:.1f} s; worst c64 relative mean error "
+          f"{worst[0]:.3e} at {worst[1]}; torch_concurrency.check: {len(threads)} thread "
+          f"results within {torch_concurrency.TOL:.0e}, worst "
+          f"{max(e for *_, e in threads):.3e}; phase 7 {time.perf_counter() - start:.1f} s",
+          flush=True)
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -826,7 +873,7 @@ def main() -> None:
     from rustfft_tpu_torch.ops.bluestein import bluestein_tables
     from rustfft_tpu_torch.ops.kernels import (
         _build, conv, conv_radix, convlarge, dense, fused, lanepack, large, large2f, large3,
-        largepad, permute,
+        largepad, launch_counters, permute,
     )
     from rustfft_tpu_torch.ops.raders import raders_tables
     from rustfft_tpu_torch.planner import routed_bluestein_inner
@@ -1625,39 +1672,7 @@ def main() -> None:
     # ---- phase 3: the main path through the public entry ----
     print(f"phase 3: main path, FftPlanner(np.complex64, device='cuda') (t = "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    counters = {"lanepack_pipe_fft": lanepack.lanepack_pipe_fft,
-                "lanepack_chain_fft": lanepack.lanepack_chain_fft,
-                "large_col_stage": large.large_col_stage,
-                "large_row_stage": large.large_row_stage,
-                "conv_fft": conv.conv_fft,
-                "conv_chain_fft": conv.conv_chain_fft,
-                "conv_col_stage": conv_radix.conv_col_stage,
-                "conv_row_stage": conv_radix.conv_row_stage,
-                "permute": permute.permute,
-                "large2f_col_stage": large2f.large2f_col_stage,
-                "large3_col_stage": large3.large3_col_stage,
-                "large3_p2": large3.large3_p2,
-                "radix_fft": fused.radix_fft,
-                "two_stage_fft": fused.two_stage_fft,
-                "two_stage_cluster_fft": fused.two_stage_cluster_fft,
-                "three_stage_fft": fused.three_stage_fft,
-                "dense_fft": dense.dense_fft,
-                "dense_chain_fft": dense.dense_chain_fft,
-                "largepad_col_stage": largepad.largepad_col_stage,
-                "largepad_row_stage": largepad.largepad_row_stage,
-                "bconv_row_stage": convlarge.bconv_row_stage,
-                "bconv_out_stage": convlarge.bconv_out_stage,
-                "bconv_col_tile": convlarge.bconv_col_tile,
-                "bconv_row_tile": convlarge.bconv_row_tile,
-                "bconv_out_tile": convlarge.bconv_out_tile,
-                "conv_radix_pass1": conv_radix.conv_radix_pass1,
-                "conv_radix_pass2": conv_radix.conv_radix_pass2,
-                "conv_radix_pass1_gauss": conv_radix.conv_radix_pass1_gauss,
-                "conv_radix_pass2_gauss": conv_radix.conv_radix_pass2_gauss,
-                "large_col_stage_gauss": large.large_col_stage_gauss,
-                "large_row_stage_gauss": large.large_row_stage_gauss,
-                "conv_col_stage_gauss": conv_radix.conv_col_stage_gauss,
-                "conv_row_stage_gauss": conv_radix.conv_row_stage_gauss}
+    counters = launch_counters()
     planner = FftPlanner(np.complex64, device="cuda")
     assert route(4096, np.complex64) == "lanepack" and route(1 << 20, np.complex64) == "large"
     assert [route(n, np.complex64) for n in TOP] == ["large2f"] * 4 + ["large3f"] * 2
@@ -2878,6 +2893,7 @@ def main() -> None:
                              (main_launches, path_launches.setdefault(STEP_LOCAL, {})))
     max_abs[name] = max(max_abs[name], step_k1.pop("max_abs_err"))
     results[name] = step_k1
+    accuracy_phase(t0)
 
     def launches_of(name):
         base, _, where = name.partition("/")

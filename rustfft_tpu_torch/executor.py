@@ -19,11 +19,13 @@ Bluestein nodes; Good-Thomas keeps its permute gathers, as in the JAX package.
 
 Built functions are memoized per (recipe, direction, dtype, pinned, config
 state), the analogue of the reference's FftCache (fft_cache.rs:5-39) shared
-across planners because recipes are pure hashable data.  The config state is
-config.switch_key(): every field a built function bakes in.
+across planners (and threads, under a lock) because recipes are pure
+hashable data.  The config state is config.switch_key(): every field a
+built function bakes in.
 """
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
@@ -45,6 +47,9 @@ _MATRIX_LEAF_MAX = 512
 
 _CACHE: "OrderedDict[Tuple, Callable]" = OrderedDict()
 _CACHE_MAX = 512
+#: guards _CACHE: plans are built and used from several threads, and a
+#: lookup, its move to the end and an eviction must not interleave
+_CACHE_LOCK = threading.Lock()
 
 
 def route(n: int, dtype) -> Optional[str]:
@@ -161,16 +166,21 @@ def build(recipe: recipes.Recipe, direction: FftDirection, dtype,
     package's allow_fused=False)."""
     dtype = np.dtype(dtype)
     key = (recipe, direction, dtype, pinned) + config.switch_key()
-    fn = _CACHE.get(key)
+    with _CACHE_LOCK:
+        fn = _CACHE.get(key)
+        if fn is not None:
+            _CACHE.move_to_end(key)
+            return fn
+    # built outside the lock: a build recurses into build for its subtrees
+    fn = None if pinned else _kernel_fn(recipe.length, direction, dtype)
     if fn is None:
-        fn = None if pinned else _kernel_fn(recipe.length, direction, dtype)
-        if fn is None:
-            fn = _build(recipe, direction, dtype, pinned)
-        _CACHE[key] = fn
+        fn = _build(recipe, direction, dtype, pinned)
+    with _CACHE_LOCK:
+        # a thread that built the same key meanwhile got there first: share its function
+        fn = _CACHE.setdefault(key, fn)
+        _CACHE.move_to_end(key)
         if len(_CACHE) > _CACHE_MAX:
             _CACHE.popitem(last=False)
-    else:
-        _CACHE.move_to_end(key)
     return fn
 
 

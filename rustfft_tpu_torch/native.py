@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -24,9 +25,17 @@ _LIB_PATH = os.path.join(
 
 _lib = None
 _tried = False
+_load_lock = threading.Lock()
 
 
 def _load():
+    with _load_lock:
+        return _load_locked()
+
+
+def _load_locked():
+    """_load's body: under the lock, so that no thread sees _tried set
+    before _lib is."""
     global _lib, _tried
     if _tried:
         return _lib
