@@ -8,9 +8,10 @@ passes, convlarge: the fused large Bluestein) and the permutation
 
 
 def launch_counters():
-    """Every kernel wrapper that counts its launches, by name: each adds one
-    to its `.launches` where it launches its kernel on a CUDA tensor and
-    nowhere else.  The one set that chip_smoke.py and
+    """The launch counter of every ported kernel's wrapper, by name: each
+    wrapper adds one to its `.launches` where it launches its kernel on a
+    CUDA tensor and nowhere else (the tools' own forms, the stamped kernels
+    and permute_rows, are left out).  The one set that chip_smoke.py and
     tools/torch_inspect_plan.py zero before a call and read after it."""
     from . import conv, conv_radix, convlarge, dense, fused, lanepack, large, large2f, large3
     from . import largepad, permute

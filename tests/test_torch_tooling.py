@@ -36,7 +36,7 @@ if TOOLS not in sys.path:
 import inspect_plan  # noqa: E402  (the JAX package's tool)
 import torch_accuracy  # noqa: E402
 import torch_inspect_plan  # noqa: E402
-from torch_prime_cores import FORMS, core_form  # noqa: E402
+from torch_prime_cores import FORMS, recipe_core_form  # noqa: E402
 
 C64 = np.complex64
 #: the five sizes the recipe text is compared at
@@ -56,12 +56,9 @@ def route_values():
 def form_of(n):
     """(route, core form) of the planner's c64 plan at n; the form is ""
     where a route serves n or the recipe is neither Raders nor Bluesteins."""
-    recipe = FftPlanner(C64, device="cpu").design_fft_for_len(n)
     routed = route(n, C64)
-    if routed is not None or not isinstance(recipe, (recipes.Raders, recipes.Bluesteins)):
-        return routed, ""
-    kind = "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
-    return routed, core_form(kind, recipe.inner.length)
+    recipe = FftPlanner(C64, device="cpu").design_fft_for_len(n)
+    return routed, recipe_core_form(recipe, routed, C64)
 
 
 def run(args, timeout=TIMEOUT):

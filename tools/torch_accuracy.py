@@ -46,7 +46,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-from rustfft_tpu_torch import FftDirection, FftPlanner, algorithm, config, recipes, route  # noqa: E402
+from rustfft_tpu_torch import (  # noqa: E402
+    FftDirection, FftPlanner, algorithm, config, recipes, route)
 
 # the sizes of tools/tpu_accuracy.py:29-39, copied so that the two artifacts
 # compare row by row: a stratified sample of 1..1000 and the bench's sizes
@@ -199,20 +200,14 @@ def recipe_label(recipe) -> str:
 
 
 def core_form_of(check: Check, recipe, routed) -> str:
-    """The convolution core of a Raders or Bluesteins recipe that no route
-    serves ("" for other recipes): torch_prime_cores.core_form for the
-    planner's c64 plans, the torch recipe tree for pinned and c128 plans."""
-    from torch_prime_cores import FORMS, core_form
+    """torch_prime_cores.recipe_core_form; a pinned plan runs no core."""
+    from torch_prime_cores import FORMS, recipe_core_form
 
-    if routed is not None or not isinstance(recipe, (recipes.Raders, recipes.Bluesteins)):
-        return ""
-    if check.pinned or check.dtype != "complex64":
-        return FORMS[-1]
-    kind = "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
-    return core_form(kind, recipe.inner.length)
+    form = recipe_core_form(recipe, routed, np.dtype(check.dtype))
+    return FORMS[-1] if form and check.pinned else form
 
 
-def card_signal(check: Check, device) -> "torch.Tensor":  # noqa: F821
+def card_signal(check: Check, device):
     """A (batch, n) signal made on the card from seed 1000 + n, unit-normal
     real and imaginary parts as random_signal's."""
     import torch
@@ -306,6 +301,26 @@ def summary(results) -> str:
             + (f" ({c.label})" if c.label else "") + f", route {worst['route']}")
 
 
+def tpu_of(result, tpu):
+    """ACCURACY_TPU.md's relative mean error at a planner c64 check's (n,
+    direction), or None."""
+    c = result["check"]
+    return tpu.get((c.n, c.tag)) if c.dtype == "complex64" and not c.label else None
+
+
+def versus_tpu(results, tpu) -> str:
+    """How the rows that ACCURACY_TPU.md also has compare."""
+    pairs = [(t, r["rel_err"]) for r in results if (t := tpu_of(r, tpu)) is not None]
+    ratios = sorted(t / p for t, p in pairs if p > 0)
+    if not ratios:
+        return ""
+    return (f"Beside ACCURACY_TPU.md: {len(pairs)} (n, direction) rows in both; the port's "
+            f"relative mean error is the lower in {sum(p < t for t, p in pairs)}; "
+            f"ACCURACY_TPU.md's over the port's: min {ratios[0]:.3g}, median "
+            f"{ratios[len(ratios) // 2]:.3g}, max {ratios[-1]:.3g} (the {len(ratios)} rows "
+            f"where the port's is not 0).")
+
+
 def table(results, tpu) -> str:
     shown = results
     note = ""
@@ -319,7 +334,7 @@ def table(results, tpu) -> str:
              "|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in shown:
         c = r["check"]
-        on_tpu = (tpu.get((c.n, c.tag)) if c.dtype == "complex64" and not c.label else None)
+        on_tpu = tpu_of(r, tpu)
         lines.append(
             f"| {c.n} | {c.tag} | c{c.dtype[7:]} | {c.label} | {r['recipe']} | "
             f"{r['route'] or '-'} | {r['form'] or '-'} | {r['mean_err']:.3e} | "
@@ -387,16 +402,19 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         f.write("# GPU accuracy artifact — the port's production path vs the host f64 oracle\n\n")
         f.write(f"{header}\n\n")
-        f.write(f"`python3 tools/torch_accuracy.py {' '.join(argv if argv is not None else sys.argv[1:])}`"
+        command = " ".join(argv if argv is not None else sys.argv[1:])
+        f.write(f"`python3 tools/torch_accuracy.py {command}`"
                 f" in {seconds:.1f} s; batch 4 a size (1 above 2^20); input "
                 "`random_signal(seed=1000 + n)`; oracle `oracle_dft` (numpy float64); bars: "
                 f"mean element error < {args.tol} (reference tests/accuracy.rs:30-37) and "
                 "relative mean error <= 1e-5 (c64), 1e-12 (c128).  `route` is "
-                "`executor.route(n, dtype)` (- the torch recipe tree); `core form` the "
+                "`executor.route(n, dtype)` (- none: the recipe tree's nodes); `core form` the "
                 "convolution core of a Raders or Bluesteins recipe that no route serves "
                 "(`tools/torch_prime_cores.core_form`); `TPU rel mean err` the same (n, "
                 "direction) in ACCURACY_TPU.md.\n\n")
         f.write(summary(results) + "\n\n")
+        if versus_tpu(results, tpu):
+            f.write(versus_tpu(results, tpu) + "\n\n")
         if sweep:
             f.write(f"Sweep `--sweep {args.sweep}` (c64, both directions, the planner's plans): "
                     + summary(sweep) + "\n\n")

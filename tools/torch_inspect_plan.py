@@ -68,22 +68,6 @@ def describe(recipe, indent=0) -> str:
     return f"{pad}{name}(len={recipe.length})"
 
 
-def core_form(recipe, routed, dtype) -> str:
-    """The convolution core a Raders or Bluesteins recipe that no route
-    serves runs on ("" for any other recipe)."""
-    from rustfft_tpu_torch import executor
-
-    if routed is not None or not isinstance(recipe, (recipes.Raders, recipes.Bluesteins)):
-        return ""
-    from torch_prime_cores import FORMS
-    from torch_prime_cores import core_form as form
-
-    if not executor.kernels_on(dtype):
-        return FORMS[-1]
-    return form("rader" if isinstance(recipe, recipes.Raders) else "bluestein",
-                recipe.inner.length)
-
-
 def kernel_trace(fn, device) -> list:
     """(name, grid, block) of every CUDA kernel torch.profiler records while
     fn() runs, in launch order."""
@@ -113,6 +97,7 @@ def inspect(n: int, direction="forward", dtype="c64", device="cuda", scalar=Fals
 
     from rustfft_tpu_torch import FftDirection, FftPlanner, FftPlannerScalar, config, route
     from rustfft_tpu_torch.ops.kernels import launch_counters
+    from torch_prime_cores import recipe_core_form
 
     np_dtype = DTYPES[dtype]
     old = config.kernels
@@ -122,7 +107,7 @@ def inspect(n: int, direction="forward", dtype="c64", device="cuda", scalar=Fals
         plan = planner.plan_fft(n, FftDirection(direction))
         routed = route(n, np_dtype)
         out = dict(recipe=describe(plan.recipe), route=routed,
-                   core_form=core_form(plan.recipe, routed, np_dtype),
+                   core_form=recipe_core_form(plan.recipe, routed, np_dtype),
                    switch_key=config.switch_key(), launches=None, trace=None)
         gen = torch.Generator(device=device).manual_seed(n)
         x = torch.randn((1, n), dtype=getattr(torch, TORCH_DTYPES[dtype]), generator=gen,

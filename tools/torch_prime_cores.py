@@ -73,6 +73,21 @@ def core_form(kind: str, m: int) -> str:
     return FORMS[5]
 
 
+def recipe_core_form(recipe, routed, dtype) -> str:
+    """The core a plan's top recipe runs on: core_form for a Raders or
+    Bluesteins recipe that no route serves (`routed`, executor.route's
+    name, is None) with the kernels on for `dtype`, the torch recipe tree
+    with them off; "" for any other recipe."""
+    from rustfft_tpu_torch import executor, recipes
+
+    if routed is not None or not isinstance(recipe, (recipes.Raders, recipes.Bluesteins)):
+        return ""
+    if not executor.kernels_on(dtype):
+        return FORMS[5]
+    kind = "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
+    return core_form(kind, recipe.inner.length)
+
+
 def census(lo: int, hi: int):
     """(primes by (recipe, inner length), primes by core form, inner
     lengths by core form) over the primes of [lo, hi]."""
