@@ -110,7 +110,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    Bluestein's tile form at Q = 8192, 6144, 4096, 3072) and 24571 x 2048
    (its general form; 24571's inner m = 49152 is on the cluster band), and
    the two-pass core's four stages at 746497 x 64 (Rader), 196613 x 256
-   and 88589 x 512 (Bluestein).  Then the
+   and 88589 x 512 (Bluestein) through executor.build, on the recipes that
+   the prime rule replaced there (FftPlannerGpu._conv_prime_recipe).  Then the
    switched paths, each switch set just before its plans are made and set
    back in a `finally`: 2^20 x 1024 under config.large_gauss (the Gauss
    stages), under config.large_blocks2d and through
@@ -188,9 +189,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    row stage with the scatter and the DC-first output), the Bluesteins
    196613 x 256 and 88589 x 512 (pass 1's column stage with the chirp,
    pass 2's row stage with post), the middle two launches of each printed
-   with their bounds, and at 65537 x 512 on the raw rows (in_shift); 746497 x 64 as
-   Raders(746496) on the two-pass core
-   and as Bluesteins(746497, 1572864) on the fused large Bluestein.  The
+   with their bounds, and at 65537 x 512 on the raw rows (in_shift).  The
    switches: K4's Gauss stages at 64 x 2^20 against the default stages
    (K2 and K3) on the same inputs, their plain versions, their bound (that
    of the default stages, with the Gauss form's own operation count beside
@@ -228,7 +227,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    on the card, each within its relative mean error bar (1e-5 c64, 1e-12
    c128) and mean element error < 0.1, then examples/torch_concurrency.py's
    check in-process (one plan from four threads at 4096, 1009 and 2^20),
-   and one summary line with the phase's seconds.
+   and one summary line with the phase's seconds;
+8. the planner rules (tools/torch_planner_rules.py measures them at many
+   sizes): at each size of RULE_SIZES the rule's path (the planner's, with
+   the rule's config field on where it is off by default: the hole band's
+   config.bconv_misaligned, the dense band's config.dense_fallback_max_n)
+   and the path it replaces (the prime rule's: the recipe of the
+   convolution-core rules through executor.build on K14's four stages;
+   the others' the planner's default: large_pad, the convolution cores),
+   each run once with the launch counters (exactly its route's or core
+   form's kernels) and held against the float64 oracle on 4 rows (1e-5),
+   then timed in turns (replaced, rule, rule, replaced; CUDA events,
+   median of 5) beside torch.fft, and the phase's seconds.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -340,6 +350,22 @@ FOUR = {746497: 64, 196613: 256, 88589: 512}
 #: (16384, r = 1), 65521 (131072, r = 8) and 131071 (262144, r = 16) ->
 #: batch
 CLUSTER_PRIMES = {65537: 512, 7919: 4096, 65521: 512, 131071: 256}
+
+#: the planner rules (phase 8), each at its sizes -> batch: the prime rule
+#: (on: the FOUR primes, now Bluesteins on K15's tile form at 746497 and
+#: 196613 and on the cluster passes at 88589, and 15121, a Rader before,
+#: on the cluster passes), the hole band (config.bconv_misaligned, off:
+#: 15625 and 59049, where the card measured large_pad faster, and 16383,
+#: where it measured the Bluestein faster) and the dense band
+#: (config.dense_fallback_max_n, off)
+RULE_SIZES = {
+    "prime rule": {**FOUR, 15121: 4096},
+    "hole band": {15625: 4096, 59049: 1024, 16383: 4096},
+    "dense band": {257: 131072, 1031: 32768, 2042: 32768},
+}
+#: the config each rule's new path is built under
+RULE_ON = {"prime rule": {}, "hole band": {"bconv_misaligned": True},
+           "dense band": {"dense_fallback_max_n": 2048}}
 
 #: kernels ported and checked but on no route (the JAX package routes none
 #: of them either)
@@ -876,7 +902,7 @@ def main() -> None:
         largepad, launch_counters, permute,
     )
     from rustfft_tpu_torch.ops.raders import raders_tables
-    from rustfft_tpu_torch.planner import routed_bluestein_inner
+    from rustfft_tpu_torch.planner import FftPlannerGpu
     from rustfft_tpu_torch.twiddles import host_dft
 
     dev = torch.device("cuda")
@@ -885,6 +911,13 @@ def main() -> None:
 
     def signal(batch: int, n: int) -> torch.Tensor:
         return torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+
+    rules_planner = FftPlannerGpu(np.complex64, device="cuda")
+
+    def four_recipe(n):
+        """The recipe of the convolution-core rules for the prime n (a FOUR
+        path), on K14's four stages: the one the prime rule replaced."""
+        return rules_planner._conv_prime_recipe(n)
 
     def on_card(arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
@@ -1302,7 +1335,7 @@ def main() -> None:
         for n, batch in ((746497, 1), (746497, 3), (17011, 3), (196613, 1), (196613, 3),
                          (88589, 1), (88589, 3)):
             key = n if n in FOUR else 746497
-            planned = FftPlanner(np.complex64, device="cuda").plan_fft_forward(n).recipe
+            planned = four_recipe(n)
             m = planned.inner.length
             if isinstance(planned, recipes.Raders):
                 perm_in, inv_gather, b_fft = raders_tables(n, d)
@@ -1587,7 +1620,7 @@ def main() -> None:
     for n, m, batches in ((1000003, 1 << 21, (1, 3)),
                           *((n, m, (1, 3)) for n, (m, _) in BLUE.items() if n != 1000003),
                           *((n, None, (1, 3)) for n in K15_CHECKS if n != 746497),
-                          (746497, routed_bluestein_inner(746497, np.complex64), (2,)),
+                          (746497, None, (2,)),
                           (24571, 49152, (2,))):
         m = m or FftPlanner(np.complex64, device="cuda").plan_fft_forward(n).recipe.inner.length
         key = K15_CHECKS.get(n, n)
@@ -1696,11 +1729,12 @@ def main() -> None:
 
     four = {"conv_col_stage": 2, "conv_row_stage": 2}
     for n in FOUR:
-        recipe = planner.plan_fft_forward(n).recipe
+        recipe = four_recipe(n)
         m = recipe.inner.length
         assert isinstance(recipe, (recipes.Raders, recipes.Bluesteins)), recipe
         assert (conv_radix.radix_conv_supported(m, np.complex64) and conv_radix.cluster_form(m)
                 is None and not convlarge.bconv_supported(m, np.complex64)), (n, m)
+        assert planner.plan_fft_forward(n).recipe != recipe, n  # the prime rule's
     main_launches = {name: 0 for name in counters}
     path_launches = {}
 
@@ -1735,7 +1769,6 @@ def main() -> None:
         *((n, batch, k15) for n, (_, batch) in BLUE.items()),
         *((n, batch, k15) for n in BLUE for batch in (1, 3)),
         (24571, 2048, k15_general),
-        *((n, batch, four) for n, batch in FOUR.items()),
     )
 
     def drive(key, n, batch, expected, fwd, inv, what, same_as=None, oracle=True):
@@ -1831,6 +1864,13 @@ def main() -> None:
     fwd, inv = (large.make_large_fft_fn(1 << 20, d, np.complex64, deep_a=True) for d in directions)
     drive(f"{1 << 20} deep_a", 1 << 20, 1024, default_large, fwd, inv,
           "n=1048576 batch=1024 make_large_fft_fn(deep_a=True)", default_2_20)
+    # K14's four stages at the FOUR paths, through executor.build on the
+    # recipes the prime rule replaced there (the planner's paths, phase 8)
+    for n, batch in FOUR.items():
+        recipe = four_recipe(n)
+        fwd, inv = (executor.build(recipe, d, np.complex64) for d in directions)
+        drive(n, n, batch, four, fwd, inv, f"n={n} batch={batch} {type(recipe).__name__}"
+              f"(m={recipe.inner.length}) on K14's four stages")
     # the parent form of the one-pass core where it still serves, through
     # executor.build: Raders(928) and Bluesteins(1234, 3712)
     for tag_, (n, m) in CONV_FFT_PATHS.items():
@@ -2114,11 +2154,11 @@ def main() -> None:
 
     def bluestein_stages(n, batch):
         """The two-pass core's four stages of the Bluestein n at (batch, n)
-        rows (the planner's inner m), each against its plain version within
-        1e-6, the result against the float64 oracle on 4 rows; pass 1's
-        column stage (the chirp) and pass 2's row stage (post, n_out < m)
-        timed as conv_col_stage/n and conv_row_stage/n."""
-        m = planner.plan_fft_forward(n).recipe.inner.length
+        rows (the inner m of four_recipe), each against its plain version
+        within 1e-6, the result against the float64 oracle on 4 rows; pass
+        1's column stage (the chirp) and pass 2's row stage (post, n_out <
+        m) timed as conv_col_stage/n and conv_row_stage/n."""
+        m = four_recipe(n).inner.length
         p, q = conv_radix.choose_split(m)
         chirp, h_fft = bluestein_tables(n, m, FftDirection.FORWARD)
         tabs = conv_radix.radix_conv_tables(m, FftDirection.FORWARD, h=h_fft, pre=chirp,
@@ -2866,27 +2906,6 @@ def main() -> None:
             del x, z, part, kw2
             free()
 
-    # 746497 x 64 both ways, each built through executor.build: the
-    # reference rule's Rader and the JAX package's third prime rule (a
-    # Bluestein whose inner a kernel route serves, routed_bluestein_inner)
-    n, batch = 746497, 64
-    m = routed_bluestein_inner(n, np.complex64)
-    x = signal(batch, n)
-    want = torch.fft.fft(x)
-    for what, recipe in (
-        (f"Raders({n - 1}) on the two-pass core", recipes.Raders(recipes.Dft(n - 1))),
-        (f"Bluesteins({n}, {m}) on the fused large Bluestein",
-         recipes.Bluesteins(n, recipes.Dft(m))),
-    ):
-        fn = executor.build(recipe, fwd, np.complex64)
-        check(f"{n} x {batch} as {what} vs torch.fft", rel_err(fn(x), want))
-        free()
-        t = median_ms(lambda: fn(x), reps=5)
-        print(f"  {n} x {batch} as {what}: {t:.3f} ms ({gflops(n, batch, t):.0f} GF/s)", flush=True)
-    print(f"  the planner takes {planner.plan_fft_forward(n).recipe!r}"[:160], flush=True)
-    del x, want
-    free()
-
     pinned_phase(counters, signal, t0)
     name = f"lanepack_chain_fft/{STEP_LOCAL}"
     step_k1 = spectral_phase(counters, signal, card, t0,
@@ -2894,6 +2913,67 @@ def main() -> None:
     max_abs[name] = max(max_abs[name], step_k1.pop("max_abs_err"))
     results[name] = step_k1
     accuracy_phase(t0)
+
+    # ---- phase 8: the planner rules ----
+    start = time.perf_counter()
+    print(f"phase 8: the planner rules, each rule's path against the recipe it replaces (t = "
+          f"{start - t0:.1f} s)", flush=True)
+    launches_by_form = {"K15 tile form": k15, "K14 cluster passes": k14, "K14 four stages": four}
+
+    def rule_path(recipe, routed):
+        """(the launches of one call of a rule's path: its route's kernels,
+        else its convolution core's; what it is)."""
+        if routed == "dense":
+            return {"dense_fft": 1}, routed
+        if routed == "large_pad":
+            return {"largepad_col_stage": 1, "largepad_row_stage": 1}, routed
+        kind = "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
+        m = recipe.inner.length
+        form = executor.core_form(kind, m, np.complex64)
+        what = f"{type(recipe).__name__}(m={m}) on the {form}"
+        if form == "one-pass core":
+            core = "conv_chain_fft" if conv.chain_radices(m) else "conv_fft"
+            return {core: 1, **({"permute": 2} if kind == "rader" else {})}, what
+        return launches_by_form[form], what
+
+    for rule, sizes in RULE_SIZES.items():
+        for n, batch in sizes.items():
+            new_plan = switched(config, RULE_ON[rule], lambda: planner.plan_fft_forward(n))
+            new_route = switched(config, RULE_ON[rule], lambda: route(n, np.complex64))
+            if rule == "prime rule":
+                old_recipe, old_route = four_recipe(n), None
+                old_fn = executor.build(old_recipe, FftDirection.FORWARD, np.complex64)
+            else:
+                old_plan = planner.plan_fft_forward(n)
+                old_recipe, old_route, old_fn = old_plan.recipe, route(n, np.complex64), \
+                    old_plan.process
+            if new_plan.recipe == old_recipe and new_route == old_route:
+                raise AssertionError(f"{rule} n={n}: the rule changes nothing")
+            ways = {"replaced": (old_fn, *rule_path(old_recipe, old_route)),
+                    "rule": (new_plan.process, *rule_path(new_plan.recipe, new_route))}
+            x = signal(batch, n)
+            ref = host_dft(x[:4].cpu().numpy(), FftDirection.FORWARD)
+            for way, (fn, expected, what) in ways.items():
+                y = run_counted(counters, lambda: fn(x), expected, f"{rule} n={n} {way} path",
+                                (main_launches,))
+                check(f"{rule} n={n} batch={batch} {way} path ({what}) vs float64 oracle "
+                      "(4 rows)", float(np.mean(np.abs(y[:4].cpu().numpy() - ref))
+                                        / np.mean(np.abs(ref))))
+                del y
+            times = {way: [] for way in ways}
+            for way in ("replaced", "rule", "rule", "replaced"):
+                times[way].append(median_ms(lambda: ways[way][0](x), reps=5))
+            lib = median_ms(lambda: torch.fft.fft(x), reps=5)
+            old_ms, new_ms = (statistics.median(times[w]) for w in ("replaced", "rule"))
+            print(f"  {rule} n={n} batch={batch}: the rule's path {new_ms:.3f} ms "
+                  f"({' / '.join(f'{t:.3f}' for t in times['rule'])}), the replaced "
+                  f"{old_ms:.3f} ms ({' / '.join(f'{t:.3f}' for t in times['replaced'])}; "
+                  f"{old_ms / new_ms:.2f}x), torch.fft {lib:.3f} ms"
+                  + (" (the replaced path is the planner's default)" if RULE_ON[rule]
+                     else " (the rule's path is the planner's default)"), flush=True)
+            del x
+            free()
+    print(f"  phase 8 {time.perf_counter() - start:.1f} s", flush=True)
 
     def launches_of(name):
         base, _, where = name.partition("/")

@@ -1,11 +1,13 @@
 """Global configuration for the torch compute path.
 
-The subset of rustfft_tpu/config.py that the port reads.  Every routing
-threshold of the JAX package was measured on a TPU and is left out: kernel
-routing here is structural (executor.route).  What is kept are switches:
-the planner's dense leaf bound, the native plancore, the kernels on or off,
-and the JAX package's kernel-variant switches of the two-pass stages, with
-the JAX defaults.  Their times on the card are in PERF.md.
+The subset of rustfft_tpu/config.py that the port reads.  The JAX
+package's routing thresholds were measured on a TPU: kernel routing here is
+structural (executor.route), and the four thresholds the port keeps (the
+dense fallback and the hole band) have defaults measured on the card by
+tools/torch_planner_rules.py.  The rest are switches: the planner's dense
+leaf bound, the native plancore, the kernels on or off, and the JAX
+package's kernel-variant switches of the two-pass stages, with the JAX
+defaults.  Their times on the card are in PERF.md.
 """
 from __future__ import annotations
 
@@ -53,11 +55,43 @@ class FftConfig:
     #: (rustfft_tpu/config.py:227).
     rader_full_out: bool = True
 
+    #: The dense route's fallback bound (rustfft_tpu/config.py:58-63): with
+    #: the kernels on, every n <= max(dense_dft_max, dense_fallback_max_n)
+    #: that no other route serves runs dense_fft.  Off (0): of the 442
+    #: sizes of [257, 2042] that no other route serves, dense_fft ran slower
+    #: than the planner's path on the convolution cores at all 69 measured
+    #: (59 sampled, 10 held out), 1.87x at 257 x 131072 (2.553 against
+    #: 1.364 ms, queued device time) to 14.9x at 2038 x 32768 (30.99
+    #: against 2.07): its operations grow as n^2
+    #: (tools/torch_planner_rules.py; NVIDIA H100 80GB HBM3, 700.00 W).
+    dense_fallback_max_n: int = 0
+
+    #: The hole band (rustfft_tpu/config.py:173-186, the JAX planner's
+    #: planner.py:363-404): with the kernels on, an odd composite n >=
+    #: bconv_misaligned_min_n that large_pad serves runs one Bluestein on
+    #: the two-pass core's cluster passes instead, its inner m = r*16384
+    #: the smallest >= 2n - 1 (r in 2, 4, 8, 16), when m <=
+    #: bconv_misaligned_max_pad * n (executor.hole_band_inner).  Off: with
+    #: the JAX settings (8192, 3.5) it takes 15988 odd composites, and of
+    #: 21 measured (11 sampled, 10 held out) the Bluestein ran slower than
+    #: large_pad at 16, up to 1.93x (18725 x 2048: 3.114 against 1.616 ms,
+    #: queued device time; 15625 x 4096 3.026 against 2.378, 59049 x 1024
+    #: 3.420 against 2.083).  It ran faster at 16383, 32767, 65535, 28251
+    #: and 63535 (1.10-1.24x), where large_pad's chains run Bluestein stages
+    #: and m <= 131072, but no pad cap holds only those: at pad 2.00 the m =
+    #: 262144 sizes 131047 and 131061 lose (0.84x, 0.97x)
+    #: (tools/torch_planner_rules.py; NVIDIA H100 80GB HBM3, 700.00 W).
+    bconv_misaligned: bool = False
+    bconv_misaligned_min_n: int = 8192
+    bconv_misaligned_max_pad: float = 3.5
+
     def switch_key(self) -> Tuple:
         """Every field a built function or plan bakes in: the key of
         executor.build's cache and of the planners' plan caches."""
         return (self.kernels, self.use_native, self.large_gauss, self.large_blocks2d,
-                self.conv_radix_gauss, self.rader_in_shift, self.rader_full_out)
+                self.conv_radix_gauss, self.rader_in_shift, self.rader_full_out,
+                self.dense_fallback_max_n, self.bconv_misaligned, self.bconv_misaligned_min_n,
+                self.bconv_misaligned_max_pad)
 
 
 #: Module-level config; mutate fields to retune.

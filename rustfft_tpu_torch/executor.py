@@ -39,7 +39,9 @@ from .ops import ct as op_ct
 from .ops import dft as op_dft
 from .ops import good_thomas as op_gt
 from .ops import raders as op_raders
-from .ops.kernels import conv, convlarge, dense, fused, lanepack, large, large2f, large3, largepad
+from .ops.kernels import (
+    conv, conv_radix, convlarge, dense, fused, lanepack, large, large2f, large3, largepad,
+)
 
 # Left factors whose DFT matrix is small enough for the middle-axis matmul
 # form of a CT stage (executor.py:_MATRIX_LEAF_MAX of the JAX package).
@@ -52,7 +54,7 @@ _CACHE_MAX = 512
 _CACHE_LOCK = threading.Lock()
 
 
-def route(n: int, dtype) -> Optional[str]:
+def route(n: int, dtype, *, hole_band: bool = True) -> Optional[str]:
     """Name the whole-transform kernel serving length n, or None (the torch
     recipe tree).  The single source of truth for kernel dispatch, like the
     JAX package's pallas_route, but structural only:
@@ -85,11 +87,18 @@ def route(n: int, dtype) -> Optional[str]:
                   'large' (_large2f_first);
       'large3f'   c64, n = P1 * P2 * Q (large3.choose_split3f), P2 <= 128:
                   2^26 (P2 = 64) and 2^27 (P2 = 128);
-      'dense'     c64, 4 <= n <= config.dense_dft_max (the planner's Dft-leaf
-                  bound) and no route above serves n: the primes 5..251.
-                  256 stays on lanepack and 1009 and 1234 on the convolution
-                  cores: dense_fft measured slower there on the H100
-                  (chip_smoke.py, PERF.md).
+      'dense'     c64, 4 <= n <= max(config.dense_dft_max,
+                  config.dense_fallback_max_n) and no route above serves n:
+                  the primes 5..251.  256 stays on lanepack, and with
+                  dense_fallback_max_n off (its default) the 442 sizes of
+                  [257, 2042] that no route serves stay on the convolution
+                  cores: dense_fft measured 1.9-15x slower there on the
+                  H100 (tools/torch_planner_rules.py, PERF.md).
+
+    An odd composite of the hole band (hole_band_inner names its inner
+    length) has no route: large_pad would serve it, and the planner's
+    Bluestein runs on the two-pass core instead (hole_band=False: the route
+    without the hole band, which hole_band_inner reads).
 
     The route does not depend on the device: a CPU tensor runs the kernel's
     plain torch version, a CUDA tensor the kernel.
@@ -105,6 +114,8 @@ def route(n: int, dtype) -> Optional[str]:
     if fused.two_stage_supported(n, dtype) or fused.two_stage_cluster_supported(n, dtype):
         return "two_stage"
     if largepad.largepad_supported(n, dtype) and largepad.narrowed_by_division(n):
+        if hole_band and hole_band_inner(n, dtype) is not None:
+            return None
         return "large_pad"
     if large.large_supported(n, dtype) and not _large2f_first(n, dtype):
         return "large"
@@ -112,9 +123,64 @@ def route(n: int, dtype) -> Optional[str]:
         return "large2f"
     if large3.large3f_supported(n, dtype):
         return "large3f"
-    if dense.dense_supported(n, dtype) and n <= config.dense_dft_max:
+    if dense.dense_supported(n, dtype) and n <= max(config.dense_dft_max,
+                                                    config.dense_fallback_max_n):
         return "dense"
     return None
+
+
+def hole_band_inner(n: int, dtype) -> Optional[int]:
+    """The inner length of the hole band's Bluestein for n, or None: with
+    config.bconv_misaligned and the c64 kernels on, an odd n >=
+    config.bconv_misaligned_min_n that route would give large_pad takes
+    the smallest m = r*16384 >= 2n - 1, r in (2, 4, 8, 16), that the
+    two-pass core runs as its cluster passes, when m <=
+    config.bconv_misaligned_max_pad * n; past the first such r, none.  The
+    JAX planner's rule and _radix_conv_inner (rustfft_tpu/planner.py:363-404)
+    with its pallas_route read as large_pad.  route leaves these sizes
+    without a route and the planner gives them Bluesteins(n, m), the same
+    m."""
+    if not (config.bconv_misaligned and kernels_on(dtype) and n % 2 == 1
+            and n >= config.bconv_misaligned_min_n):
+        return None
+    if route(n, dtype, hole_band=False) != "large_pad":
+        return None
+    for r in HOLE_BAND_RADICES:
+        m = r * fused.RADIX_PQ * fused.RADIX_PQ
+        if m < 2 * n - 1:
+            continue
+        if (m <= config.bconv_misaligned_max_pad * n and conv_radix.cluster_form(m) == r
+                and conv_radix.radix_conv_supported(m, dtype)):
+            return m
+        return None
+    return None
+
+
+#: the cluster passes' r of the hole band's inner lengths (the JAX
+#: _radix_conv_inner's, from conv_radix_min_m = 32768)
+HOLE_BAND_RADICES = (2, 4, 8, 16)
+
+#: the convolution cores a Raders or Bluesteins node runs on with the c64
+#: kernels on (core_form), in the order tools/torch_prime_cores.py prints
+CORE_FORMS = ("one-pass core", "K15 tile form", "K15 general form", "K14 cluster passes",
+              "K14 four stages", "torch recipe tree")
+
+
+def core_form(kind: str, m: int, dtype) -> str:
+    """The core _build runs a Raders ("rader") or Bluesteins ("bluestein")
+    node of inner length m on with the c64 kernels on (its Raders and
+    Bluesteins branches): the one-pass core (K6 / K13), the fused large
+    Bluestein in its tile form (convlarge.tile_form) or general form (K15),
+    the two-pass core's cluster passes (conv_radix.cluster_form) or its four
+    stages (K14), else the torch recipe tree."""
+    if conv.conv_supported(m, dtype):
+        return CORE_FORMS[0]
+    if kind == "bluestein" and convlarge.bconv_supported(m, dtype):
+        p, q1, q2 = large.choose_pqq(m)
+        return CORE_FORMS[1] if convlarge.tile_form(p, q1 * q2) else CORE_FORMS[2]
+    if conv_radix.radix_conv_supported(m, dtype):
+        return CORE_FORMS[3] if conv_radix.cluster_form(m) is not None else CORE_FORMS[4]
+    return CORE_FORMS[5]
 
 
 def _large2f_first(n: int, dtype) -> bool:

@@ -178,16 +178,43 @@ def _smooth_inner_candidates(length: int) -> Tuple[int, ...]:
 
 
 def routed_bluestein_inner(length: int, dtype) -> Optional[int]:
-    """The smallest 2^a*3^b Bluestein inner m >= 2n-1 that executor.route
-    serves, or None: the JAX planner's _routed_bluestein_inner
-    (planner.py:552-569) with its pallas_route read as the port's route.
-    746497 -> 1572864 (route "large", the fused large Bluestein).  The
-    planner does not take it (FftPlannerGpu._design_prime); chip_smoke.py
-    times it against the Rader the planner takes."""
+    """The smallest 2^a*3^b Bluestein inner m >= 2n-1 whose core runs a fast
+    form (FAST_FORMS: K15's tile form or K14's cluster passes,
+    executor.core_form), or None: the port's reading of the JAX planner's
+    _routed_bluestein_inner (planner.py:552-569), whose "a fused tier
+    serves m" reads here as a core form that the card runs near
+    torch.fft's time.  746497 -> 1572864 (K15's tile form at Q = 6144),
+    88589 -> 262144 (the cluster passes at r = 16).  The planner takes it
+    for the primes whose inner runs K14's four stages (prime_rule_inner)."""
     from . import executor
 
     return next((m for m in _smooth_inner_candidates(length)
-                 if executor.route(m, dtype) is not None), None)
+                 if executor.core_form("bluestein", m, dtype) in FAST_FORMS), None)
+
+
+#: the core forms routed_bluestein_inner takes (executor.CORE_FORMS)
+FAST_FORMS = ("K15 tile form", "K14 cluster passes")
+
+
+def prime_rule_inner(length: int, recipe: recipes.Recipe, dtype) -> Optional[int]:
+    """The prime rule: the inner length of the Bluestein the planner takes
+    for the prime n in place of `recipe` (the Raders or Bluesteins of the
+    convolution-core rules), or None to keep it.  Where the recipe's inner
+    runs K14's four stages, the fast-form inner routed_bluestein_inner:
+    11228 of the primes of [8192, 2^20] (604 Raders, 10624 Bluesteins;
+    tools/torch_prime_cores.py), 8000 onto the cluster passes and 3228 onto
+    K15's tile form, their inner 1.05-3.90x the one they leave.  The card
+    measured the new recipe faster at all 86 primes timed (67 sampled, 19
+    held out), 1.11x at 40961 x 1024 (3.314 against 3.688 ms, queued
+    device time) to 3.12x at 719951 x 64 (3.089 against 9.633); 746497 x
+    64 3.119 against 7.551 (tools/torch_planner_rules.py; NVIDIA H100 80GB
+    HBM3, 700.00 W)."""
+    from . import executor
+
+    kind = "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
+    if executor.core_form(kind, recipe.inner.length, dtype) != "K14 four stages":
+        return None
+    return routed_bluestein_inner(length, dtype)
 
 
 class FftPlannerScalar(_PlannerBase):
@@ -314,7 +341,13 @@ class FftPlannerGpu(_PlannerBase):
     * With the c64 kernels on (config.kernels == "auto"):
       - prime n: Rader's when a convolution core serves n-1 with register
         stages only (conv.conv_aligned), else Bluestein's with the inner
-        `_conv_inner` picks, else the reference rule;
+        `_conv_inner` picks, else the reference rule; then the prime rule
+        (prime_rule_inner): where that recipe's inner runs K14's four
+        stages, Bluestein's on the inner routed_bluestein_inner finds (the
+        JAX planner's third prime rule, planner.py:533-549);
+      - an odd composite of the hole band (executor.hole_band_inner, the
+        JAX planner's planner.py:363-381, on with config.bconv_misaligned):
+        one whole-n Bluestein's on the two-pass core's cluster passes;
       - composite n with a prime factor above dense_dft_max (1234 = 2*617):
         one whole-n Bluestein's when `_conv_inner` finds an inner.
     * composite n: near-balanced split n = p*q (largest divisor <= sqrt(n)),
@@ -323,12 +356,14 @@ class FftPlannerGpu(_PlannerBase):
     * otherwise (kernels off, c128) primes take the reference's
       Rader's-vs-Bluestein's rule: the JAX package's recipes with Pallas off.
 
-    The JAX package's hole-band rule for odd composites
-    (planner.py:363-380) rests on TPU measurements and is not ported.
+    The card's measurements of the rules are tools/torch_planner_rules.py's
+    (PERF.md).
     """
 
     def _recipe_cache_key(self) -> Tuple:
-        return (config.dense_dft_max, config.kernels)
+        return (config.dense_dft_max, config.kernels, config.dense_fallback_max_n,
+                config.bconv_misaligned, config.bconv_misaligned_min_n,
+                config.bconv_misaligned_max_pad)
 
     def _conv_rules(self) -> bool:
         return config.kernels == "auto" and self.dtype == np.complex64
@@ -338,8 +373,14 @@ class FftPlannerGpu(_PlannerBase):
             return recipes.Dft(length)
         if factors.is_prime():
             return self._design_prime(length)
-        if self._conv_rules() and factors.has_factors_gt(config.dense_dft_max):
-            m = self._conv_inner(length)
+        if self._conv_rules():
+            from . import executor
+
+            # the hole band before the awkward-composite rule: route gives
+            # these sizes no route, so the recipe's m is the one that runs
+            m = executor.hole_band_inner(length, self.dtype)
+            if m is None and factors.has_factors_gt(config.dense_dft_max):
+                m = self._conv_inner(length)
             if m is not None:
                 return recipes.Bluesteins(length, self.design_fft_for_len(m))
         p = self._choose_left_factor(length, factors)
@@ -348,13 +389,20 @@ class FftPlannerGpu(_PlannerBase):
         return recipes.MixedRadix(left, right)
 
     def _design_prime(self, length: int) -> recipes.Recipe:
-        """Rader's on an aligned n-1, else Bluestein's on an aligned inner,
-        else the reference rule.  The JAX planner's third rule for huge
-        primes (planner.py:533-549: a Bluestein whose inner a kernel tier
-        serves, routed_bluestein_inner) is not taken: at 746497 x 64 its
-        Bluesteins(746497, 1572864) on the fused large Bluestein measured
-        1.2x slower on the H100 than the reference rule's Rader on the
-        two-pass core (chip_smoke.py, PERF.md)."""
+        """The recipe _conv_prime_recipe gives, or with the c64 kernels on
+        the prime rule's Bluestein in its place (prime_rule_inner: where
+        its inner runs K14's four stages, a fast core form's)."""
+        recipe = self._conv_prime_recipe(length)
+        if self._conv_rules() and isinstance(recipe, (recipes.Raders, recipes.Bluesteins)):
+            m = prime_rule_inner(length, recipe, self.dtype)
+            if m is not None:
+                return recipes.Bluesteins(length, self.design_fft_for_len(m))
+        return recipe
+
+    def _conv_prime_recipe(self, length: int) -> recipes.Recipe:
+        """With the c64 kernels on, Rader's on an aligned n-1, else
+        Bluestein's on an aligned inner (_conv_inner); else, and with the
+        kernels off, the reference rule."""
         raders_factors = PrimeFactors.compute(length - 1)
         if self._conv_rules():
             if conv.conv_aligned(length - 1, self.dtype):

@@ -26,8 +26,10 @@ from rustfft_tpu.ops import bluestein as ref_bluestein
 from rustfft_tpu.ops import raders as ref_raders
 from rustfft_tpu.ops.pallas import conv_radix as ref_conv_radix
 from rustfft_tpu.ops.pallas import convlarge as ref_convlarge
-from rustfft_tpu_torch import FftPlanner, config
+from rustfft_tpu_torch import FftPlanner, config, executor
 from rustfft_tpu_torch.common import FftDirection
+from rustfft_tpu_torch.plan import FftPlan
+from rustfft_tpu_torch.planner import FftPlannerGpu
 from rustfft_tpu_torch.ops import bluestein, raders
 from rustfft_tpu_torch.ops.kernels import conv_radix, convlarge, large, largepad
 from rustfft_tpu_torch.twiddles import host_dft
@@ -104,8 +106,10 @@ def test_ragged_tiles_and_partials_layout(p, q):
 def test_ragged_tiles_reach_every_four_stage_inner():
     """The split rule is the parent's (choose_split on large.cuh's dividing
     tiles, so the routes and recipes do not move) and K12's kernels run both
-    chains of every four-stage inner the primes' recipes take, here those of
-    the primes in [8192, 60000] and the paths chip_smoke.py drives."""
+    chains of every four-stage inner the convolution-core rules give the
+    primes (FftPlannerGpu._conv_prime_recipe: the recipes the prime rule
+    replaces, which chip_smoke.py builds), here those of the primes in
+    [8192, 60000] and the FOUR paths."""
     assert conv_radix.choose_split(746496) == (256, 2916)
     assert conv_radix.choose_split(419904) == (243, 1728)
     assert conv_radix.choose_split(186624) == (256, 729)
@@ -115,7 +119,7 @@ def test_ragged_tiles_reach_every_four_stage_inner():
     planner = FftPlannerGpu(np.complex64)
     seen = set()
     for n in (17011, 15121, 8209, 20161, 19441, 10369, 11677, 8753, 746497, 196613, 88589):
-        recipe = planner._design_prime(n)
+        recipe = planner._conv_prime_recipe(n)
         assert isinstance(recipe, (recipes.Raders, recipes.Bluesteins))
         m = recipe.inner.length
         assert conv_radix.cluster_form(m) is None
@@ -284,9 +288,11 @@ def test_four_stage_bluestein_matches_jax(d, rd):
 
 @pytest.mark.parametrize("n", [746497, 196613, 88589])
 def test_planner_paths_take_the_ragged_stages(n, monkeypatch):
-    """The four-stage paths chip_smoke.py drives run conv_col_stage and
-    conv_row_stage twice each, on the in-place chains' tables, and match the
-    oracle on one row."""
+    """The four-stage paths chip_smoke.py drives (the recipes of the
+    convolution-core rules, which the prime rule replaces in the planner,
+    through executor.build) run conv_col_stage and conv_row_stage twice
+    each, on the in-place chains' tables, and match the oracle on one
+    row."""
     calls = []
     for name in ("conv_col_stage", "conv_row_stage", "conv_radix_pass1"):
         real = getattr(conv_radix, name)
@@ -297,7 +303,9 @@ def test_planner_paths_take_the_ragged_stages(n, monkeypatch):
 
         monkeypatch.setattr(conv_radix, name, spy)
     x = _signal(1, n, seed=n)
-    got = FftPlanner(np.complex64, device="cpu").plan_fft_forward(n).process(x)
+    recipe = FftPlannerGpu(np.complex64, device="cpu")._conv_prime_recipe(n)
+    assert FftPlanner(np.complex64, device="cpu").design_fft_for_len(n) != recipe
+    got = executor.build(recipe, FftDirection.FORWARD, np.complex64)(torch.from_numpy(x))
     assert calls == ["conv_col_stage", "conv_row_stage"] * 2
     assert _rel(got, host_dft(x, FftDirection.FORWARD)) <= TOL
 
@@ -597,7 +605,9 @@ def test_general_paths_launch_their_forms_on_card(cuda_device, n, rises):
     planner = FftPlanner(np.complex64, device="cuda")
     x = _signal(2, n, seed=n)
     for d, _ in DIRECTIONS:
-        plan = planner.plan_fft_forward(n) if d is FftDirection.FORWARD else planner.plan_fft_inverse(n)
+        plan = planner.plan_fft(n, d)
+        if rises.get("conv_col_stage") == 2:  # K14's four stages: the prime rule's old recipe
+            plan = FftPlan(FftPlannerGpu(np.complex64)._conv_prime_recipe(n), d, np.complex64)
         before = {k: c.launches for k, c in counters.items()}
         got = plan.process(torch.from_numpy(x).to(cuda_device))
         torch.cuda.synchronize()

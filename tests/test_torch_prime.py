@@ -668,9 +668,10 @@ def test_good_thomas_permute_on_card(cuda_device, p, q):
 @pytest.mark.parametrize("n", [746497, 1000003])
 def test_huge_primes_match_oracle(n):
     """Primes whose n-1 no core serves with register stages take the
-    reference rule: 746497 -> Rader onto the two-pass core (Q = 2916 with a
-    radix-27 stage, general kernels), 1000003 -> Bluestein at m = 2^21 on
-    the fused large Bluestein (ops/kernels/convlarge.py)."""
+    reference rule, then the prime rule: 746497 -> Rader onto K14's four
+    stages, then the Bluestein at m = 1572864 on the fused large Bluestein's
+    tile form, 1000003 -> Bluestein at m = 2^21 on the fused large
+    Bluestein (ops/kernels/convlarge.py)."""
     planner = rustfft_tpu_torch.FftPlanner(np.complex64, device="cpu")
     plan = planner.plan_fft_forward(n)
     assert not conv.conv_aligned(n - 1, np.complex64)
@@ -682,15 +683,14 @@ def test_huge_primes_match_oracle(n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [746497, 1000003])
 def test_huge_primes_on_card(cuda_device, n):
-    """746497: Rader on the two-pass core (two column and two row stages);
-    1000003: the fused large Bluestein's tile form (kernel A, B_conv, A2)."""
+    """746497 (the prime rule's Bluestein at m = 1572864) and 1000003: the
+    fused large Bluestein's tile form (kernel A, B_conv, A2)."""
     from rustfft_tpu_torch.ops.kernels import convlarge
 
     counters = {"col": conv_radix.conv_col_stage, "row": conv_radix.conv_row_stage,
                 "a": convlarge.bconv_col_tile, "bconv": convlarge.bconv_row_tile,
                 "out": convlarge.bconv_out_tile}
-    rises = ({"col": 2, "row": 2, "a": 0, "bconv": 0, "out": 0} if n == 746497 else
-             {"col": 0, "row": 0, "a": 1, "bconv": 1, "out": 1})
+    rises = {"col": 0, "row": 0, "a": 1, "bconv": 1, "out": 1}
     planner = rustfft_tpu_torch.FftPlanner(np.complex64, device="cuda")
     x = _signal(2, n, seed=n)
     for d, _ in DIRECTIONS:

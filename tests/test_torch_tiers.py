@@ -294,19 +294,22 @@ def test_bluestein_branch_takes_k15():
 
 
 def test_746497_keeps_rader():
-    """The JAX package's third prime rule (a Bluestein whose inner a kernel
-    route serves, because n-1 = 746496 routes to large_pad) would take
-    Bluesteins(746497, 1572864) on K15; on the card it ran slower than the
-    reference rule's Rader on the two-pass core, which the port keeps."""
-    from rustfft_tpu_torch.planner import routed_bluestein_inner
+    """The recipe of the convolution-core rules for 746497 (the reference
+    rule's Rader, n-1 = 746496 on K14's four stages: route "large_pad")
+    still builds on the two-pass core, but the planner takes the prime
+    rule's Bluesteins(746497, 1572864) on K15's tile form, which the card
+    measured faster (tools/torch_planner_rules.py)."""
+    from rustfft_tpu_torch.planner import FftPlannerGpu, routed_bluestein_inner
 
     assert routed_bluestein_inner(746497, np.complex64) == 1572864
     assert routed_bluestein_inner(1000003, np.complex64) == 1 << 21
     assert route(746496, np.complex64) == "large_pad"
+    rader = FftPlannerGpu(np.complex64, device="cpu")._conv_prime_recipe(746497)
+    assert isinstance(rader, recipes.Raders) and rader.inner.length == 746496
+    assert executor.build(rader, FftDirection.FORWARD, np.complex64).__module__ == conv.__name__
     recipe = FftPlanner(np.complex64, device="cpu").design_fft_for_len(746497)
-    assert isinstance(recipe, recipes.Raders) and recipe.inner.length == 746496
-    fn = executor.build(recipes.Bluesteins(746497, recipes.Dft(1572864)), FftDirection.FORWARD,
-                        np.complex64)
+    assert isinstance(recipe, recipes.Bluesteins) and recipe.inner.length == 1572864
+    fn = executor.build(recipe, FftDirection.FORWARD, np.complex64)
     assert fn.__module__ == convlarge.__name__
 
 

@@ -36,6 +36,9 @@ if TOOLS not in sys.path:
 import inspect_plan  # noqa: E402  (the JAX package's tool)
 import torch_accuracy  # noqa: E402
 import torch_inspect_plan  # noqa: E402
+import torch_planner_rules  # noqa: E402
+import torch_prime_cores  # noqa: E402
+import torch_routes  # noqa: E402
 from torch_prime_cores import FORMS, recipe_core_form  # noqa: E402
 
 C64 = np.complex64
@@ -80,12 +83,14 @@ def test_route_sizes_take_their_route(name):
 def test_form_sizes_take_their_core_form(form):
     """Every core form of torch_prime_cores.FORMS is reached by some prime
     (the torch recipe tree by the Bluesteins on 2^23 above about 3.1 million,
-    4194301 among them), and each size listed for it is a prime that no
-    route serves and whose inner length runs on that form."""
+    4194301 among them) but K14's four stages, which the prime rule leaves
+    to composites alone, and each size listed for it is a prime (for the
+    four stages a composite) that no route serves and whose inner length
+    runs on that form."""
     sizes = torch_accuracy.FORM_SIZES[form]
     assert sizes, form
     for n in sizes:
-        assert math_utils.is_prime(n), n
+        assert math_utils.is_prime(n) == (form != "K14 four stages"), n
         assert form_of(n) == (None, form), n
 
 
@@ -200,6 +205,109 @@ def test_inspect_plan_options(capsys):
     assert "route: none" in printed and "core form: torch recipe tree" in printed
     assert "trace: no CUDA kernels on the cpu" in printed
     assert torch_inspect_plan.inspect(65537, device="cpu")["core_form"] == "K14 cluster passes"
+
+
+@pytest.fixture
+def rule_fields():
+    """Set the planner rules' config fields for one test; set back after."""
+    names = ("dense_fallback_max_n", "bconv_misaligned", "bconv_misaligned_min_n",
+             "bconv_misaligned_max_pad")
+    old = {k: getattr(executor.config, k) for k in names}
+
+    def set_(**kw):
+        for k, v in kw.items():
+            setattr(executor.config, k, v)
+
+    yield set_
+    set_(**old)
+
+
+@pytest.mark.parametrize("n,on,rule", [
+    (746497, {}, "the prime rule: rader on m=746496 (K14 four stages) -> Bluestein on "
+                 "m=1572864 (K15 tile form)"),
+    (88589, {}, "the prime rule: bluestein on m=186624 (K14 four stages) -> Bluestein on "
+                "m=262144 (K14 cluster passes)"),
+    (16383, {"bconv_misaligned": True},
+     "the hole band: Bluestein on m=32768 (K14 cluster passes), not large_pad"),
+    (1031, {"dense_fallback_max_n": 2048},
+     "the dense band: dense_fft up to config.dense_fallback_max_n = 2048"),
+    (16383, {}, ""), (1031, {}, ""), (65537, {}, ""),
+])
+def test_inspect_plan_names_the_rule(n, on, rule, rule_fields, capsys):
+    """The planner rule that decided n, as the tool prints it (none where
+    no rule acts or a rule is off)."""
+    rule_fields(**on)
+    assert torch_inspect_plan.inspect(n, device="cpu")["rule"] == rule
+    torch_inspect_plan.main([str(n), "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert (f"planner rule: {rule}\n" in printed) == bool(rule)
+    assert torch_inspect_plan.inspect(n, device="cpu", scalar=True)["rule"] == ""
+
+
+# ---- tools/torch_prime_cores.py, tools/torch_routes.py --rules ----
+
+def test_prime_cores_counts_the_prime_rule():
+    """The census of [8192, 9000]: no prime left on K14's four stages, each
+    moved by the prime rule from them onto a fast form."""
+    by_inner, by_form, _, moved, pads = torch_prime_cores.census(8192, 9000)
+    assert by_form["K14 four stages"] == 0 and sum(moved.values()) > 0
+    assert all(old == "K14 four stages" and new in ("K14 cluster passes", "K15 tile form")
+               for _, old, new in moved)
+    assert len(pads) == sum(moved.values()) and all(p > 1 for p in pads)
+
+
+def test_routes_count_the_rule_bands(rule_fields, capsys):
+    """--rules: the hole band and the dense band as configured (both off)
+    and with the JAX settings (15988 and 442 sizes)."""
+    torch_routes.print_rule_bands()
+    out = capsys.readouterr().out
+    assert "hole band: 0 odd composites" in out and "dense band: 0 sizes" in out
+    assert "hole band: 15988 odd composites" in out
+    assert "(r=2: 728, r=4: 2803, r=8: 4787, r=16: 7670)" in out
+    assert "dense band: 442 sizes of [257, 2048] route dense, 0 have no route" in out
+    rule_fields(dense_fallback_max_n=1024)
+    assert torch_routes.rule_bands({})[1] == sum(1 for n in range(257, 1025)
+                                                 if route(n, C64) == "dense")
+
+
+# ---- tools/torch_planner_rules.py ----
+
+def test_planner_rules_samples_and_batches():
+    """The dense band's samples (the four named sizes, every 8th of the
+    band, 10 held out apart from them), and batches of 256-512 MiB."""
+    fit, held = torch_planner_rules.r3_samples()
+    assert {257, 514, 1031, 2042} <= set(fit) and len(held) == 10 and not set(fit) & set(held)
+    assert len(fit) == 59
+    for n in (257, 2042, 15625, 88589, 746497, 1 << 20):
+        batch = torch_planner_rules.batch_for(n)
+        assert 256 <= batch * n * 8 / 2**20 < 512 + 16 and batch & (batch - 1) == 0
+
+
+def test_planner_rules_check_reprints_a_record(tmp_path, capsys):
+    """--check reprints a recorded run's tables with this tree's decisions,
+    on the CPU: the prime rule takes the candidate, the hole band and the
+    dense band (off) the current path."""
+    import json
+
+    def row(rule, n, set_, cur, new):
+        return dict(rule=rule, n=n, set=set_, batch=2, device="cuda", current="old",
+                    candidate="new", torch_fft_ms=1.0, current_ms=cur, candidate_ms=new,
+                    current_queued_ms=cur, candidate_queued_ms=new,
+                    current_turns_queued_ms=[cur, cur], candidate_turns_queued_ms=[new, new],
+                    current_turns_ms=[cur, cur], candidate_turns_ms=[new, new])
+
+    record = dict(card="NVIDIA H100 80GB HBM3, 700.00 W", torch="2.11", rows=[
+        row("R1", 746497, "fit", 7.5, 3.1), row("R1", 8501, "held", 6.0, 2.9),
+        row("R2", 15625, "fit", 2.4, 3.0), row("R3", 257, "held", 1.4, 2.6)])
+    path = tmp_path / "rules.json"
+    path.write_text(json.dumps(record))
+    torch_planner_rules.main(["--check", str(path)])
+    out = capsys.readouterr().out
+    assert "| fit | 746497 | 2 | old | 7.500 / 7.500 | new | 3.100 / 3.100 |" in out
+    assert "| candidate | candidate |" in out and "| current | current |" in out
+    for rule, set_ in (("R1", "fit"), ("R1", "held"), ("R2", "fit"), ("R3", "held")):
+        assert f"{rule} {set_}: the planner of this tree takes the faster way (or a tie) at 1 " \
+               "of 1 sizes" in out
 
 
 # ---- tools/torch_autotune.py ----

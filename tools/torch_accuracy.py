@@ -74,14 +74,17 @@ ROUTE_SIZES = {
     "dense": (5, 23, 127, 251),
 }
 
-#: sizes for each convolution core form (torch_prime_cores.FORMS) that a
-#: prime reaches: primes no route serves, by the core their recipe's inner
-#: length runs on; 4194301 is a Bluestein on 2^23 whose chirp and product are
+#: sizes for each convolution core form (torch_prime_cores.FORMS): primes no
+#: route serves, by the core their recipe's inner length runs on, and for
+#: K14's four stages, which the prime rule leaves to composites alone,
+#: composites whose whole-n Bluestein runs there (196609 and 88575: the
+#: inner lengths 419904 and 186624 of the primes 196613 and 88589 before
+#: the rule); 4194301 is a Bluestein on 2^23 whose chirp and product are
 #: torch glue around large2f
 FORM_SIZES = {
     "one-pass core": (257, 2531, 3083),
     "K14 cluster passes": (65521, 131071),
-    "K14 four stages": (196613, 88589),
+    "K14 four stages": (196609, 88575),
     "K15 tile form": (1000003, 524309),
     "K15 general form": (24571,),
     "torch recipe tree": (4194301,),

@@ -9,8 +9,9 @@ here: in their place the kernel launches of one `process` call.
 
 It prints the recipe (the same text as tools/inspect_plan.py's `describe`),
 `route(N, dtype)`, for a Raders or Bluesteins recipe that no route serves
-the convolution core it runs on (`tools/torch_prime_cores.core_form`), and
-`config.switch_key()`.  Then it runs `process` once on a (1, N) input and,
+the convolution core it runs on (`tools/torch_prime_cores.core_form`), the
+planner rule that decided N where one did (the prime rule, the hole band or
+the dense band, tools/torch_planner_rules.py), and `config.switch_key()`.  Then it runs `process` once on a (1, N) input and,
 on the card (the default device), prints each kernel wrapper's launch count
 (`ops.kernels.launch_counters()`, every count set to 0 just before the call
 and read just after, as chip_smoke.py does); with --trace, the CUDA kernels
@@ -87,10 +88,38 @@ def kernel_trace(fn, device) -> list:
              tuple(e.get("args", {}).get("block", ()))) for e in kernels]
 
 
+def rule_of(n: int, recipe, routed, np_dtype) -> str:
+    """The planner rule that decided n's plan, as text, or "": the prime
+    rule (a Bluestein on a fast core form in place of the recipe of the
+    convolution-core rules), the hole band (route gives no route where it
+    would give large_pad) or the dense band (dense above
+    config.dense_dft_max)."""
+    from rustfft_tpu_torch import config, executor, recipes
+    from rustfft_tpu_torch.math_utils import is_prime
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+    from torch_prime_cores import core_form, kind_and_inner
+
+    if not executor.kernels_on(np_dtype):
+        return ""
+    if isinstance(recipe, recipes.Bluesteins) and is_prime(n):
+        before = FftPlannerGpu(np_dtype, device="cpu")._conv_prime_recipe(n)
+        if before != recipe:
+            kind, m = kind_and_inner(before)
+            return (f"the prime rule: {kind} on m={m} ({core_form(kind, m)}) -> Bluestein on "
+                    f"m={recipe.inner.length} ({core_form('bluestein', recipe.inner.length)})")
+    m = executor.hole_band_inner(n, np_dtype)
+    if m is not None:
+        return f"the hole band: Bluestein on m={m} ({core_form('bluestein', m)}), not large_pad"
+    if routed == "dense" and n > config.dense_dft_max:
+        return (f"the dense band: dense_fft up to config.dense_fallback_max_n = "
+                f"{config.dense_fallback_max_n}")
+    return ""
+
+
 def inspect(n: int, direction="forward", dtype="c64", device="cuda", scalar=False,
             kernels="auto", trace=False) -> dict:
     """What the tool prints, as a dict: recipe (describe's text), route,
-    core_form, switch_key, launches ({wrapper: count} of one process call on
+    core_form, rule (rule_of; "" for the scalar planner), switch_key, launches ({wrapper: count} of one process call on
     the card, None on the CPU) and trace ([(kernel, grid, block)] with
     trace on the card, else None)."""
     import torch
@@ -108,6 +137,7 @@ def inspect(n: int, direction="forward", dtype="c64", device="cuda", scalar=Fals
         routed = route(n, np_dtype)
         out = dict(recipe=describe(plan.recipe), route=routed,
                    core_form=recipe_core_form(plan.recipe, routed, np_dtype),
+                   rule="" if scalar else rule_of(n, plan.recipe, routed, np_dtype),
                    switch_key=config.switch_key(), launches=None, trace=None)
         gen = torch.Generator(device=device).manual_seed(n)
         x = torch.randn((1, n), dtype=getattr(torch, TORCH_DTYPES[dtype]), generator=gen,
@@ -148,8 +178,12 @@ def main(argv=None) -> None:
     print(f"route: {info['route'] or 'none (no whole-transform kernel)'}")
     if info["core_form"]:
         print(f"core form: {info['core_form']}")
+    if info["rule"]:
+        print(f"planner rule: {info['rule']}")
     print(f"config switch key (kernels, use_native, large_gauss, large_blocks2d, "
-          f"conv_radix_gauss, rader_in_shift, rader_full_out): {info['switch_key']}")
+          f"conv_radix_gauss, rader_in_shift, rader_full_out, dense_fallback_max_n, "
+          f"bconv_misaligned, bconv_misaligned_min_n, bconv_misaligned_max_pad): "
+          f"{info['switch_key']}")
     print(f"\n=== one process call of (1, {args.n}) on {args.device} ===")
     if info["launches"] is None:
         print("launches: not counted (the kernels' plain torch versions run on the cpu)")

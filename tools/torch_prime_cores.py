@@ -8,12 +8,13 @@ Run from the repository root; it needs no GPU:
 
 TREE (default the checkout this script lies in) is the root of the
 checkout whose `rustfft_tpu_torch` is counted, so that a parent unpacked
-with `git archive` can be counted beside the change; [LO, HI] (default
-[8192, 2^20]) is the range of primes, both ends included.  For every prime
-n there, `FftPlannerGpu(np.complex64)._design_prime(n)` gives the recipe
-(Raders on n - 1, Bluesteins on an inner m, or another) and the executor's
-dispatch (executor.py: the Raders and Bluesteins branches) the core its
-inner length runs on:
+with `git archive` can be counted beside the change (a tree with
+`executor.core_form` and the prime rule); [LO, HI] (default [8192, 2^20]) is the range of
+primes, both ends included.  For every prime n there,
+`FftPlannerGpu(np.complex64)._design_prime(n)` gives the recipe (Raders on
+n - 1, Bluesteins on an inner m, or another) and `executor.core_form` (the
+executor's Raders and Bluesteins branches) the core its inner length runs
+on:
 
   one-pass core      conv.conv_supported(m) (K6 / K13);
   K15 tile form      a Bluestein on the fused large Bluestein at a split
@@ -25,8 +26,10 @@ inner length runs on:
 
 It prints the primes by recipe and inner length (the most common inner
 lengths first), then by core form (with the number of distinct inner
-lengths), then each core form's most common inner lengths.
-About 45 s for [8192, 2^20] on one CPU core.
+lengths), then each core form's most common inner lengths, then the primes
+the prime rule (planner.prime_rule_inner) moved: their recipe's core form
+before the rule (FftPlannerGpu._conv_prime_recipe) and after it.
+About 60 s for [8192, 2^20] on one CPU core.
 """
 from __future__ import annotations
 
@@ -60,17 +63,21 @@ def primes_in(lo: int, hi: int) -> np.ndarray:
 def core_form(kind: str, m: int) -> str:
     """The core the executor runs a Raders ("rader") or Bluesteins
     ("bluestein") recipe of inner length m on, with the kernels on."""
-    from rustfft_tpu_torch.ops.kernels import conv, conv_radix, convlarge, large
+    from rustfft_tpu_torch import executor
 
-    c64 = np.complex64
-    if conv.conv_supported(m, c64):
-        return FORMS[0]
-    if kind == "bluestein" and convlarge.bconv_supported(m, c64):
-        p, q1, q2 = large.choose_pqq(m)
-        return FORMS[1] if convlarge.tile_form(p, q1 * q2) else FORMS[2]
-    if conv_radix.radix_conv_supported(m, c64):
-        return FORMS[3] if conv_radix.cluster_form(m) is not None else FORMS[4]
-    return FORMS[5]
+    return executor.core_form(kind, m, np.complex64)
+
+
+def kind_and_inner(recipe):
+    """("rader" or "bluestein", inner length) of a prime's recipe, or (its
+    class name, 0)."""
+    from rustfft_tpu_torch import recipes
+
+    if isinstance(recipe, recipes.Raders):
+        return "rader", recipe.inner.length
+    if isinstance(recipe, recipes.Bluesteins):
+        return "bluestein", recipe.inner.length
+    return type(recipe).__name__, 0
 
 
 def recipe_core_form(recipe, routed, dtype) -> str:
@@ -90,27 +97,30 @@ def recipe_core_form(recipe, routed, dtype) -> str:
 
 def census(lo: int, hi: int):
     """(primes by (recipe, inner length), primes by core form, inner
-    lengths by core form) over the primes of [lo, hi]."""
-    from rustfft_tpu_torch import recipes
+    lengths by core form, primes the prime rule moved by (kind and form
+    before, form after), the moved primes' new inner length over the old,
+    ascending) over the primes of [lo, hi]."""
     from rustfft_tpu_torch.planner import FftPlannerGpu
 
     planner = FftPlannerGpu(np.complex64)
     by_inner: Counter = Counter()
     by_form: Counter = Counter()
+    moved: Counter = Counter()
+    pads: list = []
     inners: dict = {}
     for n in primes_in(lo, hi).tolist():
         recipe = planner._design_prime(n)
-        if isinstance(recipe, recipes.Raders):
-            kind, m = "rader", recipe.inner.length
-        elif isinstance(recipe, recipes.Bluesteins):
-            kind, m = "bluestein", recipe.inner.length
-        else:
-            kind, m = type(recipe).__name__, 0
+        kind, m = kind_and_inner(recipe)
         form = core_form(kind, m) if m else FORMS[5]
         by_inner[(kind, m)] += 1
         by_form[form] += 1
         inners.setdefault(form, Counter())[(kind, m)] += 1
-    return by_inner, by_form, inners
+        before = planner._conv_prime_recipe(n)
+        if before != recipe:
+            old_kind, old_m = kind_and_inner(before)
+            moved[(old_kind, core_form(old_kind, old_m) if old_m else FORMS[5], form)] += 1
+            pads.append(m / old_m)
+    return by_inner, by_form, inners, moved, sorted(pads)
 
 
 def main() -> None:
@@ -120,7 +130,7 @@ def main() -> None:
         root, args = os.path.abspath(args[0]), args[1:]
     sys.path.insert(0, root)
     lo, hi = (int(a) for a in args[:2]) if len(args) > 1 else (8192, 1 << 20)
-    by_inner, by_form, inners = census(lo, hi)
+    by_inner, by_form, inners, moved, pads = census(lo, hi)
     total = sum(by_form.values())
     kinds = Counter()
     for (kind, _), c in by_inner.items():
@@ -145,6 +155,11 @@ def main() -> None:
             more = f", and {len(top) - SHOWN} more" if len(top) > SHOWN else ""
             print(f"{form}, inner lengths by primes (b Bluestein, r Rader): " + ", ".join(
                 f"{kind[0]}{m}:{c}" for (kind, m), c in top[:SHOWN]) + more)
+    print(f"moved by the prime rule: {sum(moved.values())} primes" + (
+        f", the new inner {pads[0]:.2f}x .. {pads[-1]:.2f}x the old (median "
+        f"{pads[len(pads) // 2]:.2f}x)" if pads else "") + "".join(
+        f"\n  {kind} on {old} -> Bluestein on {new}: {c}"
+        for (kind, old, new), c in sorted(moved.items(), key=lambda kv: -kv[1])))
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ Run from the repository root; it needs no GPU:
 
     python3 tools/torch_routes.py [--chains] [LO HI]
     python3 tools/torch_routes.py --lanepack
+    python3 tools/torch_routes.py --rules
 
 For complex64 and every n in [LO, HI) (default [14464, 2^20), about four
 minutes on one CPU core) prints how many sizes `rustfft_tpu_torch.route`
@@ -31,6 +32,13 @@ two-buffer kernel, which ran every radix without a register stage as a
 direct sum from a roots table; after, `lanepack.choose_radices` (1-4
 stages) as the chain kernel runs it: "register", "direct sum" (no
 Bluestein stage) or "Bluestein" (lanepack.bluestein_stage_m).
+
+With --rules it counts the sizes of the two route rules that
+tools/torch_planner_rules.py settles, under the config as it is and under
+the other setting (a few seconds): the hole band (executor.hole_band_inner:
+odd n of [8192, 131072] that leave large_pad for a Bluestein on the
+cluster passes, by r) and the dense band (n of [257, 2048] that no route
+but dense serves: routed dense up to config.dense_fallback_max_n).
 """
 from __future__ import annotations
 
@@ -114,8 +122,53 @@ def count_routes(lo: int, hi: int, with_chains: bool = False):
     return counts, first, by_chain
 
 
+def rule_bands(fields: dict):
+    """(hole band {r: sizes}, dense band sizes routed dense, sizes no route
+    serves in [257, 2048]) with the config fields set."""
+    from rustfft_tpu_torch import config, executor
+
+    old = {k: getattr(config, k) for k in fields}
+    for k, v in fields.items():
+        setattr(config, k, v)
+    try:
+        hole: Counter = Counter()
+        for n in range(8193, 131073, 2):
+            m = executor.hole_band_inner(n, np.complex64)
+            if m is not None:
+                hole[m // 16384] += 1
+        dense = sum(1 for n in range(257, 2049) if route(n, np.complex64) == "dense")
+        none = sum(1 for n in range(257, 2049) if route(n, np.complex64) is None)
+    finally:
+        for k, v in old.items():
+            setattr(config, k, v)
+    return hole, dense, none
+
+
+def print_rule_bands() -> None:
+    from rustfft_tpu_torch import config
+
+    for what, fields in (("as configured", {}),
+                         ("with the JAX settings", dict(bconv_misaligned=True,
+                                                       bconv_misaligned_min_n=8192,
+                                                       bconv_misaligned_max_pad=3.5,
+                                                       dense_fallback_max_n=2048))):
+        hole, dense, none = rule_bands(fields)
+        shown = {k: getattr(config, k) for k in ("bconv_misaligned", "bconv_misaligned_min_n",
+                                                 "bconv_misaligned_max_pad",
+                                                 "dense_fallback_max_n")}
+        shown.update(fields)
+        print(f"{what} ({', '.join(f'{k}={v}' for k, v in shown.items())}):")
+        print(f"  hole band: {sum(hole.values())} odd composites leave large_pad for a "
+              "Bluestein on the cluster passes (" + ", ".join(
+                  f"r={r}: {hole[r]}" for r in (2, 4, 8, 16)) + ")")
+        print(f"  dense band: {dense} sizes of [257, 2048] route dense, {none} have no route")
+
+
 def main() -> None:
     args = sys.argv[1:]
+    if "--rules" in args:
+        print_rule_bands()
+        return
     if "--lanepack" in args:
         before, after, stages = lanepack_classes()
         total = sum(before.values())
