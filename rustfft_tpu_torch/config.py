@@ -78,9 +78,10 @@ class FftConfig:
     #: queued device time; 15625 x 4096 3.026 against 2.378, 59049 x 1024
     #: 3.420 against 2.083).  It ran faster at 16383, 32767, 65535, 28251
     #: and 63535 (1.10-1.24x), where large_pad's chains run Bluestein stages
-    #: and m <= 131072, but no pad cap holds only those: at pad 2.00 the m =
-    #: 262144 sizes 131047 and 131061 lose (0.84x, 0.97x)
-    #: (tools/torch_planner_rules.py; NVIDIA H100 80GB HBM3, 700.00 W).
+    #: and m <= 131072, but no pad cap takes those without a loss: 63535
+    #: wins at pad 2.06 and 28251 at 2.32 while 131047 (m = 262144) loses
+    #: at 2.0003 (0.84x) (tools/torch_planner_rules.py, PLANNER_RULES_GPU.md;
+    #: NVIDIA H100 80GB HBM3, 700.00 W).
     bconv_misaligned: bool = False
     bconv_misaligned_min_n: int = 8192
     bconv_misaligned_max_pad: float = 3.5

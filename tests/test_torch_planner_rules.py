@@ -2,10 +2,11 @@
 the card's measurements and the JAX package.
 
 tools/torch_planner_rules.py timed each rule's candidate path against the
-path it would replace on the card (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md,
-PR 24) at sampled and held-out sizes; the tables below are that run's
-(n, sampled or held out, the paths' recipes, the faster way by more than
-the spread of the turns: "new" the candidate, "old" the current path).
+path it would replace on the card (NVIDIA H100 80GB HBM3, 700.00 W;
+PLANNER_RULES_GPU.md) at sampled and held-out sizes; the tables below are
+that run's (n, sampled or held out, the paths' recipes, the faster way by
+more than the spread of the turns: "new" the candidate, "old" the current
+path).
   R1  the prime rule (planner.prime_rule_inner): on, the Bluestein on a
       fast core form faster at every prime timed;
   R2  the hole band (executor.hole_band_inner, config.bconv_misaligned):
@@ -142,7 +143,7 @@ def _rows(table, rule_set):
     return [row for row in table if row[1] == rule_set]
 
 
-def _recipe(kind, m, n):
+def _recipe(kind, m):
     return ("Raders" if kind == "r" else "Bluesteins", m)
 
 
@@ -203,8 +204,8 @@ def test_prime_rule_takes_the_faster_way(rule_set):
     for n, _, kind, m, m_new, way in rows:
         assert way == "new", n
         old = planner._conv_prime_recipe(n)
-        assert _shape(old) == _recipe(kind, m, n), n
-        assert executor.core_form(kind == "r" and "rader" or "bluestein", m, C64) == \
+        assert _shape(old) == _recipe(kind, m), n
+        assert executor.core_form("rader" if kind == "r" else "bluestein", m, C64) == \
             "K14 four stages", n
         assert routed_bluestein_inner(n, C64) == m_new
         assert executor.core_form("bluestein", m_new, C64) in FAST_FORMS
@@ -264,11 +265,11 @@ def test_dense_band_is_off_as_measured(rule_set, fields):
     planner = FftPlanner(C64, device="cpu")
     for n, _, kind, m, _ in rows:
         assert route(n, C64) is None
-        assert _shape(planner.design_fft_for_len(n)) == _recipe(kind, m, n)
+        assert _shape(planner.design_fft_for_len(n)) == _recipe(kind, m)
     fields(dense_fallback_max_n=2048)
     for n, _, kind, m, _ in rows:
         assert route(n, C64) == "dense"
-        assert _shape(planner.design_fft_for_len(n)) == _recipe(kind, m, n)
+        assert _shape(planner.design_fft_for_len(n)) == _recipe(kind, m)
 
 
 def test_dense_band_sizes():

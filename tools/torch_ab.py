@@ -56,7 +56,8 @@ for the paths K15_GENERAL (524309 x 64, 393241 x 64, 294919 x 128) and
 K14_FOUR (746497 x 64, 196613 x 256, 88589 x 512), each launch of the
 path's core alone on the inputs the path gave it (recorded through the
 RECORDED wrappers: K15's kernel A, B_conv and A2 in whichever form the
-checkout runs; K14's col1, row1, col2, row2), the path and torch.fft.
+checkout runs; K14's col1, row1, col2, row2, on the recipe the prime rule
+replaces where the checkout has one), the path and torch.fft.
 And K5's product (`dense_fft`, the block form) at
 each prime of the dense route below 29 (K5_PRODUCT, about 384 MiB each)
 beside `x @ W` and torch.fft, and K10's fused column stage
@@ -291,9 +292,16 @@ def run_one(root: str, groups=GROUPS) -> dict:
         then pass 2; K15: kernel A, B_conv, A2, where `first` names the
         leading column stage; K13: the one-pass core), then the path and
         torch.fft."""
+        from rustfft_tpu_torch.plan import FftPlan
+        from rustfft_tpu_torch.planner import FftPlannerGpu
+
         torch.cuda.empty_cache()
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
         plan = planner.plan_fft_forward(n)
+        if group == "K14" and hasattr(FftPlannerGpu, "_conv_prime_recipe"):
+            # K14's four stages: the recipe the prime rule replaces (trees since it came)
+            plan = FftPlan(FftPlannerGpu(np.complex64)._conv_prime_recipe(n),
+                           FftDirection.FORWARD, np.complex64)
         calls = recorded(lambda: plan.process(x))
         seen = {}
         for label, wrapper, args, kw in calls:

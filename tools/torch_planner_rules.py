@@ -37,12 +37,13 @@ mean error <= 1e-5).  It prints one table a rule (n, batch, the current
 recipe and form with its ms, the candidate's with its ms, torch.fft's ms,
 the ratio current / candidate by events and queued, the spread of the
 turns, and the way the planner of this tree takes) and writes every row to
-FILE (default chiprun_out/planner_rules.json).  --check FILE reprints a
+FILE (default build/planner_rules.json).  --check FILE reprints a
 recorded run's tables on the CPU with the decisions of this tree's planner,
 so that a rule put in code after the run is checked against it, held-out
-sizes apart.  --device cpu --limit 1 --batch 1 rehearses it on the plain
-versions (host times, which say nothing of the card).  About 15 minutes
-on an H100, a minute of it the census of R1's primes.
+sizes apart (PLANNER_RULES_GPU.md is that reprint of the H100 run).
+--device cpu --limit 1 --batch 1 rehearses it on the plain versions (host
+times, which say nothing of the card).  About 17 minutes on an H100, a
+minute of it the census of R1's primes.
 """
 from __future__ import annotations
 
@@ -404,7 +405,7 @@ def card_line() -> str:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rules", default=",".join(RULES))
-    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "planner_rules.json"))
+    ap.add_argument("--out", default=os.path.join(REPO, "build", "planner_rules.json"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=0, help="batch (default: 256-512 MiB a tensor)")
     ap.add_argument("--limit", type=int, default=0, help="sizes a set (default: all)")
@@ -417,7 +418,9 @@ def main(argv=None) -> None:
     if args.check:
         with open(args.check) as f:
             record = json.load(f)
-        print(f"recorded on {record['card']} (torch {record['torch']})")
+        print("# The planner rules on the card\n\n`python3 tools/torch_planner_rules.py --check "
+              f"{os.path.basename(args.check)}`: a run recorded on {record['card']} (torch "
+              f"{record['torch']}), with the decisions of this tree's planner.")
         for rule in RULES:
             rows = [r for r in record["rows"] if r["rule"] == rule]
             if rows:
