@@ -232,13 +232,16 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    sizes): at each size of RULE_SIZES the rule's path (the planner's, with
    the rule's config field on where it is off by default: the hole band's
    config.bconv_misaligned, the dense band's config.dense_fallback_max_n)
-   and the path it replaces (the prime rule's: the recipe of the
-   convolution-core rules through executor.build on K14's four stages;
-   the others' the planner's default: large_pad, the convolution cores),
-   each run once with the launch counters (exactly its route's or core
-   form's kernels) and held against the float64 oracle on 4 rows (1e-5),
-   then timed in turns (replaced, rule, rule, replaced; CUDA events,
-   median of 5) beside torch.fft, and the phase's seconds.
+   and the path it replaces (the prime rule's and the composite rule's:
+   the recipe of the convolution-core rules, FftPlannerGpu's
+   _conv_prime_recipe and _conv_composite_recipe, through executor.build
+   on K14's four stages; the others' the planner's default: large_pad,
+   the convolution cores), each run once with the launch counters
+   (exactly its route's or core form's kernels, a split's halves') and
+   held against the float64 oracle on 4 rows (1e-5), then timed in turns
+   (replaced, rule, rule, replaced; CUDA events, median of 5) beside
+   torch.fft, with the card's name and power limit, and the phase's
+   seconds.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -351,6 +354,12 @@ FOUR = {746497: 64, 196613: 256, 88589: 512}
 #: batch
 CLUSTER_PRIMES = {65537: 512, 7919: 4096, 65521: 512, 131071: 256}
 
+#: the composite rule (phase 8, on): composites with no route whose whole-n
+#: Bluestein ran K14's four stages (8199 = 9 x 911, 41484, 118099 = 17 x
+#: 6947, and 131084 = 4 x 32771 and 196611 = 3 x 65537, where the JAX
+#: planner splits) -> batch
+COMPOSITE_RULE = {8199: 4096, 41484: 1024, 118099: 512, 131084: 256, 196611: 256}
+
 #: the planner rules (phase 8), each at its sizes -> batch: the prime rule
 #: (on: the FOUR primes, now Bluesteins on K15's tile form at 746497 and
 #: 196613 and on the cluster passes at 88589, and 15121, a Rader before,
@@ -362,10 +371,11 @@ RULE_SIZES = {
     "prime rule": {**FOUR, 15121: 4096},
     "hole band": {15625: 4096, 59049: 1024, 16383: 4096},
     "dense band": {257: 131072, 1031: 32768, 2042: 32768},
+    "composite rule": COMPOSITE_RULE,
 }
 #: the config each rule's new path is built under
 RULE_ON = {"prime rule": {}, "hole band": {"bconv_misaligned": True},
-           "dense band": {"dense_fallback_max_n": 2048}}
+           "dense band": {"dense_fallback_max_n": 2048}, "composite rule": {}}
 
 #: kernels ported and checked but on no route (the JAX package routes none
 #: of them either)
@@ -2916,17 +2926,34 @@ def main() -> None:
 
     # ---- phase 8: the planner rules ----
     start = time.perf_counter()
-    print(f"phase 8: the planner rules, each rule's path against the recipe it replaces (t = "
-          f"{start - t0:.1f} s)", flush=True)
+    print(f"phase 8: the planner rules, each rule's path against the recipe it replaces, on "
+          f"{card} (t = {start - t0:.1f} s)", flush=True)
     launches_by_form = {"K15 tile form": k15, "K14 cluster passes": k14, "K14 four stages": four}
 
     def rule_path(recipe, routed):
         """(the launches of one call of a rule's path: its route's kernels,
-        else its convolution core's; what it is)."""
+        else its convolution core's, else for a MixedRadix its halves' (a
+        DFT_p leaf of p <= 512 is a matmul); what it is)."""
         if routed == "dense":
             return {"dense_fft": 1}, routed
         if routed == "large_pad":
             return {"largepad_col_stage": 1, "largepad_row_stage": 1}, routed
+        if routed is not None:
+            raise AssertionError(f"phase 8 counts no launches of the {routed} route")
+        if isinstance(recipe, recipes.Dft):
+            return {}, f"DFT_{recipe.length}"
+        if isinstance(recipe, recipes.MixedRadix):
+            left, right = recipe.left, recipe.right
+            halves = [right] if isinstance(left, recipes.Dft) and left.length <= 512 else \
+                [left, right]
+            launches, whats = {}, []
+            for half in halves:
+                got, what = rule_path(half, route(half.length, np.complex64))
+                whats.append(what)
+                for name, count in got.items():
+                    launches[name] = launches.get(name, 0) + count
+            return launches, (f"MixedRadix({left.length} x {right.length}: "
+                              + ", ".join(whats) + ")")
         kind = "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
         m = recipe.inner.length
         form = executor.core_form(kind, m, np.complex64)
@@ -2940,8 +2967,11 @@ def main() -> None:
         for n, batch in sizes.items():
             new_plan = switched(config, RULE_ON[rule], lambda: planner.plan_fft_forward(n))
             new_route = switched(config, RULE_ON[rule], lambda: route(n, np.complex64))
-            if rule == "prime rule":
-                old_recipe, old_route = four_recipe(n), None
+            if rule in ("prime rule", "composite rule"):
+                # the recipe the rule replaced, on K14's four stages
+                old_recipe = (four_recipe(n) if rule == "prime rule" else
+                              rules_planner._conv_composite_recipe(n))
+                old_route = None
                 old_fn = executor.build(old_recipe, FftDirection.FORWARD, np.complex64)
             else:
                 old_plan = planner.plan_fft_forward(n)

@@ -217,6 +217,16 @@ def prime_rule_inner(length: int, recipe: recipes.Recipe, dtype) -> Optional[int
     return routed_bluestein_inner(length, dtype)
 
 
+#: the composite rule's split (FftPlannerGpu._composite_rule): the core
+#: forms its Bluestein half may run, the share of the whole-n Bluestein's
+#: inner length its inner points may reach, and the DFT_p sizes at which
+#: it may reach all of it (the card's fit: the split won at p m_q <= 0.75
+#: m_a, lost at 0.79-0.87 with p <= 20, won at 0.83-0.98 with p = 30 .. 53)
+SPLIT_FORMS = ("one-pass core", "K14 cluster passes")
+SPLIT_SHARE = 0.77
+SPLIT_EVEN_P = (24, 64)
+
+
 class FftPlannerScalar(_PlannerBase):
     """Exact port of the reference scalar planner's decision tree
     (src/plan.rs:270-665): butterfly -> prime -> butterfly product -> RadixN
@@ -374,19 +384,58 @@ class FftPlannerGpu(_PlannerBase):
         if factors.is_prime():
             return self._design_prime(length)
         if self._conv_rules():
-            from . import executor
+            recipe = self._conv_composite_recipe(length, factors)
+            if recipe is not None:
+                return self._composite_rule(length, factors, recipe)
+        return self._split(length, factors)
 
-            # the hole band before the awkward-composite rule: route gives
-            # these sizes no route, so the recipe's m is the one that runs
-            m = executor.hole_band_inner(length, self.dtype)
-            if m is None and factors.has_factors_gt(config.dense_dft_max):
-                m = self._conv_inner(length)
-            if m is not None:
-                return recipes.Bluesteins(length, self.design_fft_for_len(m))
+    def _split(self, length: int, factors: PrimeFactors) -> recipes.MixedRadix:
+        """The near-balanced split n = p * q, both halves designed."""
         p = self._choose_left_factor(length, factors)
-        left = self.design_fft_for_len(p)
-        right = self.design_fft_for_len(length // p)
-        return recipes.MixedRadix(left, right)
+        return recipes.MixedRadix(self.design_fft_for_len(p),
+                                  self.design_fft_for_len(length // p))
+
+    def _composite_rule(self, length: int, factors: PrimeFactors,
+                        recipe: recipes.Bluesteins) -> recipes.Recipe:
+        """R4, the composite rule: the recipe the planner takes in place of
+        a composite's whole-n Bluestein (`_conv_composite_recipe`) where
+        that Bluestein runs K14's four stages and no route serves n (the
+        hole band's inner runs the cluster passes, so its sizes keep
+        theirs).  The JAX planner's core preference (_aligned_conv_inner,
+        planner.py:413-468: a larger radix-core inner over a smaller
+        dense-core one, else the split) read in the card's core forms:
+        the split (_split) where its prime half q = n / p is a Bluesteins
+        on the one-pass core or the cluster passes, with no route, whose p
+        inner transforms of m_q points come to at most SPLIT_SHARE of
+        routed_bluestein_inner's m_a (or at most m_a with p in
+        SPLIT_EVEN_P, where the split's glue is cheapest); else the
+        Bluestein on m_a (K14's cluster passes or K15's tile form).  The
+        card measured both faster than the four stages at the 40 sampled
+        sizes of [8192, 2^20) (the Bluestein 1.22-2.92x, the split up to
+        3.30x), and this rule the faster of the two, or level, at 39 of
+        them; 41484 = 12 x 3457, whose half is a Rader, is its miss
+        (tools/torch_planner_rules.py --rules R4, PLANNER_RULES_GPU.md;
+        NVIDIA H100 80GB HBM3, 700.00 W)."""
+        from . import executor
+
+        m = recipe.inner.length
+        if (executor.core_form("bluestein", m, self.dtype) != "K14 four stages"
+                or executor.route(length, self.dtype) is not None):
+            return recipe
+        m_a = routed_bluestein_inner(length, self.dtype)
+        if m_a is None:
+            return recipe
+        split = self._split(length, factors)
+        p, half = split.left.length, split.right
+        if (isinstance(half, recipes.Bluesteins)
+                and executor.route(half.length, self.dtype) is None
+                and executor.core_form("bluestein", half.inner.length, self.dtype)
+                in SPLIT_FORMS):
+            inner = p * half.inner.length
+            lo, hi = SPLIT_EVEN_P
+            if inner <= SPLIT_SHARE * m_a or (lo <= p <= hi and inner <= m_a):
+                return split
+        return recipes.Bluesteins(length, self.design_fft_for_len(m_a))
 
     def _design_prime(self, length: int) -> recipes.Recipe:
         """The recipe _conv_prime_recipe gives, or with the c64 kernels on
@@ -411,6 +460,22 @@ class FftPlannerGpu(_PlannerBase):
             if m is not None:
                 return recipes.Bluesteins(length, self.design_fft_for_len(m))
         return self._reference_prime_recipe(length, raders_factors)
+
+    def _conv_composite_recipe(self, length: int,
+                               factors: Optional[PrimeFactors] = None) -> Optional[recipes.Recipe]:
+        """With the c64 kernels on, the whole-n Bluestein's of a composite:
+        the hole band's (executor.hole_band_inner), else, for a composite
+        with a prime factor above dense_dft_max, the one on the inner
+        `_conv_inner` finds; None where neither applies (the split)."""
+        from . import executor
+
+        factors = factors or PrimeFactors.compute(length)
+        # the hole band before the awkward-composite rule: route gives
+        # these sizes no route, so the recipe's m is the one that runs
+        m = executor.hole_band_inner(length, self.dtype)
+        if m is None and factors.has_factors_gt(config.dense_dft_max):
+            m = self._conv_inner(length)
+        return None if m is None else recipes.Bluesteins(length, self.design_fft_for_len(m))
 
     def _conv_inner(self, length: int) -> Optional[int]:
         """The smallest Bluestein inner m >= 2n-1 of the 2^a*3^b family (JAX

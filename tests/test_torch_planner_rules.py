@@ -1,4 +1,4 @@
-"""The planner's three rules of the JAX package on the port, held against
+"""The planner's four rules of the JAX package on the port, held against
 the card's measurements and the JAX package.
 
 tools/torch_planner_rules.py timed each rule's candidate path against the
@@ -12,7 +12,12 @@ path).
   R2  the hole band (executor.hole_band_inner, config.bconv_misaligned):
       off, the Bluestein slower than large_pad at 16 of 21 sizes;
   R3  the dense band (config.dense_fallback_max_n): off, dense_fft slower
-      at all 69 sizes.
+      at all 69 sizes;
+  R4  the composite rule (FftPlannerGpu._composite_rule): on, a composite's
+      whole-n Bluestein on K14's four stages gives way to the Bluestein on
+      a fast core form or to the split, both faster at all 50 sizes timed
+      but 90955's split; the way taken the faster, or level, at 39 of 40
+      sampled and 7 of 10 held-out sizes.
 Each decision is checked as recipes and routes, the hole band's inner
 against the JAX planner's _radix_conv_inner, the outputs against the JAX
 planner and the float64 oracle, and the recipes with the kernels off and
@@ -29,7 +34,9 @@ from rustfft_tpu.planner import FftPlannerTpu
 from rustfft_tpu_torch import FftPlanner, config, executor, recipes, route
 from rustfft_tpu_torch.common import FftDirection
 from rustfft_tpu_torch.math_utils import PrimeFactors
-from rustfft_tpu_torch.planner import FAST_FORMS, FftPlannerGpu, routed_bluestein_inner
+from rustfft_tpu_torch.planner import (
+    FAST_FORMS, SPLIT_FORMS, FftPlannerGpu, routed_bluestein_inner,
+)
 from rustfft_tpu_torch.twiddles import host_dft
 
 C64 = np.complex64
@@ -133,6 +140,35 @@ R3_TABLE = (
     (1563, "held", "b", 4096, "old"), (1753, "held", "b", 4096, "old"),
     (1949, "held", "b", 4096, "old"), (2038, "held", "b", 4096, "old"),
 )
+
+#: R4: (n, set, the replaced Bluestein's inner length (K14's four stages),
+#: the way the composite rule takes ("b" the Bluestein on the fast form's
+#: inner, given; "s" the split, its p), the way the card measured faster by
+#: more than the spread of the turns ("b", "s", or "b=s" level))
+R4_TABLE = (
+    (8482, "fit", 17496, "b", 32768, "b"), (8984, "fit", 18432, "s", 8, "s"), (9532, "fit", 19683, "s", 4, "b=s"),
+    (10096, "fit", 20736, "s", 16, "s"), (11014, "fit", 23328, "b", 32768, "b"), (11980, "fit", 24576, "b", 32768, "b"),
+    (12722, "fit", 26244, "b", 32768, "b"), (13476, "fit", 27648, "b", 32768, "b"), (14676, "fit", 31104, "b", 32768, "b"),
+    (16939, "fit", 34992, "s", 13, "s"), (19048, "fit", 39366, "b", 65536, "b"), (20225, "fit", 41472, "s", 25, "s"),
+    (22045, "fit", 46656, "b", 65536, "b"), (25405, "fit", 52488, "b", 65536, "b"), (26971, "fit", 55296, "b", 65536, "b"),
+    (28590, "fit", 59049, "s", 30, "s"), (30311, "fit", 62208, "b", 65536, "b"), (33898, "fit", 69984, "s", 34, "s"),
+    (38111, "fit", 78732, "s", 23, "s"), (40412, "fit", 82944, "b", 131072, "b"), (44083, "fit", 93312, "b", 131072, "b=s"),
+    (50822, "fit", 104976, "b", 131072, "b"), (57192, "fit", 118098, "b", 131072, "b=s"), (60627, "fit", 124416, "b", 131072, "b=s"),
+    (67793, "fit", 139968, "s", 11, "s"), (76234, "fit", 157464, "s", 94, "s"), (80844, "fit", 165888, "s", 12, "s"),
+    (85777, "fit", 177147, "s", 31, "s"), (90955, "fit", 186624, "b", 262144, "b"), (101648, "fit", 209952, "b", 262144, "b"),
+    (114348, "fit", 236196, "b", 262144, "b"), (121254, "fit", 248832, "s", 42, "s"), (135521, "fit", 279936, "s", 53, "s"),
+    (152487, "fit", 314928, "b", 393216, "b"), (203272, "fit", 419904, "b", 442368, "b"), (8199, "fit", 17496, "s", 9, "s"),
+    (41484, "fit", 93312, "b", 131072, "s"), (98324, "fit", 209952, "b", 262144, "b"), (131084, "fit", 279936, "b", 393216, "b"),
+    (196611, "fit", 419904, "b", 442368, "b"), (148543, "held", 314928, "s", 41, "b"), (33828, "held", 69984, "s", 12, "s"),
+    (58931, "held", 118098, "s", 31, "s"), (49365, "held", 104976, "s", 45, "s"), (86883, "held", 177147, "s", 3, "b"),
+    (103287, "held", 209952, "b", 262144, "b"), (150408, "held", 314928, "b", 393216, "b"), (117715, "held", 236196, "b", 262144, "s"),
+    (205853, "held", 419904, "b", 442368, "b"), (121177, "held", 248832, "b", 262144, "b=s"),
+)
+
+#: R4's sizes where the rule does not take a way the card measured fastest:
+#: 41484 (its half a Rader) among the sampled; 148543, 86883 and 117715
+#: held out, drawn once the rule was stated
+R4_MISSES = {"fit": {41484}, "held": {148543, 86883, 117715}}
 
 #: the JAX package's hole-band settings (rustfft_tpu/config.py:183-185)
 JAX_BAND = dict(bconv_misaligned=True, bconv_misaligned_min_n=8192,
@@ -282,6 +318,71 @@ def test_dense_band_sizes():
     assert band[0] == 257 and band[-1] == 2042
 
 
+@pytest.mark.parametrize("rule_set", ["fit", "held"])
+def test_composite_rule_takes_the_faster_way(rule_set):
+    """R4 is on: at every sampled and held-out composite the recipe of the
+    awkward-composite rules ran K14's four stages, no route serves n, and
+    the planner takes the table's way: the Bluestein on routed_bluestein_inner
+    (a fast core form) or the near-balanced split, whose prime half runs a
+    Bluestein on the one-pass core or the cluster passes.  The card measured
+    that way the faster, or level, at every size but R4_MISSES."""
+    planner = FftPlannerGpu(C64, device="cpu")
+    rows = _rows(R4_TABLE, rule_set)
+    assert len(rows) >= (40 if rule_set == "fit" else 10)
+    misses = set()
+    for n, _, m_old, way, value, faster in rows:
+        old = planner._conv_composite_recipe(n)
+        assert _shape(old) == ("Bluesteins", m_old), n
+        assert executor.core_form("bluestein", m_old, C64) == "K14 four stages", n
+        assert route(n, C64) is None
+        recipe = planner.design_fft_for_len(n)
+        if way == "b":
+            assert _shape(recipe) == ("Bluesteins", value) == ("Bluesteins",
+                                                             routed_bluestein_inner(n, C64)), n
+            assert executor.core_form("bluestein", value, C64) in FAST_FORMS
+        else:
+            assert isinstance(recipe, recipes.MixedRadix) and recipe.left.length == value, n
+            half = recipe.right
+            assert isinstance(half, recipes.Bluesteins) and route(half.length, C64) is None
+            assert executor.core_form("bluestein", half.inner.length, C64) in SPLIT_FORMS, n
+        if way not in faster.split("="):
+            misses.add(n)
+    assert misses == R4_MISSES[rule_set]
+
+
+def test_composite_rule_gates(fields):
+    """R4's gates leave the recipe alone: complex128 and the kernels off
+    design the JAX package's split, a pinned plan runs its literal Bluestein
+    on the four stages' inner length, a composite a route serves (32769 on
+    large_pad) keeps its unbuilt whole-n Bluestein, and so do composites
+    whose Bluestein runs another core (the hole band's, with its field on,
+    on the cluster passes)."""
+    from rustfft_tpu_torch import algorithm
+
+    n, m_old = 8199, 17496
+    assert _shape(FftPlannerGpu(C64, device="cpu")._conv_composite_recipe(n)) == \
+        ("Bluesteins", m_old)
+    split = FftPlannerGpu(np.complex128, device="cpu").design_fft_for_len(n)
+    assert isinstance(split, recipes.MixedRadix) and split.left.length == 9
+    fields(kernels="off")
+    assert FftPlannerGpu(C64, device="cpu").design_fft_for_len(n) == split
+    fields(kernels="auto")
+    planner = FftPlanner(C64, device="cpu")
+    pinned = algorithm.BluesteinsAlgorithm(n, planner.plan_fft_forward(m_old))
+    assert pinned.pinned and _shape(pinned.recipe) == ("Bluesteins", m_old)
+    gpu = FftPlannerGpu(C64, device="cpu")
+    assert route(32769, C64) == "large_pad"
+    assert gpu.design_fft_for_len(32769) == gpu._conv_composite_recipe(32769)
+    assert executor.core_form("bluestein", gpu._conv_inner(32769), C64) == "K14 four stages"
+    fields(**JAX_BAND)
+    band = FftPlannerGpu(C64, device="cpu")
+    for n in (16383, 32767):  # the hole band's Bluesteins, on the cluster passes
+        assert route(n, C64) is None
+        assert band.design_fft_for_len(n) == band._conv_composite_recipe(n)
+        assert _shape(band.design_fft_for_len(n)) == ("Bluesteins",
+                                                      executor.hole_band_inner(n, C64))
+
+
 # -- the hole band against the JAX planner ----------------------------------------
 
 def test_hole_band_inner_matches_jax(fields, ref_pallas):
@@ -372,9 +473,34 @@ def test_rule_paths_match_jax_and_oracle(n, on, direction, fields, ref_pallas):
     assert _rel(got, host_dft(x, d)) <= TOL
 
 
+#: R4's ways on the CPU: the split at 8199 = 9 x 911 (half on the one-pass
+#: core) and 9532 = 4 x 2383, the Bluestein on the cluster passes at 8482
+#: (m = 32768) and on K15's tile form at 131084 (m = 393216)
+R4_OUTPUT_CASES = (8199, 9532, 8482, 131084)
+
+
+@pytest.mark.parametrize("n", R4_OUTPUT_CASES)
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_composite_rule_paths_match_jax_and_oracle(n, direction, ref_pallas):
+    """The composite rule's path (the plain versions of its kernels on the
+    CPU) against the JAX FftPlanner with Pallas off and the float64
+    oracle."""
+    ref_pallas("off")
+    d = FftDirection(direction)
+    plan = FftPlanner(C64, device="cpu").plan_fft(n, d)
+    way = {row[0]: row[3] for row in R4_TABLE}[n]
+    assert isinstance(plan.recipe, recipes.MixedRadix if way == "s" else recipes.Bluesteins)
+    x = _signal(2, n, seed=n)
+    got = plan.process(torch.from_numpy(x)).numpy()
+    want = np.asarray(rustfft_tpu.FftPlanner(C64).plan_fft(n, RefDirection(direction)).process(x))
+    assert _rel(got, want) <= TOL
+    assert _rel(got, host_dft(x, d)) <= TOL
+
+
 # -- the kernels off and complex128 --------------------------------------------------
 
-NEW_SIZES = sorted({row[0] for table in (R1_TABLE, R2_TABLE, R3_TABLE) for row in table})
+NEW_SIZES = sorted({row[0] for table in (R1_TABLE, R2_TABLE, R3_TABLE, R4_TABLE)
+                    for row in table})
 
 
 @pytest.mark.parametrize("dtype", ["c64 kernels off", "c128"])

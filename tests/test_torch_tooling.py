@@ -26,6 +26,7 @@ from rustfft_tpu import FftPlanner as RefPlanner
 from rustfft_tpu import config as ref_config
 from rustfft_tpu_torch import FftPlanner, executor, math_utils, native, recipes, route
 from rustfft_tpu_torch.common import FftDirection
+from rustfft_tpu_torch.ops.kernels import conv_radix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(REPO, "tools")
@@ -83,14 +84,26 @@ def test_route_sizes_take_their_route(name):
 def test_form_sizes_take_their_core_form(form):
     """Every core form of torch_prime_cores.FORMS is reached by some prime
     (the torch recipe tree by the Bluesteins on 2^23 above about 3.1 million,
-    4194301 among them) but K14's four stages, which the prime rule leaves
-    to composites alone, and each size listed for it is a prime (for the
-    four stages a composite) that no route serves and whose inner length
-    runs on that form."""
+    4194301 among them) but K14's four stages, and each size listed for it
+    is a prime that no route serves and whose inner length runs on that
+    form.  The four stages have no size: since the prime rule and the
+    composite rule no planner path reaches them with the switches at their
+    defaults, and the switched check of 65537 under rader_in_shift does
+    (its Rader core keeps them, conv_radix.cluster_form); the composites
+    they served take the composite rule's ways."""
     sizes = torch_accuracy.FORM_SIZES[form]
+    if form == "K14 four stages":
+        assert sizes == ()
+        assert ((("rader_in_shift", True),), (65537,)) in torch_accuracy.SWITCHED
+        assert form_of(65537) == (None, "K14 cluster passes")
+        assert conv_radix.cluster_form(65536, in_shift=True) is None
+        for n in torch_accuracy.COMPOSITE_SIZES:
+            assert not math_utils.is_prime(n) and route(n, C64) is None, n
+            assert form_of(n)[1] in ("", "K15 tile form", "K14 cluster passes"), n
+        return
     assert sizes, form
     for n in sizes:
-        assert math_utils.is_prime(n) == (form != "K14 four stages"), n
+        assert math_utils.is_prime(n), n
         assert form_of(n) == (None, form), n
 
 
@@ -101,7 +114,11 @@ def test_default_checks_cover_every_route_and_core_form():
     routes = {route(n, C64) for n in sizes}
     assert routes == set(route_values()), routes
     forms = {form_of(n)[1] for n in sizes} - {""}
-    assert forms == set(FORMS), forms
+    assert forms == set(FORMS) - {"K14 four stages"}, forms
+    # the four stages on a switched check (65537 under rader_in_shift)
+    switched = {(c.n, c.switches) for c in checks if c.switches}
+    assert (65537, (("rader_in_shift", True),)) in switched
+    assert set(torch_accuracy.COMPOSITE_SIZES) <= sizes
     # both directions of every check
     for c in checks:
         assert c.__class__(c.n, c.direction.opposite(), c.dtype, c.switches, c.pinned) in checks
@@ -227,6 +244,10 @@ def rule_fields():
                  "m=1572864 (K15 tile form)"),
     (88589, {}, "the prime rule: bluestein on m=186624 (K14 four stages) -> Bluestein on "
                 "m=262144 (K14 cluster passes)"),
+    (8199, {}, "the composite rule: bluestein on m=17496 (K14 four stages) -> the split "
+               "9 x 911"),
+    (8482, {}, "the composite rule: bluestein on m=17496 (K14 four stages) -> Bluestein on "
+               "m=32768 (K14 cluster passes)"),
     (16383, {"bconv_misaligned": True},
      "the hole band: Bluestein on m=32768 (K14 cluster passes), not large_pad"),
     (1031, {"dense_fallback_max_n": 2048},
@@ -245,6 +266,26 @@ def test_inspect_plan_names_the_rule(n, on, rule, rule_fields, capsys):
 
 
 # ---- tools/torch_prime_cores.py, tools/torch_routes.py --rules ----
+
+def test_prime_cores_counts_the_composite_rule(capsys):
+    """The composite census of [8192, 9000): the awkward composites, those a
+    route serves, and the 256 with no route whose whole-n Bluestein ran
+    K14's four stages, each moved by the composite rule onto a fast form or
+    the split; none is left on the four stages."""
+    total, routed, before, after, moved = torch_prime_cores.composite_census(8192, 9000)
+    assert (total, routed) == (352, 96)
+    assert before == {"Bluesteins on K14 four stages": 256}
+    assert sum(after.values()) == 256 and "Bluesteins on K14 four stages" not in after
+    assert set(after) <= {"MixedRadix", "Bluesteins on K14 cluster passes",
+                          "Bluesteins on K15 tile form"}
+    assert sum(moved.values()) == 256
+    by_inner = torch_prime_cores.four_stage_composites(8192, 9000)
+    assert sum(map(len, by_inner.values())) == 256 and sorted(by_inner) == [17496, 18432]
+    torch_prime_cores.print_composites(8192, 9000)
+    out = capsys.readouterr().out
+    assert "awkward composites in [8192, 9000): 352, 96 served by a route, 256 with no route" in out
+    assert "moved by the composite rule: 256" in out
+
 
 def test_prime_cores_counts_the_prime_rule():
     """The census of [8192, 9000]: no prime left on K14's four stages, each
@@ -308,6 +349,52 @@ def test_planner_rules_check_reprints_a_record(tmp_path, capsys):
     for rule, set_ in (("R1", "fit"), ("R1", "held"), ("R2", "fit"), ("R3", "held")):
         assert f"{rule} {set_}: the planner of this tree takes the faster way (or a tie) at 1 " \
                "of 1 sizes" in out
+
+
+def test_planner_rules_check_reprints_the_composite_rule(tmp_path, capsys):
+    """--check reprints R4's three ways, from two records: 8199 (the rule
+    takes the split, measured fastest: a win) and 41484 (it takes the
+    Bluestein, where the split was measured faster: a loss)."""
+    import json
+
+    def row(n, set_, cur, new, split):
+        out = dict(rule="R4", n=n, set=set_, batch=2, device="cuda", torch_fft_ms=1.0)
+        for way, ms in (("current", cur), ("candidate", new), ("split", split)):
+            out.update({way: way, f"{way}_ms": ms, f"{way}_queued_ms": ms,
+                        f"{way}_turns_ms": [ms, ms], f"{way}_turns_queued_ms": [ms, ms]})
+        return out
+
+    paths = []
+    for name, rows in (("fit.json", [row(8199, "fit", 6.0, 2.9, 1.8)]),
+                       ("held.json", [row(41484, "held", 6.1, 3.3, 3.0)])):
+        path = tmp_path / name
+        path.write_text(json.dumps(dict(card="NVIDIA H100 80GB HBM3, 700.00 W", torch="2.11",
+                                        rows=rows)))
+        paths.append(str(path))
+    torch_planner_rules.main(["--check", *paths])
+    out = capsys.readouterr().out
+    assert "`python3 tools/torch_planner_rules.py --check fit.json held.json`: runs" in out
+    assert "| fit | 8199 | 2 | current | 6.000 / 6.000 | candidate | 2.900 / 2.900 | split | " \
+           "1.800 / 1.800 | 1.000 | 2.07 / 2.07 | 3.33 / 3.33 | 0.000 | split | split | win |" in out
+    assert "| 0.000 | split | candidate | loss |" in out
+    assert "R4 fit: the planner of this tree takes the faster way (or a tie) at 1 of 1" in out
+    assert "R4 held: the planner of this tree takes the faster way (or a tie) at 0 of 1" in out
+
+
+def test_planner_rules_composite_samples(monkeypatch):
+    """R4's samples, on the census of [8192, 12000) in place of [8192,
+    2^20): the median of each inner length and the five named sizes;
+    without a seed no held-out size, with one 5 sizes the rule sends to the
+    split and 5 it sends to the Bluestein, apart from the sampled."""
+    by_inner = torch_prime_cores.four_stage_composites(8192, 12000)
+    monkeypatch.setattr(torch_prime_cores, "four_stage_composites", lambda: by_inner)
+    fit, held = torch_planner_rules.r4_samples()
+    medians = [by_inner[m][len(by_inner[m]) // 2] for m in sorted(by_inner)]
+    assert fit == medians + list(torch_planner_rules.R4_NAMED) and held == []
+    _, held = torch_planner_rules.r4_samples(20261018)
+    census = {n for sizes in by_inner.values() for n in sizes}
+    assert len(held) == 10 and set(held) <= census and not set(held) & set(fit)
+    assert [torch_planner_rules.taken("R4", n) for n in held] == ["split"] * 5 + ["candidate"] * 5
 
 
 # ---- tools/torch_autotune.py ----

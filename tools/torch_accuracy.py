@@ -75,20 +75,25 @@ ROUTE_SIZES = {
 }
 
 #: sizes for each convolution core form (torch_prime_cores.FORMS): primes no
-#: route serves, by the core their recipe's inner length runs on, and for
-#: K14's four stages, which the prime rule leaves to composites alone,
-#: composites whose whole-n Bluestein runs there (196609 and 88575: the
-#: inner lengths 419904 and 186624 of the primes 196613 and 88589 before
-#: the rule); 4194301 is a Bluestein on 2^23 whose chirp and product are
-#: torch glue around large2f
+#: route serves, by the core their recipe's inner length runs on; none for
+#: K14's four stages, which no planner path reaches with the switches at
+#: their defaults since the prime rule and the composite rule (65537 under
+#: rader_in_shift, a SWITCHED check, runs them); 4194301 is a Bluestein on
+#: 2^23 whose chirp and product are torch glue around large2f
 FORM_SIZES = {
     "one-pass core": (257, 2531, 3083),
     "K14 cluster passes": (65521, 131071),
-    "K14 four stages": (196609, 88575),
+    "K14 four stages": (),
     "K15 tile form": (1000003, 524309),
     "K15 general form": (24571,),
     "torch recipe tree": (4194301,),
 }
+
+#: the composite rule's ways (FftPlannerGpu._composite_rule) at composites
+#: whose whole-n Bluestein ran K14's four stages before it: the split at
+#: 8199 = 9 x 911, the Bluestein on K15's tile form at 196609 (m = 442368)
+#: and on the cluster passes at 88575 (m = 262144)
+COMPOSITE_SIZES = (8199, 196609, 88575)
 
 #: complex128 on the card: the torch recipe tree (no kernel serves c128)
 C128_SIZES = (64, 256, 1009, 4096, 65537)
@@ -152,7 +157,7 @@ def planner_checks(sizes, dtype: str = "complex64", switches=()):
 
 def default_checks():
     """The route-wide list that this script and chip_smoke.py run."""
-    sizes = list(dict.fromkeys(SAMPLED_SIZES + SCENARIO_SIZES))
+    sizes = list(dict.fromkeys(SAMPLED_SIZES + SCENARIO_SIZES + list(COMPOSITE_SIZES)))
     for group in (ROUTE_SIZES, FORM_SIZES):
         for more in group.values():
             sizes += [n for n in more if n not in sizes]

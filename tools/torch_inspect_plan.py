@@ -91,9 +91,10 @@ def kernel_trace(fn, device) -> list:
 def rule_of(n: int, recipe, routed, np_dtype) -> str:
     """The planner rule that decided n's plan, as text, or "": the prime
     rule (a Bluestein on a fast core form in place of the recipe of the
-    convolution-core rules), the hole band (route gives no route where it
-    would give large_pad) or the dense band (dense above
-    config.dense_dft_max)."""
+    convolution-core rules), the composite rule (a Bluestein on a fast core
+    form or the split in place of a composite's whole-n Bluestein on K14's
+    four stages), the hole band (route gives no route where it would give
+    large_pad) or the dense band (dense above config.dense_dft_max)."""
     from rustfft_tpu_torch import config, executor, recipes
     from rustfft_tpu_torch.math_utils import is_prime
     from rustfft_tpu_torch.planner import FftPlannerGpu
@@ -107,6 +108,15 @@ def rule_of(n: int, recipe, routed, np_dtype) -> str:
             kind, m = kind_and_inner(before)
             return (f"the prime rule: {kind} on m={m} ({core_form(kind, m)}) -> Bluestein on "
                     f"m={recipe.inner.length} ({core_form('bluestein', recipe.inner.length)})")
+    if not is_prime(n) and routed is None:
+        before = FftPlannerGpu(np_dtype, device="cpu")._conv_composite_recipe(n)
+        if before is not None and before != recipe:
+            m = before.inner.length
+            after = (f"the split {recipe.left.length} x {recipe.right.length}"
+                     if isinstance(recipe, recipes.MixedRadix) else
+                     f"Bluestein on m={recipe.inner.length} "
+                     f"({core_form('bluestein', recipe.inner.length)})")
+            return f"the composite rule: bluestein on m={m} ({core_form('bluestein', m)}) -> {after}"
     m = executor.hole_band_inner(n, np_dtype)
     if m is not None:
         return f"the hole band: Bluestein on m={m} ({core_form('bluestein', m)}), not large_pad"

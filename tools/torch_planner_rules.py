@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Time the planner's three kernel decisions of the JAX package on the card:
-the prime rule (R1), the hole band (R2) and the dense band (R3), each at its
-sampled and held-out sizes, the current path against the candidate.
+"""Time the planner's kernel decisions of the JAX package on the card: the
+prime rule (R1), the hole band (R2), the dense band (R3) and the composite
+rule (R4), each at its sampled and held-out sizes, the current path
+against the candidate (and R4's split).
 
-    python3 tools/torch_planner_rules.py [--rules R1,R2,R3] [--out FILE]
+    python3 tools/torch_planner_rules.py [--rules R1,R2,R3,R4] [--out FILE]
         [--device cuda] [--batch B] [--limit K] [--rounds 2]
-    python3 tools/torch_planner_rules.py --check FILE
+        [--sets fit,held] [--held-seed S]
+    python3 tools/torch_planner_rules.py --check FILE [FILE ...]
 
 For each size n, at a batch that makes the (batch, n) complex64 tensor 256 -
 512 MiB (--batch sets it), it times two paths, each in its rule's turns
@@ -31,16 +33,28 @@ once:
       fallback off: the planner's path (the convolution cores) against
       dense_fft.  Sampled: 257, 514, 1031, 2042 and every 8th size; held
       out: 10 sizes between those.
+  R4  the 64210 composites of [8192, 2^20) that no route serves and whose
+      whole-n Bluestein (FftPlannerGpu._conv_composite_recipe) runs K14's
+      four stages (torch_prime_cores.four_stage_composites, 35 inner
+      lengths): that recipe against Bluesteins(n, m') on the fast form's
+      inner (as R1) and against the near-balanced split
+      (FftPlannerGpu._split, its halves as this tree designs them), in the
+      turns current, candidate, split, split, candidate, current.
+      Sampled: the median size of each inner length and R4_NAMED; held
+      out (--held-seed, drawn once the rule is stated): 5 sizes the rule
+      sends to the split and 5 it sends to the Bluestein.
 
 Each path's first rows are held against torch.fft in complex128 (relative
 mean error <= 1e-5).  It prints one table a rule (n, batch, the current
 recipe and form with its ms, the candidate's with its ms, torch.fft's ms,
 the ratio current / candidate by events and queued, the spread of the
 turns, and the way the planner of this tree takes) and writes every row to
-FILE (default build/planner_rules.json).  --check FILE reprints a
-recorded run's tables on the CPU with the decisions of this tree's planner,
-so that a rule put in code after the run is checked against it, held-out
-sizes apart (PLANNER_RULES_GPU.md is that reprint of the H100 run).
+FILE (default build/planner_rules.json).  --sets times only the sets
+named.  --check FILE ... reprints recorded runs' tables on the CPU with
+the decisions of this tree's planner, so that a rule put in code after a
+run is checked against it, held-out sizes apart (PLANNER_RULES_GPU.md is
+that reprint of the H100 runs); R4's table also says of each size whether
+the way the planner takes is among the fastest ("win") or not ("loss").
 --device cpu --limit 1 --batch 1 rehearses it on the plain versions (host
 times, which say nothing of the card).  About 17 minutes on an H100, a
 minute of it the census of R1's primes.
@@ -63,7 +77,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 C64 = np.complex64
-RULES = ("R1", "R2", "R3")
+RULES = ("R1", "R2", "R3", "R4")
 #: the JAX package's hole-band settings (rustfft_tpu/config.py:183-185)
 JAX_BAND = dict(bconv_misaligned=True, bconv_misaligned_min_n=8192,
                 bconv_misaligned_max_pad=3.5)
@@ -194,7 +208,43 @@ def r3_samples():
     return fit, held
 
 
-SAMPLES = {"R1": r1_samples, "R2": r2_samples, "R3": r3_samples}
+#: the sizes R4 samples beside the median of each inner length: 8199 = 9 x
+#: 911, 41484 and 98324 on the cluster passes' inner lengths, and 131084 =
+#: 4 x 32771 and 196611 = 3 x 65537 above 131072, where the JAX planner
+#: finds no radix-core inner and splits
+R4_NAMED = (8199, 41484, 98324, 131084, 196611)
+
+
+def r4_samples(held_seed=None):
+    """(sampled, held out) composites of the composite rule: the median n of
+    each inner length of four_stage_composites, and R4_NAMED; held out, the
+    first 5 sizes the rule of this tree sends to the split and the first 5
+    it sends to the Bluestein, of the others in the order of numpy's
+    default_rng(held_seed).permutation (none without a seed: the seed is
+    chosen once the rule is stated)."""
+    from torch_prime_cores import four_stage_composites
+
+    by_inner = four_stage_composites()
+    fit = [by_inner[m][len(by_inner[m]) // 2] for m in sorted(by_inner)] + list(R4_NAMED)
+    fit = list(dict.fromkeys(fit))
+    rest = sorted(n for sizes in by_inner.values() for n in sizes if n not in fit)
+    held = []
+    if held_seed is not None:
+        drawn = {"split": [], "candidate": []}
+        for n in np.random.default_rng(held_seed).permutation(rest).tolist():
+            way = drawn.get(taken("R4", n))
+            if way is not None and len(way) < 5:
+                way.append(n)
+            if sum(map(len, drawn.values())) == 10:
+                break
+        held = drawn["split"] + drawn["candidate"]
+    print(f"R4 census: {sum(map(len, by_inner.values()))} composites of [8192, 2^20) with no "
+          f"route on K14's four stages, {len(by_inner)} inner lengths: " + ", ".join(
+              f"{m}:{len(by_inner[m])}" for m in sorted(by_inner)), flush=True)
+    return fit, held
+
+
+SAMPLES = {"R1": r1_samples, "R2": r2_samples, "R3": r3_samples, "R4": r4_samples}
 
 
 # ---- the two paths of each rule ----
@@ -210,34 +260,65 @@ def describe(recipe) -> str:
     return type(recipe).__name__
 
 
-def paths(rule: str, n: int, direction):
-    """((current label, current fn), (candidate label, candidate fn))."""
+def split_recipe(n: int):
+    """The near-balanced MixedRadix of n (FftPlannerGpu._choose_left_factor),
+    its halves as this tree's planner designs them: R4's split."""
+    from rustfft_tpu_torch import recipes
+    from rustfft_tpu_torch.math_utils import PrimeFactors
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+
+    planner = FftPlannerGpu(C64, device="cpu")
+    p = FftPlannerGpu._choose_left_factor(n, PrimeFactors.compute(n))
+    return recipes.MixedRadix(planner.design_fft_for_len(p), planner.design_fft_for_len(n // p))
+
+
+def describe_split(recipe) -> str:
+    from rustfft_tpu_torch import route
+
+    right = recipe.right
+    return (f"MixedRadix({recipe.left.length} x {right.length}: "
+            f"{route(right.length, C64) or describe(right)})")
+
+
+def paths(rule: str, n: int, direction) -> dict:
+    """{way: (label, fn)}: "current" and "candidate", and R4's "split"."""
     from rustfft_tpu_torch import FftPlanner, executor, recipes
     from rustfft_tpu_torch.ops.kernels import conv, dense, largepad
     from rustfft_tpu_torch.planner import FftPlannerGpu, routed_bluestein_inner
 
-    if rule == "R1":
-        old = FftPlannerGpu(C64, device="cpu")._conv_prime_recipe(n)
-        m = routed_bluestein_inner(n, C64)
-        new = recipes.Bluesteins(n, recipes.Dft(m))
-        return ((describe(old), executor.build(old, direction, C64)),
-                (describe(new), executor.build(new, direction, C64)))
+    if rule in ("R1", "R4"):
+        planner = FftPlannerGpu(C64, device="cpu")
+        old = planner._conv_prime_recipe(n) if rule == "R1" else planner._conv_composite_recipe(n)
+        new = recipes.Bluesteins(n, recipes.Dft(routed_bluestein_inner(n, C64)))
+        ways = {"current": (describe(old), executor.build(old, direction, C64)),
+                "candidate": (describe(new), executor.build(new, direction, C64))}
+        if rule == "R4":
+            split = split_recipe(n)
+            ways["split"] = (describe_split(split), executor.build(split, direction, C64))
+        return ways
     if rule == "R2":
         m = switched(JAX_BAND, lambda: executor.hole_band_inner(n, C64))
-        return (("large_pad", largepad.make_largepad_fft_fn(n, direction, C64)),
-                (f"Bluesteins(m={m}) K14 cluster passes",
-                 conv.make_bluestein_fn(n, m, direction, C64)))
+        return {"current": ("large_pad", largepad.make_largepad_fft_fn(n, direction, C64)),
+                "candidate": (f"Bluesteins(m={m}) K14 cluster passes",
+                              conv.make_bluestein_fn(n, m, direction, C64))}
     plan = switched(dict(dense_fallback_max_n=0),
                     lambda: FftPlanner(C64, device="cpu").plan_fft(n, direction))
-    return ((describe(plan.recipe), plan.process),
-            ("dense_fft", dense.make_dense_fft_fn(n, direction, C64)))
+    return {"current": (describe(plan.recipe), plan.process),
+            "candidate": ("dense_fft", dense.make_dense_fft_fn(n, direction, C64))}
 
 
 def taken(rule: str, n: int) -> str:
-    """The way this tree's planner takes at n: "candidate" or "current"."""
+    """The way this tree's planner takes at n: "candidate" or "current" (or
+    R4's "split")."""
     from rustfft_tpu_torch import executor, recipes, route
     from rustfft_tpu_torch.planner import FftPlannerGpu, routed_bluestein_inner
 
+    if rule == "R4":
+        planner = FftPlannerGpu(C64, device="cpu")
+        recipe = planner.design_fft_for_len(n)
+        if isinstance(recipe, recipes.MixedRadix):
+            return "split"
+        return "current" if recipe == planner._conv_composite_recipe(n) else "candidate"
     if rule == "R1":
         recipe = FftPlannerGpu(C64, device="cpu").design_fft_for_len(n)
         new = (isinstance(recipe, recipes.Bluesteins)
@@ -312,25 +393,26 @@ def measure(rule, n, batch, device, rounds, timers):
 
     event_ms, queued_ms = timers
     start = time.perf_counter()
-    (old_label, old_fn), (new_label, new_fn) = paths(rule, n, FftDirection.FORWARD)
+    ways = paths(rule, n, FftDirection.FORWARD)
     gen = torch.Generator(device=device).manual_seed(n)
     x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=device)
     want = torch.fft.fft(x[:4].to(torch.complex128))
-    errs = [rel_err(fn(x)[:4], want) for fn in (old_fn, new_fn)]
-    for label, err in zip((old_label, new_label), errs):
+    row = dict(rule=rule, n=n, batch=batch)
+    for way, (label, fn) in ways.items():
+        err = rel_err(fn(x)[:4], want)
         if not err <= TOL:
             raise AssertionError(f"{rule} n={n}: {label} relative mean error {err:.3e} > {TOL}")
-    ev = {"current": [], "candidate": []}
-    qu = {"current": [], "candidate": []}
-    fns = {"current": lambda: old_fn(x), "candidate": lambda: new_fn(x)}
+        row[way], row[f"err_{way}"] = label, err
+    ev = {way: [] for way in ways}
+    qu = {way: [] for way in ways}
     for _ in range(rounds):
-        for way in ("current", "candidate", "candidate", "current"):
-            ev[way].append(event_ms(fns[way]))
-            qu[way].append(queued_ms(fns[way]))
-    fft_ms = event_ms(lambda: torch.fft.fft(x))
-    row = dict(rule=rule, n=n, batch=batch, current=old_label, candidate=new_label,
-               err_current=errs[0], err_candidate=errs[1], torch_fft_ms=fft_ms)
-    for way in ("current", "candidate"):
+        # current, candidate(s), then back: current, candidate, candidate, current
+        for way in list(ways) + list(ways)[::-1]:
+            fn = ways[way][1]
+            ev[way].append(event_ms(lambda: fn(x)))
+            qu[way].append(queued_ms(lambda: fn(x)))
+    row["torch_fft_ms"] = event_ms(lambda: torch.fft.fft(x))
+    for way in ways:
         row[f"{way}_ms"] = statistics.median(ev[way])
         row[f"{way}_queued_ms"] = statistics.median(qu[way])
         row[f"{way}_turns_ms"] = ev[way]
@@ -343,45 +425,72 @@ def measure(rule, n, batch, device, rounds, timers):
     return row
 
 
+#: the ways a row may time, in the order they are printed
+WAYS = ("current", "candidate", "split")
+
+
+def ways_of(row) -> list:
+    return [way for way in WAYS if f"{way}_ms" in row]
+
+
 def spread(row) -> float:
-    """The larger relative spread of the two ways' turns (queued device
-    time; events on the CPU): (max - min) / median."""
+    """The largest relative spread of the ways' turns (queued device time;
+    events on the CPU): (max - min) / median."""
     key = "turns_queued_ms" if row.get("device", "cuda") == "cuda" else "turns_ms"
     return max((max(t) - min(t)) / statistics.median(t)
-               for t in (row[f"current_{key}"], row[f"candidate_{key}"]))
+               for t in (row[f"{way}_{key}"] for way in ways_of(row)))
+
+
+def fastest(row) -> list:
+    """The ways no other way beats by more than the spread in both timings
+    (events and queued)."""
+    s = spread(row)
+
+    def beats(a, b):
+        return min(row[f"{b}_ms"] / row[f"{a}_ms"],
+                   row[f"{b}_queued_ms"] / row[f"{a}_queued_ms"]) > 1 + s
+
+    ways = ways_of(row)
+    return [w for w in ways if not any(beats(o, w) for o in ways if o != w)]
 
 
 def faster(row) -> str:
-    """The way measured faster by more than the spread in both timings, or
-    "tie"."""
-    s = spread(row)
-    ev = row["current_ms"] / row["candidate_ms"]
-    qu = row["current_queued_ms"] / row["candidate_queued_ms"]
-    if min(ev, qu) > 1 + s:
-        return "candidate"
-    if max(ev, qu) < 1 / (1 + s):
-        return "current"
-    return "tie"
+    """The way measured faster than every other by more than the spread in
+    both timings; "tie" where none is, or "a=b" for two ways level ahead of
+    a third."""
+    best = fastest(row)
+    return best[0] if len(best) == 1 else "tie" if len(best) == len(ways_of(row)) else \
+        "=".join(best)
 
 
 def print_table(rule, rows, header) -> None:
+    """One rule's rows; with a split way (R4) its columns too, and whether
+    the way the planner takes is among the fastest ("win") or not
+    ("loss")."""
     from rustfft_tpu_torch import config
 
-    print(f"\n{rule} ({header}); ms a call (events / queued); ratio = current / candidate")
-    print("| set | n | batch | current | ms | candidate | ms | torch.fft | ratio | spread | faster "
-          "| planner takes |")
-    print("|---|---|---|---|---|---|---|---|---|---|---|---|")
+    split = any("split_ms" in row for row in rows)
+    print(f"\n{rule} ({header}); ms a call (events / queued); ratio = current / candidate"
+          + ("; ratio split = current / split" if split else ""))
+    print("| set | n | batch | current | ms | candidate | ms | " + ("split | ms | " if split else "")
+          + "torch.fft | ratio | " + ("ratio split | " if split else "")
+          + "spread | faster | planner takes |" + (" the rule |" if split else ""))
+    print("|---" * (12 + 4 * split) + "|")
     agree = Counter()
     for row in rows:
         took = taken(rule, row["n"])
-        won = faster(row)
-        agree[(row["set"], won == took or won == "tie")] += 1
-        print(f"| {row['set']} | {row['n']} | {row['batch']} | {row['current']} | "
-              f"{row['current_ms']:.3f} / {row['current_queued_ms']:.3f} | {row['candidate']} | "
-              f"{row['candidate_ms']:.3f} / {row['candidate_queued_ms']:.3f} | "
-              f"{row['torch_fft_ms']:.3f} | {row['current_ms'] / row['candidate_ms']:.2f} / "
-              f"{row['current_queued_ms'] / row['candidate_queued_ms']:.2f} | "
-              f"{spread(row):.3f} | {won} | {took} |")
+        won = took in fastest(row)
+        agree[(row["set"], won)] += 1
+        cells = [row["set"], row["n"], row["batch"]]
+        for way in ways_of(row):
+            cells += [row[way], f"{row[f'{way}_ms']:.3f} / {row[f'{way}_queued_ms']:.3f}"]
+        cells.append(f"{row['torch_fft_ms']:.3f}")
+        for way in ways_of(row)[1:]:
+            cells.append(f"{row['current_ms'] / row[f'{way}_ms']:.2f} / "
+                         f"{row['current_queued_ms'] / row[f'{way}_queued_ms']:.2f}")
+        cells += [f"{spread(row):.3f}", faster(row), took] + (
+            ["win" if won else "loss"] if split else [])
+        print("| " + " | ".join(str(c) for c in cells) + " |")
     for s in ("fit", "held"):
         total = agree[(s, True)] + agree[(s, False)]
         if total:
@@ -410,21 +519,29 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=0, help="batch (default: 256-512 MiB a tensor)")
     ap.add_argument("--limit", type=int, default=0, help="sizes a set (default: all)")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--check", metavar="FILE", help="reprint a recorded run with this tree's "
-                                                    "decisions, on the CPU")
+    ap.add_argument("--sets", default="fit,held", help="the sets to time (fit, held)")
+    ap.add_argument("--held-seed", type=int, default=None,
+                    help="R4: the seed its held-out sizes are drawn with (none without)")
+    ap.add_argument("--check", metavar="FILE", nargs="+",
+                    help="reprint recorded runs with this tree's decisions, on the CPU")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
     if args.check:
-        with open(args.check) as f:
-            record = json.load(f)
+        records = []
+        for path in args.check:
+            with open(path) as f:
+                records.append(json.load(f))
+        cards = list(dict.fromkeys(f"{r['card']} (torch {r['torch']})" for r in records))
         print("# The planner rules on the card\n\n`python3 tools/torch_planner_rules.py --check "
-              f"{os.path.basename(args.check)}`: a run recorded on {record['card']} (torch "
-              f"{record['torch']}), with the decisions of this tree's planner.")
+              f"{' '.join(os.path.basename(p) for p in args.check)}`: "
+              f"{'a run' if len(records) == 1 else 'runs'} recorded on {', '.join(cards)}, "
+              "with the decisions of this tree's planner.")
         for rule in RULES:
-            rows = [r for r in record["rows"] if r["rule"] == rule]
-            if rows:
-                print_table(rule, rows, f"recorded on {record['card']}")
+            for record in records:
+                rows = [r for r in record["rows"] if r["rule"] == rule]
+                if rows:
+                    print_table(rule, rows, f"recorded on {record['card']}")
         return
 
     import torch
@@ -441,22 +558,24 @@ def main(argv=None) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     t0 = time.perf_counter()
     for rule in args.rules.split(","):
-        fit, held = SAMPLES[rule]()
+        fit, held = SAMPLES[rule](args.held_seed) if rule == "R4" else SAMPLES[rule]()
         if args.limit:
             fit, held = fit[:args.limit], held[:args.limit]
         print(f"{rule}: sampled {fit}; held out {held} (t = {time.perf_counter() - t0:.1f} s)",
               flush=True)
         rows = []
         for set_, sizes in (("fit", fit), ("held", held)):
+            if set_ not in args.sets.split(","):
+                continue
             for n in sizes:
                 row = measure(rule, n, args.batch or batch_for(n), device, args.rounds, timers)
                 row["set"], row["device"] = set_, device.type
                 rows.append(row)
                 record["rows"].append(row)
-                print(f"  {rule} {set_} n={n}: {row['current']} {row['current_ms']:.3f} / "
-                      f"{row['current_queued_ms']:.3f} ms, {row['candidate']} "
-                      f"{row['candidate_ms']:.3f} / {row['candidate_queued_ms']:.3f} ms, "
-                      f"torch.fft {row['torch_fft_ms']:.3f} ({row['seconds']:.1f} s)", flush=True)
+                print(f"  {rule} {set_} n={n}: " + ", ".join(
+                    f"{row[w]} {row[f'{w}_ms']:.3f} / {row[f'{w}_queued_ms']:.3f} ms"
+                    for w in ways_of(row)) + f", torch.fft {row['torch_fft_ms']:.3f} "
+                    f"({row['seconds']:.1f} s)", flush=True)
                 with open(args.out, "w") as f:
                     json.dump(record, f, indent=1)
         print_table(rule, rows, card)

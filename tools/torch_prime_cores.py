@@ -5,6 +5,7 @@ PyTorch/CUDA port runs them on.
 Run from the repository root; it needs no GPU:
 
     python3 tools/torch_prime_cores.py [TREE] [LO HI]
+    python3 tools/torch_prime_cores.py --composites [LO HI]
 
 TREE (default the checkout this script lies in) is the root of the
 checkout whose `rustfft_tpu_torch` is counted, so that a parent unpacked
@@ -30,6 +31,14 @@ lengths), then each core form's most common inner lengths, then the primes
 the prime rule (planner.prime_rule_inner) moved: their recipe's core form
 before the rule (FftPlannerGpu._conv_prime_recipe) and after it.
 About 60 s for [8192, 2^20] on one CPU core.
+
+With --composites it counts the awkward composites of [LO, HI) (default
+[8192, 2^20), HI left out): the composites with a prime factor above
+config.dense_dft_max that no route serves, by recipe and core form before
+the composite rule (FftPlannerGpu._conv_composite_recipe: a whole-n
+Bluesteins, else the split) and after it (the planner's recipe), then the
+sizes the rule moved, by form before and way after.  About four minutes
+for the default range on one CPU core, most of it executor.route.
 """
 from __future__ import annotations
 
@@ -58,6 +67,42 @@ def primes_in(lo: int, hi: int) -> np.ndarray:
         if sieve[p]:
             sieve[p * p :: p] = False
     return np.flatnonzero(sieve[lo:]) + lo
+
+
+def awkward_composites(lo: int, hi: int, above: int = 256) -> np.ndarray:
+    """The composites n with lo <= n < hi and a prime factor above `above`
+    (config.dense_dft_max): the sizes the awkward-composite rule designs as
+    one whole-n Bluestein's."""
+    largest = np.zeros(hi, dtype=np.int64)
+    for p in primes_in(2, hi - 1).tolist():
+        largest[p::p] = p  # ascending primes: the largest factor is written last
+    n = np.arange(lo, hi)
+    big = largest[lo:hi]
+    return n[(big > above) & (big != n)]
+
+
+def four_stage_composites(lo: int = 8192, hi: int = 1 << 20) -> dict:
+    """{inner length m: [n, ...]} of the composites of [lo, hi) that no
+    route serves and whose whole-n Bluestein before the composite rule
+    (FftPlannerGpu._conv_composite_recipe) runs K14's four stages: the
+    sizes the composite rule (planner.composite_rule) decides."""
+    from rustfft_tpu_torch import config, executor, recipes, route
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+
+    planner = FftPlannerGpu(np.complex64, device="cpu")
+    forms: dict = {}
+    by_inner: dict = {}
+    for n in awkward_composites(lo, hi, config.dense_dft_max).tolist():
+        recipe = planner._conv_composite_recipe(n)
+        if not isinstance(recipe, recipes.Bluesteins):
+            continue
+        m = recipe.inner.length
+        if m not in forms:
+            forms[m] = core_form("bluestein", m)
+        # route last: it costs more than the rest together
+        if forms[m] == "K14 four stages" and route(n, np.complex64) is None:
+            by_inner.setdefault(m, []).append(n)
+    return by_inner
 
 
 def core_form(kind: str, m: int) -> str:
@@ -123,8 +168,64 @@ def census(lo: int, hi: int):
     return by_inner, by_form, inners, moved, sorted(pads)
 
 
+def recipe_label(recipe) -> str:
+    """A composite's recipe as the census counts it: "Bluesteins on" its
+    core form, or the recipe's class name."""
+    from rustfft_tpu_torch import recipes
+
+    if isinstance(recipe, recipes.Bluesteins):
+        return f"Bluesteins on {core_form('bluestein', recipe.inner.length)}"
+    return type(recipe).__name__
+
+
+def composite_census(lo: int, hi: int):
+    """(awkward composites, of them served by a route, those with no route
+    by recipe label before the composite rule, and after, the moved ones
+    by (label before, label after)) over the awkward composites of [lo,
+    hi)."""
+    from rustfft_tpu_torch import config, route
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+
+    planner = FftPlannerGpu(np.complex64, device="cpu")
+    sizes = awkward_composites(lo, hi, config.dense_dft_max).tolist()
+    routed = 0
+    before: Counter = Counter()
+    after: Counter = Counter()
+    moved: Counter = Counter()
+    for n in sizes:
+        if route(n, np.complex64) is not None:
+            routed += 1
+            continue
+        recipe = planner.design_fft_for_len(n)
+        whole = planner._conv_composite_recipe(n)  # None: the split, which the rule keeps
+        old, new = recipe_label(recipe if whole is None else whole), recipe_label(recipe)
+        before[old] += 1
+        after[new] += 1
+        if new != old:
+            moved[(old, new)] += 1
+    return len(sizes), routed, before, after, moved
+
+
+def print_composites(lo: int, hi: int) -> None:
+    total, routed, before, after, moved = composite_census(lo, hi)
+    print(f"awkward composites in [{lo}, {hi}): {total}, {routed} served by a route, "
+          f"{total - routed} with no route")
+    for name, counts in (("before the composite rule", before), ("after it", after)):
+        print(f"{name}, by recipe and core form:")
+        for label, c in sorted(counts.items(), key=lambda kv: -kv[1]):
+            print(f"  {label}: {c}")
+    print(f"moved by the composite rule: {sum(moved.values())}" + "".join(
+        f"\n  {old} -> {new}: {c}" for (old, new), c in sorted(moved.items(),
+                                                               key=lambda kv: -kv[1])))
+
+
 def main() -> None:
     args = sys.argv[1:]
+    if args[:1] == ["--composites"]:
+        sys.path.insert(0, HERE)
+        lo, hi = (int(a) for a in args[1:3]) if len(args) > 2 else (8192, 1 << 20)
+        print_composites(lo, hi)
+        return
     root = HERE
     if args and os.path.isdir(args[0]):
         root, args = os.path.abspath(args[0]), args[1:]
