@@ -410,12 +410,13 @@ class FftPlannerGpu(_PlannerBase):
         routed_bluestein_inner's m_a (or at most m_a with p in
         SPLIT_EVEN_P, where the split's glue is cheapest); else the
         Bluestein on m_a (K14's cluster passes or K15's tile form).  The
-        card measured both faster than the four stages at the 40 sampled
-        sizes of [8192, 2^20) (the Bluestein 1.22-2.92x, the split up to
-        3.30x), and this rule the faster of the two, or level, at 39 of
-        them; 41484 = 12 x 3457, whose half is a Rader, is its miss
-        (tools/torch_planner_rules.py --rules R4, PLANNER_RULES_GPU.md;
-        NVIDIA H100 80GB HBM3, 700.00 W)."""
+        card measured the Bluestein faster than the four stages at all 50
+        sizes timed of [8192, 2^20) and the split at 48; the way this rule
+        takes 1.50-3.46x faster, and the faster of the two, or level, at 39
+        of the 40 sampled sizes (41484 = 12 x 3457, whose half is a Rader,
+        is the miss) and 7 of the 10 held out (tools/torch_planner_rules.py
+        --rules R4, PLANNER_RULES_GPU.md; NVIDIA H100 80GB HBM3, 700.00
+        W)."""
         from . import executor
 
         m = recipe.inner.length

@@ -15,9 +15,9 @@ path).
       at all 69 sizes;
   R4  the composite rule (FftPlannerGpu._composite_rule): on, a composite's
       whole-n Bluestein on K14's four stages gives way to the Bluestein on
-      a fast core form or to the split, both faster at all 50 sizes timed
-      but 90955's split; the way taken the faster, or level, at 39 of 40
-      sampled and 7 of 10 held-out sizes.
+      a fast core form or to the split (the Bluestein faster at all 50
+      sizes timed, the split at 48); the way taken the faster, or level, at
+      39 of 40 sampled and 7 of 10 held-out sizes.
 Each decision is checked as recipes and routes, the hole band's inner
 against the JAX planner's _radix_conv_inner, the outputs against the JAX
 planner and the float64 oracle, and the recipes with the kernels off and

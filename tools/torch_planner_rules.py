@@ -260,18 +260,6 @@ def describe(recipe) -> str:
     return type(recipe).__name__
 
 
-def split_recipe(n: int):
-    """The near-balanced MixedRadix of n (FftPlannerGpu._choose_left_factor),
-    its halves as this tree's planner designs them: R4's split."""
-    from rustfft_tpu_torch import recipes
-    from rustfft_tpu_torch.math_utils import PrimeFactors
-    from rustfft_tpu_torch.planner import FftPlannerGpu
-
-    planner = FftPlannerGpu(C64, device="cpu")
-    p = FftPlannerGpu._choose_left_factor(n, PrimeFactors.compute(n))
-    return recipes.MixedRadix(planner.design_fft_for_len(p), planner.design_fft_for_len(n // p))
-
-
 def describe_split(recipe) -> str:
     from rustfft_tpu_torch import route
 
@@ -283,6 +271,7 @@ def describe_split(recipe) -> str:
 def paths(rule: str, n: int, direction) -> dict:
     """{way: (label, fn)}: "current" and "candidate", and R4's "split"."""
     from rustfft_tpu_torch import FftPlanner, executor, recipes
+    from rustfft_tpu_torch.math_utils import PrimeFactors
     from rustfft_tpu_torch.ops.kernels import conv, dense, largepad
     from rustfft_tpu_torch.planner import FftPlannerGpu, routed_bluestein_inner
 
@@ -293,7 +282,8 @@ def paths(rule: str, n: int, direction) -> dict:
         ways = {"current": (describe(old), executor.build(old, direction, C64)),
                 "candidate": (describe(new), executor.build(new, direction, C64))}
         if rule == "R4":
-            split = split_recipe(n)
+            # the near-balanced split, its halves as this tree designs them
+            split = planner._split(n, PrimeFactors.compute(n))
             ways["split"] = (describe_split(split), executor.build(split, direction, C64))
         return ways
     if rule == "R2":

@@ -69,7 +69,7 @@ def primes_in(lo: int, hi: int) -> np.ndarray:
     return np.flatnonzero(sieve[lo:]) + lo
 
 
-def awkward_composites(lo: int, hi: int, above: int = 256) -> np.ndarray:
+def awkward_composites(lo: int, hi: int, above: int) -> np.ndarray:
     """The composites n with lo <= n < hi and a prime factor above `above`
     (config.dense_dft_max): the sizes the awkward-composite rule designs as
     one whole-n Bluestein's."""
@@ -85,7 +85,7 @@ def four_stage_composites(lo: int = 8192, hi: int = 1 << 20) -> dict:
     """{inner length m: [n, ...]} of the composites of [lo, hi) that no
     route serves and whose whole-n Bluestein before the composite rule
     (FftPlannerGpu._conv_composite_recipe) runs K14's four stages: the
-    sizes the composite rule (planner.composite_rule) decides."""
+    sizes the composite rule (FftPlannerGpu._composite_rule) decides."""
     from rustfft_tpu_torch import config, executor, recipes, route
     from rustfft_tpu_torch.planner import FftPlannerGpu
 
