@@ -355,9 +355,10 @@ FOUR = {746497: 64, 196613: 256, 88589: 512}
 CLUSTER_PRIMES = {65537: 512, 7919: 4096, 65521: 512, 131071: 256}
 
 #: the composite rule (phase 8, on): composites with no route whose whole-n
-#: Bluestein ran K14's four stages (8199 = 9 x 911, 41484, 118099 = 17 x
-#: 6947, and 131084 = 4 x 32771 and 196611 = 3 x 65537, where the JAX
-#: planner splits) -> batch
+#: Bluestein ran K14's four stages -> batch: the split at 8199 = 9 x 911 and
+#: 41484 = 12 x 3457 (its half a Bluesteins and a Raders on the one-pass
+#: core), the Bluestein at 118099 = 17 x 6947, and at 131084 = 4 x 32771
+#: and 196611 = 3 x 65537, where the JAX planner splits
 COMPOSITE_RULE = {8199: 4096, 41484: 1024, 118099: 512, 131084: 256, 196611: 256}
 
 #: the planner rules (phase 8), each at its sizes -> batch: the prime rule

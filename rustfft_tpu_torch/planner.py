@@ -217,16 +217,6 @@ def prime_rule_inner(length: int, recipe: recipes.Recipe, dtype) -> Optional[int
     return routed_bluestein_inner(length, dtype)
 
 
-#: the composite rule's split (FftPlannerGpu._composite_rule): the core
-#: forms its Bluestein half may run, the share of the whole-n Bluestein's
-#: inner length its inner points may reach, and the DFT_p sizes at which
-#: it may reach all of it (the card's fit: the split won at p m_q <= 0.75
-#: m_a, lost at 0.79-0.87 with p <= 20, won at 0.83-0.98 with p = 30 .. 53)
-SPLIT_FORMS = ("one-pass core", "K14 cluster passes")
-SPLIT_SHARE = 0.77
-SPLIT_EVEN_P = (24, 64)
-
-
 class FftPlannerScalar(_PlannerBase):
     """Exact port of the reference scalar planner's decision tree
     (src/plan.rs:270-665): butterfly -> prime -> butterfly product -> RadixN
@@ -359,7 +349,13 @@ class FftPlannerGpu(_PlannerBase):
         JAX planner's planner.py:363-381, on with config.bconv_misaligned):
         one whole-n Bluestein's on the two-pass core's cluster passes;
       - composite n with a prime factor above dense_dft_max (1234 = 2*617):
-        one whole-n Bluestein's when `_conv_inner` finds an inner.
+        one whole-n Bluestein's when `_conv_inner` finds an inner; then the
+        composite rule (`_composite_way`): where that Bluestein runs K14's
+        four stages and no route serves n, the cheaper by split_costs.py's
+        tables of the Bluestein on routed_bluestein_inner and the split
+        below (the 64210 such composites of [8192, 2^20): 25743 onto the
+        cluster passes, 18396 onto K15's tile form, 20071 split;
+        tools/torch_prime_cores.py --composites).
     * composite n: near-balanced split n = p*q (largest divisor <= sqrt(n)),
       recursing on both halves; the executor swaps every subtree whose length
       executor.route names for that whole-transform kernel.
@@ -386,7 +382,11 @@ class FftPlannerGpu(_PlannerBase):
         if self._conv_rules():
             recipe = self._conv_composite_recipe(length, factors)
             if recipe is not None:
-                return self._composite_rule(length, factors, recipe)
+                way = self._composite_way(length, factors, recipe)
+                if way == "bluestein":
+                    m = routed_bluestein_inner(length, self.dtype)
+                    return recipes.Bluesteins(length, self.design_fft_for_len(m))
+                return recipe if way is None else self._split(length, factors)
         return self._split(length, factors)
 
     def _split(self, length: int, factors: PrimeFactors) -> recipes.MixedRadix:
@@ -395,48 +395,61 @@ class FftPlannerGpu(_PlannerBase):
         return recipes.MixedRadix(self.design_fft_for_len(p),
                                   self.design_fft_for_len(length // p))
 
-    def _composite_rule(self, length: int, factors: PrimeFactors,
-                        recipe: recipes.Bluesteins) -> recipes.Recipe:
-        """R4, the composite rule: the recipe the planner takes in place of
-        a composite's whole-n Bluestein (`_conv_composite_recipe`) where
-        that Bluestein runs K14's four stages and no route serves n (the
-        hole band's inner runs the cluster passes, so its sizes keep
-        theirs).  The JAX planner's core preference (_aligned_conv_inner,
+    def composite_way(self, length: int) -> Optional[str]:
+        """The composite rule's way at n (`_composite_way`): "split",
+        "bluestein", or None where the rule leaves the plan alone."""
+        factors = PrimeFactors.compute(length)
+        if length <= config.dense_dft_max or factors.is_prime() or not self._conv_rules():
+            return None
+        recipe = self._conv_composite_recipe(length, factors)
+        return None if recipe is None else self._composite_way(length, factors, recipe)
+
+    def _composite_way(self, length: int, factors: PrimeFactors,
+                       recipe: recipes.Bluesteins) -> Optional[str]:
+        """R4, the composite rule, on a composite's whole-n Bluestein
+        (`_conv_composite_recipe`): None (keep it) unless it runs K14's four
+        stages and no route serves n (the hole band's inner runs the cluster
+        passes, so its sizes keep theirs); else the cheaper by
+        split_costs.py's H100 tables (`composite_costs`) of "bluestein",
+        the Bluestein on routed_bluestein_inner's m_a (K14's cluster passes
+        or K15's tile form), and "split", the near-balanced split (_split):
+        p transforms of its prime half's core and n elements of the CT
+        glue.  The JAX planner's core preference (_aligned_conv_inner,
         planner.py:413-468: a larger radix-core inner over a smaller
-        dense-core one, else the split) read in the card's core forms:
-        the split (_split) where its prime half q = n / p is a Bluesteins
-        on the one-pass core or the cluster passes, with no route, whose p
-        inner transforms of m_q points come to at most SPLIT_SHARE of
-        routed_bluestein_inner's m_a (or at most m_a with p in
-        SPLIT_EVEN_P, where the split's glue is cheapest); else the
-        Bluestein on m_a (K14's cluster passes or K15's tile form).  The
-        card measured the Bluestein faster than the four stages at all 50
-        sizes timed of [8192, 2^20) and the split at 48; the way this rule
-        takes 1.50-3.46x faster, and the faster of the two, or level, at 39
-        of the 40 sampled sizes (41484 = 12 x 3457, whose half is a Rader,
-        is the miss) and 7 of the 10 held out (tools/torch_planner_rules.py
-        --rules R4, PLANNER_RULES_GPU.md; NVIDIA H100 80GB HBM3, 700.00
-        W)."""
+        dense-core one, else the split) read as the card's costs; the split
+        measured within 1.3% of its glue plus its half at 150 sizes, and
+        the way this takes the faster, or level, at 20 of 20 sizes held out
+        from the tables (tools/torch_planner_rules.py; NVIDIA H100 80GB
+        HBM3, 700.00 W)."""
         from . import executor
 
         m = recipe.inner.length
         if (executor.core_form("bluestein", m, self.dtype) != "K14 four stages"
                 or executor.route(length, self.dtype) is not None):
-            return recipe
+            return None
+        blue, split = self.composite_costs(length, factors)
+        if blue is None:
+            return None
+        return "split" if split is not None and split < blue else "bluestein"
+
+    def composite_costs(self, length: int,
+                        factors: PrimeFactors) -> Tuple[Optional[float], Optional[float]]:
+        """(the Bluestein's, the split's) ns a transform at n by
+        split_costs.py's tables, each None where they price no such path:
+        the Bluestein on routed_bluestein_inner, and the near-balanced split
+        where its DFT_p is a matmul leaf (p <= dense_dft_max) and its prime
+        half a Raders or Bluesteins that no route serves."""
+        from . import executor, split_costs
+
         m_a = routed_bluestein_inner(length, self.dtype)
-        if m_a is None:
-            return recipe
-        split = self._split(length, factors)
-        p, half = split.left.length, split.right
-        if (isinstance(half, recipes.Bluesteins)
-                and executor.route(half.length, self.dtype) is None
-                and executor.core_form("bluestein", half.inner.length, self.dtype)
-                in SPLIT_FORMS):
-            inner = p * half.inner.length
-            lo, hi = SPLIT_EVEN_P
-            if inner <= SPLIT_SHARE * m_a or (lo <= p <= hi and inner <= m_a):
-                return split
-        return recipes.Bluesteins(length, self.design_fft_for_len(m_a))
+        blue = split_costs.core_ns("bluestein", m_a) if m_a else None
+        p = self._choose_left_factor(length, factors)
+        half = self.design_fft_for_len(length // p)
+        if (p > config.dense_dft_max or not isinstance(half, (recipes.Raders, recipes.Bluesteins))
+                or executor.route(half.length, self.dtype) is not None):
+            return blue, None
+        kind = "rader" if isinstance(half, recipes.Raders) else "bluestein"
+        return blue, split_costs.split_ns(p, length, kind, half.inner.length)
 
     def _design_prime(self, length: int) -> recipes.Recipe:
         """The recipe _conv_prime_recipe gives, or with the c64 kernels on

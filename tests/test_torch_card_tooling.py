@@ -4,7 +4,10 @@ Marked `cuda`: each skips without a GPU (the CUDA kernels have no CPU
 mode).  Run on the card with `python -m pytest -m cuda
 tests/test_torch_card_tooling.py`.  This file imports no JAX:
 tools/torch_accuracy.py's run_check at one size of each route and of each
-convolution core form, both directions, against the host float64 oracle;
+convolution core form, both directions, against the host float64 oracle
+(K14's four stages, which no planner path reaches with the switches at
+their defaults, through executor.build on the whole-n Bluestein that the
+composite rule replaced at 196609);
 tools/torch_inspect_plan.py's launch counts at 4096 and 65537, which must
 equal those chip_smoke.py's phase 3 expects of the same paths (4096 x 8:
 one lanepack_pipe_fft; 65537 x 512: one launch of each of the two-pass
@@ -16,6 +19,7 @@ import importlib.util
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,11 +31,15 @@ if TOOLS not in sys.path:
 import torch_accuracy  # noqa: E402
 import torch_inspect_plan  # noqa: E402
 
-#: one size of each route and each core form a planner path reaches: the
-#: first the list gives it (none for K14's four stages, which only the
-#: switched check of 65537 under rader_in_shift runs)
+#: the core forms no planner path reaches with the switches at their
+#: defaults, each at a composite whose whole-n Bluestein
+#: (FftPlannerGpu._conv_composite_recipe) runs it: 196609, inner 419904
+REPLACED = {"K14 four stages": 196609}
+
+#: one size of each route and each core form: the first the list gives it
 ONE_EACH = {**{name: sizes[0] for name, sizes in torch_accuracy.ROUTE_SIZES.items()},
-            **{form: sizes[0] for form, sizes in torch_accuracy.FORM_SIZES.items() if sizes}}
+            **{form: sizes[0] for form, sizes in torch_accuracy.FORM_SIZES.items() if sizes},
+            **REPLACED}
 
 #: chip_smoke.py phase 3's expected launches of the same paths
 LAUNCHES = {4096: {"lanepack_pipe_fft": 1},
@@ -49,10 +57,40 @@ def cuda_device():
 @pytest.mark.parametrize("what", list(ONE_EACH))
 def test_accuracy_one_size_each(what, cuda_device):
     n = ONE_EACH[what]
+    if what in REPLACED:
+        check_replaced(what, n, cuda_device)
+        return
     for check in torch_accuracy.planner_checks([n]):
         r = torch_accuracy.run_check(check, cuda_device)
         assert r["ok"], r
         assert what in (r["route"], r["form"]), r
+
+
+def check_replaced(form, n, device):
+    """The whole-n Bluestein that the composite rule replaced at n, through
+    executor.build, both directions, batch 4: its inner on `form`, K14's
+    four launches, within the complex64 bar of the host float64 oracle."""
+    from rustfft_tpu_torch import FftDirection, executor
+    from rustfft_tpu_torch.ops.kernels import launch_counters
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+    from rustfft_tpu_torch.utils.testing import oracle_dft, random_signal
+
+    planner = FftPlannerGpu(np.complex64, device=device)
+    recipe = planner._conv_composite_recipe(n)
+    assert recipe != planner.design_fft_for_len(n)
+    assert executor.core_form("bluestein", recipe.inner.length, np.complex64) == form
+    x = random_signal(4 * n, dtype=np.complex64, seed=1000 + n).reshape(4, n)
+    counters = launch_counters()
+    for direction in (FftDirection.FORWARD, FftDirection.INVERSE):
+        fn = executor.build(recipe, direction, np.complex64)
+        for counter in counters.values():
+            counter.launches = 0
+        got = fn(torch.from_numpy(x).to(device)).cpu().numpy()
+        launched = {name: c.launches for name, c in counters.items() if c.launches}
+        assert launched == {"conv_col_stage": 2, "conv_row_stage": 2}
+        want = oracle_dft(x, direction)
+        rel = float(np.mean(np.abs(got - want)) / np.mean(np.abs(want)))
+        assert rel <= torch_accuracy.REL_BAR["complex64"], (direction, rel)
 
 
 @pytest.mark.cuda

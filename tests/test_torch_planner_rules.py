@@ -13,11 +13,14 @@ path).
       off, the Bluestein slower than large_pad at 16 of 21 sizes;
   R3  the dense band (config.dense_fallback_max_n): off, dense_fft slower
       at all 69 sizes;
-  R4  the composite rule (FftPlannerGpu._composite_rule): on, a composite's
+  R4  the composite rule (FftPlannerGpu._composite_way): on, a composite's
       whole-n Bluestein on K14's four stages gives way to the Bluestein on
-      a fast core form or to the split (the Bluestein faster at all 50
-      sizes timed, the split at 48); the way taken the faster, or level, at
-      39 of 40 sampled and 7 of 10 held-out sizes.
+      a fast core form or to the split, the cheaper by split_costs.py's
+      tables (the card's cost sweep: each core's ns a transform, the CT
+      glue's ps an element by p); the way taken the faster, or level, at
+      all 40 sampled sizes and all 10 of the first held-out draw, which
+      the tables were fitted after, and at the second draw's as
+      R4_MISSES says.
 Each decision is checked as recipes and routes, the hole band's inner
 against the JAX planner's _radix_conv_inner, the outputs against the JAX
 planner and the float64 oracle, and the recipes with the kernels off and
@@ -31,12 +34,10 @@ import rustfft_tpu
 from rustfft_tpu import config as ref_config
 from rustfft_tpu.common import FftDirection as RefDirection
 from rustfft_tpu.planner import FftPlannerTpu
-from rustfft_tpu_torch import FftPlanner, config, executor, recipes, route
+from rustfft_tpu_torch import FftPlanner, config, executor, recipes, route, split_costs
 from rustfft_tpu_torch.common import FftDirection
 from rustfft_tpu_torch.math_utils import PrimeFactors
-from rustfft_tpu_torch.planner import (
-    FAST_FORMS, SPLIT_FORMS, FftPlannerGpu, routed_bluestein_inner,
-)
+from rustfft_tpu_torch.planner import FAST_FORMS, FftPlannerGpu, routed_bluestein_inner
 from rustfft_tpu_torch.twiddles import host_dft
 
 C64 = np.complex64
@@ -146,7 +147,7 @@ R3_TABLE = (
 #: inner, given; "s" the split, its p), the way the card measured faster by
 #: more than the spread of the turns ("b", "s", or "b=s" level))
 R4_TABLE = (
-    (8482, "fit", 17496, "b", 32768, "b"), (8984, "fit", 18432, "s", 8, "s"), (9532, "fit", 19683, "s", 4, "b=s"),
+    (8482, "fit", 17496, "b", 32768, "b"), (8984, "fit", 18432, "s", 8, "s"), (9532, "fit", 19683, "b", 32768, "b=s"),
     (10096, "fit", 20736, "s", 16, "s"), (11014, "fit", 23328, "b", 32768, "b"), (11980, "fit", 24576, "b", 32768, "b"),
     (12722, "fit", 26244, "b", 32768, "b"), (13476, "fit", 27648, "b", 32768, "b"), (14676, "fit", 31104, "b", 32768, "b"),
     (16939, "fit", 34992, "s", 13, "s"), (19048, "fit", 39366, "b", 65536, "b"), (20225, "fit", 41472, "s", 25, "s"),
@@ -158,17 +159,24 @@ R4_TABLE = (
     (85777, "fit", 177147, "s", 31, "s"), (90955, "fit", 186624, "b", 262144, "b"), (101648, "fit", 209952, "b", 262144, "b"),
     (114348, "fit", 236196, "b", 262144, "b"), (121254, "fit", 248832, "s", 42, "s"), (135521, "fit", 279936, "s", 53, "s"),
     (152487, "fit", 314928, "b", 393216, "b"), (203272, "fit", 419904, "b", 442368, "b"), (8199, "fit", 17496, "s", 9, "s"),
-    (41484, "fit", 93312, "b", 131072, "s"), (98324, "fit", 209952, "b", 262144, "b"), (131084, "fit", 279936, "b", 393216, "b"),
-    (196611, "fit", 419904, "b", 442368, "b"), (148543, "held", 314928, "s", 41, "b"), (33828, "held", 69984, "s", 12, "s"),
-    (58931, "held", 118098, "s", 31, "s"), (49365, "held", 104976, "s", 45, "s"), (86883, "held", 177147, "s", 3, "b"),
-    (103287, "held", 209952, "b", 262144, "b"), (150408, "held", 314928, "b", 393216, "b"), (117715, "held", 236196, "b", 262144, "s"),
+    (41484, "fit", 93312, "s", 12, "s"), (98324, "fit", 209952, "b", 262144, "b"), (131084, "fit", 279936, "b", 393216, "b"),
+    (196611, "fit", 419904, "b", 442368, "b"), (148543, "held", 314928, "b", 393216, "b"), (33828, "held", 69984, "s", 12, "s"),
+    (58931, "held", 118098, "s", 31, "s"), (49365, "held", 104976, "s", 45, "s"), (86883, "held", 177147, "b", 262144, "b"),
+    (103287, "held", 209952, "b", 262144, "b"), (150408, "held", 314928, "b", 393216, "b"), (117715, "held", 236196, "s", 65, "s"),
     (205853, "held", 419904, "b", 442368, "b"), (121177, "held", 248832, "b", 262144, "b=s"),
+    (38275, "held2", 78732, "s", 25, "s"), (20110, "held2", 41472, "s", 10, "s"), (76520, "held2", 157464, "s", 40, "s"),
+    (56820, "held2", 118098, "s", 60, "s"), (65674, "held2", 139968, "s", 14, "s"), (39739, "held2", 82944, "s", 49, "s"),
+    (132149, "held2", 279936, "s", 103, "s"), (46140, "held2", 93312, "s", 60, "s"), (76455, "held2", 157464, "s", 45, "s"),
+    (74395, "held2", 157464, "s", 5, "s"), (205509, "held2", 419904, "b", 442368, "b"), (117605, "held2", 236196, "b", 262144, "b"),
+    (27137, "held2", 55296, "b", 65536, "b"), (29069, "held2", 59049, "b", 65536, "b"), (26653, "held2", 55296, "b", 65536, "b"),
+    (151675, "held2", 314928, "b", 393216, "b"), (87355, "held2", 177147, "b", 262144, "b"), (156345, "held2", 314928, "b", 393216, "b"),
+    (8258, "held2", 17496, "b", 32768, "b"), (119348, "held2", 248832, "b", 262144, "b"),
 )
 
-#: R4's sizes where the rule does not take a way the card measured fastest:
-#: 41484 (its half a Rader) among the sampled; 148543, 86883 and 117715
-#: held out, drawn once the rule was stated
-R4_MISSES = {"fit": {41484}, "held": {148543, 86883, 117715}}
+#: R4's sizes where the rule does not take a way the card measured fastest
+#: ("held2": the second held-out draw, made after the cost tables were in
+#: code, leaving out the sizes they were measured at)
+R4_MISSES = {"fit": set(), "held": set(), "held2": set()}
 
 #: the JAX package's hole-band settings (rustfft_tpu/config.py:183-185)
 JAX_BAND = dict(bconv_misaligned=True, bconv_misaligned_min_n=8192,
@@ -318,17 +326,18 @@ def test_dense_band_sizes():
     assert band[0] == 257 and band[-1] == 2042
 
 
-@pytest.mark.parametrize("rule_set", ["fit", "held"])
+@pytest.mark.parametrize("rule_set", ["fit", "held", "held2"])
 def test_composite_rule_takes_the_faster_way(rule_set):
     """R4 is on: at every sampled and held-out composite the recipe of the
     awkward-composite rules ran K14's four stages, no route serves n, and
     the planner takes the table's way: the Bluestein on routed_bluestein_inner
-    (a fast core form) or the near-balanced split, whose prime half runs a
-    Bluestein on the one-pass core or the cluster passes.  The card measured
-    that way the faster, or level, at every size but R4_MISSES."""
+    (a fast core form) or the near-balanced split, whose DFT_p is a matmul
+    leaf and whose prime half, a Raders or a Bluesteins with no route, has
+    its cost in split_costs.CORE_NS.  The card measured that way the
+    faster, or level, at every size but R4_MISSES."""
     planner = FftPlannerGpu(C64, device="cpu")
     rows = _rows(R4_TABLE, rule_set)
-    assert len(rows) >= (40 if rule_set == "fit" else 10)
+    assert len(rows) >= {"fit": 40, "held": 10, "held2": 20}[rule_set]
     misses = set()
     for n, _, m_old, way, value, faster in rows:
         old = planner._conv_composite_recipe(n)
@@ -336,18 +345,64 @@ def test_composite_rule_takes_the_faster_way(rule_set):
         assert executor.core_form("bluestein", m_old, C64) == "K14 four stages", n
         assert route(n, C64) is None
         recipe = planner.design_fft_for_len(n)
+        assert planner.composite_way(n) == {"b": "bluestein", "s": "split"}[way], n
         if way == "b":
             assert _shape(recipe) == ("Bluesteins", value) == ("Bluesteins",
                                                              routed_bluestein_inner(n, C64)), n
             assert executor.core_form("bluestein", value, C64) in FAST_FORMS
         else:
             assert isinstance(recipe, recipes.MixedRadix) and recipe.left.length == value, n
+            assert value <= config.dense_dft_max and isinstance(recipe.left, recipes.Dft)
             half = recipe.right
-            assert isinstance(half, recipes.Bluesteins) and route(half.length, C64) is None
-            assert executor.core_form("bluestein", half.inner.length, C64) in SPLIT_FORMS, n
+            kind = {recipes.Raders: "rader", recipes.Bluesteins: "bluestein"}[type(half)]
+            assert route(half.length, C64) is None
+            assert split_costs.core_ns(kind, half.inner.length) is not None, n
         if way not in faster.split("="):
             misses.add(n)
     assert misses == R4_MISSES[rule_set]
+
+
+def test_composite_rule_compares_the_tables():
+    """R4's way is the cheaper of split_costs.py's two costs: at 8199 = 9 x
+    911 the split (9 one-pass Bluesteins at m = 2048 and 8199 elements of
+    glue) under the cluster passes' Bluestein at m = 32768; at 8482 = 2 x
+    4241 the Bluestein, the split's two cluster-pass halves at m = 16384
+    dearer; at 98324 = 188 x 523, whose split's DFT_p is a matmul leaf, the
+    Bluestein as the tables price it; a size whose near-balanced split has
+    p above config.dense_dft_max (no matmul leaf, no glue measured) takes
+    the Bluestein."""
+    planner = FftPlannerGpu(C64, device="cpu")
+    cases = {8199: (9, "bluestein", 2048, 32768), 8482: (2, "bluestein", 16384, 32768),
+             98324: (188, "bluestein", 1152, 262144)}
+    for n, (p, kind, m_q, m_a) in cases.items():
+        assert routed_bluestein_inner(n, C64) == m_a
+        split = planner._split(n, PrimeFactors.compute(n))
+        assert (split.left.length, split.right.inner.length) == (p, m_q), n
+        cost = split_costs.split_ns(p, n, kind, m_q)
+        assert cost == p * split_costs.CORE_NS[(kind, m_q)] + n * split_costs.GLUE_PS[p] / 1e3
+        want = "split" if cost < split_costs.core_ns("bluestein", m_a) else "bluestein"
+        assert planner.composite_way(n) == want, n
+    assert [planner.composite_way(n) for n in cases] == ["split", "bluestein", "bluestein"]
+    wide = next(n for n in range(8192 * 16, 1 << 20)
+                if planner._choose_left_factor(n, PrimeFactors.compute(n)) > config.dense_dft_max
+                and planner.composite_way(n) is not None)
+    assert planner.composite_way(wide) == "bluestein"
+    assert split_costs.split_ns(300, wide, "bluestein", 1152) is None
+
+
+def test_split_costs_tables():
+    """split_costs.py's tables cover what the rule asks of them: the CT glue
+    at every p of 2 .. dense_dft_max, the cores at every inner length of
+    the Bluestein the rule compares (routed_bluestein_inner's m_a: the
+    cluster passes at r = 2 .. 16 and K15's tile form at 393216 and
+    442368), each cost positive; a cost of no measured class is None."""
+    assert sorted(split_costs.GLUE_PS) == list(range(2, config.dense_dft_max + 1))
+    for m in (32768, 65536, 131072, 262144, 393216, 442368):
+        assert split_costs.core_ns("bluestein", m) > 0
+    assert all(v > 0 for v in split_costs.CORE_NS.values())
+    assert all(kind in ("rader", "bluestein") for kind, _ in split_costs.CORE_NS)
+    assert split_costs.core_ns("bluestein", 15552) is None  # K14's four stages: not a half
+    assert split_costs.split_ns(1, 8192, "bluestein", 2048) is None
 
 
 def test_composite_rule_gates(fields):
@@ -473,10 +528,11 @@ def test_rule_paths_match_jax_and_oracle(n, on, direction, fields, ref_pallas):
     assert _rel(got, host_dft(x, d)) <= TOL
 
 
-#: R4's ways on the CPU: the split at 8199 = 9 x 911 (half on the one-pass
-#: core) and 9532 = 4 x 2383, the Bluestein on the cluster passes at 8482
-#: (m = 32768) and on K15's tile form at 131084 (m = 393216)
-R4_OUTPUT_CASES = (8199, 9532, 8482, 131084)
+#: R4's ways on the CPU: the split at 8199 = 9 x 911 (half a Bluesteins on
+#: the one-pass core) and 41484 = 12 x 3457 (half a Raders on it), the
+#: Bluestein on the cluster passes at 9532 and 8482 (m = 32768) and on K15's
+#: tile form at 131084 (m = 393216)
+R4_OUTPUT_CASES = (8199, 9532, 8482, 131084, 41484)
 
 
 @pytest.mark.parametrize("n", R4_OUTPUT_CASES)

@@ -354,7 +354,8 @@ def test_planner_rules_check_reprints_a_record(tmp_path, capsys):
 def test_planner_rules_check_reprints_the_composite_rule(tmp_path, capsys):
     """--check reprints R4's three ways, from two records: 8199 (the rule
     takes the split, measured fastest: a win) and 41484 (it takes the
-    Bluestein, where the split was measured faster: a loss)."""
+    split, where the Bluestein was measured faster in this made-up row: a
+    loss)."""
     import json
 
     def row(n, set_, cur, new, split):
@@ -366,7 +367,7 @@ def test_planner_rules_check_reprints_the_composite_rule(tmp_path, capsys):
 
     paths = []
     for name, rows in (("fit.json", [row(8199, "fit", 6.0, 2.9, 1.8)]),
-                       ("held.json", [row(41484, "held", 6.1, 3.3, 3.0)])):
+                       ("held.json", [row(41484, "held", 6.1, 3.0, 3.3)])):
         path = tmp_path / name
         path.write_text(json.dumps(dict(card="NVIDIA H100 80GB HBM3, 700.00 W", torch="2.11",
                                         rows=rows)))
@@ -376,7 +377,7 @@ def test_planner_rules_check_reprints_the_composite_rule(tmp_path, capsys):
     assert "`python3 tools/torch_planner_rules.py --check fit.json held.json`: runs" in out
     assert "| fit | 8199 | 2 | current | 6.000 / 6.000 | candidate | 2.900 / 2.900 | split | " \
            "1.800 / 1.800 | 1.000 | 2.07 / 2.07 | 3.33 / 3.33 | 0.000 | split | split | win |" in out
-    assert "| 0.000 | split | candidate | loss |" in out
+    assert "| 0.000 | candidate | split | loss |" in out
     assert "R4 fit: the planner of this tree takes the faster way (or a tie) at 1 of 1" in out
     assert "R4 held: the planner of this tree takes the faster way (or a tie) at 0 of 1" in out
 
@@ -395,6 +396,63 @@ def test_planner_rules_composite_samples(monkeypatch):
     census = {n for sizes in by_inner.values() for n in sizes}
     assert len(held) == 10 and set(held) <= census and not set(held) & set(fit)
     assert [torch_planner_rules.taken("R4", n) for n in held] == ["split"] * 5 + ["candidate"] * 5
+
+
+def test_planner_rules_costs_and_glue_rows():
+    """The cost sweep's row at 8199 = 9 x 911 and the glue sweep's at p = 9,
+    on the CPU at batch 1: the split, its glue, its half (the one-pass
+    core's Bluestein at m = 2048) and the Bluestein at m = 32768, each
+    timed in its turns, the split and the Bluestein within 1e-5 of
+    torch.fft."""
+    import torch
+
+    timers = torch_planner_rules.make_timers(torch.device("cpu"))
+    row = torch_planner_rules.measure_costs(8199, 1, torch.device("cpu"), timers)
+    assert (row["p"], row["q"], row["kind"], row["m_q"], row["m_a"]) == \
+        (9, 911, "bluestein", 2048, 32768)
+    assert row["form_q"] == "Bluesteins(m=2048) one-pass core"
+    for way in torch_planner_rules.COST_WAYS:
+        assert row[f"{way}_ms"] > 0 and len(row[f"{way}_turns_queued_ms"]) == 2
+    assert row["err_split"] <= 1e-5 and row["err_bluestein"] <= 1e-5
+    glue = torch_planner_rules.measure_glue(9, 8199, 1, torch.device("cpu"), timers)
+    assert (glue["p"], glue["q"]) == (9, 911) and glue["glue_queued_ms"] > 0
+
+
+def test_planner_rules_fit_writes_the_tables(tmp_path, capsys):
+    """--fit COSTS GLUE prints split_costs.py: CORE_NS the median ns a
+    transform of each half (queued ms over p x batch) and Bluestein (over
+    batch), GLUE_PS the ps an element of the glue by p; the text runs, and
+    its split_ns is p halves plus n elements of glue."""
+    import json
+
+    def cost_row(n, p, kind, m_q, m_a, half_ms, blue_ms, glue_ms, batch=4):
+        return dict(rule="R4 costs", n=n, batch=batch, p=p, q=n // p, kind=kind, m_q=m_q,
+                    m_a=m_a, half_queued_ms=half_ms, bluestein_queued_ms=blue_ms,
+                    glue_queued_ms=glue_ms, split_queued_ms=half_ms + glue_ms)
+
+    costs = dict(card="NVIDIA H100 80GB HBM3, 700.00 W", torch="2.11", rows=[
+        cost_row(8199, 9, "bluestein", 2048, 32768, 9 * 4 * 23e-6, 4 * 700e-6, 4 * 8199 * 27e-9),
+        cost_row(41484, 12, "rader", 3456, 131072, 12 * 4 * 162e-6, 4 * 3200e-6,
+                 4 * 41484 * 24e-9)])
+    glue = dict(card=costs["card"], torch="2.11", rows=[
+        dict(rule="R4 glue", n=8199, batch=4, p=9, glue_queued_ms=4 * 8199 * 27.5e-9),
+        dict(rule="R4 glue", n=41484, batch=4, p=12, glue_queued_ms=4 * 41484 * 23.8e-9)])
+    paths = []
+    for name, record in (("costs.json", costs), ("glue.json", glue)):
+        path = tmp_path / name
+        path.write_text(json.dumps(record))
+        paths.append(str(path))
+    torch_planner_rules.main(["--fit", *paths])
+    captured = capsys.readouterr()
+    assert "split / (glue + half): 1.000 .. 1.000 over 2 sizes" in captured.err
+    module = {}
+    exec(captured.out, module)
+    assert module["CORE_NS"] == {("bluestein", 2048): 23.0, ("bluestein", 32768): 700.0,
+                                 ("bluestein", 131072): 3200.0, ("rader", 3456): 162.0}
+    assert module["GLUE_PS"] == {9: 27.5, 12: 23.8}
+    assert module["split_ns"](9, 8199, "bluestein", 2048) == 9 * 23.0 + 8199 * 27.5 / 1e3
+    assert module["split_ns"](5, 8199, "bluestein", 2048) is None
+    assert "NVIDIA H100 80GB HBM3, 700.00 W" in captured.out
 
 
 # ---- tools/torch_autotune.py ----

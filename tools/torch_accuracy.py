@@ -89,10 +89,10 @@ FORM_SIZES = {
     "torch recipe tree": (4194301,),
 }
 
-#: the composite rule's ways (FftPlannerGpu._composite_rule) at composites
+#: the composite rule's ways (FftPlannerGpu._composite_way) at composites
 #: whose whole-n Bluestein ran K14's four stages before it: the split at
-#: 8199 = 9 x 911, the Bluestein on K15's tile form at 196609 (m = 442368)
-#: and on the cluster passes at 88575 (m = 262144)
+#: 8199 = 9 x 911 and 88575 = 75 x 1181 (halves on the one-pass core), the
+#: Bluestein on K15's tile form at 196609 (m = 442368)
 COMPOSITE_SIZES = (8199, 196609, 88575)
 
 #: complex128 on the card: the torch recipe tree (no kernel serves c128)

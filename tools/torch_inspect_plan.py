@@ -108,15 +108,14 @@ def rule_of(n: int, recipe, routed, np_dtype) -> str:
             kind, m = kind_and_inner(before)
             return (f"the prime rule: {kind} on m={m} ({core_form(kind, m)}) -> Bluestein on "
                     f"m={recipe.inner.length} ({core_form('bluestein', recipe.inner.length)})")
-    if not is_prime(n) and routed is None:
-        before = FftPlannerGpu(np_dtype, device="cpu")._conv_composite_recipe(n)
-        if before is not None and before != recipe:
-            m = before.inner.length
-            after = (f"the split {recipe.left.length} x {recipe.right.length}"
-                     if isinstance(recipe, recipes.MixedRadix) else
-                     f"Bluestein on m={recipe.inner.length} "
-                     f"({core_form('bluestein', recipe.inner.length)})")
-            return f"the composite rule: bluestein on m={m} ({core_form('bluestein', m)}) -> {after}"
+    planner = FftPlannerGpu(np_dtype, device="cpu")
+    way = planner.composite_way(n)
+    if way is not None:
+        m = planner._conv_composite_recipe(n).inner.length
+        after = (f"the split {recipe.left.length} x {recipe.right.length}" if way == "split" else
+                 f"Bluestein on m={recipe.inner.length} "
+                 f"({core_form('bluestein', recipe.inner.length)})")
+        return f"the composite rule: bluestein on m={m} ({core_form('bluestein', m)}) -> {after}"
     m = executor.hole_band_inner(n, np_dtype)
     if m is not None:
         return f"the hole band: Bluestein on m={m} ({core_form('bluestein', m)}), not large_pad"

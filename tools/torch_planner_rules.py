@@ -6,7 +6,9 @@ against the candidate (and R4's split).
 
     python3 tools/torch_planner_rules.py [--rules R1,R2,R3,R4] [--out FILE]
         [--device cuda] [--batch B] [--limit K] [--rounds 2]
-        [--sets fit,held] [--held-seed S]
+        [--sets fit,held] [--held-seed S] [--held-per-way K]
+    python3 tools/torch_planner_rules.py --costs | --glue [--out FILE]
+    python3 tools/torch_planner_rules.py --fit COSTS GLUE > rustfft_tpu_torch/split_costs.py
     python3 tools/torch_planner_rules.py --check FILE [FILE ...]
 
 For each size n, at a batch that makes the (batch, n) complex64 tensor 256 -
@@ -41,8 +43,18 @@ once:
       (FftPlannerGpu._split, its halves as this tree designs them), in the
       turns current, candidate, split, split, candidate, current.
       Sampled: the median size of each inner length and R4_NAMED; held
-      out (--held-seed, drawn once the rule is stated): 5 sizes the rule
-      sends to the split and 5 it sends to the Bluestein.
+      out (--held-seed, drawn once the rule is stated, apart from the cost
+      sweep's sizes): --held-per-way (5) sizes the rule sends to the split
+      and as many it sends to the Bluestein.
+
+R4's rule compares two costs from split_costs.py's tables, which two
+sweeps measure: --costs times, at R4's sampled sizes, its first held-out
+draw and the median size of each class of the split's prime half (kind,
+inner length) and of 16 DFT_p sizes, the Bluestein on m', the split, its
+CT glue alone and its half alone (bluestein, split, glue, half, half,
+glue, split, bluestein; about 9 minutes); --glue times the glue alone at
+the median size of every p from 2 to config.dense_dft_max (about 3
+minutes).  --fit COSTS GLUE prints split_costs.py from the two records.
 
 Each path's first rows are held against torch.fft in complex128 (relative
 mean error <= 1e-5).  It prints one table a rule (n, batch, the current
@@ -215,27 +227,29 @@ def r3_samples():
 R4_NAMED = (8199, 41484, 98324, 131084, 196611)
 
 
-def r4_samples(held_seed=None):
+def r4_samples(held_seed=None, per_way=5):
     """(sampled, held out) composites of the composite rule: the median n of
     each inner length of four_stage_composites, and R4_NAMED; held out, the
-    first 5 sizes the rule of this tree sends to the split and the first 5
-    it sends to the Bluestein, of the others in the order of numpy's
-    default_rng(held_seed).permutation (none without a seed: the seed is
-    chosen once the rule is stated)."""
+    first `per_way` sizes the rule of this tree sends to the split and the
+    first `per_way` it sends to the Bluestein, of the others in the order of
+    numpy's default_rng(held_seed).permutation (none without a seed: the
+    seed is chosen once the rule is stated), leaving out the cost sweep's
+    sizes too (r4_cost_samples: the sizes split_costs.py was measured at)."""
     from torch_prime_cores import four_stage_composites
 
     by_inner = four_stage_composites()
     fit = [by_inner[m][len(by_inner[m]) // 2] for m in sorted(by_inner)] + list(R4_NAMED)
     fit = list(dict.fromkeys(fit))
-    rest = sorted(n for sizes in by_inner.values() for n in sizes if n not in fit)
+    seen = set(fit) | (set(r4_cost_samples(by_inner)) if held_seed is not None else set())
+    rest = sorted(n for sizes in by_inner.values() for n in sizes if n not in seen)
     held = []
     if held_seed is not None:
         drawn = {"split": [], "candidate": []}
         for n in np.random.default_rng(held_seed).permutation(rest).tolist():
             way = drawn.get(taken("R4", n))
-            if way is not None and len(way) < 5:
+            if way is not None and len(way) < per_way:
                 way.append(n)
-            if sum(map(len, drawn.values())) == 10:
+            if sum(map(len, drawn.values())) == 2 * per_way:
                 break
         held = drawn["split"] + drawn["candidate"]
     print(f"R4 census: {sum(map(len, by_inner.values()))} composites of [8192, 2^20) with no "
@@ -245,6 +259,68 @@ def r4_samples(held_seed=None):
 
 
 SAMPLES = {"R1": r1_samples, "R2": r2_samples, "R3": r3_samples, "R4": r4_samples}
+
+#: R4's first held-out draw (--held-seed 20261018, under the rule's first
+#: statement, by inner points), which the cost sweep times beside its sampled
+#: sizes
+R4_HELD_FIRST = (148543, 33828, 58931, 49365, 86883, 103287, 150408, 117715, 205853, 121177)
+#: the DFT_p sizes whose median size the cost sweep adds
+COST_P = (2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+
+
+#: the core forms of the split's prime half that the cost sweep times (the
+#: others, K14's four stages and K15's general form, are slower than the
+#: Bluestein on m_a, so the rule, finding no cost for them, takes that)
+HALF_FORMS = ("one-pass core", "K14 cluster passes")
+
+
+def split_classes(by_inner=None):
+    """{n: (p, "rader" or "bluestein", m_q)} of the composites the composite
+    rule decides (four_stage_composites) whose split's prime half
+    (FftPlannerGpu._split) is a Raders or Bluesteins on HALF_FORMS with no
+    route."""
+    from rustfft_tpu_torch import executor, recipes, route
+    from rustfft_tpu_torch.math_utils import PrimeFactors
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+    from torch_prime_cores import four_stage_composites
+
+    planner = FftPlannerGpu(C64, device="cpu")
+    by_inner = by_inner if by_inner is not None else four_stage_composites()
+    classes = {}
+    for n in sorted(n for sizes in by_inner.values() for n in sizes):
+        split = planner._split(n, PrimeFactors.compute(n))
+        half = split.right
+        if not isinstance(half, (recipes.Raders, recipes.Bluesteins)):
+            continue
+        kind = "rader" if isinstance(half, recipes.Raders) else "bluestein"
+        m = half.inner.length
+        if executor.core_form(kind, m, C64) in HALF_FORMS and route(half.length, C64) is None:
+            classes[n] = (split.left.length, kind, m)
+    return classes
+
+
+def r4_cost_samples(by_inner=None):
+    """The cost sweep's sizes: R4's sampled sizes and R4_HELD_FIRST, the
+    median size of each class (kind, m_q) of the split's prime half with p
+    <= config.dense_dft_max (split_classes), and the median size of each p
+    of COST_P."""
+    from rustfft_tpu_torch import config
+    from torch_prime_cores import four_stage_composites
+
+    by_inner = by_inner if by_inner is not None else four_stage_composites()
+    fit = [by_inner[m][len(by_inner[m]) // 2] for m in sorted(by_inner)] + list(R4_NAMED)
+    classes = {n: c for n, c in split_classes(by_inner).items() if c[0] <= config.dense_dft_max}
+    by_half, by_p = {}, {}
+    for n, (p, kind, m) in classes.items():
+        by_half.setdefault((kind, m), []).append(n)
+        by_p.setdefault(p, []).append(n)
+    sizes = fit + list(R4_HELD_FIRST)
+    sizes += [by_half[k][len(by_half[k]) // 2] for k in sorted(by_half)]
+    sizes += [by_p[p][len(by_p[p]) // 2] for p in COST_P if p in by_p]
+    sizes = list(dict.fromkeys(sizes))
+    print(f"R4 costs: {len(classes)} sizes split onto {len(by_half)} half classes; "
+          f"{len(sizes)} sizes timed", flush=True)
+    return sizes
 
 
 # ---- the two paths of each rule ----
@@ -304,11 +380,8 @@ def taken(rule: str, n: int) -> str:
     from rustfft_tpu_torch.planner import FftPlannerGpu, routed_bluestein_inner
 
     if rule == "R4":
-        planner = FftPlannerGpu(C64, device="cpu")
-        recipe = planner.design_fft_for_len(n)
-        if isinstance(recipe, recipes.MixedRadix):
-            return "split"
-        return "current" if recipe == planner._conv_composite_recipe(n) else "candidate"
+        way = FftPlannerGpu(C64, device="cpu").composite_way(n)
+        return {"split": "split", "bluestein": "candidate"}.get(way, "current")
     if rule == "R1":
         recipe = FftPlannerGpu(C64, device="cpu").design_fft_for_len(n)
         new = (isinstance(recipe, recipes.Bluesteins)
@@ -415,6 +488,150 @@ def measure(rule, n, batch, device, rounds, timers):
     return row
 
 
+#: the parts the cost sweep times: the Bluestein on routed_bluestein_inner,
+#: the split, its CT glue alone (the DFT_p matmul, the twiddle and the
+#: transpose around an identity) and its prime half alone on the p x batch
+#: rows of q points the split hands it
+COST_WAYS = ("bluestein", "split", "glue", "half")
+
+
+def measure_costs(n, batch, device, timers):
+    """One row of the cost sweep: the COST_WAYS at n, in the turns
+    bluestein, split, glue, half, half, glue, split, bluestein."""
+    import torch
+
+    from rustfft_tpu_torch import FftDirection, executor, recipes
+    from rustfft_tpu_torch.math_utils import PrimeFactors
+    from rustfft_tpu_torch.ops import ct
+    from rustfft_tpu_torch.planner import FftPlannerGpu, routed_bluestein_inner
+
+    event_ms, queued_ms = timers
+    start = time.perf_counter()
+    fwd = FftDirection.FORWARD
+    split = FftPlannerGpu(C64, device="cpu")._split(n, PrimeFactors.compute(n))
+    p, half = split.left.length, split.right
+    q, m_a = half.length, routed_bluestein_inner(n, C64)
+    kind = "rader" if isinstance(half, recipes.Raders) else "bluestein"
+    blue = recipes.Bluesteins(n, recipes.Dft(m_a))
+    half_fn = executor.build(half, fwd, C64)
+    fns = {"bluestein": executor.build(blue, fwd, C64), "split": executor.build(split, fwd, C64),
+           "glue": ct.make_ct_stage_fn(p, q, lambda a: a, fwd, C64),
+           "half": lambda x: half_fn(x.view(batch, p, q))}
+    gen = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=device)
+    want = torch.fft.fft(x[:4].to(torch.complex128))
+    row = dict(rule="R4 costs", n=n, batch=batch, p=p, q=q, kind=kind,
+               m_q=half.inner.length, form_q=describe(half), m_a=m_a, form_a=describe(blue))
+    for way in ("bluestein", "split"):
+        err = rel_err(fns[way](x)[:4], want)
+        if not err <= TOL:
+            raise AssertionError(f"R4 costs n={n}: {way} relative mean error {err:.3e} > {TOL}")
+        row[f"err_{way}"] = err
+    ev = {way: [] for way in fns}
+    qu = {way: [] for way in fns}
+    for way in COST_WAYS + COST_WAYS[::-1]:
+        fn = fns[way]
+        ev[way].append(event_ms(lambda: fn(x)))
+        qu[way].append(queued_ms(lambda: fn(x)))
+    for way in fns:
+        row[f"{way}_ms"] = statistics.median(ev[way])
+        row[f"{way}_queued_ms"] = statistics.median(qu[way])
+        row[f"{way}_turns_queued_ms"] = qu[way]
+    del x, want
+    executor._CACHE.clear()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - start
+    return row
+
+
+def glue_samples():
+    """{p: n}: the median size of each DFT_p size p <= config.dense_dft_max
+    of split_classes, at which --glue times the CT glue alone."""
+    from rustfft_tpu_torch import config
+
+    by_p = {}
+    for n, (p, _, _) in split_classes().items():
+        if p <= config.dense_dft_max:
+            by_p.setdefault(p, []).append(n)
+    return {p: by_p[p][len(by_p[p]) // 2] for p in sorted(by_p)}
+
+
+def measure_glue(p, n, batch, device, timers):
+    """The CT glue alone (COST_WAYS' "glue") at n = p x q: ms a call and
+    queued, twice each."""
+    import torch
+
+    from rustfft_tpu_torch import FftDirection
+    from rustfft_tpu_torch.ops import ct
+
+    event_ms, queued_ms = timers
+    fn = ct.make_ct_stage_fn(p, n // p, lambda a: a, FftDirection.FORWARD, C64)
+    gen = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=device)
+    ev = [event_ms(lambda: fn(x)) for _ in range(2)]
+    qu = [queued_ms(lambda: fn(x)) for _ in range(2)]
+    del x
+    return dict(rule="R4 glue", n=n, batch=batch, p=p, q=n // p, glue_ms=statistics.median(ev),
+                glue_queued_ms=statistics.median(qu), glue_turns_queued_ms=qu)
+
+
+def fit_costs(costs_path, glue_path):
+    """split_costs.py's text from a --costs record and a --glue record:
+    CORE_NS, the median ns a transform of each (kind, inner length) over the
+    costs rows' halves (queued half ms over p x batch transforms) and
+    Bluesteins (queued bluestein ms over batch); GLUE_PS, the ps an element
+    of the glue (queued ms over batch x n) at each p of the glue record.
+    Prints on stderr how far the split is from its glue plus its half, and
+    the glue of the two records at the p they share."""
+    with open(costs_path) as f:
+        costs = json.load(f)
+    with open(glue_path) as f:
+        glue = json.load(f)
+    samples: dict = {}
+    for r in costs["rows"]:
+        samples.setdefault((r["kind"], r["m_q"]), []).append(
+            r["half_queued_ms"] * 1e6 / (r["batch"] * r["p"]))
+        samples.setdefault(("bluestein", r["m_a"]), []).append(
+            r["bluestein_queued_ms"] * 1e6 / r["batch"])
+    core = {k: statistics.median(v) for k, v in sorted(samples.items())}
+    glue_ps = {r["p"]: r["glue_queued_ms"] * 1e9 / (r["batch"] * r["n"]) for r in glue["rows"]}
+    ratios = [r["split_queued_ms"] / (r["glue_queued_ms"] + r["half_queued_ms"])
+              for r in costs["rows"]]
+    drift = [glue_ps[r["p"]] / (r["glue_queued_ms"] * 1e9 / (r["batch"] * r["n"]))
+             for r in costs["rows"] if r["p"] in glue_ps]
+    print(f"split / (glue + half): {min(ratios):.3f} .. {max(ratios):.3f} over "
+          f"{len(ratios)} sizes; glue of {glue_path} / of {costs_path}: "
+          f"{min(drift):.3f} .. {max(drift):.3f} at {len(drift)} sizes", file=sys.stderr)
+    lines = [f'"""The composite rule\'s cost tables (FftPlannerGpu._composite_way),',
+             f"measured on {costs['card']} (torch {costs['torch']}) by",
+             "tools/torch_planner_rules.py --costs and --glue, queued device time; this",
+             "file is `tools/torch_planner_rules.py --fit COSTS GLUE`'s output.",
+             '"""', "from typing import Optional", "",
+             "#: ns a transform of the convolution core of a Raders (\"rader\") or",
+             "#: Bluesteins (\"bluestein\") of inner length m, at 256 - 512 MiB a call",
+             "CORE_NS = {"]
+    lines += [f"    ({kind!r}, {m}): {ns:.1f}," for (kind, m), ns in core.items()]
+    lines += ["}", "", "#: ps an element of the CT glue around a split's prime half",
+              "#: (ops.ct.make_ct_stage_fn: the DFT_p matmul, the twiddle, the transpose)",
+              "#: at each p"]
+    items = [f"{p}: {ps:.2f}," for p, ps in sorted(glue_ps.items())]
+    lines.append("GLUE_PS = {")
+    for i in range(0, len(items), 8):
+        lines.append("    " + " ".join(items[i:i + 8]))
+    lines += ["}", "", "", "def core_ns(kind: str, m: int) -> Optional[float]:",
+              '    """CORE_NS at (kind, m), or None where it was not measured."""',
+              "    return CORE_NS.get((kind, m))", "", "",
+              "def split_ns(p: int, n: int, kind: str, m: int) -> Optional[float]:",
+              '    """ns a transform of the split n = p x q whose prime half is a `kind`',
+              "    of inner length m: p of the half's transforms and n elements of the",
+              '    glue; None where either was not measured."""',
+              "    half, glue = CORE_NS.get((kind, m)), GLUE_PS.get(p)",
+              "    return None if half is None or glue is None else p * half + n * glue / 1e3",
+              ""]
+    return "\n".join(lines)
+
+
 #: the ways a row may time, in the order they are printed
 WAYS = ("current", "candidate", "split")
 
@@ -453,20 +670,34 @@ def faster(row) -> str:
         "=".join(best)
 
 
+def tables_ms(n, batch):
+    """(candidate, split): the queued ms a call of R4's Bluestein on m_a and
+    of its split at (batch, n) by split_costs.py's tables
+    (FftPlannerGpu.composite_costs), None where they have no cost."""
+    from rustfft_tpu_torch.math_utils import PrimeFactors
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+
+    costs = FftPlannerGpu(C64, device="cpu").composite_costs(n, PrimeFactors.compute(n))
+    return tuple(None if c is None else c * batch / 1e6 for c in costs)
+
+
 def print_table(rule, rows, header) -> None:
-    """One rule's rows; with a split way (R4) its columns too, and whether
-    the way the planner takes is among the fastest ("win") or not
-    ("loss")."""
+    """One rule's rows; with a split way (R4) its columns too, whether the
+    way the planner takes is among the fastest ("win") or not ("loss"), and
+    the ms split_costs.py's tables give the candidate and the split, with
+    the range of the queued ms over them."""
     from rustfft_tpu_torch import config
 
     split = any("split_ms" in row for row in rows)
     print(f"\n{rule} ({header}); ms a call (events / queued); ratio = current / candidate"
-          + ("; ratio split = current / split" if split else ""))
+          + ("; ratio split = current / split; tables = split_costs.py's ms of the "
+             "candidate / the split" if split else ""))
     print("| set | n | batch | current | ms | candidate | ms | " + ("split | ms | " if split else "")
           + "torch.fft | ratio | " + ("ratio split | " if split else "")
-          + "spread | faster | planner takes |" + (" the rule |" if split else ""))
-    print("|---" * (12 + 4 * split) + "|")
+          + "spread | faster | planner takes |" + (" the rule | tables |" if split else ""))
+    print("|---" * (12 + 5 * split) + "|")
     agree = Counter()
+    against = {"candidate": [], "split": []}
     for row in rows:
         took = taken(rule, row["n"])
         won = took in fastest(row)
@@ -478,14 +709,24 @@ def print_table(rule, rows, header) -> None:
         for way in ways_of(row)[1:]:
             cells.append(f"{row['current_ms'] / row[f'{way}_ms']:.2f} / "
                          f"{row['current_queued_ms'] / row[f'{way}_queued_ms']:.2f}")
-        cells += [f"{spread(row):.3f}", faster(row), took] + (
-            ["win" if won else "loss"] if split else [])
+        cells += [f"{spread(row):.3f}", faster(row), took]
+        if split:
+            table = tables_ms(row["n"], row["batch"])
+            for way, ms in zip(against, table):
+                if ms is not None:
+                    against[way].append(row[f"{way}_queued_ms"] / ms)
+            cells += ["win" if won else "loss",
+                      " / ".join("-" if ms is None else f"{ms:.3f}" for ms in table)]
         print("| " + " | ".join(str(c) for c in cells) + " |")
     for s in ("fit", "held"):
         total = agree[(s, True)] + agree[(s, False)]
         if total:
             print(f"{rule} {s}: the planner of this tree takes the faster way (or a tie) at "
                   f"{agree[(s, True)]} of {total} sizes")
+    if split:
+        print("queued / tables: " + ", ".join(
+            f"{way} {min(r):.3f} .. {max(r):.3f} ({len(r)} sizes)"
+            for way, r in against.items() if r))
     print(f"config: dense_fallback_max_n={config.dense_fallback_max_n}, "
           f"bconv_misaligned={config.bconv_misaligned}, "
           f"bconv_misaligned_min_n={config.bconv_misaligned_min_n}, "
@@ -512,11 +753,22 @@ def main(argv=None) -> None:
     ap.add_argument("--sets", default="fit,held", help="the sets to time (fit, held)")
     ap.add_argument("--held-seed", type=int, default=None,
                     help="R4: the seed its held-out sizes are drawn with (none without)")
+    ap.add_argument("--held-per-way", type=int, default=5,
+                    help="R4: the held-out sizes drawn for each way")
+    ap.add_argument("--costs", action="store_true",
+                    help="R4's cost sweep (COST_WAYS at r4_cost_samples) in place of the rules")
+    ap.add_argument("--glue", action="store_true",
+                    help="R4's CT glue alone at every DFT_p size (glue_samples)")
+    ap.add_argument("--fit", metavar=("COSTS", "GLUE"), nargs=2,
+                    help="print split_costs.py from a --costs and a --glue record, on the CPU")
     ap.add_argument("--check", metavar="FILE", nargs="+",
                     help="reprint recorded runs with this tree's decisions, on the CPU")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+    if args.fit:
+        print(fit_costs(*args.fit), end="")
+        return
     if args.check:
         records = []
         for path in args.check:
@@ -547,8 +799,38 @@ def main(argv=None) -> None:
     record = dict(card=card, torch=torch.__version__, rows=[])
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     t0 = time.perf_counter()
+    if args.glue:
+        samples = list(glue_samples().items())
+        for p, n in samples[:args.limit] if args.limit else samples:
+            row = measure_glue(p, n, args.batch or batch_for(n), device, timers)
+            row["device"] = device.type
+            record["rows"].append(row)
+            print(f"  R4 glue p={p} n={n} batch={row['batch']}: {row['glue_ms']:.3f} / "
+                  f"{row['glue_queued_ms']:.3f} ms, "
+                  f"{row['glue_queued_ms'] * 1e9 / (row['batch'] * n):.2f} ps an element",
+                  flush=True)
+        with open(args.out, "w") as f:
+            json.dump(record, f, indent=1)
+        print(f"\nR4 glue {time.perf_counter() - t0:.1f} s -> {args.out}", flush=True)
+        return
+    if args.costs:
+        sizes = r4_cost_samples()
+        sizes = sizes[:args.limit] if args.limit else sizes
+        for n in sizes:
+            row = measure_costs(n, args.batch or batch_for(n), device, timers)
+            row["device"] = device.type
+            record["rows"].append(row)
+            print(f"  R4 costs n={n} = {row['p']} x {row['q']} batch={row['batch']}: "
+                  + ", ".join(f"{w} {row[f'{w}_ms']:.3f} / {row[f'{w}_queued_ms']:.3f}"
+                              for w in COST_WAYS)
+                  + f" ms ({row['form_q']}; {row['form_a']}; {row['seconds']:.1f} s)", flush=True)
+            with open(args.out, "w") as f:
+                json.dump(record, f, indent=1)
+        print(f"\nR4 costs {time.perf_counter() - t0:.1f} s -> {args.out}", flush=True)
+        return
     for rule in args.rules.split(","):
-        fit, held = SAMPLES[rule](args.held_seed) if rule == "R4" else SAMPLES[rule]()
+        fit, held = (SAMPLES[rule](args.held_seed, args.held_per_way) if rule == "R4"
+                     else SAMPLES[rule]())
         if args.limit:
             fit, held = fit[:args.limit], held[:args.limit]
         print(f"{rule}: sampled {fit}; held out {held} (t = {time.perf_counter() - t0:.1f} s)",

@@ -85,7 +85,7 @@ def four_stage_composites(lo: int = 8192, hi: int = 1 << 20) -> dict:
     """{inner length m: [n, ...]} of the composites of [lo, hi) that no
     route serves and whose whole-n Bluestein before the composite rule
     (FftPlannerGpu._conv_composite_recipe) runs K14's four stages: the
-    sizes the composite rule (FftPlannerGpu._composite_rule) decides."""
+    sizes the composite rule (FftPlannerGpu._composite_way) decides."""
     from rustfft_tpu_torch import config, executor, recipes, route
     from rustfft_tpu_torch.planner import FftPlannerGpu
 
@@ -197,8 +197,8 @@ def composite_census(lo: int, hi: int):
             routed += 1
             continue
         recipe = planner.design_fft_for_len(n)
-        whole = planner._conv_composite_recipe(n)  # None: the split, which the rule keeps
-        old, new = recipe_label(recipe if whole is None else whole), recipe_label(recipe)
+        new = recipe_label(recipe)
+        old = recipe_label(planner._conv_composite_recipe(n)) if planner.composite_way(n) else new
         before[old] += 1
         after[new] += 1
         if new != old:
