@@ -223,7 +223,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 7. route-wide accuracy: every check of tools/torch_accuracy.py's
    default_checks() (the sizes of ACCURACY_TPU.md, a size for every route
    and every convolution core form, complex128 on the recipe tree, the
-   pinned Rader and Bluestein, the variant switches) through its run_check
+   pinned Rader and Bluestein, the variant switches, R5's primes on the
+   cores it replaced) through its run_check
    on the card, each within its relative mean error bar (1e-5 c64, 1e-12
    c128) and mean element error < 0.1, then examples/torch_concurrency.py's
    check in-process (one plan from four threads at 4096, 1009 and 2^20),
@@ -235,9 +236,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    and the path it replaces (the prime rule's and the composite rule's:
    the recipe of the convolution-core rules, FftPlannerGpu's
    _conv_prime_recipe and _conv_composite_recipe, through executor.build
-   on K14's four stages; the others' the planner's default: large_pad,
-   the convolution cores), each run once with the launch counters
-   (exactly its route's or core form's kernels, a split's halves') and
+   on K14's four stages; R5's, the core rule above 2^20: the same recipe
+   through executor.build(core_rule=False), on K14's four stages or K15's
+   general form; the others' the planner's default: large_pad, the
+   convolution cores), each run once with the launch counters (exactly
+   its route's or core form's kernels, a split's halves', the glued
+   form's inner route twice) and
    held against the float64 oracle on 4 rows (1e-5), then timed in turns
    (replaced, rule, rule, replaced; CUDA events, median of 5) beside
    torch.fft, with the card's name and power limit, and the phase's
@@ -361,6 +365,12 @@ CLUSTER_PRIMES = {65537: 512, 7919: 4096, 65521: 512, 131071: 256}
 #: and 196611 = 3 x 65537, where the JAX planner splits
 COMPOSITE_RULE = {8199: 4096, 41484: 1024, 118099: 512, 131084: 256, 196611: 256}
 
+#: R5, the core rule above 2^20 (phase 8, on): a prime of the class it
+#: moved onto the glued form, the Bluesteins on 2^22 (1572869: its inner on
+#: large2f, in place of K14's four stages), the same recipe beside the core
+#: it replaced (executor.build(core_rule=False)) -> batch (384 MiB)
+CORE_RULE = {1572869: 32}
+
 #: the planner rules (phase 8), each at its sizes -> batch: the prime rule
 #: (on: the FOUR primes, now Bluesteins on K15's tile form at 746497 and
 #: 196613 and on the cluster passes at 88589, and 15121, a Rader before,
@@ -373,10 +383,12 @@ RULE_SIZES = {
     "hole band": {15625: 4096, 59049: 1024, 16383: 4096},
     "dense band": {257: 131072, 1031: 32768, 2042: 32768},
     "composite rule": COMPOSITE_RULE,
+    "core rule": CORE_RULE,
 }
 #: the config each rule's new path is built under
 RULE_ON = {"prime rule": {}, "hole band": {"bconv_misaligned": True},
-           "dense band": {"dense_fallback_max_n": 2048}, "composite rule": {}}
+           "dense band": {"dense_fallback_max_n": 2048}, "composite rule": {},
+           "core rule": {}}
 
 #: kernels ported and checked but on no route (the JAX package routes none
 #: of them either)
@@ -2929,16 +2941,20 @@ def main() -> None:
     start = time.perf_counter()
     print(f"phase 8: the planner rules, each rule's path against the recipe it replaces, on "
           f"{card} (t = {start - t0:.1f} s)", flush=True)
-    launches_by_form = {"K15 tile form": k15, "K14 cluster passes": k14, "K14 four stages": four}
+    launches_by_form = {"K15 tile form": k15, "K15 general form": k15_general,
+                        "K14 cluster passes": k14, "K14 four stages": four}
+    launches_by_route = {"dense": {"dense_fft": 1},
+                         "large_pad": {"largepad_col_stage": 1, "largepad_row_stage": 1},
+                         "large": {"large_col_stage": 1, "large_row_stage": 1},
+                         "large2f": {"large2f_col_stage": 1, "large_row_stage": 1}}
 
-    def rule_path(recipe, routed):
+    def rule_path(recipe, routed, core_rule=True):
         """(the launches of one call of a rule's path: its route's kernels,
-        else its convolution core's, else for a MixedRadix its halves' (a
-        DFT_p leaf of p <= 512 is a matmul); what it is)."""
-        if routed == "dense":
-            return {"dense_fft": 1}, routed
-        if routed == "large_pad":
-            return {"largepad_col_stage": 1, "largepad_row_stage": 1}, routed
+        else its convolution core's (core_rule=False: the core without R5;
+        the glued form's inner path twice), else for a MixedRadix its
+        halves' (a DFT_p leaf of p <= 512 is a matmul); what it is)."""
+        if routed in launches_by_route:
+            return launches_by_route[routed], routed
         if routed is not None:
             raise AssertionError(f"phase 8 counts no launches of the {routed} route")
         if isinstance(recipe, recipes.Dft):
@@ -2957,8 +2973,11 @@ def main() -> None:
                               + ", ".join(whats) + ")")
         kind = "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
         m = recipe.inner.length
-        form = executor.core_form(kind, m, np.complex64)
+        form = executor.core_form(kind, m, np.complex64, core_rule=core_rule)
         what = f"{type(recipe).__name__}(m={m}) on the {form}"
+        if form == "glued form":
+            inner, inner_what = rule_path(recipe.inner, route(m, np.complex64))
+            return {name: 2 * count for name, count in inner.items()}, f"{what} ({inner_what})"
         if form == "one-pass core":
             core = "conv_chain_fft" if conv.chain_radices(m) else "conv_fft"
             return {core: 1, **({"permute": 2} if kind == "rader" else {})}, what
@@ -2968,20 +2987,27 @@ def main() -> None:
         for n, batch in sizes.items():
             new_plan = switched(config, RULE_ON[rule], lambda: planner.plan_fft_forward(n))
             new_route = switched(config, RULE_ON[rule], lambda: route(n, np.complex64))
+            replaced_core_rule = rule != "core rule"
             if rule in ("prime rule", "composite rule"):
                 # the recipe the rule replaced, on K14's four stages
                 old_recipe = (four_recipe(n) if rule == "prime rule" else
                               rules_planner._conv_composite_recipe(n))
                 old_route = None
                 old_fn = executor.build(old_recipe, FftDirection.FORWARD, np.complex64)
+            elif rule == "core rule":
+                # the same recipe on the core the rule replaced
+                old_recipe, old_route = new_plan.recipe, None
+                old_fn = executor.build(old_recipe, FftDirection.FORWARD, np.complex64,
+                                        core_rule=False)
             else:
                 old_plan = planner.plan_fft_forward(n)
                 old_recipe, old_route, old_fn = old_plan.recipe, route(n, np.complex64), \
                     old_plan.process
-            if new_plan.recipe == old_recipe and new_route == old_route:
-                raise AssertionError(f"{rule} n={n}: the rule changes nothing")
-            ways = {"replaced": (old_fn, *rule_path(old_recipe, old_route)),
+            ways = {"replaced": (old_fn, *rule_path(old_recipe, old_route, replaced_core_rule)),
                     "rule": (new_plan.process, *rule_path(new_plan.recipe, new_route))}
+            if (new_plan.recipe == old_recipe and new_route == old_route
+                    and ways["replaced"][2] == ways["rule"][2]):
+                raise AssertionError(f"{rule} n={n}: the rule changes nothing")
             x = signal(batch, n)
             ref = host_dft(x[:4].cpu().numpy(), FftDirection.FORWARD)
             for way, (fn, expected, what) in ways.items():

@@ -7,8 +7,9 @@ ops/raders.py, ops/bluestein.py), with every subtree whose length `route`
 names replaced by that whole-transform kernel (ops/kernels/).  With the
 kernels on, c64 Rader and Bluestein nodes run as one convolution core
 (ops/kernels/conv.py), or a Bluestein whose inner length runs on `large` as
-the fused large Bluestein (ops/kernels/convlarge.py), and Good-Thomas
-re-indexing as permute launches.
+the fused large Bluestein (ops/kernels/convlarge.py), as `core_form` says
+(above 2^20 it keeps some of them glued, R5), and Good-Thomas re-indexing
+as permute launches.
 Constant tables are precomputed on the host in f64 at build time and copied
 to each device once.
 
@@ -163,23 +164,49 @@ HOLE_BAND_RADICES = (2, 4, 8, 16)
 #: the convolution cores a Raders or Bluesteins node runs on with the c64
 #: kernels on (core_form), in the order tools/torch_prime_cores.py prints
 CORE_FORMS = ("one-pass core", "K15 tile form", "K15 general form", "K14 cluster passes",
-              "K14 four stages", "torch recipe tree")
+              "K14 four stages", "glued form")
+
+#: R5, the core rule above 2^20: a Bluesteins node whose inner length is
+#: above this and whose core would be K14's four stages runs the glued form
+CORE_RULE_MIN_M = 1 << 20
 
 
-def core_form(kind: str, m: int, dtype) -> str:
+def core_form(kind: str, m: int, dtype, *, core_rule: bool = True) -> str:
     """The core _build runs a Raders ("rader") or Bluesteins ("bluestein")
-    node of inner length m on with the c64 kernels on (its Raders and
-    Bluesteins branches): the one-pass core (K6 / K13), the fused large
-    Bluestein in its tile form (convlarge.tile_form) or general form (K15),
-    the two-pass core's cluster passes (conv_radix.cluster_form) or its four
-    stages (K14), else the torch recipe tree."""
+    node of inner length m on with the c64 kernels on (_core_fn): the
+    one-pass core (K6 / K13), the fused large Bluestein in its tile form
+    (convlarge.tile_form) or general form (K15), the two-pass core's
+    cluster passes (conv_radix.cluster_form) or its four stages (K14), else
+    the glued form: ops/bluestein.py or ops/raders.py around two calls of
+    the inner FFT, which executor.build runs on route(m)'s kernel.
+
+    Then R5, the core rule above 2^20: a Bluesteins node of m >
+    CORE_RULE_MIN_M whose core would be K14's four stages (the primes of
+    (1.5*2^20, 2^21] on m = 2^22) runs the glued form, its inner on
+    large2f, as the JAX executor does at these lengths (executor.py:346-390:
+    neither conv_any_supported nor bconv_supported with the large route
+    holds there).  The card measured the glued form 2.41-2.51x faster at
+    all 10 primes timed, 6 sampled and 4 held out (1572869 x 32: 7.460
+    against 18.754 ms, queued device time).  The JAX executor glues the
+    other nodes above 2^20 too, but the card measured the port's cores
+    faster at every prime timed there, 10 a class, and they keep them: the
+    Raders on n - 1 in (2^20, 2^22] on the four stages (the glued form
+    1.04-1.19x slower), the Bluesteins on 3*2^20 and 3*2^21 on K15's
+    general form (1.11-1.13x, 1.27-1.29x) (tools/torch_planner_rules.py --rules R5,
+    PLANNER_RULES_GPU.md; NVIDIA H100 80GB HBM3, 700.00 W).
+    core_rule=False: the core without R5, which the tools and tests build
+    to hold the form it replaced."""
     if conv.conv_supported(m, dtype):
         return CORE_FORMS[0]
     if kind == "bluestein" and convlarge.bconv_supported(m, dtype):
         p, q1, q2 = large.choose_pqq(m)
         return CORE_FORMS[1] if convlarge.tile_form(p, q1 * q2) else CORE_FORMS[2]
     if conv_radix.radix_conv_supported(m, dtype):
-        return CORE_FORMS[3] if conv_radix.cluster_form(m) is not None else CORE_FORMS[4]
+        if conv_radix.cluster_form(m) is not None:
+            return CORE_FORMS[3]
+        if core_rule and kind == "bluestein" and m > CORE_RULE_MIN_M:
+            return CORE_FORMS[5]
+        return CORE_FORMS[4]
     return CORE_FORMS[5]
 
 
@@ -225,13 +252,14 @@ def _kernel_fn(n: int, direction: FftDirection, dtype) -> Optional[Callable]:
 
 
 def build(recipe: recipes.Recipe, direction: FftDirection, dtype,
-          pinned: bool = False) -> Callable:
+          pinned: bool = False, core_rule: bool = True) -> Callable:
     """Return fn: complex (..., n) -> complex (..., n), the unnormalized DFT.
 
     pinned=True runs the literal recipe at every node of the tree (the JAX
-    package's allow_fused=False)."""
+    package's allow_fused=False); core_rule=False builds its Raders and
+    Bluesteins nodes on their cores before R5 (core_form)."""
     dtype = np.dtype(dtype)
-    key = (recipe, direction, dtype, pinned) + config.switch_key()
+    key = (recipe, direction, dtype, pinned, core_rule) + config.switch_key()
     with _CACHE_LOCK:
         fn = _CACHE.get(key)
         if fn is not None:
@@ -240,7 +268,7 @@ def build(recipe: recipes.Recipe, direction: FftDirection, dtype,
     # built outside the lock: a build recurses into build for its subtrees
     fn = None if pinned else _kernel_fn(recipe.length, direction, dtype)
     if fn is None:
-        fn = _build(recipe, direction, dtype, pinned)
+        fn = _build(recipe, direction, dtype, pinned, core_rule)
     with _CACHE_LOCK:
         # a thread that built the same key meanwhile got there first: share its function
         fn = _CACHE.setdefault(key, fn)
@@ -251,18 +279,18 @@ def build(recipe: recipes.Recipe, direction: FftDirection, dtype,
 
 
 def _build(recipe: recipes.Recipe, direction: FftDirection, dtype,
-           pinned: bool = False) -> Callable:
+           pinned: bool = False, core_rule: bool = True) -> Callable:
     if isinstance(recipe, (recipes.Dft, recipes.Butterfly)):
         return op_dft.make_dft_fn(recipe.length, direction, dtype)
 
     if isinstance(recipe, recipes.Radix4):
-        base_fn = build(recipe.base, direction, dtype, pinned)
+        base_fn = build(recipe.base, direction, dtype, pinned, core_rule)
         return op_ct.make_ct_chain_fn(
             (4,) * recipe.k, recipe.base.length, base_fn, direction, dtype
         )
 
     if isinstance(recipe, recipes.RadixN):
-        base_fn = build(recipe.base, direction, dtype, pinned)
+        base_fn = build(recipe.base, direction, dtype, pinned, core_rule)
         return op_ct.make_ct_chain_fn(
             recipe.factors, recipe.base.length, base_fn, direction, dtype
         )
@@ -270,42 +298,48 @@ def _build(recipe: recipes.Recipe, direction: FftDirection, dtype,
     if isinstance(recipe, (recipes.MixedRadix, recipes.MixedRadixSmall)):
         p = recipe.left.length
         q = recipe.right.length
-        right_fn = build(recipe.right, direction, dtype, pinned)
+        right_fn = build(recipe.right, direction, dtype, pinned, core_rule)
         if (
             isinstance(recipe.left, (recipes.Dft, recipes.Butterfly))
             and p <= _MATRIX_LEAF_MAX
         ):
             return op_ct.make_ct_stage_fn(p, q, right_fn, direction, dtype)
-        left_fn = build(recipe.left, direction, dtype, pinned)
+        left_fn = build(recipe.left, direction, dtype, pinned, core_rule)
         return op_ct.make_ct_stage_general_fn(p, q, left_fn, right_fn, direction, dtype)
 
     if isinstance(recipe, (recipes.GoodThomas, recipes.GoodThomasSmall)):
-        left_fn = build(recipe.left, direction, dtype, pinned)
-        right_fn = build(recipe.right, direction, dtype, pinned)
+        left_fn = build(recipe.left, direction, dtype, pinned, core_rule)
+        right_fn = build(recipe.right, direction, dtype, pinned, core_rule)
         return op_gt.make_good_thomas_fn(
             recipe.left.length, recipe.right.length, left_fn, right_fn,
             use_kernel=kernels_on(dtype),
         )
 
-    if isinstance(recipe, recipes.Raders):
-        # the kernel path: the convolution core with the root-order gathers
-        # as permute launches (one-pass core) or fused into it (two-pass)
-        if not pinned and kernels_on(dtype) and conv.conv_any_supported(recipe.inner.length, dtype):
-            return conv.make_raders_fn(recipe.length, direction, dtype)
-        inner_fn = build(recipe.inner, direction, dtype, pinned)
-        return op_raders.make_raders_fn(recipe.length, inner_fn, direction, dtype)
-
-    if isinstance(recipe, recipes.Bluesteins):
-        # the kernel path, in the JAX package's order (executor.py:371-390):
-        # the one-pass core; the fused large Bluestein where the inner length
-        # runs on 'large'; the two-pass core
-        m = recipe.inner.length
-        if not pinned and kernels_on(dtype):
-            if not conv.conv_supported(m, dtype) and convlarge.bconv_supported(m, dtype):
-                return convlarge.make_bluestein_large_fn(recipe.length, m, direction, dtype)
-            if conv.conv_any_supported(m, dtype):
-                return conv.make_bluestein_fn(recipe.length, m, direction, dtype)
-        inner_fn = build(recipe.inner, direction, dtype, pinned)
-        return op_bluestein.make_bluestein_fn(recipe.length, m, inner_fn, direction, dtype)
+    if isinstance(recipe, (recipes.Raders, recipes.Bluesteins)):
+        return _core_fn(recipe, direction, dtype, pinned, core_rule)
 
     raise TypeError(f"Unknown recipe node: {recipe!r}")
+
+
+def _core_fn(recipe, direction: FftDirection, dtype, pinned: bool, core_rule: bool) -> Callable:
+    """A Raders or Bluesteins node on the core core_form names (the JAX
+    package's order, executor.py:346-390): the one-pass core, or the
+    two-pass core's cluster passes or four stages, with the root-order
+    gathers as permute launches or fused into it (ops/kernels/conv.py); the
+    fused large Bluestein (ops/kernels/convlarge.py); the glued form, whose
+    inner is built like any recipe.  Pinned, or with the kernels off, the
+    glued form."""
+    rader = isinstance(recipe, recipes.Raders)
+    n, m = recipe.length, recipe.inner.length
+    form = CORE_FORMS[5]
+    if not pinned and kernels_on(dtype):
+        form = core_form("rader" if rader else "bluestein", m, dtype, core_rule=core_rule)
+    if form in (CORE_FORMS[1], CORE_FORMS[2]):
+        return convlarge.make_bluestein_large_fn(n, m, direction, dtype)
+    if form != CORE_FORMS[5]:
+        return (conv.make_raders_fn(n, direction, dtype) if rader
+                else conv.make_bluestein_fn(n, m, direction, dtype))
+    inner_fn = build(recipe.inner, direction, dtype, pinned, core_rule)
+    if rader:
+        return op_raders.make_raders_fn(n, inner_fn, direction, dtype)
+    return op_bluestein.make_bluestein_fn(n, m, inner_fn, direction, dtype)

@@ -5,9 +5,11 @@ mode).  Run on the card with `python -m pytest -m cuda
 tests/test_torch_card_tooling.py`.  This file imports no JAX:
 tools/torch_accuracy.py's run_check at one size of each route and of each
 convolution core form, both directions, against the host float64 oracle
-(K14's four stages, which no planner path reaches with the switches at
-their defaults, through executor.build on the whole-n Bluestein that the
-composite rule replaced at 196609);
+(K14's four stages at 1051009, a Rader above 2^20, and, below 2^20, where
+no planner path reaches them with the switches at their defaults, through
+executor.build on the whole-n Bluestein that the composite rule replaced
+at 196609; and at 1572869, where R5, the core rule above 2^20, replaced
+them by the glued form, through executor.build(core_rule=False));
 tools/torch_inspect_plan.py's launch counts at 4096 and 65537, which must
 equal those chip_smoke.py's phase 3 expects of the same paths (4096 x 8:
 one lanepack_pipe_fft; 65537 x 512: one launch of each of the two-pass
@@ -31,15 +33,16 @@ if TOOLS not in sys.path:
 import torch_accuracy  # noqa: E402
 import torch_inspect_plan  # noqa: E402
 
-#: the core forms no planner path reaches with the switches at their
-#: defaults, each at a composite whose whole-n Bluestein
+#: the core forms no planner path below 2^20 reaches with the switches at
+#: their defaults, each at a composite whose whole-n Bluestein
 #: (FftPlannerGpu._conv_composite_recipe) runs it: 196609, inner 419904
 REPLACED = {"K14 four stages": 196609}
 
-#: one size of each route and each core form: the first the list gives it
+#: one size of each route and each core form (the first the list gives it),
+#: and of each form in REPLACED
 ONE_EACH = {**{name: sizes[0] for name, sizes in torch_accuracy.ROUTE_SIZES.items()},
             **{form: sizes[0] for form, sizes in torch_accuracy.FORM_SIZES.items() if sizes},
-            **REPLACED}
+            **{f"{form}, replaced": n for form, n in REPLACED.items()}}
 
 #: chip_smoke.py phase 3's expected launches of the same paths
 LAUNCHES = {4096: {"lanepack_pipe_fft": 1},
@@ -57,8 +60,9 @@ def cuda_device():
 @pytest.mark.parametrize("what", list(ONE_EACH))
 def test_accuracy_one_size_each(what, cuda_device):
     n = ONE_EACH[what]
-    if what in REPLACED:
-        check_replaced(what, n, cuda_device)
+    form = what.removesuffix(", replaced")
+    if form != what:
+        check_replaced(form, n, cuda_device)
         return
     for check in torch_accuracy.planner_checks([n]):
         r = torch_accuracy.run_check(check, cuda_device)
@@ -91,6 +95,20 @@ def check_replaced(form, n, device):
         want = oracle_dft(x, direction)
         rel = float(np.mean(np.abs(got - want)) / np.mean(np.abs(want)))
         assert rel <= torch_accuracy.REL_BAR["complex64"], (direction, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", torch_accuracy.R5_REPLACED)
+def test_accuracy_core_rule_replaced(n, cuda_device):
+    """The planner's recipe at R5's prime on the core the rule replaced
+    (executor.build(core_rule=False): K14's four stages), both directions,
+    batch 1, within the bars of the host float64 oracle, as default_checks
+    runs it."""
+    for direction in torch_accuracy.DIRECTIONS:
+        check = torch_accuracy.Check(n, direction, core_rule=False)
+        r = torch_accuracy.run_check(check, cuda_device)
+        assert r["ok"], r
+        assert r["form"] == "K14 four stages", r
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""The planner's four rules of the JAX package on the port, held against
+"""The planner's four rules and the executor's core rule of the JAX package
+on the port, held against
 the card's measurements and the JAX package.
 
 tools/torch_planner_rules.py timed each rule's candidate path against the
@@ -20,7 +21,13 @@ path).
       glue's ps an element by p); the way taken the faster, or level, at
       all 40 sampled sizes and all 10 of the first held-out draw, which
       the tables were fitted after, and at the second draw's as
-      R4_MISSES says.
+      R4_MISSES says;
+  R5  the core rule above 2^20 (executor.core_form, no field): the
+      Bluesteins on 2^22 run the glued form (its inner on large2f) in
+      place of K14's four stages, 2.41-2.51x faster at all 10 primes
+      timed; the Raders on n - 1 in (2^20, 2^22] keep the four stages and
+      the Bluesteins on 3*2^20 and 3*2^21 K15's general form, each faster
+      than the glued form at all 10 of its class.
 Each decision is checked as recipes and routes, the hole band's inner
 against the JAX planner's _radix_conv_inner, the outputs against the JAX
 planner and the float64 oracle, and the recipes with the kernels off and
@@ -551,6 +558,142 @@ def test_composite_rule_paths_match_jax_and_oracle(n, direction, ref_pallas):
     want = np.asarray(rustfft_tpu.FftPlanner(C64).plan_fft(n, RefDirection(direction)).process(x))
     assert _rel(got, want) <= TOL
     assert _rel(got, host_dft(x, d)) <= TOL
+
+
+# -- R5, the core rule above 2^20 ------------------------------------------------------
+
+#: R5: (n, set, class, the core's ms without the rule, the glued form's ms
+#: (queued device time; None for B23, glued either way), the faster way by
+#: more than the spread of the turns: "new" the glued form, "old" the core)
+R5_TABLE = (
+    (1572869, "fit", "B22", 18.754, 7.460, "new"), (1677089, "fit", "B22", 18.843, 7.560, "new"),
+    (1781851, "fit", "B22", 19.028, 7.652, "new"), (1886173, "fit", "B22", 19.082, 7.752, "new"),
+    (1991723, "fit", "B22", 19.124, 7.846, "new"), (2097143, "fit", "B22", 19.109, 7.934, "new"),
+    (1766363, "held", "B22", 18.893, 7.638, "new"), (1889191, "held", "B22", 19.002, 7.746, "new"),
+    (1901803, "held", "B22", 18.986, 7.759, "new"), (1984711, "held", "B22", 19.075, 7.833, "new"),
+    (1051009, "fit", "R4S", 5.921, 6.553, "old"), (1470977, "fit", "R4S", 9.788, 10.382, "old"),
+    (2003761, "fit", "R4S", 14.159, 16.843, "old"), (2603371, "fit", "R4S", 11.360, 12.424, "old"),
+    (3342223, "fit", "R4S", 14.871, 15.522, "old"), (4193377, "fit", "R4S", 20.006, 20.910, "old"),
+    (1074061, "held", "R4S", 6.140, 6.667, "old"), (1088641, "held", "R4S", 5.905, 6.312, "old"),
+    (1947457, "held", "R4S", 11.517, 13.391, "old"), (2184001, "held", "R4S", 7.862, 8.492, "old"),
+    (1048583, "fit", "B3a", 13.420, 14.876, "old"), (1152517, "fit", "B3a", 13.461, 14.983, "old"),
+    (1256821, "fit", "B3a", 13.524, 15.061, "old"), (1361699, "fit", "B3a", 13.551, 15.145, "old"),
+    (1466741, "fit", "B3a", 13.607, 15.253, "old"), (1572853, "fit", "B3a", 13.648, 15.389, "old"),
+    (1226959, "held", "B3a", 13.502, 15.026, "old"),
+    (1378439, "held", "B3a", 13.560, 15.175, "old"),
+    (1447217, "held", "B3a", 13.600, 15.264, "old"),
+    (1556083, "held", "B3a", 13.640, 15.353, "old"), (2097169, "fit", "B3b", 17.045, 21.915, "old"),
+    (2304283, "fit", "B3b", 17.150, 22.001, "old"), (2513617, "fit", "B3b", 17.255, 22.080, "old"),
+    (2722877, "fit", "B3b", 17.372, 22.153, "old"), (2933803, "fit", "B3b", 17.482, 22.257, "old"),
+    (3145721, "fit", "B3b", 17.592, 22.349, "old"), (2370223, "held", "B3b", 17.197, 22.004, "old"),
+    (2378197, "held", "B3b", 17.220, 22.020, "old"),
+    (2710177, "held", "B3b", 17.380, 22.174, "old"),
+    (2816839, "held", "B3b", 17.453, 22.229, "old"), (3145739, "fit", "B23", 7.640, None, "old"),
+    (3353209, "fit", "B23", 7.726, None, "old"), (3563479, "fit", "B23", 7.817, None, "old"),
+    (3772753, "fit", "B23", 7.912, None, "old"), (3983009, "fit", "B23", 7.998, None, "old"),
+    (4194301, "fit", "B23", 8.096, None, "old"), (3474161, "held", "B23", 7.784, None, "old"),
+    (3838979, "held", "B23", 7.945, None, "old"), (4072949, "held", "B23", 8.034, None, "old"),
+    (4188043, "held", "B23", 8.095, None, "old"),
+)
+
+#: R5's classes of primes of (2^20, 2^22]: (kind, the core without the rule,
+#: one prime); B23's Bluestein on 2^23 is glued either way
+R5_CLASSES = {"B22": ("bluestein", "K14 four stages", 1572869),
+              "R4S": ("rader", "K14 four stages", 1051009),
+              "B3a": ("bluestein", "K15 general form", 1048583),
+              "B3b": ("bluestein", "K15 general form", 2097169),
+              "B23": ("bluestein", "glued form", 4194301)}
+
+
+def _kind(recipe):
+    return "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
+
+
+@pytest.mark.parametrize("cls", list(R5_CLASSES))
+def test_core_rule_takes_the_faster_way(cls):
+    """R5 moves a class onto the glued form where the card measured it the
+    faster at every sampled and held-out prime, and keeps the core
+    elsewhere; the recipe stays the planner's (R5 is the executor's).  B23
+    was timed against torch.fft only."""
+    kind, before, _ = R5_CLASSES[cls]
+    planner = FftPlannerGpu(C64, device="cpu")
+    rows = [row for row in R5_TABLE if row[2] == cls]
+    assert len(_rows(rows, "fit")) >= 6 and len(_rows(rows, "held")) >= 4, cls
+    glued = all(row[5] == "new" for row in rows)
+    for n, _, _, core_ms, glued_ms, way in rows:
+        recipe = planner.design_fft_for_len(n)
+        assert recipe == planner._conv_prime_recipe(n) and route(n, C64) is None, n
+        assert _kind(recipe) == kind, n
+        m = recipe.inner.length
+        assert executor.core_form(kind, m, C64, core_rule=False) == before, n
+        if cls == "B23":
+            assert way == "old" and glued_ms is None
+            assert executor.core_form(kind, m, C64) == "glued form"
+            continue
+        assert (way == "new") == (glued_ms < core_ms), n
+        assert executor.core_form(kind, m, C64) == ("glued form" if glued else before), n
+
+
+@pytest.mark.parametrize("cls", list(R5_CLASSES))
+def test_core_form_of_each_class(cls):
+    """Each class's prime gets the measured form from core_form, and
+    executor.build follows it: the glued form is ops/bluestein.py's or
+    ops/raders.py's function; core_rule=False builds the core it replaced."""
+    kind, before, n = R5_CLASSES[cls]
+    recipe = FftPlannerGpu(C64, device="cpu").design_fft_for_len(n)
+    m = recipe.inner.length
+    assert m > executor.CORE_RULE_MIN_M
+    measured = {row[5] for row in R5_TABLE if row[2] == cls} == {"new"} or cls == "B23"
+    form = executor.core_form(kind, m, C64)
+    assert form == ("glued form" if measured else before)
+    assert executor.core_form(kind, m, C64, core_rule=False) == before
+    glued = "rustfft_tpu_torch.ops." + ("raders" if kind == "rader" else "bluestein")
+    fn = executor.build(recipe, FftDirection.FORWARD, C64)
+    assert (fn.__module__ == glued) == (form == "glued form")
+    if before == "K15 general form":
+        assert fn.__module__ == "rustfft_tpu_torch.ops.kernels.convlarge"
+    if form != before:
+        old = executor.build(recipe, FftDirection.FORWARD, C64, core_rule=False)
+        assert old.__module__ == "rustfft_tpu_torch.ops.kernels.conv_radix"
+        # complex128 takes no kernel core: the glued form with or without the rule
+        assert executor.build(recipe, FftDirection.FORWARD, np.complex128).__module__ == glued
+
+
+def test_core_rule_recipes_match_jax():
+    """R5 changes no recipe: at one prime of each class both planners' recipes
+    equal the JAX FftPlanner's."""
+    ref = rustfft_tpu.FftPlanner(C64)
+    for _, _, n in R5_CLASSES.values():
+        want = repr(ref.design_fft_for_len(n))
+        assert repr(FftPlanner(C64, device="cpu").design_fft_for_len(n)) == want, n
+        assert repr(FftPlannerGpu(C64, device="cpu").design_fft_for_len(n)) == want, n
+
+
+#: one prime of each class R5 decided and a direction (both directions over
+#: the four): B22's glued form, R4S's four stages, B3a's and B3b's K15
+#: general form
+R5_OUTPUT_CASES = (("B22", "forward"), ("R4S", "inverse"), ("B3a", "inverse"), ("B3b", "forward"))
+
+
+@pytest.mark.parametrize("cls,direction", R5_OUTPUT_CASES,
+                         ids=[f"{c}-{d}" for c, d in R5_OUTPUT_CASES])
+def test_core_rule_paths_match_jax_and_oracle(cls, direction, ref_pallas):
+    """The planner's path at batch 1 (the plain versions of the inner's
+    kernels on the CPU) against the JAX FftPlanner with Pallas off and the
+    float64 oracle; a Rader's DC bin against the input's float64 sum."""
+    ref_pallas("off")
+    n = R5_CLASSES[cls][2]
+    d = FftDirection(direction)
+    plan = FftPlanner(C64, device="cpu").plan_fft(n, d)
+    x = _signal(1, n, seed=n)
+    got = plan.process(torch.from_numpy(x)).numpy()
+    want = np.asarray(rustfft_tpu.FftPlanner(C64).plan_fft(n, RefDirection(direction)).process(x))
+    assert _rel(got, want) <= TOL
+    oracle = host_dft(x, d)
+    assert _rel(got, oracle) <= TOL
+    if cls == "R4S":
+        total = x.astype(np.complex128).sum(axis=-1)
+        assert np.all(np.abs(got[:, 0] - total) <= TOL * np.abs(total))
 
 
 # -- the kernels off and complex128 --------------------------------------------------

@@ -11,6 +11,7 @@ native plancore's first load.  The card's side is
 tests/test_torch_card_tooling.py.
 """
 import ctypes
+import dataclasses
 import inspect
 import os
 import re
@@ -40,7 +41,7 @@ import torch_inspect_plan  # noqa: E402
 import torch_planner_rules  # noqa: E402
 import torch_prime_cores  # noqa: E402
 import torch_routes  # noqa: E402
-from torch_prime_cores import FORMS, recipe_core_form  # noqa: E402
+from torch_prime_cores import recipe_core_form  # noqa: E402
 
 C64 = np.complex64
 #: the five sizes the recipe text is compared at
@@ -57,12 +58,13 @@ def route_values():
     return sorted(set(names)) + [None]
 
 
-def form_of(n):
-    """(route, core form) of the planner's c64 plan at n; the form is ""
-    where a route serves n or the recipe is neither Raders nor Bluesteins."""
+def form_of(n, core_rule=True):
+    """(route, core form) of the planner's c64 plan at n (core_rule=False:
+    the core without R5); the form is "" where a route serves n or the
+    recipe is neither Raders nor Bluesteins."""
     routed = route(n, C64)
     recipe = FftPlanner(C64, device="cpu").design_fft_for_len(n)
-    return routed, recipe_core_form(recipe, routed, C64)
+    return routed, recipe_core_form(recipe, routed, C64, core_rule)
 
 
 def run(args, timeout=TIMEOUT):
@@ -80,48 +82,74 @@ def test_route_sizes_take_their_route(name):
         assert route(n, C64) == name, n
 
 
-@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("form", executor.CORE_FORMS)
 def test_form_sizes_take_their_core_form(form):
-    """Every core form of torch_prime_cores.FORMS is reached by some prime
-    (the torch recipe tree by the Bluesteins on 2^23 above about 3.1 million,
-    4194301 among them) but K14's four stages, and each size listed for it
-    is a prime that no route serves and whose inner length runs on that
-    form.  The four stages have no size: since the prime rule and the
-    composite rule no planner path reaches them with the switches at their
-    defaults, and the switched check of 65537 under rader_in_shift does
-    (its Rader core keeps them, conv_radix.cluster_form); the composites
-    they served take the composite rule's ways."""
+    """Every core form of executor.CORE_FORMS is reached by some prime, and
+    each size listed for it is a prime that no route serves and whose inner
+    length runs on that form (the glued form by the Bluesteins on 2^23 above
+    about 3.1 million, 4194301 among them, and since R5, the core rule above
+    2^20, on 2^22, 1572869 among them).  K14's four stages only above 2^20,
+    by the Raders on n - 1 in (2^20, 2^22] (1051009): below it no planner
+    path reaches them with the switches at their defaults since the prime
+    rule and the composite rule, and the switched check of 65537 under
+    rader_in_shift does (its Rader core keeps them,
+    conv_radix.cluster_form); the composites they served take the
+    composite rule's ways, and R5_REPLACED's check at 1572869 runs them
+    (executor.build(core_rule=False))."""
     sizes = torch_accuracy.FORM_SIZES[form]
+    assert sizes, form
+    for n in sizes:
+        assert math_utils.is_prime(n), n
+        assert form_of(n) == (None, form), n
     if form == "K14 four stages":
-        assert sizes == ()
+        assert all(n > 1 << 20 for n in sizes), sizes
         assert ((("rader_in_shift", True),), (65537,)) in torch_accuracy.SWITCHED
         assert form_of(65537) == (None, "K14 cluster passes")
         assert conv_radix.cluster_form(65536, in_shift=True) is None
         for n in torch_accuracy.COMPOSITE_SIZES:
             assert not math_utils.is_prime(n) and route(n, C64) is None, n
             assert form_of(n)[1] in ("", "K15 tile form", "K14 cluster passes"), n
-        return
-    assert sizes, form
-    for n in sizes:
-        assert math_utils.is_prime(n), n
-        assert form_of(n) == (None, form), n
+        assert [n for n in torch_accuracy.R5_REPLACED
+                if form_of(n, core_rule=False)[1] == form] == [1572869]
+
+
+def test_r5_replaced_sizes():
+    """R5_REPLACED: the prime of the class R5 moved (the Bluesteins on 2^22),
+    on the glued form by default and on K14's four stages without the rule,
+    checked both ways in default_checks on the four stages; the primes of
+    the classes it kept run the same form with and without it."""
+    assert torch_accuracy.R5_REPLACED == (1572869,)
+    assert form_of(1572869) == (None, "glued form")
+    assert form_of(1572869, core_rule=False) == (None, "K14 four stages")
+    assert 1572869 in torch_accuracy.FORM_SIZES["glued form"]
+    for n in (1051009, 1048583, 2097169, 4194301):
+        assert form_of(n) == form_of(n, core_rule=False), n
+    checks = torch_accuracy.default_checks()
+    assert {(c.n, c.direction) for c in checks if not c.core_rule} == {
+        (1572869, d) for d in torch_accuracy.DIRECTIONS}
+    check = next(c for c in checks if not c.core_rule)
+    assert check.label == "the core R5 replaced" and check.batch == 1
 
 
 def test_default_checks_cover_every_route_and_core_form():
     checks = torch_accuracy.default_checks()
-    planner = [c for c in checks if c.dtype == "complex64" and not c.pinned and not c.switches]
+    planner = [c for c in checks if c.dtype == "complex64" and not c.pinned and not c.switches
+               and c.core_rule]
     sizes = {c.n for c in planner}
     routes = {route(n, C64) for n in sizes}
     assert routes == set(route_values()), routes
     forms = {form_of(n)[1] for n in sizes} - {""}
-    assert forms == set(FORMS) - {"K14 four stages"}, forms
-    # the four stages on a switched check (65537 under rader_in_shift)
+    assert forms == set(executor.CORE_FORMS), forms
+    # the four stages also on a switched check (65537 under rader_in_shift)
+    # and on the check of the core R5 replaced
     switched = {(c.n, c.switches) for c in checks if c.switches}
     assert (65537, (("rader_in_shift", True),)) in switched
+    assert {form_of(c.n, core_rule=False)[1] for c in checks if not c.core_rule} == {
+        "K14 four stages"}
     assert set(torch_accuracy.COMPOSITE_SIZES) <= sizes
     # both directions of every check
     for c in checks:
-        assert c.__class__(c.n, c.direction.opposite(), c.dtype, c.switches, c.pinned) in checks
+        assert dataclasses.replace(c, direction=c.direction.opposite()) in checks
     # the JAX artifact's sizes, row by row
     assert set(torch_accuracy.SAMPLED_SIZES + torch_accuracy.SCENARIO_SIZES) <= sizes
     assert {c.n for c in checks if c.dtype == "complex128"} == set(torch_accuracy.C128_SIZES)
@@ -252,7 +280,10 @@ def rule_fields():
      "the hole band: Bluestein on m=32768 (K14 cluster passes), not large_pad"),
     (1031, {"dense_fallback_max_n": 2048},
      "the dense band: dense_fft up to config.dense_fallback_max_n = 2048"),
-    (16383, {}, ""), (1031, {}, ""), (65537, {}, ""),
+    (1572869, {}, "the core rule above 2^20: bluestein on m=4194304 (K14 four stages) -> the "
+                  "glued form, its inner on large2f"),
+    (16383, {}, ""), (1031, {}, ""), (65537, {}, ""), (1051009, {}, ""), (2097169, {}, ""),
+    (4194301, {}, ""),
 ])
 def test_inspect_plan_names_the_rule(n, on, rule, rule_fields, capsys):
     """The planner rule that decided n, as the tool prints it (none where
@@ -380,6 +411,50 @@ def test_planner_rules_check_reprints_the_composite_rule(tmp_path, capsys):
     assert "| 0.000 | candidate | split | loss |" in out
     assert "R4 fit: the planner of this tree takes the faster way (or a tie) at 1 of 1" in out
     assert "R4 held: the planner of this tree takes the faster way (or a tie) at 0 of 1" in out
+
+
+def test_planner_rules_check_reprints_the_core_rule(tmp_path, capsys):
+    """--check reprints R5's rows: each class by the planner's recipe
+    (r5_class), the glued form taken where it was measured faster (B22),
+    the core kept where it was (R4S), B23's one way against torch.fft, with
+    each row's bound (r5_bound_ms), errors, launches and host times."""
+    import json
+
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+
+    planner = FftPlannerGpu(C64, device="cpu")
+    classes = {n: torch_planner_rules.r5_class(planner.design_fft_for_len(n))
+               for n in (1572869, 1051009, 1048583, 2097169, 4194301, 1000003)}
+    assert classes == {1572869: "B22", 1051009: "R4S", 1048583: "B3a", 2097169: "B3b",
+                       4194301: "B23", 1000003: None}
+
+    def row(n, set_, batch, m, cls, core, glued):
+        out = dict(rule="R5", n=n, set=set_, batch=batch, m=m, cls=cls, inner_route="large2f",
+                   device="cuda", torch_fft_ms=5.0)
+        for way, ms in (("current", core), ("candidate", glued)):
+            if ms is not None:
+                out.update({way: way, f"{way}_ms": ms, f"{way}_queued_ms": ms,
+                            f"{way}_turns_ms": [ms, ms], f"{way}_turns_queued_ms": [ms, ms],
+                            f"err_{way}_F": 3e-7, f"err_{way}_I": 3e-7,
+                            f"{way}_launches": dict(kernels={"large_row_stage": 2},
+                                                    host_ms=0.5)})
+        return out
+
+    path = tmp_path / "r5.json"
+    path.write_text(json.dumps(dict(card="NVIDIA H100 80GB HBM3, 700.00 W", torch="2.11", rows=[
+        row(1572869, "fit", 32, 1 << 22, "B22", 18.8, 7.5),
+        row(1051009, "held", 32, 1051008, "R4S", 5.9, 6.6),
+        row(4194301, "fit", 16, 1 << 23, "B23", 8.1, None)])))
+    torch_planner_rules.main(["--check", str(path)])
+    out = capsys.readouterr().out
+    assert "| fit | B22 | 1572869 | 32 | large2f | current | 18.800 / 18.800 | candidate | " \
+           "7.500 / 7.500 | 5.000 | 0.441 | 2.51 / 2.51 | 0.000 | candidate | candidate |" in out
+    assert "| held | R4S | 1051009 | 32 | large2f | current | 5.900 / 5.900 | candidate | " \
+           "6.600 / 6.600 | 5.000 | 0.161 | 0.89 / 0.89 | 0.000 | current | current |" in out
+    assert "| 0.461 | - | 0.000 | current | current | 3.00e-07 / 3.00e-07 | - | " \
+           "large_row_stage 2 | - | 0.500 |" in out
+    assert "R5 fit: the executor of this tree takes the faster way (or a tie) at 2 of 2" in out
+    assert "R5 held: the executor of this tree takes the faster way (or a tie) at 1 of 1" in out
 
 
 def test_planner_rules_composite_samples(monkeypatch):

@@ -74,20 +74,29 @@ ROUTE_SIZES = {
     "dense": (5, 23, 127, 251),
 }
 
-#: sizes for each convolution core form (torch_prime_cores.FORMS): primes no
-#: route serves, by the core their recipe's inner length runs on; none for
-#: K14's four stages, which no planner path reaches with the switches at
+#: sizes for each convolution core form (executor.CORE_FORMS): primes no
+#: route serves, by the core their recipe's inner length runs on, among them
+#: one prime of each class of R5, the core rule above 2^20.  K14's four
+#: stages: below 2^20 no planner path reaches them with the switches at
 #: their defaults since the prime rule and the composite rule (65537 under
-#: rader_in_shift, a SWITCHED check, runs them); 4194301 is a Bluestein on
-#: 2^23 whose chirp and product are torch glue around large2f
+#: rader_in_shift, a SWITCHED check, runs them), above it the Raders on n - 1
+#: in (2^20, 2^22] keep them (1051009, m = 1051008), and R5_REPLACED runs
+#: them where R5 took the glued form.  K15's general form at 24571 and at
+#: 1048583 and 2097169 (the Bluesteins on 3*2^20 and 3*2^21).  The glued
+#: form at 4194301 (a Bluestein on 2^23, glued around large2f either way)
+#: and 1572869 (on 2^22, glued around large2f since R5)
 FORM_SIZES = {
     "one-pass core": (257, 2531, 3083),
     "K14 cluster passes": (65521, 131071),
-    "K14 four stages": (),
+    "K14 four stages": (1051009,),
     "K15 tile form": (1000003, 524309),
-    "K15 general form": (24571,),
-    "torch recipe tree": (4194301,),
+    "K15 general form": (24571, 1048583, 2097169),
+    "glued form": (4194301, 1572869),
 }
+
+#: R5's prime on the core the rule replaced (executor.build(core_rule=False)):
+#: K14's four stages at 1572869 (Bluesteins on 2^22)
+R5_REPLACED = (1572869,)
 
 #: the composite rule's ways (FftPlannerGpu._composite_way) at composites
 #: whose whole-n Bluestein ran K14's four stages before it: the split at
@@ -131,6 +140,9 @@ class Check:
     switches: Tuple[Tuple[str, object], ...] = ()
     #: a pinned plan instead of the planner's: ("rader" or "bluestein", inner length)
     pinned: Optional[Tuple[str, int]] = None
+    #: False: the planner's recipe with its Raders and Bluesteins nodes on
+    #: their cores without R5 (executor.build(core_rule=False))
+    core_rule: bool = True
 
     @property
     def batch(self) -> int:
@@ -147,6 +159,8 @@ class Check:
         if self.pinned:
             parts.append("pinned " + ("RadersAlgorithm" if self.pinned[0] == "rader"
                                       else "BluesteinsAlgorithm"))
+        if not self.core_rule:
+            parts.append("the core R5 replaced")
         return ", ".join(parts)
 
 
@@ -166,6 +180,7 @@ def default_checks():
     checks += [Check(n, d, pinned=(kind, m)) for n, kind, m in PINNED for d in DIRECTIONS]
     for switches, at in SWITCHED:
         checks += planner_checks(at, switches=switches)
+    checks += [Check(n, d, core_rule=False) for n in R5_REPLACED for d in DIRECTIONS]
     return checks
 
 
@@ -185,10 +200,34 @@ class switched:
             setattr(config, name, value)
 
 
+class ReplacedPlan:
+    """The planner's recipe at n built with executor.build(core_rule=False):
+    its Raders and Bluesteins nodes on the cores R5 replaced.  process takes
+    a tensor on its own device or a numpy buffer, computed on `device`."""
+
+    def __init__(self, recipe, direction, dtype, device):
+        from rustfft_tpu_torch import executor
+
+        self.recipe = recipe
+        self._fn = executor.build(recipe, direction, dtype, core_rule=False)
+        self._device = device
+
+    def process(self, x):
+        import torch
+
+        if isinstance(x, torch.Tensor):
+            return self._fn(x)
+        return self._fn(torch.from_numpy(x).to(self._device)).cpu().numpy()
+
+
 def make_plan(check: Check, device):
-    """The check's plan: the planner's, or the pinned constructor's over the
-    planner's inner plan.  Call it with the check's switches set."""
+    """The check's plan: the planner's, the pinned constructor's over the
+    planner's inner plan, or the planner's recipe on the cores R5 replaced.
+    Call it with the check's switches set."""
     planner = FftPlanner(np.dtype(check.dtype), device=device)
+    if not check.core_rule:
+        recipe = planner.design_fft_for_len(check.n)
+        return ReplacedPlan(recipe, check.direction, np.dtype(check.dtype), device)
     if check.pinned is None:
         return planner.plan_fft(check.n, check.direction)
     kind, m = check.pinned
@@ -209,10 +248,10 @@ def recipe_label(recipe) -> str:
 
 def core_form_of(check: Check, recipe, routed) -> str:
     """torch_prime_cores.recipe_core_form; a pinned plan runs no core."""
-    from torch_prime_cores import FORMS, recipe_core_form
+    from torch_prime_cores import TREE, recipe_core_form
 
-    form = recipe_core_form(recipe, routed, np.dtype(check.dtype))
-    return FORMS[-1] if form and check.pinned else form
+    form = recipe_core_form(recipe, routed, np.dtype(check.dtype), check.core_rule)
+    return TREE if form and check.pinned else form
 
 
 def card_signal(check: Check, device):

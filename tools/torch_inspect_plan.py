@@ -93,8 +93,10 @@ def rule_of(n: int, recipe, routed, np_dtype) -> str:
     rule (a Bluestein on a fast core form in place of the recipe of the
     convolution-core rules), the composite rule (a Bluestein on a fast core
     form or the split in place of a composite's whole-n Bluestein on K14's
-    four stages), the hole band (route gives no route where it would give
-    large_pad) or the dense band (dense above config.dense_dft_max)."""
+    four stages), the core rule above 2^20 (R5: the glued form in place of
+    K14's four stages or K15's general form), the hole band (route gives no
+    route where it would give large_pad) or the dense band (dense above
+    config.dense_dft_max)."""
     from rustfft_tpu_torch import config, executor, recipes
     from rustfft_tpu_torch.math_utils import is_prime
     from rustfft_tpu_torch.planner import FftPlannerGpu
@@ -108,6 +110,12 @@ def rule_of(n: int, recipe, routed, np_dtype) -> str:
             kind, m = kind_and_inner(before)
             return (f"the prime rule: {kind} on m={m} ({core_form(kind, m)}) -> Bluestein on "
                     f"m={recipe.inner.length} ({core_form('bluestein', recipe.inner.length)})")
+    if routed is None and isinstance(recipe, (recipes.Raders, recipes.Bluesteins)):
+        kind, m = kind_and_inner(recipe)
+        before = executor.core_form(kind, m, np_dtype, core_rule=False)
+        if core_form(kind, m) != before:
+            return (f"the core rule above 2^20: {kind} on m={m} ({before}) -> the glued form, "
+                    f"its inner on {executor.route(m, np_dtype)}")
     planner = FftPlannerGpu(np_dtype, device="cpu")
     way = planner.composite_way(n)
     if way is not None:

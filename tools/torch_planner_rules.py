@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the planner's kernel decisions of the JAX package on the card: the
-prime rule (R1), the hole band (R2), the dense band (R3) and the composite
-rule (R4), each at its sampled and held-out sizes, the current path
-against the candidate (and R4's split).
+prime rule (R1), the hole band (R2), the dense band (R3), the composite
+rule (R4) and the executor's core rule above 2^20 (R5), each at its
+sampled and held-out sizes, the current path against the candidate (and
+R4's split).
 
-    python3 tools/torch_planner_rules.py [--rules R1,R2,R3,R4] [--out FILE]
+    python3 tools/torch_planner_rules.py [--rules R1,R2,R3,R4,R5] [--out FILE]
         [--device cuda] [--batch B] [--limit K] [--rounds 2]
         [--sets fit,held] [--held-seed S] [--held-per-way K]
     python3 tools/torch_planner_rules.py --costs | --glue [--out FILE]
@@ -47,6 +48,22 @@ once:
       sweep's sizes): --held-per-way (5) sizes the rule sends to the split
       and as many it sends to the Bluestein.
 
+  R5  the primes of (2^20, 2^22] by the planner's recipe (r5_census), in
+      the classes R5_CLASSES: B22, the Bluesteins on 2^22, and R4S, the
+      Raders on n - 1, whose core without the rule is K14's four stages;
+      B3a and B3b, the Bluesteins on 3*2^20 and 3*2^21, on K15's general
+      form; B23, the Bluesteins on 2^23, glued either way.  The current
+      path is the node on its core without the rule
+      (executor.build(core_rule=False)), the candidate the glued form
+      (ops/bluestein.py or ops/raders.py around the inner FFT that
+      executor.build makes of the recipe's inner, on route(m)'s kernel);
+      B23 only the current, against torch.fft.  Sampled: 6 primes spread
+      over each class; held out: 4 more a class, drawn with R5_HELD_SEED.
+      Each row also gives each way's relative mean error against the host
+      float64 oracle at batch 1, forward and inverse, its launches of the
+      ported kernels (their counters) and the host's time to queue a call.
+      About 2 minutes of census and 15 of timing.
+
 R4's rule compares two costs from split_costs.py's tables, which two
 sweeps measure: --costs times, at R4's sampled sizes, its first held-out
 draw and the median size of each class of the split's prime half (kind,
@@ -68,13 +85,14 @@ run is checked against it, held-out sizes apart (PLANNER_RULES_GPU.md is
 that reprint of the H100 runs); R4's table also says of each size whether
 the way the planner takes is among the fastest ("win") or not ("loss").
 --device cpu --limit 1 --batch 1 rehearses it on the plain versions (host
-times, which say nothing of the card).  About 17 minutes on an H100, a
-minute of it the census of R1's primes.
+times, which say nothing of the card).  About 17 minutes on an H100 for
+R1-R4, a minute of it the census of R1's primes.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -89,7 +107,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 C64 = np.complex64
-RULES = ("R1", "R2", "R3", "R4")
+RULES = ("R1", "R2", "R3", "R4", "R5")
 #: the JAX package's hole-band settings (rustfft_tpu/config.py:183-185)
 JAX_BAND = dict(bconv_misaligned=True, bconv_misaligned_min_n=8192,
                 bconv_misaligned_max_pad=3.5)
@@ -258,7 +276,74 @@ def r4_samples(held_seed=None, per_way=5):
     return fit, held
 
 
-SAMPLES = {"R1": r1_samples, "R2": r2_samples, "R3": r3_samples, "R4": r4_samples}
+#: R5, the core rule above 2^20 (executor.core_form): its classes of primes of
+#: (2^20, 2^22], (kind, inner length); R4S's is every n - 1 in (2^20, 2^22]
+#: whose core before the rule is K14's four stages
+R5_CLASSES = {"B22": ("bluestein", 1 << 22), "R4S": ("rader", None),
+              "B3a": ("bluestein", 3 << 20), "B3b": ("bluestein", 3 << 21),
+              "B23": ("bluestein", 1 << 23)}
+#: the class whose Bluestein is glued before the rule, timed against torch.fft only
+R5_TIMED_ONLY = ("B23",)
+R5_RANGE = ((1 << 20) + 1, 1 << 22)
+#: the seed R5's held-out primes are drawn with, 4 a class
+R5_HELD_SEED = 20261026
+R5_SAMPLED, R5_HELD = 6, 4
+
+
+def pre_rule_form(kind: str, m: int) -> str:
+    """The core the executor runs a Raders or Bluesteins of inner length m
+    on without R5."""
+    from rustfft_tpu_torch import executor
+
+    return executor.core_form(kind, m, C64, core_rule=False)
+
+
+def r5_class(recipe):
+    """R5's class of a prime's recipe, or None."""
+    from rustfft_tpu_torch import recipes
+
+    if isinstance(recipe, recipes.Raders):
+        m = recipe.inner.length
+        in_range = 1 << 20 < m <= 1 << 22
+        return "R4S" if in_range and pre_rule_form("rader", m) == "K14 four stages" else None
+    if isinstance(recipe, recipes.Bluesteins):
+        return next((c for c, (kind, m) in R5_CLASSES.items()
+                     if kind == "bluestein" and m == recipe.inner.length), None)
+    return None
+
+
+def r5_census() -> dict:
+    """{class: [primes of R5_RANGE]} by the planner's recipe."""
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+
+    planner = FftPlannerGpu(C64, device="cpu")
+    classes = {c: [] for c in R5_CLASSES}
+    for n in primes_in(*R5_RANGE):
+        c = r5_class(planner._design_prime(n))
+        if c is not None:
+            classes[c].append(n)
+    return classes
+
+
+def r5_samples(held_seed=R5_HELD_SEED):
+    """(sampled, held out) primes of R5: R5_SAMPLED spread over each class,
+    R5_HELD drawn from the rest of it with numpy's default_rng(held_seed)."""
+    classes = r5_census()
+    rng = np.random.default_rng(held_seed)
+    fit, held = [], []
+    for primes in classes.values():
+        picked = spread_pick(primes, R5_SAMPLED)
+        rest = [n for n in primes if n not in set(picked)]
+        fit += picked
+        held += sorted(rng.choice(rest, R5_HELD, replace=False).tolist())
+    print("R5 census of (2^20, 2^22]: " + ", ".join(
+        f"{c} {len(primes)}" for c, primes in classes.items())
+        + f" ({len({p - 1 for p in classes['R4S']})} Rader inner lengths)", flush=True)
+    return fit, held
+
+
+SAMPLES = {"R1": r1_samples, "R2": r2_samples, "R3": r3_samples, "R4": r4_samples,
+           "R5": r5_samples}
 
 #: R4's first held-out draw (--held-seed 20261018, under the rule's first
 #: statement, by inner points), which the cost sweep times beside its sampled
@@ -351,6 +436,8 @@ def paths(rule: str, n: int, direction) -> dict:
     from rustfft_tpu_torch.ops.kernels import conv, dense, largepad
     from rustfft_tpu_torch.planner import FftPlannerGpu, routed_bluestein_inner
 
+    if rule == "R5":
+        return r5_paths(n, direction)
     if rule in ("R1", "R4"):
         planner = FftPlannerGpu(C64, device="cpu")
         old = planner._conv_prime_recipe(n) if rule == "R1" else planner._conv_composite_recipe(n)
@@ -373,12 +460,49 @@ def paths(rule: str, n: int, direction) -> dict:
             "candidate": ("dense_fft", dense.make_dense_fft_fn(n, direction, C64))}
 
 
+def r5_paths(n: int, direction) -> dict:
+    """{way: (label, fn)} of R5 at the prime n: "current", its node on the
+    core without the rule (executor.build(core_rule=False): K14's four
+    stages on K12's kernels, or K15's general form), and "candidate", the
+    glued form the JAX executor runs at these inner lengths
+    (rustfft_tpu/executor.py:346-390), built here from ops/bluestein.py or
+    ops/raders.py around two calls of the inner FFT that executor.build
+    makes of the recipe's inner, on route(m)'s kernel.  B23's node is
+    glued without the rule: its one way is "current"."""
+    from rustfft_tpu_torch import executor, recipes, route
+    from rustfft_tpu_torch.ops import bluestein as op_bluestein
+    from rustfft_tpu_torch.ops import raders as op_raders
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+
+    recipe = FftPlannerGpu(C64, device="cpu")._design_prime(n)
+    rader = isinstance(recipe, recipes.Raders)
+    m = recipe.inner.length
+    name = f"{type(recipe).__name__}(m={m})"
+    glued = f"{name} glued on {route(m, C64) or 'the recipe tree'}"
+    current = executor.build(recipe, direction, C64, core_rule=False)
+    if r5_class(recipe) in R5_TIMED_ONLY:
+        return {"current": (glued, current)}
+    form = pre_rule_form("rader" if rader else "bluestein", m)
+    if form not in ("K14 four stages", "K15 general form"):
+        raise AssertionError(f"R5 n={n}: {name} runs on the {form} without the rule")
+    inner = executor.build(recipe.inner, direction, C64)
+    fn = (op_raders.make_raders_fn(n, inner, direction, C64) if rader
+          else op_bluestein.make_bluestein_fn(n, m, inner, direction, C64))
+    return {"current": (f"{name} {form}", current), "candidate": (glued, fn)}
+
+
 def taken(rule: str, n: int) -> str:
     """The way this tree's planner takes at n: "candidate" or "current" (or
     R4's "split")."""
     from rustfft_tpu_torch import executor, recipes, route
     from rustfft_tpu_torch.planner import FftPlannerGpu, routed_bluestein_inner
 
+    if rule == "R5":
+        recipe = FftPlannerGpu(C64, device="cpu")._design_prime(n)
+        kind = "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
+        m = recipe.inner.length
+        moved = executor.core_form(kind, m, C64) != pre_rule_form(kind, m)
+        return "candidate" if moved else "current"
     if rule == "R4":
         way = FftPlannerGpu(C64, device="cpu").composite_way(n)
         return {"split": "split", "bluestein": "candidate"}.get(way, "current")
@@ -454,6 +578,8 @@ def measure(rule, n, batch, device, rounds, timers):
 
     from rustfft_tpu_torch import FftDirection, executor
 
+    if rule == "R5":
+        return measure_r5(n, batch, device, rounds, timers)
     event_ms, queued_ms = timers
     start = time.perf_counter()
     ways = paths(rule, n, FftDirection.FORWARD)
@@ -481,6 +607,87 @@ def measure(rule, n, batch, device, rounds, timers):
         row[f"{way}_turns_ms"] = ev[way]
         row[f"{way}_turns_queued_ms"] = qu[way]
     del x, want
+    executor._CACHE.clear()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - start
+    return row
+
+
+def count_launches(fn, x, device) -> dict:
+    """One call of fn(x): {"kernels": the ported kernels' launches by
+    wrapper (ops.kernels.launch_counters), "host_ms": the host's time to
+    queue the call (median of 5, the device idle before each)}."""
+    import torch
+
+    from rustfft_tpu_torch.ops.kernels import launch_counters
+
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    fn(x)
+    kernels = {name: c.launches for name, c in counters.items() if c.launches}
+    if device.type != "cuda":
+        return dict(kernels=kernels, host_ms=None)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn(x)
+        host.append((time.perf_counter() - start) * 1e3)
+    torch.cuda.synchronize()
+    return dict(kernels=kernels, host_ms=statistics.median(host))
+
+
+def measure_r5(n, batch, device, rounds, timers):
+    """One row of R5: each way's relative mean error against the host
+    float64 oracle at batch 1, forward and inverse, its launches and host
+    time at (batch, n), and its times in turns (as measure), torch.fft's."""
+    import torch
+
+    from rustfft_tpu_torch import FftDirection, executor, route
+    from rustfft_tpu_torch.planner import FftPlannerGpu
+    from rustfft_tpu_torch.utils.testing import oracle_dft, random_signal
+
+    event_ms, queued_ms = timers
+    start = time.perf_counter()
+    recipe = FftPlannerGpu(C64, device="cpu")._design_prime(n)
+    m = recipe.inner.length
+    row = dict(rule="R5", n=n, batch=batch, cls=r5_class(recipe), m=m,
+               inner_route=route(m, C64))
+    x1 = random_signal(n, dtype=C64, seed=1000 + n).reshape(1, n)
+    ways = r5_paths(n, FftDirection.FORWARD)
+    for direction, tag in ((FftDirection.FORWARD, "F"), (FftDirection.INVERSE, "I")):
+        want = oracle_dft(x1, direction)
+        fns = ways if direction is FftDirection.FORWARD else r5_paths(n, direction)
+        for way, (label, fn) in fns.items():
+            got = fn(torch.from_numpy(x1).to(device)).cpu().numpy().astype(np.complex128)
+            err = float(np.mean(np.abs(got - want)) / np.mean(np.abs(want)))
+            if not err <= TOL:
+                raise AssertionError(f"R5 n={n} {tag}: {label} relative mean error "
+                                     f"{err:.3e} > {TOL}")
+            row[way], row[f"err_{way}_{tag}"] = label, err
+    gen = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=device)
+    for way, (_, fn) in ways.items():
+        row[f"{way}_launches"] = count_launches(fn, x, device)
+    ev = {way: [] for way in ways}
+    qu = {way: [] for way in ways}
+    for _ in range(rounds):
+        for way in list(ways) + list(ways)[::-1]:
+            fn = ways[way][1]
+            ev[way].append(event_ms(lambda: fn(x)))
+            qu[way].append(queued_ms(lambda: fn(x)))
+    row["torch_fft_ms"] = event_ms(lambda: torch.fft.fft(x))
+    for way in ways:
+        row[f"{way}_ms"] = statistics.median(ev[way])
+        row[f"{way}_queued_ms"] = statistics.median(qu[way])
+        row[f"{way}_turns_ms"] = ev[way]
+        row[f"{way}_turns_queued_ms"] = qu[way]
+    if device.type == "cuda":
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+    del x, ways
     executor._CACHE.clear()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -685,8 +892,11 @@ def print_table(rule, rows, header) -> None:
     """One rule's rows; with a split way (R4) its columns too, whether the
     way the planner takes is among the fastest ("win") or not ("loss"), and
     the ms split_costs.py's tables give the candidate and the split, with
-    the range of the queued ms over them."""
+    the range of the queued ms over them.  R5's rows: print_r5_table."""
     from rustfft_tpu_torch import config
+
+    if rule == "R5":
+        return print_r5_table(rows, header)
 
     split = any("split_ms" in row for row in rows)
     print(f"\n{rule} ({header}); ms a call (events / queued); ratio = current / candidate"
@@ -731,6 +941,68 @@ def print_table(rule, rows, header) -> None:
           f"bconv_misaligned={config.bconv_misaligned}, "
           f"bconv_misaligned_min_n={config.bconv_misaligned_min_n}, "
           f"bconv_misaligned_max_pad={config.bconv_misaligned_max_pad}", flush=True)
+
+
+def launches_text(launches) -> str:
+    """A way's launches of the ported kernels, by wrapper."""
+    return " ".join(f"{name} {c}" for name, c in sorted(launches["kernels"].items())) or "none"
+
+
+#: the card's rates the bound is taken at (PERF.md §6): HBM bytes/s and
+#: FP32 operations/s (H100 SXM data sheet, 700 W)
+HBM_BPS, FP32_OPS = 3.35e12, 67e12
+
+
+def r5_bound_ms(row) -> float:
+    """The least time of an R5 row's core at (batch, n): its input and
+    output once over HBM_BPS, or two m-point FFTs of 5 m log2 m operations
+    over FP32_OPS, the larger."""
+    nbytes = 2 * row["batch"] * row["n"] * 8
+    ops = 2 * 5 * row["m"] * math.log2(row["m"]) * row["batch"]
+    return max(nbytes / HBM_BPS, ops / FP32_OPS) * 1e3
+
+
+def print_r5_table(rows, header) -> None:
+    """R5's rows: both ways' times, torch.fft's, the faster way, the way
+    this tree takes, each way's relative mean error against the float64
+    oracle at batch 1 (forward / inverse), its launches and its host time
+    to queue a call."""
+    print(f"\nR5 ({header}); ms a call (events / queued); bound = r5_bound_ms, the least "
+          "time of the core; ratio = current / candidate; err = relative mean error at batch 1 "
+          "against the host float64 oracle, forward / inverse; host = ms the host takes to "
+          "queue a call (current / candidate)")
+    print("| set | class | n | batch | inner route | current | ms | candidate | ms | torch.fft "
+          "| bound | ratio | spread | faster | executor takes | err current | err candidate "
+          "| launches current | launches candidate | host ms |")
+    print("|---" * 20 + "|")
+    agree = Counter()
+    for row in rows:
+        took = taken("R5", row["n"])
+        agree[(row["set"], took in fastest(row))] += 1
+        cells = [row["set"], row["cls"], row["n"], row["batch"], row["inner_route"] or "none"]
+        for way in ("current", "candidate"):
+            cells += ([row[way], f"{row[f'{way}_ms']:.3f} / {row[f'{way}_queued_ms']:.3f}"]
+                      if way in row else ["-", "-"])
+        cells += [f"{row['torch_fft_ms']:.3f}", f"{r5_bound_ms(row):.3f}"]
+        cells.append(f"{row['current_ms'] / row['candidate_ms']:.2f} / "
+                     f"{row['current_queued_ms'] / row['candidate_queued_ms']:.2f}"
+                     if "candidate" in row else "-")
+        cells += [f"{spread(row):.3f}", faster(row), took]
+        for way in ("current", "candidate"):
+            cells.append(f"{row[f'err_{way}_F']:.2e} / {row[f'err_{way}_I']:.2e}"
+                         if way in row else "-")
+        for way in ("current", "candidate"):
+            cells.append(launches_text(row[f"{way}_launches"]) if way in row else "-")
+        cells.append(" / ".join("-" if row.get(f"{way}_launches", {}).get("host_ms") is None
+                                else f"{row[f'{way}_launches']['host_ms']:.3f}"
+                                for way in ("current", "candidate") if way in row))
+        print("| " + " | ".join(str(c) for c in cells) + " |")
+    for s in ("fit", "held"):
+        total = agree[(s, True)] + agree[(s, False)]
+        if total:
+            print(f"R5 {s}: the executor of this tree takes the faster way (or a tie) at "
+                  f"{agree[(s, True)]} of {total} sizes")
+    print(flush=True)
 
 
 def card_line() -> str:

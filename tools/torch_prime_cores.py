@@ -15,7 +15,7 @@ primes, both ends included.  For every prime n there,
 `FftPlannerGpu(np.complex64)._design_prime(n)` gives the recipe (Raders on
 n - 1, Bluesteins on an inner m, or another) and `executor.core_form` (the
 executor's Raders and Bluesteins branches) the core its inner length runs
-on:
+on (`executor.CORE_FORMS`):
 
   one-pass core      conv.conv_supported(m) (K6 / K13);
   K15 tile form      a Bluestein on the fused large Bluestein at a split
@@ -23,7 +23,11 @@ on:
   K15 general form   the fused large Bluestein at any other split;
   K14 cluster passes conv_radix.cluster_form(m) (m = r*16384);
   K14 four stages    the two-pass core's column and row stages;
-  torch recipe tree  no kernel core.
+  glued form         no kernel core: ops/bluestein.py or ops/raders.py
+                     around two calls of the inner FFT, which
+                     executor.build runs on route(m)'s kernel (above 2^20
+                     also where R5, the core rule, takes it);
+  torch recipe tree  the kernels off (recipe_core_form).
 
 It prints the primes by recipe and inner length (the most common inner
 lengths first), then by core form (with the number of distinct inner
@@ -54,9 +58,17 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: first
 SHOWN = 24
 
-#: the core forms, in the order they are printed
-FORMS = ("one-pass core", "K15 tile form", "K15 general form", "K14 cluster passes",
-         "K14 four stages", "torch recipe tree")
+#: the form of a Raders or Bluesteins recipe with the kernels off, and of a
+#: prime's recipe that is neither
+TREE = "torch recipe tree"
+
+
+def forms() -> tuple:
+    """The core forms, in the order they are printed: executor.CORE_FORMS of
+    the tree counted."""
+    from rustfft_tpu_torch import executor
+
+    return executor.CORE_FORMS
 
 
 def primes_in(lo: int, hi: int) -> np.ndarray:
@@ -125,19 +137,20 @@ def kind_and_inner(recipe):
     return type(recipe).__name__, 0
 
 
-def recipe_core_form(recipe, routed, dtype) -> str:
-    """The core a plan's top recipe runs on: core_form for a Raders or
-    Bluesteins recipe that no route serves (`routed`, executor.route's
-    name, is None) with the kernels on for `dtype`, the torch recipe tree
-    with them off; "" for any other recipe."""
+def recipe_core_form(recipe, routed, dtype, core_rule: bool = True) -> str:
+    """The core a plan's top recipe runs on: executor.core_form for a Raders
+    or Bluesteins recipe that no route serves (`routed`, executor.route's
+    name, is None) with the kernels on for `dtype` (core_rule=False: the
+    core without R5), the torch recipe tree with them off; "" for any other
+    recipe."""
     from rustfft_tpu_torch import executor, recipes
 
     if routed is not None or not isinstance(recipe, (recipes.Raders, recipes.Bluesteins)):
         return ""
     if not executor.kernels_on(dtype):
-        return FORMS[5]
+        return TREE
     kind = "rader" if isinstance(recipe, recipes.Raders) else "bluestein"
-    return core_form(kind, recipe.inner.length)
+    return executor.core_form(kind, recipe.inner.length, np.complex64, core_rule=core_rule)
 
 
 def census(lo: int, hi: int):
@@ -156,14 +169,14 @@ def census(lo: int, hi: int):
     for n in primes_in(lo, hi).tolist():
         recipe = planner._design_prime(n)
         kind, m = kind_and_inner(recipe)
-        form = core_form(kind, m) if m else FORMS[5]
+        form = core_form(kind, m) if m else TREE
         by_inner[(kind, m)] += 1
         by_form[form] += 1
         inners.setdefault(form, Counter())[(kind, m)] += 1
         before = planner._conv_prime_recipe(n)
         if before != recipe:
             old_kind, old_m = kind_and_inner(before)
-            moved[(old_kind, core_form(old_kind, old_m) if old_m else FORMS[5], form)] += 1
+            moved[(old_kind, core_form(old_kind, old_m) if old_m else TREE, form)] += 1
             pads.append(m / old_m)
     return by_inner, by_form, inners, moved, sorted(pads)
 
@@ -242,7 +255,8 @@ def main() -> None:
     for (kind, m), c in sorted(by_inner.items(), key=lambda kv: (-kv[1], kv[0])):
         print(f"  {kind} m={m}: {c}")
     print("by core form:")
-    for form in FORMS:
+    shown = tuple(dict.fromkeys(forms() + tuple(by_form)))
+    for form in shown:
         if by_form[form]:
             kc = Counter()
             for (kind, _), c in inners[form].items():
@@ -250,7 +264,7 @@ def main() -> None:
             lengths = len({m for _, m in inners[form]})
             print(f"  {form}: {by_form[form]} primes, {lengths} inner lengths ("
                   + ", ".join(f"{k} {c}" for k, c in kc.most_common()) + ")")
-    for form in FORMS:
+    for form in shown:
         if by_form[form]:
             top = sorted(inners[form].items(), key=lambda kv: (-kv[1], kv[0]))
             more = f", and {len(top) - SHOWN} more" if len(top) > SHOWN else ""
