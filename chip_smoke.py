@@ -72,10 +72,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    M = 64 .. 1024) and a ragged last tile on both axes (17161 counts into
    the 412519 entries), and the fused large Bluestein's three kernels:
    the tile form's within 1e-6 at every Q of convlarge.COLUMN_FORMS x 1 and
-   x 3 (BLUE's paths 1000003, 524309, 393241, 294919 and K15_CHECKS'
-   primes 165901, 209959, 221197, 262147) and at 746497's Bluestein inner
-   (m = 1572864) x 2, the general form's at 24571 (m = 49152), with the
-   result against the float64 oracle.  The kernel-variant switches: K4's Gauss
+   x 3 (BLUE's paths 1000003, 524309, 393241, 294919, BLUE_NEW's 1048583,
+   2097169, 24571, 161659 and K15_CHECKS' primes, those below 2^17 also at
+   256 MiB) and at 746497's Bluestein inner (m = 1572864) x 2, the
+   general form's at 24571 (m = 49152, make_bluestein_large_fn(general=
+   True), on no planner path), with the result against the float64
+   oracle.  The kernel-variant switches: K4's Gauss
    column and row stages (the Gauss forms of K2's and K3's tile kernels)
    within 1e-6 at 2^20 x 1, x 3 and x 64, each grid and the resident blocks
    printed, and bit-equal to the general Gauss bodies at x 64, deep_a and
@@ -107,8 +109,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    177147 x 256 and 531441 x 64 and the route's bulk 234617 x 256, 775575
    x 64, 412519 x 128 and 50666 x 1024 (large_pad), 1000003 x 64, 524309 x
    64, 393241 x 64 and 294919 x 128, each also x 1 and x 3 (the fused large
-   Bluestein's tile form at Q = 8192, 6144, 4096, 3072) and 24571 x 2048
-   (its general form; 24571's inner m = 49152 is on the cluster band), and
+   Bluestein's tile form at Q = 8192, 6144, 4096, 3072), 1048583 x 32,
+   2097169 x 16, 24571 x 2048 and 161659 x 256 (the tile form at Q =
+   12288, 24576, 192, 1296; 24571's inner m = 49152 is on the cluster
+   band), 24571 x 2048 on K15's general form (general=True), and
    the two-pass core's four stages at 746497 x 64 (Rader), 196613 x 256
    and 88589 x 512 (Bluestein) through executor.build, on the recipes that
    the prime rule replaced there (FftPlannerGpu._conv_prime_recipe).  Then the
@@ -153,8 +157,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    kernel at each path's shape against its plain version (K7 within 1e-6),
    its bound and torch.fft (with the operations its chain spends,
    chain_ops), and each cluster path against the large or large_pad route
-   it replaced; 24571 x 2048 (Bluestein, m = 49152) on K15, which the
-   planner keeps, and on the two-pass core the JAX rule gives it, in turns.
+   it replaced; 24571 x 2048 (Bluestein, m = 49152) on K15's tile form,
+   which the planner keeps, on its general form and on the two-pass core
+   the JAX rule gives it, in turns.
    The two-stage kernel's general body is reported at 24576 (its phase 2
    check at 20480 counts into that entry's max_abs_err) and at each ONE
    path.  K1: each kernel at each of its paths against its plain version
@@ -176,9 +181,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    large_pad path against the large route and torch.fft; the fused large
    Bluestein's tile kernels at 1000003 x 64 (within 1e-6) and the path
    against the two-pass core and torch.fft, also at 524309 x 64, 393241 x
-   64 and 294919 x 128 (the column forms of csrc/bconv_cols.cu), its
-   general kernel A (the two-pass core's column stage with the chirp),
-   B_conv and A2 at 24571 x 2048; the two-pass core's cluster passes at
+   64 and 294919 x 128 (the column forms of csrc/bconv_cols.cu), and at
+   BLUE_NEW's paths (B_conv on csrc/bconv_cols.cu, bconv_cols_small.cu
+   and bconv_pair.cu), each path against K15's general form on the same
+   input in turns and both queued (the device's time a call, 10 calls
+   behind a sleep kernel) and torch.fft; its general kernel A (the
+   two-pass core's column stage with the chirp), B_conv and A2 at 24571
+   x 2048; the two-pass core's cluster passes at
    65537 x 512, 7919 x 4096, 65521 x 512 and 131071 x 256 (within 1e-6),
    and the same in the radix body's Gauss form (the switched paths'
    passes), both ways within 1e-6 of their plain versions, each timed
@@ -237,8 +246,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the recipe of the convolution-core rules, FftPlannerGpu's
    _conv_prime_recipe and _conv_composite_recipe, through executor.build
    on K14's four stages; R5's, the core rule above 2^20: the same recipe
-   through executor.build(core_rule=False), on K14's four stages or K15's
-   general form; the others' the planner's default: large_pad, the
+   through executor.build(core_rule=False), on K14's four stages; the
+   others' the planner's default: large_pad, the
    convolution cores), each run once with the launch counters (exactly
    its route's or core form's kernels, a split's halves', the glued
    form's inner route twice) and
@@ -340,11 +349,25 @@ PAD_CHECKS = (78125, 177147, 531441, 17161, 234617, 775575, 412519, 50666)
 BLUE = {1000003: (1 << 21, 64), 524309: (1572864, 64), 393241: (1 << 20, 64),
         294919: (786432, 128)}
 
-#: the tile form's other new Q (1536, 1728, 2048, 2304), each at the
-#: smallest prime whose inner the planner puts there, and 746497's Bluestein
-#: inner (m = 1572864): checked at small batches, counted into the entries of
-#: the BLUE path named
-K15_CHECKS = {165901: 294919, 209959: 294919, 221197: 294919, 262147: 294919, 746497: 524309}
+#: the tile form's paths at the Q that K15's general form served before the
+#: tile form took them, the general form timed beside each on the same
+#: input: the Bluesteins on 3*2^20 (Q = 12288) and 3*2^21 (Q = 24576, a
+#: cluster of two blocks a column), 24571 (Q = 192) and 161659 (Q = 1296):
+#: the prime n -> (inner m, batch)
+BLUE_NEW = {1048583: (3 << 20, 32), 2097169: (3 << 21, 16), 24571: (49152, 2048),
+            161659: (331776, 256)}
+
+#: the tile form's other Q, each at the smallest prime whose inner the
+#: planner puts there (1536, 1728, 2048, 2304; 144, 288, 384, 432 and 576,
+#: 768, 864, 1152), and 746497's Bluestein inner (m = 1572864): checked at
+#: small batches (the Q of 144 .. 1152 also at K15_CHECK_BYTES), counted
+#: into the entries of the BLUE or BLUE_NEW path named
+K15_CHECKS = {165901: 294919, 209959: 294919, 221197: 294919, 262147: 294919, 746497: 524309,
+              17509: 24571, 35023: 24571, 46663: 24571, 52501: 24571, 69991: 161659,
+              93319: 161659, 104987: 161659, 139981: 161659}
+#: the bytes of the third check of K15_CHECKS' primes below 2^17 (a batch
+#: like a path's)
+K15_CHECK_BYTES = 1 << 28
 
 #: the primes whose two-pass core runs the four stages on the ragged tiles
 #: (K14 at every other m): the Rader 746497 (m = 746496 = 256 x 2916) and
@@ -489,16 +512,22 @@ for _n in PAD:
                                            "rustfft_tpu/ops/pallas/largepad.py:109")
     KERNELS[f"largepad_row_stage/{_n}"] = ("rustfft_tpu_torch/csrc/largepad.cu",
                                            "rustfft_tpu/ops/pallas/largepad.py:134")
-for _n, (_m, _) in BLUE.items():  # the tile form (convlarge.tile_form)
+#: B_conv's source at each Q of the tile form (convlarge.COLUMN_FORMS)
+BCONV_SOURCE = {8192: "convlarge.cu", 24576: "bconv_pair.cu",
+                **{q: "bconv_cols_small.cu" for q in (144, 192, 288, 384, 432, 576, 768, 864,
+                                                        1152, 1296)}}
+for _n, (_m, _) in {**BLUE, **BLUE_NEW}.items():  # the tile form (convlarge.tile_form)
     KERNELS[f"bconv_col_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                        "rustfft_tpu/ops/pallas/large.py:60")
     KERNELS[f"bconv_row_tile/{_n}"] = ("rustfft_tpu_torch/csrc/"
-                                       + ("convlarge.cu" if _m == 1 << 21 else "bconv_cols.cu"),
+                                       + BCONV_SOURCE.get(_m // 256, "bconv_cols.cu"),
                                        "rustfft_tpu/ops/pallas/convlarge.py:72")
     KERNELS[f"bconv_out_tile/{_n}"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
                                        "rustfft_tpu/ops/pallas/convlarge.py:99")
 #: K15's general form at 24571 (Q = 192; its kernel A is conv_col_stage on
-#: csrc/large.cuh's kernels, general=True)
+#: csrc/large.cuh's kernels), on no planner path since the tile form took
+#: Q = 192: reached by make_bluestein_large_fn(general=True), its launches
+#: those of the path GENERAL_PATH
 KERNELS["conv_col_stage/24571"] = ("rustfft_tpu_torch/csrc/conv_radix.cu",
                                    "rustfft_tpu/ops/pallas/large.py:60")
 KERNELS["bconv_row_stage/24571"] = ("rustfft_tpu_torch/csrc/convlarge.cu",
@@ -543,6 +572,8 @@ KERNELS["conv_row_stage/in_shift"] = ("rustfft_tpu_torch/csrc/conv_pad_row.cu",
 #: the path whose launches a "kernel/tag" entry reports, for tags that are
 #: not a size
 TAGGED = {"in_shift": "65537 in_shift"}
+#: the path of K15's general kernels (make_bluestein_large_fn(general=True))
+GENERAL_PATH = "24571 general"
 
 
 def tag(n: int) -> str:
@@ -636,6 +667,25 @@ def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """The device's time a call: `calls` calls queued behind a sleep kernel
+    (so that the host's time to queue them is hidden), CUDA events around
+    them, median of `reps`."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # cycles: longer than the host takes to queue the calls
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -991,10 +1041,11 @@ def main() -> None:
         q = q1 * q2
         return p, q, card_tables(tables.col_tables(p, q, d)), card_tables(tables.row_tables(q, d))
 
-    def bconv_card(n, m, d):
+    def bconv_card(n, m, d, general=False):
         """(P, Q, column tables, row tables, pre, h, chirp) of the fused large
-        Bluestein of length n at inner m, on the card."""
-        p, q1, q2 = large.choose_pqq(m)
+        Bluestein of length n at inner m, on the card, at K15's split
+        (convlarge.split; the general form's large.choose_pqq)."""
+        p, q1, q2 = large.choose_pqq(m) if general else convlarge.split(m)
         q = q1 * q2
         host = convlarge.bconv_tables(n, m, p, q, d)
         return (p, q, card_tables(host["col"]), card_tables(host["row"]),
@@ -1638,20 +1689,25 @@ def main() -> None:
                  f"tile {pt} (last {p % pt or pt}) batch=2 {d.name}", K7_TOL)
     # the fused large Bluestein: the tile form's kernels within 1e-6 of
     # plain at batch 1 and 3 at every Q of convlarge.COLUMN_FORMS (the BLUE
-    # paths' and K15_CHECKS'), on 746497's Bluestein inner (m = 1572864),
-    # and the general form's at 24571 (m = 49152)
-    for n, m, batches in ((1000003, 1 << 21, (1, 3)),
-                          *((n, m, (1, 3)) for n, (m, _) in BLUE.items() if n != 1000003),
-                          *((n, None, (1, 3)) for n in K15_CHECKS if n != 746497),
-                          (746497, None, (2,)),
-                          (24571, 49152, (2,))):
+    # and BLUE_NEW paths' and K15_CHECKS', those below 2^17 also at
+    # K15_CHECK_BYTES), on 746497's Bluestein inner (m = 1572864), and the
+    # general form's at 24571 (m = 49152, general=True), each result against
+    # the float64 oracle (four rows)
+    for n, m, batches, general in (
+            (1000003, 1 << 21, (1, 3), False),
+            *((n, m, (1, 3), False) for n, (m, _) in {**BLUE, **BLUE_NEW}.items()
+              if n != 1000003),
+            *((n, None, (1, 3) + ((K15_CHECK_BYTES // (8 * n),) if n < 1 << 17 else ()), False)
+              for n in K15_CHECKS if n != 746497),
+            (746497, None, (2,), False),
+            (24571, 49152, (2,), True)):
         m = m or FftPlanner(np.complex64, device="cuda").plan_fft_forward(n).recipe.inner.length
         key = K15_CHECKS.get(n, n)
         for batch, d in ((b, d) for b in batches for d in directions):
             x = signal(batch, n)
-            p, q, col, row, pre, h, chirp = bconv_card(n, m, d)
+            p, q, col, row, pre, h, chirp = bconv_card(n, m, d, general)
             what = f"n={n} m={m} P={p} Q={q} batch={batch} {d.name}"
-            if convlarge.tile_form(p, q):
+            if not general:
                 trow, th, touter = bconv_tile_card(n, m, d, col)
                 a = convlarge.bconv_col_tile(x, p, q, col, pre)
                 torch.cuda.synchronize()
@@ -1684,8 +1740,8 @@ def main() -> None:
                      convlarge.bconv_out_stage_plain(b, p, q, col[:2], chirp, n),
                      f"bconv_out_stage {what}")
             check(f"fused large Bluestein {what} vs float64 oracle",
-                  rel_err(out.cpu().to(torch.complex128),
-                          torch.from_numpy(host_dft(x.cpu().numpy(), d))))
+                  rel_err(out[:4].cpu().to(torch.complex128),
+                          torch.from_numpy(host_dft(x[:4].cpu().numpy(), d))))
             del x, a, b, out
             free()
 
@@ -1740,15 +1796,17 @@ def main() -> None:
     assert [route(n, np.complex64) for n in PAD] == ["large_pad"] * len(PAD)
     assert route(10 ** 6, np.complex64) == "large"
     # the fused large Bluestein's tile form (1000003) and its general form
-    # (24571); the two-pass core's cluster passes (65537, 7919)
+    # (24571 through general=True); the two-pass core's cluster passes
+    # (65537, 7919)
     k15 = {"bconv_col_tile": 1, "bconv_row_tile": 1, "bconv_out_tile": 1}
     k15_general = {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}
     k14 = {"conv_radix_pass1": 1, "conv_radix_pass2": 1}
-    for n, (m, _) in BLUE.items():
+    for n, (m, _) in {**BLUE, **BLUE_NEW}.items():
         recipe = planner.plan_fft_forward(n).recipe
         assert isinstance(recipe, recipes.Bluesteins) and recipe.inner.length == m, recipe
         assert executor.build(recipe, FftDirection.FORWARD, np.complex64).__module__ == \
             convlarge.__name__
+        assert executor.core_form("bluestein", m, np.complex64) == "K15 tile form", n
 
     four = {"conv_col_stage": 2, "conv_row_stage": 2}
     for n in FOUR:
@@ -1791,7 +1849,7 @@ def main() -> None:
           for n, batch in PAD.items()),
         *((n, batch, k15) for n, (_, batch) in BLUE.items()),
         *((n, batch, k15) for n in BLUE for batch in (1, 3)),
-        (24571, 2048, k15_general),
+        *((n, batch, k15) for n, (_, batch) in BLUE_NEW.items()),
     )
 
     def drive(key, n, batch, expected, fwd, inv, what, same_as=None, oracle=True):
@@ -1887,6 +1945,13 @@ def main() -> None:
     fwd, inv = (large.make_large_fft_fn(1 << 20, d, np.complex64, deep_a=True) for d in directions)
     drive(f"{1 << 20} deep_a", 1 << 20, 1024, default_large, fwd, inv,
           "n=1048576 batch=1024 make_large_fft_fn(deep_a=True)", default_2_20)
+    # K15's general form, on no planner path since the tile form took its Q:
+    # through make_bluestein_large_fn(general=True) at 24571 x 2048
+    n, (m, batch) = 24571, BLUE_NEW[24571]
+    fwd, inv = (convlarge.make_bluestein_large_fn(n, m, d, np.complex64, general=True)
+                for d in directions)
+    drive(GENERAL_PATH, n, batch, k15_general, fwd, inv,
+          f"n={n} batch={batch} K15's general form (make_bluestein_large_fn(general=True))")
     # K14's four stages at the FOUR paths, through executor.build on the
     # recipes the prime rule replaced there (the planner's paths, phase 8)
     for n, batch in FOUR.items():
@@ -2585,7 +2650,8 @@ def main() -> None:
     # 24571 x 2048: a Bluestein prime whose inner m = 49152 left "large" for
     # the cluster band, where the JAX rule would hand it to the two-pass
     # core; the fused large Bluestein (K15, which convlarge.bconv_supported
-    # keeps) against that core, in turns
+    # keeps: its tile form, and the general form it replaced) against that
+    # core, in turns
     n, batch = 24571, 2048
     recipe = planner.plan_fft_forward(n).recipe
     m = recipe.inner.length
@@ -2593,7 +2659,10 @@ def main() -> None:
         convlarge.__name__
     x = signal(batch, n)
     want = torch.fft.fft(x)
-    cores = {"K15": convlarge.make_bluestein_large_fn(n, m, FftDirection.FORWARD, np.complex64),
+    cores = {"K15's tile form": convlarge.make_bluestein_large_fn(n, m, FftDirection.FORWARD,
+                                                                  np.complex64),
+             "K15's general form": convlarge.make_bluestein_large_fn(
+                 n, m, FftDirection.FORWARD, np.complex64, general=True),
              "the two-pass core": conv.make_bluestein_fn(n, m, FftDirection.FORWARD, np.complex64)}
     for what, fn in cores.items():
         check(f"{n} x {batch} (m = {m}) on {what} vs torch.fft", rel_err(fn(x), want))
@@ -2604,7 +2673,7 @@ def main() -> None:
     ref = median_ms(lambda: torch.fft.fft(x))
     print(f"  {n} x {batch} (Bluestein, m = {m}), in turns: " + "; ".join(
         f"{what} {t[0]:.3f} / {t[1]:.3f} ms" for what, t in times.items())
-          + f"; torch.fft {ref:.3f} ms; the planner takes K15", flush=True)
+          + f"; torch.fft {ref:.3f} ms; the planner takes K15's tile form", flush=True)
     del x, want, cores
     free()
 
@@ -2745,8 +2814,9 @@ def main() -> None:
 
     # the fused large Bluestein at its path's shape: the tile form's kernel
     # A, B_conv and A2 against their plain versions and bounds; the path
-    # against the two-pass core it replaced and torch.fft
-    for n, (m, batch) in BLUE.items():
+    # against the two-pass core it replaced (BLUE) or K15's general form
+    # (BLUE_NEW, in turns and queued) and torch.fft
+    for n, (m, batch) in {**BLUE, **BLUE_NEW}.items():
         x = signal(batch, n)
         p, q, col, row, pre, h, chirp = bconv_card(n, m, fwd)
         trow, th, touter = bconv_tile_card(n, m, fwd, col)
@@ -2784,27 +2854,46 @@ def main() -> None:
         del b
         free()
         plan = planner.plan_fft_forward(n)
-        path = median_ms(lambda: plan.process(x), reps=5)
-        old_fn = conv.make_bluestein_fn(n, m, fwd, np.complex64)
-        check(f"n={n} x {batch} via the two-pass core vs torch.fft",
+        if n in BLUE_NEW:
+            old_name = "K15's general form"
+            old_fn = convlarge.make_bluestein_large_fn(n, m, fwd, np.complex64, general=True)
+        else:
+            old_name = "the two-pass core"
+            old_fn = conv.make_bluestein_fn(n, m, fwd, np.complex64)
+        check(f"n={n} x {batch} via {old_name} vs torch.fft",
               rel_err(old_fn(x), torch.fft.fft(x)))
         free()
-        old = median_ms(lambda: old_fn(x), reps=5)
+        if n in BLUE_NEW:  # in turns, path, the general form, the general form, path
+            turns = {"path": [], "old": []}
+            for way, fn in (("path", plan.process), ("old", old_fn), ("old", old_fn),
+                            ("path", plan.process)):
+                turns[way].append(median_ms(lambda: fn(x), reps=5))
+            path, old = (statistics.median(turns[w]) for w in ("path", "old"))
+            queued = {what: queued_ms(lambda: fn(x)) for what, fn in (
+                ("path", plan.process), ("old", old_fn), ("torch.fft", torch.fft.fft))}
+            extra = (f" (turns {' / '.join(f'{t:.3f}' for t in turns['path'])} and "
+                     f"{' / '.join(f'{t:.3f}' for t in turns['old'])}; queued: path "
+                     f"{queued['path']:.3f}, {old_name} {queued['old']:.3f}, torch.fft "
+                     f"{queued['torch.fft']:.3f} ms)")
+        else:
+            path = median_ms(lambda: plan.process(x), reps=5)
+            old = median_ms(lambda: old_fn(x), reps=5)
+            extra = ""
         ref = median_ms(lambda: torch.fft.fft(x), reps=5)
         print(f"  fused large Bluestein path n={n} batch={batch}: {path:.3f} ms "
-              f"({gflops(n, batch, path):.0f} GF/s); the two-pass core {old:.3f} ms "
+              f"({gflops(n, batch, path):.0f} GF/s); {old_name} {old:.3f} ms "
               f"({gflops(n, batch, old):.0f} GF/s); torch.fft {ref:.3f} ms "
-              f"({gflops(n, batch, ref):.0f} GF/s)", flush=True)
-        del x
+              f"({gflops(n, batch, ref):.0f} GF/s){extra}", flush=True)
+        del x, old_fn
         free()
 
-    # the fused large Bluestein's general form at 24571 x 2048 (Q = 192):
-    # kernel A (the two-pass core's column stage with the chirp as pre),
-    # B_conv and A2 against their plain versions and bounds
+    # the fused large Bluestein's general form at 24571 x 2048 (Q = 192, on
+    # no planner path): kernel A (the two-pass core's column stage with the
+    # chirp as pre), B_conv and A2 against their plain versions and bounds
     n, batch = 24571, 2048
     m = planner.plan_fft_forward(n).recipe.inner.length
     x = signal(batch, n)
-    p, q, col, row, pre, h, chirp = bconv_card(n, m, fwd)
+    p, q, col, row, pre, h, chirp = bconv_card(n, m, fwd, general=True)
     what = f"n={n} m={m} P={p} Q={q} batch={batch} (the main path's shape)"
     name = "conv_col_stage/24571"
     a, _ = conv_radix.conv_col_stage(x, p, q, col, pre=pre, general=True)
@@ -3038,6 +3127,8 @@ def main() -> None:
             return main_launches[base]
         if where in TAGGED:
             return path_launches[TAGGED[where]][base]
+        if base in k15_general and where == "24571":  # the general form, on no planner path
+            return path_launches[GENERAL_PATH][base]
         if base.endswith("_gauss") and where.isdigit():  # the switched path
             return path_launches[f"{where} gauss"][base]
         if base == "conv_fft":

@@ -191,15 +191,19 @@ def core_form(kind: str, m: int, dtype, *, core_rule: bool = True) -> str:
     other nodes above 2^20 too, but the card measured the port's cores
     faster at every prime timed there, 10 a class, and they keep them: the
     Raders on n - 1 in (2^20, 2^22] on the four stages (the glued form
-    1.04-1.19x slower), the Bluesteins on 3*2^20 and 3*2^21 on K15's
-    general form (1.11-1.13x, 1.27-1.29x) (tools/torch_planner_rules.py --rules R5,
-    PLANNER_RULES_GPU.md; NVIDIA H100 80GB HBM3, 700.00 W).
+    1.04-1.19x slower), the Bluesteins on 3*2^20 and 3*2^21 on K15's tile
+    form at convlarge.split's P = 256 x Q = 12288 and 24576 (the glued
+    form 4.7-5.0x and 5.5-5.8x slower: 1048583 x 32 3.004 against 14.858
+    ms, 2097169 x 16 3.791 against 21.901), which replaced K15's general
+    form there (1.11-1.13x and 1.27-1.29x faster than the glued form)
+    (tools/torch_planner_rules.py --rules R5, PLANNER_RULES_GPU.md; NVIDIA
+    H100 80GB HBM3, 700.00 W).
     core_rule=False: the core without R5, which the tools and tests build
     to hold the form it replaced."""
     if conv.conv_supported(m, dtype):
         return CORE_FORMS[0]
     if kind == "bluestein" and convlarge.bconv_supported(m, dtype):
-        p, q1, q2 = large.choose_pqq(m)
+        p, q1, q2 = convlarge.split(m)
         return CORE_FORMS[1] if convlarge.tile_form(p, q1 * q2) else CORE_FORMS[2]
     if conv_radix.radix_conv_supported(m, dtype):
         if conv_radix.cluster_form(m) is not None:

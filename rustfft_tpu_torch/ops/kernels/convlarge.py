@@ -2,30 +2,29 @@
 
 Replaces rustfft_tpu/ops/pallas/convlarge.py (`_kernel_bconv`, `_kernel_a2`,
 `bconv_supported`, `make_bluestein_large_fn`): a Bluestein of length n on
-an inner m = P * Q (large.choose_pqq(m)) in three launches, where the
-two-pass core (ops/kernels/conv_radix.py) takes four:
+an inner m = P * Q (`split(m)`) in three launches, where the two-pass core
+(ops/kernels/conv_radix.py) takes four:
 
-  A       `conv_radix.conv_col_stage(general=True)` with pre = the chirp:
-          the zero pad, the chirp, DFT_P and w_m^(k1*j2), (B, n) -> (B, Q,
+  A       the zero pad, the chirp, DFT_P and w_m^(k1*j2), (B, n) -> (B, Q,
           P).  It takes the place of the JAX package's XLA prologue and
           `large._kernel_a`;
-  B_conv  `bconv_row_stage`: per (Q, pt) tile, FFT_Q, conj(. * H), FFT_Q
-          in the same direction and w_m^(l1*k1), (B, Q, P) -> (B, Q, P)
-          [l1, k1] (the mirrored factorisation, convlarge.py:13-32);
-  A2      `bconv_out_stage`: DFT_P over k1 and out[l2*Q + l1] =
-          chirp[l] * conj(.) for l < n, (B, Q, P) -> (B, n).
+  B_conv  per column k1, FFT_Q, conj(. * H), FFT_Q in the same direction
+          and w_m^(l1*k1), [j2, k1] -> [l1, k1] (the mirrored
+          factorisation, convlarge.py:13-32);
+  A2      DFT_P over k1 and out[l2*Q + l1] = chirp[l] * conj(.) for l < n,
+          -> (B, n).
 
 The JAX kernel slices DFT_P to its `pkeep` live rows and slices the output
 after; here A2 computes every row and skips the stores with l >= n, so the
 epilogue's slice pass disappears.
 
-The splits at P = 16 x 16 and Q in COLUMN_FORMS (`tile_form`: Q = 8192,
-m = 2^21, the 1000003 path, and Q = 1536 .. 6144, the inner lengths of
-46381 of the primes in [8192, 2^20], tools/torch_prime_cores.py) run the
-tile form instead, three persistent tile walks that hold the signal
-between them in columns (B, P, Q) (`to_columns`), so that a B_conv unit of
-T columns and its slices of h and outer (held the same way) are T*Q
-consecutive values:
+`split(m)` puts P = 16 x 16 wherever m / 256 is one of COLUMN_FORMS (Q =
+144 .. 1296, 1536 .. 8192, 12288 and 24576: every inner length the planner
+gives a prime of [8192, 2^22] that takes K15, tools/torch_prime_cores.py),
+and there the tile form runs (`tile_form`): three persistent tile walks
+that hold the signal between them in columns (B, P, Q) (`to_columns`), so
+that a B_conv unit of T columns and its slices of h and outer (held the
+same way) are T*Q consecutive values:
   `bconv_col_tile` (kernel A): K2's column-tile kernel with a chirp source
       (pre from L1 in stage 0, rows beyond n zero, 8-byte copies of the
       rows that are not 16-byte aligned) and a column store;
@@ -35,21 +34,26 @@ consecutive values:
       which the host stores in that order, `bconv_h_table`; the second,
       the first reversed, ends in natural order), the last stage storing
       times outer: csrc/convlarge.cu at Q = 8192 (one column a unit),
-      csrc/bconv_cols.cu at the others (COLUMN_FORMS: 2 to 8 columns);
+      csrc/bconv_cols.cu and csrc/bconv_cols_small.cu at the other Q up to
+      12288 (1 to 64 columns a unit), csrc/bconv_pair.cu at Q = 24576 (a
+      cluster of two blocks a column, the chain's first and last radix 2
+      across the pair);
   `bconv_out_tile` (A2): 16 rows l1 a unit, DFT_P in place, the next
       unit's tile landing in a second buffer, 16 consecutive l a store.
 B_conv's units run batch rows fastest (`bconv_unit`, `bconv_grid`), kernel
 A's and A2's contiguous ranges of them (large.col_walk), so the tables'
-slices are read from device memory about once.  By that rule, and only
-there, other splits (Q below 1536: 3432 primes of [8192, 2^20], 24571 at Q
-= 192) keep the general kernels: `conv_radix.conv_col_stage(general=True)`
-(the two-pass core's column stage on csrc/large.cuh), `bconv_row_stage` and
-`bconv_out_stage`: B_conv holds a (Q, pt) tile in two
-buffers, `bconv_tile` checks that it fits.  Host tables are the JAX
-package's, built in f64 and cast to complex64: the chirp, H = h_fft as (Q,
-P), the (Q, P) outer twiddle and the output chirp.  Each wrapper runs its
-plain version on a CPU tensor and launches its kernel (csrc/convlarge.cu,
-csrc/bconv_cols.cu) on a CUDA tensor, or raises.
+slices are read from device memory about once.  Other splits keep the
+general kernels, and `make_bluestein_large_fn(..., general=True)` builds
+them at large.choose_pqq(m) anywhere (no planner path takes them; the tests
+and tools hold the tile form against them): kernel A is
+`conv_radix.conv_col_stage(general=True)` (the two-pass core's column stage
+on csrc/large.cuh), then `bconv_row_stage` and `bconv_out_stage`: B_conv
+holds a (Q, pt) tile of the row layout (B, Q, P) in two buffers,
+`bconv_tile` checks that it fits.  Host tables are the JAX package's,
+built in f64 and cast to complex64: the chirp, H = h_fft as (Q, P), the
+(Q, P) outer twiddle and the output chirp.  Each wrapper runs its plain
+version on a CPU tensor and launches its kernel (csrc/convlarge.cu,
+csrc/bconv_cols.cu, csrc/bconv_pair.cu) on a CUDA tensor, or raises.
 """
 from __future__ import annotations
 
@@ -89,8 +93,9 @@ def _tiles_fit(p: int, q: int) -> bool:
 
 
 def bconv_supported(m: int, dtype) -> bool:
-    """c64, a large split of m whose three kernels' tiles fit shared memory,
-    and executor.route(m) == "large" (the JAX rule: the JAX executor's
+    """c64, K15's split of m (`split`) in the tile form or with the general
+    kernels' tiles fitting shared memory, and executor.route(m) == "large"
+    (the JAX rule: the JAX executor's
     condition pallas_route(m) == "large"), or "two_stage" on a cluster
     where the route was "large" before K7's cluster band took it: large's
     tiles are not narrowed (largepad.narrowed_by_division), as at 36864
@@ -108,8 +113,8 @@ def bconv_supported(m: int, dtype) -> bool:
     if name != "large" and not (name == "two_stage" and fused.two_stage_cluster_supported(m, dtype)
                                 and not largepad.narrowed_by_division(m)):
         return False
-    p, q1, q2 = large.choose_pqq(m)
-    return _tiles_fit(p, q1 * q2)
+    p, q1, q2 = split(m)
+    return tile_form(p, q1 * q2) or _tiles_fit(p, q1 * q2)
 
 
 def bconv_tables(n: int, m: int, p: int, q: int, direction: FftDirection):
@@ -241,12 +246,26 @@ TILE_Q = 8192
 
 #: B_conv's forms by Q: chain 1's radices (register radices, the first
 #: leaving W_0 = Q / r_0 a multiple of 16) and the columns a unit holds, the
-#: most at which two 256-thread blocks fit an SM (csrc/bconv_cols.cu
-#: with_form; 8192, one column, csrc/convlarge.cu).  Chain 1, in place,
-#: leaves its output digit-reversed (bconv_positions); chain 2 is the chain
-#: reversed and ends in natural order.  The seven Q below 8192 carry 46381 of the
-#: primes in [8192, 2^20] (tools/torch_prime_cores.py).
+#: most that divide 256 and leave two 256-thread blocks an SM
+#: (csrc/bconv_cols.cu with_form and csrc/bconv_cols_small.cu
+#: with_small_form; 8192, one column, csrc/convlarge.cu; PAIR_Q,
+#: csrc/bconv_pair.cu, one column on a cluster of two blocks).  Chain 1, in
+#: place, leaves its output digit-reversed (bconv_positions); chain 2 is the
+#: chain reversed and ends in natural order.  The Q below 8192 carry 52817
+#: of the primes in [8192, 2^20]; 12288 and 24576 carry the 107354
+#: Bluesteins of (2^20, 2^22] on 3*2^20 and 3*2^21
+#: (tools/torch_prime_cores.py).
 COLUMN_FORMS = {
+    144: ((9, 16), 64),
+    192: ((12, 16), 64),
+    288: ((2, 9, 16), 32),
+    384: ((3, 8, 16), 32),
+    432: ((3, 9, 16), 32),
+    576: ((6, 6, 16), 16),
+    768: ((3, 16, 16), 16),
+    864: ((6, 9, 16), 16),
+    1152: ((9, 8, 16), 8),
+    1296: ((9, 9, 16), 8),
     1536: ((6, 16, 16), 8),
     1728: ((12, 16, 9), 8),
     2048: ((8, 16, 16), 4),
@@ -255,14 +274,40 @@ COLUMN_FORMS = {
     4096: ((16, 16, 16), 2),
     6144: ((3, 8, 16, 16), 2),
     TILE_Q: ((2, 16, 16, 16), 1),
+    12288: ((3, 16, 16, 16), 1),
+    24576: ((2, 3, 16, 16, 16), 1),
 }
+
+#: the Q whose column is held by a cluster of two blocks, 12288 values each
+#: (csrc/bconv_pair.cu): chain 1's first radix 2 and chain 2's last run
+#: across the pair, the other stages are the Q = 12288 form's
+PAIR_Q = 24576
 
 
 def tile_form(p: int, q: int) -> bool:
     """The split runs the tile form: DFT_P as 16 x 16 (P = 256) and Q one
-    of COLUMN_FORMS; other splits (Q below 1536: 24571 at Q = 192) keep the
-    general kernels."""
+    of COLUMN_FORMS; other splits keep the general kernels."""
     return large.stage_radices(p) == TILE_P and q in COLUMN_FORMS
+
+
+def split(m: int) -> Optional[Tuple[int, int, int]]:
+    """K15's split (P, q1, q2) of m: P = 256 where m / 256 has a B_conv form
+    (COLUMN_FORMS), so that kernel A and A2 run their tile kernels, with the
+    most balanced q1 x q2 of at most 256 each; large.choose_pqq(m)
+    elsewhere.  Only 3*2^21 differs from choose_pqq, whose P = 512 x Q =
+    12288 the general kernels ran."""
+    p, q = TILE_P[0] * TILE_P[1], m // (TILE_P[0] * TILE_P[1])
+    pqq = large.choose_pqq(m)
+    if m % p or q not in COLUMN_FORMS or (pqq is not None and pqq[0] == p):
+        return pqq
+    pairs = [(a, q // a) for a in range(2, large.MAX_Q_FACTOR + 1)
+             if q % a == 0 and q // a <= large.MAX_Q_FACTOR]
+    q1, q2 = min(pairs, key=lambda t: (t[0] + t[1], abs(t[0] - t[1])))
+    return p, q1, q2
+
+
+#: split, under a name that make_bluestein_large_fn's keyword does not hide
+_k15_split = split
 
 
 def column_chain(q: int) -> Tuple[int, ...]:
@@ -374,12 +419,26 @@ def _cols_resident(device_index: int, q: int) -> int:
         return out.value
 
 
+@functools.lru_cache(maxsize=None)
+def _pair_clusters(device_index: int) -> int:
+    """The clusters of B_conv's pair form (csrc/bconv_pair.cu) the device
+    runs at once."""
+    with torch.cuda.device(device_index):
+        lib = _build.load()
+        out = ctypes.c_int(0)
+        _build.check(lib, lib.rf_bconv_pair_clusters(ctypes.byref(out)), "bconv_pair clusters")
+        return out.value
+
+
 def _row_tile_resident(device: torch.device, q: int) -> int:
-    """The blocks of B_conv's tile kernel at Q the device holds at once."""
+    """The blocks of B_conv's tile kernel at Q the device holds at once (at
+    PAIR_Q, its clusters of two blocks)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
     if q == TILE_Q:
         return _resident_on(device, "row")
-    return _cols_resident(device.index if device.index is not None
-                          else torch.cuda.current_device(), q)
+    if q == PAIR_Q:
+        return _pair_clusters(index)
+    return _cols_resident(index, q)
 
 
 def bconv_col_tile_plain(x: torch.Tensor, p: int, q: int, tables, pre) -> torch.Tensor:
@@ -514,6 +573,11 @@ def _row_tile_launch(a, q, p, tables, h, outer, what, stamps=None):
         args = (src.data_ptr(), y.data_ptr(), a.shape[0], p, r2.data_ptr(), r16.data_ptr(),
                 ctypes.addressof(tw), h.data_ptr(), outer.data_ptr(), grid)
         launch = lib.rf_bconv_row_tile_stamps if stamps is not None else lib.rf_bconv_row_tile
+    elif q == PAIR_Q:  # grid: clusters of two blocks
+        rp = (ctypes.c_void_p * len(roots))(*[t.data_ptr() for t in roots])
+        args = (src.data_ptr(), y.data_ptr(), a.shape[0], p, ctypes.addressof(rp),
+                ctypes.addressof(tw), h.data_ptr(), outer.data_ptr(), grid)
+        launch = lib.rf_bconv_pair_stamps if stamps is not None else lib.rf_bconv_pair
     else:
         rp = (ctypes.c_void_p * len(roots))(*[t.data_ptr() for t in roots])
         radices = list(chain) + [1] * (4 - len(chain))
@@ -540,8 +604,10 @@ def bconv_row_tile(a: torch.Tensor, q: int, p: int, tables, h: torch.Tensor,
     COLUMN_FORMS; h (P, Q) from bconv_h_table, outer (P, Q) (to_columns of
     the (Q, P) outer twiddle), complex64 on a's device.  A persistent grid
     of bconv_grid blocks over units of COLUMN_FORMS[Q][1] columns, two
-    blocks an SM: at Q = 8192 one column of 64 KiB (csrc/convlarge.cu),
-    else 64-108 KiB (csrc/bconv_cols.cu).
+    blocks an SM: at Q = 8192 one column of 64 KiB (csrc/convlarge.cu), at
+    PAIR_Q one column on a cluster of two blocks of 96 KiB
+    (csrc/bconv_pair.cu; the grid counts clusters), else 64-108 KiB
+    (csrc/bconv_cols.cu, csrc/bconv_cols_small.cu).
     """
     what = "bconv_row_tile"
     _row_tile_checks(a, q, p, tables, h, outer, what)
@@ -657,7 +723,8 @@ def bconv_row_tile_stamps(a: torch.Tensor, q: int, p: int, tables, h: torch.Tens
     (y, stamps) with ROW_TILE_PHASES."""
     what = "bconv_row_tile_stamps"
     _row_tile_checks(a, q, p, tables, h, outer, what)
-    stamps = _stamps(a, "row", what, _row_tile_resident(a.device, q))
+    blocks = _row_tile_resident(a.device, q) * (2 if q == PAIR_Q else 1)
+    stamps = _stamps(a, "row", what, blocks)
     y = _row_tile_launch(a, q, p, tables, h, outer, what, stamps)
     return y, stamps[stamps[:, 0] != 0]
 
@@ -673,23 +740,26 @@ def bconv_out_tile_stamps(b: torch.Tensor, p: int, q: int, tables, chirp: torch.
 
 
 def make_bluestein_large_fn(n: int, m: int, direction: FftDirection, dtype,
-                            split: Optional[Tuple[int, int, int]] = None):
+                            split: Optional[Tuple[int, int, int]] = None, general: bool = False):
     """Return fn: complex64 (..., n) -> (..., n): Bluestein through the three
-    kernels at inner m = P * q1 * q2 >= 2n - 1 (split default
-    large.choose_pqq(m))."""
+    kernels at inner m = P * q1 * q2 >= 2n - 1 (split default split(m)):
+    the tile form where tile_form(P, Q) holds, else the general kernels.
+    general=True: the general kernels at `split` (default
+    large.choose_pqq(m)), the form the tile form replaced, which no planner
+    path takes."""
     if np.dtype(dtype) != np.complex64:
         raise ValueError(f"the fused large Bluestein is complex64 only, got {np.dtype(dtype)}")
-    split = split or large.choose_pqq(m)
+    split = split or (large.choose_pqq(m) if general else _k15_split(m))
     if split is None or split[0] * split[1] * split[2] != m:
         raise ValueError(f"no split for the inner length m={m}: {split}")
     p, q = split[0], split[1] * split[2]
-    if not _tiles_fit(p, q):
+    tiled = tile_form(p, q) and not general
+    if not tiled and not _tiles_fit(p, q):
         raise ValueError(f"fused large Bluestein: no tiles for P={p}, Q={q}")
     host = bconv_tables(n, m, p, q, direction)
     roots_p, tws_p, outer = host["col"]
     roots_q, tws_q = host["row"]
     kp, kq = len(roots_p), len(roots_q)
-    tiled = tile_form(p, q)
     h = host["h"]
     bconv_outer = outer
     if tiled:  # B_conv's chain and tables as columns

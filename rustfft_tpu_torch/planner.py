@@ -186,14 +186,28 @@ def routed_bluestein_inner(length: int, dtype) -> Optional[int]:
     torch.fft's time.  746497 -> 1572864 (K15's tile form at Q = 6144),
     88589 -> 262144 (the cluster passes at r = 16).  The planner takes it
     for the primes whose inner runs K14's four stages (prime_rule_inner)."""
-    from . import executor
-
-    return next((m for m in _smooth_inner_candidates(length)
-                 if executor.core_form("bluestein", m, dtype) in FAST_FORMS), None)
+    return next((m for m in _smooth_inner_candidates(length) if _routed_core(m, dtype)), None)
 
 
 #: the core forms routed_bluestein_inner takes (executor.CORE_FORMS)
 FAST_FORMS = ("K15 tile form", "K14 cluster passes")
+
+#: the Q of K15's tile form (m = 256 * Q) that the prime rule and the
+#: composite rule were measured on and take; the tile form's later Q (144 ..
+#: 1296, 12288, 24576) run the Bluesteins the planner already gives those
+#: inner lengths and draw no prime or composite from another recipe
+ROUTED_TILE_Q = (1536, 1728, 2048, 2304, 3072, 4096, 6144, 8192)
+
+
+def _routed_core(m: int, dtype) -> bool:
+    """A Bluestein of inner length m runs a core routed_bluestein_inner
+    takes: a FAST_FORMS form, K15's tile form only at ROUTED_TILE_Q."""
+    from . import executor
+
+    form = executor.core_form("bluestein", m, dtype)
+    if form == FAST_FORMS[0]:
+        return m % 256 == 0 and m // 256 in ROUTED_TILE_Q
+    return form in FAST_FORMS
 
 
 def prime_rule_inner(length: int, recipe: recipes.Recipe, dtype) -> Optional[int]:

@@ -8,19 +8,23 @@ the core's source and sink (csrc/conv_pad.cu, csrc/conv_pad_row.cu):
 tiles of largepad.tile(P) and largepad.tile(Q) columns whatever divides the
 other axis, the last one ragged, each column tile with its own partial sum
 of the raw input.  K15 (ops/kernels/convlarge.py): the tile form at P = 256
-and Q in COLUMN_FORMS (1536 .. 6144 besides 8192), B_conv on
-csrc/bconv_cols.cu.  On the CPU every wrapper runs its plain version: those
-are held against the plain compositions of the old kernels (large.py's
-chains, K15's general stages), the JAX kernels in Pallas interpret mode
-where the JAX kernel takes the split, and the f64 oracle, to 1e-5 relative
-(two f32 algorithms differ by a few 1e-7).  Tests marked `cuda` hold each
+and Q in COLUMN_FORMS (144 .. 1296, 1536 .. 6144 and 12288 besides 8192,
+B_conv on csrc/bconv_cols.cu and csrc/bconv_cols_small.cu; 24576 on a
+cluster of two blocks, csrc/bconv_pair.cu) at convlarge.split's split.  On
+the CPU every wrapper runs its plain version: those are held against the
+plain compositions of the old kernels (large.py's chains, K15's general
+stages), the JAX kernels in Pallas interpret mode where the JAX kernel
+takes the split (above 2^20 the JAX planner's plan, which glues), and the
+f64 oracle, to 1e-5 relative (two f32 algorithms differ by a few 1e-7).  Tests marked `cuda` hold each
 new form against its plain version on the card to 1e-6 relative and skip
 without one.
 """
+import jax
 import numpy as np
 import pytest
 import torch
 
+import rustfft_tpu
 from rustfft_tpu.common import FftDirection as RefDirection
 from rustfft_tpu.ops import bluestein as ref_bluestein
 from rustfft_tpu.ops import raders as ref_raders
@@ -46,10 +50,14 @@ ON_CARD = 1e-6
 RADER_SMALL = (17011, 15121)
 BLUE_SMALL = ((8209, 17496),)
 
-#: the tile form's new Q, each with the smallest prime of [98000, 2^20]
-#: whose Bluestein inner m = 256 Q the planner takes
-K15_NEW = {1536: 165901, 1728: 209959, 2048: 221197, 2304: 262147, 3072: 294919,
-           4096: 393241, 6144: 524309}
+#: the tile form's Q beside 8192, each with the smallest prime of [98000,
+#: 2^20] whose Bluestein inner m = 256 Q the planner takes (1536 .. 6144),
+#: the smallest prime of [8192, 2^20] on that inner (144 .. 1296), and the
+#: smallest prime of (2^20, 2^22] on it (12288, 24576)
+K15_NEW = {144: 17509, 192: 23333, 288: 35023, 384: 46663, 432: 52501, 576: 69991,
+           768: 93319, 864: 104987, 1152: 139981, 1296: 157477,
+           1536: 165901, 1728: 209959, 2048: 221197, 2304: 262147, 3072: 294919,
+           4096: 393241, 6144: 524309, 12288: 1048583, 24576: 2097169}
 
 
 def _signal(batch, n, seed):
@@ -315,14 +323,17 @@ def test_planner_paths_take_the_ragged_stages(n, monkeypatch):
 @pytest.mark.parametrize("q", sorted(convlarge.COLUMN_FORMS))
 def test_column_forms_positions_and_tables(q):
     """Each form's chain: register radices whose product is Q, W_0 a
-    multiple of 16, two blocks an SM; bconv_positions against a numpy
-    construction (the chain's digits as a C-order array, read in Fortran
-    order); bconv_h_table the spectrum in those positions; the tables'
-    shapes."""
+    multiple of 16, two blocks an SM (at PAIR_Q each block of the pair holds
+    half a column); bconv_positions against a numpy construction (the
+    chain's digits as a C-order array, read in Fortran order); bconv_h_table
+    the spectrum in those positions; the tables' shapes."""
     chain, width = convlarge.COLUMN_FORMS[q]
-    assert int(np.prod(chain)) == q and (q // chain[0]) % 16 == 0
-    assert all(r in (2, 3, 6, 8, 9, 12, 16) for r in chain) and 2 <= len(chain) + 1 <= 5
-    assert 2 * (8 * (q * width + sum(chain)) + 1024) <= 233472
+    blocks = 2 if q == convlarge.PAIR_Q else 1
+    assert int(np.prod(chain)) == q and (q // chain[0] // blocks) % 16 == 0
+    assert all(r in (2, 3, 6, 8, 9, 12, 16) for r in chain)
+    assert 2 <= len(chain) <= (5 if q == convlarge.PAIR_Q else 4)
+    held = q * width // blocks  # the values a block holds
+    assert 2 * (8 * (held + sum(chain)) + 1024) <= 233472
     assert 256 % width == 0
     pos_of_k = np.arange(q).reshape(chain).reshape(-1, order="F")
     assert np.array_equal(convlarge.bconv_positions(q), np.argsort(pos_of_k))
@@ -334,6 +345,21 @@ def test_column_forms_positions_and_tables(q):
     root_shapes, tw_shapes = convlarge.chain_table_shapes(q)
     assert [r.shape for r in roots] == root_shapes
     assert [t.shape for t in tws] == tw_shapes
+
+
+def test_column_forms_take_the_general_forms_inner_lengths():
+    """The forms cover every Q the planner gives a prime of [8192, 2^22] on
+    K15 at P = 256 (tools/torch_prime_cores.py: the ten Q of 144 .. 1296
+    below 2^20, 12288 and 24576 above it), and each first stage's columns
+    fill whole warps with W_0 a multiple of 16 (csrc/bconv_cols.cuh
+    bcg_stage's kLanded stage)."""
+    assert {144, 192, 288, 384, 432, 576, 768, 864, 1152, 1296, 12288, 24576} <= set(
+        convlarge.COLUMN_FORMS)
+    for q, (chain, width) in convlarge.COLUMN_FORMS.items():
+        if q == convlarge.PAIR_Q:  # the pair's halves run the 12288 chain after the cross stage
+            assert chain[0] == 2 and convlarge.COLUMN_FORMS[q // 2][0] == chain[1:]
+            continue
+        assert (width * q // chain[0]) % 32 == 0, q
 
 
 def _stage_np(v, r, w, roots, tw, by_hi):
@@ -377,6 +403,58 @@ def test_column_chains_in_place_equal_the_transform(q, d, rd):
     assert _rel(v, want) <= TOL
 
 
+@pytest.mark.parametrize("d,rd", DIRECTIONS, ids=DIR_IDS)
+def test_pair_form_chains_equal_the_transform(d, rd):
+    """The Q = 24576 form as csrc/bconv_pair.cu runs it on a cluster of two
+    blocks, each holding half a column (12288 values), simulated in numpy
+    from the host tables: chain 1's radix 2 across the halves (place e of
+    both halves to the sum and the twiddled difference), each half's
+    chain (3, 16, 16, 16) on the Q = 12288 form's digits with chain 1's
+    twiddles, conj(. * h) with each half's slice of h in position order,
+    chain 2 on each half with its twiddle columns offset by the half
+    (hi0 = half * REST / 2), and the radix 2 across the halves again;
+    against the natural-order FFT_Q(conj(FFT_Q(x) * H))."""
+    q = convlarge.PAIR_Q
+    half = q // 2
+    chain = convlarge.column_chain(q)
+    roots, tws = convlarge.bconv_chain_tables(d, q)
+    roots = [np.asarray(r, dtype=np.complex128) for r in roots]
+    tws = [np.asarray(t, dtype=np.complex128) for t in tws]
+    tw1, tw2 = tws[:4], tws[4:]
+    x = _signal(1, q, seed=7)[0].astype(np.complex128)
+    h = _signal(1, q, seed=8)[0].astype(np.complex128)
+    h_pos = h[convlarge.bconv_positions(q)]
+    # chain 1's first stage across the pair, then each half on its own
+    a, b = x[:half], x[half:]
+    halves = [a + b, (a - b) * tw1[0][1]]
+    sub = chain[1:]
+    weights = convlarge._weights(sub)
+    for rank in range(2):
+        v = halves[rank]
+        for s, r in enumerate(sub):
+            last = s == len(sub) - 1
+            v = _stage_np(v, r, weights[s], roots[s + 1], None if last else tw1[s + 1], False)
+        v = np.conj(v * h_pos[rank * half:(rank + 1) * half])
+        # chain 2 on the half: the radices reversed, every stage twiddled;
+        # the columns by the digits above the stage, the half's among them
+        for t in range(len(sub)):
+            s = len(sub) - 1 - t
+            rest = int(np.prod(chain[: s + 1]))  # the full chain's digits below it
+            table = tw2[t][:, rank * (rest // 2):(rank + 1) * (rest // 2)]
+            v = _stage_np(v, sub[s], weights[s], roots[s + 1], table, True)
+        halves[rank] = v
+    a, b = halves
+    v = np.concatenate([a + b, a - b])
+
+    def fft(u):  # the f64 transform in the chains' direction, unnormalized
+        return np.fft.fft(u) if d is FftDirection.FORWARD else np.fft.ifft(u) * q
+
+    want = fft(np.conj(fft(x) * h))
+    assert _rel(v, want) <= TOL
+    # the same positions the in-place chains of the other forms leave
+    assert np.array_equal(convlarge.bconv_positions(q)[:half] % 2, np.zeros(half, np.int64))
+
+
 def _k15_host(n, q, d, device="cpu"):
     m = 256 * q
     host = convlarge.bconv_tables(n, m, 256, q, d)
@@ -391,15 +469,18 @@ def _k15_host(n, q, d, device="cpu"):
 
 @pytest.mark.parametrize("q", sorted(set(convlarge.COLUMN_FORMS) - {convlarge.TILE_Q}))
 def test_tile_form_rule_takes_the_new_q(q):
-    """The seven Q below 8192 at P = 256 are the tile form; Q below 1536
-    (24571 at Q = 192) and other P are not; bconv_supported and the split
-    are the parent's."""
+    """Every Q of COLUMN_FORMS but 8192 at P = 256 is the tile form, at
+    convlarge.split's split (large.choose_pqq's but at 3*2^21, where
+    choose_pqq took P = 512); other P and Q are not; bconv_supported holds
+    and the planner gives the prime that inner length."""
     n = K15_NEW[q]
     m = 256 * q
-    assert large.choose_pqq(m)[0] == 256
+    assert convlarge.split(m)[0] == 256 and int(np.prod(convlarge.split(m))) == m
+    assert convlarge.split(m) == large.choose_pqq(m) or q == convlarge.PAIR_Q
     assert convlarge.bconv_supported(m, np.complex64)
     assert convlarge.tile_form(256, q)
-    assert not convlarge.tile_form(256, 192) and not convlarge.tile_form(243, q)
+    assert not convlarge.tile_form(256, 200) and not convlarge.tile_form(243, q)
+    assert executor.core_form("bluestein", m, np.complex64) == "K15 tile form"
     from rustfft_tpu_torch import recipes
     from rustfft_tpu_torch.planner import FftPlannerGpu
 
@@ -429,25 +510,35 @@ def test_tile_form_plain_equals_general_plain(q):
 @pytest.mark.parametrize("q", sorted(set(convlarge.COLUMN_FORMS) - {convlarge.TILE_Q}))
 def test_tile_form_matches_jax_and_oracle(q):
     """The path's function at each new Q (the planner's prime) on one row
-    against the JAX fused large Bluestein in interpret mode (the same split,
-    P = 256) and the oracle, the forward direction at three Q and the
-    inverse at the others."""
+    against the JAX package and the oracle, the forward direction at some Q
+    and the inverse at the others: up to 2^20 the JAX fused large Bluestein
+    in interpret mode at the port's split (P = 256; the JAX choose_pqq has
+    none at five of the Q below 1536) in full f32 precision; at 3*2^20 and
+    3*2^21, where the JAX executor glues, the JAX planner's plan for the
+    prime."""
     n = K15_NEW[q]
     m = 256 * q
-    d, rd = DIRECTIONS[0] if q in (1536, 3072, 6144, 1728) else DIRECTIONS[1]
+    forward = q in (1536, 3072, 6144, 1728, 144, 288, 432, 768, 1152, 12288)
+    d, rd = DIRECTIONS[0] if forward else DIRECTIONS[1]
     x = _signal(1, n, seed=n)
     got = convlarge.make_bluestein_large_fn(n, m, d, np.complex64)(torch.from_numpy(x)).numpy()
-    ref = _jax_out(ref_convlarge.make_bluestein_large_fn(n, m, rd, np.complex64,
-                                                         interpret=True), x)
+    if m <= 1 << 20:
+        ref = _jax_out(ref_convlarge.make_bluestein_large_fn(
+            n, m, rd, np.complex64, split=convlarge.split(m), interpret=True,
+            precision=jax.lax.Precision.HIGHEST), x)
+    else:
+        ref = np.asarray(rustfft_tpu.FftPlanner(np.complex64).plan_fft(n, rd).process(x))
     assert _rel(got, ref) <= TOL
     assert _rel(got, host_dft(x, d)) <= TOL
 
 
 def test_small_q_keeps_the_general_kernels(monkeypatch):
-    """By convlarge's rule, Q below 1536 (24571, Q = 192) keeps the general
-    kernels: kernel A is conv_col_stage on csrc/large.cuh (general=True,
-    dividing tiles), whose plain version equals the ragged form's on the
-    same values, then bconv_row_stage and bconv_out_stage."""
+    """The general kernels stay, on no planner path: the tile form takes
+    24571 (Q = 192) by default, and make_bluestein_large_fn(general=True)
+    reaches the general kernels at large.choose_pqq's split: kernel A is
+    conv_col_stage on csrc/large.cuh (general=True, dividing tiles), whose
+    plain version equals the ragged form's on the same values, then
+    bconv_row_stage and bconv_out_stage."""
     calls = []
     real = conv_radix.conv_col_stage
 
@@ -459,12 +550,15 @@ def test_small_q_keeps_the_general_kernels(monkeypatch):
     n, m = 24571, 49152
     d = FftDirection.FORWARD
     x = _signal(2, n, seed=24)
-    got = convlarge.make_bluestein_large_fn(n, m, d, np.complex64)(torch.from_numpy(x))
+    tiled = convlarge.make_bluestein_large_fn(n, m, d, np.complex64)(torch.from_numpy(x))
+    assert calls == []
+    got = convlarge.make_bluestein_large_fn(n, m, d, np.complex64, general=True)(
+        torch.from_numpy(x))
     assert calls == [True]
-    assert _rel(got, host_dft(x, d)) <= TOL
+    assert _rel(got, host_dft(x, d)) <= TOL and _rel(tiled, host_dft(x, d)) <= TOL
     p, q1, q2 = large.choose_pqq(m)
     q = q1 * q2
-    assert (p, q) == (256, 192) and not convlarge.tile_form(p, q)
+    assert (p, q) == (256, 192) and convlarge.tile_form(p, q)
     host = convlarge.bconv_tables(n, m, p, q, d)
     col = (_on(host["col"][0]), _on(host["col"][1]), _on(host["col"][2]))
     pre = _on(host["pre"])
@@ -476,6 +570,56 @@ def test_small_q_keeps_the_general_kernels(monkeypatch):
     assert part_g.shape == (2, q // conv_radix.col_tile(p, q))
     assert part_r.shape == (2, conv_radix.tiles(p, q))
     assert _rel(part_g.sum(dim=1), part_r.sum(dim=1)) <= TOL
+
+
+@pytest.mark.parametrize("n,m", [(1048583, 3 << 20), (2097169, 3 << 21)])
+def test_general_form_above_2_20_at_its_split(n, m):
+    """Above 2^20 the general form keeps large.choose_pqq's split (P = 256
+    at 3*2^20, P = 512 at 3*2^21, which the tile form's split leaves): its
+    plain path at that split equals the tile form's on the same row, and
+    both the oracle."""
+    d = FftDirection.INVERSE
+    x = _signal(1, n, seed=n + 1)
+    tiled = convlarge.make_bluestein_large_fn(n, m, d, np.complex64)(torch.from_numpy(x))
+    general = convlarge.make_bluestein_large_fn(n, m, d, np.complex64, general=True)(
+        torch.from_numpy(x))
+    assert large.choose_pqq(m)[0] == (512 if m == 3 << 21 else 256)
+    assert _rel(general, tiled.numpy()) <= TOL
+    assert _rel(tiled, host_dft(x, d)) <= TOL
+
+
+def test_split_takes_p_256_where_b_conv_has_a_form():
+    """convlarge.split: P = 256 with the most balanced q1 x q2 wherever m /
+    256 is one of COLUMN_FORMS (3*2^21: P = 256 x Q = 24576, where
+    large.choose_pqq takes P = 512 x Q = 12288), large.choose_pqq(m)
+    elsewhere (2^22: 512 x 8192; 2^20 * 9: no form); bconv_supported and
+    executor.core_form read it."""
+    assert large.choose_pqq(3 << 21)[0] == 512
+    assert convlarge.split(3 << 21) == (256, 128, 192)
+    assert convlarge.split(3 << 20) == large.choose_pqq(3 << 20) == (256, 96, 128)
+    for m in (1 << 22, 9 << 20, 49152 * 3):
+        assert convlarge.split(m) == large.choose_pqq(m), m
+    assert convlarge.bconv_supported(3 << 21, np.complex64)
+    assert executor.core_form("bluestein", 3 << 21, np.complex64) == "K15 tile form"
+    assert executor.core_form("bluestein", 3 << 21, np.complex64, core_rule=False) == \
+        "K15 tile form"
+
+
+def test_prime_rule_keeps_its_measured_tile_q():
+    """The Q the tile form took in this slice serve the Bluesteins the
+    planner already gave them: the prime rule's and the composite rule's
+    inner (planner.routed_bluestein_inner) takes the tile form only at the Q
+    they were measured on (planner.ROUTED_TILE_Q), so a Rader on K14's four
+    stages keeps its move onto the cluster passes (17011 -> 65536, not
+    36864 on the tile form) and the Bluesteins above 2^20 keep theirs."""
+    from rustfft_tpu_torch import planner as port_planner
+
+    assert executor.core_form("bluestein", 36864, np.complex64) == "K15 tile form"
+    assert port_planner.routed_bluestein_inner(17011, np.complex64) == 65536
+    recipe = FftPlannerGpu(np.complex64, device="cpu")._design_prime(17011)
+    assert recipe.inner.length == 65536
+    assert set(port_planner.ROUTED_TILE_Q) < set(convlarge.COLUMN_FORMS)
+    assert port_planner.routed_bluestein_inner(1048583, np.complex64) is None
 
 
 def test_tile_wrappers_check_the_column_form():
@@ -591,7 +735,10 @@ def test_column_forms_match_plain_on_card(cuda_device, q, batch):
     (88589, {"conv_col_stage": 2, "conv_row_stage": 2}),
     (524309, {"bconv_col_tile": 1, "bconv_row_tile": 1, "bconv_out_tile": 1}),
     (165901, {"bconv_col_tile": 1, "bconv_row_tile": 1, "bconv_out_tile": 1}),
-    (24571, {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}),
+    (24571, {"bconv_col_tile": 1, "bconv_row_tile": 1, "bconv_out_tile": 1}),
+    (1048583, {"bconv_col_tile": 1, "bconv_row_tile": 1, "bconv_out_tile": 1}),
+    (2097169, {"bconv_col_tile": 1, "bconv_row_tile": 1, "bconv_out_tile": 1}),
+    ("24571 general", {"conv_col_stage": 1, "bconv_row_stage": 1, "bconv_out_stage": 1}),
 ])
 def test_general_paths_launch_their_forms_on_card(cuda_device, n, rises):
     counters = {"bconv_col_tile": convlarge.bconv_col_tile,
@@ -603,13 +750,20 @@ def test_general_paths_launch_their_forms_on_card(cuda_device, n, rises):
                 "conv_col_stage": conv_radix.conv_col_stage,
                 "conv_row_stage": conv_radix.conv_row_stage}
     planner = FftPlanner(np.complex64, device="cuda")
+    general = isinstance(n, str)  # the general form through the keyword, on no planner path
+    n = int(n.split()[0]) if general else n
     x = _signal(2, n, seed=n)
     for d, _ in DIRECTIONS:
         plan = planner.plan_fft(n, d)
+        process = plan.process
         if rises.get("conv_col_stage") == 2:  # K14's four stages: the prime rule's old recipe
-            plan = FftPlan(FftPlannerGpu(np.complex64)._conv_prime_recipe(n), d, np.complex64)
+            process = FftPlan(FftPlannerGpu(np.complex64)._conv_prime_recipe(n), d,
+                              np.complex64).process
+        if general:
+            process = convlarge.make_bluestein_large_fn(n, plan.recipe.inner.length, d,
+                                                        np.complex64, general=True)
         before = {k: c.launches for k, c in counters.items()}
-        got = plan.process(torch.from_numpy(x).to(cuda_device))
+        got = process(torch.from_numpy(x).to(cuda_device))
         torch.cuda.synchronize()
         assert {k: c.launches - before[k] for k, c in counters.items()} == \
             {k: rises.get(k, 0) for k in counters}

@@ -26,7 +26,7 @@ path).
       Bluesteins on 2^22 run the glued form (its inner on large2f) in
       place of K14's four stages, 2.41-2.51x faster at all 10 primes
       timed; the Raders on n - 1 in (2^20, 2^22] keep the four stages and
-      the Bluesteins on 3*2^20 and 3*2^21 K15's general form, each faster
+      the Bluesteins on 3*2^20 and 3*2^21 K15's tile form, each faster
       than the glued form at all 10 of its class.
 Each decision is checked as recipes and routes, the hole band's inner
 against the JAX planner's _radix_conv_inner, the outputs against the JAX
@@ -178,12 +178,23 @@ R4_TABLE = (
     (27137, "held2", 55296, "b", 65536, "b"), (29069, "held2", 59049, "b", 65536, "b"), (26653, "held2", 55296, "b", 65536, "b"),
     (151675, "held2", 314928, "b", 393216, "b"), (87355, "held2", 177147, "b", 262144, "b"), (156345, "held2", 314928, "b", 393216, "b"),
     (8258, "held2", 17496, "b", 32768, "b"), (119348, "held2", 248832, "b", 262144, "b"),
+    (87545, "fit3", 177147, "s", 5, "b=s"), (87595, "fit3", 177147, "s", 5, "b=s"),
+    (87695, "fit3", 177147, "s", 5, "b=s"), (87755, "fit3", 177147, "s", 5, "b=s"),
+    (116665, "fit3", 236196, "b", 262144, "b"), (122855, "fit3", 248832, "b", 262144, "b"),
+    (139863, "held3", 279936, "s", 69, "s"), (12521, "held3", 26244, "s", 19, "s"),
+    (137615, "held3", 279936, "s", 85, "s"), (67659, "held3", 139968, "s", 57, "s"),
+    (136441, "held3", 279936, "s", 47, "s"), (39944, "held3", 82944, "b", 131072, "b"),
+    (198674, "held3", 419904, "b", 442368, "b"), (197334, "held3", 419904, "b", 442368, "b"),
+    (151136, "held3", 314928, "b", 393216, "b"), (88514, "held3", 177147, "b", 262144, "b"),
 )
 
 #: R4's sizes where the rule does not take a way the card measured fastest
 #: ("held2": the second held-out draw, made after the cost tables were in
-#: code, leaving out the sizes they were measured at)
-R4_MISSES = {"fit": set(), "held": set(), "held2": set()}
+#: code, leaving out the sizes they were measured at; "fit3" and "held3":
+#: after the tables were refit where K15's tile form took the halves on
+#: 36864 and 49152, the composites whose way moved and two that kept it,
+#: and a third held-out draw, seed 20261027)
+R4_MISSES = {"fit": set(), "held": set(), "held2": set(), "fit3": set(), "held3": set()}
 
 #: the JAX package's hole-band settings (rustfft_tpu/config.py:183-185)
 JAX_BAND = dict(bconv_misaligned=True, bconv_misaligned_min_n=8192,
@@ -333,7 +344,7 @@ def test_dense_band_sizes():
     assert band[0] == 257 and band[-1] == 2042
 
 
-@pytest.mark.parametrize("rule_set", ["fit", "held", "held2"])
+@pytest.mark.parametrize("rule_set", ["fit", "held", "held2", "fit3", "held3"])
 def test_composite_rule_takes_the_faster_way(rule_set):
     """R4 is on: at every sampled and held-out composite the recipe of the
     awkward-composite rules ran K14's four stages, no route serves n, and
@@ -344,7 +355,7 @@ def test_composite_rule_takes_the_faster_way(rule_set):
     faster, or level, at every size but R4_MISSES."""
     planner = FftPlannerGpu(C64, device="cpu")
     rows = _rows(R4_TABLE, rule_set)
-    assert len(rows) >= {"fit": 40, "held": 10, "held2": 20}[rule_set]
+    assert len(rows) >= {"fit": 40, "held": 10, "held2": 20, "fit3": 6, "held3": 10}[rule_set]
     misses = set()
     for n, _, m_old, way, value, faster in rows:
         old = planner._conv_composite_recipe(n)
@@ -564,7 +575,10 @@ def test_composite_rule_paths_match_jax_and_oracle(n, direction, ref_pallas):
 
 #: R5: (n, set, class, the core's ms without the rule, the glued form's ms
 #: (queued device time; None for B23, glued either way), the faster way by
-#: more than the spread of the turns: "new" the glued form, "old" the core)
+#: more than the spread of the turns: "new" the glued form, "old" the core).
+#: B3a's and B3b's are the rerun with their core on K15's tile form
+#: (PLANNER_RULES_GPU.md's second R5 table); the general form before it ran
+#: 13.42-13.65 and 17.04-17.59 ms against the same glued form)
 R5_TABLE = (
     (1572869, "fit", "B22", 18.754, 7.460, "new"), (1677089, "fit", "B22", 18.843, 7.560, "new"),
     (1781851, "fit", "B22", 19.028, 7.652, "new"), (1886173, "fit", "B22", 19.082, 7.752, "new"),
@@ -576,19 +590,19 @@ R5_TABLE = (
     (3342223, "fit", "R4S", 14.871, 15.522, "old"), (4193377, "fit", "R4S", 20.006, 20.910, "old"),
     (1074061, "held", "R4S", 6.140, 6.667, "old"), (1088641, "held", "R4S", 5.905, 6.312, "old"),
     (1947457, "held", "R4S", 11.517, 13.391, "old"), (2184001, "held", "R4S", 7.862, 8.492, "old"),
-    (1048583, "fit", "B3a", 13.420, 14.876, "old"), (1152517, "fit", "B3a", 13.461, 14.983, "old"),
-    (1256821, "fit", "B3a", 13.524, 15.061, "old"), (1361699, "fit", "B3a", 13.551, 15.145, "old"),
-    (1466741, "fit", "B3a", 13.607, 15.253, "old"), (1572853, "fit", "B3a", 13.648, 15.389, "old"),
-    (1226959, "held", "B3a", 13.502, 15.026, "old"),
-    (1378439, "held", "B3a", 13.560, 15.175, "old"),
-    (1447217, "held", "B3a", 13.600, 15.264, "old"),
-    (1556083, "held", "B3a", 13.640, 15.353, "old"), (2097169, "fit", "B3b", 17.045, 21.915, "old"),
-    (2304283, "fit", "B3b", 17.150, 22.001, "old"), (2513617, "fit", "B3b", 17.255, 22.080, "old"),
-    (2722877, "fit", "B3b", 17.372, 22.153, "old"), (2933803, "fit", "B3b", 17.482, 22.257, "old"),
-    (3145721, "fit", "B3b", 17.592, 22.349, "old"), (2370223, "held", "B3b", 17.197, 22.004, "old"),
-    (2378197, "held", "B3b", 17.220, 22.020, "old"),
-    (2710177, "held", "B3b", 17.380, 22.174, "old"),
-    (2816839, "held", "B3b", 17.453, 22.229, "old"), (3145739, "fit", "B23", 7.640, None, "old"),
+    (1048583, "fit", "B3a", 3.004, 14.858, "old"), (1152517, "fit", "B3a", 3.018, 14.939, "old"),
+    (1256821, "fit", "B3a", 3.123, 15.018, "old"), (1361699, "fit", "B3a", 3.132, 15.146, "old"),
+    (1466741, "fit", "B3a", 3.195, 15.256, "old"), (1572853, "fit", "B3a", 3.232, 15.389, "old"),
+    (1226959, "held", "B3a", 3.116, 15.047, "old"),
+    (1378439, "held", "B3a", 3.180, 15.190, "old"),
+    (1447217, "held", "B3a", 3.232, 15.265, "old"),
+    (1556083, "held", "B3a", 3.263, 15.381, "old"), (2097169, "fit", "B3b", 3.791, 21.901, "old"),
+    (2304283, "fit", "B3b", 3.852, 21.987, "old"), (2513617, "fit", "B3b", 3.902, 22.099, "old"),
+    (2722877, "fit", "B3b", 3.954, 22.161, "old"), (2933803, "fit", "B3b", 4.015, 22.262, "old"),
+    (3145721, "fit", "B3b", 4.061, 22.353, "old"), (2370223, "held", "B3b", 3.862, 22.018, "old"),
+    (2378197, "held", "B3b", 3.864, 22.025, "old"),
+    (2710177, "held", "B3b", 3.947, 22.162, "old"),
+    (2816839, "held", "B3b", 3.972, 22.214, "old"), (3145739, "fit", "B23", 7.640, None, "old"),
     (3353209, "fit", "B23", 7.726, None, "old"), (3563479, "fit", "B23", 7.817, None, "old"),
     (3772753, "fit", "B23", 7.912, None, "old"), (3983009, "fit", "B23", 7.998, None, "old"),
     (4194301, "fit", "B23", 8.096, None, "old"), (3474161, "held", "B23", 7.784, None, "old"),
@@ -600,8 +614,8 @@ R5_TABLE = (
 #: one prime); B23's Bluestein on 2^23 is glued either way
 R5_CLASSES = {"B22": ("bluestein", "K14 four stages", 1572869),
               "R4S": ("rader", "K14 four stages", 1051009),
-              "B3a": ("bluestein", "K15 general form", 1048583),
-              "B3b": ("bluestein", "K15 general form", 2097169),
+              "B3a": ("bluestein", "K15 tile form", 1048583),
+              "B3b": ("bluestein", "K15 tile form", 2097169),
               "B23": ("bluestein", "glued form", 4194301)}
 
 
@@ -650,7 +664,7 @@ def test_core_form_of_each_class(cls):
     glued = "rustfft_tpu_torch.ops." + ("raders" if kind == "rader" else "bluestein")
     fn = executor.build(recipe, FftDirection.FORWARD, C64)
     assert (fn.__module__ == glued) == (form == "glued form")
-    if before == "K15 general form":
+    if before == "K15 tile form":
         assert fn.__module__ == "rustfft_tpu_torch.ops.kernels.convlarge"
     if form != before:
         old = executor.build(recipe, FftDirection.FORWARD, C64, core_rule=False)
@@ -671,7 +685,7 @@ def test_core_rule_recipes_match_jax():
 
 #: one prime of each class R5 decided and a direction (both directions over
 #: the four): B22's glued form, R4S's four stages, B3a's and B3b's K15
-#: general form
+#: tile form
 R5_OUTPUT_CASES = (("B22", "forward"), ("R4S", "inverse"), ("B3a", "inverse"), ("B3b", "forward"))
 
 

@@ -95,8 +95,16 @@ def test_form_sizes_take_their_core_form(form):
     rader_in_shift does (its Rader core keeps them,
     conv_radix.cluster_form); the composites they served take the
     composite rule's ways, and R5_REPLACED's check at 1572869 runs them
-    (executor.build(core_rule=False))."""
+    (executor.build(core_rule=False)).  K15's general form: no prime since
+    the tile form took every Q the planner gives a prime of [8192, 2^22]
+    (24571, 1048583 and 2097169 among them); its kernels stay, reached by
+    convlarge.make_bluestein_large_fn(general=True)."""
     sizes = torch_accuracy.FORM_SIZES[form]
+    if form == "K15 general form":
+        assert sizes == ()
+        for n in (24571, 1048583, 2097169):
+            assert form_of(n) == (None, "K15 tile form"), n
+        return
     assert sizes, form
     for n in sizes:
         assert math_utils.is_prime(n), n
@@ -139,7 +147,7 @@ def test_default_checks_cover_every_route_and_core_form():
     routes = {route(n, C64) for n in sizes}
     assert routes == set(route_values()), routes
     forms = {form_of(n)[1] for n in sizes} - {""}
-    assert forms == set(executor.CORE_FORMS), forms
+    assert forms == set(executor.CORE_FORMS) - {"K15 general form"}, forms
     # the four stages also on a switched check (65537 under rader_in_shift)
     # and on the check of the core R5 replaced
     switched = {(c.n, c.switches) for c in checks if c.switches}
@@ -528,6 +536,37 @@ def test_planner_rules_fit_writes_the_tables(tmp_path, capsys):
     assert module["split_ns"](9, 8199, "bluestein", 2048) == 9 * 23.0 + 8199 * 27.5 / 1e3
     assert module["split_ns"](5, 8199, "bluestein", 2048) is None
     assert "NVIDIA H100 80GB HBM3, 700.00 W" in captured.out
+
+
+def test_planner_rules_fit_takes_a_later_record_of_an_inner_length(tmp_path, capsys):
+    """--fit COSTS COSTS2 GLUE: a later costs record's half samples of a
+    (kind, inner length) replace the earlier record's (a sweep of the
+    halves whose core changed); its Bluesteins' samples are left out, and
+    the other entries stay."""
+    import json
+
+    def cost_row(n, p, m_q, m_a, half_ns, blue_ns, batch=4):
+        return dict(rule="R4 costs", n=n, batch=batch, p=p, q=n // p, kind="bluestein", m_q=m_q,
+                    m_a=m_a, half_queued_ms=p * batch * half_ns * 1e-6,
+                    bluestein_queued_ms=batch * blue_ns * 1e-6, glue_queued_ms=1.0,
+                    split_queued_ms=p * batch * half_ns * 1e-6 + 1.0)
+
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    old = dict(card=card, torch="2.11", rows=[cost_row(90955, 5, 36864, 262144, 2316.3, 4000.0),
+                                              cost_row(8199, 9, 2048, 32768, 23.0, 700.0)])
+    new = dict(card=card, torch="2.11", rows=[cost_row(87545, 5, 36864, 262144, 900.0, 4200.0)])
+    glue = dict(card=card, torch="2.11", rows=[dict(rule="R4 glue", n=8199, batch=4, p=9,
+                                                    glue_queued_ms=1.0)])
+    paths = []
+    for name, record in (("old.json", old), ("new.json", new), ("glue.json", glue)):
+        path = tmp_path / name
+        path.write_text(json.dumps(record))
+        paths.append(str(path))
+    torch_planner_rules.main(["--fit", *paths])
+    module = {}
+    exec(capsys.readouterr().out, module)
+    assert module["CORE_NS"] == {("bluestein", 2048): 23.0, ("bluestein", 32768): 700.0,
+                                 ("bluestein", 36864): 900.0, ("bluestein", 262144): 4000.0}
 
 
 # ---- tools/torch_autotune.py ----

@@ -52,11 +52,13 @@ full_out) and the plain core at 512 x 65536, the gather probe where the
 checkout has it (`conv_radix.gather_probe`: 8-byte reads and writes at the
 65537 Rader permutation against a streaming copy), the paths 65537 x 512,
 7919 x 4096 and 746497 x 64 with torch.fft, and K9's band as in K9; and,
-for the paths K15_GENERAL (524309 x 64, 393241 x 64, 294919 x 128) and
-K14_FOUR (746497 x 64, 196613 x 256, 88589 x 512), each launch of the
-path's core alone on the inputs the path gave it (recorded through the
-RECORDED wrappers: K15's kernel A, B_conv and A2 in whichever form the
-checkout runs; K14's col1, row1, col2, row2, on the recipe the prime rule
+for the paths K15_GENERAL (524309 x 64, 393241 x 64, 294919 x 128,
+1048583 x 32, 2097169 x 16, 24571 x 2048, 161659 x 256) and K14_FOUR
+(746497 x 64, 196613 x 256, 88589 x 512), each launch of the path's core
+alone on the inputs the path gave it (recorded through the RECORDED
+wrappers: K15's kernel A, B_conv and A2 in whichever form the checkout
+runs, and where the checkout has it the general form on the same input,
+"K15 general"; K14's col1, row1, col2, row2, on the recipe the prime rule
 replaces where the checkout has one), the path and torch.fft.
 And K5's product (`dense_fft`, the block form) at
 each prime of the dense route below 29 (K5_PRODUCT, about 384 MiB each)
@@ -159,12 +161,17 @@ K15_PATHS = ((1000003, 64), (24571, 2048))
 K14_PATHS = ((65537, 512), (7919, 4096), (746497, 64))
 
 #: the paths whose kernels are timed one by one, each launch alone on the
-#: inputs the path gave it (recorded): K15 at the general form's most
-#: common inner lengths (m = 1572864, 2^20, 786432 at P = 256: Q = 6144,
-#: 4096, 3072) and K14's four stages (the Rader 746497 at m = 746496 = 256
-#: x 2916, the Bluesteins 196613 at m = 419904 = 243 x 1728 and 88589 at
-#: m = 186624 = 256 x 729)
-K15_GENERAL = ((524309, 64), (393241, 64), (294919, 128))
+#: inputs the path gave it (recorded): K15 at the tile form's most common
+#: inner lengths below 2^21 (m = 1572864, 2^20, 786432 at P = 256: Q =
+#: 6144, 4096, 3072), at 3*2^20 and 3*2^21 (1048583 x 32, Q = 12288;
+#: 2097169 x 16, P = 512 x Q = 12288 in the general form, Q = 24576 in
+#: the tile form), 24571 x 2048 (Q = 192) and 161659 x 256 (Q = 1296): in
+#: a checkout whose make_bluestein_large_fn takes `general`, also the
+#: general form on the same input; and K14's four stages (the Rader 746497
+#: at m = 746496 = 256 x 2916, the Bluesteins 196613 at m = 419904 = 243 x
+#: 1728 and 88589 at m = 186624 = 256 x 729)
+K15_GENERAL = ((524309, 64), (393241, 64), (294919, 128), (1048583, 32), (2097169, 16),
+               (24571, 2048), (161659, 256))
 K14_FOUR = ((746497, 64), (196613, 256), (88589, 512))
 
 #: the one-pass convolution core's paths (K13 and K6): the Rader 1009 (m =
@@ -287,11 +294,12 @@ def run_one(root: str, groups=GROUPS) -> dict:
                 setattr(owner, attr, orig)
         return calls
 
-    def kernels_alone(group, n, batch, first=None):
+    def kernels_alone(group, n, batch, first=None, fn=None):
         """Each launch of the path n x batch alone (K14: col and row of pass 1,
         then pass 2; K15: kernel A, B_conv, A2, where `first` names the
         leading column stage; K13: the one-pass core), then the path and
-        torch.fft."""
+        torch.fft; fn(x) in place of the planner's path where given (its
+        time under "<group> path", without torch.fft)."""
         from rustfft_tpu_torch.plan import FftPlan
         from rustfft_tpu_torch.planner import FftPlannerGpu
 
@@ -302,7 +310,8 @@ def run_one(root: str, groups=GROUPS) -> dict:
             # K14's four stages: the recipe the prime rule replaces (trees since it came)
             plan = FftPlan(FftPlannerGpu(np.complex64)._conv_prime_recipe(n),
                            FftDirection.FORWARD, np.complex64)
-        calls = recorded(lambda: plan.process(x))
+        process = fn or plan.process
+        calls = recorded(lambda: process(x))
         seen = {}
         for label, wrapper, args, kw in calls:
             if first is not None and label == "col":
@@ -313,6 +322,10 @@ def run_one(root: str, groups=GROUPS) -> dict:
             if group == "K13":
                 out[f"{key} host us"] = host_us(lambda: wrapper(*args, **kw))
         del calls
+        if fn is not None:  # another form of the path, beside the planner's
+            out[f"{group} path {n}x{batch}"] = ms(lambda: fn(x), reps=15)
+            del x
+            return
         out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
         if group == "K13":  # the device's time a call without the host's, and the host's
             out[f"path {n}x{batch} (queued)"] = queued_ms(lambda: plan.process(x), calls=20)
@@ -417,8 +430,16 @@ def run_one(root: str, groups=GROUPS) -> dict:
             out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
             out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
             del x
+        import inspect
+
+        general = "general" in inspect.signature(convlarge.make_bluestein_large_fn).parameters
         for n, batch in K15_GENERAL:
             kernels_alone("K15", n, batch, first="kernel A")
+            if general:  # the form the tile form replaced, on the same input
+                m = planner.plan_fft_forward(n).recipe.inner.length
+                fn = convlarge.make_bluestein_large_fn(n, m, FftDirection.FORWARD, np.complex64,
+                                                       general=True)
+                kernels_alone("K15 general", n, batch, first="kernel A", fn=fn)
     if "K14" in groups:
         from rustfft_tpu_torch.ops.kernels import conv_radix
         from rustfft_tpu_torch.ops.raders import raders_tables

@@ -81,16 +81,20 @@ ROUTE_SIZES = {
 #: their defaults since the prime rule and the composite rule (65537 under
 #: rader_in_shift, a SWITCHED check, runs them), above it the Raders on n - 1
 #: in (2^20, 2^22] keep them (1051009, m = 1051008), and R5_REPLACED runs
-#: them where R5 took the glued form.  K15's general form at 24571 and at
-#: 1048583 and 2097169 (the Bluesteins on 3*2^20 and 3*2^21).  The glued
-#: form at 4194301 (a Bluestein on 2^23, glued around large2f either way)
-#: and 1572869 (on 2^22, glued around large2f since R5)
+#: them where R5 took the glued form.  K15's tile form also at 24571 (Q =
+#: 192) and at 1048583 and 2097169 (the Bluesteins on 3*2^20 and 3*2^21, Q
+#: = 12288 and 24576), which K15's general form served before the tile form
+#: took every Q the planner gives a prime: no prime reaches the general
+#: form since (convlarge.make_bluestein_large_fn(general=True) does, in
+#: chip_smoke.py).  The glued form at 4194301 (a Bluestein on 2^23, glued
+#: around large2f either way) and 1572869 (on 2^22, glued around large2f
+#: since R5)
 FORM_SIZES = {
     "one-pass core": (257, 2531, 3083),
     "K14 cluster passes": (65521, 131071),
     "K14 four stages": (1051009,),
-    "K15 tile form": (1000003, 524309),
-    "K15 general form": (24571, 1048583, 2097169),
+    "K15 tile form": (1000003, 524309, 24571, 1048583, 2097169),
+    "K15 general form": (),
     "glued form": (4194301, 1572869),
 }
 

@@ -20,9 +20,11 @@ and 16; any n the route sends to radix goes there), and 1048576:64 to
 K2's and K3's persistent tile kernels (any n the route sends to large
 whose split is (256, 64, 64)), any n the route sends to large2f (2^22 ..
 2^25) to K10's cluster kernel (large2f.K10_PHASES), and 1000003:64 to K15's three tile kernels (any
-n whose plan is a Bluestein on the fused large Bluestein's tile form:
-kernel A, B_conv and A2, convlarge.COL_TILE_PHASES, ROW_TILE_PHASES,
-OUT_TILE_PHASES), and a prime whose plan is a Rader or a Bluestein on the
+n whose plan is a Bluestein on the fused large Bluestein's tile form at
+convlarge.split's split, every B_conv form of convlarge.COLUMN_FORMS:
+1048583:32 at Q = 12288, 2097169:16 on the pair of blocks at Q = 24576,
+24571:2048 at Q = 192; kernel A, B_conv and A2, convlarge.COL_TILE_PHASES,
+ROW_TILE_PHASES, OUT_TILE_PHASES), and a prime whose plan is a Rader or a Bluestein on the
 one-pass convolution core (1009:8192, 1234:8192; m = n - 1 or the inner
 length) to that core's kernels: conv_fft (conv.CONV_PHASES: load, chain
 1, the H multiply, chain 2, store) and, where conv.chain_radices(m)
@@ -326,12 +328,12 @@ def bluestein_large_phases(n: int, m: int, batch: int, gen) -> None:
         return tuple([torch.from_numpy(a).to(dev) for a in t] if isinstance(t, list)
                      else torch.from_numpy(t).to(dev) for t in tables)
 
-    p, q1, q2 = large.choose_pqq(m)
+    p, q1, q2 = getattr(convlarge, "split", large.choose_pqq)(m)
     q = q1 * q2
     if not convlarge.tile_form(p, q):
         raise SystemExit(f"n={n}: m={m} = {p} x {q} does not run the tile form")
     host = convlarge.bconv_tables(n, m, p, q, FftDirection.FORWARD)
-    col, row = card(host["col"]), card(convlarge.bconv_chain_tables(FftDirection.FORWARD))
+    col, row = card(host["col"]), card(convlarge.bconv_chain_tables(FftDirection.FORWARD, q))
     pre, chirp = (torch.from_numpy(host[k]).to(dev) for k in ("pre", "chirp"))
     h = torch.from_numpy(convlarge.bconv_h_table(host["h"])).to(dev)
     outer = convlarge.to_columns(col[2])

@@ -8,8 +8,9 @@ R4's split).
     python3 tools/torch_planner_rules.py [--rules R1,R2,R3,R4,R5] [--out FILE]
         [--device cuda] [--batch B] [--limit K] [--rounds 2]
         [--sets fit,held] [--held-seed S] [--held-per-way K]
+        [--fit-sizes N,N,...] [--held-sizes N,N,...]
     python3 tools/torch_planner_rules.py --costs | --glue [--out FILE]
-    python3 tools/torch_planner_rules.py --fit COSTS GLUE > rustfft_tpu_torch/split_costs.py
+    python3 tools/torch_planner_rules.py --fit COSTS [COSTS ...] GLUE > rustfft_tpu_torch/split_costs.py
     python3 tools/torch_planner_rules.py --check FILE [FILE ...]
 
 For each size n, at a batch that makes the (batch, n) complex64 tensor 256 -
@@ -51,8 +52,9 @@ once:
   R5  the primes of (2^20, 2^22] by the planner's recipe (r5_census), in
       the classes R5_CLASSES: B22, the Bluesteins on 2^22, and R4S, the
       Raders on n - 1, whose core without the rule is K14's four stages;
-      B3a and B3b, the Bluesteins on 3*2^20 and 3*2^21, on K15's general
-      form; B23, the Bluesteins on 2^23, glued either way.  The current
+      B3a and B3b, the Bluesteins on 3*2^20 and 3*2^21, on K15's tile form
+      (K15's general form before the tile form took Q = 12288 and 24576);
+      B23, the Bluesteins on 2^23, glued either way.  The current
       path is the node on its core without the rule
       (executor.build(core_rule=False)), the candidate the glued form
       (ops/bluestein.py or ops/raders.py around the inner FFT that
@@ -71,7 +73,11 @@ inner length) and of 16 DFT_p sizes, the Bluestein on m', the split, its
 CT glue alone and its half alone (bluestein, split, glue, half, half,
 glue, split, bluestein; about 9 minutes); --glue times the glue alone at
 the median size of every p from 2 to config.dense_dft_max (about 3
-minutes).  --fit COSTS GLUE prints split_costs.py from the two records.
+minutes).  --fit COSTS [COSTS ...] GLUE prints split_costs.py from the
+records, a later costs record's (kind, inner length) replacing an
+earlier's.  --fit-sizes and --held-sizes time the sizes listed in place of
+a rule's samples and draw (or of the cost sweep's sizes), so that a draw
+made on the CPU is timed as it was drawn.
 
 Each path's first rows are held against torch.fft in complex128 (relative
 mean error <= 1e-5).  It prints one table a rule (n, batch, the current
@@ -355,8 +361,10 @@ COST_P = (2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
 
 #: the core forms of the split's prime half that the cost sweep times (the
 #: others, K14's four stages and K15's general form, are slower than the
-#: Bluestein on m_a, so the rule, finding no cost for them, takes that)
-HALF_FORMS = ("one-pass core", "K14 cluster passes")
+#: Bluestein on m_a, so the rule, finding no cost for them, takes that):
+#: the tile form's halves are the Bluesteins on 36864 and 49152 (Q = 144,
+#: 192), which K15's general form served before the tile form took them
+HALF_FORMS = ("one-pass core", "K14 cluster passes", "K15 tile form")
 
 
 def split_classes(by_inner=None):
@@ -483,7 +491,7 @@ def r5_paths(n: int, direction) -> dict:
     if r5_class(recipe) in R5_TIMED_ONLY:
         return {"current": (glued, current)}
     form = pre_rule_form("rader" if rader else "bluestein", m)
-    if form not in ("K14 four stages", "K15 general form"):
+    if form not in ("K14 four stages", "K15 tile form", "K15 general form"):
         raise AssertionError(f"R5 n={n}: {name} runs on the {form} without the rule")
     inner = executor.build(recipe.inner, direction, C64)
     fn = (op_raders.make_raders_fn(n, inner, direction, C64) if rader
@@ -783,24 +791,36 @@ def measure_glue(p, n, batch, device, timers):
                 glue_queued_ms=statistics.median(qu), glue_turns_queued_ms=qu)
 
 
-def fit_costs(costs_path, glue_path):
-    """split_costs.py's text from a --costs record and a --glue record:
+def fit_costs(costs_paths, glue_path):
+    """split_costs.py's text from --costs records and a --glue record:
     CORE_NS, the median ns a transform of each (kind, inner length) over the
-    costs rows' halves (queued half ms over p x batch transforms) and
-    Bluesteins (queued bluestein ms over batch); GLUE_PS, the ps an element
-    of the glue (queued ms over batch x n) at each p of the glue record.
-    Prints on stderr how far the split is from its glue plus its half, and
-    the glue of the two records at the p they share."""
-    with open(costs_path) as f:
-        costs = json.load(f)
+    first costs record's halves (queued half ms over p x batch transforms)
+    and Bluesteins (queued bluestein ms over batch); a later record (a sweep
+    of the halves whose core changed) prices the halves it times, its
+    samples of a (kind, inner length) replacing the earlier ones, and
+    leaves the Bluesteins, whose cores it did not change, to the first;
+    GLUE_PS, the ps an element of the glue (queued ms over batch x n) at
+    each p of the glue record.  Prints on stderr how far the split is from
+    its glue plus its half, and the glue of the records at the p they
+    share."""
+    records = []
+    for path in costs_paths:
+        with open(path) as f:
+            records.append(json.load(f))
     with open(glue_path) as f:
         glue = json.load(f)
     samples: dict = {}
-    for r in costs["rows"]:
-        samples.setdefault((r["kind"], r["m_q"]), []).append(
-            r["half_queued_ms"] * 1e6 / (r["batch"] * r["p"]))
-        samples.setdefault(("bluestein", r["m_a"]), []).append(
-            r["bluestein_queued_ms"] * 1e6 / r["batch"])
+    for i, record in enumerate(records):
+        halves: dict = {}
+        for r in record["rows"]:
+            halves.setdefault((r["kind"], r["m_q"]), []).append(
+                r["half_queued_ms"] * 1e6 / (r["batch"] * r["p"]))
+            if i == 0:
+                samples.setdefault(("bluestein", r["m_a"]), []).append(
+                    r["bluestein_queued_ms"] * 1e6 / r["batch"])
+        for key, values in halves.items():
+            samples[key] = values if i else samples.get(key, []) + values
+    costs = dict(records[-1], rows=[r for record in records for r in record["rows"]])
     core = {k: statistics.median(v) for k, v in sorted(samples.items())}
     glue_ps = {r["p"]: r["glue_queued_ms"] * 1e9 / (r["batch"] * r["n"]) for r in glue["rows"]}
     ratios = [r["split_queued_ms"] / (r["glue_queued_ms"] + r["half_queued_ms"])
@@ -808,12 +828,12 @@ def fit_costs(costs_path, glue_path):
     drift = [glue_ps[r["p"]] / (r["glue_queued_ms"] * 1e9 / (r["batch"] * r["n"]))
              for r in costs["rows"] if r["p"] in glue_ps]
     print(f"split / (glue + half): {min(ratios):.3f} .. {max(ratios):.3f} over "
-          f"{len(ratios)} sizes; glue of {glue_path} / of {costs_path}: "
+          f"{len(ratios)} sizes; glue of {glue_path} / of {', '.join(costs_paths)}: "
           f"{min(drift):.3f} .. {max(drift):.3f} at {len(drift)} sizes", file=sys.stderr)
     lines = [f'"""The composite rule\'s cost tables (FftPlannerGpu._composite_way),',
              f"measured on {costs['card']} (torch {costs['torch']}) by",
              "tools/torch_planner_rules.py --costs and --glue, queued device time; this",
-             "file is `tools/torch_planner_rules.py --fit COSTS GLUE`'s output.",
+             "file is `tools/torch_planner_rules.py --fit COSTS [COSTS ...] GLUE`'s output.",
              '"""', "from typing import Optional", "",
              "#: ns a transform of the convolution core of a Raders (\"rader\") or",
              "#: Bluesteins (\"bluestein\") of inner length m, at 256 - 512 MiB a call",
@@ -1005,6 +1025,11 @@ def print_r5_table(rows, header) -> None:
     print(flush=True)
 
 
+def sizes_of(text) -> list:
+    """The sizes of a comma-separated list (none for None)."""
+    return [int(v) for v in text.split(",")] if text else []
+
+
 def card_line() -> str:
     try:
         return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1031,15 +1056,24 @@ def main(argv=None) -> None:
                     help="R4's cost sweep (COST_WAYS at r4_cost_samples) in place of the rules")
     ap.add_argument("--glue", action="store_true",
                     help="R4's CT glue alone at every DFT_p size (glue_samples)")
-    ap.add_argument("--fit", metavar=("COSTS", "GLUE"), nargs=2,
-                    help="print split_costs.py from a --costs and a --glue record, on the CPU")
+    ap.add_argument("--fit", metavar="RECORD", nargs="+",
+                    help="print split_costs.py from --costs records and a --glue record (the "
+                         "last), on the CPU")
+    ap.add_argument("--fit-sizes", default=None,
+                    help="sizes to time as the sampled set, comma-separated, in place of the "
+                         "rule's (or the cost sweep's) samples")
+    ap.add_argument("--held-sizes", default=None,
+                    help="sizes to time as the held-out set, comma-separated, in place of the "
+                         "rule's draw")
     ap.add_argument("--check", metavar="FILE", nargs="+",
                     help="reprint recorded runs with this tree's decisions, on the CPU")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
     if args.fit:
-        print(fit_costs(*args.fit), end="")
+        if len(args.fit) < 2:
+            raise SystemExit("--fit needs one or more --costs records and a --glue record")
+        print(fit_costs(args.fit[:-1], args.fit[-1]), end="")
         return
     if args.check:
         records = []
@@ -1086,7 +1120,7 @@ def main(argv=None) -> None:
         print(f"\nR4 glue {time.perf_counter() - t0:.1f} s -> {args.out}", flush=True)
         return
     if args.costs:
-        sizes = r4_cost_samples()
+        sizes = sizes_of(args.fit_sizes) if args.fit_sizes else r4_cost_samples()
         sizes = sizes[:args.limit] if args.limit else sizes
         for n in sizes:
             row = measure_costs(n, args.batch or batch_for(n), device, timers)
@@ -1101,8 +1135,12 @@ def main(argv=None) -> None:
         print(f"\nR4 costs {time.perf_counter() - t0:.1f} s -> {args.out}", flush=True)
         return
     for rule in args.rules.split(","):
-        fit, held = (SAMPLES[rule](args.held_seed, args.held_per_way) if rule == "R4"
-                     else SAMPLES[rule]())
+        if args.fit_sizes or args.held_sizes:
+            fit, held = sizes_of(args.fit_sizes), sizes_of(args.held_sizes)
+        elif rule == "R4":
+            fit, held = SAMPLES[rule](args.held_seed, args.held_per_way)
+        else:
+            fit, held = SAMPLES[rule]()
         if args.limit:
             fit, held = fit[:args.limit], held[:args.limit]
         print(f"{rule}: sampled {fit}; held out {held} (t = {time.perf_counter() - t0:.1f} s)",

@@ -19,7 +19,7 @@ on (`executor.CORE_FORMS`):
 
   one-pass core      conv.conv_supported(m) (K6 / K13);
   K15 tile form      a Bluestein on the fused large Bluestein at a split
-                     convlarge.tile_form takes;
+                     (convlarge.split) convlarge.tile_form takes;
   K15 general form   the fused large Bluestein at any other split;
   K14 cluster passes conv_radix.cluster_form(m) (m = r*16384);
   K14 four stages    the two-pass core's column and row stages;
@@ -31,7 +31,8 @@ on (`executor.CORE_FORMS`):
 
 It prints the primes by recipe and inner length (the most common inner
 lengths first), then by core form (with the number of distinct inner
-lengths), then each core form's most common inner lengths, then the primes
+lengths), then each core form's most common inner lengths, K15's split P x
+Q of each inner length on K15 (convlarge.split), then the primes
 the prime rule (planner.prime_rule_inner) moved: their recipe's core form
 before the rule (FftPlannerGpu._conv_prime_recipe) and after it.
 About 60 s for [8192, 2^20] on one CPU core.
@@ -123,6 +124,14 @@ def core_form(kind: str, m: int) -> str:
     from rustfft_tpu_torch import executor
 
     return executor.core_form(kind, m, np.complex64)
+
+
+def k15_split(m: int) -> tuple:
+    """K15's split (P, q1, q2) of an inner length in the tree counted:
+    convlarge.split, or large.choose_pqq in a tree without it."""
+    from rustfft_tpu_torch.ops.kernels import convlarge, large
+
+    return getattr(convlarge, "split", large.choose_pqq)(m)
 
 
 def kind_and_inner(recipe):
@@ -270,6 +279,10 @@ def main() -> None:
             more = f", and {len(top) - SHOWN} more" if len(top) > SHOWN else ""
             print(f"{form}, inner lengths by primes (b Bluestein, r Rader): " + ", ".join(
                 f"{kind[0]}{m}:{c}" for (kind, m), c in top[:SHOWN]) + more)
+    k15 = sorted({m for form in shown if form.startswith("K15") for _, m in inners.get(form, {})})
+    if k15:
+        print("K15's split of its inner lengths, P x Q: " + ", ".join(
+            f"{m} = {k15_split(m)[0]} x {m // k15_split(m)[0]}" for m in k15))
     print(f"moved by the prime rule: {sum(moved.values())} primes" + (
         f", the new inner {pads[0]:.2f}x .. {pads[-1]:.2f}x the old (median "
         f"{pads[len(pads) // 2]:.2f}x)" if pads else "") + "".join(
