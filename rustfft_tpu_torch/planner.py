@@ -367,8 +367,8 @@ class FftPlannerGpu(_PlannerBase):
         composite rule (`_composite_way`): where that Bluestein runs K14's
         four stages and no route serves n, the cheaper by split_costs.py's
         tables of the Bluestein on routed_bluestein_inner and the split
-        below (the 64210 such composites of [8192, 2^20): 25743 onto the
-        cluster passes, 18396 onto K15's tile form, 20071 split;
+        below (the 64210 such composites of [8192, 2^20): 25739 onto the
+        cluster passes, 18396 onto K15's tile form, 20075 split;
         tools/torch_prime_cores.py --composites).
     * composite n: near-balanced split n = p*q (largest divisor <= sqrt(n)),
       recursing on both halves; the executor swaps every subtree whose length
