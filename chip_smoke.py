@@ -48,10 +48,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    at r = 2, 4, 8 and 16 (a persistent grid of clusters of r blocks; the
    cudaOccupancyMaxActiveClusters of each r is printed, and each r and
    16384 run again at 3 x that + 1 transforms), two_stage_fft at
-   16384 (the radix body at R = 1), 20480, 24576 and 14464 (a prime p = 113)
+   16384 (the radix body at R = 1), 20480, 24576, 14976 and 15232 (K7's
+   one-block kernel with the factored radices 12, 9 and 7) and 14464 (a prime
+   p = 113)
    and three_stage_fft (K8) within 1e-6, one launch a call, at every size
    of its domain on the one-pass bodies (16384 k for k = 1 .. 16: K9's body
-   at R = 1, K7's cluster kernel on 2 .. 16 blocks) and at five sizes on
+   at R = 1, K7's two-stage walk on 2 .. 16 blocks) and at five sizes on
    K2's and K3's stages (above 262144), each form and cluster size
    printed; two_stage_fft at the ONE
    paths' n (a prime p from 113 to 223 as a Bluestein stage, its table read
@@ -60,8 +62,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (a Bluestein stage on clusters of 2, 4, 8 and 16 blocks; ragged row
    shares at 32896, 65792 and 260608), 29184 and 132480 (a direct-sum
    stage, p = (19, 12) and (23, 5, 3)) and 40832 (a Bluestein stage, then
-   a direct sum: p = (29, 11)), with the cudaOccupancyMaxActiveClusters of
-   each cluster size.  The last three tiers
+   a direct sum: p = (29, 11)), 32000, 48000, 89600 and 128000 (the
+   factored radices 10, 15, 14 and 20), with the
+   cudaOccupancyMaxActiveClusters of each cluster size and the registers
+   and spills of the walk's two forms.  The last three tiers
    at small batches: dense_fft at n = 5, 23, 127, 251 and 1009 in both
    forms (the block form at 5 and 23 is K5's pair kernel, within 1e-6 at
    batch 300, 1, 3 and a batch that leaves its persistent walk ragged, the
@@ -418,7 +422,7 @@ RULE_ON = {"prime rule": {}, "hole band": {"bconv_misaligned": True},
 NOT_ROUTED = {"three_stage_fft"}
 
 #: K8's timed shapes: n -> batch (256-384 MiB), 16384 (K9's body at R = 1),
-#: one size of each cluster c of K7's cluster kernel (2, 4, 8, 16) and one
+#: one size of each cluster c of K7's two-stage walk (2, 4, 8, 16) and one
 #: on K2's and K3's stages (393216 = 128 x 3072)
 K8 = {16384: 4096, 32768: 2048, 49152: 2048, 98304: 1024, 196608: 512, 393216: 256}
 
@@ -478,7 +482,7 @@ KERNELS["large3_p2/2^27"] = ("rustfft_tpu_torch/csrc/large3.cu",
 KERNELS["large_row_stage/2^27"] = ("rustfft_tpu_torch/csrc/large.cu",
                                    "rustfft_tpu/ops/pallas/large3.py:221")
 #: the mid band: K9 at every r, K7 at 16384 (the radix body at R = 1) and at
-#: 24576 (the general in-place body), K8 at each of its timed shapes
+#: 24576 (the one-block kernel), K8 at each of its timed shapes
 for _t in ("2^15", "2^16", "2^17", "2^18"):
     KERNELS[f"radix_fft/{_t}"] = ("rustfft_tpu_torch/csrc/fused.cu",
                                   "rustfft_tpu/ops/pallas/fused.py:1212")
@@ -1542,11 +1546,11 @@ def main() -> None:
 
     # the one-pass mid band at batch 2: radix_fft at every r, two_stage_fft
     # at the band's shapes (16384 on the radix body, the others on the
-    # general in-place kernel, 14464 with a prime p = 113), three_stage_fft
-    # at K8's split
+    # one-block kernel: 14976 = (13, 9) and 15232 = (17, 7) run the factored
+    # radices 9 and 7, 14464 a prime p = 113), three_stage_fft at K8's split
     print("  cudaOccupancyMaxActiveClusters of radix_fft: " + ", ".join(
         f"r={r} {fused.radix_max_active_clusters(r)}" for r in (2, 4, 8, 16)), flush=True)
-    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 18, 16384, 20480, 24576, *ONE):
+    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 18, 16384, 20480, 24576, 14976, 15232, *ONE):
         x = signal(2, n)
         for d in directions:
             name, kernel, plain, _ = mid_kernel(n, d)
@@ -1605,12 +1609,18 @@ def main() -> None:
     # on clusters of 2, 4, 8 and 16 blocks; at 29184 (228 = (19, 12) on 2)
     # and 132480 (345 = (23, 5, 3) on 16), a direct sum in the kernel's form
     # without a Bluestein stage, and at 40832 (319 = (29, 11) on 4), a
-    # Bluestein stage before a direct sum; each n off the paths counts into
-    # the entry of the path with its cluster size
+    # Bluestein stage before a direct sum; at 32000, 48000, 89600 and 128000
+    # (p = (10, 5, 5), (15, 5, 5), (14, 5, 5), (20, 5, 5)), the factored
+    # radices that left the roots-table stage; each n off the paths counts
+    # into the entry of the path with its cluster size
     print("  cudaOccupancyMaxActiveClusters of two_stage_cluster_fft: " + ", ".join(
         f"c={c} {fused.two_stage_cluster_max_active_clusters(c)}" for c in fused.CLUSTER_SIZES),
         flush=True)
-    for n in (*CLUSTER, 32896, 65792, 29184, 40832, 132480):
+    for bluestein in (False, True):
+        regs, local = fused.two_stage_walk_attrs(bluestein)
+        print(f"  two-stage walk, the form {'with' if bluestein else 'without'} a Bluestein "
+              f"stage: {regs} registers, {local} bytes of local memory (spills)", flush=True)
+    for n in (*CLUSTER, 32896, 65792, 29184, 40832, 132480, 32000, 48000, 89600, 128000):
         x = signal(2, n)
         p, q = fused.choose_pq(n)
         c = fused.choose_cluster(n)
@@ -2591,12 +2601,13 @@ def main() -> None:
         lib = median_ms(lambda: torch.fft.fft(x))
         spent = batch * n * (chain_ops(large.stage_radices(p), fused.bluestein_stage_m)
                              + chain_ops(large.stage_radices(q), fused.bluestein_stage_m) + 6)
+        c = fused.choose_cluster(n)
         print(f"  {name} {p} x {q} ({large.stage_radices(p)} x {large.stage_radices(q)}, "
-              f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}), shared memory "
-              f"{fused.two_stage_smem_bytes(n, large.stage_radices(p), large.stage_radices(q))} "
-              f"bytes, batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; the "
-              f"operations its chain spends {spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak:",
-              flush=True)
+              f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}) on the two-stage "
+              f"walk, {c} blocks a transform, shared memory {fused.cluster_smem_bytes(p, q, c)} "
+              f"bytes a block, batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; "
+              f"the operations its chain spends {spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 "
+              "peak:", flush=True)
         record(name, k, plain_ms, 16 * batch * n + table_bytes(host), batch * (fft_ops(n) + 6 * n),
                lib)
         plan = planner.plan_fft_forward(n)

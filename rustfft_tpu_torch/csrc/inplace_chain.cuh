@@ -14,10 +14,15 @@
 // in-place Bluestein stage, one warp a column (stage_bluestein_inplace);
 // the rest (10, 11, 13-15, 17-23, 33-35) a direct sum from a roots table
 // (stage_table_inplace).  The outer twiddle of a two-pass split can be
-// folded into the last stage (OuterFold).
+// folded into the last stage (OuterFold).  K7's chains (kFact) run the
+// radices 3, 5, 6, 7, 9, 10, 12, 14, 15 and 20 in the factored register
+// forms of csrc/factored_dft.cuh instead, 10, 14, 15 and 20 as register
+// stages too; every other chain keeps the forms above.
 #pragma once
 
-#include "fft_tile.cuh"
+#include <type_traits>
+
+#include "factored_dft.cuh"
 
 namespace rf {
 
@@ -36,15 +41,35 @@ struct OuterFold {
   }
 };
 
+// K7's fold (chain_inplace<MaxM, true>): the same twiddle from a table in
+// either layout, w_n^(k1*j2) at outer[j2*sj + k1*sk]: (q, p) at (p, 1), or
+// its transpose (p, q) at (1, q), whose reads are coalesced where a stage
+// runs neighbouring columns j2 on neighbouring threads (the register and
+// direct stages; a Bluestein stage runs a column a warp, neighbouring k1 on
+// neighbouring lanes, and reads (q, p) so).
+struct OuterFoldS {
+  const float2* __restrict__ outer;
+  int sj, sk;
+  int r1, r0;
+  __device__ float2 operator()(float2 v, int l, int lead, int k, int j2) const {
+    const int kb = r1 > 1 ? l / r1 + r0 * (l % r1) : l;
+    return cmul(v, __ldg(&outer[(size_t)j2 * sj + (size_t)(kb + k * lead) * sk]));
+  }
+};
+
 // One register-radix stage in place: (lead, R, rest, T) -> the same places,
 // output k where input k was read, times tw[k][j'] when tw is not null and
-// times the outer twiddle when fold.outer is not null.
-template <int R>
+// times the outer twiddle when fold.outer is not null; with kFact, the
+// column in K7's form (dft_column_k7).
+template <int R, bool kFact = false, class Fold = OuterFold>
 static __device__ void stage_reg_inplace(float2* buf, int lead, int rest, int T,
                                          const float2* __restrict__ roots,
-                                         const float2* __restrict__ tw, const OuterFold& fold) {
+                                         const float2* __restrict__ tw, const Fold& fold) {
   const int step = rest * T;
   const int ncols = lead * step;
+  // the direction, for the factored forms' immediates: the sign of Im w_R
+  float sg = 0.f;
+  if constexpr (kFact && kFactored<R>) sg = roots[1].y < 0.f ? -1.f : 1.f;
   for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
     const int l = c / step;
     const int rt = c - l * step;
@@ -53,11 +78,16 @@ static __device__ void stage_reg_inplace(float2* buf, int lead, int rest, int T,
 #pragma unroll
     for (int j = 0; j < R; ++j) x[j] = buf[swz(base + j * step)];
     const int jr = rt / T;
-    dft_column<R>(x, roots, [&](int k, float2 v) {
+    const auto sink = [&](int k, float2 v) {
       if (tw != nullptr) v = cmul(v, __ldg(&tw[k * rest + jr]));
       if (fold.outer != nullptr) v = fold(v, l, lead, k, rt - jr * T);
       buf[swz(base + k * step)] = v;
-    });
+    };
+    if constexpr (kFact) {
+      dft_column_k7<R>(x, roots, sg, sink);
+    } else {
+      dft_column<R>(x, roots, sink);
+    }
   }
 }
 
@@ -72,9 +102,10 @@ static __device__ void stage_reg_inplace(float2* buf, int lead, int rest, int T,
 // whose lanes read 32 different roots replayed on the banks up to ~5x) and
 // neighbouring places of the tile.  Every chunk of a pass's columns reads
 // them before the block barrier and overwrites them after it.
+template <class Fold = OuterFold>
 static __device__ void stage_table_inplace(float2* buf, int r, int lead, int rest, int T,
                                            const float2* __restrict__ roots,
-                                           const float2* __restrict__ tw, const OuterFold& fold) {
+                                           const float2* __restrict__ tw, const Fold& fold) {
   constexpr int G = kChunk;
   const int step = rest * T;
   const int ncols = lead * step;
@@ -334,10 +365,10 @@ static __device__ __forceinline__ void bluestein_half(float2 (&y)[V / 2], const 
 // the last layer of the second FFT_M joins them in the store.  So a lane
 // holds V/2 values, not V (16 at M = 1024), and reads each table entry
 // where it uses it (opaque) rather than keeping it live across the halves.
-template <int M>
+template <int M, class Fold = OuterFold>
 static __device__ void stage_bluestein_inplace(float2* buf, int r, int lead, int rest, int T,
                                                const float2* tab, const float2* __restrict__ tw,
-                                               const OuterFold& fold) {
+                                               const Fold& fold) {
   constexpr int V = M / 32, H = V / 2;
   const int lane = (int)threadIdx.x & 31;
   const int step = rest * T;
@@ -380,7 +411,7 @@ static __device__ void stage_bluestein_inplace(float2* buf, int r, int lead, int
     const int base = opaque_after(l * r * step + rt, y[H - 1]);
     const float2* chirp = opaque_after(tab, y[H - 1]);
     const float2* tws = opaque_after(tw, y[H - 1]);
-    OuterFold out = fold;
+    Fold out = fold;
     out.outer = opaque_after(fold.outer, y[H - 1]);
     const int jr = rt / T;
 #pragma unroll
@@ -410,41 +441,51 @@ static __host__ __device__ __forceinline__ bool bluestein_ok(int r, int m, int m
 }
 
 // One stage of the chain by its kind; a kernel of Bluestein cap MaxM
-// compiles the Bluestein stages up to MaxM points only.
-template <int MaxM>
+// compiles the Bluestein stages up to MaxM points only.  kFact: K7's
+// factored register forms, 10, 14, 15 and 20 among the register stages.
+template <int MaxM, bool kFact = false, class Fold = OuterFold>
 static __device__ void run_stage_inplace(float2* buf, int r, int bm, int lead, int rest, int T,
                                          const float2* roots, const float2* tw,
-                                         const OuterFold& fold) {
+                                         const Fold& fold) {
   if constexpr (MaxM > 0) {
     switch (bm) {
       case 0: break;
-      case 64: stage_bluestein_inplace<64>(buf, r, lead, rest, T, roots, tw, fold); return;
-      case 128: stage_bluestein_inplace<128>(buf, r, lead, rest, T, roots, tw, fold); return;
+      case 64: stage_bluestein_inplace<64, Fold>(buf, r, lead, rest, T, roots, tw, fold); return;
+      case 128: stage_bluestein_inplace<128, Fold>(buf, r, lead, rest, T, roots, tw, fold); return;
       case 256:
         if constexpr (MaxM >= 256)
-          stage_bluestein_inplace<256>(buf, r, lead, rest, T, roots, tw, fold);
+          stage_bluestein_inplace<256, Fold>(buf, r, lead, rest, T, roots, tw, fold);
         return;
       case 512:
         if constexpr (MaxM >= 512)
-          stage_bluestein_inplace<512>(buf, r, lead, rest, T, roots, tw, fold);
+          stage_bluestein_inplace<512, Fold>(buf, r, lead, rest, T, roots, tw, fold);
         return;
       default:
         if constexpr (MaxM >= 1024)
-          stage_bluestein_inplace<1024>(buf, r, lead, rest, T, roots, tw, fold);
+          stage_bluestein_inplace<1024, Fold>(buf, r, lead, rest, T, roots, tw, fold);
         return;
     }
   }
+  if constexpr (kFact) {
+    switch (r) {
+      case 10: stage_reg_inplace<10, true, Fold>(buf, lead, rest, T, roots, tw, fold); return;
+      case 14: stage_reg_inplace<14, true, Fold>(buf, lead, rest, T, roots, tw, fold); return;
+      case 15: stage_reg_inplace<15, true, Fold>(buf, lead, rest, T, roots, tw, fold); return;
+      case 20: stage_reg_inplace<20, true, Fold>(buf, lead, rest, T, roots, tw, fold); return;
+      default: break;
+    }
+  }
   switch (r) {
-    case 2: stage_reg_inplace<2>(buf, lead, rest, T, roots, tw, fold); break;
-    case 3: stage_reg_inplace<3>(buf, lead, rest, T, roots, tw, fold); break;
-    case 4: stage_reg_inplace<4>(buf, lead, rest, T, roots, tw, fold); break;
-    case 5: stage_reg_inplace<5>(buf, lead, rest, T, roots, tw, fold); break;
-    case 6: stage_reg_inplace<6>(buf, lead, rest, T, roots, tw, fold); break;
-    case 7: stage_reg_inplace<7>(buf, lead, rest, T, roots, tw, fold); break;
-    case 8: stage_reg_inplace<8>(buf, lead, rest, T, roots, tw, fold); break;
-    case 9: stage_reg_inplace<9>(buf, lead, rest, T, roots, tw, fold); break;
-    case 12: stage_reg_inplace<12>(buf, lead, rest, T, roots, tw, fold); break;
-    case 16: stage_reg_inplace<16>(buf, lead, rest, T, roots, tw, fold); break;
+    case 2: stage_reg_inplace<2, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
+    case 3: stage_reg_inplace<3, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
+    case 4: stage_reg_inplace<4, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
+    case 5: stage_reg_inplace<5, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
+    case 6: stage_reg_inplace<6, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
+    case 7: stage_reg_inplace<7, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
+    case 8: stage_reg_inplace<8, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
+    case 9: stage_reg_inplace<9, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
+    case 12: stage_reg_inplace<12, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
+    case 16: stage_reg_inplace<16, kFact, Fold>(buf, lead, rest, T, roots, tw, fold); break;
     default: stage_table_inplace(buf, r, lead, rest, T, roots, tw, fold); break;
   }
 }
@@ -490,21 +531,32 @@ static bool chain_ok(const Stages& st, int max_m) {
 
 // The chain over a length-m axis of `lead` blocks of T interleaved
 // transforms, in place, with the outer twiddle `outer` (or null) folded
-// into its last stage; every thread has passed a barrier after it.  The
-// direct stages' roots from load_chain_tables at `stables`; no Bluestein
-// length is above MaxM (none at MaxM = 0).
-template <int MaxM>
+// into its last stage, w_n^(k1*j2) at outer[j2*p + k1]; every thread has
+// passed a barrier after it.  The direct stages' roots from
+// load_chain_tables at `stables`; no Bluestein length is above MaxM (none
+// at MaxM = 0).  kFact: K7's chains, its factored radices and its fold
+// (OuterFoldS: the twiddle at outer[j2*p + k1*sk]).
+template <int MaxM, bool kFact = false>
 static __device__ void chain_inplace(float2* buf, int m, int lead, int T, const Stages& st,
-                                     const float2* stables, const float2* outer, int p) {
+                                     const float2* stables, const float2* outer, int p,
+                                     int sk = 1) {
+  using Fold = typename std::conditional<kFact, OuterFoldS, OuterFold>::type;
+  const auto make_fold = [&](const float2* o, int r1, int r0) {
+    if constexpr (kFact) {
+      return OuterFoldS{o, p, sk, r1, r0};
+    } else {
+      return OuterFold{o, p, r1, r0};
+    }
+  };
   int rest = m, off = 0;
   for (int s = 0; s < st.k; ++s) {
     const int r = st.r[s];
     rest /= r;
     const bool last = s + 1 == st.k;
-    const OuterFold fold{last ? outer : nullptr, p, s == 2 ? st.r[1] : 1, s >= 1 ? st.r[0] : 1};
+    const Fold fold = make_fold(last ? outer : nullptr, s == 2 ? st.r[1] : 1, s >= 1 ? st.r[0] : 1);
     const float2* tab = st.bm[s] != 0 ? st.roots[s] : stables + off;
-    run_stage_inplace<MaxM>(buf, r, st.bm[s], lead, rest, T, tab, last ? nullptr : st.tw[s],
-                            fold);
+    run_stage_inplace<MaxM, kFact, Fold>(buf, r, st.bm[s], lead, rest, T, tab,
+                                         last ? nullptr : st.tw[s], fold);
     __syncthreads();
     lead *= r;
     off += stage_smem_len(st, s);

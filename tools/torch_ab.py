@@ -105,7 +105,15 @@ the switch and by default, and torch.fft, each also queued (20 calls
 behind a sleep kernel).  `--only`
 keeps the named groups of these (K1, K2 for K2 and K3, paths for the
 planner's paths and K1's and K5's chain paths' torch.fft, K9, K16, K12,
-K15, K14, K5 for K5's product, K10, K13, K11, K8, K4, K14G).  It prints
+K15, K14, K5 for K5's product, K10, K13, K11, K8, K4, K14G, K7).  K7:
+the kernel alone (`make_fused_two_stage_fn`, the wrapper of
+`two_stage_fft` on the one-block band and of `two_stage_cluster_fft` on
+the cluster band), also queued (20 calls behind a sleep kernel), the path
+and torch.fft at every shape of K7 (24576 x 2048, 14464 and 16256 x 4096,
+28544 x 2048 on the one-block band; 28928 x 4096, 49152 x 2048, 98304 x
+1024, 196608 x 512, 245760 x 256 and 260608 x 256 on the cluster band),
+and K8's cluster shapes (49152 x 2048, 98304 x 1024, 196608 x 512), which
+run the same kernel, alone and queued.  It prints
 one JSON line per run and then a table, each row a quantity and each
 column a run.
 """
@@ -198,13 +206,22 @@ K11 = ((1 << 26, 2), (1 << 27, 1))
 #: K8's shapes: 16384 (the radix body at R = 1) and one size of each cluster c
 K8 = ((16384, 4096), (32768, 2048), (49152, 2048), (98304, 1024), (196608, 512))
 
+#: K7's shapes: the one-block band (24576 = (16, 12) x (16, 8), register
+#: radices only; 14464, 16256 and 28544 with a Bluestein stage) and the
+#: cluster band (28928 and 260608 with a Bluestein stage, the others
+#: register radices only), about 0.5-1 GiB each; and K8's three cluster
+#: shapes, which run the same kernel
+K7 = ((24576, 2048), (14464, 4096), (16256, 4096), (28544, 2048), (28928, 4096), (49152, 2048),
+      (98304, 1024), (196608, 512), (245760, 256), (260608, 256))
+K7_K8 = ((49152, 2048), (98304, 1024), (196608, 512))
+
 #: K14's Gauss form (config.conv_radix_gauss) at the cluster passes' shapes:
 #: the Rader 65537 (m = 65536, r = 4) and the Bluesteins 7919 (m = 16384,
 #: r = 1), 65521 (131072, r = 8) and 131071 (262144, r = 16)
 K14G = ((65537, 512), (7919, 4096), (65521, 512), (131071, 256))
 
 GROUPS = ("K1", "K2", "paths", "K9", "K16", "K12", "K15", "K14", "K5", "K10", "K13", "K11", "K8",
-          "K4", "K14G")
+          "K4", "K14G", "K7")
 
 
 def run_one(root: str, groups=GROUPS) -> dict:
@@ -703,6 +720,26 @@ def run_one(root: str, groups=GROUPS) -> dict:
                     out[f"K13 conv_chain_fft {chain} tables {what} {n}x{batch}"] = ms(forced,
                                                                                      reps=15)
                 del x
+    if "K7" in groups:
+        for n, batch in K7:
+            torch.cuda.empty_cache()
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            fn = fused.make_fused_two_stage_fn(n, FftDirection.FORWARD, np.complex64)
+            name = "two_stage_fft" if fused.two_stage_supported(n, np.complex64) else \
+                "two_stage_cluster_fft"
+            out[f"K7 {name} {n}x{batch}"] = ms(lambda: fn(x), reps=15)
+            out[f"K7 {name} {n}x{batch} (queued)"] = queued_ms(lambda: fn(x), calls=20)
+            plan = planner.plan_fft_forward(n)
+            out[f"path {n}x{batch}"] = ms(lambda: plan.process(x), reps=15)
+            out[f"torch.fft {n}x{batch}"] = ms(lambda: torch.fft.fft(x), reps=15)
+            del x
+        for n, batch in K7_K8:
+            torch.cuda.empty_cache()
+            x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+            fn = fused.make_fused_three_stage_fn(n, FftDirection.FORWARD, np.complex64)
+            out[f"K8 three_stage_fft {n}x{batch}"] = ms(lambda: fn(x), reps=15)
+            out[f"K8 three_stage_fft {n}x{batch} (queued)"] = queued_ms(lambda: fn(x), calls=20)
+            del x
     pad_tables = getattr(largepad, "col_tables", None)
     for n, batch in PAD if "K12" in groups else ():
         torch.cuda.empty_cache()

@@ -8,9 +8,12 @@ Run from the repository root on a machine with an NVIDIA GPU:
 Default shapes: 4096:16384 (K1's pipelined kernel, (16, 16, 16)),
 8192:8192 and 2008:32768 (K1's chain kernel: four register stages; a
 512-point Bluestein stage), 251:131072 (K5's chain form, one Bluestein
-stage on the chain kernel), 49152:2048 (192 x 256, register radices only, 4 blocks a
-transform) and 260608:256 (509 x 512, the prime p = 509 as a Bluestein
-stage, 16 blocks) on K7's cluster kernel, and 531441:64 (243 x 2187, a
+stage on the chain kernel), 24576:2048 (192 x 128 on the one-block band,
+2 blocks a transform), 49152:2048 (192 x 256, register radices only, 4
+blocks) and 260608:256 (509 x 512, the prime p = 509 as a Bluestein
+stage, 16 blocks, the row share overlapping the column share) on K7's
+two-stage walk (any n the route sends to two_stage but 16384, which runs
+K9's body), and 531441:64 (243 x 2187, a
 radix-27 Bluestein stage on the row stage) and 234617:256 (373 x 629, the
 prime P = 373 as a 1024-point Bluestein stage) on K12's two kernels; a
 shape goes to K12 where `route` sends it to large_pad, to K1 where it
@@ -31,12 +34,14 @@ length) to that core's kernels: conv_fft (conv.CONV_PHASES: load, chain
 holds, conv_chain_fft
 (conv.CHAIN_PHASES, summed over a persistent block's units).  For each shape it
 runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
-fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps,
+fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps (either
+band),
 largepad.largepad_col_phase_stamps and largepad_row_phase_stamps,
 large.large_col_phase_stamps and large_row_phase_stamps, which no
 route launches: thread 0 of every block reads %globaltimer after a block
-barrier at the kernel's start and at the end of each phase: the load,
-DFT_p, the exchange, DFT_q and the store of the cluster kernel; the load,
+barrier at the kernel's start and at the end of each phase: K7's
+fused.PHASES (the wait for a share's copies, DFT_p, the exchange, the
+issue of the next share's copies, DFT_q and the store), summed over a block's transforms; the load,
 the chain and the store of K12's and of K1's chain kernel; the time K1's
 pipelined kernel spends waiting for its loads, in stages 0-1 and in stage
 2 with the store, summed over a block's transforms; K9's fused.RADIX_PHASES,
@@ -64,7 +69,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SHAPES = ((4096, 16384), (8192, 8192), (2008, 32768), (251, 131072), (32768, 2048),
-          (262144, 256), (49152, 2048), (260608, 256), (531441, 64), (234617, 256),
+          (262144, 256), (24576, 2048), (49152, 2048), (260608, 256), (531441, 64),
+          (234617, 256),
           (1 << 20, 64), (1000003, 64))
 
 
@@ -411,7 +417,8 @@ def main() -> None:
             raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
         report(f"n={n} ({p} x {q}, {large.stage_radices(p)} x {large.stage_radices(q)}, "
                f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}) batch={batch} "
-               f"on clusters of {c}", stamps, fused.PHASES,
+               f"on {stamps.shape[0] // c} clusters of {c}, overlap "
+               f"{fused.walk_overlap(p, q, c)}", stamps, fused.PHASES,
                median_ms(lambda: fused.two_stage_cluster_phase_stamps(x, p, q, c, tabs)),
                median_ms(lambda: fused.two_stage_cluster_fft(x, p, q, c, tabs)))
         del x, y, stamps
