@@ -53,7 +53,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    p = 113)
    and three_stage_fft (K8) within 1e-6, one launch a call, at every size
    of its domain on the one-pass bodies (16384 k for k = 1 .. 16: K9's body
-   at R = 1, K7's two-stage walk on 2 .. 16 blocks) and at five sizes on
+   at R = 1, K7's cluster kernel on 2 .. 16 blocks) and at five sizes on
    K2's and K3's stages (above 262144), each form and cluster size
    printed; two_stage_fft at the ONE
    paths' n (a prime p from 113 to 223 as a Bluestein stage, its table read
@@ -65,7 +65,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    a direct sum: p = (29, 11)), 32000, 48000, 89600 and 128000 (the
    factored radices 10, 15, 14 and 20), with the
    cudaOccupancyMaxActiveClusters of each cluster size and the registers
-   and spills of the walk's two forms.  The last three tiers
+   and spills of both K7 kernels' two forms.  The last three tiers
    at small batches: dense_fft at n = 5, 23, 127, 251 and 1009 in both
    forms (the block form at 5 and 23 is K5's pair kernel, within 1e-6 at
    batch 300, 1, 3 and a batch that leaves its persistent walk ragged, the
@@ -422,7 +422,7 @@ RULE_ON = {"prime rule": {}, "hole band": {"bconv_misaligned": True},
 NOT_ROUTED = {"three_stage_fft"}
 
 #: K8's timed shapes: n -> batch (256-384 MiB), 16384 (K9's body at R = 1),
-#: one size of each cluster c of K7's two-stage walk (2, 4, 8, 16) and one
+#: one size of each cluster c of K7's cluster kernel (2, 4, 8, 16) and one
 #: on K2's and K3's stages (393216 = 128 x 3072)
 K8 = {16384: 4096, 32768: 2048, 49152: 2048, 98304: 1024, 196608: 512, 393216: 256}
 
@@ -1022,14 +1022,17 @@ def main() -> None:
         p, q = fused.choose_pq(n)
         host = fused.two_stage_tables(p, large.stage_radices(q), d)
         tabs = card_tables(host)
+        # the path's transposed outer twiddle (make_fused_two_stage_fn)
+        opq = None if (p, q) == (128, 128) else fused.outer_transposed(p, host[2])
+        opq = None if opq is None else torch.from_numpy(opq).to(dev)
         if fused.two_stage_cluster_supported(n, np.complex64):
             c = fused.choose_cluster(n)
             return (f"two_stage_cluster_fft/{n}",
-                    lambda x: fused.two_stage_cluster_fft(x, p, q, c, tabs),
+                    lambda x: fused.two_stage_cluster_fft(x, p, q, c, tabs, opq),
                     lambda x: fused.two_stage_cluster_fft_plain(x, p, q, c, tabs), host)
         name = ("two_stage_fft/16384" if (p, q) == (128, 128) else
                 f"two_stage_fft/{n}" if n in ONE else "two_stage_fft/24576")
-        return (name, lambda x: fused.two_stage_fft(x, p, q, tabs),
+        return (name, lambda x: fused.two_stage_fft(x, p, q, tabs, opq),
                 lambda x: fused.two_stage_fft_plain(x, p, q, tabs), host)
 
     def dense_card(n, d, variant):
@@ -1616,10 +1619,12 @@ def main() -> None:
     print("  cudaOccupancyMaxActiveClusters of two_stage_cluster_fft: " + ", ".join(
         f"c={c} {fused.two_stage_cluster_max_active_clusters(c)}" for c in fused.CLUSTER_SIZES),
         flush=True)
-    for bluestein in (False, True):
-        regs, local = fused.two_stage_walk_attrs(bluestein)
-        print(f"  two-stage walk, the form {'with' if bluestein else 'without'} a Bluestein "
-              f"stage: {regs} registers, {local} bytes of local memory (spills)", flush=True)
+    for one_block in (False, True):
+        for bluestein in (False, True):
+            regs, local = fused.two_stage_attrs(bluestein, one_block)
+            print(f"  K7's {'one-block' if one_block else 'cluster'} kernel, the form "
+                  f"{'with' if bluestein else 'without'} a Bluestein stage: {regs} registers, "
+                  f"{local} bytes of local memory (spills)", flush=True)
     for n in (*CLUSTER, 32896, 65792, 29184, 40832, 132480, 32000, 48000, 89600, 128000):
         x = signal(2, n)
         p, q = fused.choose_pq(n)
@@ -2601,13 +2606,12 @@ def main() -> None:
         lib = median_ms(lambda: torch.fft.fft(x))
         spent = batch * n * (chain_ops(large.stage_radices(p), fused.bluestein_stage_m)
                              + chain_ops(large.stage_radices(q), fused.bluestein_stage_m) + 6)
-        c = fused.choose_cluster(n)
         print(f"  {name} {p} x {q} ({large.stage_radices(p)} x {large.stage_radices(q)}, "
-              f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}) on the two-stage "
-              f"walk, {c} blocks a transform, shared memory {fused.cluster_smem_bytes(p, q, c)} "
-              f"bytes a block, batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; "
-              f"the operations its chain spends {spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 "
-              "peak:", flush=True)
+              f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}), shared memory "
+              f"{fused.two_stage_smem_bytes(n, large.stage_radices(p), large.stage_radices(q))} "
+              f"bytes, batch={batch}: one pass at {16 * batch * n / (k * 1e6):.0f} GB/s; the "
+              f"operations its chain spends {spent / FP32_FLOPS * 1e3:.3f} ms at the FP32 peak:",
+              flush=True)
         record(name, k, plain_ms, 16 * batch * n + table_bytes(host), batch * (fft_ops(n) + 6 * n),
                lib)
         plan = planner.plan_fft_forward(n)

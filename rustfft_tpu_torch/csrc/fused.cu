@@ -7,10 +7,11 @@
 // 65536 x 1024: 0.32 ms at 3.35 TB/s); the FP32 work, 5*n*log2(n) plus the
 // twiddles, is far under the card's peak.  What is left between them and
 // that bound is latency: one 512-thread block per SM (the tile fills its
-// shared memory), so each kernel overlaps one transform's load with the
-// arithmetic of the one before on a persistent grid (below).  Every stage
-// holds at most 16 values a thread at a time (the two-stage walk's
-// exchange kWalkHold more).
+// shared memory), whose loads, stages and stores run in turn in the
+// two-stage kernels (the radix kernel overlaps a transform's load with the
+// stage B of the one before, below).  Every stage
+// holds at most 16 values a thread at a time (the cluster kernel's exchange
+// 32); tools/torch_ptxas.py prints each form's registers and spills.
 //
 // radix_fft (K9: fused.py _fused_kernel_vpur, _ctw, _ctwg, _ctwgn, _ctwgx,
 // one function in five TPU layouts; its body is csrc/radix.cuh, which the
@@ -53,55 +54,52 @@
 // two_stage_fft and two_stage_cluster_fft (K7: fused.py _fused_kernel,
 // _fused_kernel_gauss, _fused_kernel_twodot), n = p * q: DFT_p over j1
 // for every j2, the outer twiddle w_n^(k1*j2), DFT_q over j2 for every k1,
-// the output at k = k2*p + k1.  The one-block band (14464 .. 28800, 16384
-// apart, which runs the radix body at R = 1) runs two_stage_kernel below,
-// one block a transform.  The cluster band (28928 .. 261632, p = 129 ..
-// 511, q = 128 .. 512) and K8 at p = 128, q = 256 .. 2048 (its DFT_q as the
-// register chain of q) run the two-stage walk (two_stage_walk_kernel),
-// which the one-block band's sizes take too (tests, tools).  A transform is one
-// thread-block cluster of c = 2, 4, 8 or 16 blocks (ops/kernels/fused.py
-// choose_cluster), and a persistent grid of as many clusters as the card
-// holds at once walks the batch, cluster g the transforms g, g + clusters,
-// ...  Block b of a cluster holds two regions of one shared buffer:
-//   L  its column share, the columns j2 = b*q/c .. (b+1)*q/c - 1 of every
-//      row j1 (p rows of q/c), at the bottom of the buffer;
-//   A  its row share, the rows k1 = b*p/c .. (b+1)*p/c - 1 (balanced,
-//      ragged where c does not divide p) as rows of q, at the top.
-// A transform:
-//   1. wait for L's copies (issued during the transform before), then
-//      DFT_p on L in place, the outer twiddle folded into its last stage;
-//   2. cluster barrier; the exchange pulls the block's rows from every
-//      peer's L (distributed shared memory) straight into A, eight loads a
-//      thread in flight; cluster barrier (every peer has read this L);
-//   3. the next transform's L starts to arrive by 8-byte cp.async (one
-//      thread's copies one group, no thread waits on them until step 1);
-//   4. DFT_q on A in place, then the store at k = k2*p + k1, rows of p/c
-//      values a k2, 16 bytes a thread where p and the share's first row
-//      are even.
-// So the next transform's load overlaps this one's DFT_q and store, and
-// this one's stores drain during the next one's DFT_p.  Where L and A do
-// not both fit the 227 KB (two shares of up to 128 KiB), A overlaps the top
-// of L by `ov` values: the exchange holds A's first ov values in registers
-// (at most kWalkHold a thread) until the second barrier, and the copies of
-// L's rows under A start only after the store (a part of the load then
-// does not overlap).  The copies are cp.async into the tile's bank swizzle:
-// bulk copies (cp.async.bulk) land in plain order, which every stage of
-// the chain would then read with bank conflicts (a Bluestein stage's warp
-// at a stride of a multiple of 128 bytes: 32 ways), or a swizzle pass
-// would cost a read and a write of L.  The exchange pulls rather than
-// pushes: a push (peer_store into the owner's A) would overwrite the
-// owner's L where A overlaps it while the owner still pushes from there.
+// the output at k = k2*p + k1.  Both kernels run K7's chains
+// (chain_inplace<MaxM, true>): register radices load one column into
+// registers, in K7's factored forms (csrc/factored_dft.cuh: 3, 5 and 7 as
+// butterflies on conjugate pairs; 6, 9, 10, 12, 14, 15 and 20 as one
+// Cooley-Tukey step over those and 2 and 4); a prime radix from 29 up runs
+// a Bluestein stage, one warp per column in registers
+// (stage_bluestein_inplace); the primes 11 to 23 a direct sum
+// (stage_table_inplace, 8r operations a point).  The outer twiddle is read
+// from a (q, p) table, or from its transpose (p, q) where the caller gives
+// one and DFT_p's last stage is not a Bluestein stage: that stage runs
+// neighbouring columns j2 on neighbouring threads, which then read
+// neighbouring entries (OuterFoldS).
 //
-// Register radices load one column into registers, in K7's factored forms
-// (csrc/factored_dft.cuh: 3, 5 and 7 as butterflies on conjugate pairs;
-// 6, 9, 10, 12, 14, 15 and 20 as one Cooley-Tukey step over those and 2
-// and 4); a prime radix from 29 up runs a Bluestein stage, one warp per
-// column in registers (stage_bluestein_inplace); the primes 11 to 23 a
-// direct sum (stage_table_inplace, 8r operations a point).  The
-// function's bound is its bytes (0.24-0.57 ms for chip_smoke.py's paths).
-// 921 of the cluster band's 1009 sizes have a radix without a register
-// stage: 665 a prime from 29 to 509 (the Bluestein stage, M up to 1024,
-// about 190-440 operations a point), 256 a direct sum of 11 to 23.
+// two_stage_fft (the one-block band, 14464 .. 28800 but 16384, which runs
+// the radix body at R = 1): one block a transform, the whole transform in
+// place in its shared memory (two_stage_kernel below).
+//
+// two_stage_cluster_fft (the cluster band, the aligned n from 28928 to
+// 261632: 226 KiB .. 2 MiB a transform, p = 129 .. 511, q = 128 .. 512;
+// and K8 at p = 128, q = 256 .. 2048, its DFT_q as the register chain of
+// q): a transform does not fit one SM, so one thread-block cluster of c =
+// 2, 4, 8 or 16 blocks computes it, in one read and one write of device
+// memory:
+//   1. block b loads the columns j2 = b*q/c .. (b+1)*q/c - 1 of every row j1
+//      (segments of 8q/c bytes, 16 bytes a thread) and runs DFT_p on them in
+//      place, the outer twiddle folded into the last stage;
+//   2. cluster barrier; block b pulls its rows k1 = b*p/c .. (b+1)*p/c - 1
+//      (balanced shares, ragged where c does not divide p) of every peer's
+//      columns through distributed shared memory into registers, 32 values
+//      a thread at 512 threads; cluster barrier; it writes them into its
+//      buffer as rows of q.  There is no room for a second buffer (a share
+//      is up to 128 KiB), so registers carry the exchange, and that sets
+//      the share cap of 16384 values and with it c (ops/kernels/fused.py
+//      choose_cluster);
+//   3. DFT_q over j2 on each of its rows in place, then the store at
+//      k = k2*p + k1, rows of p/c values a k2, 16 bytes a thread where p
+//      and the share's first row and width are even.
+// A persistent walk of the batch with the next transform's share copied in
+// during DFT_q and the store (a share and the row share in one buffer) was
+// measured on the card and dropped: it ran 13-20% slower at 28928 and
+// 260608 and level or 4% faster at the register-radix sizes (PERF.md,
+// PR 28).  The function's bound is its bytes (0.24-0.57 ms for
+// chip_smoke.py's paths).  921 of the cluster band's 1009 sizes have a radix
+// without a register stage: 665 a prime from 29 to 509 (the Bluestein
+// stage, M up to 1024, about 190-440 operations a point), 256 a direct sum
+// of 11 to 23.
 //
 // The in-place chain (its stages, the Bluestein stage, chain_inplace and
 // place_of) is csrc/inplace_chain.cuh, which K12's kernels
@@ -117,20 +115,37 @@ constexpr int kBlockThreads = 512;
 constexpr int kBlockMaxM = 512;
 constexpr int kBlockIo = 4;  // pairs of values a thread loads or stores in flight
 
+// Phase stamps of K7's kernels (their kStamp forms, built only into the
+// library compiled with RF_PHASE_STAMPS, which no route loads):
+// %globaltimer at a block's start and at the end of each phase, read by
+// thread 0 after a block barrier (tools/torch_phase_times.py): the load,
+// DFT_p, DFT_q and the store of the one-block kernel (kBlockStamps); the
+// load, DFT_p, the exchange, DFT_q and the store of the cluster kernel
+// (kClusterStamps).
+constexpr int kBlockStamps = 5;
+constexpr int kClusterStamps = 6;
+
+template <bool kStamp>
+static __device__ __forceinline__ void stamp(unsigned long long* stamps, int per_block, int i) {
+  if constexpr (kStamp) {
+    if (threadIdx.x == 0) stamps[(size_t)blockIdx.x * per_block + i] = global_timer();
+  }
+}
+
 // One block a transform of n = p*q up to 28800 (225 KiB) with the whole
-// transform in one shared buffer, so every stage runs in place (K7's
-// chains, factored radices included: chain_inplace<MaxM, true>); the store
+// transform in one shared buffer, so every stage runs in place; the store
 // reads each natural index from its digit-reversed place through two small
 // index tables (p + q ints).  Loads and stores move two values a thread
-// (16 bytes: n is even and x 16-byte aligned).  Measured on the card, the
-// two-stage walk on two blocks took 1.3-1.5x this kernel's time on this
-// band: its exchange through distributed shared memory cost more than its
-// lookahead saved (PERF.md, PR 28).
-template <int MaxM>
+// (16 bytes: n is even and x and y 16-byte aligned).  The two-stage walk
+// on two blocks, measured on this band, took 1.3-1.5x the time of one
+// block a transform (PERF.md, PR 28).
+template <int MaxM, bool kStamp>
 __global__ void __launch_bounds__(kBlockThreads)
     two_stage_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
-                     Stages sp, Stages sq, const float2* __restrict__ outer, int outer_t) {
+                     Stages sp, Stages sq, const float2* __restrict__ outer, int outer_t,
+                     unsigned long long* stamps) {
   extern __shared__ float2 smem[];
+  stamp<kStamp>(stamps, kBlockStamps, 0);
   const int n = p * q, half = n / 2;
   float2* buf = smem;
   float2* tabs_p = smem + pad16(n);
@@ -161,11 +176,14 @@ __global__ void __launch_bounds__(kBlockThreads)
     }
   }
   __syncthreads();
+  stamp<kStamp>(stamps, kBlockStamps, 1);
   // DFT_p over j1 for every j2 (the rows j1 of q interleaved transforms),
   // its last stage times the outer twiddle; then DFT_q over j2 for every
   // k1 (p contiguous rows of q)
   chain_inplace<MaxM, true>(buf, p, 1, q, sp, tabs_p, outer, outer_t ? 1 : p, outer_t ? q : 1);
+  stamp<kStamp>(stamps, kBlockStamps, 2);
   chain_inplace<MaxM, true>(buf, q, p, 1, sq, tabs_q, nullptr, 0);
+  stamp<kStamp>(stamps, kBlockStamps, 3);
   // k = k2*p + k1 from row prow[k1], column qcol[k2], two k a thread;
   // (k1, k2) advance without a division
   const int step = 2 * (int)blockDim.x;
@@ -194,40 +212,40 @@ __global__ void __launch_bounds__(kBlockThreads)
       if (h < half) dst[h] = v[u];
     }
   }
+  if constexpr (kStamp) {
+    __syncthreads();
+    stamp<kStamp>(stamps, kBlockStamps, 4);
+  }
 }
 
-// ---- the two-stage walk (K7) ---------------------------------------------------
+// ---- the cluster band (K7's two_stage_cluster_fft) -----------------------------
 
-constexpr int kWalkThreads = 512;
-constexpr int kWalkIo = 8;      // peer loads and shared reads a thread has in flight
-constexpr int kWalkHold = 16;   // values a thread holds across the exchange's second barrier
-constexpr int kWalkShare = 16384;  // the most values of a block's column or row share
-
-// The walk's largest Bluestein length: primes p up to 509 take M = 1024
-// (16 values a lane in each half of the stage).  The kernel has a second
-// form, MaxM = 0, with no Bluestein stage at all, which the launcher takes
-// for the chains without one: those chains (every register-radix path)
-// then pay none of its registers.
-constexpr int kWalkMaxM = 1024;
+constexpr int kClusterThreads = 512;
+constexpr int kHold = 32;                                // values a thread holds in the exchange
+constexpr int kClusterIo = 8;                            // loads and stores a thread has in flight
+constexpr int kClusterShare = kClusterThreads * kHold;   // 16384: the most values of a block
+// The cluster kernel's primes p up to 509 take Bluestein lengths up to 1024
+// (16 values a lane in each half of the stage)
+constexpr int kClusterMaxM = 1024;
 
 // First row k1 of block b's share of the p rows (balanced: the shares of a
 // cluster of c blocks differ by at most one row).
 static __host__ __device__ __forceinline__ int share_lo(int b, int p, int c) { return b * p / c; }
 
-// Values of a block's larger share: its column share (p rows of q/c
-// columns) or its widest row share (ceil(p/c) rows of q).
+// Values a block's buffer holds: its column share (p rows of q/c columns)
+// or its widest row share (ceil(p/c) rows of q), whichever is more.
 static __host__ __device__ __forceinline__ int cluster_share(int p, int q, int c) {
   const int cols = p * (q / c), rows = (p + c - 1) / c * q;
   return cols > rows ? cols : rows;
 }
 
-// The (row, column) of f = f0 + u*kWalkThreads in rows of width w, for
+// The (row, column) of f = f0 + u*kClusterThreads in rows of width w, for
 // u = 0, 1, ..., advanced without a division.
 struct Walk {
   int row, col;
   const int w, drow, dcol;
   __device__ Walk(int f0, int w_)
-      : row(f0 / w_), col(f0 % w_), w(w_), drow(kWalkThreads / w_), dcol(kWalkThreads % w_) {}
+      : row(f0 / w_), col(f0 % w_), w(w_), drow(kClusterThreads / w_), dcol(kClusterThreads % w_) {}
   __device__ void next() {
     row += drow;
     col += dcol;
@@ -238,255 +256,164 @@ struct Walk {
   }
 };
 
-// Phase stamps of the walk (its kStamp form, built only into the library
-// compiled with RF_PHASE_STAMPS, which no route loads): per block, its start
-// and that start plus the running sums of its time in each of kWalkPhases
-// phases over its transforms: the wait for L's copies (the whole first
-// load), DFT_p, the exchange with its two cluster barriers, the issue of
-// the next L's copies below A (the load), DFT_q, the store with the late
-// copies' issue, each lap read by thread 0 after a block barrier
-// (tools/torch_phase_times.py).
-constexpr int kWalkPhases = 6;
-
-static __device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-// The values f in [f_lo, f_hi) of a column share into L in the tile's
-// swizzle, element (row, col) = (f / qs, f % qs) of the share at src[row*q
-// + col]: thread tid its f = tid (mod kWalkThreads), as one group of
-// cp.async that no thread waits on until the share is needed.
-static __device__ __forceinline__ void copy_share(float2* L, const float2* __restrict__ src,
-                                                  int tid, int f_lo, int f_hi, int qs, int q) {
-  int f = f_lo + ((tid - f_lo) % kWalkThreads + kWalkThreads) % kWalkThreads;
-  if (f < f_hi) {
-    Walk w(f, qs);
-    for (; f < f_hi; f += kWalkThreads, w.next())
-      cp_async8(L + swz(f), src + (size_t)w.row * q + w.col);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Element (row, col) of a peer's L: DFT_p left row k1 at prow[k1] (a
-// place times q/c); col is the column j2's offset in its block's share,
-// peer_col[j2] = (block << 16) | offset.
-static __device__ __forceinline__ float2 pull(uint32_t l_addr, const int* prow,
-                                              const int* peer_col, int k1, int j2) {
-  const int m = peer_col[j2];
-  const int s = swz(prow[k1] + (m & 0xffff));
-  return peer_load(peer_addr(l_addr + (uint32_t)(s * sizeof(float2)), m >> 16));
-}
-
-// A walk block's layout for one transform (the design at the top of this
-// file): L, the column share (p rows of qs), at the bottom of its `cap`
-// values of buffer; A, its row share (rows lo .. lo + rb of q), ending at
-// cap, its first ov values inside L, of which a thread holds `held` in the
-// exchange; L's values from `early` on lie under A; then the direct
-// stages' roots and the index tables prow (p), qcol (q), peer_col (q).
-struct WalkShape {
-  int qs, lo, rb, ncol, nrow, held, early;
-  float2 *L, *A, *tabs_p, *tabs_q;
-  int *prow, *qcol, *peer_col;
-  __device__ WalkShape(float2* smem, int p, int q, int c, int cap, int b, const Stages& sp,
-                       const Stages& sq) {
-    qs = q / c;
-    lo = share_lo(b, p, c);
-    rb = share_lo(b + 1, p, c) - lo;
-    ncol = p * qs;
-    nrow = rb * q;
-    const int a_off = cap - pad16(nrow);
-    held = (max(0, pad16(ncol) - a_off) + kWalkThreads - 1) / kWalkThreads;
-    early = min(ncol, a_off);
-    L = smem;
-    A = smem + a_off;
-    tabs_p = smem + cap;
-    tabs_q = tabs_p + chain_smem_len(sp);
-    prow = reinterpret_cast<int*>(tabs_q + chain_smem_len(sq));
-    qcol = prow + p;
-    peer_col = qcol + q;
-  }
-};
-
-// The two-stage walk (the design at the top of this file): a persistent
-// grid of clusters of c blocks, cluster g computing the transforms g, g +
-// clusters, ...; `cap` values of buffer a block.  Every block of a cluster
-// walks the same transforms, so all pass the same cluster barriers.  Each
-// transform takes its layout and the thread's index anew from values the
-// compiler cannot see through (opaque): hoisted above the walk, the
-// layout, the walks' starting points and the chains' index arithmetic
-// stayed live across it and spilled, as csrc/large.cu found.
+// One cluster of c blocks a transform (the design at the top of this file).
 template <int MaxM, bool kStamp>
-__global__ void __launch_bounds__(kWalkThreads)
-    two_stage_walk_kernel(const float2* __restrict__ x, float2* __restrict__ y, long long batch,
-                          int p, int q, int c, int cap, Stages sp, Stages sq,
-                          const float2* __restrict__ outer, int outer_t,
-                          unsigned long long* stamps) {
+__global__ void __launch_bounds__(kClusterThreads)
+    two_stage_cluster_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
+                             int c, Stages sp, Stages sq, const float2* __restrict__ outer,
+                             int outer_t, unsigned long long* stamps) {
   extern __shared__ float2 smem[];
-  RadixClock<kStamp, kWalkPhases> clock;
-  clock.begin();
+  stamp<kStamp>(stamps, kClusterStamps, 0);
   const int b = (int)cg::this_cluster().block_rank();
-  const size_t n = (size_t)p * q;
-  const long long clusters = gridDim.x / c;
-  long long t = blockIdx.x / c;
+  const int tid = threadIdx.x;
+  const int qs = q / c;
+  const int lo = share_lo(b, p, c);
+  const int rb = share_lo(b + 1, p, c) - lo;
+  float2* buf = smem;
+  float2* tabs_p = smem + pad16(cluster_share(p, q, c));
+  float2* tabs_q = tabs_p + chain_smem_len(sp);
+  int* prow = reinterpret_cast<int*>(tabs_q + chain_smem_len(sq));
+  int* qcol = prow + p;
+  int* peer_col = qcol + q;  // (a << 16) | t: column j2 = a*qs + t of block a
+  load_chain_tables(sp, tabs_p);
+  load_chain_tables(sq, tabs_q);
+  for (int k = tid; k < p; k += kClusterThreads) prow[k] = place_of(k, p, sp) * qs;
+  for (int k = tid; k < q; k += kClusterThreads) {
+    qcol[k] = place_of(k, q, sq);
+    peer_col[k] = (k / qs) << 16 | (k % qs);
+  }
+  const size_t base = (size_t)(blockIdx.x / c) * (size_t)p * (size_t)q;
+
+  // 1. the share's columns j2 = b*qs + t of every row j1, (j1, t) at j1*qs
+  //    + t, two a thread (qs, q and b*qs are even, x 16-byte aligned)
+  const int ncol = p * qs;
   {
-    const WalkShape w(smem, p, q, c, cap, b, sp, sq);
-    if (t < batch) copy_share(w.L, x + (size_t)b * w.qs + t * n, threadIdx.x, 0, w.ncol, w.qs, q);
-    load_chain_tables(sp, w.tabs_p);
-    load_chain_tables(sq, w.tabs_q);
-    for (int k = threadIdx.x; k < p; k += kWalkThreads) w.prow[k] = place_of(k, p, sp) * w.qs;
-    for (int k = threadIdx.x; k < q; k += kWalkThreads) {
-      w.qcol[k] = place_of(k, q, sq);
-      w.peer_col[k] = (k / w.qs) << 16 | (k % w.qs);
-    }
-  }
-
-  for (; t < batch; t += clusters) {
-    const int tid = opaque((int)threadIdx.x);
-    const int pt = opaque(p), qt = opaque(q);
-    const WalkShape w(opaque(smem), pt, qt, c, cap, b, sp, sq);
-    const float2* src = x + (size_t)b * w.qs;
-    const uint32_t l_addr = (uint32_t)__cvta_generic_to_shared(w.L);
-    // 1. this transform's L has landed: DFT_p over j1 for each of its
-    //    columns, the outer twiddle (rows b*qs .. of the (q, p) table)
-    //    folded into the last stage, row k1 then at prow[k1]
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-    clock.lap(0);
-    const int sj = outer_t ? 1 : pt, sk = outer_t ? qt : 1;
-    chain_inplace<MaxM, true>(w.L, pt, 1, w.qs, sp, w.tabs_p, outer + (size_t)b * w.qs * sj, sj,
-                              sk);
-    clock.lap(1);
-
-    // 2. the exchange: every block's DFT_p is done (barrier); A's element
-    //    (i, j2) at i*q + j2 is row lo + i of the L of j2's block; the
-    //    first `held` a thread wait in registers for the second barrier,
-    //    after which every peer has read this block's L
-    cg::this_cluster().sync();
-    float2 hold[kWalkHold];
-    {
-      Walk r(tid, qt);
+    const float2* src = x + base + (size_t)b * qs;
+    const int hs = qs / 2, npair = ncol / 2;
+    Walk w(tid, hs);
+    for (int g0 = tid; g0 < npair; g0 += kClusterIo * kClusterThreads) {
+      float4 v[kClusterIo];
 #pragma unroll
-      for (int u = 0; u < kWalkHold; ++u, r.next())
-        if (u < w.held && u * kWalkThreads + tid < w.nrow)
-          hold[u] = pull(l_addr, w.prow, w.peer_col, w.lo + r.row, r.col);
-    }
-    {
-      const int f1 = w.held * kWalkThreads + tid;
-      Walk wk(f1, qt);
-      for (int f0 = f1; f0 < w.nrow; f0 += kWalkIo * kWalkThreads) {
-        float2 v[kWalkIo];
-        Walk r = wk;
+      for (int u = 0; u < kClusterIo; ++u, w.next())
+        if (g0 + u * kClusterThreads < npair)
+          v[u] = *reinterpret_cast<const float4*>(src + (size_t)w.row * q + 2 * w.col);
 #pragma unroll
-        for (int u = 0; u < kWalkIo; ++u, r.next())
-          if (f0 + u * kWalkThreads < w.nrow)
-            v[u] = pull(l_addr, w.prow, w.peer_col, w.lo + r.row, r.col);
-#pragma unroll
-        for (int u = 0; u < kWalkIo; ++u, wk.next()) {
-          const int f = f0 + u * kWalkThreads;
-          if (f < w.nrow) w.A[swz(f)] = v[u];
+      for (int u = 0; u < kClusterIo; ++u) {
+        const int g = g0 + u * kClusterThreads;
+        if (g < npair) {
+          buf[swz(2 * g)] = make_float2(v[u].x, v[u].y);
+          buf[swz(2 * g + 1)] = make_float2(v[u].z, v[u].w);
         }
       }
     }
-    cg::this_cluster().sync();
-#pragma unroll
-    for (int u = 0; u < kWalkHold; ++u) {
-      const int f = u * kWalkThreads + tid;
-      if (u < w.held && f < w.nrow) w.A[swz(f)] = hold[u];
-    }
-    clock.lap(2);
-    // 3. the next transform's L, where it lies below A
-    const long long next = t + clusters;
-    if (next < batch) copy_share(w.L, src + next * n, tid, 0, w.early, w.qs, qt);
-    __syncthreads();
-    clock.lap(3);
-
-    // 4. DFT_q over j2 for each of the share's rows, then the store at k =
-    //    k2*p + lo + i, rb values per k2 in a row, 16 bytes a thread where
-    //    every output row of the share starts even
-    chain_inplace<MaxM, true>(w.A, qt, w.rb, 1, sq, w.tabs_q, nullptr, 0);
-    clock.lap(4);
-    float2* dst = y + t * n + w.lo;
-    if (pt % 2 == 0 && w.lo % 2 == 0 && w.rb % 2 == 0) {
-      const int half = w.rb / 2, npair = half * qt;
-      Walk wk(tid, half);
-      for (int g0 = tid; g0 < npair; g0 += kWalkIo * kWalkThreads) {
-        float4 v[kWalkIo];
-        Walk r = wk;
-#pragma unroll
-        for (int u = 0; u < kWalkIo; ++u, r.next()) {
-          if (g0 + u * kWalkThreads < npair) {
-            const int col = w.qcol[r.row];
-            const float2 e = w.A[swz(2 * r.col * qt + col)];
-            const float2 o = w.A[swz((2 * r.col + 1) * qt + col)];
-            v[u] = make_float4(e.x, e.y, o.x, o.y);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kWalkIo; ++u, wk.next())
-          if (g0 + u * kWalkThreads < npair)
-            *reinterpret_cast<float4*>(dst + (size_t)wk.row * pt + 2 * wk.col) = v[u];
-      }
-    } else {
-      Walk wk(tid, w.rb);
-      for (int f0 = tid; f0 < w.nrow; f0 += kWalkIo * kWalkThreads) {
-        float2 v[kWalkIo];
-        Walk r = wk;
-#pragma unroll
-        for (int u = 0; u < kWalkIo; ++u, r.next())
-          if (f0 + u * kWalkThreads < w.nrow) v[u] = w.A[swz(r.col * qt + w.qcol[r.row])];
-#pragma unroll
-        for (int u = 0; u < kWalkIo; ++u, wk.next())
-          if (f0 + u * kWalkThreads < w.nrow) dst[(size_t)wk.row * pt + wk.col] = v[u];
-      }
-    }
-    // the rest of the next transform's L, once the store has read A
-    if (next < batch && w.early < w.ncol) {
-      __syncthreads();
-      copy_share(w.L, src + next * n, tid, w.early, w.ncol, w.qs, qt);
-    }
-    clock.lap(5);
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  clock.write(stamps);
+  __syncthreads();
+  stamp<kStamp>(stamps, kClusterStamps, 1);
+
+  // 2. DFT_p over j1 for each of the share's columns, the outer twiddle
+  //    w_n^(k1*j2) (the share's rows b*qs .. of the (q, p) table, or its
+  //    columns of the (p, q) one) folded into its last stage: row k1 then
+  //    sits at prow[k1]
+  const int sj = outer_t ? 1 : p, sk = outer_t ? q : 1;
+  chain_inplace<MaxM, true>(buf, p, 1, qs, sp, tabs_p, outer + (size_t)b * qs * sj, sj, sk);
+  stamp<kStamp>(stamps, kClusterStamps, 2);
+
+  // 3. the exchange: every block's DFT_p is done (barrier), this block pulls
+  //    its rows lo .. lo + rb of every peer's columns into registers, every
+  //    peer has read this block's columns (barrier), and the rows go into
+  //    the buffer as rb rows of q, (i, j2) at i*q + j2
+  cg::this_cluster().sync();
+  const uint32_t buf_addr = (uint32_t)__cvta_generic_to_shared(buf);
+  const int nrow = rb * q;
+  float2 hold[kHold];
+  {
+    Walk w(tid, q);
+#pragma unroll
+    for (int u = 0; u < kHold; ++u, w.next()) {
+      if (u * kClusterThreads + tid < nrow) {
+        const int m = peer_col[w.col];
+        const int s = swz(prow[lo + w.row] + (m & 0xffff));
+        hold[u] = peer_load(peer_addr(buf_addr + (uint32_t)(s * sizeof(float2)), m >> 16));
+      }
+    }
+  }
+  cg::this_cluster().sync();
+#pragma unroll
+  for (int u = 0; u < kHold; ++u) {
+    const int f = u * kClusterThreads + tid;
+    if (f < nrow) buf[swz(f)] = hold[u];
+  }
+  __syncthreads();
+  stamp<kStamp>(stamps, kClusterStamps, 3);
+
+  // 4. DFT_q over j2 for each of the share's rows
+  chain_inplace<MaxM, true>(buf, q, rb, 1, sq, tabs_q, nullptr, 0);
+  stamp<kStamp>(stamps, kClusterStamps, 4);
+
+  // 5. the store at k = k2*p + lo + i, rb values per k2 in a row; two a
+  //    thread (16 bytes) where every row of the share starts even and is
+  //    of even width
+  float2* dst = y + base + lo;
+  if (p % 2 == 0 && lo % 2 == 0 && rb % 2 == 0) {
+    const int hb = rb / 2, npair = hb * q;
+    Walk w(tid, hb);
+    for (int g0 = tid; g0 < npair; g0 += kClusterIo * kClusterThreads) {
+      float4 v[kClusterIo];
+      Walk r = w;
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u, r.next()) {
+        if (g0 + u * kClusterThreads < npair) {
+          const int col = qcol[r.row];
+          const float2 e = buf[swz(2 * r.col * q + col)];
+          const float2 o = buf[swz((2 * r.col + 1) * q + col)];
+          v[u] = make_float4(e.x, e.y, o.x, o.y);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u, w.next())
+        if (g0 + u * kClusterThreads < npair)
+          *reinterpret_cast<float4*>(dst + (size_t)w.row * p + 2 * w.col) = v[u];
+    }
+  } else {
+    Walk w(tid, rb);
+    for (int f0 = tid; f0 < nrow; f0 += kClusterIo * kClusterThreads) {
+      float2 v[kClusterIo];
+      Walk r = w;
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u, r.next())
+        if (f0 + u * kClusterThreads < nrow) v[u] = buf[swz(r.col * q + qcol[r.row])];
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u, w.next())
+        if (f0 + u * kClusterThreads < nrow) dst[(size_t)w.row * p + w.col] = v[u];
+    }
+  }
+  if constexpr (kStamp) {
+    __syncthreads();
+    stamp<kStamp>(stamps, kClusterStamps, 5);
+  }
 }
 
-// Shared memory of a walk's block beside its buffer: the roots of the
-// direct stages of both chains and the index tables (p + 2q ints).
-static size_t walk_fixed(int p, int q, const Stages& sp, const Stages& sq) {
-  return (size_t)(chain_smem_len(sp) + chain_smem_len(sq)) * sizeof(float2) +
-         (size_t)(p + 2 * q) * sizeof(int);
+// Shared memory of a kernel whose fixed part (its buffer and index tables)
+// takes `fixed` bytes, with the roots of the direct stages of chains a and b.
+static size_t with_chain_tables(size_t fixed, const Stages& a, const Stages& b) {
+  return fixed + (size_t)(chain_smem_len(a) + chain_smem_len(b)) * sizeof(float2);
 }
 
-// A walk block's buffer in values: L and the widest A side by side where
-// they fit, else all the shared memory a block may use (A then overlaps
-// the top of L).
-static int walk_cap(int p, int q, int c, size_t fixed) {
-  const int want = pad16(p * (q / c)) + pad16((p + c - 1) / c * q);
-  const int most = (int)(((kSmemMax - fixed) / sizeof(float2)) & ~(size_t)15);
-  return want < most ? want : most;
-}
-
-// The walk holds a transform at (p, q) on clusters of c: each share at
-// most kWalkShare values, L and A each within the buffer, and their overlap
-// at most kWalkHold values a thread.
-static bool walk_ok(int p, int q, int c, int cap) {
-  const int ncol = pad16(p * (q / c)), nrow = pad16((p + c - 1) / c * q);
-  return cluster_share(p, q, c) <= kWalkShare && ncol <= cap && nrow <= cap &&
-         ncol + nrow - cap <= kWalkHold * kWalkThreads;
+static size_t cluster_smem_fixed(int p, int q, int c) {
+  return (size_t)pad16(cluster_share(p, q, c)) * sizeof(float2) + (size_t)(p + 2 * q) * sizeof(int);
 }
 
 template <int MaxM, bool kStamp>
-static cudaError_t walk_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                               long long clusters, int c, size_t smem, cudaStream_t s) {
-  cudaError_t err = allow_smem(two_stage_walk_kernel<MaxM, kStamp>, smem);
+static cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                                  long long batch, int c, size_t smem, cudaStream_t s) {
+  cudaError_t err = allow_smem(two_stage_cluster_kernel<MaxM, kStamp>, smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(two_stage_walk_kernel<MaxM, kStamp>,
+  err = cudaFuncSetAttribute(two_stage_cluster_kernel<MaxM, kStamp>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3((unsigned)(clusters * c), 1, 1);
-  cfg.blockDim = dim3(kWalkThreads, 1, 1);
+  cfg.gridDim = dim3((unsigned)(batch * c), 1, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -499,46 +426,52 @@ static cudaError_t walk_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& att
 }
 
 template <int MaxM, bool kStamp>
-static cudaError_t launch_walk(const float2* x, float2* y, long long batch, long long clusters,
-                               int p, int q, int c, const Stages& sp, const Stages& sq,
-                               const float2* outer, int outer_t, unsigned long long* stamps,
-                               cudaStream_t s) {
-  const size_t fixed = walk_fixed(p, q, sp, sq);
-  const int cap = walk_cap(p, q, c, fixed);
-  if (!walk_ok(p, q, c, cap)) return cudaErrorInvalidValue;
+static cudaError_t launch_cluster(const float2* x, float2* y, long long batch, int p, int q, int c,
+                                  const Stages& sp, const Stages& sq, const float2* outer,
+                                  int outer_t, unsigned long long* stamps, cudaStream_t s) {
+  const size_t smem = with_chain_tables(cluster_smem_fixed(p, q, c), sp, sq);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = walk_config<MaxM, kStamp>(cfg, attr, clusters, c, (size_t)cap * sizeof(float2) + fixed, s);
+  cudaError_t err = cluster_config<MaxM, kStamp>(cfg, attr, batch, c, smem, s);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, two_stage_walk_kernel<MaxM, kStamp>, x, y, batch, p, q, c, cap,
-                           sp, sq, outer, outer_t, stamps);
+  err = cudaLaunchKernelEx(&cfg, two_stage_cluster_kernel<MaxM, kStamp>, x, y, p, q, c, sp, sq,
+                           outer, outer_t, stamps);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 static bool cluster_size_ok(int c) { return c == 2 || c == 4 || c == 8 || c == 16; }
 
-// rf_two_stage_cluster_fft's checks and launch: the walk's form without a
+static bool aligned16(const void* a) { return reinterpret_cast<uintptr_t>(a) % 16 == 0; }
+
+// The outer twiddle's layout fits DFT_p's chain sp: a Bluestein stage at
+// its end folds the (q, p) table only (bluestein_fold).
+static bool outer_layout_ok(const Stages& sp, int outer_t) {
+  return !outer_t || sp.bm[sp.k - 1] == 0;
+}
+
+// rf_two_stage_cluster_fft's checks and launch: the kernel's form without a
 // Bluestein stage where neither chain has one; its stamped form (`stamps`
-// (clusters*c, kWalkPhases + 1)) where kStamp.
+// (batch*c, kClusterStamps)) where kStamp.
 template <bool kStamp>
-static int cluster_fft(const void* x, void* y, long long batch, long long clusters, int p, int q,
-                       int c, const Stages& sp, const Stages& sq, const void* outer, int outer_t,
+static int cluster_fft(const void* x, void* y, long long batch, int p, int q, int c,
+                       const Stages& sp, const Stages& sq, const void* outer, int outer_t,
                        unsigned long long* stamps, void* stream) {
-  if (batch <= 0 || clusters < 1 || clusters > batch || p < c || q <= 0 || outer == nullptr ||
-      !cluster_size_ok(c) || q % c || clusters * c > 0x7fffffffLL || q / c >= (1 << 16))
+  if (batch <= 0 || p < c || q <= 0 || outer == nullptr || !cluster_size_ok(c) || q % c ||
+      (q / c) % 2 || batch * c > 0x7fffffffLL || cluster_share(p, q, c) > kClusterShare ||
+      !aligned16(x) || !aligned16(y))
     return cudaErrorInvalidValue;
-  if (!stages_ok(sp, p) || !stages_ok(sq, q) || !chain_ok(sp, kWalkMaxM) ||
-      !chain_ok(sq, kWalkMaxM))
+  if (!stages_ok(sp, p) || !stages_ok(sq, q) || !chain_ok(sp, kClusterMaxM) ||
+      !chain_ok(sq, kClusterMaxM) || !outer_layout_ok(sp, outer_t))
     return cudaErrorInvalidValue;
   const auto* tx = static_cast<const float2*>(x);
   auto* ty = static_cast<float2*>(y);
   const auto* to = static_cast<const float2*>(outer);
   const auto s = static_cast<cudaStream_t>(stream);
   if (has_bluestein(sp) || has_bluestein(sq))
-    return launch_walk<kWalkMaxM, kStamp>(tx, ty, batch, clusters, p, q, c, sp, sq, to, outer_t,
-                                          stamps, s);
-  return launch_walk<0, kStamp>(tx, ty, batch, clusters, p, q, c, sp, sq, to, outer_t, stamps, s);
+    return launch_cluster<kClusterMaxM, kStamp>(tx, ty, batch, p, q, c, sp, sq, to, outer_t,
+                                                stamps, s);
+  return launch_cluster<0, kStamp>(tx, ty, batch, p, q, c, sp, sq, to, outer_t, stamps, s);
 }
 
 // The chain st with the Bluestein lengths of its stages (0: none).
@@ -628,6 +561,39 @@ extern "C" int rf_radix_max_active_clusters(int r, int* out) {
   }
 }
 
+namespace rf {
+
+// rf_two_stage_fft's checks and launch at every split but 16384: the
+// one-block kernel's form without a Bluestein stage where neither chain
+// has one; its stamped form (`stamps` (batch, kBlockStamps)) where kStamp.
+template <bool kStamp>
+static int one_block_fft(const float2* x, float2* y, long long batch, int p, int q,
+                         const Stages& sp, const Stages& sq, const float2* outer, int outer_t,
+                         unsigned long long* stamps, cudaStream_t s) {
+  const size_t smem = with_chain_tables(
+      (size_t)pad16(p * q) * sizeof(float2) + (size_t)(p + q) * sizeof(int), sp, sq);
+  if (smem > kSmemMax || (p * q) % 2 || !aligned16(x) || !aligned16(y))
+    return cudaErrorInvalidValue;
+  const auto kernel = has_bluestein(sp) || has_bluestein(sq)
+                          ? two_stage_kernel<kBlockMaxM, kStamp>
+                          : two_stage_kernel<0, kStamp>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)batch, kBlockThreads, smem, s>>>(x, y, p, q, sp, sq, outer, outer_t, stamps);
+  return cudaGetLastError();
+}
+
+// Whether rf_two_stage_fft's arguments and both chains fit the one-block
+// kernel.
+static bool one_block_chains(const Stages& sp, const Stages& sq, long long batch, int p, int q,
+                             const void* outer, int outer_t) {
+  return batch > 0 && batch <= 0x7fffffffLL && p > 0 && q > 0 && outer != nullptr &&
+         stages_ok(sp, p) && stages_ok(sq, q) && chain_ok(sp, kBlockMaxM) &&
+         chain_ok(sq, kBlockMaxM) && outer_layout_ok(sp, outer_t);
+}
+
+}  // namespace rf
+
 // x, y: (batch, p*q) complex64, both 16-byte aligned; sp / sq the chains
 // of DFT_p and DFT_q (the chain_args of each: padded_stage_args and the
 // Bluestein length M of each stage, 0 for the others, whose roots slot
@@ -647,15 +613,11 @@ extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, 
                                 int mq1, int mq2, const void* outer, int outer_t,
                                 long long clusters, void* stream) {
   using namespace rf;
-  if (batch <= 0 || batch > 0x7fffffffLL || p <= 0 || q <= 0 || outer == nullptr)
-    return cudaErrorInvalidValue;
   const Stages sp = with_bluestein(
       make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1), mp0, mp1, mp2);
   const Stages sq = with_bluestein(
       make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1), mq0, mq1, mq2);
-  if (!stages_ok(sp, p) || !stages_ok(sq, q) || !chain_ok(sp, kBlockMaxM) ||
-      !chain_ok(sq, kBlockMaxM))
-    return cudaErrorInvalidValue;
+  if (!one_block_chains(sp, sq, batch, p, q, outer, outer_t)) return cudaErrorInvalidValue;
   const auto* tx = static_cast<const float2*>(x);
   auto* ty = static_cast<float2*>(y);
   const auto* to = static_cast<const float2*>(outer);
@@ -666,43 +628,57 @@ extern "C" int rf_two_stage_fft(const void* x, void* y, long long batch, int p, 
     if (outer_t) return cudaErrorInvalidValue;
     return launch_radix<1>(tx, ty, batch, clusters, sp, to, to, to, to, nullptr, s);
   }
-  const size_t smem = (size_t)pad16(p * q) * sizeof(float2) + (size_t)(p + q) * sizeof(int) +
-                      (size_t)(chain_smem_len(sp) + chain_smem_len(sq)) * sizeof(float2);
-  if (smem > kSmemMax || (p * q) % 2 || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(y) % 16)
-    return cudaErrorInvalidValue;
-  // the form without a Bluestein stage where neither chain has one
-  const auto kernel = has_bluestein(sp) || has_bluestein(sq) ? two_stage_kernel<kBlockMaxM>
-                                                             : two_stage_kernel<0>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)batch, kBlockThreads, smem, s>>>(tx, ty, p, q, sp, sq, to, outer_t);
-  return cudaGetLastError();
+  return one_block_fft<false>(tx, ty, batch, p, q, sp, sq, to, outer_t, nullptr, s);
 }
 
-// x, y: (batch, p*q) complex64; sp / sq the chains of DFT_p and DFT_q (the
-// chain_args of each, as rf_two_stage_fft's; Bluestein lengths up to 1024);
-// outer: w_n^(k1*j2) as (q, p), or (p, q) where outer_t (ops/kernels/
-// fused.py outer_layout).  The two-stage walk: `clusters` thread-block
-// clusters of c blocks (2, 4, 8 or 16; 1 <= clusters <= batch, the
-// caller's persistent grid, ops/kernels/fused.py radix_grid), cluster g
-// computing the transforms g, g + clusters, ...; block b holds the
-// columns b*q/c .. of DFT_p and then the rows b*p/c .. of DFT_q; c must
-// divide q and the shares fit the walk (walk_ok; ops/kernels/fused.py
-// walk_fits).  Returns a cudaError_t code; launches on `stream`.
-extern "C" int rf_two_stage_cluster_fft(const void* x, void* y, long long batch,
-                                        long long clusters, int p, int q, int c, int kp, int rp0,
-                                        int rp1, int rp2, const void* rootsp0,
-                                        const void* rootsp1, const void* rootsp2,
-                                        const void* twp0, const void* twp1, int mp0, int mp1,
-                                        int mp2, int kq, int rq0, int rq1, int rq2,
-                                        const void* rootsq0, const void* rootsq1,
+#ifdef RF_PHASE_STAMPS
+// rf_two_stage_fft through the one-block kernel's stamped form (not at
+// 16384, whose stamps are rf_radix_phase_stamps'): stamps (batch,
+// kBlockStamps) uint64 %globaltimer nanoseconds.  Only the library built
+// with RF_PHASE_STAMPS has it (ops/kernels/_build.py load(phase_stamps=True);
+// tools/torch_phase_times.py).
+extern "C" int rf_two_stage_phase_stamps(
+    const void* x, void* y, long long batch, int p, int q, int kp, int rp0, int rp1, int rp2,
+    const void* rootsp0, const void* rootsp1, const void* rootsp2, const void* twp0,
+    const void* twp1, int mp0, int mp1, int mp2, int kq, int rq0, int rq1, int rq2,
+    const void* rootsq0, const void* rootsq1, const void* rootsq2, const void* twq0,
+    const void* twq1, int mq0, int mq1, int mq2, const void* outer, int outer_t, void* stamps,
+    void* stream) {
+  using namespace rf;
+  const Stages sp = with_bluestein(
+      make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1), mp0, mp1, mp2);
+  const Stages sq = with_bluestein(
+      make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1), mq0, mq1, mq2);
+  if (stamps == nullptr || !one_block_chains(sp, sq, batch, p, q, outer, outer_t) ||
+      (p == kSlice && q == kSlice))
+    return cudaErrorInvalidValue;
+  return one_block_fft<true>(static_cast<const float2*>(x), static_cast<float2*>(y), batch, p, q,
+                             sp, sq, static_cast<const float2*>(outer), outer_t,
+                             static_cast<unsigned long long*>(stamps),
+                             static_cast<cudaStream_t>(stream));
+}
+#endif
+
+// x, y: (batch, p*q) complex64, both 16-byte aligned; sp / sq the chains
+// of DFT_p and DFT_q (the chain_args of each, as rf_two_stage_fft's;
+// Bluestein lengths up to 1024); outer: w_n^(k1*j2) as (q, p), or as its
+// transpose (p, q) where outer_t.  One thread-block cluster of c blocks
+// (2, 4, 8 or 16) per transform, block b holding the columns b*q/c .. of
+// DFT_p and then the rows b*p/c .. of DFT_q; c must divide q into an even
+// width and each share fit kClusterShare values.  Returns a cudaError_t
+// code; launches on `stream`.
+extern "C" int rf_two_stage_cluster_fft(const void* x, void* y, long long batch, int p, int q,
+                                        int c, int kp, int rp0, int rp1, int rp2,
+                                        const void* rootsp0, const void* rootsp1,
+                                        const void* rootsp2, const void* twp0, const void* twp1,
+                                        int mp0, int mp1, int mp2, int kq, int rq0, int rq1,
+                                        int rq2, const void* rootsq0, const void* rootsq1,
                                         const void* rootsq2, const void* twq0, const void* twq1,
-                                        int mq0, int mq1, int mq2, const void* outer,
-                                        int outer_t, void* stream) {
+                                        int mq0, int mq1, int mq2, const void* outer, int outer_t,
+                                        void* stream) {
   using namespace rf;
   return cluster_fft<false>(
-      x, y, batch, clusters, p, q, c,
+      x, y, batch, p, q, c,
       with_bluestein(make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1), mp0,
                      mp1, mp2),
       with_bluestein(make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1), mq0,
@@ -711,22 +687,21 @@ extern "C" int rf_two_stage_cluster_fft(const void* x, void* y, long long batch,
 }
 
 #ifdef RF_PHASE_STAMPS
-// rf_two_stage_cluster_fft through the walk's stamped form: stamps
-// (clusters*c, kWalkPhases + 1) uint64 %globaltimer nanoseconds, a block's
-// start and that start plus the running sums of its phases.  Only the
+// rf_two_stage_cluster_fft through the kernel's stamped form: stamps
+// (batch*c, kClusterStamps) uint64 %globaltimer nanoseconds.  Only the
 // library built with RF_PHASE_STAMPS has it (ops/kernels/_build.py
 // load(phase_stamps=True); tools/torch_phase_times.py).
 extern "C" int rf_two_stage_cluster_phase_stamps(
-    const void* x, void* y, long long batch, long long clusters, int p, int q, int c, int kp,
-    int rp0, int rp1, int rp2, const void* rootsp0, const void* rootsp1, const void* rootsp2,
-    const void* twp0, const void* twp1, int mp0, int mp1, int mp2, int kq, int rq0, int rq1,
-    int rq2, const void* rootsq0, const void* rootsq1, const void* rootsq2, const void* twq0,
+    const void* x, void* y, long long batch, int p, int q, int c, int kp, int rp0, int rp1,
+    int rp2, const void* rootsp0, const void* rootsp1, const void* rootsp2, const void* twp0,
+    const void* twp1, int mp0, int mp1, int mp2, int kq, int rq0, int rq1, int rq2,
+    const void* rootsq0, const void* rootsq1, const void* rootsq2, const void* twq0,
     const void* twq1, int mq0, int mq1, int mq2, const void* outer, int outer_t, void* stamps,
     void* stream) {
   using namespace rf;
   if (stamps == nullptr) return cudaErrorInvalidValue;
   return cluster_fft<true>(
-      x, y, batch, clusters, p, q, c,
+      x, y, batch, p, q, c,
       with_bluestein(make_stages(kp, rp0, rp1, rp2, rootsp0, rootsp1, rootsp2, twp0, twp1), mp0,
                      mp1, mp2),
       with_bluestein(make_stages(kq, rq0, rq1, rq2, rootsq0, rootsq1, rootsq2, twq0, twq1), mq0,
@@ -735,33 +710,37 @@ extern "C" int rf_two_stage_cluster_phase_stamps(
 }
 #endif
 
-// cudaOccupancyMaxActiveClusters of the two-stage walk (its form with the
-// Bluestein stage) in clusters of c blocks at all the shared memory a
-// block may use (one block an SM: its 512 threads at up to 128 registers
-// fill the register file whatever its shared memory) into *out.
+// cudaOccupancyMaxActiveClusters of rf_two_stage_cluster_fft's kernel (its
+// form with the Bluestein stage) in clusters of c blocks at the most shared
+// memory it takes (a share of kClusterShare values, the index tables of p
+// <= 512 and q <= 2048 (K8's p + 2q = 4224 ints at 262144, K7's 1536 at
+// 512 x 512) and the roots of two 512-point chains of direct stages, an
+// upper bound) into *out.
 extern "C" int rf_two_stage_cluster_max_active_clusters(int c, int* out) {
   using namespace rf;
   if (!cluster_size_ok(c)) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = walk_config<kWalkMaxM, false>(cfg, attr, 1, c, kSmemMax, 0);
+  const size_t smem =
+      ((size_t)kClusterShare + 2 * 512) * sizeof(float2) + (512 + 2 * 2048) * sizeof(int);
+  cudaError_t err = cluster_config<kClusterMaxM, false>(cfg, attr, 1, c, smem, 0);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(out, two_stage_walk_kernel<kWalkMaxM, false>, &cfg);
+  return cudaOccupancyMaxActiveClusters(out, two_stage_cluster_kernel<kClusterMaxM, false>, &cfg);
 }
 
 // The registers a thread and the local memory (spills) of K7's kernels
 // into *regs and *local_bytes (cudaFuncGetAttributes; chip_smoke.py prints
-// them): form 0 and 1 the walk without and with the Bluestein stage, 2 and
-// 3 the one-block kernel without and with it.
-extern "C" int rf_two_stage_walk_attrs(int form, int* regs, int* local_bytes) {
+// them): form 0 and 1 the cluster kernel without and with the Bluestein
+// stage, 2 and 3 the one-block kernel without and with it.
+extern "C" int rf_two_stage_attrs(int form, int* regs, int* local_bytes) {
   using namespace rf;
   cudaFuncAttributes a;
   cudaError_t err;
   switch (form) {
-    case 0: err = cudaFuncGetAttributes(&a, two_stage_walk_kernel<0, false>); break;
-    case 1: err = cudaFuncGetAttributes(&a, two_stage_walk_kernel<kWalkMaxM, false>); break;
-    case 2: err = cudaFuncGetAttributes(&a, two_stage_kernel<0>); break;
-    case 3: err = cudaFuncGetAttributes(&a, two_stage_kernel<kBlockMaxM>); break;
+    case 0: err = cudaFuncGetAttributes(&a, two_stage_cluster_kernel<0, false>); break;
+    case 1: err = cudaFuncGetAttributes(&a, two_stage_cluster_kernel<kClusterMaxM, false>); break;
+    case 2: err = cudaFuncGetAttributes(&a, two_stage_kernel<0, false>); break;
+    case 3: err = cudaFuncGetAttributes(&a, two_stage_kernel<kBlockMaxM, false>); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;

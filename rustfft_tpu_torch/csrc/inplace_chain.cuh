@@ -46,7 +46,8 @@ struct OuterFold {
 // its transpose (p, q) at (1, q), whose reads are coalesced where a stage
 // runs neighbouring columns j2 on neighbouring threads (the register and
 // direct stages; a Bluestein stage runs a column a warp, neighbouring k1 on
-// neighbouring lanes, and reads (q, p) so).
+// neighbouring lanes, takes the (q, p) table only and runs OuterFold,
+// bluestein_fold below).
 struct OuterFoldS {
   const float2* __restrict__ outer;
   int sj, sk;
@@ -365,6 +366,14 @@ static __device__ __forceinline__ void bluestein_half(float2 (&y)[V / 2], const 
 // the last layer of the second FFT_M joins them in the store.  So a lane
 // holds V/2 values, not V (16 at M = 1024), and reads each table entry
 // where it uses it (opaque) rather than keeping it live across the halves.
+// The fold of a Bluestein stage: the (q, p) table only (a column a warp,
+// neighbouring k1 on neighbouring lanes), so K7's fold gives its table and
+// stride as OuterFold where the stage uses them.
+static __device__ __forceinline__ OuterFold bluestein_fold(const OuterFold& f) { return f; }
+static __device__ __forceinline__ OuterFold bluestein_fold(const OuterFoldS& f) {
+  return OuterFold{f.outer, f.sj, f.r1, f.r0};
+}
+
 template <int M, class Fold = OuterFold>
 static __device__ void stage_bluestein_inplace(float2* buf, int r, int lead, int rest, int T,
                                                const float2* tab, const float2* __restrict__ tw,
@@ -411,7 +420,7 @@ static __device__ void stage_bluestein_inplace(float2* buf, int r, int lead, int
     const int base = opaque_after(l * r * step + rt, y[H - 1]);
     const float2* chirp = opaque_after(tab, y[H - 1]);
     const float2* tws = opaque_after(tw, y[H - 1]);
-    Fold out = fold;
+    OuterFold out = bluestein_fold(fold);
     out.outer = opaque_after(fold.outer, y[H - 1]);
     const int jr = rt / T;
 #pragma unroll
@@ -535,7 +544,8 @@ static bool chain_ok(const Stages& st, int max_m) {
 // passed a barrier after it.  The direct stages' roots from
 // load_chain_tables at `stables`; no Bluestein length is above MaxM (none
 // at MaxM = 0).  kFact: K7's chains, its factored radices and its fold
-// (OuterFoldS: the twiddle at outer[j2*p + k1*sk]).
+// (OuterFoldS: the twiddle at outer[j2*p + k1*sk]; p = 1, sk = q reads the
+// (p, q) transpose).
 template <int MaxM, bool kFact = false>
 static __device__ void chain_inplace(float2* buf, int m, int lead, int T, const Stages& st,
                                      const float2* stables, const float2* outer, int p,

@@ -74,13 +74,12 @@ static __device__ __forceinline__ void gauss_dft(const float2 (&v)[R], bool inve
 // wait at the cluster barrier before the exchange, the exchange, the wait at
 // the barrier after it, stage B's radix 16, stage B's radix 8 with the
 // store), each lap read by thread 0 after a block barrier
-// (tools/torch_phase_times.py).  K7's two-stage walk keeps its own count of
-// phases (csrc/fused.cu kWalkPhases).
+// (tools/torch_phase_times.py).
 constexpr int kRadixPhases = 7;
 
-template <bool kStamp, int kPhases = kRadixPhases>
+template <bool kStamp>
 struct RadixClock {
-  unsigned long long start = 0, mark = 0, sum[kPhases] = {};
+  unsigned long long start = 0, mark = 0, sum[kRadixPhases] = {};
   __device__ void begin() {
     if constexpr (kStamp) {
       __syncthreads();
@@ -98,9 +97,9 @@ struct RadixClock {
   __device__ void write(unsigned long long* stamps) const {
     if constexpr (kStamp) {
       if (threadIdx.x == 0) {
-        unsigned long long* out = stamps + (size_t)blockIdx.x * (kPhases + 1);
+        unsigned long long* out = stamps + (size_t)blockIdx.x * (kRadixPhases + 1);
         out[0] = start;
-        for (int i = 0; i < kPhases; ++i) out[i + 1] = out[i] + sum[i];
+        for (int i = 0; i < kRadixPhases; ++i) out[i + 1] = out[i] + sum[i];
       }
     }
   }

@@ -83,10 +83,10 @@ _SIGNATURES = {
     "rf_radix_max_active_clusters": [_int, ctypes.POINTER(_int)],
     "rf_two_stage_fft": [_vp, _vp, _ll, _int, _int] + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
                         + [_vp, _int, _ll, _vp],
-    "rf_two_stage_cluster_fft": [_vp, _vp, _ll, _ll, _int, _int, _int]
+    "rf_two_stage_cluster_fft": [_vp, _vp, _ll, _int, _int, _int]
                                 + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2 + [_vp, _int, _vp],
     "rf_two_stage_cluster_max_active_clusters": [_int, ctypes.POINTER(_int)],
-    "rf_two_stage_walk_attrs": [_int, ctypes.POINTER(_int), ctypes.POINTER(_int)],
+    "rf_two_stage_attrs": [_int, ctypes.POINTER(_int), ctypes.POINTER(_int)],
     "rf_dense_fft": [_vp, _vp, _ll, _int, _int, _vp, _vp, _ll, _vp],
     "rf_dense_pair_resident": [_int, ctypes.POINTER(_int)],
     "rf_largepad_col_stage": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3 + [_vp, _vp],
@@ -115,7 +115,10 @@ _SIGNATURES = {
 _STAMP_SIGNATURES = {
     "rf_radix_phase_stamps": [_vp, _vp, _ll, _ll, _int] + [_int] * 4 + [_vp] * 5 + [_vp] * 4
                              + [_vp, _vp],
-    "rf_two_stage_cluster_phase_stamps": [_vp, _vp, _ll, _ll, _int, _int, _int]
+    "rf_two_stage_phase_stamps": [_vp, _vp, _ll, _int, _int]
+                                 + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
+                                 + [_vp, _int, _vp, _vp],
+    "rf_two_stage_cluster_phase_stamps": [_vp, _vp, _ll, _int, _int, _int]
                                          + ([_int] * 4 + [_vp] * 5 + [_int] * 3) * 2
                                          + [_vp, _int, _vp, _vp],
     "rf_largepad_col_phase_stamps": [_vp, _vp, _ll] + [_int] * 7 + [_vp] * 5 + [_int] * 3

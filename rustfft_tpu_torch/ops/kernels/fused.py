@@ -28,14 +28,14 @@ signal in device memory:
       factored chains, 16-byte loads and stores (16384: the radix body at
       R = 1).
   `two_stage_cluster_fft` (K7's cluster band, 28928 .. 261632): the same
-      function on the two-stage walk (csrc/fused.cu two_stage_walk_kernel):
-      a persistent grid of clusters of c = choose_cluster(n) blocks, each
-      walking the batch.  Block b runs DFT_p on the columns j2 of its share
-      while the next transform's share is being copied in behind it, pulls
-      the rows k1 of its share from every block through distributed shared
-      memory, and runs DFT_q on them.  K7's chains run the radices 3, 5, 6,
-      7, 9, 10, 12, 14, 15 and 20 in factored register forms
-      (FACTORED_RADICES; k7_chain_plain mirrors them).
+      function on one thread-block cluster of c = choose_cluster(n) blocks
+      per transform.  Block b runs DFT_p on the columns j2 of its share,
+      pulls the rows k1 of its share from every block through distributed
+      shared memory, and runs DFT_q on them; 16-byte loads and stores.
+      Both K7 kernels' chains run the radices 3, 5, 6, 7, 9, 10, 12, 14, 15
+      and 20 in factored register forms (FACTORED_RADICES; k7_chain_plain
+      mirrors them) and read the outer twiddle transposed where the caller
+      gives outer_transposed's table.
   `three_stage_fft` (K8: `_fused_kernel_3s`): n = p * q1 * q2, DFT_p, the
       outer twiddle, then DFT_q as DFT_q1, the inner twiddle w_q^(ka*jb)
       and DFT_q2.  That is the two-stage function at (p, q): the card runs
@@ -86,15 +86,11 @@ RADIX_PQ = 128
 #: above it run the Bluestein stage
 MAX_INPLACE_RADIX = 256
 
-#: the two-stage walk's blocks per transform (csrc/fused.cu
-#: two_stage_walk_kernel), the most values of a block's column or row share
-#: (kWalkShare), its threads and the values a thread holds across the
-#: exchange's second barrier (kWalkHold: the most that the row share A may
-#: overlap the column share L is WALK_HOLD * WALK_THREADS)
+#: the cluster kernel's blocks per transform, and the most values a block
+#: holds: 512 threads carry a share through the exchange in registers, 32
+#: values each (csrc/fused.cu two_stage_cluster_kernel)
 CLUSTER_SIZES = (2, 4, 8, 16)
-CLUSTER_SHARE_MAX = 16384
-WALK_THREADS = 512
-WALK_HOLD = 16
+CLUSTER_SHARE_MAX = 512 * 32
 
 #: the radices K7's chains run in factored register forms
 #: (csrc/factored_dft.cuh): 3, 5 and 7 as butterflies on conjugate pairs,
@@ -142,11 +138,9 @@ def _with_chain_tables(fixed: int, radices: Sequence[int]) -> int:
 
 
 def two_stage_smem_bytes(n: int, p_radices: Sequence[int], q_radices: Sequence[int]) -> int:
-    """Shared memory one transform would take in place in one block (rounded
-    up to 16 values), with p + q index ints and the chains' tables
-    (_with_chain_tables): the rule that bounds the one-block band (14464 ..
-    28800), whose sizes run the two-stage walk since it replaced the
-    one-block kernel."""
+    """Shared memory of the in-place two-stage kernel: one transform
+    (rounded up to 16 values), the store's two index tables (p + q ints)
+    and the chains' tables (_with_chain_tables)."""
     return _with_chain_tables(-(-n // 16) * 16 * 8 + 4 * (math.prod(p_radices)
                                                           + math.prod(q_radices)),
                               tuple(p_radices) + tuple(q_radices))
@@ -170,93 +164,56 @@ def _aligned(n: int, dtype) -> bool:
 
 def two_stage_supported(n: int, dtype) -> bool:
     """The one-block two-stage route: aligned (_aligned) and one transform
-    with its roots would fit one block's shared memory in place (14464 ..
+    with its roots fits one block's shared memory in place (14464 ..
     28800)."""
     return _aligned(n, dtype) and _one_block_fits(*choose_pq(n))
 
 
 def cluster_share(p: int, q: int, c: int) -> int:
-    """Values of a walk block's larger share: its column share (p rows of
-    q/c columns) or its widest row share (ceil(p/c) rows of q)
-    (csrc/fused.cu cluster_share)."""
+    """Values a cluster kernel's block holds: its column share (p rows of
+    q/c columns) or its widest row share (ceil(p/c) rows of q), whichever is
+    more (csrc/fused.cu cluster_share)."""
     return max(p * (q // c), -(-p // c) * q)
 
 
-def _pad16(v: int) -> int:
-    return -(-v // 16) * 16
-
-
-def walk_fixed_bytes(p: int, q: int) -> int:
-    """Shared memory of a walk block beside its buffer: the roots of both
-    chains' direct stages and p + 2q index ints (csrc/fused.cu
-    walk_fixed)."""
-    return _with_chain_tables(4 * (p + 2 * q), large.stage_radices(p) + large.stage_radices(q))
-
-
-def walk_cap(p: int, q: int, c: int) -> int:
-    """A walk block's buffer in values (csrc/fused.cu walk_cap): its column
-    share L and its widest row share A side by side (each rounded up to 16
-    values) where they fit, else all the values a block may hold beside
-    walk_fixed_bytes."""
-    want = _pad16(p * (q // c)) + _pad16(-(-p // c) * q)
-    return min(want, (_build.SMEM_MAX - walk_fixed_bytes(p, q)) // 8 // 16 * 16)
-
-
-def walk_overlap(p: int, q: int, c: int) -> int:
-    """Values of the widest row share A that lie in the column share L at
-    (p, q, c): 0 where both fit side by side.  The exchange holds them in
-    registers, and the next transform's copies into them wait for the
-    store."""
-    return max(0, _pad16(p * (q // c)) + _pad16(-(-p // c) * q) - walk_cap(p, q, c))
-
-
-def walk_fits(p: int, q: int, c: int) -> bool:
-    """The walk takes (p, q) on clusters of c (csrc/fused.cu walk_ok and
-    cluster_fft's checks): c in CLUSTER_SIZES divides q, p >= c, each share
-    at most CLUSTER_SHARE_MAX values and the overlap at most WALK_HOLD
-    values a thread."""
-    return (c in CLUSTER_SIZES and q % c == 0 and p >= c
-            and cluster_share(p, q, c) <= CLUSTER_SHARE_MAX
-            and walk_overlap(p, q, c) <= WALK_HOLD * WALK_THREADS)
-
-
 def cluster_smem_bytes(p: int, q: int, c: int) -> int:
-    """Shared memory of a walk block: walk_cap values and walk_fixed_bytes."""
-    return 8 * walk_cap(p, q, c) + walk_fixed_bytes(p, q)
+    """Shared memory of a cluster kernel's block: its share (rounded up to
+    16 values), the index tables (p + 2q ints) and the chains' tables
+    (_with_chain_tables); at most 137672 bytes over K7's band (at 506 x
+    512), 148480 over K8's cluster form (at 128 x 2048)."""
+    return _with_chain_tables(-(-cluster_share(p, q, c) // 16) * 16 * 8 + 4 * (p + 2 * q),
+                              large.stage_radices(p) + large.stage_radices(q))
 
 
 @functools.lru_cache(maxsize=4096)
 def choose_cluster(n: int, split: Optional[Tuple[int, int]] = None) -> Optional[int]:
-    """Blocks per transform of the two-stage walk at split = (p, q)
-    (default choose_pq(n)), for either band: the fewest of CLUSTER_SIZES
-    the walk takes (walk_fits), or None.
+    """Blocks per transform of the cluster kernel at split = (p, q)
+    (default choose_pq(n)): the fewest of CLUSTER_SIZES that divides q and
+    whose shares hold at most CLUSTER_SHARE_MAX values, or None.
 
-    The fewest blocks give the widest load segments (q/c columns of a row),
-    the least of the exchange across SMs and the most clusters the card
-    holds at once (16 blocks fill 112 of 132 SMs).  Where the shares
-    overlap (walk_overlap, 254 of the cluster band's sizes, at most 4480
-    values), the part of the next share's load under A waits for the store;
-    on the card the fewer blocks were faster all the same: 28928 x 4096 ran
-    5.85 ms on 2 blocks (an overlap of 144 values) against 6.82 on 4, 7.47
-    on 8 and 11.14 on 16; 49152 x 2048 3.56 on 4 against 3.71 on 8 and 5.78
-    on 16; 98304 x 1024 3.82 on 8 against 4.53 on 16 (PR 28's first
-    measurement, tools/torch_cluster_sizes.py; NVIDIA H100 80GB HBM3, 700
-    W).  So 28928 (226 x 128) takes 2 blocks, 49152 (192 x 256) 4, 98304
-    (256 x 384) 8, 196608 (384 x 512) 16 and 245760 (480 x 512) 16 with an
-    overlap of 2480 values.
+    The fewest blocks that fit give the widest load segments (q/c columns
+    of a row, 8q/c bytes) and the fewest blocks waiting on each cluster
+    barrier; more blocks only shorten each thread's exchange (the share it
+    holds in registers).  On the card the fewest were the fastest at every
+    size timed: 49152 x 2048 ran 3.407 ms on 4 blocks, 3.929 on 8 and 6.859
+    on 16 (tools/torch_cluster_sizes.py; NVIDIA H100 80GB HBM3, 700 W).  The
+    cap is the exchange's: a share goes through 512 threads' registers, 32
+    values each, since a second buffer does not fit beside one of up to 128
+    KiB.  So 28928 (226 x 128) takes 2 blocks, 49152 (192 x 256) 4, 98304
+    (256 x 384) 8 and 196608 (384 x 512) 16.
     """
     sp = split or choose_pq(n)
     if sp is None:
         return None
     p, q = sp
-    return next((c for c in CLUSTER_SIZES if walk_fits(p, q, c)), None)
+    return next((c for c in CLUSTER_SIZES
+                 if q % c == 0 and cluster_share(p, q, c) <= CLUSTER_SHARE_MAX), None)
 
 
 def two_stage_cluster_supported(n: int, dtype) -> bool:
-    """The cluster two-stage route: aligned (_aligned), one block would not
-    hold a transform (two_stage_supported), and the walk does on a cluster
-    of at most 16 blocks (choose_cluster): the aligned sizes from 28928 to
-    261632."""
+    """The cluster two-stage route: aligned (_aligned), one block does not
+    hold a transform (two_stage_supported), and a cluster of at most 16
+    blocks does (choose_cluster): the aligned sizes from 28928 to 261632."""
     return (_aligned(n, dtype) and not _one_block_fits(*choose_pq(n))
             and choose_cluster(n) is not None)
 
@@ -644,30 +601,40 @@ def _check_two_stage(x, p, p_radices, q_radices, tables, what):
         raise ValueError(f"{what}: tables on {outer.device}, input on {x.device}")
 
 
-def outer_layout(p: int, outer: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """(table, transposed) of the outer twiddle for K7's kernels: the (q, p)
-    table where DFT_p's last stage is a Bluestein stage (a column a warp,
-    neighbouring k1 on neighbouring lanes), else its transpose (p, q), the
-    same values, read coalesced by neighbouring columns j2 on neighbouring
-    threads (csrc/inplace_chain.cuh OuterFoldS).  The transpose is made
-    once a table and kept on it (tables are not written after they are
-    made)."""
+def outer_transposed(p: int, outer: np.ndarray) -> Optional[np.ndarray]:
+    """The (p, q) copy of two_stage_tables' outer twiddle (q, p) that K7's
+    kernels read in its place where DFT_p's last stage is a register or
+    direct stage, whose neighbouring threads run neighbouring columns j2
+    and so read neighbouring entries of it (csrc/inplace_chain.cuh
+    OuterFoldS); None where that stage is a Bluestein stage (a column a
+    warp, neighbouring k1 on neighbouring lanes), which reads the (q, p)
+    table.  make_fused_two_stage_fn makes it once with the plan's tables
+    and passes it to the wrappers as outer_pq."""
     if bluestein_stage_m(large.stage_radices(p)[-1]):
+        return None
+    return np.ascontiguousarray(outer.T)
+
+
+def _outer_arg(p, q, outer, outer_pq, x, what):
+    """(table, transposed) that a K7 launch reads: outer_pq where it is
+    given and DFT_p's last stage takes it, else the (q, p) table."""
+    if outer_pq is None or bluestein_stage_m(large.stage_radices(p)[-1]):
         return outer, 0
-    out = getattr(outer, "_k7_transposed", None)
-    if out is None:
-        out = outer.t().contiguous()
-        outer._k7_transposed = out
-    return out, 1
+    if tuple(outer_pq.shape) != (p, q) or outer_pq.device != x.device:
+        raise ValueError(f"{what}: outer_pq {tuple(outer_pq.shape)} on {outer_pq.device}; "
+                         f"expected ({p}, {q}) on {x.device}")
+    return outer_pq, 1
 
 
-def _launch_two_stage(x, p, q, tables, what):
+def _launch_two_stage(x, p, q, tables, what, outer_pq=None, stamps=None):
     """One launch of csrc/fused.cu's rf_two_stage_fft on a non-empty batch
     at chains large.stage_radices(p) and (q); y.  p = q = 128 runs the radix
     body at R = 1 on a persistent grid (radix_grid), every other split the
-    one-block kernel (K7's factored chains, 16-byte loads and stores), which
-    raises where a transform does not fit one block's shared memory in
-    place."""
+    one-block kernel (K7's factored chains, 16-byte loads and stores; the
+    outer twiddle from outer_pq where given, _outer_arg), which raises
+    where a transform does not fit one block's shared memory in place.
+    With `stamps`, a (batch, ONE_BLOCK_PHASE_STAMPS) int64 tensor, its
+    stamped form from the library built for it (not at 16384)."""
     p_radices, q_radices = large.stage_radices(p), large.stage_radices(q)
     roots_p, tws_p, outer, roots_q, tws_q = tables
     if (two_stage_smem_bytes(p * q, p_radices, q_radices) > _build.SMEM_MAX
@@ -680,15 +647,16 @@ def _launch_two_stage(x, p, q, tables, what):
     if p_radices == q_radices == (16, 8):  # 16384: the radix body at R = 1
         clusters = radix_grid(x.shape[0], _resident_clusters(x.device, 1))
     else:
-        outer, transposed = outer_layout(p, outer)
-    lib = _build.load()
+        outer, transposed = _outer_arg(p, q, outer, outer_pq, x, what)
+    lib = _build.load(phase_stamps=stamps is not None)
+    args = (x.data_ptr(), y.data_ptr(), x.shape[0], p, q, *chain_args(p_radices, roots_p, tws_p),
+            *chain_args(q_radices, roots_q, tws_q), outer.data_ptr(), transposed)
     with torch.cuda.device(x.device):
-        code = lib.rf_two_stage_fft(
-            x.data_ptr(), y.data_ptr(), x.shape[0], p, q,
-            *chain_args(p_radices, roots_p, tws_p),
-            *chain_args(q_radices, roots_q, tws_q), outer.data_ptr(), transposed, clusters,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if stamps is None:
+            code = lib.rf_two_stage_fft(*args, clusters, stream)
+        else:
+            code = lib.rf_two_stage_phase_stamps(*args, stamps.data_ptr(), stream)
     _build.check(lib, code, what)
     return y
 
@@ -698,13 +666,15 @@ def two_stage_fft_plain(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor
     return _two_stage_plain(x, p, large.stage_radices(p), large.stage_radices(q), tables)
 
 
-def two_stage_fft(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
+def two_stage_fft(x: torch.Tensor, p: int, q: int, tables, outer_pq=None) -> torch.Tensor:
     """DFT of every row of x (batch, p*q) complex64: DFT_p, the outer
     twiddle, DFT_q, natural order; each chain at large.stage_radices.
 
-    tables = two_stage_tables(p, large.stage_radices(q)) on x's device.  A
-    CPU tensor runs the plain version; a CUDA tensor the one-block kernel
-    (the radix body at R = 1 at 16384), or raises.
+    tables = two_stage_tables(p, large.stage_radices(q)) on x's device;
+    outer_pq, optional, outer_transposed(p, tables[2]) on x's device, which
+    the kernel then reads in place of tables[2] (the same values).  A CPU
+    tensor runs the plain version; a CUDA tensor the one-block kernel (the
+    radix body at R = 1 at 16384), or raises.
     """
     what = "two_stage_fft"
     _check_two_stage(x, p, large.stage_radices(p), large.stage_radices(q), tables, what)
@@ -713,12 +683,40 @@ def two_stage_fft(x: torch.Tensor, p: int, q: int, tables) -> torch.Tensor:
     require_cuda(x, what)
     if x.shape[0] == 0:
         return torch.empty_like(x)
-    y = _launch_two_stage(x, p, q, tables, what)
+    y = _launch_two_stage(x, p, q, tables, what, outer_pq)
     two_stage_fft.launches += 1
     return y
 
 
 two_stage_fft.launches = 0
+
+#: the one-block kernel's phase stamps a block: its start, and the ends of
+#: the load, DFT_p, DFT_q and the store
+ONE_BLOCK_PHASES = ("load", "DFT_p", "DFT_q", "store")
+ONE_BLOCK_PHASE_STAMPS = len(ONE_BLOCK_PHASES) + 1
+
+
+def two_stage_phase_stamps(x: torch.Tensor, p: int, q: int, tables, outer_pq=None):
+    """two_stage_fft on the card through the one-block kernel's stamped
+    form (not at 16384, whose body radix_phase_stamps stamps), which only
+    the library built with RF_PHASE_STAMPS holds (no route launches it):
+    (y, stamps), stamps (batch, ONE_BLOCK_PHASE_STAMPS) int64 nanoseconds
+    of %globaltimer, read by each block's thread 0 after a block barrier at
+    the start and at the end of each of ONE_BLOCK_PHASES."""
+    what = "two_stage_phase_stamps"
+    _check_two_stage(x, p, large.stage_radices(p), large.stage_radices(q), tables, what)
+    require_cuda(x, what)
+    if x.shape[0] == 0 or p == q == RADIX_PQ:
+        raise ValueError(f"{what}: no one-block kernel's phases at batch {x.shape[0]}, "
+                         f"{p} x {q}")
+    stamps = torch.zeros((x.shape[0], ONE_BLOCK_PHASE_STAMPS), dtype=torch.int64,
+                         device=x.device)
+    y = _launch_two_stage(x, p, q, tables, what, outer_pq, stamps)
+    two_stage_phase_stamps.launches += 1
+    return y, stamps
+
+
+two_stage_phase_stamps.launches = 0
 
 
 def two_stage_cluster_fft_plain(x: torch.Tensor, p: int, q: int, c: int, tables) -> torch.Tensor:
@@ -745,25 +743,24 @@ def _check_cluster(x, p, q, c, tables, what):
         raise ValueError(f"{what}: a cluster of {c} blocks does not split q={q}")
 
 
-def _launch_walk(x, p, q, c, tables, what, stamps=None):
-    """One launch of csrc/fused.cu's two-stage walk on a persistent grid of
-    radix_grid(batch, walk_max_active_clusters(c)) clusters of c blocks;
-    y.  With `stamps`, a (clusters*c, PHASE_STAMPS) int64 tensor, its
-    stamped form from the library built for it
-    (_build.load(phase_stamps=True))."""
+def _launch_cluster(x, p, q, c, tables, what, outer_pq=None, stamps=None):
+    """One launch of csrc/fused.cu's cluster kernel (the outer twiddle from
+    outer_pq where given, _outer_arg); y.  With `stamps`, a (batch*c,
+    PHASE_STAMPS) int64 tensor, its stamped form from the library built for
+    it (_build.load(phase_stamps=True))."""
     require_cuda(x, what)
-    if not walk_fits(p, q, c):
-        raise ValueError(f"{what}: the walk takes c in {CLUSTER_SIZES} dividing q, p >= c, "
-                         f"shares of at most {CLUSTER_SHARE_MAX} values overlapping by at most "
-                         f"{WALK_HOLD * WALK_THREADS}; got p={p}, q={q}, c={c}")
+    if (c not in CLUSTER_SIZES or cluster_share(p, q, c) > CLUSTER_SHARE_MAX
+            or (q // c) % 2):
+        raise ValueError(f"{what}: the kernel takes c in {CLUSTER_SIZES} with shares of at most "
+                         f"{CLUSTER_SHARE_MAX} values and q/c even; got p={p}, q={q}, c={c}")
     y = torch.empty_like(x)
     if x.shape[0] == 0:
         return y
+    x = _aligned16(x)
     roots_p, tws_p, outer, roots_q, tws_q = tables
-    outer, transposed = outer_layout(p, outer)
+    outer, transposed = _outer_arg(p, q, outer, outer_pq, x, what)
     lib = _build.load(phase_stamps=stamps is not None)
-    clusters = radix_grid(x.shape[0], _walk_resident(x.device, c))
-    args = (x.data_ptr(), y.data_ptr(), x.shape[0], clusters, p, q, c,
+    args = (x.data_ptr(), y.data_ptr(), x.shape[0], p, q, c,
             *chain_args(large.stage_radices(p), roots_p, tws_p),
             *chain_args(large.stage_radices(q), roots_q, tws_q), outer.data_ptr(), transposed)
     with torch.cuda.device(x.device):
@@ -776,52 +773,47 @@ def _launch_walk(x, p, q, c, tables, what, stamps=None):
     return y
 
 
-def two_stage_cluster_fft(x: torch.Tensor, p: int, q: int, c: int, tables) -> torch.Tensor:
+def two_stage_cluster_fft(x: torch.Tensor, p: int, q: int, c: int, tables,
+                          outer_pq=None) -> torch.Tensor:
     """DFT of every row of x (batch, p*q) complex64 as two_stage_fft
-    computes it, by the two-stage walk on clusters of c blocks on the card
-    (csrc/fused.cu two_stage_walk_kernel): walk_fits(p, q, c), radices up
-    to 512 (above MAX_INPLACE_RADIX a Bluestein stage).
+    computes it, by one thread-block cluster of c blocks per row on the
+    card (csrc/fused.cu two_stage_cluster_kernel): c in CLUSTER_SIZES
+    dividing q into an even width, every share at most CLUSTER_SHARE_MAX
+    values, radices up to 512 (above MAX_INPLACE_RADIX a Bluestein stage).
 
-    tables = two_stage_tables(p, large.stage_radices(q)) on x's device.
-    CPU tensors run the plain version (any c dividing q); CUDA tensors
-    launch the kernel or raise.
+    tables = two_stage_tables(p, large.stage_radices(q)) on x's device;
+    outer_pq as two_stage_fft's.  CPU tensors run the plain version (any c
+    dividing q); CUDA tensors launch the kernel or raise.
     """
     what = "two_stage_cluster_fft"
     _check_cluster(x, p, q, c, tables, what)
     if x.device.type == "cpu":
         return two_stage_cluster_fft_plain(x, p, q, c, tables)
-    y = _launch_walk(x, p, q, c, tables, what)
+    y = _launch_cluster(x, p, q, c, tables, what, outer_pq)
     two_stage_cluster_fft.launches += 1
     return y
 
 
 two_stage_cluster_fft.launches = 0
 
-#: the walk's phases a block, summed over its transforms: the wait for a
-#: share's copies (the lookahead's wait; the first share's whole load),
-#: DFT_p, the exchange (its two cluster barriers and the pulls), the load
-#: (the issue of the next share's copies below A), DFT_q, the store (with
-#: the late copies' issue)
-PHASES = ("wait", "DFT_p", "exchange", "load", "DFT_q", "store")
+#: the cluster kernel's phase stamps a block: its start, and the ends of the
+#: load, DFT_p, the exchange, DFT_q and the store
+PHASES = ("load", "DFT_p", "exchange", "DFT_q", "store")
 PHASE_STAMPS = len(PHASES) + 1
 
 
-def two_stage_cluster_phase_stamps(x: torch.Tensor, p: int, q: int, c: int, tables):
-    """two_stage_cluster_fft on the card through the walk's stamped form,
+def two_stage_cluster_phase_stamps(x: torch.Tensor, p: int, q: int, c: int, tables,
+                                   outer_pq=None):
+    """two_stage_cluster_fft on the card through the kernel's stamped form,
     which only the library built with RF_PHASE_STAMPS holds (no route
-    launches it; the first call builds that library), at any split the
-    walk takes (the one-block band's at choose_cluster too): (y, stamps),
-    stamps (clusters*c, PHASE_STAMPS) int64 nanoseconds of %globaltimer,
-    each block's start and that start plus the running sums of its PHASES,
-    each read by the block's thread 0 after a block barrier."""
+    launches it; the first call builds that library): (y, stamps), stamps
+    (batch*c, PHASE_STAMPS) int64 nanoseconds of %globaltimer, read by each
+    block's thread 0 after a block barrier at the start and at the end of
+    each of PHASES."""
     what = "two_stage_cluster_phase_stamps"
     _check_cluster(x, p, q, c, tables, what)
-    require_cuda(x, what)
-    if x.shape[0] == 0:
-        raise ValueError(f"{what}: an empty batch has no phases")
-    blocks = radix_grid(x.shape[0], _walk_resident(x.device, c)) * c
-    stamps = torch.zeros((blocks, PHASE_STAMPS), dtype=torch.int64, device=x.device)
-    y = _launch_walk(x, p, q, c, tables, what, stamps)
+    stamps = torch.zeros((x.shape[0] * c, PHASE_STAMPS), dtype=torch.int64, device=x.device)
+    y = _launch_cluster(x, p, q, c, tables, what, outer_pq, stamps)
     two_stage_cluster_phase_stamps.launches += 1
     return y, stamps
 
@@ -830,8 +822,9 @@ two_stage_cluster_phase_stamps.launches = 0
 
 
 def two_stage_cluster_max_active_clusters(c: int) -> int:
-    """cudaOccupancyMaxActiveClusters of the two-stage walk's cluster of c
-    blocks on the current device (one block an SM)."""
+    """cudaOccupancyMaxActiveClusters of two_stage_cluster_fft's cluster of
+    c blocks on the current device, at the most shared memory a block
+    takes."""
     lib = _build.load()
     out = ctypes.c_int(0)
     _build.check(lib, lib.rf_two_stage_cluster_max_active_clusters(c, ctypes.byref(out)),
@@ -839,27 +832,16 @@ def two_stage_cluster_max_active_clusters(c: int) -> int:
     return out.value
 
 
-@functools.lru_cache(maxsize=None)
-def _walk_resident_on(device_index: int, c: int) -> int:
-    with torch.cuda.device(device_index):
-        return two_stage_cluster_max_active_clusters(c)
-
-
-def _walk_resident(device: torch.device, c: int) -> int:
-    return _walk_resident_on(
-        device.index if device.index is not None else torch.cuda.current_device(), c)
-
-
-def two_stage_walk_attrs(bluestein: bool, one_block: bool = False) -> Tuple[int, int]:
-    """(registers a thread, local memory bytes) of the two-stage walk's form
-    (or, with one_block, the one-block kernel's) with or without the
+def two_stage_attrs(bluestein: bool, one_block: bool = False) -> Tuple[int, int]:
+    """(registers a thread, local memory bytes) of the cluster kernel's
+    form (or, with one_block, the one-block kernel's) with or without the
     Bluestein stage (cudaFuncGetAttributes; the local memory holds what it
     spills and the chains' stage tables indexed at run time)."""
     lib = _build.load()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
     form = 2 * int(one_block) + int(bluestein)
-    _build.check(lib, lib.rf_two_stage_walk_attrs(form, ctypes.byref(regs),
-                                                  ctypes.byref(local)), "two_stage_walk_attrs")
+    _build.check(lib, lib.rf_two_stage_attrs(form, ctypes.byref(regs), ctypes.byref(local)),
+                 "two_stage_attrs")
     return regs.value, local.value
 
 
@@ -902,7 +884,7 @@ def three_stage_fft(x: torch.Tensor, p: int, q1: int, q2: int, tables) -> torch.
     if kind == "radix":
         y = _launch_two_stage(x, p, q, card, what)
     elif kind == "cluster":
-        y = _launch_walk(x, p, q, c, card, what)
+        y = _launch_cluster(x, p, q, c, card, what)
     else:
         a = large.large_col_stage(x, p, q, (roots_p, tws_p, outer))
         y = large.large_row_stage(a, q, p, (roots_c, tws_c)).reshape(x.shape)
@@ -942,10 +924,10 @@ def make_fused_two_stage_fn(n: int, direction: FftDirection, dtype,
                             split: Optional[Tuple[int, int]] = None):
     """Return fn: complex64 (..., n) -> (..., n), K7's two-stage DFT at
     split = (p, q) (default choose_pq(n) where a two-stage route serves
-    n): two_stage_fft on the one-block band (one transform would fit one
-    block in place), else two_stage_cluster_fft on a cluster of
-    choose_cluster(n, split) blocks; both run the two-stage walk on the
-    card.  A split given by the caller is taken as is."""
+    n): two_stage_fft where one block holds a transform, else
+    two_stage_cluster_fft on a cluster of choose_cluster(n, split) blocks,
+    each given the plan's outer_transposed table where it has one.  A split
+    given by the caller is taken as is."""
     if np.dtype(dtype) != np.complex64:
         raise ValueError(f"two-stage kernel is complex64 only, got {np.dtype(dtype)}")
     routed = two_stage_supported(n, dtype) or two_stage_cluster_supported(n, dtype)
@@ -957,11 +939,17 @@ def make_fused_two_stage_fn(n: int, direction: FftDirection, dtype,
         raise ValueError(f"split {sp} does not give n={n}")
     tables = two_stage_tables(p, large.stage_radices(q), direction)
     if _one_block_fits(p, q):
-        return _plan(n, tables, lambda x, t: two_stage_fft(x, p, q, t))
-    c = choose_cluster(n, (p, q))
-    if c is None:
-        raise ValueError(f"split {sp}: neither one block nor a cluster holds n={n}")
-    return _plan(n, tables, lambda x, t: two_stage_cluster_fft(x, p, q, c, t))
+        def run(x, t):
+            return two_stage_fft(x, p, q, t[:5], *t[5:])
+    else:
+        c = choose_cluster(n, (p, q))
+        if c is None:
+            raise ValueError(f"split {sp}: neither one block nor a cluster holds n={n}")
+
+        def run(x, t):
+            return two_stage_cluster_fft(x, p, q, c, t[:5], *t[5:])
+    outer_pq = outer_transposed(p, tables[2]) if p * q != RADIX_PQ * RADIX_PQ else None
+    return _plan(n, tables + ((outer_pq,) if outer_pq is not None else ()), run)
 
 
 def make_fused_three_stage_fn(n: int, direction: FftDirection, dtype,

@@ -244,23 +244,19 @@ def test_no_stage_at_or_above_the_crossover_runs_the_direct_sum():
 
 
 def test_shared_memory_at_every_band_size():
-    """No block of the two-stage walk, which runs both bands, takes more
-    than 232448 bytes anywhere on them; shared memory holds the roots of
-    the direct stages only, never a Bluestein table (read from device
-    memory).  The one-block band is still the sizes whose transform would
-    fit one block in place (two_stage_smem_bytes)."""
+    """Neither kernel's block takes more than 232448 bytes anywhere on the
+    band; shared memory holds the roots of the direct stages only, never a
+    Bluestein table (read from device memory)."""
     most = 0
     for n, one in _two_stage_band():
         p, q = fused.choose_pq(n)
         if one:
-            assert fused.two_stage_smem_bytes(n, large.stage_radices(p),
-                                              large.stage_radices(q)) <= _build.SMEM_MAX
-        if n == 16384:  # the radix body at R = 1
-            continue
-        nbytes = fused.cluster_smem_bytes(p, q, fused.choose_cluster(n))
-        most = max(most, nbytes)
+            nbytes = fused.two_stage_smem_bytes(n, large.stage_radices(p), large.stage_radices(q))
+        else:
+            nbytes = fused.cluster_smem_bytes(p, q, fused.choose_cluster(n))
+            most = max(most, nbytes)
         assert nbytes <= _build.SMEM_MAX
-    assert most == _build.SMEM_MAX  # the shares that overlap take every byte
+    assert most == 137672  # 506 x 512 = (23, 11, 2) x (16, 16, 2) on 16 blocks
     assert fused.two_stage_smem_bytes(14464, (113,), (16, 8)) == 14464 * 8 + 4 * 241 + 8 * 24
     assert fused.two_stage_smem_bytes(28544, (223,), (16, 8)) == 28544 * 8 + 4 * 351 + 8 * 24
     assert fused.two_stage_smem_bytes(20608, (23, 7), (16, 8)) == 20608 * 8 + 4 * 289 + 8 * 54
@@ -341,8 +337,7 @@ def test_phase_stamps_on_card(cuda_device, n):
 
 @pytest.mark.cuda
 def test_kernels_refuse_a_bluestein_length_above_their_cap(cuda_device, monkeypatch):
-    """A Bluestein length the stage does not take for its radix (1024 for
-    113, whose length is 256) raises before any launch."""
+    """The one-block kernel takes M <= 512; asked for 1024 it raises."""
     real = fused.bluestein_stage_m
     patched = lambda r: 1024 if r == 113 else real(r)  # noqa: E731
     # the chain's tables and arguments read lanepack's rule, the smem sizing fused's

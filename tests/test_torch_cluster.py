@@ -102,17 +102,16 @@ def test_route_and_split_equal_jax(n):
 @pytest.mark.parametrize("n,c", [(28928, 2), (32896, 4), (49152, 4), (98304, 8), (196608, 16),
                                  (245760, 16), (260608, 16), (261632, 16)])
 def test_choose_cluster(n, c):
-    """The fewest blocks the two-stage walk takes: shares of at most 16384
-    values whose row share overlaps the column share by at most
-    WALK_HOLD values a thread."""
+    """The fewest blocks whose shares hold at most 16384 values."""
     assert fused.choose_cluster(n) == c
     p, q = fused.choose_pq(n)
     assert fused.cluster_share(p, q, c) <= fused.CLUSTER_SHARE_MAX
-    assert fused.walk_fits(p, q, c)
     if c > 2:
-        assert not fused.walk_fits(p, q, c // 2)
-    # the buffer, the roots of both chains' direct stages and the p + 2q index ints
-    assert fused.cluster_smem_bytes(p, q, c) <= 232448
+        assert fused.cluster_share(p, q, c // 2) > fused.CLUSTER_SHARE_MAX
+    # the share, the roots of both chains and the p + 2q index ints
+    share = -(-fused.cluster_share(p, q, c) // 16) * 16
+    roots = sum(large.stage_radices(p)) + sum(large.stage_radices(q))
+    assert (share + roots) * 8 + 4 * (p + 2 * q) <= 145408 <= 232448
 
 
 def test_cluster_sizes_over_the_band():

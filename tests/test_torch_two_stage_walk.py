@@ -1,13 +1,12 @@
-"""K7's two-stage walk and factored register radices, held on the CPU.
+"""K7's two kernels with factored register radices, held on the CPU.
 
-K7's two bands (the one-block band 14464 .. 28800 and the cluster band
-28928 .. 261632) run one kernel on the card, the two-stage walk
-(csrc/fused.cu two_stage_walk_kernel: a persistent grid of clusters of
-`fused.choose_cluster(n)` blocks, each block's column share L and row share
-A in one buffer, the next transform's L copied in behind the current one).
-Its chains run the radices of `fused.FACTORED_RADICES` in the factored
-register forms of csrc/factored_dft.cuh.  Here, inputs made with numpy
-from a seed:
+K7's one-block band (14464 .. 28800, csrc/fused.cu two_stage_kernel) and
+cluster band (28928 .. 261632, two_stage_cluster_kernel on clusters of
+`fused.choose_cluster(n)` blocks) run K7's chains, the radices of
+`fused.FACTORED_RADICES` in the factored register forms of
+csrc/factored_dft.cuh, with 16-byte loads and stores, and read the outer
+twiddle transposed (`fused.outer_transposed`) where the path gives it.
+Here, inputs made with numpy from a seed:
 
   - the header's constants against numpy, and a numpy mirror of its
     butterflies (conjugate pairs, one Cooley-Tukey step) against np.fft;
@@ -15,17 +14,14 @@ from a seed:
     radix against the JAX K7 in interpret mode (precision="bf16x3", as
     tests/test_torch_cluster.py runs it) and the f64 oracle, relative mean
     error <= 1e-5, both directions;
-  - `choose_cluster`'s rule over all 1009 cluster sizes and the 112 walk
-    sizes of the one-block band, and each form's shared memory within
-    `_build.SMEM_MAX` over all 1122 sizes;
-  - a pure-Python mirror of the persistent walk (each transform once) and a
-    numpy mirror of the kernel's index arithmetic (the copies into L in the
-    swizzle, DFT_p's places, the exchange into A with the held values, the
-    store) against the oracle, and of the regions the copies, the pulls and
-    the held values touch.
+  - `choose_cluster`'s rule over all 1009 cluster sizes, and each kernel's
+    shared memory within `_build.SMEM_MAX` over all 1122 sizes;
+  - numpy mirrors of both kernels' index arithmetic (the 16-byte loads into
+    the swizzle, DFT_p's places, the fold from either layout of the outer
+    twiddle, the exchange, the 16-byte stores) against the oracle.
 
-The tests marked `cuda` hold the kernel against its plain version on the
-card and skip without a GPU.
+The tests marked `cuda` hold the kernels against their plain versions on
+the card and skip without a GPU.
 """
 import math
 import re
@@ -88,7 +84,7 @@ def _band():
 
 BAND = _band()
 CLUSTER = [n for n, one in BAND if not one]
-#: the one-block band's sizes on the walk (16384 runs the radix body)
+#: the one-block band's sizes on the one-block kernel (16384 runs the radix body)
 ONE = [n for n, one in BAND if one and n != 16384]
 
 
@@ -252,74 +248,43 @@ def test_band_sizes():
 
 
 def test_choose_cluster_rule_over_every_band_size():
-    """The fewest blocks the walk takes; every size has a form, the same c
-    as before the walk (the old rule's shares of at most 16384 values
-    always meet the walk's overlap cap)."""
-    for n in CLUSTER + ONE:
+    """The fewest blocks whose shares hold at most 16384 values; every
+    size's share width q/c is even (the kernel's 16-byte loads)."""
+    for n in CLUSTER:
         p, q = fused.choose_pq(n)
         c = fused.choose_cluster(n)
-        fits = [k for k in fused.CLUSTER_SIZES if fused.walk_fits(p, q, k)]
-        assert c == fits[0] and p >= c and q % c == 0
         assert c == next(k for k in fused.CLUSTER_SIZES
                          if q % k == 0 and fused.cluster_share(p, q, k) <= 16384)
+        assert p >= c and (q // c) % 2 == 0
     sizes = {c: sum(fused.choose_cluster(n) == c for n in CLUSTER) for c in fused.CLUSTER_SIZES}
     assert sizes == {2: 30, 4: 254, 8: 337, 16: 388}
-    overlaps = [fused.walk_overlap(*fused.choose_pq(n), fused.choose_cluster(n)) for n in CLUSTER]
-    assert sum(ov > 0 for ov in overlaps) == 254 and max(overlaps) == 4480
-    assert {fused.choose_cluster(n) for n in ONE} == {2}
 
 
-@pytest.mark.parametrize("n,c,overlap", [(24576, 2, 0), (14464, 2, 0), (28544, 2, 0),
-                                         (28928, 2, 144), (49152, 4, 0), (98304, 8, 0),
-                                         (196608, 16, 0), (245760, 16, 2480),
-                                         (260608, 16, 4416), (261632, 16, 4480)])
-def test_choose_cluster_at_the_paths(n, c, overlap):
+@pytest.mark.parametrize("n,c", [(28928, 2), (49152, 4), (98304, 8), (196608, 16), (245760, 16),
+                                 (260608, 16), (261632, 16)])
+def test_choose_cluster_at_the_paths(n, c):
     p, q = fused.choose_pq(n)
     assert fused.choose_cluster(n) == c
-    assert fused.walk_overlap(p, q, c) == overlap
     if c > 2:
-        assert not fused.walk_fits(p, q, c // 2)
+        assert fused.cluster_share(p, q, c // 2) > fused.CLUSTER_SHARE_MAX
 
 
 def test_shared_memory_at_every_band_size():
     most = 0
-    for n, _ in BAND:
+    for n, one in BAND:
         if n == 16384:
             continue
         p, q = fused.choose_pq(n)
-        c = fused.choose_cluster(n)
-        nbytes = fused.cluster_smem_bytes(p, q, c)
+        if one:
+            nbytes = fused.two_stage_smem_bytes(n, large.stage_radices(p), large.stage_radices(q))
+        else:
+            nbytes = fused.cluster_smem_bytes(p, q, fused.choose_cluster(n))
+            most = max(most, nbytes)
         assert nbytes <= _build.SMEM_MAX
-        # the buffer holds L and the widest A, overlapping by at most the held values
-        cap = fused.walk_cap(p, q, c)
-        ncol = -(-p * (q // c) // 16) * 16
-        nrow = -(-(-(-p // c)) * q // 16) * 16
-        assert cap % 16 == 0 and max(ncol, nrow) <= cap <= ncol + nrow
-        assert ncol + nrow - cap == fused.walk_overlap(p, q, c) <= fused.WALK_HOLD * 512
-        most = max(most, nbytes)
-    assert most == _build.SMEM_MAX
+    assert most == 137672  # 506 x 512 = (23, 11, 2) x (16, 16, 2) on 16 blocks
 
 
-# -- the walk and the kernel's index arithmetic ------------------------------------------
-
-def _walk(batch, clusters):
-    """The transforms each cluster computes: cluster g the transforms g, g +
-    clusters, ... below batch (csrc/fused.cu two_stage_walk_kernel)."""
-    return {g: list(range(g, batch, clusters)) for g in range(clusters)}
-
-
-@pytest.mark.parametrize("batch,resident", [(1, 7), (3, 7), (7, 7), (8, 7), (2048, 33),
-                                            (33, 33), (34, 33), (1, 1), (5, 1)])
-def test_persistent_walk_computes_each_transform_once(batch, resident):
-    clusters = fused.radix_grid(batch, resident)
-    assert clusters == min(batch, resident)
-    walks = _walk(batch, clusters)
-    done = sorted(t for ts in walks.values() for t in ts)
-    assert done == list(range(batch))
-    # every cluster walks at least one, and the walks differ by at most one
-    lengths = {len(ts) for ts in walks.values()}
-    assert min(lengths) >= 1 and max(lengths) - min(lengths) <= 1
-
+# -- the kernels' index arithmetic ----------------------------------------------------------
 
 def _swz(i):
     i = np.asarray(i)
@@ -337,132 +302,137 @@ def _place_of(k, m, radices):
     return place
 
 
-def _regions(p, q, c):
-    """For each block of a cluster of c: (L's positions, A's positions of the
-    directly pulled values, A's positions of the held values, the early and
-    the late copies' positions, held a thread), as the kernel computes them."""
-    cap = fused.walk_cap(p, q, c)
-    qs = q // c
-    out = []
-    for lo, hi in fused.row_shares(p, c):
-        rb = hi - lo
-        ncol, nrow = p * qs, rb * q
-        a_off = cap - -(-nrow // 16) * 16
-        ov = max(0, -(-ncol // 16) * 16 - a_off)
-        held = -(-ov // 512)
-        early = min(ncol, a_off)
-        f_row = np.arange(nrow)
-        is_held = f_row < held * 512
-        out.append(dict(
-            L=set(_swz(np.arange(ncol)).tolist()),
-            direct=set((a_off + _swz(f_row[~is_held])).tolist()),
-            held=set((a_off + _swz(f_row[is_held])).tolist()),
-            early=set(_swz(np.arange(early)).tolist()),
-            late=set(_swz(np.arange(early, ncol)).tolist()),
-            A=set((a_off + _swz(f_row)).tolist()),
-            held_a_thread=held, cap=cap))
-    return out
+def _dft(v, sign, axis):
+    return np.fft.fft(v, axis=axis) if sign < 0 else np.fft.ifft(v, axis=axis) * v.shape[axis]
 
 
-@pytest.mark.parametrize("n", [24576, 28928, 32896, 49152, 98304, 196608, 245760, 260608, 261632,
-                               262144])
-def test_walk_regions(n):
-    """The pulls written straight into A never touch L (peers still read it),
-    the held values cover every place of A inside L, the early copies never
-    touch A (DFT_q and the store still use it), and the late copies are
-    exactly L's places under A."""
-    p, q = (128, 2048) if n == 262144 else fused.choose_pq(n)  # K8's split at 262144
-    c = fused.choose_cluster(n, (p, q))
-    for r in _regions(p, q, c):
-        assert not r["direct"] & r["L"]
-        assert r["A"] & r["L"] <= r["held"]
-        assert not r["early"] & r["A"]
-        assert r["late"] == r["L"] - r["early"] and r["late"] <= r["A"] | r["L"]
-        assert r["held_a_thread"] <= fused.WALK_HOLD
-        assert max(r["A"] | r["L"]) < r["cap"]
+def _fold(outer, outer_pq, j2, k1):
+    """w_n^(k1*j2) as OuterFoldS reads it: outer_pq[k1*q + j2] from the
+    (p, q) table where it is given, else outer[j2*p + k1]."""
+    if outer_pq is not None:
+        return outer_pq.reshape(-1)[k1 * outer_pq.shape[1] + j2]
+    return outer.reshape(-1)[j2 * outer.shape[1] + k1]
 
 
-def _kernel_mirror(x, p, q, c, tables, sign):
-    """The walk's data movement in numpy for one transform x (n,): block b's
-    L by copy_share (element (j1, t) at swz(j1*qs + t)), DFT_p leaving
-    output k1 of column t at prow[k1] + t (the plain chain, times the outer
-    twiddle), the exchange into A (element (i, j2) at swz(i*q + j2) from
-    row lo + i, offset t of block j2 // qs's L), DFT_q leaving output k2 of
-    row i at i*q + qcol[k2], and the store y[k2*p + lo + i]."""
-    roots_p, tws_p, outer, roots_q, tws_q = (t if isinstance(t, list) else t.numpy()
-                                             for t in tables)
+def _cluster_mirror(x, p, q, c, outer, outer_pq, sign):
+    """The cluster kernel's data movement in numpy for one transform x (n,):
+    block b's share by 16-byte loads (pair g = (row, col) of width qs/2 from
+    x[row*q + b*qs + 2*col] into swz(2g) and swz(2g + 1)), DFT_p leaving
+    output k1 of column t at prow[k1] + t times the fold, the exchange
+    (element (i, j2) at swz(i*q + j2) from row lo + i, offset t of block
+    j2 // qs), DFT_q leaving output k2 of row i at i*q + qcol[k2], and the
+    store: 16-byte pairs (k2, col) of rows 2*col and 2*col + 1 into
+    y[k2*p + lo + 2*col] where p, lo and rb are even, else one value a
+    thread."""
     pr, qr = large.stage_radices(p), large.stage_radices(q)
-    qs = q // c
+    qs, hs = q // c, q // c // 2
     prow = np.array([_place_of(k, p, pr) * qs for k in range(p)])
     qcol = np.array([_place_of(k, q, qr) for k in range(q)])
-    xs = x.reshape(p, q)
-    Ls = []
+    bufs = []
     for b in range(c):
-        f = np.arange(p * qs)
-        L = np.zeros(-(-p * qs // 16) * 16, dtype=np.complex128)
-        L[_swz(f)] = xs[f // qs, b * qs + f % qs]
-        cols = np.fft.fft(xs[:, b * qs:(b + 1) * qs], axis=0) if sign < 0 else \
-            np.fft.ifft(xs[:, b * qs:(b + 1) * qs], axis=0) * p
-        # the chain reads L and leaves natural output k1 at prow[k1] + t
-        assert np.array_equal(L[_swz(np.arange(p)[:, None] * qs + np.arange(qs))],
-                              xs[:, b * qs:(b + 1) * qs])
-        cols = cols * outer[b * qs:(b + 1) * qs].T
-        L[_swz(prow[:, None] + np.arange(qs))] = cols
-        Ls.append(L)
+        buf = np.zeros(-(-fused.cluster_share(p, q, c) // 16) * 16, dtype=np.complex128)
+        g = np.arange(p * qs // 2)
+        row, col = g // hs, g % hs
+        buf[_swz(2 * g)] = x[row * q + b * qs + 2 * col]
+        buf[_swz(2 * g + 1)] = x[row * q + b * qs + 2 * col + 1]
+        cols = _dft(buf[_swz(np.arange(p)[:, None] * qs + np.arange(qs))], sign, 0)  # [k1, t]
+        j2 = b * qs + np.arange(qs)
+        cols = cols * _fold(outer, outer_pq, j2[None, :], np.arange(p)[:, None])
+        buf[_swz(prow[:, None] + np.arange(qs))] = cols
+        bufs.append(buf)
     y = np.zeros(p * q, dtype=np.complex128)
     for b, (lo, hi) in enumerate(fused.row_shares(p, c)):
         rb = hi - lo
-        A = np.zeros(-(-rb * q // 16) * 16, dtype=np.complex128)
         f = np.arange(rb * q)
         i, j2 = f // q, f % q
-        src = np.array([Ls[a][s] for a, s in zip(j2 // qs, _swz(prow[lo + i] + j2 % qs))])
-        A[_swz(f)] = src
-        rows = A[_swz(np.arange(rb)[:, None] * q + np.arange(q))]
-        rows = np.fft.fft(rows, axis=1) if sign < 0 else np.fft.ifft(rows, axis=1) * q
-        A[_swz(np.arange(rb)[:, None] * q + qcol)] = rows
-        k2 = np.arange(q)[:, None]
-        y[k2 * p + lo + np.arange(rb)] = A[_swz(np.arange(rb) * q + qcol[k2])]
+        pulled = np.array([bufs[a][s] for a, s in zip(j2 // qs, _swz(prow[lo + i] + j2 % qs))])
+        buf = np.zeros_like(bufs[b])
+        buf[_swz(f)] = pulled
+        rows = _dft(buf[_swz(np.arange(rb)[:, None] * q + np.arange(q))], sign, 1)
+        buf[_swz(np.arange(rb)[:, None] * q + qcol)] = rows
+        if p % 2 == 0 and lo % 2 == 0 and rb % 2 == 0:
+            g = np.arange(rb // 2 * q)
+            k2, col = g // (rb // 2), g % (rb // 2)
+            y[k2 * p + lo + 2 * col] = buf[_swz(2 * col * q + qcol[k2])]
+            y[k2 * p + lo + 2 * col + 1] = buf[_swz((2 * col + 1) * q + qcol[k2])]
+        else:
+            f = np.arange(rb * q)
+            k2, i = f // rb, f % rb
+            y[k2 * p + lo + i] = buf[_swz(i * q + qcol[k2])]
     return y
 
 
-@pytest.mark.parametrize("n", [24576, 14464, 28928, 32896, 245760])
+def _one_block_mirror(x, p, q, outer, outer_pq, sign):
+    """The one-block kernel's data movement in numpy: 16-byte loads (pair h
+    into swz(2h), swz(2h + 1)), DFT_p and the fold, DFT_q, and the store of
+    pairs k = 2h, 2h + 1 from their places, (k1 + 1, k2) or (0, k2 + 1)."""
+    pr, qr = large.stage_radices(p), large.stage_radices(q)
+    prow = np.array([_place_of(k, p, pr) * q for k in range(p)])
+    qcol = np.array([_place_of(k, q, qr) for k in range(q)])
+    buf = np.zeros(-(-p * q // 16) * 16, dtype=np.complex128)
+    h = np.arange(p * q // 2)
+    buf[_swz(2 * h)], buf[_swz(2 * h + 1)] = x[2 * h], x[2 * h + 1]
+    cols = _dft(buf[_swz(np.arange(p)[:, None] * q + np.arange(q))], sign, 0)  # [k1, j2]
+    cols = cols * _fold(outer, outer_pq, np.arange(q)[None, :], np.arange(p)[:, None])
+    buf[_swz(prow[:, None] + np.arange(q))] = cols
+    rows = _dft(buf[_swz(np.arange(p)[:, None] * q + np.arange(q))], sign, 1)  # [k1, k2]
+    buf[_swz(np.arange(p)[:, None] * q + qcol)] = rows
+    y = np.zeros(p * q, dtype=np.complex128)
+    k1, k2 = (2 * h) % p, (2 * h) // p
+    wrap = k1 + 1 == p
+    y[2 * h] = buf[_swz(prow[k1] + qcol[k2])]
+    y[2 * h + 1] = buf[_swz(prow[np.where(wrap, 0, k1 + 1)] + qcol[np.where(wrap, k2 + 1, k2)])]
+    return y
+
+
+@pytest.mark.parametrize("n", [24576, 14464, 28544, 28928, 32896, 245760, 260608])
 @pytest.mark.parametrize("d", [FftDirection.FORWARD, FftDirection.INVERSE], ids=DIR_IDS)
 def test_kernel_index_mirror_against_oracle(n, d):
+    """Each kernel's indexing with the outer twiddle in the layout the path
+    gives it (transposed where outer_transposed has a table), and the
+    cluster kernel's also with the (q, p) table, as K8 gives it."""
     p, q = fused.choose_pq(n)
-    c = fused.choose_cluster(n)
+    host = fused.two_stage_tables(p, large.stage_radices(q), d)
+    outer = host[2].astype(np.complex128)
+    outer_pq = fused.outer_transposed(p, host[2])
     x = _signal(1, n, seed=n)[0].astype(np.complex128)
-    tabs = _tables(p, q, d)
-    got = _kernel_mirror(x, p, q, c, tabs, -1 if d is FftDirection.FORWARD else 1)
-    assert _rel(got, host_dft(x[None], d)[0]) <= 1e-6
+    want = host_dft(x[None], d)[0]
+    sign = -1 if d is FftDirection.FORWARD else 1
+    if fused.two_stage_supported(n, np.complex64):
+        got = [_one_block_mirror(x, p, q, outer, outer_pq, sign)]
+    else:
+        c = fused.choose_cluster(n)
+        got = [_cluster_mirror(x, p, q, c, outer, o, sign) for o in (outer_pq, None)]
+    for g in got:
+        assert _rel(g, want) <= 1e-6
 
 
 # -- the wrappers -----------------------------------------------------------------------
 
-def test_walk_fits_refuses_what_the_kernel_does_not_take():
-    assert not fused.walk_fits(480, 512, 8)   # shares of 30720 values
-    assert not fused.walk_fits(226, 128, 3)   # 3 is no cluster size
-    assert not fused.walk_fits(2, 128, 4)     # fewer rows than blocks
-    assert fused.walk_fits(480, 512, 16) and fused.walk_overlap(480, 512, 16) == 2480
-    assert fused.cluster_smem_bytes(480, 512, 16) == _build.SMEM_MAX - (
-        (_build.SMEM_MAX - fused.walk_fixed_bytes(480, 512)) % 128)
-
-
-@pytest.mark.parametrize("n,transposed", [(24576, 1), (49152, 1), (28928, 1), (14464, 0),
-                                           (260608, 0), (261632, 1)])
-def test_outer_layout(n, transposed):
-    """The card's kernels read the outer twiddle transposed, (p, q), where
-    DFT_p's last stage runs neighbouring columns on neighbouring threads,
-    and as (q, p) where it is a Bluestein stage (a column a warp); the same
-    values, transposed once a table."""
+@pytest.mark.parametrize("n,transposed", [(24576, True), (49152, True), (28928, True),
+                                          (14464, False), (260608, False), (261632, True)])
+def test_outer_transposed(n, transposed):
+    """The (p, q) copy where DFT_p's last stage runs neighbouring columns on
+    neighbouring threads, none where it is a Bluestein stage (a column a
+    warp); the path's plan carries it as a sixth table and the wrappers
+    refuse one of another shape."""
     p, q = fused.choose_pq(n)
-    outer = _tables(p, q, FftDirection.FORWARD)[2]
-    table, t = fused.outer_layout(p, outer)
-    assert t == transposed
-    if t:
-        assert table.shape == (p, q) and table.is_contiguous() and torch.equal(table, outer.t())
-        assert fused.outer_layout(p, outer)[0] is table
+    host = fused.two_stage_tables(p, large.stage_radices(q), FftDirection.FORWARD)
+    table = fused.outer_transposed(p, host[2])
+    fn = fused.make_fused_two_stage_fn(n, FftDirection.FORWARD, np.complex64)
+    flat = sum(1 if isinstance(t, np.ndarray) else len(t) for t in host)
+    if transposed:
+        assert table.shape == (p, q) and table.flags.c_contiguous
+        assert np.array_equal(table, host[2].T)
+        assert len(fn.tables.host) == flat + 1
+        x = torch.zeros((1, n), dtype=torch.complex64)
+        outer = torch.from_numpy(host[2])
+        assert fused._outer_arg(p, q, outer, torch.from_numpy(table), x, "t")[1] == 1
+        with pytest.raises(ValueError, match="outer_pq"):
+            fused._outer_arg(p, q, outer, outer, x, "t")
     else:
-        assert table is outer
+        assert table is None
+        assert len(fn.tables.host) == flat
 
 
 def test_cpu_tensors_never_launch():
@@ -470,8 +440,10 @@ def test_cpu_tensors_never_launch():
     p, q = fused.choose_pq(n)
     before = (fused.two_stage_fft.launches, fused.two_stage_cluster_fft.launches)
     x = torch.from_numpy(_signal(1, n, 1))
-    fused.two_stage_fft(x, p, q, _tables(p, q, FftDirection.FORWARD))
-    fused.two_stage_cluster_fft(x, p, q, 2, _tables(p, q, FftDirection.FORWARD))
+    tabs = _tables(p, q, FftDirection.FORWARD)
+    opq = torch.from_numpy(fused.outer_transposed(p, tabs[2].numpy()))
+    fused.two_stage_fft(x, p, q, tabs, opq)
+    fused.two_stage_cluster_fft(x, p, q, 2, tabs, opq)
     assert (fused.two_stage_fft.launches, fused.two_stage_cluster_fft.launches) == before
 
 
@@ -485,30 +457,36 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [24576, 14976, 15232, 32000, 48000, 89600, 128000, 245760, 261632])
-def test_walk_on_card(cuda_device, n):
+@pytest.mark.parametrize("n", [24576, 14976, 15232, 14464, 32000, 48000, 89600, 128000, 245760,
+                               261632, 260608])
+def test_kernels_on_card(cuda_device, n):
     """Every factored radix (12, 9 and 7 on the one-block band, 10, 15, 14
-    and 20, 6 and 5 with an overlap, 7 beside a Bluestein 73) within 1e-6
-    of the plain version, at batch 1, 3 and two grids and one."""
+    and 20, 6 and 5, 7 beside a Bluestein 73) and the Bluestein forms
+    within 1e-6 of the plain version, at batch 1, 3 and 33, with the outer
+    twiddle in both layouts where the path transposes it."""
     p, q = fused.choose_pq(n)
     c = fused.choose_cluster(n)
     one = fused.two_stage_supported(n, np.complex64)
-    for batch in (1, 3, 2 * fused.two_stage_cluster_max_active_clusters(c) + 1):
+    counter = fused.two_stage_fft if one else fused.two_stage_cluster_fft
+    for batch in (1, 3, 33):
         x = torch.from_numpy(_signal(batch, n, n)).to(cuda_device)
         for d, _ in DIRECTIONS:
             tabs = _tables(p, q, d, cuda_device)
-            counter = fused.two_stage_fft if one else fused.two_stage_cluster_fft
-            before = counter.launches
-            got = (fused.two_stage_fft(x, p, q, tabs) if one
-                   else fused.two_stage_cluster_fft(x, p, q, c, tabs))
-            torch.cuda.synchronize()
-            assert counter.launches == before + 1
-            assert _rel(got.cpu(), fused.two_stage_fft_plain(x, p, q, tabs).cpu()) <= K7_TOL
+            opq = fused.outer_transposed(p, tabs[2].cpu().numpy())
+            want = fused.two_stage_fft_plain(x, p, q, tabs).cpu()
+            for o in {None, None if opq is None else torch.from_numpy(opq).to(cuda_device)}:
+                before = counter.launches
+                got = (fused.two_stage_fft(x, p, q, tabs, o) if one
+                       else fused.two_stage_cluster_fft(x, p, q, c, tabs, o))
+                torch.cuda.synchronize()
+                assert counter.launches == before + 1
+                assert _rel(got.cpu(), want) <= K7_TOL
 
 
 @pytest.mark.cuda
-def test_walk_attrs_on_card(cuda_device):
-    """Both forms stay within 128 registers at 512 threads (one block an SM)."""
-    for bluestein in (False, True):
-        regs, _ = fused.two_stage_walk_attrs(bluestein)
-        assert regs <= 128
+def test_attrs_on_card(cuda_device):
+    """Every form stays within 128 registers at 512 threads (one block an SM)."""
+    for one_block in (False, True):
+        for bluestein in (False, True):
+            regs, _ = fused.two_stage_attrs(bluestein, one_block)
+            assert regs <= 128

@@ -1,22 +1,19 @@
 #!/usr/bin/env python3
-"""Time K7's two-stage walk at every cluster size it takes.
+"""Time K7's cluster kernel at every cluster size its shares allow.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
     python3 tools/torch_cluster_sizes.py
 
-For each of chip_smoke.py's cluster-band paths, 32896 x 4096 (a prime
-p = 257), 36864 x 2048 (m of the Bluestein prime 18427), the one-block
-band's 24576 x 2048 and 14464 x 4096, K8's 262144 x 256 (p = 128, q =
-2048), 122112 x 512 and 57344 x 1024 (overlaps of 2144 and 48 values on
-8 and 4 blocks), times `fused.two_stage_cluster_fft` with CUDA events (median of 7
-after 2 warm-ups) at every c in `fused.CLUSTER_SIZES` that the walk takes
-(`fused.walk_fits`), in turns (each c, then each c again in reverse
-order), checks every c's output against the first's, and prints one line
-per path with each c's times and the values its row share overlaps its
-column share (`fused.walk_overlap`), beside the c that
+For each of chip_smoke.py's cluster-band paths, and 32896 x 4096 (a prime
+p = 257) and 36864 x 2048 (m of the Bluestein prime 18427), times
+`fused.two_stage_cluster_fft` with CUDA events (median of 7 after 2
+warm-ups) at every c in `fused.CLUSTER_SIZES` that divides q and whose
+shares hold at most `fused.CLUSTER_SHARE_MAX` values, in turns (each c,
+then each c again in reverse order), checks every c's output against the
+first's, and prints one line per path beside the c that
 `fused.choose_cluster` picks.  It tests choose_cluster's rule (the fewest
-blocks the walk takes).
+blocks that fit).
 """
 from __future__ import annotations
 
@@ -29,8 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 PATHS = ((28928, 4096), (49152, 2048), (98304, 1024), (196608, 512), (245760, 256),
-         (260608, 256), (32896, 4096), (36864, 2048), (24576, 2048), (14464, 4096),
-         (262144, 256), (122112, 512), (57344, 1024))
+         (260608, 256), (32896, 4096), (36864, 2048))
 
 
 def main() -> None:
@@ -61,12 +57,13 @@ def main() -> None:
         return statistics.median(times)
 
     for n, batch in PATHS:
-        p, q = (128, 2048) if n == 262144 else fused.choose_pq(n)  # K8's split at 262144
+        p, q = fused.choose_pq(n)
         x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device="cuda")
         host = fused.two_stage_tables(p, large.stage_radices(q), FftDirection.FORWARD)
         tabs = tuple([torch.from_numpy(a).cuda() for a in t] if isinstance(t, list)
                      else torch.from_numpy(t).cuda() for t in host)
-        sizes = [c for c in fused.CLUSTER_SIZES if fused.walk_fits(p, q, c)]
+        sizes = [c for c in fused.CLUSTER_SIZES
+                 if q % c == 0 and fused.cluster_share(p, q, c) <= fused.CLUSTER_SHARE_MAX]
         first = fused.two_stage_cluster_fft(x, p, q, sizes[0], tabs)
         times = {c: [] for c in sizes}
         for c in sizes + sizes[::-1]:
@@ -75,9 +72,8 @@ def main() -> None:
             if not err <= 1e-6:
                 raise AssertionError(f"n={n} c={c}: {err:.3e} from c={sizes[0]}")
             times[c].append(ms(lambda: fused.two_stage_cluster_fft(x, p, q, c, tabs)))
-        print(f"n={n} x {batch} ({p} x {q}), choose_cluster {fused.choose_cluster(n, (p, q))}: "
-              + "; ".join(f"c={c} {t[0]:.3f} / {t[1]:.3f} ms (overlap "
-                          f"{fused.walk_overlap(p, q, c)})" for c, t in times.items()),
+        print(f"n={n} x {batch} ({p} x {q}), choose_cluster {fused.choose_cluster(n)}: "
+              + "; ".join(f"c={c} {t[0]:.3f} / {t[1]:.3f} ms" for c, t in times.items()),
               flush=True)
         del x, y, first
         torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Split the time of K1's, K2's, K3's, K7's cluster kernel's, K9's, K12's, K13's and K15's kernels into phases on one GPU.
+"""Split the time of K1's, K2's, K3's, K7's, K9's, K12's, K13's and K15's kernels into phases on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -8,12 +8,12 @@ Run from the repository root on a machine with an NVIDIA GPU:
 Default shapes: 4096:16384 (K1's pipelined kernel, (16, 16, 16)),
 8192:8192 and 2008:32768 (K1's chain kernel: four register stages; a
 512-point Bluestein stage), 251:131072 (K5's chain form, one Bluestein
-stage on the chain kernel), 24576:2048 (192 x 128 on the one-block band,
-2 blocks a transform), 49152:2048 (192 x 256, register radices only, 4
-blocks) and 260608:256 (509 x 512, the prime p = 509 as a Bluestein
-stage, 16 blocks, the row share overlapping the column share) on K7's
-two-stage walk (any n the route sends to two_stage but 16384, which runs
-K9's body), and 531441:64 (243 x 2187, a
+stage on the chain kernel), 24576:2048 (192 x 128, (16, 12) x (16, 8)) on
+K7's one-block kernel (any n the route sends to two_stage below 28928 but
+16384, which runs K9's body), 49152:2048 (192 x 256, register radices
+only, 4 blocks a transform) and 260608:256 (509 x 512, the prime p = 509
+as a Bluestein stage, 16 blocks) on K7's cluster kernel, each with the
+outer twiddle as its path gives it (fused.outer_transposed), and 531441:64 (243 x 2187, a
 radix-27 Bluestein stage on the row stage) and 234617:256 (373 x 629, the
 prime P = 373 as a 1024-point Bluestein stage) on K12's two kernels; a
 shape goes to K12 where `route` sends it to large_pad, to K1 where it
@@ -34,14 +34,15 @@ length) to that core's kernels: conv_fft (conv.CONV_PHASES: load, chain
 holds, conv_chain_fft
 (conv.CHAIN_PHASES, summed over a persistent block's units).  For each shape it
 runs the stamped form of each kernel (lanepack.lanepack_phase_stamps,
-fused.radix_phase_stamps, fused.two_stage_cluster_phase_stamps (either
-band),
+fused.radix_phase_stamps, fused.two_stage_phase_stamps,
+fused.two_stage_cluster_phase_stamps,
 largepad.largepad_col_phase_stamps and largepad_row_phase_stamps,
 large.large_col_phase_stamps and large_row_phase_stamps, which no
 route launches: thread 0 of every block reads %globaltimer after a block
-barrier at the kernel's start and at the end of each phase: K7's
-fused.PHASES (the wait for a share's copies, DFT_p, the exchange, the
-issue of the next share's copies, DFT_q and the store), summed over a block's transforms; the load,
+barrier at the kernel's start and at the end of each phase: the load,
+DFT_p, DFT_q and the store of K7's one-block kernel
+(fused.ONE_BLOCK_PHASES); the load, DFT_p, the exchange, DFT_q and the
+store of its cluster kernel (fused.PHASES); the load,
 the chain and the store of K12's and of K1's chain kernel; the time K1's
 pipelined kernel spends waiting for its loads, in stages 0-1 and in stage
 2 with the store, summed over a block's transforms; K9's fused.RADIX_PHASES,
@@ -69,8 +70,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SHAPES = ((4096, 16384), (8192, 8192), (2008, 32768), (251, 131072), (32768, 2048),
-          (262144, 256), (24576, 2048), (49152, 2048), (260608, 256), (531441, 64),
-          (234617, 256),
+          (262144, 256), (24576, 2048), (49152, 2048), (260608, 256), (531441, 64), (234617, 256),
           (1 << 20, 64), (1000003, 64))
 
 
@@ -364,13 +364,53 @@ def bluestein_large_phases(n: int, m: int, batch: int, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def two_stage_phases(n: int, batch: int, gen) -> None:
+    """K7's stamped form at n: the one-block kernel where two_stage_fft
+    runs n (not 16384), else the cluster kernel on choose_cluster(n)
+    blocks, each with its path's outer twiddle."""
+    import numpy as np
+    import torch
+    from rustfft_tpu_torch.common import FftDirection
+    from rustfft_tpu_torch.ops.kernels import fused, large
+
+    dev = torch.device("cuda")
+    p, q = fused.choose_pq(n)
+    host = fused.two_stage_tables(p, large.stage_radices(q), FftDirection.FORWARD)
+    tabs = tuple([torch.from_numpy(a).to(dev) for a in t] if isinstance(t, list)
+                 else torch.from_numpy(t).to(dev) for t in host)
+    opq = fused.outer_transposed(p, host[2])
+    opq = None if opq is None else torch.from_numpy(opq).to(dev)
+    x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
+    what = (f"n={n} ({p} x {q}, {large.stage_radices(p)} x {large.stage_radices(q)}, "
+            f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}) batch={batch}, "
+            f"outer twiddle {'(p, q)' if opq is not None else '(q, p)'}")
+    if fused.two_stage_supported(n, np.complex64):
+        if (p, q) == (fused.RADIX_PQ, fused.RADIX_PQ):
+            raise SystemExit(f"n={n} runs K9's body at R = 1, which has no stamped form here")
+        stamped = lambda: fused.two_stage_phase_stamps(x, p, q, tabs, opq)  # noqa: E731
+        plain = lambda: fused.two_stage_fft(x, p, q, tabs, opq)  # noqa: E731
+        what, phases = what + " on one block a transform", fused.ONE_BLOCK_PHASES
+    else:
+        c = fused.choose_cluster(n)
+        stamped = lambda: fused.two_stage_cluster_phase_stamps(x, p, q, c, tabs, opq)  # noqa: E731
+        plain = lambda: fused.two_stage_cluster_fft(x, p, q, c, tabs, opq)  # noqa: E731
+        what, phases = what + f" on clusters of {c}", fused.PHASES
+    stamped()  # warm-up
+    y, stamps = stamped()
+    torch.cuda.synchronize()
+    if not torch.equal(y, plain()):
+        raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
+    report(what, stamps, phases, median_ms(stamped), median_ms(plain))
+    del x, y, stamps
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import numpy as np
     import torch
 
     from rustfft_tpu_torch import FftPlanner, recipes, route
-    from rustfft_tpu_torch.common import FftDirection
-    from rustfft_tpu_torch.ops.kernels import conv, convlarge, fused, large
+    from rustfft_tpu_torch.ops.kernels import conv, convlarge
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_phase_times: needs an NVIDIA GPU")
@@ -380,6 +420,9 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for n, batch in shapes:
+        if route(n, np.complex64) == "two_stage":
+            two_stage_phases(n, batch, gen)
+            continue
         recipe = FftPlanner(np.complex64, device="cpu").plan_fft_forward(n).recipe
         if (isinstance(recipe, (recipes.Raders, recipes.Bluesteins))
                 and conv.conv_supported(recipe.inner.length, np.complex64)):
@@ -404,25 +447,7 @@ def main() -> None:
         if route(n, np.complex64) == "large2f":
             large2f_phases(n, batch, gen)
             continue
-        p, q = fused.choose_pq(n)
-        c = fused.choose_cluster(n)
-        host = fused.two_stage_tables(p, large.stage_radices(q), FftDirection.FORWARD)
-        tabs = tuple([torch.from_numpy(a).to(dev) for a in t] if isinstance(t, list)
-                     else torch.from_numpy(t).to(dev) for t in host)
-        x = torch.randn((batch, n), dtype=torch.complex64, generator=gen, device=dev)
-        fused.two_stage_cluster_phase_stamps(x, p, q, c, tabs)  # warm-up
-        y, stamps = fused.two_stage_cluster_phase_stamps(x, p, q, c, tabs)
-        torch.cuda.synchronize()
-        if not torch.equal(y, fused.two_stage_cluster_fft(x, p, q, c, tabs)):
-            raise SystemExit(f"n={n}: the stamped kernel differs from the kernel")
-        report(f"n={n} ({p} x {q}, {large.stage_radices(p)} x {large.stage_radices(q)}, "
-               f"Bluestein lengths {fused.bluestein_ms(large.stage_radices(p))}) batch={batch} "
-               f"on {stamps.shape[0] // c} clusters of {c}, overlap "
-               f"{fused.walk_overlap(p, q, c)}", stamps, fused.PHASES,
-               median_ms(lambda: fused.two_stage_cluster_phase_stamps(x, p, q, c, tabs)),
-               median_ms(lambda: fused.two_stage_cluster_fft(x, p, q, c, tabs)))
-        del x, y, stamps
-        torch.cuda.empty_cache()
+        raise SystemExit(f"n={n}: no stamped kernel for its route {route(n, np.complex64)}")
 
 
 if __name__ == "__main__":

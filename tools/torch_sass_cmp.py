@@ -19,8 +19,8 @@ the same instructions, so a difference in their times is not the code's.
 With --per-kernel the listings are split by function (cuobjdump's
 "Function :" headers) and compared function by function, so that the
 kernels of a source that did not change show 0 while another kernel of
-the same source changed (for example fused.cu's two_stage_walk_kernel
-while its radix_kernel changes): one line per
+the same source changed (for example fused.cu's two_stage_kernel and
+two_stage_cluster_kernel while its radix_kernel changes): one line per
 kernel, demangled, with its SASS lines on each side and how many differ.
 A kernel whose name changed (a template argument added, as K12's kernels
 gained their source and sink policies) is paired with the kernel of the
