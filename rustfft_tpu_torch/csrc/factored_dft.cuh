@@ -7,9 +7,10 @@
 // 96 FP32 operations a point; the factored 4 x 3 takes about 14) or, for
 // 10, 14, 15 and 20, the in-place chain's roots-table stage does (8R a
 // point).  Only K7's two kernels (csrc/fused.cu two_stage_kernel and
-// two_stage_cluster_kernel, through chain_inplace<MaxM, true>) run these
-// forms; the other in-place chains (K1's chain kernel, K5's chain form,
-// K12's kernels) and the tile kernels keep their code.
+// two_stage_cluster_kernel) run these forms, in their forms without a
+// Bluestein stage (chain_inplace<0, true>); the other in-place chains (K1's
+// chain kernel, K5's chain form, K12's kernels) and the tile kernels keep
+// their code.
 #pragma once
 
 #include "fft_tile.cuh"

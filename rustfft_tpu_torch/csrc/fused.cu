@@ -54,18 +54,19 @@
 // two_stage_fft and two_stage_cluster_fft (K7: fused.py _fused_kernel,
 // _fused_kernel_gauss, _fused_kernel_twodot), n = p * q: DFT_p over j1
 // for every j2, the outer twiddle w_n^(k1*j2), DFT_q over j2 for every k1,
-// the output at k = k2*p + k1.  Both kernels run K7's chains
-// (chain_inplace<MaxM, true>): register radices load one column into
-// registers, in K7's factored forms (csrc/factored_dft.cuh: 3, 5 and 7 as
-// butterflies on conjugate pairs; 6, 9, 10, 12, 14, 15 and 20 as one
-// Cooley-Tukey step over those and 2 and 4); a prime radix from 29 up runs
-// a Bluestein stage, one warp per column in registers
-// (stage_bluestein_inplace); the primes 11 to 23 a direct sum
-// (stage_table_inplace, 8r operations a point).  The outer twiddle is read
-// from a (q, p) table, or from its transpose (p, q) where the caller gives
-// one and DFT_p's last stage is not a Bluestein stage: that stage runs
-// neighbouring columns j2 on neighbouring threads, which then read
-// neighbouring entries (OuterFoldS).
+// the output at k = k2*p + k1.  Register radices load one column into
+// registers; a prime radix from 29 up runs a Bluestein stage, one warp per
+// column in registers (stage_bluestein_inplace); the primes 11 to 23 a
+// direct sum (stage_table_inplace, 8r operations a point).  Each kernel has
+// two forms: MaxM = 0 for chains without a Bluestein stage, which run K7's
+// chains (chain_inplace<0, true>: the register radices in K7's factored
+// forms, csrc/factored_dft.cuh, 3, 5 and 7 as butterflies on conjugate
+// pairs, 6, 9, 10, 12, 14, 15 and 20 as one Cooley-Tukey step over those
+// and 2 and 4; the outer twiddle from its transpose (p, q) where the caller
+// gives one, whose neighbouring entries neighbouring threads read,
+// OuterFoldS); and the Bluestein form, whose chains are the in-place
+// chain's own, the (q, p) table folded as before (the factored forms there
+// measured 2-7% slower at 28544 and 260608, PERF.md, PR 28).
 //
 // two_stage_fft (the one-block band, 14464 .. 28800 but 16384, which runs
 // the radix body at R = 1): one block a transform, the whole transform in
@@ -180,9 +181,10 @@ __global__ void __launch_bounds__(kBlockThreads)
   // DFT_p over j1 for every j2 (the rows j1 of q interleaved transforms),
   // its last stage times the outer twiddle; then DFT_q over j2 for every
   // k1 (p contiguous rows of q)
-  chain_inplace<MaxM, true>(buf, p, 1, q, sp, tabs_p, outer, outer_t ? 1 : p, outer_t ? q : 1);
+  chain_inplace<MaxM, MaxM == 0>(buf, p, 1, q, sp, tabs_p, outer, outer_t ? 1 : p,
+                                 outer_t ? q : 1);
   stamp<kStamp>(stamps, kBlockStamps, 2);
-  chain_inplace<MaxM, true>(buf, q, p, 1, sq, tabs_q, nullptr, 0);
+  chain_inplace<MaxM, MaxM == 0>(buf, q, p, 1, sq, tabs_q, nullptr, 0);
   stamp<kStamp>(stamps, kBlockStamps, 3);
   // k = k2*p + k1 from row prow[k1], column qcol[k2], two k a thread;
   // (k1, k2) advance without a division
@@ -315,7 +317,7 @@ __global__ void __launch_bounds__(kClusterThreads)
   //    columns of the (p, q) one) folded into its last stage: row k1 then
   //    sits at prow[k1]
   const int sj = outer_t ? 1 : p, sk = outer_t ? q : 1;
-  chain_inplace<MaxM, true>(buf, p, 1, qs, sp, tabs_p, outer + (size_t)b * qs * sj, sj, sk);
+  chain_inplace<MaxM, MaxM == 0>(buf, p, 1, qs, sp, tabs_p, outer + (size_t)b * qs * sj, sj, sk);
   stamp<kStamp>(stamps, kClusterStamps, 2);
 
   // 3. the exchange: every block's DFT_p is done (barrier), this block pulls
@@ -347,7 +349,7 @@ __global__ void __launch_bounds__(kClusterThreads)
   stamp<kStamp>(stamps, kClusterStamps, 3);
 
   // 4. DFT_q over j2 for each of the share's rows
-  chain_inplace<MaxM, true>(buf, q, rb, 1, sq, tabs_q, nullptr, 0);
+  chain_inplace<MaxM, MaxM == 0>(buf, q, rb, 1, sq, tabs_q, nullptr, 0);
   stamp<kStamp>(stamps, kClusterStamps, 4);
 
   // 5. the store at k = k2*p + lo + i, rb values per k2 in a row; two a
@@ -444,10 +446,10 @@ static bool cluster_size_ok(int c) { return c == 2 || c == 4 || c == 8 || c == 1
 
 static bool aligned16(const void* a) { return reinterpret_cast<uintptr_t>(a) % 16 == 0; }
 
-// The outer twiddle's layout fits DFT_p's chain sp: a Bluestein stage at
-// its end folds the (q, p) table only (bluestein_fold).
-static bool outer_layout_ok(const Stages& sp, int outer_t) {
-  return !outer_t || sp.bm[sp.k - 1] == 0;
+// The outer twiddle's layout fits the kernel's form: the (p, q) table only
+// in the form without a Bluestein stage (K7's factored chains).
+static bool outer_layout_ok(const Stages& sp, const Stages& sq, int outer_t) {
+  return !outer_t || !(has_bluestein(sp) || has_bluestein(sq));
 }
 
 // rf_two_stage_cluster_fft's checks and launch: the kernel's form without a
@@ -462,7 +464,7 @@ static int cluster_fft(const void* x, void* y, long long batch, int p, int q, in
       !aligned16(x) || !aligned16(y))
     return cudaErrorInvalidValue;
   if (!stages_ok(sp, p) || !stages_ok(sq, q) || !chain_ok(sp, kClusterMaxM) ||
-      !chain_ok(sq, kClusterMaxM) || !outer_layout_ok(sp, outer_t))
+      !chain_ok(sq, kClusterMaxM) || !outer_layout_ok(sp, sq, outer_t))
     return cudaErrorInvalidValue;
   const auto* tx = static_cast<const float2*>(x);
   auto* ty = static_cast<float2*>(y);
@@ -589,7 +591,7 @@ static bool one_block_chains(const Stages& sp, const Stages& sq, long long batch
                              const void* outer, int outer_t) {
   return batch > 0 && batch <= 0x7fffffffLL && p > 0 && q > 0 && outer != nullptr &&
          stages_ok(sp, p) && stages_ok(sq, q) && chain_ok(sp, kBlockMaxM) &&
-         chain_ok(sq, kBlockMaxM) && outer_layout_ok(sp, outer_t);
+         chain_ok(sq, kBlockMaxM) && outer_layout_ok(sp, sq, outer_t);
 }
 
 }  // namespace rf

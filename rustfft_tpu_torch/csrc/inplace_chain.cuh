@@ -14,10 +14,11 @@
 // in-place Bluestein stage, one warp a column (stage_bluestein_inplace);
 // the rest (10, 11, 13-15, 17-23, 33-35) a direct sum from a roots table
 // (stage_table_inplace).  The outer twiddle of a two-pass split can be
-// folded into the last stage (OuterFold).  K7's chains (kFact) run the
-// radices 3, 5, 6, 7, 9, 10, 12, 14, 15 and 20 in the factored register
-// forms of csrc/factored_dft.cuh instead, 10, 14, 15 and 20 as register
-// stages too; every other chain keeps the forms above.
+// folded into the last stage (OuterFold).  K7's chains without a
+// Bluestein stage (kFact) run the radices 3, 5, 6, 7, 9, 10, 12, 14, 15
+// and 20 in the factored register forms of csrc/factored_dft.cuh instead,
+// 10, 14, 15 and 20 as register stages too; every other chain keeps the
+// forms above.
 #pragma once
 
 #include <type_traits>
@@ -41,13 +42,13 @@ struct OuterFold {
   }
 };
 
-// K7's fold (chain_inplace<MaxM, true>): the same twiddle from a table in
+// K7's fold (chain_inplace<0, true>): the same twiddle from a table in
 // either layout, w_n^(k1*j2) at outer[j2*sj + k1*sk]: (q, p) at (p, 1), or
 // its transpose (p, q) at (1, q), whose reads are coalesced where a stage
 // runs neighbouring columns j2 on neighbouring threads (the register and
-// direct stages; a Bluestein stage runs a column a warp, neighbouring k1 on
-// neighbouring lanes, takes the (q, p) table only and runs OuterFold,
-// bluestein_fold below).
+// direct stages, the only ones of K7's factored chains; a Bluestein stage
+// runs a column a warp, neighbouring k1 on neighbouring lanes, and
+// OuterFold on the (q, p) table).
 struct OuterFoldS {
   const float2* __restrict__ outer;
   int sj, sk;
@@ -366,18 +367,10 @@ static __device__ __forceinline__ void bluestein_half(float2 (&y)[V / 2], const 
 // the last layer of the second FFT_M joins them in the store.  So a lane
 // holds V/2 values, not V (16 at M = 1024), and reads each table entry
 // where it uses it (opaque) rather than keeping it live across the halves.
-// The fold of a Bluestein stage: the (q, p) table only (a column a warp,
-// neighbouring k1 on neighbouring lanes), so K7's fold gives its table and
-// stride as OuterFold where the stage uses them.
-static __device__ __forceinline__ OuterFold bluestein_fold(const OuterFold& f) { return f; }
-static __device__ __forceinline__ OuterFold bluestein_fold(const OuterFoldS& f) {
-  return OuterFold{f.outer, f.sj, f.r1, f.r0};
-}
-
-template <int M, class Fold = OuterFold>
+template <int M>
 static __device__ void stage_bluestein_inplace(float2* buf, int r, int lead, int rest, int T,
                                                const float2* tab, const float2* __restrict__ tw,
-                                               const Fold& fold) {
+                                               const OuterFold& fold) {
   constexpr int V = M / 32, H = V / 2;
   const int lane = (int)threadIdx.x & 31;
   const int step = rest * T;
@@ -420,7 +413,7 @@ static __device__ void stage_bluestein_inplace(float2* buf, int r, int lead, int
     const int base = opaque_after(l * r * step + rt, y[H - 1]);
     const float2* chirp = opaque_after(tab, y[H - 1]);
     const float2* tws = opaque_after(tw, y[H - 1]);
-    OuterFold out = bluestein_fold(fold);
+    OuterFold out = fold;
     out.outer = opaque_after(fold.outer, y[H - 1]);
     const int jr = rt / T;
 #pragma unroll
@@ -451,27 +444,29 @@ static __host__ __device__ __forceinline__ bool bluestein_ok(int r, int m, int m
 
 // One stage of the chain by its kind; a kernel of Bluestein cap MaxM
 // compiles the Bluestein stages up to MaxM points only.  kFact: K7's
-// factored register forms, 10, 14, 15 and 20 among the register stages.
+// factored register forms, 10, 14, 15 and 20 among the register stages,
+// in chains without a Bluestein stage only (MaxM = 0).
 template <int MaxM, bool kFact = false, class Fold = OuterFold>
 static __device__ void run_stage_inplace(float2* buf, int r, int bm, int lead, int rest, int T,
                                          const float2* roots, const float2* tw,
                                          const Fold& fold) {
+  static_assert(!kFact || MaxM == 0, "K7's factored chains have no Bluestein stage");
   if constexpr (MaxM > 0) {
     switch (bm) {
       case 0: break;
-      case 64: stage_bluestein_inplace<64, Fold>(buf, r, lead, rest, T, roots, tw, fold); return;
-      case 128: stage_bluestein_inplace<128, Fold>(buf, r, lead, rest, T, roots, tw, fold); return;
+      case 64: stage_bluestein_inplace<64>(buf, r, lead, rest, T, roots, tw, fold); return;
+      case 128: stage_bluestein_inplace<128>(buf, r, lead, rest, T, roots, tw, fold); return;
       case 256:
         if constexpr (MaxM >= 256)
-          stage_bluestein_inplace<256, Fold>(buf, r, lead, rest, T, roots, tw, fold);
+          stage_bluestein_inplace<256>(buf, r, lead, rest, T, roots, tw, fold);
         return;
       case 512:
         if constexpr (MaxM >= 512)
-          stage_bluestein_inplace<512, Fold>(buf, r, lead, rest, T, roots, tw, fold);
+          stage_bluestein_inplace<512>(buf, r, lead, rest, T, roots, tw, fold);
         return;
       default:
         if constexpr (MaxM >= 1024)
-          stage_bluestein_inplace<1024, Fold>(buf, r, lead, rest, T, roots, tw, fold);
+          stage_bluestein_inplace<1024>(buf, r, lead, rest, T, roots, tw, fold);
         return;
     }
   }
@@ -543,9 +538,9 @@ static bool chain_ok(const Stages& st, int max_m) {
 // into its last stage, w_n^(k1*j2) at outer[j2*p + k1]; every thread has
 // passed a barrier after it.  The direct stages' roots from
 // load_chain_tables at `stables`; no Bluestein length is above MaxM (none
-// at MaxM = 0).  kFact: K7's chains, its factored radices and its fold
-// (OuterFoldS: the twiddle at outer[j2*p + k1*sk]; p = 1, sk = q reads the
-// (p, q) transpose).
+// at MaxM = 0).  kFact: K7's chains without a Bluestein stage (MaxM = 0),
+// its factored radices and its fold (OuterFoldS: the twiddle at
+// outer[j2*p + k1*sk]; p = 1, sk = q reads the (p, q) transpose).
 template <int MaxM, bool kFact = false>
 static __device__ void chain_inplace(float2* buf, int m, int lead, int T, const Stages& st,
                                      const float2* stables, const float2* outer, int p,

@@ -32,10 +32,11 @@ signal in device memory:
       per transform.  Block b runs DFT_p on the columns j2 of its share,
       pulls the rows k1 of its share from every block through distributed
       shared memory, and runs DFT_q on them; 16-byte loads and stores.
-      Both K7 kernels' chains run the radices 3, 5, 6, 7, 9, 10, 12, 14, 15
-      and 20 in factored register forms (FACTORED_RADICES; k7_chain_plain
-      mirrors them) and read the outer twiddle transposed where the caller
-      gives outer_transposed's table.
+      Both K7 kernels, in their forms without a Bluestein stage
+      (k7_factored), run the radices 3, 5, 6, 7, 9, 10, 12, 14, 15 and 20
+      in factored register forms (FACTORED_RADICES; k7_chain_plain mirrors
+      them) and read the outer twiddle transposed where the caller gives
+      outer_transposed's table.
   `three_stage_fft` (K8: `_fused_kernel_3s`): n = p * q1 * q2, DFT_p, the
       outer twiddle, then DFT_q as DFT_q1, the inner twiddle w_q^(ka*jb)
       and DFT_q2.  That is the two-stage function at (p, q): the card runs
@@ -554,7 +555,8 @@ def _factored_dft_plain(u: torch.Tensor, r: int, roots: torch.Tensor) -> torch.T
 
 
 def k7_chain_plain(x: torch.Tensor, radices: Sequence[int], roots, tws) -> torch.Tensor:
-    """chain_stages_plain in K7's forms: a radix of FACTORED_SPLITS runs its
+    """chain_stages_plain in K7's factored forms (the kernels' forms without
+    a Bluestein stage, k7_factored): a radix of FACTORED_SPLITS runs its
     Cooley-Tukey step (_factored_dft_plain), every other stage as
     chain_stages_plain runs it (3, 5 and 7 as the DFT, which their
     butterflies compute to rounding)."""
@@ -578,11 +580,20 @@ def k7_chain_plain(x: torch.Tensor, radices: Sequence[int], roots, tws) -> torch
     return v.reshape(shape)
 
 
+def k7_factored(p_radices: Sequence[int], q_radices: Sequence[int]) -> bool:
+    """Whether K7's kernels run these chains in their form without a
+    Bluestein stage, the one with K7's factored radices and the transposed
+    outer twiddle (csrc/fused.cu); the Bluestein forms keep the in-place
+    chain's own radices."""
+    return not any(bluestein_stage_m(r) for r in (*p_radices, *q_radices))
+
+
 def _two_stage_plain(x, p, p_radices, q_radices, tables):
     roots_p, tws_p, outer, roots_q, tws_q = tables
     q = math.prod(q_radices)
-    a = k7_chain_plain(x.reshape(-1, p, q).transpose(1, 2), p_radices, roots_p, tws_p)
-    d = k7_chain_plain((a * outer).transpose(1, 2), q_radices, roots_q, tws_q)  # [k1, k2]
+    chain = k7_chain_plain if k7_factored(p_radices, q_radices) else chain_stages_plain
+    a = chain(x.reshape(-1, p, q).transpose(1, 2), p_radices, roots_p, tws_p)
+    d = chain((a * outer).transpose(1, 2), q_radices, roots_q, tws_q)  # [k1, k2]
     return d.transpose(1, 2).reshape(-1, p * q)
 
 
@@ -603,22 +614,23 @@ def _check_two_stage(x, p, p_radices, q_radices, tables, what):
 
 def outer_transposed(p: int, outer: np.ndarray) -> Optional[np.ndarray]:
     """The (p, q) copy of two_stage_tables' outer twiddle (q, p) that K7's
-    kernels read in its place where DFT_p's last stage is a register or
-    direct stage, whose neighbouring threads run neighbouring columns j2
-    and so read neighbouring entries of it (csrc/inplace_chain.cuh
-    OuterFoldS); None where that stage is a Bluestein stage (a column a
-    warp, neighbouring k1 on neighbouring lanes), which reads the (q, p)
-    table.  make_fused_two_stage_fn makes it once with the plan's tables
-    and passes it to the wrappers as outer_pq."""
-    if bluestein_stage_m(large.stage_radices(p)[-1]):
+    kernels read in its place in their form without a Bluestein stage
+    (k7_factored), whose last stage of DFT_p runs neighbouring columns j2
+    on neighbouring threads, which so read neighbouring entries of it
+    (csrc/inplace_chain.cuh OuterFoldS); None where DFT_p's chain has a
+    Bluestein stage (the Bluestein form reads the (q, p) table; K7's DFT_q
+    chains never have one).  make_fused_two_stage_fn makes it once with the
+    plan's tables and passes it to the wrappers as outer_pq."""
+    if not k7_factored(large.stage_radices(p), ()):
         return None
     return np.ascontiguousarray(outer.T)
 
 
 def _outer_arg(p, q, outer, outer_pq, x, what):
     """(table, transposed) that a K7 launch reads: outer_pq where it is
-    given and DFT_p's last stage takes it, else the (q, p) table."""
-    if outer_pq is None or bluestein_stage_m(large.stage_radices(p)[-1]):
+    given and the kernel's form takes it (k7_factored), else the (q, p)
+    table."""
+    if outer_pq is None or not k7_factored(large.stage_radices(p), large.stage_radices(q)):
         return outer, 0
     if tuple(outer_pq.shape) != (p, q) or outer_pq.device != x.device:
         raise ValueError(f"{what}: outer_pq {tuple(outer_pq.shape)} on {outer_pq.device}; "
@@ -724,15 +736,17 @@ def two_stage_cluster_fft_plain(x: torch.Tensor, p: int, q: int, c: int, tables)
     cluster computes it: block b's columns j2 in [b*q/c, (b+1)*q/c) through
     DFT_p and the outer twiddle; the exchange (block b takes the rows
     row_shares(p, c)[b] of every block's columns); DFT_q on those rows; the
-    store at k2*p + k1.  Each chain as K7 runs it (k7_chain_plain)."""
+    store at k2*p + k1.  Each chain as K7 runs it (k7_chain_plain where
+    k7_factored)."""
     roots_p, tws_p, outer, roots_q, tws_q = tables
     qs = q // c
     v = x.reshape(-1, p, q)
-    cols = [k7_chain_plain(v[:, :, b * qs:(b + 1) * qs].transpose(1, 2),
-                           large.stage_radices(p), roots_p, tws_p) * outer[b * qs:(b + 1) * qs]
-            for b in range(c)]  # c of (B, q/c, p) [j2, k1]
-    rows = [k7_chain_plain(torch.cat([a[:, :, lo:hi] for a in cols], dim=1).transpose(1, 2),
-                           large.stage_radices(q), roots_q, tws_q)
+    p_radices, q_radices = large.stage_radices(p), large.stage_radices(q)
+    chain = k7_chain_plain if k7_factored(p_radices, q_radices) else chain_stages_plain
+    cols = [chain(v[:, :, b * qs:(b + 1) * qs].transpose(1, 2), p_radices, roots_p, tws_p)
+            * outer[b * qs:(b + 1) * qs] for b in range(c)]  # c of (B, q/c, p) [j2, k1]
+    rows = [chain(torch.cat([a[:, :, lo:hi] for a in cols], dim=1).transpose(1, 2), q_radices,
+                  roots_q, tws_q)
             for lo, hi in row_shares(p, c)]  # c of (B, hi - lo, q) [k1, k2]
     return torch.cat(rows, dim=1).transpose(1, 2).reshape(-1, p * q)
 

@@ -240,6 +240,23 @@ def test_plain_chain_runs_the_factored_step(monkeypatch):
     assert calls == [((q, 16, 12, 1), 12)]  # DFT_p's (16, 12): the second stage
 
 
+@pytest.mark.parametrize("n", [261632, 40832, 28928])
+def test_bluestein_forms_keep_the_chains_own_radices(n, monkeypatch):
+    """A chain with a Bluestein stage runs in the kernels' Bluestein form,
+    whose register radices are the in-place chain's own (261632 = (73, 7)
+    x (8, 8, 8): the 7 a direct sum in registers, not the butterfly), so
+    the plain version never takes the factored step there; the outer
+    twiddle stays (q, p)."""
+    p, q = fused.choose_pq(n)
+    assert not fused.k7_factored(large.stage_radices(p), large.stage_radices(q))
+    monkeypatch.setattr(fused, "k7_chain_plain", lambda *a: pytest.fail("factored chain"))
+    x = torch.from_numpy(_signal(1, n, 3))
+    tabs = _tables(p, q, FftDirection.FORWARD)
+    got = fused.two_stage_cluster_fft_plain(x, p, q, fused.choose_cluster(n), tabs)
+    assert _rel(got, host_dft(x.numpy(), FftDirection.FORWARD)) <= TOL
+    assert fused.outer_transposed(p, tabs[2].numpy()) is None
+
+
 # -- choose_cluster's rule and shared memory ------------------------------------------
 
 def test_band_sizes():
@@ -409,13 +426,14 @@ def test_kernel_index_mirror_against_oracle(n, d):
 
 # -- the wrappers -----------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,transposed", [(24576, True), (49152, True), (28928, True),
-                                          (14464, False), (260608, False), (261632, True)])
+@pytest.mark.parametrize("n,transposed", [(24576, True), (49152, True), (98304, True),
+                                          (245760, True), (32000, True), (28928, False),
+                                          (14464, False), (260608, False), (261632, False)])
 def test_outer_transposed(n, transposed):
-    """The (p, q) copy where DFT_p's last stage runs neighbouring columns on
-    neighbouring threads, none where it is a Bluestein stage (a column a
-    warp); the path's plan carries it as a sixth table and the wrappers
-    refuse one of another shape."""
+    """The (p, q) copy for the kernels' form without a Bluestein stage,
+    none where DFT_p's chain has one (28928 = (113, 2), 261632 = (73, 7));
+    the path's plan carries it as a sixth table and the wrappers refuse one
+    of another shape."""
     p, q = fused.choose_pq(n)
     host = fused.two_stage_tables(p, large.stage_radices(q), FftDirection.FORWARD)
     table = fused.outer_transposed(p, host[2])
@@ -461,9 +479,9 @@ def cuda_device():
                                261632, 260608])
 def test_kernels_on_card(cuda_device, n):
     """Every factored radix (12, 9 and 7 on the one-block band, 10, 15, 14
-    and 20, 6 and 5, 7 beside a Bluestein 73) and the Bluestein forms
-    within 1e-6 of the plain version, at batch 1, 3 and 33, with the outer
-    twiddle in both layouts where the path transposes it."""
+    and 20, 6 and 5) and the Bluestein forms (14464, 261632 = (73, 7),
+    260608) within 1e-6 of the plain version, at batch 1, 3 and 33, with
+    the outer twiddle in both layouts where the path transposes it."""
     p, q = fused.choose_pq(n)
     c = fused.choose_cluster(n)
     one = fused.two_stage_supported(n, np.complex64)
