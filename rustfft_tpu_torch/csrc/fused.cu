@@ -79,8 +79,9 @@
 // 2, 4, 8 or 16 blocks computes it, in one read and one write of device
 // memory:
 //   1. block b loads the columns j2 = b*q/c .. (b+1)*q/c - 1 of every row j1
-//      (segments of 8q/c bytes, 16 bytes a thread) and runs DFT_p on them in
-//      place, the outer twiddle folded into the last stage;
+//      (segments of 8q/c bytes, 16 bytes a thread in the form without a
+//      Bluestein stage) and runs DFT_p on them in place, the outer twiddle
+//      folded into the last stage;
 //   2. cluster barrier; block b pulls its rows k1 = b*p/c .. (b+1)*p/c - 1
 //      (balanced shares, ragged where c does not divide p) of every peer's
 //      columns through distributed shared memory into registers, 32 values
@@ -90,8 +91,8 @@
 //      the share cap of 16384 values and with it c (ops/kernels/fused.py
 //      choose_cluster);
 //   3. DFT_q over j2 on each of its rows in place, then the store at
-//      k = k2*p + k1, rows of p/c values a k2, 16 bytes a thread where p
-//      and the share's first row and width are even.
+//      k = k2*p + k1, rows of p/c values a k2 (16 bytes a thread in that
+//      form where p and the share's first row and width are even).
 // A persistent walk of the batch with the next transform's share copied in
 // during DFT_q and the store (a share and the row share in one buffer) was
 // measured on the card and dropped: it ran 13-20% slower at 28928 and
@@ -259,11 +260,16 @@ struct Walk {
 };
 
 // One cluster of c blocks a transform (the design at the top of this file).
+// The form without a Bluestein stage (kFact) runs K7's factored chains and
+// moves two values a thread in its loads and stores; the Bluestein form
+// keeps the in-place chain's own radices and one value a thread, which
+// measured faster there (PERF.md, PR 28).
 template <int MaxM, bool kStamp>
 __global__ void __launch_bounds__(kClusterThreads)
     two_stage_cluster_kernel(const float2* __restrict__ x, float2* __restrict__ y, int p, int q,
                              int c, Stages sp, Stages sq, const float2* __restrict__ outer,
                              int outer_t, unsigned long long* stamps) {
+  constexpr bool kFact = MaxM == 0;
   extern __shared__ float2 smem[];
   stamp<kStamp>(stamps, kClusterStamps, 0);
   const int b = (int)cg::this_cluster().block_rank();
@@ -287,10 +293,11 @@ __global__ void __launch_bounds__(kClusterThreads)
   const size_t base = (size_t)(blockIdx.x / c) * (size_t)p * (size_t)q;
 
   // 1. the share's columns j2 = b*qs + t of every row j1, (j1, t) at j1*qs
-  //    + t, two a thread (qs, q and b*qs are even, x 16-byte aligned)
+  //    + t; two a thread in the form without a Bluestein stage (qs, q and
+  //    b*qs are even, x 16-byte aligned)
   const int ncol = p * qs;
-  {
-    const float2* src = x + base + (size_t)b * qs;
+  const float2* src = x + base + (size_t)b * qs;
+  if constexpr (kFact) {
     const int hs = qs / 2, npair = ncol / 2;
     Walk w(tid, hs);
     for (int g0 = tid; g0 < npair; g0 += kClusterIo * kClusterThreads) {
@@ -308,6 +315,19 @@ __global__ void __launch_bounds__(kClusterThreads)
         }
       }
     }
+  } else {
+    Walk w(tid, qs);
+    for (int f0 = tid; f0 < ncol; f0 += kClusterIo * kClusterThreads) {
+      float2 v[kClusterIo];
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u, w.next())
+        if (f0 + u * kClusterThreads < ncol) v[u] = src[(size_t)w.row * q + w.col];
+#pragma unroll
+      for (int u = 0; u < kClusterIo; ++u) {
+        const int f = f0 + u * kClusterThreads;
+        if (f < ncol) buf[swz(f)] = v[u];
+      }
+    }
   }
   __syncthreads();
   stamp<kStamp>(stamps, kClusterStamps, 1);
@@ -316,8 +336,8 @@ __global__ void __launch_bounds__(kClusterThreads)
   //    w_n^(k1*j2) (the share's rows b*qs .. of the (q, p) table, or its
   //    columns of the (p, q) one) folded into its last stage: row k1 then
   //    sits at prow[k1]
-  const int sj = outer_t ? 1 : p, sk = outer_t ? q : 1;
-  chain_inplace<MaxM, MaxM == 0>(buf, p, 1, qs, sp, tabs_p, outer + (size_t)b * qs * sj, sj, sk);
+  const int sj = kFact && outer_t ? 1 : p, sk = kFact && outer_t ? q : 1;
+  chain_inplace<MaxM, kFact>(buf, p, 1, qs, sp, tabs_p, outer + (size_t)b * qs * sj, sj, sk);
   stamp<kStamp>(stamps, kClusterStamps, 2);
 
   // 3. the exchange: every block's DFT_p is done (barrier), this block pulls
@@ -349,14 +369,14 @@ __global__ void __launch_bounds__(kClusterThreads)
   stamp<kStamp>(stamps, kClusterStamps, 3);
 
   // 4. DFT_q over j2 for each of the share's rows
-  chain_inplace<MaxM, MaxM == 0>(buf, q, rb, 1, sq, tabs_q, nullptr, 0);
+  chain_inplace<MaxM, kFact>(buf, q, rb, 1, sq, tabs_q, nullptr, 0);
   stamp<kStamp>(stamps, kClusterStamps, 4);
 
   // 5. the store at k = k2*p + lo + i, rb values per k2 in a row; two a
-  //    thread (16 bytes) where every row of the share starts even and is
-  //    of even width
+  //    thread (16 bytes) in the form without a Bluestein stage where every
+  //    row of the share starts even and is of even width
   float2* dst = y + base + lo;
-  if (p % 2 == 0 && lo % 2 == 0 && rb % 2 == 0) {
+  if (kFact && p % 2 == 0 && lo % 2 == 0 && rb % 2 == 0) {
     const int hb = rb / 2, npair = hb * q;
     Walk w(tid, hb);
     for (int g0 = tid; g0 < npair; g0 += kClusterIo * kClusterThreads) {
